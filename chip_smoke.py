@@ -12,21 +12,30 @@ Phases (any failure exits non-zero):
    into build/torch_kernels/ and loads the library.
 3. kernels: holds each hand-written kernel against its plain PyTorch
    version on the card, at the shapes the Llama-3-8B serving path gives
-   it, in bf16 and f32; times kernel, plain version and one PyTorch
-   library call (CUDA events, median of 25, L2 flushed before each), and
-   computes each kernel's bound from the bytes and operations of this
-   run's inputs.
+   it, in bf16 and f32 (and int8 arenas for the two paged attentions);
+   times kernel, plain version and one PyTorch library call (CUDA events,
+   median of 25, L2 flushed before each), and computes each kernel's
+   bound from the bytes and operations of this run's inputs.  The paged
+   kernels are also run on arenas poisoned past each window and outside
+   the tables, which must not change their output.
 4. slice parity: a 2-layer LLAMA_DEBUG model in f32 served on the card
    (kernels) and on the host (plain versions) from the same weights:
-   identical greedy tokens, allclose first-step logits.
+   identical greedy tokens (plain, spec_k=3, fuse_budget, int8 KV and
+   weights), allclose first-step logits; spec_k=3 and the fused schedule
+   give the plain schedule's tokens.
 5. main path: random LLAMA3_8B bf16 weights on the card behind the HTTP
    replica (ContinuousBatcher, batch 8, max_seq_len 2048, prefill_chunk
    256, decode_chunk 16); 8 requests of 17..700 prompt tokens, 48 new
-   tokens each, greedy.  Every kernel's launch count on this phase must
-   be > 0.
+   tokens each, greedy.
+6. main path with speculative verify and fused steps, twice on phase 5's
+   weights: (a) bf16 with spec_k 12 and fuse_budget 264, (b) the same
+   with int8 KV and int8 weights.  The same 8 requests.
 
-The last lines of standard output are the {"kernels": [...]} line, the
-nvidia-smi name/power-limit line, and {"ok": true, "device": {...}}.
+Every kernel of a main-path run must launch > 0 times in that run (the
+counts are set to 0 just before it and read just after); the window
+kernel must launch from both verify and fused ticks.  The last lines of
+standard output are the {"kernels": [...]} line, the nvidia-smi
+name/power-limit line, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -44,14 +53,21 @@ import torch
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12                # dense tensor-core bf16 peak
 TIMING_REPS = 25
-# Tolerances of kernel vs plain version, (atol, rtol).  f32: both sides
-# compute in f32 and differ only in summation order.  bf16: the plain
-# versions round scores (flash) or probabilities (both attentions) to
-# bf16 where the kernels keep f32, and every output is rounded to bf16
-# (one ulp is 2^-8 relative), so the bound is a few bf16 ulps.
+# Tolerances of kernel vs plain version, (atol, rtol), by q's dtype.
+# f32: both sides compute in f32 and differ only in summation order.
+# bf16: the plain versions round scores (flash) or probabilities (all
+# attentions) to bf16 where the kernels keep f32, and every output is
+# rounded to bf16 (one ulp is 2^-8 relative), so the bound is a few bf16
+# ulps.  An int8 arena takes its q dtype's tolerance: the kernels
+# dequantize before each product, the plain versions scale after it.
 TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (3e-2, 2e-2)}
-# Slice parity in f32: sums taken in another order across 2 layers.
+# Slice parity in f32: sums taken in another order across 2 layers (and,
+# for int8, the scales applied before the product on the card and after
+# it on the host).
 LOGITS_TOL = (2e-4, 1e-4)
+# Paged-attention shapes of the Llama-3-8B serving path (8 KV heads of
+# G 4, head_dim 128, 64-row blocks, 32 blocks a slot at max_seq_len 2048).
+KV_HEADS, GROUP, HEAD_DIM, BS, T_WIDTH = 8, 4, 128, 64, 32
 
 CARD = {}
 
@@ -196,97 +212,263 @@ def check_flash(attention):
     return result
 
 
-def check_decode(decode_attention):
-    gen = torch.Generator(device='cuda').manual_seed(5)
-    batch, kv_heads, group, hd, bs, t_width = 8, 8, 4, 128, 64, 32
-    n_layers, n_blocks, layer = 2, 1 + batch * t_width, 1
-    # Mixed positions: 0, block edges (BS-1, BS), mid, and the table end.
-    positions = torch.tensor([0, bs - 1, bs, 2 * bs + 5, 700, 1000,
-                              1500, t_width * bs - 1], dtype=torch.int32,
-                             device='cuda')
-    rng = np.random.RandomState(5)
+def _tables(last_rows, n_blocks, seed):
+    """Scattered block tables covering each slot's rows 0..last_rows[b]
+    (capped at the table), drawn from blocks 1.. of the arena."""
+    rng = np.random.RandomState(seed)
     perm = rng.permutation(np.arange(1, n_blocks))
-    tables = np.zeros((batch, t_width), np.int32)
-    for b in range(batch):
-        live = int(positions[b]) // bs + 1
-        tables[b, :live] = perm[b * t_width:b * t_width + live]
-    tables = torch.as_tensor(tables, device='cuda')
-    result = None
-    for dtype in (torch.float32, torch.bfloat16):
-        q = torch.randn(batch, kv_heads, group, hd, generator=gen,
-                        device='cuda').to(dtype)
-        shape = (n_layers, n_blocks, bs, kv_heads, hd)
-        k = torch.randn(shape, generator=gen, device='cuda').to(dtype)
-        v = torch.randn(shape, generator=gen, device='cuda').to(dtype)
+    tables = np.zeros((len(last_rows), T_WIDTH), np.int32)
+    for b, last in enumerate(last_rows):
+        live = min(int(last) // BS + 1, T_WIDTH)
+        tables[b, :live] = perm[b * T_WIDTH:b * T_WIDTH + live]
+    return torch.as_tensor(tables, device='cuda')
 
-        def kernel():
+
+def _arena(gen, dtype, n_blocks, int8):
+    """A 2-layer (L, NB, BS, KV, hd) K/V arena, int8 with f32 scales when
+    int8 (quantized from `dtype` values)."""
+    from skypilot_tpu_torch.infer import llama_infer
+    shape = (2, n_blocks, BS, KV_HEADS, HEAD_DIM)
+    k = torch.randn(shape, generator=gen, device='cuda').to(dtype)
+    v = torch.randn(shape, generator=gen, device='cuda').to(dtype)
+    if not int8:
+        return k, v, None, None
+    (k8, ks), (v8, vs) = (llama_infer._quantize_kv(x) for x in (k, v))
+    return k8, v8, ks, vs
+
+
+def _poison(k, v, tables, last_rows, layer):
+    """Copies of the arena with every block no table maps, and every row
+    past each slot's last visible row, set to huge values."""
+    value = 127 if k.dtype == torch.int8 else 1e4
+    k2, v2 = k.clone(), v.clone()
+    mapped = set(tables.flatten().tolist()) - {0}
+    for blk in range(k.shape[1]):
+        if blk not in mapped:
+            k2[:, blk] = value
+            v2[:, blk] = -value
+    for b, last in enumerate(last_rows):
+        if last < T_WIDTH * BS - 1:
+            blk = int(tables[b, last // BS])
+            k2[layer, blk, last % BS + 1:] = value
+            v2[layer, blk, last % BS + 1:] = -value
+    return k2, v2
+
+
+def _kv_bytes(keys, k):
+    """Bytes of `keys` K and V rows of all KV heads (plus their f32
+    scales for an int8 arena)."""
+    per_row = KV_HEADS * HEAD_DIM * k.element_size()
+    if k.dtype == torch.int8:
+        per_row += KV_HEADS * 4
+    return 2 * keys * per_row
+
+
+def _gathered(k, v, ks, vs, tables, layer, dtype):
+    """(B, KV, S, hd) views of one layer through the tables in `dtype`
+    (int8 dequantized): the library call's operands."""
+    from skypilot_tpu_torch.ops import decode_attention as da
+    k_g = da._gather_layer(k, tables, layer)
+    v_g = da._gather_layer(v, tables, layer)
+    if ks is not None:
+        k_g = da._dequantize(k_g, da._gather_layer(ks, tables, layer), dtype)
+        v_g = da._dequantize(v_g, da._gather_layer(vs, tables, layer), dtype)
+    return k_g.transpose(1, 2), v_g.transpose(1, 2)
+
+
+def check_decode(decode_attention):
+    """K1 in f32, bf16 and on an int8 arena (bf16 q); returns the kernels
+    line entries of the bf16 and int8 variants."""
+    gen = torch.Generator(device='cuda').manual_seed(5)
+    batch, layer = 8, 1
+    n_blocks = 1 + batch * T_WIDTH
+    # Mixed positions: 0, block edges (BS-1, BS), mid, and the table end.
+    positions = torch.tensor([0, BS - 1, BS, 2 * BS + 5, 700, 1000,
+                              1500, T_WIDTH * BS - 1], dtype=torch.int32,
+                             device='cuda')
+    last = positions.tolist()
+    tables = _tables(last, n_blocks, 5)
+    results = {}
+    for label, dtype, int8 in (('f32', torch.float32, False),
+                               ('bf16', torch.bfloat16, False),
+                               ('int8', torch.bfloat16, True)):
+        q = torch.randn(batch, KV_HEADS, GROUP, HEAD_DIM, generator=gen,
+                        device='cuda').to(dtype)
+        k, v, ks, vs = _arena(gen, dtype, n_blocks, int8)
+
+        def kernel(k=k, v=v):
             return decode_attention.decode_attention_pooled(
-                q, k, v, tables, layer, positions)
+                q, k, v, tables, layer, positions, ks, vs)
 
         def plain():
             return decode_attention._decode_attention_plain(
-                q, k, v, tables, layer, positions)
+                q, k, v, tables, layer, positions, ks, vs)
 
-        err = check_close(f'decode_attention_pooled {dtype}', kernel(),
+        err = check_close(f'decode_attention_pooled {label}', kernel(),
                           plain())
-        # Poisoned rows past each position and unmapped blocks must not
-        # change the kernel's output.
-        k2, v2 = k.clone(), v.clone()
-        mapped = set(tables.flatten().tolist()) - {0}
-        for blk in range(n_blocks):
-            if blk not in mapped:
-                k2[:, blk] = 1e4
-                v2[:, blk] = -1e4
-        for b in range(batch):
-            p = int(positions[b])
-            blk = int(tables[b, p // bs])
-            k2[layer, blk, p % bs + 1:] = 1e4
-            v2[layer, blk, p % bs + 1:] = -1e4
-        poisoned = decode_attention.decode_attention_pooled(
-            q, k2, v2, tables, layer, positions)
-        if not torch.equal(poisoned, kernel()):
-            raise AssertionError('decode_attention_pooled read keys past '
-                                 'a position or outside its table')
-        if dtype == torch.bfloat16:
-            live_keys = int(torch.clamp_max(positions.long() + 1,
-                                            t_width * bs).sum())
-            nbytes = (2 * q.numel() * 2 + 2 * live_keys * kv_heads * hd * 2
+        k2, v2 = _poison(k, v, tables, last, layer)
+        if not torch.equal(kernel(k2, v2), kernel()):
+            raise AssertionError(f'decode_attention_pooled {label} read '
+                                 f'keys past a position or outside its '
+                                 f'table')
+        if label == 'f32':
+            continue
+        live_keys = int(torch.clamp_max(positions.long() + 1,
+                                        T_WIDTH * BS).sum())
+        nbytes = (2 * q.numel() * 2 + _kv_bytes(live_keys, k)
+                  + tables.numel() * 4 + batch * 4)
+        b_ms, by = bound(nbytes, 4 * HEAD_DIM * KV_HEADS * GROUP * live_keys,
+                         BF16_FLOPS)
+        kt, vt = _gathered(k, v, ks, vs, tables, layer, dtype)
+        qs = q.reshape(batch, KV_HEADS * GROUP, 1, HEAD_DIM)
+        mask = (torch.arange(kt.shape[2], device='cuda')[None, :]
+                <= positions.long()[:, None])[:, None, None, :]
+        results[label] = {
+            'name': 'decode_attention_pooled'
+                    + ('' if label == 'bf16' else '[int8]'),
+            'route': 'cuda',
+            'source': 'skypilot_tpu_torch/csrc/paged_decode.cu',
+            'replaces': 'skypilot_tpu/ops/decode_attention.py:356',
+            'shape': f'q ({batch}, {KV_HEADS}, {GROUP}, {HEAD_DIM}) bf16, '
+                     f'{"int8" if int8 else "bf16"} arena, BS {BS} '
+                     f'T {T_WIDTH}, live keys {live_keys}',
+            'max_abs_err': err, 'ms': time_ms(kernel),
+            'plain_ms': time_ms(plain), 'bound_ms': b_ms, 'bound_by': by,
+            'library_ms': time_ms(lambda: sdpa(qs, kt, vt, attn_mask=mask)),
+        }
+    return results
+
+
+def check_window(decode_attention):
+    """K4 at the verify shape (B 8, W 13) and the fused-lane shape (B 1,
+    W 264 from row 436), in f32, bf16 and on an int8 arena (bf16 q):
+    against the plain version, on poisoned arenas, and at W = 1 against
+    K1.  Returns the kernels line entries of the bf16 and int8
+    variants."""
+    da = decode_attention
+    gen = torch.Generator(device='cuda').manual_seed(6)
+    layer = 1
+    verify_pos = [0, BS - 1, BS, 2 * BS + 5, 700, 1000, 1500,
+                  T_WIDTH * BS - 1]
+    shapes = (('verify', verify_pos, 13), ('fused', [436], 264))
+    results = {}
+    for lane, pos_list, win in shapes:
+        batch = len(pos_list)
+        n_blocks = 1 + batch * T_WIDTH
+        positions = torch.tensor(pos_list, dtype=torch.int32, device='cuda')
+        last = [p + win - 1 for p in pos_list]
+        tables = _tables(last, n_blocks, 6)
+        for label, dtype, int8 in (('f32', torch.float32, False),
+                                   ('bf16', torch.bfloat16, False),
+                                   ('int8', torch.bfloat16, True)):
+            q = torch.randn(batch, win, KV_HEADS, GROUP, HEAD_DIM,
+                            generator=gen, device='cuda').to(dtype)
+            k, v, ks, vs = _arena(gen, dtype, n_blocks, int8)
+
+            def kernel(k=k, v=v):
+                return da.decode_window_attention_pooled(
+                    q, k, v, tables, layer, positions, ks, vs)
+
+            def plain():
+                return da._decode_window_attention_plain(
+                    q, k, v, tables, layer, positions, ks, vs)
+
+            name = f'decode_window_attention_pooled {lane} {label}'
+            out = kernel()
+            err = check_close(name, out, plain())
+            k2, v2 = _poison(k, v, tables, last, layer)
+            if not torch.equal(kernel(k2, v2), out):
+                raise AssertionError(f'{name} read keys past its window '
+                                     f'or outside its table')
+            one = da.decode_window_attention_pooled(
+                q[:, :1], k, v, tables, layer, positions, ks, vs)[:, 0]
+            check_close(f'{name} W=1 vs K1', one, da.decode_attention_pooled(
+                q[:, 0].contiguous(), k, v, tables, layer, positions, ks,
+                vs))
+            if label == 'f32':
+                continue
+            rows = torch.clamp_max(
+                positions.long()[:, None] + torch.arange(win, device='cuda')
+                + 1, T_WIDTH * BS)                      # keys per row
+            pairs = int(rows.sum()) * KV_HEADS * GROUP
+            keys = int(rows[:, -1].sum())
+            nbytes = (2 * q.numel() * 2 + _kv_bytes(keys, k)
                       + tables.numel() * 4 + batch * 4)
-            b_ms, by = bound(nbytes, 4 * hd * kv_heads * group * live_keys,
-                             BF16_FLOPS)
-            k_g = decode_attention._gather_layer(k, tables, layer)
-            v_g = decode_attention._gather_layer(v, tables, layer)
-            qs = q.reshape(batch, kv_heads * group, 1, hd)
-            ks, vs = k_g.transpose(1, 2), v_g.transpose(1, 2)
-            mask = (torch.arange(k_g.shape[1], device='cuda')[None, :]
-                    <= positions.long()[:, None])[:, None, None, :]
-            result = {
-                'name': 'decode_attention_pooled', 'route': 'cuda',
-                'source': 'skypilot_tpu_torch/csrc/paged_decode.cu',
-                'replaces': 'skypilot_tpu/ops/decode_attention.py:356',
-                'shape': f'q ({batch}, {kv_heads}, {group}, {hd}) '
-                         f'BS {bs} T {t_width} live keys {live_keys} bf16',
+            b_ms, by = bound(nbytes, 4 * HEAD_DIM * pairs, BF16_FLOPS)
+            kt, vt = _gathered(k, v, ks, vs, tables, layer, dtype)
+            qs = q.permute(0, 2, 3, 1, 4).reshape(
+                batch, KV_HEADS * GROUP, win, HEAD_DIM)
+            mask = (torch.arange(kt.shape[2], device='cuda')[None, None, :]
+                    < rows[:, :, None])[:, None]        # (B, 1, W, S)
+            # SDPA's row order is (KV, G, W); logged, not held to a bound.
+            lib_out = sdpa(qs, kt, vt, attn_mask=mask)
+            lib_err = (out.permute(0, 2, 3, 1, 4).reshape(lib_out.shape)
+                       .float() - lib_out.float()).abs().max().item()
+            log(f'  {name}: max_abs_err vs SDPA {lib_err:.3e}')
+            suffix = lane if label == 'bf16' else f'int8 {lane}'
+            results[(lane, label)] = {
+                'name': f'decode_window_attention_pooled[{suffix}]',
+                'route': 'cuda',
+                'source': 'skypilot_tpu_torch/csrc/paged_window.cu',
+                'replaces': 'skypilot_tpu/ops/decode_attention.py:456',
+                'shape': f'q ({batch}, {win}, {KV_HEADS}, {GROUP}, '
+                         f'{HEAD_DIM}) bf16, {"int8" if int8 else "bf16"} '
+                         f'arena, BS {BS} T {T_WIDTH}, positions '
+                         f'{pos_list if batch == 1 else "0..2047"}, '
+                         f'{keys} keys',
                 'max_abs_err': err, 'ms': time_ms(kernel),
                 'plain_ms': time_ms(plain), 'bound_ms': b_ms,
                 'bound_by': by,
-                'library_ms': time_ms(lambda: sdpa(qs, ks, vs,
-                                                   attn_mask=mask)),
+                'library_ms': time_ms(
+                    lambda: sdpa(qs, kt, vt, attn_mask=mask)),
             }
-    return result
+    return results
 
 
 # ---- phase 4: slice parity ------------------------------------------------
 
-def slice_parity():
-    from skypilot_tpu_torch.infer import llama_infer
+def _serve_debug(params, cfg, dev, prompts, budgets, **extra):
     from skypilot_tpu_torch.infer.engine import GeneratorConfig
     from skypilot_tpu_torch.infer.serving import ContinuousBatcher
+    b = ContinuousBatcher(params, cfg, GeneratorConfig(
+        max_seq_len=256, batch_size=3, prompt_buckets=[16, 64, 128],
+        prefill_chunk=64, kv_block_size=16, **extra), decode_chunk=4,
+        device=dev)
+    rids = [b.submit(p, max_new_tokens=n) for p, n in zip(prompts, budgets)]
+    b.run_until_idle()
+    b.pool.check_invariant()
+    return b, [b.result(r) for r in rids]
+
+
+def _same_tokens(what, got, want):
+    """Identical greedy tokens, or an error naming the first request and
+    position where they part."""
+    if got == want:
+        return
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g != w:
+            at = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b),
+                      min(len(g), len(w)))
+            raise AssertionError(f'{what}: request {i} differs at token {at}:'
+                                 f' {g} vs {w}')
+    raise AssertionError(f'{what}: {got} vs {want}')
+
+
+def _logits_close(what, got, want):
+    atol, rtol = LOGITS_TOL
+    err = (got.cpu() - want).abs().max().item()
+    log(f'  {what} max_abs_err={err:.3e} (atol={atol} rtol={rtol})')
+    torch.testing.assert_close(got.cpu(), want, atol=atol, rtol=rtol)
+
+
+def slice_parity():
+    from skypilot_tpu_torch.infer import block_pool, engine, llama_infer
     from skypilot_tpu_torch.models import llama
 
     cfg = llama.LLAMA_DEBUG
     params_cpu = llama.init_params(cfg, torch.Generator().manual_seed(0),
                                    'cpu')
-    params_gpu = _to_device(params_cpu, 'cuda')
+    params = {'cpu': params_cpu, 'cuda': _to_device(params_cpu, 'cuda')}
     rng = np.random.RandomState(1)
     prompts = [[int(t) for t in rng.randint(1, cfg.vocab_size, size=n)]
                for n in (5, 40, 100, 17)]
@@ -297,34 +479,56 @@ def slice_parity():
     tokens[1, :17] = prompts[3]
     lengths = np.asarray([40, 17], np.int32)
     logits = {}
-    for dev, params in (('cpu', params_cpu), ('cuda', params_gpu)):
+    for dev in ('cpu', 'cuda'):
         cache = llama_infer.init_cache(cfg, 2, 64, device=dev)
         logits[dev], _ = llama_infer.prefill(
-            params, torch.as_tensor(tokens, device=dev), cfg, cache,
+            params[dev], torch.as_tensor(tokens, device=dev), cfg, cache,
             torch.as_tensor(lengths, device=dev))
-    atol, rtol = LOGITS_TOL
-    lerr = (logits['cuda'].cpu() - logits['cpu']).abs().max().item()
-    log(f'  prefill logits max_abs_err={lerr:.3e} (atol={atol} '
-        f'rtol={rtol})')
-    torch.testing.assert_close(logits['cuda'].cpu(), logits['cpu'],
-                               atol=atol, rtol=rtol)
+    _logits_close('prefill logits', logits['cuda'], logits['cpu'])
 
+    # int8 weights and an int8 arena: prefill, then the first decode step
+    # through K1's int8 variant.
+    tables = np.arange(1, 9, dtype=np.int32).reshape(2, 4)
+    first = logits['cpu'].argmax(-1).to(torch.int32)
+    step = {}
+    for dev in ('cpu', 'cuda'):
+        p8 = engine.prepare_params(params[dev], engine.GeneratorConfig(
+            weights_dtype='int8'))
+        cache = llama_infer.init_cache(cfg, 2, 64, kv_dtype='int8',
+                                       device=dev)
+        _, cache = llama_infer.prefill(
+            p8, torch.as_tensor(tokens, device=dev), cfg, cache,
+            torch.as_tensor(lengths, device=dev))
+        arena = block_pool.init_arena(cfg, 9, 16, kv_dtype='int8',
+                                      device=dev)
+        tbl = torch.as_tensor(tables, device=dev)
+        llama_infer.scatter_prefill_pooled(cache, arena, tbl)
+        step[dev], _ = llama_infer.decode_step_pooled(
+            p8, first.to(dev), cfg, arena,
+            torch.as_tensor(lengths, device=dev), tbl)
+    _logits_close('int8 first decode step logits', step['cuda'], step['cpu'])
+
+    runs = (('plain', {}), ('spec_k=3', dict(spec_k=3)),
+            ('fuse_budget=16', dict(fuse_budget=16)),
+            ('int8 KV + weights', dict(kv_cache_dtype='int8',
+                                       weights_dtype='int8')))
     outs = {}
-    for dev, params in (('cpu', params_cpu), ('cuda', params_gpu)):
-        b = ContinuousBatcher(params, cfg, GeneratorConfig(
-            max_seq_len=256, batch_size=3, prompt_buckets=[16, 64, 128],
-            prefill_chunk=64, kv_block_size=16), decode_chunk=4,
-            device=dev)
-        rids = [b.submit(p, max_new_tokens=n)
-                for p, n in zip(prompts, budgets)]
-        b.run_until_idle()
-        b.pool.check_invariant()
-        outs[dev] = [b.result(r) for r in rids]
-    if outs['cpu'] != outs['cuda']:
-        raise AssertionError(f'greedy tokens differ: card {outs["cuda"]} '
-                             f'host {outs["cpu"]}')
-    log(f'  greedy tokens identical on card and host '
-        f'({sum(len(o) for o in outs["cpu"])} tokens)')
+    for label, extra in runs:
+        for dev in ('cpu', 'cuda'):
+            b, outs[label, dev] = _serve_debug(params[dev], cfg, dev,
+                                               prompts, budgets, **extra)
+            if 'spec_k' in extra and not b.spec_proposed:
+                raise AssertionError(f'{label} on {dev}: no verify chunk')
+            if 'fuse_budget' in extra and not b._fuse_policy.stats.steps:
+                raise AssertionError(f'{label} on {dev}: no fused step')
+        _same_tokens(f'{label}: card vs host', outs[label, 'cuda'],
+                     outs[label, 'cpu'])
+        log(f'  {label}: greedy tokens identical on card and host '
+            f'({sum(len(o) for o in outs[label, "cpu"])} tokens)')
+    for label in ('spec_k=3', 'fuse_budget=16'):
+        _same_tokens(f'{label} vs plain schedule', outs[label, 'cuda'],
+                     outs['plain', 'cuda'])
+    log('  spec_k=3 and fuse_budget=16 give the plain schedule\'s tokens')
 
 
 def _to_device(tree, device):
@@ -333,31 +537,28 @@ def _to_device(tree, device):
     return tree.to(device)
 
 
-# ---- phase 5: main path ---------------------------------------------------
+# ---- phases 5 and 6: main paths ---------------------------------------------
 
-def main_path(counters):
+def serve_path(label, params, gen_config, counters):
+    """Serve the 8 requests through the HTTP replica with every launch
+    count set to 0 just before and read just after; returns the counts.
+    Fails unless every request returns 48 in-range tokens and the pool
+    comes back empty."""
     from skypilot_tpu_torch.infer import engine, replica
-    from skypilot_tpu_torch.infer.engine import GeneratorConfig
     from skypilot_tpu_torch.infer.serving import ContinuousBatcher
     from skypilot_tpu_torch.models import llama
 
     cfg = llama.LLAMA3_8B
-    t0 = time.perf_counter()
-    params = llama.init_params(
-        cfg, torch.Generator(device='cuda').manual_seed(0), 'cuda')
-    torch.cuda.synchronize()
-    log(f'  LLAMA3_8B bf16 random weights: {cfg.num_params() / 1e9:.2f}B '
-        f'params in {time.perf_counter() - t0:.1f} s')
-    batcher = ContinuousBatcher(params, cfg, GeneratorConfig(
-        max_seq_len=2048, batch_size=8, prefill_chunk=256),
-        decode_chunk=16, device='cuda')
+    torch.cuda.reset_peak_memory_stats()
+    batcher = ContinuousBatcher(params, cfg, gen_config, decode_chunk=16,
+                                device='cuda')
     # Warm-up (cuBLAS handles, allocator pools), then count from zero.
     warm = batcher.submit([1, 2, 3], max_new_tokens=2)
     batcher.run_until_idle()
     batcher.result(warm)
     batcher.decode_tokens, batcher.decode_seconds = 0, 0.0
-    weights_gb = torch.cuda.memory_allocated() / 1e9
-    torch.cuda.reset_peak_memory_stats()
+    batcher.spec_proposed = batcher.spec_accepted = 0
+    resident_gb = torch.cuda.memory_allocated() / 1e9
     server, thread = replica.serve(batcher, '127.0.0.1', 0, 'llama3-8b')
     url = f'http://127.0.0.1:{server.server_address[1]}'
     try:
@@ -380,6 +581,9 @@ def main_path(counters):
             with urllib.request.urlopen(req, timeout=600) as r:
                 responses[i] = json.loads(r.read())
 
+        fuse0 = (batcher._fuse_policy.stats.steps,
+                 batcher._fuse_policy.stats.prefill_tokens) \
+            if batcher._fuse_policy else (0, 0)
         for c in counters:
             c.launches = 0
         syncs0 = engine.host_fetch.calls
@@ -397,18 +601,14 @@ def main_path(counters):
         replica.shutdown_replica(server, thread)
     for i, resp in enumerate(responses):
         if resp is None or resp.get('num_generated') != max_new:
-            raise AssertionError(f'request {i} (prompt {lengths[i]}): '
-                                 f'{resp}')
+            raise AssertionError(f'{label}: request {i} (prompt '
+                                 f'{lengths[i]}): {resp}')
         if not all(0 <= t < cfg.vocab_size for t in resp['output_ids']):
-            raise AssertionError(f'request {i}: token out of range')
+            raise AssertionError(f'{label}: request {i}: token out of range')
     batcher.pool.check_invariant()
     st = batcher.pool.stats()
     if st['blocks_live'] or st['reserved']:
-        raise AssertionError(f'pool not returned: {st}')
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f'{name} was never launched on the main '
-                                 f'path')
+        raise AssertionError(f'{label}: pool not returned: {st}')
     ttfts = sorted(r['ttft_s'] for r in responses)
     stats = {
         'card': CARD['line'],
@@ -422,13 +622,27 @@ def main_path(counters):
         / batcher.decode_seconds,
         'decode_tokens': batcher.decode_tokens,
         'decode_seconds': batcher.decode_seconds,
+        'spec_proposed': batcher.spec_proposed,
+        'spec_accepted': batcher.spec_accepted,
+        'fused_steps': (batcher._fuse_policy.stats.steps - fuse0[0]
+                        if batcher._fuse_policy else 0),
+        'fused_prefill_tokens': (
+            batcher._fuse_policy.stats.prefill_tokens - fuse0[1]
+            if batcher._fuse_policy else 0),
         'host_fetches': syncs,
-        'resident_gb_before_requests': weights_gb,
+        'resident_gb_before_requests': resident_gb,
         'peak_memory_gb': torch.cuda.max_memory_allocated() / 1e9,
         'launches': launches,
     }
-    log('  main path: ' + json.dumps(stats))
+    log(f'  {label}: ' + json.dumps(stats))
     return launches
+
+
+def _need(label, launches, names):
+    for name in names:
+        if launches[name] <= 0:
+            raise AssertionError(f'{name} was never launched on the {label} '
+                                 f'path')
 
 
 def main() -> int:
@@ -436,6 +650,8 @@ def main() -> int:
         print('chip_smoke: torch.cuda.is_available() is false; this run '
               'needs an NVIDIA card', file=sys.stderr)
         return 2
+    from skypilot_tpu_torch.infer.engine import GeneratorConfig
+    from skypilot_tpu_torch.models import llama
     from skypilot_tpu_torch.ops import _kernels, attention, decode_attention
     from skypilot_tpu_torch.ops import rmsnorm
 
@@ -443,10 +659,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     CARD['line'] = nvidia_smi_line()
     CARD['kind'] = torch.cuda.get_device_name(0)
-    log(f'[1/5] device: {CARD["line"]} | torch {torch.__version__} '
+    log(f'[1/6] device: {CARD["line"]} | torch {torch.__version__} '
         f'cuda {torch.version.cuda}')
 
-    log('[2/5] build')
+    log('[2/6] build')
     _kernels.LIBRARY.get()
     log(f'  built {_kernels.LIBRARY.path.name} in '
         f'{_kernels.LIBRARY.build_seconds:.1f} s')
@@ -455,19 +671,58 @@ def main() -> int:
         if 'spill' in line and ' 0 bytes spill stores' not in line:
             log(f'  ptxas: {line.strip()}')
 
-    log('[3/5] kernels vs plain versions')
-    results = [check_decode(decode_attention), check_flash(attention),
-               check_rmsnorm(rmsnorm)]
-    counters = [decode_attention.decode_attention_pooled,
-                attention.flash_attention, rmsnorm.rms_norm]
-    log('[4/5] slice parity, LLAMA_DEBUG f32, card vs host')
+    log('[3/6] kernels vs plain versions')
+    decode = check_decode(decode_attention)
+    window = check_window(decode_attention)
+    flash, norm = check_flash(attention), check_rmsnorm(rmsnorm)
+    k1 = decode_attention.decode_attention_pooled
+    k4v = decode_attention.decode_window_attention_pooled
+    k4f = decode_attention.fused_step_attention_pooled
+    k2, k3 = attention.flash_attention, rmsnorm.rms_norm
+    counters = [k1, k2, k3, k4v, k4f]
+
+    log('[4/6] slice parity, LLAMA_DEBUG f32, card vs host')
     slice_parity()
 
-    log('[5/5] main path, LLAMA3_8B bf16 behind the HTTP replica')
-    launches = main_path(counters)
-    for res, counter in zip(results, counters):
-        res['launches'] = launches[counter.__name__]
-    log(json.dumps({'kernels': results}))
+    log('[5/6] main path, LLAMA3_8B bf16 behind the HTTP replica')
+    cfg = llama.LLAMA3_8B
+    t0 = time.perf_counter()
+    params = llama.init_params(
+        cfg, torch.Generator(device='cuda').manual_seed(0), 'cuda')
+    torch.cuda.synchronize()
+    log(f'  LLAMA3_8B bf16 random weights: {cfg.num_params() / 1e9:.2f}B '
+        f'params in {time.perf_counter() - t0:.1f} s')
+    base = dict(max_seq_len=2048, batch_size=8, prefill_chunk=256)
+    paths = {'5': serve_path('main path', params, GeneratorConfig(**base),
+                             counters)}
+    _need('main', paths['5'], [c.__name__ for c in (k1, k2, k3)])
+
+    log('[6/6] main path with spec_k 12 and fuse_budget 264: (a) bf16, '
+        '(b) int8 KV and weights')
+    spec = dict(base, spec_k=12, fuse_budget=264)
+    paths['6a'] = serve_path('6a bf16 spec+fused', params,
+                             GeneratorConfig(**spec), counters)
+    paths['6b'] = serve_path('6b int8 spec+fused', params, GeneratorConfig(
+        **spec, kv_cache_dtype='int8', weights_dtype='int8'), counters)
+    for key in ('6a', '6b'):
+        _need(key, paths[key], [c.__name__ for c in counters])
+
+    def entry(res, counter, keys):
+        by_path = {k: paths[k][counter.__name__] for k in keys}
+        return dict(res, launches=sum(by_path.values()),
+                    launches_by_path=by_path)
+
+    kernels = [
+        entry(decode['bf16'], k1, ('5', '6a')),
+        entry(decode['int8'], k1, ('6b',)),
+        entry(flash, k2, ('5', '6a', '6b')),
+        entry(norm, k3, ('5', '6a', '6b')),
+        entry(window['verify', 'bf16'], k4v, ('6a',)),
+        entry(window['fused', 'bf16'], k4f, ('6a',)),
+        entry(window['verify', 'int8'], k4v, ('6b',)),
+        entry(window['fused', 'int8'], k4f, ('6b',)),
+    ]
+    log(json.dumps({'kernels': kernels}))
     log(CARD['line'])
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': CARD['kind'],

@@ -13,7 +13,10 @@ Measures, printing one JSON line each:
               the wall time, and device time by kernel name (top 12).
 
 Run from the root of a checkout on a card:
-    python3 scripts/torch_profile_decode.py [--prompt 512]
+    python3 scripts/torch_profile_decode.py [--prompt 512] [--int8]
+
+--int8 serves the decode chunks with kv_cache_dtype='int8' and
+weights_dtype='int8' (the prefill timing stays bf16).
 """
 from __future__ import annotations
 
@@ -72,9 +75,19 @@ def time_prefill(params, cfg, prompt_len: int) -> None:
          tokens_per_s=group * prompt_len / ms * 1e3)
 
 
-def profile_decode(params, cfg, prompt_len: int) -> None:
+def streamed_bytes(tree, key: str = '') -> int:
+    """Bytes a decode step streams from the parameter tree: every leaf
+    but the embedding table (a row gather)."""
+    if isinstance(tree, dict):
+        return sum(streamed_bytes(v, k) for k, v in tree.items())
+    return 0 if key == 'embed' else tree.numel() * tree.element_size()
+
+
+def profile_decode(params, cfg, prompt_len: int, int8: bool) -> None:
+    dtypes = (dict(kv_cache_dtype='int8', weights_dtype='int8') if int8
+              else {})
     batcher = ContinuousBatcher(params, cfg, GeneratorConfig(
-        max_seq_len=2048, batch_size=BATCH), decode_chunk=CHUNK,
+        max_seq_len=2048, batch_size=BATCH, **dtypes), decode_chunk=CHUNK,
         device='cuda')
     gen = torch.Generator().manual_seed(0)
     for _ in range(BATCH):
@@ -90,11 +103,12 @@ def profile_decode(params, cfg, prompt_len: int) -> None:
         batcher.step()
         walls.append((time.perf_counter() - t0) * 1e3)
     step_ms = statistics.median(walls) / CHUNK
-    emit('decode', slots=BATCH, context=int(batcher._host_pos.max()),
+    emit('decode', int8=int8, slots=BATCH,
+         context=int(batcher._host_pos.max()),
          chunk_ms=statistics.median(walls), step_ms=step_ms,
          tokens_per_s=BATCH / step_ms * 1e3,
-         weights_gb=cfg.num_params() * 2 / 1e9,
-         weights_bound_ms=cfg.num_params() * 2 / 3.35e12 * 1e3)
+         weights_gb=streamed_bytes(batcher.params) / 1e9,
+         weights_bound_ms=streamed_bytes(batcher.params) / 3.35e12 * 1e3)
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -120,6 +134,8 @@ def main() -> int:
     global CARD
     parser = argparse.ArgumentParser()
     parser.add_argument('--prompt', type=int, default=512)
+    parser.add_argument('--int8', action='store_true',
+                        help='int8 KV arena and int8 weights in decode')
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print('needs a CUDA device', file=sys.stderr)
@@ -129,7 +145,7 @@ def main() -> int:
     params = llama.init_params(
         cfg, torch.Generator(device='cuda').manual_seed(0), 'cuda')
     time_prefill(params, cfg, args.prompt)
-    profile_decode(params, cfg, args.prompt)
+    profile_decode(params, cfg, args.prompt, args.int8)
     return 0
 
 

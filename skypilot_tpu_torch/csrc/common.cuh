@@ -10,10 +10,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace skk {
 
 // Dtype codes shared with skypilot_tpu_torch/ops/_kernels.py.
-enum DType : int { kF32 = 0, kBF16 = 1 };
+enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
 constexpr int kErrUnsupported = -1;
 
@@ -24,6 +26,9 @@ constexpr float kNegInf = -1e30f;
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(int8_t x) {
+  return static_cast<float>(x);
 }
 
 template <typename T>

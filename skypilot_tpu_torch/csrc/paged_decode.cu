@@ -8,14 +8,16 @@
 // keys and stops: nothing past min(pos + 1, T * BS) is read.
 //
 // q:      (B, KV, G, HD), head h = kv * G + g.
-// arena:  (L, NB, BS, KV, HD) for K and for V, contiguous.
+// arena:  (L, NB, BS, KV, HD) for K and for V, contiguous; bf16/f32 in
+//         q's dtype, or int8 with k_scale/v_scale (L, NB, BS, KV) f32.
 // tables: (B, T) int32; tables[b, j] is the arena block that holds slot
 //         b's logical rows [j * BS, (j + 1) * BS).
 // positions: (B,) int32; keys 0 .. positions[b] are visible.
 // out:    (B, KV, G, HD) in the dtype of q.
 //
 // Bound on the H100: bytes.  A decode step reads each live K/V row once
-// (2 * ctx * KV * HD * sizeof(T) per slot) and does 4 flops per element
+// (2 * ctx * KV * HD * sizeof(arena element) per slot, plus 8 bytes of
+// scales per row and KV head for int8) and does 4 flops per element
 // read, so its floor is those bytes over 3.35 TB/s.  Design: one
 // 128-thread block per (slot, KV head); the G query rows of the head share
 // every K/V chunk staged in shared memory, so the arena is read once per
@@ -23,9 +25,12 @@
 // with 16-byte vector loads (one row of one KV head is HD contiguous
 // elements), scored with one warp per (query row, key), folded into an f32
 // online softmax (running max and sum per query row), and accumulated into
-// f32 registers, one head-dim column per thread.  Not yet done: splitting
-// the keys of one slot across blocks (split-KV), which a long context at
-// small batch needs to fill the 132 SMs.
+// f32 registers, one head-dim column per thread.  An int8 arena is
+// dequantized element by element with its (row, KV head) scale before
+// each product, as the TPU kernel did; the bf16/f32 instantiations do
+// exactly the arithmetic they did before the int8 one existed.  Not yet
+// done: splitting the keys of one slot across blocks (split-KV), which a
+// long context at small batch needs to fill the 132 SMs.
 #include "common.cuh"
 
 namespace skk {
@@ -38,6 +43,7 @@ constexpr int kMaxGroup = 8;
 template <typename T, int HD>
 struct DecodeCfg {
   // Keys per chunk: K + V chunks take at most 32 KB of shared memory.
+  // T is the arena's element type.
   static constexpr int CH_FIT = 32768 / (2 * HD * static_cast<int>(sizeof(T)));
   static constexpr int CH = CH_FIT > 64 ? 64 : CH_FIT;
   static constexpr int VEC = 16 / static_cast<int>(sizeof(T));
@@ -45,16 +51,22 @@ struct DecodeCfg {
   static constexpr int DPT = (HD + kDecThreads - 1) / kDecThreads;
 };
 
-template <typename T, int HD>
+// TQ: q and out (f32 or bf16); T: arena elements (TQ, or int8 with
+// per-(row, KV head) f32 scales).
+template <typename TQ, typename T, int HD>
 __global__ void __launch_bounds__(kDecThreads) paged_decode_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_arena,
-    const T* __restrict__ v_arena, const int* __restrict__ tables,
-    const int* __restrict__ positions, T* __restrict__ out, int kv_heads,
+    const TQ* __restrict__ q, const T* __restrict__ k_arena,
+    const T* __restrict__ v_arena, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const int* __restrict__ tables,
+    const int* __restrict__ positions, TQ* __restrict__ out, int kv_heads,
     int group, int n_blocks, int block_size, int t_width, int layer,
     float scale) {
   using C = DecodeCfg<T, HD>;
+  constexpr bool kQuant = std::is_same<T, int8_t>::value;
   __shared__ __align__(16) T k_s[C::CH * HD];
   __shared__ __align__(16) T v_s[C::CH * HD];
+  __shared__ float ks_s[kQuant ? C::CH : 1];
+  __shared__ float vs_s[kQuant ? C::CH : 1];
   __shared__ float q_s[kMaxGroup * HD];
   __shared__ float p_s[kMaxGroup * C::CH];
   __shared__ float m_s[kMaxGroup];
@@ -71,7 +83,7 @@ __global__ void __launch_bounds__(kDecThreads) paged_decode_kernel(
   const long long live = static_cast<long long>(t_width) * block_size;
   const int n_keys = static_cast<int>(min(static_cast<long long>(pos) + 1, live));
 
-  const T* qb = q + (static_cast<int64_t>(b) * kv_heads + kvh) * group * HD;
+  const TQ* qb = q + (static_cast<int64_t>(b) * kv_heads + kvh) * group * HD;
   for (int i = tid; i < group * HD; i += kDecThreads) q_s[i] = to_f32(qb[i]);
   if (tid < group) {
     m_s[tid] = kNegInf;
@@ -101,6 +113,17 @@ __global__ void __launch_bounds__(kDecThreads) paged_decode_kernel(
                           static_cast<int64_t>(t % block_size) * row_stride + c * C::VEC;
       reinterpret_cast<uint4*>(k_s)[i] = *reinterpret_cast<const uint4*>(k_arena + off);
       reinterpret_cast<uint4*>(v_s)[i] = *reinterpret_cast<const uint4*>(v_arena + off);
+      if constexpr (kQuant) {
+        if (c == 0) {
+          // Scales are (L, NB, BS, KV).
+          const int64_t soff =
+              (static_cast<int64_t>(layer) * n_blocks + trow[t / block_size]) *
+                  block_size * kv_heads +
+              static_cast<int64_t>(t % block_size) * kv_heads + kvh;
+          ks_s[r] = k_scale[soff];
+          vs_s[r] = v_scale[soff];
+        }
+      }
     }
     __syncthreads();
 
@@ -110,7 +133,11 @@ __global__ void __launch_bounds__(kDecThreads) paged_decode_kernel(
       const int r = p - g * n;
       float s = 0.f;
 #pragma unroll
-      for (int d = lane; d < HD; d += 32) s += q_s[g * HD + d] * to_f32(k_s[r * HD + d]);
+      for (int d = lane; d < HD; d += 32) {
+        float kd = to_f32(k_s[r * HD + d]);
+        if constexpr (kQuant) kd *= ks_s[r];
+        s += q_s[g * HD + d] * kd;
+      }
       s = warp_sum(s);
       if (lane == 0) p_s[g * C::CH + r] = s * scale;
     }
@@ -149,7 +176,11 @@ __global__ void __launch_bounds__(kDecThreads) paged_decode_kernel(
           const int d = tid + j * kDecThreads;
           if (d < HD) {
             float a = acc[g][j] * corr;
-            for (int r = 0; r < n; ++r) a += p_s[g * C::CH + r] * to_f32(v_s[r * HD + d]);
+            for (int r = 0; r < n; ++r) {
+              float vd = to_f32(v_s[r * HD + d]);
+              if constexpr (kQuant) vd *= vs_s[r];
+              a += p_s[g * C::CH + r] * vd;
+            }
             acc[g][j] = a;
           }
         }
@@ -158,7 +189,7 @@ __global__ void __launch_bounds__(kDecThreads) paged_decode_kernel(
     __syncthreads();
   }
 
-  T* ob = out + (static_cast<int64_t>(b) * kv_heads + kvh) * group * HD;
+  TQ* ob = out + (static_cast<int64_t>(b) * kv_heads + kvh) * group * HD;
 #pragma unroll
   for (int g = 0; g < kMaxGroup; ++g) {
     if (g < group) {
@@ -166,46 +197,52 @@ __global__ void __launch_bounds__(kDecThreads) paged_decode_kernel(
 #pragma unroll
       for (int j = 0; j < C::DPT; ++j) {
         const int d = tid + j * kDecThreads;
-        if (d < HD) ob[g * HD + d] = from_f32<T>(acc[g][j] * inv);
+        if (d < HD) ob[g * HD + d] = from_f32<TQ>(acc[g][j] * inv);
       }
     }
   }
 }
 
-template <typename T, int HD>
+template <typename TQ, typename T, int HD>
 int launch_decode(const void* q, const void* k, const void* v,
+                  const void* k_scale, const void* v_scale,
                   const void* tables, const void* positions, void* out,
                   int batch, int kv_heads, int group, int n_blocks,
                   int block_size, int t_width, int layer, float scale,
                   cudaStream_t stream) {
   const dim3 grid(batch, kv_heads);
-  paged_decode_kernel<T, HD><<<grid, kDecThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(tables),
-      static_cast<const int*>(positions), static_cast<T*>(out), kv_heads,
+  paged_decode_kernel<TQ, T, HD><<<grid, kDecThreads, 0, stream>>>(
+      static_cast<const TQ*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<const int*>(tables),
+      static_cast<const int*>(positions), static_cast<TQ*>(out), kv_heads,
       group, n_blocks, block_size, t_width, layer, scale);
   return launch_status();
 }
 
-template <typename T>
+template <typename TQ, typename T>
 int dispatch_decode(int head_dim, const void* q, const void* k,
-                    const void* v, const void* tables, const void* positions,
-                    void* out, int batch, int kv_heads, int group,
-                    int n_blocks, int block_size, int t_width, int layer,
-                    float scale, cudaStream_t stream) {
+                    const void* v, const void* k_scale, const void* v_scale,
+                    const void* tables, const void* positions, void* out,
+                    int batch, int kv_heads, int group, int n_blocks,
+                    int block_size, int t_width, int layer, float scale,
+                    cudaStream_t stream) {
   switch (head_dim) {
     case 64:
-      return launch_decode<T, 64>(q, k, v, tables, positions, out, batch,
-                                  kv_heads, group, n_blocks, block_size,
-                                  t_width, layer, scale, stream);
+      return launch_decode<TQ, T, 64>(q, k, v, k_scale, v_scale, tables,
+                                      positions, out, batch, kv_heads, group,
+                                      n_blocks, block_size, t_width, layer,
+                                      scale, stream);
     case 128:
-      return launch_decode<T, 128>(q, k, v, tables, positions, out, batch,
-                                   kv_heads, group, n_blocks, block_size,
-                                   t_width, layer, scale, stream);
+      return launch_decode<TQ, T, 128>(q, k, v, k_scale, v_scale, tables,
+                                       positions, out, batch, kv_heads, group,
+                                       n_blocks, block_size, t_width, layer,
+                                       scale, stream);
     case 256:
-      return launch_decode<T, 256>(q, k, v, tables, positions, out, batch,
-                                   kv_heads, group, n_blocks, block_size,
-                                   t_width, layer, scale, stream);
+      return launch_decode<TQ, T, 256>(q, k, v, k_scale, v_scale, tables,
+                                       positions, out, batch, kv_heads, group,
+                                       n_blocks, block_size, t_width, layer,
+                                       scale, stream);
     default:
       return kErrUnsupported;
   }
@@ -214,28 +251,36 @@ int dispatch_decode(int head_dim, const void* q, const void* k,
 }  // namespace
 }  // namespace skk
 
+// q_dtype: kF32 or kBF16; kv_dtype: q_dtype, or kI8 with both scale
+// pointers set.
 extern "C" int skk_paged_decode(const void* q, const void* k_arena,
-                                const void* v_arena, const void* tables,
+                                const void* v_arena, const void* k_scale,
+                                const void* v_scale, const void* tables,
                                 const void* positions, void* out, int batch,
                                 int kv_heads, int group, int head_dim,
                                 int n_blocks, int block_size, int t_width,
-                                int layer, float scale, int dtype,
-                                void* stream) {
+                                int layer, float scale, int q_dtype,
+                                int kv_dtype, void* stream) {
   if (batch < 1 || kv_heads < 1 || kv_heads > 65535 ||
       group < 1 || group > skk::kMaxGroup || block_size < 1 || t_width < 1 ||
       layer < 0)
     return skk::kErrUnsupported;
+  if (kv_dtype == skk::kI8 && (k_scale == nullptr || v_scale == nullptr))
+    return skk::kErrUnsupported;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case skk::kBF16:
-      return skk::dispatch_decode<__nv_bfloat16>(
-          head_dim, q, k_arena, v_arena, tables, positions, out, batch,
-          kv_heads, group, n_blocks, block_size, t_width, layer, scale, s);
-    case skk::kF32:
-      return skk::dispatch_decode<float>(
-          head_dim, q, k_arena, v_arena, tables, positions, out, batch,
-          kv_heads, group, n_blocks, block_size, t_width, layer, scale, s);
-    default:
-      return skk::kErrUnsupported;
-  }
+#define SKK_DECODE(TQ, T)                                                    \
+  skk::dispatch_decode<TQ, T>(head_dim, q, k_arena, v_arena, k_scale,         \
+                              v_scale, tables, positions, out, batch,         \
+                              kv_heads, group, n_blocks, block_size, t_width, \
+                              layer, scale, s)
+  if (q_dtype == skk::kBF16 && kv_dtype == skk::kBF16)
+    return SKK_DECODE(__nv_bfloat16, __nv_bfloat16);
+  if (q_dtype == skk::kF32 && kv_dtype == skk::kF32)
+    return SKK_DECODE(float, float);
+  if (q_dtype == skk::kBF16 && kv_dtype == skk::kI8)
+    return SKK_DECODE(__nv_bfloat16, int8_t);
+  if (q_dtype == skk::kF32 && kv_dtype == skk::kI8)
+    return SKK_DECODE(float, int8_t);
+#undef SKK_DECODE
+  return skk::kErrUnsupported;
 }

@@ -14,8 +14,9 @@ own copy of the host logic and imports nothing of the JAX package):
   not device work; a sequence that outgrows its blocks appends ids from
   the free list to its host block table and re-uploads the table.
 
-The int8 arena (with per-row scales) and the host tier's in-flight
-tracking come with later slices (ROADMAP.md Queue A items 7 and 9).
+An int8 arena (kv_dtype='int8') holds int8 k/v and (L, NB, BS, KV) f32
+absmax scales k_scale/v_scale.  The host tier's in-flight tracking comes
+with a later slice (ROADMAP.md Queue A item 9).
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from skypilot_tpu_torch.device import resolve_device
+from skypilot_tpu_torch.infer import llama_infer
 from skypilot_tpu_torch.models import llama
 
 Cache = Dict[str, torch.Tensor]
@@ -44,26 +45,15 @@ class PoolExhaustedError(RuntimeError):
         self.retry_after_s = retry_after_s
 
 
-def _check_kv_dtype(kv_dtype: Optional[str]) -> None:
-    if kv_dtype == 'int8':
-        raise NotImplementedError(
-            "kv_dtype='int8' is not ported yet: ROADMAP.md Queue A item 7")
-    if kv_dtype is not None:
-        raise ValueError(f'kv_dtype must be None or "int8", '
-                         f'got {kv_dtype!r}')
-
-
 def init_arena(config: llama.LlamaConfig, n_blocks: int,
                block_size: int, kv_dtype: Optional[str] = None,
                device=None) -> Cache:
-    """Allocate the pooled arena: k/v zeros (L, NB, BS, KV, hd) in the
-    model dtype on `device` (default: the CUDA card)."""
-    _check_kv_dtype(kv_dtype)
-    shape = (config.n_layers, n_blocks, block_size, config.n_kv_heads,
-             config.head_dim)
-    device = resolve_device(device)
-    return {'k': torch.zeros(shape, dtype=config.dtype, device=device),
-            'v': torch.zeros(shape, dtype=config.dtype, device=device)}
+    """Allocate the pooled arena on `device` (default: the CUDA card):
+    k/v zeros (L, NB, BS, KV, hd) in the model dtype, or int8 with
+    (L, NB, BS, KV) f32 scales for kv_dtype='int8' -- the layout of
+    llama_infer.init_cache with NB blocks in place of B slots."""
+    return llama_infer.init_cache(config, n_blocks, block_size,
+                                  kv_dtype=kv_dtype, device=device)
 
 
 def block_nbytes(config: llama.LlamaConfig, block_size: int,

@@ -2,9 +2,10 @@
 
 Counterpart of the pooled-serving subset of skypilot_tpu/infer/engine.py:
 ``GeneratorConfig`` with the same validation errors, ``derive_buckets``,
-``validate_context`` and ``host_fetch``.  Options this slice does not
-carry raise ``NotImplementedError`` naming their ROADMAP.md item.  The
-lockstep ``Generator`` entry point comes with ROADMAP.md Queue A item 13.
+``validate_context``, ``prepare_params`` and ``host_fetch``.  Options the
+port does not carry yet raise ``NotImplementedError`` naming their
+ROADMAP.md item.  The lockstep ``Generator`` entry point comes with
+ROADMAP.md Queue A item 13.
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from skypilot_tpu_torch.infer import quant
 
 
 def _deferred(option: str, item: int) -> NotImplementedError:
@@ -32,7 +35,8 @@ class GeneratorConfig:
     top_k: Optional[int] = None
     top_p: Optional[float] = None
     eos_token: Optional[int] = None
-    # None = model dtype.  'int8' comes with Queue A item 7.
+    # None = model dtype; 'int8' = quantized KV arena (per-row absmax
+    # scales) / weight-only int8 linear weights (per-out-channel scales).
     kv_cache_dtype: Optional[str] = None
     weights_dtype: Optional[str] = None
     # Only the pooled block-arena data plane is ported.
@@ -53,14 +57,16 @@ class GeneratorConfig:
     # Physical blocks in the arena including the garbage block 0.
     # None -> enough for every slot to reach max_seq_len.
     pool_blocks: Optional[int] = None
-    # Speculative decoding (Queue A item 8).
+    # Speculative decoding: the n-gram drafter proposes spec_k tokens per
+    # slot and one verify forward scores spec_k + 1 positions.  0 = off.
     spec_k: int = 0
     # Collective overlap for sharded decode (Queue A item 10).
     overlap_collectives: Optional[bool] = None
     overlap_chunks: Optional[int] = None
     # Host-DRAM KV tier (Queue A item 9).
     host_tier_mb: Optional[float] = None
-    # Chunked-prefill piggyback on the decode step (Queue A item 8).
+    # Chunked-prefill piggyback: token columns of a fused step's first
+    # forward (decode slots + prompt chunk).  None = dedicated windows.
     fuse_budget: Optional[int] = None
 
     def __post_init__(self):
@@ -110,15 +116,9 @@ class GeneratorConfig:
                 f'prefix_block')
         for name in ('kv_cache_dtype', 'weights_dtype'):
             value = getattr(self, name)
-            if value == 'int8':
-                raise _deferred(f"{name}='int8'", 7)
-            if value is not None:
+            if value not in (None, 'int8'):
                 raise ValueError(f"{name} must be None or 'int8', "
                                  f'got {value!r}')
-        if self.spec_k:
-            raise _deferred(f'spec_k={self.spec_k}', 8)
-        if self.fuse_budget is not None:
-            raise _deferred(f'fuse_budget={self.fuse_budget}', 8)
         if self.prefix_cache_mb:
             raise _deferred(f'prefix_cache_mb={self.prefix_cache_mb}', 9)
         if self.host_tier_mb:
@@ -146,6 +146,15 @@ def validate_context(gen_config: GeneratorConfig, model_config) -> None:
             f'{model_config.max_seq_len} (for Mistral this is the '
             f'sliding window — serving beyond it would silently change '
             f'attention semantics)')
+
+
+def prepare_params(params, gen_config: GeneratorConfig):
+    """Apply GeneratorConfig.weights_dtype to a parameter tree: the tree
+    itself for None, a copy with int8 linear weights for 'int8' (the
+    caller's tree is left as it is)."""
+    if gen_config.weights_dtype is None:
+        return params
+    return quant.quantize_weights(params)
 
 
 def derive_buckets(gen_config: GeneratorConfig):

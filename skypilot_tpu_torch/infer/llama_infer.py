@@ -10,9 +10,12 @@ step is bound by launch overhead on the host; CUDA graphs are later work.
 
 Kernels on this path (each with a plain PyTorch version for CPU tensors):
 ``ops.rmsnorm.rms_norm`` (every norm), ``ops.attention.flash_attention``
-(prefill) and ``ops.decode_attention.decode_attention_pooled`` (decode).
-The chunked-prefill window attends with plain einsums, as the JAX
-package does.
+(prefill), ``ops.decode_attention.decode_attention_pooled`` (decode),
+``decode_window_attention_pooled`` (speculative verify) and
+``fused_step_attention_pooled`` (the fused prefill+decode step).  The
+chunked-prefill window attends with plain einsums, as the JAX package
+does.  An int8 cache (``kv_dtype='int8'``) holds int8 k/v and per-(row,
+KV head) f32 absmax scales ``k_scale``/``v_scale``.
 """
 from __future__ import annotations
 
@@ -35,15 +38,53 @@ Cache = Dict[str, torch.Tensor]
 def init_cache(config: llama.LlamaConfig, batch: int, max_len: int,
                kv_dtype: Optional[str] = None, device=None) -> Cache:
     """Contiguous k/v cache (L, B, max_len, KV, hd) of zeros in the model
-    dtype.  The int8 cache comes with ROADMAP.md Queue A item 7."""
-    if kv_dtype is not None:
-        raise NotImplementedError(
-            "kv_dtype='int8' is not ported yet: ROADMAP.md Queue A item 7")
+    dtype, or int8 with (L, B, max_len, KV) f32 scales for
+    kv_dtype='int8'."""
     shape = (config.n_layers, batch, max_len, config.n_kv_heads,
              config.head_dim)
     device = resolve_device(device)
-    return {'k': torch.zeros(shape, dtype=config.dtype, device=device),
-            'v': torch.zeros(shape, dtype=config.dtype, device=device)}
+    if kv_dtype is None:
+        return {'k': torch.zeros(shape, dtype=config.dtype, device=device),
+                'v': torch.zeros(shape, dtype=config.dtype, device=device)}
+    if kv_dtype != 'int8':
+        raise ValueError(f'kv_dtype must be None or "int8", '
+                         f'got {kv_dtype!r}')
+    return {'k': torch.zeros(shape, dtype=torch.int8, device=device),
+            'v': torch.zeros(shape, dtype=torch.int8, device=device),
+            'k_scale': torch.zeros(shape[:-1], dtype=torch.float32,
+                                   device=device),
+            'v_scale': torch.zeros(shape[:-1], dtype=torch.float32,
+                                   device=device)}
+
+
+def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., hd) -> (int8 values, f32 absmax scale over hd)."""
+    xf = x.float()
+    scale = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True) / 127.0,
+                            1e-8)
+    return torch.round(xf / scale).to(torch.int8), scale[..., 0]
+
+
+def _write_kv(cache: Cache, idx: tuple, k: torch.Tensor,
+              v: torch.Tensor) -> None:
+    """Write K/V rows to cache[key][idx] in place (an int8 cache takes
+    the quantized rows and their scales at the same index)."""
+    if 'k_scale' in cache:
+        k, cache['k_scale'][idx] = _quantize_kv(k)
+        v, cache['v_scale'][idx] = _quantize_kv(v)
+    cache['k'][idx] = k
+    cache['v'][idx] = v
+
+
+def _table_rows(table: torch.Tensor, rows: torch.Tensor, bs: int):
+    """(block, offset) of logical cache rows through a (..., T) table;
+    rows past the table go to the garbage block 0 (clamp first: the
+    lookup itself must stay in bounds)."""
+    t_width = table.shape[-1]
+    blk_idx = rows // bs
+    blk = torch.gather(table.long(), -1,
+                       torch.clamp_max(blk_idx, t_width - 1))
+    return torch.where(blk_idx >= t_width, 0, blk), rows % bs
 
 
 @functools.lru_cache(maxsize=16)
@@ -113,8 +154,7 @@ def prefill(params: llama.Params, tokens: torch.Tensor,
         h = h + quant.matmul(o.reshape(batch, seq, -1), attn_p['wo'])
         x = rmsnorm_ops.rms_norm(h, lp['ln2'], eps=config.norm_eps)
         h = h + _ffn(x, lp, config)
-        cache['k'][i, :, :seq] = k
-        cache['v'][i, :, :seq] = v
+        _write_kv(cache, (i, slice(None), slice(None, seq)), k, v)
     h = rmsnorm_ops.rms_norm(h, params['final_norm'], eps=config.norm_eps)
     # Logits only at each row's last valid position.
     last = h[torch.arange(batch, device=h.device), lengths.long() - 1]
@@ -126,12 +166,13 @@ def scatter_prefill_pooled(small: Cache, arena: Cache,
                            tables_scatter: torch.Tensor) -> Cache:
     """Move a contiguous prefill cache into pooled arena blocks, in place.
 
-    small: (L, B, S, KV, hd) filled by `prefill`; arena: the pooled
-    (L, NB, BS, KV, hd) arena; tables_scatter: (B, nb) with
-    nb == ceil(S / BS), the arena blocks of each row's first nb logical
-    blocks (entries past a short prompt's own blocks point at the
-    garbage block, where duplicate writes are harmless).  S is padded up
-    to a BS multiple first; pad rows land above every row's length."""
+    small: (L, B, S, KV, hd) filled by `prefill` (plus (L, B, S, KV)
+    scales when int8); arena: the pooled (L, NB, BS, KV, hd) arena;
+    tables_scatter: (B, nb) with nb == ceil(S / BS), the arena blocks of
+    each row's first nb logical blocks (entries past a short prompt's own
+    blocks point at the garbage block, where duplicate writes are
+    harmless).  S is padded up to a BS multiple first; pad rows land
+    above every row's length."""
     bs = arena['k'].shape[2]
     s_len = small['k'].shape[2]
     pad = (-s_len) % bs
@@ -139,8 +180,9 @@ def scatter_prefill_pooled(small: Cache, arena: Cache,
     idx = tables_scatter.long()
     for key, arr in small.items():
         if pad:
+            # Pad axis 2 (S) of a 5-d k/v or a 4-d scale plane.
             arr = torch.nn.functional.pad(
-                arr, (0, 0, 0, 0, 0, pad))
+                arr, (0, 0) * (arr.dim() - 3) + (0, pad))
         n_layers, batch = arr.shape[:2]
         resh = arr.reshape((n_layers, batch, nb, bs) + tuple(arr.shape[3:]))
         arena[key][:, idx] = resh
@@ -158,6 +200,19 @@ def _window_attention(q, k_slot, v_slot, visible, config):
     s = torch.where(visible[None, None, :, :], s, -1e30)
     p = torch.softmax(s, dim=-1).to(q.dtype)
     return torch.einsum('kgws,skd->wkgd', p, v_slot)
+
+
+def _slot_view(cache: Cache, key: str, layer: int, table: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+    """One layer of one sequence's K or V through its (T,) table, as a
+    (T * BS, KV, hd) view in `dtype`; an int8 cache is dequantized with
+    its scales in `dtype`, as the JAX window prefill does."""
+    rows = cache[key][layer][table]
+    rows = rows.reshape((-1,) + tuple(rows.shape[2:]))
+    if f'{key}_scale' not in cache:
+        return rows
+    scale = cache[f'{key}_scale'][layer][table].reshape(rows.shape[:-1])
+    return decode_attention_ops._dequantize(rows, scale, dtype)
 
 
 def prefill_window_pooled(params: llama.Params, tokens_w: torch.Tensor,
@@ -183,12 +238,8 @@ def prefill_window_pooled(params: llama.Params, tokens_w: torch.Tensor,
     h = llama.embed_tokens(params, tokens_w[None], config)   # (1, W, d)
     q_pos = start + torch.arange(w, device=device)          # (W,)
     visible = torch.arange(s_len, device=device)[None, :] <= q_pos[:, None]
-    blk_idx = q_pos // bs
     table = table_row.long()
-    blk = torch.where(blk_idx >= t_width, 0,
-                      table[torch.clamp_max(blk_idx, t_width - 1)])
-    off = q_pos % bs
-    kv_shape = (s_len, config.n_kv_heads, config.head_dim)
+    blk, off = _table_rows(table, q_pos, bs)
     for i in range(config.n_layers):
         lp = llama.layer_params(params, i)
         attn_p = lp['attn']
@@ -196,10 +247,9 @@ def prefill_window_pooled(params: llama.Params, tokens_w: torch.Tensor,
         q, k, v = _qkv(x, attn_p, config)
         q = rope_ops.apply_rope(q, cos, sin, positions=q_pos[None])
         k = rope_ops.apply_rope(k, cos, sin, positions=q_pos[None])
-        cache['k'][i, blk, off] = k[0]
-        cache['v'][i, blk, off] = v[0]
-        k_slot = cache['k'][i][table].reshape(kv_shape)
-        v_slot = cache['v'][i][table].reshape(kv_shape)
+        _write_kv(cache, (i, blk, off), k[0], v[0])
+        k_slot = _slot_view(cache, 'k', i, table, q.dtype)
+        v_slot = _slot_view(cache, 'v', i, table, q.dtype)
         o = _window_attention(q, k_slot, v_slot, visible, config)
         h = h + quant.matmul(o.reshape(1, w, -1), attn_p['wo'])
         x = rmsnorm_ops.rms_norm(h, lp['ln2'], eps=config.norm_eps)
@@ -239,15 +289,130 @@ def decode_step_pooled(params: llama.Params, token: torch.Tensor,
         q, k, v = _qkv(x, attn_p, config)
         q = rope_ops.apply_rope(q, cos, sin, positions=pos)
         k = rope_ops.apply_rope(k, cos, sin, positions=pos)
-        cache['k'][i, blk, off] = k[:, 0]
-        cache['v'][i, blk, off] = v[:, 0]
+        _write_kv(cache, (i, blk, off), k[:, 0], v[:, 0])
         q_r = q[:, 0].reshape(batch, config.n_kv_heads, group,
                               config.head_dim)
         o = decode_attention_ops.decode_attention_pooled(
-            q_r, cache['k'], cache['v'], tables, i, positions)
+            q_r, cache['k'], cache['v'], tables, i, positions,
+            cache.get('k_scale'), cache.get('v_scale'))
         h = h + quant.matmul(o.reshape(batch, 1, -1), attn_p['wo'])
         x = rmsnorm_ops.rms_norm(h, lp['ln2'], eps=config.norm_eps)
         h = h + _ffn(x, lp, config)
     h = rmsnorm_ops.rms_norm(h, params['final_norm'], eps=config.norm_eps)
     logits = quant.matmul(h[:, 0], params['lm_head'], out_dtype=torch.float32)
     return logits, cache
+
+
+def decode_verify_pooled(params: llama.Params, tokens: torch.Tensor,
+                         config: llama.LlamaConfig, cache: Cache,
+                         positions: torch.Tensor, tables: torch.Tensor
+                         ) -> Tuple[torch.Tensor, Cache]:
+    """Speculative VERIFY step over the pooled arena: score a window of
+    W = spec_k + 1 tokens per slot in one batched forward.
+
+    tokens: (B, W) int32; tokens[:, 0] is each slot's last committed
+    token and tokens[:, 1:] the drafter's proposals.  positions: (B,)
+    int32, the cache row of tokens[:, 0]; window column w lands at row
+    positions + w.  Per layer all W rows' K/V scatter through the block
+    table first (rows past the table go to the garbage block 0: a parked
+    chunked-prefill slot sits at the last cache row), then every window
+    query attends with the per-row mask `key <= positions + w` through
+    the window kernel.  Rejected rows need no cleanup: the batcher's
+    cursor never advances over them.  Returns ((B, W, vocab) f32 logits,
+    cache)."""
+    batch, win = tokens.shape
+    bs = cache['k'].shape[2]
+    t_width = tables.shape[1]
+    group = config.n_heads // config.n_kv_heads
+    cos, sin = rope_tables(config, t_width * bs, tokens.device)
+    h = llama.embed_tokens(params, tokens, config)           # (B, W, d)
+    pos_w = positions.long()[:, None] + torch.arange(win,
+                                                     device=tokens.device)
+    blk, off = _table_rows(tables, pos_w, bs)                # (B, W)
+    # Rows past the table (garbage writes) take the last row's rotation,
+    # as the JAX package's clamped gather does.
+    rot = torch.clamp_max(pos_w, t_width * bs - 1)
+    for i in range(config.n_layers):
+        lp = llama.layer_params(params, i)
+        attn_p = lp['attn']
+        x = rmsnorm_ops.rms_norm(h, lp['ln1'], eps=config.norm_eps)
+        q, k, v = _qkv(x, attn_p, config)
+        q = rope_ops.apply_rope(q, cos, sin, positions=rot)
+        k = rope_ops.apply_rope(k, cos, sin, positions=rot)
+        _write_kv(cache, (i, blk, off), k, v)
+        o = decode_attention_ops.decode_window_attention_pooled(
+            q.reshape(batch, win, config.n_kv_heads, group,
+                      config.head_dim),
+            cache['k'], cache['v'], tables, i, positions,
+            cache.get('k_scale'), cache.get('v_scale'))
+        h = h + quant.matmul(o.reshape(batch, win, -1), attn_p['wo'])
+        x = rmsnorm_ops.rms_norm(h, lp['ln2'], eps=config.norm_eps)
+        h = h + _ffn(x, lp, config)
+    h = rmsnorm_ops.rms_norm(h, params['final_norm'], eps=config.norm_eps)
+    logits = quant.matmul(h, params['lm_head'], out_dtype=torch.float32)
+    return logits, cache
+
+
+def fused_step_pooled(params: llama.Params, token: torch.Tensor,
+                      config: llama.LlamaConfig, cache: Cache,
+                      positions: torch.Tensor, tables: torch.Tensor,
+                      pf_tokens: torch.Tensor, pf_table_row: torch.Tensor,
+                      pf_start: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, Cache]:
+    """Fused prefill+decode step over the pooled arena: ONE forward
+    carries the decode batch's single-token columns AND a fixed-width
+    chunk of an in-flight prompt.
+
+    token (B,) / positions (B,) / tables (B, T): the decode contract of
+    :func:`decode_step_pooled`.  pf_tokens (F,): the prompt chunk, padded
+    to the fuse budget; pf_table_row (T,): the prefill slot's table row;
+    pf_start: the chunk's first cache row.  Pad tokens past the real
+    chunk write K/V at rows above every later query's mask (garbage
+    block 0 when past the table), which the next chunk overwrites.
+
+    All B + F rows share one _qkv/rope/scatter per layer; attention goes
+    through :func:`ops.decode_attention.fused_step_attention_pooled`
+    (K1 for the decode rows, K4 as one window row for the prefill lane),
+    each lane with its unfused numerics.  The prefill lane samples
+    nothing.  Returns (decode logits (B, vocab) f32, chunk hiddens
+    (F, d) after the final norm, cache)."""
+    batch = token.shape[0]
+    fuse = pf_tokens.shape[0]
+    bs = cache['k'].shape[2]
+    t_width = tables.shape[1]
+    group = config.n_heads // config.n_kv_heads
+    device = token.device
+    cos, sin = rope_tables(config, t_width * bs, device)
+    h = llama.embed_tokens(params, torch.cat([token, pf_tokens]),
+                           config)[:, None]                  # (B+F, 1, d)
+    pf_pos = pf_start + torch.arange(fuse, device=device)
+    # Pad rows past the table take the last row's rotation (the JAX
+    # package's clamped gather); they only write the garbage block.
+    pos = torch.clamp_max(torch.cat([positions.long(), pf_pos]),
+                          t_width * bs - 1)[:, None]
+    dec_blk, dec_off = _table_rows(tables, positions.long()[:, None], bs)
+    pf_blk, pf_off = _table_rows(pf_table_row, pf_pos, bs)
+    blk = torch.cat([dec_blk[:, 0], pf_blk])
+    off = torch.cat([dec_off[:, 0], pf_off])
+    kv_shape = (config.n_kv_heads, group, config.head_dim)
+    for i in range(config.n_layers):
+        lp = llama.layer_params(params, i)
+        attn_p = lp['attn']
+        x = rmsnorm_ops.rms_norm(h, lp['ln1'], eps=config.norm_eps)
+        q, k, v = _qkv(x, attn_p, config)                    # (B+F, 1, ...)
+        q = rope_ops.apply_rope(q, cos, sin, positions=pos)
+        k = rope_ops.apply_rope(k, cos, sin, positions=pos)
+        _write_kv(cache, (i, blk, off), k[:, 0], v[:, 0])
+        o_dec, o_pf = decode_attention_ops.fused_step_attention_pooled(
+            q[:batch, 0].reshape((batch,) + kv_shape),
+            q[batch:, 0].reshape((fuse,) + kv_shape), cache['k'],
+            cache['v'], tables, pf_table_row, i, positions, pf_start,
+            cache.get('k_scale'), cache.get('v_scale'))
+        o = torch.cat([o_dec, o_pf])
+        h = h + quant.matmul(o.reshape(batch + fuse, 1, -1), attn_p['wo'])
+        x = rmsnorm_ops.rms_norm(h, lp['ln2'], eps=config.norm_eps)
+        h = h + _ffn(x, lp, config)
+    h = rmsnorm_ops.rms_norm(h, params['final_norm'], eps=config.norm_eps)
+    logits = quant.matmul(h[:batch, 0], params['lm_head'],
+                          out_dtype=torch.float32)
+    return logits, h[batch:, 0], cache

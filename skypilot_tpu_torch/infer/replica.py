@@ -235,6 +235,13 @@ def main(argv=None) -> int:
     parser.add_argument('--batch-size', type=int, default=8)
     parser.add_argument('--max-seq-len', type=int, default=2048)
     parser.add_argument('--prefill-chunk', type=int, default=None)
+    parser.add_argument('--kv-cache-dtype', default=None,
+                        choices=[None, 'int8'],
+                        help='int8: quantized KV arena (per-row scales)')
+    parser.add_argument('--weights-dtype', default=None,
+                        choices=[None, 'int8'],
+                        help='int8: weight-only quantization '
+                             '(per-out-channel scales)')
     parser.add_argument('--decode-chunk', type=int, default=16)
     parser.add_argument('--max-new-tokens', type=int, default=64)
     args = parser.parse_args(argv)
@@ -249,7 +256,9 @@ def main(argv=None) -> int:
         GeneratorConfig(max_seq_len=min(args.max_seq_len,
                                         config.max_seq_len),
                         batch_size=args.batch_size,
-                        prefill_chunk=args.prefill_chunk),
+                        prefill_chunk=args.prefill_chunk,
+                        kv_cache_dtype=args.kv_cache_dtype,
+                        weights_dtype=args.weights_dtype),
         decode_chunk=args.decode_chunk, max_queue=4 * args.batch_size,
         device=device)
     # Warm the path so the first request does not pay the kernel build.

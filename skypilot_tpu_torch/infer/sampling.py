@@ -3,7 +3,9 @@
 Counterpart of skypilot_tpu/infer/sampling.py.  The Gumbel noise comes
 from a ``torch.Generator`` on the logits' device, so a sampled token
 stream cannot reproduce JAX's PRNG bits: sampled paths agree with the JAX
-package in distribution only.  Greedy paths draw no noise.
+package in distribution only.  Greedy paths draw no noise.  The
+speculative accept rules (``spec_accept_greedy``/``spec_accept_sampled``)
+score a verify window against the drafter's proposals.
 """
 from __future__ import annotations
 
@@ -82,3 +84,42 @@ def sample_logits_batched(logits: torch.Tensor,
         scaled = _mask_top_p(scaled, top_p)
     sampled = gumbel_argmax(scaled, generator)
     return torch.where(temperature <= 0.0, greedy, sampled)
+
+
+def _accept_prefix_len(targets: torch.Tensor,
+                       draft: torch.Tensor) -> torch.Tensor:
+    """targets (B, W) int32 target tokens (one per verify position),
+    draft (B, k) int32 proposals, W == k + 1 -> (B,) int32: the number
+    of LEADING draft tokens the target agrees with (draft[:, i] is
+    checked against targets[:, i]; acceptance stops at the first
+    mismatch)."""
+    match = (draft == targets[:, :-1]).to(torch.int32)
+    return torch.cumprod(match, dim=-1).sum(dim=-1).to(torch.int32)
+
+
+def spec_accept_greedy(logits: torch.Tensor, draft: torch.Tensor):
+    """Greedy exact-match acceptance: logits (B, W, vocab) f32 at the
+    W = k + 1 window positions, draft (B, k).  Returns (targets (B, W)
+    int32, accepts (B,) int32); targets[b, :accepts[b] + 1] is slot b's
+    committed run, bit-exact with sequential greedy decode."""
+    targets = torch.argmax(logits, dim=-1).to(torch.int32)
+    return targets, _accept_prefix_len(targets, draft)
+
+
+def spec_accept_sampled(logits: torch.Tensor, draft: torch.Tensor,
+                        generator: Optional[torch.Generator],
+                        temperature: torch.Tensor, top_p: torch.Tensor,
+                        top_k: Optional[int] = None,
+                        nucleus: bool = True):
+    """Distribution-preserving acceptance for sampled rows.  The n-gram
+    drafter is deterministic (a point-mass proposal), so the rejection
+    scheme reduces to: draw the target's own token y_i ~ p_i at every
+    window position (one draw per position from `generator`), accept
+    draft token d_i while y_i == d_i, emit y at the first mismatch.
+    Every committed token is then a draw from the target distribution.
+    Returns (targets, accepts) like :func:`spec_accept_greedy`."""
+    targets = torch.stack(
+        [sample_logits_batched(logits[:, i], generator, temperature, top_p,
+                               top_k=top_k, nucleus=nucleus)
+         for i in range(logits.shape[1])], dim=1)
+    return targets, _accept_prefix_len(targets, draft)

@@ -18,12 +18,21 @@ Counterpart of the core of skypilot_tpu/infer/serving.py
   and free slots freeze: their lockstep compute rewrites one dead cache
   row (free slots' zeroed table rows route it to the garbage block) and
   emits a fill token the host drops.
+- Speculative decoding (``spec_k``): the host n-gram drafter proposes
+  spec_k tokens per slot, one verify forward scores the spec_k + 1
+  window and the accept step commits the agreeing prefix; rejected rows
+  are rolled back by the position cursor alone.  An adaptive policy
+  falls back to plain chunks when drafts are rarely accepted.
+- Fused steps (``fuse_budget``): while a chunked prompt is in flight and
+  slots decode, a chunk of the prompt rides the first forward of the
+  decode chunk instead of taking a tick of its own.  Fused ticks do not
+  speculate.
 
 Where the JAX package jitted each piece and donated the arena, this
 module runs eagerly and updates the arena and the per-slot device rows
 in place.  Left for later slices (ROADMAP.md Queue A): telemetry, spans
 and the cost ledger (item 13), the prefix cache and host tier (item 9),
-speculative decoding and the fused step (item 8), and meshes (item 10).
+and meshes (item 10).
 
 Usage:
 
@@ -46,7 +55,9 @@ import torch
 from skypilot_tpu_torch.device import resolve_device
 from skypilot_tpu_torch.infer import block_pool as block_pool_lib
 from skypilot_tpu_torch.infer import engine as engine_lib
+from skypilot_tpu_torch.infer import fuse as fuse_lib
 from skypilot_tpu_torch.infer import llama_infer, quant, sampling
+from skypilot_tpu_torch.infer import spec_decode as spec_decode_lib
 from skypilot_tpu_torch.infer.engine import GeneratorConfig
 from skypilot_tpu_torch.models import llama
 
@@ -77,7 +88,8 @@ class ContinuousBatcher:
                  decode_chunk: int = 8, max_queue: Optional[int] = None,
                  device=None):
         """params: as returned by llama.init_params / params_from_numpy,
-        on `device` (default: the CUDA card).
+        on `device` (default: the CUDA card); gen_config.weights_dtype
+        'int8' serves a quantized copy of them.
 
         max_queue: submit() raises PoolExhaustedError (with Retry-After
         advice) once this many requests wait; None = unbounded."""
@@ -89,7 +101,7 @@ class ContinuousBatcher:
                              f'{gen_config.prefill_chunk}')
         if max_queue is not None and max_queue < 1:
             raise ValueError(f'max_queue must be >= 1, got {max_queue}')
-        self.params = params
+        self.params = engine_lib.prepare_params(params, gen_config)
         self.config = config
         self.gen = gen_config
         self.decode_chunk = decode_chunk
@@ -149,9 +161,23 @@ class ContinuousBatcher:
         self._admit_group = max(1, min(4, batch))
         # The in-flight chunked prefill (at most one long prompt).
         self._incremental: Optional[_Request] = None
-        # Steady decode throughput: real tokens appended by decode
-        # chunks and the host seconds those chunks took (each ends in
-        # the chunk's one host fetch, so the clock covers device work).
+        # Speculative decoding: the host drafter, the policy that gates
+        # verify chunks, and the draft scoreboard.
+        self._drafter = None
+        if gen_config.spec_k:
+            self._drafter = spec_decode_lib.NgramDrafter(batch,
+                                                         gen_config.spec_k)
+            self._spec_policy = spec_decode_lib.SpecPolicy()
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        # Chunked-prefill piggyback: chunk sizing and fuse counters.
+        self._fuse_policy = None
+        if gen_config.fuse_budget:
+            self._fuse_policy = fuse_lib.FusePolicy(gen_config.fuse_budget)
+        # Steady decode throughput: real tokens appended by decode, spec
+        # and fused chunks and the host seconds those chunks took (each
+        # ends in the chunk's one host fetch, so the clock covers device
+        # work).
         self.decode_tokens = 0
         self.decode_seconds = 0.0
 
@@ -265,8 +291,12 @@ class ContinuousBatcher:
     # ---- pool helpers ----------------------------------------------------
     def _pool_cap(self, req: _Request) -> int:
         """Worst-case blocks the request can ever reference: prompt plus
-        its full token budget, capped at the table width."""
-        total = min(len(req.prompt) + req.max_new_tokens,
+        its full token budget, plus spec_k rows of verify-window slack
+        when speculation is on (the window writes candidate K/V at rows
+        pos..pos+k before knowing how many commit), capped at the table
+        width."""
+        slack = self.gen.spec_k if self._drafter is not None else 0
+        total = min(len(req.prompt) + req.max_new_tokens + slack,
                     self.gen.max_seq_len)
         return min(-(-total // self.block_size), self.table_width)
 
@@ -365,7 +395,7 @@ class ContinuousBatcher:
         nb = tables_scatter.shape[1]
         scratch = llama_infer.init_cache(
             self.config, tokens.shape[0], nb * self.block_size,
-            device=dev)
+            kv_dtype=self.gen.kv_cache_dtype, device=dev)
         lengths_t = torch.as_tensor(lengths, device=dev)
         logits, scratch = llama_infer.prefill(
             self.params, torch.as_tensor(tokens, device=dev), self.config,
@@ -382,13 +412,17 @@ class ContinuousBatcher:
                            top_ps_t)
         return firsts
 
-    def _decode(self, n: int, all_greedy: bool,
-                nucleus: bool) -> torch.Tensor:
+    def _decode(self, n: int, all_greedy: bool, nucleus: bool,
+                prefill_lane=None):
         """n lockstep decode steps with on-device sampling and per-slot
         EOS/budget tracking; no host sync inside.  Done slots freeze
         (position and feed token stop advancing) and emit the fill
-        token.  Updates the device rows and the arena in place and
-        returns the (n, B) token block."""
+        token.  Updates the device rows and the arena in place.
+
+        prefill_lane: (pf_tokens, pf_table_row, pf_start) makes step 0
+        the fused forward (llama_infer.fused_step_pooled) that also
+        carries a chunk of the in-flight prompt; steps 1..n-1 are plain.
+        Returns (the (n, B) token block, the chunk's hiddens or None)."""
         eos = self.gen.eos_token
         fill = eos if eos is not None else 0
         batch = self._token.shape[0]
@@ -397,10 +431,16 @@ class ContinuousBatcher:
                            device=self.device)
         token, positions = self._token, self._positions
         done, limit = self._done, self._limit
+        h_pf = None
         for i in range(n):
-            logits, _ = llama_infer.decode_step_pooled(
-                self.params, token, self.config, self.pool.arena,
-                positions, tables)
+            if i == 0 and prefill_lane is not None:
+                logits, h_pf, _ = llama_infer.fused_step_pooled(
+                    self.params, token, self.config, self.pool.arena,
+                    positions, tables, *prefill_lane)
+            else:
+                logits, _ = llama_infer.decode_step_pooled(
+                    self.params, token, self.config, self.pool.arena,
+                    positions, tables)
             if all_greedy:
                 nxt = sampling.sample_logits(logits, temperature=0.0)
             else:
@@ -417,7 +457,32 @@ class ContinuousBatcher:
             token = torch.where(live, nxt, token)
         self._token, self._positions = token, positions
         self._done, self._limit = done, limit
-        return toks
+        return toks, h_pf
+
+    def _verify(self, draft: torch.Tensor, all_greedy: bool,
+                nucleus: bool):
+        """Speculative chunk on the device: score the spec_k + 1 window
+        (last committed token + the drafter's proposals) in ONE forward,
+        then commit each slot's accepted prefix with the sequential
+        chunk's per-token semantics.  Rejected rows are cursor rollback:
+        positions never advance over them.  Updates the device rows in
+        place; returns (emitted (B, W), committed (B,))."""
+        tokens_w = torch.cat([self._token[:, None], draft], dim=1)
+        logits, _ = llama_infer.decode_verify_pooled(
+            self.params, tokens_w, self.config, self.pool.arena,
+            self._positions, self._tables_dev)
+        if all_greedy:
+            targets, accepts = sampling.spec_accept_greedy(logits, draft)
+        else:
+            targets, accepts = sampling.spec_accept_sampled(
+                logits, draft, self._rng, self._temp_row, self._top_p_row,
+                top_k=self.gen.top_k, nucleus=nucleus)
+        eos = self.gen.eos_token
+        (emitted, self._token, self._positions, self._done, self._limit,
+         committed) = spec_decode_lib.accept_window(
+            targets, accepts, self._done, self._limit, self._positions,
+            self._token, eos=eos, fill=eos if eos is not None else 0)
+        return emitted, committed
 
     # ---- scheduling ------------------------------------------------------
     def _request_sampling(self, req: _Request):
@@ -430,6 +495,50 @@ class ContinuousBatcher:
     def _record_first(self, req: _Request, token: int) -> None:
         req.out.append(token)
         req.ttft_s = time.perf_counter() - req.submitted_at
+
+    def _reset_drafter(self, req: _Request) -> None:
+        """Seed the slot's drafter with the prompt and the first token
+        (the prefix-cache continuation comes with the prefix cache)."""
+        if self._drafter is not None:
+            self._drafter.reset(req.slot, req.prompt)
+            self._drafter.observe(req.slot, req.out[-1:])
+
+    def _sampling_mode(self):
+        """(all_greedy, nucleus) of the active slots, from the host
+        mirrors."""
+        all_greedy = not any(float(self._host_temp[s]) > 0.0
+                             for s in self._active)
+        nucleus = any(float(self._host_top_p[s]) < 1.0
+                      for s in self._active)
+        return all_greedy, nucleus
+
+    def _observe_chunk(self, prev_pos, host: np.ndarray) -> None:
+        """Feed the drafter each active slot's committed tokens of a
+        sequential chunk: the first (new - old position) entries of its
+        row (fill follows once the lane froze)."""
+        if prev_pos is None:
+            return
+        for slot in list(self._active):
+            delta = int(self._host_pos[slot]) - prev_pos[slot]
+            if delta > 0:
+                self._drafter.observe(slot,
+                                      [int(t) for t in host[slot, :delta]])
+
+    def _absorb(self, host: np.ndarray, counts=None) -> None:
+        """Append each active slot's fetched tokens (the first counts[slot]
+        of its row when given) to its request, finishing it on EOS or
+        its budget."""
+        eos = self.gen.eos_token
+        for slot, req in list(self._active.items()):
+            row = host[slot] if counts is None else \
+                host[slot, :int(counts[slot])]
+            for t in row:
+                req.out.append(int(t))
+                self.decode_tokens += 1
+                if (eos is not None and req.out[-1] == eos) or \
+                        len(req.out) >= req.max_new_tokens:
+                    self._finish(req)
+                    break
 
     def _admit(self) -> None:
         """Move queued requests into free slots: groups of up to
@@ -523,6 +632,7 @@ class ContinuousBatcher:
             for i, req in enumerate(group):
                 self._host_pos[req.slot] = len(req.prompt)
                 self._record_first(req, int(firsts[i]))
+                self._reset_drafter(req)
                 if (eos is not None and req.out[-1] == eos) or \
                         len(req.out) >= req.max_new_tokens:
                     self._finish(req)
@@ -555,6 +665,7 @@ class ContinuousBatcher:
         self._host_top_p[req.slot] = top_p
         (first_host,) = engine_lib.host_fetch(first)
         self._record_first(req, int(first_host[0]))
+        self._reset_drafter(req)
         eos = self.gen.eos_token
         if (eos is not None and req.out[-1] == eos) or \
                 len(req.out) >= req.max_new_tokens:
@@ -574,6 +685,17 @@ class ContinuousBatcher:
             self._positions[req.slot] = 0
             self._done[req.slot] = True
             self._host_pos[req.slot] = 0
+
+    def _requeue_incremental(self, req: _Request) -> None:
+        """A failed chunked-prefill dispatch must not leak the slot or
+        leave the lane set (a stuck lane would retry the failing window
+        every tick): re-queue the request to restart from zero."""
+        self._incremental = None
+        req.prefill_pos = 0
+        self._pool_free_slot(req.slot)
+        self._free.insert(0, req.slot)
+        req.slot = None
+        self._queue.insert(0, req)
 
     def _advance_prefill(self) -> None:
         """One window of the in-flight chunked prefill; on the final
@@ -598,53 +720,137 @@ class ContinuousBatcher:
                 return
             self._complete_prefill(req, h_last, start)
         except Exception:
-            # A failed window must not leak the slot or leave the lane
-            # set (a stuck lane would retry the failing window every
-            # tick): re-queue the request to restart from zero.
-            self._incremental = None
-            req.prefill_pos = 0
-            self._pool_free_slot(req.slot)
-            self._free.insert(0, req.slot)
-            req.slot = None
-            self._queue.insert(0, req)
+            self._requeue_incremental(req)
             raise
         self._incremental = None
 
+    def _decode_chunk(self, n: int, prefill_lane=None):
+        """One n-step decode chunk over all active slots and its ONE
+        host fetch: the token block plus the positions steering the next
+        tick (frozen slots did not advance, so they come back exact).
+        prefill_lane: as _decode's; a failed fused dispatch re-queues the
+        in-flight prompt.  Returns the lane's hiddens (None without)."""
+        prev_pos = ({s: int(self._host_pos[s]) for s in self._active}
+                    if self._drafter is not None else None)
+        self._ensure_slot_blocks(n)
+        self._upload_tables()
+        all_greedy, nucleus = self._sampling_mode()
+        chunk_start = time.perf_counter()
+        try:
+            toks, h_pf = self._decode(n, all_greedy, nucleus, prefill_lane)
+        except Exception:
+            if prefill_lane is not None:
+                # The decode rows rode this dispatch too; the replica
+                # treats an engine error as a fault either way.
+                self._requeue_incremental(self._incremental)
+            raise
+        host, host_pos = engine_lib.host_fetch(toks.t(), self._positions)
+        self.decode_seconds += time.perf_counter() - chunk_start
+        self._host_pos = host_pos.astype(np.int64)
+        self._observe_chunk(prev_pos, host)
+        self._absorb(host)
+        return h_pf
+
+    def _step_fused(self, n: int) -> None:
+        """One fused prefill+decode chunk: the decode batch advances n
+        tokens with step()'s semantics while the chunk's first forward
+        also carries the next piece of the in-flight prompt, sized by
+        the leftover-budget policy and padded to fuse_budget.  One
+        counted host fetch for the chunk; the final piece adds
+        _complete_prefill's first-token fetch, as a dedicated final
+        window would."""
+        req = self._incremental
+        start = req.prefill_pos
+        chunk = self._fuse_policy.chunk(len(req.prompt) - start,
+                                        len(self._active))
+        end = start + chunk
+        window = np.zeros((self.gen.fuse_budget,), np.int32)
+        window[:chunk] = req.prompt[start:end]
+        dev = self.device
+        h_pf = self._decode_chunk(n, prefill_lane=(
+            torch.as_tensor(window, device=dev),
+            torch.as_tensor(self._host_tables[req.slot], device=dev), start))
+        req.prefill_pos = end
+        self._fuse_policy.record_fused(chunk)
+        if end < len(req.prompt):
+            return
+        try:
+            self._complete_prefill(req, h_pf, start)
+        except Exception:
+            self._requeue_incremental(req)
+            raise
+        self._incremental = None
+
+    def _step_spec(self) -> None:
+        """One draft-verify chunk over all active slots: the drafter
+        proposes spec_k tokens per slot on the host, one verify forward
+        scores the window, and each slot commits its agreeing prefix.
+        Exactly one counted host fetch.  Block tables, refcounts and the
+        free list are untouched by rejected rows."""
+        win = self.gen.spec_k + 1
+        # The window writes candidate K/V at rows pos..pos+k before the
+        # accept decision; _pool_cap's slack covers the deepest one.
+        self._ensure_slot_blocks(win)
+        self._upload_tables()
+        all_greedy, nucleus = self._sampling_mode()
+        live = list(self._active)
+        draft = self._drafter.propose_batch(live, self.gen.batch_size)
+        chunk_start = time.perf_counter()
+        toks, committed = self._verify(
+            torch.as_tensor(draft, device=self.device), all_greedy, nucleus)
+        # ONE transfer: the emitted window rows, the positions steering
+        # the next tick and each lane's committed count (the host absorbs
+        # exactly that prefix; the rest is rejected tail).
+        host, host_pos, host_committed = engine_lib.host_fetch(
+            toks, self._positions, committed)
+        self.decode_seconds += time.perf_counter() - chunk_start
+        self._host_pos = host_pos.astype(np.int64)
+        # committed - 1 of each lane's tokens were drafter proposals (the
+        # +1 is the target's own token at the first mismatch).
+        accepted = sum(max(int(host_committed[s]) - 1, 0) for s in live)
+        proposed = self.gen.spec_k * len(live)
+        self._spec_policy.record(accepted, proposed)
+        self.spec_proposed += proposed
+        self.spec_accepted += accepted
+        for slot in list(self._active):
+            c = int(host_committed[slot])
+            if c > 0:
+                self._drafter.observe(slot, [int(t) for t in host[slot, :c]])
+        self._absorb(host, host_committed)
+
     def step(self) -> None:
         """One scheduler tick: admit queued requests, advance the
-        in-flight chunked prefill by one window, then one decode chunk
-        for all active slots."""
+        in-flight chunked prefill by one window (or piggyback it on the
+        decode chunk when fusing is on), then one decode chunk for all
+        active slots: a verify chunk when speculation is on and the
+        policy agrees, else n lockstep steps."""
         self._admit()
-        self._advance_prefill()
+        # Fuse gate: a chunked prefill in flight AND a decode batch to
+        # ride on.  Fused ticks do not speculate: while a cold prompt is
+        # in flight TTFT is the binding metric, and a verify window
+        # cannot carry the prefill lane.
+        fused = (self._fuse_policy is not None
+                 and self._incremental is not None and bool(self._active))
+        if not fused:
+            if self._fuse_policy is not None and \
+                    self._incremental is not None:
+                self._fuse_policy.record_dedicated()
+            self._advance_prefill()
         if not self._active:
             return
         # Capacity from the host-side position mirror (reading the
         # device rows would cost a sync per tick).
         live_max = max(int(self._host_pos[s]) for s in self._active)
+        if not fused and self._drafter is not None and \
+                live_max + self.gen.spec_k + 1 <= self.gen.max_seq_len \
+                and self._spec_policy.should_speculate():
+            self._step_spec()
+            return
         n = max(1, min(self.decode_chunk, self.gen.max_seq_len - live_max))
-        self._ensure_slot_blocks(n)
-        self._upload_tables()
-        all_greedy = not any(float(self._host_temp[s]) > 0.0
-                             for s in self._active)
-        nucleus = any(float(self._host_top_p[s]) < 1.0
-                      for s in self._active)
-        chunk_start = time.perf_counter()
-        toks = self._decode(n, all_greedy, nucleus)
-        # ONE transfer for the whole chunk: the token block plus the
-        # positions steering the next tick (frozen slots did not
-        # advance, so they come back exact).
-        host, host_pos = engine_lib.host_fetch(toks.t(), self._positions)
-        self.decode_seconds += time.perf_counter() - chunk_start
-        self._host_pos = host_pos.astype(np.int64)
-        eos = self.gen.eos_token
-        for slot, req in list(self._active.items()):
-            for t in host[slot]:
-                req.out.append(int(t))
-                self.decode_tokens += 1
-                if (eos is not None and req.out[-1] == eos) or \
-                        len(req.out) >= req.max_new_tokens:
-                    self._finish(req)
-                    break
+        if fused:
+            self._step_fused(n)
+        else:
+            self._decode_chunk(n)
 
     def run_until_idle(self, max_ticks: int = 10_000) -> None:
         for _ in range(max_ticks):

@@ -1,16 +1,22 @@
-"""Paged decode attention over the pooled KV arena: hand-written CUDA
-kernel (csrc/paged_decode.cu) and its plain PyTorch version.
+"""Paged attention over the pooled KV arena: hand-written CUDA kernels
+(csrc/paged_decode.cu, csrc/paged_window.cu) and their plain PyTorch
+versions.
 
-Counterpart of skypilot_tpu/ops/decode_attention.py.  The kernel replaces
-the TPU's ``decode_attention_pooled`` (``_pooled_attn_kernel`` with body
-``_decode_attn_kernel``, window 1).  Each thread block reads only its
-slot's live keys through the block table; bound by bytes on the H100 (see
-the source note).  The int8 arena and the window (speculative-verify)
-variant come with later slices.
+Counterpart of skypilot_tpu/ops/decode_attention.py.  Two kernels replace
+the TPU's ``_pooled_attn_kernel`` (body ``_decode_attn_kernel``):
+
+- ``decode_attention_pooled`` (window 1, K1): one query token per slot.
+- ``decode_window_attention_pooled`` (window W, K4): W query tokens per
+  slot, row w seeing keys <= positions + w; the speculative verify step.
+  ``fused_step_attention_pooled`` composes the two for the fused
+  prefill+decode step (its prefill lane is K4 with one slot).
+
+Each kernel reads only its slot's live keys through the block table, from
+a bf16/f32 arena or an int8 arena with per-(row, KV head) f32 scales.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -23,31 +29,75 @@ _MAX_GROUP = 8
 
 def _gather_layer(arena: torch.Tensor, tables: torch.Tensor,
                   layer: int) -> torch.Tensor:
-    """(L, NB, BS, KV, hd) arena -> (B, T * BS, KV, hd) logical view of
-    one layer through the block table."""
+    """(L, NB, BS, ...) arena -> (B, T * BS, ...) logical view of one
+    layer through the block table (k/v rows or their int8 scales)."""
     batch, t_width = tables.shape
-    _, _, bs, kv_heads, head_dim = arena.shape
-    return arena[layer][tables.long()].reshape(batch, t_width * bs,
-                                               kv_heads, head_dim)
+    bs = arena.shape[2]
+    return arena[layer][tables.long()].reshape(
+        (batch, t_width * bs) + tuple(arena.shape[3:]))
+
+
+def _dequantize(q: torch.Tensor, scale: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    """int8 rows (..., hd) times their (...) scale, in `dtype` (the JAX
+    ``llama_infer._dequantize``: both factors rounded to dtype first)."""
+    return q.to(dtype) * scale[..., None].to(dtype)
+
+
+def _decode_window_attention_plain(q: torch.Tensor, k_arena: torch.Tensor,
+                                   v_arena: torch.Tensor,
+                                   tables: torch.Tensor, layer: int,
+                                   positions: torch.Tensor,
+                                   k_scale: Optional[torch.Tensor] = None,
+                                   v_scale: Optional[torch.Tensor] = None,
+                                   dequantize_first: bool = False
+                                   ) -> torch.Tensor:
+    """Gather through the table, then the math of the JAX decode off the
+    TPU: f32 scores and softmax over a (B, W, S) mask (window row w sees
+    keys <= positions + w), probabilities cast to q's dtype before P.V.
+
+    int8 follows the JAX CPU path that calls it: the decode and verify
+    rows (llama_infer._token_attention) apply the scales after each
+    contraction, to the scores and to the probabilities; the fused
+    prefill lane (dequantize_first) dequantizes K and V in q's dtype
+    before the products, as prefill_window_pooled does."""
+    k_eff = _gather_layer(k_arena, tables, layer)
+    v_eff = _gather_layer(v_arena, tables, layer)
+    ks = vs = None
+    if k_scale is not None:
+        ks = _gather_layer(k_scale, tables, layer)       # (B, S, KV)
+        vs = _gather_layer(v_scale, tables, layer)
+        if dequantize_first:
+            k_eff = _dequantize(k_eff, ks, q.dtype)
+            v_eff = _dequantize(v_eff, vs, q.dtype)
+            ks = vs = None
+    win = q.shape[1]
+    s = torch.einsum('bwkgd,bskd->bwkgs', q.float(),
+                     k_eff.to(q.dtype).float()) * q.shape[-1] ** -0.5
+    if ks is not None:
+        s = s * ks.permute(0, 2, 1)[:, None, :, None, :]
+    rows = positions.long()[:, None] + torch.arange(win, device=q.device)
+    visible = (torch.arange(k_eff.shape[1], device=q.device)[None, None, :]
+               <= rows[:, :, None])                       # (B, W, S)
+    s = torch.where(visible[:, :, None, None, :], s, _NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    if vs is not None:
+        p = p * vs.permute(0, 2, 1)[:, None, :, None, :]
+    return torch.einsum('bwkgs,bskd->bwkgd', p.to(q.dtype),
+                        v_eff.to(q.dtype))
 
 
 def _decode_attention_plain(q: torch.Tensor, k_arena: torch.Tensor,
                             v_arena: torch.Tensor, tables: torch.Tensor,
-                            layer: int,
-                            positions: torch.Tensor) -> torch.Tensor:
-    """Gather through the table, then the math of the JAX decode off the
-    TPU (llama_infer._token_attention, window 1): f32 scores and
-    softmax, probabilities cast to q's dtype before P.V."""
-    k_eff = _gather_layer(k_arena, tables, layer)
-    v_eff = _gather_layer(v_arena, tables, layer)
-    scale = q.shape[-1] ** -0.5
-    s = torch.einsum('bkgd,bskd->bkgs', q.float(),
-                     k_eff.to(q.dtype).float()) * scale
-    visible = (torch.arange(k_eff.shape[1], device=q.device)[None, :]
-               <= positions.long()[:, None])              # (B, S)
-    s = torch.where(visible[:, None, None, :], s, _NEG_INF)
-    p = torch.softmax(s, dim=-1).to(q.dtype)
-    return torch.einsum('bkgs,bskd->bkgd', p, v_eff.to(q.dtype))
+                            layer: int, positions: torch.Tensor,
+                            k_scale: Optional[torch.Tensor] = None,
+                            v_scale: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """The window plain version at W = 1 (the single-token decode of the
+    JAX package off the TPU)."""
+    return _decode_window_attention_plain(
+        q[:, None], k_arena, v_arena, tables, layer, positions, k_scale,
+        v_scale)[:, 0]
 
 
 def reference_decode_attention(q: torch.Tensor, k_layer: torch.Tensor,
@@ -55,55 +105,125 @@ def reference_decode_attention(q: torch.Tensor, k_layer: torch.Tensor,
                                positions: torch.Tensor) -> torch.Tensor:
     """All-f32 oracle over one layer's gathered (B, S, KV, hd) slice,
     the port of the JAX ``reference_decode_attention``."""
-    scale = q.shape[-1] ** -0.5
-    s = torch.einsum('bkgd,bskd->bkgs', q.float(), k_layer.float()) * scale
-    visible = (torch.arange(k_layer.shape[1], device=q.device)[None, :]
-               <= positions.long()[:, None])
-    s = torch.where(visible[:, None, None, :], s, _NEG_INF)
+    return reference_decode_window_attention(q[:, None], k_layer, v_layer,
+                                             positions)[:, 0]
+
+
+def reference_decode_window_attention(q: torch.Tensor,
+                                      k_layer: torch.Tensor,
+                                      v_layer: torch.Tensor,
+                                      positions: torch.Tensor
+                                      ) -> torch.Tensor:
+    """All-f32 oracle over a gathered (B, S, KV, hd) layer slice, the
+    port of the JAX ``reference_decode_window_attention``.
+    q: (B, W, KV, G, hd); window row w masks keys at index <= positions
+    + w."""
+    win = q.shape[1]
+    s = torch.einsum('bwkgd,bskd->bwkgs', q.float(),
+                     k_layer.float()) * q.shape[-1] ** -0.5
+    rows = positions.long()[:, None] + torch.arange(win, device=q.device)
+    visible = (torch.arange(k_layer.shape[1], device=q.device)[None, None, :]
+               <= rows[:, :, None])
+    s = torch.where(visible[:, :, None, None, :], s, _NEG_INF)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum('bkgs,bskd->bkgd', p, v_layer.float())
+    o = torch.einsum('bwkgs,bskd->bwkgd', p, v_layer.float())
     return o.to(q.dtype)
 
 
-def _decode_attention_cuda(q: torch.Tensor, k_arena: torch.Tensor,
-                           v_arena: torch.Tensor, tables: torch.Tensor,
-                           layer: int,
-                           positions: torch.Tensor) -> torch.Tensor:
-    batch, kv_heads, group, head_dim = q.shape
-    n_layers, n_blocks, bs, arena_kv, arena_hd = k_arena.shape
-    code = _kernels.dtype_code(q, 'decode_attention_pooled')
-    _kernels.check(k_arena.dtype == q.dtype and v_arena.dtype == q.dtype,
-                   'decode_attention_pooled: arena dtype must match q')
-    _kernels.check(v_arena.shape == k_arena.shape
-                   and (arena_kv, arena_hd) == (kv_heads, head_dim),
-                   f'decode_attention_pooled: arena {tuple(k_arena.shape)} '
-                   f'does not fit q {tuple(q.shape)}')
-    _kernels.check(head_dim in _HEAD_DIMS, f'decode_attention_pooled: '
+def reference_fused_step_attention(q_dec: torch.Tensor, k_dec: torch.Tensor,
+                                   v_dec: torch.Tensor,
+                                   positions: torch.Tensor,
+                                   q_pf: torch.Tensor, k_pf: torch.Tensor,
+                                   v_pf: torch.Tensor, pf_start: int
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """All-f32 oracle of :func:`fused_step_attention_pooled` over gathered
+    layer slices: k_dec/v_dec (B, S, KV, hd) are the decode slots' views,
+    k_pf/v_pf (S, KV, hd) the prefill slot's."""
+    o_dec = reference_decode_attention(q_dec, k_dec, v_dec, positions)
+    start = torch.tensor([int(pf_start)], device=q_pf.device)
+    o_pf = reference_decode_window_attention(q_pf[None], k_pf[None],
+                                             v_pf[None], start)
+    return o_dec, o_pf[0]
+
+
+def _check_arena(kernel: str, q: torch.Tensor, k_arena: torch.Tensor,
+                 v_arena: torch.Tensor, tables: torch.Tensor, layer: int,
+                 positions: torch.Tensor, k_scale: Optional[torch.Tensor],
+                 v_scale: Optional[torch.Tensor], kv_heads: int, group: int,
+                 head_dim: int) -> Tuple[int, int]:
+    """Shape, dtype, device and layout checks shared by both kernels
+    (q's layout is each kernel's own); returns (q dtype code, arena
+    dtype code)."""
+    batch = q.shape[0]
+    n_layers = k_arena.shape[0]
+    q_code = _kernels.dtype_code(q, kernel)
+    quantized = k_arena.dtype == torch.int8
+    _kernels.check(v_arena.dtype == k_arena.dtype
+                   and (k_arena.dtype == q.dtype or quantized),
+                   f'{kernel}: arena dtype must match q, or be int8')
+    _kernels.check(quantized == (k_scale is not None)
+                   and quantized == (v_scale is not None),
+                   f'{kernel}: k_scale/v_scale go with an int8 arena')
+    _kernels.check(v_arena.shape == k_arena.shape and k_arena.dim() == 5
+                   and tuple(k_arena.shape[3:]) == (kv_heads, head_dim),
+                   f'{kernel}: arena {tuple(k_arena.shape)} does not fit '
+                   f'q {tuple(q.shape)}')
+    scales = ()
+    if quantized:
+        scales = (k_scale, v_scale)
+        for sc in scales:
+            _kernels.check(sc.dtype == torch.float32
+                           and sc.shape == k_arena.shape[:4],
+                           f'{kernel}: scales must be f32 '
+                           f'{tuple(k_arena.shape[:4])}')
+    _kernels.check(head_dim in _HEAD_DIMS, f'{kernel}: '
                    f'head_dim {head_dim} not in {_HEAD_DIMS}')
-    _kernels.check(1 <= group <= _MAX_GROUP, f'decode_attention_pooled: '
-                   f'group {group} not in 1..{_MAX_GROUP}')
-    _kernels.check(0 <= layer < n_layers, f'decode_attention_pooled: '
+    _kernels.check(0 <= layer < n_layers, f'{kernel}: '
                    f'layer {layer} out of range')
     _kernels.check(tables.dtype == torch.int32 and tables.dim() == 2
                    and tables.shape[0] == batch
                    and positions.dtype == torch.int32
                    and positions.shape == (batch,),
-                   'decode_attention_pooled: tables (B, T) and positions '
-                   '(B,) must be int32')
-    devices = {t.device for t in (q, k_arena, v_arena, tables, positions)}
-    _kernels.check(len(devices) == 1,
-                   'decode_attention_pooled: inputs on several devices')
-    for t in (q, k_arena, v_arena, tables, positions):
+                   f'{kernel}: tables (B, T) and positions (B,) must be '
+                   'int32')
+    tensors = (k_arena, v_arena, tables, positions) + scales
+    _kernels.check(len({t.device for t in tensors + (q,)}) == 1,
+                   f'{kernel}: inputs on several devices')
+    for t in tensors:
         _kernels.check(t.is_contiguous() and _kernels.aligned(t),
-                       'decode_attention_pooled: inputs must be contiguous '
-                       'and 16-byte aligned')
+                       f'{kernel}: inputs must be contiguous and 16-byte '
+                       'aligned')
+    return q_code, _kernels.KV_DTYPE_CODES[k_arena.dtype]
+
+
+def _scale_ptrs(k_scale, v_scale):
+    if k_scale is None:
+        return None, None
+    return k_scale.data_ptr(), v_scale.data_ptr()
+
+
+def _decode_attention_cuda(q: torch.Tensor, k_arena: torch.Tensor,
+                           v_arena: torch.Tensor, tables: torch.Tensor,
+                           layer: int, positions: torch.Tensor,
+                           k_scale: Optional[torch.Tensor],
+                           v_scale: Optional[torch.Tensor]) -> torch.Tensor:
+    batch, kv_heads, group, head_dim = q.shape
+    q_code, kv_code = _check_arena(
+        'decode_attention_pooled', q, k_arena, v_arena, tables, layer,
+        positions, k_scale, v_scale, kv_heads, group, head_dim)
+    _kernels.check(1 <= group <= _MAX_GROUP, f'decode_attention_pooled: '
+                   f'group {group} not in 1..{_MAX_GROUP}')
+    _kernels.check(q.is_contiguous() and _kernels.aligned(q),
+                   'decode_attention_pooled: inputs must be contiguous and '
+                   '16-byte aligned')
     out = torch.empty_like(q)
     _kernels.launch('skk_paged_decode', q.device, q.data_ptr(),
                     k_arena.data_ptr(), v_arena.data_ptr(),
-                    tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
-                    batch, kv_heads, group, head_dim, n_blocks, bs,
+                    *_scale_ptrs(k_scale, v_scale), tables.data_ptr(),
+                    positions.data_ptr(), out.data_ptr(), batch, kv_heads,
+                    group, head_dim, k_arena.shape[1], k_arena.shape[2],
                     tables.shape[1], int(layer), float(head_dim ** -0.5),
-                    code)
+                    q_code, kv_code)
     decode_attention_pooled.launches += 1
     return out
 
@@ -117,7 +237,8 @@ def decode_attention_pooled(q: torch.Tensor, k_arena: torch.Tensor,
     """Single-token GQA attention over a pooled block arena.
 
     q: (B, KV, G, hd) current-token queries (post-rope), head h = kv*G+g.
-    k_arena/v_arena: (L, NB, BS, KV, hd); tables: (B, T) int32, where
+    k_arena/v_arena: (L, NB, BS, KV, hd) in q's dtype, or int8 with
+    k_scale/v_scale (L, NB, BS, KV) f32; tables: (B, T) int32, where
     tables[b, j] is the arena block of slot b's logical rows
     [j*BS, (j+1)*BS); layer: int; positions: (B,) int32, the current
     cache row (rows <= positions[b] are attended).
@@ -125,15 +246,105 @@ def decode_attention_pooled(q: torch.Tensor, k_arena: torch.Tensor,
     A CPU tensor takes the plain version; a CUDA tensor takes the kernel,
     which raises on a dtype, shape or layout it does not take.
     Returns (B, KV, G, hd) in q's dtype."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            'int8 KV (k_scale/v_scale) is not ported yet: ROADMAP.md '
-            'Queue A item 7')
     if q.device.type == 'cpu':
         return _decode_attention_plain(q, k_arena, v_arena, tables, layer,
-                                       positions)
+                                       positions, k_scale, v_scale)
     return _decode_attention_cuda(q, k_arena, v_arena, tables, layer,
-                                  positions)
+                                  positions, k_scale, v_scale)
 
 
 decode_attention_pooled.launches = 0
+
+
+def _decode_window_attention_cuda(q: torch.Tensor, k_arena: torch.Tensor,
+                                  v_arena: torch.Tensor,
+                                  tables: torch.Tensor, layer: int,
+                                  positions: torch.Tensor,
+                                  k_scale: Optional[torch.Tensor],
+                                  v_scale: Optional[torch.Tensor],
+                                  counter) -> torch.Tensor:
+    """K4 on (B, W, KV, G, hd) queries; `counter` is the public wrapper
+    whose launch count this call adds to."""
+    batch, win, kv_heads, group, head_dim = q.shape
+    q_code, kv_code = _check_arena(
+        'decode_window_attention_pooled', q, k_arena, v_arena, tables,
+        layer, positions, k_scale, v_scale, kv_heads, group, head_dim)
+    # The kernel's row layout: kv-major, then window, then group.
+    q_rows = q.permute(0, 2, 1, 3, 4).contiguous()
+    out = torch.empty_like(q_rows)
+    _kernels.launch('skk_paged_window', q.device, q_rows.data_ptr(),
+                    k_arena.data_ptr(), v_arena.data_ptr(),
+                    *_scale_ptrs(k_scale, v_scale), tables.data_ptr(),
+                    positions.data_ptr(), out.data_ptr(), batch, kv_heads,
+                    win * group, group, head_dim, k_arena.shape[1],
+                    k_arena.shape[2], tables.shape[1], int(layer),
+                    float(head_dim ** -0.5), q_code, kv_code)
+    counter.launches += 1
+    return out.permute(0, 2, 1, 3, 4)
+
+
+def decode_window_attention_pooled(q: torch.Tensor, k_arena: torch.Tensor,
+                                   v_arena: torch.Tensor,
+                                   tables: torch.Tensor, layer: int,
+                                   positions: torch.Tensor,
+                                   k_scale: Optional[torch.Tensor] = None,
+                                   v_scale: Optional[torch.Tensor] = None
+                                   ) -> torch.Tensor:
+    """W-query speculative-verify attention over the pooled arena.
+
+    Same arena/table contract as :func:`decode_attention_pooled`, with a
+    window of W queries per slot: q (B, W, KV, G, hd), window row w at
+    cache row positions[b] + w (the caller has already written all W
+    rows' K/V); positions (B,) int32 is the cache row of window row 0.
+    Row w masks keys at index <= positions + w, so the speculative tail
+    after it is invisible.  W = 1 is :func:`decode_attention_pooled`.
+
+    A CPU tensor takes the plain version (the verify rows' JAX CPU
+    numerics); a CUDA tensor takes the K4 kernel.
+    Returns (B, W, KV, G, hd) in q's dtype."""
+    if q.device.type == 'cpu':
+        return _decode_window_attention_plain(
+            q, k_arena, v_arena, tables, layer, positions, k_scale, v_scale)
+    return _decode_window_attention_cuda(
+        q, k_arena, v_arena, tables, layer, positions, k_scale, v_scale,
+        decode_window_attention_pooled)
+
+
+decode_window_attention_pooled.launches = 0
+
+
+def fused_step_attention_pooled(q_dec: torch.Tensor, q_pf: torch.Tensor,
+                                k_arena: torch.Tensor, v_arena: torch.Tensor,
+                                tables: torch.Tensor,
+                                pf_table_row: torch.Tensor, layer: int,
+                                positions: torch.Tensor, pf_start: int,
+                                k_scale: Optional[torch.Tensor] = None,
+                                v_scale: Optional[torch.Tensor] = None
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Attention for the fused prefill+decode step: the decode slots'
+    single-token queries q_dec (B, KV, G, hd) through K1, and F
+    piggybacked prefill queries q_pf (F, KV, G, hd) of one prompt at rows
+    pf_start .. pf_start + F - 1 through its table row pf_table_row (T,)
+    as one K4 batch row of window F.  Adds no kernel math.
+
+    On the CPU the prefill lane takes the plain version with the JAX
+    window prefill's int8 numerics (dequantize, then the products).  The
+    lane's K4 launches count on this function's ``launches``.
+    Returns (o_dec (B, KV, G, hd), o_pf (F, KV, G, hd))."""
+    o_dec = decode_attention_pooled(q_dec, k_arena, v_arena, tables, layer,
+                                    positions, k_scale, v_scale)
+    tbl = pf_table_row[None].to(torch.int32)
+    start = torch.full((1,), int(pf_start), dtype=torch.int32,
+                       device=q_pf.device)
+    if q_pf.device.type == 'cpu':
+        o_pf = _decode_window_attention_plain(
+            q_pf[None], k_arena, v_arena, tbl, layer, start, k_scale,
+            v_scale, dequantize_first=True)
+    else:
+        o_pf = _decode_window_attention_cuda(
+            q_pf[None], k_arena, v_arena, tbl.contiguous(), layer, start,
+            k_scale, v_scale, fused_step_attention_pooled)
+    return o_dec, o_pf[0]
+
+
+fused_step_attention_pooled.launches = 0

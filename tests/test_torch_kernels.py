@@ -7,7 +7,9 @@ Run on a machine with a card:
 Tolerances (kernel vs plain, same inputs): f32 atol 2e-5 (summation
 order); bf16 atol 3e-2 + rtol 2e-2 (the plain versions round scores or
 probabilities to bf16 where the kernels keep f32, and outputs are
-rounded to bf16).
+rounded to bf16).  An int8 arena is held to its q dtype's tolerance: the
+kernels dequantize before each product in f32, the plain versions scale
+after it, which is the same math up to rounding.
 """
 import numpy as np
 import pytest
@@ -100,6 +102,101 @@ def test_paged_decode_kernel(cuda, dtype, hd, group, bs):
                                                  positions)
 
 
+def _arena(cuda, dtype, batch, kv, hd, bs, t_width, positions, int8):
+    """Scattered tables covering each slot's keys up to its position,
+    and a 2-layer arena of `dtype` (int8 rows with f32 scales when
+    int8)."""
+    from skypilot_tpu_torch.infer import llama_infer
+    nb = 1 + batch * t_width
+    rng = np.random.RandomState(hd + bs)
+    perm = rng.permutation(np.arange(1, nb))
+    tables = np.zeros((batch, t_width), np.int32)
+    for b in range(batch):
+        live = min(int(positions[b]) // bs + 1, t_width)
+        tables[b, :live] = perm[b * t_width:b * t_width + live]
+    tables = torch.as_tensor(tables, device='cuda')
+    shape = (2, nb, bs, kv, hd)
+    k = torch.randn(shape, generator=cuda, device='cuda').to(dtype)
+    v = torch.randn(shape, generator=cuda, device='cuda').to(dtype)
+    if not int8:
+        return tables, k, v, None, None
+    (k8, ks), (v8, vs) = (llama_infer._quantize_kv(x) for x in (k, v))
+    return tables, k8, v8, ks, vs
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('hd,group,bs', [(64, 1, 16), (128, 4, 64),
+                                         (256, 8, 32)])
+def test_paged_decode_kernel_int8(cuda, dtype, hd, group, bs):
+    from skypilot_tpu_torch.ops import decode_attention
+    batch, kv, t_width = 4, 2, 5
+    positions = torch.tensor([0, bs - 1, bs, t_width * bs - 1],
+                             dtype=torch.int32, device='cuda')
+    tables, k, v, ks, vs = _arena(cuda, dtype, batch, kv, hd, bs, t_width,
+                                  positions, True)
+    q = torch.randn(batch, kv, group, hd, generator=cuda,
+                    device='cuda').to(dtype)
+    before = decode_attention.decode_attention_pooled.launches
+    out = decode_attention.decode_attention_pooled(q, k, v, tables, 1,
+                                                   positions, ks, vs)
+    assert decode_attention.decode_attention_pooled.launches == before + 1
+    torch.testing.assert_close(
+        out, decode_attention._decode_attention_plain(
+            q, k, v, tables, 1, positions, ks, vs), **TOL[dtype])
+    with pytest.raises(ValueError, match='k_scale'):
+        decode_attention.decode_attention_pooled(q, k, v, tables, 1,
+                                                 positions)
+
+
+@pytest.mark.parametrize('kind', ['float32', 'bfloat16', 'int8'])
+@pytest.mark.parametrize('hd,group,bs,win', [
+    (64, 1, 16, 4), (128, 4, 64, 13), (256, 8, 32, 5), (128, 4, 16, 40)])
+def test_paged_window_kernel(cuda, kind, hd, group, bs, win):
+    """K4 against its plain version; keys past each slot's window and
+    blocks no table maps are poisoned and must not change the output;
+    each window row equals K1 at that row's position."""
+    from skypilot_tpu_torch.ops import decode_attention as da
+    dtype = torch.bfloat16 if kind == 'int8' else getattr(torch, kind)
+    batch, kv, t_width = 4, 2, 5
+    # Window starts at 0, block edges and the table's last row (its
+    # later rows run past the table).
+    positions = torch.tensor([0, bs - 1, bs, t_width * bs - 1],
+                             dtype=torch.int32, device='cuda')
+    tables, k, v, ks, vs = _arena(cuda, dtype, batch, kv, hd, bs, t_width,
+                                  positions + win - 1, kind == 'int8')
+    q = torch.randn(batch, win, kv, group, hd, generator=cuda,
+                    device='cuda').to(dtype)
+    before = da.decode_window_attention_pooled.launches
+    out = da.decode_window_attention_pooled(q, k, v, tables, 1, positions,
+                                            ks, vs)
+    assert da.decode_window_attention_pooled.launches == before + 1
+    assert out.shape == q.shape
+    torch.testing.assert_close(
+        out, da._decode_window_attention_plain(q, k, v, tables, 1,
+                                               positions, ks, vs),
+        **TOL[dtype])
+    k2, v2 = k.clone(), v.clone()
+    poison = 127 if kind == 'int8' else 1e4
+    mapped = set(tables.flatten().tolist()) - {0}
+    for blk in range(k.shape[1]):
+        if blk not in mapped:
+            k2[:, blk] = poison
+            v2[:, blk] = -poison
+    for b in range(batch):
+        last = int(positions[b]) + win - 1
+        if last < t_width * bs - 1:
+            blk = int(tables[b, last // bs])
+            k2[1, blk, last % bs + 1:] = poison
+            v2[1, blk, last % bs + 1:] = -poison
+    assert torch.equal(da.decode_window_attention_pooled(
+        q, k2, v2, tables, 1, positions, ks, vs), out)
+    for w in range(win):
+        rows = torch.clamp_max(positions + w, t_width * bs - 1)
+        single = da.decode_attention_pooled(q[:, w].contiguous(), k, v,
+                                            tables, 1, rows, ks, vs)
+        torch.testing.assert_close(out[:, w], single, **TOL[dtype])
+
+
 def test_batcher_on_card_matches_host(cuda):
     """LLAMA_DEBUG f32 served through the kernels gives the host's
     greedy tokens."""
@@ -121,6 +218,39 @@ def test_batcher_on_card_matches_host(cuda):
         return [b.result(r) for r in rids]
 
     assert run('cuda') == run('cpu')
+
+
+@pytest.mark.parametrize('extra', [
+    dict(spec_k=3), dict(fuse_budget=8),
+    dict(kv_cache_dtype='int8', weights_dtype='int8', spec_k=3,
+         fuse_budget=8)])
+def test_spec_fused_int8_batcher_on_card_matches_host(cuda, extra):
+    """Speculative verify (K4), fused steps (K1 + K4) and int8 KV and
+    weights at LLAMA_DEBUG f32 give the host's greedy tokens."""
+    from skypilot_tpu_torch.infer.engine import GeneratorConfig
+    from skypilot_tpu_torch.infer.serving import ContinuousBatcher
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.ops import decode_attention as da
+    cfg = llama.LLAMA_DEBUG
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0), 'cpu')
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, 512, size=n).tolist() for n in (5, 30, 9, 40)]
+
+    def run(device):
+        b = ContinuousBatcher(_to(params, device), cfg, GeneratorConfig(
+            max_seq_len=128, batch_size=3, prompt_buckets=[16, 32, 64],
+            prefill_chunk=24, kv_block_size=16, **extra), decode_chunk=4,
+            device=device)
+        rids = [b.submit(p, max_new_tokens=10) for p in prompts]
+        b.run_until_idle()
+        b.pool.check_invariant()
+        return [b.result(r) for r in rids]
+
+    before = (da.decode_window_attention_pooled.launches
+              + da.fused_step_attention_pooled.launches)
+    assert run('cuda') == run('cpu')
+    assert (da.decode_window_attention_pooled.launches
+            + da.fused_step_attention_pooled.launches) > before
 
 
 def _to(tree, device):

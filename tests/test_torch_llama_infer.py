@@ -197,12 +197,24 @@ def test_window_prefill_matches_jax(models):
 
 
 def test_deferred_branches_raise():
+    """MoE layers still raise naming their ROADMAP item; the int8 cache
+    and int8 weights, once deferred the same way, now have the JAX
+    layout and product."""
     _, tcfg, _, tp = _models('float32')
-    with pytest.raises(NotImplementedError, match='Queue A item 7'):
-        llama_infer.init_cache(tcfg, 1, 16, kv_dtype='int8', device='cpu')
+    cache = llama_infer.init_cache(tcfg, 1, 16, kv_dtype='int8',
+                                   device='cpu')
+    j_cache = j_infer.init_cache(j_llama.LLAMA_DEBUG, 1, 16, kv_dtype='int8')
+    for key, arr in j_cache.items():
+        assert tuple(cache[key].shape) == arr.shape
+        assert str(cache[key].dtype).split('.')[-1] == str(arr.dtype)
+    with pytest.raises(ValueError, match='kv_dtype'):
+        llama_infer.init_cache(tcfg, 1, 16, kv_dtype='int4', device='cpu')
     moe_layer = {'moe': {}, 'mlp': {}}
     with pytest.raises(NotImplementedError, match='Queue A item 11'):
         llama_infer._ffn(torch.zeros(1, 1, tcfg.d_model), moe_layer, tcfg)
     from skypilot_tpu_torch.infer import quant
-    with pytest.raises(NotImplementedError, match='Queue A item 7'):
-        quant.matmul(torch.zeros(2, 3), {'q': None, 's': None})
+    w = {'q': torch.tensor([[1, -2], [3, 4], [0, 127]], dtype=torch.int8),
+         's': torch.tensor([0.5, 2.0])}
+    x = torch.tensor([[1.0, 2.0, 3.0]])
+    np.testing.assert_array_equal(quant.matmul(x, w).numpy(),
+                                  [[3.5, 774.0]])

@@ -240,14 +240,31 @@ def test_decode_attention_bf16_matches_jax_kernel():
     np.testing.assert_allclose(_np(out), _np(ref), atol=2 * 2 ** -7)
 
 
+def _int8_rows(x: np.ndarray):
+    """Per-row absmax int8 quantization (the JAX test_fused_step.py
+    helper): (int8 values, f32 scales over the last axis)."""
+    s = np.maximum(np.abs(x).max(-1), 1e-8).astype(np.float32) / 127.0
+    return np.round(x / s[..., None]).astype(np.int8), s
+
+
 def test_decode_attention_int8_is_deferred():
-    q, k, v, tables, positions = _arena_case()
-    scale = torch.ones(k.shape[:-1])
-    with pytest.raises(NotImplementedError, match='Queue A item 7'):
-        decode_attention.decode_attention_pooled(
-            torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
-            torch.from_numpy(tables), 0, torch.from_numpy(positions),
-            scale, scale)
+    """The int8 arena (once deferred to ROADMAP Queue A item 7) against
+    the JAX kernel in interpret mode.  The JAX kernel dequantizes before
+    the dot and keeps p in f32; the port's plain version follows the JAX
+    CPU decode (scales after each contraction, p cast to q's dtype), the
+    same math in f32 up to summation order: atol 1e-5."""
+    q, k, v, tables, positions = _arena_case(seed=6)
+    k8, ks = _int8_rows(k)
+    v8, vs = _int8_rows(v)
+    args = [torch.from_numpy(a) for a in (q, k8, v8, tables)]
+    out = decode_attention.decode_attention_pooled(
+        *args, 1, torch.from_numpy(positions), torch.from_numpy(ks),
+        torch.from_numpy(vs))
+    ref = j_decode.decode_attention_pooled(
+        jnp.asarray(q), jnp.asarray(k8), jnp.asarray(v8),
+        jnp.asarray(tables), 1, jnp.asarray(positions), jnp.asarray(ks),
+        jnp.asarray(vs), interpret=True)
+    np.testing.assert_allclose(out.numpy(), _np(ref), atol=F32_ATOL)
 
 
 # ---- kernel build --------------------------------------------------------
@@ -265,4 +282,5 @@ def test_kernel_library_name_tracks_sources():
     digest = _kernels._digest()
     assert len(digest) == 16 and digest == _kernels._digest()
     names = {p.name for p in _kernels._sources()}
-    assert {'rmsnorm.cu', 'flash_fwd.cu', 'paged_decode.cu'} <= names
+    assert {'rmsnorm.cu', 'flash_fwd.cu', 'paged_decode.cu',
+            'paged_window.cu'} <= names

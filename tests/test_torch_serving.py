@@ -4,7 +4,9 @@ engine, serving, replica) on the CPU, held against the JAX package.
 What must hold:
 - BlockPool keeps the JAX pool's accounting (test_block_pool.py cases);
 - GeneratorConfig raises the JAX config's validation errors, and
-  NotImplementedError naming the ROADMAP.md item for deferred options;
+  NotImplementedError naming the ROADMAP.md item for deferred options
+  (int8, spec_k and fuse_budget are carried: tests/test_torch_int8.py,
+  tests/test_torch_spec_fused.py);
 - on a mixed-length workload (one chunked prompt, more requests than
   slots) the port's ContinuousBatcher gives the JAX batcher's greedy
   tokens exactly, at LLAMA_DEBUG in f32, with the pool invariant after
@@ -29,6 +31,7 @@ torch = pytest.importorskip('torch')
 
 import jax  # noqa: E402
 
+from skypilot_tpu.infer import block_pool as j_block_pool  # noqa: E402
 from skypilot_tpu.infer import engine as j_engine  # noqa: E402
 from skypilot_tpu.infer import serving as j_serving  # noqa: E402
 from skypilot_tpu.models import llama as j_llama  # noqa: E402
@@ -112,8 +115,19 @@ def test_arena_layout_and_block_bytes():
     assert block_nbytes(CFG, 8) == 2 * 2 * 8 * 2 * 16 * 4
     with pytest.raises(ValueError, match='>= 2 blocks'):
         BlockPool(CFG, 1, 8, device='cpu')
-    with pytest.raises(NotImplementedError, match='Queue A item 7'):
-        init_arena(CFG, 5, 8, kv_dtype='int8', device='cpu')
+    # int8: int8 k/v plus (L, NB, BS, KV) f32 scales, as the JAX arena.
+    arena = init_arena(CFG, 5, 8, kv_dtype='int8', device='cpu')
+    assert arena['k'].dtype == torch.int8 and arena['k'].shape == shape
+    for key in ('k_scale', 'v_scale'):
+        assert arena[key].dtype == torch.float32
+        assert arena[key].shape == shape[:-1]
+    j_cfg = j_llama.LlamaConfig(vocab_size=256, d_model=64, n_layers=2,
+                                n_heads=4, n_kv_heads=2, d_ff=128,
+                                max_seq_len=128)
+    assert block_nbytes(CFG, 8, 'int8') == \
+        j_block_pool.block_nbytes(j_cfg, 8, 'int8')
+    with pytest.raises(ValueError, match='kv_dtype'):
+        init_arena(CFG, 5, 8, kv_dtype='fp8', device='cpu')
 
 
 # ---- GeneratorConfig ------------------------------------------------------
@@ -139,10 +153,6 @@ def test_generator_config_validation_matches_jax(kwargs, match):
 
 
 @pytest.mark.parametrize('kwargs,item', [
-    (dict(kv_cache_dtype='int8'), 7),
-    (dict(weights_dtype='int8'), 7),
-    (dict(spec_k=2), 8),
-    (dict(fuse_budget=8, prefill_chunk=16), 8),
     (dict(prefix_cache_mb=1.0), 9),
     (dict(prefix_cache_mb=1.0, host_tier_mb=1.0), 9),
     (dict(overlap_collectives=True), 10),
