@@ -17,12 +17,20 @@ Phases (any failure exits non-zero):
    median of 25, L2 flushed before each), and computes each kernel's
    bound from the bytes and operations of this run's inputs.  The paged
    kernels are also run on arenas poisoned past each window and outside
-   the tables, which must not change their output.
+   the tables, which must not change their output.  The training
+   kernels (K2 with its lse, K5 dq, K6 dk/dv) are held to their plain
+   versions in bf16 and f32 at the LLAMA_1B training shape (8, 1024,
+   16/8 heads, 128) and a ragged S, and in bf16 at the 8B trunk's
+   (2, 4096, 32/8, 128), and timed at both train shapes; their library
+   call is SDPA's forward with grad, and its backward (one time for dq,
+   dk and dv) for K5 and K6.
 4. slice parity: a 2-layer LLAMA_DEBUG model in f32 served on the card
    (kernels) and on the host (plain versions) from the same weights:
    identical greedy tokens (plain, spec_k=3, fuse_budget, int8 KV and
    weights), allclose first-step logits; spec_k=3 and the fused schedule
-   give the plain schedule's tokens.
+   give the plain schedule's tokens.  Training parity on the same model:
+   first-step gradients under remat False, True and 'dots' on card and
+   host, and 3 Trainer steps (loss, grad_norm) on both.
 5. main path: random LLAMA3_8B bf16 weights on the card behind the HTTP
    replica (ContinuousBatcher, batch 8, max_seq_len 2048, prefill_chunk
    256, decode_chunk 16); 8 requests of 17..700 prompt tokens, 48 new
@@ -30,15 +38,25 @@ Phases (any failure exits non-zero):
 6. main path with speculative verify and fused steps, twice on phase 5's
    weights: (a) bf16 with spec_k 12 and fuse_budget 264, (b) the same
    with int8 KV and int8 weights.  The same 8 requests.
+7. train path: Trainer(loss_fn, params, config).fit on random bf16
+   weights, remat 'dots', chunked CE: (a) LLAMA_1B at the reference
+   bench's settings (8 x 1024 tokens, loss_chunk 256, 12 steps, warmup 2
+   of 12), (b) LLAMA3_8B's widths at depth 2 (2 x 4096 tokens,
+   loss_chunk 512, 6 steps).  Prints step time, tokens/s, MFU against
+   989e12 (6N with and without the embedding), first and last loss, peak
+   memory and launches per step.
 
 Every kernel of a main-path run must launch > 0 times in that run (the
 counts are set to 0 just before it and read just after); the window
-kernel must launch from both verify and fused ticks.  The last lines of
+kernel must launch from both verify and fused ticks, and K2, K3, K5 and
+K6 from both train paths.  The last lines of
 standard output are the {"kernels": [...]} line, the nvidia-smi
 name/power-limit line, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -61,6 +79,13 @@ TIMING_REPS = 25
 # ulps.  An int8 arena takes its q dtype's tolerance: the kernels
 # dequantize before each product, the plain versions scale after it.
 TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (3e-2, 2e-2)}
+# bf16 gradients of the flash backward (dq, dk, dv), elementwise: atol
+# one bf16 ulp (2^-7) of the largest element of the same row (the row's
+# elements share their sums' terms, so their f32 noise scales with it;
+# a causal gradient's rows differ in scale by 50x), never below the f32
+# summation-order atol (rows that cancel to ~0); rtol two ulps (2^-6):
+# the f32 sums of both sides round to bf16 on either side of a boundary.
+BWD_BF16_ULPS = (2 ** -7, 2 ** -6)
 # Slice parity in f32: sums taken in another order across 2 layers (and,
 # for int8, the scales applied before the product on the card and after
 # it on the host).
@@ -116,19 +141,34 @@ def bound(nbytes: float, flops: float, peak_flops: float):
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
-def check_close(name: str, out: torch.Tensor, ref: torch.Tensor) -> float:
-    atol, rtol = TOL[ref.dtype]
+def check_close(name: str, out: torch.Tensor, ref: torch.Tensor,
+                tol=None) -> float:
+    """Max abs error of out against ref; fails past atol + rtol |ref|
+    (atol may be a tensor that broadcasts against ref)."""
+    atol, rtol = tol or TOL[ref.dtype]
     o, r = out.float(), ref.float()
     if not torch.isfinite(o).all():
         raise AssertionError(f'{name}: non-finite kernel output')
     err = (o - r).abs()
     excess = (err - (atol + rtol * r.abs())).max().item()
     max_err = err.max().item()
+    if torch.is_tensor(atol):
+        atol = f'{atol.min().item():.2e}..{atol.max().item():.2e}'
     log(f'  {name}: max_abs_err={max_err:.3e} (atol={atol} rtol={rtol})')
     if excess > 0:
         raise AssertionError(f'{name}: kernel disagrees with its plain '
                              f'version (max_abs_err {max_err:.3e})')
     return max_err
+
+
+def grad_tol(ref: torch.Tensor):
+    """(atol, rtol) of a flash-backward gradient: BWD_BF16_ULPS in bf16,
+    with atol a tensor of one value per row; TOL otherwise."""
+    if ref.dtype != torch.bfloat16:
+        return TOL[ref.dtype]
+    ulp, rtol = BWD_BF16_ULPS
+    row_max = ref.float().abs().amax(-1, keepdim=True)
+    return torch.clamp_min(ulp * row_max, TOL[torch.float32][0]), rtol
 
 
 def sdpa(q, k, v, **kw):
@@ -210,6 +250,122 @@ def check_flash(attention):
                         lambda: sdpa(qt, kt, vt, is_causal=True)),
                 }
     return result
+
+
+# Attention shapes of the two train paths: (B, S, H, KV, head_dim).
+TRAIN_SHAPES = {'1b': (8, 1024, 16, 8, 128), '8b': (2, 4096, 32, 8, 128)}
+
+
+def _attn_operands(gen, batch, seq, heads, kv, hd, dtype):
+    """q, k, v and an incoming gradient do, (B, S, H or KV, hd)."""
+    return [torch.randn(batch, seq, h, hd, generator=gen,
+                        device='cuda').to(dtype)
+            for h in (heads, kv, kv, heads)]
+
+
+def _check_train_kernels(at, q, k, v, do, causal, tag):
+    """K2 with its lse, K5 and K6 against their plain versions on the
+    same inputs (o and lse from the kernel feed both backward sides).
+    Returns the max abs errors by kernel (K2's over o and lse) and the
+    kernels' outputs."""
+    o, lse = at.flash_attention_fwd(q, k, v, causal, need_lse=True)
+    e_lse = max(check_close(f'flash_attention o {tag}', o,
+                            at._attention_plain(q, k, v, causal)),
+                check_close(f'flash_attention lse {tag}', lse,
+                            at._attention_lse_plain(q, k, causal)))
+    delta = at._delta(o, do).contiguous()
+    want = at._flash_attention_dq_plain(q, k, v, do, lse, delta, causal)
+    e_dq = check_close(
+        f'flash_attention_dq {tag}',
+        at.flash_attention_dq(q, k, v, do, lse, delta, causal), want,
+        grad_tol(want))
+    del want
+    got = at.flash_attention_dkv(q, k, v, do, lse, delta, causal)
+    want = at._flash_attention_dkv_plain(q, k, v, do, lse, delta, causal)
+    e_dkv = max(check_close(f'flash_attention_dkv {n} {tag}', g, w,
+                            grad_tol(w))
+                for n, g, w in zip(('dk', 'dv'), got, want))
+    return {'lse': e_lse, 'dq': e_dq, 'dkv': e_dkv}, o, lse, delta
+
+
+def check_flash_train(attention):
+    """K2 with its lse, K5 and K6 against their plain versions in f32
+    and bf16 at the LLAMA_1B shape and a ragged S; then, in bf16 and
+    causal at both train shapes, checked again and timed.  Returns the
+    kernels line entries by (kernel, shape), each with the error measured
+    at its own shape."""
+    at = attention
+    gen = torch.Generator(device='cuda').manual_seed(7)
+    for dtype in (torch.float32, torch.bfloat16):
+        for batch, seq, causal in ((8, 1024, True), (2, 700, True),
+                                   (2, 700, False)):
+            q, k, v, do = _attn_operands(gen, batch, seq, 16, 8, 128, dtype)
+            _check_train_kernels(at, q, k, v, do, causal,
+                                 f'{dtype} B={batch} S={seq} causal={causal}')
+            del q, k, v, do
+    results = {}
+    for key, (batch, seq, heads, kv, hd) in TRAIN_SHAPES.items():
+        q, k, v, do = _attn_operands(gen, batch, seq, heads, kv, hd,
+                                     torch.bfloat16)
+        # At the 8B shape the plain versions hold several (2, 32, 4096,
+        # 4096) f32 tensors, 4.3 GB each: they fit on the card at B 2.
+        errs, o, lse, delta = _check_train_kernels(
+            at, q, k, v, do, True,
+            f'torch.bfloat16 B={batch} S={seq} H={heads} causal=True')
+        pairs = batch * heads * seq * (seq + 1) // 2
+        qb, kb, sb = q.numel() * 2, k.numel() * 2, lse.numel() * 4
+        # Fewer repetitions of the plain versions at the 8B shape.
+        plain_reps = 3 if seq > 2048 else TIMING_REPS
+        shape = (f'q ({batch}, {seq}, {heads}, {hd}) kv {kv} causal bf16')
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+
+        def lib_fwd():
+            with torch.enable_grad():
+                return sdpa(qt, kt, vt, is_causal=True)
+
+        lib_out = lib_fwd()
+        lib_do = do.transpose(1, 2)
+        lib_bwd_ms = time_ms(lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), lib_do, retain_graph=True))
+        rows = {
+            'lse': ('flash_attention[lse]', 'flash_fwd.cu',
+                    'skypilot_tpu/ops/attention.py:120',
+                    lambda: at.flash_attention_fwd(q, k, v, True, True),
+                    lambda: (at._attention_plain(q, k, v, True),
+                             at._attention_lse_plain(q, k, True)),
+                    2 * qb + 2 * kb + sb, 4 * hd * pairs, time_ms(lib_fwd)),
+            'dq': ('flash_attention_dq', 'flash_bwd.cu',
+                   'skypilot_tpu/ops/attention.py:257',
+                   lambda: at.flash_attention_dq(q, k, v, do, lse, delta),
+                   lambda: at._flash_attention_dq_plain(q, k, v, do, lse,
+                                                        delta),
+                   3 * qb + 2 * kb + 2 * sb, 6 * hd * pairs, lib_bwd_ms),
+            'dkv': ('flash_attention_dkv', 'flash_bwd.cu',
+                    'skypilot_tpu/ops/attention.py:279',
+                    lambda: at.flash_attention_dkv(q, k, v, do, lse, delta),
+                    lambda: at._flash_attention_dkv_plain(q, k, v, do, lse,
+                                                          delta),
+                    2 * qb + 4 * kb + 2 * sb, 8 * hd * pairs, lib_bwd_ms),
+        }
+        for kernel, (name, src, replaces, fn, plain, nbytes, flops,
+                     lib_ms) in rows.items():
+            b_ms, by = bound(nbytes, flops, BF16_FLOPS)
+            results[kernel, key] = {
+                'name': name if key == '1b' else f'{name}[8B trunk]',
+                'route': 'cuda', 'source': f'skypilot_tpu_torch/csrc/{src}',
+                'replaces': replaces, 'shape': shape,
+                'max_abs_err': errs[kernel], 'ms': time_ms(fn),
+                'plain_ms': time_ms(plain, plain_reps), 'bound_ms': b_ms,
+                'bound_by': by, 'library_ms': lib_ms,
+            }
+            log(f'  {results[kernel, key]["name"]} {shape}: '
+                f'{results[kernel, key]["ms"]:.3f} ms (plain '
+                f'{results[kernel, key]["plain_ms"]:.3f}, library '
+                f'{lib_ms:.3f}, bound {b_ms:.4f} by {by})')
+        del q, k, v, do, o, lse, delta, qt, kt, vt, lib_out, lib_do, rows
+        torch.cuda.empty_cache()
+    return results
 
 
 def _tables(last_rows, n_blocks, seed):
@@ -531,6 +687,69 @@ def slice_parity():
     log('  spec_k=3 and fuse_budget=16 give the plain schedule\'s tokens')
 
 
+def _clone_to(tree, device):
+    """A copy of a parameter tree on `device` (a Trainer updates the
+    tensors it is given in place)."""
+    if isinstance(tree, dict):
+        return {k: _clone_to(v, device) for k, v in tree.items()}
+    return tree.detach().clone().to(device)
+
+
+def train_parity():
+    """LLAMA_DEBUG f32 on the card (kernels) and the host (plain
+    versions): first-step gradients under remat False, True and 'dots'
+    (card vs host, and each remat setting vs none on the card), then 3
+    Trainer steps with lr 1e-3 (loss and grad_norm of each)."""
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.train import trainer
+
+    cfg = llama.LLAMA_DEBUG
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0), 'cpu')
+    # 63 input tokens: a ragged last tile in every attention kernel.
+    tokens = next(trainer.synthetic_batches(4, 63, cfg.vocab_size))['tokens']
+    grads = {}
+    for remat, policy in ((False, None), (True, None), (True, 'dots')):
+        c = dataclasses.replace(cfg, remat=remat, remat_policy=policy)
+        for dev in ('cpu', 'cuda'):
+            p = trainer.tree_map(lambda t: t.requires_grad_(),
+                                 _clone_to(params, dev))
+            loss = llama.loss_fn(
+                p, {'tokens': torch.from_numpy(tokens).to(dev)}, c)
+            grads[policy or remat, dev] = [
+                g.cpu() for g in torch.autograd.grad(
+                    loss, trainer.tree_leaves(p))]
+    for key in (False, True, 'dots'):
+        err = 0.0
+        for got, want in zip(grads[key, 'cuda'], grads[key, 'cpu']):
+            if not float(got.abs().max()) > 0:
+                raise AssertionError(f'remat={key}: a zero gradient')
+            scale = float(want.abs().max())
+            err = max(err, float((got - want).abs().max()) / scale)
+            torch.testing.assert_close(got, want, rtol=1e-4,
+                                       atol=1e-4 * scale)
+        same = max(float((a - b).abs().max() / b.abs().max())
+                   for a, b in zip(grads[key, 'cuda'],
+                                   grads[False, 'cuda']))
+        log(f'  first-step gradients remat={key}: card vs host max '
+            f'err/max|grad| {err:.2e} (tolerance 1e-4); vs remat=False '
+            f'on the card {same:.2e}')
+        if same > 1e-5:
+            raise AssertionError(f'remat={key} changes the gradients on '
+                                 f'the card by {same:.2e} of their scale')
+    tc = trainer.TrainConfig(learning_rate=1e-3, warmup_steps=1,
+                             total_steps=4)
+    steps = {}
+    for dev in ('cpu', 'cuda'):
+        tr = trainer.Trainer(lambda p, b: llama.loss_fn(p, b, cfg),
+                             _clone_to(params, dev), tc, device=dev)
+        batches = trainer.synthetic_batches(4, 63, cfg.vocab_size)
+        steps[dev] = [(float(m['loss']), float(m['grad_norm'])) for m in (
+            tr.run_step(next(batches)) for _ in range(3))]
+    log(f'  3 Trainer steps (loss, grad_norm): card {steps["cuda"]}, host '
+        f'{steps["cpu"]}')
+    np.testing.assert_allclose(steps['cuda'], steps['cpu'], rtol=1e-5)
+
+
 def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
@@ -638,6 +857,60 @@ def serve_path(label, params, gen_config, counters):
     return launches
 
 
+def train_path(label, cfg, batch, seq, steps, train_config, counters):
+    """Trainer.fit on random bf16 weights with every launch count set to
+    0 just before and read just after; returns the counts.  Fails unless
+    the first and last losses are finite."""
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.train import trainer
+
+    params = llama.init_params(
+        cfg, torch.Generator(device='cuda').manual_seed(0), 'cuda')
+    first = next(trainer.synthetic_batches(batch, seq, cfg.vocab_size))
+    with torch.no_grad():
+        first_loss = float(llama.loss_fn(params, {'tokens': torch.as_tensor(
+            first['tokens'], device='cuda')}, cfg))
+    tr = trainer.Trainer(lambda p, b: llama.loss_fn(p, b, cfg), params,
+                         train_config, device='cuda')
+    del params
+    torch.cuda.synchronize()
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    n_all = cfg.num_params()
+    n_matmul = n_all - cfg.vocab_size * cfg.d_model
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    out = tr.fit(trainer.synthetic_batches(batch, seq, cfg.vocab_size),
+                 steps, log_every=0, tokens_per_batch=batch * seq,
+                 flops_per_token=6 * n_all)
+    wall = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    if not (np.isfinite(first_loss) and np.isfinite(out['loss'])):
+        raise AssertionError(f'{label}: loss {first_loss} -> {out["loss"]}')
+    stats = {
+        'card': CARD['line'],
+        'params_b': n_all / 1e9, 'params_b_without_embed': n_matmul / 1e9,
+        'tokens_per_step': batch * seq, 'steps': steps,
+        'step_time_s': out['step_time_s'],
+        'tokens_per_s': out['tokens_per_sec'],
+        'mfu_6n_all': out['mfu'],
+        'mfu_6n_without_embed': (6 * n_matmul * out['tokens_per_sec']
+                                 / BF16_FLOPS),
+        'first_loss': first_loss, 'last_loss': out['loss'],
+        'grad_norm': out['grad_norm'], 'fit_wall_s': wall,
+        'resident_gb_before_fit': resident_gb,
+        'peak_memory_gb': torch.cuda.max_memory_allocated() / 1e9,
+        'launches_per_step': {k: v / steps for k, v in launches.items()
+                              if v},
+    }
+    log(f'  {label}: ' + json.dumps(stats))
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _need(label, launches, names):
     for name in names:
         if launches[name] <= 0:
@@ -654,15 +927,16 @@ def main() -> int:
     from skypilot_tpu_torch.models import llama
     from skypilot_tpu_torch.ops import _kernels, attention, decode_attention
     from skypilot_tpu_torch.ops import rmsnorm
+    from skypilot_tpu_torch.train import trainer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     CARD['line'] = nvidia_smi_line()
     CARD['kind'] = torch.cuda.get_device_name(0)
-    log(f'[1/6] device: {CARD["line"]} | torch {torch.__version__} '
+    log(f'[1/7] device: {CARD["line"]} | torch {torch.__version__} '
         f'cuda {torch.version.cuda}')
 
-    log('[2/6] build')
+    log('[2/7] build')
     _kernels.LIBRARY.get()
     log(f'  built {_kernels.LIBRARY.path.name} in '
         f'{_kernels.LIBRARY.build_seconds:.1f} s')
@@ -671,20 +945,25 @@ def main() -> int:
         if 'spill' in line and ' 0 bytes spill stores' not in line:
             log(f'  ptxas: {line.strip()}')
 
-    log('[3/6] kernels vs plain versions')
+    log('[3/7] kernels vs plain versions')
+    t0 = time.perf_counter()
     decode = check_decode(decode_attention)
     window = check_window(decode_attention)
     flash, norm = check_flash(attention), check_rmsnorm(rmsnorm)
+    train = check_flash_train(attention)
     k1 = decode_attention.decode_attention_pooled
     k4v = decode_attention.decode_window_attention_pooled
     k4f = decode_attention.fused_step_attention_pooled
     k2, k3 = attention.flash_attention, rmsnorm.rms_norm
-    counters = [k1, k2, k3, k4v, k4f]
+    k5, k6 = attention.flash_attention_dq, attention.flash_attention_dkv
+    counters = [k1, k2, k3, k4v, k4f, k5, k6]
+    log(f'  phase 3: {time.perf_counter() - t0:.1f} s')
 
-    log('[4/6] slice parity, LLAMA_DEBUG f32, card vs host')
+    log('[4/7] slice parity, LLAMA_DEBUG f32, card vs host')
     slice_parity()
+    train_parity()
 
-    log('[5/6] main path, LLAMA3_8B bf16 behind the HTTP replica')
+    log('[5/7] main path, LLAMA3_8B bf16 behind the HTTP replica')
     cfg = llama.LLAMA3_8B
     t0 = time.perf_counter()
     params = llama.init_params(
@@ -697,7 +976,7 @@ def main() -> int:
                              counters)}
     _need('main', paths['5'], [c.__name__ for c in (k1, k2, k3)])
 
-    log('[6/6] main path with spec_k 12 and fuse_budget 264: (a) bf16, '
+    log('[6/7] main path with spec_k 12 and fuse_budget 264: (a) bf16, '
         '(b) int8 KV and weights')
     spec = dict(base, spec_k=12, fuse_budget=264)
     paths['6a'] = serve_path('6a bf16 spec+fused', params,
@@ -705,23 +984,47 @@ def main() -> int:
     paths['6b'] = serve_path('6b int8 spec+fused', params, GeneratorConfig(
         **spec, kv_cache_dtype='int8', weights_dtype='int8'), counters)
     for key in ('6a', '6b'):
-        _need(key, paths[key], [c.__name__ for c in counters])
+        _need(key, paths[key], [c.__name__ for c in (k1, k2, k3, k4v, k4f)])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log('[7/7] train path: (a) LLAMA_1B at the bench settings, (b) '
+        'LLAMA3_8B widths at depth 2')
+    remat = dict(remat=True, remat_policy='dots')
+    paths['7a'] = train_path(
+        '7a LLAMA_1B 8x1024', dataclasses.replace(
+            llama.LLAMA_1B, max_seq_len=2048, loss_chunk=256, **remat),
+        8, 1024, 12, trainer.TrainConfig(warmup_steps=2, total_steps=12),
+        counters)
+    paths['7b'] = train_path(
+        '7b LLAMA3_8B widths, 2 layers, 2x4096', dataclasses.replace(
+            llama.LLAMA3_8B, n_layers=2, max_seq_len=4096, loss_chunk=512,
+            **remat),
+        2, 4096, 6, trainer.TrainConfig(warmup_steps=2, total_steps=6),
+        counters)
+    for key in ('7a', '7b'):
+        _need(key, paths[key], [c.__name__ for c in (k2, k3, k5, k6)])
 
     def entry(res, counter, keys):
         by_path = {k: paths[k][counter.__name__] for k in keys}
         return dict(res, launches=sum(by_path.values()),
                     launches_by_path=by_path)
 
+    every = ('5', '6a', '6b', '7a', '7b')
     kernels = [
         entry(decode['bf16'], k1, ('5', '6a')),
         entry(decode['int8'], k1, ('6b',)),
-        entry(flash, k2, ('5', '6a', '6b')),
-        entry(norm, k3, ('5', '6a', '6b')),
+        entry(flash, k2, every),
+        entry(norm, k3, every),
         entry(window['verify', 'bf16'], k4v, ('6a',)),
         entry(window['fused', 'bf16'], k4f, ('6a',)),
         entry(window['verify', 'int8'], k4v, ('6b',)),
         entry(window['fused', 'int8'], k4f, ('6b',)),
     ]
+    for name, counter in (('lse', k2), ('dq', k5), ('dkv', k6)):
+        kernels += [entry(train[name, '1b'], counter, ('7a',)),
+                    entry(train[name, '8b'], counter, ('7b',))]
     log(json.dumps({'kernels': kernels}))
     log(CARD['line'])
     log(json.dumps({'ok': True, 'device': {

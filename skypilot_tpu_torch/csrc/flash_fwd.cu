@@ -1,4 +1,5 @@
-// Causal (or full) flash attention forward, (B, S, H, D) layout, GQA.
+// Causal (or full) flash attention forward, (B, S, H, D) layout, GQA,
+// with the row logsumexp that the backward (flash_bwd.cu) reads.
 //
 // Replaces skypilot_tpu/ops/attention.py::_flash_fwd (body
 // _flash_fwd_kernel), the TPU kernel whose grid (B, H, q-block, k-block)
@@ -7,8 +8,11 @@
 // one thread block owns one (q-block, head, batch) tile and loops over the
 // k-blocks itself; causal k-blocks past the q-block are never visited.
 //
-// q: (B, S, H, D); k, v: (B, S, KV, D); o: (B, S, H, D).  The KV head of
-// query head h is h / (H / KV).  Tensors are read through their strides
+// q: (B, S, H, D); k, v: (B, S, KV, D); o: (B, S, H, D); lse, when not
+// null: (B, H, S) f32, m + log(l) of each row (the TPU kernel broadcast it
+// over 128 lanes for its tiling; one float a row is enough here), written
+// only when the caller needs a gradient.  The KV head of query head h is
+// h / (H / KV).  Tensors are read through their strides
 // (the last dim must be contiguous), so the (B, S, H, D) layout needs no
 // transpose copy.  S need not be a multiple of the tile: rows and keys
 // past S are zero-filled on load and masked.
@@ -73,7 +77,8 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int64_t row_stri
 template <typename T, int D>
 __global__ void __launch_bounds__(kFlashThreads) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int seq_len, int group, int causal, float scale,
+    T* __restrict__ o, float* __restrict__ lse, int seq_len, int group,
+    int causal, float scale,
     int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss,
     int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t o_sb,
     int64_t o_ss, int64_t o_sh) {
@@ -196,7 +201,12 @@ __global__ void __launch_bounds__(kFlashThreads) flash_fwd_kernel(
 
   if (tx == 0) {
 #pragma unroll
-    for (int i = 0; i < C::SR; ++i) l_s[ty + 16 * i] = l[i];
+    for (int i = 0; i < C::SR; ++i) {
+      const int row = ty + 16 * i;
+      l_s[row] = l[i];
+      if (lse != nullptr && q0 + row < seq_len)
+        lse[(static_cast<int64_t>(b) * gridDim.y + h) * seq_len + q0 + row] = m[i] + logf(l[i]);
+    }
   }
   __syncthreads();
   T* op = o + b * o_sb + h * o_sh;
@@ -214,7 +224,7 @@ __global__ void __launch_bounds__(kFlashThreads) flash_fwd_kernel(
 
 template <typename T, int D>
 int launch_flash(const void* q, const void* k, const void* v, void* o,
-                 int batch, int seq_len, int heads, int group, int causal,
+                 float* lse, int batch, int seq_len, int heads, int group, int causal,
                  float scale, const long long* strides, cudaStream_t stream) {
   using C = FlashCfg<T, D>;
   auto kernel = flash_fwd_kernel<T, D>;
@@ -229,7 +239,7 @@ int launch_flash(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((seq_len + C::BQ - 1) / C::BQ, heads, batch);
   kernel<<<grid, kFlashThreads, C::SMEM, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), seq_len, group, causal,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, seq_len, group, causal,
       scale, strides[0], strides[1], strides[2], strides[3], strides[4],
       strides[5], strides[6], strides[7], strides[8], strides[9], strides[10],
       strides[11]);
@@ -238,18 +248,18 @@ int launch_flash(const void* q, const void* k, const void* v, void* o,
 
 template <typename T>
 int dispatch_flash(int head_dim, const void* q, const void* k, const void* v,
-                   void* o, int batch, int seq_len, int heads, int group,
+                   void* o, float* lse, int batch, int seq_len, int heads, int group,
                    int causal, float scale, const long long* strides,
                    cudaStream_t stream) {
   switch (head_dim) {
     case 64:
-      return launch_flash<T, 64>(q, k, v, o, batch, seq_len, heads, group,
+      return launch_flash<T, 64>(q, k, v, o, lse, batch, seq_len, heads, group,
                                  causal, scale, strides, stream);
     case 128:
-      return launch_flash<T, 128>(q, k, v, o, batch, seq_len, heads, group,
+      return launch_flash<T, 128>(q, k, v, o, lse, batch, seq_len, heads, group,
                                   causal, scale, strides, stream);
     case 256:
-      return launch_flash<T, 256>(q, k, v, o, batch, seq_len, heads, group,
+      return launch_flash<T, 256>(q, k, v, o, lse, batch, seq_len, heads, group,
                                   causal, scale, strides, stream);
     default:
       return kErrUnsupported;
@@ -260,9 +270,10 @@ int dispatch_flash(int head_dim, const void* q, const void* k, const void* v,
 }  // namespace skk
 
 // strides: 12 element strides, (batch, seq, head) for q, k, v and o in
-// that order; each tensor's last dim is contiguous.
+// that order; each tensor's last dim is contiguous.  lse: (B, H, S) f32
+// contiguous, or null when no gradient is wanted.
 extern "C" int skk_flash_fwd(const void* q, const void* k, const void* v,
-                             void* o, int batch, int seq_len, int heads,
+                             void* o, void* lse, int batch, int seq_len, int heads,
                              int kv_heads, int head_dim, int causal,
                              float scale, const long long* strides,
                              int dtype, void* stream) {
@@ -273,11 +284,13 @@ extern "C" int skk_flash_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case skk::kBF16:
-      return skk::dispatch_flash<__nv_bfloat16>(head_dim, q, k, v, o, batch,
+      return skk::dispatch_flash<__nv_bfloat16>(head_dim, q, k, v, o,
+                                                static_cast<float*>(lse), batch,
                                                 seq_len, heads, group, causal,
                                                 scale, strides, s);
     case skk::kF32:
-      return skk::dispatch_flash<float>(head_dim, q, k, v, o, batch, seq_len,
+      return skk::dispatch_flash<float>(head_dim, q, k, v, o,
+                                        static_cast<float*>(lse), batch, seq_len,
                                         heads, group, causal, scale, strides,
                                         s);
     default:

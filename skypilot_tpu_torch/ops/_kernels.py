@@ -46,8 +46,10 @@ _SIGNATURES = {
                          _I, _I, _I, _I, ctypes.c_float, _I, _I, _P],
     'skk_paged_window': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P],
-    'skk_flash_fwd': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    'skk_flash_fwd': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       ctypes.c_float, _P, _I, _P],
+    'skk_flash_bwd_dq': [_P] * 7 + [_I] * 6 + [ctypes.c_float, _P, _I, _P],
+    'skk_flash_bwd_dkv': [_P] * 8 + [_I] * 6 + [ctypes.c_float, _P, _I, _P],
 }
 
 

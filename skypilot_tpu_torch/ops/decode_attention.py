@@ -154,6 +154,11 @@ def _check_arena(kernel: str, q: torch.Tensor, k_arena: torch.Tensor,
     """Shape, dtype, device and layout checks shared by both kernels
     (q's layout is each kernel's own); returns (q dtype code, arena
     dtype code)."""
+    # Serving kernels have no backward (the TPU kernels have no vjp): a
+    # graph through them would lose its gradient without a word.
+    _kernels.check(not (torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k_arena, v_arena))),
+        f'{kernel}: no backward; an input requires grad (serving only)')
     batch = q.shape[0]
     n_layers = k_arena.shape[0]
     q_code = _kernels.dtype_code(q, kernel)

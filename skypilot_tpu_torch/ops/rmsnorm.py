@@ -4,8 +4,14 @@ PyTorch version.
 Counterpart of skypilot_tpu/ops/rmsnorm.py.  The kernel replaces the TPU's
 ``_rmsnorm_pallas`` (body ``_rmsnorm_kernel``); it is bound by bytes on
 the H100 (one read of x and w, one write of y), see the source note.
+When a gradient is wanted :func:`rms_norm` is an autograd Function, the
+counterpart of ``_rms_norm_pallas_diff``: the kernel forward and the JAX
+package's f32 recompute backward in plain torch (the TPU had no backward
+kernel either).
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -44,15 +50,54 @@ def _rms_norm_cuda(x: torch.Tensor, weight: torch.Tensor,
     return y
 
 
+def _rms_norm_bwd(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor,
+                  eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mirror of the JAX ``_rms_norm_bwd``: recompute in f32, then
+    (dx in x's dtype, dw in weight's dtype)."""
+    xf, gf, wf = x.float(), g.float(), weight.float()
+    rstd = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    xhat = xf * rstd
+    dw = torch.sum(gf * xhat, dim=tuple(range(x.ndim - 1)))
+    gw = gf * wf
+    dx = rstd * (gw - xhat * torch.mean(gw * xhat, dim=-1, keepdim=True))
+    return dx.to(x.dtype), dw.to(weight.dtype)
+
+
+def _rms_norm_fwd(x: torch.Tensor, weight: torch.Tensor,
+                  eps: float) -> torch.Tensor:
+    if x.device.type == 'cpu':
+        return _rms_norm_plain(x, weight, eps)
+    return _rms_norm_cuda(x, weight, eps)
+
+
+class _RMSNorm(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, weight, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x, weight)
+        return _rms_norm_fwd(x, weight, eps)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        dx, dw = _rms_norm_bwd(x, weight, g, ctx.eps)
+        return dx, dw, None
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
     """y = x / rms(x) * weight over the last dim.
 
     A CPU tensor takes the plain version; a CUDA tensor takes the kernel,
-    which raises on a dtype, shape or layout it does not take."""
-    if x.device.type == 'cpu':
-        return _rms_norm_plain(x, weight, eps)
-    return _rms_norm_cuda(x, weight, eps)
+    which raises on a dtype, shape or layout it does not take.  When a
+    gradient is wanted this is an autograd Function with the f32
+    recompute backward."""
+    if torch.is_grad_enabled() and (x.requires_grad
+                                    or weight.requires_grad):
+        return _RMSNorm.apply(x, weight, eps)
+    return _rms_norm_fwd(x, weight, eps)
 
 
 rms_norm.launches = 0

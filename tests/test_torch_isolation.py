@@ -1,5 +1,6 @@
-"""The port stands alone: skypilot_tpu_torch and chip_smoke.py import no
-jax, no ml_dtypes and nothing of the JAX package skypilot_tpu.
+"""The port stands alone: skypilot_tpu_torch, chip_smoke.py and the
+scripts/torch_*.py tools import no jax, no ml_dtypes and nothing of the
+JAX package skypilot_tpu.
 
 The AST scan catches every import statement, top-level or nested.  A
 sys.modules check for jax would prove nothing here (this environment's
@@ -23,7 +24,8 @@ FORBIDDEN = ('jax', 'jaxlib', 'ml_dtypes', 'skypilot_tpu')
 
 
 def _port_files():
-    return sorted(PORT.rglob('*.py')) + [ROOT / 'chip_smoke.py']
+    return (sorted(PORT.rglob('*.py')) + [ROOT / 'chip_smoke.py']
+            + sorted((ROOT / 'scripts').glob('torch_*.py')))
 
 
 def _imported_modules(path: Path):
@@ -53,6 +55,14 @@ def test_port_sources_import_no_jax_and_no_reference_package():
            for p in files for line, mod in _imported_modules(p)
            if _forbidden(mod)]
     assert not bad, 'forbidden imports:\n' + '\n'.join(bad)
+
+
+def test_scan_covers_the_training_modules():
+    scanned = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    assert {'skypilot_tpu_torch/train/trainer.py',
+            'skypilot_tpu_torch/train/__init__.py',
+            'skypilot_tpu_torch/ops/losses.py',
+            'scripts/torch_profile_train.py'} <= scanned
 
 
 def test_forbidden_rule_tells_the_packages_apart():

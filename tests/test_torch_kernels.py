@@ -7,7 +7,8 @@ Run on a machine with a card:
 Tolerances (kernel vs plain, same inputs): f32 atol 2e-5 (summation
 order); bf16 atol 3e-2 + rtol 2e-2 (the plain versions round scores or
 probabilities to bf16 where the kernels keep f32, and outputs are
-rounded to bf16).  An int8 arena is held to its q dtype's tolerance: the
+rounded to bf16); the flash backward's bf16 dq, dk and dv are held
+relative to the scale of each row (`_assert_grad_close`).  An int8 arena is held to its q dtype's tolerance: the
 kernels dequantize before each product in f32, the plain versions scale
 after it, which is the same math up to rounding.
 """
@@ -257,3 +258,161 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+# ---- training: K2's lse, K5 (dq), K6 (dk, dv), autograd ---------------------
+
+# lse is f32 from the same inputs on both sides: summation order only.
+LSE_TOL = dict(atol=1e-4, rtol=1e-5)
+
+
+def _assert_grad_close(got, want):
+    """bf16 dq, dk, dv elementwise: atol one bf16 ulp (2^-7) of the
+    largest element of the same row (the row's elements share their sums'
+    terms), never below TOL's f32 atol (rows that cancel to ~0), and rtol
+    two ulps (2^-6) for outputs that round on either side of a boundary.
+    f32: TOL."""
+    if want.dtype != torch.bfloat16:
+        torch.testing.assert_close(got, want, **TOL[want.dtype])
+        return
+    g, w = got.float(), want.float()
+    atol = torch.clamp_min(2 ** -7 * w.abs().amax(-1, keepdim=True),
+                           TOL[torch.float32]['atol'])
+    excess = (g - w).abs() - (atol + 2 ** -6 * w.abs())
+    assert float(excess.max()) <= 0, (
+        f'max abs error {float((g - w).abs().max()):.3e} past the bound by '
+        f'{float(excess.max()):.3e}')
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('seq,heads,kv,hd,causal', [
+    (1, 4, 4, 64, True), (77, 8, 2, 128, True), (130, 4, 2, 256, False),
+    (64, 8, 8, 128, False), (200, 16, 4, 64, True), (96, 4, 1, 256, True)])
+def test_flash_backward_kernels(cuda, dtype, seq, heads, kv, hd, causal):
+    """K2 with its lse, K5 and K6 against their plain versions, on the
+    same inputs (o and lse from the kernel), over head_dims 64/128/256,
+    groups 1/2/4, ragged S, causal and not."""
+    from skypilot_tpu_torch.ops import attention as at
+    q = torch.randn(2, seq, heads, hd, generator=cuda, device='cuda').to(dtype)
+    k = torch.randn(2, seq, kv, hd, generator=cuda, device='cuda').to(dtype)
+    v = torch.randn(2, seq, kv, hd, generator=cuda, device='cuda').to(dtype)
+    do = torch.randn(2, seq, heads, hd, generator=cuda,
+                     device='cuda').to(dtype)
+    before = (at.flash_attention.launches, at.flash_attention_dq.launches,
+              at.flash_attention_dkv.launches)
+    o, lse = at.flash_attention_fwd(q, k, v, causal, need_lse=True)
+    assert lse.shape == (2, heads, seq) and lse.dtype == torch.float32
+    torch.testing.assert_close(o, at._attention_plain(q, k, v, causal),
+                               **TOL[dtype])
+    torch.testing.assert_close(lse, at._attention_lse_plain(q, k, causal),
+                               **LSE_TOL)
+    delta = at._delta(o, do).contiguous()
+    dq = at.flash_attention_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = at.flash_attention_dkv(q, k, v, do, lse, delta, causal)
+    assert (at.flash_attention.launches, at.flash_attention_dq.launches,
+            at.flash_attention_dkv.launches) == tuple(n + 1 for n in before)
+    _assert_grad_close(
+        dq, at._flash_attention_dq_plain(q, k, v, do, lse, delta, causal))
+    for got, want in zip((dk, dv), at._flash_attention_dkv_plain(
+            q, k, v, do, lse, delta, causal)):
+        assert got.shape == k.shape and got.dtype == dtype
+        _assert_grad_close(got, want)
+
+
+@pytest.mark.parametrize('group', [1, 4])
+def test_attention_and_norm_gradients_on_card_match_host(cuda, group):
+    """flash_attention and rms_norm on CUDA tensors that require grad:
+    gradients exist (the kernels are inside autograd Functions) and
+    equal the host's plain backwards (f32, sums in another order)."""
+    from skypilot_tpu_torch.ops import attention as at
+    from skypilot_tpu_torch.ops import rmsnorm
+    shapes = [(2, 77, 8, 128), (2, 77, 8 // group, 128),
+              (2, 77, 8 // group, 128)]
+    base = [torch.randn(s, generator=cuda, device='cuda') for s in shapes]
+    x = torch.randn(2, 77, 256, generator=cuda, device='cuda')
+    w = 1 + 0.1 * torch.randn(256, generator=cuda, device='cuda')
+    grads = {}
+    for dev in ('cuda', 'cpu'):
+        qkv = [t.detach().to(dev).requires_grad_() for t in base]
+        xw = [t.detach().to(dev).requires_grad_() for t in (x, w)]
+        out = at.flash_attention(*qkv)
+        # A strided incoming gradient, as after the layer's reshape.
+        (out * out.transpose(1, 2).contiguous().transpose(1, 2)).sum() \
+            .backward()
+        (rmsnorm.rms_norm(*xw) ** 2).sum().backward()
+        grads[dev] = [t.grad for t in qkv + xw]
+    for got, want in zip(grads['cuda'], grads['cpu']):
+        assert got is not None and float(got.abs().max()) > 0
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+def test_serving_kernels_refuse_inputs_that_require_grad(cuda):
+    """K1 and K4 have no backward: an input that requires grad raises
+    instead of losing its gradient."""
+    from skypilot_tpu_torch.ops import decode_attention as da
+    positions = torch.tensor([3, 20], dtype=torch.int32, device='cuda')
+    tables, k, v, _, _ = _arena(cuda, torch.float32, 2, 2, 64, 16, 3,
+                                positions + 1, False)
+    q = torch.randn(2, 2, 2, 64, device='cuda', requires_grad=True)
+    with pytest.raises(ValueError, match='requires grad'):
+        da.decode_attention_pooled(q, k, v, tables, 1, positions)
+    with pytest.raises(ValueError, match='requires grad'):
+        da.decode_window_attention_pooled(q[:, None], k, v, tables, 1,
+                                          positions)
+    with torch.no_grad():
+        da.decode_attention_pooled(q, k, v, tables, 1, positions)
+
+
+@pytest.mark.parametrize('remat,policy', [(False, None), (True, None),
+                                          (True, 'dots')])
+def test_llama_gradients_on_card_match_host(cuda, remat, policy):
+    """LLAMA_DEBUG f32 (ragged 47 tokens): every parameter's gradient on
+    the card exists, is non-zero and equals the host's."""
+    import dataclasses
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.train import trainer
+    cfg = dataclasses.replace(llama.LLAMA_DEBUG, remat=remat,
+                              remat_policy=policy)
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0), 'cpu')
+    tokens = next(trainer.synthetic_batches(2, 47, cfg.vocab_size))['tokens']
+    grads = {}
+    for dev in ('cuda', 'cpu'):
+        p = trainer.tree_map(lambda t: t.to(dev).requires_grad_(), params)
+        loss = llama.loss_fn(p, {'tokens': torch.from_numpy(tokens).to(dev)},
+                             cfg)
+        grads[dev] = torch.autograd.grad(loss, trainer.tree_leaves(p))
+    for got, want in zip(grads['cuda'], grads['cpu']):
+        assert float(got.abs().max()) > 0
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4,
+                                   atol=1e-4 * float(want.abs().max()))
+
+
+def test_trainer_on_card_matches_host(cuda):
+    """Two Trainer steps at LLAMA_DEBUG f32: loss and grad_norm as the
+    host's; parameters within 2 x the summed learning rates (Adam moves
+    a ~0-gradient element by up to lr either way), nearly all within
+    1e-6."""
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.ops import attention as at
+    from skypilot_tpu_torch.train import trainer
+    cfg = llama.LLAMA_DEBUG
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0), 'cpu')
+    tc = trainer.TrainConfig(learning_rate=1e-3, warmup_steps=1,
+                             total_steps=4)
+    runs = {}
+    before = at.flash_attention_dkv.launches
+    for dev in ('cuda', 'cpu'):
+        tr = trainer.Trainer(lambda p, b: llama.loss_fn(p, b, cfg),
+                             trainer.tree_map(torch.clone, params), tc,
+                             device=dev)
+        batches = trainer.synthetic_batches(4, 63, cfg.vocab_size)
+        metrics = [tr.run_step(next(batches)) for _ in range(2)]
+        runs[dev] = ([(float(m['loss']), float(m['grad_norm']))
+                      for m in metrics], trainer.tree_leaves(tr.params))
+    assert at.flash_attention_dkv.launches == before + 2 * cfg.n_layers
+    np.testing.assert_allclose(runs['cuda'][0], runs['cpu'][0], rtol=1e-5)
+    lrs = tc.learning_rate
+    for got, want in zip(runs['cuda'][1], runs['cpu'][1]):
+        diff = (got.detach().cpu() - want.detach()).abs()
+        assert float(diff.max()) <= 2 * lrs
+        assert float((diff <= 1e-6).float().mean()) > 0.99
