@@ -17,7 +17,9 @@ Phases (any failure exits non-zero):
    median of 25, L2 flushed before each), and computes each kernel's
    bound from the bytes and operations of this run's inputs.  The paged
    kernels are also run on arenas poisoned past each window and outside
-   the tables, which must not change their output.  The training
+   the tables, and K7 (the contiguous decode, q (8, 8, 4, 128) over the
+   1024-row bucket) on caches poisoned past each position, which must
+   not change their output.  The training
    kernels (K2 with its lse, K5 dq, K6 dk/dv) are held to their plain
    versions in bf16 and f32 at the LLAMA_1B training shape (8, 1024,
    16/8 heads, 128) and a ragged S, and in bf16 at the 8B trunk's
@@ -27,8 +29,11 @@ Phases (any failure exits non-zero):
 4. slice parity: a 2-layer LLAMA_DEBUG model in f32 served on the card
    (kernels) and on the host (plain versions) from the same weights:
    identical greedy tokens (plain, spec_k=3, fuse_budget, int8 KV and
-   weights), allclose first-step logits; spec_k=3 and the fused schedule
-   give the plain schedule's tokens.  Training parity on the same model:
+   weights; the legacy batcher planes 'paged', 'inplace' and 'paged' with
+   int8 KV; the Generator on the pooled plane, with spec_k=3, and on
+   'paged'), allclose first-step logits; spec_k=3, the fused schedule,
+   the legacy planes and the Generator give the plain schedule's tokens
+   (int8 KV aside).  Training parity on the same model:
    first-step gradients under remat False, True and 'dots' on card and
    host, and 3 Trainer steps (loss, grad_norm) on both.
 5. main path: random LLAMA3_8B bf16 weights on the card behind the HTTP
@@ -38,7 +43,13 @@ Phases (any failure exits non-zero):
 6. main path with speculative verify and fused steps, twice on phase 5's
    weights: (a) bf16 with spec_k 12 and fuse_budget 264, (b) the same
    with int8 KV and int8 weights.  The same 8 requests.
-7. train path: Trainer(loss_fn, params, config).fit on random bf16
+7. the legacy decode_impl='paged' plane (K7 over the bucketed slot
+   cache) on phase 5's weights: the same 8 requests behind the replica
+   (a) in bf16 and (b) with int8 KV, and (c) one Generator.generate of
+   the 8 prompts.  K1 must not launch; the slot cache must grow, and
+   shrink back to its smallest bucket for a short request afterwards.
+   Prints TTFT, decode tokens/s, migrations and memory.
+8. train path: Trainer(loss_fn, params, config).fit on random bf16
    weights, remat 'dots', chunked CE: (a) LLAMA_1B at the reference
    bench's settings (8 x 1024 tokens, loss_chunk 256, 12 steps, warmup 2
    of 12), (b) LLAMA3_8B's widths at depth 2 (2 x 4096 tokens,
@@ -48,8 +59,8 @@ Phases (any failure exits non-zero):
 
 Every kernel of a main-path run must launch > 0 times in that run (the
 counts are set to 0 just before it and read just after); the window
-kernel must launch from both verify and fused ticks, and K2, K3, K5 and
-K6 from both train paths.  The last lines of
+kernel must launch from both verify and fused ticks, K7 (and never K1)
+on every phase 7 path, and K2, K3, K5 and K6 from both train paths.  The last lines of
 standard output are the {"kernels": [...]} line, the nvidia-smi
 name/power-limit line, and {"ok": true, "device": {...}}.
 """
@@ -64,6 +75,7 @@ import sys
 import threading
 import time
 import urllib.request
+import warnings
 
 import numpy as np
 import torch
@@ -79,13 +91,14 @@ TIMING_REPS = 25
 # ulps.  An int8 arena takes its q dtype's tolerance: the kernels
 # dequantize before each product, the plain versions scale after it.
 TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (3e-2, 2e-2)}
-# bf16 gradients of the flash backward (dq, dk, dv), elementwise: atol
-# one bf16 ulp (2^-7) of the largest element of the same row (the row's
-# elements share their sums' terms, so their f32 noise scales with it;
-# a causal gradient's rows differ in scale by 50x), never below the f32
+# bf16 outputs whose plain version computes in f32 as the kernel does
+# (the flash backward's dq, dk, dv; K7), elementwise: atol one bf16 ulp
+# (2^-7) of the largest element of the same row (the row's elements
+# share their sums' terms, so their f32 noise scales with it; a causal
+# gradient's rows differ in scale by 50x), never below the f32
 # summation-order atol (rows that cancel to ~0); rtol two ulps (2^-6):
 # the f32 sums of both sides round to bf16 on either side of a boundary.
-BWD_BF16_ULPS = (2 ** -7, 2 ** -6)
+BF16_ROW_ULPS = (2 ** -7, 2 ** -6)
 # Slice parity in f32: sums taken in another order across 2 layers (and,
 # for int8, the scales applied before the product on the card and after
 # it on the host).
@@ -161,12 +174,13 @@ def check_close(name: str, out: torch.Tensor, ref: torch.Tensor,
     return max_err
 
 
-def grad_tol(ref: torch.Tensor):
-    """(atol, rtol) of a flash-backward gradient: BWD_BF16_ULPS in bf16,
-    with atol a tensor of one value per row; TOL otherwise."""
+def row_tol(ref: torch.Tensor):
+    """(atol, rtol) of an output computed in f32 on both sides:
+    BF16_ROW_ULPS in bf16, with atol a tensor of one value per row; TOL
+    otherwise."""
     if ref.dtype != torch.bfloat16:
         return TOL[ref.dtype]
-    ulp, rtol = BWD_BF16_ULPS
+    ulp, rtol = BF16_ROW_ULPS
     row_max = ref.float().abs().amax(-1, keepdim=True)
     return torch.clamp_min(ulp * row_max, TOL[torch.float32][0]), rtol
 
@@ -278,12 +292,12 @@ def _check_train_kernels(at, q, k, v, do, causal, tag):
     e_dq = check_close(
         f'flash_attention_dq {tag}',
         at.flash_attention_dq(q, k, v, do, lse, delta, causal), want,
-        grad_tol(want))
+        row_tol(want))
     del want
     got = at.flash_attention_dkv(q, k, v, do, lse, delta, causal)
     want = at._flash_attention_dkv_plain(q, k, v, do, lse, delta, causal)
     e_dkv = max(check_close(f'flash_attention_dkv {n} {tag}', g, w,
-                            grad_tol(w))
+                            row_tol(w))
                 for n, g, w in zip(('dk', 'dv'), got, want))
     return {'lse': e_lse, 'dq': e_dq, 'dkv': e_dkv}, o, lse, delta
 
@@ -581,6 +595,92 @@ def check_window(decode_attention):
     return results
 
 
+# K7's cache at the 8B serving shape of phase 7: batch 8, the 1024-row
+# bucket that the 700-token prompt and its 48 new tokens need.  The timed
+# positions give K1's 5,515 live keys inside 1024 rows.
+CONTIG_LEN = 1024
+CONTIG_POSITIONS = ([0, 63, 64, 133, 511, 700, 1000, 1023],
+                    [63, 64, 288, 1000, 1023, 1023, 1023, 1023])
+
+
+def check_contig_decode(decode_attention):
+    """K7 in f32, bf16 and on an int8 cache (bf16 q) at q (8, 8, 4, 128)
+    over a 2-layer (L, 8, 1024, 8, 128) cache: against its plain version
+    at two position sets (block edges, and K1's live-key count), and on a
+    cache poisoned past each position.  Returns the kernels line entries
+    of the bf16 and int8 variants, timed at the second set."""
+    da = decode_attention
+    gen = torch.Generator(device='cuda').manual_seed(8)
+    batch, layer = 8, 1
+    shape = (2, batch, CONTIG_LEN, KV_HEADS, HEAD_DIM)
+    results = {}
+    for label, dtype, int8 in (('f32', torch.float32, False),
+                               ('bf16', torch.bfloat16, False),
+                               ('int8', torch.bfloat16, True)):
+        q = torch.randn(batch, KV_HEADS, GROUP, HEAD_DIM, generator=gen,
+                        device='cuda').to(dtype)
+        k = torch.randn(shape, generator=gen, device='cuda').to(dtype)
+        v = torch.randn(shape, generator=gen, device='cuda').to(dtype)
+        ks = vs = None
+        if int8:
+            from skypilot_tpu_torch.infer import llama_infer
+            (k, ks), (v, vs) = (llama_infer._quantize_kv(x) for x in (k, v))
+        for pos_list in CONTIG_POSITIONS:
+            positions = torch.tensor(pos_list, dtype=torch.int32,
+                                     device='cuda')
+
+            def kernel(k=k, v=v):
+                return da.decode_attention(q, k, v, layer, positions, ks, vs)
+
+            def plain():
+                return da._decode_attention_contig_plain(
+                    q, k, v, layer, positions, ks, vs)
+
+            out, want = kernel(), plain()
+            # Both sides keep the probabilities and the dequantized cache
+            # in f32 and round only the output: per-row bf16 ulps.
+            err = check_close(f'decode_attention {label} positions '
+                              f'{pos_list}', out, want, row_tol(want))
+            del want
+            value = 127 if int8 else 1e4
+            k2, v2 = k.clone(), v.clone()
+            for b, p in enumerate(pos_list):
+                k2[layer, b, p + 1:] = value
+                v2[layer, b, p + 1:] = -value
+            if not torch.equal(kernel(k2, v2), out):
+                raise AssertionError(f'decode_attention {label} read keys '
+                                     f'past a position')
+            del k2, v2
+        if label == 'f32':
+            continue
+        live_keys = int((positions.long() + 1).sum())
+        nbytes = 2 * q.numel() * 2 + _kv_bytes(live_keys, k) + batch * 4
+        b_ms, by = bound(nbytes, 4 * HEAD_DIM * KV_HEADS * GROUP * live_keys,
+                         BF16_FLOPS)
+        kt, vt = k[layer], v[layer]
+        if int8:
+            kt = da._dequantize(kt, ks[layer], dtype)
+            vt = da._dequantize(vt, vs[layer], dtype)
+        kt, vt = kt.transpose(1, 2), vt.transpose(1, 2)    # (B, KV, S, hd)
+        qs = q.reshape(batch, KV_HEADS * GROUP, 1, HEAD_DIM)
+        mask = (torch.arange(CONTIG_LEN, device='cuda')[None, :]
+                <= positions.long()[:, None])[:, None, None, :]
+        results[label] = {
+            'name': 'decode_attention' + ('' if label == 'bf16' else '[int8]'),
+            'route': 'cuda',
+            'source': 'skypilot_tpu_torch/csrc/paged_decode.cu',
+            'replaces': 'skypilot_tpu/ops/decode_attention.py:202',
+            'shape': f'q ({batch}, {KV_HEADS}, {GROUP}, {HEAD_DIM}) bf16, '
+                     f'{"int8" if int8 else "bf16"} cache (2, {batch}, '
+                     f'{CONTIG_LEN}, {KV_HEADS}, {HEAD_DIM}), live keys '
+                     f'{live_keys}',
+            'max_abs_err': err, 'ms': time_ms(kernel),
+            'plain_ms': time_ms(plain), 'bound_ms': b_ms, 'bound_by': by,
+            'library_ms': time_ms(lambda: sdpa(qs, kt, vt, attn_mask=mask)),
+        }
+    return results
+
+
 # ---- phase 4: slice parity ------------------------------------------------
 
 def _serve_debug(params, cfg, dev, prompts, budgets, **extra):
@@ -592,8 +692,23 @@ def _serve_debug(params, cfg, dev, prompts, budgets, **extra):
         device=dev)
     rids = [b.submit(p, max_new_tokens=n) for p, n in zip(prompts, budgets)]
     b.run_until_idle()
-    b.pool.check_invariant()
+    if b.pooled:
+        b.pool.check_invariant()
     return b, [b.result(r) for r in rids]
+
+
+def _generate_debug(params, cfg, dev, prompts, budgets, **extra):
+    """The lockstep Generator on the same prompts, each row cut to its
+    request's budget."""
+    from skypilot_tpu_torch.infer.engine import Generator, GeneratorConfig
+    gen = Generator(params, cfg, GeneratorConfig(
+        max_seq_len=256, batch_size=len(prompts),
+        prompt_buckets=[16, 64, 128], decode_chunk=4, kv_block_size=16,
+        **extra), device=dev)
+    out = gen.generate(prompts, max_new_tokens=max(budgets))
+    if gen.pooled:
+        gen.pool.check_invariant()
+    return gen, [o[:n] for o, n in zip(out, budgets)]
 
 
 def _same_tokens(what, got, want):
@@ -686,6 +801,34 @@ def slice_parity():
                      outs['plain', 'cuda'])
     log('  spec_k=3 and fuse_budget=16 give the plain schedule\'s tokens')
 
+    # The legacy planes (K7 on 'paged') through the batcher, and the
+    # lockstep Generator on the pooled and 'paged' planes.
+    legacy = (('batcher paged', _serve_debug, dict(decode_impl='paged')),
+              ('batcher inplace', _serve_debug, dict(decode_impl='inplace')),
+              ('batcher paged int8 KV', _serve_debug,
+               dict(decode_impl='paged', kv_cache_dtype='int8')),
+              ('Generator pooled', _generate_debug, {}),
+              ('Generator pooled spec_k=3', _generate_debug, dict(spec_k=3)),
+              ('Generator paged', _generate_debug,
+               dict(decode_impl='paged')))
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore', DeprecationWarning)
+        for label, run, extra in legacy:
+            for dev in ('cpu', 'cuda'):
+                engine_obj, outs[label, dev] = run(params[dev], cfg, dev,
+                                                   prompts, budgets, **extra)
+                if run is _serve_debug and not engine_obj.pooled and \
+                        not engine_obj.migrations['grow']:
+                    raise AssertionError(f'{label} on {dev}: no migration')
+            _same_tokens(f'{label}: card vs host', outs[label, 'cuda'],
+                         outs[label, 'cpu'])
+            if 'int8' not in label:
+                _same_tokens(f'{label} vs the pooled batcher',
+                             outs[label, 'cuda'], outs['plain', 'cuda'])
+    log('  batcher paged / inplace / paged int8 KV and Generator pooled / '
+        'spec_k=3 / paged: greedy tokens identical on card and host, and '
+        'to the pooled batcher\'s (int8 aside)')
+
 
 def _clone_to(tree, device):
     """A copy of a parameter tree on `device` (a Trainer updates the
@@ -756,13 +899,19 @@ def _to_device(tree, device):
     return tree.to(device)
 
 
-# ---- phases 5 and 6: main paths ---------------------------------------------
+# ---- phases 5 to 7: main paths ----------------------------------------------
+
+# Prompt lengths of the 8 serving requests (48 new tokens each).
+SERVE_LENGTHS = [17, 60, 128, 250, 300, 450, 600, 700]
+
 
 def serve_path(label, params, gen_config, counters):
     """Serve the 8 requests through the HTTP replica with every launch
     count set to 0 just before and read just after; returns the counts.
     Fails unless every request returns 48 in-range tokens and the pool
-    comes back empty."""
+    comes back empty (on a legacy plane: every slot comes back free and
+    frozen, and one short request afterwards shrinks the slot cache to
+    its smallest bucket)."""
     from skypilot_tpu_torch.infer import engine, replica
     from skypilot_tpu_torch.infer.serving import ContinuousBatcher
     from skypilot_tpu_torch.models import llama
@@ -785,7 +934,7 @@ def serve_path(label, params, gen_config, counters):
             health = json.loads(r.read())
         assert health['status'] == 'ok', health
         rng = np.random.RandomState(2)
-        lengths = [17, 60, 128, 250, 300, 450, 600, 700]
+        lengths = SERVE_LENGTHS
         prompts = [[int(t) for t in rng.randint(0, cfg.vocab_size, size=n)]
                    for n in lengths]
         max_new = 48
@@ -806,6 +955,7 @@ def serve_path(label, params, gen_config, counters):
         for c in counters:
             c.launches = 0
         syncs0 = engine.host_fetch.calls
+        mig0 = dict(batcher.migrations)
         t0 = time.perf_counter()
         threads = [threading.Thread(target=send, args=(i,))
                    for i in range(len(prompts))]
@@ -824,10 +974,24 @@ def serve_path(label, params, gen_config, counters):
                                  f'{lengths[i]}): {resp}')
         if not all(0 <= t < cfg.vocab_size for t in resp['output_ids']):
             raise AssertionError(f'{label}: request {i}: token out of range')
-    batcher.pool.check_invariant()
-    st = batcher.pool.stats()
-    if st['blocks_live'] or st['reserved']:
-        raise AssertionError(f'{label}: pool not returned: {st}')
+    migrations = {k: v - mig0[k] for k, v in batcher.migrations.items()}
+    cache_len = batcher._cache_len
+    if batcher.pooled:
+        batcher.pool.check_invariant()
+        st = batcher.pool.stats()
+        if st['blocks_live'] or st['reserved']:
+            raise AssertionError(f'{label}: pool not returned: {st}')
+    else:
+        if sorted(batcher._free) != list(range(gen_config.batch_size)) \
+                or not bool(batcher._done.all()):
+            raise AssertionError(f'{label}: slots not returned: free '
+                                 f'{batcher._free}')
+        short = batcher.submit([1, 2, 3], max_new_tokens=2)
+        batcher.run_until_idle()
+        batcher.result(short)
+        if batcher._cache_len != batcher.cache_buckets[0]:
+            raise AssertionError(f'{label}: the slot cache stayed at '
+                                 f'{batcher._cache_len} rows')
     ttfts = sorted(r['ttft_s'] for r in responses)
     stats = {
         'card': CARD['line'],
@@ -849,7 +1013,57 @@ def serve_path(label, params, gen_config, counters):
             batcher._fuse_policy.stats.prefill_tokens - fuse0[1]
             if batcher._fuse_policy else 0),
         'host_fetches': syncs,
+        'migrations': migrations,
+        'cache_len': cache_len,
         'resident_gb_before_requests': resident_gb,
+        'peak_memory_gb': torch.cuda.max_memory_allocated() / 1e9,
+        'launches': launches,
+    }
+    log(f'  {label}: ' + json.dumps(stats))
+    return launches, migrations
+
+
+def generate_path(label, params, gen_config, counters):
+    """One Generator.generate of the 8 serving prompts, 48 new tokens
+    each, with every launch count set to 0 just before and read just
+    after; returns the counts.  Fails unless every row returns 48
+    in-range tokens."""
+    from skypilot_tpu_torch.infer.engine import Generator
+    from skypilot_tpu_torch.models import llama
+
+    cfg = llama.LLAMA3_8B
+    torch.cuda.reset_peak_memory_stats()
+    gen = Generator(params, cfg, gen_config, device='cuda')
+    gen.warmup()
+    torch.cuda.synchronize()
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    rng = np.random.RandomState(2)
+    prompts = [[int(t) for t in rng.randint(0, cfg.vocab_size, size=n)]
+               for n in SERVE_LENGTHS]
+    for c in counters:
+        c.launches = 0
+    mig0 = dict(gen.migrations)
+    t0 = time.perf_counter()
+    out = gen.generate(prompts, max_new_tokens=48)
+    wall = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    for i, row in enumerate(out):
+        if len(row) != 48 or not all(0 <= t < cfg.vocab_size for t in row):
+            raise AssertionError(f'{label}: row {i} (prompt '
+                                 f'{SERVE_LENGTHS[i]}): {len(row)} tokens')
+    st = gen.last_stats
+    stats = {
+        'card': CARD['line'], 'rows': len(out),
+        'prompt_tokens': sum(SERVE_LENGTHS),
+        'generated_tokens': st['generated_tokens'], 'wall_s': wall,
+        'ttft_s': st['ttft_s'],
+        'decode_tokens_per_s': st['decode_tokens'] / st['decode_seconds'],
+        'decode_tokens': st['decode_tokens'],
+        'decode_seconds': st['decode_seconds'],
+        'host_fetches': st['host_fetches'],
+        'migrations': {k: v - mig0[k] for k, v in gen.migrations.items()},
+        'cache_len': st['cache_len'],
+        'resident_gb_before_generate': resident_gb,
         'peak_memory_gb': torch.cuda.max_memory_allocated() / 1e9,
         'launches': launches,
     }
@@ -933,10 +1147,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     CARD['line'] = nvidia_smi_line()
     CARD['kind'] = torch.cuda.get_device_name(0)
-    log(f'[1/7] device: {CARD["line"]} | torch {torch.__version__} '
+    log(f'[1/8] device: {CARD["line"]} | torch {torch.__version__} '
         f'cuda {torch.version.cuda}')
 
-    log('[2/7] build')
+    log('[2/8] build')
     _kernels.LIBRARY.get()
     log(f'  built {_kernels.LIBRARY.path.name} in '
         f'{_kernels.LIBRARY.build_seconds:.1f} s')
@@ -945,25 +1159,27 @@ def main() -> int:
         if 'spill' in line and ' 0 bytes spill stores' not in line:
             log(f'  ptxas: {line.strip()}')
 
-    log('[3/7] kernels vs plain versions')
+    log('[3/8] kernels vs plain versions')
     t0 = time.perf_counter()
     decode = check_decode(decode_attention)
+    contig = check_contig_decode(decode_attention)
     window = check_window(decode_attention)
     flash, norm = check_flash(attention), check_rmsnorm(rmsnorm)
     train = check_flash_train(attention)
     k1 = decode_attention.decode_attention_pooled
     k4v = decode_attention.decode_window_attention_pooled
     k4f = decode_attention.fused_step_attention_pooled
+    k7 = decode_attention.decode_attention
     k2, k3 = attention.flash_attention, rmsnorm.rms_norm
     k5, k6 = attention.flash_attention_dq, attention.flash_attention_dkv
-    counters = [k1, k2, k3, k4v, k4f, k5, k6]
+    counters = [k1, k2, k3, k4v, k4f, k5, k6, k7]
     log(f'  phase 3: {time.perf_counter() - t0:.1f} s')
 
-    log('[4/7] slice parity, LLAMA_DEBUG f32, card vs host')
+    log('[4/8] slice parity, LLAMA_DEBUG f32, card vs host')
     slice_parity()
     train_parity()
 
-    log('[5/7] main path, LLAMA3_8B bf16 behind the HTTP replica')
+    log('[5/8] main path, LLAMA3_8B bf16 behind the HTTP replica')
     cfg = llama.LLAMA3_8B
     t0 = time.perf_counter()
     params = llama.init_params(
@@ -972,38 +1188,59 @@ def main() -> int:
     log(f'  LLAMA3_8B bf16 random weights: {cfg.num_params() / 1e9:.2f}B '
         f'params in {time.perf_counter() - t0:.1f} s')
     base = dict(max_seq_len=2048, batch_size=8, prefill_chunk=256)
-    paths = {'5': serve_path('main path', params, GeneratorConfig(**base),
-                             counters)}
+    paths = {}
+    paths['5'], _ = serve_path('main path', params, GeneratorConfig(**base),
+                               counters)
     _need('main', paths['5'], [c.__name__ for c in (k1, k2, k3)])
 
-    log('[6/7] main path with spec_k 12 and fuse_budget 264: (a) bf16, '
+    log('[6/8] main path with spec_k 12 and fuse_budget 264: (a) bf16, '
         '(b) int8 KV and weights')
     spec = dict(base, spec_k=12, fuse_budget=264)
-    paths['6a'] = serve_path('6a bf16 spec+fused', params,
-                             GeneratorConfig(**spec), counters)
-    paths['6b'] = serve_path('6b int8 spec+fused', params, GeneratorConfig(
+    paths['6a'], _ = serve_path('6a bf16 spec+fused', params,
+                                GeneratorConfig(**spec), counters)
+    paths['6b'], _ = serve_path('6b int8 spec+fused', params, GeneratorConfig(
         **spec, kv_cache_dtype='int8', weights_dtype='int8'), counters)
     for key in ('6a', '6b'):
         _need(key, paths[key], [c.__name__ for c in (k1, k2, k3, k4v, k4f)])
+
+    log("[7/8] legacy plane decode_impl='paged' (K7): (a) bf16 and (b) int8 "
+        'KV behind the HTTP replica, (c) Generator.generate')
+    legacy = dict(base, decode_impl='paged', decode_chunk=16)
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore', DeprecationWarning)
+        paths['7a'], mig_a = serve_path('7a paged bf16', params,
+                                        GeneratorConfig(**legacy), counters)
+        paths['7b'], mig_b = serve_path('7b paged int8 KV', params,
+                                        GeneratorConfig(**legacy,
+                                                        kv_cache_dtype='int8'),
+                                        counters)
+        paths['7c'] = generate_path('7c Generator paged bf16', params,
+                                    GeneratorConfig(**legacy), counters)
+    for key in ('7a', '7b', '7c'):
+        _need(key, paths[key], [c.__name__ for c in (k2, k3, k7)])
+        if paths[key][k1.__name__]:
+            raise AssertionError(f'{k1.__name__} launched on the {key} path')
+    if not mig_a['grow'] + mig_b['grow']:
+        raise AssertionError('the paged plane never grew its slot cache')
     del params
     gc.collect()
     torch.cuda.empty_cache()
 
-    log('[7/7] train path: (a) LLAMA_1B at the bench settings, (b) '
+    log('[8/8] train path: (a) LLAMA_1B at the bench settings, (b) '
         'LLAMA3_8B widths at depth 2')
     remat = dict(remat=True, remat_policy='dots')
-    paths['7a'] = train_path(
-        '7a LLAMA_1B 8x1024', dataclasses.replace(
+    paths['8a'] = train_path(
+        '8a LLAMA_1B 8x1024', dataclasses.replace(
             llama.LLAMA_1B, max_seq_len=2048, loss_chunk=256, **remat),
         8, 1024, 12, trainer.TrainConfig(warmup_steps=2, total_steps=12),
         counters)
-    paths['7b'] = train_path(
-        '7b LLAMA3_8B widths, 2 layers, 2x4096', dataclasses.replace(
+    paths['8b'] = train_path(
+        '8b LLAMA3_8B widths, 2 layers, 2x4096', dataclasses.replace(
             llama.LLAMA3_8B, n_layers=2, max_seq_len=4096, loss_chunk=512,
             **remat),
         2, 4096, 6, trainer.TrainConfig(warmup_steps=2, total_steps=6),
         counters)
-    for key in ('7a', '7b'):
+    for key in ('8a', '8b'):
         _need(key, paths[key], [c.__name__ for c in (k2, k3, k5, k6)])
 
     def entry(res, counter, keys):
@@ -1011,7 +1248,7 @@ def main() -> int:
         return dict(res, launches=sum(by_path.values()),
                     launches_by_path=by_path)
 
-    every = ('5', '6a', '6b', '7a', '7b')
+    every = tuple(paths)
     kernels = [
         entry(decode['bf16'], k1, ('5', '6a')),
         entry(decode['int8'], k1, ('6b',)),
@@ -1021,10 +1258,12 @@ def main() -> int:
         entry(window['fused', 'bf16'], k4f, ('6a',)),
         entry(window['verify', 'int8'], k4v, ('6b',)),
         entry(window['fused', 'int8'], k4f, ('6b',)),
+        entry(contig['bf16'], k7, ('7a', '7c')),
+        entry(contig['int8'], k7, ('7b',)),
     ]
     for name, counter in (('lse', k2), ('dq', k5), ('dkv', k6)):
-        kernels += [entry(train[name, '1b'], counter, ('7a',)),
-                    entry(train[name, '8b'], counter, ('7b',))]
+        kernels += [entry(train[name, '1b'], counter, ('8a',)),
+                    entry(train[name, '8b'], counter, ('8b',))]
     log(json.dumps({'kernels': kernels}))
     log(CARD['line'])
     log(json.dumps({'ok': True, 'device': {

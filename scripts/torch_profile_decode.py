@@ -8,19 +8,26 @@ Measures, printing one JSON line each:
               size), CUDA events, median of 5;
   decode    - steady decode with all 8 slots live at context ~P: host
               time per batcher.step() (one 16-step chunk ending in its one
-              host fetch), per step and per token;
+              host fetch), the median of 4 chunks (each chunk's time in
+              chunk_ms_all), per step and per token;
   profile   - torch.profiler over one decode chunk: device-busy share of
               the wall time, and device time by kernel name (top 12).
 
 Run from the root of a checkout on a card:
     python3 scripts/torch_profile_decode.py [--prompt 512] [--int8]
+        [--decode-impl pooled paged] [--turns 3]
 
 --int8 serves the decode chunks with kv_cache_dtype='int8' and
-weights_dtype='int8' (the prefill timing stays bf16).
+weights_dtype='int8' (the prefill timing stays bf16).  --decode-impl
+picks the decode planes (default 'pooled'; 'paged' is the bucketed slot
+cache with the K7 kernel); several planes are measured in turns, --turns
+times each, on one set of weights in one process, so that host noise
+shows as the spread between turns of the same plane.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import statistics
@@ -83,12 +90,13 @@ def streamed_bytes(tree, key: str = '') -> int:
     return 0 if key == 'embed' else tree.numel() * tree.element_size()
 
 
-def profile_decode(params, cfg, prompt_len: int, int8: bool) -> None:
+def profile_decode(params, cfg, prompt_len: int, int8: bool,
+                   decode_impl: str, turn: int) -> None:
     dtypes = (dict(kv_cache_dtype='int8', weights_dtype='int8') if int8
               else {})
     batcher = ContinuousBatcher(params, cfg, GeneratorConfig(
-        max_seq_len=2048, batch_size=BATCH, **dtypes), decode_chunk=CHUNK,
-        device='cuda')
+        max_seq_len=2048, batch_size=BATCH, decode_impl=decode_impl,
+        **dtypes), decode_chunk=CHUNK, device='cuda')
     gen = torch.Generator().manual_seed(0)
     for _ in range(BATCH):
         prompt = torch.randint(0, cfg.vocab_size, (prompt_len,),
@@ -103,9 +111,11 @@ def profile_decode(params, cfg, prompt_len: int, int8: bool) -> None:
         batcher.step()
         walls.append((time.perf_counter() - t0) * 1e3)
     step_ms = statistics.median(walls) / CHUNK
-    emit('decode', int8=int8, slots=BATCH,
-         context=int(batcher._host_pos.max()),
-         chunk_ms=statistics.median(walls), step_ms=step_ms,
+    emit('decode', int8=int8, decode_impl=decode_impl, turn=turn,
+         slots=BATCH, context=int(batcher._host_pos.max()),
+         cache_rows=batcher._cache_len,
+         chunk_ms=statistics.median(walls), chunk_ms_all=walls,
+         step_ms=step_ms,
          tokens_per_s=BATCH / step_ms * 1e3,
          weights_gb=streamed_bytes(batcher.params) / 1e9,
          weights_bound_ms=streamed_bytes(batcher.params) / 3.35e12 * 1e3)
@@ -124,7 +134,8 @@ def profile_decode(params, cfg, prompt_len: int, int8: bool) -> None:
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.device_time)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-    emit('profile', wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
+    emit('profile', decode_impl=decode_impl, turn=turn,
+         wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
          device_busy_share=busy_us / wall_us, kernel_launches=len(kernels),
          top=[{'name': n[:80], 'calls': c, 'ms': t / 1e3,
                'share_of_busy': t / busy_us} for n, (c, t) in top])
@@ -136,6 +147,9 @@ def main() -> int:
     parser.add_argument('--prompt', type=int, default=512)
     parser.add_argument('--int8', action='store_true',
                         help='int8 KV arena and int8 weights in decode')
+    parser.add_argument('--decode-impl', nargs='+', default=['pooled'],
+                        choices=['pooled', 'paged', 'inplace'])
+    parser.add_argument('--turns', type=int, default=1)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print('needs a CUDA device', file=sys.stderr)
@@ -145,7 +159,13 @@ def main() -> int:
     params = llama.init_params(
         cfg, torch.Generator(device='cuda').manual_seed(0), 'cuda')
     time_prefill(params, cfg, args.prompt)
-    profile_decode(params, cfg, args.prompt, args.int8)
+    for turn in range(args.turns):
+        for impl in args.decode_impl:
+            profile_decode(params, cfg, args.prompt, args.int8, impl, turn)
+            # The batcher and its cache are gone: the next plane starts
+            # from the same free memory.
+            gc.collect()
+            torch.cuda.empty_cache()
     return 0
 
 

@@ -1,7 +1,10 @@
 """KV-cache prefill and decode for the stacked-layer Llama parameters.
 
-Counterpart of the pooled serving subset of skypilot_tpu/infer/
-llama_infer.py.  Where the JAX package scanned the layers with
+Counterpart of the serving subset of skypilot_tpu/infer/llama_infer.py:
+the pooled block arena (the default plane) and the contiguous,
+length-bucketed slot cache of the legacy decode planes ('paged',
+'inplace', 'scan', 'unroll'; ``resize_cache`` migrates it between
+buckets).  Where the JAX package scanned the layers with
 ``lax.scan``/``fori_loop`` and donated the cache to each jitted program,
 this module runs a plain Python loop over the layers and updates the
 caches IN PLACE (functions return the same dicts they were given).  The
@@ -11,15 +14,17 @@ step is bound by launch overhead on the host; CUDA graphs are later work.
 Kernels on this path (each with a plain PyTorch version for CPU tensors):
 ``ops.rmsnorm.rms_norm`` (every norm), ``ops.attention.flash_attention``
 (prefill), ``ops.decode_attention.decode_attention_pooled`` (decode),
-``decode_window_attention_pooled`` (speculative verify) and
-``fused_step_attention_pooled`` (the fused prefill+decode step).  The
-chunked-prefill window attends with plain einsums, as the JAX package
-does.  An int8 cache (``kv_dtype='int8'``) holds int8 k/v and per-(row,
+``decode_window_attention_pooled`` (speculative verify),
+``fused_step_attention_pooled`` (the fused prefill+decode step) and
+``decode_attention`` (K7, the 'paged' plane's decode).  The
+chunked-prefill windows and the 'inplace' decode attend with plain
+einsums, as the JAX package does.  An int8 cache (``kv_dtype='int8'``) holds int8 k/v and per-(row,
 KV head) f32 absmax scales ``k_scale``/``v_scale``.
 """
 from __future__ import annotations
 
 import functools
+import warnings
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -55,6 +60,31 @@ def init_cache(config: llama.LlamaConfig, batch: int, max_len: int,
                                    device=device),
             'v_scale': torch.zeros(shape[:-1], dtype=torch.float32,
                                    device=device)}
+
+
+def resize_cache(cache: Cache, new_len: int) -> Cache:
+    """Pad (zeros) or truncate the position axis (2) of every entry to
+    new_len: the bucket migration of the legacy decode planes.  k/v
+    (L, B, S, KV, hd) and the int8 scales (L, B, S, KV) share that axis.
+
+    Returns a NEW dict of contiguous tensors (a truncating slice alone
+    would be a view, and the kernels take contiguous inputs), or `cache`
+    itself when the length already matches.  Zero tail rows stay
+    invisible: every decode masks keys past its position, and a position
+    reaches a row only after that row's K/V write.  Truncating is legal
+    only while every live slot's position is < new_len."""
+    cur = cache['k'].shape[2]
+    if new_len == cur:
+        return cache
+    out = {}
+    for key, arr in cache.items():
+        if new_len > cur:
+            # Pad axis 2 of a 5-d k/v or a 4-d scale plane.
+            out[key] = torch.nn.functional.pad(
+                arr, (0, 0) * (arr.dim() - 3) + (0, new_len - cur))
+        else:
+            out[key] = arr[:, :, :new_len].contiguous()
+    return out
 
 
 def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -162,6 +192,52 @@ def prefill(params: llama.Params, tokens: torch.Tensor,
     return logits, cache
 
 
+def prefill_window(params: llama.Params, tokens_w: torch.Tensor,
+                   config: llama.LlamaConfig, cache: Cache, slot: int,
+                   start: int) -> Tuple[torch.Tensor, Cache]:
+    """Advance ONE slot's prefill by a window (chunked prefill over the
+    contiguous cache of the legacy planes): queries at positions
+    [start, start + W) attend over the slot's cache prefix and the
+    window itself; the window's K/V are written to cache[:, slot,
+    start:start + W) in place.
+
+    tokens_w: (W,); cache: (L, B, S, KV, hd).  Pad tokens past the
+    prompt are written but sit above every later query's mask.  Window
+    rows past the cache's S rows are dropped, as the JAX scatter drops
+    them (their rotation clamps to the last row, like the JAX gather).
+    Returns (hidden states (W, d) after the final norm, cache)."""
+    (w,) = tokens_w.shape
+    s_len = cache['k'].shape[2]
+    device = tokens_w.device
+    cos, sin = rope_tables(config, s_len, device)
+    h = llama.embed_tokens(params, tokens_w[None], config)   # (1, W, d)
+    q_pos = start + torch.arange(w, device=device)          # (W,)
+    visible = torch.arange(s_len, device=device)[None, :] <= q_pos[:, None]
+    rot = torch.clamp_max(q_pos, s_len - 1)[None]
+    keep = max(0, min(w, s_len - start))                    # rows in cache
+    dest = slice(start, start + keep)
+    for i in range(config.n_layers):
+        lp = llama.layer_params(params, i)
+        attn_p = lp['attn']
+        x = rmsnorm_ops.rms_norm(h, lp['ln1'], eps=config.norm_eps)
+        q, k, v = _qkv(x, attn_p, config)
+        q = rope_ops.apply_rope(q, cos, sin, positions=rot)
+        k = rope_ops.apply_rope(k, cos, sin, positions=rot)
+        _write_kv(cache, (i, slot, dest), k[0, :keep], v[0, :keep])
+        k_slot, v_slot = cache['k'][i, slot], cache['v'][i, slot]
+        if 'k_scale' in cache:
+            k_slot = decode_attention_ops._dequantize(
+                k_slot, cache['k_scale'][i, slot], q.dtype)
+            v_slot = decode_attention_ops._dequantize(
+                v_slot, cache['v_scale'][i, slot], q.dtype)
+        o = _window_attention(q, k_slot, v_slot, visible, config)
+        h = h + quant.matmul(o.reshape(1, w, -1), attn_p['wo'])
+        x = rmsnorm_ops.rms_norm(h, lp['ln2'], eps=config.norm_eps)
+        h = h + _ffn(x, lp, config)
+    h = rmsnorm_ops.rms_norm(h, params['final_norm'], eps=config.norm_eps)
+    return h[0], cache
+
+
 def scatter_prefill_pooled(small: Cache, arena: Cache,
                            tables_scatter: torch.Tensor) -> Cache:
     """Move a contiguous prefill cache into pooled arena blocks, in place.
@@ -256,6 +332,109 @@ def prefill_window_pooled(params: llama.Params, tokens_w: torch.Tensor,
         h = h + _ffn(x, lp, config)
     h = rmsnorm_ops.rms_norm(h, params['final_norm'], eps=config.norm_eps)
     return h[0], cache
+
+
+def get_decode_fn(impl: str):
+    """Decode step by GeneratorConfig.decode_impl name; an unknown name
+    raises, so a typo cannot select another path.  'pooled' takes a
+    block-table operand the others do not; the engines call it directly.
+
+    'inplace', 'scan' and 'unroll' are one function here: the JAX package
+    shares their math (_token_attn_mlp) and differs only in how XLA
+    carries the cache through the layer loop, which eager PyTorch does
+    not have.  'scan' and 'paged' keep the JAX package's
+    DeprecationWarning."""
+    if impl in ('inplace', 'unroll'):
+        return decode_step_inplace
+    if impl == 'scan':
+        warnings.warn(
+            "decode_impl='scan' is deprecated and will be removed once "
+            "a hardware bench confirms parity; use the default "
+            "decode_impl='pooled' block-pool data plane instead.",
+            DeprecationWarning, stacklevel=2)
+        return decode_step_inplace
+    if impl == 'paged':
+        warnings.warn(
+            "decode_impl='paged' is deprecated and will be removed once "
+            "a hardware bench confirms parity; use the default "
+            "decode_impl='pooled' block-pool data plane instead (same "
+            "length-aware reads, plus shared-arena block tables).",
+            DeprecationWarning, stacklevel=2)
+        return decode_step_paged
+    if impl == 'pooled':
+        return decode_step_pooled
+    raise ValueError(
+        f"decode_impl must be 'pooled', 'inplace', 'scan', 'unroll' or "
+        f"'paged', got {impl!r}")
+
+
+def _decode_contig(params: llama.Params, token: torch.Tensor,
+                   config: llama.LlamaConfig, cache: Cache,
+                   positions: torch.Tensor, kernel: bool
+                   ) -> Tuple[torch.Tensor, Cache]:
+    """One-token step over the contiguous (L, B, S, KV, hd) cache: each
+    layer writes its new K/V row in place at (layer, b, positions[b]),
+    then attends over the layer with keys <= positions[b] visible.
+    kernel: K7 (the 'paged' plane); else the plain masked math of the
+    JAX inplace/scan/unroll steps."""
+    batch = token.shape[0]
+    s_len = cache['k'].shape[2]
+    group = config.n_heads // config.n_kv_heads
+    cos, sin = rope_tables(config, s_len, token.device)
+    h = llama.embed_tokens(params, token, config)[:, None]   # (B, 1, d)
+    pos = positions.long()[:, None]
+    b_idx = torch.arange(batch, device=token.device)
+    for i in range(config.n_layers):
+        lp = llama.layer_params(params, i)
+        attn_p = lp['attn']
+        x = rmsnorm_ops.rms_norm(h, lp['ln1'], eps=config.norm_eps)
+        q, k, v = _qkv(x, attn_p, config)
+        q = rope_ops.apply_rope(q, cos, sin, positions=pos)
+        k = rope_ops.apply_rope(k, cos, sin, positions=pos)
+        _write_kv(cache, (i, b_idx, pos[:, 0]), k[:, 0], v[:, 0])
+        q_g = q.reshape(batch, 1, config.n_kv_heads, group, config.head_dim)
+        if kernel:
+            o = decode_attention_ops.decode_attention(
+                q_g[:, 0], cache['k'], cache['v'], i, positions,
+                cache.get('k_scale'), cache.get('v_scale'))
+        else:
+            scales = [cache[key][i] if key in cache else None
+                      for key in ('k_scale', 'v_scale')]
+            o = decode_attention_ops._token_attention(
+                q_g, cache['k'][i], cache['v'][i], positions, *scales)
+        h = h + quant.matmul(o.reshape(batch, 1, -1), attn_p['wo'])
+        x = rmsnorm_ops.rms_norm(h, lp['ln2'], eps=config.norm_eps)
+        h = h + _ffn(x, lp, config)
+    h = rmsnorm_ops.rms_norm(h, params['final_norm'], eps=config.norm_eps)
+    logits = quant.matmul(h[:, 0], params['lm_head'], out_dtype=torch.float32)
+    return logits, cache
+
+
+def decode_step_inplace(params: llama.Params, token: torch.Tensor,
+                        config: llama.LlamaConfig, cache: Cache,
+                        positions: torch.Tensor
+                        ) -> Tuple[torch.Tensor, Cache]:
+    """One-token step of the 'inplace', 'scan' and 'unroll' planes over
+    the contiguous cache, updated in place: plain masked attention over
+    each layer's full (B, S, KV, hd) slice (an int8 cache's scales
+    applied after each contraction).  token (B,); positions (B,) int32,
+    each slot's current cache row.  Returns (logits (B, vocab) f32,
+    cache)."""
+    return _decode_contig(params, token, config, cache, positions,
+                          kernel=False)
+
+
+def decode_step_paged(params: llama.Params, token: torch.Tensor,
+                      config: llama.LlamaConfig, cache: Cache,
+                      positions: torch.Tensor
+                      ) -> Tuple[torch.Tensor, Cache]:
+    """decode_step_inplace with attention through K7
+    (ops.decode_attention.decode_attention), which reads only each
+    slot's live rows straight from the stacked cache, dequantizing an
+    int8 cache before each product.  Needs S % 64 == 0 and
+    head_dim % 128 == 0."""
+    return _decode_contig(params, token, config, cache, positions,
+                          kernel=True)
 
 
 def decode_step_pooled(params: llama.Params, token: torch.Tensor,

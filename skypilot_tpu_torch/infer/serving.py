@@ -1,7 +1,8 @@
-"""Continuous batching over the pooled KV arena.
+"""Continuous batching over the pooled KV arena or the bucketed slot
+cache of the legacy decode planes.
 
 Counterpart of the core of skypilot_tpu/infer/serving.py
-(``ContinuousBatcher`` with ``decode_impl='pooled'``):
+(``ContinuousBatcher``):
 
 - KV lives in one pooled arena for the process lifetime; each of the
   `batch_size` SLOTS addresses its context through a host-mirrored block
@@ -27,6 +28,13 @@ Counterpart of the core of skypilot_tpu/infer/serving.py
   slots decode, a chunk of the prompt rides the first forward of the
   decode chunk instead of taking a tick of its own.  Fused ticks do not
   speculate.
+- The legacy planes (``decode_impl`` 'paged', 'inplace', 'scan',
+  'unroll') keep one contiguous (L, B, S, KV, hd) slot cache instead of
+  the arena.  It starts at the smallest cache bucket, grows before an
+  admission or a decode chunk would write past it, and shrinks when the
+  live contexts fit a smaller bucket and no chunked prefill is parked at
+  its last row; each migration is one copy of the cache.  They have no
+  speculation and no fused steps.
 
 Where the JAX package jitted each piece and donated the arena, this
 module runs eagerly and updates the arena and the per-slot device rows
@@ -107,28 +115,47 @@ class ContinuousBatcher:
         self.decode_chunk = decode_chunk
         self.max_queue = max_queue
         self.buckets = engine_lib.derive_buckets(gen_config)
+        self.cache_buckets = engine_lib.derive_cache_buckets(gen_config)
 
         batch = gen_config.batch_size
-        bs = gen_config.derive_block_size()
-        self.block_size = bs
-        self.table_width = -(-gen_config.max_seq_len // bs)
-        n_blocks = gen_config.pool_blocks
-        if n_blocks is None:
-            # "Cannot exhaust" sizing: every slot to max_seq_len, plus
-            # the garbage block.
-            n_blocks = 1 + batch * self.table_width
-        self.pool = block_pool_lib.BlockPool(
-            config, n_blocks, bs, kv_dtype=gen_config.kv_cache_dtype,
-            device=self.device)
-        self._cache_len = self.table_width * bs
-        self._host_tables = np.zeros((batch, self.table_width), np.int32)
-        self._slot_blocks: List[List[int]] = [[] for _ in range(batch)]
-        # Worst-case block ceiling and outstanding reservation per slot.
-        self._slot_cap = np.zeros((batch,), np.int32)
-        self._slot_reserved = np.zeros((batch,), np.int32)
-        self._tables_dev = torch.as_tensor(self._host_tables,
-                                           device=self.device)
-        self._tables_dirty = False
+        self.pooled = gen_config.decode_impl == 'pooled'
+        self.pool = None
+        # Legacy-plane bucket migrations over the batcher's lifetime.
+        self.migrations = {'grow': 0, 'shrink': 0}
+        if self.pooled:
+            bs = gen_config.derive_block_size()
+            self.block_size = bs
+            self.table_width = -(-gen_config.max_seq_len // bs)
+            n_blocks = gen_config.pool_blocks
+            if n_blocks is None:
+                # "Cannot exhaust" sizing: every slot to max_seq_len,
+                # plus the garbage block.
+                n_blocks = 1 + batch * self.table_width
+            self.pool = block_pool_lib.BlockPool(
+                config, n_blocks, bs, kv_dtype=gen_config.kv_cache_dtype,
+                device=self.device)
+            self._cache = self.pool.arena
+            self._cache_len = self.table_width * bs
+            self._host_tables = np.zeros((batch, self.table_width),
+                                         np.int32)
+            self._slot_blocks: List[List[int]] = [[] for _ in range(batch)]
+            # Worst-case block ceiling and outstanding reservation per
+            # slot.
+            self._slot_cap = np.zeros((batch,), np.int32)
+            self._slot_reserved = np.zeros((batch,), np.int32)
+            self._tables_dev = torch.as_tensor(self._host_tables,
+                                               device=self.device)
+            self._tables_dirty = False
+        else:
+            # Bucketed slot cache: starts at the SMALLEST bucket and
+            # migrates as admissions and live contexts cross bucket
+            # edges.
+            self._decode_fn = llama_infer.get_decode_fn(
+                gen_config.decode_impl)
+            self._cache_len = self.cache_buckets[0]
+            self._cache = llama_infer.init_cache(
+                config, batch, self._cache_len,
+                kv_dtype=gen_config.kv_cache_dtype, device=self.device)
 
         dev = self.device
         self._token = torch.zeros((batch,), dtype=torch.int32, device=dev)
@@ -212,7 +239,7 @@ class ContinuousBatcher:
                            self.gen.max_seq_len - len(prompt)),
                        temperature=temperature, top_p=top_p,
                        submitted_at=time.perf_counter())
-        if self._pool_cap(req) > self.pool.n_blocks - 1:
+        if self.pooled and self._pool_cap(req) > self.pool.n_blocks - 1:
             # Its worst-case block need exceeds the whole pool: it could
             # never be admitted.
             raise block_pool_lib.PoolExhaustedError(
@@ -288,6 +315,23 @@ class ContinuousBatcher:
                 return b
         raise ValueError(f'Prompt length {length} exceeds largest bucket')
 
+    # ---- slot cache (legacy planes) --------------------------------------
+    def _migrate(self, target: int) -> None:
+        """Resize the slot cache's position axis to `target` rows."""
+        self._cache = engine_lib.migrate_cache(self._cache, self._cache_len,
+                                               target, self.migrations)
+        self._cache_len = target
+
+    def _grow_for(self, rows: int) -> None:
+        """Grow (never shrink) the slot cache to cover `rows` positions:
+        an admission's prefill writes and its first decode write must
+        land inside the cache.  No-op on the pooled plane."""
+        if self.pooled:
+            return
+        target = engine_lib.cache_bucket_for(self.cache_buckets, rows)
+        if target > self._cache_len:
+            self._migrate(target)
+
     # ---- pool helpers ----------------------------------------------------
     def _pool_cap(self, req: _Request) -> int:
         """Worst-case blocks the request can ever reference: prompt plus
@@ -300,14 +344,17 @@ class ContinuousBatcher:
                     self.gen.max_seq_len)
         return min(-(-total // self.block_size), self.table_width)
 
+    # Each _pool_* helper is a no-op off the pooled plane (no arena).
     def _pool_reserve(self, req: _Request) -> bool:
         """Claim the request's worst-case block need before it leaves the
         queue; failure is admission backpressure."""
-        return self.pool.reserve(self._pool_cap(req))
+        return not self.pooled or self.pool.reserve(self._pool_cap(req))
 
     def _pool_bind_slot(self, req: _Request) -> None:
         """Give an admitted request's slot its prompt blocks, drawn from
         its admission reservation."""
+        if not self.pooled:
+            return
         slot = req.slot
         cap = self._pool_cap(req)
         nb_prompt = min(-(-len(req.prompt) // self.block_size),
@@ -323,6 +370,8 @@ class ContinuousBatcher:
         """Drop a slot's block references, return its unused reservation
         and zero its table row, so its frozen lockstep write lands in
         the garbage block."""
+        if not self.pooled:
+            return
         if self._slot_blocks[slot]:
             self.pool.release(self._slot_blocks[slot])
             self._slot_blocks[slot] = []
@@ -384,30 +433,38 @@ class ContinuousBatcher:
         self._top_p_row[slots] = top_ps
 
     def _prefill_group(self, tokens: np.ndarray, lengths: np.ndarray,
-                       slots: np.ndarray, tables_scatter: np.ndarray,
+                       slots: np.ndarray,
+                       tables_scatter: Optional[np.ndarray],
                        temps: np.ndarray, top_ps: np.ndarray,
                        limits: np.ndarray) -> torch.Tensor:
         """Prefill a GROUP of prompts (G, bucket) in one forward into a
-        scratch cache, scatter each row into its slot's arena blocks in
-        place, sample the first tokens and install the slots' rows.
-        Returns the first tokens (device)."""
+        scratch cache, move each row into its slot in place (pooled: its
+        arena blocks, tables_scatter (G, nb); legacy: the slot cache's
+        row, the scratch at the cache's current length), sample the first
+        tokens and install the slots' rows.  Returns the first tokens
+        (device)."""
         dev = self.device
-        nb = tables_scatter.shape[1]
+        rows = (self._cache_len if tables_scatter is None
+                else tables_scatter.shape[1] * self.block_size)
         scratch = llama_infer.init_cache(
-            self.config, tokens.shape[0], nb * self.block_size,
+            self.config, tokens.shape[0], rows,
             kv_dtype=self.gen.kv_cache_dtype, device=dev)
         lengths_t = torch.as_tensor(lengths, device=dev)
         logits, scratch = llama_infer.prefill(
             self.params, torch.as_tensor(tokens, device=dev), self.config,
             scratch, lengths_t)
-        llama_infer.scatter_prefill_pooled(
-            scratch, self.pool.arena, torch.as_tensor(tables_scatter,
+        slots_t = torch.as_tensor(slots, device=dev).long()
+        if tables_scatter is None:
+            for key, small in scratch.items():   # k/v (+ int8 scales)
+                self._cache[key][:, slots_t] = small
+        else:
+            llama_infer.scatter_prefill_pooled(
+                scratch, self._cache, torch.as_tensor(tables_scatter,
                                                       device=dev))
         temps_t = torch.as_tensor(temps, device=dev)
         top_ps_t = torch.as_tensor(top_ps, device=dev)
         firsts = self._sample(logits, temps, top_ps, temps_t, top_ps_t)
-        self._install_rows(torch.as_tensor(slots, device=dev).long(),
-                           firsts, lengths_t,
+        self._install_rows(slots_t, firsts, lengths_t,
                            torch.as_tensor(limits, device=dev), temps_t,
                            top_ps_t)
         return firsts
@@ -426,7 +483,6 @@ class ContinuousBatcher:
         eos = self.gen.eos_token
         fill = eos if eos is not None else 0
         batch = self._token.shape[0]
-        tables = self._tables_dev
         toks = torch.empty((n, batch), dtype=torch.int32,
                            device=self.device)
         token, positions = self._token, self._positions
@@ -435,26 +491,23 @@ class ContinuousBatcher:
         for i in range(n):
             if i == 0 and prefill_lane is not None:
                 logits, h_pf, _ = llama_infer.fused_step_pooled(
-                    self.params, token, self.config, self.pool.arena,
-                    positions, tables, *prefill_lane)
-            else:
+                    self.params, token, self.config, self._cache,
+                    positions, self._tables_dev, *prefill_lane)
+            elif self.pooled:
                 logits, _ = llama_infer.decode_step_pooled(
-                    self.params, token, self.config, self.pool.arena,
-                    positions, tables)
+                    self.params, token, self.config, self._cache,
+                    positions, self._tables_dev)
+            else:
+                logits, _ = self._decode_fn(self.params, token, self.config,
+                                            self._cache, positions)
             if all_greedy:
                 nxt = sampling.sample_logits(logits, temperature=0.0)
             else:
                 nxt = sampling.sample_logits_batched(
                     logits, self._rng, self._temp_row, self._top_p_row,
                     top_k=self.gen.top_k, nucleus=nucleus)
-            live = torch.logical_not(done)
-            live_i = live.to(torch.int32)
-            toks[i] = torch.where(live, nxt, fill)
-            limit = limit - live_i
-            hit = (limit <= 0) if eos is None else (nxt == eos) | (limit <= 0)
-            done = done | (live & hit)
-            positions = positions + live_i
-            token = torch.where(live, nxt, token)
+            toks[i], token, positions, done, limit = engine_lib.commit_step(
+                nxt, token, positions, done, limit, eos=eos, fill=fill)
         self._token, self._positions = token, positions
         self._done, self._limit = done, limit
         return toks, h_pf
@@ -469,7 +522,7 @@ class ContinuousBatcher:
         place; returns (emitted (B, W), committed (B,))."""
         tokens_w = torch.cat([self._token[:, None], draft], dim=1)
         logits, _ = llama_infer.decode_verify_pooled(
-            self.params, tokens_w, self.config, self.pool.arena,
+            self.params, tokens_w, self.config, self._cache,
             self._positions, self._tables_dev)
         if all_greedy:
             targets, accepts = sampling.spec_accept_greedy(logits, draft)
@@ -561,6 +614,11 @@ class ContinuousBatcher:
                 request = self._queue.pop(idx)
                 request.slot = self._free.pop(0)
                 self._incremental = request
+                # Grow BEFORE parking: the windows write rows
+                # 0..len(prompt)-1 and the first decode write lands at
+                # len(prompt).  (The cache does not shrink while this
+                # prefill is in flight: see _decode_chunk.)
+                self._grow_for(len(request.prompt) + 1)
                 self._pool_bind_slot(request)
                 # Park the slot's frozen position at the last cache row:
                 # the lockstep decode still rewrites a frozen slot's
@@ -602,16 +660,22 @@ class ContinuousBatcher:
                 temps[i], top_ps[i] = self._request_sampling(request)
                 # Budget AFTER the first token the prefill samples.
                 limits[i] = request.max_new_tokens - 1
+            # The (G, bucket) prefill writes rows 0..bucket-1 and each
+            # row's first decode write lands at len(prompt).
+            self._grow_for(max(bucket, int(lengths.max()) + 1))
             try:
-                # Each row claims the blocks of ITS prompt; the bucket's
-                # remaining block columns point at the garbage block.
-                nb = -(-bucket // self.block_size)
-                tables_scatter = np.full(
-                    (size, nb), block_pool_lib.GARBAGE_BLOCK, np.int32)
-                for i, request in enumerate(group):
-                    self._pool_bind_slot(request)
-                    row = self._slot_blocks[request.slot]
-                    tables_scatter[i, :len(row)] = row
+                tables_scatter = None
+                if self.pooled:
+                    # Each row claims the blocks of ITS prompt; the
+                    # bucket's remaining block columns point at the
+                    # garbage block.
+                    nb = -(-bucket // self.block_size)
+                    tables_scatter = np.full(
+                        (size, nb), block_pool_lib.GARBAGE_BLOCK, np.int32)
+                    for i, request in enumerate(group):
+                        self._pool_bind_slot(request)
+                        row = self._slot_blocks[request.slot]
+                        tables_scatter[i, :len(row)] = row
                 firsts = self._prefill_group(tokens, lengths, slots,
                                              tables_scatter, temps,
                                              top_ps, limits)
@@ -680,8 +744,9 @@ class ContinuousBatcher:
         if req.slot is not None:
             self._free.append(req.slot)
             self._pool_free_slot(req.slot)
-            # Freeze the freed slot and park it at row 0, which its
-            # zeroed table row routes to the garbage block.
+            # Freeze the freed slot and park it at row 0, which stays
+            # inside even the smallest bucket (pooled: its zeroed table
+            # row routes it to the garbage block).
             self._positions[req.slot] = 0
             self._done[req.slot] = True
             self._host_pos[req.slot] = 0
@@ -709,12 +774,17 @@ class ContinuousBatcher:
         end = min(start + w, len(req.prompt))
         window = np.zeros((w,), np.int32)
         window[:end - start] = req.prompt[start:end]
+        window_t = torch.as_tensor(window, device=self.device)
         try:
-            h_last, _ = llama_infer.prefill_window_pooled(
-                self.params, torch.as_tensor(window, device=self.device),
-                self.config, self.pool.arena,
-                torch.as_tensor(self._host_tables[req.slot],
-                                device=self.device), start)
+            if self.pooled:
+                h_last, _ = llama_infer.prefill_window_pooled(
+                    self.params, window_t, self.config, self._cache,
+                    torch.as_tensor(self._host_tables[req.slot],
+                                    device=self.device), start)
+            else:
+                h_last, _ = llama_infer.prefill_window(
+                    self.params, window_t, self.config, self._cache,
+                    req.slot, start)
             req.prefill_pos = end
             if end < len(req.prompt):
                 return
@@ -732,8 +802,19 @@ class ContinuousBatcher:
         in-flight prompt.  Returns the lane's hiddens (None without)."""
         prev_pos = ({s: int(self._host_pos[s]) for s in self._active}
                     if self._drafter is not None else None)
-        self._ensure_slot_blocks(n)
-        self._upload_tables()
+        if self.pooled:
+            self._ensure_slot_blocks(n)
+            self._upload_tables()
+        else:
+            # Bucket crossing: this chunk's deepest live write lands at
+            # row live_max + n - 1.  Shrinking waits while a chunked
+            # prefill is parked at the cache's last row.
+            live_max = max(int(self._host_pos[s]) for s in self._active)
+            target = engine_lib.cache_bucket_for(self.cache_buckets,
+                                                 live_max + n)
+            if target > self._cache_len or (target < self._cache_len
+                                            and self._incremental is None):
+                self._migrate(target)
         all_greedy, nucleus = self._sampling_mode()
         chunk_start = time.perf_counter()
         try:

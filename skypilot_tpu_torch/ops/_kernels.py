@@ -33,7 +33,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'torch_kernels'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC', '-Xptxas=-v')
 
-# Dtype codes of csrc/common.cuh (int8 only for the KV arena).
+# Dtype codes of csrc/common.cuh (int8 only for the KV cache).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 KV_DTYPE_CODES = {**DTYPE_CODES, torch.int8: 2}
 
@@ -44,6 +44,7 @@ _SIGNATURES = {
                     _P],
     'skk_paged_decode': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          _I, _I, _I, _I, ctypes.c_float, _I, _I, _P],
+    'skk_contig_decode': [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I, _I, _P],
     'skk_paged_window': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P],
     'skk_flash_fwd': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -1,18 +1,24 @@
-"""Paged attention over the pooled KV arena: hand-written CUDA kernels
+"""Decode attention over the KV cache: hand-written CUDA kernels
 (csrc/paged_decode.cu, csrc/paged_window.cu) and their plain PyTorch
 versions.
 
-Counterpart of skypilot_tpu/ops/decode_attention.py.  Two kernels replace
-the TPU's ``_pooled_attn_kernel`` (body ``_decode_attn_kernel``):
+Counterpart of skypilot_tpu/ops/decode_attention.py.  Three kernels
+replace the TPU's ``_decode_attn_kernel`` (and ``_pooled_attn_kernel``,
+which runs that body through block tables):
 
-- ``decode_attention_pooled`` (window 1, K1): one query token per slot.
+- ``decode_attention_pooled`` (window 1, K1): one query token per slot
+  over the pooled arena.
 - ``decode_window_attention_pooled`` (window W, K4): W query tokens per
   slot, row w seeing keys <= positions + w; the speculative verify step.
   ``fused_step_attention_pooled`` composes the two for the fused
   prefill+decode step (its prefill lane is K4 with one slot).
+- ``decode_attention`` (K7): one query token per slot over the
+  contiguous, length-bucketed (L, B, S, KV, hd) cache of the legacy
+  ``decode_impl='paged'`` plane.  K1 and K7 share one CUDA body and
+  differ in how a key row is found.
 
-Each kernel reads only its slot's live keys through the block table, from
-a bf16/f32 arena or an int8 arena with per-(row, KV head) f32 scales.
+Each kernel reads only its slot's live keys, from a bf16/f32 cache or an
+int8 cache with per-(row, KV head) f32 scales.
 """
 from __future__ import annotations
 
@@ -25,6 +31,10 @@ from skypilot_tpu_torch.ops import _kernels
 _NEG_INF = -1e30
 _HEAD_DIMS = (64, 128, 256)
 _MAX_GROUP = 8
+
+# Cache-length granularity of the contiguous decode (K7): the legacy
+# 'paged' plane's cache buckets are multiples of it, as on the TPU.
+DEFAULT_BLOCK = 64
 
 
 def _gather_layer(arena: torch.Tensor, tables: torch.Tensor,
@@ -44,6 +54,33 @@ def _dequantize(q: torch.Tensor, scale: torch.Tensor,
     return q.to(dtype) * scale[..., None].to(dtype)
 
 
+def _token_attention(q: torch.Tensor, k_eff: torch.Tensor,
+                     v_eff: torch.Tensor, positions: torch.Tensor,
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Masked GQA attention of q (B, W, KV, G, hd) over contiguous
+    (B, S, KV, hd) cache views: the math of the JAX decode off the TPU
+    (llama_infer._token_attention).  f32 scores and softmax over a
+    (B, W, S) mask (window row w sees keys <= positions + w),
+    probabilities cast to q's dtype before P.V.  An int8 view takes its
+    (B, S, KV) scales after each contraction, to the scores and to the
+    probabilities.  Returns (B, W, KV, G, hd) in q's dtype."""
+    win = q.shape[1]
+    s = torch.einsum('bwkgd,bskd->bwkgs', q.float(),
+                     k_eff.to(q.dtype).float()) * q.shape[-1] ** -0.5
+    if k_scale is not None:
+        s = s * k_scale.permute(0, 2, 1)[:, None, :, None, :]
+    rows = positions.long()[:, None] + torch.arange(win, device=q.device)
+    visible = (torch.arange(k_eff.shape[1], device=q.device)[None, None, :]
+               <= rows[:, :, None])                       # (B, W, S)
+    s = torch.where(visible[:, :, None, None, :], s, _NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    if v_scale is not None:
+        p = p * v_scale.permute(0, 2, 1)[:, None, :, None, :]
+    return torch.einsum('bwkgs,bskd->bwkgd', p.to(q.dtype),
+                        v_eff.to(q.dtype))
+
+
 def _decode_window_attention_plain(q: torch.Tensor, k_arena: torch.Tensor,
                                    v_arena: torch.Tensor,
                                    tables: torch.Tensor, layer: int,
@@ -52,15 +89,13 @@ def _decode_window_attention_plain(q: torch.Tensor, k_arena: torch.Tensor,
                                    v_scale: Optional[torch.Tensor] = None,
                                    dequantize_first: bool = False
                                    ) -> torch.Tensor:
-    """Gather through the table, then the math of the JAX decode off the
-    TPU: f32 scores and softmax over a (B, W, S) mask (window row w sees
-    keys <= positions + w), probabilities cast to q's dtype before P.V.
+    """Gather through the table, then :func:`_token_attention`.
 
     int8 follows the JAX CPU path that calls it: the decode and verify
     rows (llama_infer._token_attention) apply the scales after each
-    contraction, to the scores and to the probabilities; the fused
-    prefill lane (dequantize_first) dequantizes K and V in q's dtype
-    before the products, as prefill_window_pooled does."""
+    contraction; the fused prefill lane (dequantize_first) dequantizes K
+    and V in q's dtype before the products, as prefill_window_pooled
+    does."""
     k_eff = _gather_layer(k_arena, tables, layer)
     v_eff = _gather_layer(v_arena, tables, layer)
     ks = vs = None
@@ -71,20 +106,7 @@ def _decode_window_attention_plain(q: torch.Tensor, k_arena: torch.Tensor,
             k_eff = _dequantize(k_eff, ks, q.dtype)
             v_eff = _dequantize(v_eff, vs, q.dtype)
             ks = vs = None
-    win = q.shape[1]
-    s = torch.einsum('bwkgd,bskd->bwkgs', q.float(),
-                     k_eff.to(q.dtype).float()) * q.shape[-1] ** -0.5
-    if ks is not None:
-        s = s * ks.permute(0, 2, 1)[:, None, :, None, :]
-    rows = positions.long()[:, None] + torch.arange(win, device=q.device)
-    visible = (torch.arange(k_eff.shape[1], device=q.device)[None, None, :]
-               <= rows[:, :, None])                       # (B, W, S)
-    s = torch.where(visible[:, :, None, None, :], s, _NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    if vs is not None:
-        p = p * vs.permute(0, 2, 1)[:, None, :, None, :]
-    return torch.einsum('bwkgs,bskd->bwkgd', p.to(q.dtype),
-                        v_eff.to(q.dtype))
+    return _token_attention(q, k_eff, v_eff, positions, ks, vs)
 
 
 def _decode_attention_plain(q: torch.Tensor, k_arena: torch.Tensor,
@@ -98,6 +120,31 @@ def _decode_attention_plain(q: torch.Tensor, k_arena: torch.Tensor,
     return _decode_window_attention_plain(
         q[:, None], k_arena, v_arena, tables, layer, positions, k_scale,
         v_scale)[:, 0]
+
+
+def _decode_attention_contig_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                                   v_cache: torch.Tensor, layer: int,
+                                   positions: torch.Tensor,
+                                   k_scale: Optional[torch.Tensor] = None,
+                                   v_scale: Optional[torch.Tensor] = None
+                                   ) -> torch.Tensor:
+    """K7's plain version, with the numerics of the TPU kernel that the
+    JAX package runs on the CPU too (interpret mode,
+    decode_attention.py:79-124): q, K and V in f32, an int8 cache
+    dequantized in f32 BEFORE each product, f32 probabilities, and only
+    the output cast to q's dtype.  (The pooled plane's CPU math,
+    :func:`_token_attention`, differs in all three.)"""
+    k = k_cache[layer].float()                            # (B, S, KV, hd)
+    v = v_cache[layer].float()
+    if k_scale is not None:
+        k = k * k_scale[layer][..., None]
+        v = v * v_scale[layer][..., None]
+    s = torch.einsum('bkgd,bskd->bkgs', q.float(), k) * q.shape[-1] ** -0.5
+    visible = (torch.arange(k.shape[1], device=q.device)[None, :]
+               <= positions.long()[:, None])              # (B, S)
+    s = torch.where(visible[:, None, None, :], s, _NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum('bkgs,bskd->bkgd', p, v).to(q.dtype)
 
 
 def reference_decode_attention(q: torch.Tensor, k_layer: torch.Tensor,
@@ -147,13 +194,15 @@ def reference_fused_step_attention(q_dec: torch.Tensor, k_dec: torch.Tensor,
 
 
 def _check_arena(kernel: str, q: torch.Tensor, k_arena: torch.Tensor,
-                 v_arena: torch.Tensor, tables: torch.Tensor, layer: int,
-                 positions: torch.Tensor, k_scale: Optional[torch.Tensor],
+                 v_arena: torch.Tensor, tables: Optional[torch.Tensor],
+                 layer: int, positions: torch.Tensor,
+                 k_scale: Optional[torch.Tensor],
                  v_scale: Optional[torch.Tensor], kv_heads: int, group: int,
                  head_dim: int) -> Tuple[int, int]:
-    """Shape, dtype, device and layout checks shared by both kernels
-    (q's layout is each kernel's own); returns (q dtype code, arena
-    dtype code)."""
+    """Shape, dtype, device and layout checks shared by the kernels (q's
+    layout is each kernel's own).  tables None: a contiguous (L, B, S,
+    KV, hd) cache, whose axis 1 must be q's batch.  Returns (q dtype
+    code, cache dtype code)."""
     # Serving kernels have no backward (the TPU kernels have no vjp): a
     # graph through them would lose its gradient without a word.
     _kernels.check(not (torch.is_grad_enabled() and any(
@@ -185,13 +234,18 @@ def _check_arena(kernel: str, q: torch.Tensor, k_arena: torch.Tensor,
                    f'head_dim {head_dim} not in {_HEAD_DIMS}')
     _kernels.check(0 <= layer < n_layers, f'{kernel}: '
                    f'layer {layer} out of range')
-    _kernels.check(tables.dtype == torch.int32 and tables.dim() == 2
-                   and tables.shape[0] == batch
-                   and positions.dtype == torch.int32
+    _kernels.check(positions.dtype == torch.int32
                    and positions.shape == (batch,),
-                   f'{kernel}: tables (B, T) and positions (B,) must be '
-                   'int32')
-    tensors = (k_arena, v_arena, tables, positions) + scales
+                   f'{kernel}: positions (B,) must be int32')
+    if tables is None:
+        _kernels.check(k_arena.shape[1] == batch, f'{kernel}: cache batch '
+                       f'{k_arena.shape[1]} is not q\'s {batch}')
+        tensors = (k_arena, v_arena, positions) + scales
+    else:
+        _kernels.check(tables.dtype == torch.int32 and tables.dim() == 2
+                       and tables.shape[0] == batch,
+                       f'{kernel}: tables (B, T) must be int32')
+        tensors = (k_arena, v_arena, tables, positions) + scales
     _kernels.check(len({t.device for t in tensors + (q,)}) == 1,
                    f'{kernel}: inputs on several devices')
     for t in tensors:
@@ -259,6 +313,69 @@ def decode_attention_pooled(q: torch.Tensor, k_arena: torch.Tensor,
 
 
 decode_attention_pooled.launches = 0
+
+
+def _decode_attention_contig_cuda(q: torch.Tensor, k_cache: torch.Tensor,
+                                  v_cache: torch.Tensor, layer: int,
+                                  positions: torch.Tensor,
+                                  k_scale: Optional[torch.Tensor],
+                                  v_scale: Optional[torch.Tensor]
+                                  ) -> torch.Tensor:
+    batch, kv_heads, group, head_dim = q.shape
+    q_code, kv_code = _check_arena(
+        'decode_attention', q, k_cache, v_cache, None, layer, positions,
+        k_scale, v_scale, kv_heads, group, head_dim)
+    _kernels.check(1 <= group <= _MAX_GROUP, f'decode_attention: group '
+                   f'{group} not in 1..{_MAX_GROUP}')
+    _kernels.check(q.is_contiguous() and _kernels.aligned(q),
+                   'decode_attention: inputs must be contiguous and '
+                   '16-byte aligned')
+    out = torch.empty_like(q)
+    _kernels.launch('skk_contig_decode', q.device, q.data_ptr(),
+                    k_cache.data_ptr(), v_cache.data_ptr(),
+                    *_scale_ptrs(k_scale, v_scale), positions.data_ptr(),
+                    out.data_ptr(), batch, kv_heads, group, head_dim,
+                    k_cache.shape[2], int(layer), float(head_dim ** -0.5),
+                    q_code, kv_code)
+    decode_attention.launches += 1
+    return out
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, layer: int,
+                     positions: torch.Tensor,
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None, *,
+                     block: int = DEFAULT_BLOCK) -> torch.Tensor:
+    """Single-token GQA attention over the valid prefix of the
+    contiguous cache (the legacy 'paged' decode plane, K7).
+
+    q: (B, KV, G, hd) current-token queries (post-rope), head h = kv*G+g.
+    k_cache/v_cache: (L, B, S, KV, hd) stacked cache, S % block == 0, in
+    q's dtype, or int8 with k_scale/v_scale (L, B, S, KV) f32; layer:
+    int, the stacked layer to read; positions: (B,) int32, the cache row
+    of the current token (rows <= positions[b] are attended).
+
+    Raises the JAX kernel's ValueErrors for S % block and head_dim % 128
+    on every device.  A CPU tensor takes the plain version (the TPU
+    kernel's numerics); a CUDA tensor takes the kernel, which raises on a
+    dtype, shape or layout it does not take.
+    Returns (B, KV, G, hd) in q's dtype."""
+    s_len, head_dim = k_cache.shape[2], k_cache.shape[4]
+    if s_len % block:
+        raise ValueError(f'cache length {s_len} not a multiple of the '
+                         f'decode block {block}')
+    if head_dim % 128:
+        raise ValueError(f'head_dim {head_dim} must be a multiple of '
+                         f'128 for the TPU decode kernel')
+    if q.device.type == 'cpu':
+        return _decode_attention_contig_plain(q, k_cache, v_cache, layer,
+                                              positions, k_scale, v_scale)
+    return _decode_attention_contig_cuda(q, k_cache, v_cache, layer,
+                                         positions, k_scale, v_scale)
+
+
+decode_attention.launches = 0
 
 
 def _decode_window_attention_cuda(q: torch.Tensor, k_arena: torch.Tensor,

@@ -7,10 +7,13 @@ Run on a machine with a card:
 Tolerances (kernel vs plain, same inputs): f32 atol 2e-5 (summation
 order); bf16 atol 3e-2 + rtol 2e-2 (the plain versions round scores or
 probabilities to bf16 where the kernels keep f32, and outputs are
-rounded to bf16); the flash backward's bf16 dq, dk and dv are held
-relative to the scale of each row (`_assert_grad_close`).  An int8 arena is held to its q dtype's tolerance: the
-kernels dequantize before each product in f32, the plain versions scale
-after it, which is the same math up to rounding.
+rounded to bf16); the flash backward's bf16 dq, dk and dv and K7's bf16
+and int8-cache outputs, whose plain versions compute in f32 as the
+kernels do, are held relative to the scale of each row
+(`_assert_row_close`).  An int8 arena of K1 or K4 is held to its q
+dtype's tolerance: the kernels dequantize before each product in f32,
+the plain versions scale after it, which is the same math up to
+rounding.
 """
 import numpy as np
 import pytest
@@ -198,6 +201,99 @@ def test_paged_window_kernel(cuda, kind, hd, group, bs, win):
         torch.testing.assert_close(out[:, w], single, **TOL[dtype])
 
 
+@pytest.mark.parametrize('kind', ['float32', 'bfloat16', 'int8'])
+@pytest.mark.parametrize('s_len,group', [
+    (64, 4), (128, 4), (256, 4), (512, 4), (1024, 4), (2048, 4), (192, 7)])
+def test_contig_decode_kernel(cuda, kind, s_len, group):
+    """K7 against its plain version at every cache bucket 64..2048 (and
+    G 7); rows past each slot's position are poisoned and must not change
+    the output."""
+    from skypilot_tpu_torch.infer import llama_infer
+    from skypilot_tpu_torch.ops import decode_attention as da
+    dtype = torch.bfloat16 if kind == 'int8' else getattr(torch, kind)
+    layers, batch, kv, hd = 2, 4, 2, 128
+    positions = torch.tensor([0, s_len // 2 - 1, s_len // 2, s_len - 1],
+                             dtype=torch.int32, device='cuda')
+    shape = (layers, batch, s_len, kv, hd)
+    k = torch.randn(shape, generator=cuda, device='cuda').to(dtype)
+    v = torch.randn(shape, generator=cuda, device='cuda').to(dtype)
+    ks = vs = None
+    if kind == 'int8':
+        (k, ks), (v, vs) = (llama_infer._quantize_kv(x) for x in (k, v))
+    q = torch.randn(batch, kv, group, hd, generator=cuda,
+                    device='cuda').to(dtype)
+    before = da.decode_attention.launches
+    out = da.decode_attention(q, k, v, 1, positions, ks, vs)
+    assert da.decode_attention.launches == before + 1
+    assert out.shape == q.shape and out.dtype == dtype
+    _assert_row_close(out, da._decode_attention_contig_plain(
+        q, k, v, 1, positions, ks, vs))
+    k2, v2 = k.clone(), v.clone()
+    poison = 127 if kind == 'int8' else 1e4
+    for b in range(batch):
+        k2[1, b, int(positions[b]) + 1:] = poison
+        v2[1, b, int(positions[b]) + 1:] = -poison
+    assert torch.equal(da.decode_attention(q, k2, v2, 1, positions, ks, vs),
+                       out)
+    if s_len >= 128:
+        # A truncating slice is a view, not a contiguous cache.
+        with pytest.raises(ValueError, match='contiguous'):
+            da.decode_attention(q, k[:, :, :64], v[:, :, :64], 1, positions,
+                                None if ks is None else ks[:, :, :64],
+                                None if vs is None else vs[:, :, :64])
+
+
+def test_contig_decode_kernel_refuses_group_above_eight(cuda):
+    from skypilot_tpu_torch.ops import decode_attention as da
+    q = torch.zeros(2, 1, 9, 128, device='cuda')
+    k = torch.zeros(1, 2, 64, 1, 128, device='cuda')
+    with pytest.raises(ValueError, match='group 9 not in 1..8'):
+        da.decode_attention(q, k, k, 0, torch.zeros(2, dtype=torch.int32,
+                                                    device='cuda'))
+
+
+@pytest.mark.parametrize('extra', [
+    dict(decode_impl='paged'), dict(decode_impl='inplace'),
+    dict(decode_impl='paged', kv_cache_dtype='int8')])
+def test_legacy_planes_on_card_match_host(cuda, extra):
+    """The 'paged' plane (K7) and 'inplace' through the batcher and the
+    Generator at LLAMA_DEBUG f32 give the host's greedy tokens, and the
+    pooled batcher's."""
+    import warnings
+    from skypilot_tpu_torch.infer.engine import Generator, GeneratorConfig
+    from skypilot_tpu_torch.infer.serving import ContinuousBatcher
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.ops import decode_attention as da
+    cfg = llama.LLAMA_DEBUG
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0), 'cpu')
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(1, 512, size=n).tolist() for n in (5, 70, 9, 40)]
+    kw = dict(max_seq_len=128, batch_size=4, prompt_buckets=[16, 64, 96],
+              prefill_chunk=24)
+
+    def run(device, **plane):
+        p = _to(params, device)
+        with warnings.catch_warnings():
+            warnings.simplefilter('ignore', DeprecationWarning)
+            b = ContinuousBatcher(p, cfg, GeneratorConfig(**kw, **plane),
+                                  decode_chunk=4, device=device)
+            rids = [b.submit(q, max_new_tokens=10) for q in prompts]
+            b.run_until_idle()
+            gen = Generator(p, cfg, GeneratorConfig(**kw, **plane),
+                            device=device)
+            return ([b.result(r) for r in rids],
+                    gen.generate(prompts, max_new_tokens=10))
+
+    before = da.decode_attention.launches
+    card = run('cuda', **extra)
+    assert card == run('cpu', **extra)
+    assert (da.decode_attention.launches > before) == \
+        (extra['decode_impl'] == 'paged')
+    if 'kv_cache_dtype' not in extra:
+        pooled, _ = run('cuda')
+        assert card == (pooled, pooled)
+
+
 def test_batcher_on_card_matches_host(cuda):
     """LLAMA_DEBUG f32 served through the kernels gives the host's
     greedy tokens."""
@@ -266,8 +362,9 @@ def _to(tree, device):
 LSE_TOL = dict(atol=1e-4, rtol=1e-5)
 
 
-def _assert_grad_close(got, want):
-    """bf16 dq, dk, dv elementwise: atol one bf16 ulp (2^-7) of the
+def _assert_row_close(got, want):
+    """bf16 outputs that both sides compute in f32 (dq, dk, dv; K7)
+    elementwise: atol one bf16 ulp (2^-7) of the
     largest element of the same row (the row's elements share their sums'
     terms), never below TOL's f32 atol (rows that cancel to ~0), and rtol
     two ulps (2^-6) for outputs that round on either side of a boundary.
@@ -311,12 +408,12 @@ def test_flash_backward_kernels(cuda, dtype, seq, heads, kv, hd, causal):
     dk, dv = at.flash_attention_dkv(q, k, v, do, lse, delta, causal)
     assert (at.flash_attention.launches, at.flash_attention_dq.launches,
             at.flash_attention_dkv.launches) == tuple(n + 1 for n in before)
-    _assert_grad_close(
+    _assert_row_close(
         dq, at._flash_attention_dq_plain(q, k, v, do, lse, delta, causal))
     for got, want in zip((dk, dv), at._flash_attention_dkv_plain(
             q, k, v, do, lse, delta, causal)):
         assert got.shape == k.shape and got.dtype == dtype
-        _assert_grad_close(got, want)
+        _assert_row_close(got, want)
 
 
 @pytest.mark.parametrize('group', [1, 4])

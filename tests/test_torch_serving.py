@@ -156,8 +156,8 @@ def test_generator_config_validation_matches_jax(kwargs, match):
     (dict(prefix_cache_mb=1.0), 9),
     (dict(prefix_cache_mb=1.0, host_tier_mb=1.0), 9),
     (dict(overlap_collectives=True), 10),
-    (dict(decode_impl='paged'), 14),
-    (dict(decode_impl='inplace'), 14),
+    (dict(decode_impl='paged', prefix_cache_mb=1.0), 9),
+    (dict(decode_impl='inplace', prefix_cache_mb=1.0), 9),
 ])
 def test_deferred_options_name_their_roadmap_item(kwargs, item):
     j_engine.GeneratorConfig(**kwargs)       # valid for the JAX package
