@@ -9,7 +9,9 @@ Phases (any failure exits non-zero):
 
 1. device: needs torch.cuda; prints the card's name and power limit.
 2. build: compiles skypilot_tpu_torch/csrc/*.cu with nvcc (in parallel)
-   into build/torch_kernels/ and loads the library.
+   into build/torch_kernels/ and loads the library; fails if ptxas
+   reports a spill in a tensor-core kernel (K5 and K6 in bf16, hd 64 and
+   128).
 3. kernels: holds each hand-written kernel against its plain PyTorch
    version on the card, at the shapes the Llama-3-8B serving path gives
    it, in bf16 and f32 (and int8 arenas for the two paged attentions);
@@ -25,7 +27,8 @@ Phases (any failure exits non-zero):
    16/8 heads, 128) and a ragged S, and in bf16 at the 8B trunk's
    (2, 4096, 32/8, 128), and timed at both train shapes; their library
    call is SDPA's forward with grad, and its backward (one time for dq,
-   dk and dv) for K5 and K6.
+   dk and dv) for K5 and K6.  K5's and K6's entries carry their design,
+   TFLOP/s and the ptxas registers and spill of the instantiation timed.
 4. slice parity: a 2-layer LLAMA_DEBUG model in f32 served on the card
    (kernels) and on the host (plain versions) from the same weights:
    identical greedy tokens (plain, spec_k=3, fuse_budget, int8 KV and
@@ -60,15 +63,17 @@ Phases (any failure exits non-zero):
 Every kernel of a main-path run must launch > 0 times in that run (the
 counts are set to 0 just before it and read just after); the window
 kernel must launch from both verify and fused ticks, K7 (and never K1)
-on every phase 7 path, and K2, K3, K5 and K6 from both train paths.  The last lines of
-standard output are the {"kernels": [...]} line, the nvidia-smi
-name/power-limit line, and {"ok": true, "device": {...}}.
+on every phase 7 path, and K2, K3, K5 and K6 from both train paths, K5
+and K6 on their tensor-core route.  The last lines of standard output
+are the {"kernels": [...]} line, the nvidia-smi name/power-limit line,
+and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import dataclasses
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -146,6 +151,26 @@ def time_ms(fn, reps: int = TIMING_REPS) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def ptxas_report(build_log: str):
+    """Registers and spilled bytes (stores + loads) of each kernel
+    instantiation, by mangled name, from nvcc's -Xptxas=-v output."""
+    report, name = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            report[name] = {'registers': None, 'spill_bytes': 0}
+            continue
+        m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads',
+                      line)
+        if m and name:
+            report[name]['spill_bytes'] += int(m.group(1)) + int(m.group(2))
+        m = re.search(r'Used (\d+) registers', line)
+        if m and name:
+            report[name]['registers'] = int(m.group(1))
+    return report
 
 
 def bound(nbytes: float, flops: float, peak_flops: float):
@@ -302,12 +327,20 @@ def _check_train_kernels(at, q, k, v, do, causal, tag):
     return {'lse': e_lse, 'dq': e_dq, 'dkv': e_dkv}, o, lse, delta
 
 
-def check_flash_train(attention):
+# K5's and K6's bf16 hd-128 route (timed below): its design and the
+# mangled-name stem of its instantiation in the ptxas report.
+TC_DESIGN = 'mma.sync m16n8k16 bf16 -> f32, ldmatrix, cp.async x2'
+TC_KERNELS = {'dq': 'flash_bwd_dq_mma_kernelILi128E',
+              'dkv': 'flash_bwd_dkv_mma_kernelILi128E'}
+
+
+def check_flash_train(attention, ptxas):
     """K2 with its lse, K5 and K6 against their plain versions in f32
     and bf16 at the LLAMA_1B shape and a ragged S; then, in bf16 and
     causal at both train shapes, checked again and timed.  Returns the
     kernels line entries by (kernel, shape), each with the error measured
-    at its own shape."""
+    at its own shape, its TFLOP/s and, for K5 and K6, the design and the
+    ptxas registers and spill of the instantiation timed."""
     at = attention
     gen = torch.Generator(device='cuda').manual_seed(7)
     for dtype in (torch.float32, torch.bfloat16):
@@ -365,16 +398,28 @@ def check_flash_train(attention):
         for kernel, (name, src, replaces, fn, plain, nbytes, flops,
                      lib_ms) in rows.items():
             b_ms, by = bound(nbytes, flops, BF16_FLOPS)
+            ms = time_ms(fn)
             results[kernel, key] = {
                 'name': name if key == '1b' else f'{name}[8B trunk]',
                 'route': 'cuda', 'source': f'skypilot_tpu_torch/csrc/{src}',
                 'replaces': replaces, 'shape': shape,
-                'max_abs_err': errs[kernel], 'ms': time_ms(fn),
+                'max_abs_err': errs[kernel], 'ms': ms,
                 'plain_ms': time_ms(plain, plain_reps), 'bound_ms': b_ms,
                 'bound_by': by, 'library_ms': lib_ms,
+                'tflops': flops / ms / 1e9,
             }
-            log(f'  {results[kernel, key]["name"]} {shape}: '
-                f'{results[kernel, key]["ms"]:.3f} ms (plain '
+            if kernel in TC_KERNELS:
+                found = [i for n, i in ptxas.items()
+                         if TC_KERNELS[kernel] in n]
+                if len(found) != 1:
+                    raise AssertionError(f'ptxas report has {len(found)} '
+                                         f'{TC_KERNELS[kernel]}')
+                info = found[0]
+                results[kernel, key].update(
+                    design=TC_DESIGN, ptxas_registers=info['registers'],
+                    ptxas_spill_bytes=info['spill_bytes'])
+            log(f'  {results[kernel, key]["name"]} {shape}: {ms:.3f} ms, '
+                f'{flops / ms / 1e9:.1f} TFLOP/s (plain '
                 f'{results[kernel, key]["plain_ms"]:.3f}, library '
                 f'{lib_ms:.3f}, bound {b_ms:.4f} by {by})')
         del q, k, v, do, o, lse, delta, qt, kt, vt, lib_out, lib_do, rows
@@ -952,8 +997,7 @@ def serve_path(label, params, gen_config, counters):
         fuse0 = (batcher._fuse_policy.stats.steps,
                  batcher._fuse_policy.stats.prefill_tokens) \
             if batcher._fuse_policy else (0, 0)
-        for c in counters:
-            c.launches = 0
+        _zero(counters)
         syncs0 = engine.host_fetch.calls
         mig0 = dict(batcher.migrations)
         t0 = time.perf_counter()
@@ -964,7 +1008,7 @@ def serve_path(label, params, gen_config, counters):
         for t in threads:
             t.join(900)
         wall = time.perf_counter() - t0
-        launches = {c.__name__: c.launches for c in counters}
+        launches = _counts(counters)
         syncs = engine.host_fetch.calls - syncs0
     finally:
         replica.shutdown_replica(server, thread)
@@ -1040,13 +1084,12 @@ def generate_path(label, params, gen_config, counters):
     rng = np.random.RandomState(2)
     prompts = [[int(t) for t in rng.randint(0, cfg.vocab_size, size=n)]
                for n in SERVE_LENGTHS]
-    for c in counters:
-        c.launches = 0
+    _zero(counters)
     mig0 = dict(gen.migrations)
     t0 = time.perf_counter()
     out = gen.generate(prompts, max_new_tokens=48)
     wall = time.perf_counter() - t0
-    launches = {c.__name__: c.launches for c in counters}
+    launches = _counts(counters)
     for i, row in enumerate(out):
         if len(row) != 48 or not all(0 <= t < cfg.vocab_size for t in row):
             raise AssertionError(f'{label}: row {i} (prompt '
@@ -1092,14 +1135,13 @@ def train_path(label, cfg, batch, seq, steps, train_config, counters):
     torch.cuda.reset_peak_memory_stats()
     n_all = cfg.num_params()
     n_matmul = n_all - cfg.vocab_size * cfg.d_model
-    for c in counters:
-        c.launches = 0
+    _zero(counters)
     t0 = time.perf_counter()
     out = tr.fit(trainer.synthetic_batches(batch, seq, cfg.vocab_size),
                  steps, log_every=0, tokens_per_batch=batch * seq,
                  flops_per_token=6 * n_all)
     wall = time.perf_counter() - t0
-    launches = {c.__name__: c.launches for c in counters}
+    launches = _counts(counters)
     if not (np.isfinite(first_loss) and np.isfinite(out['loss'])):
         raise AssertionError(f'{label}: loss {first_loss} -> {out["loss"]}')
     stats = {
@@ -1123,6 +1165,22 @@ def train_path(label, cfg, batch, seq, steps, train_config, counters):
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+def _zero(counters):
+    for c in counters:
+        c.launches = 0
+        if hasattr(c, 'launches_tc'):
+            c.launches_tc = 0
+
+
+def _counts(counters):
+    """Launch counts by wrapper name; K5's and K6's also by route
+    ('<name>[tc]': the tensor-core kernels)."""
+    out = {c.__name__: c.launches for c in counters}
+    out.update({f'{c.__name__}[tc]': c.launches_tc for c in counters
+                if hasattr(c, 'launches_tc')})
+    return out
 
 
 def _need(label, launches, names):
@@ -1158,6 +1216,10 @@ def main() -> int:
     for line in _kernels.LIBRARY.build_log.splitlines():
         if 'spill' in line and ' 0 bytes spill stores' not in line:
             log(f'  ptxas: {line.strip()}')
+    ptxas = ptxas_report(_kernels.LIBRARY.build_log)
+    for name, info in ptxas.items():
+        if '_mma_kernel' in name and info['spill_bytes']:
+            raise AssertionError(f'tensor-core kernel {name} spills: {info}')
 
     log('[3/8] kernels vs plain versions')
     t0 = time.perf_counter()
@@ -1165,7 +1227,7 @@ def main() -> int:
     contig = check_contig_decode(decode_attention)
     window = check_window(decode_attention)
     flash, norm = check_flash(attention), check_rmsnorm(rmsnorm)
-    train = check_flash_train(attention)
+    train = check_flash_train(attention, ptxas)
     k1 = decode_attention.decode_attention_pooled
     k4v = decode_attention.decode_window_attention_pooled
     k4f = decode_attention.fused_step_attention_pooled
@@ -1241,7 +1303,8 @@ def main() -> int:
         2, 4096, 6, trainer.TrainConfig(warmup_steps=2, total_steps=6),
         counters)
     for key in ('8a', '8b'):
-        _need(key, paths[key], [c.__name__ for c in (k2, k3, k5, k6)])
+        _need(key, paths[key], [c.__name__ for c in (k2, k3, k5, k6)]
+              + [f'{c.__name__}[tc]' for c in (k5, k6)])
 
     def entry(res, counter, keys):
         by_path = {k: paths[k][counter.__name__] for k in keys}
@@ -1261,9 +1324,13 @@ def main() -> int:
         entry(contig['bf16'], k7, ('7a', '7c')),
         entry(contig['int8'], k7, ('7b',)),
     ]
-    for name, counter in (('lse', k2), ('dq', k5), ('dkv', k6)):
-        kernels += [entry(train[name, '1b'], counter, ('8a',)),
-                    entry(train[name, '8b'], counter, ('8b',))]
+    kernels += [entry(train['lse', key], k2, (path,))
+                for key, path in (('1b', '8a'), ('8b', '8b'))]
+    for name, counter in (('dq', k5), ('dkv', k6)):
+        for key, path in (('1b', '8a'), ('8b', '8b')):
+            kernels.append(dict(
+                entry(train[name, key], counter, (path,)),
+                launches_tc=paths[path][f'{counter.__name__}[tc]']))
     log(json.dumps({'kernels': kernels}))
     log(CARD['line'])
     log(json.dumps({'ok': True, 'device': {

@@ -37,8 +37,10 @@ from skypilot_tpu_torch.train import trainer  # noqa: E402
 
 # Kernel name fragments of each category (first match wins).
 CATEGORIES = (
-    ('K5 flash dq', ('flash_bwd_dq_kernel',)),
-    ('K6 flash dk/dv', ('flash_bwd_dkv_kernel',)),
+    # Both routes: flash_bwd_dq_kernel (FMA), flash_bwd_dq_mma_kernel
+    # (tensor cores), and K6's likewise.
+    ('K5 flash dq', ('flash_bwd_dq_',)),
+    ('K6 flash dk/dv', ('flash_bwd_dkv_',)),
     ('K2 flash forward', ('flash_fwd_kernel',)),
     ('K3 rmsnorm', ('rmsnorm_kernel',)),
     ('cuBLAS products', ('gemm', 'xmma', 'cutlass', 'nvjet', 'cublas')),

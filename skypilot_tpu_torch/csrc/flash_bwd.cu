@@ -21,6 +21,10 @@
 //   the KV head itself.  So it writes (B, S, KV, D) once, not 2 (B, S, H,
 //   D) partials and a reduction (4x fewer bytes at G = 4).
 //
+// No atomics: each output tile is written by one block, so two launches
+// on the same inputs give bitwise-equal dq, dk and dv.  That is why s and
+// dp are computed in both kernels (FA2's single kernel adds dq atomically).
+//
 // Numerics follow the TPU kernels: s, p, dp and every accumulator in f32;
 // p and ds rounded to the input dtype before the dv, dq and dk products;
 // the causal mask q_row >= k_col; rows and keys past S (zero-filled on
@@ -28,11 +32,35 @@
 //
 // Bound on the H100: operations at training lengths (6 D flops a visible
 // (query, key) pair for K5, 8 D for K6, against 989 TFLOP/s in bf16).
-// This first version does its products with f32 FMAs on the CUDA cores,
-// staged through shared memory like K2, 128 threads a block.  K6 holds two
-// (BK x D) accumulators, so its key tile shrinks with D (BK = 4096 / D:
-// 64, 32, 16 keys) to keep them at 64 registers a thread.  Tensor-core
-// products (mma.sync, then wgmma fed by TMA) are the next step.
+// Two routes, a fixed function of (dtype, head_dim) (flash_bwd_route):
+//
+// - bf16 at D 64 and 128 (every training configuration of the repo): the
+//   products run on the tensor cores, mma.sync m16n8k16 bf16 -> f32 with
+//   operands loaded from shared memory by ldmatrix (.trans where the
+//   contraction runs over the sequence: k in K5's ds k, q and do in K6's
+//   ds^T q and p^T do).  4 warps of 16 rows a block, 64 x 64 tiles.  The
+//   scores stay in registers: p and ds go from the f32 accumulators,
+//   rounded to bf16, straight into the next product's A fragments (the
+//   m16n8 accumulator and the m16k16 A operand share their layout), so
+//   they never pass through shared memory.  The streamed operand (k and
+//   v in K5, q, do, lse and delta in K6) comes through a two-stage
+//   cp.async ring, zero-filled past S, so a tile's load overlaps the
+//   previous tile's products.  K5 launches its heavy causal q-blocks
+//   first; only tiles that cross the diagonal or the end of S are masked,
+//   and tiles above the diagonal are never loaded.  K6 keeps its k and v
+//   tiles resident and its dk and dv accumulators (2 x 16 x D / 32 f32 a
+//   thread) in registers, and takes the scores of a 64-row q-tile in
+//   passes of QN columns so that the pass's s^T and dp^T fit beside them.
+//   Shared-memory rows are padded by 16 bytes, so the eight rows of an
+//   ldmatrix 8 x 8 fall in distinct banks.  The next step is wgmma fed by
+//   TMA with warp specialisation.
+// - f32 at every D (tensor cores would need TF32, which changes f32
+//   results), and bf16 at D 256 (its dk and dv accumulators alone would
+//   take 256 registers a thread at 16 rows a warp): scalar f32 FMAs on
+//   the CUDA cores, staged through shared memory like K2, 128 threads a
+//   block.  K6 holds two (BK x D) accumulators, so its key tile shrinks
+//   with D (BK = 4096 / D: 64, 32, 16 keys) to keep them at 64 registers
+//   a thread.
 #include "common.cuh"
 
 namespace skk {
@@ -349,6 +377,451 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_dkv_kernel(
   }
 }
 
+// ---- tensor-core route: bf16 at D 64 and 128 -------------------------------
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// cp.async of 16 (4) bytes; src_bytes 0 zero-fills the destination and
+// reads nothing.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four 8 x 8 b16 matrices; lanes 8i..8i+7 give the row addresses of
+// matrix i, and each thread receives (row lane / 4, cols 2 (lane % 4), +1)
+// of every matrix (of its transpose with .trans).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c (16 x 8 f32) += a (16 x 16 bf16) b (16 x 8 bf16).  Thread (g, t) =
+// (lane / 4, lane % 4) holds c rows g, g + 8 and cols 2t, 2t + 1 as
+// c[0..1], c[2..3]; a as (row g, cols 2t..), (g + 8, 2t..), (g, 2t + 8..),
+// (g + 8, 2t + 8..); b as (k rows 2t.., col g), (2t + 8.., g).
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The A fragment of a 16 x 16 chunk of a (16 x 8n) f32 accumulator,
+// rounded to bf16: its n8 tiles c0 and c1 side by side.
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
+                                         const float (&c1)[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// Tiles of 64 rows (4 warps x 16), row stride D + 8 in shared memory.
+template <int D>
+struct MmaCfg {
+  static constexpr int BQ = 64;
+  static constexpr int BK = 64;
+  static constexpr int LD = D + 8;
+  static constexpr int TILE = 64 * LD;  // elements of one 64-row tile
+  static constexpr int DK = D / 16;     // k16 steps over D
+  static constexpr int DN = D / 8;      // n8 tiles of an output row
+  // K6's query columns per score pass: its 2 x DN x 4 accumulator
+  // registers plus QN of scores stay under the 255-register cap at D 128
+  // (248 registers; 64 columns spilled there and ran slower).
+  static constexpr int QN = D >= 128 ? 32 : 64;
+  // K5: q, do, and two stages of k and v.  K6: k, v, and two stages of q,
+  // do, lse and delta.
+  static constexpr size_t SMEM_DQ = 6 * TILE * sizeof(bf16);
+  static constexpr size_t SMEM_DKV = 6 * TILE * sizeof(bf16) + 2 * 2 * BQ * sizeof(float);
+};
+
+// Copies 64 rows of D bf16 from sequence row `row0` of a strided (S, D)
+// view into a smem tile of row stride LD with cp.async, zero-filling rows
+// at or past S.
+template <int D>
+__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src, int64_t row_stride,
+                                                int row0, int seq_len) {
+  constexpr int VPR = D / 8;
+#pragma unroll
+  for (int n = 0; n < 64 * VPR / kBwdThreads; ++n) {
+    const int i = threadIdx.x + n * kBwdThreads;
+    const int r = i / VPR;
+    const int c = i - r * VPR;
+    const bool in = row0 + r < seq_len;
+    const bf16* from = in ? src + static_cast<int64_t>(row0 + r) * row_stride + c * 8 : src;
+    cp_async16(smem_u32(dst + r * MmaCfg<D>::LD + c * 8), from, in ? 16 : 0);
+  }
+}
+
+// lse or delta of 64 query rows from `row0` (0 past S).
+__device__ __forceinline__ void load_stats_async(float* dst, const float* src, int row0,
+                                                 int seq_len) {
+  const int r = threadIdx.x;
+  if (r < 64) {
+    const bool in = row0 + r < seq_len;
+    cp_async4(smem_u32(dst + r), in ? src + row0 + r : src, in ? 4 : 0);
+  }
+}
+
+// K5's p = exp(scale s - lse) and ds = p (dp - delta) over a warp's
+// 16 x 64 tile, in s: this thread's rows row_g and row_g + 8, columns
+// col_t + 8 j and + 1.  MASK on a tile that crosses the diagonal or the
+// end of S (elsewhere every pair is visible).
+template <bool MASK>
+__device__ __forceinline__ void dq_probs(float (&s)[8][4], const float (&dp)[8][4],
+                                         const float (&lse_r)[2], const float (&delta_r)[2],
+                                         int row_g, int col_t, int seq_len, int causal,
+                                         float scale) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = row_g + (e >> 1) * 8;
+      const int col = col_t + j * 8 + (e & 1);
+      const bool ok = !MASK || (row < seq_len && col < seq_len && (!causal || col <= row));
+      const float p = ok ? expf(s[j][e] * scale - lse_r[e >> 1]) : 0.f;
+      s[j][e] = p * (dp[j][e] - delta_r[e >> 1]);
+    }
+}
+
+// K6's p^T = exp(scale s^T - lse[col]) in s and ds^T = p^T (dp^T -
+// delta[col]) in dp over a warp's 16 x 8N tile: the row statistics are
+// per column here, lse_t[8 j] and lse_t[8 j + 1] for columns col_t + 8 j
+// and + 1 (likewise delta_t).
+template <bool MASK, int N>
+__device__ __forceinline__ void dkv_probs(float (&s)[N][4], float (&dp)[N][4],
+                                          const float* lse_t, const float* delta_t, int row_g,
+                                          int col_t, int seq_len, int causal, float scale) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const float2 l2 = *reinterpret_cast<const float2*>(lse_t + j * 8);
+    const float2 d2 = *reinterpret_cast<const float2*>(delta_t + j * 8);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = row_g + (e >> 1) * 8;
+      const int col = col_t + j * 8 + (e & 1);
+      const bool ok = !MASK || (row < seq_len && col < seq_len && (!causal || row <= col));
+      const float p = ok ? expf(s[j][e] * scale - ((e & 1) ? l2.y : l2.x)) : 0.f;
+      dp[j][e] = p * (dp[j][e] - ((e & 1) ? d2.y : d2.x));
+      s[j][e] = p;
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads) flash_bwd_dq_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ g, const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dq, int seq_len, int group, int causal, float scale, BwdStrides st) {
+  using C = MmaCfg<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* g_s = q_s + C::TILE;
+  bf16* kv_s = g_s + C::TILE;  // stage i: k at kv_s + 2 i TILE, v after it
+
+  // Heavy causal q-blocks (more keys) first.
+  const int qb = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / group;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int q0 = qb * C::BQ;
+  const int64_t stat0 = (static_cast<int64_t>(b) * gridDim.y + h) * seq_len;
+  const bf16* kp = k + b * st.k[0] + kvh * st.k[2];
+  const bf16* vp = v + b * st.v[0] + kvh * st.v[2];
+
+  const int n_kb = (seq_len + C::BK - 1) / C::BK;
+  const int n_run = causal ? min(n_kb, (q0 + C::BQ - 1) / C::BK + 1) : n_kb;
+  load_tile_async<D>(q_s, q + b * st.q[0] + h * st.q[2], st.q[1], q0, seq_len);
+  load_tile_async<D>(g_s, g + b * st.g[0] + h * st.g[2], st.g[1], q0, seq_len);
+  load_tile_async<D>(kv_s, kp, st.k[1], 0, seq_len);
+  load_tile_async<D>(kv_s + C::TILE, vp, st.v[1], 0, seq_len);
+  cp_async_commit();
+
+  // This thread's query rows: g and g + 8 of its warp's 16.
+  const int row_g = q0 + warp * 16 + (lane >> 2);
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row_g + 8 * i;
+    lse_r[i] = row < seq_len ? lse[stat0 + row] : 0.f;
+    delta_r[i] = row < seq_len ? delta[stat0 + row] : 0.f;
+  }
+
+  // ldmatrix lane offsets: an A operand (or a B operand by .trans) from a
+  // row-major tile, and a B operand from an (n, k) tile.
+  const int a_row = lane & 15, a_col = (lane >> 4) * 8;
+  const int b_row = (lane & 7) + ((lane >> 4) << 3), b_col = ((lane >> 3) & 1) * 8;
+  const uint32_t q_frag = smem_u32(q_s + (warp * 16 + a_row) * C::LD + a_col);
+  const uint32_t g_frag = smem_u32(g_s + (warp * 16 + a_row) * C::LD + a_col);
+
+  float acc[C::DN][4];
+#pragma unroll
+  for (int j = 0; j < C::DN; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int kb = 0; kb < n_run; ++kb) {
+    if (kb + 1 < n_run) {
+      bf16* nxt = kv_s + ((kb + 1) & 1) * 2 * C::TILE;
+      load_tile_async<D>(nxt, kp, st.k[1], (kb + 1) * C::BK, seq_len);
+      load_tile_async<D>(nxt + C::TILE, vp, st.v[1], (kb + 1) * C::BK, seq_len);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* k_s = kv_s + (kb & 1) * 2 * C::TILE;
+    const bf16* v_s = k_s + C::TILE;
+    const int k0 = kb * C::BK;
+
+    // s = q k^T and dp = do v^T, 16 rows x 64 keys a warp.
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = 0.f;
+        dp[j][e] = 0.f;
+      }
+#pragma unroll
+    for (int kc = 0; kc < C::DK; ++kc) {
+      uint32_t qa[4], ga[4];
+      ldsm_x4(qa, q_frag + kc * 32);
+      ldsm_x4(ga, g_frag + kc * 32);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t kf[4], vf[4];
+        ldsm_x4(kf, smem_u32(k_s + (np * 16 + b_row) * C::LD + kc * 16 + b_col));
+        ldsm_x4(vf, smem_u32(v_s + (np * 16 + b_row) * C::LD + kc * 16 + b_col));
+        mma_bf16(s[2 * np], qa, kf[0], kf[1]);
+        mma_bf16(s[2 * np + 1], qa, kf[2], kf[3]);
+        mma_bf16(dp[2 * np], ga, vf[0], vf[1]);
+        mma_bf16(dp[2 * np + 1], ga, vf[2], vf[3]);
+      }
+    }
+
+    // p and ds in s; masked only on a tile that crosses the diagonal or
+    // the end of S.
+    if (k0 + C::BK > seq_len || q0 + C::BQ > seq_len || (causal && k0 + C::BK - 1 > q0))
+      dq_probs<true>(s, dp, lse_r, delta_r, row_g, k0 + 2 * (lane & 3), seq_len, causal, scale);
+    else
+      dq_probs<false>(s, dp, lse_r, delta_r, row_g, k0 + 2 * (lane & 3), seq_len, causal, scale);
+
+    // dq += ds k: ds (bf16) from registers, k by ldmatrix.trans.
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      uint32_t dsa[4];
+      acc_to_a(dsa, s[2 * kc], s[2 * kc + 1]);
+#pragma unroll
+      for (int dn = 0; dn < C::DK; ++dn) {
+        uint32_t kf[4];
+        ldsm_x4_t(kf, smem_u32(k_s + (kc * 16 + a_row) * C::LD + dn * 16 + a_col));
+        mma_bf16(acc[2 * dn], dsa, kf[0], kf[1]);
+        mma_bf16(acc[2 * dn + 1], dsa, kf[2], kf[3]);
+      }
+    }
+    __syncthreads();
+  }
+
+  bf16* dqp = dq + b * st.a[0] + h * st.a[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row_g + 8 * i;
+    if (row < seq_len) {
+      bf16* out = dqp + static_cast<int64_t>(row) * st.a[1] + 2 * (lane & 3);
+#pragma unroll
+      for (int j = 0; j < C::DN; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(out + j * 8) =
+            __floats2bfloat162_rn(acc[j][2 * i] * scale, acc[j][2 * i + 1] * scale);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads) flash_bwd_dkv_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ g, const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int seq_len, int group, int causal,
+    float scale, BwdStrides st) {
+  using C = MmaCfg<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* v_s = k_s + C::TILE;
+  bf16* qg_s = v_s + C::TILE;  // stage i: q at qg_s + 2 i TILE, do after it
+  float* stat_s = reinterpret_cast<float*>(qg_s + 4 * C::TILE);  // stage i: lse, delta
+
+  const int kb = blockIdx.x;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int heads = gridDim.y * group;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int k0 = kb * C::BK;
+
+  // Iteration `it` takes query head kvh * group + it / nq and q-block
+  // first_qb + it % nq: causal, the q-blocks from the diagonal on.
+  const int n_qb = (seq_len + C::BQ - 1) / C::BQ;
+  const int first_qb = causal ? k0 / C::BQ : 0;
+  const int nq = n_qb - first_qb;
+  const int n_it = group * nq;
+  auto issue = [&](int it, int stage) {
+    const int h = kvh * group + it / nq;
+    const int q0 = (first_qb + it % nq) * C::BQ;
+    bf16* dst = qg_s + stage * 2 * C::TILE;
+    load_tile_async<D>(dst, q + b * st.q[0] + h * st.q[2], st.q[1], q0, seq_len);
+    load_tile_async<D>(dst + C::TILE, g + b * st.g[0] + h * st.g[2], st.g[1], q0, seq_len);
+    const int64_t stat0 = (static_cast<int64_t>(b) * heads + h) * seq_len;
+    load_stats_async(stat_s + stage * 2 * C::BQ, lse + stat0, q0, seq_len);
+    load_stats_async(stat_s + stage * 2 * C::BQ + C::BQ, delta + stat0, q0, seq_len);
+  };
+  load_tile_async<D>(k_s, k + b * st.k[0] + kvh * st.k[2], st.k[1], k0, seq_len);
+  load_tile_async<D>(v_s, v + b * st.v[0] + kvh * st.v[2], st.v[1], k0, seq_len);
+  issue(0, 0);
+  cp_async_commit();
+
+  // This thread's key rows: g and g + 8 of its warp's 16.
+  const int row_g = k0 + warp * 16 + (lane >> 2);
+  const int a_row = lane & 15, a_col = (lane >> 4) * 8;
+  const int b_row = (lane & 7) + ((lane >> 4) << 3), b_col = ((lane >> 3) & 1) * 8;
+  const uint32_t k_frag = smem_u32(k_s + (warp * 16 + a_row) * C::LD + a_col);
+  const uint32_t v_frag = smem_u32(v_s + (warp * 16 + a_row) * C::LD + a_col);
+
+  float acc_dk[C::DN][4], acc_dv[C::DN][4];
+#pragma unroll
+  for (int j = 0; j < C::DN; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc_dk[j][e] = 0.f;
+      acc_dv[j][e] = 0.f;
+    }
+
+  for (int it = 0; it < n_it; ++it) {
+    if (it + 1 < n_it) {
+      issue(it + 1, (it + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* q_s = qg_s + (it & 1) * 2 * C::TILE;
+    const bf16* g_s = q_s + C::TILE;
+    const float* lse_s = stat_s + (it & 1) * 2 * C::BQ;
+    const float* delta_s = lse_s + C::BQ;
+    const int q0 = (first_qb + it % nq) * C::BQ;
+    const bool edge = q0 + C::BQ > seq_len || k0 + C::BK > seq_len ||
+                      (causal && q0 < k0 + C::BK - 1);
+    const int col_t = q0 + 2 * (lane & 3);  // this thread's first column
+
+#pragma unroll
+    for (int qh = 0; qh < C::BQ; qh += C::QN) {
+      // s^T = k q^T and dp^T = v do^T, 16 keys x QN query rows a warp.
+      float s[C::QN / 8][4], dp[C::QN / 8][4];
+#pragma unroll
+      for (int j = 0; j < C::QN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = 0.f;
+          dp[j][e] = 0.f;
+        }
+#pragma unroll
+      for (int kc = 0; kc < C::DK; ++kc) {
+        uint32_t ka[4], va[4];
+        ldsm_x4(ka, k_frag + kc * 32);
+        ldsm_x4(va, v_frag + kc * 32);
+#pragma unroll
+        for (int np = 0; np < C::QN / 16; ++np) {
+          uint32_t qf[4], gf[4];
+          ldsm_x4(qf, smem_u32(q_s + (qh + np * 16 + b_row) * C::LD + kc * 16 + b_col));
+          ldsm_x4(gf, smem_u32(g_s + (qh + np * 16 + b_row) * C::LD + kc * 16 + b_col));
+          mma_bf16(s[2 * np], ka, qf[0], qf[1]);
+          mma_bf16(s[2 * np + 1], ka, qf[2], qf[3]);
+          mma_bf16(dp[2 * np], va, gf[0], gf[1]);
+          mma_bf16(dp[2 * np + 1], va, gf[2], gf[3]);
+        }
+      }
+
+      // p^T in s and ds^T in dp, masked only on an edge tile.
+      const float* lse_t = lse_s + qh + 2 * (lane & 3);
+      const float* delta_t = delta_s + qh + 2 * (lane & 3);
+      if (edge)
+        dkv_probs<true, C::QN / 8>(s, dp, lse_t, delta_t, row_g, col_t + qh, seq_len, causal,
+                                   scale);
+      else
+        dkv_probs<false, C::QN / 8>(s, dp, lse_t, delta_t, row_g, col_t + qh, seq_len, causal,
+                                    scale);
+
+      // dv += p^T do and dk += ds^T q: p^T, ds^T (bf16) from registers, do
+      // and q by ldmatrix.trans.
+#pragma unroll
+      for (int kc = 0; kc < C::QN / 16; ++kc) {
+        uint32_t pa[4], dsa[4];
+        acc_to_a(pa, s[2 * kc], s[2 * kc + 1]);
+        acc_to_a(dsa, dp[2 * kc], dp[2 * kc + 1]);
+#pragma unroll
+        for (int dn = 0; dn < C::DK; ++dn) {
+          uint32_t gf[4], qf[4];
+          ldsm_x4_t(gf, smem_u32(g_s + (qh + kc * 16 + a_row) * C::LD + dn * 16 + a_col));
+          ldsm_x4_t(qf, smem_u32(q_s + (qh + kc * 16 + a_row) * C::LD + dn * 16 + a_col));
+          mma_bf16(acc_dv[2 * dn], pa, gf[0], gf[1]);
+          mma_bf16(acc_dv[2 * dn + 1], pa, gf[2], gf[3]);
+          mma_bf16(acc_dk[2 * dn], dsa, qf[0], qf[1]);
+          mma_bf16(acc_dk[2 * dn + 1], dsa, qf[2], qf[3]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  bf16* dkp = dk + b * st.a[0] + kvh * st.a[2];
+  bf16* dvp = dv + b * st.b[0] + kvh * st.b[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row_g + 8 * i;
+    if (row < seq_len) {
+      bf16* dk_row = dkp + static_cast<int64_t>(row) * st.a[1] + 2 * (lane & 3);
+      bf16* dv_row = dvp + static_cast<int64_t>(row) * st.b[1] + 2 * (lane & 3);
+#pragma unroll
+      for (int j = 0; j < C::DN; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(dk_row + j * 8) =
+            __floats2bfloat162_rn(acc_dk[j][2 * i] * scale, acc_dk[j][2 * i + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv_row + j * 8) =
+            __floats2bfloat162_rn(acc_dv[j][2 * i], acc_dv[j][2 * i + 1]);
+      }
+    }
+  }
+}
+
 // Above 48 KB a block's dynamic shared memory has to be allowed first,
 // once per instantiation.
 template <typename K>
@@ -392,6 +865,44 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* g, const
   return launch_status();
 }
 
+template <int D>
+int launch_dq_mma(const void* q, const void* k, const void* v, const void* g, const float* lse,
+                  const float* delta, void* dq, int batch, int seq_len, int heads, int group,
+                  int causal, float scale, const BwdStrides& st, cudaStream_t stream) {
+  using C = MmaCfg<D>;
+  auto kernel = flash_bwd_dq_mma_kernel<D>;
+  static bool smem_allowed = false;
+  if (const int e = allow_smem(kernel, C::SMEM_DQ, &smem_allowed)) return e;
+  const dim3 grid((seq_len + C::BQ - 1) / C::BQ, heads, batch);
+  kernel<<<grid, kBwdThreads, C::SMEM_DQ, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(g), lse, delta, static_cast<bf16*>(dq), seq_len, group, causal,
+      scale, st);
+  return launch_status();
+}
+
+template <int D>
+int launch_dkv_mma(const void* q, const void* k, const void* v, const void* g, const float* lse,
+                   const float* delta, void* dk, void* dv, int batch, int seq_len, int kv_heads,
+                   int group, int causal, float scale, const BwdStrides& st,
+                   cudaStream_t stream) {
+  using C = MmaCfg<D>;
+  auto kernel = flash_bwd_dkv_mma_kernel<D>;
+  static bool smem_allowed = false;
+  if (const int e = allow_smem(kernel, C::SMEM_DKV, &smem_allowed)) return e;
+  const dim3 grid((seq_len + C::BK - 1) / C::BK, kv_heads, batch);
+  kernel<<<grid, kBwdThreads, C::SMEM_DKV, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(g), lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      seq_len, group, causal, scale, st);
+  return launch_status();
+}
+
+// The tensor-core route: bf16 at D 64 and 128 (see the header).
+bool tensor_core_route(int dtype, int head_dim) {
+  return dtype == kBF16 && (head_dim == 64 || head_dim == 128);
+}
+
 BwdStrides unpack_strides(const long long* s) {
   BwdStrides st;
   int64_t* dst[6] = {st.q, st.k, st.v, st.g, st.a, st.b};
@@ -425,9 +936,14 @@ extern "C" int skk_flash_bwd_dq(const void* q, const void* k, const void* v, con
 #define SKK_DQ(T, D)                                                                              \
   return skk::launch_dq<T, D>(q, k, v, dout, l, dl, dq, batch, seq_len, heads, group, causal, \
                               scale, st, s)
+#define SKK_DQ_MMA(D)                                                                           \
+  return skk::launch_dq_mma<D>(q, k, v, dout, l, dl, dq, batch, seq_len, heads, group, causal, \
+                               scale, st, s)
+  if (skk::tensor_core_route(dtype, head_dim)) {
+    if (head_dim == 64) SKK_DQ_MMA(64);
+    SKK_DQ_MMA(128);
+  }
   if (dtype == skk::kBF16) {
-    if (head_dim == 64) SKK_DQ(__nv_bfloat16, 64);
-    if (head_dim == 128) SKK_DQ(__nv_bfloat16, 128);
     if (head_dim == 256) SKK_DQ(__nv_bfloat16, 256);
   } else if (dtype == skk::kF32) {
     if (head_dim == 64) SKK_DQ(float, 64);
@@ -435,6 +951,7 @@ extern "C" int skk_flash_bwd_dq(const void* q, const void* k, const void* v, con
     if (head_dim == 256) SKK_DQ(float, 256);
   }
 #undef SKK_DQ
+#undef SKK_DQ_MMA
   return skk::kErrUnsupported;
 }
 
@@ -452,9 +969,14 @@ extern "C" int skk_flash_bwd_dkv(const void* q, const void* k, const void* v, co
 #define SKK_DKV(T, D)                                                                         \
   return skk::launch_dkv<T, D>(q, k, v, dout, l, dl, dk, dv, batch, seq_len, kv_heads, group, \
                                causal, scale, st, s)
+#define SKK_DKV_MMA(D)                                                                         \
+  return skk::launch_dkv_mma<D>(q, k, v, dout, l, dl, dk, dv, batch, seq_len, kv_heads, group, \
+                                causal, scale, st, s)
+  if (skk::tensor_core_route(dtype, head_dim)) {
+    if (head_dim == 64) SKK_DKV_MMA(64);
+    SKK_DKV_MMA(128);
+  }
   if (dtype == skk::kBF16) {
-    if (head_dim == 64) SKK_DKV(__nv_bfloat16, 64);
-    if (head_dim == 128) SKK_DKV(__nv_bfloat16, 128);
     if (head_dim == 256) SKK_DKV(__nv_bfloat16, 256);
   } else if (dtype == skk::kF32) {
     if (head_dim == 64) SKK_DKV(float, 64);
@@ -462,5 +984,12 @@ extern "C" int skk_flash_bwd_dkv(const void* q, const void* k, const void* v, co
     if (head_dim == 256) SKK_DKV(float, 256);
   }
 #undef SKK_DKV
+#undef SKK_DKV_MMA
   return skk::kErrUnsupported;
+}
+
+// 1 when (dtype, head_dim) takes the tensor-core kernels, 0 when the FMA
+// kernels: the wrappers count launches by route.
+extern "C" int skk_flash_bwd_route(int dtype, int head_dim) {
+  return skk::tensor_core_route(dtype, head_dim) ? 1 : 0;
 }

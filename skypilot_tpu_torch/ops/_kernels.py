@@ -6,7 +6,7 @@ interface.  At first use every source compiles with ``nvcc`` for
 objects link into one shared library under ``build/torch_kernels/`` at the
 root of the checkout.  The library's name carries a hash of the sources
 and the flags, so an edited source rebuilds and an unchanged one loads
-the library already built.  Python loads it with ``ctypes``: every pointer
+the library already built, with the compiler's report saved beside it.  Python loads it with ``ctypes``: every pointer
 and the CUDA stream pass as ``c_void_p`` (ctypes would otherwise cut them
 to 32 bits), and every entry point returns 0 or an error code, which
 :func:`launch` turns into an exception.
@@ -51,6 +51,7 @@ _SIGNATURES = {
                       ctypes.c_float, _P, _I, _P],
     'skk_flash_bwd_dq': [_P] * 7 + [_I] * 6 + [ctypes.c_float, _P, _I, _P],
     'skk_flash_bwd_dkv': [_P] * 8 + [_I] * 6 + [ctypes.c_float, _P, _I, _P],
+    'skk_flash_bwd_route': [_I, _I],
 }
 
 
@@ -113,7 +114,11 @@ def _build(library: _Library) -> Path:
     """Compile every csrc/*.cu in parallel and link one .so; returns
     its path.  A library whose hash matches the sources is reused."""
     lib_path = BUILD_DIR / f'libskypilot_torch_kernels_{_digest()}.so'
+    log_path = lib_path.with_suffix('.log')
     if lib_path.exists():
+        # The compiler's report (registers, spills) of the library reused.
+        if log_path.exists():
+            library.build_log = log_path.read_text()
         return lib_path
     nvcc = _nvcc()
     work = BUILD_DIR / f'objs_{lib_path.stem}_{os.getpid()}'
@@ -143,6 +148,7 @@ def _build(library: _Library) -> Path:
         library.build_log += f'== link\n{link.stdout}'
         if link.returncode:
             raise RuntimeError(f'linking the kernels failed:\n{link.stdout}')
+        log_path.write_text(library.build_log)
         os.replace(tmp_lib, lib_path)
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -4,7 +4,8 @@
 Counterpart of skypilot_tpu/ops/attention.py.  Three kernels replace the
 TPU's pallas_calls: the forward ``_flash_fwd`` (K2, which writes the row
 logsumexp only when a gradient is wanted) and the two of ``_flash_bwd``
-(K5: dq; K6: dk and dv).  :func:`flash_attention` is a
+(K5: dq; K6: dk and dv; in bf16 at head_dim 64 and 128 on the tensor
+cores, otherwise on f32 FMAs).  :func:`flash_attention` is a
 ``torch.autograd.Function`` when a gradient is wanted, the counterpart of
 ``_flash_attention_vjp``.
 """
@@ -201,6 +202,16 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _flash_attention_cuda(q, k, v, causal, need_lse)
 
 
+def _count_route(wrapper, code: int, head_dim: int) -> None:
+    """One launch of K5 or K6 on its route: `launches` counts every
+    launch, `launches_tc` those the library routed to the tensor-core
+    kernels (bf16 at head_dim 64 and 128; f32, and bf16 at 256, take
+    the FMA kernels)."""
+    wrapper.launches += 1
+    if _kernels.LIBRARY.get().skk_flash_bwd_route(code, head_dim):
+        wrapper.launches_tc += 1
+
+
 def flash_attention_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        do: torch.Tensor, lse: torch.Tensor,
                        delta: torch.Tensor, causal: bool = True
@@ -220,7 +231,7 @@ def flash_attention_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     seq_len, heads, k.shape[2], head_dim, int(bool(causal)),
                     float(head_dim ** -0.5), _strides(q, k, v, do, dq, dq),
                     code)
-    flash_attention_dq.launches += 1
+    _count_route(flash_attention_dq, code, head_dim)
     return dq
 
 
@@ -243,7 +254,7 @@ def flash_attention_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     dv.data_ptr(), batch, seq_len, heads, k.shape[2],
                     head_dim, int(bool(causal)), float(head_dim ** -0.5),
                     _strides(q, k, v, do, dk, dv), code)
-    flash_attention_dkv.launches += 1
+    _count_route(flash_attention_dkv, code, head_dim)
     return dk, dv
 
 
@@ -301,4 +312,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_attention.launches = 0
 flash_attention_dq.launches = 0
+flash_attention_dq.launches_tc = 0
 flash_attention_dkv.launches = 0
+flash_attention_dkv.launches_tc = 0

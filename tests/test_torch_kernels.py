@@ -384,11 +384,19 @@ def _assert_row_close(got, want):
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('seq,heads,kv,hd,causal', [
     (1, 4, 4, 64, True), (77, 8, 2, 128, True), (130, 4, 2, 256, False),
-    (64, 8, 8, 128, False), (200, 16, 4, 64, True), (96, 4, 1, 256, True)])
+    (64, 8, 8, 128, False), (200, 16, 4, 64, True), (96, 4, 1, 256, True),
+    # The tensor-core kernels' 64-row tiles (bf16, hd 64 and 128), a group
+    # of 8: one row, a full 16-row warp tile, one past it, one short of
+    # and one past a 64-row tile, one past two, and an S with no full
+    # last tile.
+    (1, 32, 4, 128, False), (16, 32, 4, 64, True), (17, 32, 4, 128, True),
+    (63, 32, 4, 64, False), (65, 32, 4, 128, True), (129, 32, 4, 64, True),
+    (129, 32, 4, 128, False), (1000, 32, 4, 128, True),
+    (1000, 32, 4, 64, False)])
 def test_flash_backward_kernels(cuda, dtype, seq, heads, kv, hd, causal):
     """K2 with its lse, K5 and K6 against their plain versions, on the
     same inputs (o and lse from the kernel), over head_dims 64/128/256,
-    groups 1/2/4, ragged S, causal and not."""
+    groups 1/2/4/8, ragged S, causal and not."""
     from skypilot_tpu_torch.ops import attention as at
     q = torch.randn(2, seq, heads, hd, generator=cuda, device='cuda').to(dtype)
     k = torch.randn(2, seq, kv, hd, generator=cuda, device='cuda').to(dtype)
@@ -414,6 +422,73 @@ def test_flash_backward_kernels(cuda, dtype, seq, heads, kv, hd, causal):
             q, k, v, do, lse, delta, causal)):
         assert got.shape == k.shape and got.dtype == dtype
         _assert_row_close(got, want)
+
+
+def _bwd_operands(cuda, dtype, seq, heads, kv, hd, causal):
+    """q, k, v, do and the forward's lse and delta (from K2)."""
+    from skypilot_tpu_torch.ops import attention as at
+    q, k, v, do = (torch.randn(2, seq, h, hd, generator=cuda,
+                               device='cuda').to(dtype)
+                   for h in (heads, kv, kv, heads))
+    o, lse = at.flash_attention_fwd(q, k, v, causal, need_lse=True)
+    return q, k, v, do, lse, at._delta(o, do).contiguous()
+
+
+@pytest.mark.parametrize('hd', [64, 128])
+def test_flash_backward_kernels_on_packed_qkv(cuda, hd):
+    """q, k and v as strided views of one packed (B, S, H + 2 KV, D)
+    tensor, as a fused qkv projection gives them: K5 and K6 read the
+    strides they are given."""
+    from skypilot_tpu_torch.ops import attention as at
+    heads, kv, seq = 8, 2, 200
+    qkv = torch.randn(2, seq, heads + 2 * kv, hd, generator=cuda,
+                      device='cuda').bfloat16()
+    q, k, v = qkv.split([heads, kv, kv], dim=2)
+    assert not q.is_contiguous() and not k.is_contiguous()
+    do = torch.randn(2, seq, heads, hd, generator=cuda,
+                     device='cuda').bfloat16()
+    o, lse = at.flash_attention_fwd(q, k, v, True, need_lse=True)
+    delta = at._delta(o, do).contiguous()
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    _assert_row_close(at.flash_attention_dq(q, k, v, do, lse, delta),
+                      at._flash_attention_dq_plain(qc, kc, vc, do, lse,
+                                                   delta))
+    for got, want in zip(at.flash_attention_dkv(q, k, v, do, lse, delta),
+                         at._flash_attention_dkv_plain(qc, kc, vc, do, lse,
+                                                       delta)):
+        _assert_row_close(got, want)
+
+
+@pytest.mark.parametrize('dtype,hd', [(torch.bfloat16, 64),
+                                      (torch.bfloat16, 128),
+                                      (torch.float32, 128)])
+def test_flash_backward_kernels_are_deterministic(cuda, dtype, hd):
+    """No atomics and one block per output tile: two launches on the same
+    inputs give bitwise-equal dq, dk and dv."""
+    from skypilot_tpu_torch.ops import attention as at
+    args = _bwd_operands(cuda, dtype, 333, 16, 4, hd, True)
+    first = (at.flash_attention_dq(*args), *at.flash_attention_dkv(*args))
+    second = (at.flash_attention_dq(*args), *at.flash_attention_dkv(*args))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize('dtype,hd,tensor_cores', [
+    (torch.bfloat16, 64, True), (torch.bfloat16, 128, True),
+    (torch.bfloat16, 256, False), (torch.float32, 64, False),
+    (torch.float32, 128, False)])
+def test_flash_backward_route(cuda, dtype, hd, tensor_cores):
+    """bf16 at hd 64 and 128 takes the tensor-core kernels; f32, and bf16
+    at hd 256, the FMA kernels: `launches_tc` counts the former only."""
+    from skypilot_tpu_torch.ops import attention as at
+    args = _bwd_operands(cuda, dtype, 65, 4, 2, hd, True)
+    wrappers = (at.flash_attention_dq, at.flash_attention_dkv)
+    before = [(w.launches, w.launches_tc) for w in wrappers]
+    at.flash_attention_dq(*args)
+    at.flash_attention_dkv(*args)
+    for w, (n, n_tc) in zip(wrappers, before):
+        assert (w.launches, w.launches_tc) == (n + 1,
+                                               n_tc + int(tensor_cores))
 
 
 @pytest.mark.parametrize('group', [1, 4])

@@ -99,14 +99,20 @@ def test_flash_backward_plain_matches_jax(causal, kv_heads):
             _close(got, want)
 
 
-def test_flash_backward_bf16_matches_jax_kernel():
+@pytest.mark.parametrize('hd,group,seq', [
+    (64, 2, 128),
+    # The training configuration's head_dim and group (LLAMA_1B, 8B):
+    # the shapes the tensor-core K5/K6 take on the card.
+    (128, 4, 256)])
+def test_flash_backward_bf16_matches_jax_kernel(hd, group, seq):
     """bf16: p and ds rounded to bf16 before their products on both
-    sides; the JAX kernel rounds each query head's dk/dv partial to bf16
-    before the group sum, the port sums in f32 and rounds once, so the
-    bound is a few bf16 ulps (2^-8 relative) at |dk| < 4."""
+    sides (the rounding points the card's K5/K6 reproduce); the JAX
+    kernel rounds each query head's dk/dv partial to bf16 before the
+    group sum, the port sums in f32 and rounds once, so the bound is a
+    few bf16 ulps (2^-8 relative) at |dk| < 4."""
     (q_j, q), (k_j, k), (v_j, v), (g_j, g) = [
         _pair(_np(t), 'bfloat16') for _, t in _attn_inputs(
-            9, 1, 128, 4, 2, 64)]
+            9, 1, seq, 2 * group, 2, hd)]
     sw = lambda x: jnp.swapaxes(x, 1, 2)  # noqa: E731
     o_jt, lse_j = j_attention._flash_fwd(sw(q_j), sw(k_j), sw(v_j), True,
                                          128, interpret=True, need_lse=True)
