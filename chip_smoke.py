@@ -10,8 +10,8 @@ Phases (any failure exits non-zero):
 1. device: needs torch.cuda; prints the card's name and power limit.
 2. build: compiles skypilot_tpu_torch/csrc/*.cu with nvcc (in parallel)
    into build/torch_kernels/ and loads the library; fails if ptxas
-   reports a spill in a tensor-core kernel (K5 and K6 in bf16, hd 64 and
-   128).
+   reports a spill in a tensor-core kernel (K2, K5 and K6 in bf16, hd 64
+   and 128).
 3. kernels: holds each hand-written kernel against its plain PyTorch
    version on the card, at the shapes the Llama-3-8B serving path gives
    it, in bf16 and f32 (and int8 arenas for the two paged attentions);
@@ -21,14 +21,17 @@ Phases (any failure exits non-zero):
    kernels are also run on arenas poisoned past each window and outside
    the tables, and K7 (the contiguous decode, q (8, 8, 4, 128) over the
    1024-row bucket) on caches poisoned past each position, which must
-   not change their output.  The training
-   kernels (K2 with its lse, K5 dq, K6 dk/dv) are held to their plain
-   versions in bf16 and f32 at the LLAMA_1B training shape (8, 1024,
-   16/8 heads, 128) and a ragged S, and in bf16 at the 8B trunk's
+   not change their output.  K2 (o, and its lse) is held to
+   _flash_fwd_plain, its own numerics, and to _attention_plain, the JAX
+   reference_attention's, at the prefill shape and ragged S.  The
+   training kernels (K2 with its lse, K5 dq, K6 dk/dv) are held to their
+   plain versions in bf16 and f32 at the LLAMA_1B training shape (8,
+   1024, 16/8 heads, 128) and a ragged S, and in bf16 at the 8B trunk's
    (2, 4096, 32/8, 128), and timed at both train shapes; their library
    call is SDPA's forward with grad, and its backward (one time for dq,
-   dk and dv) for K5 and K6.  K5's and K6's entries carry their design,
-   TFLOP/s and the ptxas registers and spill of the instantiation timed.
+   dk and dv) for K5 and K6.  The entries of K2, K5 and K6 carry their
+   design, TFLOP/s and the ptxas registers and spill of the
+   instantiation timed.
 4. slice parity: a 2-layer LLAMA_DEBUG model in f32 served on the card
    (kernels) and on the host (plain versions) from the same weights:
    identical greedy tokens (plain, spec_k=3, fuse_budget, int8 KV and
@@ -63,10 +66,11 @@ Phases (any failure exits non-zero):
 Every kernel of a main-path run must launch > 0 times in that run (the
 counts are set to 0 just before it and read just after); the window
 kernel must launch from both verify and fused ticks, K7 (and never K1)
-on every phase 7 path, and K2, K3, K5 and K6 from both train paths, K5
-and K6 on their tensor-core route.  The last lines of standard output
-are the {"kernels": [...]} line, the nvidia-smi name/power-limit line,
-and {"ok": true, "device": {...}}.
+on every phase 7 path, and K2, K3, K5 and K6 from both train paths; K2,
+K5 and K6 only on their tensor-core route, on every path of phases 5 to
+8 (all bf16 at head_dim 128).  The last lines of standard output are
+the {"kernels": [...]} line, the nvidia-smi name/power-limit line, and
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -97,7 +101,10 @@ TIMING_REPS = 25
 # dequantize before each product, the plain versions scale after it.
 TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (3e-2, 2e-2)}
 # bf16 outputs whose plain version computes in f32 as the kernel does
-# (the flash backward's dq, dk, dv; K7), elementwise: atol one bf16 ulp
+# (the flash backward's dq, dk, dv; K7; K2's o against _flash_fwd_plain,
+# where p is rounded to bf16 against the running max of a 64-key tile on
+# the card and against the row's final max in the plain version: the
+# same p up to one rounding each), elementwise: atol one bf16 ulp
 # (2^-7) of the largest element of the same row (the row's elements
 # share their sums' terms, so their f32 noise scales with it; a causal
 # gradient's rows differ in scale by 50x), never below the f32
@@ -250,44 +257,76 @@ def check_rmsnorm(rmsnorm):
     return result
 
 
-def check_flash(attention):
+def _tc_entry(ptxas, stem):
+    """The design of a tensor-core kernel and the ptxas registers and
+    spill of its instantiation `stem` (a mangled-name fragment)."""
+    found = [i for n, i in ptxas.items() if stem in n]
+    if len(found) != 1:
+        raise AssertionError(f'ptxas report has {len(found)} {stem}')
+    return {'design': TC_DESIGN, 'ptxas_registers': found[0]['registers'],
+            'ptxas_spill_bytes': found[0]['spill_bytes']}
+
+
+def _check_fwd(at, q, k, v, causal, tag, need_lse=False):
+    """K2's o (and lse) against _flash_fwd_plain (o per row in bf16,
+    row_tol; lse f32) and against _attention_plain (o at TOL) and
+    _attention_lse_plain.  Returns the max abs error against
+    _flash_fwd_plain, o and lse."""
+    if need_lse:
+        o, lse = at.flash_attention_fwd(q, k, v, causal, need_lse=True)
+    else:
+        o, lse = at.flash_attention(q, k, v, causal=causal), None
+    want, want_lse = at._flash_fwd_plain(q, k, v, causal)
+    err = check_close(f'flash_attention o {tag}', o, want, row_tol(want))
+    check_close(f'flash_attention o vs _attention_plain {tag}', o,
+                at._attention_plain(q, k, v, causal))
+    if lse is not None:
+        err = max(err, check_close(f'flash_attention lse {tag}', lse,
+                                   want_lse))
+        check_close(f'flash_attention lse vs _attention_lse_plain {tag}',
+                    lse, at._attention_lse_plain(q, k, causal))
+    return err, o, lse
+
+
+def check_flash(attention, ptxas):
     gen = torch.Generator(device='cuda').manual_seed(4)
     heads, kv_heads, hd = 32, 8, 128
     result = None
     for dtype in (torch.float32, torch.bfloat16):
         for batch, seq, causal in ((4, 512, True), (1, 700, True),
-                                   (1, 700, False), (2, 64, True)):
+                                   (1, 700, False), (2, 64, True),
+                                   (2, 1, True), (2, 63, False),
+                                   (2, 65, True), (2, 129, False)):
             q = torch.randn(batch, seq, heads, hd, generator=gen,
                             device='cuda').to(dtype)
             k = torch.randn(batch, seq, kv_heads, hd, generator=gen,
                             device='cuda').to(dtype)
             v = torch.randn(batch, seq, kv_heads, hd, generator=gen,
                             device='cuda').to(dtype)
-            err = check_close(
-                f'flash_attention {dtype} B={batch} S={seq} '
-                f'causal={causal}',
-                attention.flash_attention(q, k, v, causal=causal),
-                attention._attention_plain(q, k, v, causal=causal))
+            err, _, _ = _check_fwd(attention, q, k, v, causal,
+                                   f'{dtype} B={batch} S={seq} '
+                                   f'causal={causal}')
             if dtype == torch.bfloat16 and seq == 512:
                 nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
                 pairs = batch * heads * seq * (seq + 1) // 2
-                b_ms, by = bound(nbytes, 4 * hd * pairs, BF16_FLOPS)
+                flops = 4 * hd * pairs
+                b_ms, by = bound(nbytes, flops, BF16_FLOPS)
                 qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-                result = {
+                ms = time_ms(lambda: attention.flash_attention(q, k, v))
+                result = dict({
                     'name': 'flash_attention', 'route': 'cuda',
                     'source': 'skypilot_tpu_torch/csrc/flash_fwd.cu',
                     'replaces': 'skypilot_tpu/ops/attention.py:120',
                     'shape': f'q ({batch}, {seq}, {heads}, {hd}) kv '
                              f'{kv_heads} causal bf16',
-                    'max_abs_err': err,
-                    'ms': time_ms(
-                        lambda: attention.flash_attention(q, k, v)),
+                    'max_abs_err': err, 'ms': ms,
                     'plain_ms': time_ms(
-                        lambda: attention._attention_plain(q, k, v)),
+                        lambda: attention._flash_fwd_plain(q, k, v)),
                     'bound_ms': b_ms, 'bound_by': by,
                     'library_ms': time_ms(
                         lambda: sdpa(qt, kt, vt, is_causal=True)),
-                }
+                    'tflops': flops / ms / 1e9,
+                }, **_tc_entry(ptxas, TC_KERNELS['lse']))
     return result
 
 
@@ -303,15 +342,12 @@ def _attn_operands(gen, batch, seq, heads, kv, hd, dtype):
 
 
 def _check_train_kernels(at, q, k, v, do, causal, tag):
-    """K2 with its lse, K5 and K6 against their plain versions on the
-    same inputs (o and lse from the kernel feed both backward sides).
+    """K2 with its lse (_check_fwd), K5 and K6 against their plain
+    versions on the same inputs (o and lse from the kernel feed both
+    backward sides).
     Returns the max abs errors by kernel (K2's over o and lse) and the
     kernels' outputs."""
-    o, lse = at.flash_attention_fwd(q, k, v, causal, need_lse=True)
-    e_lse = max(check_close(f'flash_attention o {tag}', o,
-                            at._attention_plain(q, k, v, causal)),
-                check_close(f'flash_attention lse {tag}', lse,
-                            at._attention_lse_plain(q, k, causal)))
+    e_lse, o, lse = _check_fwd(at, q, k, v, causal, tag, need_lse=True)
     delta = at._delta(o, do).contiguous()
     want = at._flash_attention_dq_plain(q, k, v, do, lse, delta, causal)
     e_dq = check_close(
@@ -327,10 +363,11 @@ def _check_train_kernels(at, q, k, v, do, causal, tag):
     return {'lse': e_lse, 'dq': e_dq, 'dkv': e_dkv}, o, lse, delta
 
 
-# K5's and K6's bf16 hd-128 route (timed below): its design and the
-# mangled-name stem of its instantiation in the ptxas report.
+# The bf16 hd-128 route of K2, K5 and K6 (timed below): its design and
+# the mangled-name stem of each instantiation in the ptxas report.
 TC_DESIGN = 'mma.sync m16n8k16 bf16 -> f32, ldmatrix, cp.async x2'
-TC_KERNELS = {'dq': 'flash_bwd_dq_mma_kernelILi128E',
+TC_KERNELS = {'lse': 'flash_fwd_mma_kernelILi128E',
+              'dq': 'flash_bwd_dq_mma_kernelILi128E',
               'dkv': 'flash_bwd_dkv_mma_kernelILi128E'}
 
 
@@ -339,8 +376,8 @@ def check_flash_train(attention, ptxas):
     and bf16 at the LLAMA_1B shape and a ragged S; then, in bf16 and
     causal at both train shapes, checked again and timed.  Returns the
     kernels line entries by (kernel, shape), each with the error measured
-    at its own shape, its TFLOP/s and, for K5 and K6, the design and the
-    ptxas registers and spill of the instantiation timed."""
+    at its own shape, its TFLOP/s, the design and the ptxas registers and
+    spill of the instantiation timed."""
     at = attention
     gen = torch.Generator(device='cuda').manual_seed(7)
     for dtype in (torch.float32, torch.bfloat16):
@@ -379,8 +416,7 @@ def check_flash_train(attention, ptxas):
             'lse': ('flash_attention[lse]', 'flash_fwd.cu',
                     'skypilot_tpu/ops/attention.py:120',
                     lambda: at.flash_attention_fwd(q, k, v, True, True),
-                    lambda: (at._attention_plain(q, k, v, True),
-                             at._attention_lse_plain(q, k, True)),
+                    lambda: at._flash_fwd_plain(q, k, v, True),
                     2 * qb + 2 * kb + sb, 4 * hd * pairs, time_ms(lib_fwd)),
             'dq': ('flash_attention_dq', 'flash_bwd.cu',
                    'skypilot_tpu/ops/attention.py:257',
@@ -408,16 +444,7 @@ def check_flash_train(attention, ptxas):
                 'bound_by': by, 'library_ms': lib_ms,
                 'tflops': flops / ms / 1e9,
             }
-            if kernel in TC_KERNELS:
-                found = [i for n, i in ptxas.items()
-                         if TC_KERNELS[kernel] in n]
-                if len(found) != 1:
-                    raise AssertionError(f'ptxas report has {len(found)} '
-                                         f'{TC_KERNELS[kernel]}')
-                info = found[0]
-                results[kernel, key].update(
-                    design=TC_DESIGN, ptxas_registers=info['registers'],
-                    ptxas_spill_bytes=info['spill_bytes'])
+            results[kernel, key].update(_tc_entry(ptxas, TC_KERNELS[kernel]))
             log(f'  {results[kernel, key]["name"]} {shape}: {ms:.3f} ms, '
                 f'{flops / ms / 1e9:.1f} TFLOP/s (plain '
                 f'{results[kernel, key]["plain_ms"]:.3f}, library '
@@ -1226,7 +1253,7 @@ def main() -> int:
     decode = check_decode(decode_attention)
     contig = check_contig_decode(decode_attention)
     window = check_window(decode_attention)
-    flash, norm = check_flash(attention), check_rmsnorm(rmsnorm)
+    flash, norm = check_flash(attention, ptxas), check_rmsnorm(rmsnorm)
     train = check_flash_train(attention, ptxas)
     k1 = decode_attention.decode_attention_pooled
     k4v = decode_attention.decode_window_attention_pooled
@@ -1303,13 +1330,24 @@ def main() -> int:
         2, 4096, 6, trainer.TrainConfig(warmup_steps=2, total_steps=6),
         counters)
     for key in ('8a', '8b'):
-        _need(key, paths[key], [c.__name__ for c in (k2, k3, k5, k6)]
-              + [f'{c.__name__}[tc]' for c in (k5, k6)])
+        _need(key, paths[key], [c.__name__ for c in (k2, k3, k5, k6)])
+    for key, launches in paths.items():
+        # Every path runs bf16 at head_dim 128: the tensor-core route only.
+        for c in (k2, k5, k6):
+            if launches[f'{c.__name__}[tc]'] != launches[c.__name__]:
+                raise AssertionError(
+                    f'{c.__name__}: {launches[c.__name__]} launches on the '
+                    f'{key} path, {launches[f"{c.__name__}[tc]"]} of them on '
+                    f'the tensor-core route')
 
     def entry(res, counter, keys):
         by_path = {k: paths[k][counter.__name__] for k in keys}
-        return dict(res, launches=sum(by_path.values()),
-                    launches_by_path=by_path)
+        out = dict(res, launches=sum(by_path.values()),
+                   launches_by_path=by_path)
+        if hasattr(counter, 'launches_tc'):
+            out['launches_tc'] = sum(paths[k][f'{counter.__name__}[tc]']
+                                     for k in keys)
+        return out
 
     every = tuple(paths)
     kernels = [
@@ -1324,13 +1362,9 @@ def main() -> int:
         entry(contig['bf16'], k7, ('7a', '7c')),
         entry(contig['int8'], k7, ('7b',)),
     ]
-    kernels += [entry(train['lse', key], k2, (path,))
+    kernels += [entry(train[name, key], counter, (path,))
+                for name, counter in (('lse', k2), ('dq', k5), ('dkv', k6))
                 for key, path in (('1b', '8a'), ('8b', '8b'))]
-    for name, counter in (('dq', k5), ('dkv', k6)):
-        for key, path in (('1b', '8a'), ('8b', '8b')):
-            kernels.append(dict(
-                entry(train[name, key], counter, (path,)),
-                launches_tc=paths[path][f'{counter.__name__}[tc]']))
     log(json.dumps({'kernels': kernels}))
     log(CARD['line'])
     log(json.dumps({'ok': True, 'device': {

@@ -38,10 +38,10 @@ from skypilot_tpu_torch.train import trainer  # noqa: E402
 # Kernel name fragments of each category (first match wins).
 CATEGORIES = (
     # Both routes: flash_bwd_dq_kernel (FMA), flash_bwd_dq_mma_kernel
-    # (tensor cores), and K6's likewise.
+    # (tensor cores), and K6's and K2's likewise.
     ('K5 flash dq', ('flash_bwd_dq_',)),
     ('K6 flash dk/dv', ('flash_bwd_dkv_',)),
-    ('K2 flash forward', ('flash_fwd_kernel',)),
+    ('K2 flash forward', ('flash_fwd_',)),
     ('K3 rmsnorm', ('rmsnorm_kernel',)),
     ('cuBLAS products', ('gemm', 'xmma', 'cutlass', 'nvjet', 'cublas')),
 )

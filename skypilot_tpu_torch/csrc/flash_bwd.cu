@@ -52,16 +52,17 @@
 //   thread) in registers, and takes the scores of a 64-row q-tile in
 //   passes of QN columns so that the pass's s^T and dp^T fit beside them.
 //   Shared-memory rows are padded by 16 bytes, so the eight rows of an
-//   ldmatrix 8 x 8 fall in distinct banks.  The next step is wgmma fed by
-//   TMA with warp specialisation.
+//   ldmatrix 8 x 8 fall in distinct banks.  The building blocks (cp.async,
+//   ldmatrix, mma.sync, fragment conversions) are mma.cuh's, shared with
+//   K2.  The next step is wgmma fed by TMA with warp specialisation.
 // - f32 at every D (tensor cores would need TF32, which changes f32
 //   results), and bf16 at D 256 (its dk and dv accumulators alone would
 //   take 256 registers a thread at 16 rows a warp): scalar f32 FMAs on
-//   the CUDA cores, staged through shared memory like K2, 128 threads a
-//   block.  K6 holds two (BK x D) accumulators, so its key tile shrinks
+//   the CUDA cores, staged through shared memory like K2's FMA kernel,
+//   128 threads a block.  K6 holds two (BK x D) accumulators, so its key tile shrinks
 //   with D (BK = 4096 / D: 64, 32, 16 keys) to keep them at 64 registers
 //   a thread.
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace skk {
 namespace {
@@ -378,107 +379,21 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_dkv_kernel(
 }
 
 // ---- tensor-core route: bf16 at D 64 and 128 -------------------------------
+// (building blocks in mma.cuh)
 
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// cp.async of 16 (4) bytes; src_bytes 0 zero-fills the destination and
-// reads nothing.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Four 8 x 8 b16 matrices; lanes 8i..8i+7 give the row addresses of
-// matrix i, and each thread receives (row lane / 4, cols 2 (lane % 4), +1)
-// of every matrix (of its transpose with .trans).
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// c (16 x 8 f32) += a (16 x 16 bf16) b (16 x 8 bf16).  Thread (g, t) =
-// (lane / 4, lane % 4) holds c rows g, g + 8 and cols 2t, 2t + 1 as
-// c[0..1], c[2..3]; a as (row g, cols 2t..), (g + 8, 2t..), (g, 2t + 8..),
-// (g + 8, 2t + 8..); b as (k rows 2t.., col g), (2t + 8.., g).
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// The A fragment of a 16 x 16 chunk of a (16 x 8n) f32 accumulator,
-// rounded to bf16: its n8 tiles c0 and c1 side by side.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
-                                         const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
-}
-
-// Tiles of 64 rows (4 warps x 16), row stride D + 8 in shared memory.
 template <int D>
-struct MmaCfg {
-  static constexpr int BQ = 64;
-  static constexpr int BK = 64;
-  static constexpr int LD = D + 8;
-  static constexpr int TILE = 64 * LD;  // elements of one 64-row tile
-  static constexpr int DK = D / 16;     // k16 steps over D
-  static constexpr int DN = D / 8;      // n8 tiles of an output row
+struct MmaCfg : MmaTile<D> {
+  using Tile = MmaTile<D>;
   // K6's query columns per score pass: its 2 x DN x 4 accumulator
   // registers plus QN of scores stay under the 255-register cap at D 128
   // (248 registers; 64 columns spilled there and ran slower).
   static constexpr int QN = D >= 128 ? 32 : 64;
   // K5: q, do, and two stages of k and v.  K6: k, v, and two stages of q,
   // do, lse and delta.
-  static constexpr size_t SMEM_DQ = 6 * TILE * sizeof(bf16);
-  static constexpr size_t SMEM_DKV = 6 * TILE * sizeof(bf16) + 2 * 2 * BQ * sizeof(float);
+  static constexpr size_t SMEM_DQ = 6 * Tile::TILE * sizeof(bf16);
+  static constexpr size_t SMEM_DKV =
+      6 * Tile::TILE * sizeof(bf16) + 2 * 2 * Tile::BQ * sizeof(float);
 };
-
-// Copies 64 rows of D bf16 from sequence row `row0` of a strided (S, D)
-// view into a smem tile of row stride LD with cp.async, zero-filling rows
-// at or past S.
-template <int D>
-__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src, int64_t row_stride,
-                                                int row0, int seq_len) {
-  constexpr int VPR = D / 8;
-#pragma unroll
-  for (int n = 0; n < 64 * VPR / kBwdThreads; ++n) {
-    const int i = threadIdx.x + n * kBwdThreads;
-    const int r = i / VPR;
-    const int c = i - r * VPR;
-    const bool in = row0 + r < seq_len;
-    const bf16* from = in ? src + static_cast<int64_t>(row0 + r) * row_stride + c * 8 : src;
-    cp_async16(smem_u32(dst + r * MmaCfg<D>::LD + c * 8), from, in ? 16 : 0);
-  }
-}
 
 // lse or delta of 64 query rows from `row0` (0 past S).
 __device__ __forceinline__ void load_stats_async(float* dst, const float* src, int row0,
@@ -896,11 +811,6 @@ int launch_dkv_mma(const void* q, const void* k, const void* v, const void* g, c
       static_cast<const bf16*>(g), lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
       seq_len, group, causal, scale, st);
   return launch_status();
-}
-
-// The tensor-core route: bf16 at D 64 and 128 (see the header).
-bool tensor_core_route(int dtype, int head_dim) {
-  return dtype == kBF16 && (head_dim == 64 || head_dim == 128);
 }
 
 BwdStrides unpack_strides(const long long* s) {

@@ -3,8 +3,9 @@
 Counterpart of skypilot_tpu/infer/quant.py: each linear weight W
 (.., in, out) may be served as {'q': int8, 's': f32 per-out-channel}
 with s = absmax(W[..., :, c]) / 127, so q * s ~= W.  The product is
-(x @ q.to(x.dtype)) * s, the scale applied in f32 to the small result.
-Embeddings and norms stay in the model dtype.
+(x @ q) * s: x @ q kept in f32 (as the reference's dot_general with
+preferred_element_type=f32), the scale applied in f32 to the small
+result, then one cast.  Embeddings and norms stay in the model dtype.
 """
 from __future__ import annotations
 
@@ -53,12 +54,26 @@ def quantize_weights(params: Dict[str, Any]) -> Dict[str, Any]:
     return convert(params, '')
 
 
+def _int8_product(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """x @ q for an int8 (in, out) q, in f32 and never rounded to x's
+    dtype: each term (a bf16 or f32 value times an int8) is exact in f32
+    and the sum is taken in f32.  On the card a bf16 x multiplies a bf16
+    copy of q with an f32 result (torch.mm's out_dtype), so the weight
+    stream stays bf16; on the CPU, whose mm has no out_dtype, both sides
+    go to f32."""
+    if x.dtype == torch.float32 or x.device.type == 'cpu':
+        return x.float() @ q.float()
+    y = torch.mm(x.reshape(-1, x.shape[-1]), q.to(x.dtype),
+                 out_dtype=torch.float32)
+    return y.reshape(*x.shape[:-1], q.shape[-1])
+
+
 def matmul(x: torch.Tensor, w: Any, out_dtype=None) -> torch.Tensor:
     """x @ w for a plain weight or a quantized {'q', 's'} one, cast to
     out_dtype when given (else x's dtype).  A plain large product: it
     stays torch.matmul, as the JAX package left it to XLA."""
     if is_quantized(w):
-        y = (x @ w['q'].to(x.dtype)).float() * w['s'].float()
+        y = _int8_product(x, w['q']) * w['s'].float()
         return y.to(out_dtype or x.dtype)
     y = x @ w
     return y.to(out_dtype) if out_dtype is not None else y

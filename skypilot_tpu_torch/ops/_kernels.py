@@ -51,6 +51,7 @@ _SIGNATURES = {
                       ctypes.c_float, _P, _I, _P],
     'skk_flash_bwd_dq': [_P] * 7 + [_I] * 6 + [ctypes.c_float, _P, _I, _P],
     'skk_flash_bwd_dkv': [_P] * 8 + [_I] * 6 + [ctypes.c_float, _P, _I, _P],
+    'skk_flash_fwd_route': [_I, _I],
     'skk_flash_bwd_route': [_I, _I],
 }
 

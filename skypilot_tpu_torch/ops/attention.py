@@ -4,8 +4,8 @@
 Counterpart of skypilot_tpu/ops/attention.py.  Three kernels replace the
 TPU's pallas_calls: the forward ``_flash_fwd`` (K2, which writes the row
 logsumexp only when a gradient is wanted) and the two of ``_flash_bwd``
-(K5: dq; K6: dk and dv; in bf16 at head_dim 64 and 128 on the tensor
-cores, otherwise on f32 FMAs).  :func:`flash_attention` is a
+(K5: dq; K6: dk and dv).  All three run in bf16 at head_dim 64 and 128
+on the tensor cores, otherwise on f32 FMAs.  :func:`flash_attention` is a
 ``torch.autograd.Function`` when a gradient is wanted, the counterpart of
 ``_flash_attention_vjp``.
 """
@@ -70,6 +70,25 @@ def _attention_lse_plain(q: torch.Tensor, k: torch.Tensor,
     """Row logsumexp (B, H, S) f32 of the scaled, masked scores with f32
     products: what K2 writes for the backward."""
     return torch.logsumexp(_scores_f32(q, k, causal), dim=-1)
+
+
+def _flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     causal: bool = True
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2's own numerics, as the JAX ``_flash_fwd`` kernel computes them:
+    scores and the softmax in f32, p = exp(s - m) rounded to v's dtype
+    before P.V, P.V summed in f32 and divided by the f32 row sum l.
+    Returns (o (B, S, H, D) in q's dtype, lse = m + log l (B, H, S) f32).
+    The kernels round p against the running max of their k-tile, this
+    version against the row's final max: the same p up to one rounding
+    each."""
+    s = _scores_f32(q, k, causal)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    p_lo = p.to(v.dtype).float()
+    o = torch.einsum('bhqk,bkhd->bhqd', p_lo, _heads_f32(v, q.shape[2])) / l
+    return o.transpose(1, 2).to(q.dtype), (m + torch.log(l))[..., 0]
 
 
 def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -169,6 +188,16 @@ def _strides(*tensors: torch.Tensor):
     return (ctypes.c_longlong * len(strides))(*strides)
 
 
+def _count_route(wrapper, route: str, code: int, head_dim: int) -> None:
+    """One launch of K2, K5 or K6 on its route: `launches` counts every
+    launch, `launches_tc` those that the library's entry point `route`
+    says went to the tensor-core kernels (bf16 at head_dim 64 and 128;
+    f32, and bf16 at 256, take the FMA kernels)."""
+    wrapper.launches += 1
+    if getattr(_kernels.LIBRARY.get(), route)(code, head_dim):
+        wrapper.launches_tc += 1
+
+
 def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, causal: bool, need_lse: bool
                           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -183,7 +212,7 @@ def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
                     None if lse is None else lse.data_ptr(), batch, seq_len,
                     heads, k.shape[2], head_dim, int(bool(causal)),
                     float(head_dim ** -0.5), _strides(q, k, v, o), code)
-    flash_attention.launches += 1
+    _count_route(flash_attention, 'skk_flash_fwd_route', code, head_dim)
     return o, lse
 
 
@@ -200,16 +229,6 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         o = _attention_plain(q, k, v, causal=causal)
         return o, (_attention_lse_plain(q, k, causal) if need_lse else None)
     return _flash_attention_cuda(q, k, v, causal, need_lse)
-
-
-def _count_route(wrapper, code: int, head_dim: int) -> None:
-    """One launch of K5 or K6 on its route: `launches` counts every
-    launch, `launches_tc` those the library routed to the tensor-core
-    kernels (bf16 at head_dim 64 and 128; f32, and bf16 at 256, take
-    the FMA kernels)."""
-    wrapper.launches += 1
-    if _kernels.LIBRARY.get().skk_flash_bwd_route(code, head_dim):
-        wrapper.launches_tc += 1
 
 
 def flash_attention_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -231,7 +250,8 @@ def flash_attention_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     seq_len, heads, k.shape[2], head_dim, int(bool(causal)),
                     float(head_dim ** -0.5), _strides(q, k, v, do, dq, dq),
                     code)
-    _count_route(flash_attention_dq, code, head_dim)
+    _count_route(flash_attention_dq, 'skk_flash_bwd_route', code,
+                 head_dim)
     return dq
 
 
@@ -254,7 +274,8 @@ def flash_attention_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     dv.data_ptr(), batch, seq_len, heads, k.shape[2],
                     head_dim, int(bool(causal)), float(head_dim ** -0.5),
                     _strides(q, k, v, do, dk, dv), code)
-    _count_route(flash_attention_dkv, code, head_dim)
+    _count_route(flash_attention_dkv, 'skk_flash_bwd_route', code,
+                 head_dim)
     return dk, dv
 
 
@@ -311,6 +332,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+flash_attention.launches_tc = 0
 flash_attention_dq.launches = 0
 flash_attention_dq.launches_tc = 0
 flash_attention_dkv.launches = 0

@@ -7,9 +7,10 @@ Run on a machine with a card:
 Tolerances (kernel vs plain, same inputs): f32 atol 2e-5 (summation
 order); bf16 atol 3e-2 + rtol 2e-2 (the plain versions round scores or
 probabilities to bf16 where the kernels keep f32, and outputs are
-rounded to bf16); the flash backward's bf16 dq, dk and dv and K7's bf16
-and int8-cache outputs, whose plain versions compute in f32 as the
-kernels do, are held relative to the scale of each row
+rounded to bf16); the flash backward's bf16 dq, dk and dv, K7's bf16
+and int8-cache outputs, and the tensor-core K2's o against
+`_flash_fwd_plain` (K2's own numerics), whose plain versions compute in
+f32 as the kernels do, are held relative to the scale of each row
 (`_assert_row_close`).  An int8 arena of K1 or K4 is held to its q
 dtype's tolerance: the kernels dequantize before each product in f32,
 the plain versions scale after it, which is the same math up to
@@ -395,8 +396,10 @@ def _assert_row_close(got, want):
     (1000, 32, 4, 64, False)])
 def test_flash_backward_kernels(cuda, dtype, seq, heads, kv, hd, causal):
     """K2 with its lse, K5 and K6 against their plain versions, on the
-    same inputs (o and lse from the kernel), over head_dims 64/128/256,
-    groups 1/2/4/8, ragged S, causal and not."""
+    same inputs (o and lse from the kernel: the tensor-core K2's in bf16
+    at hd 64 and 128, which K5 and K6 must take at their per-row
+    bounds), over head_dims 64/128/256, groups 1/2/4/8, ragged S, causal
+    and not."""
     from skypilot_tpu_torch.ops import attention as at
     q = torch.randn(2, seq, heads, hd, generator=cuda, device='cuda').to(dtype)
     k = torch.randn(2, seq, kv, hd, generator=cuda, device='cuda').to(dtype)
@@ -432,6 +435,78 @@ def _bwd_operands(cuda, dtype, seq, heads, kv, hd, causal):
                    for h in (heads, kv, kv, heads))
     o, lse = at.flash_attention_fwd(q, k, v, causal, need_lse=True)
     return q, k, v, do, lse, at._delta(o, do).contiguous()
+
+
+@pytest.mark.parametrize('hd', [64, 128])
+@pytest.mark.parametrize('seq', [1, 63, 65, 129, 700, 1024])
+@pytest.mark.parametrize('group', [1, 4, 8])
+@pytest.mark.parametrize('causal', [True, False])
+def test_flash_forward_tensor_core_kernel(cuda, hd, seq, group, causal):
+    """The tensor-core K2 (bf16, hd 64 and 128) with and without its lse:
+    o per row against _flash_fwd_plain (p rounded to bf16 against the
+    running max of a 64-key tile here, the row's final max there) and at
+    TOL against _attention_plain; the lse against both plain lse at
+    LSE_TOL; without the lse, the same o.  Ragged S (one row, one short
+    of and one past a 64-key tile, one past a 128-row q-tile, no full
+    last tile), GQA groups 1/4/8, causal and full."""
+    from skypilot_tpu_torch.ops import attention as at
+    heads = 8
+    q, k, v = (torch.randn(2, seq, h, hd, generator=cuda,
+                           device='cuda').bfloat16()
+               for h in (heads, heads // group, heads // group))
+    before = (at.flash_attention.launches, at.flash_attention.launches_tc)
+    o, lse = at.flash_attention_fwd(q, k, v, causal, need_lse=True)
+    o_only, none = at.flash_attention_fwd(q, k, v, causal, need_lse=False)
+    assert none is None and torch.equal(o_only, o)
+    assert (at.flash_attention.launches,
+            at.flash_attention.launches_tc) == (before[0] + 2, before[1] + 2)
+    assert lse.shape == (2, heads, seq) and lse.is_contiguous()
+    want, want_lse = at._flash_fwd_plain(q, k, v, causal)
+    _assert_row_close(o, want)
+    torch.testing.assert_close(o, at._attention_plain(q, k, v, causal),
+                               **TOL[torch.bfloat16])
+    torch.testing.assert_close(lse, want_lse, **LSE_TOL)
+    torch.testing.assert_close(lse, at._attention_lse_plain(q, k, causal),
+                               **LSE_TOL)
+
+
+@pytest.mark.parametrize('hd', [64, 128])
+def test_flash_forward_kernel_on_packed_qkv(cuda, hd):
+    """q, k and v as strided views of one packed (B, S, H + 2 KV, D)
+    tensor, as a fused qkv projection gives them: K2 reads the strides
+    it is given, so o and lse equal those of contiguous copies."""
+    from skypilot_tpu_torch.ops import attention as at
+    heads, kv, seq = 8, 2, 200
+    qkv = torch.randn(2, seq, heads + 2 * kv, hd, generator=cuda,
+                      device='cuda').bfloat16()
+    q, k, v = qkv.split([heads, kv, kv], dim=2)
+    assert not q.is_contiguous() and not k.is_contiguous()
+    o, lse = at.flash_attention_fwd(q, k, v, True, need_lse=True)
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    o_c, lse_c = at.flash_attention_fwd(qc, kc, vc, True, need_lse=True)
+    assert torch.equal(o, o_c) and torch.equal(lse, lse_c)
+    _assert_row_close(o, at._flash_fwd_plain(qc, kc, vc, True)[0])
+
+
+@pytest.mark.parametrize('dtype,hd,tensor_cores', [
+    (torch.bfloat16, 64, True), (torch.bfloat16, 128, True),
+    (torch.bfloat16, 256, False), (torch.float32, 64, False),
+    (torch.float32, 128, False)])
+def test_flash_forward_route(cuda, dtype, hd, tensor_cores):
+    """bf16 at hd 64 and 128 takes the tensor-core K2; f32, and bf16 at
+    hd 256, the FMA kernel: `launches_tc` counts the former only.  Both
+    routes agree with the plain versions."""
+    from skypilot_tpu_torch.ops import attention as at
+    q, k, v = (torch.randn(2, 65, h, hd, generator=cuda,
+                           device='cuda').to(dtype) for h in (4, 2, 2))
+    fn = at.flash_attention
+    before = (fn.launches, fn.launches_tc)
+    o, lse = at.flash_attention_fwd(q, k, v, True, need_lse=True)
+    assert (fn.launches, fn.launches_tc) == (before[0] + 1,
+                                             before[1] + int(tensor_cores))
+    want, want_lse = at._flash_fwd_plain(q, k, v, True)
+    _assert_row_close(o, want)
+    torch.testing.assert_close(lse, want_lse, **LSE_TOL)
 
 
 @pytest.mark.parametrize('hd', [64, 128])

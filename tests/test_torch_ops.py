@@ -130,6 +130,42 @@ def test_flash_attention_matches_jax(causal, group):
                                atol=F32_ATOL)
 
 
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('causal', [True, False])
+@pytest.mark.parametrize('group', [1, 4])
+def test_flash_fwd_plain_matches_jax_kernel(dtype, causal, group):
+    """_flash_fwd_plain (K2's own numerics, the plain version the card's
+    tensor-core K2 is held to) against the Pallas _flash_fwd in
+    interpret mode: o and lse, two 128-row k-blocks so the kernel's
+    online rescaling runs.  f32: atol 1e-5 (summation order).  bf16: the
+    lse is f32 on both sides (atol 1e-5); p is rounded to bf16 against
+    the running max of the kernel's k-block and the row's final max
+    here, so o is held per row: atol one bf16 ulp (2^-7) of the row's
+    largest |o|, rtol two ulps (2^-6); measured at most 0.53 of it."""
+    rng = np.random.RandomState(20 + group + 2 * causal)
+    batch, seq, heads, hd = 1, 256, 4, 128
+    kv = heads // group
+    (q_j, q_t), (k_j, k_t), (v_j, v_t) = [
+        _pair(rng.randn(batch, seq, h, hd).astype(np.float32), dtype)
+        for h in (heads, kv, kv)]
+    o, lse = attention._flash_fwd_plain(q_t, k_t, v_t, causal)
+    assert o.dtype == q_t.dtype and lse.dtype == torch.float32
+    assert lse.shape == (batch, heads, seq)
+    sw = lambda x: jnp.swapaxes(x, 1, 2)  # noqa: E731
+    o_j, lse_j = j_attention._flash_fwd(sw(q_j), sw(k_j), sw(v_j), causal,
+                                        128, interpret=True, need_lse=True)
+    np.testing.assert_allclose(lse.numpy(), _np(lse_j[..., 0]),
+                               atol=F32_ATOL)
+    want = _np(sw(o_j))
+    if dtype == 'float32':
+        np.testing.assert_allclose(o.numpy(), want, atol=F32_ATOL)
+        return
+    row_max = np.abs(want).max(-1, keepdims=True)
+    excess = np.abs(_np(o) - want) - (2 ** -7 * row_max
+                                       + 2 ** -6 * np.abs(want))
+    assert excess.max() <= 0, excess.max()
+
+
 def test_flash_attention_bf16_matches_jax_reference():
     # bf16: the two frameworks round the bf16 score and output products
     # at other places; atol is two bf16 ulps at |o| < 2.
