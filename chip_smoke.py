@@ -11,7 +11,7 @@ Phases (any failure exits non-zero):
 2. build: compiles skypilot_tpu_torch/csrc/*.cu with nvcc (in parallel)
    into build/torch_kernels/ and loads the library; fails if ptxas
    reports a spill in a tensor-core kernel (K2, K5 and K6 in bf16, hd 64
-   and 128).
+   and 128) or in a K1/K7 decode or combine kernel.
 3. kernels: holds each hand-written kernel against its plain PyTorch
    version on the card, at the shapes the Llama-3-8B serving path gives
    it, in bf16 and f32 (and int8 arenas for the two paged attentions);
@@ -21,7 +21,13 @@ Phases (any failure exits non-zero):
    kernels are also run on arenas poisoned past each window and outside
    the tables, and K7 (the contiguous decode, q (8, 8, 4, 128) over the
    1024-row bucket) on caches poisoned past each position, which must
-   not change their output.  K2 (o, and its lse) is held to
+   not change their output.  K1 and K7 take their split-KV route there
+   (and on every main path): K1 is also timed with one slot at position
+   8191 (T 128, LLAMA3_8B's max_seq_len), both (and their SDPA
+   yardstick) are also timed as a replayed CUDA graph (device time
+   without the wrapper's host work), and the combine pass alone is held
+   to _combine_splits_plain on the partials of K1's bf16 launch and
+   timed.  K2 (o, and its lse) is held to
    _flash_fwd_plain, its own numerics, and to _attention_plain, the JAX
    reference_attention's, at the prefill shape and ragged S.  The
    training kernels (K2 with its lse, K5 dq, K6 dk/dv) are held to their
@@ -68,7 +74,9 @@ counts are set to 0 just before it and read just after); the window
 kernel must launch from both verify and fused ticks, K7 (and never K1)
 on every phase 7 path, and K2, K3, K5 and K6 from both train paths; K2,
 K5 and K6 only on their tensor-core route, on every path of phases 5 to
-8 (all bf16 at head_dim 128).  The last lines of standard output are
+8 (all bf16 at head_dim 128); K1 and K7 only on their split route on
+every path of phases 5 to 7 (B KV = 64 < 2 x 132 SMs).  The last lines
+of standard output are
 the {"kernels": [...]} line, the nvidia-smi name/power-limit line, and
 {"ok": true, "device": {...}}.
 """
@@ -158,6 +166,23 @@ def time_ms(fn, reps: int = TIMING_REPS) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(fn, reps: int = TIMING_REPS) -> float:
+    """time_ms of fn() captured once in a CUDA graph and replayed: the
+    device time of its kernels without the host work of its wrapper
+    (which time_ms counts where the host is slower than the L2 flush).
+    The capture fails if fn reads a device value on the host."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(graph.replay, reps)
 
 
 def ptxas_report(build_log: str):
@@ -264,6 +289,31 @@ def _tc_entry(ptxas, stem):
     if len(found) != 1:
         raise AssertionError(f'ptxas report has {len(found)} {stem}')
     return {'design': TC_DESIGN, 'ptxas_registers': found[0]['registers'],
+            'ptxas_spill_bytes': found[0]['spill_bytes']}
+
+
+# Mangled-name patterns of the timed K1/K7 instantiations (bf16 q,
+# head_dim 128, the 4-row block of group 4; the cache bf16 or int8, i.e.
+# signed char 'a') and of the bf16 combine kernel.
+DECODE_KERNELS = {
+    ('pooled', 'bf16'): r'decode_kernelI13__nv_bfloat16S\w*?_Li128ELi4E\w*PooledRows',
+    ('pooled', 'int8'): r'decode_kernelI13__nv_bfloat16aLi128ELi4E\w*PooledRows',
+    ('contig', 'bf16'): r'decode_kernelI13__nv_bfloat16S\w*?_Li128ELi4E\w*ContigRows',
+    ('contig', 'int8'): r'decode_kernelI13__nv_bfloat16aLi128ELi4E\w*ContigRows',
+    'combine': r'decode_combine_kernelI13__nv_bfloat16E',
+}
+
+
+def _decode_ptxas(ptxas, key):
+    """ptxas registers and spill of one K1/K7/combine instantiation (None
+    where the report names none: the spill check of phase 2 covers every
+    instantiation all the same)."""
+    found = [i for n, i in ptxas.items()
+             if re.search(DECODE_KERNELS[key], n)]
+    if len(found) != 1:
+        log(f'  ptxas report has {len(found)} {DECODE_KERNELS[key]}')
+        return {'ptxas_registers': None, 'ptxas_spill_bytes': None}
+    return {'ptxas_registers': found[0]['registers'],
             'ptxas_spill_bytes': found[0]['spill_bytes']}
 
 
@@ -454,15 +504,15 @@ def check_flash_train(attention, ptxas):
     return results
 
 
-def _tables(last_rows, n_blocks, seed):
+def _tables(last_rows, n_blocks, seed, t_width=T_WIDTH):
     """Scattered block tables covering each slot's rows 0..last_rows[b]
     (capped at the table), drawn from blocks 1.. of the arena."""
     rng = np.random.RandomState(seed)
     perm = rng.permutation(np.arange(1, n_blocks))
-    tables = np.zeros((len(last_rows), T_WIDTH), np.int32)
+    tables = np.zeros((len(last_rows), t_width), np.int32)
     for b, last in enumerate(last_rows):
-        live = min(int(last) // BS + 1, T_WIDTH)
-        tables[b, :live] = perm[b * T_WIDTH:b * T_WIDTH + live]
+        live = min(int(last) // BS + 1, t_width)
+        tables[b, :live] = perm[b * t_width:b * t_width + live]
     return torch.as_tensor(tables, device='cuda')
 
 
@@ -490,7 +540,7 @@ def _poison(k, v, tables, last_rows, layer):
             k2[:, blk] = value
             v2[:, blk] = -value
     for b, last in enumerate(last_rows):
-        if last < T_WIDTH * BS - 1:
+        if last < tables.shape[1] * BS - 1:
             blk = int(tables[b, last // BS])
             k2[layer, blk, last % BS + 1:] = value
             v2[layer, blk, last % BS + 1:] = -value
@@ -518,18 +568,30 @@ def _gathered(k, v, ks, vs, tables, layer, dtype):
     return k_g.transpose(1, 2), v_g.transpose(1, 2)
 
 
-def check_decode(decode_attention):
-    """K1 in f32, bf16 and on an int8 arena (bf16 q); returns the kernels
-    line entries of the bf16 and int8 variants."""
+def _split_of(da, batch, capacity):
+    """(splits, split_len) of a K1/K7 launch at the phase 3 shapes."""
+    return da._decode_splits(batch, KV_HEADS, capacity, da._DECODE_CHUNK,
+                             da._sm_count(torch.device('cuda')))
+
+
+def check_decode(decode_attention, ptxas):
+    """K1 in f32, bf16 and on an int8 arena (bf16 q), then the combine
+    pass alone on the partials of the bf16 launch, then K1 bf16 with one
+    slot at position 8191; returns the kernels line entries of the bf16
+    and int8 variants (the long-context row nested in the bf16 one) and
+    of the combine."""
+    da = decode_attention
     gen = torch.Generator(device='cuda').manual_seed(5)
     batch, layer = 8, 1
     n_blocks = 1 + batch * T_WIDTH
+    capacity = T_WIDTH * BS
     # Mixed positions: 0, block edges (BS-1, BS), mid, and the table end.
     positions = torch.tensor([0, BS - 1, BS, 2 * BS + 5, 700, 1000,
                               1500, T_WIDTH * BS - 1], dtype=torch.int32,
                              device='cuda')
     last = positions.tolist()
     tables = _tables(last, n_blocks, 5)
+    splits, split_len = _split_of(da, batch, capacity)
     results = {}
     for label, dtype, int8 in (('f32', torch.float32, False),
                                ('bf16', torch.bfloat16, False),
@@ -539,24 +601,31 @@ def check_decode(decode_attention):
         k, v, ks, vs = _arena(gen, dtype, n_blocks, int8)
 
         def kernel(k=k, v=v):
-            return decode_attention.decode_attention_pooled(
+            return da.decode_attention_pooled(
                 q, k, v, tables, layer, positions, ks, vs)
 
         def plain():
-            return decode_attention._decode_attention_plain(
+            return da._decode_attention_plain(
                 q, k, v, tables, layer, positions, ks, vs)
 
-        err = check_close(f'decode_attention_pooled {label}', kernel(),
-                          plain())
+        out = kernel()
+        err = check_close(f'decode_attention_pooled {label}', out, plain())
+        if not torch.equal(kernel(), out):
+            raise AssertionError(f'decode_attention_pooled {label}: two '
+                                 f'calls differ')
         k2, v2 = _poison(k, v, tables, last, layer)
-        if not torch.equal(kernel(k2, v2), kernel()):
+        if not torch.equal(kernel(k2, v2), out):
             raise AssertionError(f'decode_attention_pooled {label} read '
                                  f'keys past a position or outside its '
                                  f'table')
+        del k2, v2
         if label == 'f32':
             continue
+        if label == 'bf16':
+            results['combine'] = _check_combine(
+                da, q, k, v, tables, layer, positions, capacity, out, ptxas)
         live_keys = int(torch.clamp_max(positions.long() + 1,
-                                        T_WIDTH * BS).sum())
+                                        capacity).sum())
         nbytes = (2 * q.numel() * 2 + _kv_bytes(live_keys, k)
                   + tables.numel() * 4 + batch * 4)
         b_ms, by = bound(nbytes, 4 * HEAD_DIM * KV_HEADS * GROUP * live_keys,
@@ -574,11 +643,113 @@ def check_decode(decode_attention):
             'shape': f'q ({batch}, {KV_HEADS}, {GROUP}, {HEAD_DIM}) bf16, '
                      f'{"int8" if int8 else "bf16"} arena, BS {BS} '
                      f'T {T_WIDTH}, live keys {live_keys}',
+            'splits': splits, 'split_len': split_len,
             'max_abs_err': err, 'ms': time_ms(kernel),
+            'graph_ms': graph_ms(kernel),
             'plain_ms': time_ms(plain), 'bound_ms': b_ms, 'bound_by': by,
             'library_ms': time_ms(lambda: sdpa(qs, kt, vt, attn_mask=mask)),
+            'library_graph_ms': graph_ms(
+                lambda: sdpa(qs, kt, vt, attn_mask=mask)),
+            **_decode_ptxas(ptxas, ('pooled', label)),
         }
+    results['bf16']['long_context'] = check_decode_long(da)
     return results
+
+
+def _check_combine(da, q, k, v, tables, layer, positions, capacity, out,
+                   ptxas):
+    """The combine kernel alone on the partials that K1's bf16 launch
+    left in its scratch, against _combine_splits_plain (per row: both sum
+    the same f32 terms in f32) and bitwise against the launch's own
+    output; returns its kernels line entry."""
+    batch = q.shape[0]
+    _, scratch, split_len = da._decode_attention_cuda(
+        q, k, v, tables, layer, positions, None, None)
+    if scratch is None:
+        raise AssertionError('decode_attention_pooled: the phase 3 shape '
+                             'did not take the split route')
+    acc, ml = da._split_partials(q, scratch)
+    live = da._live_splits(positions, capacity, split_len)
+
+    def kernel():
+        return da._decode_combine_cuda(acc, ml, positions, capacity,
+                                       split_len, q.dtype)
+
+    def plain():
+        return da._combine_splits_plain(ml[..., 0], ml[..., 1], acc,
+                                        live).to(q.dtype)
+
+    got, want = kernel(), plain()
+    err = check_close('decode_combine bf16', got, want, row_tol(want))
+    if not torch.equal(got, out):
+        raise AssertionError('decode_combine: not the split launch\'s '
+                             'output')
+    parts = int(live.sum()) * KV_HEADS * GROUP
+    nbytes = parts * (HEAD_DIM + 2) * 4 + got.numel() * 2 + batch * 4
+    b_ms, by = bound(nbytes, parts * HEAD_DIM * 2, BF16_FLOPS)
+    return {
+        'name': 'decode_combine', 'route': 'cuda',
+        'source': 'skypilot_tpu_torch/csrc/paged_decode.cu',
+        'replaces': 'skypilot_tpu/ops/decode_attention.py:356',
+        'shape': f'partials of K1 bf16: {acc.shape[2]} splits of '
+                 f'{split_len} keys, {int(live.sum())} live over {batch} '
+                 f'slots, G {GROUP}, hd {HEAD_DIM}',
+        'max_abs_err': err, 'ms': time_ms(kernel),
+        'graph_ms': graph_ms(kernel), 'plain_ms': time_ms(plain),
+        'bound_ms': b_ms, 'bound_by': by, 'library_ms': None,
+        **_decode_ptxas(ptxas, 'combine'),
+    }
+
+
+# K1 over a whole LLAMA3_8B context: one slot at position 8191 (the
+# 8192-token max_seq_len in 64-row blocks).
+LONG_T_WIDTH = 8192 // BS
+
+
+def check_decode_long(da):
+    """K1 bf16, one slot at position 8191 (T 128): against its plain
+    version, on a poisoned arena, timed with its bound and SDPA's."""
+    gen = torch.Generator(device='cuda').manual_seed(9)
+    layer, n_blocks = 1, 1 + LONG_T_WIDTH
+    capacity = LONG_T_WIDTH * BS
+    positions = torch.tensor([capacity - 1], dtype=torch.int32,
+                             device='cuda')
+    tables = _tables([capacity - 1], n_blocks, 9, LONG_T_WIDTH)
+    q = torch.randn(1, KV_HEADS, GROUP, HEAD_DIM, generator=gen,
+                    device='cuda').to(torch.bfloat16)
+    k, v, _, _ = _arena(gen, torch.bfloat16, n_blocks, False)
+
+    def kernel(k=k, v=v):
+        return da.decode_attention_pooled(q, k, v, tables, layer, positions)
+
+    def plain():
+        return da._decode_attention_plain(q, k, v, tables, layer, positions)
+
+    out = kernel()
+    err = check_close('decode_attention_pooled bf16 position 8191', out,
+                      plain())
+    k2, v2 = _poison(k, v, tables, [capacity - 1], layer)
+    if not torch.equal(kernel(k2, v2), out):
+        raise AssertionError('decode_attention_pooled at position 8191 read '
+                             'outside its table')
+    del k2, v2
+    splits, split_len = _split_of(da, 1, capacity)
+    nbytes = 2 * q.numel() * 2 + _kv_bytes(capacity, k) + tables.numel() * 4 + 4
+    b_ms, by = bound(nbytes, 4 * HEAD_DIM * KV_HEADS * GROUP * capacity,
+                     BF16_FLOPS)
+    kt, vt = _gathered(k, v, None, None, tables, layer, torch.bfloat16)
+    qs = q.reshape(1, KV_HEADS * GROUP, 1, HEAD_DIM)
+    return {
+        'shape': f'q (1, {KV_HEADS}, {GROUP}, {HEAD_DIM}) bf16, bf16 arena, '
+                 f'BS {BS} T {LONG_T_WIDTH}, position {capacity - 1}, '
+                 f'{capacity} keys',
+        'splits': splits, 'split_len': split_len,
+        'max_abs_err': err, 'ms': time_ms(kernel),
+        'graph_ms': graph_ms(kernel), 'plain_ms': time_ms(plain),
+        'bound_ms': b_ms, 'bound_by': by,
+        'library_ms': time_ms(lambda: sdpa(qs, kt, vt)),
+        'library_graph_ms': graph_ms(lambda: sdpa(qs, kt, vt)),
+    }
 
 
 def check_window(decode_attention):
@@ -675,7 +846,7 @@ CONTIG_POSITIONS = ([0, 63, 64, 133, 511, 700, 1000, 1023],
                     [63, 64, 288, 1000, 1023, 1023, 1023, 1023])
 
 
-def check_contig_decode(decode_attention):
+def check_contig_decode(decode_attention, ptxas):
     """K7 in f32, bf16 and on an int8 cache (bf16 q) at q (8, 8, 4, 128)
     over a 2-layer (L, 8, 1024, 8, 128) cache: against its plain version
     at two position sets (block edges, and K1's live-key count), and on a
@@ -714,6 +885,9 @@ def check_contig_decode(decode_attention):
             err = check_close(f'decode_attention {label} positions '
                               f'{pos_list}', out, want, row_tol(want))
             del want
+            if not torch.equal(kernel(), out):
+                raise AssertionError(f'decode_attention {label}: two calls '
+                                     f'differ')
             value = 127 if int8 else 1e4
             k2, v2 = k.clone(), v.clone()
             for b, p in enumerate(pos_list):
@@ -737,6 +911,7 @@ def check_contig_decode(decode_attention):
         qs = q.reshape(batch, KV_HEADS * GROUP, 1, HEAD_DIM)
         mask = (torch.arange(CONTIG_LEN, device='cuda')[None, :]
                 <= positions.long()[:, None])[:, None, None, :]
+        splits, split_len = _split_of(da, batch, CONTIG_LEN)
         results[label] = {
             'name': 'decode_attention' + ('' if label == 'bf16' else '[int8]'),
             'route': 'cuda',
@@ -746,9 +921,14 @@ def check_contig_decode(decode_attention):
                      f'{"int8" if int8 else "bf16"} cache (2, {batch}, '
                      f'{CONTIG_LEN}, {KV_HEADS}, {HEAD_DIM}), live keys '
                      f'{live_keys}',
+            'splits': splits, 'split_len': split_len,
             'max_abs_err': err, 'ms': time_ms(kernel),
+            'graph_ms': graph_ms(kernel),
             'plain_ms': time_ms(plain), 'bound_ms': b_ms, 'bound_by': by,
             'library_ms': time_ms(lambda: sdpa(qs, kt, vt, attn_mask=mask)),
+            'library_graph_ms': graph_ms(
+                lambda: sdpa(qs, kt, vt, attn_mask=mask)),
+            **_decode_ptxas(ptxas, ('contig', label)),
         }
     return results
 
@@ -1194,19 +1374,25 @@ def train_path(label, cfg, batch, seq, steps, train_config, counters):
     return launches
 
 
+# Launch counts by route: '<name>[tc]' the tensor-core kernels of K2, K5
+# and K6, '<name>[split]' the split-KV launches of K1 and K7.
+ROUTES = {'tc': 'launches_tc', 'split': 'launches_split'}
+
+
 def _zero(counters):
     for c in counters:
         c.launches = 0
-        if hasattr(c, 'launches_tc'):
-            c.launches_tc = 0
+        for attr in ROUTES.values():
+            if hasattr(c, attr):
+                setattr(c, attr, 0)
 
 
 def _counts(counters):
-    """Launch counts by wrapper name; K5's and K6's also by route
-    ('<name>[tc]': the tensor-core kernels)."""
+    """Launch counts by wrapper name, and by route (ROUTES)."""
     out = {c.__name__: c.launches for c in counters}
-    out.update({f'{c.__name__}[tc]': c.launches_tc for c in counters
-                if hasattr(c, 'launches_tc')})
+    for route, attr in ROUTES.items():
+        out.update({f'{c.__name__}[{route}]': getattr(c, attr)
+                    for c in counters if hasattr(c, attr)})
     return out
 
 
@@ -1247,11 +1433,14 @@ def main() -> int:
     for name, info in ptxas.items():
         if '_mma_kernel' in name and info['spill_bytes']:
             raise AssertionError(f'tensor-core kernel {name} spills: {info}')
+        if ('decode_kernel' in name or 'decode_combine_kernel' in name) \
+                and info['spill_bytes']:
+            raise AssertionError(f'decode kernel {name} spills: {info}')
 
     log('[3/8] kernels vs plain versions')
     t0 = time.perf_counter()
-    decode = check_decode(decode_attention)
-    contig = check_contig_decode(decode_attention)
+    decode = check_decode(decode_attention, ptxas)
+    contig = check_contig_decode(decode_attention, ptxas)
     window = check_window(decode_attention)
     flash, norm = check_flash(attention, ptxas), check_rmsnorm(rmsnorm)
     train = check_flash_train(attention, ptxas)
@@ -1262,6 +1451,12 @@ def main() -> int:
     k2, k3 = attention.flash_attention, rmsnorm.rms_norm
     k5, k6 = attention.flash_attention_dq, attention.flash_attention_dkv
     counters = [k1, k2, k3, k4v, k4f, k5, k6, k7]
+    tiny = torch.zeros(1, device='cuda')
+    read = torch.zeros(10 << 20, dtype=torch.bfloat16, device='cuda')
+    log(f'  timing floor (time_ms): one tiny kernel '
+        f'{time_ms(lambda: tiny.add_(1)):.4f} ms; torch.sum over 20 MB '
+        f'{time_ms(read.sum):.4f} ms (bound 0.0063)')
+    del tiny, read
     log(f'  phase 3: {time.perf_counter() - t0:.1f} s')
 
     log('[4/8] slice parity, LLAMA_DEBUG f32, card vs host')
@@ -1332,21 +1527,25 @@ def main() -> int:
     for key in ('8a', '8b'):
         _need(key, paths[key], [c.__name__ for c in (k2, k3, k5, k6)])
     for key, launches in paths.items():
-        # Every path runs bf16 at head_dim 128: the tensor-core route only.
-        for c in (k2, k5, k6):
-            if launches[f'{c.__name__}[tc]'] != launches[c.__name__]:
+        # Every path runs bf16 at head_dim 128: the tensor-core route only;
+        # and 8 slots x 8 KV heads < 2 blocks an SM: the split route only.
+        route = [(c, 'tc') for c in (k2, k5, k6)]
+        route += [(c, 'split') for c in (k1, k7) if key[0] in '567']
+        for c, r in route:
+            if launches[f'{c.__name__}[{r}]'] != launches[c.__name__]:
                 raise AssertionError(
                     f'{c.__name__}: {launches[c.__name__]} launches on the '
-                    f'{key} path, {launches[f"{c.__name__}[tc]"]} of them on '
-                    f'the tensor-core route')
+                    f'{key} path, {launches[f"{c.__name__}[{r}]"]} of them on '
+                    f'the {r} route')
 
     def entry(res, counter, keys):
         by_path = {k: paths[k][counter.__name__] for k in keys}
         out = dict(res, launches=sum(by_path.values()),
                    launches_by_path=by_path)
-        if hasattr(counter, 'launches_tc'):
-            out['launches_tc'] = sum(paths[k][f'{counter.__name__}[tc]']
-                                     for k in keys)
+        for route, attr in ROUTES.items():
+            if hasattr(counter, attr):
+                out[attr] = sum(paths[k][f'{counter.__name__}[{route}]']
+                                for k in keys)
         return out
 
     every = tuple(paths)
@@ -1362,6 +1561,13 @@ def main() -> int:
         entry(contig['bf16'], k7, ('7a', '7c')),
         entry(contig['int8'], k7, ('7b',)),
     ]
+    # The combine runs inside every split launch of K1 and K7.
+    split_paths = {k: paths[k][f'{c.__name__}[split]']
+                   for c, keys in ((k1, ('5', '6a', '6b')),
+                                   (k7, ('7a', '7b', '7c'))) for k in keys}
+    kernels.append(dict(decode['combine'],
+                        launches=sum(split_paths.values()),
+                        launches_by_path=split_paths))
     kernels += [entry(train[name, key], counter, (path,))
                 for name, counter in (('lse', k2), ('dq', k5), ('dkv', k6))
                 for key, path in (('1b', '8a'), ('8b', '8b'))]

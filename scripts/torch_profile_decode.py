@@ -11,7 +11,9 @@ Measures, printing one JSON line each:
               host fetch), the median of 4 chunks (each chunk's time in
               chunk_ms_all), per step and per token;
   profile   - torch.profiler over one decode chunk: device-busy share of
-              the wall time, and device time by kernel name (top 12).
+              the wall time, device time by kernel name (top 12), and the
+              decode attention's (K1 or K7 with its split-KV combine):
+              calls, ms and ms a call.
 
 Run from the root of a checkout on a card:
     python3 scripts/torch_profile_decode.py [--prompt 512] [--int8]
@@ -134,9 +136,20 @@ def profile_decode(params, cfg, prompt_len: int, int8: bool,
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.device_time)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    # K1/K7 launch decode_kernel, and decode_combine_kernel after it on
+    # the split route: one attention call is both.
+    attn = [(n, c, t) for n, (c, t) in by_name.items()
+            if 'decode_kernel' in n or 'decode_combine_kernel' in n]
+    calls = sum(c for n, c, _ in attn if 'decode_kernel' in n)
+    attn_ms = sum(t for _, _, t in attn) / 1e3
     emit('profile', decode_impl=decode_impl, turn=turn,
          wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
          device_busy_share=busy_us / wall_us, kernel_launches=len(kernels),
+         decode_attention={
+             'calls': calls, 'ms': attn_ms,
+             'ms_per_call': attn_ms / calls if calls else None,
+             'combine_calls': sum(c for n, c, _ in attn
+                                  if 'decode_combine_kernel' in n)},
          top=[{'name': n[:80], 'calls': c, 'ms': t / 1e3,
                'share_of_busy': t / busy_us} for n, (c, t) in top])
 

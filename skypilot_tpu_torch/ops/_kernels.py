@@ -42,9 +42,10 @@ _I = ctypes.c_int
 _SIGNATURES = {
     'skk_rmsnorm': [_P, _P, _P, ctypes.c_longlong, _I, ctypes.c_float, _I,
                     _P],
-    'skk_paged_decode': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                         _I, _I, _I, _I, ctypes.c_float, _I, _I, _P],
-    'skk_contig_decode': [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I, _I, _P],
+    'skk_paged_decode': [_P] * 10 + [_I] * 10 + [ctypes.c_float, _I, _I,
+                                                 _P],
+    'skk_contig_decode': [_P] * 9 + [_I] * 8 + [ctypes.c_float, _I, _I, _P],
+    'skk_decode_combine': [_P] * 4 + [_I] * 8 + [_P],
     'skk_paged_window': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P],
     'skk_flash_fwd': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

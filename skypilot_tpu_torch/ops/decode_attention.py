@@ -18,10 +18,14 @@ which runs that body through block tables):
   differ in how a key row is found.
 
 Each kernel reads only its slot's live keys, from a bf16/f32 cache or an
-int8 cache with per-(row, KV head) f32 scales.
+int8 cache with per-(row, KV head) f32 scales.  K1 and K7 split a slot's
+keys across blocks (split-KV, :func:`_decode_splits`) and, with more than
+one split, sum the blocks' partials in a second, deterministic pass
+(:func:`_combine_splits_plain` is its plain version).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -35,6 +39,74 @@ _MAX_GROUP = 8
 # Cache-length granularity of the contiguous decode (K7): the legacy
 # 'paged' plane's cache buckets are multiples of it, as on the TPU.
 DEFAULT_BLOCK = 64
+
+# Keys a K1/K7 block stages at a time (kDecChunk in csrc/paged_decode.cu);
+# a split's length is a multiple of it.
+_DECODE_CHUNK = 32
+# Blocks an SM that the split policy aims for when every slot is full.
+_BLOCKS_PER_SM = 2
+# The combine keeps a weight per (query row, split) in 48 KB of shared
+# memory.
+_MAX_SPLITS = 48 * 1024 // (4 * _MAX_GROUP)
+_SM_COUNTS = {}
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_splits(batch: int, kv_heads: int, capacity: int, chunk: int,
+                   sms: int) -> Tuple[int, int]:
+    """(splits, split_len) of a K1/K7 launch: block s of a (slot, KV
+    head) takes keys [s * split_len, (s + 1) * split_len).
+
+    A fixed function of what the host knows before the launch (batch, KV
+    heads, the capacity in keys, the chunk and the SM count), never of
+    the positions, so one launch fits every step of a decode chunk.  Aims
+    for _BLOCKS_PER_SM blocks an SM when every slot is full: splits =
+    ceil(2 SMs / (B KV)), at most one chunk a split (and _MAX_SPLITS),
+    split_len rounded up to the chunk, and splits trimmed so that none
+    starts past the capacity.  B KV >= 2 SMs gives one split."""
+    max_splits = min(max(1, -(-capacity // chunk)), _MAX_SPLITS)
+    splits = min(max(1, -(-_BLOCKS_PER_SM * sms // (batch * kv_heads))),
+                 max_splits)
+    split_len = -(-capacity // splits)
+    split_len = max(chunk, -(-split_len // chunk) * chunk)
+    return max(1, -(-capacity // split_len)), split_len
+
+
+def _sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of `device` (read once per device)."""
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    if index not in _SM_COUNTS:
+        _SM_COUNTS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _SM_COUNTS[index]
+
+
+def _live_splits(positions: torch.Tensor, capacity: int,
+                 split_len: int) -> torch.Tensor:
+    """(B,) splits that hold keys of each slot: ceil(min(pos + 1,
+    capacity) / split_len), at least 1 (what the combine kernel reads)."""
+    n_keys = torch.clamp(positions.long() + 1, max=capacity)
+    return torch.clamp_min(-(-n_keys // split_len), 1)
+
+
+def _combine_splits_plain(m: torch.Tensor, l: torch.Tensor,
+                          acc: torch.Tensor,
+                          live: torch.Tensor) -> torch.Tensor:
+    """The split-KV combine: m, l (B, KV, S, G) are each split's running
+    max and sum of e^(s - m), acc (B, KV, S, G, hd) its unnormalised
+    P.V; only splits [0, live[b]) of slot b hold partials (the rest are
+    never written and may hold anything).  Returns the f32 (B, KV, G, hd)
+    o = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s, M the max of the
+    live m_s."""
+    alive = (torch.arange(m.shape[2], device=m.device)[None, :]
+             < live.to(m.device)[:, None])[:, None, :, None]  # (B, 1, S, 1)
+    m_live = torch.where(alive, m, _NEG_INF)
+    w = torch.where(alive, torch.exp(m_live - m_live.amax(2, keepdim=True)),
+                    0.0)
+    num = (w[..., None] * torch.where(alive[..., None], acc, 0.0)).sum(2)
+    den = (w * torch.where(alive, l, 0.0)).sum(2)
+    return num / den[..., None]
 
 
 def _gather_layer(arena: torch.Tensor, tables: torch.Tensor,
@@ -261,29 +333,85 @@ def _scale_ptrs(k_scale, v_scale):
     return k_scale.data_ptr(), v_scale.data_ptr()
 
 
+def _split_partials(q: torch.Tensor, scratch: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Views of a split launch's f32 scratch: acc (B, KV, splits, G, hd),
+    then (m, l) (B, KV, splits, G, 2)."""
+    batch, kv_heads, group, head_dim = q.shape
+    splits = scratch.numel() // (batch * kv_heads * group * (head_dim + 2))
+    n = batch * kv_heads * splits * group
+    return (scratch[:n * head_dim].view(batch, kv_heads, splits, group,
+                                        head_dim),
+            scratch[n * head_dim:].view(batch, kv_heads, splits, group, 2))
+
+
+def _launch_split(entry: str, counter, q: torch.Tensor, capacity: int,
+                  operands, sizes, layer: int, q_code: int, kv_code: int):
+    """Launch K1 or K7 (`entry`) with the split policy of
+    :func:`_decode_splits`; `operands` are its pointers up to positions,
+    `sizes` its cache sizes.  Returns (out, scratch, split_len): scratch
+    is the flat f32 buffer of the partials (:func:`_split_partials`), None
+    with one split."""
+    batch, kv_heads, group, head_dim = q.shape
+    _kernels.check(1 <= group <= _MAX_GROUP, f'{counter.__name__}: group '
+                   f'{group} not in 1..{_MAX_GROUP}')
+    _kernels.check(q.is_contiguous() and _kernels.aligned(q),
+                   f'{counter.__name__}: inputs must be contiguous and '
+                   '16-byte aligned')
+    splits, split_len = _decode_splits(batch, kv_heads, capacity,
+                                       _DECODE_CHUNK, _sm_count(q.device))
+    out = torch.empty_like(q)
+    scratch = acc_ptr = ml_ptr = None
+    if splits > 1:
+        n = batch * kv_heads * splits * group
+        scratch = torch.empty(n * (head_dim + 2), dtype=torch.float32,
+                              device=q.device)
+        acc_ptr = scratch.data_ptr()
+        ml_ptr = acc_ptr + 4 * n * head_dim
+    _kernels.launch(entry, q.device, *operands, out.data_ptr(), acc_ptr,
+                    ml_ptr, batch, kv_heads, group, head_dim, *sizes,
+                    int(layer), splits, split_len, float(head_dim ** -0.5),
+                    q_code, kv_code)
+    counter.launches += 1
+    if splits > 1:
+        counter.launches_split += 1
+    return out, scratch, split_len
+
+
 def _decode_attention_cuda(q: torch.Tensor, k_arena: torch.Tensor,
                            v_arena: torch.Tensor, tables: torch.Tensor,
                            layer: int, positions: torch.Tensor,
                            k_scale: Optional[torch.Tensor],
-                           v_scale: Optional[torch.Tensor]) -> torch.Tensor:
+                           v_scale: Optional[torch.Tensor]):
+    """K1; returns (out, scratch, split_len) as :func:`_launch_split`."""
     batch, kv_heads, group, head_dim = q.shape
     q_code, kv_code = _check_arena(
         'decode_attention_pooled', q, k_arena, v_arena, tables, layer,
         positions, k_scale, v_scale, kv_heads, group, head_dim)
-    _kernels.check(1 <= group <= _MAX_GROUP, f'decode_attention_pooled: '
-                   f'group {group} not in 1..{_MAX_GROUP}')
-    _kernels.check(q.is_contiguous() and _kernels.aligned(q),
-                   'decode_attention_pooled: inputs must be contiguous and '
-                   '16-byte aligned')
-    out = torch.empty_like(q)
-    _kernels.launch('skk_paged_decode', q.device, q.data_ptr(),
-                    k_arena.data_ptr(), v_arena.data_ptr(),
-                    *_scale_ptrs(k_scale, v_scale), tables.data_ptr(),
-                    positions.data_ptr(), out.data_ptr(), batch, kv_heads,
-                    group, head_dim, k_arena.shape[1], k_arena.shape[2],
-                    tables.shape[1], int(layer), float(head_dim ** -0.5),
-                    q_code, kv_code)
-    decode_attention_pooled.launches += 1
+    n_blocks, block_size, t_width = (k_arena.shape[1], k_arena.shape[2],
+                                     tables.shape[1])
+    return _launch_split(
+        'skk_paged_decode', decode_attention_pooled, q, t_width * block_size,
+        (q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(),
+         *_scale_ptrs(k_scale, v_scale), tables.data_ptr(),
+         positions.data_ptr()),
+        (n_blocks, block_size, t_width), layer, q_code, kv_code)
+
+
+def _decode_combine_cuda(acc: torch.Tensor, ml: torch.Tensor,
+                         positions: torch.Tensor, capacity: int,
+                         split_len: int, dtype: torch.dtype) -> torch.Tensor:
+    """The combine kernel alone on the partials of a split launch
+    (:func:`_split_partials`; the launch runs it itself): (B, KV, G, hd)
+    in `dtype`.  Checked against :func:`_combine_splits_plain` on the
+    card; no main path calls it."""
+    batch, kv_heads, splits, group, head_dim = acc.shape
+    out = torch.empty(batch, kv_heads, group, head_dim, dtype=dtype,
+                      device=acc.device)
+    _kernels.launch('skk_decode_combine', acc.device, acc.data_ptr(),
+                    ml.data_ptr(), positions.data_ptr(), out.data_ptr(),
+                    batch, kv_heads, group, head_dim, splits, split_len,
+                    capacity, _kernels.DTYPE_CODES[dtype])
     return out
 
 
@@ -309,36 +437,30 @@ def decode_attention_pooled(q: torch.Tensor, k_arena: torch.Tensor,
         return _decode_attention_plain(q, k_arena, v_arena, tables, layer,
                                        positions, k_scale, v_scale)
     return _decode_attention_cuda(q, k_arena, v_arena, tables, layer,
-                                  positions, k_scale, v_scale)
+                                  positions, k_scale, v_scale)[0]
 
 
 decode_attention_pooled.launches = 0
+# Launches with more than one split (a combine pass after the blocks).
+decode_attention_pooled.launches_split = 0
 
 
 def _decode_attention_contig_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                                   v_cache: torch.Tensor, layer: int,
                                   positions: torch.Tensor,
                                   k_scale: Optional[torch.Tensor],
-                                  v_scale: Optional[torch.Tensor]
-                                  ) -> torch.Tensor:
+                                  v_scale: Optional[torch.Tensor]):
+    """K7; returns (out, scratch, split_len) as :func:`_launch_split`."""
     batch, kv_heads, group, head_dim = q.shape
     q_code, kv_code = _check_arena(
         'decode_attention', q, k_cache, v_cache, None, layer, positions,
         k_scale, v_scale, kv_heads, group, head_dim)
-    _kernels.check(1 <= group <= _MAX_GROUP, f'decode_attention: group '
-                   f'{group} not in 1..{_MAX_GROUP}')
-    _kernels.check(q.is_contiguous() and _kernels.aligned(q),
-                   'decode_attention: inputs must be contiguous and '
-                   '16-byte aligned')
-    out = torch.empty_like(q)
-    _kernels.launch('skk_contig_decode', q.device, q.data_ptr(),
-                    k_cache.data_ptr(), v_cache.data_ptr(),
-                    *_scale_ptrs(k_scale, v_scale), positions.data_ptr(),
-                    out.data_ptr(), batch, kv_heads, group, head_dim,
-                    k_cache.shape[2], int(layer), float(head_dim ** -0.5),
-                    q_code, kv_code)
-    decode_attention.launches += 1
-    return out
+    s_len = k_cache.shape[2]
+    return _launch_split(
+        'skk_contig_decode', decode_attention, q, s_len,
+        (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+         *_scale_ptrs(k_scale, v_scale), positions.data_ptr()),
+        (s_len,), layer, q_code, kv_code)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -372,10 +494,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         return _decode_attention_contig_plain(q, k_cache, v_cache, layer,
                                               positions, k_scale, v_scale)
     return _decode_attention_contig_cuda(q, k_cache, v_cache, layer,
-                                         positions, k_scale, v_scale)
+                                         positions, k_scale, v_scale)[0]
 
 
 decode_attention.launches = 0
+decode_attention.launches_split = 0
 
 
 def _decode_window_attention_cuda(q: torch.Tensor, k_arena: torch.Tensor,

@@ -14,7 +14,9 @@ f32 as the kernels do, are held relative to the scale of each row
 (`_assert_row_close`).  An int8 arena of K1 or K4 is held to its q
 dtype's tolerance: the kernels dequantize before each product in f32,
 the plain versions scale after it, which is the same math up to
-rounding.
+rounding.  K1 and K7 split a slot's keys across blocks when there are
+fewer (slot, KV head) pairs than two blocks an SM; the split route's
+combine pass is held to `_combine_splits_plain` per row.
 """
 import numpy as np
 import pytest
@@ -251,6 +253,101 @@ def test_contig_decode_kernel_refuses_group_above_eight(cuda):
     with pytest.raises(ValueError, match='group 9 not in 1..8'):
         da.decode_attention(q, k, k, 0, torch.zeros(2, dtype=torch.int32,
                                                     device='cuda'))
+
+
+# K1 at every head_dim, K7 at the head_dims its JAX kernel takes.
+_SPLIT_CASES = [(kernel, hd) for kernel in ('K1', 'K7')
+                for hd in (64, 128, 256) if kernel == 'K1' or hd % 128 == 0]
+
+
+@pytest.mark.parametrize('group', [1, 4, 7, 8])
+@pytest.mark.parametrize('kind', ['float32', 'bfloat16', 'int8'])
+@pytest.mark.parametrize('kernel,hd', _SPLIT_CASES)
+@pytest.mark.parametrize('batch,capacity', [(1, 8192), (5, 1024)])
+def test_split_decode_kernel(cuda, batch, capacity, kernel, hd, kind, group):
+    """K1 and K7 on their split route (one slot at position 8191 of 8192;
+    five slots at 0, L - 1, L, L + 1 and capacity - 1 for the split
+    length L): against their plain versions, launches_split counted, two
+    calls bitwise equal, the same output from a cache poisoned past each
+    position (and, for K1, in every block no table maps), and the
+    combine kernel against _combine_splits_plain on the launch's
+    partials."""
+    from skypilot_tpu_torch.infer import llama_infer
+    from skypilot_tpu_torch.ops import decode_attention as da
+    dtype = torch.bfloat16 if kind == 'int8' else getattr(torch, kind)
+    kv, bs, layer = 2, 64, 1
+    splits, split_len = da._decode_splits(
+        batch, kv, capacity, da._DECODE_CHUNK,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    assert splits > 1
+    pos = ([capacity - 1] if batch == 1 else
+           [0, split_len - 1, split_len, split_len + 1, capacity - 1])
+    positions = torch.tensor(pos, dtype=torch.int32, device='cuda')
+    q = torch.randn(batch, kv, group, hd, generator=cuda,
+                    device='cuda').to(dtype)
+    poison = 127 if kind == 'int8' else 1e4
+    if kernel == 'K1':
+        t_width = capacity // bs
+        tables, k, v, ks, vs = _arena(cuda, dtype, batch, kv, hd, bs,
+                                      t_width, positions, kind == 'int8')
+        counter = da.decode_attention_pooled
+
+        def run(k, v):
+            return da.decode_attention_pooled(q, k, v, tables, layer,
+                                              positions, ks, vs)
+
+        want = da._decode_attention_plain(q, k, v, tables, layer, positions,
+                                          ks, vs)
+        k2, v2 = k.clone(), v.clone()
+        mapped = set(tables.flatten().tolist()) - {0}
+        for blk in range(k.shape[1]):
+            if blk not in mapped:
+                k2[:, blk], v2[:, blk] = poison, -poison
+        for b, p in enumerate(pos):
+            blk = int(tables[b, p // bs])
+            k2[layer, blk, p % bs + 1:] = poison
+            v2[layer, blk, p % bs + 1:] = -poison
+        _, scratch, got_len = da._decode_attention_cuda(
+            q, k, v, tables, layer, positions, ks, vs)
+    else:
+        shape = (2, batch, capacity, kv, hd)
+        k = torch.randn(shape, generator=cuda, device='cuda').to(dtype)
+        v = torch.randn(shape, generator=cuda, device='cuda').to(dtype)
+        ks = vs = None
+        if kind == 'int8':
+            (k, ks), (v, vs) = (llama_infer._quantize_kv(x) for x in (k, v))
+        counter = da.decode_attention
+
+        def run(k, v):
+            return da.decode_attention(q, k, v, layer, positions, ks, vs)
+
+        want = da._decode_attention_contig_plain(q, k, v, layer, positions,
+                                                 ks, vs)
+        k2, v2 = k.clone(), v.clone()
+        for b, p in enumerate(pos):
+            k2[layer, b, p + 1:] = poison
+            v2[layer, b, p + 1:] = -poison
+        _, scratch, got_len = da._decode_attention_contig_cuda(
+            q, k, v, layer, positions, ks, vs)
+    before = counter.launches, counter.launches_split
+    out = run(k, v)
+    assert (counter.launches, counter.launches_split) == (
+        before[0] + 1, before[1] + 1)
+    assert out.shape == q.shape and out.dtype == dtype
+    if kernel == 'K1':
+        torch.testing.assert_close(out, want, **TOL[dtype])
+    else:
+        _assert_row_close(out, want)
+    assert torch.equal(run(k, v), out)
+    assert torch.equal(run(k2, v2), out)
+    acc, ml = da._split_partials(q, scratch)
+    assert got_len == split_len and acc.shape[2] == splits
+    live = da._live_splits(positions, capacity, split_len)
+    combined = da._decode_combine_cuda(acc, ml, positions, capacity,
+                                       split_len, dtype)
+    assert torch.equal(combined, out)
+    _assert_row_close(combined, da._combine_splits_plain(
+        ml[..., 0], ml[..., 1], acc, live).to(dtype))
 
 
 @pytest.mark.parametrize('extra', [
