@@ -10,8 +10,9 @@ Phases (any failure exits non-zero):
 1. device: needs torch.cuda; prints the card's name and power limit.
 2. build: compiles skypilot_tpu_torch/csrc/*.cu with nvcc (in parallel)
    into build/torch_kernels/ and loads the library; fails if ptxas
-   reports a spill in a tensor-core kernel (K2, K5 and K6 in bf16, hd 64
-   and 128) or in a K1/K7 decode or combine kernel.
+   reports a spill in a tensor-core kernel (K2, K4, K5 and K6 in bf16,
+   hd 64 and 128) or in a K1/K7 decode kernel or a combine kernel (K1/K7
+   and K4).
 3. kernels: holds each hand-written kernel against its plain PyTorch
    version on the card, at the shapes the Llama-3-8B serving path gives
    it, in bf16 and f32 (and int8 arenas for the two paged attentions);
@@ -27,7 +28,12 @@ Phases (any failure exits non-zero):
    yardstick) are also timed as a replayed CUDA graph (device time
    without the wrapper's host work), and the combine pass alone is held
    to _combine_splits_plain on the partials of K1's bf16 launch and
-   timed.  K2 (o, and its lse) is held to
+   timed.  K4 (the window attention) takes its tensor-core route in bf16
+   and over an int8 arena (the FMA route in f32), split-KV at both of
+   its shapes: checked twice (bitwise), timed eager and as a replayed
+   graph beside SDPA's, and its combine pass alone held to
+   _combine_splits_plain on the partials of the verify bf16 launch.
+   K2 (o, and its lse) is held to
    _flash_fwd_plain, its own numerics, and to _attention_plain, the JAX
    reference_attention's, at the prefill shape and ragged S.  The
    training kernels (K2 with its lse, K5 dq, K6 dk/dv) are held to their
@@ -74,8 +80,9 @@ counts are set to 0 just before it and read just after); the window
 kernel must launch from both verify and fused ticks, K7 (and never K1)
 on every phase 7 path, and K2, K3, K5 and K6 from both train paths; K2,
 K5 and K6 only on their tensor-core route, on every path of phases 5 to
-8 (all bf16 at head_dim 128); K1 and K7 only on their split route on
-every path of phases 5 to 7 (B KV = 64 < 2 x 132 SMs).  The last lines
+8 (all bf16 at head_dim 128), and K4 on phase 6's paths, where it must
+also take its split route; K1 and K7 only on their split route on every
+path of phases 5 to 7 (B KV = 64 < 2 x 132 SMs).  The last lines
 of standard output are
 the {"kernels": [...]} line, the nvidia-smi name/power-limit line, and
 {"ok": true, "device": {...}}.
@@ -282,13 +289,15 @@ def check_rmsnorm(rmsnorm):
     return result
 
 
-def _tc_entry(ptxas, stem):
-    """The design of a tensor-core kernel and the ptxas registers and
-    spill of its instantiation `stem` (a mangled-name fragment)."""
+def _tc_entry(ptxas, stem, design=None):
+    """The design of a kernel (TC_DESIGN, the flash kernels', by default)
+    and the ptxas registers and spill of its instantiation `stem` (a
+    mangled-name fragment)."""
     found = [i for n, i in ptxas.items() if stem in n]
     if len(found) != 1:
         raise AssertionError(f'ptxas report has {len(found)} {stem}')
-    return {'design': TC_DESIGN, 'ptxas_registers': found[0]['registers'],
+    return {'design': design or TC_DESIGN,
+            'ptxas_registers': found[0]['registers'],
             'ptxas_spill_bytes': found[0]['spill_bytes']}
 
 
@@ -752,15 +761,34 @@ def check_decode_long(da):
     }
 
 
-def check_window(decode_attention):
+# Mangled-name fragments of the timed K4 tensor-core instantiations
+# (head_dim 128; the arena bf16 or int8, i.e. signed char 'a') and of its
+# combine kernel, and the design of each.
+WINDOW_KERNELS = {'bf16': 'paged_window_mma_kernelI13__nv_bfloat16Li128E',
+                  'int8': 'paged_window_mma_kernelIaLi128E',
+                  'combine': 'paged_window_combine_kernelILi128E'}
+_WINDOW_TC = ('mma.sync m16n8k16 bf16 -> f32, ldmatrix, cp.async x2, '
+              '64-row tiles, split-KV + combine')
+WINDOW_DESIGN = {'bf16': _WINDOW_TC,
+                 'int8': _WINDOW_TC + ', int8 -> bf16 in shared memory',
+                 'combine': 'a warp a row, its live splits in ascending '
+                            'order, f32'}
+
+
+
+def check_window(decode_attention, ptxas):
     """K4 at the verify shape (B 8, W 13) and the fused-lane shape (B 1,
     W 264 from row 436), in f32, bf16 and on an int8 arena (bf16 q):
-    against the plain version, on poisoned arenas, and at W = 1 against
-    K1.  Returns the kernels line entries of the bf16 and int8
-    variants."""
+    against the plain version, twice (bitwise), on poisoned arenas, and
+    at W = 1 against K1; bf16 and int8 must take the tensor-core route
+    and f32 the FMA route.  Then the combine pass alone on the partials
+    of the verify bf16 launch.  Returns the kernels line entries of the
+    bf16 and int8 variants and of the combine."""
     da = decode_attention
+    counter = da.decode_window_attention_pooled
     gen = torch.Generator(device='cuda').manual_seed(6)
     layer = 1
+    capacity = T_WIDTH * BS
     verify_pos = [0, BS - 1, BS, 2 * BS + 5, 700, 1000, 1500,
                   T_WIDTH * BS - 1]
     shapes = (('verify', verify_pos, 13), ('fused', [436], 264))
@@ -771,6 +799,9 @@ def check_window(decode_attention):
         positions = torch.tensor(pos_list, dtype=torch.int32, device='cuda')
         last = [p + win - 1 for p in pos_list]
         tables = _tables(last, n_blocks, 6)
+        splits, split_len = da._window_splits(
+            batch, KV_HEADS, -(-win * GROUP // da._WINDOW_ROWS), capacity,
+            da._WINDOW_CHUNK, da._sm_count(torch.device('cuda')))
         for label, dtype, int8 in (('f32', torch.float32, False),
                                    ('bf16', torch.bfloat16, False),
                                    ('int8', torch.bfloat16, True)):
@@ -787,12 +818,19 @@ def check_window(decode_attention):
                     q, k, v, tables, layer, positions, ks, vs)
 
             name = f'decode_window_attention_pooled {lane} {label}'
+            tc = counter.launches_tc
             out = kernel()
+            if counter.launches_tc - tc != int(label != 'f32'):
+                route = 'FMA' if label == 'f32' else 'tensor-core'
+                raise AssertionError(f'{name}: not on the {route} route')
             err = check_close(name, out, plain())
+            if not torch.equal(kernel(), out):
+                raise AssertionError(f'{name}: two calls differ')
             k2, v2 = _poison(k, v, tables, last, layer)
             if not torch.equal(kernel(k2, v2), out):
                 raise AssertionError(f'{name} read keys past its window '
                                      f'or outside its table')
+            del k2, v2
             one = da.decode_window_attention_pooled(
                 q[:, :1], k, v, tables, layer, positions, ks, vs)[:, 0]
             check_close(f'{name} W=1 vs K1', one, da.decode_attention_pooled(
@@ -800,9 +838,12 @@ def check_window(decode_attention):
                 vs))
             if label == 'f32':
                 continue
+            if (lane, label) == ('verify', 'bf16'):
+                results['combine'] = _check_window_combine(
+                    da, q, k, v, tables, layer, positions, out, ptxas)
             rows = torch.clamp_max(
                 positions.long()[:, None] + torch.arange(win, device='cuda')
-                + 1, T_WIDTH * BS)                      # keys per row
+                + 1, capacity)                          # keys per row
             pairs = int(rows.sum()) * KV_HEADS * GROUP
             keys = int(rows[:, -1].sum())
             nbytes = (2 * q.numel() * 2 + _kv_bytes(keys, k)
@@ -829,13 +870,73 @@ def check_window(decode_attention):
                          f'arena, BS {BS} T {T_WIDTH}, positions '
                          f'{pos_list if batch == 1 else "0..2047"}, '
                          f'{keys} keys',
+                'splits': splits, 'split_len': split_len,
                 'max_abs_err': err, 'ms': time_ms(kernel),
+                'graph_ms': graph_ms(kernel),
                 'plain_ms': time_ms(plain), 'bound_ms': b_ms,
                 'bound_by': by,
                 'library_ms': time_ms(
                     lambda: sdpa(qs, kt, vt, attn_mask=mask)),
+                'library_graph_ms': graph_ms(
+                    lambda: sdpa(qs, kt, vt, attn_mask=mask)),
+                **_tc_entry(ptxas, WINDOW_KERNELS[label],
+                            WINDOW_DESIGN[label]),
             }
+            log(f'  {name}: {splits} splits of {split_len}, ms '
+                f'{results[lane, label]["ms"]:.4f}, graph '
+                f'{results[lane, label]["graph_ms"]:.4f}, library graph '
+                f'{results[lane, label]["library_graph_ms"]:.4f}')
     return results
+
+
+def _check_window_combine(da, q, k, v, tables, layer, positions, out,
+                          ptxas):
+    """K4's combine kernel alone on the partials of the verify bf16
+    launch, against _combine_splits_plain (per row: both sum the same f32
+    terms in f32) and bitwise against the launch's own output; returns
+    its kernels line entry."""
+    batch, win = q.shape[:2]
+    capacity = tables.shape[1] * BS
+    _, scratch, split_len = da._decode_window_attention_cuda(
+        q, k, v, tables, layer, positions, None, None,
+        da.decode_window_attention_pooled)
+    if scratch is None:
+        raise AssertionError('decode_window_attention_pooled: the verify '
+                             'shape did not take the split route')
+    acc, ml = da._split_partials(q, scratch)
+    live = da._window_live_splits(positions, win, GROUP, capacity,
+                                  split_len)
+
+    def kernel():
+        return da._window_combine_cuda(acc, ml, positions, win, capacity,
+                                       split_len)
+
+    def plain():
+        o = da._combine_splits_plain(ml[..., 0], ml[..., 1], acc, live)
+        return o.reshape(batch, KV_HEADS, win, GROUP, HEAD_DIM).permute(
+            0, 2, 1, 3, 4).to(q.dtype)
+
+    got, want = kernel(), plain()
+    err = check_close('paged_window_combine bf16', got, want, row_tol(want))
+    if not torch.equal(got, out):
+        raise AssertionError('paged_window_combine: not the split launch\'s '
+                             'output')
+    parts = int(live.sum()) * KV_HEADS
+    nbytes = parts * (HEAD_DIM + 2) * 4 + got.numel() * 2 + batch * 4
+    b_ms, by = bound(nbytes, parts * HEAD_DIM * 2, BF16_FLOPS)
+    return {
+        'name': 'paged_window_combine', 'route': 'cuda',
+        'source': 'skypilot_tpu_torch/csrc/paged_window.cu',
+        'replaces': 'skypilot_tpu/ops/decode_attention.py:456',
+        'shape': f'partials of K4 verify bf16: {acc.shape[2]} splits of '
+                 f'{split_len}, {int(live.sum())} live (row, split) pairs '
+                 f'over {batch} slots x {win * GROUP} rows, hd {HEAD_DIM}',
+        'max_abs_err': err, 'ms': time_ms(kernel),
+        'graph_ms': graph_ms(kernel), 'plain_ms': time_ms(plain),
+        'bound_ms': b_ms, 'bound_by': by, 'library_ms': None,
+        **_tc_entry(ptxas, WINDOW_KERNELS['combine'],
+                    WINDOW_DESIGN['combine']),
+    }
 
 
 # K7's cache at the 8B serving shape of phase 7: batch 8, the 1024-row
@@ -1433,7 +1534,7 @@ def main() -> int:
     for name, info in ptxas.items():
         if '_mma_kernel' in name and info['spill_bytes']:
             raise AssertionError(f'tensor-core kernel {name} spills: {info}')
-        if ('decode_kernel' in name or 'decode_combine_kernel' in name) \
+        if ('decode_kernel' in name or 'combine_kernel' in name) \
                 and info['spill_bytes']:
             raise AssertionError(f'decode kernel {name} spills: {info}')
 
@@ -1441,7 +1542,7 @@ def main() -> int:
     t0 = time.perf_counter()
     decode = check_decode(decode_attention, ptxas)
     contig = check_contig_decode(decode_attention, ptxas)
-    window = check_window(decode_attention)
+    window = check_window(decode_attention, ptxas)
     flash, norm = check_flash(attention, ptxas), check_rmsnorm(rmsnorm)
     train = check_flash_train(attention, ptxas)
     k1 = decode_attention.decode_attention_pooled
@@ -1485,7 +1586,9 @@ def main() -> int:
     paths['6b'], _ = serve_path('6b int8 spec+fused', params, GeneratorConfig(
         **spec, kv_cache_dtype='int8', weights_dtype='int8'), counters)
     for key in ('6a', '6b'):
-        _need(key, paths[key], [c.__name__ for c in (k1, k2, k3, k4v, k4f)])
+        _need(key, paths[key], [c.__name__ for c in (k1, k2, k3, k4v, k4f)]
+              + [f'{c.__name__}[{r}]' for c in (k4v, k4f)
+                 for r in ('tc', 'split')])
 
     log("[7/8] legacy plane decode_impl='paged' (K7): (a) bf16 and (b) int8 "
         'KV behind the HTTP replica, (c) Generator.generate')
@@ -1531,6 +1634,7 @@ def main() -> int:
         # and 8 slots x 8 KV heads < 2 blocks an SM: the split route only.
         route = [(c, 'tc') for c in (k2, k5, k6)]
         route += [(c, 'split') for c in (k1, k7) if key[0] in '567']
+        route += [(c, 'tc') for c in (k4v, k4f) if key[0] == '6']
         for c, r in route:
             if launches[f'{c.__name__}[{r}]'] != launches[c.__name__]:
                 raise AssertionError(
@@ -1568,6 +1672,12 @@ def main() -> int:
     kernels.append(dict(decode['combine'],
                         launches=sum(split_paths.values()),
                         launches_by_path=split_paths))
+    # K4's combine runs inside every split launch of K4.
+    window_split = {k: sum(paths[k][f'{c.__name__}[split]']
+                           for c in (k4v, k4f)) for k in ('6a', '6b')}
+    kernels.append(dict(window['combine'],
+                        launches=sum(window_split.values()),
+                        launches_by_path=window_split))
     kernels += [entry(train[name, key], counter, (path,))
                 for name, counter in (('lse', k2), ('dq', k5), ('dkv', k6))
                 for key, path in (('1b', '8a'), ('8b', '8b'))]

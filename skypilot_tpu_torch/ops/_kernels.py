@@ -46,8 +46,10 @@ _SIGNATURES = {
                                                  _P],
     'skk_contig_decode': [_P] * 9 + [_I] * 8 + [ctypes.c_float, _I, _I, _P],
     'skk_decode_combine': [_P] * 4 + [_I] * 8 + [_P],
-    'skk_paged_window': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                         _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P],
+    'skk_paged_window': [_P] * 10 + [_I] * 11 + [ctypes.c_float, _I, _I,
+                                                 _P],
+    'skk_paged_window_combine': [_P] * 4 + [_I] * 8 + [_P],
+    'skk_paged_window_route': [_I, _I],
     'skk_flash_fwd': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       ctypes.c_float, _P, _I, _P],
     'skk_flash_bwd_dq': [_P] * 7 + [_I] * 6 + [ctypes.c_float, _P, _I, _P],

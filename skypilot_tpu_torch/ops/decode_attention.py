@@ -19,8 +19,9 @@ which runs that body through block tables):
 
 Each kernel reads only its slot's live keys, from a bf16/f32 cache or an
 int8 cache with per-(row, KV head) f32 scales.  K1 and K7 split a slot's
-keys across blocks (split-KV, :func:`_decode_splits`) and, with more than
-one split, sum the blocks' partials in a second, deterministic pass
+keys across blocks (split-KV, :func:`_decode_splits`), and so does K4's
+tensor-core route (:func:`_window_splits`); with more than one split a
+second, deterministic pass sums the blocks' partials
 (:func:`_combine_splits_plain` is its plain version).
 """
 from __future__ import annotations
@@ -43,33 +44,58 @@ DEFAULT_BLOCK = 64
 # Keys a K1/K7 block stages at a time (kDecChunk in csrc/paged_decode.cu);
 # a split's length is a multiple of it.
 _DECODE_CHUNK = 32
-# Blocks an SM that the split policy aims for when every slot is full.
+# Blocks an SM that the split policy aims for when every slot is full:
+# K1/K7's, and K4's (of 1, 2, 4 and 8, four were fastest at the verify
+# and fused-lane shapes: scripts/torch_window_splits.py).
 _BLOCKS_PER_SM = 2
+_WINDOW_BLOCKS_PER_SM = 4
 # The combine keeps a weight per (query row, split) in 48 KB of shared
 # memory.
 _MAX_SPLITS = 48 * 1024 // (4 * _MAX_GROUP)
+# Keys a K4 tensor-core block stages at a time (kWinKeys in
+# csrc/paged_window.cu; a split's length is a multiple of it), and query
+# rows of its tile (kWinTcRows).
+_WINDOW_CHUNK = 64
+_WINDOW_ROWS = 64
 _SM_COUNTS = {}
 
 
 @functools.lru_cache(maxsize=None)
 def _decode_splits(batch: int, kv_heads: int, capacity: int, chunk: int,
-                   sms: int) -> Tuple[int, int]:
+                   sms: int, per_sm: int = _BLOCKS_PER_SM
+                   ) -> Tuple[int, int]:
     """(splits, split_len) of a K1/K7 launch: block s of a (slot, KV
     head) takes keys [s * split_len, (s + 1) * split_len).
 
     A fixed function of what the host knows before the launch (batch, KV
     heads, the capacity in keys, the chunk and the SM count), never of
     the positions, so one launch fits every step of a decode chunk.  Aims
-    for _BLOCKS_PER_SM blocks an SM when every slot is full: splits =
-    ceil(2 SMs / (B KV)), at most one chunk a split (and _MAX_SPLITS),
-    split_len rounded up to the chunk, and splits trimmed so that none
-    starts past the capacity.  B KV >= 2 SMs gives one split."""
+    for per_sm blocks an SM when every slot is full: splits =
+    ceil(per_sm SMs / (B KV)), at most one chunk a split (and
+    _MAX_SPLITS), split_len rounded up to the chunk, and splits trimmed
+    so that none starts past the capacity.  B KV >= per_sm SMs gives one
+    split."""
     max_splits = min(max(1, -(-capacity // chunk)), _MAX_SPLITS)
-    splits = min(max(1, -(-_BLOCKS_PER_SM * sms // (batch * kv_heads))),
+    splits = min(max(1, -(-per_sm * sms // (batch * kv_heads))),
                  max_splits)
     split_len = -(-capacity // splits)
     split_len = max(chunk, -(-split_len // chunk) * chunk)
     return max(1, -(-capacity // split_len)), split_len
+
+
+@functools.lru_cache(maxsize=None)
+def _window_splits(batch: int, kv_heads: int, row_tiles: int,
+                   capacity: int, chunk: int, sms: int) -> Tuple[int, int]:
+    """(splits, split_len) of a K4 tensor-core launch: block s of a
+    (slot, KV head, row tile) takes keys [s * split_len, (s + 1) *
+    split_len) up to the tile's deepest visible key.
+
+    :func:`_decode_splits`'s policy over the launch's batch x row_tiles
+    blocks a KV head: a fixed function of sizes the host knows (never of
+    positions, so one launch fits a captured step), about
+    _WINDOW_BLOCKS_PER_SM blocks an SM when every slot is full."""
+    return _decode_splits(batch * row_tiles, kv_heads, capacity, chunk, sms,
+                          _WINDOW_BLOCKS_PER_SM)
 
 
 def _sm_count(device: torch.device) -> int:
@@ -90,17 +116,31 @@ def _live_splits(positions: torch.Tensor, capacity: int,
     return torch.clamp_min(-(-n_keys // split_len), 1)
 
 
+def _window_live_splits(positions: torch.Tensor, win: int, group: int,
+                        capacity: int, split_len: int) -> torch.Tensor:
+    """(B, W * G) splits that hold keys of each K4 row r = w * G + g:
+    floor(min(pos + w, capacity - 1) / split_len) + 1, every split that
+    holds the row's first key (what K4's combine kernel reads)."""
+    last = torch.clamp_max(positions.long()[:, None] + torch.arange(
+        win, device=positions.device), capacity - 1)
+    return (last // split_len + 1).repeat_interleave(group, dim=1)
+
+
 def _combine_splits_plain(m: torch.Tensor, l: torch.Tensor,
                           acc: torch.Tensor,
                           live: torch.Tensor) -> torch.Tensor:
-    """The split-KV combine: m, l (B, KV, S, G) are each split's running
-    max and sum of e^(s - m), acc (B, KV, S, G, hd) its unnormalised
-    P.V; only splits [0, live[b]) of slot b hold partials (the rest are
-    never written and may hold anything).  Returns the f32 (B, KV, G, hd)
-    o = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s, M the max of the
-    live m_s."""
-    alive = (torch.arange(m.shape[2], device=m.device)[None, :]
-             < live.to(m.device)[:, None])[:, None, :, None]  # (B, 1, S, 1)
+    """The split-KV combine: m, l (B, KV, S, R) are each split's running
+    max and sum of e^(s - m) for R query rows (K1/K7: the G rows of a KV
+    head; K4: its W * G rows), acc (B, KV, S, R, hd) its unnormalised
+    P.V; only splits [0, live) hold partials of a row (the rest are never
+    written and may hold anything), live (B,) for every row of a slot or
+    (B, R) per row.  Returns the f32 (B, KV, R, hd) o = sum_s e^(m_s - M)
+    acc_s / sum_s e^(m_s - M) l_s, M the max of the live m_s."""
+    live = live.to(m.device)
+    if live.dim() == 1:
+        live = live[:, None]
+    alive = (torch.arange(m.shape[2], device=m.device)[None, :, None]
+             < live[:, None, :])[:, None]            # (B, 1, S, R or 1)
     m_live = torch.where(alive, m, _NEG_INF)
     w = torch.where(alive, torch.exp(m_live - m_live.amax(2, keepdim=True)),
                     0.0)
@@ -335,14 +375,19 @@ def _scale_ptrs(k_scale, v_scale):
 
 def _split_partials(q: torch.Tensor, scratch: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Views of a split launch's f32 scratch: acc (B, KV, splits, G, hd),
-    then (m, l) (B, KV, splits, G, 2)."""
-    batch, kv_heads, group, head_dim = q.shape
-    splits = scratch.numel() // (batch * kv_heads * group * (head_dim + 2))
-    n = batch * kv_heads * splits * group
-    return (scratch[:n * head_dim].view(batch, kv_heads, splits, group,
+    """Views of a split launch's f32 scratch: acc (B, KV, splits, R, hd),
+    then (m, l) (B, KV, splits, R, 2), for K1/K7's q (B, KV, G, hd) (R =
+    G) or K4's (B, W, KV, G, hd) (R = W * G, row w * G + g)."""
+    if q.dim() == 5:
+        batch, win, kv_heads, group, head_dim = q.shape
+        rows = win * group
+    else:
+        batch, kv_heads, rows, head_dim = q.shape
+    splits = scratch.numel() // (batch * kv_heads * rows * (head_dim + 2))
+    n = batch * kv_heads * splits * rows
+    return (scratch[:n * head_dim].view(batch, kv_heads, splits, rows,
                                         head_dim),
-            scratch[n * head_dim:].view(batch, kv_heads, splits, group, 2))
+            scratch[n * head_dim:].view(batch, kv_heads, splits, rows, 2))
 
 
 def _launch_split(entry: str, counter, q: torch.Tensor, capacity: int,
@@ -501,31 +546,79 @@ decode_attention.launches = 0
 decode_attention.launches_split = 0
 
 
+def _window_route(q_code: int, head_dim: int) -> bool:
+    """True when K4 takes its tensor-core kernel and the split policy
+    (the library's skk_paged_window_route: bf16 q at head_dim 64 and
+    128); False for the FMA kernel (f32, and bf16 at 256), one split."""
+    return bool(_kernels.LIBRARY.get().skk_paged_window_route(q_code,
+                                                              head_dim))
+
+
 def _decode_window_attention_cuda(q: torch.Tensor, k_arena: torch.Tensor,
                                   v_arena: torch.Tensor,
                                   tables: torch.Tensor, layer: int,
                                   positions: torch.Tensor,
                                   k_scale: Optional[torch.Tensor],
                                   v_scale: Optional[torch.Tensor],
-                                  counter) -> torch.Tensor:
-    """K4 on (B, W, KV, G, hd) queries; `counter` is the public wrapper
-    whose launch count this call adds to."""
+                                  counter):
+    """K4 on (B, W, KV, G, hd) queries, read and written in that layout
+    (a contiguous q is passed as it is); `counter` is the public wrapper
+    whose launch counts this call adds to.  Returns (out, scratch,
+    split_len) as :func:`_launch_split`."""
     batch, win, kv_heads, group, head_dim = q.shape
     q_code, kv_code = _check_arena(
         'decode_window_attention_pooled', q, k_arena, v_arena, tables,
         layer, positions, k_scale, v_scale, kv_heads, group, head_dim)
-    # The kernel's row layout: kv-major, then window, then group.
-    q_rows = q.permute(0, 2, 1, 3, 4).contiguous()
-    out = torch.empty_like(q_rows)
-    _kernels.launch('skk_paged_window', q.device, q_rows.data_ptr(),
+    q = q.contiguous()
+    _kernels.check(_kernels.aligned(q), 'decode_window_attention_pooled: '
+                   'q must be 16-byte aligned')
+    n_blocks, block_size, t_width = (k_arena.shape[1], k_arena.shape[2],
+                                     tables.shape[1])
+    capacity = t_width * block_size
+    tc = _window_route(q_code, head_dim)
+    splits, split_len = 1, capacity
+    if tc:
+        row_tiles = -(-win * group // _WINDOW_ROWS)
+        splits, split_len = _window_splits(batch, kv_heads, row_tiles,
+                                           capacity, _WINDOW_CHUNK,
+                                           _sm_count(q.device))
+    out = torch.empty_like(q)
+    scratch = acc_ptr = ml_ptr = None
+    if splits > 1:
+        n = batch * kv_heads * splits * win * group
+        scratch = torch.empty(n * (head_dim + 2), dtype=torch.float32,
+                              device=q.device)
+        acc_ptr = scratch.data_ptr()
+        ml_ptr = acc_ptr + 4 * n * head_dim
+    _kernels.launch('skk_paged_window', q.device, q.data_ptr(),
                     k_arena.data_ptr(), v_arena.data_ptr(),
                     *_scale_ptrs(k_scale, v_scale), tables.data_ptr(),
-                    positions.data_ptr(), out.data_ptr(), batch, kv_heads,
-                    win * group, group, head_dim, k_arena.shape[1],
-                    k_arena.shape[2], tables.shape[1], int(layer),
+                    positions.data_ptr(), out.data_ptr(), acc_ptr, ml_ptr,
+                    batch, win, kv_heads, group, head_dim, n_blocks,
+                    block_size, t_width, int(layer), splits, split_len,
                     float(head_dim ** -0.5), q_code, kv_code)
     counter.launches += 1
-    return out.permute(0, 2, 1, 3, 4)
+    counter.launches_tc += int(tc)
+    counter.launches_split += int(splits > 1)
+    return out, scratch, split_len
+
+
+def _window_combine_cuda(acc: torch.Tensor, ml: torch.Tensor,
+                         positions: torch.Tensor, win: int, capacity: int,
+                         split_len: int) -> torch.Tensor:
+    """K4's combine kernel alone on the partials of a split launch
+    (:func:`_split_partials`; the launch runs it itself): (B, W, KV, G,
+    hd) bf16.  Checked against :func:`_combine_splits_plain` on the card;
+    no main path calls it."""
+    batch, kv_heads, splits, rows, head_dim = acc.shape
+    group = rows // win
+    out = torch.empty(batch, win, kv_heads, group, head_dim,
+                      dtype=torch.bfloat16, device=acc.device)
+    _kernels.launch('skk_paged_window_combine', acc.device, acc.data_ptr(),
+                    ml.data_ptr(), positions.data_ptr(), out.data_ptr(),
+                    batch, win, kv_heads, group, head_dim, splits, split_len,
+                    capacity)
+    return out
 
 
 def decode_window_attention_pooled(q: torch.Tensor, k_arena: torch.Tensor,
@@ -552,10 +645,13 @@ def decode_window_attention_pooled(q: torch.Tensor, k_arena: torch.Tensor,
             q, k_arena, v_arena, tables, layer, positions, k_scale, v_scale)
     return _decode_window_attention_cuda(
         q, k_arena, v_arena, tables, layer, positions, k_scale, v_scale,
-        decode_window_attention_pooled)
+        decode_window_attention_pooled)[0]
 
 
 decode_window_attention_pooled.launches = 0
+# Launches on the tensor-core kernel, and with more than one split.
+decode_window_attention_pooled.launches_tc = 0
+decode_window_attention_pooled.launches_split = 0
 
 
 def fused_step_attention_pooled(q_dec: torch.Tensor, q_pf: torch.Tensor,
@@ -588,8 +684,10 @@ def fused_step_attention_pooled(q_dec: torch.Tensor, q_pf: torch.Tensor,
     else:
         o_pf = _decode_window_attention_cuda(
             q_pf[None], k_arena, v_arena, tbl.contiguous(), layer, start,
-            k_scale, v_scale, fused_step_attention_pooled)
+            k_scale, v_scale, fused_step_attention_pooled)[0]
     return o_dec, o_pf[0]
 
 
 fused_step_attention_pooled.launches = 0
+fused_step_attention_pooled.launches_tc = 0
+fused_step_attention_pooled.launches_split = 0

@@ -15,8 +15,9 @@ f32 as the kernels do, are held relative to the scale of each row
 dtype's tolerance: the kernels dequantize before each product in f32,
 the plain versions scale after it, which is the same math up to
 rounding.  K1 and K7 split a slot's keys across blocks when there are
-fewer (slot, KV head) pairs than two blocks an SM; the split route's
-combine pass is held to `_combine_splits_plain` per row.
+fewer (slot, KV head) pairs than two blocks an SM, and so does K4's
+tensor-core route; the split route's combine pass is held to
+`_combine_splits_plain` per row.
 """
 import numpy as np
 import pytest
@@ -156,32 +157,55 @@ def test_paged_decode_kernel_int8(cuda, dtype, hd, group, bs):
 
 
 @pytest.mark.parametrize('kind', ['float32', 'bfloat16', 'int8'])
-@pytest.mark.parametrize('hd,group,bs,win', [
-    (64, 1, 16, 4), (128, 4, 64, 13), (256, 8, 32, 5), (128, 4, 16, 40)])
-def test_paged_window_kernel(cuda, kind, hd, group, bs, win):
-    """K4 against its plain version; keys past each slot's window and
-    blocks no table maps are poisoned and must not change the output;
-    each window row equals K1 at that row's position."""
+@pytest.mark.parametrize('hd,group,bs,win,t_width,pos', [
+    pytest.param(64, 1, 16, 4, 5, None, id='64-1-16-4'),
+    pytest.param(128, 4, 64, 13, 5, None, id='128-4-64-13'),
+    pytest.param(256, 8, 32, 5, 5, None, id='256-8-32-5'),
+    pytest.param(128, 4, 16, 40, 5, None, id='128-4-16-40'),
+    # Split boundaries (64-key splits) inside the windows at 60 and 100.
+    pytest.param(128, 4, 16, 24, 16, [40, 60, 100, 255],
+                 id='128-4-16-24-split-in-window'),
+    # The fused lane's width (fuse_budget 264).
+    pytest.param(128, 4, 64, 264, 5, None, id='128-4-64-264-fused-width')])
+def test_paged_window_kernel(cuda, kind, hd, group, bs, win, t_width, pos):
+    """K4 against its plain version, twice (bitwise); keys past each
+    slot's window and blocks no table maps are poisoned and must not
+    change the output; each window row equals K1 at that row's position.
+    bf16 and int8 at hd 64/128 take the tensor-core route (counted in
+    launches_tc) and its split policy (launches_split when it splits,
+    the combine kernel then equal to the output and per row to
+    _combine_splits_plain); f32, and bf16 at hd 256, the FMA route."""
     from skypilot_tpu_torch.ops import decode_attention as da
     dtype = torch.bfloat16 if kind == 'int8' else getattr(torch, kind)
-    batch, kv, t_width = 4, 2, 5
+    batch, kv = 4, 2
     # Window starts at 0, block edges and the table's last row (its
     # later rows run past the table).
-    positions = torch.tensor([0, bs - 1, bs, t_width * bs - 1],
-                             dtype=torch.int32, device='cuda')
+    if pos is None:
+        pos = [0, bs - 1, bs, t_width * bs - 1]
+    positions = torch.tensor(pos, dtype=torch.int32, device='cuda')
     tables, k, v, ks, vs = _arena(cuda, dtype, batch, kv, hd, bs, t_width,
                                   positions + win - 1, kind == 'int8')
     q = torch.randn(batch, win, kv, group, hd, generator=cuda,
                     device='cuda').to(dtype)
-    before = da.decode_window_attention_pooled.launches
-    out = da.decode_window_attention_pooled(q, k, v, tables, 1, positions,
-                                            ks, vs)
-    assert da.decode_window_attention_pooled.launches == before + 1
-    assert out.shape == q.shape
+    capacity = t_width * bs
+    tc = dtype == torch.bfloat16 and hd in (64, 128)
+    splits, split_len = 1, capacity
+    if tc:
+        splits, split_len = da._window_splits(
+            batch, kv, -(-win * group // da._WINDOW_ROWS), capacity,
+            da._WINDOW_CHUNK,
+            torch.cuda.get_device_properties(0).multi_processor_count)
+    fn = da.decode_window_attention_pooled
+    before = (fn.launches, fn.launches_tc, fn.launches_split)
+    out = fn(q, k, v, tables, 1, positions, ks, vs)
+    assert (fn.launches, fn.launches_tc, fn.launches_split) == (
+        before[0] + 1, before[1] + int(tc), before[2] + int(splits > 1))
+    assert out.shape == q.shape and out.is_contiguous()
     torch.testing.assert_close(
         out, da._decode_window_attention_plain(q, k, v, tables, 1,
                                                positions, ks, vs),
         **TOL[dtype])
+    assert torch.equal(fn(q, k, v, tables, 1, positions, ks, vs), out)
     k2, v2 = k.clone(), v.clone()
     poison = 127 if kind == 'int8' else 1e4
     mapped = set(tables.flatten().tolist()) - {0}
@@ -195,13 +219,25 @@ def test_paged_window_kernel(cuda, kind, hd, group, bs, win):
             blk = int(tables[b, last // bs])
             k2[1, blk, last % bs + 1:] = poison
             v2[1, blk, last % bs + 1:] = -poison
-    assert torch.equal(da.decode_window_attention_pooled(
-        q, k2, v2, tables, 1, positions, ks, vs), out)
+    assert torch.equal(fn(q, k2, v2, tables, 1, positions, ks, vs), out)
     for w in range(win):
         rows = torch.clamp_max(positions + w, t_width * bs - 1)
         single = da.decode_attention_pooled(q[:, w].contiguous(), k, v,
                                             tables, 1, rows, ks, vs)
         torch.testing.assert_close(out[:, w], single, **TOL[dtype])
+    if splits > 1:
+        _, scratch, got_len = da._decode_window_attention_cuda(
+            q, k, v, tables, 1, positions, ks, vs, fn)
+        acc, ml = da._split_partials(q, scratch)
+        assert got_len == split_len and acc.shape[2] == splits
+        combined = da._window_combine_cuda(acc, ml, positions, win,
+                                           capacity, split_len)
+        assert torch.equal(combined, out)
+        live = da._window_live_splits(positions, win, group, capacity,
+                                      split_len)
+        want = da._combine_splits_plain(ml[..., 0], ml[..., 1], acc, live)
+        _assert_row_close(combined, want.reshape(
+            batch, kv, win, group, hd).permute(0, 2, 1, 3, 4).to(dtype))
 
 
 @pytest.mark.parametrize('kind', ['float32', 'bfloat16', 'int8'])
