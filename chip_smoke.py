@@ -44,20 +44,27 @@ Phases (any failure exits non-zero):
    dk and dv) for K5 and K6.  The entries of K2, K5 and K6 carry their
    design, TFLOP/s and the ptxas registers and spill of the
    instantiation timed.
-4. slice parity: a 2-layer LLAMA_DEBUG model in f32 served on the card
-   (kernels) and on the host (plain versions) from the same weights:
-   identical greedy tokens (plain, spec_k=3, fuse_budget, int8 KV and
-   weights; the legacy batcher planes 'paged', 'inplace' and 'paged' with
-   int8 KV; the Generator on the pooled plane, with spec_k=3, and on
-   'paged'), allclose first-step logits; spec_k=3, the fused schedule,
-   the legacy planes and the Generator give the plain schedule's tokens
-   (int8 KV aside).  Training parity on the same model:
+4. slice parity: a 2-layer LLAMA_DEBUG model in f32 served on the host
+   (plain versions), on the card eagerly (graphs=False) and on the card
+   through the engines' CUDA graphs (the default) from the same weights:
+   identical greedy tokens on all three (plain, spec_k=3, fuse_budget,
+   int8 KV and weights; the legacy batcher planes 'paged', 'inplace' and
+   'paged' with int8 KV; the Generator on the pooled plane, with
+   spec_k=3, and on 'paged', which stays eager), each graph key captured
+   once and chunks replayed; allclose first-step logits; spec_k=3, the
+   fused schedule, the legacy planes and the Generator give the plain
+   schedule's tokens (int8 KV aside).  Training parity on the same model:
    first-step gradients under remat False, True and 'dots' on card and
    host, and 3 Trainer steps (loss, grad_norm) on both.
 5. main path: random LLAMA3_8B bf16 weights on the card behind the HTTP
    replica (ContinuousBatcher, batch 8, max_seq_len 2048, prefill_chunk
    256, decode_chunk 16); 8 requests of 17..700 prompt tokens, 48 new
-   tokens each, greedy.
+   tokens each, greedy, sent as one burst admitted in a fixed order;
+   served first eagerly (graphs=False), then through the batcher's CUDA
+   graphs (the main path): identical greedy tokens.  Each run prints
+   decode tokens/s, graph captures, capture seconds (inside
+   decode_seconds), replays and the live share of the decode chunks'
+   slot-steps.
 6. main path with speculative verify and fused steps, twice on phase 5's
    weights: (a) bf16 with spec_k 12 and fuse_budget 264, (b) the same
    with int8 KV and int8 weights.  The same 8 requests.
@@ -76,7 +83,8 @@ Phases (any failure exits non-zero):
    memory and launches per step.
 
 Every kernel of a main-path run must launch > 0 times in that run (the
-counts are set to 0 just before it and read just after); the window
+counts are set to 0 just before it and read just after; a replayed graph
+adds the launches its capture recorded, engine.ChunkGraphs); the window
 kernel must launch from both verify and fused ticks, K7 (and never K1)
 on every phase 7 path, and K2, K3, K5 and K6 from both train paths; K2,
 K5 and K6 only on their tensor-core route, on every path of phases 5 to
@@ -1036,13 +1044,13 @@ def check_contig_decode(decode_attention, ptxas):
 
 # ---- phase 4: slice parity ------------------------------------------------
 
-def _serve_debug(params, cfg, dev, prompts, budgets, **extra):
+def _serve_debug(params, cfg, dev, prompts, budgets, graphs=None, **extra):
     from skypilot_tpu_torch.infer.engine import GeneratorConfig
     from skypilot_tpu_torch.infer.serving import ContinuousBatcher
     b = ContinuousBatcher(params, cfg, GeneratorConfig(
         max_seq_len=256, batch_size=3, prompt_buckets=[16, 64, 128],
         prefill_chunk=64, kv_block_size=16, **extra), decode_chunk=4,
-        device=dev)
+        device=dev, graphs=graphs)
     rids = [b.submit(p, max_new_tokens=n) for p, n in zip(prompts, budgets)]
     b.run_until_idle()
     if b.pooled:
@@ -1050,18 +1058,58 @@ def _serve_debug(params, cfg, dev, prompts, budgets, **extra):
     return b, [b.result(r) for r in rids]
 
 
-def _generate_debug(params, cfg, dev, prompts, budgets, **extra):
+def _generate_debug(params, cfg, dev, prompts, budgets, graphs=None,
+                    **extra):
     """The lockstep Generator on the same prompts, each row cut to its
-    request's budget."""
+    request's budget (generate() runs twice: the second call replays
+    the first one's graphs, and must return the same tokens)."""
     from skypilot_tpu_torch.infer.engine import Generator, GeneratorConfig
     gen = Generator(params, cfg, GeneratorConfig(
         max_seq_len=256, batch_size=len(prompts),
         prompt_buckets=[16, 64, 128], decode_chunk=4, kv_block_size=16,
-        **extra), device=dev)
+        **extra), device=dev, graphs=graphs)
     out = gen.generate(prompts, max_new_tokens=max(budgets))
+    again = gen.generate(prompts, max_new_tokens=max(budgets))
+    if again != out:
+        raise AssertionError(f'Generator {extra} on {dev}: a second '
+                             f'generate() gave other tokens')
     if gen.pooled:
         gen.pool.check_invariant()
     return gen, [o[:n] for o, n in zip(out, budgets)]
+
+
+def _card_and_host(label, run, params, cfg, prompts, budgets, extra):
+    """The same requests on the host (plain versions), on the card
+    eagerly (graphs=False) and on the card through the engine's graphs
+    (the default): identical greedy tokens on all three.  The graph run
+    must have replayed chunks and captured each key once (on a legacy
+    plane: once per bucket it reached).  Returns {run: (engine,
+    tokens)}."""
+    out = {}
+    for name, dev, graphs in (('host', 'cpu', None),
+                              ('card eager', 'cuda', False),
+                              ('card graphs', 'cuda', None)):
+        out[name] = run(params[dev], cfg, dev, prompts, budgets,
+                        graphs=graphs, **extra)
+    eng = out['card graphs'][0]
+    if eng.graphs is not None:
+        g = eng.graphs
+        if not g.replays or (getattr(eng, 'pooled', True)
+                             and g.captures != len(g.keys())):
+            raise AssertionError(f'{label}: {g.captures} captures of '
+                                 f'{len(g.keys())} keys, {g.replays} '
+                                 f'replays')
+    _same_tokens(f'{label}: card graphs vs card eager',
+                 out['card graphs'][1], out['card eager'][1])
+    _same_tokens(f'{label}: card vs host', out['card graphs'][1],
+                 out['host'][1])
+    graphs = ('no graphs (eager)' if eng.graphs is None else
+              f'{eng.graphs.captures} captures, {eng.graphs.replays} '
+              f'replays')
+    log(f'  {label}: greedy tokens identical on the host, the card eager '
+        f'and the card through graphs ({graphs}; '
+        f'{sum(len(o) for o in out["host"][1])} tokens)')
+    return out
 
 
 def _same_tokens(what, got, want):
@@ -1138,17 +1186,14 @@ def slice_parity():
                                        weights_dtype='int8')))
     outs = {}
     for label, extra in runs:
-        for dev in ('cpu', 'cuda'):
-            b, outs[label, dev] = _serve_debug(params[dev], cfg, dev,
-                                               prompts, budgets, **extra)
+        three = _card_and_host(label, _serve_debug, params, cfg, prompts,
+                               budgets, extra)
+        for name, (b, _) in three.items():
             if 'spec_k' in extra and not b.spec_proposed:
-                raise AssertionError(f'{label} on {dev}: no verify chunk')
+                raise AssertionError(f'{label} on {name}: no verify chunk')
             if 'fuse_budget' in extra and not b._fuse_policy.stats.steps:
-                raise AssertionError(f'{label} on {dev}: no fused step')
-        _same_tokens(f'{label}: card vs host', outs[label, 'cuda'],
-                     outs[label, 'cpu'])
-        log(f'  {label}: greedy tokens identical on card and host '
-            f'({sum(len(o) for o in outs[label, "cpu"])} tokens)')
+                raise AssertionError(f'{label} on {name}: no fused step')
+        outs[label, 'cuda'] = three['card graphs'][1]
     for label in ('spec_k=3', 'fuse_budget=16'):
         _same_tokens(f'{label} vs plain schedule', outs[label, 'cuda'],
                      outs['plain', 'cuda'])
@@ -1167,20 +1212,19 @@ def slice_parity():
     with warnings.catch_warnings():
         warnings.simplefilter('ignore', DeprecationWarning)
         for label, run, extra in legacy:
-            for dev in ('cpu', 'cuda'):
-                engine_obj, outs[label, dev] = run(params[dev], cfg, dev,
-                                                   prompts, budgets, **extra)
+            three = _card_and_host(label, run, params, cfg, prompts,
+                                   budgets, extra)
+            for name, (engine_obj, _) in three.items():
                 if run is _serve_debug and not engine_obj.pooled and \
                         not engine_obj.migrations['grow']:
-                    raise AssertionError(f'{label} on {dev}: no migration')
-            _same_tokens(f'{label}: card vs host', outs[label, 'cuda'],
-                         outs[label, 'cpu'])
+                    raise AssertionError(f'{label} on {name}: no migration')
+            outs[label, 'cuda'] = three['card graphs'][1]
             if 'int8' not in label:
                 _same_tokens(f'{label} vs the pooled batcher',
                              outs[label, 'cuda'], outs['plain', 'cuda'])
     log('  batcher paged / inplace / paged int8 KV and Generator pooled / '
-        'spec_k=3 / paged: greedy tokens identical on card and host, and '
-        'to the pooled batcher\'s (int8 aside)')
+        'spec_k=3 / paged: greedy tokens identical to the pooled '
+        'batcher\'s (int8 aside)')
 
 
 def _clone_to(tree, device):
@@ -1258,13 +1302,49 @@ def _to_device(tree, device):
 SERVE_LENGTHS = [17, 60, 128, 250, 300, 450, 600, 700]
 
 
-def serve_path(label, params, gen_config, counters):
-    """Serve the 8 requests through the HTTP replica with every launch
-    count set to 0 just before and read just after; returns the counts.
-    Fails unless every request returns 48 in-range tokens and the pool
-    comes back empty (on a legacy plane: every slot comes back free and
+def _graph_stats(graphs, before=(0, 0.0, 0)):
+    """Captures, capture seconds and replays of an engine's graphs since
+    `before` (zeros without graphs)."""
+    now = ((graphs.captures, graphs.capture_seconds, graphs.replays)
+           if graphs is not None else (0, 0.0, 0))
+    return dict(zip(('graph_captures', 'graph_capture_s', 'graph_replays'),
+                    (a - b for a, b in zip(now, before))))
+
+
+def _burst(batcher, send, n):
+    """Send n requests as one burst that the batcher admits in a fixed
+    order: its ticks wait until all n are queued, and request i is sent
+    once request i - 1 is queued.  So every run of a path prefills the
+    same groups (a group's size changes the rounding of its bf16
+    products) and two runs can be held to identical greedy tokens."""
+    step, burst = batcher.step, threading.Event()
+    batcher.step = lambda: step() if burst.is_set() else None
+    threads = []
+    try:
+        for i in range(n):
+            threads.append(threading.Thread(target=send, args=(i,)))
+            threads[-1].start()
+            deadline = time.perf_counter() + 60
+            while batcher.num_queued <= i:
+                if time.perf_counter() > deadline:
+                    raise AssertionError(f'request {i} was never queued')
+                time.sleep(0.001)
+    finally:
+        burst.set()
+        del batcher.step           # the class's method again, no cycle
+    for t in threads:
+        t.join(900)
+
+
+def serve_path(label, params, gen_config, counters, graphs=None):
+    """Serve the 8 requests (one burst, _burst) through the HTTP replica
+    with every launch count set to 0 just before and read just after;
+    returns (the counts, the migrations, each request's tokens).  Fails
+    unless every request returns 48 in-range tokens and the pool comes
+    back empty (on a legacy plane: every slot comes back free and
     frozen, and one short request afterwards shrinks the slot cache to
-    its smallest bucket)."""
+    its smallest bucket).  graphs: the batcher's argument (None: graphs
+    on the card)."""
     from skypilot_tpu_torch.infer import engine, replica
     from skypilot_tpu_torch.infer.serving import ContinuousBatcher
     from skypilot_tpu_torch.models import llama
@@ -1272,14 +1352,19 @@ def serve_path(label, params, gen_config, counters):
     cfg = llama.LLAMA3_8B
     torch.cuda.reset_peak_memory_stats()
     batcher = ContinuousBatcher(params, cfg, gen_config, decode_chunk=16,
-                                device='cuda')
-    # Warm-up (cuBLAS handles, allocator pools), then count from zero.
+                                device='cuda', graphs=graphs)
+    # Warm-up (cuBLAS handles, allocator pools, the 16-step chunk's
+    # graph), then count from zero.
     warm = batcher.submit([1, 2, 3], max_new_tokens=2)
     batcher.run_until_idle()
     batcher.result(warm)
     batcher.decode_tokens, batcher.decode_seconds = 0, 0.0
     batcher.spec_proposed = batcher.spec_accepted = 0
+    batcher.slot_steps = batcher.live_slot_steps = 0
+    warm_graphs = _graph_stats(batcher.graphs)
+    torch.cuda.synchronize()
     resident_gb = torch.cuda.memory_allocated() / 1e9
+    retries0 = torch.cuda.memory_stats()['num_alloc_retries']
     server, thread = replica.serve(batcher, '127.0.0.1', 0, 'llama3-8b')
     url = f'http://127.0.0.1:{server.server_address[1]}'
     try:
@@ -1309,12 +1394,7 @@ def serve_path(label, params, gen_config, counters):
         syncs0 = engine.host_fetch.calls
         mig0 = dict(batcher.migrations)
         t0 = time.perf_counter()
-        threads = [threading.Thread(target=send, args=(i,))
-                   for i in range(len(prompts))]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(900)
+        _burst(batcher, send, len(prompts))
         wall = time.perf_counter() - t0
         launches = _counts(counters)
         syncs = engine.host_fetch.calls - syncs0
@@ -1345,8 +1425,10 @@ def serve_path(label, params, gen_config, counters):
             raise AssertionError(f'{label}: the slot cache stayed at '
                                  f'{batcher._cache_len} rows')
     ttfts = sorted(r['ttft_s'] for r in responses)
+    run_graphs = _graph_stats(batcher.graphs, tuple(warm_graphs.values()))
     stats = {
         'card': CARD['line'],
+        'graphs': batcher.graphs is not None,
         'requests': len(responses),
         'prompt_tokens': sum(lengths),
         'generated_tokens': sum(r['num_generated'] for r in responses),
@@ -1357,6 +1439,15 @@ def serve_path(label, params, gen_config, counters):
         / batcher.decode_seconds,
         'decode_tokens': batcher.decode_tokens,
         'decode_seconds': batcher.decode_seconds,
+        **run_graphs,
+        # The same tokens over the decode seconds that were not capture.
+        'decode_tokens_per_s_without_capture': batcher.decode_tokens / (
+            batcher.decode_seconds - run_graphs['graph_capture_s']),
+        'graph_captures_warmup': warm_graphs['graph_captures'],
+        'graph_capture_s_warmup': warm_graphs['graph_capture_s'],
+        'graph_keys': len(batcher.graphs.keys()) if batcher.graphs else 0,
+        'live_slot_share': (batcher.live_slot_steps / batcher.slot_steps
+                            if batcher.slot_steps else None),
         'spec_proposed': batcher.spec_proposed,
         'spec_accepted': batcher.spec_accepted,
         'fused_steps': (batcher._fuse_policy.stats.steps - fuse0[0]
@@ -1369,10 +1460,16 @@ def serve_path(label, params, gen_config, counters):
         'cache_len': cache_len,
         'resident_gb_before_requests': resident_gb,
         'peak_memory_gb': torch.cuda.max_memory_allocated() / 1e9,
+        # The allocator's cache held by the process, and the cudaMallocs
+        # that failed and emptied that cache to retry (each a device
+        # synchronize and a free of every cached segment).
+        'reserved_gb': torch.cuda.memory_reserved() / 1e9,
+        'alloc_retries': torch.cuda.memory_stats()['num_alloc_retries']
+        - retries0,
         'launches': launches,
     }
     log(f'  {label}: ' + json.dumps(stats))
-    return launches, migrations
+    return launches, migrations, [r['output_ids'] for r in responses]
 
 
 def generate_path(label, params, gen_config, counters):
@@ -1387,6 +1484,7 @@ def generate_path(label, params, gen_config, counters):
     torch.cuda.reset_peak_memory_stats()
     gen = Generator(params, cfg, gen_config, device='cuda')
     gen.warmup()
+    warm_graphs = _graph_stats(gen.graphs)
     torch.cuda.synchronize()
     resident_gb = torch.cuda.memory_allocated() / 1e9
     rng = np.random.RandomState(2)
@@ -1411,6 +1509,8 @@ def generate_path(label, params, gen_config, counters):
         'decode_tokens_per_s': st['decode_tokens'] / st['decode_seconds'],
         'decode_tokens': st['decode_tokens'],
         'decode_seconds': st['decode_seconds'],
+        **_graph_stats(gen.graphs, tuple(warm_graphs.values())),
+        'live_slot_share': st['live_slot_steps'] / st['decode_tokens'],
         'host_fetches': st['host_fetches'],
         'migrations': {k: v - mig0[k] for k, v in gen.migrations.items()},
         'cache_len': st['cache_len'],
@@ -1574,17 +1674,31 @@ def main() -> int:
         f'params in {time.perf_counter() - t0:.1f} s')
     base = dict(max_seq_len=2048, batch_size=8, prefill_chunk=256)
     paths = {}
-    paths['5'], _ = serve_path('main path', params, GeneratorConfig(**base),
-                               counters)
-    _need('main', paths['5'], [c.__name__ for c in (k1, k2, k3)])
+    # The same burst eagerly, then through graphs (the main path, whose
+    # counts the kernels line reports): identical greedy tokens.
+    eager5, _, eager_out = serve_path('main path eager (graphs=False)',
+                                      params, GeneratorConfig(**base),
+                                      counters, graphs=False)
+    paths['5'], _, graph_out = serve_path('main path', params,
+                                          GeneratorConfig(**base), counters)
+    _same_tokens('phase 5: graphs vs eager', graph_out, eager_out)
+    log(f'  phase 5: greedy tokens identical eager and through graphs '
+        f'({sum(map(len, graph_out))} tokens)')
+    for key, launches in (('5 eager', eager5), ('5', paths['5'])):
+        _need(key, launches, [c.__name__ for c in (k1, k2, k3)])
+        if launches[f'{k1.__name__}[split]'] != launches[k1.__name__]:
+            raise AssertionError(f'{k1.__name__} missed the split route on '
+                                 f'the {key} path')
 
     log('[6/8] main path with spec_k 12 and fuse_budget 264: (a) bf16, '
         '(b) int8 KV and weights')
     spec = dict(base, spec_k=12, fuse_budget=264)
-    paths['6a'], _ = serve_path('6a bf16 spec+fused', params,
-                                GeneratorConfig(**spec), counters)
-    paths['6b'], _ = serve_path('6b int8 spec+fused', params, GeneratorConfig(
-        **spec, kv_cache_dtype='int8', weights_dtype='int8'), counters)
+    paths['6a'], _, _ = serve_path('6a bf16 spec+fused', params,
+                                   GeneratorConfig(**spec), counters)
+    paths['6b'], _, _ = serve_path('6b int8 spec+fused', params,
+                                   GeneratorConfig(
+                                       **spec, kv_cache_dtype='int8',
+                                       weights_dtype='int8'), counters)
     for key in ('6a', '6b'):
         _need(key, paths[key], [c.__name__ for c in (k1, k2, k3, k4v, k4f)]
               + [f'{c.__name__}[{r}]' for c in (k4v, k4f)
@@ -1595,12 +1709,12 @@ def main() -> int:
     legacy = dict(base, decode_impl='paged', decode_chunk=16)
     with warnings.catch_warnings():
         warnings.simplefilter('ignore', DeprecationWarning)
-        paths['7a'], mig_a = serve_path('7a paged bf16', params,
-                                        GeneratorConfig(**legacy), counters)
-        paths['7b'], mig_b = serve_path('7b paged int8 KV', params,
-                                        GeneratorConfig(**legacy,
-                                                        kv_cache_dtype='int8'),
-                                        counters)
+        paths['7a'], mig_a, _ = serve_path('7a paged bf16', params,
+                                           GeneratorConfig(**legacy),
+                                           counters)
+        paths['7b'], mig_b, _ = serve_path(
+            '7b paged int8 KV', params,
+            GeneratorConfig(**legacy, kv_cache_dtype='int8'), counters)
         paths['7c'] = generate_path('7c Generator paged bf16', params,
                                     GeneratorConfig(**legacy), counters)
     for key in ('7a', '7b', '7c'):

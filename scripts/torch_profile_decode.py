@@ -9,22 +9,30 @@ Measures, printing one JSON line each:
   decode    - steady decode with all 8 slots live at context ~P: host
               time per batcher.step() (one 16-step chunk ending in its one
               host fetch), the median of 4 chunks (each chunk's time in
-              chunk_ms_all), per step and per token;
+              chunk_ms_all), per step and per token; device memory
+              resident after the chunks and the peak since the batcher
+              was built;
   profile   - torch.profiler over one decode chunk: device-busy share of
-              the wall time, device time by kernel name (top 12), and the
+              the wall time, device time by kernel name (top 12), the
               decode attention's (K1 or K7 with its split-KV combine):
-              calls, ms and ms a call.
+              calls, ms and ms a call, and the gaps between consecutive
+              kernels on the card (from the first kernel's start to the
+              last one's end: the span, the idle time in it, the median
+              and largest gap).
 
 Run from the root of a checkout on a card:
     python3 scripts/torch_profile_decode.py [--prompt 512] [--int8]
-        [--decode-impl pooled paged] [--turns 3]
+        [--decode-impl pooled paged] [--graphs off on] [--turns 3]
 
 --int8 serves the decode chunks with kv_cache_dtype='int8' and
 weights_dtype='int8' (the prefill timing stays bf16).  --decode-impl
 picks the decode planes (default 'pooled'; 'paged' is the bucketed slot
-cache with the K7 kernel); several planes are measured in turns, --turns
-times each, on one set of weights in one process, so that host noise
-shows as the spread between turns of the same plane.
+cache with the K7 kernel); --graphs picks eager chunks ('off',
+graphs=False) or the batcher's CUDA graphs ('on': each timed chunk is a
+replay, its graph captured while the slots were admitted).  Every plane
+and graphs mode is measured in turns, --turns times each, on one set of
+weights in one process, so that host noise shows as the spread between
+turns of the same configuration.
 """
 from __future__ import annotations
 
@@ -92,13 +100,29 @@ def streamed_bytes(tree, key: str = '') -> int:
     return 0 if key == 'embed' else tree.numel() * tree.element_size()
 
 
+def _gaps(kernels) -> dict:
+    """Idle time between consecutive kernels on the card: span from the
+    first start to the last end, the idle ms in it, and the median and
+    largest gap in us (overlapping kernels count no gap)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    gaps, end = [], spans[0][1]
+    for start, stop in spans[1:]:
+        gaps.append(max(0.0, start - end))
+        end = max(end, stop)
+    span_us = end - spans[0][0]
+    return {'span_ms': span_us / 1e3, 'idle_ms': sum(gaps) / 1e3,
+            'gap_us_median': statistics.median(gaps) if gaps else 0.0,
+            'gap_us_max': max(gaps, default=0.0)}
+
+
 def profile_decode(params, cfg, prompt_len: int, int8: bool,
-                   decode_impl: str, turn: int) -> None:
+                   decode_impl: str, graphs: bool, turn: int) -> None:
     dtypes = (dict(kv_cache_dtype='int8', weights_dtype='int8') if int8
               else {})
+    torch.cuda.reset_peak_memory_stats()
     batcher = ContinuousBatcher(params, cfg, GeneratorConfig(
         max_seq_len=2048, batch_size=BATCH, decode_impl=decode_impl,
-        **dtypes), decode_chunk=CHUNK, device='cuda')
+        **dtypes), decode_chunk=CHUNK, device='cuda', graphs=graphs)
     gen = torch.Generator().manual_seed(0)
     for _ in range(BATCH):
         prompt = torch.randint(0, cfg.vocab_size, (prompt_len,),
@@ -113,14 +137,18 @@ def profile_decode(params, cfg, prompt_len: int, int8: bool,
         batcher.step()
         walls.append((time.perf_counter() - t0) * 1e3)
     step_ms = statistics.median(walls) / CHUNK
-    emit('decode', int8=int8, decode_impl=decode_impl, turn=turn,
-         slots=BATCH, context=int(batcher._host_pos.max()),
+    emit('decode', int8=int8, decode_impl=decode_impl, graphs=graphs,
+         turn=turn, slots=BATCH, context=int(batcher._host_pos.max()),
          cache_rows=batcher._cache_len,
          chunk_ms=statistics.median(walls), chunk_ms_all=walls,
          step_ms=step_ms,
          tokens_per_s=BATCH / step_ms * 1e3,
          weights_gb=streamed_bytes(batcher.params) / 1e9,
-         weights_bound_ms=streamed_bytes(batcher.params) / 3.35e12 * 1e3)
+         weights_bound_ms=streamed_bytes(batcher.params) / 3.35e12 * 1e3,
+         graph_captures=batcher.graphs.captures if graphs else 0,
+         graph_capture_s=batcher.graphs.capture_seconds if graphs else 0.0,
+         resident_gb=torch.cuda.memory_allocated() / 1e9,
+         peak_gb=torch.cuda.max_memory_allocated() / 1e9)
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -142,9 +170,10 @@ def profile_decode(params, cfg, prompt_len: int, int8: bool,
             if 'decode_kernel' in n or 'decode_combine_kernel' in n]
     calls = sum(c for n, c, _ in attn if 'decode_kernel' in n)
     attn_ms = sum(t for _, _, t in attn) / 1e3
-    emit('profile', decode_impl=decode_impl, turn=turn,
+    emit('profile', decode_impl=decode_impl, graphs=graphs, turn=turn,
          wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
          device_busy_share=busy_us / wall_us, kernel_launches=len(kernels),
+         gaps=_gaps(kernels),
          decode_attention={
              'calls': calls, 'ms': attn_ms,
              'ms_per_call': attn_ms / calls if calls else None,
@@ -162,6 +191,9 @@ def main() -> int:
                         help='int8 KV arena and int8 weights in decode')
     parser.add_argument('--decode-impl', nargs='+', default=['pooled'],
                         choices=['pooled', 'paged', 'inplace'])
+    parser.add_argument('--graphs', nargs='+', default=['off'],
+                        choices=['off', 'on'],
+                        help="eager chunks ('off') and/or CUDA graphs")
     parser.add_argument('--turns', type=int, default=1)
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -174,11 +206,13 @@ def main() -> int:
     time_prefill(params, cfg, args.prompt)
     for turn in range(args.turns):
         for impl in args.decode_impl:
-            profile_decode(params, cfg, args.prompt, args.int8, impl, turn)
-            # The batcher and its cache are gone: the next plane starts
-            # from the same free memory.
-            gc.collect()
-            torch.cuda.empty_cache()
+            for mode in args.graphs:
+                profile_decode(params, cfg, args.prompt, args.int8, impl,
+                               mode == 'on', turn)
+                # The batcher, its cache and its graphs are gone: the
+                # next configuration starts from the same free memory.
+                gc.collect()
+                torch.cuda.empty_cache()
     return 0
 
 

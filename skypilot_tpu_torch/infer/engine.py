@@ -3,13 +3,14 @@ helpers it shares with the batcher.
 
 Counterpart of skypilot_tpu/infer/engine.py: ``GeneratorConfig`` with
 the same validation errors, ``derive_buckets``, ``derive_cache_buckets``,
-``validate_context``, ``prepare_params``, ``host_fetch`` and
-``Generator`` on every decode plane: the pooled block arena (with
-speculative verify) and the legacy contiguous planes ('paged',
-'inplace', 'scan', 'unroll') with their bucket migrations.  Options the
-port does not carry yet raise ``NotImplementedError`` naming their
-ROADMAP.md item: the prefix cache (item 9), meshes and collective
-overlap (item 10).  Telemetry (item 13) is left out; a Generator keeps
+``validate_context``, ``prepare_params``, ``host_fetch``,
+``commit_step``, ``ChunkGraphs`` (the reference's jitted chunk programs
+as CUDA graphs) and ``Generator`` on every decode plane: the pooled
+block arena (with speculative verify) and the legacy contiguous planes
+('paged', 'inplace', 'scan', 'unroll') with their bucket migrations.
+Options the port does not carry yet raise ``NotImplementedError``
+naming their ROADMAP.md item: the prefix cache (item 9), meshes and
+collective overlap (item 10).  Telemetry (item 13) is left out; a Generator keeps
 its last run's counts in ``last_stats``.
 """
 from __future__ import annotations
@@ -26,6 +27,7 @@ from skypilot_tpu_torch.device import resolve_device
 from skypilot_tpu_torch.infer import block_pool as block_pool_lib
 from skypilot_tpu_torch.infer import llama_infer, quant, sampling
 from skypilot_tpu_torch.infer import spec_decode as spec_decode_lib
+from skypilot_tpu_torch.ops import _kernels
 from skypilot_tpu_torch.ops import decode_attention as decode_attention_ops
 
 
@@ -303,6 +305,165 @@ def commit_step(nxt: torch.Tensor, token: torch.Tensor,
             limit)
 
 
+# One capture stream per device for every engine of the process, as
+# torch.cuda.graph shares one: cuBLAS keeps a workspace for each stream
+# it has run on until the process ends, so a stream per engine would
+# leak a workspace per engine.  (Two engines must not capture at once.)
+_CAPTURE_STREAMS = {}
+
+
+class _CudaGraphs:
+    """The card's side of :class:`ChunkGraphs`: the capture stream and one
+    memory pool for all of an engine's graphs (they never run at once),
+    with the engine's sampling generators registered in each graph so
+    that every replay draws fresh noise."""
+
+    def __init__(self, device: torch.device, generators):
+        self.device = device
+        self.generators = tuple(generators)
+        index = (device.index if device.index is not None
+                 else torch.cuda.current_device())
+        if index not in _CAPTURE_STREAMS:
+            _CAPTURE_STREAMS[index] = torch.cuda.Stream(index)
+        self.stream = _CAPTURE_STREAMS[index]
+        self.pool = torch.cuda.graph_pool_handle()
+
+    def clear(self) -> None:
+        """Start a new memory pool: a pool whose graphs are all gone
+        cannot take another capture.  (The old pool's memory returns to
+        the card when the allocator next empties its cache.)"""
+        self.pool = torch.cuda.graph_pool_handle()
+
+    def eager(self, body):
+        """body() on the capture stream, ordered after the work queued on
+        the current stream and before the work queued on it later."""
+        current = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            out = body()
+        current.wait_stream(self.stream)
+        return out
+
+    def capture(self, body):
+        """(graph, body's outputs): body recorded, not run.  Thread-local
+        capture mode: a handler thread's CUDA work cannot invalidate it.
+        (``torch.cuda.graph`` would also collect garbage and empty the
+        allocator's cache first: seconds in a process that holds tens of
+        GB cached, to free memory that the pool does not need.)"""
+        graph = torch.cuda.CUDAGraph()
+        for generator in self.generators:
+            graph.register_generator_state(generator)
+        torch.cuda.synchronize(self.device)       # as torch.cuda.graph
+        with torch.cuda.stream(self.stream):
+            graph.capture_begin(self.pool, capture_error_mode='thread_local')
+            try:
+                out = body()
+            finally:
+                graph.capture_end()
+        return graph, out
+
+
+@dataclasses.dataclass
+class _Captured:
+    graph: object
+    out: object                    # body's outputs, rewritten by replay()
+    launches: Tuple[int, ...]      # launch counts one replay adds
+
+
+class ChunkGraphs:
+    """An engine's device chunks as CUDA graphs, one per static key: the
+    counterpart of the reference's jit of each chunk program per static
+    argument set (``jax.disable_jit`` is the engines' ``graphs=False``).
+
+    ``run(key, body)``: the first call of a key runs body() eagerly (the
+    chunk's real work, and every first use inside it: the kernel
+    library's load, shared-memory attributes, cached rope tables, cuBLAS
+    workspaces), then captures body into a graph, which launches nothing;
+    each later call replays the graph and returns the tensors that the
+    capture returned, rewritten.  So body must read and write only
+    tensors whose addresses hold across calls (the engine's fixed rows
+    and tables, the arena, the weights), allocate the rest inside itself,
+    and decide nothing on the host from device values; a caller drops the
+    graphs (:meth:`clear`) when it replaces a tensor they read.
+
+    The kernel wrappers count launches in Python (``_kernels.COUNTERS``):
+    a capture ticks them though no kernel runs, and a replay launches
+    without ticking them.  So a capture records the counts it added and
+    restores them, and each replay adds that delta: the counts go on
+    meaning kernels that ran.
+
+    A failed capture or replay raises; nothing falls back to eager.
+    `backend` stands in for the card (tests): ``eager(body)``,
+    ``capture(body) -> (graph, outputs)`` with ``graph.replay()``, and
+    ``clear()``."""
+
+    def __init__(self, device: torch.device, generators=(), backend=None):
+        self.backend = backend or _CudaGraphs(device, generators)
+        self._graphs = {}
+        self.captures = 0
+        self.capture_seconds = 0.0
+        self.replays = 0
+
+    def keys(self):
+        return list(self._graphs)
+
+    def clear(self) -> None:
+        """Drop every graph (their inputs are about to be replaced)."""
+        self._graphs.clear()
+        self.backend.clear()
+
+    def run(self, key, body):
+        entry = self._graphs.get(key)
+        if entry is not None:
+            entry.graph.replay()
+            _kernels.set_launch_counts(
+                [a + b for a, b in zip(_kernels.launch_counts(),
+                                       entry.launches)])
+            self.replays += 1
+            return entry.out
+        out = self.backend.eager(body)
+        start = time.perf_counter()
+        before = _kernels.launch_counts()
+        try:
+            graph, captured = self.backend.capture(body)
+            delta = tuple(a - b for a, b in zip(_kernels.launch_counts(),
+                                                before))
+        finally:
+            _kernels.set_launch_counts(before)
+        self._graphs[key] = _Captured(graph, captured, delta)
+        self.captures += 1
+        self.capture_seconds += time.perf_counter() - start
+        return out
+
+
+def chunk_graphs(graphs: Optional[bool], device: torch.device,
+                 generators=()) -> Optional[ChunkGraphs]:
+    """An engine's ``graphs`` argument resolved: None captures on a CUDA
+    device and runs eagerly on the CPU; True on the CPU raises."""
+    if graphs is None:
+        graphs = device.type == 'cuda'
+    if not graphs:
+        return None
+    if device.type != 'cuda':
+        raise ValueError(f'graphs=True captures CUDA graphs and needs a '
+                         f'CUDA device, got {device}')
+    return ChunkGraphs(device, generators)
+
+
+def run_chunk(graphs: Optional[ChunkGraphs], key, body):
+    """body() through graphs' entry for key, or eagerly without graphs."""
+    return body() if graphs is None else graphs.run(key, body)
+
+
+def store_rows(rows: Sequence[torch.Tensor],
+               values: Sequence[torch.Tensor]) -> None:
+    """Copy a chunk's final carry (token, positions, done, limit) into
+    the engine's fixed rows in place: a graph reads and writes them at
+    their addresses."""
+    for row, value in zip(rows, values):
+        row.copy_(value)
+
+
 @dataclasses.dataclass
 class DecodeState:
     """Host-side view of one generation in flight."""
@@ -322,12 +483,20 @@ class Generator:
     spec_k); the legacy planes allocate the contiguous cache at the
     smallest cache bucket that covers the prompts and migrate it
     (``llama_infer.resize_cache``) when a chunk would cross a bucket
-    edge."""
+    edge.
+
+    On a CUDA device the pooled plane's decode chunk (per n) and verify
+    chunk are captured once as CUDA graphs and replayed (``self.graphs``)
+    across generate() calls, over fixed rows and tables; the legacy
+    planes allocate a fresh cache in every generate() and stay eager."""
 
     def __init__(self, params, config, gen_config: GeneratorConfig =
-                 GeneratorConfig(), mesh=None, device=None):
+                 GeneratorConfig(), mesh=None, device=None,
+                 graphs: Optional[bool] = None):
         """params: on `device` (default: the CUDA card); mesh: not
-        ported yet."""
+        ported yet.  graphs: as ContinuousBatcher's (None = on for a
+        CUDA device on the pooled plane, off on the CPU and on a legacy
+        plane; True on the CPU or on a legacy plane raises)."""
         if mesh is not None:
             raise _deferred('Generator(mesh=...)', 10)
         self.device = resolve_device(device)
@@ -372,6 +541,20 @@ class Generator:
         # Noise of sampled (temperature > 0) generations, reseeded by
         # generate(seed=...).
         self._rng = torch.Generator(device=self.device)
+        # The decode carry (token, positions, done, limit), read and
+        # written in place by every chunk, and the drafter's proposals.
+        self._rows = tuple(
+            torch.zeros((batch,), dtype=dtype, device=self.device)
+            for dtype in (torch.int32, torch.int32, torch.bool, torch.int32))
+        if self._drafter is not None:
+            self._draft = torch.zeros((batch, gen_config.spec_k),
+                                      dtype=torch.int32, device=self.device)
+        if not self.pooled and graphs:
+            raise _deferred(f"graphs=True on the legacy "
+                            f"'{gen_config.decode_impl}' plane of the "
+                            f'Generator', 15)
+        self.graphs = chunk_graphs(graphs if self.pooled else False,
+                                   self.device, (self._rng,))
         # Legacy-plane bucket migrations over the Generator's lifetime.
         self.migrations = {'grow': 0, 'shrink': 0}
         # Counts of the last generate(): seconds to the first token,
@@ -471,12 +654,41 @@ class Generator:
                 self._row_blocks[i].extend(ids)
                 self._tables_dirty = True
 
-    def _upload_tables(self) -> torch.Tensor:
+    def _upload_tables(self) -> None:
+        """Rewrite the one tables tensor in place from the host mirror (a
+        captured graph reads it at its address)."""
         if self._tables_dirty:
-            self._tables_dev = torch.as_tensor(self._host_tables,
-                                               device=self.device)
+            self._tables_dev.copy_(torch.from_numpy(self._host_tables))
             self._tables_dirty = False
-        return self._tables_dev
+
+    def _chunk(self, cache, n: int) -> torch.Tensor:
+        """An n-step decode chunk over the fixed rows, replayed from its
+        graph (key n) when graphs are on; returns the (B, n) token
+        block."""
+        tables = self._tables_dev if self.pooled else None
+
+        def body():
+            token, positions, done, limit = self._rows
+            toks, *carry = self._decode_chunk_impl(token, cache, positions,
+                                                   done, limit, tables, n)
+            store_rows(self._rows, carry)
+            return toks
+        return run_chunk(self.graphs, ('decode', n), body)
+
+    def _verify_chunk(self, cache, draft: np.ndarray):
+        """One verify chunk over the fixed rows on the drafter's (B, k)
+        proposals, replayed from its graph when graphs are on; returns
+        (emitted (B, W), committed (B,))."""
+        self._draft.copy_(torch.from_numpy(draft))
+
+        def body():
+            token, positions, done, limit = self._rows
+            toks, *carry, committed = self._verify_chunk_impl(
+                token, cache, positions, done, limit, self._tables_dev,
+                self._draft)
+            store_rows(self._rows, carry)
+            return toks, committed
+        return run_chunk(self.graphs, ('verify',), body)
 
     def _release_rows(self) -> None:
         """Drop every row's blocks and zero the table mirror, so freed
@@ -594,18 +806,23 @@ class Generator:
         # Device rows: done rows freeze inside a chunk (pad rows start
         # done, a first-token eos finishes a row before any chunk);
         # limit is the budget left after the first token.
-        positions = lens_t.clone()
         host_positions = lens.copy()
         host_done = np.ones((batch,), bool)
         limit0 = np.zeros((batch,), np.int32)
         for i in range(len(prompts)):
             host_done[i] = eos is not None and int(first_host[i]) == eos
             limit0[i] = max_new - 1
-        done_dev = torch.as_tensor(host_done, device=dev)
-        limit_dev = torch.as_tensor(limit0, device=dev)
+        token_row, positions, done_row, limit_row = self._rows
+        token_row.copy_(token)
+        positions.copy_(lens_t)
+        done_row.copy_(torch.from_numpy(host_done))
+        limit_row.copy_(torch.from_numpy(limit0))
 
         decode_seconds = 0.0
         dispatched = 0
+        # Row-steps of the plain chunks in which a row decoded a token
+        # (its position advanced), against the dispatched n x rows.
+        live_steps = 0
         try:
             if absorb(first_host[:, None]):
                 return [out[i] for i in range(len(prompts))]
@@ -625,16 +842,12 @@ class Generator:
                         and live_max + win <= self.gen.max_seq_len
                         and self._spec_policy.should_speculate()):
                     self._ensure_blocks(live, host_positions, win)
-                    tables = self._upload_tables()
-                    draft = torch.as_tensor(
-                        self._drafter.propose_batch(live, batch), device=dev)
+                    self._upload_tables()
+                    draft = self._drafter.propose_batch(live, batch)
                     chunk_start = time.perf_counter()
-                    (toks, token, positions, done_dev, limit_dev,
-                     committed) = self._verify_chunk_impl(
-                         token, cache, positions, done_dev, limit_dev,
-                         tables, draft)
+                    toks, committed = self._verify_chunk(cache, draft)
                     (host_toks, host_positions, host_done,
-                     host_committed) = host_fetch(toks, positions, done_dev,
+                     host_committed) = host_fetch(toks, positions, done_row,
                                                   committed)
                     syncs += 1
                     decode_seconds += time.perf_counter() - chunk_start
@@ -654,18 +867,17 @@ class Generator:
                 if n <= 0:
                     break
                 prev_pos = {i: int(host_positions[i]) for i in live}
-                tables = None
                 if self.pooled:
                     # Growth is a free-list append to the host tables.
                     self._ensure_blocks(live, host_positions, n)
-                    tables = self._upload_tables()
+                    self._upload_tables()
                 else:
                     # Frozen rows (eos, spent budget, pad rows) still
                     # write K/V at their position every step, while the
                     # bucket follows the live rows only: park them at
                     # row 0, inside even the smallest bucket, so a
                     # shrink never leaves a write past the cache's end.
-                    positions = positions.masked_fill(done_dev, 0)
+                    positions.masked_fill_(done_row, 0)
                     # Bucket crossing: this chunk's last write lands at
                     # row live_max + n - 1, so migrate before dispatch.
                     target = cache_bucket_for(self.cache_buckets,
@@ -675,16 +887,18 @@ class Generator:
                                               self.migrations)
                         cache_len = target
                 chunk_start = time.perf_counter()
-                toks, token, positions, done_dev, limit_dev = \
-                    self._decode_chunk_impl(token, cache, positions,
-                                            done_dev, limit_dev, tables, n)
+                toks = self._chunk(cache, n)
                 # ONE transfer for the whole chunk: the token block and
                 # the rows that steer the next iteration.
+                prev_host = host_positions
                 host_toks, host_positions, host_done = host_fetch(
-                    toks, positions, done_dev)
+                    toks, positions, done_row)
                 syncs += 1
                 decode_seconds += time.perf_counter() - chunk_start
                 dispatched += n * len(prompts)
+                # (A legacy plane parked done rows at row 0: no step.)
+                live_steps += int(np.clip(host_positions - prev_host, 0,
+                                          None).sum())
                 if self._drafter is not None:
                     # Keep the n-gram history current through the plain
                     # chunks too: each row's valid prefix is its
@@ -704,6 +918,7 @@ class Generator:
             self.last_stats = {
                 'ttft_s': ttft, 'decode_seconds': decode_seconds,
                 'decode_tokens': dispatched, 'host_fetches': syncs,
+                'live_slot_steps': live_steps,
                 'cache_len': cache_len,
                 'generated_tokens': sum(len(out[i])
                                         for i in range(len(prompts)))}

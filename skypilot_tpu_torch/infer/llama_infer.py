@@ -8,8 +8,9 @@ buckets).  Where the JAX package scanned the layers with
 ``lax.scan``/``fori_loop`` and donated the cache to each jitted program,
 this module runs a plain Python loop over the layers and updates the
 caches IN PLACE (functions return the same dicts they were given).  The
-loop issues each layer's kernels one by one, so at 8B widths a decode
-step is bound by launch overhead on the host; CUDA graphs are later work.
+loop issues each layer's kernels one by one; on the card the engines
+capture whole decode chunks as CUDA graphs (``engine.ChunkGraphs``), so
+a decode, verify or fused step reads no device value on the host.
 
 Kernels on this path (each with a plain PyTorch version for CPU tensors):
 ``ops.rmsnorm.rms_norm`` (every norm), ``ops.attention.flash_attention``
@@ -117,7 +118,10 @@ def _table_rows(table: torch.Tensor, rows: torch.Tensor, bs: int):
     return torch.where(blk_idx >= t_width, 0, blk), rows % bs
 
 
-@functools.lru_cache(maxsize=16)
+# Unbounded: a captured decode graph reads the tables at their address,
+# so an entry must never be evicted (one per prompt bucket, cache bucket
+# and arena capacity, a few KB each).
+@functools.lru_cache(maxsize=None)
 def _rope_tables(head_dim: int, length: int, theta: float,
                  scaling: Optional[tuple], device: torch.device):
     return rope_ops.rope_frequencies(

@@ -36,10 +36,11 @@ def _mask_top_k(logits: torch.Tensor, k: int) -> torch.Tensor:
 def _mask_top_p(logits: torch.Tensor, p) -> torch.Tensor:
     """Nucleus filter: keep the smallest prefix of the sorted
     distribution whose cumulative probability reaches p (the top token
-    always stays).  p: a float or a (B,) tensor (p >= 1 keeps every
-    token of that row)."""
-    p = torch.as_tensor(p, dtype=torch.float32, device=logits.device)
-    if p.dim() == 1:
+    always stays).  p: a float or a (B,) f32 tensor (p >= 1 keeps every
+    token of that row).  A float stays a scalar operand: copying it to
+    the card would be a host-to-device copy, which a CUDA graph cannot
+    capture."""
+    if torch.is_tensor(p):
         p = p[:, None]
     sorted_logits = torch.flip(torch.sort(logits, dim=-1).values, dims=[-1])
     probs = torch.softmax(sorted_logits, dim=-1)

@@ -37,8 +37,15 @@ Counterpart of the core of skypilot_tpu/infer/serving.py
   speculation and no fused steps.
 
 Where the JAX package jitted each piece and donated the arena, this
-module runs eagerly and updates the arena and the per-slot device rows
-in place.  Left for later slices (ROADMAP.md Queue A): telemetry, spans
+module updates the arena and the per-slot device rows in place, in
+fixed buffers.  On a CUDA device each chunk that the reference jits is
+captured once per static key as a CUDA graph and replayed
+(``engine.ChunkGraphs``; ``graphs=False`` runs it eagerly, as on the
+CPU): the plain decode chunk per (n, all_greedy, nucleus), led by the
+cache length on a legacy plane, the verify step per (all_greedy,
+nucleus), and a fused chunk's steps 1..n-1 as the plain chunk of n - 1
+(its step 0, which carries the prompt chunk, stays eager).  Left for
+later slices (ROADMAP.md Queue A): telemetry, spans
 and the cost ledger (item 13), the prefix cache and host tier (item 9),
 and meshes (item 10).
 
@@ -94,13 +101,18 @@ class ContinuousBatcher:
     def __init__(self, params: llama.Params, config: llama.LlamaConfig,
                  gen_config: GeneratorConfig = GeneratorConfig(),
                  decode_chunk: int = 8, max_queue: Optional[int] = None,
-                 device=None):
+                 device=None, graphs: Optional[bool] = None):
         """params: as returned by llama.init_params / params_from_numpy,
         on `device` (default: the CUDA card); gen_config.weights_dtype
         'int8' serves a quantized copy of them.
 
         max_queue: submit() raises PoolExhaustedError (with Retry-After
-        advice) once this many requests wait; None = unbounded."""
+        advice) once this many requests wait; None = unbounded.
+
+        graphs: replay each decode, verify and fused-tail chunk from a
+        CUDA graph captured once per static key (``self.graphs``); None
+        = on for a CUDA device, off on the CPU; False runs every chunk
+        eagerly; True on the CPU raises."""
         self.device = resolve_device(device)
         engine_lib.validate_context(gen_config, config)
         if gen_config.prefill_chunk is not None and \
@@ -143,6 +155,8 @@ class ContinuousBatcher:
             # slot.
             self._slot_cap = np.zeros((batch,), np.int32)
             self._slot_reserved = np.zeros((batch,), np.int32)
+            # One tables tensor for the batcher's lifetime, rewritten in
+            # place (a captured graph reads it at its address).
             self._tables_dev = torch.as_tensor(self._host_tables,
                                                device=self.device)
             self._tables_dirty = False
@@ -179,6 +193,9 @@ class ContinuousBatcher:
         # Noise of sampled (temperature > 0) requests.
         self._rng = torch.Generator(device=dev)
         self._rng.manual_seed(0)
+        # The decode carry, read and written in place by every chunk.
+        self._rows = (self._token, self._positions, self._done, self._limit)
+        self.graphs = engine_lib.chunk_graphs(graphs, dev, (self._rng,))
 
         self._free: List[int] = list(range(batch))
         self._active: Dict[int, _Request] = {}       # slot -> request
@@ -195,6 +212,9 @@ class ContinuousBatcher:
             self._drafter = spec_decode_lib.NgramDrafter(batch,
                                                          gen_config.spec_k)
             self._spec_policy = spec_decode_lib.SpecPolicy()
+            # The drafter's proposals, copied in before each verify step.
+            self._draft = torch.zeros((batch, gen_config.spec_k),
+                                      dtype=torch.int32, device=dev)
         self.spec_proposed = 0
         self.spec_accepted = 0
         # Chunked-prefill piggyback: chunk sizing and fuse counters.
@@ -207,6 +227,10 @@ class ContinuousBatcher:
         # work).
         self.decode_tokens = 0
         self.decode_seconds = 0.0
+        # Slot-steps of the plain and fused decode chunks (n x batch a
+        # chunk) and those of them in which a slot decoded a token.
+        self.slot_steps = 0
+        self.live_slot_steps = 0
 
     # ---- public API ------------------------------------------------------
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 64,
@@ -317,10 +341,13 @@ class ContinuousBatcher:
 
     # ---- slot cache (legacy planes) --------------------------------------
     def _migrate(self, target: int) -> None:
-        """Resize the slot cache's position axis to `target` rows."""
+        """Resize the slot cache's position axis to `target` rows.  The
+        graphs of the old bucket read the old cache: they are dropped."""
         self._cache = engine_lib.migrate_cache(self._cache, self._cache_len,
                                                target, self.migrations)
         self._cache_len = target
+        if self.graphs is not None:
+            self.graphs.clear()
 
     def _grow_for(self, rows: int) -> None:
         """Grow (never shrink) the slot cache to cover `rows` positions:
@@ -400,8 +427,7 @@ class ContinuousBatcher:
 
     def _upload_tables(self) -> None:
         if self._tables_dirty:
-            self._tables_dev = torch.as_tensor(self._host_tables,
-                                               device=self.device)
+            self._tables_dev.copy_(torch.from_numpy(self._host_tables))
             self._tables_dirty = False
 
     # ---- device pieces ---------------------------------------------------
@@ -469,73 +495,116 @@ class ContinuousBatcher:
                            top_ps_t)
         return firsts
 
-    def _decode(self, n: int, all_greedy: bool, nucleus: bool,
-                prefill_lane=None):
-        """n lockstep decode steps with on-device sampling and per-slot
-        EOS/budget tracking; no host sync inside.  Done slots freeze
-        (position and feed token stop advancing) and emit the fill
-        token.  Updates the device rows and the arena in place.
+    def _sample_step(self, logits: torch.Tensor, all_greedy: bool,
+                     nucleus: bool) -> torch.Tensor:
+        """In-loop sampling of a decode step (all_greedy draws no
+        noise)."""
+        if all_greedy:
+            return sampling.sample_logits(logits, temperature=0.0)
+        return sampling.sample_logits_batched(
+            logits, self._rng, self._temp_row, self._top_p_row,
+            top_k=self.gen.top_k, nucleus=nucleus)
 
-        prefill_lane: (pf_tokens, pf_table_row, pf_start) makes step 0
-        the fused forward (llama_infer.fused_step_pooled) that also
-        carries a chunk of the in-flight prompt; steps 1..n-1 are plain.
-        Returns (the (n, B) token block, the chunk's hiddens or None)."""
+    def _decode_steps(self, n: int, all_greedy: bool,
+                      nucleus: bool) -> torch.Tensor:
+        """n plain lockstep decode steps from the fixed rows, with
+        on-device sampling and per-slot EOS/budget tracking; no host
+        sync inside, so a graph can capture it.  Done slots freeze
+        (position and feed token stop advancing) and emit the fill
+        token.  Writes the rows and the cache in place; returns the
+        (n, B) token block."""
         eos = self.gen.eos_token
         fill = eos if eos is not None else 0
-        batch = self._token.shape[0]
-        toks = torch.empty((n, batch), dtype=torch.int32,
-                           device=self.device)
-        token, positions = self._token, self._positions
-        done, limit = self._done, self._limit
-        h_pf = None
-        for i in range(n):
-            if i == 0 and prefill_lane is not None:
-                logits, h_pf, _ = llama_infer.fused_step_pooled(
-                    self.params, token, self.config, self._cache,
-                    positions, self._tables_dev, *prefill_lane)
-            elif self.pooled:
+        token, positions, done, limit = self._rows
+        toks = []
+        for _ in range(n):
+            if self.pooled:
                 logits, _ = llama_infer.decode_step_pooled(
                     self.params, token, self.config, self._cache,
                     positions, self._tables_dev)
             else:
                 logits, _ = self._decode_fn(self.params, token, self.config,
                                             self._cache, positions)
-            if all_greedy:
-                nxt = sampling.sample_logits(logits, temperature=0.0)
-            else:
-                nxt = sampling.sample_logits_batched(
-                    logits, self._rng, self._temp_row, self._top_p_row,
-                    top_k=self.gen.top_k, nucleus=nucleus)
-            toks[i], token, positions, done, limit = engine_lib.commit_step(
-                nxt, token, positions, done, limit, eos=eos, fill=fill)
-        self._token, self._positions = token, positions
-        self._done, self._limit = done, limit
-        return toks, h_pf
+            emit, token, positions, done, limit = engine_lib.commit_step(
+                self._sample_step(logits, all_greedy, nucleus), token,
+                positions, done, limit, eos=eos, fill=fill)
+            toks.append(emit)
+        engine_lib.store_rows(self._rows, (token, positions, done, limit))
+        return torch.stack(toks)
 
-    def _verify(self, draft: torch.Tensor, all_greedy: bool,
-                nucleus: bool):
-        """Speculative chunk on the device: score the spec_k + 1 window
-        (last committed token + the drafter's proposals) in ONE forward,
-        then commit each slot's accepted prefix with the sequential
-        chunk's per-token semantics.  Rejected rows are cursor rollback:
-        positions never advance over them.  Updates the device rows in
-        place; returns (emitted (B, W), committed (B,))."""
-        tokens_w = torch.cat([self._token[:, None], draft], dim=1)
+    def _chunk_key(self, n: int, all_greedy: bool, nucleus: bool):
+        """The static arguments of a plain decode chunk, as the
+        reference's jit of ``_decode``: (n, all_greedy, nucleus), led by
+        the cache length on a legacy plane (one program per bucket)."""
+        key = (n, all_greedy, nucleus)
+        return key if self.pooled else (self._cache_len,) + key
+
+    def _decode(self, n: int, all_greedy: bool, nucleus: bool,
+                prefill_lane=None):
+        """An n-step decode chunk over the fixed rows (_decode_steps),
+        replayed from its graph when graphs are on.
+
+        prefill_lane: (pf_tokens, pf_table_row, pf_start) makes step 0
+        the fused forward (llama_infer.fused_step_pooled) that also
+        carries a chunk of the in-flight prompt; it runs eagerly (its
+        start row is a host int and its table row changes from tick to
+        tick) and leaves its carry in the fixed rows, and steps 1..n-1
+        are the plain chunk of n - 1.
+        Returns (the (n, B) token block, the chunk's hiddens or None)."""
+        blocks, h_pf = [], None
+        if prefill_lane is not None:
+            logits, h_pf, _ = llama_infer.fused_step_pooled(
+                self.params, self._token, self.config, self._cache,
+                self._positions, self._tables_dev, *prefill_lane)
+            eos = self.gen.eos_token
+            emit, *carry = engine_lib.commit_step(
+                self._sample_step(logits, all_greedy, nucleus), *self._rows,
+                eos=eos, fill=eos if eos is not None else 0)
+            engine_lib.store_rows(self._rows, carry)
+            blocks.append(emit[None])
+            n -= 1
+        if n:
+            blocks.append(engine_lib.run_chunk(
+                self.graphs, ('decode',) + self._chunk_key(n, all_greedy,
+                                                           nucleus),
+                lambda: self._decode_steps(n, all_greedy, nucleus)))
+        return (blocks[0] if len(blocks) == 1 else torch.cat(blocks)), h_pf
+
+    def _verify_step(self, all_greedy: bool, nucleus: bool):
+        """The speculative chunk's device work over the fixed rows and
+        draft buffer: score the spec_k + 1 window (last committed token +
+        the drafter's proposals) in ONE forward, then commit each slot's
+        accepted prefix with the sequential chunk's per-token semantics.
+        Rejected rows are cursor rollback: positions never advance over
+        them.  Writes the rows in place; returns (emitted (B, W),
+        committed (B,))."""
+        tokens_w = torch.cat([self._token[:, None], self._draft], dim=1)
         logits, _ = llama_infer.decode_verify_pooled(
             self.params, tokens_w, self.config, self._cache,
             self._positions, self._tables_dev)
         if all_greedy:
-            targets, accepts = sampling.spec_accept_greedy(logits, draft)
+            targets, accepts = sampling.spec_accept_greedy(logits,
+                                                           self._draft)
         else:
             targets, accepts = sampling.spec_accept_sampled(
-                logits, draft, self._rng, self._temp_row, self._top_p_row,
-                top_k=self.gen.top_k, nucleus=nucleus)
+                logits, self._draft, self._rng, self._temp_row,
+                self._top_p_row, top_k=self.gen.top_k, nucleus=nucleus)
         eos = self.gen.eos_token
-        (emitted, self._token, self._positions, self._done, self._limit,
+        (emitted, token, positions, done, limit,
          committed) = spec_decode_lib.accept_window(
             targets, accepts, self._done, self._limit, self._positions,
             self._token, eos=eos, fill=eos if eos is not None else 0)
+        engine_lib.store_rows(self._rows, (token, positions, done, limit))
         return emitted, committed
+
+    def _verify(self, draft: np.ndarray, all_greedy: bool, nucleus: bool):
+        """One verify chunk on the drafter's (B, spec_k) proposals,
+        replayed from its graph (key (all_greedy, nucleus)) when graphs
+        are on.  Returns (emitted (B, W), committed (B,))."""
+        self._draft.copy_(torch.from_numpy(draft))
+        return engine_lib.run_chunk(
+            self.graphs, ('verify', all_greedy, nucleus),
+            lambda: self._verify_step(all_greedy, nucleus))
 
     # ---- scheduling ------------------------------------------------------
     def _request_sampling(self, req: _Request):
@@ -827,6 +896,9 @@ class ContinuousBatcher:
             raise
         host, host_pos = engine_lib.host_fetch(toks.t(), self._positions)
         self.decode_seconds += time.perf_counter() - chunk_start
+        # A slot decoded a token in a step iff its position advanced.
+        self.slot_steps += n * self.gen.batch_size
+        self.live_slot_steps += int((host_pos - self._host_pos).sum())
         self._host_pos = host_pos.astype(np.int64)
         self._observe_chunk(prev_pos, host)
         self._absorb(host)
@@ -877,8 +949,7 @@ class ContinuousBatcher:
         live = list(self._active)
         draft = self._drafter.propose_batch(live, self.gen.batch_size)
         chunk_start = time.perf_counter()
-        toks, committed = self._verify(
-            torch.as_tensor(draft, device=self.device), all_greedy, nucleus)
+        toks, committed = self._verify(draft, all_greedy, nucleus)
         # ONE transfer: the emitted window rows, the positions steering
         # the next tick and each lane's committed count (the host absorbs
         # exactly that prefix; the rest is rejected tail).

@@ -195,8 +195,8 @@ def embed_tokens(params: Params, tokens: torch.Tensor,
     in the table dtype, as the JAX package does)."""
     h = params['embed'][tokens]
     if config.embed_scale != 1.0:
-        h = h * torch.tensor(config.embed_scale, dtype=h.dtype,
-                             device=h.device)
+        h = h * torch.full((), config.embed_scale, dtype=h.dtype,
+                           device=h.device)
     return h
 
 

@@ -24,9 +24,34 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import List, Optional
+from typing import List, Optional, Sequence, Tuple
 
 import torch
+
+# The launch counts of the kernel wrappers, as (wrapper, attribute) pairs
+# (:func:`counter`): one place that a captured CUDA graph reads and writes
+# (infer/engine.py, ChunkGraphs), since a capture runs a wrapper's Python
+# without launching and a replay launches without running it.
+COUNTERS: List[Tuple[object, str]] = []
+
+
+def counter(wrapper, *attrs: str) -> None:
+    """Give `wrapper` the launch counts `attrs`, each starting at 0, and
+    register them in COUNTERS."""
+    for attr in attrs:
+        setattr(wrapper, attr, 0)
+        COUNTERS.append((wrapper, attr))
+
+
+def launch_counts() -> Tuple[int, ...]:
+    """Every registered launch count, in COUNTERS' order."""
+    return tuple(getattr(w, attr) for w, attr in COUNTERS)
+
+
+def set_launch_counts(values: Sequence[int]) -> None:
+    for (w, attr), value in zip(COUNTERS, values):
+        setattr(w, attr, value)
+
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'torch_kernels'

@@ -331,9 +331,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return flash_attention_fwd(q, k, v, causal)[0]
 
 
-flash_attention.launches = 0
-flash_attention.launches_tc = 0
-flash_attention_dq.launches = 0
-flash_attention_dq.launches_tc = 0
-flash_attention_dkv.launches = 0
-flash_attention_dkv.launches_tc = 0
+_kernels.counter(flash_attention, 'launches', 'launches_tc')
+_kernels.counter(flash_attention_dq, 'launches', 'launches_tc')
+_kernels.counter(flash_attention_dkv, 'launches', 'launches_tc')

@@ -485,9 +485,9 @@ def decode_attention_pooled(q: torch.Tensor, k_arena: torch.Tensor,
                                   positions, k_scale, v_scale)[0]
 
 
-decode_attention_pooled.launches = 0
-# Launches with more than one split (a combine pass after the blocks).
-decode_attention_pooled.launches_split = 0
+# launches_split: launches with more than one split (a combine pass
+# after the blocks).
+_kernels.counter(decode_attention_pooled, 'launches', 'launches_split')
 
 
 def _decode_attention_contig_cuda(q: torch.Tensor, k_cache: torch.Tensor,
@@ -542,8 +542,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                                          positions, k_scale, v_scale)[0]
 
 
-decode_attention.launches = 0
-decode_attention.launches_split = 0
+_kernels.counter(decode_attention, 'launches', 'launches_split')
 
 
 def _window_route(q_code: int, head_dim: int) -> bool:
@@ -648,10 +647,9 @@ def decode_window_attention_pooled(q: torch.Tensor, k_arena: torch.Tensor,
         decode_window_attention_pooled)[0]
 
 
-decode_window_attention_pooled.launches = 0
 # Launches on the tensor-core kernel, and with more than one split.
-decode_window_attention_pooled.launches_tc = 0
-decode_window_attention_pooled.launches_split = 0
+_kernels.counter(decode_window_attention_pooled, 'launches', 'launches_tc',
+                 'launches_split')
 
 
 def fused_step_attention_pooled(q_dec: torch.Tensor, q_pf: torch.Tensor,
@@ -688,6 +686,5 @@ def fused_step_attention_pooled(q_dec: torch.Tensor, q_pf: torch.Tensor,
     return o_dec, o_pf[0]
 
 
-fused_step_attention_pooled.launches = 0
-fused_step_attention_pooled.launches_tc = 0
-fused_step_attention_pooled.launches_split = 0
+_kernels.counter(fused_step_attention_pooled, 'launches', 'launches_tc',
+                 'launches_split')
