@@ -81,14 +81,31 @@ Phases (any failure exits non-zero):
    loss_chunk 512, 6 steps).  Prints step time, tokens/s, MFU against
    989e12 (6N with and without the embedding), first and last loss, peak
    memory and launches per step.
+9. checkpoints, LLAMA_1B at phase 8a's settings, under a temp dir that
+   is removed after (fails early without ~28 GB free): (a) Trainer A
+   takes 8 steps with async saves every 4 (keep_last 2); Trainer B,
+   from another seed, restores the latest step, which must be 8 and
+   equal A's state leaf by leaf (torch.equal); one forward and backward
+   run twice from B's state must be bitwise repeatable, and 3 more
+   steps of A and B on the same batches must give identical losses,
+   grad norms and states.  Prints the snapshot stall
+   and write + commit seconds a save, GB/s, restore seconds, and the
+   step time with a save in flight beside 8a's.  (b) `python -m
+   skypilot_tpu_torch.train.train_llama --model-size 1b --seq-len 1024
+   --batch-size 8 --steps 16 --checkpoint-every 4` in a child process,
+   sent SIGTERM once it has printed `saved step 8` and started staging
+   step 12; relaunched with `--resume auto`, it must print `resumed
+   from step N` for the newest committed step N and finish at step 16
+   with a finite loss.  Prints the recovery seconds (relaunch to
+   `resumed from step N`).  Every phase prints its seconds.
 
 Every kernel of a main-path run must launch > 0 times in that run (the
 counts are set to 0 just before it and read just after; a replayed graph
 adds the launches its capture recorded, engine.ChunkGraphs); the window
 kernel must launch from both verify and fused ticks, K7 (and never K1)
-on every phase 7 path, and K2, K3, K5 and K6 from both train paths; K2,
-K5 and K6 only on their tensor-core route, on every path of phases 5 to
-8 (all bf16 at head_dim 128), and K4 on phase 6's paths, where it must
+on every phase 7 path, and K2, K3, K5 and K6 from both train paths and
+9a; K2, K5 and K6 only on their tensor-core route, on every path of
+phases 5 to 9 (all bf16 at head_dim 128), and K4 on phase 6's paths, where it must
 also take its split route; K1 and K7 only on their split route on every
 path of phases 5 to 7 (B KV = 64 < 2 x 132 SMs).  The last lines
 of standard output are
@@ -100,10 +117,13 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -143,6 +163,7 @@ LOGITS_TOL = (2e-4, 1e-4)
 KV_HEADS, GROUP, HEAD_DIM, BS, T_WIDTH = 8, 4, 128, 64, 32
 
 CARD = {}
+HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 def log(msg: str) -> None:
@@ -1572,7 +1593,226 @@ def train_path(label, cfg, batch, seq, steps, train_config, counters):
     del tr
     gc.collect()
     torch.cuda.empty_cache()
+    return launches, stats
+
+
+# ---- phase 9: checkpointing -------------------------------------------------
+
+def _state_gb(cfg, mu_bytes=2):
+    """GB of one checkpoint of `cfg` in bf16: params, mu, nu."""
+    return cfg.num_params() * (2 + mu_bytes + 2) / 1e9
+
+
+def _flat_state(tr):
+    from skypilot_tpu_torch.ckpt import format as ckpt_format
+    named, _ = ckpt_format.flatten_with_keys(tr._state_dict())
+    return named
+
+
+def _sample(name, **labels):
+    from skypilot_tpu_torch.telemetry import metrics
+    return metrics.REGISTRY.get_sample_value(name, labels) or 0.0
+
+
+def _grads_twice(tr, batch):
+    """Is one forward and backward of the train step bitwise
+    repeatable?  Two of them from the trainer's state on one batch."""
+    tokens = {'tokens': tr._to_device(batch['tokens'])}
+    runs = []
+    for _ in range(2):
+        loss = tr._loss_fn(tr.params, tokens)
+        grads = torch.autograd.grad(loss, tr._leaves)
+        runs.append((loss.detach(), grads))
+    (l1, g1), (l2, g2) = runs
+    same = [torch.equal(a, b) for a, b in zip(g1, g2)]
+    spread = max(float((a.float() - b.float()).abs().max()
+                       / b.float().abs().max().clamp_min(1e-30))
+                 for a, b in zip(g1, g2))
+    return torch.equal(l1, l2) and all(same), spread
+
+
+def checkpoint_path(cfg, train_config, counters, root, step_8a_s):
+    """9a: Trainer A takes 8 steps of 8 x 1024 with async interval
+    saves (every 4, keep_last 2); Trainer B from another seed restores
+    the latest step, which must equal A's state leaf by leaf; then both
+    take 3 more steps on the same batches.  Launch counts are taken over
+    the whole run."""
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.train import trainer
+
+    def make(seed):
+        params = llama.init_params(
+            cfg, torch.Generator(device='cuda').manual_seed(seed), 'cuda')
+        return trainer.Trainer(lambda p, b: llama.loss_fn(p, b, cfg), params,
+                               train_config, device='cuda')
+
+    batches = trainer.synthetic_batches(8, 1024, cfg.vocab_size)
+    tr_a = make(0)
+    manager = tr_a.enable_checkpointing(root, save_interval_steps=4,
+                                        keep_last=2, emergency_save=False)
+    snap0 = (_sample('skytpu_ckpt_save_duration_seconds_count',
+                     phase='snapshot'),
+             _sample('skytpu_ckpt_save_duration_seconds_sum',
+                     phase='snapshot'))
+    write0 = (_sample('skytpu_ckpt_save_duration_seconds_count',
+                      phase='write'),
+              _sample('skytpu_ckpt_save_duration_seconds_sum',
+                      phase='write'))
+    bytes0 = _sample('skytpu_ckpt_bytes_written_total')
+    _zero(counters)
+    step_s = []
+    t0 = time.perf_counter()
+    for _ in range(8):
+        start = time.perf_counter()
+        out = tr_a.run_step(next(batches))
+        float(out['loss'])
+        step_s.append(time.perf_counter() - start)
+    loop_s = time.perf_counter() - t0
+    start = time.perf_counter()
+    tr_a.wait_for_checkpoints()
+    drain_s = time.perf_counter() - start
+    saves = (_sample('skytpu_ckpt_save_duration_seconds_count',
+                     phase='write') - write0[0])
+    write_s = (_sample('skytpu_ckpt_save_duration_seconds_sum',
+                       phase='write') - write0[1])
+    snap_s = (_sample('skytpu_ckpt_save_duration_seconds_sum',
+                      phase='snapshot') - snap0[1])
+    written = _sample('skytpu_ckpt_bytes_written_total') - bytes0
+    if manager.all_steps() != [4, 8] or saves != 2:
+        raise AssertionError(f'9a: committed {manager.all_steps()} after '
+                             f'{saves} saves, expected [4, 8]')
+
+    tr_b = make(1)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    restored = tr_b.restore_latest(root)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - start
+    if restored != 8 or tr_b.step != 8 or tr_b.opt_state['count'] != 8:
+        raise AssertionError(f'9a: restored step {restored}, step '
+                             f'{tr_b.step}, count {tr_b.opt_state["count"]}')
+    leaves = 0
+    for (key, a), (_, b) in zip(_flat_state(tr_a), _flat_state(tr_b)):
+        if not torch.equal(a, b):
+            raise AssertionError(f'9a: restored leaf {key} differs')
+        leaves += 1
+    batch = next(batches)
+    deterministic, spread = _grads_twice(tr_b, batch)
+    if not deterministic:
+        raise AssertionError(
+            f'9a: one forward and backward run twice from one state is '
+            f'not bitwise repeatable (largest gradient difference '
+            f'{spread} of the leaf max): a resume can no longer be held '
+            f'to the uninterrupted run bitwise')
+    continued = []
+    for i in range(3):
+        got_a, got_b = tr_a.run_step(batch), tr_b.run_step(batch)
+        pair = [(float(got_a[k]), float(got_b[k]))
+                for k in ('loss', 'grad_norm')]
+        continued.append(pair)
+        if any(x != y or not np.isfinite(x) for x, y in pair):
+            raise AssertionError(f'9a: continued step {i + 1} differs '
+                                 f'after the restore: {pair}')
+        batch = next(batches)
+    launches = _counts(counters)
+    for (key, a), (_, b) in zip(_flat_state(tr_a), _flat_state(tr_b)):
+        if not torch.equal(a, b):
+            raise AssertionError(f'9a: leaf {key} differs 3 steps after '
+                                 f'the restore')
+    stats = {
+        'card': CARD['line'], 'checkpoint_gb': written / saves / 1e9,
+        'leaves': leaves, 'saves': saves,
+        'snapshot_s_per_save': snap_s / saves,
+        'write_commit_s_per_save': write_s / saves,
+        'write_gb_per_s': written / write_s / 1e9,
+        'drain_wait_s': drain_s, 'loop_s_8_steps': loop_s,
+        'step_s': step_s,
+        'step_s_save_in_flight': statistics.median(step_s[4:7]),
+        'step_s_8a': step_8a_s,
+        'restore_s': restore_s,
+        'restore_gb_per_s': written / saves / restore_s / 1e9,
+        'step_bitwise_repeatable': deterministic,
+        'continued_loss_grad_norm_a_b': continued,
+    }
+    log('  9a async saves, restore, continue: ' + json.dumps(stats))
+    tr_a.close()
+    tr_b.close()
+    del tr_a, tr_b
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
+
+
+def recovery_path(root):
+    """9b: a managed job's recovery through the entry point.  The first
+    child trains 16 steps in chunks of 4 and is sent SIGTERM once it has
+    committed step 8 and started staging the next save; the relaunch
+    with --resume auto must resume from the newest committed step and
+    finish."""
+    import signal as signal_module
+    from skypilot_tpu_torch.ckpt import format as ckpt_format
+    cmd = [sys.executable, '-m', 'skypilot_tpu_torch.train.train_llama',
+           '--model-size', '1b', '--seq-len', '1024', '--batch-size', '8',
+           '--steps', '16', '--checkpoint-every', '4',
+           '--checkpoint-dir', root]
+    lines = []
+
+    def run(args, watch):
+        err = open(os.path.join(root, f'stderr{len(args)}.txt'), 'w+')
+        start = time.perf_counter()
+        proc = subprocess.Popen(cmd + args, stdout=subprocess.PIPE,
+                                stderr=err, text=True, cwd=HERE)
+        seen = {}
+        try:
+            for line in proc.stdout:
+                line = line.rstrip('\n')
+                lines.append(line)
+                seen.setdefault(line, time.perf_counter() - start)
+                if watch(line, proc):
+                    break
+            proc.stdout.close()
+            rc = proc.wait(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        err.seek(0)
+        return rc, seen, err.read()
+
+    def stop_after_step_8(line, proc):
+        if line != 'saved step 8':
+            return False
+        staging = ckpt_format.tmp_dir(root, 12)
+        deadline = time.perf_counter() + 30
+        while not os.path.isdir(staging) and time.perf_counter() < deadline:
+            time.sleep(0.05)
+        time.sleep(0.5)                  # inside the save of step 12
+        proc.send_signal(signal_module.SIGTERM)
+        return True
+
+    rc1, seen1, err1 = run([], stop_after_step_8)
+    committed = ckpt_format.latest_step(root)
+    torn = [n for n in os.listdir(root) if n.startswith('.tmp.')]
+    if rc1 != -signal_module.SIGTERM or committed is None or committed < 8:
+        raise AssertionError(f'9b: first run rc {rc1}, newest committed '
+                             f'step {committed}:\n' + '\n'.join(lines)
+                             + err1[-3000:])
+    rc2, seen2, err2 = run(['--resume', 'auto'], lambda line, proc: False)
+    resumed = f'resumed from step {committed}'
+    final = [line for line in seen2 if line.startswith('final: loss=')]
+    if rc2 != 0 or resumed not in seen2 or 'saved step 16' not in seen2 \
+            or not final or not np.isfinite(float(final[0].split()[1][5:])):
+        raise AssertionError(f'9b: relaunch rc {rc2}, expected '
+                             f'{resumed!r}:\n' + '\n'.join(lines)
+                             + err2[-3000:])
+    stats = {
+        'card': CARD['line'], 'newest_committed_at_sigterm': committed,
+        'torn_staging_left': torn,
+        'first_run_s_to_saved_step_8': seen1['saved step 8'],
+        'recovery_s_relaunch_to_resumed': seen2[resumed],
+        'relaunch_s_to_final': seen2[final[0]], 'final': final[0],
+    }
+    log('  9b managed-job recovery: ' + json.dumps(stats))
 
 
 # Launch counts by route: '<name>[tc]' the tensor-core kernels of K2, K5
@@ -1619,10 +1859,24 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     CARD['line'] = nvidia_smi_line()
     CARD['kind'] = torch.cuda.get_device_name(0)
-    log(f'[1/8] device: {CARD["line"]} | torch {torch.__version__} '
+    clock = {'start': time.perf_counter(), 'name': None}
+
+    def phase(msg):
+        """Log the seconds of the phase that ends, then the next one."""
+        now = time.perf_counter()
+        if clock['name']:
+            log(f'  phase {clock["name"]}: {now - clock["start"]:.1f} s')
+        clock.update(start=now, name=msg[1:msg.index('/')])
+        log(msg)
+
+    def last_phase_done():
+        log(f'  phase {clock["name"]}: '
+            f'{time.perf_counter() - clock["start"]:.1f} s')
+
+    phase(f'[1/9] device: {CARD["line"]} | torch {torch.__version__} '
         f'cuda {torch.version.cuda}')
 
-    log('[2/8] build')
+    phase('[2/9] build')
     _kernels.LIBRARY.get()
     log(f'  built {_kernels.LIBRARY.path.name} in '
         f'{_kernels.LIBRARY.build_seconds:.1f} s')
@@ -1638,7 +1892,7 @@ def main() -> int:
                 and info['spill_bytes']:
             raise AssertionError(f'decode kernel {name} spills: {info}')
 
-    log('[3/8] kernels vs plain versions')
+    phase('[3/9] kernels vs plain versions')
     t0 = time.perf_counter()
     decode = check_decode(decode_attention, ptxas)
     contig = check_contig_decode(decode_attention, ptxas)
@@ -1658,13 +1912,12 @@ def main() -> int:
         f'{time_ms(lambda: tiny.add_(1)):.4f} ms; torch.sum over 20 MB '
         f'{time_ms(read.sum):.4f} ms (bound 0.0063)')
     del tiny, read
-    log(f'  phase 3: {time.perf_counter() - t0:.1f} s')
 
-    log('[4/8] slice parity, LLAMA_DEBUG f32, card vs host')
+    phase('[4/9] slice parity, LLAMA_DEBUG f32, card vs host')
     slice_parity()
     train_parity()
 
-    log('[5/8] main path, LLAMA3_8B bf16 behind the HTTP replica')
+    phase('[5/9] main path, LLAMA3_8B bf16 behind the HTTP replica')
     cfg = llama.LLAMA3_8B
     t0 = time.perf_counter()
     params = llama.init_params(
@@ -1690,7 +1943,7 @@ def main() -> int:
             raise AssertionError(f'{k1.__name__} missed the split route on '
                                  f'the {key} path')
 
-    log('[6/8] main path with spec_k 12 and fuse_budget 264: (a) bf16, '
+    phase('[6/9] main path with spec_k 12 and fuse_budget 264: (a) bf16, '
         '(b) int8 KV and weights')
     spec = dict(base, spec_k=12, fuse_budget=264)
     paths['6a'], _, _ = serve_path('6a bf16 spec+fused', params,
@@ -1704,7 +1957,7 @@ def main() -> int:
               + [f'{c.__name__}[{r}]' for c in (k4v, k4f)
                  for r in ('tc', 'split')])
 
-    log("[7/8] legacy plane decode_impl='paged' (K7): (a) bf16 and (b) int8 "
+    phase("[7/9] legacy plane decode_impl='paged' (K7): (a) bf16 and (b) int8 "
         'KV behind the HTTP replica, (c) Generator.generate')
     legacy = dict(base, decode_impl='paged', decode_chunk=16)
     with warnings.catch_warnings():
@@ -1727,21 +1980,45 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    log('[8/8] train path: (a) LLAMA_1B at the bench settings, (b) '
+    phase('[8/9] train path: (a) LLAMA_1B at the bench settings, (b) '
         'LLAMA3_8B widths at depth 2')
     remat = dict(remat=True, remat_policy='dots')
-    paths['8a'] = train_path(
-        '8a LLAMA_1B 8x1024', dataclasses.replace(
-            llama.LLAMA_1B, max_seq_len=2048, loss_chunk=256, **remat),
-        8, 1024, 12, trainer.TrainConfig(warmup_steps=2, total_steps=12),
-        counters)
-    paths['8b'] = train_path(
+    cfg_1b = dataclasses.replace(llama.LLAMA_1B, max_seq_len=2048,
+                                 loss_chunk=256, **remat)
+    paths['8a'], stats_8a = train_path(
+        '8a LLAMA_1B 8x1024', cfg_1b, 8, 1024, 12,
+        trainer.TrainConfig(warmup_steps=2, total_steps=12), counters)
+    paths['8b'], _ = train_path(
         '8b LLAMA3_8B widths, 2 layers, 2x4096', dataclasses.replace(
             llama.LLAMA3_8B, n_layers=2, max_seq_len=4096, loss_chunk=512,
             **remat),
         2, 4096, 6, trainer.TrainConfig(warmup_steps=2, total_steps=6),
         counters)
-    for key in ('8a', '8b'):
+
+    phase('[9/9] checkpoints: (a) LLAMA_1B async saves, restore, continue '
+          '(phase 8a settings), (b) a managed job SIGTERMed and resumed '
+          'through train_llama --resume auto')
+    scratch = tempfile.mkdtemp(prefix='chip_smoke_ckpt_')
+    try:
+        # 9a keeps 2 checkpoints and stages a third; 9b keeps all of 4
+        # (steps 4, 8, 12, 16) and may leave a torn fifth.
+        need_gb = 5 * _state_gb(cfg_1b) + 2
+        free_gb = shutil.disk_usage(scratch).free / 1e9
+        if free_gb < need_gb:
+            raise AssertionError(
+                f'phase 9 needs {need_gb:.1f} GB free under {scratch} for '
+                f'LLAMA_1B checkpoints, {free_gb:.1f} GB are free')
+        log(f'  {free_gb:.1f} GB free under {scratch}, {need_gb:.1f} needed')
+        paths['9a'] = checkpoint_path(
+            cfg_1b, trainer.TrainConfig(warmup_steps=2, total_steps=12),
+            counters, os.path.join(scratch, '9a'), stats_8a['step_time_s'])
+        shutil.rmtree(os.path.join(scratch, '9a'))
+        os.makedirs(os.path.join(scratch, '9b'))
+        recovery_path(os.path.join(scratch, '9b'))
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    last_phase_done()
+    for key in ('8a', '8b', '9a'):
         _need(key, paths[key], [c.__name__ for c in (k2, k3, k5, k6)])
     for key, launches in paths.items():
         # Every path runs bf16 at head_dim 128: the tensor-core route only;
@@ -1792,9 +2069,9 @@ def main() -> int:
     kernels.append(dict(window['combine'],
                         launches=sum(window_split.values()),
                         launches_by_path=window_split))
-    kernels += [entry(train[name, key], counter, (path,))
+    kernels += [entry(train[name, key], counter, keys)
                 for name, counter in (('lse', k2), ('dq', k5), ('dkv', k6))
-                for key, path in (('1b', '8a'), ('8b', '8b'))]
+                for key, keys in (('1b', ('8a', '9a')), ('8b', ('8b',)))]
     log(json.dumps({'kernels': kernels}))
     log(CARD['line'])
     log(json.dumps({'ok': True, 'device': {

@@ -1,24 +1,38 @@
 """One-card training loop: loss, gradients and AdamW in PyTorch.
 
 Counterpart of skypilot_tpu/train/trainer.py on a single card: no mesh and
-no sharding rules (FSDP over several cards comes with the mesh slice),
-and no telemetry or checkpointing yet.  The optimizer is the JAX
-package's ``optax.chain(clip_by_global_norm, adamw(warmup_cosine_decay))``
-written out in torch with optax's numerics, updating the parameters and
-moments in place (the counterpart of the JAX step's donation).
+no sharding rules (FSDP over several cards comes with the mesh slice).
+The optimizer is the JAX package's ``optax.chain(clip_by_global_norm,
+adamw(warmup_cosine_decay))`` written out in torch with optax's numerics,
+updating the parameters and moments in place (the counterpart of the JAX
+step's donation).  Checkpoints go through ``skypilot_tpu_torch.ckpt`` in
+the JAX package's on-disk format, under the JAX Trainer's state keys
+(``_state_dict``), so a run saved by either package resumes in the
+other.  ``fit`` reports the JAX Trainer's metrics and ``train_fit``
+steplog record.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import logging
 import math
 import time
-from typing import Any, Callable, Dict, Iterator, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from skypilot_tpu_torch.ckpt import format as ckpt_format
+from skypilot_tpu_torch.ckpt import manager as ckpt_manager
 from skypilot_tpu_torch.device import resolve_device
+from skypilot_tpu_torch.telemetry import metrics as telemetry_metrics
+from skypilot_tpu_torch.telemetry import steplog
+from skypilot_tpu_torch.telemetry.profiler import profile_window
+from skypilot_tpu_torch.utils import env_contract
+
+logger = logging.getLogger(__name__)
 
 # Dense bf16 tensor-core peak of one H100 SXM (NVIDIA data sheet): the
 # default MFU denominator on a card.  On the CPU, 1e12 as the JAX package.
@@ -167,13 +181,34 @@ def tree_map(fn: Callable[[torch.Tensor], Any], tree: Any) -> Any:
     return fn(tree)
 
 
+# optax's chain state for make_optimizer, as the JAX Trainer checkpoints
+# it: (clip: EmptyState, (adamw's ScaleByAdamState, add_decayed_weights:
+# EmptyState, ScaleByScheduleState)).  The flatten of ckpt.format renders
+# a field as `.name`, so these give the JAX package's leaf keys.
+class EmptyState(NamedTuple):
+    pass
+
+
+class ScaleByAdamState(NamedTuple):
+    count: Any
+    mu: Any
+    nu: Any
+
+
+class ScaleByScheduleState(NamedTuple):
+    count: Any
+
+
 class Trainer:
     """Runs train steps of `loss_fn(params, batch)` on one device.
 
     The trainer owns the parameter tensors it is given: it updates them
     in place.  Entry point as the JAX package's, without the mesh:
     ``Trainer(loss_fn, params, config).fit(batches, num_steps, ...)``;
-    the device is the CUDA card unless `device` says otherwise."""
+    the device is the CUDA card unless `device` says otherwise.  Call
+    ``run_step`` (and ``fit``) on the main thread when emergency saves
+    are on: the signal handler runs there, and the trainer holds it off
+    while a step writes the state."""
 
     def __init__(self, loss_fn: Callable[[Any, Dict[str, torch.Tensor]],
                                          torch.Tensor],
@@ -188,6 +223,8 @@ class Trainer:
         self.opt_state = self.tx.init(self._leaves)
         self.step = 0
         self._loss_fn = loss_fn
+        self._ckpt_managers: Dict[str, ckpt_manager.CheckpointManager] = {}
+        self._auto_ckpt = None  # set by enable_checkpointing
 
     def _to_device(self, value) -> torch.Tensor:
         t = torch.as_tensor(value)
@@ -204,10 +241,27 @@ class Trainer:
         batch = {k: self._to_device(v) for k, v in batch.items()}
         loss = self._loss_fn(self.params, batch)
         grads = torch.autograd.grad(loss, self._leaves)
-        grad_norm = self.tx.update(list(grads), self.opt_state,
-                                   self._leaves)
-        self.step += 1
+        with self._holding_signals():
+            grad_norm = self.tx.update(list(grads), self.opt_state,
+                                       self._leaves)
+            self.step += 1
+        telemetry_metrics.TRAIN_STEPS.inc()
+        if self._auto_ckpt is not None and \
+                self._auto_ckpt.should_save(self.step):
+            # Async: the loop pays only the device->host snapshot (which
+            # also waits for this step); bytes hit disk on the writer
+            # thread while later steps run.
+            self._auto_ckpt.save(self.step, self._state_dict(),
+                                 blocking=False)
         return {'loss': loss.detach(), 'grad_norm': grad_norm}
+
+    def _holding_signals(self):
+        """The optimizer writes the state leaf by leaf: an emergency save
+        that ran in between would commit a mix of two steps.  Hold the
+        auto-checkpoint manager's signals until the state is whole."""
+        if self._auto_ckpt is None:
+            return contextlib.nullcontext()
+        return self._auto_ckpt.hold_signals()
 
     def fit(self, batches: Iterator[Dict[str, np.ndarray]], num_steps: int,
             log_every: int = 10,
@@ -221,28 +275,45 @@ class Trainer:
         at its end.  With tokens_per_batch, tokens/s; with
         flops_per_token as well, MFU = achieved / peak_flops (default:
         989e12, one H100's dense bf16 peak, on a card; 1e12 on the
-        CPU)."""
+        CPU).
+
+        Telemetry as the JAX Trainer's: each warmup step observed
+        (phase=warmup), the steady block as its per-step average
+        (phase=steady), the loss, grad-norm, tokens/s and MFU gauges,
+        and a ``train_fit`` steplog record; the steady block runs inside
+        a ``SKYTPU_PROFILE_DIR`` profiler window."""
         if num_steps <= 0:
             return {'loss': float('nan'), 'step_time_s': float('nan')}
         warmup = min(max(1, min(num_steps // 3, 4)), num_steps - 1)
         last_metrics: Dict[str, torch.Tensor] = {}
         for _ in range(warmup):
+            step_start = time.perf_counter()
             last_metrics = self.run_step(next(batches))
             loss = float(last_metrics['loss'])  # host fetch = barrier
+            telemetry_metrics.TRAIN_STEP_SECONDS.labels(
+                phase='warmup').observe(time.perf_counter() - step_start)
             if log_every:
                 print(f'warmup step {self.step}: loss={loss:.4f}')
         timed = num_steps - warmup
-        start = time.perf_counter()
-        for i in range(timed):
-            last_metrics = self.run_step(next(batches))
-            if log_every and (i + 1) % log_every == 0:
-                print(f'step {self.step} dispatched')
-        final_loss = float(last_metrics['loss'])  # barrier for the block
-        step_time = (time.perf_counter() - start) / timed
+        with profile_window('trainer_fit'):
+            start = time.perf_counter()
+            for i in range(timed):
+                last_metrics = self.run_step(next(batches))
+                if log_every and (i + 1) % log_every == 0:
+                    print(f'step {self.step} dispatched')
+            final_loss = float(last_metrics['loss'])  # barrier, the block
+            step_time = (time.perf_counter() - start) / timed
+        grad_norm = float(last_metrics['grad_norm'])
+        for _ in range(timed):
+            telemetry_metrics.TRAIN_STEP_SECONDS.labels(
+                phase='steady').observe(step_time)
+        telemetry_metrics.TRAIN_LOSS.set(final_loss)
+        telemetry_metrics.TRAIN_GRAD_NORM.set(grad_norm)
         out = {'loss': final_loss, 'step_time_s': step_time,
-               'grad_norm': float(last_metrics['grad_norm'])}
+               'grad_norm': grad_norm}
         if tokens_per_batch:
             out['tokens_per_sec'] = tokens_per_batch / step_time
+            telemetry_metrics.TRAIN_TOKENS_PER_SEC.set(out['tokens_per_sec'])
             if flops_per_token:
                 if peak_flops is None:
                     peak_flops = (H100_BF16_FLOPS
@@ -250,4 +321,145 @@ class Trainer:
                                   else CPU_FLOPS)
                 out['mfu'] = (flops_per_token * out['tokens_per_sec']
                               / peak_flops)
+                telemetry_metrics.TRAIN_MFU.set(out['mfu'])
+        if steplog.enabled():
+            steplog.write({'kind': 'train_fit', 'step': self.step,
+                           'step_time_s': step_time, 'loss': final_loss,
+                           'grad_norm': grad_norm,
+                           'tokens_per_sec': out.get('tokens_per_sec'),
+                           'mfu': out.get('mfu')})
         return out
+
+    # ---- checkpointing (skypilot_tpu_torch.ckpt, the JAX package's
+    # sharded format and state keys) ---------------------------------------
+    def checkpoint_manager(self, path: str, **manager_kwargs):
+        """The (cached) CheckpointManager for one checkpoint root."""
+        manager = self._ckpt_managers.get(path)
+        if manager is None:
+            manager = ckpt_manager.CheckpointManager(path, **manager_kwargs)
+            self._ckpt_managers[path] = manager
+        return manager
+
+    def enable_checkpointing(self, path: str,
+                             save_interval_steps: int = 0,
+                             keep_last: Optional[int] = None,
+                             keep_every: Optional[int] = None,
+                             emergency_save: bool = True):
+        """Attach auto-checkpointing to the step loop: every
+        ``save_interval_steps`` steps run_step kicks off an ASYNC save
+        (the loop stalls only for the device->host snapshot), retention
+        GC applies keep_last/keep_every after each commit, and — with
+        emergency_save — SIGTERM triggers one blocking save of the state
+        between two steps before the process dies.  Returns the
+        manager."""
+        manager = self.checkpoint_manager(
+            path, save_interval_steps=save_interval_steps,
+            keep_last=keep_last, keep_every=keep_every)
+        manager.save_interval_steps = save_interval_steps
+        manager.keep_last = keep_last
+        manager.keep_every = keep_every
+        manager.register_state_provider(
+            lambda: (self.step, self._state_dict()))
+        if emergency_save:
+            manager.install_signal_handlers()
+        self._auto_ckpt = manager
+        return manager
+
+    def _state_dict(self):
+        """The JAX Trainer's state tree: params, and optax's chain state
+        with the one host count as both int32 counts (Adam's and the
+        schedule's, equal in every run)."""
+        count = torch.tensor(self.opt_state['count'], dtype=torch.int32)
+        adam = ScaleByAdamState(
+            count=count,
+            mu=ckpt_format.tree_unflatten(self.params, self.opt_state['mu']),
+            nu=ckpt_format.tree_unflatten(self.params, self.opt_state['nu']))
+        return {'params': self.params,
+                'opt_state': (EmptyState(),
+                              (adam, EmptyState(),
+                               ScaleByScheduleState(count=count)))}
+
+    def save_checkpoint(self, path: str, blocking: bool = True) -> None:
+        """Checkpoint params + optimizer state at the current step.
+
+        blocking=False returns after the device->host snapshot and lets
+        the background writer commit the bytes — call
+        ``wait_for_checkpoints`` (or rely on the atomic commit: an
+        unfinished save is simply invisible to restore)."""
+        self.checkpoint_manager(path).save(self.step, self._state_dict(),
+                                           blocking=blocking)
+
+    def wait_for_checkpoints(self, path: Optional[str] = None) -> None:
+        """Drain in-flight async saves (all roots, or one)."""
+        managers = ([self._ckpt_managers[path]] if path is not None
+                    else list(self._ckpt_managers.values()))
+        for manager in managers:
+            manager.wait_until_finished()
+
+    def close(self) -> None:
+        """Shut down every cached CheckpointManager: drains and joins
+        each async writer thread and uninstalls signal handlers.  Safe
+        to call more than once."""
+        managers, self._ckpt_managers = list(
+            self._ckpt_managers.values()), {}
+        self._auto_ckpt = None
+        for manager in managers:
+            manager.close()
+
+    def _install_restored(self, step: int, restored) -> None:
+        """Copy a restored state into the live tensors, in place: the
+        parameters stay the tensors autograd differentiates against
+        (``_leaves``), so training goes on from the restored values."""
+        adam, _, schedule = restored['opt_state'][1]
+        counts = {int(adam.count), int(schedule.count)}
+        if len(counts) != 1:
+            raise ValueError(f'checkpoint step {step}: Adam count '
+                             f'{int(adam.count)} and schedule count '
+                             f'{int(schedule.count)} differ; this trainer '
+                             f'keeps one count')
+        pairs = [(dst, src) for dsts, srcs in (
+            (self._leaves, tree_leaves(restored['params'])),
+            (self.opt_state['mu'], tree_leaves(adam.mu)),
+            (self.opt_state['nu'], tree_leaves(adam.nu)))
+            for dst, src in zip(dsts, srcs)]
+        for dst, src in pairs:
+            if dst.shape != src.shape or dst.dtype != src.dtype:
+                raise ValueError(
+                    f'checkpoint step {step}: a leaf of shape '
+                    f'{tuple(src.shape)} {src.dtype} for a trainer leaf '
+                    f'of {tuple(dst.shape)} {dst.dtype}')
+        with self._holding_signals(), torch.no_grad():
+            for dst, src in pairs:
+                dst.copy_(src)
+            self.opt_state['count'] = counts.pop()
+            self.step = step
+
+    def restore_checkpoint(self, path: str, step: int) -> None:
+        """Restore an explicit step (hash-verified)."""
+        restored = self.checkpoint_manager(path).restore(
+            step, self._state_dict())
+        self._install_restored(step, restored)
+
+    def restore_latest(self, path: str) -> Optional[int]:
+        """Restore the newest COMMITTED checkpoint under ``path``,
+        skipping uncommitted/corrupt steps.  Returns the restored step,
+        or None when no trustworthy checkpoint exists (state is left
+        untouched).
+
+        Elastic resume: when the checkpoint was written by a different
+        process grid than this run's (``SKYTPU_RESUME_TOPOLOGY``), the
+        manager restores through ``restore_resharded``: each leaf is
+        assembled from its global index-map."""
+        manager = self.checkpoint_manager(path)
+        writer_grid = env_contract.resume_topology()
+        if writer_grid is not None and writer_grid != manager.process_count:
+            logger.info(
+                f'Elastic resume: checkpoint written by a '
+                f'{writer_grid}-process grid, this run has '
+                f'{manager.process_count}; restore will reshard')
+        result = manager.restore_latest(self._state_dict())
+        if result is None:
+            return None
+        step, restored = result
+        self._install_restored(step, restored)
+        return step

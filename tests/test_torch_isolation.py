@@ -61,7 +61,16 @@ def test_scan_covers_the_training_modules():
     scanned = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     assert {'skypilot_tpu_torch/train/trainer.py',
             'skypilot_tpu_torch/train/__init__.py',
+            'skypilot_tpu_torch/train/train_llama.py',
             'skypilot_tpu_torch/ops/losses.py',
+            'skypilot_tpu_torch/ckpt/__init__.py',
+            'skypilot_tpu_torch/ckpt/format.py',
+            'skypilot_tpu_torch/ckpt/manager.py',
+            'skypilot_tpu_torch/ckpt/writer.py',
+            'skypilot_tpu_torch/telemetry/metrics.py',
+            'skypilot_tpu_torch/telemetry/profiler.py',
+            'skypilot_tpu_torch/telemetry/steplog.py',
+            'skypilot_tpu_torch/utils/env_contract.py',
             'scripts/torch_profile_train.py'} <= scanned
 
 
