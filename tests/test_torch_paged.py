@@ -20,6 +20,15 @@ G 2) and max_seq_len <= 128.  Tolerances:
   same); cache rows and f32 hiddens atol 5e-5, int8 rows within one
   step;
 - tokens: identical (greedy, f32).
+
+The module compiles its own JAX programs: the persistent compilation
+cache that tests/conftest.py shares between xdist workers is off while
+it runs (_own_jax_compiles).  In one tier-1 run with 6 workers, this
+module ran first on its worker, its JAX side loaded every program from
+executables another worker had just written, and every f32 prefill
+comparison failed (5.5e-4 in the window hiddens, 2.5e-4 in the cache),
+with the port's side off a float64 recompute and the JAX side on it.
+The window test reports both sides' distance from float64 when it fails.
 """
 import dataclasses
 import warnings
@@ -60,12 +69,48 @@ def _t(x, dtype=None) -> torch.Tensor:
     return t if dtype is None else t.to(dtype)
 
 
+@pytest.fixture(scope='module', autouse=True)
+def _own_jax_compiles():
+    """The persistent compilation cache off for this module (and reset,
+    since JAX decides once whether it uses the cache), restored after."""
+    from jax.experimental.compilation_cache import compilation_cache
+    was = jax.config.jax_enable_compilation_cache
+    jax.config.update('jax_enable_compilation_cache', False)
+    compilation_cache.reset_cache()
+    yield
+    jax.config.update('jax_enable_compilation_cache', was)
+    compilation_cache.reset_cache()
+
+
 @pytest.fixture(scope='module')
 def models():
     """LLAMA_DEBUG f32 weights from one JAX draw, on both sides."""
     jp = j_llama.init_params(j_llama.LLAMA_DEBUG, jax.random.PRNGKey(0))
     tree = jax.tree.map(lambda x: np.asarray(x, np.float32), jp)
     return jp, llama.params_from_numpy(tree, llama.LLAMA_DEBUG, 'cpu')
+
+
+def _f64_window_hiddens(tp, prompt, starts):
+    """The window hiddens through the port's plain path in float64, from
+    the same f32 weights: which side a mismatch moved."""
+    cfg = dataclasses.replace(llama.LLAMA_DEBUG, dtype=torch.float64)
+    params = _tree64(tp)
+    cache = llama_infer.init_cache(cfg, 2, 64, device='cpu')
+    out = []
+    for start in starts:
+        window = np.zeros((24,), np.int32)
+        chunk = prompt[start:start + 24]
+        window[:len(chunk)] = chunk
+        h, _ = llama_infer.prefill_window(params, _t(window), cfg, cache, 1,
+                                          start)
+        out.append(h.numpy())
+    return out
+
+
+def _tree64(tree):
+    if isinstance(tree, dict):
+        return {k: _tree64(v) for k, v in tree.items()}
+    return tree.double()
 
 
 # ---- K7 --------------------------------------------------------------------
@@ -188,7 +233,9 @@ def test_prefill_window_matches_jax(models, kv_dtype):
     j_cache = j_infer.init_cache(jcfg, 2, 64, kv_dtype=kv_dtype)
     t_cache = llama_infer.init_cache(tcfg, 2, 64, kv_dtype=kv_dtype,
                                      device='cpu')
-    for start in (0, 24, 48):
+    starts = (0, 24, 48)
+    f64 = _f64_window_hiddens(tp, prompt, starts)
+    for start, ref in zip(starts, f64):
         window = np.zeros((24,), np.int32)
         chunk = prompt[start:start + 24]
         window[:len(chunk)] = chunk
@@ -198,9 +245,13 @@ def test_prefill_window_matches_jax(models, kv_dtype):
         t_h, _ = llama_infer.prefill_window(tp, _t(window), tcfg, t_cache,
                                             1, start)
         rows = min(24, 64 - start)
+        got, want = _np(t_h)[:rows], _np(j_h)[:rows]
         np.testing.assert_allclose(
-            _np(t_h)[:rows], _np(j_h)[:rows], rtol=0,
-            atol=ROW_ATOL if kv_dtype is None else INT8_LOGITS_ATOL)
+            got, want, rtol=0,
+            atol=ROW_ATOL if kv_dtype is None else INT8_LOGITS_ATOL,
+            err_msg=f'window at {start}: max |port - float64| '
+                    f'{np.abs(got - ref[:rows]).max():.3e}, max |JAX - '
+                    f'float64| {np.abs(want - ref[:rows]).max():.3e}')
     for key in t_cache:
         got, want = _np(t_cache[key]), _np(j_cache[key])
         if key in ('k', 'v') and kv_dtype == 'int8':
