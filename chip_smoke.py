@@ -55,7 +55,8 @@ Phases (any failure exits non-zero):
    fused schedule, the legacy planes and the Generator give the plain
    schedule's tokens (int8 KV aside).  Training parity on the same model:
    first-step gradients under remat False, True and 'dots' on card and
-   host, and 3 Trainer steps (loss, grad_norm) on both.
+   host, and 3 Trainer steps (loss, grad_norm) on both; and the
+   first-step adapter gradients of LoRA-SFT and LoRA-DPO on both.
 5. main path: random LLAMA3_8B bf16 weights on the card behind the HTTP
    replica (ContinuousBatcher, batch 8, max_seq_len 2048, prefill_chunk
    256, decode_chunk 16); 8 requests of 17..700 prompt tokens, 48 new
@@ -97,15 +98,37 @@ Phases (any failure exits non-zero):
    step 12; relaunched with `--resume auto`, it must print `resumed
    from step N` for the newest committed step N and finish at step 16
    with a finite loss.  Prints the recovery seconds (relaunch to
-   `resumed from step N`).  Every phase prints its seconds.
+   `resumed from step N`).
+10. post-training, after the memory of phases 8-9 is freed: random
+   LLAMA3_8B bf16 weights at all 32 layers (remat 'dots', loss_chunk
+   512) as a frozen base.  (a) LoRA-SFT (rank 16, alpha 32, the attn
+   target) through Trainer.fit, 6 steps of 2 x 2048 tokens from a
+   {prompt, completion} JSONL the phase writes: the base never requires
+   grad, its float64 checksum is unchanged, every B has moved; prints
+   step time, tokens/s, completion tokens/s, peak memory, launches a
+   step and MFU with its formula, (4N + 2N_adapted) x tokens/s / 989e12.
+   (b) LoRA-DPO on the same base, 4 steps of 2 pairs x 1024 tokens, beta
+   0.1: the step-0 loss must be log 2 (B = 0: policy = reference), and
+   K2 must run without its lse in the reference passes; prints
+   dpo_metrics.  (c) GRPO on LLAMA_1B (group 8, 2 prompts, 32 new
+   tokens, temperature 1, kl_coef 0.05, 3 steps, the token-band reward):
+   a greedy Generator over the Trainer's live tensors, captured before
+   the steps, must then give a fresh Generator's tokens over a clone of
+   the params; prints rollout and update seconds and the reward.  (d)
+   train_sft (LoRA, checkpoint, --merge-save), train_dpo (LoRA) and
+   train_rl at debug size as child processes: the merged file must equal
+   merge_lora of the restored adapters bitwise and give the same greedy
+   tokens; all finish with finite losses.  Every phase prints its
+   seconds.
 
 Every kernel of a main-path run must launch > 0 times in that run (the
 counts are set to 0 just before it and read just after; a replayed graph
 adds the launches its capture recorded, engine.ChunkGraphs); the window
 kernel must launch from both verify and fused ticks, K7 (and never K1)
 on every phase 7 path, and K2, K3, K5 and K6 from both train paths and
-9a; K2, K5 and K6 only on their tensor-core route, on every path of
-phases 5 to 9 (all bf16 at head_dim 128), and K4 on phase 6's paths, where it must
+9a, and K2 with its lse, K3, K5 and K6 from 10a, 10b and 10c (K1 from
+10c's rollouts); K2, K5 and K6 only on their tensor-core route, on every
+path of phases 5 to 10 (all bf16 at head_dim 128), and K4 on phase 6's paths, where it must
 also take its split route; K1 and K7 only on their split route on every
 path of phases 5 to 7 (B KV = 64 < 2 x 132 SMs).  The last lines
 of standard output are
@@ -1311,6 +1334,58 @@ def train_parity():
     np.testing.assert_allclose(steps['cuda'], steps['cpu'], rtol=1e-5)
 
 
+def post_train_parity():
+    """LoRA-SFT and LoRA-DPO on LLAMA_DEBUG f32, on the card (kernels) and
+    the host (plain versions) from the same base and adapters (B drawn
+    non-zero): first-step adapter gradients at train_parity's bound."""
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.train import dpo, lora, sft, trainer
+
+    cfg = llama.LLAMA_DEBUG
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0), 'cpu')
+    lcfg = lora.LoraConfig(rank=4, alpha=8.0, targets='attn')
+    gen = torch.Generator().manual_seed(2)
+    adapters = trainer.tree_map(
+        lambda t: t if t.any() else 0.02 * torch.randn(
+            t.shape, generator=gen),
+        lora.init_lora(params, lcfg, torch.Generator().manual_seed(1)))
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(1, cfg.vocab_size, (6, 64), dtype=np.int32)
+    mask = (rng.random((6, 63)) > 0.3).astype(np.float32)
+    batches = {
+        'sft': {'tokens': tokens[:4], 'loss_mask': mask[:4]},
+        'dpo': {'tokens_chosen': tokens[:2], 'mask_chosen': mask[:2],
+                'tokens_rejected': tokens[2:4], 'mask_rejected': mask[2:4]},
+    }
+    losses = {
+        'sft': lambda base, ad, b: lora.wrap_loss(
+            lambda p, bb: sft.sft_loss_fn(p, bb, cfg), base, lcfg)(ad, b),
+        'dpo': lambda base, ad, b: dpo.dpo_loss_fn(
+            lora.apply_lora(base, ad, lcfg), base, b, cfg),
+    }
+    for name, loss_fn in losses.items():
+        grads = {}
+        for dev in ('cpu', 'cuda'):
+            ad = trainer.tree_map(lambda t: t.requires_grad_(),
+                                  _clone_to(adapters, dev))
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in batches[name].items()}
+            loss = loss_fn(_clone_to(params, dev), ad, batch)
+            grads[dev] = [g.cpu() for g in torch.autograd.grad(
+                loss, trainer.tree_leaves(ad))]
+        err = 0.0
+        for got, want in zip(grads['cuda'], grads['cpu']):
+            scale = float(want.abs().max())
+            if not float(got.abs().max()) > 0:
+                raise AssertionError(f'LoRA-{name}: a zero adapter gradient')
+            err = max(err, float((got - want).abs().max()) / scale)
+            torch.testing.assert_close(got, want, rtol=1e-4,
+                                       atol=1e-4 * scale)
+        log(f'  LoRA-{name} first-step adapter gradients ({len(grads["cpu"])}'
+            f' leaves): card vs host max err/max|grad| {err:.2e} '
+            f'(tolerance 1e-4)')
+
+
 def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
@@ -1815,9 +1890,352 @@ def recovery_path(root):
     log('  9b managed-job recovery: ' + json.dumps(stats))
 
 
+# ---- phase 10: post-training ------------------------------------------------
+
+def _checksum(tree):
+    """Per leaf, the float64 sum and sum of squares of its elements
+    (taken in slices of 2^26 elements, so a leaf is never copied whole
+    in f64)."""
+    from skypilot_tpu_torch.train.trainer import tree_leaves
+    out = []
+    for leaf in tree_leaves(tree):
+        flat = leaf.detach().reshape(-1)
+        acc = torch.zeros(2, dtype=torch.float64, device=leaf.device)
+        for i in range(0, flat.numel(), 1 << 26):
+            c = flat[i:i + (1 << 26)].double()
+            acc += torch.stack([c.sum(), (c * c).sum()])
+        out.append(tuple(acc.tolist()))
+    return out
+
+
+def _text(rng, n):
+    letters = np.array(list('abcdefghijklmnopqrstuvwxyz   .,'))
+    return ''.join(rng.choice(letters, n))
+
+
+def _write_jsonl(path, rows):
+    with open(path, 'w', encoding='utf-8') as f:
+        for row in rows:
+            f.write(json.dumps(row) + '\n')
+    return path
+
+
+def _post_train_data(root, seed=0):
+    """{prompt, completion} and {prompt, chosen, rejected} JSONL files of
+    random letters from a seed: SFT examples of ~2,300 bytes (a 2,048
+    token row is full: 512 prompt bytes, the rest completion), DPO pairs
+    of ~1,100 bytes, and short files for the debug-size entry points."""
+    rng = np.random.default_rng(seed)
+    sft = _write_jsonl(os.path.join(root, 'sft.jsonl'), [
+        {'prompt': _text(rng, 512), 'completion': _text(rng, 1800)}
+        for _ in range(16)])
+    dpo = _write_jsonl(os.path.join(root, 'dpo.jsonl'), [
+        {'prompt': _text(rng, 256), 'chosen': _text(rng, 900),
+         'rejected': _text(rng, 900)} for _ in range(8)])
+    small_sft = _write_jsonl(os.path.join(root, 'sft_small.jsonl'), [
+        {'prompt': _text(rng, 40), 'completion': _text(rng, 80)}
+        for _ in range(8)])
+    small_dpo = _write_jsonl(os.path.join(root, 'dpo_small.jsonl'), [
+        {'prompt': _text(rng, 30), 'chosen': _text(rng, 50),
+         'rejected': _text(rng, 50)} for _ in range(8)])
+    return sft, dpo, small_sft, small_dpo
+
+
+def _encode(vocab_size):
+    return lambda text: [b % vocab_size for b in text.encode('utf-8')]
+
+
+def _adapted_elements(base, lcfg):
+    from skypilot_tpu_torch.train import lora
+    pattern = re.compile(lcfg.target_pattern)
+    return sum(leaf.numel() for path, leaf in lora._flatten_with_paths(base)
+               if pattern.search('/'.join(path)))
+
+
+def lora_sft_path(base, cfg, data, counters, steps=6):
+    """10a: LoRA-SFT through Trainer.fit on the frozen bf16 base: rank 16,
+    alpha 32 on the attn target, 2 x 2048 tokens a step.  The base never
+    requires grad and its float64 checksum is unchanged after the steps;
+    every B has moved from zero.  Returns (launches, stats)."""
+    from skypilot_tpu_torch.train import lora, sft, trainer
+    lcfg = lora.LoraConfig(rank=16, alpha=32.0, targets='attn')
+    leaves = trainer.tree_leaves(base)
+    if any(t.requires_grad for t in leaves):
+        raise AssertionError('10a: a base leaf requires grad')
+    before = _checksum(base)
+    adapters = lora.init_lora(base, lcfg,
+                              torch.Generator(device='cuda').manual_seed(1))
+    tr = trainer.Trainer(
+        lora.wrap_loss(lambda p, b: sft.sft_loss_fn(p, b, cfg), base, lcfg),
+        adapters, trainer.TrainConfig(learning_rate=1e-4, warmup_steps=2,
+                                      total_steps=steps), device='cuda')
+    masked = []
+
+    def batches():
+        for batch in sft.sft_batches(data, _encode(cfg.vocab_size), 2, 2048):
+            masked.append(float(batch['loss_mask'].sum()))
+            yield batch
+    n = cfg.num_params() - cfg.vocab_size * cfg.d_model
+    n_adapted = _adapted_elements(base, lcfg)
+    torch.cuda.synchronize()
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    _zero(counters)
+    t0 = time.perf_counter()
+    out = tr.fit(batches(), steps, log_every=0, tokens_per_batch=2 * 2048,
+                 flops_per_token=4 * n + 2 * n_adapted,
+                 peak_flops=BF16_FLOPS)
+    wall = time.perf_counter() - t0
+    launches = _counts(counters)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if any(t.requires_grad for t in leaves):
+        raise AssertionError('10a: a base leaf requires grad after fit')
+    if _checksum(base) != before:
+        raise AssertionError('10a: the frozen base changed')
+    unmoved = ['/'.join(p) for p, leaf in lora._flatten_with_paths(tr.params)
+               if p[-1] == 'b' and not float(leaf.detach().abs().max()) > 0]
+    if unmoved or not np.isfinite(out['loss']):
+        raise AssertionError(f'10a: loss {out["loss"]}, B still zero: '
+                             f'{unmoved}')
+    share = sum(masked[:steps]) / (steps * 2 * 2048)
+    stats = {
+        'card': CARD['line'], 'layers': cfg.n_layers,
+        'adapters': lora.split_shapes(tr.params),
+        'tokens_per_step': 2 * 2048, 'steps': steps,
+        'step_time_s': out['step_time_s'],
+        'tokens_per_s': out['tokens_per_sec'],
+        'completion_tokens_per_s': out['tokens_per_sec'] * share,
+        'mfu': out['mfu'],
+        'mfu_formula': f'(4N + 2N_adapted) x tokens/s / '
+                       f'{BF16_FLOPS / 1e12:g}e12, '
+                       f'N = {n} (no embedding), N_adapted = {n_adapted}',
+        'last_loss': out['loss'], 'grad_norm': out['grad_norm'],
+        'fit_wall_s': wall, 'resident_gb_before_fit': resident_gb,
+        'peak_memory_gb': peak_gb,
+        'base_checksum_unchanged': True,
+        'launches_per_step': {k: v / steps for k, v in launches.items()
+                              if v},
+    }
+    log('  10a LoRA-SFT LLAMA3_8B: ' + json.dumps(stats))
+    del tr, adapters
+    return launches, stats
+
+
+def lora_dpo_path(base, cfg, data, counters, steps=4, beta=0.1):
+    """10b: LoRA-DPO on the same base, 2 pairs x 1024 tokens a step: the
+    reference is the base (its passes under no_grad: K2 without its
+    lse).  B = 0 at step 0, so the policy is the reference and the loss
+    must be log 2 to f32 rounding (2 ulps).  Returns (launches, stats)."""
+    import math
+    from skypilot_tpu_torch.train import dpo, lora, trainer
+    lcfg = lora.LoraConfig(rank=16, alpha=32.0, targets='attn')
+    adapters = lora.init_lora(base, lcfg,
+                              torch.Generator(device='cuda').manual_seed(2))
+
+    def loss(ad, batch):
+        return dpo.dpo_loss_fn(lora.apply_lora(base, ad, lcfg), base, batch,
+                               cfg, beta=beta)
+    tr = trainer.Trainer(loss, adapters, trainer.TrainConfig(
+        learning_rate=1e-4, warmup_steps=1, total_steps=steps,
+        weight_decay=0.0), device='cuda')
+    batches = dpo.dpo_batches(data, _encode(cfg.vocab_size), 2, 1024)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(counters)
+    t0 = time.perf_counter()
+    losses = [float(tr.run_step(next(batches))['loss'])
+              for _ in range(steps)]
+    wall = time.perf_counter() - t0
+    launches = _counts(counters)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    batch = {k: torch.as_tensor(v, device='cuda')
+             for k, v in next(batches).items()}
+    metrics = {k: float(v) for k, v in dpo.dpo_metrics(
+        lora.apply_lora(base, tr.params, lcfg), base, batch, cfg,
+        beta=beta).items()}
+    log2 = float(np.float32(math.log(2)))
+    if abs(losses[0] - log2) > 2 * 2 ** -24 or not np.all(
+            np.isfinite(losses)):
+        raise AssertionError(f'10b: step-0 loss {losses[0]!r} is not log 2 '
+                             f'({log2!r}): the reference and the policy '
+                             f'passes compute differently; losses {losses}')
+    no_lse = launches['flash_attention'] - launches['flash_attention[lse]']
+    if no_lse <= 0:
+        raise AssertionError('10b: K2 never ran without its lse (the '
+                             'reference passes)')
+    stats = {'card': CARD['line'], 'pairs_per_step': 2, 'seq_len': 1024,
+             'beta': beta, 'losses': losses, 'step0_minus_log2':
+             losses[0] - log2, 'steps_wall_s': wall,
+             'step_s': wall / steps, 'dpo_metrics': metrics,
+             'peak_memory_gb': peak_gb, 'k2_no_lse_launches': no_lse,
+             'launches_per_step': {k: v / steps for k, v in
+                                   launches.items() if v}}
+    log('  10b LoRA-DPO LLAMA3_8B: ' + json.dumps(stats))
+    del tr, adapters
+    return launches, stats
+
+
+def grpo_path(counters, steps=3):
+    """10c: GRPO on LLAMA_1B at full size (group 8, 2 prompts a step,
+    max_prompt_len 64, 32 new tokens, temperature 1, kl_coef 0.05, the
+    entry point's token-band reward, lr 1e-4 as train_rl's default).  A
+    greedy Generator over the Trainer's live tensors, its graphs
+    captured before the first step, must after the steps give the tokens
+    of a fresh Generator over a clone of the Trainer's params.  Returns
+    (launches, stats)."""
+    from skypilot_tpu_torch.infer.engine import Generator, GeneratorConfig
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.train import rl
+    from skypilot_tpu_torch.train.train_rl import make_rewards
+    from skypilot_tpu_torch.train.trainer import tree_leaves, tree_map
+    cfg = llama.LLAMA_1B
+    params = llama.init_params(
+        cfg, torch.Generator(device='cuda').manual_seed(0), 'cuda')
+    tr = rl.GrpoTrainer(
+        params, cfg, make_rewards(cfg.vocab_size)['token-band'],
+        group_size=8, max_new_tokens=32, max_prompt_len=64, temperature=1.0,
+        learning_rate=1e-4, kl_coef=0.05, total_steps=steps, device='cuda')
+    del params
+    initial = [t.detach().clone() for t in tree_leaves(tr.trainer.params)]
+    gen_config = GeneratorConfig(max_seq_len=tr._gen_config.max_seq_len,
+                                 batch_size=8)
+    live = Generator(tr.trainer.params, cfg, gen_config, device='cuda')
+    probe = [[(7 * (i + 3)) % cfg.vocab_size, 17, 42 + i] for i in range(8)]
+    with torch.no_grad():
+        before = live.generate(probe, max_new_tokens=32)
+    prompts = [[(11 * (i + 1)) % cfg.vocab_size,
+                (13 * (i + 1)) % cfg.vocab_size] for i in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(counters)
+    history = [tr.step(prompts) for _ in range(steps)]
+    launches = _counts(counters)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(np.isfinite(m['loss']) for m in history):
+        raise AssertionError(f'10c: losses {history}')
+    moved = sum(not torch.equal(a, b) for a, b in
+                zip(initial, tree_leaves(tr.trainer.params)))
+    if not moved:
+        raise AssertionError('10c: the policy never changed')
+    clone = tree_map(lambda t: t.detach().clone(), tr.trainer.params)
+    with torch.no_grad():
+        after = live.generate(probe, max_new_tokens=32)
+        fresh = Generator(clone, cfg, gen_config,
+                          device='cuda').generate(probe, max_new_tokens=32)
+    _same_tokens('10c: the live Generator after the updates vs a fresh one '
+                 'over a clone', after, fresh)
+    stats = {
+        'card': CARD['line'], 'group': 8, 'prompts_per_step': 2,
+        'new_tokens': 32, 'kl_coef': 0.05, 'steps': steps,
+        'rollout_s': [m['rollout_s'] for m in history],
+        'update_s': [m['update_s'] for m in history],
+        'reward_mean': [m['reward_mean'] for m in history],
+        'loss': [m['loss'] for m in history],
+        'leaves_moved': f'{moved} of {len(initial)}',
+        'live_greedy_changed_by_the_updates': after != before,
+        'live_generator_graph_replays': live.graphs.replays
+        if live.graphs is not None else 0,
+        'peak_memory_gb': peak_gb,
+        'launches_per_step': {k: v / steps for k, v in launches.items()
+                              if v},
+    }
+    log('  10c GRPO LLAMA_1B: ' + json.dumps(stats))
+    tr.close()
+    del tr, live, clone, initial
+    return launches, stats
+
+
+def _losses(stdout, prefix):
+    return [float(line.split('loss=')[1].split()[0])
+            for line in stdout.splitlines() if line.startswith(prefix)]
+
+
+def entry_points_path(root, small_sft, small_dpo):
+    """10d: train_sft (LoRA, checkpoint, merge), train_dpo (LoRA) and
+    train_rl at debug size as child processes, run side by side.  The
+    merged file must equal, bitwise, merge_lora of the adapters restored
+    from train_sft's checkpoint, and give the same greedy tokens through
+    the Generator; all three must finish with finite losses."""
+    from skypilot_tpu_torch.ckpt import format as ckpt_format
+    from skypilot_tpu_torch.infer.engine import Generator, GeneratorConfig
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.train import lora, sft, trainer
+    ckpt, merged = os.path.join(root, 'ckpt'), os.path.join(root, 'merge')
+    mod = 'skypilot_tpu_torch.train.'
+    cmds = {
+        'sft': [mod + 'train_sft', '--data-file', small_sft, '--seq-len',
+                '128', '--steps', '4', '--log-every', '1', '--lora-rank',
+                '8', '--checkpoint-dir', ckpt, '--merge-save', merged],
+        'dpo': [mod + 'train_dpo', '--data-file', small_dpo, '--seq-len',
+                '96', '--steps', '3', '--log-every', '1', '--lora-rank',
+                '8'],
+        'rl': [mod + 'train_rl', '--model-size', 'debug', '--steps', '3'],
+    }
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen([sys.executable, '-m'] + v, cwd=HERE,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+             for k, v in cmds.items()}
+    outs = {}
+    try:
+        for key, proc in procs.items():
+            out, err = proc.communicate(timeout=300)
+            outs[key] = (proc.returncode, out, err,
+                         time.perf_counter() - t0)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for key, (rc, out, err, _) in outs.items():
+        prefix = 'rl step ' if key == 'rl' else 'step '
+        losses = _losses(out, prefix)
+        if rc != 0 or len(losses) != 3 + (key == 'sft') or not np.all(
+                np.isfinite(losses)):
+            raise AssertionError(f'10d {key}: rc {rc}\n{out}\n{err[-3000:]}')
+    cfg = llama.LLAMA_DEBUG
+    base = llama.init_params(cfg, torch.Generator(device='cuda').manual_seed(0),
+                             'cuda')
+    lcfg = lora.LoraConfig(rank=8)
+    tr = trainer.Trainer(
+        lora.wrap_loss(lambda p, b: sft.sft_loss_fn(p, b, cfg), base, lcfg),
+        lora.init_lora(base, lcfg,
+                       torch.Generator(device='cuda').manual_seed(1)),
+        device='cuda')
+    if tr.restore_latest(ckpt) != 4:
+        raise AssertionError('10d: train_sft did not commit step 4')
+    want = lora.merge_lora(base, tr.params, lcfg)
+    got = ckpt_format.restore_pytree(os.path.join(merged, 'merged'), 0,
+                                     {'params': want})['params']
+    got_leaves = trainer.tree_leaves(got)
+    want_leaves = trainer.tree_leaves(want)
+    if not all(torch.equal(g, w.cpu()) for g, w in
+               zip(got_leaves, want_leaves)):
+        raise AssertionError('10d: the merged file differs from merge_lora '
+                             'of the restored adapters')
+    gen_config = GeneratorConfig(max_seq_len=128, batch_size=2)
+    prompts = [[5, 9, 11], [7, 3, 300, 2]]
+    with torch.no_grad():
+        tokens = [Generator(tree, cfg, gen_config, device='cuda').generate(
+            prompts, max_new_tokens=16)
+            for tree in (trainer.tree_map(lambda t: t.cuda(), got), want)]
+    _same_tokens('10d: greedy tokens of the merged file vs the in-process '
+                 'merge', tokens[0], tokens[1])
+    stats = {'card': CARD['line'],
+             'children_s': {k: v[3] for k, v in outs.items()},
+             'sft_losses': _losses(outs['sft'][1], 'step '),
+             'dpo_losses': _losses(outs['dpo'][1], 'step '),
+             'rl_losses': _losses(outs['rl'][1], 'rl step '),
+             'merged_bitwise': True, 'greedy_tokens': tokens[0]}
+    log('  10d entry points: ' + json.dumps(stats))
+    tr.close()
+
+
 # Launch counts by route: '<name>[tc]' the tensor-core kernels of K2, K5
-# and K6, '<name>[split]' the split-KV launches of K1 and K7.
-ROUTES = {'tc': 'launches_tc', 'split': 'launches_split'}
+# and K6, '<name>[split]' the split-KV launches of K1 and K7, '<name>[lse]'
+# K2's launches that wrote the lse.
+ROUTES = {'tc': 'launches_tc', 'split': 'launches_split',
+          'lse': 'launches_lse'}
 
 
 def _zero(counters):
@@ -1873,10 +2291,10 @@ def main() -> int:
         log(f'  phase {clock["name"]}: '
             f'{time.perf_counter() - clock["start"]:.1f} s')
 
-    phase(f'[1/9] device: {CARD["line"]} | torch {torch.__version__} '
+    phase(f'[1/10] device: {CARD["line"]} | torch {torch.__version__} '
         f'cuda {torch.version.cuda}')
 
-    phase('[2/9] build')
+    phase('[2/10] build')
     _kernels.LIBRARY.get()
     log(f'  built {_kernels.LIBRARY.path.name} in '
         f'{_kernels.LIBRARY.build_seconds:.1f} s')
@@ -1892,7 +2310,7 @@ def main() -> int:
                 and info['spill_bytes']:
             raise AssertionError(f'decode kernel {name} spills: {info}')
 
-    phase('[3/9] kernels vs plain versions')
+    phase('[3/10] kernels vs plain versions')
     t0 = time.perf_counter()
     decode = check_decode(decode_attention, ptxas)
     contig = check_contig_decode(decode_attention, ptxas)
@@ -1913,11 +2331,12 @@ def main() -> int:
         f'{time_ms(read.sum):.4f} ms (bound 0.0063)')
     del tiny, read
 
-    phase('[4/9] slice parity, LLAMA_DEBUG f32, card vs host')
+    phase('[4/10] slice parity, LLAMA_DEBUG f32, card vs host')
     slice_parity()
     train_parity()
+    post_train_parity()
 
-    phase('[5/9] main path, LLAMA3_8B bf16 behind the HTTP replica')
+    phase('[5/10] main path, LLAMA3_8B bf16 behind the HTTP replica')
     cfg = llama.LLAMA3_8B
     t0 = time.perf_counter()
     params = llama.init_params(
@@ -1943,7 +2362,7 @@ def main() -> int:
             raise AssertionError(f'{k1.__name__} missed the split route on '
                                  f'the {key} path')
 
-    phase('[6/9] main path with spec_k 12 and fuse_budget 264: (a) bf16, '
+    phase('[6/10] main path with spec_k 12 and fuse_budget 264: (a) bf16, '
         '(b) int8 KV and weights')
     spec = dict(base, spec_k=12, fuse_budget=264)
     paths['6a'], _, _ = serve_path('6a bf16 spec+fused', params,
@@ -1957,7 +2376,7 @@ def main() -> int:
               + [f'{c.__name__}[{r}]' for c in (k4v, k4f)
                  for r in ('tc', 'split')])
 
-    phase("[7/9] legacy plane decode_impl='paged' (K7): (a) bf16 and (b) int8 "
+    phase("[7/10] legacy plane decode_impl='paged' (K7): (a) bf16 and (b) int8 "
         'KV behind the HTTP replica, (c) Generator.generate')
     legacy = dict(base, decode_impl='paged', decode_chunk=16)
     with warnings.catch_warnings():
@@ -1980,7 +2399,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    phase('[8/9] train path: (a) LLAMA_1B at the bench settings, (b) '
+    phase('[8/10] train path: (a) LLAMA_1B at the bench settings, (b) '
         'LLAMA3_8B widths at depth 2')
     remat = dict(remat=True, remat_policy='dots')
     cfg_1b = dataclasses.replace(llama.LLAMA_1B, max_seq_len=2048,
@@ -1995,7 +2414,7 @@ def main() -> int:
         2, 4096, 6, trainer.TrainConfig(warmup_steps=2, total_steps=6),
         counters)
 
-    phase('[9/9] checkpoints: (a) LLAMA_1B async saves, restore, continue '
+    phase('[9/10] checkpoints: (a) LLAMA_1B async saves, restore, continue '
           '(phase 8a settings), (b) a managed job SIGTERMed and resumed '
           'through train_llama --resume auto')
     scratch = tempfile.mkdtemp(prefix='chip_smoke_ckpt_')
@@ -2017,9 +2436,47 @@ def main() -> int:
         recovery_path(os.path.join(scratch, '9b'))
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
+
+    phase('[10/10] post-training: (a) LoRA-SFT and (b) LoRA-DPO of LLAMA3_8B '
+          'at 32 layers, (c) GRPO on LLAMA_1B, (d) the entry points')
+    gc.collect()
+    torch.cuda.empty_cache()
+    scratch = tempfile.mkdtemp(prefix='chip_smoke_post_')
+    try:
+        sft_data, dpo_data, small_sft, small_dpo = _post_train_data(scratch)
+        cfg_8b = dataclasses.replace(llama.LLAMA3_8B, max_seq_len=2048,
+                                     loss_chunk=512, **remat)
+        t0 = time.perf_counter()
+        base = llama.init_params(
+            cfg_8b, torch.Generator(device='cuda').manual_seed(0), 'cuda')
+        torch.cuda.synchronize()
+        log(f'  LLAMA3_8B bf16 base, {cfg_8b.n_layers} layers: '
+            f'{cfg_8b.num_params() / 1e9:.2f}B params in '
+            f'{time.perf_counter() - t0:.1f} s')
+        sub = time.perf_counter()
+        paths['10a'], _ = lora_sft_path(base, cfg_8b, sft_data, counters)
+        log(f'  10a: {time.perf_counter() - sub:.1f} s')
+        sub = time.perf_counter()
+        paths['10b'], _ = lora_dpo_path(base, cfg_8b, dpo_data, counters)
+        log(f'  10b: {time.perf_counter() - sub:.1f} s')
+        del base
+        gc.collect()
+        torch.cuda.empty_cache()
+        sub = time.perf_counter()
+        paths['10c'], _ = grpo_path(counters)
+        log(f'  10c: {time.perf_counter() - sub:.1f} s')
+        gc.collect()
+        torch.cuda.empty_cache()
+        sub = time.perf_counter()
+        entry_points_path(scratch, small_sft, small_dpo)
+        log(f'  10d: {time.perf_counter() - sub:.1f} s')
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
     last_phase_done()
-    for key in ('8a', '8b', '9a'):
-        _need(key, paths[key], [c.__name__ for c in (k2, k3, k5, k6)])
+    for key in ('8a', '8b', '9a', '10a', '10b', '10c'):
+        _need(key, paths[key], [c.__name__ for c in (k2, k3, k5, k6)]
+              + [f'{k2.__name__}[lse]'])
+    _need('10c', paths['10c'], [k1.__name__])
     for key, launches in paths.items():
         # Every path runs bf16 at head_dim 128: the tensor-core route only;
         # and 8 slots x 8 KV heads < 2 blocks an SM: the split route only.
@@ -2045,7 +2502,7 @@ def main() -> int:
 
     every = tuple(paths)
     kernels = [
-        entry(decode['bf16'], k1, ('5', '6a')),
+        entry(decode['bf16'], k1, ('5', '6a', '10c')),
         entry(decode['int8'], k1, ('6b',)),
         entry(flash, k2, every),
         entry(norm, k3, every),
@@ -2071,7 +2528,8 @@ def main() -> int:
                         launches_by_path=window_split))
     kernels += [entry(train[name, key], counter, keys)
                 for name, counter in (('lse', k2), ('dq', k5), ('dkv', k6))
-                for key, keys in (('1b', ('8a', '9a')), ('8b', ('8b',)))]
+                for key, keys in (('1b', ('8a', '9a', '10c')),
+                                  ('8b', ('8b', '10a', '10b')))]
     log(json.dumps({'kernels': kernels}))
     log(CARD['line'])
     log(json.dumps({'ok': True, 'device': {

@@ -2,7 +2,10 @@
 """Where the time goes in the PyTorch/CUDA port's training step, on the
 card: LLAMA_1B at the reference bench's settings (random bf16 weights,
 8 x 1024 tokens, remat 'dots', loss_chunk 256), or with --8b LLAMA3_8B's
-widths at depth 2 (2 x 4096 tokens, loss_chunk 512).
+widths at depth 2 (2 x 4096 tokens, loss_chunk 512), or with --lora-8b
+a LoRA-SFT step of LLAMA3_8B at all 32 layers (frozen bf16 base, rank 16,
+alpha 32 on the attn target, 2 x 2048 tokens, loss_chunk 512, a prompt
+mask over the first quarter of each row), as chip_smoke.py's phase 10a.
 
 Measures, printing one JSON line each:
   step     - host time of one Trainer.run_step ending in a host fetch of
@@ -14,7 +17,7 @@ Measures, printing one JSON line each:
              kernels by device time.
 
 Run from the root of a checkout on a card:
-    python3 scripts/torch_profile_train.py [--8b]
+    python3 scripts/torch_profile_train.py [--8b | --lora-8b]
 """
 from __future__ import annotations
 
@@ -27,13 +30,14 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 from skypilot_tpu_torch.models import llama  # noqa: E402
-from skypilot_tpu_torch.train import trainer  # noqa: E402
+from skypilot_tpu_torch.train import lora, sft, trainer  # noqa: E402
 
 # Kernel name fragments of each category (first match wins).
 CATEGORIES = (
@@ -72,13 +76,20 @@ def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument('--8b', dest='eight_b', action='store_true',
                         help='LLAMA3_8B widths at depth 2, 2 x 4096 tokens')
+    parser.add_argument('--lora-8b', dest='lora_8b', action='store_true',
+                        help='LoRA-SFT of LLAMA3_8B at 32 layers, 2 x 2048 '
+                             'tokens')
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print('needs a CUDA device', file=sys.stderr)
         return 2
     CARD = card()
     remat = dict(remat=True, remat_policy='dots')
-    if args.eight_b:
+    if args.lora_8b:
+        cfg = dataclasses.replace(llama.LLAMA3_8B, max_seq_len=2048,
+                                  loss_chunk=512, **remat)
+        batch, seq, label = 2, 2048, 'LLAMA3_8B LoRA-SFT, 32 layers'
+    elif args.eight_b:
         cfg = dataclasses.replace(llama.LLAMA3_8B, n_layers=2,
                                   max_seq_len=4096, loss_chunk=512, **remat)
         batch, seq, label = 2, 4096, 'LLAMA3_8B widths, 2 layers'
@@ -88,12 +99,22 @@ def main() -> int:
         batch, seq, label = 8, 1024, 'LLAMA_1B'
     params = llama.init_params(
         cfg, torch.Generator(device='cuda').manual_seed(0), 'cuda')
-    tr = trainer.Trainer(lambda p, b: llama.loss_fn(p, b, cfg), params,
-                         trainer.TrainConfig(warmup_steps=2,
-                                             total_steps=12),
-                         device='cuda')
-    del params
+    train_config = trainer.TrainConfig(warmup_steps=2, total_steps=12)
     batches = trainer.synthetic_batches(batch, seq, cfg.vocab_size)
+    if args.lora_8b:
+        lcfg = lora.LoraConfig(rank=16, alpha=32.0, targets='attn')
+        adapters = lora.init_lora(
+            params, lcfg, torch.Generator(device='cuda').manual_seed(1))
+        tr = trainer.Trainer(
+            lora.wrap_loss(lambda p, b: sft.sft_loss_fn(p, b, cfg), params,
+                           lcfg), adapters, train_config, device='cuda')
+        mask = np.zeros((batch, seq), np.float32)
+        mask[:, seq // 4:] = 1.0
+        batches = ({**b, 'loss_mask': mask} for b in batches)
+    else:
+        tr = trainer.Trainer(lambda p, b: llama.loss_fn(p, b, cfg), params,
+                             train_config, device='cuda')
+    del params
     for _ in range(3):
         float(tr.run_step(next(batches))['loss'])
     walls = []

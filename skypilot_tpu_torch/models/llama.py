@@ -306,4 +306,12 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
             h, params['lm_head'], tokens[:, 1:],
             chunk_size=config.loss_chunk)
     logits = forward(params, tokens[:, :-1], config)
-    return -torch.mean(losses_ops.token_logprobs(logits, tokens[:, 1:]))
+    return -torch.mean(token_logprobs(logits, tokens[:, 1:]))
+
+
+def token_logprobs(logits: torch.Tensor,
+                   targets: torch.Tensor) -> torch.Tensor:
+    """log p(targets) from logits, (..., S) f32: the SFT, DPO and RL
+    losses' per-token term, delegated to the one implementation of the
+    CE numerics in ops/losses.py."""
+    return losses_ops.token_logprobs(logits, targets)

@@ -213,6 +213,8 @@ def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
                     heads, k.shape[2], head_dim, int(bool(causal)),
                     float(head_dim ** -0.5), _strides(q, k, v, o), code)
     _count_route(flash_attention, 'skk_flash_fwd_route', code, head_dim)
+    if need_lse:
+        flash_attention.launches_lse += 1
     return o, lse
 
 
@@ -322,7 +324,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     A CPU tensor takes the plain versions; a CUDA tensor takes the flash
     kernels, which raise on a dtype, shape or layout they do not take.
     When a gradient is wanted this is an autograd Function (K2 with its
-    lse forward, K5 and K6 backward); otherwise K2 writes no lse."""
+    lse forward, K5 and K6 backward); otherwise K2 writes no lse.  On the
+    card, `launches` counts K2's launches and `launches_lse` those that
+    wrote the lse."""
     if q.ndim != 4:
         raise ValueError(f'Expected (B, S, H, D), got {tuple(q.shape)}')
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
@@ -331,6 +335,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return flash_attention_fwd(q, k, v, causal)[0]
 
 
-_kernels.counter(flash_attention, 'launches', 'launches_tc')
+_kernels.counter(flash_attention, 'launches', 'launches_tc', 'launches_lse')
 _kernels.counter(flash_attention_dq, 'launches', 'launches_tc')
 _kernels.counter(flash_attention_dkv, 'launches', 'launches_tc')

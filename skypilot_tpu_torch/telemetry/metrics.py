@@ -21,7 +21,8 @@ TRAIN_STEP_SECONDS = prometheus_client.Histogram(
     'skytpu_train_step_duration_seconds',
     'Train step wall time; phase=warmup covers the first steps (each '
     'ends in a host fetch), phase=steady is the end-to-end-timed block '
-    '(per-step average, one final fetch)',
+    '(per-step average, one final fetch), phase=sync one run_step that '
+    'ends in a device synchronize (SKYTPU_STEP_METRICS set)',
     ['phase'], buckets=_SECONDS[:-1], registry=REGISTRY)
 
 TRAIN_TOKENS_PER_SEC = prometheus_client.Gauge(

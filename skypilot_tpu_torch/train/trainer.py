@@ -18,6 +18,7 @@ import dataclasses
 import functools
 import logging
 import math
+import os
 import time
 from typing import Any, Callable, Dict, Iterator, List, NamedTuple, Optional
 
@@ -38,6 +39,11 @@ logger = logging.getLogger(__name__)
 # default MFU denominator on a card.  On the CPU, 1e12 as the JAX package.
 H100_BF16_FLOPS = 989e12
 CPU_FLOPS = 1e12
+
+# Opt-in per-step sync timing for run_step: a device synchronize per step
+# gives honest step wall times but bills one round trip per step, so it
+# must never be on during fit's end-to-end-timed steady block.
+_STEP_METRICS_ENV = 'SKYTPU_STEP_METRICS'
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,6 +163,12 @@ class Optimizer:
         return g_norm
 
 
+def make_optimizer(config: TrainConfig) -> Optimizer:
+    """The JAX package's ``make_optimizer``: clip by global norm, then
+    AdamW on the warmup-cosine schedule, as one :class:`Optimizer`."""
+    return Optimizer(config)
+
+
 def synthetic_batches(batch_size: int, seq_len: int, vocab_size: int,
                       seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
     """Deterministic synthetic token stream (benches / smoke tests): the
@@ -216,7 +228,7 @@ class Trainer:
                  device=None):
         self.device = resolve_device(device)
         self.config = config
-        self.tx = Optimizer(config)
+        self.tx = make_optimizer(config)
         self.params = tree_map(
             lambda p: p.detach().to(self.device).requires_grad_(), params)
         self._leaves = tree_leaves(self.params)
@@ -237,7 +249,11 @@ class Trainer:
     def run_step(self, batch: Dict[str, np.ndarray]
                  ) -> Dict[str, torch.Tensor]:
         """One step; returns {'loss', 'grad_norm'} as device scalars
-        (reading them waits for the step)."""
+        (reading them waits for the step).  With ``SKYTPU_STEP_METRICS``
+        set, the step ends in a device synchronize and its wall time is
+        observed as ``TRAIN_STEP_SECONDS{phase="sync"}``."""
+        sync = bool(os.environ.get(_STEP_METRICS_ENV))
+        start = time.perf_counter() if sync else 0.0
         batch = {k: self._to_device(v) for k, v in batch.items()}
         loss = self._loss_fn(self.params, batch)
         grads = torch.autograd.grad(loss, self._leaves)
@@ -253,6 +269,11 @@ class Trainer:
             # thread while later steps run.
             self._auto_ckpt.save(self.step, self._state_dict(),
                                  blocking=False)
+        if sync:
+            if self.device.type == 'cuda':
+                torch.cuda.synchronize(self.device)
+            telemetry_metrics.TRAIN_STEP_SECONDS.labels(phase='sync').observe(
+                time.perf_counter() - start)
         return {'loss': loss.detach(), 'grad_norm': grad_norm}
 
     def _holding_signals(self):

@@ -367,7 +367,8 @@ def test_every_wrapper_counts_in_the_registry():
               decode_attention.decode_attention,
               decode_attention.decode_window_attention_pooled,
               decode_attention.fused_step_attention_pooled):
-        for attr in ('launches', 'launches_tc', 'launches_split'):
+        for attr in ('launches', 'launches_tc', 'launches_split',
+                     'launches_lse'):
             if hasattr(w, attr):
                 assert (w.__name__, attr) in registered
 

@@ -62,6 +62,13 @@ def test_scan_covers_the_training_modules():
     assert {'skypilot_tpu_torch/train/trainer.py',
             'skypilot_tpu_torch/train/__init__.py',
             'skypilot_tpu_torch/train/train_llama.py',
+            'skypilot_tpu_torch/train/sft.py',
+            'skypilot_tpu_torch/train/lora.py',
+            'skypilot_tpu_torch/train/dpo.py',
+            'skypilot_tpu_torch/train/rl.py',
+            'skypilot_tpu_torch/train/train_sft.py',
+            'skypilot_tpu_torch/train/train_dpo.py',
+            'skypilot_tpu_torch/train/train_rl.py',
             'skypilot_tpu_torch/ops/losses.py',
             'skypilot_tpu_torch/ckpt/__init__.py',
             'skypilot_tpu_torch/ckpt/format.py',

@@ -587,12 +587,13 @@ def test_flash_forward_tensor_core_kernel(cuda, hd, seq, group, causal):
     q, k, v = (torch.randn(2, seq, h, hd, generator=cuda,
                            device='cuda').bfloat16()
                for h in (heads, heads // group, heads // group))
-    before = (at.flash_attention.launches, at.flash_attention.launches_tc)
+    fa = at.flash_attention
+    before = (fa.launches, fa.launches_tc, fa.launches_lse)
     o, lse = at.flash_attention_fwd(q, k, v, causal, need_lse=True)
     o_only, none = at.flash_attention_fwd(q, k, v, causal, need_lse=False)
     assert none is None and torch.equal(o_only, o)
-    assert (at.flash_attention.launches,
-            at.flash_attention.launches_tc) == (before[0] + 2, before[1] + 2)
+    assert (fa.launches, fa.launches_tc, fa.launches_lse) == (
+        before[0] + 2, before[1] + 2, before[2] + 1)
     assert lse.shape == (2, heads, seq) and lse.is_contiguous()
     want, want_lse = at._flash_fwd_plain(q, k, v, causal)
     _assert_row_close(o, want)
