@@ -28,7 +28,9 @@ Phases (any failure exits non-zero):
    yardstick) are also timed as a replayed CUDA graph (device time
    without the wrapper's host work), and the combine pass alone is held
    to _combine_splits_plain on the partials of K1's bf16 launch and
-   timed.  K4 (the window attention) takes its tensor-core route in bf16
+   timed; K1 and the combine again at the shape of 10c's GRPO rollouts
+   (LLAMA_1B: G 2 over 8 KV heads, 8 slots, a 2-block table), each with
+   its own kernels line entry.  K4 (the window attention) takes its tensor-core route in bf16
    and over an int8 arena (the FMA route in f32), split-KV at both of
    its shapes: checked twice (bitwise), timed eager and as a replayed
    graph beside SDPA's, and its combine pass alone held to
@@ -130,7 +132,7 @@ on every phase 7 path, and K2, K3, K5 and K6 from both train paths and
 10c's rollouts); K2, K5 and K6 only on their tensor-core route, on every
 path of phases 5 to 10 (all bf16 at head_dim 128), and K4 on phase 6's paths, where it must
 also take its split route; K1 and K7 only on their split route on every
-path of phases 5 to 7 (B KV = 64 < 2 x 132 SMs).  The last lines
+path of phases 5 to 7 and 10c (B KV = 64 < 2 x 132 SMs).  The last lines
 of standard output are
 the {"kernels": [...]} line, the nvidia-smi name/power-limit line, and
 {"ok": true, "device": {...}}.
@@ -718,12 +720,12 @@ def check_decode(decode_attention, ptxas):
 
 
 def _check_combine(da, q, k, v, tables, layer, positions, capacity, out,
-                   ptxas):
+                   ptxas, name='decode_combine'):
     """The combine kernel alone on the partials that K1's bf16 launch
     left in its scratch, against _combine_splits_plain (per row: both sum
     the same f32 terms in f32) and bitwise against the launch's own
-    output; returns its kernels line entry."""
-    batch = q.shape[0]
+    output; returns its kernels line entry, named `name`."""
+    batch, group = q.shape[0], q.shape[2]
     _, scratch, split_len = da._decode_attention_cuda(
         q, k, v, tables, layer, positions, None, None)
     if scratch is None:
@@ -741,20 +743,19 @@ def _check_combine(da, q, k, v, tables, layer, positions, capacity, out,
                                         live).to(q.dtype)
 
     got, want = kernel(), plain()
-    err = check_close('decode_combine bf16', got, want, row_tol(want))
+    err = check_close(f'{name} bf16', got, want, row_tol(want))
     if not torch.equal(got, out):
-        raise AssertionError('decode_combine: not the split launch\'s '
-                             'output')
-    parts = int(live.sum()) * KV_HEADS * GROUP
+        raise AssertionError(f'{name}: not the split launch\'s output')
+    parts = int(live.sum()) * KV_HEADS * group
     nbytes = parts * (HEAD_DIM + 2) * 4 + got.numel() * 2 + batch * 4
     b_ms, by = bound(nbytes, parts * HEAD_DIM * 2, BF16_FLOPS)
     return {
-        'name': 'decode_combine', 'route': 'cuda',
+        'name': name, 'route': 'cuda',
         'source': 'skypilot_tpu_torch/csrc/paged_decode.cu',
         'replaces': 'skypilot_tpu/ops/decode_attention.py:356',
         'shape': f'partials of K1 bf16: {acc.shape[2]} splits of '
                  f'{split_len} keys, {int(live.sum())} live over {batch} '
-                 f'slots, G {GROUP}, hd {HEAD_DIM}',
+                 f'slots, G {group}, hd {HEAD_DIM}',
         'max_abs_err': err, 'ms': time_ms(kernel),
         'graph_ms': graph_ms(kernel), 'plain_ms': time_ms(plain),
         'bound_ms': b_ms, 'bound_by': by, 'library_ms': None,
@@ -811,6 +812,79 @@ def check_decode_long(da):
         'library_ms': time_ms(lambda: sdpa(qs, kt, vt)),
         'library_graph_ms': graph_ms(lambda: sdpa(qs, kt, vt)),
     }
+
+
+# K1 at the shape of phase 10c's GRPO rollouts: LLAMA_1B (16 query heads
+# over 8 KV heads, G 2, hd 128), the Generator's 8 slots over an arena of
+# 128 rows (prompt 64 + 32 new tokens + 1, to a power of two), T 2.
+GRPO_GROUP, GRPO_T_WIDTH = 2, 2
+
+
+def check_decode_grpo(da, ptxas):
+    """K1 bf16 at G 2 (the NG 4 instantiation with half its rows masked
+    off) against its plain version, twice bitwise, on a poisoned arena,
+    timed; then the combine alone on that launch's partials.  Returns
+    the kernels line entries of both."""
+    gen = torch.Generator(device='cuda').manual_seed(10)
+    batch, layer = 8, 1
+    n_blocks = 1 + batch * GRPO_T_WIDTH
+    capacity = GRPO_T_WIDTH * BS
+    # The rollouts' positions (2..35 from 10c's 2-token prompts), those of
+    # a full 64-token prompt (64..97), the block edges and the table end.
+    positions = torch.tensor([2, 35, BS - 1, BS, BS + 2, 80, 97,
+                              capacity - 1], dtype=torch.int32,
+                             device='cuda')
+    last = positions.tolist()
+    tables = _tables(last, n_blocks, 10, GRPO_T_WIDTH)
+    splits, split_len = _split_of(da, batch, capacity)
+    q = torch.randn(batch, KV_HEADS, GRPO_GROUP, HEAD_DIM, generator=gen,
+                    device='cuda').to(torch.bfloat16)
+    k, v, _, _ = _arena(gen, torch.bfloat16, n_blocks, False)
+
+    def kernel(k=k, v=v):
+        return da.decode_attention_pooled(q, k, v, tables, layer, positions)
+
+    def plain():
+        return da._decode_attention_plain(q, k, v, tables, layer, positions)
+
+    out = kernel()
+    err = check_close('decode_attention_pooled bf16 G 2', out, plain())
+    if not torch.equal(kernel(), out):
+        raise AssertionError('decode_attention_pooled G 2: two calls differ')
+    k2, v2 = _poison(k, v, tables, last, layer)
+    if not torch.equal(kernel(k2, v2), out):
+        raise AssertionError('decode_attention_pooled G 2 read keys past a '
+                             'position or outside its table')
+    del k2, v2
+    combine = _check_combine(da, q, k, v, tables, layer, positions, capacity,
+                             out, ptxas, name='decode_combine[G2]')
+    live_keys = int(torch.clamp_max(positions.long() + 1, capacity).sum())
+    nbytes = (2 * q.numel() * 2 + _kv_bytes(live_keys, k)
+              + tables.numel() * 4 + batch * 4)
+    b_ms, by = bound(nbytes,
+                     4 * HEAD_DIM * KV_HEADS * GRPO_GROUP * live_keys,
+                     BF16_FLOPS)
+    kt, vt = _gathered(k, v, None, None, tables, layer, torch.bfloat16)
+    qs = q.reshape(batch, KV_HEADS * GRPO_GROUP, 1, HEAD_DIM)
+    mask = (torch.arange(kt.shape[2], device='cuda')[None, :]
+            <= positions.long()[:, None])[:, None, None, :]
+    entry = {
+        'name': 'decode_attention_pooled[G2]', 'route': 'cuda',
+        'source': 'skypilot_tpu_torch/csrc/paged_decode.cu',
+        'replaces': 'skypilot_tpu/ops/decode_attention.py:356',
+        'shape': f'q ({batch}, {KV_HEADS}, {GRPO_GROUP}, {HEAD_DIM}) bf16, '
+                 f'bf16 arena, BS {BS} T {GRPO_T_WIDTH}, positions {last}, '
+                 f'live keys {live_keys}',
+        'splits': splits, 'split_len': split_len,
+        'max_abs_err': err, 'ms': time_ms(kernel),
+        'graph_ms': graph_ms(kernel),
+        'plain_ms': time_ms(plain), 'bound_ms': b_ms, 'bound_by': by,
+        'library_ms': time_ms(lambda: sdpa(qs, kt, vt, attn_mask=mask)),
+        'library_graph_ms': graph_ms(
+            lambda: sdpa(qs, kt, vt, attn_mask=mask)),
+        **_decode_ptxas(ptxas, ('pooled', 'bf16')),
+    }
+    return entry, combine
 
 
 # Mangled-name fragments of the timed K4 tensor-core instantiations
@@ -2313,6 +2387,8 @@ def main() -> int:
     phase('[3/10] kernels vs plain versions')
     t0 = time.perf_counter()
     decode = check_decode(decode_attention, ptxas)
+    decode['g2'], decode['combine g2'] = check_decode_grpo(decode_attention,
+                                                           ptxas)
     contig = check_contig_decode(decode_attention, ptxas)
     window = check_window(decode_attention, ptxas)
     flash, norm = check_flash(attention, ptxas), check_rmsnorm(rmsnorm)
@@ -2481,7 +2557,8 @@ def main() -> int:
         # Every path runs bf16 at head_dim 128: the tensor-core route only;
         # and 8 slots x 8 KV heads < 2 blocks an SM: the split route only.
         route = [(c, 'tc') for c in (k2, k5, k6)]
-        route += [(c, 'split') for c in (k1, k7) if key[0] in '567']
+        route += [(c, 'split') for c in (k1, k7)
+                  if key[0] in '567' or key == '10c']
         route += [(c, 'tc') for c in (k4v, k4f) if key[0] == '6']
         for c, r in route:
             if launches[f'{c.__name__}[{r}]'] != launches[c.__name__]:
@@ -2502,7 +2579,8 @@ def main() -> int:
 
     every = tuple(paths)
     kernels = [
-        entry(decode['bf16'], k1, ('5', '6a', '10c')),
+        entry(decode['bf16'], k1, ('5', '6a')),
+        entry(decode['g2'], k1, ('10c',)),
         entry(decode['int8'], k1, ('6b',)),
         entry(flash, k2, every),
         entry(norm, k3, every),
@@ -2520,6 +2598,9 @@ def main() -> int:
     kernels.append(dict(decode['combine'],
                         launches=sum(split_paths.values()),
                         launches_by_path=split_paths))
+    grpo_split = {'10c': paths['10c'][f'{k1.__name__}[split]']}
+    kernels.append(dict(decode['combine g2'], launches=grpo_split['10c'],
+                        launches_by_path=grpo_split))
     # K4's combine runs inside every split launch of K4.
     window_split = {k: sum(paths[k][f'{c.__name__}[split]']
                            for c in (k4v, k4f)) for k in ('6a', '6b')}

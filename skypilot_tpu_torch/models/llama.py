@@ -309,9 +309,6 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
     return -torch.mean(token_logprobs(logits, tokens[:, 1:]))
 
 
-def token_logprobs(logits: torch.Tensor,
-                   targets: torch.Tensor) -> torch.Tensor:
-    """log p(targets) from logits, (..., S) f32: the SFT, DPO and RL
-    losses' per-token term, delegated to the one implementation of the
-    CE numerics in ops/losses.py."""
-    return losses_ops.token_logprobs(logits, targets)
+# log p(targets) from logits, (..., S) f32: the JAX package's
+# llama.token_logprobs, the one implementation in ops/losses.py.
+token_logprobs = losses_ops.token_logprobs

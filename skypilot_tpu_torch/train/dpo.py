@@ -24,21 +24,13 @@ import torch
 import torch.nn.functional as F
 
 from skypilot_tpu_torch.models import llama
-from skypilot_tpu_torch.ops import losses as losses_ops
 from skypilot_tpu_torch.train import sft as sft_lib
 
 
 def _sequence_logprobs(params, tokens: torch.Tensor, mask: torch.Tensor,
                        config: llama.LlamaConfig) -> torch.Tensor:
     """(B,) summed logprob of masked TARGET tokens (tokens[:, 1:])."""
-    if config.loss_chunk:
-        h = llama.hidden_states(params, tokens[:, :-1], config)
-        lp = losses_ops.chunked_token_logprobs(
-            h, params['lm_head'], tokens[:, 1:],
-            chunk_size=config.loss_chunk)
-    else:
-        logits = llama.forward(params, tokens[:, :-1], config)
-        lp = losses_ops.token_logprobs(logits, tokens[:, 1:])
+    lp = sft_lib.token_logprobs(params, tokens, config)
     return (lp * mask.to(lp.dtype)).sum(dim=-1)
 
 

@@ -22,6 +22,7 @@ import torch
 
 from skypilot_tpu_torch.device import resolve_device
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.train import sft
 
 
 def group_advantages(rewards: np.ndarray, group_size: int,
@@ -35,13 +36,6 @@ def group_advantages(rewards: np.ndarray, group_size: int,
     mean = groups.mean(axis=1, keepdims=True)
     std = groups.std(axis=1, keepdims=True)
     return ((groups - mean) / (std + eps)).reshape(-1)
-
-
-def _token_logprobs(params: llama.Params, tokens: torch.Tensor,
-                    config: llama.LlamaConfig) -> torch.Tensor:
-    """log p(tokens[:, 1:]) under the policy, (B, T-1) f32."""
-    logits = llama.forward(params, tokens[:, :-1], config)
-    return llama.token_logprobs(logits, tokens[:, 1:])
 
 
 def grpo_loss(params: llama.Params, batch: Dict[str, torch.Tensor],
@@ -59,12 +53,12 @@ def grpo_loss(params: llama.Params, batch: Dict[str, torch.Tensor],
     tokens = batch['tokens']
     mask = batch['completion_mask'].float()
     adv = batch['advantage'].float()[:, None]
-    logprobs = _token_logprobs(params, tokens, config)
+    logprobs = sft.token_logprobs(params, tokens, config)
     denom = torch.clamp(mask.sum(), min=1.0)
     pg = -(adv * logprobs * mask).sum() / denom
     if kl_coef and ref_params is not None:
         with torch.no_grad():
-            ref_lp = _token_logprobs(ref_params, tokens, config)
+            ref_lp = sft.token_logprobs(ref_params, tokens, config)
         d = ref_lp - logprobs
         kl = ((torch.exp(d) - d - 1.0) * mask).sum() / denom
         return pg + kl_coef * kl

@@ -19,6 +19,20 @@ from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.ops import losses as losses_ops
 
 
+def token_logprobs(params, tokens: torch.Tensor,
+                   config: llama.LlamaConfig) -> torch.Tensor:
+    """(B, S) f32 log p(tokens[:, 1:]) under params: the blockwise CE
+    when config.loss_chunk is set (never the full (B, S, V) logits),
+    else the full logits.  The SFT, DPO and GRPO losses all call it."""
+    if config.loss_chunk:
+        h = llama.hidden_states(params, tokens[:, :-1], config)
+        return losses_ops.chunked_token_logprobs(
+            h, params['lm_head'], tokens[:, 1:],
+            chunk_size=config.loss_chunk)
+    logits = llama.forward(params, tokens[:, :-1], config)
+    return llama.token_logprobs(logits, tokens[:, 1:])
+
+
 def sft_loss_fn(params, batch: Dict[str, torch.Tensor],
                 config: llama.LlamaConfig) -> torch.Tensor:
     """Masked next-token CE.  batch: {'tokens': (B, S+1) int, 'loss_mask':
@@ -28,16 +42,8 @@ def sft_loss_fn(params, batch: Dict[str, torch.Tensor],
         raise NotImplementedError(
             'MoE configs (n_experts) are not ported yet: ROADMAP.md Queue '
             'A item 11(e) (models/moe.py and its router aux loss)')
-    tokens, mask = batch['tokens'], batch['loss_mask']
-    if config.loss_chunk:
-        h = llama.hidden_states(params, tokens[:, :-1], config)
-        lp = losses_ops.chunked_token_logprobs(
-            h, params['lm_head'], tokens[:, 1:],
-            chunk_size=config.loss_chunk)
-    else:
-        logits = llama.forward(params, tokens[:, :-1], config)
-        lp = llama.token_logprobs(logits, tokens[:, 1:])
-    mask = mask.to(lp.dtype)
+    lp = token_logprobs(params, batch['tokens'], config)
+    mask = batch['loss_mask'].to(lp.dtype)
     return -(lp * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 

@@ -163,10 +163,9 @@ class Optimizer:
         return g_norm
 
 
-def make_optimizer(config: TrainConfig) -> Optimizer:
-    """The JAX package's ``make_optimizer``: clip by global norm, then
-    AdamW on the warmup-cosine schedule, as one :class:`Optimizer`."""
-    return Optimizer(config)
+# The JAX package's make_optimizer(config): clip by global norm, then AdamW
+# on the warmup-cosine schedule, as one Optimizer.
+make_optimizer = Optimizer
 
 
 def synthetic_batches(batch_size: int, seq_len: int, vocab_size: int,

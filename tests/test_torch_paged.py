@@ -28,7 +28,10 @@ module ran first on its worker, its JAX side loaded every program from
 executables another worker had just written, and every f32 prefill
 comparison failed (5.5e-4 in the window hiddens, 2.5e-4 in the cache),
 with the port's side off a float64 recompute and the JAX side on it.
-The window test reports both sides' distance from float64 when it fails.
+That the cache caused it is a guess: no mechanism links the JAX cache
+to the port's torch numerics, and no run has reproduced the failure,
+with the cache or without it.  The window test reports both sides'
+distance from float64 when it fails, so a recurrence names its side.
 """
 import dataclasses
 import warnings
@@ -72,7 +75,9 @@ def _t(x, dtype=None) -> torch.Tensor:
 @pytest.fixture(scope='module', autouse=True)
 def _own_jax_compiles():
     """The persistent compilation cache off for this module (and reset,
-    since JAX decides once whether it uses the cache), restored after."""
+    since JAX decides once whether it uses the cache), restored after.
+    A precaution against the one failed run described above, with no
+    observed effect: the module passes with the cache on as well."""
     from jax.experimental.compilation_cache import compilation_cache
     was = jax.config.jax_enable_compilation_cache
     jax.config.update('jax_enable_compilation_cache', False)

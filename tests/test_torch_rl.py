@@ -5,9 +5,9 @@ LLAMA_DEBUG in f32 (and the JAX tests' 64-wide config for the learning
 run), parameters from one JAX draw crossed with
 ``llama.params_from_numpy``.  Tolerances:
 - group_advantages and build_batch: arrays equal, the same ValueError;
-- grpo_loss, kl_coef 0 and 0.05: loss atol ATOL = 1e-5
-  (test_torch_train.py's), each gradient leaf atol ATOL (f32 summation
-  order through 2 layers);
+- grpo_loss, kl_coef 0 and 0.05, and with the port's loss_chunk against
+  JAX's full logits: loss atol ATOL = 1e-5 (test_torch_train.py's), each
+  gradient leaf atol ATOL (f32 summation order through 2 layers);
 - GrpoTrainer at temperature 0: every rollout token identical to the JAX
   GrpoTrainer's (greedy, f32), the loss at atol ATOL;
 - sampled rollouts (temperature 1) are compared in distribution only:
@@ -115,10 +115,16 @@ def _rl_batch(seed=0, rows=4, t_len=24):
     return rl.build_batch(prompts, completions, adv, t_len)
 
 
-@pytest.mark.parametrize('kl_coef', [0.0, 0.05])
-def test_grpo_loss_and_gradients_match_jax(kl_coef):
+@pytest.mark.parametrize('kl_coef,loss_chunk',
+                         [(0.0, None), (0.05, None), (0.05, 8)],
+                         ids=['0.0', '0.05', '0.05-chunk8'])
+def test_grpo_loss_and_gradients_match_jax(kl_coef, loss_chunk):
+    """With loss_chunk the port takes the blockwise CE (T-1 = 23 in
+    chunks of 8, a ragged tail); the JAX grpo_loss always takes the full
+    logits."""
     jcfg, tcfg, jp, tree = _models()
     _, _, jref, ref_tree = _models(seed=1)
+    tcfg = dataclasses.replace(tcfg, loss_chunk=loss_chunk)
     batch = _rl_batch()
     j_batch = {k: jnp.asarray(v) for k, v in batch.items()}
     ref, ref_grads = jax.value_and_grad(
