@@ -58,7 +58,12 @@ Phases (any failure exits non-zero):
    schedule's tokens (int8 KV aside).  Training parity on the same model:
    first-step gradients under remat False, True and 'dots' on card and
    host, and 3 Trainer steps (loss, grad_norm) on both; and the
-   first-step adapter gradients of LoRA-SFT and LoRA-DPO on both.
+   first-step adapter gradients of LoRA-SFT and LoRA-DPO on both.  MoE
+   parity on a 2-layer MoE model at LLAMA_DEBUG's attention widths (4
+   experts, top 2, f32): identical greedy tokens on the host, the card
+   eager and the card through graphs (pooled plane, plain and spec_k=3),
+   and first-step gradients of moe.loss_fn card vs host under
+   router_impl 'capacity' and 'dense'.
 5. main path: random LLAMA3_8B bf16 weights on the card behind the HTTP
    replica (ContinuousBatcher, batch 8, max_seq_len 2048, prefill_chunk
    256, decode_chunk 16); 8 requests of 17..700 prompt tokens, 48 new
@@ -120,19 +125,35 @@ Phases (any failure exits non-zero):
    train_sft (LoRA, checkpoint, --merge-save), train_dpo (LoRA) and
    train_rl at debug size as child processes: the merged file must equal
    merge_lora of the restored adapters bitwise and give the same greedy
-   tokens; all finish with finite losses.  Every phase prints its
-   seconds.
+   tokens; all finish with finite losses.
+11. Mixtral-8x7B-v0.1's published widths (mixtral_config), random bf16
+   weights, after phase 10's memory is freed.  (a) 16 of its 32 layers
+   (23.48B parameters, 46.97 GB: the 32 do not fit the card) served as
+   phase 5 serves LLAMA3_8B, through graphs (router_impl 'dense', the
+   serving formulation): every request returns 48 tokens; prints phase
+   5's stats and the decode step's bound, the streamed bytes over 3.35
+   TB/s.  (c) LoRA-SFT of that frozen base once the batcher is released
+   (rank 16, alpha 32, attn target, loss_chunk 512, 4 steps of 2 x 2048
+   tokens): the base's checksum unchanged, every B moved; MFU counts
+   (4 N_active + 2 N_adapted), N_active the attention, router and top 2
+   experts a layer and the lm_head.  (b) Full-parameter training of a
+   2-layer model at the same widths through train_moe.make_trainer
+   (router_impl 'capacity', remat, 6 steps of 2 x 4096 tokens): finite
+   losses and router aux losses; prints MFU = 6 N_active x tokens/s /
+   989e12 with and without the lm_head.  Every phase prints its seconds,
+   and the run its whole.
 
 Every kernel of a main-path run must launch > 0 times in that run (the
 counts are set to 0 just before it and read just after; a replayed graph
 adds the launches its capture recorded, engine.ChunkGraphs); the window
 kernel must launch from both verify and fused ticks, K7 (and never K1)
 on every phase 7 path, and K2, K3, K5 and K6 from both train paths and
-9a, and K2 with its lse, K3, K5 and K6 from 10a, 10b and 10c (K1 from
-10c's rollouts); K2, K5 and K6 only on their tensor-core route, on every
-path of phases 5 to 10 (all bf16 at head_dim 128), and K4 on phase 6's paths, where it must
-also take its split route; K1 and K7 only on their split route on every
-path of phases 5 to 7 and 10c (B KV = 64 < 2 x 132 SMs).  The last lines
+9a, and K2 with its lse, K3, K5 and K6 from 10a, 10b, 10c, 11b and 11c
+(K1 from 10c's rollouts, K1, K2 and K3 from 11a); K2, K5 and K6 only on
+their tensor-core route, on every path of phases 5 to 11 (all bf16 at
+head_dim 128), and K4 on phase 6's paths, where it must also take its
+split route; K1 and K7 only on their split route on every path of phases
+5 to 7, 10c and 11a (B KV = 64 < 2 x 132 SMs).  The last lines
 of standard output are
 the {"kernels": [...]} line, the nvidia-smi name/power-limit line, and
 {"ok": true, "device": {...}}.
@@ -1251,6 +1272,15 @@ def _logits_close(what, got, want):
     torch.testing.assert_close(got.cpu(), want, atol=atol, rtol=rtol)
 
 
+def _debug_requests(vocab_size):
+    """Phase 4's four requests: prompts of 5, 40, 100 and 17 tokens from
+    seed 1, and their budgets of new tokens."""
+    rng = np.random.RandomState(1)
+    prompts = [[int(t) for t in rng.randint(1, vocab_size, size=n)]
+               for n in (5, 40, 100, 17)]
+    return prompts, [12, 9, 7, 10]
+
+
 def slice_parity():
     from skypilot_tpu_torch.infer import block_pool, engine, llama_infer
     from skypilot_tpu_torch.models import llama
@@ -1259,10 +1289,7 @@ def slice_parity():
     params_cpu = llama.init_params(cfg, torch.Generator().manual_seed(0),
                                    'cpu')
     params = {'cpu': params_cpu, 'cuda': _to_device(params_cpu, 'cuda')}
-    rng = np.random.RandomState(1)
-    prompts = [[int(t) for t in rng.randint(1, cfg.vocab_size, size=n)]
-               for n in (5, 40, 100, 17)]
-    budgets = [12, 9, 7, 10]
+    prompts, budgets = _debug_requests(cfg.vocab_size)
 
     tokens = np.zeros((2, 64), np.int64)
     tokens[0, :40] = prompts[1]
@@ -1353,6 +1380,30 @@ def _clone_to(tree, device):
     return tree.detach().clone().to(device)
 
 
+def _grads_on(loss_fn, params, tokens, dev):
+    """First-step gradients of loss_fn(params, {'tokens'}) on `dev`, from
+    a copy of the params there; returned on the host."""
+    from skypilot_tpu_torch.train import trainer
+    p = trainer.tree_map(lambda t: t.requires_grad_(), _clone_to(params, dev))
+    loss = loss_fn(p, {'tokens': torch.from_numpy(tokens).to(dev)})
+    return [g.cpu() for g in torch.autograd.grad(loss,
+                                                 trainer.tree_leaves(p))]
+
+
+def _grads_close(label, got, want):
+    """Card vs host gradients, leaf by leaf, within rtol 1e-4 and atol
+    1e-4 x the leaf's largest element; none all zero.  Returns the
+    largest error over that scale."""
+    err = 0.0
+    for g, w in zip(got, want):
+        if not float(g.abs().max()) > 0:
+            raise AssertionError(f'{label}: a zero gradient')
+        scale = float(w.abs().max())
+        err = max(err, float((g - w).abs().max()) / scale)
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4 * scale)
+    return err
+
+
 def train_parity():
     """LLAMA_DEBUG f32 on the card (kernels) and the host (plain
     versions): first-step gradients under remat False, True and 'dots'
@@ -1369,22 +1420,11 @@ def train_parity():
     for remat, policy in ((False, None), (True, None), (True, 'dots')):
         c = dataclasses.replace(cfg, remat=remat, remat_policy=policy)
         for dev in ('cpu', 'cuda'):
-            p = trainer.tree_map(lambda t: t.requires_grad_(),
-                                 _clone_to(params, dev))
-            loss = llama.loss_fn(
-                p, {'tokens': torch.from_numpy(tokens).to(dev)}, c)
-            grads[policy or remat, dev] = [
-                g.cpu() for g in torch.autograd.grad(
-                    loss, trainer.tree_leaves(p))]
+            grads[policy or remat, dev] = _grads_on(
+                lambda p, b: llama.loss_fn(p, b, c), params, tokens, dev)
     for key in (False, True, 'dots'):
-        err = 0.0
-        for got, want in zip(grads[key, 'cuda'], grads[key, 'cpu']):
-            if not float(got.abs().max()) > 0:
-                raise AssertionError(f'remat={key}: a zero gradient')
-            scale = float(want.abs().max())
-            err = max(err, float((got - want).abs().max()) / scale)
-            torch.testing.assert_close(got, want, rtol=1e-4,
-                                       atol=1e-4 * scale)
+        err = _grads_close(f'remat={key}', grads[key, 'cuda'],
+                           grads[key, 'cpu'])
         same = max(float((a - b).abs().max() / b.abs().max())
                    for a, b in zip(grads[key, 'cuda'],
                                    grads[False, 'cuda']))
@@ -1447,17 +1487,52 @@ def post_train_parity():
             loss = loss_fn(_clone_to(params, dev), ad, batch)
             grads[dev] = [g.cpu() for g in torch.autograd.grad(
                 loss, trainer.tree_leaves(ad))]
-        err = 0.0
-        for got, want in zip(grads['cuda'], grads['cpu']):
-            scale = float(want.abs().max())
-            if not float(got.abs().max()) > 0:
-                raise AssertionError(f'LoRA-{name}: a zero adapter gradient')
-            err = max(err, float((got - want).abs().max()) / scale)
-            torch.testing.assert_close(got, want, rtol=1e-4,
-                                       atol=1e-4 * scale)
+        err = _grads_close(f'LoRA-{name}', grads['cuda'], grads['cpu'])
         log(f'  LoRA-{name} first-step adapter gradients ({len(grads["cpu"])}'
             f' leaves): card vs host max err/max|grad| {err:.2e} '
             f'(tolerance 1e-4)')
+
+
+# A MoE config at LLAMA_DEBUG's attention widths (2 heads of 128 over one
+# KV head: the card's kernels take head_dim 64, 128 or 256, MOE_DEBUG's is
+# 32): 4 experts, top 2, f32, 2 layers.
+def moe_debug_config():
+    from skypilot_tpu_torch.models import moe
+    return dataclasses.replace(moe.MOE_DEBUG, d_model=256, n_heads=2,
+                               n_kv_heads=1, d_ff=512)
+
+
+def moe_parity():
+    """The MoE expert bank on the card (kernels, cuBLAS) and the host
+    (plain versions) from the same f32 weights: identical greedy tokens
+    on the host, the card eager and the card through graphs (the pooled
+    plane, plain and spec_k=3: the bank inside every captured decode and
+    verify chunk), and first-step gradients of moe.loss_fn card vs host
+    under router_impl 'capacity' and 'dense' at train_parity's bound."""
+    from skypilot_tpu_torch.models import moe
+    from skypilot_tpu_torch.train import trainer
+
+    cfg = moe_debug_config()
+    params_cpu = moe.init_params(cfg, torch.Generator().manual_seed(0),
+                                 'cpu')
+    params = {'cpu': params_cpu, 'cuda': _to_device(params_cpu, 'cuda')}
+    prompts, budgets = _debug_requests(cfg.vocab_size)
+    for label, extra in (('MoE plain', {}), ('MoE spec_k=3',
+                                             dict(spec_k=3))):
+        three = _card_and_host(label, _serve_debug, params, cfg, prompts,
+                               budgets, extra)
+        if extra and not three['card graphs'][0].spec_proposed:
+            raise AssertionError(f'{label}: no verify chunk')
+    tokens = next(trainer.synthetic_batches(4, 63, cfg.vocab_size))['tokens']
+    for impl in ('capacity', 'dense'):
+        c = dataclasses.replace(cfg, router_impl=impl)
+        grads = {dev: _grads_on(lambda p, b: moe.loss_fn(p, b, c),
+                                params_cpu, tokens, dev)
+                 for dev in ('cpu', 'cuda')}
+        err = _grads_close(f'MoE {impl}', grads['cuda'], grads['cpu'])
+        log(f'  MoE first-step gradients router_impl={impl!r} '
+            f'({len(grads["cpu"])} leaves): card vs host max err/max|grad| '
+            f'{err:.2e} (tolerance 1e-4)')
 
 
 def _to_device(tree, device):
@@ -1506,20 +1581,22 @@ def _burst(batcher, send, n):
         t.join(900)
 
 
-def serve_path(label, params, gen_config, counters, graphs=None):
+def serve_path(label, params, gen_config, counters, graphs=None, cfg=None,
+               model='llama3-8b'):
     """Serve the 8 requests (one burst, _burst) through the HTTP replica
     with every launch count set to 0 just before and read just after;
-    returns (the counts, the migrations, each request's tokens).  Fails
-    unless every request returns 48 in-range tokens and the pool comes
-    back empty (on a legacy plane: every slot comes back free and
-    frozen, and one short request afterwards shrinks the slot cache to
-    its smallest bucket).  graphs: the batcher's argument (None: graphs
-    on the card)."""
+    returns (the counts, the migrations, each request's tokens, the
+    printed stats).  Fails unless every request returns 48 in-range
+    tokens and the pool comes back empty (on a legacy plane: every slot
+    comes back free and frozen, and one short request afterwards shrinks
+    the slot cache to its smallest bucket).  graphs: the batcher's
+    argument (None: graphs on the card); cfg, model: the model's config
+    (LLAMA3_8B by default) and the name the replica gives it."""
     from skypilot_tpu_torch.infer import engine, replica
     from skypilot_tpu_torch.infer.serving import ContinuousBatcher
     from skypilot_tpu_torch.models import llama
 
-    cfg = llama.LLAMA3_8B
+    cfg = cfg or llama.LLAMA3_8B
     torch.cuda.reset_peak_memory_stats()
     batcher = ContinuousBatcher(params, cfg, gen_config, decode_chunk=16,
                                 device='cuda', graphs=graphs)
@@ -1535,7 +1612,7 @@ def serve_path(label, params, gen_config, counters, graphs=None):
     torch.cuda.synchronize()
     resident_gb = torch.cuda.memory_allocated() / 1e9
     retries0 = torch.cuda.memory_stats()['num_alloc_retries']
-    server, thread = replica.serve(batcher, '127.0.0.1', 0, 'llama3-8b')
+    server, thread = replica.serve(batcher, '127.0.0.1', 0, model)
     url = f'http://127.0.0.1:{server.server_address[1]}'
     try:
         with urllib.request.urlopen(f'{url}/health', timeout=30) as r:
@@ -1639,7 +1716,7 @@ def serve_path(label, params, gen_config, counters, graphs=None):
         'launches': launches,
     }
     log(f'  {label}: ' + json.dumps(stats))
-    return launches, migrations, [r['output_ids'] for r in responses]
+    return launches, migrations, [r['output_ids'] for r in responses], stats
 
 
 def generate_path(label, params, gen_config, counters):
@@ -2026,16 +2103,21 @@ def _adapted_elements(base, lcfg):
                if pattern.search('/'.join(path)))
 
 
-def lora_sft_path(base, cfg, data, counters, steps=6):
-    """10a: LoRA-SFT through Trainer.fit on the frozen bf16 base: rank 16,
-    alpha 32 on the attn target, 2 x 2048 tokens a step.  The base never
-    requires grad and its float64 checksum is unchanged after the steps;
-    every B has moved from zero.  Returns (launches, stats)."""
+def lora_sft_path(base, cfg, data, counters, steps=6,
+                  label='10a LoRA-SFT LLAMA3_8B', n=None,
+                  n_note='no embedding'):
+    """10a (and 11c): LoRA-SFT through Trainer.fit on the frozen bf16
+    base: rank 16, alpha 32 on the attn target, 2 x 2048 tokens a step.
+    The base never requires grad and its float64 checksum is unchanged
+    after the steps; every B has moved from zero.  MFU counts (4N +
+    2N_adapted) a token, N the parameters without the embedding unless
+    `n` (described by `n_note`) is given.  Returns (launches, stats)."""
     from skypilot_tpu_torch.train import lora, sft, trainer
+    tag = label.split()[0]
     lcfg = lora.LoraConfig(rank=16, alpha=32.0, targets='attn')
     leaves = trainer.tree_leaves(base)
     if any(t.requires_grad for t in leaves):
-        raise AssertionError('10a: a base leaf requires grad')
+        raise AssertionError(f'{tag}: a base leaf requires grad')
     before = _checksum(base)
     adapters = lora.init_lora(base, lcfg,
                               torch.Generator(device='cuda').manual_seed(1))
@@ -2049,7 +2131,7 @@ def lora_sft_path(base, cfg, data, counters, steps=6):
         for batch in sft.sft_batches(data, _encode(cfg.vocab_size), 2, 2048):
             masked.append(float(batch['loss_mask'].sum()))
             yield batch
-    n = cfg.num_params() - cfg.vocab_size * cfg.d_model
+    n = n or cfg.num_params() - cfg.vocab_size * cfg.d_model
     n_adapted = _adapted_elements(base, lcfg)
     torch.cuda.synchronize()
     resident_gb = torch.cuda.memory_allocated() / 1e9
@@ -2063,13 +2145,13 @@ def lora_sft_path(base, cfg, data, counters, steps=6):
     launches = _counts(counters)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if any(t.requires_grad for t in leaves):
-        raise AssertionError('10a: a base leaf requires grad after fit')
+        raise AssertionError(f'{tag}: a base leaf requires grad after fit')
     if _checksum(base) != before:
-        raise AssertionError('10a: the frozen base changed')
+        raise AssertionError(f'{tag}: the frozen base changed')
     unmoved = ['/'.join(p) for p, leaf in lora._flatten_with_paths(tr.params)
                if p[-1] == 'b' and not float(leaf.detach().abs().max()) > 0]
     if unmoved or not np.isfinite(out['loss']):
-        raise AssertionError(f'10a: loss {out["loss"]}, B still zero: '
+        raise AssertionError(f'{tag}: loss {out["loss"]}, B still zero: '
                              f'{unmoved}')
     share = sum(masked[:steps]) / (steps * 2 * 2048)
     stats = {
@@ -2082,7 +2164,7 @@ def lora_sft_path(base, cfg, data, counters, steps=6):
         'mfu': out['mfu'],
         'mfu_formula': f'(4N + 2N_adapted) x tokens/s / '
                        f'{BF16_FLOPS / 1e12:g}e12, '
-                       f'N = {n} (no embedding), N_adapted = {n_adapted}',
+                       f'N = {n} ({n_note}), N_adapted = {n_adapted}',
         'last_loss': out['loss'], 'grad_norm': out['grad_norm'],
         'fit_wall_s': wall, 'resident_gb_before_fit': resident_gb,
         'peak_memory_gb': peak_gb,
@@ -2090,7 +2172,7 @@ def lora_sft_path(base, cfg, data, counters, steps=6):
         'launches_per_step': {k: v / steps for k, v in launches.items()
                               if v},
     }
-    log('  10a LoRA-SFT LLAMA3_8B: ' + json.dumps(stats))
+    log(f'  {label}: ' + json.dumps(stats))
     del tr, adapters
     return launches, stats
 
@@ -2305,6 +2387,189 @@ def entry_points_path(root, small_sft, small_dpo):
     tr.close()
 
 
+# ---- phase 11: Mixtral-8x7B widths -----------------------------------------
+
+def mixtral_config(n_layers, **overrides):
+    """Mixtral-8x7B-v0.1's published widths, from its config.json on the
+    Hugging Face hub (mistralai/Mixtral-8x7B-v0.1): vocab 32000, hidden
+    4096, intermediate 14336, 32 heads over 8 KV heads (head_dim 128), 8
+    local experts and 2 a token, rope_theta 1e6, rms_norm_eps 1e-5,
+    max_position_embeddings 32768, router_aux_loss_coef 0.02; and
+    router_impl 'dense', as skypilot_tpu/models/convert.py sets it for a
+    converted Mixtral.  bf16, remat.  The depth is the caller's: the
+    published 32 layers are 46.70B parameters, 93.4 GB in bf16 (the
+    expert banks alone 90.2 GB, which int8 weights leave in bf16), past
+    the card's 80 GB."""
+    from skypilot_tpu_torch.models import moe
+    return dataclasses.replace(moe.MoeConfig(
+        vocab_size=32000, d_model=4096, n_layers=n_layers, n_heads=32,
+        n_kv_heads=8, d_ff=14336, max_seq_len=32768, rope_theta=1e6,
+        norm_eps=1e-5, n_experts=8, top_k=2, router_aux_weight=0.02,
+        router_impl='dense', dtype=torch.bfloat16, remat=True), **overrides)
+
+
+def moe_active_params(cfg):
+    """(The parameters a token runs through in the layers: attention,
+    the router and top_k experts a layer; the lm_head's).  The embedding
+    is a row gather.  The dense formulation's unchosen experts, the
+    capacity slots' padding and the dispatch/combine products are
+    overhead, not model FLOPs."""
+    d, hd = cfg.d_model, cfg.head_dim
+    attn = 2 * d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
+    layer = attn + d * cfg.n_experts + cfg.top_k * 3 * d * cfg.d_ff
+    return cfg.n_layers * layer, d * cfg.vocab_size
+
+
+def streamed_bytes(tree, key=''):
+    """Bytes a decode step streams from the parameter tree: every leaf
+    but the embedding table (a row gather)."""
+    if isinstance(tree, dict):
+        return sum(streamed_bytes(v, k) for k, v in tree.items())
+    return 0 if key == 'embed' else tree.numel() * tree.element_size()
+
+
+def mixtral_serve_path(params, cfg, counters):
+    """11a: phase 5's 8 requests (one burst, 48 new tokens each, greedy)
+    through the replica and the ContinuousBatcher's CUDA graphs on the
+    pooled plane, batch 8, max_seq_len 2048, prefill_chunk 256,
+    decode_chunk 16.  Prints, beside serve_path's stats, the decode
+    step's bound: the dense formulation streams every bank a step, so a
+    step takes at least the streamed bytes over 3.35 TB/s.  Returns
+    (launches, stats)."""
+    from skypilot_tpu_torch.infer.engine import GeneratorConfig
+    gen_config = GeneratorConfig(max_seq_len=2048, batch_size=8,
+                                 prefill_chunk=256)
+    launches, _, _, stats = serve_path(
+        '11a Mixtral widths, 16 layers', params, gen_config, counters,
+        cfg=cfg, model='mixtral-8x7b-16-layers')
+    nbytes = streamed_bytes(params)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    # Decode steps of the run: every step runs 8 slots, live or not.
+    steps = stats['decode_tokens'] / stats['live_slot_share'] / 8
+    step_ms = (stats['decode_seconds'] - stats['graph_capture_s']) \
+        / steps * 1e3
+    bound = {'card': CARD['line'], 'streamed_gb_a_step': nbytes / 1e9,
+             'step_bound_ms': bound_ms,
+             'batch8_tokens_per_s_bound': 8 / bound_ms * 1e3,
+             'decode_steps': steps, 'step_ms_without_capture': step_ms,
+             'step_share_of_bound': bound_ms / step_ms}
+    log('  11a decode bound (bytes / 3.35 TB/s): ' + json.dumps(bound))
+    return launches, dict(stats, **bound)
+
+
+def mixtral_train_path(counters, steps=6, batch=2, seq=4096):
+    """11b: full-parameter Trainer.fit of moe.loss_fn through
+    train_moe.make_trainer at Mixtral's widths, depth 2, router_impl
+    'capacity', remat, 2 x 4096 tokens a step (bf16 params, grads, mu
+    and nu: 8 bytes a parameter).  Fails unless the first and last
+    losses and the router aux losses are finite.  Prints step time,
+    tokens/s, MFU = 6 N_active x tokens/s / 989e12 with and without the
+    lm_head, peak memory, launches a step, the first and last loss and
+    the aux loss before and after.  Returns (launches, stats)."""
+    from skypilot_tpu_torch.models import llama, moe
+    from skypilot_tpu_torch.train import train_moe, trainer
+
+    cfg = mixtral_config(2, router_impl='capacity')
+    tr = train_moe.make_trainer(cfg, steps, 'cuda')
+    first = torch.as_tensor(next(trainer.synthetic_batches(
+        batch, seq, cfg.vocab_size))['tokens'], device='cuda')
+
+    def loss_and_aux():
+        with torch.no_grad():
+            logits, aux = moe.forward(tr.params, first[:, :-1], cfg)
+            ce = -llama.token_logprobs(logits, first[:, 1:]).mean()
+            return float(ce + cfg.router_aux_weight * aux), float(aux)
+    first_loss, first_aux = loss_and_aux()
+    n_layers, n_head = moe_active_params(cfg)
+    n_all = cfg.num_params()
+    torch.cuda.synchronize()
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    _zero(counters)
+    t0 = time.perf_counter()
+    out = tr.fit(trainer.synthetic_batches(batch, seq, cfg.vocab_size),
+                 steps, log_every=0, tokens_per_batch=batch * seq,
+                 flops_per_token=6 * (n_layers + n_head),
+                 peak_flops=BF16_FLOPS)
+    wall = time.perf_counter() - t0
+    launches = _counts(counters)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    last_aux = loss_and_aux()[1]
+    if not all(np.isfinite([first_loss, out['loss'], first_aux, last_aux])):
+        raise AssertionError(f'11b: loss {first_loss} -> {out["loss"]}, '
+                             f'aux {first_aux} -> {last_aux}')
+    stats = {
+        'card': CARD['line'], 'layers': cfg.n_layers,
+        'params_b': n_all / 1e9, 'state_gb': n_all * 8 / 1e9,
+        'active_params_b': (n_layers + n_head) / 1e9,
+        'tokens_per_step': batch * seq, 'steps': steps,
+        'step_time_s': out['step_time_s'],
+        'tokens_per_s': out['tokens_per_sec'],
+        'mfu_6n_active': out['mfu'],
+        'mfu_6n_active_without_lm_head': (6 * n_layers * out['tokens_per_sec']
+                                          / BF16_FLOPS),
+        'mfu_formula': f'6 N_active x tokens/s / {BF16_FLOPS / 1e12:g}e12, '
+                       f'N_active = {n_layers} (attention, router, top_k = '
+                       f'{cfg.top_k} experts a layer) + {n_head} (lm_head)',
+        'first_loss': first_loss, 'last_loss': out['loss'],
+        'router_aux_first': first_aux, 'router_aux_last': last_aux,
+        'grad_norm': out['grad_norm'], 'fit_wall_s': wall,
+        'resident_gb_before_fit': resident_gb, 'peak_memory_gb': peak_gb,
+        'launches_per_step': {k: v / steps for k, v in launches.items()
+                              if v},
+    }
+    log('  11b train Mixtral widths, 2 layers, capacity: '
+        + json.dumps(stats))
+    tr.close()
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, stats
+
+
+def mixtral_path(counters, paths):
+    """Phase 11 on one 16-layer base: (a) served; (c) LoRA-SFT of it once
+    the batcher and its graph pool are released (so the base is drawn and
+    freed once); then (b), a 2-layer model of its own, trained."""
+    from skypilot_tpu_torch.models import moe
+    cfg = mixtral_config(16)
+    t0 = time.perf_counter()
+    base = moe.init_params(cfg, torch.Generator(device='cuda').manual_seed(0),
+                           'cuda')
+    torch.cuda.synchronize()
+    log(f'  Mixtral widths bf16 random weights, {cfg.n_layers} of 32 layers: '
+        f'{cfg.num_params() / 1e9:.2f}B params, '
+        f'{torch.cuda.memory_allocated() / 1e9:.2f} GB, in '
+        f'{time.perf_counter() - t0:.1f} s')
+    sub = time.perf_counter()
+    paths['11a'], _ = mixtral_serve_path(base, cfg, counters)
+    log(f'  11a: {time.perf_counter() - sub:.1f} s')
+    gc.collect()
+    torch.cuda.empty_cache()
+    scratch = tempfile.mkdtemp(prefix='chip_smoke_moe_')
+    try:
+        sft_data = _post_train_data(scratch)[0]
+        sub = time.perf_counter()
+        n_layers, n_head = moe_active_params(cfg)
+        paths['11c'], _ = lora_sft_path(
+            base, dataclasses.replace(cfg, loss_chunk=512), sft_data,
+            counters, steps=4, label='11c LoRA-SFT Mixtral widths, 16 layers',
+            n=n_layers + n_head,
+            n_note=f'active: attention, router and top_k = {cfg.top_k} '
+                   f'experts a layer, and the lm_head; the dense '
+                   f'formulation runs E/top_k = '
+                   f'{cfg.n_experts // cfg.top_k}x the expert FLOPs counted')
+        log(f'  11c: {time.perf_counter() - sub:.1f} s')
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    sub = time.perf_counter()
+    paths['11b'], _ = mixtral_train_path(counters)
+    log(f'  11b: {time.perf_counter() - sub:.1f} s')
+
+
 # Launch counts by route: '<name>[tc]' the tensor-core kernels of K2, K5
 # and K6, '<name>[split]' the split-KV launches of K1 and K7, '<name>[lse]'
 # K2's launches that wrote the lse.
@@ -2351,7 +2616,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     CARD['line'] = nvidia_smi_line()
     CARD['kind'] = torch.cuda.get_device_name(0)
-    clock = {'start': time.perf_counter(), 'name': None}
+    run_start = time.perf_counter()
+    clock = {'start': run_start, 'name': None}
 
     def phase(msg):
         """Log the seconds of the phase that ends, then the next one."""
@@ -2365,10 +2631,10 @@ def main() -> int:
         log(f'  phase {clock["name"]}: '
             f'{time.perf_counter() - clock["start"]:.1f} s')
 
-    phase(f'[1/10] device: {CARD["line"]} | torch {torch.__version__} '
+    phase(f'[1/11] device: {CARD["line"]} | torch {torch.__version__} '
         f'cuda {torch.version.cuda}')
 
-    phase('[2/10] build')
+    phase('[2/11] build')
     _kernels.LIBRARY.get()
     log(f'  built {_kernels.LIBRARY.path.name} in '
         f'{_kernels.LIBRARY.build_seconds:.1f} s')
@@ -2384,7 +2650,7 @@ def main() -> int:
                 and info['spill_bytes']:
             raise AssertionError(f'decode kernel {name} spills: {info}')
 
-    phase('[3/10] kernels vs plain versions')
+    phase('[3/11] kernels vs plain versions')
     t0 = time.perf_counter()
     decode = check_decode(decode_attention, ptxas)
     decode['g2'], decode['combine g2'] = check_decode_grpo(decode_attention,
@@ -2407,12 +2673,13 @@ def main() -> int:
         f'{time_ms(read.sum):.4f} ms (bound 0.0063)')
     del tiny, read
 
-    phase('[4/10] slice parity, LLAMA_DEBUG f32, card vs host')
+    phase('[4/11] slice parity, LLAMA_DEBUG and MoE f32, card vs host')
     slice_parity()
     train_parity()
     post_train_parity()
+    moe_parity()
 
-    phase('[5/10] main path, LLAMA3_8B bf16 behind the HTTP replica')
+    phase('[5/11] main path, LLAMA3_8B bf16 behind the HTTP replica')
     cfg = llama.LLAMA3_8B
     t0 = time.perf_counter()
     params = llama.init_params(
@@ -2424,10 +2691,10 @@ def main() -> int:
     paths = {}
     # The same burst eagerly, then through graphs (the main path, whose
     # counts the kernels line reports): identical greedy tokens.
-    eager5, _, eager_out = serve_path('main path eager (graphs=False)',
+    eager5, _, eager_out, _ = serve_path('main path eager (graphs=False)',
                                       params, GeneratorConfig(**base),
                                       counters, graphs=False)
-    paths['5'], _, graph_out = serve_path('main path', params,
+    paths['5'], _, graph_out, _ = serve_path('main path', params,
                                           GeneratorConfig(**base), counters)
     _same_tokens('phase 5: graphs vs eager', graph_out, eager_out)
     log(f'  phase 5: greedy tokens identical eager and through graphs '
@@ -2438,12 +2705,12 @@ def main() -> int:
             raise AssertionError(f'{k1.__name__} missed the split route on '
                                  f'the {key} path')
 
-    phase('[6/10] main path with spec_k 12 and fuse_budget 264: (a) bf16, '
+    phase('[6/11] main path with spec_k 12 and fuse_budget 264: (a) bf16, '
         '(b) int8 KV and weights')
     spec = dict(base, spec_k=12, fuse_budget=264)
-    paths['6a'], _, _ = serve_path('6a bf16 spec+fused', params,
+    paths['6a'], _, _, _ = serve_path('6a bf16 spec+fused', params,
                                    GeneratorConfig(**spec), counters)
-    paths['6b'], _, _ = serve_path('6b int8 spec+fused', params,
+    paths['6b'], _, _, _ = serve_path('6b int8 spec+fused', params,
                                    GeneratorConfig(
                                        **spec, kv_cache_dtype='int8',
                                        weights_dtype='int8'), counters)
@@ -2452,15 +2719,15 @@ def main() -> int:
               + [f'{c.__name__}[{r}]' for c in (k4v, k4f)
                  for r in ('tc', 'split')])
 
-    phase("[7/10] legacy plane decode_impl='paged' (K7): (a) bf16 and (b) int8 "
+    phase("[7/11] legacy plane decode_impl='paged' (K7): (a) bf16 and (b) int8 "
         'KV behind the HTTP replica, (c) Generator.generate')
     legacy = dict(base, decode_impl='paged', decode_chunk=16)
     with warnings.catch_warnings():
         warnings.simplefilter('ignore', DeprecationWarning)
-        paths['7a'], mig_a, _ = serve_path('7a paged bf16', params,
+        paths['7a'], mig_a, _, _ = serve_path('7a paged bf16', params,
                                            GeneratorConfig(**legacy),
                                            counters)
-        paths['7b'], mig_b, _ = serve_path(
+        paths['7b'], mig_b, _, _ = serve_path(
             '7b paged int8 KV', params,
             GeneratorConfig(**legacy, kv_cache_dtype='int8'), counters)
         paths['7c'] = generate_path('7c Generator paged bf16', params,
@@ -2475,7 +2742,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    phase('[8/10] train path: (a) LLAMA_1B at the bench settings, (b) '
+    phase('[8/11] train path: (a) LLAMA_1B at the bench settings, (b) '
         'LLAMA3_8B widths at depth 2')
     remat = dict(remat=True, remat_policy='dots')
     cfg_1b = dataclasses.replace(llama.LLAMA_1B, max_seq_len=2048,
@@ -2490,7 +2757,7 @@ def main() -> int:
         2, 4096, 6, trainer.TrainConfig(warmup_steps=2, total_steps=6),
         counters)
 
-    phase('[9/10] checkpoints: (a) LLAMA_1B async saves, restore, continue '
+    phase('[9/11] checkpoints: (a) LLAMA_1B async saves, restore, continue '
           '(phase 8a settings), (b) a managed job SIGTERMed and resumed '
           'through train_llama --resume auto')
     scratch = tempfile.mkdtemp(prefix='chip_smoke_ckpt_')
@@ -2513,7 +2780,7 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
-    phase('[10/10] post-training: (a) LoRA-SFT and (b) LoRA-DPO of LLAMA3_8B '
+    phase('[10/11] post-training: (a) LoRA-SFT and (b) LoRA-DPO of LLAMA3_8B '
           'at 32 layers, (c) GRPO on LLAMA_1B, (d) the entry points')
     gc.collect()
     torch.cuda.empty_cache()
@@ -2548,17 +2815,25 @@ def main() -> int:
         log(f'  10d: {time.perf_counter() - sub:.1f} s')
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
+
+    phase('[11/11] Mixtral-8x7B widths, random bf16 weights: (a) 16 of 32 '
+          'layers served, (c) LoRA-SFT of that base, (b) trained at depth 2')
+    gc.collect()
+    torch.cuda.empty_cache()
+    mixtral_path(counters, paths)
     last_phase_done()
-    for key in ('8a', '8b', '9a', '10a', '10b', '10c'):
+    log(f'  whole run: {time.perf_counter() - run_start:.1f} s')
+    for key in ('8a', '8b', '9a', '10a', '10b', '10c', '11b', '11c'):
         _need(key, paths[key], [c.__name__ for c in (k2, k3, k5, k6)]
               + [f'{k2.__name__}[lse]'])
     _need('10c', paths['10c'], [k1.__name__])
+    _need('11a', paths['11a'], [c.__name__ for c in (k1, k2, k3)])
     for key, launches in paths.items():
         # Every path runs bf16 at head_dim 128: the tensor-core route only;
         # and 8 slots x 8 KV heads < 2 blocks an SM: the split route only.
         route = [(c, 'tc') for c in (k2, k5, k6)]
         route += [(c, 'split') for c in (k1, k7)
-                  if key[0] in '567' or key == '10c']
+                  if key[0] in '567' or key in ('10c', '11a')]
         route += [(c, 'tc') for c in (k4v, k4f) if key[0] == '6']
         for c, r in route:
             if launches[f'{c.__name__}[{r}]'] != launches[c.__name__]:
@@ -2579,7 +2854,7 @@ def main() -> int:
 
     every = tuple(paths)
     kernels = [
-        entry(decode['bf16'], k1, ('5', '6a')),
+        entry(decode['bf16'], k1, ('5', '6a', '11a')),
         entry(decode['g2'], k1, ('10c',)),
         entry(decode['int8'], k1, ('6b',)),
         entry(flash, k2, every),
@@ -2593,7 +2868,7 @@ def main() -> int:
     ]
     # The combine runs inside every split launch of K1 and K7.
     split_paths = {k: paths[k][f'{c.__name__}[split]']
-                   for c, keys in ((k1, ('5', '6a', '6b')),
+                   for c, keys in ((k1, ('5', '6a', '6b', '11a')),
                                    (k7, ('7a', '7b', '7c'))) for k in keys}
     kernels.append(dict(decode['combine'],
                         launches=sum(split_paths.values()),
@@ -2610,7 +2885,8 @@ def main() -> int:
     kernels += [entry(train[name, key], counter, keys)
                 for name, counter in (('lse', k2), ('dq', k5), ('dkv', k6))
                 for key, keys in (('1b', ('8a', '9a', '10c')),
-                                  ('8b', ('8b', '10a', '10b')))]
+                                  ('8b', ('8b', '10a', '10b', '11b',
+                                          '11c')))]
     log(json.dumps({'kernels': kernels}))
     log(CARD['line'])
     log(json.dumps({'ok': True, 'device': {

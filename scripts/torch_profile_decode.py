@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch/CUDA port's serving path, on the
-card: LLAMA3_8B bf16 (random weights), ContinuousBatcher batch 8,
-max_seq_len 2048, decode_chunk 16.
+card: LLAMA3_8B bf16 (random weights; or, with --mixtral-layers N,
+Mixtral-8x7B's widths at N layers, chip_smoke.mixtral_config),
+ContinuousBatcher batch 8, max_seq_len 2048, decode_chunk 16.
 
 Measures, printing one JSON line each:
   prefill   - llama_infer.prefill of a (4, P) group (the batcher's group
@@ -18,11 +19,16 @@ Measures, printing one JSON line each:
               calls, ms and ms a call, and the gaps between consecutive
               kernels on the card (from the first kernel's start to the
               last one's end: the span, the idle time in it, the median
-              and largest gap).
+              and largest gap), and the copy kernels (name with 'copy'):
+              calls, ms and the longest call, beside the least time a
+              copy of one layer's largest weight would take (its bytes
+              read and written at 3.35 TB/s), which shows whether a
+              product copied a weight.
 
 Run from the root of a checkout on a card:
     python3 scripts/torch_profile_decode.py [--prompt 512] [--int8]
         [--decode-impl pooled paged] [--graphs off on] [--turns 3]
+        [--mixtral-layers 16]
 
 --int8 serves the decode chunks with kv_cache_dtype='int8' and
 weights_dtype='int8' (the prefill timing stays bf16).  --decode-impl
@@ -50,10 +56,12 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
+from chip_smoke import mixtral_config, streamed_bytes  # noqa: E402
 from skypilot_tpu_torch.infer import llama_infer  # noqa: E402
 from skypilot_tpu_torch.infer.engine import GeneratorConfig  # noqa: E402
 from skypilot_tpu_torch.infer.serving import ContinuousBatcher  # noqa: E402
-from skypilot_tpu_torch.models import llama  # noqa: E402
+from skypilot_tpu_torch.models import llama, moe  # noqa: E402
+from skypilot_tpu_torch.train.trainer import tree_leaves  # noqa: E402
 
 CHUNK = 16
 BATCH = 8
@@ -90,14 +98,6 @@ def time_prefill(params, cfg, prompt_len: int) -> None:
     ms = statistics.median(times[1:])
     emit('prefill', group=group, prompt=prompt_len, ms=ms,
          tokens_per_s=group * prompt_len / ms * 1e3)
-
-
-def streamed_bytes(tree, key: str = '') -> int:
-    """Bytes a decode step streams from the parameter tree: every leaf
-    but the embedding table (a row gather)."""
-    if isinstance(tree, dict):
-        return sum(streamed_bytes(v, k) for k, v in tree.items())
-    return 0 if key == 'embed' else tree.numel() * tree.element_size()
 
 
 def _gaps(kernels) -> dict:
@@ -170,6 +170,9 @@ def profile_decode(params, cfg, prompt_len: int, int8: bool,
             if 'decode_kernel' in n or 'decode_combine_kernel' in n]
     calls = sum(c for n, c, _ in attn if 'decode_kernel' in n)
     attn_ms = sum(t for _, _, t in attn) / 1e3
+    copies = [e for e in kernels if 'copy' in e.name.lower()]
+    largest = max(leaf[0].numel() * leaf.element_size()
+                  for leaf in tree_leaves(batcher.params['layers']))
     emit('profile', decode_impl=decode_impl, graphs=graphs, turn=turn,
          wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
          device_busy_share=busy_us / wall_us, kernel_launches=len(kernels),
@@ -179,6 +182,12 @@ def profile_decode(params, cfg, prompt_len: int, int8: bool,
              'ms_per_call': attn_ms / calls if calls else None,
              'combine_calls': sum(c for n, c, _ in attn
                                   if 'decode_combine_kernel' in n)},
+         copies={'calls': len(copies),
+                 'ms': sum(e.device_time for e in copies) / 1e3,
+                 'longest_call_ms': max((e.device_time for e in copies),
+                                        default=0.0) / 1e3,
+                 'layer_weight_gb': largest / 1e9,
+                 'layer_weight_copy_ms_floor': 2 * largest / 3.35e9},
          top=[{'name': n[:80], 'calls': c, 'ms': t / 1e3,
                'share_of_busy': t / busy_us} for n, (c, t) in top])
 
@@ -195,13 +204,18 @@ def main() -> int:
                         choices=['off', 'on'],
                         help="eager chunks ('off') and/or CUDA graphs")
     parser.add_argument('--turns', type=int, default=1)
+    parser.add_argument('--mixtral-layers', type=int, default=0,
+                        help="N > 0: Mixtral-8x7B's widths at N layers "
+                             '(the dense MoE block) in place of LLAMA3_8B')
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print('needs a CUDA device', file=sys.stderr)
         return 2
     CARD = card()
-    cfg = llama.LLAMA3_8B
-    params = llama.init_params(
+    model = moe if args.mixtral_layers else llama
+    cfg = (mixtral_config(args.mixtral_layers) if args.mixtral_layers
+           else llama.LLAMA3_8B)
+    params = model.init_params(
         cfg, torch.Generator(device='cuda').manual_seed(0), 'cuda')
     time_prefill(params, cfg, args.prompt)
     for turn in range(args.turns):

@@ -32,7 +32,7 @@ import torch
 
 from skypilot_tpu_torch.device import resolve_device
 from skypilot_tpu_torch.infer import quant
-from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.models import llama, moe
 from skypilot_tpu_torch.ops import attention as attention_ops
 from skypilot_tpu_torch.ops import decode_attention as decode_attention_ops
 from skypilot_tpu_torch.ops import rmsnorm as rmsnorm_ops
@@ -156,12 +156,16 @@ def _mlp(x, mlp_p, act: str = 'silu'):
 
 
 def _ffn(x, layer_params, config):
-    """Per-layer dense gated MLP.  The MoE expert bank comes with the
-    training slice's models/moe.py (ROADMAP.md Queue A item 11)."""
+    """Per-layer feed-forward: the dense gated MLP, or, when the layer
+    carries a Mixtral-style expert bank ('moe' subtree, models/moe.py),
+    the exact dropless top-k block.  Decode streams every expert's
+    weights regardless once batch x top_k covers the experts, so the
+    dense formulation costs the weight-bound step nothing; the banks
+    stay in the model dtype under weights_dtype='int8'
+    (quant._QUANT_PATH does not match them)."""
     if 'moe' in layer_params:
-        raise NotImplementedError(
-            "MoE layers ('moe' subtree) are not ported yet: ROADMAP.md "
-            'Queue A item 11')
+        y, _ = moe.moe_block_dense(x, layer_params['moe'], config)
+        return y
     return _mlp(x, layer_params['mlp'], config.mlp_act)
 
 

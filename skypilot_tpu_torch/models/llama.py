@@ -93,13 +93,17 @@ LLAMA_DEBUG = LlamaConfig(vocab_size=512, d_model=256, n_layers=2, n_heads=2,
 
 
 def init_params(config: LlamaConfig, generator: torch.Generator,
-                device=None) -> Params:
+                device=None, *, ffn=None) -> Params:
     """Random stacked-layer parameters (same dict layout and scales as
     the JAX ``init_params``; not the same numbers).
 
     Values are drawn on `generator`'s device, one layer at a time so the
     f32 draw never holds more than one layer, and stored on `device`
-    (default: the CUDA card) in config.dtype."""
+    (default: the CUDA card) in config.dtype.  `ffn(dense)` returns the
+    layers' feed-forward entry as (key, subtree) from the stacked
+    initializer ``dense(*shape)`` (scale shape[-2] ** -0.5); the default
+    is the gated MLP, ('mlp', ...), and models/moe.py passes its expert
+    bank."""
     device = resolve_device(device)
     gen_device = generator.device
     d, ff = config.d_model, config.d_ff
@@ -133,17 +137,21 @@ def init_params(config: LlamaConfig, generator: torch.Generator,
     if config.attn_bias:
         attn.update(bq=zeros(nl, nh * hd), bk=zeros(nl, nkv * hd),
                     bv=zeros(nl, nkv * hd))
+    if ffn is None:
+        def ffn(dense):
+            return 'mlp', {'w_gate': dense(nl, d, ff),
+                           'w_up': dense(nl, d, ff),
+                           'w_down': dense(nl, ff, d)}
+    # The embedding is drawn before the ffn: a seed's draw order is kept.
+    embed = normal((config.vocab_size, d), 0.02)
+    ffn_key, ffn_tree = ffn(dense)
     return {
-        'embed': normal((config.vocab_size, d), 0.02),
+        'embed': embed,
         'layers': {
             'ln1': ones(nl, d),
             'ln2': ones(nl, d),
             'attn': attn,
-            'mlp': {
-                'w_gate': dense(nl, d, ff),
-                'w_up': dense(nl, d, ff),
-                'w_down': dense(nl, ff, d),
-            },
+            ffn_key: ffn_tree,
         },
         'final_norm': ones(d),
         'lm_head': normal((d, config.vocab_size), d ** -0.5),
@@ -222,11 +230,14 @@ def _remat_policy(config: LlamaConfig):
     return _REMAT_POLICIES[config.remat_policy]()
 
 
-def _layer(h: torch.Tensor, layer_params: Params, *, config: LlamaConfig,
-           cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+def attention_block(h: torch.Tensor, layer_params: Params,
+                    config: LlamaConfig, cos: torch.Tensor,
+                    sin: torch.Tensor) -> torch.Tensor:
+    """The attention half of a training layer: h + attention(norm(h)),
+    through K3 (rms_norm) and K2 (flash_attention, causal)."""
     batch, seq, _ = h.shape
     hd, nh, nkv = config.head_dim, config.n_heads, config.n_kv_heads
-    attn_p, mlp_p = layer_params['attn'], layer_params['mlp']
+    attn_p = layer_params['attn']
 
     x = rmsnorm_ops.rms_norm(h, layer_params['ln1'], eps=config.norm_eps)
     q, k, v = x @ attn_p['wq'], x @ attn_p['wk'], x @ attn_p['wv']
@@ -239,15 +250,20 @@ def _layer(h: torch.Tensor, layer_params: Params, *, config: LlamaConfig,
     q = rope_ops.apply_rope(q, cos, sin)
     k = rope_ops.apply_rope(k, cos, sin)
     o = attention_ops.flash_attention(q, k, v, causal=True)
-    h = h + (o.reshape(batch, seq, nh * hd) @ attn_p['wo'])
+    return h + (o.reshape(batch, seq, nh * hd) @ attn_p['wo'])
 
+
+def _layer(h: torch.Tensor, layer_params: Params, *, config: LlamaConfig,
+           cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    mlp_p = layer_params['mlp']
+    h = attention_block(h, layer_params, config, cos, sin)
     x = rmsnorm_ops.rms_norm(h, layer_params['ln2'], eps=config.norm_eps)
     gate = gate_activation(x @ mlp_p['w_gate'], config.mlp_act)
     h = h + ((gate * (x @ mlp_p['w_up'])) @ mlp_p['w_down'])
     return h
 
 
-def _unbind_layers(params: Params, n_layers: int) -> List[Params]:
+def unbind_layers(params: Params, n_layers: int) -> List[Params]:
     """Per-layer weight dicts as views of the stacked leaves, one
     ``torch.unbind`` per leaf: its backward is one ``stack`` per leaf,
     where indexing each layer would zero-fill the whole stacked leaf once
@@ -277,7 +293,7 @@ def hidden_states(params: Params, tokens: torch.Tensor,
     h = embed_tokens(params, tokens, config)
     layer_fn = functools.partial(_layer, config=config, cos=cos, sin=sin)
     context_fn = _remat_policy(config) if config.remat else None
-    for lp in _unbind_layers(params, config.n_layers):
+    for lp in unbind_layers(params, config.n_layers):
         if config.remat:
             h = checkpoint_lib.checkpoint(layer_fn, h, lp,
                                           use_reentrant=False,

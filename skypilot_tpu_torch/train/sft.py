@@ -4,8 +4,9 @@ data path.
 Counterpart of skypilot_tpu/train/sft.py: train only on the COMPLETION
 tokens of {prompt, completion} pairs.  The loss composes with the
 blockwise CE (config.loss_chunk), since the mask applies to per-token
-logprobs.  The data path is the JAX package's numpy code, so the same
-file and seed give the same arrays in both packages.
+logprobs, and takes Mixtral-family configs (models/moe.py) with their
+router aux loss.  The data path is the JAX package's numpy code, so the
+same file and seed give the same arrays in both packages.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
-from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.models import llama, moe
 from skypilot_tpu_torch.ops import losses as losses_ops
 
 
@@ -37,14 +38,23 @@ def sft_loss_fn(params, batch: Dict[str, torch.Tensor],
                 config: llama.LlamaConfig) -> torch.Tensor:
     """Masked next-token CE.  batch: {'tokens': (B, S+1) int, 'loss_mask':
     (B, S)}: mask[b, j] gates the loss on TARGET tokens[b, j+1] (1.0 for
-    completion tokens, 0.0 for prompt and pad)."""
+    completion tokens, 0.0 for prompt and pad).  A MoE config
+    (models/moe.py) adds router_aux_weight x the router aux loss, so a
+    finetune keeps the expert assignment balanced."""
+    tokens = batch['tokens']
+    aux = None
     if hasattr(config, 'n_experts'):
-        raise NotImplementedError(
-            'MoE configs (n_experts) are not ported yet: ROADMAP.md Queue '
-            'A item 11(e) (models/moe.py and its router aux loss)')
-    lp = token_logprobs(params, batch['tokens'], config)
+        h, aux = moe.hidden_states(params, tokens[:, :-1], config)
+        lp = losses_ops.chunked_token_logprobs(
+            h, params['lm_head'], tokens[:, 1:],
+            chunk_size=config.loss_chunk or tokens.shape[1])
+    else:
+        lp = token_logprobs(params, tokens, config)
     mask = batch['loss_mask'].to(lp.dtype)
-    return -(lp * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    loss = -(lp * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    if aux is not None:
+        loss = loss + config.router_aux_weight * aux
+    return loss
 
 
 def encode_example(prompt_ids: List[int], completion_ids: List[int],

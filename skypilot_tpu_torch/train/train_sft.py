@@ -30,21 +30,18 @@ from skypilot_tpu_torch.utils import env_contract
 def refuse_unported(parser: argparse.ArgumentParser,
                     args: argparse.Namespace) -> None:
     """Exit with a message naming the ROADMAP item of a flag whose path
-    is not ported: --hf-model (11(f)), a mesh axis above 1 (11(g)), and
-    --ep above 1 (11(e))."""
-    if args.hf_model:
+    is not ported: --hf-model (11(f)) and a mesh axis above 1, expert
+    parallelism included (11(g))."""
+    if getattr(args, 'hf_model', ''):
         parser.error('--hf-model needs the HF checkpoint conversion, '
                      'ROADMAP item 11(f) (models/convert.py)')
-    mesh = {k: getattr(args, k) for k in ('dp', 'fsdp', 'tp')
+    mesh = {k: getattr(args, k) for k in ('dp', 'fsdp', 'tp', 'ep')
             if hasattr(args, k)}
     sharded = {k: v for k, v in mesh.items() if v > 1}
     if sharded:
         parser.error(f'{sharded}: this entry point trains on one card; '
                      f'meshes come with ROADMAP item 11(g) (parallel/ '
                      f'sharding)')
-    if getattr(args, 'ep', 1) > 1:
-        parser.error('--ep needs the MoE expert bank, ROADMAP item 11(e) '
-                     '(models/moe.py)')
 
 
 def byte_encoder(vocab_size: int):
@@ -76,7 +73,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument('--dp', type=int, default=0, help='1 (one card)')
     parser.add_argument('--fsdp', type=int, default=0, help='1 (one card)')
     parser.add_argument('--tp', type=int, default=1, help='1 (one card)')
-    parser.add_argument('--ep', type=int, default=1, help='1 (no MoE)')
+    parser.add_argument('--ep', type=int, default=1, help='1 (one card)')
     parser.add_argument('--learning-rate', type=float, default=1e-5)
     parser.add_argument('--loss-chunk', type=int, default=0,
                         help='blockwise-CE chunk (0 = full logits); use '

@@ -14,20 +14,22 @@ across with llama.params_from_numpy):
   capture's counts per replay; a failed capture raises with the counts
   restored;
 - a stand-in for the card that records instead of running a capture and
-  reruns the body on replay gives the eager path's greedy tokens, and
-  the JAX batcher's;
+  reruns the body on replay gives the eager path's greedy tokens (also
+  on a MoE config), and the JAX batcher's;
 - graphs=True without a card raises.
 
 On the card (`cuda` marker; these skip here, and need no JAX: the
 weights come from llama.init_params): graph and eager give
 identical greedy tokens at LLAMA_DEBUG f32 (pooled, spec_k=3,
-fuse_budget, int8 KV and weights, 'paged', the pooled Generator), each
+fuse_budget, int8 KV and weights, 'paged', the pooled Generator; a
+MoE config, pooled and spec_k=3), each
 key is captured once over a multi-request run, and replays of a sampled
 chunk draw fresh noise from the same distribution as the eager path.
 
 Run the card's tests on a machine with one:
     python -m pytest tests/test_torch_graphs.py -q -m cuda
 """
+import dataclasses
 import warnings
 
 import numpy as np
@@ -39,11 +41,15 @@ from skypilot_tpu_torch.infer import engine, sampling  # noqa: E402
 from skypilot_tpu_torch.infer.engine import (  # noqa: E402
     ChunkGraphs, Generator, GeneratorConfig)
 from skypilot_tpu_torch.infer.serving import ContinuousBatcher  # noqa: E402
-from skypilot_tpu_torch.models import llama  # noqa: E402
+from skypilot_tpu_torch.models import llama, moe  # noqa: E402
 from skypilot_tpu_torch.ops import _kernels, rmsnorm  # noqa: E402
 from skypilot_tpu_torch.ops import decode_attention  # noqa: E402
 
 CFG = llama.LLAMA_DEBUG
+# A MoE config at LLAMA_DEBUG's attention widths (head_dim 128, which the
+# card's decode kernels take): 4 experts, top 2, f32.
+MOE_HD128 = dataclasses.replace(
+    moe.MOE_DEBUG, d_model=256, n_heads=2, n_kv_heads=1, d_ff=512)
 KW = dict(max_seq_len=128, batch_size=3, prompt_buckets=[16, 32],
           prefill_chunk=24, kv_block_size=16)
 PROMPT_LENGTHS = (5, 12, 30, 3, 9)
@@ -67,10 +73,10 @@ def _prompts(lengths=PROMPT_LENGTHS, seed=0):
     return [[int(t) for t in rng.randint(1, 512, size=n)] for n in lengths]
 
 
-def _batcher(tp, graphs=None, **extra):
+def _batcher(tp, graphs=None, cfg=CFG, **extra):
     with warnings.catch_warnings():
         warnings.simplefilter('ignore', DeprecationWarning)
-        return ContinuousBatcher(tp, CFG, GeneratorConfig(**KW, **extra),
+        return ContinuousBatcher(tp, cfg, GeneratorConfig(**KW, **extra),
                                  decode_chunk=4, device='cpu',
                                  graphs=graphs)
 
@@ -427,6 +433,18 @@ def test_generator_graph_path_gives_eager_tokens(debug_params):
     assert gen.graphs.captures == len(gen.graphs.keys())
 
 
+def test_batcher_graph_path_gives_eager_tokens_moe():
+    """The same on a MoE config (MOE_HD128: the expert bank in every
+    captured decode chunk): the graph path's tokens equal the eager
+    path's, each key captured once."""
+    tp = moe.init_params(MOE_HD128, torch.Generator().manual_seed(0), 'cpu')
+    want = _serve(_batcher(tp, cfg=MOE_HD128))
+    b = _with_cpu_graphs(_batcher(tp, cfg=MOE_HD128))
+    assert _serve(b) == want
+    assert b.graphs.replays > 0
+    assert b.graphs.captures == len(b.graphs.keys())
+
+
 # ---- (d) no card ------------------------------------------------------------
 
 def test_graphs_true_without_a_card_raises(debug_params):
@@ -470,10 +488,10 @@ def card_params():
     return llama.init_params(CFG, torch.Generator().manual_seed(0), 'cuda')
 
 
-def _card_batcher(tp, graphs, **extra):
+def _card_batcher(tp, graphs, cfg=CFG, **extra):
     with warnings.catch_warnings():
         warnings.simplefilter('ignore', DeprecationWarning)
-        return ContinuousBatcher(tp, CFG, GeneratorConfig(**KW, **extra),
+        return ContinuousBatcher(tp, cfg, GeneratorConfig(**KW, **extra),
                                  decode_chunk=4, device='cuda',
                                  graphs=graphs)
 
@@ -601,3 +619,25 @@ def test_card_engine_with_graphs_is_freed(cuda, card_params):
         assert ref() is None
         allocated.append(torch.cuda.memory_allocated())
     assert allocated[1] == allocated[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('extra', [{}, dict(spec_k=3)],
+                         ids=['pooled', 'spec'])
+def test_card_moe_graphs_give_eager_tokens(cuda, extra):
+    """MOE_HD128 on the card: the expert bank inside the captured decode
+    (and verify) chunks gives the eager chunks' greedy tokens, each key
+    captured once, chunks replayed, and the same launch counts."""
+    tp = moe.init_params(MOE_HD128, torch.Generator().manual_seed(0),
+                         'cuda')
+    counted = (rmsnorm.rms_norm, decode_attention.decode_attention_pooled,
+               decode_attention.decode_window_attention_pooled)
+    runs = {}
+    for graphs in (False, True):
+        b = _card_batcher(tp, graphs, cfg=MOE_HD128, **extra)
+        before = [c.launches for c in counted]
+        runs[graphs] = (_serve(b), [c.launches - n
+                                    for c, n in zip(counted, before)])
+    assert runs[True] == runs[False]
+    assert b.graphs.replays > 0
+    assert b.graphs.captures == len(b.graphs.keys())

@@ -197,9 +197,9 @@ def test_window_prefill_matches_jax(models):
 
 
 def test_deferred_branches_raise():
-    """MoE layers still raise naming their ROADMAP item; the int8 cache
-    and int8 weights, once deferred the same way, now have the JAX
-    layout and product."""
+    """The int8 cache and int8 weights, once deferred, now have the JAX
+    layout and product, and an unknown kv_dtype raises (MoE layers, once
+    deferred too, are served: tests/test_torch_moe.py)."""
     _, tcfg, _, tp = _models('float32')
     cache = llama_infer.init_cache(tcfg, 1, 16, kv_dtype='int8',
                                    device='cpu')
@@ -209,9 +209,6 @@ def test_deferred_branches_raise():
         assert str(cache[key].dtype).split('.')[-1] == str(arr.dtype)
     with pytest.raises(ValueError, match='kv_dtype'):
         llama_infer.init_cache(tcfg, 1, 16, kv_dtype='int4', device='cpu')
-    moe_layer = {'moe': {}, 'mlp': {}}
-    with pytest.raises(NotImplementedError, match='Queue A item 11'):
-        llama_infer._ffn(torch.zeros(1, 1, tcfg.d_model), moe_layer, tcfg)
     from skypilot_tpu_torch.infer import quant
     w = {'q': torch.tensor([[1, -2], [3, 4], [0, 127]], dtype=torch.int8),
          's': torch.tensor([0.5, 2.0])}

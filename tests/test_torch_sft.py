@@ -178,16 +178,6 @@ def test_sft_loss_ignores_masked_targets_and_empty_mask():
     assert float(sft.sft_loss_fn(params, empty, tcfg)) == 0.0
 
 
-def test_sft_loss_refuses_moe_naming_its_roadmap_item():
-    @dataclasses.dataclass(frozen=True)
-    class MoeConfig(type(llama.LLAMA_DEBUG)):
-        n_experts: int = 4
-    cfg = MoeConfig(**dataclasses.asdict(llama.LLAMA_DEBUG))
-    with pytest.raises(NotImplementedError, match=r'11\(e\)'):
-        sft.sft_loss_fn({}, {'tokens': torch.zeros(1, 3, dtype=torch.int32),
-                             'loss_mask': torch.ones(1, 2)}, cfg)
-
-
 # ---- the trainer's additions ---------------------------------------------------
 
 def test_make_optimizer_is_the_trainers_optimizer():
@@ -250,7 +240,7 @@ def test_train_sft_runs_on_the_cpu(tmp_path):
 
 _REFUSED = [(('--hf-model', 'meta-llama/Llama-3.1-8B'), '11(f)'),
             (('--tp', '2'), '11(g)'), (('--fsdp', '4'), '11(g)'),
-            (('--ep', '2'), '11(e)')]
+            (('--ep', '2'), '11(g)')]
 
 
 @pytest.mark.parametrize('module,flag,item', [
