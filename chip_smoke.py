@@ -30,7 +30,16 @@ Phases (any failure exits non-zero):
    to _combine_splits_plain on the partials of K1's bf16 launch and
    timed; K1 and the combine again at the shape of 10c's GRPO rollouts
    (LLAMA_1B: G 2 over 8 KV heads, 8 slots, a 2-block table), each with
-   its own kernels line entry.  K4 (the window attention) takes its tensor-core route in bf16
+   its own kernels line entry; K1 and the combine also at the decode
+   shapes of 12a (Gemma-7B: 16 KV heads of 256, G 1) and 12b
+   (Qwen2.5-1.5B: 2 KV heads of 128, G 6).  K2 without its lse at the
+   prefill shapes of phase 12 (FLASH_SHAPES), f32 and bf16 at ragged S
+   and then in bf16 at the shape: Gemma-7B's q (4, 512, 16, 256), which
+   must take the FMA kernel, and Qwen2.5-1.5B's q (4, 512, 12, 128) over
+   2 KV heads, the tensor-core one; K3 at the widths and eps of every
+   main path (NORM_SHAPES: 4096 at 1e-5, Gemma-7B's 3072 and
+   Qwen2.5-1.5B's 1536 at 1e-6); the training kernels also at G 6,
+   ragged and at 12b's LoRA-SFT shape (2, 2048, 12/2 heads, 128).  K4 (the window attention) takes its tensor-core route in bf16
    and over an int8 arena (the FMA route in f32), split-KV at both of
    its shapes: checked twice (bitwise), timed eager and as a replayed
    graph beside SDPA's, and its combine pass alone held to
@@ -140,8 +149,40 @@ Phases (any failure exits non-zero):
    2-layer model at the same widths through train_moe.make_trainer
    (router_impl 'capacity', remat, 6 steps of 2 x 4096 tokens): finite
    losses and router aux losses; prints MFU = 6 N_active x tokens/s /
-   989e12 with and without the lm_head.  Every phase prints its seconds,
-   and the run its whole.
+   989e12 with and without the lm_head.
+12. HF checkpoints, each written by the script in HF's layout (names,
+   (out, in) shapes, safetensors by hand, 5 GB shards with an index,
+   random bf16 weights from a seed drawn on the card; it fails early,
+   naming the bytes it needs, where the temp dir is short) and loaded by
+   convert.load_hf_model onto the card.  (a) Gemma-7B's published
+   config (google/gemma-7b's config.json: 28 layers, 16 heads of 256,
+   ff 24576, vocab 256000, tied, norms stored as w - 1): 17.08 GB
+   written, the port's tree 18.65 GB with the lm_head's copy; served as
+   phase 5 serves LLAMA3_8B, through graphs; the directory deleted after
+   (17.1 GB of disk at the peak).  (b) Qwen2.5-1.5B's (Qwen/Qwen2.5-1.5B:
+   28 layers, 12 heads over 2 KV heads of 128, q/k/v biases, tied,
+   max_position_embeddings 131072), served the same way, LoRA-SFT of the
+   loaded base (rank 16 on attn, 3 steps of 2 x 2048), and `python -m
+   skypilot_tpu_torch.train.train_sft --hf-model DIR --lora-rank 16
+   --steps 3` as a child process.  Each load prints seconds, GB/s, the
+   host's peak RSS growth (VmRSS sampled every 2 ms), which must stay
+   below the model's bytes, and the device's peak;
+   every leaf is held bitwise to the tensors drawn (drawn again), with
+   each leaf's bit checksum.  The serves print phase 5's stats and the
+   decode step against its bytes bound.  (c) Gemma-like (hd 256, gelu,
+   the (1 + w) norm, tied) and Qwen2-like (biases, G 6, tied) configs
+   at debug size in f32, each loaded on the host and on the card:
+   bitwise equal leaves, allclose logits, identical greedy tokens on the
+   host, the card eagerly and the card through graphs.
+13. ResNet: (a) ResNet18Thin in f32 from one params_from_flax state on
+   the host and on the card, one SGD-momentum step: loss, every
+   gradient and update, running statistics held at RESNET_GRAD_REL /
+   RESNET_ATOL, and the same step on the card with TF32 and with bf16
+   convolutions, controls that must read past RESNET_GRAD_REL; (b)
+   train_resnet's path, ResNet50 at batch 256 of
+   224x224 in bf16 (2 warm-up, 10 timed steps: images/s, step ms, peak
+   memory), then the entry point itself as a child process.  Every
+   phase prints its seconds, and the run its whole.
 
 Every kernel of a main-path run must launch > 0 times in that run (the
 counts are set to 0 just before it and read just after; a replayed graph
@@ -149,11 +190,13 @@ adds the launches its capture recorded, engine.ChunkGraphs); the window
 kernel must launch from both verify and fused ticks, K7 (and never K1)
 on every phase 7 path, and K2, K3, K5 and K6 from both train paths and
 9a, and K2 with its lse, K3, K5 and K6 from 10a, 10b, 10c, 11b and 11c
-(K1 from 10c's rollouts, K1, K2 and K3 from 11a); K2, K5 and K6 only on
-their tensor-core route, on every path of phases 5 to 11 (all bf16 at
-head_dim 128), and K4 on phase 6's paths, where it must also take its
-split route; K1 and K7 only on their split route on every path of phases
-5 to 7, 10c and 11a (B KV = 64 < 2 x 132 SMs).  The last lines
+(K1 from 10c's rollouts, K1, K2 and K3 from 11a, 12a and 12b, K2 with
+its lse, K3, K5 and K6 from 12b's LoRA-SFT); K2, K5 and K6 only on their
+tensor-core route on every path but 12a (bf16 at head_dim 128), and K2
+only on its FMA kernel on 12a (head_dim 256); K4 on phase 6's paths,
+where it must also take its split route; K1 and K7 only on their split
+route on every path of phases 5 to 7, 10c, 11a, 12a and 12b (B KV <= 128
+< 2 x 132 SMs).  The last lines
 of standard output are
 the {"kernels": [...]} line, the nvidia-smi name/power-limit line, and
 {"ok": true, "device": {...}}.
@@ -167,6 +210,7 @@ import os
 import re
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -174,6 +218,7 @@ import threading
 import time
 import urllib.request
 import warnings
+import zlib
 
 import numpy as np
 import torch
@@ -332,48 +377,65 @@ def sdpa(q, k, v, **kw):
 
 # ---- phase 3: kernels -----------------------------------------------------
 
-def check_rmsnorm(rmsnorm):
-    gen = torch.Generator(device='cuda').manual_seed(3)
-    d = 4096
+# K3 at the widths of the main paths: name -> (d, eps, seed).  Phases 5-11
+# run LLAMA3_8B's and Mixtral's 4096 at eps 1e-5; 12a Gemma-7B's 3072 and
+# 12b Qwen2.5-1.5B's 1536, both at eps 1e-6.
+NORM_SHAPES = {'rms_norm': (4096, 1e-5, 3),
+               'rms_norm[Gemma-7B]': (3072, 1e-6, 14),
+               'rms_norm[Qwen2.5-1.5B]': (1536, 1e-6, 15)}
+
+
+def check_rmsnorm(rmsnorm, name):
+    """K3 at NORM_SHAPES[name] against its plain version in f32 and bf16
+    at 8, 2048 and 5 rows; timed in bf16 at 2048 rows with its bound and
+    F.rms_norm's.  Returns its kernels line entry."""
+    d, eps, seed = NORM_SHAPES[name]
+    gen = torch.Generator(device='cuda').manual_seed(seed)
     result = None
     for dtype in (torch.float32, torch.bfloat16):
         for rows in (8, 2048, 5):
             x = torch.randn(rows, d, generator=gen, device='cuda').to(dtype)
             w = (1 + 0.1 * torch.randn(d, generator=gen, device='cuda')
                  ).to(dtype)
-            err = check_close(f'rms_norm {dtype} rows={rows}',
-                              rmsnorm.rms_norm(x, w, 1e-5),
-                              rmsnorm._rms_norm_plain(x, w, 1e-5))
+            err = check_close(f'{name} {dtype} rows={rows}',
+                              rmsnorm.rms_norm(x, w, eps),
+                              rmsnorm._rms_norm_plain(x, w, eps))
             if dtype == torch.bfloat16 and rows == 2048:
                 nbytes = 2 * x.numel() * 2 + d * 2
                 b_ms, by = bound(nbytes, 4 * x.numel(), BF16_FLOPS)
                 result = {
-                    'name': 'rms_norm', 'route': 'cuda',
+                    'name': name, 'route': 'cuda',
                     'source': 'skypilot_tpu_torch/csrc/rmsnorm.cu',
                     'replaces': 'skypilot_tpu/ops/rmsnorm.py:31',
-                    'shape': f'x ({rows}, {d}) bf16',
+                    'shape': f'x ({rows}, {d}) bf16 eps {eps:g}',
                     'max_abs_err': err,
-                    'ms': time_ms(lambda: rmsnorm.rms_norm(x, w, 1e-5)),
+                    'ms': time_ms(lambda: rmsnorm.rms_norm(x, w, eps)),
                     'plain_ms': time_ms(
-                        lambda: rmsnorm._rms_norm_plain(x, w, 1e-5)),
+                        lambda: rmsnorm._rms_norm_plain(x, w, eps)),
                     'bound_ms': b_ms, 'bound_by': by,
                     'library_ms': time_ms(
                         lambda: torch.nn.functional.rms_norm(
-                            x, (d,), w, 1e-5)),
+                            x, (d,), w, eps)),
                 }
     return result
+
+
+def _ptxas_of(ptxas, pattern):
+    """The ptxas registers and spill of the one instantiation whose
+    mangled name matches `pattern` (a regular expression); fails where
+    the report names none or several."""
+    found = [i for n, i in ptxas.items() if re.search(pattern, n)]
+    if len(found) != 1:
+        raise AssertionError(f'ptxas report has {len(found)} {pattern}')
+    return {'ptxas_registers': found[0]['registers'],
+            'ptxas_spill_bytes': found[0]['spill_bytes']}
 
 
 def _tc_entry(ptxas, stem, design=None):
     """The design of a kernel (TC_DESIGN, the flash kernels', by default)
     and the ptxas registers and spill of its instantiation `stem` (a
     mangled-name fragment)."""
-    found = [i for n, i in ptxas.items() if stem in n]
-    if len(found) != 1:
-        raise AssertionError(f'ptxas report has {len(found)} {stem}')
-    return {'design': design or TC_DESIGN,
-            'ptxas_registers': found[0]['registers'],
-            'ptxas_spill_bytes': found[0]['spill_bytes']}
+    return {'design': design or TC_DESIGN, **_ptxas_of(ptxas, stem)}
 
 
 # Mangled-name patterns of the timed K1/K7 instantiations (bf16 q,
@@ -386,19 +448,6 @@ DECODE_KERNELS = {
     ('contig', 'int8'): r'decode_kernelI13__nv_bfloat16aLi128ELi4E\w*ContigRows',
     'combine': r'decode_combine_kernelI13__nv_bfloat16E',
 }
-
-
-def _decode_ptxas(ptxas, key):
-    """ptxas registers and spill of one K1/K7/combine instantiation (None
-    where the report names none: the spill check of phase 2 covers every
-    instantiation all the same)."""
-    found = [i for n, i in ptxas.items()
-             if re.search(DECODE_KERNELS[key], n)]
-    if len(found) != 1:
-        log(f'  ptxas report has {len(found)} {DECODE_KERNELS[key]}')
-        return {'ptxas_registers': None, 'ptxas_spill_bytes': None}
-    return {'ptxas_registers': found[0]['registers'],
-            'ptxas_spill_bytes': found[0]['spill_bytes']}
 
 
 def _check_fwd(at, q, k, v, causal, tag, need_lse=False):
@@ -464,8 +513,72 @@ def check_flash(attention, ptxas):
     return result
 
 
-# Attention shapes of the two train paths: (B, S, H, KV, head_dim).
-TRAIN_SHAPES = {'1b': (8, 1024, 16, 8, 128), '8b': (2, 4096, 32, 8, 128)}
+# K2 without its lse at the prefill shapes of phase 12 (phase 5's prefill
+# chunk of 512 rows over 4 requests), name -> ((B, S, H, KV, head_dim),
+# the (H, KV) of its ragged checks, seed).  Gemma-7B: 16 heads of 256,
+# MHA; bf16 at head_dim 256 takes the FMA kernel (ops/attention.py
+# _count_route), not mma.sync.  Qwen2.5-1.5B: 12 query heads over 2 KV
+# heads of 128 (G 6), the tensor-core route.
+FLASH_SHAPES = {
+    'flash_attention[Gemma-7B hd256]': ((4, 512, 16, 16, 256), (4, 2), 11),
+    'flash_attention[Qwen2.5-1.5B G6 prefill]': ((4, 512, 12, 2, 128),
+                                                 (12, 2), 16),
+}
+
+
+def check_flash_at(attention, ptxas, name):
+    """K2 without its lse at FLASH_SHAPES[name]: against its plain
+    versions in f32 and bf16 at a ragged S, then at the shape itself in
+    bf16, checked, timed with its bound and SDPA's; fails unless every
+    bf16 launch at the shape takes the tensor-core route at head_dim 128
+    and the FMA one at 256.  Returns its kernels line entry."""
+    at = attention
+    (batch, seq, heads, kv, hd), ragged, seed = FLASH_SHAPES[name]
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, s, causal in ((1, 700, True), (2, 65, False)):
+            q, k, v = _attn_operands(gen, b, s, *ragged, hd, dtype)[:3]
+            _check_fwd(at, q, k, v, causal,
+                       f'{dtype} B={b} S={s} H={ragged[0]}/{ragged[1]} '
+                       f'hd={hd} causal={causal}')
+    q, k, v = _attn_operands(gen, batch, seq, heads, kv, hd,
+                             torch.bfloat16)[:3]
+    tc0 = at.flash_attention.launches_tc
+    err, _, _ = _check_fwd(at, q, k, v, True, f'bf16 {name}')
+    tc = at.flash_attention.launches_tc - tc0
+    if tc != (hd <= 128):
+        raise AssertionError(f'{name}: {tc} tensor-core launches of 1')
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+    flops = 4 * hd * batch * heads * seq * (seq + 1) // 2
+    b_ms, by = bound(nbytes, flops, BF16_FLOPS)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    ms = time_ms(lambda: at.flash_attention(q, k, v))
+    entry = {
+        'name': name, 'route': 'cuda',
+        'source': 'skypilot_tpu_torch/csrc/flash_fwd.cu',
+        'replaces': 'skypilot_tpu/ops/attention.py:120',
+        'shape': f'q ({batch}, {seq}, {heads}, {hd}) kv {kv} causal bf16',
+        'max_abs_err': err, 'ms': ms,
+        'plain_ms': time_ms(lambda: at._flash_fwd_plain(q, k, v)),
+        'bound_ms': b_ms, 'bound_by': by,
+        'library_ms': time_ms(lambda: sdpa(qt, kt, vt, is_causal=True)),
+        'tflops': flops / ms / 1e9,
+        **(_tc_entry(ptxas, TC_KERNELS['lse']) if tc else {
+            'design': 'FMA (f32 CUDA cores; no tensor-core route at hd '
+                      f'{hd})'}),
+    }
+    log(f'  {name}: {ms:.3f} ms, {entry["tflops"]:.1f} TFLOP/s, bound '
+        f'{b_ms:.4f} by {by}, plain {entry["plain_ms"]:.3f}, SDPA '
+        f'{entry["library_ms"]:.3f}')
+    return entry
+
+
+# Attention shapes of the train paths: (B, S, H, KV, head_dim), and the
+# suffix of their kernels line names: LLAMA_1B, the 8B trunk, and 12b's
+# LoRA-SFT of Qwen2.5-1.5B (12 query heads over 2 KV heads, G 6).
+TRAIN_SHAPES = {'1b': (8, 1024, 16, 8, 128), '8b': (2, 4096, 32, 8, 128),
+                'qwen': (2, 2048, 12, 2, 128)}
+TRAIN_SUFFIX = {'1b': '', '8b': '[8B trunk]', 'qwen': '[Qwen2.5-1.5B G6]'}
 
 
 def _attn_operands(gen, batch, seq, heads, kv, hd, dtype):
@@ -507,19 +620,23 @@ TC_KERNELS = {'lse': 'flash_fwd_mma_kernelILi128E',
 
 def check_flash_train(attention, ptxas):
     """K2 with its lse, K5 and K6 against their plain versions in f32
-    and bf16 at the LLAMA_1B shape and a ragged S; then, in bf16 and
-    causal at both train shapes, checked again and timed.  Returns the
+    and bf16 at the LLAMA_1B shape, a ragged S and a ragged S at G 6;
+    then, in bf16 and causal at every TRAIN_SHAPES shape, checked again
+    and timed.  Returns the
     kernels line entries by (kernel, shape), each with the error measured
     at its own shape, its TFLOP/s, the design and the ptxas registers and
     spill of the instantiation timed."""
     at = attention
     gen = torch.Generator(device='cuda').manual_seed(7)
     for dtype in (torch.float32, torch.bfloat16):
-        for batch, seq, causal in ((8, 1024, True), (2, 700, True),
-                                   (2, 700, False)):
-            q, k, v, do = _attn_operands(gen, batch, seq, 16, 8, 128, dtype)
+        for batch, seq, heads, kv, causal in (
+                (8, 1024, 16, 8, True), (2, 700, 16, 8, True),
+                (2, 700, 16, 8, False), (2, 700, 12, 2, True)):
+            q, k, v, do = _attn_operands(gen, batch, seq, heads, kv, 128,
+                                         dtype)
             _check_train_kernels(at, q, k, v, do, causal,
-                                 f'{dtype} B={batch} S={seq} causal={causal}')
+                                 f'{dtype} B={batch} S={seq} H={heads}/{kv} '
+                                 f'causal={causal}')
             del q, k, v, do
     results = {}
     for key, (batch, seq, heads, kv, hd) in TRAIN_SHAPES.items():
@@ -570,7 +687,7 @@ def check_flash_train(attention, ptxas):
             b_ms, by = bound(nbytes, flops, BF16_FLOPS)
             ms = time_ms(fn)
             results[kernel, key] = {
-                'name': name if key == '1b' else f'{name}[8B trunk]',
+                'name': name + TRAIN_SUFFIX[key],
                 'route': 'cuda', 'source': f'skypilot_tpu_torch/csrc/{src}',
                 'replaces': replaces, 'shape': shape,
                 'max_abs_err': errs[kernel], 'ms': ms,
@@ -600,11 +717,11 @@ def _tables(last_rows, n_blocks, seed, t_width=T_WIDTH):
     return torch.as_tensor(tables, device='cuda')
 
 
-def _arena(gen, dtype, n_blocks, int8):
+def _arena(gen, dtype, n_blocks, int8, kv_heads=KV_HEADS, head_dim=HEAD_DIM):
     """A 2-layer (L, NB, BS, KV, hd) K/V arena, int8 with f32 scales when
     int8 (quantized from `dtype` values)."""
     from skypilot_tpu_torch.infer import llama_infer
-    shape = (2, n_blocks, BS, KV_HEADS, HEAD_DIM)
+    shape = (2, n_blocks, BS, kv_heads, head_dim)
     k = torch.randn(shape, generator=gen, device='cuda').to(dtype)
     v = torch.randn(shape, generator=gen, device='cuda').to(dtype)
     if not int8:
@@ -633,10 +750,11 @@ def _poison(k, v, tables, last_rows, layer):
 
 def _kv_bytes(keys, k):
     """Bytes of `keys` K and V rows of all KV heads (plus their f32
-    scales for an int8 arena)."""
-    per_row = KV_HEADS * HEAD_DIM * k.element_size()
+    scales for an int8 arena); k is (..., KV, hd)."""
+    kv_heads, head_dim = k.shape[-2:]
+    per_row = kv_heads * head_dim * k.element_size()
     if k.dtype == torch.int8:
-        per_row += KV_HEADS * 4
+        per_row += kv_heads * 4
     return 2 * keys * per_row
 
 
@@ -652,9 +770,9 @@ def _gathered(k, v, ks, vs, tables, layer, dtype):
     return k_g.transpose(1, 2), v_g.transpose(1, 2)
 
 
-def _split_of(da, batch, capacity):
-    """(splits, split_len) of a K1/K7 launch at the phase 3 shapes."""
-    return da._decode_splits(batch, KV_HEADS, capacity, da._DECODE_CHUNK,
+def _split_of(da, batch, capacity, kv_heads=KV_HEADS):
+    """(splits, split_len) of a K1/K7 launch."""
+    return da._decode_splits(batch, kv_heads, capacity, da._DECODE_CHUNK,
                              da._sm_count(torch.device('cuda')))
 
 
@@ -734,7 +852,7 @@ def check_decode(decode_attention, ptxas):
             'library_ms': time_ms(lambda: sdpa(qs, kt, vt, attn_mask=mask)),
             'library_graph_ms': graph_ms(
                 lambda: sdpa(qs, kt, vt, attn_mask=mask)),
-            **_decode_ptxas(ptxas, ('pooled', label)),
+            **_ptxas_of(ptxas, DECODE_KERNELS['pooled', label]),
         }
     results['bf16']['long_context'] = check_decode_long(da)
     return results
@@ -746,12 +864,12 @@ def _check_combine(da, q, k, v, tables, layer, positions, capacity, out,
     left in its scratch, against _combine_splits_plain (per row: both sum
     the same f32 terms in f32) and bitwise against the launch's own
     output; returns its kernels line entry, named `name`."""
-    batch, group = q.shape[0], q.shape[2]
+    batch, kv_heads, group, head_dim = q.shape
     _, scratch, split_len = da._decode_attention_cuda(
         q, k, v, tables, layer, positions, None, None)
     if scratch is None:
-        raise AssertionError('decode_attention_pooled: the phase 3 shape '
-                             'did not take the split route')
+        raise AssertionError(f'decode_attention_pooled: {name}\'s shape '
+                             f'did not take the split route')
     acc, ml = da._split_partials(q, scratch)
     live = da._live_splits(positions, capacity, split_len)
 
@@ -767,20 +885,20 @@ def _check_combine(da, q, k, v, tables, layer, positions, capacity, out,
     err = check_close(f'{name} bf16', got, want, row_tol(want))
     if not torch.equal(got, out):
         raise AssertionError(f'{name}: not the split launch\'s output')
-    parts = int(live.sum()) * KV_HEADS * group
-    nbytes = parts * (HEAD_DIM + 2) * 4 + got.numel() * 2 + batch * 4
-    b_ms, by = bound(nbytes, parts * HEAD_DIM * 2, BF16_FLOPS)
+    parts = int(live.sum()) * kv_heads * group
+    nbytes = parts * (head_dim + 2) * 4 + got.numel() * 2 + batch * 4
+    b_ms, by = bound(nbytes, parts * head_dim * 2, BF16_FLOPS)
     return {
         'name': name, 'route': 'cuda',
         'source': 'skypilot_tpu_torch/csrc/paged_decode.cu',
         'replaces': 'skypilot_tpu/ops/decode_attention.py:356',
         'shape': f'partials of K1 bf16: {acc.shape[2]} splits of '
                  f'{split_len} keys, {int(live.sum())} live over {batch} '
-                 f'slots, G {group}, hd {HEAD_DIM}',
+                 f'slots, KV {kv_heads}, G {group}, hd {head_dim}',
         'max_abs_err': err, 'ms': time_ms(kernel),
         'graph_ms': graph_ms(kernel), 'plain_ms': time_ms(plain),
         'bound_ms': b_ms, 'bound_by': by, 'library_ms': None,
-        **_decode_ptxas(ptxas, 'combine'),
+        **_ptxas_of(ptxas, DECODE_KERNELS['combine']),
     }
 
 
@@ -835,32 +953,43 @@ def check_decode_long(da):
     }
 
 
-# K1 at the shape of phase 10c's GRPO rollouts: LLAMA_1B (16 query heads
-# over 8 KV heads, G 2, hd 128), the Generator's 8 slots over an arena of
-# 128 rows (prompt 64 + 32 new tokens + 1, to a power of two), T 2.
-GRPO_GROUP, GRPO_T_WIDTH = 2, 2
+# K1 at the decode shapes of the serving and rollout paths beyond phase
+# 5's: name -> (KV heads, group, head_dim, table width, positions).
+#   G2: phase 10c's GRPO rollouts, LLAMA_1B (16 query heads over 8 KV
+#     heads), the Generator's 8 slots over an arena of 128 rows (prompt
+#     64 + 32 new tokens + 1, to a power of two): the rollouts' positions
+#     (2..35), a full 64-token prompt's (64..97), block edges, the end.
+#   Gemma-7B (12a): 16 KV heads of 256 (MHA, G 1), 8 slots of 2,048 rows;
+#   Qwen2.5-1.5B (12b): 12 query heads over 2 KV heads of 128 (G 6).
+# The positions of 12a/12b are those of phase 5's requests mid-decode.
+SERVE_POSITIONS = [17 + 20, 60 + 20, 128 + 20, 250 + 20, 300 + 20,
+                   450 + 20, 600 + 20, 700 + 20]
+DECODE_SHAPES = {
+    'G2': (8, 2, 128, 2, [2, 35, BS - 1, BS, BS + 2, 80, 97, 2 * BS - 1]),
+    'Gemma-7B': (16, 1, 256, 32, SERVE_POSITIONS),
+    'Qwen2.5-1.5B': (2, 6, 128, 32, SERVE_POSITIONS),
+}
 
 
-def check_decode_grpo(da, ptxas):
-    """K1 bf16 at G 2 (the NG 4 instantiation with half its rows masked
-    off) against its plain version, twice bitwise, on a poisoned arena,
-    timed; then the combine alone on that launch's partials.  Returns
-    the kernels line entries of both."""
-    gen = torch.Generator(device='cuda').manual_seed(10)
+def check_decode_at(da, ptxas, label, seed):
+    """K1 bf16 at DECODE_SHAPES[label] against its plain version, twice
+    bitwise, on a poisoned arena, timed with its bound and SDPA's (eager
+    and as a replayed graph).  Returns its kernels line entry (the
+    ptxas registers and spill of the instantiation: NG 4 rows a block
+    for G <= 4, 8 above) and the combine's entry on that launch's
+    partials (`decode_combine[<label>]`)."""
+    kv_heads, group, head_dim, t_width, last = DECODE_SHAPES[label]
+    gen = torch.Generator(device='cuda').manual_seed(seed)
     batch, layer = 8, 1
-    n_blocks = 1 + batch * GRPO_T_WIDTH
-    capacity = GRPO_T_WIDTH * BS
-    # The rollouts' positions (2..35 from 10c's 2-token prompts), those of
-    # a full 64-token prompt (64..97), the block edges and the table end.
-    positions = torch.tensor([2, 35, BS - 1, BS, BS + 2, 80, 97,
-                              capacity - 1], dtype=torch.int32,
-                             device='cuda')
-    last = positions.tolist()
-    tables = _tables(last, n_blocks, 10, GRPO_T_WIDTH)
-    splits, split_len = _split_of(da, batch, capacity)
-    q = torch.randn(batch, KV_HEADS, GRPO_GROUP, HEAD_DIM, generator=gen,
+    n_blocks = 1 + batch * t_width
+    capacity = t_width * BS
+    positions = torch.tensor(last, dtype=torch.int32, device='cuda')
+    tables = _tables(last, n_blocks, seed, t_width)
+    splits, split_len = _split_of(da, batch, capacity, kv_heads)
+    q = torch.randn(batch, kv_heads, group, head_dim, generator=gen,
                     device='cuda').to(torch.bfloat16)
-    k, v, _, _ = _arena(gen, torch.bfloat16, n_blocks, False)
+    k, v, _, _ = _arena(gen, torch.bfloat16, n_blocks, False, kv_heads,
+                        head_dim)
 
     def kernel(k=k, v=v):
         return da.decode_attention_pooled(q, k, v, tables, layer, positions)
@@ -869,32 +998,34 @@ def check_decode_grpo(da, ptxas):
         return da._decode_attention_plain(q, k, v, tables, layer, positions)
 
     out = kernel()
-    err = check_close('decode_attention_pooled bf16 G 2', out, plain())
+    err = check_close(f'decode_attention_pooled bf16 {label}', out, plain())
     if not torch.equal(kernel(), out):
-        raise AssertionError('decode_attention_pooled G 2: two calls differ')
+        raise AssertionError(f'decode_attention_pooled {label}: two calls '
+                             f'differ')
     k2, v2 = _poison(k, v, tables, last, layer)
     if not torch.equal(kernel(k2, v2), out):
-        raise AssertionError('decode_attention_pooled G 2 read keys past a '
-                             'position or outside its table')
+        raise AssertionError(f'decode_attention_pooled {label} read keys '
+                             f'past a position or outside its table')
     del k2, v2
-    combine = _check_combine(da, q, k, v, tables, layer, positions, capacity,
-                             out, ptxas, name='decode_combine[G2]')
+    combine = _check_combine(da, q, k, v, tables, layer, positions,
+                             capacity, out, ptxas,
+                             name=f'decode_combine[{label}]')
     live_keys = int(torch.clamp_max(positions.long() + 1, capacity).sum())
     nbytes = (2 * q.numel() * 2 + _kv_bytes(live_keys, k)
               + tables.numel() * 4 + batch * 4)
-    b_ms, by = bound(nbytes,
-                     4 * HEAD_DIM * KV_HEADS * GRPO_GROUP * live_keys,
+    b_ms, by = bound(nbytes, 4 * head_dim * kv_heads * group * live_keys,
                      BF16_FLOPS)
     kt, vt = _gathered(k, v, None, None, tables, layer, torch.bfloat16)
-    qs = q.reshape(batch, KV_HEADS * GRPO_GROUP, 1, HEAD_DIM)
+    qs = q.reshape(batch, kv_heads * group, 1, head_dim)
     mask = (torch.arange(kt.shape[2], device='cuda')[None, :]
             <= positions.long()[:, None])[:, None, None, :]
+    ng = 8 if group > 4 else 4
     entry = {
-        'name': 'decode_attention_pooled[G2]', 'route': 'cuda',
+        'name': f'decode_attention_pooled[{label}]', 'route': 'cuda',
         'source': 'skypilot_tpu_torch/csrc/paged_decode.cu',
         'replaces': 'skypilot_tpu/ops/decode_attention.py:356',
-        'shape': f'q ({batch}, {KV_HEADS}, {GRPO_GROUP}, {HEAD_DIM}) bf16, '
-                 f'bf16 arena, BS {BS} T {GRPO_T_WIDTH}, positions {last}, '
+        'shape': f'q ({batch}, {kv_heads}, {group}, {head_dim}) bf16, '
+                 f'bf16 arena, BS {BS} T {t_width}, positions {last}, '
                  f'live keys {live_keys}',
         'splits': splits, 'split_len': split_len,
         'max_abs_err': err, 'ms': time_ms(kernel),
@@ -903,8 +1034,12 @@ def check_decode_grpo(da, ptxas):
         'library_ms': time_ms(lambda: sdpa(qs, kt, vt, attn_mask=mask)),
         'library_graph_ms': graph_ms(
             lambda: sdpa(qs, kt, vt, attn_mask=mask)),
-        **_decode_ptxas(ptxas, ('pooled', 'bf16')),
+        **_ptxas_of(ptxas, rf'decode_kernelI13__nv_bfloat16S\w*?_Li'
+                           rf'{head_dim}ELi{ng}E\w*PooledRows'),
     }
+    log(f'  {entry["name"]}: {entry["ms"]:.4f} ms (graph '
+        f'{entry["graph_ms"]:.4f}), bound {b_ms:.4f} by {by}, plain '
+        f'{entry["plain_ms"]:.4f}, SDPA {entry["library_ms"]:.4f}')
     return entry, combine
 
 
@@ -1176,7 +1311,7 @@ def check_contig_decode(decode_attention, ptxas):
             'library_ms': time_ms(lambda: sdpa(qs, kt, vt, attn_mask=mask)),
             'library_graph_ms': graph_ms(
                 lambda: sdpa(qs, kt, vt, attn_mask=mask)),
-            **_decode_ptxas(ptxas, ('contig', label)),
+            **_ptxas_of(ptxas, DECODE_KERNELS['contig', label]),
         }
     return results
 
@@ -2428,20 +2563,20 @@ def streamed_bytes(tree, key=''):
     return 0 if key == 'embed' else tree.numel() * tree.element_size()
 
 
-def mixtral_serve_path(params, cfg, counters):
-    """11a: phase 5's 8 requests (one burst, 48 new tokens each, greedy)
+def bounded_serve_path(label, params, cfg, counters, model):
+    """Phase 5's 8 requests (one burst, 48 new tokens each, greedy)
     through the replica and the ContinuousBatcher's CUDA graphs on the
     pooled plane, batch 8, max_seq_len 2048, prefill_chunk 256,
-    decode_chunk 16.  Prints, beside serve_path's stats, the decode
-    step's bound: the dense formulation streams every bank a step, so a
-    step takes at least the streamed bytes over 3.35 TB/s.  Returns
-    (launches, stats)."""
+    decode_chunk 16 (11a, 12a, 12b).  Prints, beside serve_path's stats,
+    the decode step's bound: a step streams every parameter but the
+    embedding (a row gather), so it takes at least those bytes over 3.35
+    TB/s (for 11a's dense formulation, every bank).  Returns (launches,
+    stats)."""
     from skypilot_tpu_torch.infer.engine import GeneratorConfig
     gen_config = GeneratorConfig(max_seq_len=2048, batch_size=8,
                                  prefill_chunk=256)
-    launches, _, _, stats = serve_path(
-        '11a Mixtral widths, 16 layers', params, gen_config, counters,
-        cfg=cfg, model='mixtral-8x7b-16-layers')
+    launches, _, _, stats = serve_path(label, params, gen_config, counters,
+                                       cfg=cfg, model=model)
     nbytes = streamed_bytes(params)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     # Decode steps of the run: every step runs 8 slots, live or not.
@@ -2453,7 +2588,8 @@ def mixtral_serve_path(params, cfg, counters):
              'batch8_tokens_per_s_bound': 8 / bound_ms * 1e3,
              'decode_steps': steps, 'step_ms_without_capture': step_ms,
              'step_share_of_bound': bound_ms / step_ms}
-    log('  11a decode bound (bytes / 3.35 TB/s): ' + json.dumps(bound))
+    log(f'  {label.split()[0]} decode bound (bytes / 3.35 TB/s): '
+        + json.dumps(bound))
     return launches, dict(stats, **bound)
 
 
@@ -2542,7 +2678,9 @@ def mixtral_path(counters, paths):
         f'{torch.cuda.memory_allocated() / 1e9:.2f} GB, in '
         f'{time.perf_counter() - t0:.1f} s')
     sub = time.perf_counter()
-    paths['11a'], _ = mixtral_serve_path(base, cfg, counters)
+    paths['11a'], _ = bounded_serve_path(
+        '11a Mixtral widths, 16 layers', base, cfg, counters,
+        'mixtral-8x7b-16-layers')
     log(f'  11a: {time.perf_counter() - sub:.1f} s')
     gc.collect()
     torch.cuda.empty_cache()
@@ -2568,6 +2706,616 @@ def mixtral_path(counters, paths):
     sub = time.perf_counter()
     paths['11b'], _ = mixtral_train_path(counters)
     log(f'  11b: {time.perf_counter() - sub:.1f} s')
+
+
+# ---- phase 12: HF checkpoints ---------------------------------------------
+
+# Published configs, typed from each model's config.json on the Hugging
+# Face hub (google/gemma-7b and Qwen/Qwen2.5-1.5B); nothing is fetched.
+GEMMA_7B = {
+    'architectures': ['GemmaForCausalLM'], 'model_type': 'gemma',
+    'vocab_size': 256000, 'hidden_size': 3072, 'intermediate_size': 24576,
+    'num_hidden_layers': 28, 'num_attention_heads': 16,
+    'num_key_value_heads': 16, 'head_dim': 256, 'hidden_act': 'gelu',
+    'rms_norm_eps': 1e-6, 'rope_theta': 10000.0, 'rope_scaling': None,
+    'max_position_embeddings': 8192, 'attention_bias': False,
+    'tie_word_embeddings': True, 'bos_token_id': 2, 'eos_token_id': 1,
+    'pad_token_id': 0, 'torch_dtype': 'bfloat16'}
+QWEN25_1_5B = {
+    'architectures': ['Qwen2ForCausalLM'], 'model_type': 'qwen2',
+    'vocab_size': 151936, 'hidden_size': 1536, 'intermediate_size': 8960,
+    'num_hidden_layers': 28, 'num_attention_heads': 12,
+    'num_key_value_heads': 2, 'hidden_act': 'silu', 'rms_norm_eps': 1e-6,
+    'rope_theta': 1000000.0, 'max_position_embeddings': 131072,
+    'max_window_layers': 28, 'sliding_window': 131072,
+    'use_sliding_window': False, 'use_mrope': False,
+    'tie_word_embeddings': True, 'bos_token_id': 151643,
+    'eos_token_id': 151643, 'torch_dtype': 'bfloat16'}
+
+_ST_DTYPES = {torch.bfloat16: 'BF16', torch.float16: 'F16',
+              torch.float32: 'F32'}
+
+
+def hf_tensor_specs(hf_config):
+    """[(name, shape)] of an HF checkpoint of the llama, mistral, gemma,
+    qwen2 or mixtral family, in HF's layout ((out, in) linears), in the
+    order HF's modules hold them; no lm_head.weight when the embeddings
+    are tied."""
+    c = hf_config
+    d, ff, vocab = c['hidden_size'], c['intermediate_size'], c['vocab_size']
+    hd = c.get('head_dim') or d // c['num_attention_heads']
+    q, kv = c['num_attention_heads'] * hd, c['num_key_value_heads'] * hd
+    specs = [('model.embed_tokens.weight', (vocab, d))]
+    for i in range(c['num_hidden_layers']):
+        p = f'model.layers.{i}.'
+        specs += [(p + 'self_attn.q_proj.weight', (q, d)),
+                  (p + 'self_attn.k_proj.weight', (kv, d)),
+                  (p + 'self_attn.v_proj.weight', (kv, d)),
+                  (p + 'self_attn.o_proj.weight', (d, q))]
+        if c['model_type'] == 'qwen2':
+            specs += [(p + 'self_attn.q_proj.bias', (q,)),
+                      (p + 'self_attn.k_proj.bias', (kv,)),
+                      (p + 'self_attn.v_proj.bias', (kv,))]
+        if c['model_type'] == 'mixtral':
+            m = p + 'block_sparse_moe.'
+            specs.append((m + 'gate.weight', (c['num_local_experts'], d)))
+            for e in range(c['num_local_experts']):
+                specs += [(f'{m}experts.{e}.w1.weight', (ff, d)),
+                          (f'{m}experts.{e}.w2.weight', (d, ff)),
+                          (f'{m}experts.{e}.w3.weight', (ff, d))]
+        else:
+            specs += [(p + 'mlp.gate_proj.weight', (ff, d)),
+                      (p + 'mlp.up_proj.weight', (ff, d)),
+                      (p + 'mlp.down_proj.weight', (d, ff))]
+        specs += [(p + 'input_layernorm.weight', (d,)),
+                  (p + 'post_attention_layernorm.weight', (d,))]
+    specs.append(('model.norm.weight', (d,)))
+    if not c.get('tie_word_embeddings', False):
+        specs.append(('lm_head.weight', (vocab, d)))
+    return specs
+
+
+def draw_hf_tensor(name, shape, seed, dtype, device, gemma=False):
+    """One random tensor of a checkpoint, a function of (seed, name) on a
+    given device: linears at fan_in^-0.5, the embedding at 0.02, biases
+    at 0.02, norms 1 + N(0, 0.1), stored as w - 1 (N(0, 0.1)) for Gemma,
+    whose runtime scale is 1 + w."""
+    gen = torch.Generator(device=device).manual_seed(
+        seed * 1_000_003 + zlib.crc32(name.encode()))
+    x = torch.randn(shape, generator=gen, device=device)
+    if name.endswith('norm.weight'):
+        x = x * 0.1 + (0.0 if gemma else 1.0)
+    elif name.endswith('bias') or name.endswith('embed_tokens.weight'):
+        x = x * 0.02
+    else:
+        x = x * shape[-1] ** -0.5
+    return x.to(dtype)
+
+
+def write_hf_checkpoint(directory, hf_config, make, dtype=torch.bfloat16,
+                        shard_bytes=None):
+    """Write a checkpoint directory in HF's layout: config.json, and the
+    tensors of hf_tensor_specs(hf_config) in `dtype`, `make(name, shape)`
+    drawing each as it is written (one tensor on the host at a time), as
+    safetensors files: one, or shards of at most `shard_bytes` with a
+    model.safetensors.index.json.  The format by hand: an 8-byte
+    little-endian header length, the JSON header (padded with spaces to
+    8 bytes) whose data_offsets count from its end, then the raw
+    little-endian data.  Returns the bytes of tensor data written."""
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, 'config.json'), 'w',
+              encoding='utf-8') as f:
+        json.dump(hf_config, f, indent=2)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    shards, size = [[]], 0
+    for name, shape in hf_tensor_specs(hf_config):
+        n = int(np.prod(shape)) * itemsize
+        if shards[-1] and shard_bytes and size + n > shard_bytes:
+            shards.append([])
+            size = 0
+        shards[-1].append((name, shape, n))
+        size += n
+    weight_map, total = {}, 0
+    for s, shard in enumerate(shards):
+        fname = ('model.safetensors' if len(shards) == 1 else
+                 f'model-{s + 1:05d}-of-{len(shards):05d}.safetensors')
+        header, offset = {'__metadata__': {'format': 'pt'}}, 0
+        for name, shape, n in shard:
+            header[name] = {'dtype': _ST_DTYPES[dtype], 'shape': list(shape),
+                            'data_offsets': [offset, offset + n]}
+            offset += n
+        raw = json.dumps(header).encode()
+        raw += b' ' * (-len(raw) % 8)
+        with open(os.path.join(directory, fname), 'wb') as f:
+            f.write(struct.pack('<Q', len(raw)))
+            f.write(raw)
+            for name, shape, n in shard:
+                t = make(name, shape).to('cpu', dtype).contiguous()
+                if tuple(t.shape) != tuple(shape):
+                    raise AssertionError(f'{name}: drew {tuple(t.shape)}')
+                f.write(t.reshape(-1).view(torch.uint8).numpy())
+                weight_map[name] = fname
+                total += n
+    if len(shards) > 1:
+        with open(os.path.join(directory, 'model.safetensors.index.json'),
+                  'w', encoding='utf-8') as f:
+            json.dump({'metadata': {'total_size': total},
+                       'weight_map': weight_map}, f, indent=2)
+    return total
+
+
+# HF name -> (tree path, transposed) of the leaf a tensor lands in; the
+# groups of the pattern are the layer and, for an expert, the expert.
+HF_TO_TREE = [
+    (r'model\.embed_tokens\.weight', ('embed',), False),
+    (r'model\.layers\.(\d+)\.input_layernorm\.weight', ('layers', 'ln1'),
+     False),
+    (r'model\.layers\.(\d+)\.post_attention_layernorm\.weight',
+     ('layers', 'ln2'), False),
+    (r'model\.layers\.(\d+)\.self_attn\.([qkvo])_proj\.weight',
+     ('layers', 'attn', 'w{}'), True),
+    (r'model\.layers\.(\d+)\.self_attn\.([qkv])_proj\.bias',
+     ('layers', 'attn', 'b{}'), False),
+    (r'model\.layers\.(\d+)\.mlp\.(gate|up|down)_proj\.weight',
+     ('layers', 'mlp', 'w_{}'), True),
+    (r'model\.layers\.(\d+)\.block_sparse_moe\.gate\.weight',
+     ('layers', 'moe', 'router'), True),
+    (r'model\.layers\.(\d+)\.block_sparse_moe\.experts\.(\d+)\.w([123])'
+     r'\.weight', ('layers', 'moe', None), True),
+    (r'model\.norm\.weight', ('final_norm',), False),
+    (r'lm_head\.weight', ('lm_head',), True),
+]
+_EXPERT_LEAF = {'1': 'w_gate', '3': 'w_up', '2': 'w_down'}
+
+
+def _bits_sum(t):
+    """A checksum of a tensor's bits: the int64 sum of its 16- or 32-bit
+    words (transposes and stacking keep it), taken in slices of 2^26
+    words so no int64 copy of a whole leaf is made."""
+    words = torch.int16 if t.element_size() == 2 else torch.int32
+    flat = t.contiguous().view(words).reshape(-1)
+    return sum(int(flat[i:i + (1 << 26)].sum(dtype=torch.int64))
+               for i in range(0, flat.numel(), 1 << 26))
+
+
+def verify_hf_leaves(tree, hf_config, seed, dtype, device):
+    """Every leaf of a converted tree against the tensors the writer drew
+    (drawn again, one at a time, on `device`): each tensor's slice
+    bitwise equal to its expected value (transposed for a linear, the
+    norm offset 1 added in f32 and rounded once for Gemma), a tied
+    lm_head bitwise the embedding's transpose, and each leaf's checksum
+    equal to the sum of its expected tensors'.  Returns the checksums."""
+    gemma = hf_config['model_type'] == 'gemma'
+    want = {}
+    for name, shape in hf_tensor_specs(hf_config):
+        x = draw_hf_tensor(name, shape, seed, dtype, device, gemma)
+        for pattern, path, transposed in HF_TO_TREE:
+            m = re.fullmatch(pattern, name)
+            if m:
+                break
+        else:
+            raise AssertionError(f'{name}: no leaf for it')
+        groups = m.groups()
+        if path[-1] is None:
+            path = path[:-1] + (_EXPERT_LEAF[groups[2]],)
+            index = (int(groups[0]), int(groups[1]))
+        else:
+            if '{}' in path[-1]:
+                path = path[:-1] + (path[-1].format(groups[1]),)
+            index = (int(groups[0]),) if groups else ()
+        if gemma and name.endswith('norm.weight'):
+            x = (x.float() + 1.0).to(dtype)
+        expected = x.T if transposed else x
+        leaf = tree
+        for key in path:
+            leaf = leaf[key]
+        if not torch.equal(leaf[index], expected):
+            raise AssertionError(f'{name}: its slice of {"/".join(path)} is '
+                                 f'not bitwise the tensor drawn')
+        key = '/'.join(path)
+        want[key] = want.get(key, 0) + _bits_sum(expected)
+        del x, expected
+    if 'lm_head' not in want:     # tied: the transposed embedding
+        if not torch.equal(tree['lm_head'], tree['embed'].T):
+            raise AssertionError('tied lm_head is not the embedding^T')
+        want['lm_head'] = want['embed']
+    from skypilot_tpu_torch.train.trainer import tree_leaves
+    got = {}
+
+    def walk(node, path):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, path + [k])
+            else:
+                got['/'.join(path + [k])] = _bits_sum(v)
+    walk(tree, [])
+    if got != want:
+        raise AssertionError(f'leaf checksums differ: {got} vs {want}')
+    if len(got) != len(tree_leaves(tree)):
+        raise AssertionError('a leaf was not checked')
+    return got
+
+
+def _vm_rss():
+    """The process's resident set in bytes (/proc/self/status VmRSS)."""
+    with open('/proc/self/status', encoding='ascii') as f:
+        for line in f:
+            if line.startswith('VmRSS:'):
+                return int(line.split()[1]) * 1024
+    raise AssertionError('/proc/self/status reports no VmRSS')
+
+
+class RssPeak:
+    """The host's peak resident set during a block: VmRSS sampled every
+    2 ms by a thread, against VmRSS at the start."""
+
+    def __enter__(self):
+        self.start = self.peak = _vm_rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        while not self._stop.wait(0.002):
+            self.peak = max(self.peak, _vm_rss())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, _vm_rss())
+        return False
+
+    def stats(self):
+        return {'host_rss_start_gb': self.start / 1e9,
+                'host_peak_growth_gb_sampled': (self.peak - self.start) / 1e9}
+
+
+def hf_load_path(label, hf_config, root, seed=0, dtype=torch.bfloat16,
+                 shard_bytes=5 << 30):
+    """Write a random checkpoint of `hf_config` in HF's layout under
+    root (drawn on the card from `seed`; several shards with an index
+    past `shard_bytes`), then load it with convert.load_hf_model onto the
+    card.  Fails first if the disk under root is short, naming the bytes
+    it needs.  Returns (params, config, directory, stats): seconds, GB,
+    GB/s, the host's peak RSS growth, the device's peak, the leaf
+    checksums (verify_hf_leaves)."""
+    from skypilot_tpu_torch.models import convert
+    from skypilot_tpu_torch.train import trainer
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    nbytes = sum(int(np.prod(s)) for _, s in
+                 hf_tensor_specs(hf_config)) * itemsize
+    need = nbytes + (1 << 30)
+    free = shutil.disk_usage(root).free
+    if free < need:
+        raise AssertionError(f'{label} needs {need} bytes free under {root} '
+                             f'for its checkpoint, {free} are free')
+    directory = os.path.join(root, label.split()[0])
+    gemma = hf_config['model_type'] == 'gemma'
+    t0 = time.perf_counter()
+    write_hf_checkpoint(
+        directory, hf_config,
+        lambda name, shape: draw_hf_tensor(name, shape, seed, dtype, 'cuda',
+                                           gemma),
+        dtype, shard_bytes)
+    write_s = time.perf_counter() - t0
+    files = sorted(os.listdir(directory))
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    dev0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with RssPeak() as rss:
+        t0 = time.perf_counter()
+        params, cfg = convert.load_hf_model(directory, dtype=dtype,
+                                            device='cuda')
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    device_peak = torch.cuda.max_memory_allocated()
+    tree_bytes = sum(t.numel() * t.element_size()
+                     for t in trainer.tree_leaves(params))
+    t0 = time.perf_counter()
+    checksums = verify_hf_leaves(params, hf_config, seed, dtype, 'cuda')
+    stats = {
+        'card': CARD['line'], 'files': files,
+        'file_params_b': nbytes / itemsize / 1e9, 'file_gb': nbytes / 1e9,
+        'tree_params_b': cfg.num_params() / 1e9, 'tree_gb': tree_bytes / 1e9,
+        'write_s': write_s, 'load_s': load_s,
+        'load_gb_per_s': nbytes / load_s / 1e9,
+        **rss.stats(),
+        'host_peak_growth_below_model': rss.peak - rss.start < nbytes,
+        'device_gb_before': dev0 / 1e9,
+        'device_peak_gb_during_load': device_peak / 1e9,
+        'device_resident_gb_after': torch.cuda.memory_allocated() / 1e9,
+        'leaves_bitwise': len(checksums), 'verify_s': time.perf_counter() - t0,
+        'checksum_total': sum(checksums.values()),
+    }
+    if not stats['host_peak_growth_below_model']:
+        raise AssertionError(f'{label}: the host grew by '
+                             f'{(rss.peak - rss.start) / 1e9:.2f} GB during '
+                             f'the load, the model is {nbytes / 1e9:.2f}')
+    log(f'  {label} load: ' + json.dumps(stats))
+    return params, cfg, directory, stats
+
+
+def gemma_path(counters, paths, root):
+    """12a: Gemma-7B's published widths at full depth from a checkpoint
+    the script writes (17.08 GB, bf16, tied, norms stored as w - 1),
+    loaded by convert.load_hf_model and served as phase 5 serves
+    LLAMA3_8B; the directory is deleted when 12a ends."""
+    try:
+        params, cfg, _, load = hf_load_path('12a Gemma-7B', GEMMA_7B, root)
+        paths['12a'], serve = bounded_serve_path('12a Gemma-7B', params, cfg,
+                                                 counters, 'gemma-7b')
+    finally:
+        shutil.rmtree(os.path.join(root, '12a'), ignore_errors=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return load, serve
+
+
+def qwen_path(counters, paths, root):
+    """12b: Qwen2.5-1.5B's published widths at full depth (3.09 GB, bf16,
+    q/k/v biases, G 6, tied) loaded and served as 12a; then LoRA-SFT of
+    the loaded base in this process (lora_sft_path: rank 16 on attn, 3
+    steps of 2 x 2048 tokens, loss_chunk 512), and the entry point
+    train_sft --hf-model DIR --lora-rank 16 --steps 3 as a child
+    process, which must print 3 finite losses."""
+    params, cfg, directory, load = hf_load_path('12b Qwen2.5-1.5B',
+                                                QWEN25_1_5B, root)
+    paths['12b'], serve = bounded_serve_path('12b Qwen2.5-1.5B', params,
+                                             cfg, counters, 'qwen2.5-1.5b')
+    gc.collect()
+    torch.cuda.empty_cache()
+    sft_data = _post_train_data(root)[0]
+    paths['12b-sft'], sft_stats = lora_sft_path(
+        params, dataclasses.replace(cfg, loss_chunk=512, remat=True,
+                                    remat_policy='dots'),
+        sft_data, counters, steps=3, label='12b LoRA-SFT Qwen2.5-1.5B')
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, '-m', 'skypilot_tpu_torch.train.train_sft',
+         '--hf-model', directory, '--data-file', sft_data, '--seq-len',
+         '2048', '--steps', '3', '--log-every', '1', '--lora-rank', '16',
+         '--loss-chunk', '512'], cwd=HERE, capture_output=True, text=True,
+        timeout=600)
+    losses = _losses(proc.stdout, 'step ')
+    if proc.returncode != 0 or len(losses) != 3 or not np.all(
+            np.isfinite(losses)):
+        raise AssertionError(f'12b train_sft --hf-model: rc '
+                             f'{proc.returncode}\n{proc.stdout}\n'
+                             f'{proc.stderr[-3000:]}')
+    child = {'card': CARD['line'], 'seconds': time.perf_counter() - t0,
+             'losses': losses, 'first_line': proc.stdout.splitlines()[0]}
+    log('  12b train_sft --hf-model (child): ' + json.dumps(child))
+    return load, serve, sft_stats, child
+
+
+# 12c's debug-size configs: Gemma-like (head_dim 256 decoupled from
+# hidden / heads, gelu, the (1 + w) norms, tied) and Qwen2-like (q/k/v
+# biases, 6 query heads over 1 KV head, tied), f32.
+HF_DEBUG = {
+    'Gemma-like': dict(
+        model_type='gemma', vocab_size=512, hidden_size=256,
+        intermediate_size=512, num_hidden_layers=2, num_attention_heads=2,
+        num_key_value_heads=2, head_dim=256, hidden_act='gelu',
+        rms_norm_eps=1e-6, rope_theta=10000.0, max_position_embeddings=512,
+        tie_word_embeddings=True),
+    'Qwen2-like': dict(
+        model_type='qwen2', vocab_size=512, hidden_size=768,
+        intermediate_size=1024, num_hidden_layers=2, num_attention_heads=6,
+        num_key_value_heads=1, rms_norm_eps=1e-6, rope_theta=1e6,
+        max_position_embeddings=4096, use_sliding_window=False,
+        tie_word_embeddings=True),
+}
+
+
+def hf_parity(root):
+    """12c: each HF_DEBUG config written (f32, drawn on the host, sharded
+    with an index) and loaded on the host and on the card: the same
+    config, every leaf bitwise the same on both and against the draws;
+    the first-step logits allclose (LOGITS_TOL), and phase 4's requests
+    served with identical greedy tokens on the host, the card eagerly
+    and the card through graphs."""
+    from skypilot_tpu_torch.models import convert, llama
+    from skypilot_tpu_torch.train import trainer
+    for label, hf_config in HF_DEBUG.items():
+        directory = os.path.join(root, label)
+        gemma = hf_config['model_type'] == 'gemma'
+        write_hf_checkpoint(
+            directory, hf_config,
+            lambda name, shape: draw_hf_tensor(name, shape, 1, torch.float32,
+                                               'cpu', gemma),
+            torch.float32, shard_bytes=4 << 20)
+        host, cfg = convert.load_hf_model(directory, dtype=torch.float32,
+                                          device='cpu')
+        card, cfg_card = convert.load_hf_model(directory,
+                                               dtype=torch.float32,
+                                               device='cuda')
+        if cfg_card != cfg:
+            raise AssertionError(f'12c {label}: configs differ')
+        verify_hf_leaves(host, hf_config, 1, torch.float32, 'cpu')
+        if not all(torch.equal(a, b.cpu()) for a, b in zip(
+                trainer.tree_leaves(host), trainer.tree_leaves(card))):
+            raise AssertionError(f'12c {label}: card and host leaves differ')
+        prompts, budgets = _debug_requests(cfg.vocab_size)
+        tokens = torch.tensor([prompts[1][:40], prompts[3] + prompts[2][:23]])
+        with torch.no_grad():
+            want = llama.forward(host, tokens, cfg)
+            got = llama.forward(card, tokens.cuda(), cfg)
+        _logits_close(f'12c {label} forward logits card vs host', got, want)
+        _card_and_host(f'12c {label}', _serve_debug,
+                       {'cpu': host, 'cuda': card}, cfg, prompts, budgets, {})
+        shutil.rmtree(directory)
+
+
+# ---- phase 13: ResNet -------------------------------------------------------
+
+# 13a's limits, f32 on both sides: each gradient and each parameter's
+# update within RESNET_GRAD_REL of its leaf's largest element, the loss and
+# the running statistics within RESNET_ATOL.  Both lie between the
+# card-vs-host readings of the f32 step and those of its controls, the
+# same step on the card with TF32 convolutions and with bf16 ones, which
+# must read past RESNET_GRAD_REL.  On an H100: f32 3.2e-5 of a leaf's
+# largest gradient, loss 2.6e-6, statistics 7.2e-7; TF32 0.44, 6.2e-4 and
+# 1.6e-3; bf16 1.44, 1.6e-2 and 1.4e-2 (PERF.md, section 6).
+RESNET_GRAD_REL, RESNET_ATOL = 2e-3, 1e-4
+
+
+def _flax_shaped_state(model, seed):
+    """A random {'params', 'batch_stats'} tree in flax's layout (HWIO
+    kernels, the Dense kernel (in, out)) for `model`'s names, norms off
+    their init (scale 1 + 0.2 N, bias and mean 0.1 N, var 1 + 0.5 |N|)."""
+    rng = np.random.RandomState(seed)
+    tree = {'params': {}, 'batch_stats': {}}
+    for name, t in model.state_dict().items():
+        *path, leaf = name.split('.')
+        noise = rng.normal(size=tuple(t.shape)).astype(np.float32)
+        if leaf == 'kernel':
+            value = (noise * np.prod(t.shape[1:]) ** -0.5).transpose(
+                2, 3, 1, 0)
+        elif leaf == 'weight':
+            leaf, value = 'kernel', (noise * t.shape[1] ** -0.5).T
+        elif leaf == 'scale':
+            value = 1 + 0.2 * noise
+        elif leaf == 'var':
+            value = 1 + 0.5 * np.abs(noise)
+        else:
+            value = 0.1 * noise
+        node = tree['batch_stats' if leaf in ('mean', 'var') else 'params']
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = value
+    return tree
+
+
+def _resnet_step(dev, state, x, y, dtype=torch.float32):
+    """One train_resnet step of ResNet18Thin (convolutions in `dtype`)
+    from `state` on `dev`: (loss, gradients, state after), on the host."""
+    from skypilot_tpu_torch.models import resnet
+    from skypilot_tpu_torch.train import train_resnet
+    model = resnet.ResNet18Thin(dtype=dtype)
+    model.load_state_dict(state)
+    model.to(dev)
+    step = train_resnet.make_step(model, train_resnet.sgd(model))
+    loss = float(step(x.to(dev), y.to(dev)))
+    return (loss, {n: p.grad.cpu() for n, p in model.named_parameters()},
+            {n: t.cpu() for n, t in model.state_dict().items()})
+
+
+def _resnet_distance(state, want, got):
+    """The readings of `got` against `want` (two _resnet_step results
+    from `state`): the loss's distance, the largest gradient and update
+    distance of any leaf over that leaf's largest, the running
+    statistics' largest distance."""
+    (l_w, g_w, s_w), (l_g, g_g, s_g) = want, got
+    grad = upd = 0.0
+    for name in g_w:
+        grad = max(grad, float((g_g[name] - g_w[name]).abs().max())
+                   / float(g_w[name].abs().max()))
+        step = s_w[name] - state[name]
+        upd = max(upd, float((s_g[name] - s_w[name]).abs().max())
+                  / float(step.abs().max()))
+    stats = max(float((s_g[n] - s_w[n]).abs().max()) for n in s_w
+                if n.endswith(('.mean', '.var')))
+    return {'loss': abs(l_g - l_w), 'grad_rel': grad, 'update_rel': upd,
+            'running_stats_abs': stats}
+
+
+def resnet_parity():
+    """13a: ResNet18Thin in f32 on the host and on the card from the same
+    params_from_flax state: one step of train_resnet's step (SGD with
+    momentum 0.9, lr 0.1) on 4 random 32x32 images; the loss, every
+    gradient, every parameter's update and the running statistics held
+    at RESNET_GRAD_REL / RESNET_ATOL.  Then the controls: the same step
+    on the card with TF32 convolutions and with bf16 ones, each of which
+    must read past RESNET_GRAD_REL (the limit sees a lower-precision
+    convolution path)."""
+    from skypilot_tpu_torch.models import resnet
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.normal(size=(4, 32, 32, 3)).astype(np.float32))
+    y = torch.arange(4) % 10
+    state = resnet.params_from_flax(
+        _flax_shaped_state(resnet.ResNet18Thin(), 0))
+    host = _resnet_step('cpu', state, x, y)
+    card = _resnet_distance(state, host, _resnet_step('cuda', state, x, y))
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = _resnet_distance(state, host,
+                                _resnet_step('cuda', state, x, y))
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    bf16 = _resnet_distance(state, host, _resnet_step(
+        'cuda', state, x, y, torch.bfloat16))
+    log('  13a ResNet18Thin f32 one SGD step, card vs host: ' + json.dumps({
+        'card': CARD['line'], 'loss': [host[0]], 'f32': card,
+        'control_tf32_convs': tf32, 'control_bf16_convs': bf16,
+        'limits': {'grad_update_rel': RESNET_GRAD_REL,
+                   'loss_stats_abs': RESNET_ATOL}}))
+    if max(card['loss'], card['running_stats_abs']) > RESNET_ATOL or max(
+            card['grad_rel'], card['update_rel']) > RESNET_GRAD_REL:
+        raise AssertionError(f'13a: the card\'s step is off the host\'s: '
+                             f'{card}')
+    for label, control in (('TF32', tf32), ('bf16', bf16)):
+        if control['grad_rel'] <= RESNET_GRAD_REL:
+            raise AssertionError(
+                f'13a: the step with {label} convolutions reads within '
+                f'RESNET_GRAD_REL ({control}): the limit does not see it')
+
+
+def resnet_train_path(batch=256, size=224, warmup=2, steps=10):
+    """13b: train_resnet's path on the card: ResNet50 (bf16 convolutions,
+    channels_last, f32 parameters and norms), ones images and zero
+    labels, SGD momentum 0.9; `warmup` steps, then `steps` timed; then
+    the entry point itself as a child process at the same settings.
+    Fails unless the losses are finite.  Prints images/s, step time and
+    peak memory."""
+    from skypilot_tpu_torch.models import resnet
+    from skypilot_tpu_torch.train import train_resnet
+    torch.manual_seed(0)
+    model = resnet.ResNet50().cuda()
+    step = train_resnet.make_step(model, train_resnet.sgd(model))
+    images = torch.ones((batch, size, size, 3), dtype=torch.bfloat16,
+                        device='cuda')
+    labels = torch.zeros((batch,), dtype=torch.long, device='cuda')
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        loss = step(images, labels)
+    first = float(loss)
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        loss = step(images, labels)
+    last = float(loss)
+    elapsed = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del model, step, images, labels
+    gc.collect()
+    torch.cuda.empty_cache()
+    proc = subprocess.run(
+        [sys.executable, '-m', 'skypilot_tpu_torch.train.train_resnet',
+         '--steps', str(steps), '--batch-size', str(batch), '--image-size',
+         str(size)], cwd=HERE, capture_output=True, text=True, timeout=600)
+    line = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ''
+    if proc.returncode != 0 or not line.startswith('images/sec: '):
+        raise AssertionError(f'13b train_resnet: rc {proc.returncode}\n'
+                             f'{proc.stdout}\n{proc.stderr[-3000:]}')
+    if not np.all(np.isfinite([first, last, float(line.split()[-1])])):
+        raise AssertionError(f'13b: losses {first}, {last}; {line}')
+    stats = {'card': CARD['line'], 'batch': batch, 'image_size': size,
+             'warmup_steps': warmup, 'warmup_s': warm_s, 'steps': steps,
+             'images_per_s': batch * steps / elapsed,
+             'step_ms': elapsed / steps * 1e3, 'peak_memory_gb': peak,
+             'loss_after_warmup': first, 'last_loss': last,
+             'entry_point_line': line}
+    log('  13b train_resnet ResNet50: ' + json.dumps(stats))
+    return stats
 
 
 # Launch counts by route: '<name>[tc]' the tensor-core kernels of K2, K5
@@ -2631,10 +3379,10 @@ def main() -> int:
         log(f'  phase {clock["name"]}: '
             f'{time.perf_counter() - clock["start"]:.1f} s')
 
-    phase(f'[1/11] device: {CARD["line"]} | torch {torch.__version__} '
+    phase(f'[1/13] device: {CARD["line"]} | torch {torch.__version__} '
         f'cuda {torch.version.cuda}')
 
-    phase('[2/11] build')
+    phase('[2/13] build')
     _kernels.LIBRARY.get()
     log(f'  built {_kernels.LIBRARY.path.name} in '
         f'{_kernels.LIBRARY.build_seconds:.1f} s')
@@ -2650,14 +3398,21 @@ def main() -> int:
                 and info['spill_bytes']:
             raise AssertionError(f'decode kernel {name} spills: {info}')
 
-    phase('[3/11] kernels vs plain versions')
+    phase('[3/13] kernels vs plain versions')
     t0 = time.perf_counter()
     decode = check_decode(decode_attention, ptxas)
-    decode['g2'], decode['combine g2'] = check_decode_grpo(decode_attention,
-                                                           ptxas)
+    decode['g2'], decode['combine g2'] = check_decode_at(
+        decode_attention, ptxas, 'G2', 10)
+    decode['gemma'], decode['combine gemma'] = check_decode_at(
+        decode_attention, ptxas, 'Gemma-7B', 12)
+    decode['qwen'], decode['combine qwen'] = check_decode_at(
+        decode_attention, ptxas, 'Qwen2.5-1.5B', 13)
     contig = check_contig_decode(decode_attention, ptxas)
     window = check_window(decode_attention, ptxas)
-    flash, norm = check_flash(attention, ptxas), check_rmsnorm(rmsnorm)
+    flash = {'flash_attention': check_flash(attention, ptxas)}
+    flash.update({name: check_flash_at(attention, ptxas, name)
+                  for name in FLASH_SHAPES})
+    norm = {name: check_rmsnorm(rmsnorm, name) for name in NORM_SHAPES}
     train = check_flash_train(attention, ptxas)
     k1 = decode_attention.decode_attention_pooled
     k4v = decode_attention.decode_window_attention_pooled
@@ -2673,13 +3428,13 @@ def main() -> int:
         f'{time_ms(read.sum):.4f} ms (bound 0.0063)')
     del tiny, read
 
-    phase('[4/11] slice parity, LLAMA_DEBUG and MoE f32, card vs host')
+    phase('[4/13] slice parity, LLAMA_DEBUG and MoE f32, card vs host')
     slice_parity()
     train_parity()
     post_train_parity()
     moe_parity()
 
-    phase('[5/11] main path, LLAMA3_8B bf16 behind the HTTP replica')
+    phase('[5/13] main path, LLAMA3_8B bf16 behind the HTTP replica')
     cfg = llama.LLAMA3_8B
     t0 = time.perf_counter()
     params = llama.init_params(
@@ -2705,7 +3460,7 @@ def main() -> int:
             raise AssertionError(f'{k1.__name__} missed the split route on '
                                  f'the {key} path')
 
-    phase('[6/11] main path with spec_k 12 and fuse_budget 264: (a) bf16, '
+    phase('[6/13] main path with spec_k 12 and fuse_budget 264: (a) bf16, '
         '(b) int8 KV and weights')
     spec = dict(base, spec_k=12, fuse_budget=264)
     paths['6a'], _, _, _ = serve_path('6a bf16 spec+fused', params,
@@ -2719,7 +3474,7 @@ def main() -> int:
               + [f'{c.__name__}[{r}]' for c in (k4v, k4f)
                  for r in ('tc', 'split')])
 
-    phase("[7/11] legacy plane decode_impl='paged' (K7): (a) bf16 and (b) int8 "
+    phase("[7/13] legacy plane decode_impl='paged' (K7): (a) bf16 and (b) int8 "
         'KV behind the HTTP replica, (c) Generator.generate')
     legacy = dict(base, decode_impl='paged', decode_chunk=16)
     with warnings.catch_warnings():
@@ -2742,7 +3497,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    phase('[8/11] train path: (a) LLAMA_1B at the bench settings, (b) '
+    phase('[8/13] train path: (a) LLAMA_1B at the bench settings, (b) '
         'LLAMA3_8B widths at depth 2')
     remat = dict(remat=True, remat_policy='dots')
     cfg_1b = dataclasses.replace(llama.LLAMA_1B, max_seq_len=2048,
@@ -2757,7 +3512,7 @@ def main() -> int:
         2, 4096, 6, trainer.TrainConfig(warmup_steps=2, total_steps=6),
         counters)
 
-    phase('[9/11] checkpoints: (a) LLAMA_1B async saves, restore, continue '
+    phase('[9/13] checkpoints: (a) LLAMA_1B async saves, restore, continue '
           '(phase 8a settings), (b) a managed job SIGTERMed and resumed '
           'through train_llama --resume auto')
     scratch = tempfile.mkdtemp(prefix='chip_smoke_ckpt_')
@@ -2780,7 +3535,7 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
-    phase('[10/11] post-training: (a) LoRA-SFT and (b) LoRA-DPO of LLAMA3_8B '
+    phase('[10/13] post-training: (a) LoRA-SFT and (b) LoRA-DPO of LLAMA3_8B '
           'at 32 layers, (c) GRPO on LLAMA_1B, (d) the entry points')
     gc.collect()
     torch.cuda.empty_cache()
@@ -2816,24 +3571,59 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
-    phase('[11/11] Mixtral-8x7B widths, random bf16 weights: (a) 16 of 32 '
+    phase('[11/13] Mixtral-8x7B widths, random bf16 weights: (a) 16 of 32 '
           'layers served, (c) LoRA-SFT of that base, (b) trained at depth 2')
     gc.collect()
     torch.cuda.empty_cache()
     mixtral_path(counters, paths)
+
+    phase('[12/13] HF checkpoints written in HF\'s layout and loaded by '
+          'convert.load_hf_model: (a) Gemma-7B and (b) Qwen2.5-1.5B at '
+          'their published widths served, 12b LoRA-SFT in process and '
+          'through train_sft --hf-model, (c) debug-size parity card vs host')
+    gc.collect()
+    torch.cuda.empty_cache()
+    scratch = tempfile.mkdtemp(prefix='chip_smoke_hf_')
+    try:
+        sub = time.perf_counter()
+        gemma_path(counters, paths, scratch)
+        log(f'  12a: {time.perf_counter() - sub:.1f} s')
+        sub = time.perf_counter()
+        qwen_path(counters, paths, scratch)
+        log(f'  12b: {time.perf_counter() - sub:.1f} s')
+        sub = time.perf_counter()
+        hf_parity(scratch)
+        log(f'  12c: {time.perf_counter() - sub:.1f} s')
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+
+    phase('[13/13] ResNet: (a) ResNet18Thin one SGD step card vs host, (b) '
+          'train_resnet\'s path, ResNet50 at batch 256 of 224x224')
+    gc.collect()
+    torch.cuda.empty_cache()
+    resnet_parity()
+    resnet_train_path()
     last_phase_done()
     log(f'  whole run: {time.perf_counter() - run_start:.1f} s')
     for key in ('8a', '8b', '9a', '10a', '10b', '10c', '11b', '11c'):
         _need(key, paths[key], [c.__name__ for c in (k2, k3, k5, k6)]
               + [f'{k2.__name__}[lse]'])
     _need('10c', paths['10c'], [k1.__name__])
-    _need('11a', paths['11a'], [c.__name__ for c in (k1, k2, k3)])
+    for key in ('11a', '12a', '12b'):
+        _need(key, paths[key], [c.__name__ for c in (k1, k2, k3)])
+    _need('12b-sft', paths['12b-sft'], [c.__name__ for c in (k2, k3, k5, k6)]
+          + [f'{k2.__name__}[lse]'])
+    # Gemma's head_dim 256 takes K2's FMA kernel (ROADMAP B5).
+    if paths['12a'][f'{k2.__name__}[tc]']:
+        raise AssertionError('flash_attention took a tensor-core route at '
+                             'head_dim 256 on the 12a path')
     for key, launches in paths.items():
-        # Every path runs bf16 at head_dim 128: the tensor-core route only;
-        # and 8 slots x 8 KV heads < 2 blocks an SM: the split route only.
-        route = [(c, 'tc') for c in (k2, k5, k6)]
+        # Every other path runs bf16 at head_dim 128: the tensor-core
+        # route only; and B KV (8 slots x 16, 8 or 2 KV heads) < 2 blocks
+        # an SM: the split route only.
+        route = [(c, 'tc') for c in (k2, k5, k6) if key != '12a']
         route += [(c, 'split') for c in (k1, k7)
-                  if key[0] in '567' or key in ('10c', '11a')]
+                  if key[0] in '567' or key in ('10c', '11a', '12a', '12b')]
         route += [(c, 'tc') for c in (k4v, k4f) if key[0] == '6']
         for c, r in route:
             if launches[f'{c.__name__}[{r}]'] != launches[c.__name__]:
@@ -2852,13 +3642,24 @@ def main() -> int:
                                 for k in keys)
         return out
 
-    every = tuple(paths)
+    # K2 and K3 on every path; phase 12's widths have their own entries
+    # (12b-sft's K2 launches all write the lse: its entry is the train
+    # one at TRAIN_SHAPES['qwen']).
+    hf = ('12a', '12b', '12b-sft')
+    rest = tuple(k for k in paths if k not in hf)
     kernels = [
         entry(decode['bf16'], k1, ('5', '6a', '11a')),
         entry(decode['g2'], k1, ('10c',)),
+        entry(decode['gemma'], k1, ('12a',)),
+        entry(decode['qwen'], k1, ('12b',)),
         entry(decode['int8'], k1, ('6b',)),
-        entry(flash, k2, every),
-        entry(norm, k3, every),
+        entry(flash['flash_attention'], k2, rest),
+        entry(flash['flash_attention[Gemma-7B hd256]'], k2, ('12a',)),
+        entry(flash['flash_attention[Qwen2.5-1.5B G6 prefill]'], k2,
+              ('12b',)),
+        entry(norm['rms_norm'], k3, rest),
+        entry(norm['rms_norm[Gemma-7B]'], k3, ('12a',)),
+        entry(norm['rms_norm[Qwen2.5-1.5B]'], k3, ('12b', '12b-sft')),
         entry(window['verify', 'bf16'], k4v, ('6a',)),
         entry(window['fused', 'bf16'], k4f, ('6a',)),
         entry(window['verify', 'int8'], k4v, ('6b',)),
@@ -2873,9 +3674,11 @@ def main() -> int:
     kernels.append(dict(decode['combine'],
                         launches=sum(split_paths.values()),
                         launches_by_path=split_paths))
-    grpo_split = {'10c': paths['10c'][f'{k1.__name__}[split]']}
-    kernels.append(dict(decode['combine g2'], launches=grpo_split['10c'],
-                        launches_by_path=grpo_split))
+    for key, path in (('combine g2', '10c'), ('combine gemma', '12a'),
+                      ('combine qwen', '12b')):
+        n = paths[path][f'{k1.__name__}[split]']
+        kernels.append(dict(decode[key], launches=n,
+                            launches_by_path={path: n}))
     # K4's combine runs inside every split launch of K4.
     window_split = {k: sum(paths[k][f'{c.__name__}[split]']
                            for c in (k4v, k4f)) for k in ('6a', '6b')}
@@ -2886,7 +3689,8 @@ def main() -> int:
                 for name, counter in (('lse', k2), ('dq', k5), ('dkv', k6))
                 for key, keys in (('1b', ('8a', '9a', '10c')),
                                   ('8b', ('8b', '10a', '10b', '11b',
-                                          '11c')))]
+                                          '11c')),
+                                  ('qwen', ('12b-sft',)))]
     log(json.dumps({'kernels': kernels}))
     log(CARD['line'])
     log(json.dumps({'ok': True, 'device': {

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch/CUDA port's serving path, on the
 card: LLAMA3_8B bf16 (random weights; or, with --mixtral-layers N,
-Mixtral-8x7B's widths at N layers, chip_smoke.mixtral_config),
+Mixtral-8x7B's widths at N layers, chip_smoke.mixtral_config; or, with
+--hf-config, Gemma-7B's or Qwen2.5-1.5B's published config as
+chip_smoke's phase 12 serves it, converted by convert.config_from_hf),
 ContinuousBatcher batch 8, max_seq_len 2048, decode_chunk 16.
 
 Measures, printing one JSON line each:
@@ -28,7 +30,7 @@ Measures, printing one JSON line each:
 Run from the root of a checkout on a card:
     python3 scripts/torch_profile_decode.py [--prompt 512] [--int8]
         [--decode-impl pooled paged] [--graphs off on] [--turns 3]
-        [--mixtral-layers 16]
+        [--mixtral-layers 16 | --hf-config gemma-7b]
 
 --int8 serves the decode chunks with kv_cache_dtype='int8' and
 weights_dtype='int8' (the prefill timing stays bf16).  --decode-impl
@@ -56,11 +58,12 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-from chip_smoke import mixtral_config, streamed_bytes  # noqa: E402
+from chip_smoke import (GEMMA_7B, QWEN25_1_5B, mixtral_config,  # noqa: E402
+                        streamed_bytes)
 from skypilot_tpu_torch.infer import llama_infer  # noqa: E402
 from skypilot_tpu_torch.infer.engine import GeneratorConfig  # noqa: E402
 from skypilot_tpu_torch.infer.serving import ContinuousBatcher  # noqa: E402
-from skypilot_tpu_torch.models import llama, moe  # noqa: E402
+from skypilot_tpu_torch.models import convert, llama, moe  # noqa: E402
 from skypilot_tpu_torch.train.trainer import tree_leaves  # noqa: E402
 
 CHUNK = 16
@@ -207,6 +210,8 @@ def main() -> int:
     parser.add_argument('--mixtral-layers', type=int, default=0,
                         help="N > 0: Mixtral-8x7B's widths at N layers "
                              '(the dense MoE block) in place of LLAMA3_8B')
+    parser.add_argument('--hf-config', choices=list(HF_CONFIGS),
+                        help='a published HF config in place of LLAMA3_8B')
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print('needs a CUDA device', file=sys.stderr)
@@ -214,7 +219,8 @@ def main() -> int:
     CARD = card()
     model = moe if args.mixtral_layers else llama
     cfg = (mixtral_config(args.mixtral_layers) if args.mixtral_layers
-           else llama.LLAMA3_8B)
+           else convert.config_from_hf(HF_CONFIGS[args.hf_config])
+           if args.hf_config else llama.LLAMA3_8B)
     params = model.init_params(
         cfg, torch.Generator(device='cuda').manual_seed(0), 'cuda')
     time_prefill(params, cfg, args.prompt)
@@ -231,6 +237,7 @@ def main() -> int:
 
 
 CARD = ''
+HF_CONFIGS = {'gemma-7b': GEMMA_7B, 'qwen2.5-1.5b': QWEN25_1_5B}
 
 if __name__ == '__main__':
     sys.exit(main())

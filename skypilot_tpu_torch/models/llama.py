@@ -85,6 +85,8 @@ class LlamaConfig:
 
 # Presets (sizes match the public Llama-3 family).
 LLAMA3_8B = LlamaConfig()
+LLAMA3_70B = LlamaConfig(d_model=8192, n_layers=80, n_heads=64, n_kv_heads=8,
+                         d_ff=28672)
 LLAMA_1B = LlamaConfig(vocab_size=32768, d_model=2048, n_layers=16,
                        n_heads=16, n_kv_heads=8, d_ff=5632, max_seq_len=4096)
 LLAMA_DEBUG = LlamaConfig(vocab_size=512, d_model=256, n_layers=2, n_heads=2,

@@ -9,9 +9,10 @@ lines.  Run as::
 
 With --lora-rank (recommended at 8B) the reference policy is the frozen
 base itself, with no second copy of the model; full-parameter mode keeps
-a frozen copy of the initial weights.  The model, the byte encoding,
-``--merge-save`` and ``--device`` are as in train_sft; ``--resume auto``
-restores the newest committed step (``Trainer.restore_latest``).
+a frozen copy of the initial weights.  The model (``--hf-model``), the
+byte encoding, ``--merge-save`` and ``--device`` are as in train_sft;
+``--resume auto`` restores the newest committed step
+(``Trainer.restore_latest``).
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ import sys
 
 import torch
 
-from skypilot_tpu_torch.train.train_sft import (byte_encoder,
+from skypilot_tpu_torch.train.train_sft import (byte_encoder, load_base,
                                                 refuse_unported,
                                                 save_merged)
 
@@ -28,7 +29,8 @@ from skypilot_tpu_torch.train.train_sft import (byte_encoder,
 def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--hf-model', default='',
-                        help='not available yet in this package')
+                        help='local HF checkpoint directory (default: '
+                             'LLAMA_DEBUG, random weights)')
     parser.add_argument('--data-file', required=True,
                         help='JSONL of {"prompt", "chosen", "rejected"}')
     parser.add_argument('--seq-len', type=int, default=1024)
@@ -66,21 +68,19 @@ def main(argv=None) -> None:
     import dataclasses
 
     from skypilot_tpu_torch.device import resolve_device
-    from skypilot_tpu_torch.models import llama
     from skypilot_tpu_torch.train import dpo
     from skypilot_tpu_torch.train import lora as lora_lib
     from skypilot_tpu_torch.train.trainer import (TrainConfig, Trainer,
                                                   tree_map)
 
     device = resolve_device(args.device)
-    config = llama.LLAMA_DEBUG
-    params = llama.init_params(
-        config, torch.Generator(device=device).manual_seed(0), device)
+    params, config = load_base(args.hf_model, device)
     if args.loss_chunk:
         config = dataclasses.replace(config, loss_chunk=args.loss_chunk)
     encode = byte_encoder(config.vocab_size)
     batch_size = args.batch_size or 2
-    print(f'DPO: devices=1 device={device} model=debug '
+    print(f'DPO: devices=1 device={device} '
+          f'model={args.hf_model or "debug"} '
           f'({config.num_params()/1e9:.2f}B) seq={args.seq_len} '
           f'pairs/step={batch_size} beta={args.beta}')
 

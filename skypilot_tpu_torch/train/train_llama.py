@@ -13,7 +13,9 @@ It trains in chunks of ``--checkpoint-every`` steps through
 ``--checkpoint-dir`` (``Trainer.restore_latest``, which walks down past a
 torn or corrupt newest step), prints ``resumed from step N`` and trains
 on to ``--steps``.  Batches restart from seed 0 after a resume, as in the
-reference script.  The weights are random from seed 0.  The run is on
+reference script.  The weights are random from seed 0, or those of
+``--hf-model DIR``, a local HF checkpoint directory of a dense family
+(models/convert.py), which then also gives the config.  The run is on
 the card unless ``--device cpu``.
 """
 from __future__ import annotations
@@ -31,7 +33,7 @@ from skypilot_tpu_torch.train.trainer import (TrainConfig, Trainer,
                                               synthetic_batches)
 
 PRESETS = {'debug': llama.LLAMA_DEBUG, '1b': llama.LLAMA_1B,
-           '8b': llama.LLAMA3_8B}
+           '8b': llama.LLAMA3_8B, '70b': llama.LLAMA3_70B}
 
 
 def text_batches(path: str, batch: int, seq: int, vocab: int):
@@ -70,7 +72,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument('--checkpoint-every', type=int, default=50)
     parser.add_argument('--resume', default='no', choices=['no', 'auto'])
     parser.add_argument('--hf-model', default='',
-                        help='not available yet in this package')
+                        help='local HF checkpoint directory to start from '
+                             '(its config replaces --model-size)')
     parser.add_argument('--data-file', default='',
                         help='plain-text finetune corpus, as bytes mod '
                              'vocab. Default: synthetic batches.')
@@ -87,27 +90,29 @@ def parse_args(argv=None) -> argparse.Namespace:
         parser.error(f'{sharded}: this entry point trains on one card; '
                      f'meshes come with ROADMAP items 11(g) and 10 '
                      f'(parallel/ sharding and multi-card runs)')
-    if args.hf_model:
-        parser.error('--hf-model needs the HF checkpoint conversion, '
-                     'ROADMAP item 11(f) (models/convert.py)')
     return args
 
 
 def main(argv=None) -> None:
     args = parse_args(argv)
     sys.stdout.reconfigure(line_buffering=True)
-    config = PRESETS[args.model_size]
     trainer_config = TrainConfig(
         learning_rate=args.learning_rate,
         warmup_steps=min(100, args.steps // 10 + 1),
         total_steps=args.steps)
     device = resolve_device(args.device)
-    params = llama.init_params(
-        config, torch.Generator(device=device).manual_seed(0), device)
+    if args.hf_model:
+        from skypilot_tpu_torch.train.train_sft import load_base
+        params, config = load_base(args.hf_model, device)
+    else:
+        config = PRESETS[args.model_size]
+        params = llama.init_params(
+            config, torch.Generator(device=device).manual_seed(0), device)
     trainer = Trainer(lambda p, b: llama.loss_fn(p, b, config), params,
                       trainer_config, device=device)
     del params
-    print(f'device={trainer.device} model={args.model_size} '
+    print(f'device={trainer.device} '
+          f'model={args.hf_model or args.model_size} '
           f'({config.num_params() / 1e9:.2f}B params) seq={args.seq_len}')
     if args.resume == 'auto' and args.checkpoint_dir:
         if trainer.restore_latest(args.checkpoint_dir) is not None:

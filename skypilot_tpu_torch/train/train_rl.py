@@ -12,8 +12,10 @@ Demo rewards are verifiable by construction (no reward model):
                 (default vocab/8, so the starting policy already scores
                 ~12% and GRPO has a gradient)
   length        1 - |len(completion) - target| / target
-The contract is reward(prompt_ids, completion_ids) -> float.  Weights
-are random from seed 0; the run is on the card unless ``--device cpu``.
+The contract is reward(prompt_ids, completion_ids) -> float.  The model
+is ``--hf-model DIR`` (a local HF checkpoint directory,
+models/convert.py), else the ``--model-size`` preset with random weights
+from seed 0; the run is on the card unless ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -42,7 +44,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument('--model-size', default='debug',
                         choices=['debug', '1b', '8b'])
     parser.add_argument('--hf-model', default='',
-                        help='not available yet in this package')
+                        help='local HF checkpoint directory (default: '
+                             'the --model-size preset, random weights)')
     parser.add_argument('--steps', type=int, default=20)
     parser.add_argument('--group-size', type=int, default=8)
     parser.add_argument('--prompts-per-step', type=int, default=2)
@@ -70,12 +73,16 @@ def main(argv=None) -> None:
     from skypilot_tpu_torch.device import resolve_device
     from skypilot_tpu_torch.models import llama
     from skypilot_tpu_torch.train import rl
+    from skypilot_tpu_torch.train.train_sft import load_base
 
     device = resolve_device(args.device)
-    config = {'debug': llama.LLAMA_DEBUG, '1b': llama.LLAMA_1B,
-              '8b': llama.LLAMA3_8B}[args.model_size]
-    params = llama.init_params(
-        config, torch.Generator(device=device).manual_seed(0), device)
+    if args.hf_model:
+        params, config = load_base(args.hf_model, device)
+    else:
+        config = {'debug': llama.LLAMA_DEBUG, '1b': llama.LLAMA_1B,
+                  '8b': llama.LLAMA3_8B}[args.model_size]
+        params = llama.init_params(
+            config, torch.Generator(device=device).manual_seed(0), device)
     rewards = make_rewards(config.vocab_size, args.target_token,
                            args.target_length)
     trainer = rl.GrpoTrainer(

@@ -9,8 +9,10 @@ lines.  Run as::
         --seq-len 256 --steps 20 [--lora-rank 8 --merge-save DIR] \\
         [--checkpoint-dir D --resume auto] [--device cpu]
 
-The model is LLAMA_DEBUG with random weights from seed 0 (adapters from
-seed 1); text is encoded as its UTF-8 bytes mod the vocabulary (the
+The model is ``--hf-model DIR``, a local HF checkpoint directory
+(models/convert.py: Llama, Mistral, Gemma, Qwen2, or Mixtral into the
+MoE tree), else LLAMA_DEBUG with random weights from seed 0 (adapters
+from seed 1); text is encoded as its UTF-8 bytes mod the vocabulary (the
 reference's fallback without a tokenizer).  ``--merge-save DIR`` writes
 ``{'params': merged}`` to ``DIR/merged`` as step 0 in this package's
 checkpoint format (``ckpt/format.py``): the port has no Orbax.  The run
@@ -30,11 +32,8 @@ from skypilot_tpu_torch.utils import env_contract
 def refuse_unported(parser: argparse.ArgumentParser,
                     args: argparse.Namespace) -> None:
     """Exit with a message naming the ROADMAP item of a flag whose path
-    is not ported: --hf-model (11(f)) and a mesh axis above 1, expert
-    parallelism included (11(g))."""
-    if getattr(args, 'hf_model', ''):
-        parser.error('--hf-model needs the HF checkpoint conversion, '
-                     'ROADMAP item 11(f) (models/convert.py)')
+    is not ported: a mesh axis above 1, expert parallelism included
+    (11(g))."""
     mesh = {k: getattr(args, k) for k in ('dp', 'fsdp', 'tp', 'ep')
             if hasattr(args, k)}
     sharded = {k: v for k, v in mesh.items() if v > 1}
@@ -42,6 +41,26 @@ def refuse_unported(parser: argparse.ArgumentParser,
         parser.error(f'{sharded}: this entry point trains on one card; '
                      f'meshes come with ROADMAP item 11(g) (parallel/ '
                      f'sharding)')
+
+
+def load_base(hf_model: str, device, allow_moe: bool = False):
+    """(params, config) of the entry point's model on `device`: the HF
+    checkpoint directory `hf_model` converted (models/convert.py), else
+    LLAMA_DEBUG with random weights from seed 0.  A Mixtral checkpoint
+    loads into the MoE tree where `allow_moe`; elsewhere it exits, as
+    the reference scripts only train it through SFT."""
+    from skypilot_tpu_torch.models import convert, llama
+    if not hf_model:
+        config = llama.LLAMA_DEBUG
+        return llama.init_params(
+            config, torch.Generator(device=device).manual_seed(0),
+            device), config
+    params, config = convert.load_hf_model(hf_model, device=device)
+    if hasattr(config, 'n_experts') and not allow_moe:
+        raise SystemExit(f'{hf_model} is a Mixtral (MoE) checkpoint: this '
+                         f'entry point trains dense models; finetune it '
+                         f'with train_sft')
+    return params, config
 
 
 def byte_encoder(vocab_size: int):
@@ -63,7 +82,8 @@ def save_merged(directory: str, merged) -> str:
 def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--hf-model', default='',
-                        help='not available yet in this package')
+                        help='local HF checkpoint directory (default: '
+                             'LLAMA_DEBUG, random weights)')
     parser.add_argument('--data-file', required=True,
                         help='JSONL of {"prompt", "completion"} pairs')
     parser.add_argument('--seq-len', type=int, default=2048)
@@ -110,20 +130,18 @@ def main(argv=None) -> None:
     import dataclasses
 
     from skypilot_tpu_torch.device import resolve_device
-    from skypilot_tpu_torch.models import llama
     from skypilot_tpu_torch.train import lora as lora_lib
     from skypilot_tpu_torch.train import sft
     from skypilot_tpu_torch.train.trainer import TrainConfig, Trainer
 
     device = resolve_device(args.device)
-    config = llama.LLAMA_DEBUG
-    params = llama.init_params(
-        config, torch.Generator(device=device).manual_seed(0), device)
+    params, config = load_base(args.hf_model, device, allow_moe=True)
     if args.loss_chunk:
         config = dataclasses.replace(config, loss_chunk=args.loss_chunk)
     encode = byte_encoder(config.vocab_size)
     batch_size = args.batch_size or 2
-    print(f'SFT: devices=1 device={device} model=debug '
+    print(f'SFT: devices=1 device={device} '
+          f'model={args.hf_model or "debug"} '
           f'({config.num_params()/1e9:.2f}B) seq={args.seq_len} '
           f'batch={batch_size}')
 

@@ -1,6 +1,8 @@
 """The port stands alone: skypilot_tpu_torch, chip_smoke.py and the
 scripts/torch_*.py tools import no jax, no ml_dtypes and nothing of the
-JAX package skypilot_tpu.
+JAX package skypilot_tpu; nor transformers or safetensors, which the
+card's machine does not have (models/convert.py reads checkpoints
+itself).
 
 The AST scan catches every import statement, top-level or nested.  A
 sys.modules check for jax would prove nothing here (this environment's
@@ -20,7 +22,8 @@ torch = pytest.importorskip('torch')
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / 'skypilot_tpu_torch'
-FORBIDDEN = ('jax', 'jaxlib', 'ml_dtypes', 'skypilot_tpu')
+FORBIDDEN = ('jax', 'jaxlib', 'ml_dtypes', 'skypilot_tpu', 'transformers',
+             'safetensors')
 
 
 def _port_files():
@@ -78,12 +81,16 @@ def test_scan_covers_the_training_modules():
             'skypilot_tpu_torch/telemetry/profiler.py',
             'skypilot_tpu_torch/telemetry/steplog.py',
             'skypilot_tpu_torch/utils/env_contract.py',
+            'skypilot_tpu_torch/models/convert.py',
+            'skypilot_tpu_torch/models/resnet.py',
+            'skypilot_tpu_torch/train/train_resnet.py',
             'scripts/torch_profile_train.py'} <= scanned
 
 
 def test_forbidden_rule_tells_the_packages_apart():
     assert _forbidden('skypilot_tpu.infer.serving')
     assert _forbidden('jax.numpy') and _forbidden('ml_dtypes')
+    assert _forbidden('transformers') and _forbidden('safetensors.torch')
     assert not _forbidden('skypilot_tpu_torch.infer.serving')
 
 
@@ -95,8 +102,8 @@ def test_importing_the_port_loads_no_reference_module():
         'import importlib, sys\n'
         f'for m in {modules!r}:\n'
         '    importlib.import_module(m)\n'
-        "bad = [m for m in sys.modules if m == 'skypilot_tpu' or "
-        "m.startswith('skypilot_tpu.')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('skypilot_tpu', 'transformers', 'safetensors')]\n"
         'print(bad)\n'
         'sys.exit(1 if bad else 0)\n')
     env = dict(os.environ, PYTHONPATH=str(ROOT))

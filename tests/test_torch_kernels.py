@@ -63,7 +63,7 @@ def test_rms_norm_kernel(cuda, dtype, rows, d):
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('seq,heads,kv,hd,causal', [
     (1, 4, 4, 64, True), (77, 8, 2, 128, True), (130, 4, 1, 256, False),
-    (64, 32, 8, 128, True)])
+    (64, 32, 8, 128, True), (200, 12, 2, 128, True), (96, 6, 1, 256, True)])
 def test_flash_attention_kernel(cuda, dtype, seq, heads, kv, hd, causal):
     from skypilot_tpu_torch.ops import attention
     q = torch.randn(2, seq, heads, hd, generator=cuda, device='cuda').to(dtype)
@@ -79,7 +79,8 @@ def test_flash_attention_kernel(cuda, dtype, seq, heads, kv, hd, causal):
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('hd,group,bs', [(64, 1, 16), (128, 4, 64),
-                                         (256, 8, 32)])
+                                         (256, 8, 32), (128, 6, 64),
+                                         (256, 1, 64)])
 def test_paged_decode_kernel(cuda, dtype, hd, group, bs):
     from skypilot_tpu_torch.ops import decode_attention
     batch, kv, t_width, layers = 4, 2, 5, 2
@@ -134,7 +135,7 @@ def _arena(cuda, dtype, batch, kv, hd, bs, t_width, positions, int8):
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('hd,group,bs', [(64, 1, 16), (128, 4, 64),
-                                         (256, 8, 32)])
+                                         (256, 8, 32), (128, 6, 64)])
 def test_paged_decode_kernel_int8(cuda, dtype, hd, group, bs):
     from skypilot_tpu_torch.ops import decode_attention
     batch, kv, t_width = 4, 2, 5
@@ -242,7 +243,8 @@ def test_paged_window_kernel(cuda, kind, hd, group, bs, win, t_width, pos):
 
 @pytest.mark.parametrize('kind', ['float32', 'bfloat16', 'int8'])
 @pytest.mark.parametrize('s_len,group', [
-    (64, 4), (128, 4), (256, 4), (512, 4), (1024, 4), (2048, 4), (192, 7)])
+    (64, 4), (128, 4), (256, 4), (512, 4), (1024, 4), (2048, 4), (192, 7),
+    (192, 6)])
 def test_contig_decode_kernel(cuda, kind, s_len, group):
     """K7 against its plain version at every cache bucket 64..2048 (and
     G 7); rows past each slot's position are poisoned and must not change
@@ -296,7 +298,7 @@ _SPLIT_CASES = [(kernel, hd) for kernel in ('K1', 'K7')
                 for hd in (64, 128, 256) if kernel == 'K1' or hd % 128 == 0]
 
 
-@pytest.mark.parametrize('group', [1, 4, 7, 8])
+@pytest.mark.parametrize('group', [1, 4, 6, 7, 8])
 @pytest.mark.parametrize('kind', ['float32', 'bfloat16', 'int8'])
 @pytest.mark.parametrize('kernel,hd', _SPLIT_CASES)
 @pytest.mark.parametrize('batch,capacity', [(1, 8192), (5, 1024)])
@@ -526,12 +528,14 @@ def _assert_row_close(got, want):
     (1, 32, 4, 128, False), (16, 32, 4, 64, True), (17, 32, 4, 128, True),
     (63, 32, 4, 64, False), (65, 32, 4, 128, True), (129, 32, 4, 64, True),
     (129, 32, 4, 128, False), (1000, 32, 4, 128, True),
-    (1000, 32, 4, 64, False)])
+    (1000, 32, 4, 64, False),
+    # A group of 6 (Qwen2.5-1.5B: 12 query heads over 2 KV heads).
+    (700, 12, 2, 128, True), (65, 6, 1, 64, False), (130, 6, 1, 256, True)])
 def test_flash_backward_kernels(cuda, dtype, seq, heads, kv, hd, causal):
     """K2 with its lse, K5 and K6 against their plain versions, on the
     same inputs (o and lse from the kernel: the tensor-core K2's in bf16
     at hd 64 and 128, which K5 and K6 must take at their per-row
-    bounds), over head_dims 64/128/256, groups 1/2/4/8, ragged S, causal
+    bounds), over head_dims 64/128/256, groups 1/2/4/6/8, ragged S, causal
     and not."""
     from skypilot_tpu_torch.ops import attention as at
     q = torch.randn(2, seq, heads, hd, generator=cuda, device='cuda').to(dtype)
@@ -572,7 +576,7 @@ def _bwd_operands(cuda, dtype, seq, heads, kv, hd, causal):
 
 @pytest.mark.parametrize('hd', [64, 128])
 @pytest.mark.parametrize('seq', [1, 63, 65, 129, 700, 1024])
-@pytest.mark.parametrize('group', [1, 4, 8])
+@pytest.mark.parametrize('group', [1, 4, 6, 8])
 @pytest.mark.parametrize('causal', [True, False])
 def test_flash_forward_tensor_core_kernel(cuda, hd, seq, group, causal):
     """The tensor-core K2 (bf16, hd 64 and 128) with and without its lse:
@@ -581,9 +585,9 @@ def test_flash_forward_tensor_core_kernel(cuda, hd, seq, group, causal):
     TOL against _attention_plain; the lse against both plain lse at
     LSE_TOL; without the lse, the same o.  Ragged S (one row, one short
     of and one past a 64-key tile, one past a 128-row q-tile, no full
-    last tile), GQA groups 1/4/8, causal and full."""
+    last tile), GQA groups 1/4/6/8, causal and full."""
     from skypilot_tpu_torch.ops import attention as at
-    heads = 8
+    heads = 12 if group == 6 else 8
     q, k, v = (torch.randn(2, seq, h, hd, generator=cuda,
                            device='cuda').bfloat16()
                for h in (heads, heads // group, heads // group))

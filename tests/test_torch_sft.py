@@ -12,9 +12,13 @@ over by ``llama.params_from_numpy``.  Tolerances:
   gradient leaf atol ATOL (both sides sum in f32 in other orders through
   2 layers; the gradients are O(1e-2));
 - the entry point: finishes on the CPU within 30 s with finite losses;
-  a flag of an unported path exits non-zero naming its ROADMAP item.
+  a flag of an unported path exits non-zero naming its ROADMAP item;
+  train_sft, train_dpo, train_rl and train_llama train from a tiny HF
+  checkpoint directory (--hf-model) that the test writes with
+  chip_smoke.py's writer, and print finite losses.
 """
 import dataclasses
+import importlib.util
 import json
 import os
 import subprocess
@@ -238,8 +242,7 @@ def test_train_sft_runs_on_the_cpu(tmp_path):
     assert proc.stdout.rstrip().endswith('SFT done.')
 
 
-_REFUSED = [(('--hf-model', 'meta-llama/Llama-3.1-8B'), '11(f)'),
-            (('--tp', '2'), '11(g)'), (('--fsdp', '4'), '11(g)'),
+_REFUSED = [(('--tp', '2'), '11(g)'), (('--fsdp', '4'), '11(g)'),
             (('--ep', '2'), '11(g)')]
 
 
@@ -256,3 +259,104 @@ def test_entry_points_refuse_unported_flags(tmp_path, module, flag, item):
                       '--device', 'cpu', timeout=30)
     assert proc.returncode != 0
     assert item in proc.stderr, proc.stderr
+
+
+# Tiny HF configs (config.json fields) of three families for --hf-model:
+# Gemma (head_dim 32 != 64 / 4, gelu, (1 + w) norms, tied), Qwen2 (q/k/v
+# biases, a group of 6, tied) and Mixtral (4 experts, top 2).
+_TINY = dict(vocab_size=300, hidden_size=64, intermediate_size=96,
+             num_hidden_layers=2, num_attention_heads=4,
+             num_key_value_heads=2, max_position_embeddings=256,
+             rms_norm_eps=1e-6, rope_theta=10000.0,
+             tie_word_embeddings=False)
+_HF_CONFIGS = {
+    'gemma': dict(_TINY, model_type='gemma', head_dim=32,
+                  num_key_value_heads=1, hidden_act='gelu',
+                  tie_word_embeddings=True),
+    'qwen2': dict(_TINY, model_type='qwen2', hidden_size=96,
+                  num_attention_heads=6, num_key_value_heads=1,
+                  use_sliding_window=False, tie_word_embeddings=True),
+    'mixtral': dict(_TINY, model_type='mixtral', num_local_experts=4,
+                    num_experts_per_tok=2, sliding_window=None),
+}
+
+
+@pytest.fixture(scope='module')
+def hf_dirs(tmp_path_factory):
+    """family -> a bf16 checkpoint directory in HF's layout, random
+    weights from seed 0, written by chip_smoke.py's writer."""
+    spec = importlib.util.spec_from_file_location('chip_smoke',
+                                                  ROOT / 'chip_smoke.py')
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    out = {}
+    for family, hf_config in _HF_CONFIGS.items():
+        d = tmp_path_factory.mktemp(f'hf_{family}')
+        cs.write_hf_checkpoint(
+            str(d), hf_config,
+            lambda name, shape, g=family == 'gemma': cs.draw_hf_tensor(
+                name, shape, 0, torch.bfloat16, 'cpu', gemma=g))
+        out[family] = str(d)
+    return out
+
+
+def _dpo_rows(n=6, seed=0):
+    rng = np.random.RandomState(seed)
+    letters = list('abcdefgh ')
+    text = lambda k: ''.join(rng.choice(letters, k))  # noqa: E731
+    return [{'prompt': text(12), 'chosen': text(20), 'rejected': text(20)}
+            for _ in range(n)]
+
+
+_HF_RUNS = {
+    'train_sft': (['--seq-len', '32', '--steps', '3', '--log-every', '1',
+                   '--lora-rank', '4'], 'step '),
+    'train_dpo': (['--seq-len', '48', '--steps', '3', '--log-every', '1',
+                   '--lora-rank', '4'], 'step '),
+    'train_rl': (['--steps', '2', '--group-size', '2',
+                  '--max-new-tokens', '4'], 'rl step '),
+    'train_llama': (['--seq-len', '32', '--batch-size', '2', '--steps', '3',
+                     '--checkpoint-every', '1'], None),
+}
+
+
+@pytest.mark.parametrize('module,family', [
+    (module, family) for module in _HF_RUNS for family in ('gemma', 'qwen2')
+] + [('train_sft', 'mixtral')])
+def test_entry_points_train_from_an_hf_checkpoint(tmp_path, hf_dirs, module,
+                                                  family):
+    """--hf-model DIR: the entry point converts the directory (a Mixtral
+    one into the MoE tree, through train_sft) and trains from it on the
+    CPU with finite losses."""
+    args, prefix = _HF_RUNS[module]
+    data = []
+    if module == 'train_sft':
+        data = ['--data-file', _write_jsonl(tmp_path / 'd.jsonl', _pairs())]
+    elif module == 'train_dpo':
+        data = ['--data-file', _write_jsonl(tmp_path / 'd.jsonl',
+                                            _dpo_rows())]
+    proc = _run_entry(f'skypilot_tpu_torch.train.{module}', '--hf-model',
+                      hf_dirs[family], *data, *args, '--device', 'cpu',
+                      timeout=60)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    if module != 'train_rl':   # train_rl prints no header, as the JAX one
+        assert f'model={hf_dirs[family]}' in proc.stdout.splitlines()[0]
+    if prefix is None:   # train_llama: its final line
+        losses = [float(proc.stdout.split('final: loss=')[1].split()[0])]
+    else:
+        losses = [float(line.split('loss=')[1].split()[0]) for line in
+                  proc.stdout.splitlines() if line.startswith(prefix)]
+        assert len(losses) == int(args[args.index('--steps') + 1])
+    assert np.all(np.isfinite(losses)), proc.stdout
+
+
+@pytest.mark.parametrize('module', ['train_dpo', 'train_rl', 'train_llama'])
+def test_dense_entry_points_refuse_a_mixtral_checkpoint(tmp_path, hf_dirs,
+                                                        module):
+    data = (['--data-file', str(tmp_path / 'x.jsonl')]
+            if module == 'train_dpo' else [])
+    proc = _run_entry(f'skypilot_tpu_torch.train.{module}', '--hf-model',
+                      hf_dirs['mixtral'], *data, '--device', 'cpu',
+                      timeout=60)
+    assert proc.returncode != 0
+    assert 'Mixtral (MoE) checkpoint' in proc.stderr, proc.stderr
