@@ -32,7 +32,11 @@ Phases (any failure exits non-zero):
    (LLAMA_1B: G 2 over 8 KV heads, 8 slots, a 2-block table), each with
    its own kernels line entry; K1 and the combine also at the decode
    shapes of 12a (Gemma-7B: 16 KV heads of 256, G 1) and 12b
-   (Qwen2.5-1.5B: 2 KV heads of 128, G 6).  K2 without its lse at the
+   (Qwen2.5-1.5B: 2 KV heads of 128, G 6), and K1 in bf16 and over an
+   int8 arena on tables in which 8 slots share the 16 blocks of one
+   1,024-token head (phase 14's warm decode: the entries
+   paged_decode[shared blocks] and [int8 shared blocks], their bound
+   counting each shared byte once).  K2 without its lse at the
    prefill shapes of phase 12 (FLASH_SHAPES), f32 and bf16 at ragged S
    and then in bf16 at the shape: Gemma-7B's q (4, 512, 16, 256), which
    must take the FMA kernel, and Qwen2.5-1.5B's q (4, 512, 12, 128) over
@@ -181,8 +185,38 @@ Phases (any failure exits non-zero):
    convolutions, controls that must read past RESNET_GRAD_REL; (b)
    train_resnet's path, ResNet50 at batch 256 of
    224x224 in bf16 (2 warm-up, 10 timed steps: images/s, step ms, peak
-   memory), then the entry point itself as a child process.  Every
-   phase prints its seconds, and the run its whole.
+   memory), then the entry point itself as a child process.
+14. the prefix cache, the host KV tier and the prefill -> decode handoff
+   on random LLAMA3_8B bf16 weights (phase 5's seed) at all 32 layers,
+   pooled plane through graphs, prefill_chunk = prefix_block = 256.
+   (a) bench_prefix_reuse's shape: 8 requests sharing a 1,024-token head
+   with their own 64-token tails, 48 new tokens, batch 8, prefix_cache_mb
+   2048; after a warm-up on a disjoint head, a cold batch, then a warm one
+   with new tails: the warm tokens equal a batcher without a prefix
+   cache, the warm hits make no install/extract copy and one host sync
+   an admission (as the cold ones), the trie's bytes stay in budget;
+   prints TTFT, prefill and decode tokens/s, hits, misses, tokens saved,
+   evictions, pool shares.  (b) bench_tier_reuse's shape: 12 heads of
+   1,024 tokens (1.61 GB of KV), a device budget of a tenth of that, a
+   host tier of twice it in pinned memory; every head once, then each
+   revisited after a prefetch_hint; tier off, then on: identical tokens,
+   every prefetched node's arena bytes equal (SHA-256) those gathered at
+   its spill; prints the tier's counts, spill and prefetch GB/s beside a
+   plain pinned 1 GB copy each way, revisit TTFTs, the pinned
+   allocation's seconds and RSS.  (c) a prefill batcher and a decode
+   batcher over one parameter dict, in bf16 and int8 KV: 4 cold
+   1,040-token prompts prefilled, exported, encoded, decoded, ingested
+   and served 48 tokens, and a fifth whose image has a flipped byte
+   (refused, served cold): all equal single-pool serving; drain_sessions
+   mid-decode holds the uninterrupted tokens so far, and the specs run
+   on the other batcher; prints image bytes, encode/decode ms and
+   export-to-first-token seconds.  (d) LLAMA_DEBUG f32 on the host, the
+   card eagerly and through graphs: the Generator's warm path (pooled and
+   'paged'), the batcher's pooled plane with an evicting budget and the
+   host tier, its 'paged' plane (install/extract, K7), and drain_sessions
+   resumed on a second batcher: identical tokens, warm equal cold and the
+   uninterrupted run, pooled arenas allclose.  Every phase prints its
+   seconds, and the run its whole.
 
 Every kernel of a main-path run must launch > 0 times in that run (the
 counts are set to 0 just before it and read just after; a replayed graph
@@ -191,11 +225,12 @@ kernel must launch from both verify and fused ticks, K7 (and never K1)
 on every phase 7 path, and K2, K3, K5 and K6 from both train paths and
 9a, and K2 with its lse, K3, K5 and K6 from 10a, 10b, 10c, 11b and 11c
 (K1 from 10c's rollouts, K1, K2 and K3 from 11a, 12a and 12b, K2 with
-its lse, K3, K5 and K6 from 12b's LoRA-SFT); K2, K5 and K6 only on their
+its lse, K3, K5 and K6 from 12b's LoRA-SFT, K1 and K3 from 14a, 14b and
+both 14c runs); K2, K5 and K6 only on their
 tensor-core route on every path but 12a (bf16 at head_dim 128), and K2
 only on its FMA kernel on 12a (head_dim 256); K4 on phase 6's paths,
 where it must also take its split route; K1 and K7 only on their split
-route on every path of phases 5 to 7, 10c, 11a, 12a and 12b (B KV <= 128
+route on every path of phases 5 to 7, 10c, 11a, 12a, 12b and 14 (B KV <= 128
 < 2 x 132 SMs).  The last lines
 of standard output are
 the {"kernels": [...]} line, the nvidia-smi name/power-limit line, and
@@ -205,6 +240,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import hashlib
 import json
 import os
 import re
@@ -1041,6 +1077,101 @@ def check_decode_at(da, ptxas, label, seed):
         f'{entry["graph_ms"]:.4f}), bound {b_ms:.4f} by {by}, plain '
         f'{entry["plain_ms"]:.4f}, SDPA {entry["library_ms"]:.4f}')
     return entry, combine
+
+
+# K1 at phase 14a's warm decode: 8 slots whose tables share the 16 blocks
+# of one 1,024-token head (the prefix cache's splice), each with its own
+# blocks for a 64-token tail and the tokens decoded so far.
+SHARED_HEAD_BLOCKS = 1024 // BS
+SHARED_POSITIONS = [1088 + d for d in (0, 6, 13, 19, 26, 32, 39, 47)]
+
+
+def check_decode_shared(da, ptxas):
+    """K1 in bf16 and over an int8 arena on tables in which every slot
+    points at the same physical head blocks, against its plain version,
+    twice bitwise, on a poisoned arena, timed with its bound (each
+    shared byte counted once) and SDPA's over the gathered rows (eager
+    and as a replayed graph).  Returns the kernels line entries
+    'paged_decode[shared blocks]' and 'paged_decode[int8 shared
+    blocks]'."""
+    gen = torch.Generator(device='cuda').manual_seed(14)
+    batch, layer = 8, 1
+    last = SHARED_POSITIONS
+    own = T_WIDTH - SHARED_HEAD_BLOCKS
+    n_blocks = 1 + SHARED_HEAD_BLOCKS + batch * own
+    perm = np.random.RandomState(14).permutation(np.arange(1, n_blocks))
+    tables = np.zeros((batch, T_WIDTH), np.int32)
+    for b, pos in enumerate(last):
+        live = pos // BS + 1
+        tables[b, :SHARED_HEAD_BLOCKS] = perm[:SHARED_HEAD_BLOCKS]
+        lo = SHARED_HEAD_BLOCKS + b * own
+        tables[b, SHARED_HEAD_BLOCKS:live] = perm[
+            lo:lo + live - SHARED_HEAD_BLOCKS]
+    tables = torch.as_tensor(tables, device='cuda')
+    positions = torch.tensor(last, dtype=torch.int32, device='cuda')
+    capacity = T_WIDTH * BS
+    splits, split_len = _split_of(da, batch, capacity)
+    live_keys = sum(p + 1 for p in last)
+    unique_keys = SHARED_HEAD_BLOCKS * BS + sum(
+        p + 1 - SHARED_HEAD_BLOCKS * BS for p in last)
+    out_entries = {}
+    for label, int8 in (('bf16', False), ('int8', True)):
+        q = torch.randn(batch, KV_HEADS, GROUP, HEAD_DIM, generator=gen,
+                        device='cuda').to(torch.bfloat16)
+        k, v, ks, vs = _arena(gen, torch.bfloat16, n_blocks, int8)
+
+        def kernel(k=k, v=v):
+            return da.decode_attention_pooled(q, k, v, tables, layer,
+                                              positions, ks, vs)
+
+        def plain():
+            return da._decode_attention_plain(q, k, v, tables, layer,
+                                              positions, ks, vs)
+
+        name = ('paged_decode[shared blocks]' if not int8
+                else 'paged_decode[int8 shared blocks]')
+        out = kernel()
+        err = check_close(name, out, plain())
+        if not torch.equal(kernel(), out):
+            raise AssertionError(f'{name}: two calls differ')
+        k2, v2 = _poison(k, v, tables, last, layer)
+        if not torch.equal(kernel(k2, v2), out):
+            raise AssertionError(f'{name} read keys past a position or '
+                                 f'outside its table')
+        del k2, v2
+        nbytes = (2 * q.numel() * 2 + _kv_bytes(unique_keys, k)
+                  + tables.numel() * 4 + batch * 4)
+        b_ms, by = bound(nbytes, 4 * HEAD_DIM * KV_HEADS * GROUP * live_keys,
+                         BF16_FLOPS)
+        kt, vt = _gathered(k, v, ks, vs, tables, layer, torch.bfloat16)
+        qs = q.reshape(batch, KV_HEADS * GROUP, 1, HEAD_DIM)
+        mask = (torch.arange(kt.shape[2], device='cuda')[None, :]
+                <= positions.long()[:, None])[:, None, None, :]
+        entry = {
+            'name': name, 'route': 'cuda',
+            'source': 'skypilot_tpu_torch/csrc/paged_decode.cu',
+            'replaces': 'skypilot_tpu/ops/decode_attention.py:356',
+            'shape': f'q ({batch}, {KV_HEADS}, {GROUP}, {HEAD_DIM}) bf16, '
+                     f'{"int8" if int8 else "bf16"} arena, BS {BS} '
+                     f'T {T_WIDTH}, the {SHARED_HEAD_BLOCKS} head blocks '
+                     f'shared by all {batch} slots, positions {last}, '
+                     f'live keys {live_keys} ({unique_keys} distinct)',
+            'splits': splits, 'split_len': split_len,
+            'max_abs_err': err, 'ms': time_ms(kernel),
+            'graph_ms': graph_ms(kernel),
+            'plain_ms': time_ms(plain), 'bound_ms': b_ms, 'bound_by': by,
+            'library_ms': time_ms(lambda: sdpa(qs, kt, vt, attn_mask=mask)),
+            'library_graph_ms': graph_ms(
+                lambda: sdpa(qs, kt, vt, attn_mask=mask)),
+            **_ptxas_of(ptxas, DECODE_KERNELS['pooled', label]),
+        }
+        log(f'  {name}: {entry["ms"]:.4f} ms (graph '
+            f'{entry["graph_ms"]:.4f}), bound {b_ms:.4f} by {by}, plain '
+            f'{entry["plain_ms"]:.4f}, SDPA {entry["library_ms"]:.4f}')
+        out_entries[label] = entry
+        del k, v, ks, vs, kt, vt
+    torch.cuda.empty_cache()
+    return out_entries
 
 
 # Mangled-name fragments of the timed K4 tensor-core instantiations
@@ -3318,6 +3449,592 @@ def resnet_train_path(batch=256, size=224, warmup=2, steps=10):
     return stats
 
 
+# ---- phase 14: prefix cache, host tier, handoff ---------------------------
+
+# prefix_block == prefill_chunk: a cold prompt longer than the chunk takes
+# the same windows as a warm hit's suffix, so both write the same K/V.
+PREFIX_BLOCK = 256
+
+
+def _arena_sha(arena, ids):
+    """SHA-256 over the arena blocks `ids` of every component (sorted),
+    gathered as (L, n, ...) and read on the host, bf16 as its bits."""
+    idx = torch.as_tensor(list(ids), dtype=torch.long,
+                          device=arena['k'].device)
+    h = hashlib.sha256()
+    for comp in sorted(arena):
+        t = arena[comp].index_select(1, idx).cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        h.update(t.numpy().tobytes())
+    return h.hexdigest()
+
+
+def _trie_node(pc, key):
+    """The trie node covering the token prefix `key` (None if absent)."""
+    node = pc._root
+    for b in range(len(key) // pc.block):
+        node = node.children.get(tuple(key[b * pc.block:(b + 1) * pc.block]))
+        if node is None:
+            return None
+    return node
+
+
+def _run_requests(b, prompts, max_new):
+    """Submit `prompts` at once and run the batcher idle; returns (each
+    request's tokens, each one's TTFT, the wall seconds)."""
+    t0 = time.perf_counter()
+    rids = [b.submit(p, max_new_tokens=max_new) for p in prompts]
+    b.run_until_idle()
+    wall = time.perf_counter() - t0
+    ttfts = [b.ttft(r) for r in rids]
+    return [b.result(r) for r in rids], ttfts, wall
+
+
+def prefix_reuse_path(params, counters, paths, cfg=None, device='cuda'):
+    """14a, bench_prefix_reuse's shape at LLAMA3_8B: 8 requests share one
+    1,024-token head, each with its own 64-token tail, 48 new tokens;
+    a cold batch (first sight of the head), then a warm one with new
+    tails.  Gates: the warm tokens equal a batcher without a prefix cache
+    on the same prompts; the warm hits dispatch no install or extract
+    copy and make one host sync an admission, as the cold batch does;
+    the trie's bytes (and its gauge) never pass prefix_cache_mb.  cfg,
+    device: LLAMA3_8B on the card by default (a rehearsal passes a tiny
+    config and the CPU)."""
+    from skypilot_tpu_torch.infer import engine, prefix_cache
+    from skypilot_tpu_torch.infer.engine import GeneratorConfig
+    from skypilot_tpu_torch.infer.serving import ContinuousBatcher
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.telemetry import metrics
+
+    cfg = cfg or llama.LLAMA3_8B
+    slots, head_len, tail, max_new = 8, 1024, 64, 48
+    base = dict(max_seq_len=2048, batch_size=slots,
+                prefill_chunk=PREFIX_BLOCK)
+    b = ContinuousBatcher(params, cfg, GeneratorConfig(
+        **base, prefix_block=PREFIX_BLOCK, prefix_cache_mb=2048),
+        decode_chunk=16, device=device)
+    pc = b._prefix
+    peak = {'bytes': 0, 'gauge': 0.0}
+    step, decode_chunk, chunks = b.step, b._decode_chunk, [0]
+
+    def checked_step():
+        step()
+        peak['bytes'] = max(peak['bytes'], pc.bytes)
+        peak['gauge'] = max(peak['gauge'], metrics.REGISTRY.get_sample_value(
+            'skytpu_infer_prefix_bytes'))
+
+    def counted_chunk(*args, **kwargs):
+        chunks[0] += 1
+        return decode_chunk(*args, **kwargs)
+
+    b.step, b._decode_chunk = checked_step, counted_chunk
+    vocab = cfg.vocab_size
+    rng = np.random.RandomState(14)
+
+    def make(head, salt):
+        return [list(head) + [(salt + 7 * (i + 1) + j) % vocab
+                              for j in range(tail)] for i in range(slots)]
+
+    def run(prompts):
+        keys = ('hits', 'misses', 'tokens_saved', 'evictions')
+        before = {k: getattr(pc, k) for k in keys}
+        shares0, syncs0, chunks0 = (b.pool.prefix_shares,
+                                    engine.host_fetch.calls, chunks[0])
+        b.decode_tokens, b.decode_seconds = 0, 0.0
+        out, ttfts, wall = _run_requests(b, prompts, max_new)
+        if any(len(o) != max_new for o in out):
+            raise AssertionError(f'14a: {[len(o) for o in out]} tokens')
+        tokens = sum(len(p) for p in prompts)
+        stats = {k: getattr(pc, k) - before[k] for k in keys}
+        stats.update(
+            ttft_s_median=statistics.median(ttfts), ttft_s_max=max(ttfts),
+            wall_s=wall, prompt_tokens=tokens,
+            # Prompt tokens over the time until the last first token.
+            prefill_tokens_per_s=tokens / max(ttfts),
+            decode_tokens_per_s=b.decode_tokens / b.decode_seconds,
+            prefix_shares=b.pool.prefix_shares - shares0,
+            decode_chunks=chunks[0] - chunks0,
+            host_fetches=engine.host_fetch.calls - syncs0)
+        # One sync for each admission's first token, one a decode chunk.
+        stats['syncs_per_admission'] = (
+            stats['host_fetches'] - stats['decode_chunks']) / len(prompts)
+        return out, stats
+
+    # Warm-up on a disjoint token range: the cold windows, the hit path
+    # and the decode graphs; then count from zero.
+    warm_head = [int(t) for t in rng.randint(1, vocab // 2, size=head_len)]
+    head = [int(t) for t in rng.randint(vocab // 2, vocab, size=head_len)]
+    run(make(warm_head, 1))
+    run(make(warm_head, 2))
+    _zero(counters)
+    _, cold = run(make(head, 3))
+    real = prefix_cache.install_prefix, prefix_cache.extract_block
+
+    def no_copy(*args, **kwargs):
+        raise AssertionError('14a: an install/extract copy on the pooled '
+                             'warm path')
+
+    prefix_cache.install_prefix = prefix_cache.extract_block = no_copy
+    try:
+        warm_out, warm = run(make(head, 4))
+    finally:
+        prefix_cache.install_prefix, prefix_cache.extract_block = real
+    paths['14a'] = _counts(counters)
+    b.pool.check_invariant()
+    st = b.pool.stats()
+    if st['reserved'] or st['blocks_live'] != pc.node_count * (
+            PREFIX_BLOCK // b.block_size):
+        raise AssertionError(f'14a: pool {st} against {pc.node_count} '
+                             f'trie nodes')
+    if warm['hits'] != slots or warm['misses'] or \
+            warm['tokens_saved'] != slots * head_len:
+        raise AssertionError(f'14a: warm batch {warm}')
+    if cold['syncs_per_admission'] != 1 or warm['syncs_per_admission'] != 1:
+        raise AssertionError(f'14a: host syncs an admission: cold {cold}, '
+                             f'warm {warm}')
+    if peak['bytes'] > pc.capacity_bytes or peak['gauge'] > pc.capacity_bytes:
+        raise AssertionError(f'14a: the trie held {peak} bytes, over its '
+                             f'{pc.capacity_bytes}')
+    del b, pc
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = ContinuousBatcher(params, cfg, GeneratorConfig(**base),
+                            decode_chunk=16, device=device)
+    ref_out, _, _ = _run_requests(ref, make(head, 4), max_new)
+    _same_tokens('14a: warm hits vs a batcher without a prefix cache',
+                 warm_out, ref_out)
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats = {'card': CARD['line'], 'requests': slots,
+             'shared_head_tokens': head_len, 'tail_tokens': tail,
+             'prefix_block': PREFIX_BLOCK, 'new_tokens': max_new,
+             'cold': cold, 'warm': warm,
+             'ttft_median_warm_over_cold': (warm['ttft_s_median']
+                                            / cold['ttft_s_median']),
+             'peak_trie_bytes': peak['bytes'],
+             'prefix_cache_bytes': 2048 * 1024 * 1024,
+             'launches': paths['14a']}
+    log('  14a prefix reuse: ' + json.dumps(stats))
+    log('  14a: warm tokens identical to a batcher without a prefix cache; '
+        'no install/extract copy; one host sync an admission')
+
+
+def _copy_gbps(nbytes=1 << 30, reps=5):
+    """One plain pinned copy_ of `nbytes` each way (the host link's
+    yardstick): GB/s of the median of `reps`, timed with CUDA events."""
+    t0 = time.perf_counter()
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    pin_s = time.perf_counter() - t0
+    dev = torch.empty(nbytes, dtype=torch.uint8, device='cuda')
+    out = {'bytes': nbytes, 'pin_s': pin_s}
+    for name, dst, src in (('h2d', dev, host), ('d2h', host, dev)):
+        times = []
+        for _ in range(reps + 1):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            dst.copy_(src, non_blocking=True)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / 1e3)
+        out[f'{name}_gb_per_s'] = nbytes / statistics.median(times[1:]) / 1e9
+    del host, dev
+    torch.cuda.empty_cache()
+    return out
+
+
+def tier_path(params, counters, paths, cfg=None, device='cuda'):
+    """14b, bench_tier_reuse's shape at LLAMA3_8B: 12 heads of 1,024
+    tokens (48 trie nodes of 256 tokens, 1.61 GB of KV), a device prefix
+    budget of a tenth of that working set by the reference's formula,
+    a host tier of twice it; every head seen once, then revisited after
+    churn with a prefetch_hint ahead of it; tier off, then on.  Gates:
+    the two arms' tokens are identical; the first spilled node's arena
+    bytes after its prefetch equal (SHA-256) those gathered at its
+    spill.  Prints the tier's counts, spill and prefetch GB/s beside one
+    plain pinned 1 GB copy each way, revisit TTFTs and the pinned
+    allocation's seconds and host RSS.  cfg, device: as
+    prefix_reuse_path's."""
+    from skypilot_tpu_torch.infer.engine import GeneratorConfig
+    from skypilot_tpu_torch.infer.serving import ContinuousBatcher
+    from skypilot_tpu_torch.models import llama
+
+    cfg = cfg or llama.LLAMA3_8B
+    heads, head_len, tail, max_new = 12, 1024, 32, 4
+    nodes_per_head = head_len // PREFIX_BLOCK
+    working = heads * nodes_per_head
+    node_bytes = (2 * cfg.n_layers * PREFIX_BLOCK * cfg.n_kv_heads
+                  * cfg.head_dim * torch.empty((), dtype=cfg.dtype)
+                  .element_size())
+    budget_nodes = max(nodes_per_head + 1, working // 10)
+    prefix_mb = budget_nodes * node_bytes / 2 ** 20
+    host_mb = 2.0 * working * node_bytes / 2 ** 20
+    rng = np.random.RandomState(15)
+    vocab = cfg.vocab_size
+    head_toks = [[int(t) for t in rng.randint(1, vocab, size=head_len)]
+                 for _ in range(heads)]
+
+    def tails(salt):
+        return [[(salt + 11 * (i + 1) + j) % vocab for j in range(tail)]
+                for i in range(heads)]
+
+    def arm(tier_mb):
+        rss0, t0 = _vm_rss(), time.perf_counter()
+        b = ContinuousBatcher(params, cfg, GeneratorConfig(
+            max_seq_len=2048, batch_size=2, prefill_chunk=PREFIX_BLOCK,
+            prefix_block=PREFIX_BLOCK, prefix_cache_mb=prefix_mb,
+            host_tier_mb=tier_mb), decode_chunk=16, device=device)
+        build = {'build_s': time.perf_counter() - t0,
+                 'host_rss_growth_gb': (_vm_rss() - rss0) / 1e9}
+        tier, pc = b._tier, b._prefix
+        spilled, fetched = {}, []
+        if tier is not None:
+            accept, start = tier.accept_spill, tier.start_prefetch
+
+            def recording_spill(key, ids):
+                # The bytes gathered at the spill, read before the blocks
+                # free (outside every timed request).
+                sha = _arena_sha(b.pool.arena, ids)
+                ok = accept(key, ids)
+                if ok:
+                    spilled[key] = sha
+                return ok
+
+            def recording_prefetch(entries, dev_ids, nodes):
+                fetched.extend((e.key, n) for e, n in zip(entries, nodes))
+                return start(entries, dev_ids, nodes)
+
+            tier.accept_spill = recording_spill
+            tier.start_prefetch = recording_prefetch
+            _zero(counters)
+        outs = []
+        for h, t in zip(head_toks, tails(3)):
+            o, _, _ = _run_requests(b, [h + t], max_new)
+            outs += o
+        b.tier_flush()
+        h0, m0 = pc.hits, pc.misses
+        ttfts, verified = [], 0
+        for h, t in zip(head_toks, tails(4)):
+            if tier is not None:
+                b.prefetch_hint(h + t)
+                b.tier_flush()
+            o, ttft, _ = _run_requests(b, [h + t], max_new)
+            outs += o
+            ttfts += ttft
+            # Every node prefetched for this request, still in the trie
+            # as it landed: its arena bytes against those of its spill.
+            while fetched:
+                key, node = fetched.pop()
+                if node.tier != 'device' or _trie_node(pc, key) is not node:
+                    continue
+                if _arena_sha(b.pool.arena, node.data) != spilled[key]:
+                    raise AssertionError('14b: a prefetched node\'s bytes '
+                                         'differ from those spilled')
+                verified += 1
+        b.tier_flush()
+        stats = dict(build, warm_hits=pc.hits - h0,
+                     warm_misses=pc.misses - m0,
+                     revisit_ttft_s_median=statistics.median(ttfts),
+                     revisit_ttft_s_max=max(ttfts))
+        if tier is not None:
+            if not verified:
+                raise AssertionError('14b: no spilled node was prefetched')
+            s = tier.stats()
+            stats.update({k: s[k] for k in (
+                'spills', 'spill_rejects', 'prefetches', 'host_hits',
+                'device_hits', 'misses', 'prefetch_late', 'host_evictions',
+                'spill_bytes', 'prefetch_bytes', 'spill_seconds',
+                'prefetch_seconds', 'prefetch_staging_seconds',
+                'prefetch_h2d_seconds', 'host_nbytes', 'pin_seconds')})
+            stats['spill_gb_per_s'] = s['spill_bytes'] / s['spill_seconds'] / 1e9
+            stats['prefetch_gb_per_s'] = (s['prefetch_bytes']
+                                          / s['prefetch_seconds'] / 1e9)
+            stats['prefetch_h2d_gb_per_s'] = (
+                s['prefetch_bytes'] / s['prefetch_h2d_seconds'] / 1e9
+                if s['prefetch_h2d_seconds'] else None)
+            stats['prefetched_nodes_sha256_equal'] = verified
+            paths['14b'] = _counts(counters)
+        b.pool.check_invariant()
+        b.close()
+        del b, tier, pc
+        gc.collect()
+        torch.cuda.empty_cache()
+        return outs, stats
+
+    off_out, off = arm(None)
+    on_out, on = arm(host_mb)
+    _same_tokens('14b: tier on vs tier off', on_out, off_out)
+    stats = {'card': CARD['line'], 'heads': heads,
+             'shared_head_tokens': head_len, 'working_set_nodes': working,
+             'working_set_gb': working * node_bytes / 1e9,
+             'device_budget_nodes': budget_nodes,
+             'host_tier_mb': host_mb, 'tier_off': off, 'tier_on': on,
+             'pinned_copy_1gb': _copy_gbps() if device == 'cuda' else None,
+             'launches': paths['14b']}
+    log('  14b host tier: ' + json.dumps(stats))
+    log(f'  14b: tier-on tokens identical to tier-off ({len(on_out)} '
+        f'requests); {on["prefetched_nodes_sha256_equal"]} prefetched '
+        f'nodes equal their spills (SHA-256)')
+
+
+def handoff_path(params, counters, paths, kv, cfg=None, device='cuda'):
+    """14c, prefill -> decode handoff in one process: a prefill batcher
+    and a decode batcher, each with its own arena, prefix cache and host
+    tier, over one parameter dict.  Four cold 1,040-token prompts are
+    prefilled (max_new_tokens=1), exported, encoded, decoded, ingested
+    and served 48 tokens on the decode batcher; a fifth's image has one
+    byte flipped, is refused and the prompt prefills cold.  Gates: the
+    tokens of all five equal single-pool serving; drain_sessions on the
+    single pool mid-decode returns each request's tokens so far (a
+    prefix of the uninterrupted run's) and its remaining budget, and the
+    specs re-submitted on the prefill batcher run to that budget.  How
+    many of the resumed tokens equal the uninterrupted run's is printed,
+    not gated: the resumed request computes its generated tokens' K/V in
+    a prefill window where the single pool wrote them in decode steps
+    (other products, other bf16 and int8 roundings); 14d holds the
+    continuation bitwise in f32.  cfg, device: as
+    prefix_reuse_path's."""
+    from skypilot_tpu_torch.infer.engine import GeneratorConfig
+    from skypilot_tpu_torch.infer.serving import ContinuousBatcher
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.serve import disagg
+
+    cfg = cfg or llama.LLAMA3_8B
+    label = f'14c-{kv or "bf16"}'
+    n, plen, max_new = 4, 1040, 48
+    # Room for twice the five prompts' heads, on the card and on the host.
+    elem = 1 if kv else torch.empty((), dtype=cfg.dtype).element_size()
+    head_mb = ((n + 1) * (plen // PREFIX_BLOCK) * 2 * cfg.n_layers
+               * PREFIX_BLOCK * cfg.n_kv_heads * (cfg.head_dim * elem
+                                                  + (4 if kv else 0))
+               / 2 ** 20)
+    base = dict(max_seq_len=2048, batch_size=8, prefill_chunk=PREFIX_BLOCK,
+                prefix_block=PREFIX_BLOCK, prefix_cache_mb=2 * head_mb,
+                kv_cache_dtype=kv)
+    rng = np.random.RandomState(16 if kv is None else 17)
+    prompts = [[int(t) for t in rng.randint(1, cfg.vocab_size, size=plen)]
+               for _ in range(n + 1)]
+    single = ContinuousBatcher(params, cfg, GeneratorConfig(**base),
+                               decode_chunk=16, device=device)
+    want, _, _ = _run_requests(single, prompts, max_new)
+    # A failover mid-decode: drained sessions (warm hits now).
+    rids = [single.submit(p, max_new_tokens=max_new) for p in prompts[:n]]
+    while min(len(single.partial(r)) for r in rids) < 17:
+        single.step()
+    specs = single.drain_sessions()
+    if len(specs) != n or not all(
+            0 < len(s['out']) < max_new and s['max_new_tokens'] == max_new
+            and s['out'] == w[:len(s['out'])] and s['prompt'] == p
+            for s, w, p in zip(specs, want, prompts)):
+        raise AssertionError(f'14c: drained {[len(s["out"]) for s in specs]}'
+                             f' tokens: not the uninterrupted run\'s')
+    del single
+    gc.collect()
+    torch.cuda.empty_cache()
+    pre = ContinuousBatcher(params, cfg, GeneratorConfig(
+        **base, host_tier_mb=2 * head_mb), decode_chunk=16, device=device)
+    dec = ContinuousBatcher(params, cfg, GeneratorConfig(
+        **base, host_tier_mb=2 * head_mb), decode_chunk=16, device=device)
+    _zero(counters)
+    _run_requests(pre, prompts, 1)
+    hits0 = dec._prefix.hits
+    rids, export_to_first, image_bytes, enc_ms, dec_ms = [], [], [], [], []
+    for i, p in enumerate(prompts):
+        # One prompt's handoff, timed from its export to its first token
+        # on the decode batcher (which decodes the earlier ones meanwhile).
+        t0 = time.perf_counter()
+        res = pre.export_handoff(p)
+        if res is None or res['tokens'] != (plen - 1) // PREFIX_BLOCK \
+                * PREFIX_BLOCK:
+            raise AssertionError(f'14c: export of prompt {i}: {res}')
+        t1 = time.perf_counter()
+        data = disagg.encode_kv_image(p[:res['tokens']], PREFIX_BLOCK,
+                                      res['payload'])
+        t2 = time.perf_counter()
+        if i == n:
+            bad = bytearray(data)
+            bad[len(bad) // 2] ^= 0x01
+            try:
+                disagg.decode_kv_image(bytes(bad))
+            except disagg.CorruptImageError:
+                # Refused: this prompt prefills cold.
+                rids.append(dec.submit(p, max_new_tokens=max_new))
+                continue
+            raise AssertionError('14c: a flipped byte was not refused')
+        img = disagg.decode_kv_image(data)
+        t3 = time.perf_counter()
+        if dec.ingest_handoff(p, img.payload) != img.nodes:
+            raise AssertionError(f'14c: prompt {i} not adopted')
+        dec.tier_flush()
+        t4 = time.perf_counter()
+        rids.append(dec.submit(p, max_new_tokens=max_new))
+        while not dec.partial(rids[-1]):
+            dec.step()
+        # The first token reaches the host inside the tick's admission
+        # (the tick's decode chunk comes after it).
+        export_to_first.append(t4 - t0 + dec.ttft(rids[-1]))
+        image_bytes.append(len(data))
+        enc_ms.append((t2 - t1) * 1e3)
+        dec_ms.append((t3 - t2) * 1e3)
+    dec.run_until_idle()
+    got = [dec.result(r) for r in rids]
+    paths[label] = _counts(counters)
+    _same_tokens(f'{label}: handoff (and the corrupt image\'s cold '
+                 f'fallback) vs single-pool serving', got, want)
+    if dec._prefix.hits - hits0 != n:
+        raise AssertionError(f'14c: {dec._prefix.hits - hits0} warm hits')
+    for b in (pre, dec):
+        b.pool.check_invariant()
+    # The drained sessions, re-submitted on the other batcher.
+    resumed = [pre.submit(s['prompt'] + s['out'],
+                          max_new_tokens=s['max_new_tokens'] - len(s['out']))
+               for s in specs]
+    pre.run_until_idle()
+    continued = [s['out'] + pre.result(r) for s, r in zip(specs, resumed)]
+    if any(len(c) != max_new for c in continued):
+        raise AssertionError(f'14c: resumed {[len(c) for c in continued]}')
+    same = [next((j for j, (a, w) in enumerate(zip(c, want[i]))
+                  if a != w), max_new) - len(s['out'])
+            for i, (c, s) in enumerate(zip(continued, specs))]
+    stats = {'card': CARD['line'], 'kv_cache_dtype': kv, 'prompts': n,
+             'prompt_tokens': plen, 'image_bytes': image_bytes,
+             'encode_ms': enc_ms, 'decode_ms': dec_ms,
+             'export_to_first_token_s': export_to_first,
+             'decode_warm_hits': dec._prefix.hits - hits0,
+             'adopted': dec._tier.adopted,
+             'drained_out_tokens': [len(s['out']) for s in specs],
+             # Resumed tokens equal to the uninterrupted run's before the
+             # first that differs (of max_new - drained_out_tokens).
+             'resumed_identical_tokens': same,
+             'launches': paths[label]}
+    log(f'  {label} handoff: ' + json.dumps(stats))
+    log(f'  {label}: handoff tokens identical to single-pool serving; the '
+        f'flipped image refused and its prompt served cold with the same '
+        f'tokens; drained specs hold the uninterrupted prefix and resume')
+    for b in (pre, dec):
+        b.close()
+    del pre, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _serve_debug_warm(params, cfg, dev, prompts, budgets, graphs=None,
+                      **extra):
+    """_serve_debug's batcher serving the requests twice, cold then warm
+    (the trie filled by the first pass); the passes must agree.  Closes
+    the batcher's tier."""
+    b, cold = _serve_debug(params, cfg, dev, prompts, budgets, graphs,
+                           **extra)
+    rids = [b.submit(p, max_new_tokens=n) for p, n in zip(prompts, budgets)]
+    b.run_until_idle()
+    warm = [b.result(r) for r in rids]
+    if warm != cold:
+        raise AssertionError(f'batcher {extra} on {dev}: warm tokens differ '
+                             f'from cold')
+    if not b._prefix.hits:
+        raise AssertionError(f'batcher {extra} on {dev}: no prefix hit')
+    if b._tier is not None:
+        b.tier_flush()
+        if not b._tier.spills or not b._tier.prefetches:
+            raise AssertionError(f'batcher {extra} on {dev}: tier '
+                                 f'{b._tier.stats()}')
+    if b.pooled:
+        b.pool.check_invariant()
+    b.close()
+    return b, warm
+
+
+def _drain_resume_debug(params, cfg, dev, prompts, budgets, graphs=None,
+                        **extra):
+    """drain_sessions on a batcher after its first decode chunk, and the
+    specs re-submitted (prompt + out, the budget left) on a second
+    batcher: returns (the second batcher, each request's drained tokens
+    followed by its resumed ones)."""
+    from skypilot_tpu_torch.infer.engine import GeneratorConfig
+    from skypilot_tpu_torch.infer.serving import ContinuousBatcher
+    kw = dict(max_seq_len=256, batch_size=4, prompt_buckets=[16, 64, 128],
+              prefill_chunk=64, kv_block_size=16, **extra)
+    a, b = (ContinuousBatcher(params, cfg, GeneratorConfig(**kw),
+                              decode_chunk=4, device=dev, graphs=graphs)
+            for _ in range(2))
+    for p, n in zip(prompts, budgets):
+        a.submit(p, max_new_tokens=n)
+    while a.num_queued or not a.num_active:
+        a.step()
+    specs = a.drain_sessions()
+    if len(specs) != len(prompts) or a.num_active or a.num_queued:
+        raise AssertionError(f'drain on {dev}: {len(specs)} specs')
+    rids = [b.submit(s['prompt'] + s['out'],
+                     max_new_tokens=s['max_new_tokens'] - len(s['out']))
+            for s in specs]
+    b.run_until_idle()
+    out = [s['out'] + b.result(r) for s, r in zip(specs, rids)]
+    for x in (a, b):
+        x.pool.check_invariant()
+        x.close()
+    return b, out
+
+
+def prefix_parity():
+    """14d: a 2-layer LLAMA_DEBUG model in f32 on the host (plain
+    versions), on the card eagerly and on the card through graphs: the
+    Generator's warm path (pooled and 'paged': installs), the batcher's
+    pooled plane with the host tier under an evicting budget and its
+    'paged' plane (install/extract, K7): identical greedy tokens on all
+    three, warm equal cold and equal to the plain engines' tokens, and
+    the pooled arenas allclose card vs host (LOGITS_TOL); and
+    drain_sessions after a decode chunk, resumed on a second batcher,
+    continues with the uninterrupted run's tokens."""
+    from skypilot_tpu_torch.models import llama
+
+    cfg = llama.LLAMA_DEBUG
+    params_cpu = llama.init_params(cfg, torch.Generator().manual_seed(0),
+                                   'cpu')
+    params = {'cpu': params_cpu, 'cuda': _to_device(params_cpu, 'cuda')}
+    rng = np.random.RandomState(3)
+    head = [int(t) for t in rng.randint(1, cfg.vocab_size, size=32)]
+    prompts = [head + [int(t) for t in rng.randint(1, cfg.vocab_size,
+                                                   size=n)]
+               for n in (3, 20, 60, 9)]
+    budgets = [12, 9, 7, 10]
+    prefix = dict(prefix_cache_mb=4, prefix_block=16)
+    # One 16-row f32 block of LLAMA_DEBUG is 32 KiB: ~1.5 of them.
+    tiered = dict(prefix_cache_mb=0.05, prefix_block=16, host_tier_mb=2)
+    ref_gen = _generate_debug(params['cpu'], cfg, 'cpu', prompts, budgets)[1]
+    ref_batch = _serve_debug(params['cpu'], cfg, 'cpu', prompts, budgets)[1]
+    runs = (('Generator pooled, prefix', _generate_debug, prefix, ref_gen),
+            ('Generator paged, prefix', _generate_debug,
+             dict(prefix, decode_impl='paged'), ref_gen),
+            ('batcher pooled, prefix + host tier', _serve_debug_warm,
+             tiered, ref_batch),
+            ('batcher paged, prefix', _serve_debug_warm,
+             dict(prefix, decode_impl='paged'), ref_batch),
+            ('drain_sessions, resumed on a second batcher',
+             _drain_resume_debug, prefix, None))
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore', DeprecationWarning)
+        for label, run, extra, ref in runs:
+            three = _card_and_host(label, run, params, cfg, prompts,
+                                   budgets, extra)
+            if ref is None:     # uninterrupted: the batcher's own tokens
+                ref = _serve_debug(params['cpu'], cfg, 'cpu', prompts,
+                                   budgets, **extra)[1]
+            _same_tokens(f'14d {label}: vs the engine without a prefix '
+                         f'cache', three['card graphs'][1], ref)
+            host, card = three['host'][0], three['card graphs'][0]
+            if getattr(card, 'pool', None) is not None:
+                atol, rtol = LOGITS_TOL
+                for comp, arr in card.pool.arena.items():
+                    torch.testing.assert_close(
+                        arr[:, 1:].cpu(), host.pool.arena[comp][:, 1:],
+                        atol=atol, rtol=rtol)
+                log(f'  14d {label}: arena allclose card vs host')
+    log('  14d: warm equals cold and the engines without a prefix cache, '
+        'on the host, the card eager and the card through graphs')
+
+
 # Launch counts by route: '<name>[tc]' the tensor-core kernels of K2, K5
 # and K6, '<name>[split]' the split-KV launches of K1 and K7, '<name>[lse]'
 # K2's launches that wrote the lse.
@@ -3379,10 +4096,10 @@ def main() -> int:
         log(f'  phase {clock["name"]}: '
             f'{time.perf_counter() - clock["start"]:.1f} s')
 
-    phase(f'[1/13] device: {CARD["line"]} | torch {torch.__version__} '
+    phase(f'[1/14] device: {CARD["line"]} | torch {torch.__version__} '
         f'cuda {torch.version.cuda}')
 
-    phase('[2/13] build')
+    phase('[2/14] build')
     _kernels.LIBRARY.get()
     log(f'  built {_kernels.LIBRARY.path.name} in '
         f'{_kernels.LIBRARY.build_seconds:.1f} s')
@@ -3398,7 +4115,7 @@ def main() -> int:
                 and info['spill_bytes']:
             raise AssertionError(f'decode kernel {name} spills: {info}')
 
-    phase('[3/13] kernels vs plain versions')
+    phase('[3/14] kernels vs plain versions')
     t0 = time.perf_counter()
     decode = check_decode(decode_attention, ptxas)
     decode['g2'], decode['combine g2'] = check_decode_at(
@@ -3407,6 +4124,7 @@ def main() -> int:
         decode_attention, ptxas, 'Gemma-7B', 12)
     decode['qwen'], decode['combine qwen'] = check_decode_at(
         decode_attention, ptxas, 'Qwen2.5-1.5B', 13)
+    shared = check_decode_shared(decode_attention, ptxas)
     contig = check_contig_decode(decode_attention, ptxas)
     window = check_window(decode_attention, ptxas)
     flash = {'flash_attention': check_flash(attention, ptxas)}
@@ -3428,13 +4146,13 @@ def main() -> int:
         f'{time_ms(read.sum):.4f} ms (bound 0.0063)')
     del tiny, read
 
-    phase('[4/13] slice parity, LLAMA_DEBUG and MoE f32, card vs host')
+    phase('[4/14] slice parity, LLAMA_DEBUG and MoE f32, card vs host')
     slice_parity()
     train_parity()
     post_train_parity()
     moe_parity()
 
-    phase('[5/13] main path, LLAMA3_8B bf16 behind the HTTP replica')
+    phase('[5/14] main path, LLAMA3_8B bf16 behind the HTTP replica')
     cfg = llama.LLAMA3_8B
     t0 = time.perf_counter()
     params = llama.init_params(
@@ -3460,7 +4178,7 @@ def main() -> int:
             raise AssertionError(f'{k1.__name__} missed the split route on '
                                  f'the {key} path')
 
-    phase('[6/13] main path with spec_k 12 and fuse_budget 264: (a) bf16, '
+    phase('[6/14] main path with spec_k 12 and fuse_budget 264: (a) bf16, '
         '(b) int8 KV and weights')
     spec = dict(base, spec_k=12, fuse_budget=264)
     paths['6a'], _, _, _ = serve_path('6a bf16 spec+fused', params,
@@ -3474,7 +4192,7 @@ def main() -> int:
               + [f'{c.__name__}[{r}]' for c in (k4v, k4f)
                  for r in ('tc', 'split')])
 
-    phase("[7/13] legacy plane decode_impl='paged' (K7): (a) bf16 and (b) int8 "
+    phase("[7/14] legacy plane decode_impl='paged' (K7): (a) bf16 and (b) int8 "
         'KV behind the HTTP replica, (c) Generator.generate')
     legacy = dict(base, decode_impl='paged', decode_chunk=16)
     with warnings.catch_warnings():
@@ -3497,7 +4215,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    phase('[8/13] train path: (a) LLAMA_1B at the bench settings, (b) '
+    phase('[8/14] train path: (a) LLAMA_1B at the bench settings, (b) '
         'LLAMA3_8B widths at depth 2')
     remat = dict(remat=True, remat_policy='dots')
     cfg_1b = dataclasses.replace(llama.LLAMA_1B, max_seq_len=2048,
@@ -3512,7 +4230,7 @@ def main() -> int:
         2, 4096, 6, trainer.TrainConfig(warmup_steps=2, total_steps=6),
         counters)
 
-    phase('[9/13] checkpoints: (a) LLAMA_1B async saves, restore, continue '
+    phase('[9/14] checkpoints: (a) LLAMA_1B async saves, restore, continue '
           '(phase 8a settings), (b) a managed job SIGTERMed and resumed '
           'through train_llama --resume auto')
     scratch = tempfile.mkdtemp(prefix='chip_smoke_ckpt_')
@@ -3535,7 +4253,7 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
-    phase('[10/13] post-training: (a) LoRA-SFT and (b) LoRA-DPO of LLAMA3_8B '
+    phase('[10/14] post-training: (a) LoRA-SFT and (b) LoRA-DPO of LLAMA3_8B '
           'at 32 layers, (c) GRPO on LLAMA_1B, (d) the entry points')
     gc.collect()
     torch.cuda.empty_cache()
@@ -3571,13 +4289,13 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
-    phase('[11/13] Mixtral-8x7B widths, random bf16 weights: (a) 16 of 32 '
+    phase('[11/14] Mixtral-8x7B widths, random bf16 weights: (a) 16 of 32 '
           'layers served, (c) LoRA-SFT of that base, (b) trained at depth 2')
     gc.collect()
     torch.cuda.empty_cache()
     mixtral_path(counters, paths)
 
-    phase('[12/13] HF checkpoints written in HF\'s layout and loaded by '
+    phase('[12/14] HF checkpoints written in HF\'s layout and loaded by '
           'convert.load_hf_model: (a) Gemma-7B and (b) Qwen2.5-1.5B at '
           'their published widths served, 12b LoRA-SFT in process and '
           'through train_sft --hf-model, (c) debug-size parity card vs host')
@@ -3597,12 +4315,41 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
-    phase('[13/13] ResNet: (a) ResNet18Thin one SGD step card vs host, (b) '
+    phase('[13/14] ResNet: (a) ResNet18Thin one SGD step card vs host, (b) '
           'train_resnet\'s path, ResNet50 at batch 256 of 224x224')
     gc.collect()
     torch.cuda.empty_cache()
     resnet_parity()
     resnet_train_path()
+
+    phase('[14/14] prefix cache, host tier and handoff at LLAMA3_8B bf16, '
+          '32 layers: (a) prefix reuse, (b) the host tier, (c) the '
+          'prefill -> decode handoff in bf16 and int8 KV, (d) debug-size '
+          'parity card vs host')
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    # Phase 5's weights, drawn again from its seed.
+    params = llama.init_params(
+        cfg, torch.Generator(device='cuda').manual_seed(0), 'cuda')
+    torch.cuda.synchronize()
+    log(f'  LLAMA3_8B bf16 random weights (phase 5\'s seed) in '
+        f'{time.perf_counter() - t0:.1f} s')
+    for sub, run in (('14a', lambda: prefix_reuse_path(params, counters,
+                                                       paths)),
+                     ('14b', lambda: tier_path(params, counters, paths)),
+                     ('14c', lambda: [handoff_path(params, counters, paths,
+                                                   kv)
+                                      for kv in (None, 'int8')])):
+        t0 = time.perf_counter()
+        run()
+        log(f'  {sub}: {time.perf_counter() - t0:.1f} s')
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    prefix_parity()
+    log(f'  14d: {time.perf_counter() - t0:.1f} s')
     last_phase_done()
     log(f'  whole run: {time.perf_counter() - run_start:.1f} s')
     for key in ('8a', '8b', '9a', '10a', '10b', '10c', '11b', '11c'):
@@ -3613,6 +4360,9 @@ def main() -> int:
         _need(key, paths[key], [c.__name__ for c in (k1, k2, k3)])
     _need('12b-sft', paths['12b-sft'], [c.__name__ for c in (k2, k3, k5, k6)]
           + [f'{k2.__name__}[lse]'])
+    phase14 = ('14a', '14b', '14c-bf16', '14c-int8')
+    for key in phase14:
+        _need(key, paths[key], [c.__name__ for c in (k1, k3)])
     # Gemma's head_dim 256 takes K2's FMA kernel (ROADMAP B5).
     if paths['12a'][f'{k2.__name__}[tc]']:
         raise AssertionError('flash_attention took a tensor-core route at '
@@ -3623,7 +4373,8 @@ def main() -> int:
         # an SM: the split route only.
         route = [(c, 'tc') for c in (k2, k5, k6) if key != '12a']
         route += [(c, 'split') for c in (k1, k7)
-                  if key[0] in '567' or key in ('10c', '11a', '12a', '12b')]
+                  if key[0] in '567' or key in ('10c', '11a', '12a', '12b')
+                  or key in phase14]
         route += [(c, 'tc') for c in (k4v, k4f) if key[0] == '6']
         for c, r in route:
             if launches[f'{c.__name__}[{r}]'] != launches[c.__name__]:
@@ -3653,6 +4404,9 @@ def main() -> int:
         entry(decode['gemma'], k1, ('12a',)),
         entry(decode['qwen'], k1, ('12b',)),
         entry(decode['int8'], k1, ('6b',)),
+        # Phase 14's K1 launches decode slots whose tables share blocks.
+        entry(shared['bf16'], k1, ('14a', '14b', '14c-bf16')),
+        entry(shared['int8'], k1, ('14c-int8',)),
         entry(flash['flash_attention'], k2, rest),
         entry(flash['flash_attention[Gemma-7B hd256]'], k2, ('12a',)),
         entry(flash['flash_attention[Qwen2.5-1.5B G6 prefill]'], k2,
@@ -3669,7 +4423,7 @@ def main() -> int:
     ]
     # The combine runs inside every split launch of K1 and K7.
     split_paths = {k: paths[k][f'{c.__name__}[split]']
-                   for c, keys in ((k1, ('5', '6a', '6b', '11a')),
+                   for c, keys in ((k1, ('5', '6a', '6b', '11a') + phase14),
                                    (k7, ('7a', '7b', '7c'))) for k in keys}
     kernels.append(dict(decode['combine'],
                         launches=sum(split_paths.values()),

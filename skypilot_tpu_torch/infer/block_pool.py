@@ -14,9 +14,16 @@ own copy of the host logic and imports nothing of the JAX package):
   not device work; a sequence that outgrows its blocks appends ids from
   the free list to its host block table and re-uploads the table.
 
+- refcount sharing is what makes a warm prefix hit free: a trie node
+  (infer/prefix_cache.py) and a live sequence reference the SAME
+  physical blocks, so installing a cached prefix is a block-table splice
+  and a refcount bump.  A block returns to the free list only when its
+  refcount reaches 0.
+- blocks that a host-tier prefetch is filling (infer/kv_tier.py) are
+  tracked as in flight until the copy lands.
+
 An int8 arena (kv_dtype='int8') holds int8 k/v and (L, NB, BS, KV) f32
-absmax scales k_scale/v_scale.  The host tier's in-flight tracking comes
-with a later slice (ROADMAP.md Queue A item 9).
+absmax scales k_scale/v_scale.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ import torch
 
 from skypilot_tpu_torch.infer import llama_infer
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.telemetry import metrics as telemetry_metrics
 
 Cache = Dict[str, torch.Tensor]
 
@@ -89,10 +97,18 @@ class BlockPool:
         self.block_size = int(block_size)
         self.arena = init_arena(config, n_blocks, block_size,
                                 kv_dtype=kv_dtype, device=device)
+        # Bytes of one block over every component and layer (the unit of
+        # the prefix cache's and the host tier's byte budgets).
+        self.block_nbytes = sum(a.numel() * a.element_size()
+                                for a in self.arena.values()) // n_blocks
         self._free: List[int] = list(range(n_blocks - 1, 0, -1))
         self._refs = np.zeros(n_blocks, np.int32)
         self._refs[GARBAGE_BLOCK] = 1  # pinned forever
         self._reserved = 0
+        # Blocks with a host-tier prefetch copy in flight: allocated and
+        # referenced like any other block, tracked so check_invariant can
+        # assert the copy engine never works on freed ids.
+        self._inflight: set = set()
         self.hwm = 0
         self.table_appends = 0
         self.prefix_shares = 0
@@ -117,7 +133,9 @@ class BlockPool:
         """Assert the pool's conservation law: every non-garbage block is
         either free or referenced (free + live == n_blocks - 1),
         refcounts are non-negative, the free list holds no duplicates and
-        no referenced ids, and reservations never exceed the free list."""
+        no referenced ids, reservations never exceed the free list, and
+        every in-flight block (a tier copy's destination) is still
+        allocated."""
         free = set(self._free)
         if len(free) != len(self._free):
             raise AssertionError('free list contains duplicate ids')
@@ -138,6 +156,16 @@ class BlockPool:
             raise AssertionError(
                 f'reservation {self._reserved} exceeds free list '
                 f'{len(self._free)}')
+        for b in self._inflight:
+            if b == GARBAGE_BLOCK:
+                raise AssertionError('garbage block marked in-flight')
+            if self._refs[b] <= 0:
+                raise AssertionError(
+                    f'in-flight block {b} is unreferenced: the copy '
+                    f'engine would read/write a freed block')
+            if b in free:
+                raise AssertionError(
+                    f'in-flight block {b} is on the free list')
 
     # -- reservations (admission backpressure) ---------------------------
 
@@ -181,6 +209,28 @@ class BlockPool:
         self.table_appends += k
         return ids
 
+    def alloc_for_prefetch(self, k: int) -> Optional[List[int]]:
+        """Claim k blocks as host-tier prefetch destinations WITHOUT
+        touching admission reservations: draws only from available()
+        (free minus reserved), so a prefetch can never take blocks an
+        admitted request was promised; returns None instead.  The blocks
+        come back with refcount 1, marked in flight until the copy lands
+        (``clear_inflight``)."""
+        if k < 1 or k > self.available():
+            return None
+        ids = self.alloc(k)
+        self._inflight.update(ids)
+        return ids
+
+    def mark_inflight(self, ids: Sequence[int]) -> None:
+        self._inflight.update(ids)
+
+    def clear_inflight(self, ids: Sequence[int]) -> None:
+        self._inflight.difference_update(ids)
+
+    def inflight_blocks(self) -> frozenset:
+        return frozenset(self._inflight)
+
     def share(self, ids: Sequence[int], *, prefix: bool = False) -> None:
         """Bump refcounts: a second owner now references the same
         physical blocks (the prefix cache's copy-free warm hit)."""
@@ -189,8 +239,9 @@ class BlockPool:
                 raise AssertionError(
                     f'share of unreferenced block {b}')
             self._refs[b] += 1
-        if prefix:
+        if prefix and ids:
             self.prefix_shares += len(ids)
+            telemetry_metrics.INFER_POOL_PREFIX_SHARES.inc(len(ids))
 
     def release(self, ids: Sequence[int]) -> None:
         """Drop one reference per id; blocks reaching refcount 0 return
@@ -203,6 +254,11 @@ class BlockPool:
                     f'release of already-free block {b}')
             self._refs[b] -= 1
             if self._refs[b] == 0:
+                if b in self._inflight:
+                    raise AssertionError(
+                        f'last reference to in-flight block {b} '
+                        f'released: clear_inflight must precede the '
+                        f'final release')
                 self._free.append(b)
 
     def stats(self) -> Dict[str, int]:
@@ -211,6 +267,7 @@ class BlockPool:
             'blocks_live': self.live_blocks(),
             'blocks_free': len(self._free),
             'reserved': self._reserved,
+            'inflight': len(self._inflight),
             'hwm': self.hwm,
             'block_size': self.block_size,
             'table_appends': self.table_appends,

@@ -7,15 +7,19 @@ the same validation errors, ``derive_buckets``, ``derive_cache_buckets``,
 ``commit_step``, ``ChunkGraphs`` (the reference's jitted chunk programs
 as CUDA graphs) and ``Generator`` on every decode plane: the pooled
 block arena (with speculative verify) and the legacy contiguous planes
-('paged', 'inplace', 'scan', 'unroll') with their bucket migrations.
+('paged', 'inplace', 'scan', 'unroll') with their bucket migrations,
+each with the radix prefix cache (``prefix_cache_mb``: a warm hit is a
+block-table splice on the pooled plane, an install copy on a legacy
+one).  The host KV tier (``host_tier_mb``) belongs to the batcher.
 Options the port does not carry yet raise ``NotImplementedError``
-naming their ROADMAP.md item: the prefix cache (item 9), meshes and
-collective overlap (item 10).  Telemetry (item 13) is left out; a Generator keeps
-its last run's counts in ``last_stats``.
+naming their ROADMAP.md item: meshes and collective overlap (item 10).
+Telemetry (item 13) is left out; a Generator keeps its last run's counts
+in ``last_stats``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import time
 from typing import List, Optional, Sequence, Tuple
@@ -25,7 +29,8 @@ import torch
 
 from skypilot_tpu_torch.device import resolve_device
 from skypilot_tpu_torch.infer import block_pool as block_pool_lib
-from skypilot_tpu_torch.infer import llama_infer, quant, sampling
+from skypilot_tpu_torch.infer import llama_infer, prefix_cache, quant
+from skypilot_tpu_torch.infer import sampling
 from skypilot_tpu_torch.infer import spec_decode as spec_decode_lib
 from skypilot_tpu_torch.ops import _kernels
 from skypilot_tpu_torch.ops import decode_attention as decode_attention_ops
@@ -69,7 +74,9 @@ class GeneratorConfig:
     # Steps per decode chunk of the lockstep Generator (the batcher takes
     # its own decode_chunk argument).
     decode_chunk: int = 32
-    # Radix prefix KV cache budget (Queue A item 9).
+    # Radix prefix KV cache (infer/prefix_cache.py): device-byte budget
+    # of cached prompt heads, matched in prefix_block-token blocks.
+    # None/0 = off.
     prefix_cache_mb: Optional[float] = None
     prefix_block: int = 64
     # Pooled arena block size in cache rows.  None -> 64 capped at
@@ -84,7 +91,10 @@ class GeneratorConfig:
     # Collective overlap for sharded decode (Queue A item 10).
     overlap_collectives: Optional[bool] = None
     overlap_chunks: Optional[int] = None
-    # Host-DRAM KV tier (Queue A item 9).
+    # Host-DRAM KV tier (infer/kv_tier.py, ContinuousBatcher only): byte
+    # budget of pinned host rows that evicted prefix-cache blocks spill
+    # to and prefetch back from.  Needs the pooled plane and
+    # prefix_cache_mb.  None/0 = off.
     host_tier_mb: Optional[float] = None
     # Chunked-prefill piggyback: token columns of a fused step's first
     # forward (decode slots + prompt chunk).  None = dedicated windows.
@@ -177,10 +187,6 @@ class GeneratorConfig:
             if value not in (None, 'int8'):
                 raise ValueError(f"{name} must be None or 'int8', "
                                  f'got {value!r}')
-        if self.prefix_cache_mb:
-            raise _deferred(f'prefix_cache_mb={self.prefix_cache_mb}', 9)
-        if self.host_tier_mb:
-            raise _deferred(f'host_tier_mb={self.host_tier_mb}', 9)
         if self.overlap_collectives:
             raise _deferred('overlap_collectives=True', 10)
 
@@ -255,6 +261,20 @@ def derive_cache_buckets(gen_config: GeneratorConfig):
         b *= 2
     buckets.append(gen_config.max_seq_len)
     return buckets
+
+
+def default_pool_blocks(gen_config: GeneratorConfig, model_config,
+                        block_size: int, table_width: int) -> int:
+    """"Cannot exhaust" pool sizing (GeneratorConfig.pool_blocks None):
+    every slot to max_seq_len, plus the prefix cache's whole byte budget,
+    plus the garbage block."""
+    n_blocks = 1 + gen_config.batch_size * table_width
+    if gen_config.prefix_cache_mb:
+        n_blocks += int(gen_config.prefix_cache_mb * 1e6
+                        // block_pool_lib.block_nbytes(
+                            model_config, block_size,
+                            gen_config.kv_cache_dtype)) + 1
+    return n_blocks
 
 
 def cache_bucket_for(cache_buckets: Sequence[int], rows: int) -> int:
@@ -518,9 +538,8 @@ class Generator:
             self.table_width = -(-gen_config.max_seq_len // bs)
             n_blocks = gen_config.pool_blocks
             if n_blocks is None:
-                # "Cannot exhaust" sizing: every row to max_seq_len plus
-                # the garbage block.
-                n_blocks = 1 + batch * self.table_width
+                n_blocks = default_pool_blocks(gen_config, config, bs,
+                                               self.table_width)
             self.pool = block_pool_lib.BlockPool(
                 config, n_blocks, bs, kv_dtype=gen_config.kv_cache_dtype,
                 device=self.device)
@@ -555,6 +574,13 @@ class Generator:
                             f'Generator', 15)
         self.graphs = chunk_graphs(graphs if self.pooled else False,
                                    self.device, (self._rng,))
+        # Radix prefix cache (None = off): a prompt matching cached head
+        # blocks prefills only its suffix, in prefix_block windows
+        # through the start-offset path.  Pooled: the matched blocks
+        # splice into the row's table (no device copy); legacy: they are
+        # installed into the fresh slot cache.
+        self.prefix = prefix_cache.make_prefix_cache(gen_config,
+                                                     pool=self.pool)
         # Legacy-plane bucket migrations over the Generator's lifetime.
         self.migrations = {'grow': 0, 'shrink': 0}
         # Counts of the last generate(): seconds to the first token,
@@ -587,6 +613,62 @@ class Generator:
             scratch, cache, torch.as_tensor(tables_scatter,
                                             device=self.device))
         return logits
+
+    def _prefix_prefill(self, prompts, cache) -> torch.Tensor:
+        """Warm prefill: per row, put the longest-prefix-matched blocks in
+        place (pooled: a table splice; legacy: install copies into the
+        slot cache), window-prefill only the suffix in prefix_block
+        windows, and insert the prompt's head blocks into the trie.  No
+        host sync here (the caller's first-token fetch is the barrier).
+        Returns next-token logits (B, vocab) f32 (zeros on pad rows)."""
+        pc = self.prefix
+        blk = pc.block
+        dev = self.device
+        rows = []
+        for i, p in enumerate(prompts):
+            m = pc.match(p)
+            pc.commit(m)
+            if self.pooled:
+                ids = pc.splice(m)
+                self._host_tables[i, :len(ids)] = ids
+                self._row_blocks[i].extend(ids)
+                need = -(-len(p) // self.block_size)
+                if need > len(ids):
+                    fresh = self.pool.alloc(need - len(ids))
+                    self._host_tables[i, len(ids):need] = fresh
+                    self._row_blocks[i].extend(fresh)
+                self._tables_dirty = True
+                table_row = torch.as_tensor(self._host_tables[i], device=dev)
+            else:
+                pc.install(cache, i, m)
+            h_last = None
+            last_start = start = m.tokens
+            while start < len(p):
+                end = min(start + blk, len(p))
+                window = np.zeros((blk,), np.int32)
+                window[:end - start] = np.asarray(p[start:end], np.int32)
+                window_t = torch.as_tensor(window, device=dev)
+                if self.pooled:
+                    h_last, _ = llama_infer.prefill_window_pooled(
+                        self.params, window_t, self.config, cache,
+                        table_row, start)
+                else:
+                    h_last, _ = llama_infer.prefill_window(
+                        self.params, window_t, self.config, cache, i, start)
+                last_start = start
+                start = end
+            m.release()
+            rows.append(quant.matmul(
+                h_last[len(p) - 1 - last_start][None],
+                self.params['lm_head'], out_dtype=torch.float32)[0])
+            if self.pooled:
+                # The row's own blocks back the new trie nodes (shared).
+                pc.insert(p, blocks=self._row_blocks[i])
+            else:
+                pc.insert(p, functools.partial(pc.extract, cache, i))
+        rows.extend(torch.zeros_like(rows[0])
+                    for _ in range(self.gen.batch_size - len(prompts)))
+        return torch.stack(rows)
 
     def _decode_chunk_impl(self, token, cache, positions, done, limit,
                            tables, n: int):
@@ -742,24 +824,12 @@ class Generator:
         self._rng.manual_seed(seed)
 
         prefill_start = time.perf_counter()
+        tables_scatter = None
         if self.pooled:
             # Each row owns blocks covering the prompt bucket; decode
             # grows the tables, so there is no cache length to migrate.
             cache_len = self.table_width * self.block_size
             cache = self.pool.arena
-            nb = -(-bucket // self.block_size)
-            tables_scatter = np.zeros((batch, nb), np.int32)
-            try:
-                for i in range(batch):
-                    ids = self.pool.alloc(nb)
-                    self._host_tables[i, :nb] = ids
-                    self._row_blocks[i].extend(ids)
-                    tables_scatter[i] = ids
-            except block_pool_lib.PoolExhaustedError:
-                # Nothing was dispatched: return the rows claimed so far.
-                self._release_rows()
-                raise
-            self._tables_dirty = True
         else:
             # The smallest bucket covering the prefill write (bucket
             # rows) and the first decode write (max prompt len + 1).
@@ -768,8 +838,26 @@ class Generator:
             cache = llama_infer.init_cache(
                 self.config, batch, cache_len,
                 kv_dtype=self.gen.kv_cache_dtype, device=dev)
-            tables_scatter = None
-        logits = self._prefill(tokens_t, lens_t, cache, tables_scatter)
+        try:
+            if self.prefix is not None:
+                # Per-row windows, so matched head blocks are skipped and
+                # missed prompts still fill the trie.
+                logits = self._prefix_prefill(prompts, cache)
+            elif self.pooled:
+                nb = -(-bucket // self.block_size)
+                tables_scatter = np.zeros((batch, nb), np.int32)
+                for i in range(batch):
+                    ids = self.pool.alloc(nb)
+                    self._host_tables[i, :nb] = ids
+                    self._row_blocks[i].extend(ids)
+                    tables_scatter[i] = ids
+                self._tables_dirty = True
+        except block_pool_lib.PoolExhaustedError:
+            # Return the rows claimed so far.
+            self._release_rows()
+            raise
+        if self.prefix is None:
+            logits = self._prefill(tokens_t, lens_t, cache, tables_scatter)
         token = self._sample(logits)
         # The host fetch is the barrier that makes this a real time to
         # the first token.
@@ -799,8 +887,14 @@ class Generator:
                        for i in range(len(prompts)))
 
         if self._drafter is not None:
+            # Each row's n-gram table starts from its prompt and the
+            # trie's cached continuation of it (tokens another request
+            # already decoded after the shared head).
             for i, p in enumerate(prompts):
-                self._drafter.reset(i, p)
+                cont = (self.prefix.cached_continuation(
+                    p, self.gen.max_seq_len)
+                    if self.prefix is not None else ())
+                self._drafter.reset(i, p, cont)
                 self._drafter.observe(i, [int(first_host[i])])
 
         # Device rows: done rows freeze inside a chunk (pad rows start

@@ -35,6 +35,18 @@ Counterpart of the core of skypilot_tpu/infer/serving.py
   live contexts fit a smaller bucket and no chunked prefill is parked at
   its last row; each migration is one copy of the cache.  They have no
   speculation and no fused steps.
+- Radix prefix cache (``prefix_cache_mb``, infer/prefix_cache.py):
+  admission longest-prefix-matches each prompt; a hit splices the
+  matched arena blocks into the slot's table (pooled: zero device
+  copies; a legacy plane installs them into the slot cache) and prefills
+  only the suffix.  A prompt's head joins the trie after its prefill.
+- Host KV tier (``host_tier_mb``, infer/kv_tier.py, pooled only):
+  evicted trie nodes spill to pinned host rows; a prompt whose head
+  continues in the host tier parks while a prefetch brings the blocks
+  back, then takes the warm-hit splice.  ``prefetch_hint``,
+  ``tier_flush``, ``export_session``/``drain_sessions`` (failover) and
+  ``export_handoff``/``ingest_handoff`` (prefill -> decode handoff,
+  serve/disagg.py frames the bytes) ride on it.
 
 Where the JAX package jitted each piece and donated the arena, this
 module updates the arena and the per-slot device rows in place, in
@@ -44,9 +56,11 @@ captured once per static key as a CUDA graph and replayed
 CPU): the plain decode chunk per (n, all_greedy, nucleus), led by the
 cache length on a legacy plane, the verify step per (all_greedy,
 nucleus), and a fused chunk's steps 1..n-1 as the plain chunk of n - 1
-(its step 0, which carries the prompt chunk, stays eager).  Left for
-later slices (ROADMAP.md Queue A): telemetry, spans
-and the cost ledger (item 13), the prefix cache and host tier (item 9),
+(its step 0, which carries the prompt chunk, stays eager).  The arena,
+the slot cache and the tables are written in place, never rebound, by
+every path (prefix installs, tier scatters and handoff ingests too), so
+a captured graph never reads stale memory.  Left for later slices
+(ROADMAP.md Queue A): telemetry, spans and the cost ledger (item 13),
 and meshes (item 10).
 
 Usage:
@@ -59,10 +73,13 @@ Usage:
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import functools
 import itertools
+import logging
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -71,10 +88,15 @@ from skypilot_tpu_torch.device import resolve_device
 from skypilot_tpu_torch.infer import block_pool as block_pool_lib
 from skypilot_tpu_torch.infer import engine as engine_lib
 from skypilot_tpu_torch.infer import fuse as fuse_lib
-from skypilot_tpu_torch.infer import llama_infer, quant, sampling
+from skypilot_tpu_torch.infer import kv_tier as kv_tier_lib
+from skypilot_tpu_torch.infer import llama_infer, prefix_cache, quant
+from skypilot_tpu_torch.infer import sampling
 from skypilot_tpu_torch.infer import spec_decode as spec_decode_lib
 from skypilot_tpu_torch.infer.engine import GeneratorConfig
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.telemetry import metrics as telemetry_metrics
+
+logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass
@@ -140,9 +162,8 @@ class ContinuousBatcher:
             self.table_width = -(-gen_config.max_seq_len // bs)
             n_blocks = gen_config.pool_blocks
             if n_blocks is None:
-                # "Cannot exhaust" sizing: every slot to max_seq_len,
-                # plus the garbage block.
-                n_blocks = 1 + batch * self.table_width
+                n_blocks = engine_lib.default_pool_blocks(
+                    gen_config, config, bs, self.table_width)
             self.pool = block_pool_lib.BlockPool(
                 config, n_blocks, bs, kv_dtype=gen_config.kv_cache_dtype,
                 device=self.device)
@@ -217,6 +238,21 @@ class ContinuousBatcher:
                                       dtype=torch.int32, device=dev)
         self.spec_proposed = 0
         self.spec_accepted = 0
+        # Radix prefix cache (None = off; block-id mode on the pooled
+        # plane) and the host KV tier behind it (None = off: no host
+        # buffers, no copy thread).  Requests parked on a prefetch wait in
+        # _tier_parked with the trie nodes they wait for; routing hints
+        # queue in _tier_hints (bounded: overflow drops the oldest).
+        self._prefix = prefix_cache.make_prefix_cache(gen_config,
+                                                      pool=self.pool)
+        self._tier = None
+        self._tier_parked: List[Any] = []
+        self._tier_hints: collections.deque = collections.deque(maxlen=256)
+        if self.pooled and self._prefix is not None:
+            self._tier = kv_tier_lib.make_kv_tier(gen_config, self.pool)
+            if self._tier is not None:
+                self._tier.prefix = self._prefix
+                self._prefix.tier = self._tier
         # Chunked-prefill piggyback: chunk sizing and fuse counters.
         self._fuse_policy = None
         if gen_config.fuse_budget:
@@ -311,6 +347,13 @@ class ContinuousBatcher:
             self._queue.remove(req)
             del self._requests[rid]
             return out
+        for i, (parked, _nodes) in enumerate(self._tier_parked):
+            if parked is req:
+                # Parked on a prefetch: the request just leaves; the copy
+                # completes anyway and warms the trie.
+                del self._tier_parked[i]
+                del self._requests[rid]
+                return out
         if self._incremental is req:
             self._incremental = None
             req.prefill_pos = 0
@@ -323,15 +366,71 @@ class ContinuousBatcher:
         del self._requests[rid]
         return out
 
+    def export_session(self, rid: int) -> Dict[str, Any]:
+        """Everything needed to resume this request on another replica:
+        re-submit ``prompt + out`` with ``max_new_tokens - len(out)`` and
+        greedy decode continues at the first token this replica never
+        produced.  The tier state is folded in: a request parked on a
+        prefetch (or whose prefix is mid-spill) first settles the copy
+        engine, so the ``tier`` block reports the final device/host
+        coverage; a copy fault unwinds inside this barrier (logged)
+        instead of aborting ``drain_sessions`` halfway."""
+        req = self._requests[rid]
+        spec = {
+            'prompt': list(req.prompt),
+            'out': list(req.out),
+            'max_new_tokens': req.max_new_tokens,
+            'temperature': req.temperature,
+            'top_p': req.top_p,
+            'done': req.done,
+        }
+        if self._tier is not None and not req.done:
+            if self._tier.in_flight() or self._tier_hints:
+                try:
+                    self.tier_flush()
+                except Exception as e:  # noqa: BLE001 — export must survive copy faults
+                    # The failed copy already unwound; the spec below
+                    # reflects the state after the unwind.
+                    logger.warning(f'export_session: tier fault settled '
+                                   f'during the export barrier: {e!r}')
+            parked = any(p is req for p, _ in self._tier_parked)
+            m = self._prefix.match(req.prompt)
+            try:
+                host = self._tier.host_continuation(req.prompt, m.tokens)
+                spec['tier'] = {
+                    'parked': parked,
+                    'device_tokens': m.tokens,
+                    'host_tokens': len(host) * self._tier.tokens_per_node,
+                }
+            finally:
+                m.release()
+        return spec
+
+    def drain_sessions(self) -> List[Dict[str, Any]]:
+        """Preemption-notice handoff: between decode chunks, export then
+        cancel every in-flight request; returns the session specs (with
+        'rid') in submission order.  The batcher is left idle with every
+        pool block released."""
+        specs = []
+        for rid in sorted(self._requests):
+            if self._requests[rid].done:
+                continue
+            spec = self.export_session(rid)
+            spec['rid'] = rid
+            self.cancel(rid)
+            specs.append(spec)
+        return specs
+
     @property
     def num_active(self) -> int:
         return len(self._active)
 
     @property
     def num_queued(self) -> int:
-        # The in-flight chunked prefill counts as queued: it is not
-        # decoding yet.
-        return len(self._queue) + (1 if self._incremental else 0)
+        # The in-flight chunked prefill and the requests parked on a
+        # prefetch count as queued: they are not decoding yet.
+        return (len(self._queue) + (1 if self._incremental else 0)
+                + len(self._tier_parked))
 
     def _bucket_for(self, length: int) -> int:
         for b in self.buckets:
@@ -359,6 +458,173 @@ class ContinuousBatcher:
         if target > self._cache_len:
             self._migrate(target)
 
+    # ---- host KV tier (infer/kv_tier.py) ---------------------------------
+    def prefetch_hint(self, prompt: Sequence[int]) -> bool:
+        """Best-effort routing hint, ahead of the request itself: the
+        prompt is queued (any thread may call this) and the scheduler
+        thread issues the prefetch of its host-resident head at its next
+        tick, so the copy overlaps the request's network and queue time.
+        True when queued; always False without a tier."""
+        if self._tier is None or not prompt:
+            return False
+        self._tier_hints.append([int(t) for t in prompt])
+        return True
+
+    def tier_flush(self) -> None:
+        """Tier barrier: wait for every in-flight copy, then apply the
+        completions.  A drain can issue new copies (hinted prefetches),
+        so it loops until none is outstanding."""
+        if self._tier is None:
+            return
+        while True:
+            self._tier.wait_pending()
+            self._drain_tier()
+            if not self._tier.in_flight():
+                self._tier.flush()
+                return
+
+    def close(self) -> None:
+        """Stop background resources (the tier's copy thread, joined).
+        Idempotent; host-side state stays readable."""
+        if self._tier is not None:
+            self._tier.close()
+
+    def _drain_tier(self) -> None:
+        """Scheduler-thread tier tick: issue hinted prefetches, apply
+        completed copies (the scatter writes the arena in place), and
+        requeue parked requests whose blocks landed (front of the queue:
+        they re-match as device hits and splice) or whose prefetch
+        failed (they prefill cold)."""
+        while self._tier_hints:
+            try:
+                prompt = self._tier_hints.popleft()
+            except IndexError:
+                break
+            m = self._prefix.match(prompt)
+            try:
+                if not self._prefix.pending_continuation(prompt, m.tokens):
+                    self._issue_prefetch(prompt, m)
+            finally:
+                m.release()
+        self._tier.drain()
+        if not self._tier_parked:
+            return
+        ready: List[_Request] = []
+        still = []
+        for req, nodes in self._tier_parked:
+            if all(n.tier == 'device' for n in nodes) or \
+                    any(n.tier == 'failed' for n in nodes):
+                ready.append(req)
+            else:
+                still.append((req, nodes))
+        if ready:
+            self._queue[:0] = ready
+            self._tier_parked = still
+
+    def _issue_prefetch(self, prompt: Sequence[int], match):
+        """Start a host -> device prefetch of the host-resident chain
+        extending ``match``; returns the created 'loading' trie nodes, or
+        None when there is nothing to fetch or no capacity (engine busy,
+        no surplus pool blocks)."""
+        if not self._tier.can_accept():
+            return None
+        entries = self._tier.host_continuation(prompt, match.tokens)
+        if not entries:
+            return None
+        ids = self.pool.alloc_for_prefetch(
+            len(entries) * self._prefix._ids_per_node)
+        if ids is None:
+            return None
+        nodes = self._prefix.insert_pending(
+            prompt, match.tokens // self._prefix.block, ids)
+        self._tier.start_prefetch(entries, ids, nodes)
+        return nodes
+
+    def _tier_try_park(self, idx: int, head: _Request, match) -> bool:
+        """Admission's tier consult: when the prompt continues in the
+        host tier (or a hinted prefetch of it is in flight), pop the
+        request and PARK it until the blocks land, so the copy overlaps
+        the other slots' decode.  False: no host continuation; the
+        ordinary admission routes proceed."""
+        nodes = self._prefix.pending_continuation(head.prompt, match.tokens)
+        if not nodes:
+            nodes = self._issue_prefetch(head.prompt, match)
+        if not nodes:
+            return False
+        match.release()
+        req = self._queue.pop(idx)
+        self._tier_parked.append((req, list(nodes)))
+        self._tier.record_lookup('host_hit')
+        # The request reached admission before its blocks did: this
+        # prefetch is LATE (a hint that lands in time makes the lookup a
+        # plain device hit).
+        self._tier.prefetch_late += 1
+        telemetry_metrics.INFER_TIER_PREFETCH_LATE.inc()
+        return True
+
+    # ---- disaggregated prefill/decode handoff (serve/disagg.py) ----------
+    def export_handoff(self, prompt: Sequence[int], *,
+                       release: bool = True) -> Optional[Dict[str, Any]]:
+        """Prefill side of a handoff: the prompt's device-resident prefix
+        blocks as host tensors, one dict of components a trie node, (L,
+        ids_per_node, BS, KV, hd) each (serve/disagg.py frames them),
+        fetched with ONE counted host sync for the whole image.
+        ``release=True`` then drops the exported nodes WITHOUT spilling
+        (``PrefixCache.forget``): the bytes now live on the decode
+        replica.  Returns {'tokens': covered, 'payload': [...]}, or None
+        when the prompt has no whole-node device prefix to ship."""
+        if self._tier is None or self._prefix is None:
+            return None
+        toks = [int(t) for t in prompt]
+        m = self._prefix.match(toks)
+        try:
+            if not m.tokens or any(n.tier != 'device' for n in m.nodes):
+                return None
+            comps = sorted(self.pool.arena)
+            gathered = [self._tier.export_gather(n.data) for n in m.nodes]
+            # bf16 crosses as its bits (numpy has no bfloat16).
+            flat = engine_lib.host_fetch(*[
+                g[c].view(torch.int16) if g[c].dtype == torch.bfloat16
+                else g[c] for g in gathered for c in comps])
+            payload: List[Dict[str, Any]] = []
+            for i, g in enumerate(gathered):
+                payload.append({
+                    c: (torch.from_numpy(flat[i * len(comps) + j]).view(
+                        g[c].dtype)) for j, c in enumerate(comps)})
+            covered = m.tokens
+        finally:
+            m.release()
+        if release:
+            self._prefix.forget(toks[:covered], spill=False)
+        return {'tokens': covered, 'payload': payload}
+
+    def ingest_handoff(self, prompt: Sequence[int],
+                       payload: Sequence[Dict[str, Any]]) -> int:
+        """Decode side of a handoff: adopt each node's bytes into the
+        host tier (``KVTier.adopt_node``, no device work here), then
+        queue a prefetch hint, so the ordinary tier machinery stages the
+        blocks and the request's admission takes the warm splice.
+        Returns the node count adopted (already-resident nodes count; a
+        full host tier ends the chain, and the suffix recomputes)."""
+        if self._tier is None:
+            return 0
+        toks = [int(t) for t in prompt]
+        span = self._prefix.block
+        adopted = 0
+        for i, bufs in enumerate(payload):
+            key = tuple(toks[:(i + 1) * span])
+            if len(key) < (i + 1) * span:
+                break
+            if self._tier.has_entry(key):
+                adopted += 1
+                continue
+            if not self._tier.adopt_node(key, bufs):
+                break
+            adopted += 1
+        if adopted:
+            self.prefetch_hint(toks)
+        return adopted
+
     # ---- pool helpers ----------------------------------------------------
     def _pool_cap(self, req: _Request) -> int:
         """Worst-case blocks the request can ever reference: prompt plus
@@ -372,23 +638,34 @@ class ContinuousBatcher:
         return min(-(-total // self.block_size), self.table_width)
 
     # Each _pool_* helper is a no-op off the pooled plane (no arena).
-    def _pool_reserve(self, req: _Request) -> bool:
+    def _pool_reserve(self, req: _Request, shared: int = 0) -> bool:
         """Claim the request's worst-case block need before it leaves the
-        queue; failure is admission backpressure."""
-        return not self.pooled or self.pool.reserve(self._pool_cap(req))
+        queue, minus the `shared` blocks a prefix hit brings for free;
+        failure is admission backpressure (the prefix cache is pressed
+        to evict unreferenced nodes first)."""
+        if not self.pooled:
+            return True
+        need = self._pool_cap(req) - shared
+        if need > self.pool.available() and self._prefix is not None:
+            self._prefix.evict_for_pool(need)
+        return self.pool.reserve(need)
 
-    def _pool_bind_slot(self, req: _Request) -> None:
-        """Give an admitted request's slot its prompt blocks, drawn from
-        its admission reservation."""
+    def _pool_bind_slot(self, req: _Request,
+                        shared_ids: Sequence[int] = ()) -> None:
+        """Give an admitted request's slot its prompt blocks: the prefix's
+        shared head ids first (already refcount-bumped by splice), then
+        fresh blocks drawn from its admission reservation."""
         if not self.pooled:
             return
         slot = req.slot
         cap = self._pool_cap(req)
         nb_prompt = min(-(-len(req.prompt) // self.block_size),
                         self.table_width)
-        fresh = self.pool.alloc(nb_prompt, from_reservation=True)
-        self._host_tables[slot, :nb_prompt] = fresh
-        self._slot_blocks[slot] = list(fresh)
+        shared = len(shared_ids)
+        self._host_tables[slot, :shared] = shared_ids
+        fresh = self.pool.alloc(nb_prompt - shared, from_reservation=True)
+        self._host_tables[slot, shared:nb_prompt] = fresh
+        self._slot_blocks[slot] = list(shared_ids) + list(fresh)
         self._slot_cap[slot] = cap
         self._slot_reserved[slot] = cap - nb_prompt
         self._tables_dirty = True
@@ -619,10 +896,14 @@ class ContinuousBatcher:
         req.ttft_s = time.perf_counter() - req.submitted_at
 
     def _reset_drafter(self, req: _Request) -> None:
-        """Seed the slot's drafter with the prompt and the first token
-        (the prefix-cache continuation comes with the prefix cache)."""
+        """Seed the slot's drafter with the prompt, the trie's cached
+        continuation of it (tokens another request already decoded after
+        the shared head), and the first token."""
         if self._drafter is not None:
-            self._drafter.reset(req.slot, req.prompt)
+            cont = (self._prefix.cached_continuation(
+                req.prompt, self.gen.max_seq_len)
+                if self._prefix is not None else ())
+            self._drafter.reset(req.slot, req.prompt, cont)
             self._drafter.observe(req.slot, req.out[-1:])
 
     def _sampling_mode(self):
@@ -667,17 +948,32 @@ class ContinuousBatcher:
         _admit_group same-bucket requests prefill in ONE forward.
         Scanning is by index, so while one long chunked prefill is in
         flight, shorter requests behind it still admit into the other
-        free slots."""
+        free slots.  With the prefix cache, each candidate is matched
+        first: a hit splices (or installs) the cached head and prefills
+        only the suffix (_admit_prefix_hit), and a long prompt whose
+        unmatched suffix fits prefill_chunk takes that route instead of
+        the one chunked lane; with the host tier, a prompt whose head
+        continues in host memory parks on a prefetch."""
         eos = self.gen.eos_token
         chunk_w = self.gen.prefill_chunk
         idx = 0
         while self._free and idx < len(self._queue):
             head = self._queue[idx]
-            if chunk_w and len(head.prompt) > chunk_w:
+            match = (self._prefix.match(head.prompt)
+                     if self._prefix is not None else None)
+            if self._tier is not None and \
+                    self._tier_try_park(idx, head, match):
+                continue   # parked (match released); idx is the next one
+            suffix = len(head.prompt) - (match.tokens if match else 0)
+            if chunk_w and suffix > chunk_w:
+                shared = (match.tokens // self.block_size
+                          if self.pooled and match is not None else 0)
                 if self._incremental is not None or \
-                        not self._pool_reserve(head):
+                        not self._pool_reserve(head, shared):
                     # One long prefill in flight, or pool backpressure:
                     # keep the queue position, scan on.
+                    if match is not None:
+                        match.release()
                     idx += 1
                     continue
                 request = self._queue.pop(idx)
@@ -688,7 +984,23 @@ class ContinuousBatcher:
                 # len(prompt).  (The cache does not shrink while this
                 # prefill is in flight: see _decode_chunk.)
                 self._grow_for(len(request.prompt) + 1)
-                self._pool_bind_slot(request)
+                ids: List[int] = []
+                if match is not None:
+                    self._prefix.commit(match)
+                    if self._tier is not None:
+                        self._tier.record_lookup(
+                            'device_hit' if match.hit else 'miss')
+                    if match.hit:
+                        # The matched head is in place before the first
+                        # window: spliced (pooled) or installed (legacy).
+                        if self.pooled:
+                            ids = self._prefix.splice(match)
+                        else:
+                            self._prefix.install(self._cache, request.slot,
+                                                 match)
+                        request.prefill_pos = match.tokens
+                    match.release()
+                self._pool_bind_slot(request, ids)
                 # Park the slot's frozen position at the last cache row:
                 # the lockstep decode still rewrites a frozen slot's
                 # CURRENT row, and row 0 would clobber the rows this
@@ -698,6 +1010,22 @@ class ContinuousBatcher:
                 self._positions[request.slot] = park
                 self._host_pos[request.slot] = park
                 continue
+            if match is not None and match.hit:
+                if not self._pool_reserve(
+                        head, match.tokens // self.block_size
+                        if self.pooled else 0):
+                    match.release()
+                    idx += 1
+                    continue
+                if self._tier is not None:
+                    self._tier.record_lookup('device_hit')
+                self._admit_prefix_hit(self._queue.pop(idx), match)
+                continue
+            if match is not None:
+                self._prefix.commit(match)    # a counted miss
+                match.release()
+                if self._tier is not None:
+                    self._tier.record_lookup('miss')
             if not self._pool_reserve(head):
                 idx += 1
                 continue
@@ -710,6 +1038,14 @@ class ContinuousBatcher:
                 if self._bucket_for(len(cand.prompt)) != bucket or \
                         (chunk_w and len(cand.prompt) > chunk_w):
                     break
+                if self._prefix is not None:
+                    # A hit ends the group: the outer loop takes it next.
+                    m = self._prefix.match(cand.prompt)
+                    if m.hit:
+                        m.release()
+                        break
+                    self._prefix.commit(m)
+                    m.release()
                 if not self._pool_reserve(cand):
                     break
                 cand = self._queue.pop(idx)
@@ -760,6 +1096,10 @@ class ContinuousBatcher:
                     request.slot = None
                     self._queue.insert(idx, request)
                 raise
+            # The freshly prefilled heads join the trie for the next
+            # request sharing them.
+            for req in group:
+                self._prefix_insert(req)
             # ONE counted sync for the whole admitted group.
             (firsts,) = engine_lib.host_fetch(firsts)
             for i, req in enumerate(group):
@@ -771,6 +1111,84 @@ class ContinuousBatcher:
                     self._finish(req)
                 else:
                     self._active[req.slot] = req
+
+    def _prefix_insert(self, req: _Request) -> None:
+        """Insert a freshly prefilled prompt's head blocks into the trie:
+        pooled, new nodes SHARE the slot's own blocks (refcount bumps);
+        legacy, blocks not cached yet are copied out of the slot rows.
+        No-op without a prefix cache."""
+        if self._prefix is None:
+            return
+        if self.pooled:
+            self._prefix.insert(req.prompt,
+                                blocks=self._slot_blocks[req.slot])
+        else:
+            self._prefix.insert(req.prompt, functools.partial(
+                self._prefix.extract, self._cache, req.slot))
+
+    def _admit_prefix_hit(self, req: _Request,
+                          match: prefix_cache.PrefixMatch) -> None:
+        """Admit one prefix-HIT request: the matched head splices into
+        the slot's table (pooled: zero device copies) or installs into
+        its cache rows (legacy), only the suffix prefills, in
+        prefill_chunk windows (prefix_block without chunking), and the
+        first token's fetch is the one host sync, as on every admission
+        route."""
+        req.slot = self._free.pop(0)
+        self._prefix.commit(match)
+        prompt = req.prompt
+        # The head and the suffix windows write rows 0..len(prompt)-1 and
+        # the first decode write lands at len(prompt).
+        self._grow_for(len(prompt) + 1)
+        w = self.gen.prefill_chunk or self._prefix.block
+        start = match.tokens
+        dev = self.device
+        try:
+            if self.pooled:
+                try:
+                    ids = self._prefix.splice(match)
+                finally:
+                    match.release()
+                self._pool_bind_slot(req, ids)
+                table_row = torch.as_tensor(self._host_tables[req.slot],
+                                            device=dev)
+            else:
+                try:
+                    self._prefix.install(self._cache, req.slot, match)
+                finally:
+                    match.release()
+            h_last = None
+            last_start = start
+            while start < len(prompt):
+                end = min(start + w, len(prompt))
+                window = np.zeros((w,), np.int32)
+                window[:end - start] = prompt[start:end]
+                window_t = torch.as_tensor(window, device=dev)
+                if self.pooled:
+                    h_last, _ = llama_infer.prefill_window_pooled(
+                        self.params, window_t, self.config, self._cache,
+                        table_row, start)
+                else:
+                    h_last, _ = llama_infer.prefill_window(
+                        self.params, window_t, self.config, self._cache,
+                        req.slot, start)
+                last_start = start
+                start = end
+            if self.pooled:
+                # Share into the trie BEFORE completion: a 1-token budget
+                # finishes inside _complete_prefill, whose _finish drops
+                # the slot's references.
+                self._prefix_insert(req)
+            self._complete_prefill(req, h_last, last_start)
+        except Exception:
+            # Reclaim the slot and re-queue before surfacing the error.
+            self._pool_free_slot(req.slot)
+            self._free.insert(0, req.slot)
+            req.slot = None
+            self._queue.insert(0, req)
+            raise
+        if not self.pooled:
+            self._prefix_insert(req)
 
     def _complete_prefill(self, req: _Request, h_last: torch.Tensor,
                           last_start: int) -> None:
@@ -857,11 +1275,18 @@ class ContinuousBatcher:
             req.prefill_pos = end
             if end < len(req.prompt):
                 return
+            if self.pooled:
+                # Insert BEFORE completion: a 1-token budget finishes
+                # inside _complete_prefill and _finish drops the slot's
+                # references; the trie's own keep the prompt cached.
+                self._prefix_insert(req)
             self._complete_prefill(req, h_last, start)
         except Exception:
             self._requeue_incremental(req)
             raise
         self._incremental = None
+        if not self.pooled:
+            self._prefix_insert(req)
 
     def _decode_chunk(self, n: int, prefill_lane=None):
         """One n-step decode chunk over all active slots and its ONE
@@ -928,6 +1353,7 @@ class ContinuousBatcher:
         if end < len(req.prompt):
             return
         try:
+            self._prefix_insert(req)
             self._complete_prefill(req, h_pf, start)
         except Exception:
             self._requeue_incremental(req)
@@ -975,8 +1401,21 @@ class ContinuousBatcher:
         in-flight chunked prefill by one window (or piggyback it on the
         decode chunk when fusing is on), then one decode chunk for all
         active slots: a verify chunk when speculation is on and the
-        policy agrees, else n lockstep steps."""
+        policy agrees, else n lockstep steps.  With the host tier, the
+        completed copies apply (and hinted prefetches issue) before
+        admission, so blocks that landed serve this tick's requests as
+        device hits."""
+        if self._tier is not None:
+            self._drain_tier()
         self._admit()
+        if self._tier is not None and self._tier_parked and \
+                not self._active and self._incremental is None:
+            # The tick's only work left is in-flight prefetches: wait for
+            # the copy engine (the parked-admission stall), so
+            # run_until_idle makes progress instead of spinning.
+            self._tier.wait_pending()
+            self._drain_tier()
+            self._admit()
         # Fuse gate: a chunked prefill in flight AND a decode batch to
         # ride on.  Fused ticks do not speculate: while a cold prompt is
         # in flight TTFT is the binding metric, and a verify window
@@ -1007,7 +1446,7 @@ class ContinuousBatcher:
     def run_until_idle(self, max_ticks: int = 10_000) -> None:
         for _ in range(max_ticks):
             if not self._queue and not self._active and \
-                    self._incremental is None:
+                    self._incremental is None and not self._tier_parked:
                 return
             self.step()
         raise RuntimeError('run_until_idle exceeded max_ticks')

@@ -1,6 +1,8 @@
-"""The metric families that the Trainer and the checkpoint manager update.
+"""The metric families that the Trainer, the checkpoint manager, the
+prefix cache, the block pool and the host KV tier update.
 
-Counterpart of the ``TRAIN_*`` and ``CKPT_*`` families of
+Counterpart of the ``TRAIN_*``, ``CKPT_*``, ``INFER_PREFIX_*``,
+``INFER_POOL_PREFIX_SHARES`` and ``INFER_TIER_*`` families of
 skypilot_tpu/telemetry/metrics.py, with the same family names, labels and
 buckets.  They live on the port's own prometheus registry, ``REGISTRY``
 (read a sample with ``REGISTRY.get_sample_value(name, labels)``); the
@@ -112,3 +114,97 @@ CKPT_RESHARD_SHARDS_SKIPPED = prometheus_client.Counter(
     'skytpu_ckpt_reshard_shards_skipped_total',
     'Shard files skipped by resharded restores because they do not '
     'overlap this process window', registry=REGISTRY)
+
+# ---- infer prefix cache (infer/prefix_cache.py) ------------------------
+
+INFER_PREFIX_HITS = prometheus_client.Counter(
+    'skytpu_infer_prefix_hits_total',
+    'Admissions whose prompt longest-prefix-matched >=1 cached block '
+    'in the radix prefix KV cache (prefill skipped the matched head)',
+    registry=REGISTRY)
+
+INFER_PREFIX_MISSES = prometheus_client.Counter(
+    'skytpu_infer_prefix_misses_total',
+    'Admissions with the prefix cache enabled that matched no cached '
+    'block (full prefill from token 0)',
+    registry=REGISTRY)
+
+INFER_PREFIX_TOKENS_SAVED = prometheus_client.Counter(
+    'skytpu_infer_prefix_tokens_saved_total',
+    'Prompt tokens whose prefill compute was skipped because their K/V '
+    'was installed from the prefix cache instead',
+    registry=REGISTRY)
+
+INFER_PREFIX_EVICTIONS = prometheus_client.Counter(
+    'skytpu_infer_prefix_evictions_total',
+    'Prefix-cache blocks evicted by the byte-budget LRU '
+    '(prefix_cache_mb); ref-counted in-use blocks are never evicted',
+    registry=REGISTRY)
+
+INFER_PREFIX_BYTES = prometheus_client.Gauge(
+    'skytpu_infer_prefix_bytes',
+    'Device bytes currently pinned by prefix-cache K/V blocks',
+    registry=REGISTRY)
+
+# ---- infer block pool (infer/block_pool.py) ----------------------------
+
+INFER_POOL_PREFIX_SHARES = prometheus_client.Counter(
+    'skytpu_infer_pool_prefix_block_shares_total',
+    'Refcount shares of arena blocks between prefix-cache nodes and '
+    'live sequences (each share replaces an install/extract device '
+    'copy of one block)',
+    registry=REGISTRY)
+
+# ---- infer host KV tier (infer/kv_tier.py) -----------------------------
+
+INFER_TIER_BLOCKS = prometheus_client.Gauge(
+    'skytpu_infer_tier_blocks',
+    'KV blocks per residency tier: device = arena blocks pinned by the '
+    'prefix cache, host = DRAM-resident spilled blocks, inflight = '
+    'blocks with a spill or prefetch copy outstanding',
+    ['tier'],
+    registry=REGISTRY)
+
+INFER_TIER_SPILL_BYTES = prometheus_client.Counter(
+    'skytpu_infer_tier_spill_bytes_total',
+    'KV bytes copied device -> host DRAM by the async spill engine '
+    '(evicted prefix-cache blocks that stay warm instead of being '
+    'freed-and-forgotten)',
+    registry=REGISTRY)
+
+INFER_TIER_SPILL_SECONDS = prometheus_client.Counter(
+    'skytpu_infer_tier_spill_seconds_total',
+    'Seconds the spill copies took (on a card: the side stream\'s '
+    'device-to-host copies, timed with CUDA events); '
+    'rate(bytes)/rate(seconds) is the achieved spill bandwidth',
+    registry=REGISTRY)
+
+INFER_TIER_PREFETCH_BYTES = prometheus_client.Counter(
+    'skytpu_infer_tier_prefetch_bytes_total',
+    'KV bytes staged host DRAM -> device by the prefetch engine '
+    '(host-resident prefixes pulled back into arena blocks ahead of '
+    'admission)',
+    registry=REGISTRY)
+
+INFER_TIER_PREFETCH_SECONDS = prometheus_client.Counter(
+    'skytpu_infer_tier_prefetch_seconds_total',
+    'Seconds the prefetch copies took (the copy thread\'s staging '
+    'copy plus, on a card, the host-to-device copy timed with CUDA '
+    'events); rate(bytes)/rate(seconds) is the achieved prefetch '
+    'bandwidth',
+    registry=REGISTRY)
+
+INFER_TIER_LOOKUPS = prometheus_client.Counter(
+    'skytpu_infer_tier_lookups_total',
+    'Admission tier consults by outcome: device_hit (served from the '
+    'device-resident trie), host_hit (host-resident prefix — request '
+    'parks on a prefetch), miss (cold prefill)',
+    ['outcome'],
+    registry=REGISTRY)
+
+INFER_TIER_PREFETCH_LATE = prometheus_client.Counter(
+    'skytpu_infer_tier_prefetch_late_total',
+    'Requests that parked at admission because their prefetch had not '
+    'landed yet — a high rate means routing hints fire too late (or '
+    'not at all) relative to request arrival',
+    registry=REGISTRY)

@@ -84,6 +84,10 @@ def test_scan_covers_the_training_modules():
             'skypilot_tpu_torch/models/convert.py',
             'skypilot_tpu_torch/models/resnet.py',
             'skypilot_tpu_torch/train/train_resnet.py',
+            'skypilot_tpu_torch/infer/prefix_cache.py',
+            'skypilot_tpu_torch/infer/kv_tier.py',
+            'skypilot_tpu_torch/serve/__init__.py',
+            'skypilot_tpu_torch/serve/disagg.py',
             'scripts/torch_profile_train.py'} <= scanned
 
 

@@ -6,7 +6,10 @@ What must hold:
 - GeneratorConfig raises the JAX config's validation errors, and
   NotImplementedError naming the ROADMAP.md item for deferred options
   (int8, spec_k and fuse_budget are carried: tests/test_torch_int8.py,
-  tests/test_torch_spec_fused.py);
+  tests/test_torch_spec_fused.py); the prefix cache and host tier build
+  where the JAX package builds them (their behaviour:
+  tests/test_torch_prefix_cache.py, test_torch_kv_tier.py,
+  test_torch_disagg.py);
 - on a mixed-length workload (one chunked prompt, more requests than
   slots) the port's ContinuousBatcher gives the JAX batcher's greedy
   tokens exactly, at LLAMA_DEBUG in f32, with the pool invariant after
@@ -23,6 +26,7 @@ import subprocess
 import sys
 import urllib.error
 import urllib.request
+import warnings
 
 import numpy as np
 import pytest
@@ -153,17 +157,58 @@ def test_generator_config_validation_matches_jax(kwargs, match):
 
 
 @pytest.mark.parametrize('kwargs,item', [
-    (dict(prefix_cache_mb=1.0), 9),
-    (dict(prefix_cache_mb=1.0, host_tier_mb=1.0), 9),
     (dict(overlap_collectives=True), 10),
-    (dict(decode_impl='paged', prefix_cache_mb=1.0), 9),
-    (dict(decode_impl='inplace', prefix_cache_mb=1.0), 9),
 ])
 def test_deferred_options_name_their_roadmap_item(kwargs, item):
     j_engine.GeneratorConfig(**kwargs)       # valid for the JAX package
     with pytest.raises(NotImplementedError,
                        match=f'ROADMAP.md Queue A item {item}$'):
         GeneratorConfig(**kwargs)
+
+
+@pytest.mark.parametrize('kwargs', [
+    dict(prefix_cache_mb=1.0),
+    dict(prefix_cache_mb=1.0, host_tier_mb=1.0),
+    dict(decode_impl='paged', prefix_cache_mb=1.0),
+    dict(decode_impl='inplace', prefix_cache_mb=1.0),
+], ids=['pooled', 'tier', 'paged', 'inplace'])
+def test_prefix_and_tier_options_build_like_jax(kwargs):
+    """The prefix cache and the host tier (ROADMAP.md Queue A item 9)
+    build wherever the JAX package builds them: the same pool size,
+    prefix block and budget, ids and bytes a node, and (tier) host rows;
+    the Generator carries the same prefix cache."""
+    jp = j_llama.init_params(j_llama.LLAMA_DEBUG, jax.random.PRNGKey(0))
+    tp = llama.params_from_numpy(
+        jax.tree.map(lambda x: np.asarray(x, np.float32), jp),
+        llama.LLAMA_DEBUG, 'cpu')
+    kw = dict(max_seq_len=128, batch_size=2, prompt_buckets=[32], **kwargs)
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore', DeprecationWarning)
+        jb = j_serving.ContinuousBatcher(jp, j_llama.LLAMA_DEBUG,
+                                         j_engine.GeneratorConfig(**kw))
+        b = ContinuousBatcher(tp, llama.LLAMA_DEBUG, GeneratorConfig(**kw),
+                              device='cpu')
+        gen = engine.Generator(tp, llama.LLAMA_DEBUG, GeneratorConfig(**kw),
+                               device='cpu')
+    try:
+        assert (b._prefix.block, b._prefix.capacity_bytes) == (
+            jb._prefix.block, jb._prefix.capacity_bytes)
+        assert (gen.prefix.block, gen.prefix.capacity_bytes) == (
+            jb._prefix.block, jb._prefix.capacity_bytes)
+        assert (b.pool is None) == (jb.pool is None)
+        if b.pool is not None:
+            assert b.pool.n_blocks == gen.pool.n_blocks == jb.pool.n_blocks
+            assert (b._prefix._ids_per_node, b._prefix._pool_block_nbytes) \
+                == (jb._prefix._ids_per_node, jb._prefix._pool_block_nbytes)
+        assert (b._tier is None) == (jb._tier is None)
+        if b._tier is not None:
+            assert (b._tier.host_blocks, b._tier.node_nbytes,
+                    b._tier.ids_per_node, b._tier.tokens_per_node) == (
+                jb._tier.host_blocks, jb._tier.node_nbytes,
+                jb._tier.ids_per_node, jb._tier.tokens_per_node)
+    finally:
+        b.close()
+        jb.close()
 
 
 def test_block_size_and_buckets_match_jax():
