@@ -10,9 +10,10 @@ Phases (any failure exits non-zero):
 1. device: needs torch.cuda; prints the card's name and power limit.
 2. build: compiles skypilot_tpu_torch/csrc/*.cu with nvcc (in parallel)
    into build/torch_kernels/ and loads the library; fails if ptxas
-   reports a spill in a tensor-core kernel (K2, K4, K5 and K6 in bf16,
-   hd 64 and 128) or in a K1/K7 decode kernel or a combine kernel (K1/K7
-   and K4).
+   reports a spill in a tensor-core kernel (K2 in bf16 at hd 64, 128 and
+   256; K4, K5 and K6 at hd 64 and 128), in a K1/K7 decode kernel or a
+   combine kernel (K1/K7 and K4), or in K3 (whose rows live in
+   registers).
 3. kernels: holds each hand-written kernel against its plain PyTorch
    version on the card, at the shapes the Llama-3-8B serving path gives
    it, in bf16 and f32 (and int8 arenas for the two paged attentions);
@@ -36,13 +37,16 @@ Phases (any failure exits non-zero):
    int8 arena on tables in which 8 slots share the 16 blocks of one
    1,024-token head (phase 14's warm decode: the entries
    paged_decode[shared blocks] and [int8 shared blocks], their bound
-   counting each shared byte once).  K2 without its lse at the
+   counting each shared byte once).  K2 with and without its lse at the
    prefill shapes of phase 12 (FLASH_SHAPES), f32 and bf16 at ragged S
-   and then in bf16 at the shape: Gemma-7B's q (4, 512, 16, 256), which
-   must take the FMA kernel, and Qwen2.5-1.5B's q (4, 512, 12, 128) over
-   2 KV heads, the tensor-core one; K3 at the widths and eps of every
-   main path (NORM_SHAPES: 4096 at 1e-5, Gemma-7B's 3072 and
-   Qwen2.5-1.5B's 1536 at 1e-6); the training kernels also at G 6,
+   and then in bf16 at the shape, timed both ways: Gemma-7B's q (4, 512,
+   16, 256) and Qwen2.5-1.5B's q (4, 512, 12, 128) over 2 KV heads, both
+   of which must take the tensor-core route; K3 at the widths and eps of
+   every main path (NORM_SHAPES: 4096 at 1e-5, Gemma-7B's 3072 and
+   Qwen2.5-1.5B's 1536 at 1e-6) at 1, 8, 104, 264, 2048 and 4097 rows,
+   timed at 8, 104 and 264 rows as a replayed graph (as decode replays
+   it) and at 2048 eagerly, each beside F.rms_norm timed the same way,
+   with the launch policy's configuration; the training kernels also at G 6,
    ragged and at 12b's LoRA-SFT shape (2, 2048, 12/2 heads, 128).  K4 (the window attention) takes its tensor-core route in bf16
    and over an int8 arena (the FMA route in f32), split-KV at both of
    its shapes: checked twice (bitwise), timed eager and as a replayed
@@ -227,8 +231,8 @@ on every phase 7 path, and K2, K3, K5 and K6 from both train paths and
 (K1 from 10c's rollouts, K1, K2 and K3 from 11a, 12a and 12b, K2 with
 its lse, K3, K5 and K6 from 12b's LoRA-SFT, K1 and K3 from 14a, 14b and
 both 14c runs); K2, K5 and K6 only on their
-tensor-core route on every path but 12a (bf16 at head_dim 128), and K2
-only on its FMA kernel on 12a (head_dim 256); K4 on phase 6's paths,
+tensor-core route on every path (bf16 at head_dim 128, and 12a's K2 at
+256); K4 on phase 6's paths,
 where it must also take its split route; K1 and K7 only on their split
 route on every path of phases 5 to 7, 10c, 11a, 12a, 12b and 14 (B KV <= 128
 < 2 x 132 SMs).  The last lines
@@ -421,39 +425,89 @@ NORM_SHAPES = {'rms_norm': (4096, 1e-5, 3),
                'rms_norm[Qwen2.5-1.5B]': (1536, 1e-6, 15)}
 
 
-def check_rmsnorm(rmsnorm, name):
+# K3's row counts: decode's 8 slots, verify's 8 x 13, the fused lane's
+# 264 (all three replayed from graphs on the serving paths), a prefill
+# chunk's 2048 (4 x 512) and two ragged ones; timed at the first four.
+NORM_ROWS = (8, 104, 264, 2048, 1, 4097)
+NORM_TIMED = (8, 104, 264, 2048)
+NORM_GRAPH_ROWS = 264  # up to this many rows, timed as a replayed graph only
+
+
+def check_rmsnorm(rmsnorm, name, ptxas):
     """K3 at NORM_SHAPES[name] against its plain version in f32 and bf16
-    at 8, 2048 and 5 rows; timed in bf16 at 2048 rows with its bound and
-    F.rms_norm's.  Returns its kernels line entry."""
+    at every NORM_ROWS count; timed in bf16 at NORM_TIMED as a replayed
+    graph (graph_ms: device time) and, above NORM_GRAPH_ROWS rows, also
+    eagerly (time_ms, which counts the wrapper's host time where it
+    outlasts the L2 flush), each beside F.rms_norm timed the same ways
+    and its bound, with the launch policy's (threads a row, vectors a
+    thread, blocks) and the ptxas registers and spill of the
+    instantiation.  Returns its kernels line entry: the 2048-row numbers,
+    and every count under `by_rows`."""
+    from skypilot_tpu_torch.ops import _kernels
     d, eps, seed = NORM_SHAPES[name]
     gen = torch.Generator(device='cuda').manual_seed(seed)
-    result = None
+    sms = _kernels.sm_count(torch.device('cuda'))
+    by_rows, err_max = {}, 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for rows in (8, 2048, 5):
+        for rows in NORM_ROWS:
             x = torch.randn(rows, d, generator=gen, device='cuda').to(dtype)
             w = (1 + 0.1 * torch.randn(d, generator=gen, device='cuda')
                  ).to(dtype)
+            want = rmsnorm._rms_norm_plain(x, w, eps)
             err = check_close(f'{name} {dtype} rows={rows}',
-                              rmsnorm.rms_norm(x, w, eps),
-                              rmsnorm._rms_norm_plain(x, w, eps))
-            if dtype == torch.bfloat16 and rows == 2048:
-                nbytes = 2 * x.numel() * 2 + d * 2
-                b_ms, by = bound(nbytes, 4 * x.numel(), BF16_FLOPS)
-                result = {
-                    'name': name, 'route': 'cuda',
-                    'source': 'skypilot_tpu_torch/csrc/rmsnorm.cu',
-                    'replaces': 'skypilot_tpu/ops/rmsnorm.py:31',
-                    'shape': f'x ({rows}, {d}) bf16 eps {eps:g}',
-                    'max_abs_err': err,
-                    'ms': time_ms(lambda: rmsnorm.rms_norm(x, w, eps)),
-                    'plain_ms': time_ms(
-                        lambda: rmsnorm._rms_norm_plain(x, w, eps)),
-                    'bound_ms': b_ms, 'bound_by': by,
-                    'library_ms': time_ms(
-                        lambda: torch.nn.functional.rms_norm(
-                            x, (d,), w, eps)),
-                }
-    return result
+                              rmsnorm.rms_norm(x, w, eps), want,
+                              row_tol(want))
+            if dtype != torch.bfloat16 or rows not in NORM_TIMED:
+                continue
+            err_max = max(err_max, err)
+            tpr, nv, grid = rmsnorm._norm_launch(rows, d, 2, sms)
+            b_ms, by = bound(2 * x.numel() * 2 + d * 2, 4 * x.numel(),
+                             BF16_FLOPS)
+
+            def kernel(x=x, w=w):
+                return rmsnorm.rms_norm(x, w, eps)
+
+            def lib(x=x, w=w):
+                return torch.nn.functional.rms_norm(x, (d,), w, eps)
+
+            row = by_rows[rows] = {
+                'graph_ms': graph_ms(kernel),
+                'library_graph_ms': graph_ms(lib),
+                'bound_ms': b_ms,
+                'launch': {'threads_a_row': tpr, 'vectors_a_thread': nv,
+                           'blocks': grid},
+                **_ptxas_of(ptxas, rf'rmsnorm_kernelI13__nv_bfloat16Li{nv}E'),
+                'max_abs_err': err}
+            row['bound_share'] = b_ms / row['graph_ms']
+            if rows > NORM_GRAPH_ROWS:
+                row.update(ms=time_ms(kernel), library_ms=time_ms(lib))
+            log(f'  {name} bf16 ({rows}, {d}) [{tpr} x {nv}, {grid} blocks]: '
+                f'graph {row["graph_ms"]:.4f} ms, F.rms_norm '
+                f'{row["library_graph_ms"]:.4f}; eager '
+                f'{row.get("ms", float("nan")):.4f}, F.rms_norm '
+                f'{row.get("library_ms", float("nan")):.4f}; bound '
+                f'{b_ms:.4f} ({b_ms / row["graph_ms"]:.0%} in the graph)')
+    x = torch.randn(2048, d, generator=gen, device='cuda').bfloat16()
+    w = (1 + 0.1 * torch.randn(d, generator=gen, device='cuda')).bfloat16()
+    main = by_rows[2048]
+    return {
+        'name': name, 'route': 'cuda',
+        'source': 'skypilot_tpu_torch/csrc/rmsnorm.cu',
+        'replaces': 'skypilot_tpu/ops/rmsnorm.py:31',
+        'shape': f'x (2048, {d}) bf16 eps {eps:g}',
+        'max_abs_err': err_max, 'ms': main['ms'],
+        'graph_ms': main['graph_ms'],
+        'plain_ms': time_ms(lambda: rmsnorm._rms_norm_plain(x, w, eps)),
+        'bound_ms': main['bound_ms'], 'bound_by': 'bytes',
+        'library_ms': main['library_ms'],
+        'library_graph_ms': main['library_graph_ms'],
+        'design': K3_DESIGN, 'by_rows': by_rows,
+    }
+
+
+K3_DESIGN = ('rows in registers (16-byte vectors, one read of x), w in '
+             'registers once a block, a warp a row at 2048 rows, more '
+             'threads a row at few rows (ops/rmsnorm.py _norm_launch)')
 
 
 def _ptxas_of(ptxas, pattern):
@@ -549,63 +603,88 @@ def check_flash(attention, ptxas):
     return result
 
 
-# K2 without its lse at the prefill shapes of phase 12 (phase 5's prefill
-# chunk of 512 rows over 4 requests), name -> ((B, S, H, KV, head_dim),
-# the (H, KV) of its ragged checks, seed).  Gemma-7B: 16 heads of 256,
-# MHA; bf16 at head_dim 256 takes the FMA kernel (ops/attention.py
-# _count_route), not mma.sync.  Qwen2.5-1.5B: 12 query heads over 2 KV
-# heads of 128 (G 6), the tensor-core route.
+# K2 at the prefill shapes of phase 12 (phase 5's prefill chunk of 512
+# rows over 4 requests), name -> ((B, S, H, KV, head_dim), the (H, KV) of
+# its ragged checks, seed).  Gemma-7B: 16 heads of 256, MHA, on the
+# tensor-core route that bf16 at head_dim 256 takes (one m16 tile a warp,
+# 32-key tiles).  Qwen2.5-1.5B: 12 query heads over 2 KV heads of 128
+# (G 6).
 FLASH_SHAPES = {
     'flash_attention[Gemma-7B hd256]': ((4, 512, 16, 16, 256), (4, 2), 11),
     'flash_attention[Qwen2.5-1.5B G6 prefill]': ((4, 512, 12, 2, 128),
                                                  (12, 2), 16),
 }
+TC_DESIGN_HD256 = ('mma.sync m16n8k16 bf16 -> f32, ldmatrix, cp.async x2; '
+                   'one m16 tile a warp, 64-row q-tiles, 32-key tiles, two '
+                   'blocks an SM')
 
 
 def check_flash_at(attention, ptxas, name):
-    """K2 without its lse at FLASH_SHAPES[name]: against its plain
-    versions in f32 and bf16 at a ragged S, then at the shape itself in
-    bf16, checked, timed with its bound and SDPA's; fails unless every
-    bf16 launch at the shape takes the tensor-core route at head_dim 128
-    and the FMA one at 256.  Returns its kernels line entry."""
+    """K2 at FLASH_SHAPES[name]: against its plain versions in f32 and
+    bf16 at a ragged S, with and without the lse, then at the shape
+    itself in bf16, checked, timed without and with its lse (eagerly and
+    as a replayed graph: device time without the wrapper's host work)
+    beside its bound and SDPA's; fails unless every bf16 launch at the
+    shape takes the tensor-core route.  Returns its kernels line entry, with the
+    design and the ptxas registers and spill of the instantiation."""
     at = attention
     (batch, seq, heads, kv, hd), ragged, seed = FLASH_SHAPES[name]
     gen = torch.Generator(device='cuda').manual_seed(seed)
     for dtype in (torch.float32, torch.bfloat16):
         for b, s, causal in ((1, 700, True), (2, 65, False)):
             q, k, v = _attn_operands(gen, b, s, *ragged, hd, dtype)[:3]
-            _check_fwd(at, q, k, v, causal,
-                       f'{dtype} B={b} S={s} H={ragged[0]}/{ragged[1]} '
-                       f'hd={hd} causal={causal}')
+            for need_lse in (False, True):
+                _check_fwd(at, q, k, v, causal,
+                           f'{dtype} B={b} S={s} H={ragged[0]}/{ragged[1]} '
+                           f'hd={hd} causal={causal} lse={need_lse}',
+                           need_lse)
     q, k, v = _attn_operands(gen, batch, seq, heads, kv, hd,
                              torch.bfloat16)[:3]
     tc0 = at.flash_attention.launches_tc
     err, _, _ = _check_fwd(at, q, k, v, True, f'bf16 {name}')
+    err_lse, _, _ = _check_fwd(at, q, k, v, True, f'bf16 {name} lse', True)
     tc = at.flash_attention.launches_tc - tc0
-    if tc != (hd <= 128):
-        raise AssertionError(f'{name}: {tc} tensor-core launches of 1')
+    if tc != 2:
+        raise AssertionError(f'{name}: {tc} tensor-core launches of 2')
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
     flops = 4 * hd * batch * heads * seq * (seq + 1) // 2
     b_ms, by = bound(nbytes, flops, BF16_FLOPS)
+    lse_b_ms, _ = bound(nbytes + batch * heads * seq * 4, flops, BF16_FLOPS)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    ms = time_ms(lambda: at.flash_attention(q, k, v))
+
+    def kernel():
+        return at.flash_attention(q, k, v)
+
+    def with_lse():
+        return at.flash_attention_fwd(q, k, v, True, True)
+
+    def lib():
+        return sdpa(qt, kt, vt, is_causal=True)
+
+    ms, lse_ms = time_ms(kernel), time_ms(with_lse)
     entry = {
         'name': name, 'route': 'cuda',
         'source': 'skypilot_tpu_torch/csrc/flash_fwd.cu',
         'replaces': 'skypilot_tpu/ops/attention.py:120',
         'shape': f'q ({batch}, {seq}, {heads}, {hd}) kv {kv} causal bf16',
-        'max_abs_err': err, 'ms': ms,
+        'max_abs_err': err, 'ms': ms, 'graph_ms': graph_ms(kernel),
         'plain_ms': time_ms(lambda: at._flash_fwd_plain(q, k, v)),
         'bound_ms': b_ms, 'bound_by': by,
-        'library_ms': time_ms(lambda: sdpa(qt, kt, vt, is_causal=True)),
+        'library_ms': time_ms(lib), 'library_graph_ms': graph_ms(lib),
         'tflops': flops / ms / 1e9,
-        **(_tc_entry(ptxas, TC_KERNELS['lse']) if tc else {
-            'design': 'FMA (f32 CUDA cores; no tensor-core route at hd '
-                      f'{hd})'}),
+        'lse': {'ms': lse_ms, 'graph_ms': graph_ms(with_lse),
+                'bound_ms': lse_b_ms, 'max_abs_err': err_lse},
+        **_tc_entry(ptxas, f'flash_fwd_mma_kernelILi{hd}E',
+                    TC_DESIGN_HD256 if hd == 256 else None),
     }
-    log(f'  {name}: {ms:.3f} ms, {entry["tflops"]:.1f} TFLOP/s, bound '
-        f'{b_ms:.4f} by {by}, plain {entry["plain_ms"]:.3f}, SDPA '
-        f'{entry["library_ms"]:.3f}')
+    entry['graph_tflops'] = flops / entry['graph_ms'] / 1e9
+    log(f'  {name}: {ms:.4f} ms, graph {entry["graph_ms"]:.4f} ms '
+        f'({entry["graph_tflops"]:.1f} TFLOP/s); with lse {lse_ms:.4f}, '
+        f'graph {entry["lse"]["graph_ms"]:.4f}; bound {b_ms:.4f} by {by}, '
+        f'plain {entry["plain_ms"]:.3f}, SDPA {entry["library_ms"]:.4f}, '
+        f'graph {entry["library_graph_ms"]:.4f}; ptxas '
+        f'{entry["ptxas_registers"]} registers, '
+        f'{entry["ptxas_spill_bytes"]} bytes spilled')
     return entry
 
 
@@ -808,8 +887,9 @@ def _gathered(k, v, ks, vs, tables, layer, dtype):
 
 def _split_of(da, batch, capacity, kv_heads=KV_HEADS):
     """(splits, split_len) of a K1/K7 launch."""
+    from skypilot_tpu_torch.ops import _kernels
     return da._decode_splits(batch, kv_heads, capacity, da._DECODE_CHUNK,
-                             da._sm_count(torch.device('cuda')))
+                             _kernels.sm_count(torch.device('cuda')))
 
 
 def check_decode(decode_attention, ptxas):
@@ -1197,6 +1277,7 @@ def check_window(decode_attention, ptxas):
     and f32 the FMA route.  Then the combine pass alone on the partials
     of the verify bf16 launch.  Returns the kernels line entries of the
     bf16 and int8 variants and of the combine."""
+    from skypilot_tpu_torch.ops import _kernels
     da = decode_attention
     counter = da.decode_window_attention_pooled
     gen = torch.Generator(device='cuda').manual_seed(6)
@@ -1214,7 +1295,7 @@ def check_window(decode_attention, ptxas):
         tables = _tables(last, n_blocks, 6)
         splits, split_len = da._window_splits(
             batch, KV_HEADS, -(-win * GROUP // da._WINDOW_ROWS), capacity,
-            da._WINDOW_CHUNK, da._sm_count(torch.device('cuda')))
+            da._WINDOW_CHUNK, _kernels.sm_count(torch.device('cuda')))
         for label, dtype, int8 in (('f32', torch.float32, False),
                                    ('bf16', torch.bfloat16, False),
                                    ('int8', torch.bfloat16, True)):
@@ -4111,6 +4192,9 @@ def main() -> int:
     for name, info in ptxas.items():
         if '_mma_kernel' in name and info['spill_bytes']:
             raise AssertionError(f'tensor-core kernel {name} spills: {info}')
+        if 'rmsnorm_kernel' in name and info['spill_bytes']:
+            raise AssertionError(f'rmsnorm kernel {name} spills (its rows '
+                                 f'live in registers): {info}')
         if ('decode_kernel' in name or 'combine_kernel' in name) \
                 and info['spill_bytes']:
             raise AssertionError(f'decode kernel {name} spills: {info}')
@@ -4130,7 +4214,8 @@ def main() -> int:
     flash = {'flash_attention': check_flash(attention, ptxas)}
     flash.update({name: check_flash_at(attention, ptxas, name)
                   for name in FLASH_SHAPES})
-    norm = {name: check_rmsnorm(rmsnorm, name) for name in NORM_SHAPES}
+    norm = {name: check_rmsnorm(rmsnorm, name, ptxas)
+            for name in NORM_SHAPES}
     train = check_flash_train(attention, ptxas)
     k1 = decode_attention.decode_attention_pooled
     k4v = decode_attention.decode_window_attention_pooled
@@ -4363,15 +4448,11 @@ def main() -> int:
     phase14 = ('14a', '14b', '14c-bf16', '14c-int8')
     for key in phase14:
         _need(key, paths[key], [c.__name__ for c in (k1, k3)])
-    # Gemma's head_dim 256 takes K2's FMA kernel (ROADMAP B5).
-    if paths['12a'][f'{k2.__name__}[tc]']:
-        raise AssertionError('flash_attention took a tensor-core route at '
-                             'head_dim 256 on the 12a path')
     for key, launches in paths.items():
-        # Every other path runs bf16 at head_dim 128: the tensor-core
-        # route only; and B KV (8 slots x 16, 8 or 2 KV heads) < 2 blocks
-        # an SM: the split route only.
-        route = [(c, 'tc') for c in (k2, k5, k6) if key != '12a']
+        # Every path runs bf16 at head_dim 128 (12a's K2 at 256): the
+        # tensor-core route only; and B KV (8 slots x 16, 8 or 2 KV heads)
+        # < 2 blocks an SM: the split route only.
+        route = [(c, 'tc') for c in (k2, k5, k6)]
         route += [(c, 'split') for c in (k1, k7)
                   if key[0] in '567' or key in ('10c', '11a', '12a', '12b')
                   or key in phase14]

@@ -26,6 +26,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 import chip_smoke as cs  # noqa: E402
+from skypilot_tpu_torch.ops import _kernels  # noqa: E402
 from skypilot_tpu_torch.ops import decode_attention as da  # noqa: E402
 
 TARGETS = (1, 2, 4, 8)
@@ -69,7 +70,7 @@ def main() -> int:
                         batch, cs.KV_HEADS,
                         -(-win * cs.GROUP // da._WINDOW_ROWS),
                         cs.T_WIDTH * cs.BS, da._WINDOW_CHUNK,
-                        da._sm_count(torch.device('cuda')))
+                        _kernels.sm_count(torch.device('cuda')))
                     err = cs.check_close(f'{lane} {label} target {target}',
                                          kernel(), want)
                     print(json.dumps({

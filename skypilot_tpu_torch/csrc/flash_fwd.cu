@@ -26,40 +26,51 @@
 // work is operations (4 * D flops per visible (query, key) pair, against
 // 989 TFLOP/s in bf16); below that, bytes (q, k, v read once, o written
 // once, over 3.35 TB/s).  Two routes, a fixed function of (dtype,
-// head_dim) (skk_flash_fwd_route, the same split as K5 and K6):
+// head_dim) (flash_fwd_tc_route, reported by skk_flash_fwd_route; K5 and
+// K6 keep bf16 at D 256 on their FMA kernels, mma.cuh):
 //
-// - bf16 at D 64 and 128 (every model configuration of the repo),
+// - bf16 at D 64, 128 and 256 (every model configuration of the repo),
 //   flash_fwd_mma_kernel: s = q k^T and o += p v on the tensor cores,
-//   mma.sync m16n8k16 bf16 -> f32 (building blocks in mma.cuh).  4 warps
-//   of 2 m16 tiles (32 query rows), a 128-row q-tile per block, over
-//   64-key tiles: each k and v fragment that a warp loads from shared
-//   memory by ldmatrix feeds both of its m16 tiles, which halves the k
-//   and v reads per product against 16-row warps (q's fragments are
-//   loaded again at every k16 step: at D 128 the o accumulators, 128
-//   f32 a thread, and the scores, 64, leave no registers to keep them).
-//   k and v stream through a two-stage cp.async ring (zero-filled past
-//   S), so a tile's load overlaps the previous tile's products.  The
-//   online softmax runs in registers: a thread holds rows g and g + 8 of
-//   each m16 tile, the row max takes two __shfl_xor within the quad of
-//   lanes that share a row, each thread keeps its own part of the row
-//   sum (added up once at the end), and the exponentials are exp2 of
-//   scores scaled by scale * log2(e).  p goes from the s accumulator,
-//   rounded to bf16, straight into the A fragment of P.V (the m16n8
-//   accumulator and the m16k16 A operand share their layout), with v by
-//   ldmatrix.trans.  The k-tiles are walked in ascending order; only
-//   tiles that cross a warp's diagonal or the end of S are masked, and a
-//   masked p is exactly 0, so a row's fully masked tile adds nothing
-//   whatever its running max; a warp skips the causal tiles past its
-//   last row, tiles past the q-tile's last row are never loaded, and
-//   heavy causal q-blocks launch first.  Shared memory: q and two stages
-//   of k and v, rows padded to D + 8 (102 KB at D 128: two blocks an
-//   SM).  The next step is wgmma fed by TMA with warp specialisation.
+//   mma.sync m16n8k16 bf16 -> f32 (building blocks in mma.cuh).  At D 64
+//   and 128, 4 warps of 2 m16 tiles (32 query rows), a 128-row q-tile per
+//   block, over 64-key tiles: each k and v fragment that a warp loads
+//   from shared memory by ldmatrix feeds both of its m16 tiles, which
+//   halves the k and v reads per product against 16-row warps (q's
+//   fragments are loaded again at every k16 step: at D 128 the o
+//   accumulators, 128 f32 a thread, and the scores, 64, leave no
+//   registers to keep them).  k and v stream through a two-stage cp.async
+//   ring (zero-filled past S), so a tile's load overlaps the previous
+//   tile's products.  The online softmax runs in registers: a thread
+//   holds rows g and g + 8 of each m16 tile, the row max takes two
+//   __shfl_xor within the quad of lanes that share a row, each thread
+//   keeps its own part of the row sum (added up once at the end), and
+//   the exponentials are exp2 of scores scaled by scale * log2(e).  p
+//   goes from the s accumulator, rounded to bf16, straight into the A
+//   fragment of P.V (the m16n8 accumulator and the m16k16 A operand share
+//   their layout), with v by ldmatrix.trans.  The k-tiles are walked in
+//   ascending order; only tiles that cross a warp's diagonal or the end
+//   of S are masked, and a masked p is exactly 0, so a row's fully masked
+//   tile adds nothing whatever its running max; a warp skips the causal
+//   tiles past its last row, tiles past the q-tile's last row are never
+//   loaded, and heavy causal q-blocks launch first.  Shared memory: q and
+//   two stages of k and v, rows padded to D + 8 (102 KB at D 128: two
+//   blocks an SM).
+//   At D 256 (Gemma) registers bound the design: two m16 tiles a warp
+//   would need 256 f32 o accumulators a thread.  So a warp takes one m16
+//   tile (16 query rows: 128 accumulators a thread, as at D 128, and 16
+//   scores), a block 4 warps and a 64-row q-tile, and the k-tile is 32
+//   keys: q (33.8 KB) and two stages of k and v (67.6 KB) make 99 KB,
+//   two blocks an SM, 8 warps, where 64-key tiles (165 KB) would leave
+//   one block of 4 warps and nothing to cover the latency of a warp's
+//   ldmatrix -> mma chains.  Each k and v fragment feeds one m16 tile, so
+//   a product reads twice the shared memory that it reads at D 128.
+//   The next step is wgmma fed by TMA with warp specialisation.
 // - f32 at every D (tensor cores would need TF32, which changes f32
-//   results) and bf16 at D 256, flash_fwd_kernel: f32 FMAs on the CUDA
-//   cores (67 TFLOP/s at most), staged through shared memory: 64 x 64
-//   tiles (32 x 32 at D = 256), each of 128 threads holding a 4 x 8 block
-//   of scores and a 8 x 8 block of the output accumulator, smem rows
-//   padded by 16 bytes to spread banks.
+//   results), flash_fwd_kernel: f32 FMAs on the CUDA cores (67 TFLOP/s at
+//   most), staged through shared memory: 64 x 64 tiles (32 x 32 at D =
+//   256), each of 128 threads holding a 4 x 8 block of scores and a 8 x 8
+//   block of the output accumulator, smem rows padded by 16 bytes to
+//   spread banks.
 #include "mma.cuh"
 
 namespace skk {
@@ -253,20 +264,20 @@ __global__ void __launch_bounds__(kFlashThreads) flash_fwd_kernel(
 }
 
 // One k-tile of the tensor-core kernel's online softmax, on one m16
-// tile's 16 x 64 scores s: this thread's rows row_g and row_g + 8
+// tile's 16 x 8 KN scores s: this thread's rows row_g and row_g + 8
 // (e / 2), columns col + 8 j and + 1 (e % 2).  s holds q k^T scaled by
 // scale * log2(e) on entry, so the running max m_r is in log2 units and
 // p = exp2(s - m) = exp(scale q k^T - m ln 2).  Updates m_r and this
 // thread's part of the row sum l_r, rescales the o accumulator and
 // leaves p in s.  MASK on a tile that crosses the diagonal or the end of
 // S: a masked p is exactly 0.
-template <bool MASK, int DN>
-__device__ __forceinline__ void softmax_tile(float (&s)[8][4], float (&m_r)[2], float (&l_r)[2],
+template <bool MASK, int KN, int DN>
+__device__ __forceinline__ void softmax_tile(float (&s)[KN][4], float (&m_r)[2], float (&l_r)[2],
                                              float (&acc)[DN][4], int row_g, int col,
                                              int seq_len, int causal, float scale_log2) {
   float mx[2] = {m_r[0], m_r[1]};
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < KN; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int c = col + j * 8 + (e & 1);
@@ -284,7 +295,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[8][4], float (&m_r)[2], 
   }
   float sum[2] = {0.f, 0.f};
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < KN; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int c = col + j * 8 + (e & 1);
@@ -310,11 +321,16 @@ struct FwdMmaCfg : MmaTile<D> {
   // from shared memory feeds this many tiles' products.  2 is faster
   // than 1 at the training shapes (at 255 registers a thread at D 128,
   // 0 spill), a little slower at short prompts, where 128-row q-tiles
-  // make fewer blocks.
-  static constexpr int MT = 2;
+  // make fewer blocks.  At D 256, 1: the o accumulators of two would
+  // take 256 registers a thread.
+  static constexpr int MT = D <= 128 ? 2 : 1;
   static constexpr int BQ = 64 * MT;  // the q-tile: 4 warps x MT m16 tiles
+  // Keys of a k-tile: 32 at D 256, so that two blocks fit an SM.
+  static constexpr int BK = D <= 128 ? 64 : 32;
+  static constexpr int KN = BK / 8;                  // n8 tiles of a score row
+  static constexpr int KTILE = BK * MmaTile<D>::LD;  // elements of a k or v tile
   // q, then two stages of k and v.
-  static constexpr size_t SMEM = (BQ + 4 * 64) * MmaTile<D>::LD * sizeof(bf16);
+  static constexpr size_t SMEM = (BQ + 4 * BK) * MmaTile<D>::LD * sizeof(bf16);
 };
 
 template <int D>
@@ -328,7 +344,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma_kernel(
   constexpr int MT = C::MT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* kv_s = q_s + C::BQ * C::LD;  // stage i: k at kv_s + 2 i TILE, v after it
+  bf16* kv_s = q_s + C::BQ * C::LD;  // stage i: k at kv_s + 2 i KTILE, v after it
 
   // Heavy causal q-blocks (more keys) first.
   const int qb = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
@@ -347,8 +363,8 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma_kernel(
 #pragma unroll
   for (int t = 0; t < MT; ++t)
     load_tile_async<D>(q_s + t * C::TILE, qp, q_ss, q0 + 64 * t, seq_len);
-  load_tile_async<D>(kv_s, kp, k_ss, 0, seq_len);
-  load_tile_async<D>(kv_s + C::TILE, vp, v_ss, 0, seq_len);
+  load_tile_async<D, C::BK>(kv_s, kp, k_ss, 0, seq_len);
+  load_tile_async<D, C::BK>(kv_s + C::KTILE, vp, v_ss, 0, seq_len);
   cp_async_commit();
 
   // ldmatrix lane offsets: an A operand (or a B operand by .trans) from a
@@ -377,28 +393,28 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma_kernel(
 
   for (int kb = 0; kb < n_run; ++kb) {
     if (kb + 1 < n_run) {
-      bf16* nxt = kv_s + ((kb + 1) & 1) * 2 * C::TILE;
-      load_tile_async<D>(nxt, kp, k_ss, (kb + 1) * C::BK, seq_len);
-      load_tile_async<D>(nxt + C::TILE, vp, v_ss, (kb + 1) * C::BK, seq_len);
+      bf16* nxt = kv_s + ((kb + 1) & 1) * 2 * C::KTILE;
+      load_tile_async<D, C::BK>(nxt, kp, k_ss, (kb + 1) * C::BK, seq_len);
+      load_tile_async<D, C::BK>(nxt + C::KTILE, vp, v_ss, (kb + 1) * C::BK, seq_len);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const bf16* k_s = kv_s + (kb & 1) * 2 * C::TILE;
-    const bf16* v_s = k_s + C::TILE;
+    const bf16* k_s = kv_s + (kb & 1) * 2 * C::KTILE;
+    const bf16* v_s = k_s + C::KTILE;
     const int k0 = kb * C::BK;
 
     // A causal tile whose keys all lie past this warp's last row adds
     // nothing to it (the block's other warps may still need the tile).
     if (!causal || k0 <= warp_row0 + 16 * MT - 1) {
-      // s = q k^T, MT x 16 rows x 64 keys a warp; q by ldmatrix.
-      float s[MT][8][4];
+      // s = q k^T, MT x 16 rows x BK keys a warp; q by ldmatrix.
+      float s[MT][C::KN][4];
 #pragma unroll
       for (int t = 0; t < MT; ++t)
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < C::KN; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) s[t][j][e] = 0.f;
 #pragma unroll
@@ -407,7 +423,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma_kernel(
 #pragma unroll
         for (int t = 0; t < MT; ++t) ldsm_x4(qa[t], q_frag + (t * 16 * C::LD + kc * 16) * 2);
 #pragma unroll
-        for (int np = 0; np < 4; ++np) {
+        for (int np = 0; np < C::KN / 2; ++np) {
           uint32_t kf[4];
           ldsm_x4(kf, smem_u32(k_s + (np * 16 + b_row) * C::LD + kc * 16 + b_col));
 #pragma unroll
@@ -433,7 +449,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma_kernel(
 
       // o += p v: p (bf16) from registers, v by ldmatrix.trans.
 #pragma unroll
-      for (int kc = 0; kc < 4; ++kc) {
+      for (int kc = 0; kc < C::BK / 16; ++kc) {
         uint32_t pa[MT][4];
 #pragma unroll
         for (int t = 0; t < MT; ++t) acc_to_a(pa[t], s[t][2 * kc], s[t][2 * kc + 1]);
@@ -474,6 +490,12 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma_kernel(
               m_r[t][i] * 0.6931471805599453f + logf(l);
       }
     }
+}
+
+// K2's tensor-core route: bf16 at D 64, 128 and 256 (f32 would need
+// TF32, which changes f32 results).
+bool flash_fwd_tc_route(int dtype, int head_dim) {
+  return dtype == kBF16 && (head_dim == 64 || head_dim == 128 || head_dim == 256);
 }
 
 template <typename T, int D>
@@ -545,13 +567,12 @@ extern "C" int skk_flash_fwd(const void* q, const void* k, const void* v,
 #define SKK_FLASH_MMA(D)                                                                      \
   return skk::launch_flash_mma<D>(q, k, v, o, l, batch, seq_len, heads, group, causal, scale, \
                                   strides, s)
-  if (skk::tensor_core_route(dtype, head_dim)) {
+  if (skk::flash_fwd_tc_route(dtype, head_dim)) {
     if (head_dim == 64) SKK_FLASH_MMA(64);
-    SKK_FLASH_MMA(128);
+    if (head_dim == 128) SKK_FLASH_MMA(128);
+    SKK_FLASH_MMA(256);
   }
-  if (dtype == skk::kBF16) {
-    if (head_dim == 256) SKK_FLASH(__nv_bfloat16, 256);
-  } else if (dtype == skk::kF32) {
+  if (dtype == skk::kF32) {
     if (head_dim == 64) SKK_FLASH(float, 64);
     if (head_dim == 128) SKK_FLASH(float, 128);
     if (head_dim == 256) SKK_FLASH(float, 256);
@@ -564,5 +585,5 @@ extern "C" int skk_flash_fwd(const void* q, const void* k, const void* v,
 // 1 when (dtype, head_dim) takes the tensor-core kernel, 0 when the FMA
 // kernel: the wrapper counts launches by route.
 extern "C" int skk_flash_fwd_route(int dtype, int head_dim) {
-  return skk::tensor_core_route(dtype, head_dim) ? 1 : 0;
+  return skk::flash_fwd_tc_route(dtype, head_dim) ? 1 : 0;
 }

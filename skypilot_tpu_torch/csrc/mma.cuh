@@ -89,15 +89,15 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
   a[3] = pack_bf16(c1[2], c1[3]);
 }
 
-// Copies 64 rows of D bf16 from sequence row `row0` of a strided (S, D)
+// Copies ROWS rows of D bf16 from sequence row `row0` of a strided (S, D)
 // view into a smem tile of row stride D + 8 with cp.async, zero-filling
 // rows at or past S.
-template <int D>
+template <int D, int ROWS = 64>
 __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src, int64_t row_stride,
                                                 int row0, int seq_len) {
   constexpr int VPR = D / 8;
 #pragma unroll
-  for (int n = 0; n < 64 * VPR / kMmaThreads; ++n) {
+  for (int n = 0; n < ROWS * VPR / kMmaThreads; ++n) {
     const int i = threadIdx.x + n * kMmaThreads;
     const int r = i / VPR;
     const int c = i - r * VPR;
@@ -107,9 +107,10 @@ __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src, int6
   }
 }
 
-// The tensor-core route of the flash kernels: bf16 at D 64 and 128.  f32
+// The tensor-core route of K4, K5 and K6: bf16 at D 64 and 128.  f32
 // would need TF32, which changes f32 results; bf16 at D 256 would need
-// 256 registers a thread for K6's accumulators alone.
+// 256 registers a thread for K6's accumulators alone.  K2 decides its own
+// route (flash_fwd.cu, flash_fwd_tc_route), bf16 at D 256 included.
 inline bool tensor_core_route(int dtype, int head_dim) {
   return dtype == kBF16 && (head_dim == 64 || head_dim == 128);
 }

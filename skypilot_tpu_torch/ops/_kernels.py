@@ -66,7 +66,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     'skk_rmsnorm': [_P, _P, _P, ctypes.c_longlong, _I, ctypes.c_float, _I,
-                    _P],
+                    _I, _I, _I, _P],
     'skk_paged_decode': [_P] * 10 + [_I] * 10 + [ctypes.c_float, _I, _I,
                                                  _P],
     'skk_contig_decode': [_P] * 9 + [_I] * 8 + [ctypes.c_float, _I, _I, _P],
@@ -195,6 +195,19 @@ def launch(name: str, device: torch.device, *args) -> None:
     if rc != 0:
         msg = lib.skk_error_string(rc).decode()
         raise RuntimeError(f'{name} failed: {msg} (code {rc})')
+
+
+_SM_COUNTS = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of `device` (read once per device)."""
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    if index not in _SM_COUNTS:
+        _SM_COUNTS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _SM_COUNTS[index]
 
 
 def check(cond: bool, what: str) -> None:

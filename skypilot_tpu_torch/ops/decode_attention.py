@@ -57,7 +57,6 @@ _MAX_SPLITS = 48 * 1024 // (4 * _MAX_GROUP)
 # rows of its tile (kWinTcRows).
 _WINDOW_CHUNK = 64
 _WINDOW_ROWS = 64
-_SM_COUNTS = {}
 
 
 @functools.lru_cache(maxsize=None)
@@ -96,16 +95,6 @@ def _window_splits(batch: int, kv_heads: int, row_tiles: int,
     _WINDOW_BLOCKS_PER_SM blocks an SM when every slot is full."""
     return _decode_splits(batch * row_tiles, kv_heads, capacity, chunk, sms,
                           _WINDOW_BLOCKS_PER_SM)
-
-
-def _sm_count(device: torch.device) -> int:
-    """Streaming multiprocessors of `device` (read once per device)."""
-    index = (device.index if device.index is not None
-             else torch.cuda.current_device())
-    if index not in _SM_COUNTS:
-        _SM_COUNTS[index] = torch.cuda.get_device_properties(
-            index).multi_processor_count
-    return _SM_COUNTS[index]
 
 
 def _live_splits(positions: torch.Tensor, capacity: int,
@@ -404,7 +393,8 @@ def _launch_split(entry: str, counter, q: torch.Tensor, capacity: int,
                    f'{counter.__name__}: inputs must be contiguous and '
                    '16-byte aligned')
     splits, split_len = _decode_splits(batch, kv_heads, capacity,
-                                       _DECODE_CHUNK, _sm_count(q.device))
+                                       _DECODE_CHUNK,
+                                       _kernels.sm_count(q.device))
     out = torch.empty_like(q)
     scratch = acc_ptr = ml_ptr = None
     if splits > 1:
@@ -580,7 +570,7 @@ def _decode_window_attention_cuda(q: torch.Tensor, k_arena: torch.Tensor,
         row_tiles = -(-win * group // _WINDOW_ROWS)
         splits, split_len = _window_splits(batch, kv_heads, row_tiles,
                                            capacity, _WINDOW_CHUNK,
-                                           _sm_count(q.device))
+                                           _kernels.sm_count(q.device))
     out = torch.empty_like(q)
     scratch = acc_ptr = ml_ptr = None
     if splits > 1:

@@ -4,6 +4,8 @@ PyTorch version.
 Counterpart of skypilot_tpu/ops/rmsnorm.py.  The kernel replaces the TPU's
 ``_rmsnorm_pallas`` (body ``_rmsnorm_kernel``); it is bound by bytes on
 the H100 (one read of x and w, one write of y), see the source note.
+:func:`_norm_launch` decides each launch's configuration from the shapes
+alone.
 When a gradient is wanted :func:`rms_norm` is an autograd Function, the
 counterpart of ``_rms_norm_pallas_diff``: the kernel forward and the JAX
 package's f32 recompute backward in plain torch (the TPU had no backward
@@ -11,11 +13,24 @@ kernel either).
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
 
 from skypilot_tpu_torch.ops import _kernels
+
+# The kernel's compile-time vectors (16 bytes each) a thread, and the most
+# a thread may hold at each block size (csrc/rmsnorm.cu, rms_max_threads:
+# x's and w's vectors stay in registers).  A row longer than 4 vectors a
+# thread at 1,024 threads takes the kernel's loop (0 vectors).
+_NORM_VECS = (1, 2, 3, 4, 6, 8, 12, 16)
+_NORM_MAX_VECS = {256: 16, 512: 12, 1024: 4}
+_NORM_MIN_BLOCK = 256
+_NORM_MAX_THREADS = 1024
+# Blocks an SM at most: past that, a block walks more rows with the w it
+# loaded once.
+_NORM_BLOCKS_PER_SM = 4
 
 
 def _rms_norm_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -25,6 +40,48 @@ def _rms_norm_plain(x: torch.Tensor, weight: torch.Tensor,
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _norm_launch(rows: int, d: int, elem_size: int,
+                 sms: int) -> Tuple[int, int, int]:
+    """(threads a row, vectors a thread, blocks) of a K3 launch over
+    (rows, d) elements of `elem_size` bytes on `sms` SMs.
+
+    A pure function of the shapes, the dtype's size and the SM count, so
+    one decision holds for every replay of a captured graph.  Takes the
+    fewest threads a row (from a warp, in powers of two) whose vectors of
+    the row fit the registers; then, while the rows make fewer blocks
+    than SMs, doubles the threads a row (never past one vector a thread),
+    so that a few rows spread over more SMs.  A block has max(threads a
+    row, 256) threads; the grid is capped at _NORM_BLOCKS_PER_SM blocks an
+    SM, and a block walks the rest."""
+    if rows < 1:
+        raise ValueError(f'rms_norm: {rows} rows')
+    if d < 8 or d % 8:
+        raise ValueError(f'rms_norm: d={d} is not a multiple of 8')
+    nvec = d * elem_size // 16
+
+    def vecs(tpr):
+        """The fewest compile-time vectors a thread that cover the row and
+        fit the registers at tpr threads a row, or None."""
+        need = -(-nvec // tpr)
+        cap = _NORM_MAX_VECS[max(tpr, _NORM_MIN_BLOCK)]
+        return next((v for v in _NORM_VECS if need <= v <= cap), None)
+
+    def blocks(tpr):
+        return -(-rows // (max(tpr, _NORM_MIN_BLOCK) // tpr))
+
+    cap = _NORM_BLOCKS_PER_SM * sms
+    tpr = 32
+    while vecs(tpr) is None and tpr < _NORM_MAX_THREADS:
+        tpr *= 2
+    if vecs(tpr) is None:
+        return _NORM_MAX_THREADS, 0, min(rows, cap)
+    while (2 * tpr <= min(nvec, _NORM_MAX_THREADS) and blocks(tpr) < sms
+           and vecs(2 * tpr) is not None):
+        tpr *= 2
+    return tpr, vecs(tpr), min(blocks(tpr), cap)
 
 
 def _rms_norm_cuda(x: torch.Tensor, weight: torch.Tensor,
@@ -43,9 +100,11 @@ def _rms_norm_cuda(x: torch.Tensor, weight: torch.Tensor,
     y = torch.empty_like(x)
     rows = x.numel() // d
     if rows:
+        tpr, nv, grid = _norm_launch(rows, d, x.element_size(),
+                                     _kernels.sm_count(x.device))
         _kernels.launch('skk_rmsnorm', x.device, x.data_ptr(),
                         weight.data_ptr(), y.data_ptr(), rows, d,
-                        float(eps), code)
+                        float(eps), code, tpr, nv, grid)
         rms_norm.launches += 1
     return y
 

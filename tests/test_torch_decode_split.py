@@ -192,7 +192,7 @@ def _record_launches(monkeypatch):
     monkeypatch.setattr(_kernels, 'launch',
                         lambda name, device, *args: calls.append(
                             (name, args)))
-    monkeypatch.setattr(da, '_sm_count', lambda device: H100_SMS)
+    monkeypatch.setattr(_kernels, 'sm_count', lambda device: H100_SMS)
     return calls
 
 

@@ -8,10 +8,10 @@ Tolerances (kernel vs plain, same inputs): f32 atol 2e-5 (summation
 order); bf16 atol 3e-2 + rtol 2e-2 (the plain versions round scores or
 probabilities to bf16 where the kernels keep f32, and outputs are
 rounded to bf16); the flash backward's bf16 dq, dk and dv, K7's bf16
-and int8-cache outputs, and the tensor-core K2's o against
-`_flash_fwd_plain` (K2's own numerics), whose plain versions compute in
-f32 as the kernels do, are held relative to the scale of each row
-(`_assert_row_close`).  An int8 arena of K1 or K4 is held to its q
+and int8-cache outputs, the tensor-core K2's o against
+`_flash_fwd_plain` (K2's own numerics, at head_dim 64, 128 and 256) and
+K3's bf16 output, whose plain versions compute in f32 as the kernels do,
+are held relative to the scale of each row (`_assert_row_close`).  An int8 arena of K1 or K4 is held to its q
 dtype's tolerance: the kernels dequantize before each product in f32,
 the plain versions scale after it, which is the same math up to
 rounding.  K1 and K7 split a slot's keys across blocks when there are
@@ -45,19 +45,55 @@ def cuda():
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('rows,d', [(1, 8), (7, 256), (64, 4096)])
+@pytest.mark.parametrize('rows,d', [(7, 256), (64, 4096)] + [
+    (rows, d) for rows in (1, 8, 104, 264, 2048, 4097)
+    for d in (8, 264, 1536, 3072, 4096, 8192)])
 def test_rms_norm_kernel(cuda, dtype, rows, d):
+    """K3 at the row counts of decode (8), verify (104), the fused lane
+    (264), a prefill chunk (2048) and one past a grid cap, over the debug
+    and the presets' widths, on every configuration the launch policy
+    picks there (a warp a row to 1,024 threads a row, 1 to 16 vectors a
+    thread): bf16 per row (both sides compute in f32 and round once),
+    f32 at TOL."""
     from skypilot_tpu_torch.ops import rmsnorm
     x = torch.randn(rows, d, generator=cuda, device='cuda').to(dtype)
     w = (1 + 0.1 * torch.randn(d, generator=cuda, device='cuda')).to(dtype)
     before = rmsnorm.rms_norm.launches
     out = rmsnorm.rms_norm(x, w)
     assert rmsnorm.rms_norm.launches == before + 1
-    torch.testing.assert_close(out, rmsnorm._rms_norm_plain(x, w, 1e-5),
-                               **TOL[dtype])
+    _assert_row_close(out, rmsnorm._rms_norm_plain(x, w, 1e-5))
     with pytest.raises(ValueError, match='multiple of 8'):
         rmsnorm.rms_norm(torch.zeros(rows, 12, device='cuda', dtype=dtype),
                          torch.ones(12, device='cuda', dtype=dtype))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('d', [1536, 3072, 4096])
+def test_rms_norm_kernel_in_a_cuda_graph(cuda, dtype, d):
+    """K3 at decode's 8 rows captured in a CUDA graph (as the decode
+    chunks run it) and replayed on new values of x: each replay equals an
+    eager launch bitwise (the launch policy decides from shapes alone, so
+    capture and eager take one configuration), and the capture counts
+    one launch."""
+    from skypilot_tpu_torch.ops import rmsnorm
+    x = torch.randn(8, d, generator=cuda, device='cuda').to(dtype)
+    w = (1 + 0.1 * torch.randn(d, generator=cuda, device='cuda')).to(dtype)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        rmsnorm.rms_norm(x, w, 1e-6)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = rmsnorm.rms_norm.launches
+    with torch.cuda.graph(graph):
+        y = rmsnorm.rms_norm(x, w, 1e-6)
+    assert rmsnorm.rms_norm.launches == before + 1
+    for _ in range(3):
+        x.copy_(torch.randn(8, d, generator=cuda, device='cuda').to(dtype))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, rmsnorm.rms_norm(x, w, 1e-6))
+        _assert_row_close(y, rmsnorm._rms_norm_plain(x, w, 1e-6))
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
@@ -533,10 +569,11 @@ def _assert_row_close(got, want):
     (700, 12, 2, 128, True), (65, 6, 1, 64, False), (130, 6, 1, 256, True)])
 def test_flash_backward_kernels(cuda, dtype, seq, heads, kv, hd, causal):
     """K2 with its lse, K5 and K6 against their plain versions, on the
-    same inputs (o and lse from the kernel: the tensor-core K2's in bf16
-    at hd 64 and 128, which K5 and K6 must take at their per-row
-    bounds), over head_dims 64/128/256, groups 1/2/4/6/8, ragged S, causal
-    and not."""
+    same inputs (o and lse from the kernel: the tensor-core K2's in bf16,
+    which K5 and K6 must take at their per-row bounds, on their
+    tensor-core kernels at hd 64 and 128 and their FMA kernels at 256),
+    over head_dims 64/128/256, groups 1/2/4/6/8, ragged S, causal and
+    not."""
     from skypilot_tpu_torch.ops import attention as at
     q = torch.randn(2, seq, heads, hd, generator=cuda, device='cuda').to(dtype)
     k = torch.randn(2, seq, kv, hd, generator=cuda, device='cuda').to(dtype)
@@ -608,7 +645,39 @@ def test_flash_forward_tensor_core_kernel(cuda, hd, seq, group, causal):
                                **LSE_TOL)
 
 
-@pytest.mark.parametrize('hd', [64, 128])
+@pytest.mark.parametrize('seq', [1, 65, 130, 513])
+@pytest.mark.parametrize('group', [1, 2])
+@pytest.mark.parametrize('causal', [True, False])
+def test_flash_forward_tensor_core_kernel_hd256(cuda, seq, group, causal):
+    """The tensor-core K2 at bf16 head_dim 256 (Gemma; one m16 tile a
+    warp, 32-key tiles) with and without its lse, as the hd-128 test
+    holds it: o per row against _flash_fwd_plain and at TOL against
+    _attention_plain, the lse at LSE_TOL, both launches on the
+    tensor-core route.  Ragged S (one row, one past a 64-row q-tile and a
+    32-key tile, one past two q-tiles, one past eight), MHA and a GQA
+    group of 2, causal and full."""
+    from skypilot_tpu_torch.ops import attention as at
+    heads = 8
+    q, k, v = (torch.randn(2, seq, h, 256, generator=cuda,
+                           device='cuda').bfloat16()
+               for h in (heads, heads // group, heads // group))
+    fa = at.flash_attention
+    before = (fa.launches, fa.launches_tc, fa.launches_lse)
+    o, lse = at.flash_attention_fwd(q, k, v, causal, need_lse=True)
+    o_only, none = at.flash_attention_fwd(q, k, v, causal, need_lse=False)
+    assert none is None and torch.equal(o_only, o)
+    assert (fa.launches, fa.launches_tc, fa.launches_lse) == (
+        before[0] + 2, before[1] + 2, before[2] + 1)
+    want, want_lse = at._flash_fwd_plain(q, k, v, causal)
+    _assert_row_close(o, want)
+    torch.testing.assert_close(o, at._attention_plain(q, k, v, causal),
+                               **TOL[torch.bfloat16])
+    torch.testing.assert_close(lse, want_lse, **LSE_TOL)
+    torch.testing.assert_close(lse, at._attention_lse_plain(q, k, causal),
+                               **LSE_TOL)
+
+
+@pytest.mark.parametrize('hd', [64, 128, 256])
 def test_flash_forward_kernel_on_packed_qkv(cuda, hd):
     """q, k and v as strided views of one packed (B, S, H + 2 KV, D)
     tensor, as a fused qkv projection gives them: K2 reads the strides
@@ -626,14 +695,16 @@ def test_flash_forward_kernel_on_packed_qkv(cuda, hd):
     _assert_row_close(o, at._flash_fwd_plain(qc, kc, vc, True)[0])
 
 
-@pytest.mark.parametrize('dtype,hd,tensor_cores', [
-    (torch.bfloat16, 64, True), (torch.bfloat16, 128, True),
-    (torch.bfloat16, 256, False), (torch.float32, 64, False),
-    (torch.float32, 128, False)])
-def test_flash_forward_route(cuda, dtype, hd, tensor_cores):
-    """bf16 at hd 64 and 128 takes the tensor-core K2; f32, and bf16 at
-    hd 256, the FMA kernel: `launches_tc` counts the former only.  Both
-    routes agree with the plain versions."""
+@pytest.mark.parametrize('dtype,hd,tensor_cores,bwd_tensor_cores', [
+    (torch.bfloat16, 64, True, True), (torch.bfloat16, 128, True, True),
+    (torch.bfloat16, 256, True, False), (torch.float32, 64, False, False),
+    (torch.float32, 128, False, False), (torch.float32, 256, False, False)])
+def test_flash_forward_route(cuda, dtype, hd, tensor_cores,
+                             bwd_tensor_cores):
+    """bf16 at hd 64, 128 and 256 takes the tensor-core K2; f32 the FMA
+    kernel: `launches_tc` counts the former only.  Both routes agree
+    with the plain versions.  K5 and K6 on the same inputs keep bf16 at
+    hd 256 on their FMA kernels (their `launches_tc` does not move)."""
     from skypilot_tpu_torch.ops import attention as at
     q, k, v = (torch.randn(2, 65, h, hd, generator=cuda,
                            device='cuda').to(dtype) for h in (4, 2, 2))
@@ -645,6 +716,15 @@ def test_flash_forward_route(cuda, dtype, hd, tensor_cores):
     want, want_lse = at._flash_fwd_plain(q, k, v, True)
     _assert_row_close(o, want)
     torch.testing.assert_close(lse, want_lse, **LSE_TOL)
+    do = torch.randn(o.shape, generator=cuda, device='cuda').to(dtype)
+    delta = at._delta(o, do).contiguous()
+    wrappers = (at.flash_attention_dq, at.flash_attention_dkv)
+    before = [(w.launches, w.launches_tc) for w in wrappers]
+    at.flash_attention_dq(q, k, v, do, lse, delta)
+    at.flash_attention_dkv(q, k, v, do, lse, delta)
+    for w, (n, n_tc) in zip(wrappers, before):
+        assert (w.launches, w.launches_tc) == (n + 1,
+                                               n_tc + int(bwd_tensor_cores))
 
 
 @pytest.mark.parametrize('hd', [64, 128])

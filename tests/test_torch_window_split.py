@@ -228,7 +228,7 @@ def test_window_launch_arguments(monkeypatch, lane, dtype, batch, win,
     monkeypatch.setattr(_kernels, 'launch',
                         lambda name, device, *args: calls.append(
                             (name, args)))
-    monkeypatch.setattr(da, '_sm_count', lambda device: H100_SMS)
+    monkeypatch.setattr(_kernels, 'sm_count', lambda device: H100_SMS)
     monkeypatch.setattr(da, '_window_route',
                         lambda code, hd: code == 1 and hd in (64, 128))
     kv_heads, group, hd, bs, t_width = 8, 4, 128, 64, 32
