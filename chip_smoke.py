@@ -23,7 +23,9 @@ Phases (any failure exits non-zero):
    kernels are also run on arenas poisoned past each window and outside
    the tables, and K7 (the contiguous decode, q (8, 8, 4, 128) over the
    1024-row bucket) on caches poisoned past each position, which must
-   not change their output.  K1 and K7 take their split-KV route there
+   not change their output.  K2 without its lse is also held at phase
+   15's shapes (q (8, 1024, 32, 128) and (4, 2048, 32, 128), kv 8,
+   causal, bf16).  K1 and K7 take their split-KV route there
    (and on every main path): K1 is also timed with one slot at position
    8191 (T 128, LLAMA3_8B's max_seq_len), both (and their SDPA
    yardstick) are also timed as a replayed CUDA graph (device time
@@ -219,8 +221,38 @@ Phases (any failure exits non-zero):
    'paged'), the batcher's pooled plane with an evicting budget and the
    host tier, its 'paged' plane (install/extract, K7), and drain_sessions
    resumed on a second batcher: identical tokens, warm equal cold and the
-   uninterrupted run, pooled arenas allclose.  Every phase prints its
-   seconds, and the run its whole.
+   uninterrupted run, pooled arenas allclose (the tiered runs' ticks
+   start once every queued tier copy ran; one more card run without
+   that logs how far its arena layout strays).
+15. telemetry and the entry points around the batcher, LLAMA3_8B bf16 at
+   32 layers (phase 5's weights, drawn again from its seed, and its
+   settings).  (a) Phase 5's 8 requests (tenants a and b in turn) on two
+   batchers on graphs, one built with a SpanBuffer and a CostLedger and
+   one without: a warm-up burst on each, then in turns (on, off, off,
+   on): identical tokens, the same host syncs and decode chunks, one
+   queue_wait, ceil(P / 256) prefill_chunk and one delivery span a
+   request, and the tenants' device seconds plus the fleet overhead
+   equal the ledger's profiler wall to 1e-9; prints decode tokens/s on
+   and off, the step-phase shares and the tenants' shares.
+   (b) The replica on that batcher: a 600-byte text /v1/completions
+   plain and streamed (the deltas concatenate to the plain text), a
+   streamed /v1/chat/completions (the role chunk first), /v1/models, and
+   a /generate with X-Skytpu-Trace-Id (its id on its spans); prints TTFT
+   (the first SSE chunk with text) and latency.  (c) /v1/embeddings of
+   phase 5's 8 prompts (K2 without its lse at n_pad 8, bucket 1024; K3):
+   each input alone gives its in-batch vector, and each equals encode
+   with the plain attention and norm patched in (cosine >= 0.999 both;
+   max relative error 0.05), a gate that the same encode without its
+   causal mask fails.  (d) batch_infer as a child process
+   over 64 JSONL lines (32 text, 32 prompt_ids, 17-700 tokens, 32 new
+   each), the first 24 output lines kept and the rest regenerated with
+   --resume: 64 distinct ids, none twice, the kept lines unchanged;
+   prints how many regenerated outputs equal the first run's, prompts/s
+   and tokens/s.  (e) eval_ppl over the repo's SURVEY.md and README.md
+   (seq 2048, batch 4, 4 batches) with --loss-chunk 0 and 512: the NLLs
+   agree to 1e-3 relative (after one untimed batch); prints tokens/s and
+   peak memory.  Every phase
+   prints its seconds, and the run its whole.
 
 Every kernel of a main-path run must launch > 0 times in that run (the
 counts are set to 0 just before it and read just after; a replayed graph
@@ -230,11 +262,14 @@ on every phase 7 path, and K2, K3, K5 and K6 from both train paths and
 9a, and K2 with its lse, K3, K5 and K6 from 10a, 10b, 10c, 11b and 11c
 (K1 from 10c's rollouts, K1, K2 and K3 from 11a, 12a and 12b, K2 with
 its lse, K3, K5 and K6 from 12b's LoRA-SFT, K1 and K3 from 14a, 14b and
-both 14c runs); K2, K5 and K6 only on their
+both 14c runs, K1, K2 and K3 from 15a, 15b and 15d (batch_infer's child
+reports its counts), K2 without its lse and K3 from 15c and 15e); K2, K5
+and K6 only on their
 tensor-core route on every path (bf16 at head_dim 128, and 12a's K2 at
 256); K4 on phase 6's paths,
 where it must also take its split route; K1 and K7 only on their split
-route on every path of phases 5 to 7, 10c, 11a, 12a, 12b and 14 (B KV <= 128
+route on every path of phases 5 to 7, 10c, 11a, 12a, 12b, 14, 15a, 15b
+and 15d (B KV <= 128
 < 2 x 132 SMs).  The last lines
 of standard output are
 the {"kernels": [...]} line, the nvidia-smi name/power-limit line, and
@@ -242,10 +277,12 @@ the {"kernels": [...]} line, the nvidia-smi name/power-limit line, and
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
 import hashlib
 import json
+import math
 import os
 import re
 import shutil
@@ -600,6 +637,15 @@ def check_flash(attention, ptxas):
                         lambda: sdpa(qt, kt, vt, is_causal=True)),
                     'tflops': flops / ms / 1e9,
                 }, **_tc_entry(ptxas, TC_KERNELS['lse']))
+    # Without its lse at the shapes of phase 15's new callers: encode's
+    # (15c: 8 rows of the 1024 bucket) and eval_ppl's (15e: 4 windows of
+    # 2048).
+    for batch, seq in ((8, 1024), (4, 2048)):
+        q, k, v = (torch.randn(batch, seq, h, hd, generator=gen,
+                               device='cuda').to(torch.bfloat16)
+                   for h in (heads, kv_heads, kv_heads))
+        _check_fwd(attention, q, k, v, True,
+                   f'bf16 B={batch} S={seq} causal=True (phase 15)')
     return result
 
 
@@ -1530,13 +1576,33 @@ def check_contig_decode(decode_attention, ptxas):
 
 # ---- phase 4: slice parity ------------------------------------------------
 
-def _serve_debug(params, cfg, dev, prompts, budgets, graphs=None, **extra):
+def _settle_tier_each_tick(b):
+    """Every tick of `b` starts once its host tier's copy engine has run
+    each queued copy.  A spill completes when its copy does (at once on
+    the host, at its CUDA event on the card, which the host's clock does
+    not order), and until the tick's drain sees it, it holds one of the
+    engine's slots: can_accept, and so which evictions spill and which
+    blocks the trie hands out, would depend on the card's lag."""
+    step = b.step
+
+    def settled():
+        b._tier.wait_pending()
+        step()
+
+    b.step = settled
+
+
+def _serve_debug(params, cfg, dev, prompts, budgets, graphs=None,
+                 settle=True, **extra):
+    """settle: with a host tier, _settle_tier_each_tick."""
     from skypilot_tpu_torch.infer.engine import GeneratorConfig
     from skypilot_tpu_torch.infer.serving import ContinuousBatcher
     b = ContinuousBatcher(params, cfg, GeneratorConfig(
         max_seq_len=256, batch_size=3, prompt_buckets=[16, 64, 128],
         prefill_chunk=64, kv_block_size=16, **extra), decode_chunk=4,
         device=dev, graphs=graphs)
+    if settle and b._tier is not None:
+        _settle_tier_each_tick(b)
     rids = [b.submit(p, max_new_tokens=n) for p, n in zip(prompts, budgets)]
     b.run_until_idle()
     if b.pooled:
@@ -4002,12 +4068,12 @@ def handoff_path(params, counters, paths, kv, cfg=None, device='cuda'):
 
 
 def _serve_debug_warm(params, cfg, dev, prompts, budgets, graphs=None,
-                      **extra):
+                      settle=True, **extra):
     """_serve_debug's batcher serving the requests twice, cold then warm
     (the trie filled by the first pass); the passes must agree.  Closes
     the batcher's tier."""
     b, cold = _serve_debug(params, cfg, dev, prompts, budgets, graphs,
-                           **extra)
+                           settle, **extra)
     rids = [b.submit(p, max_new_tokens=n) for p, n in zip(prompts, budgets)]
     b.run_until_idle()
     warm = [b.result(r) for r in rids]
@@ -4018,7 +4084,9 @@ def _serve_debug_warm(params, cfg, dev, prompts, budgets, graphs=None,
         raise AssertionError(f'batcher {extra} on {dev}: no prefix hit')
     if b._tier is not None:
         b.tier_flush()
-        if not b._tier.spills or not b._tier.prefetches:
+        # Unsettled, a lagging copy engine may leave no slot to spill or
+        # prefetch through (_unsettled_tier_layout logs it).
+        if settle and (not b._tier.spills or not b._tier.prefetches):
             raise AssertionError(f'batcher {extra} on {dev}: tier '
                                  f'{b._tier.stats()}')
     if b.pooled:
@@ -4058,6 +4126,55 @@ def _drain_resume_debug(params, cfg, dev, prompts, budgets, graphs=None,
     return b, out
 
 
+def _device_nodes(batcher):
+    """{token prefix: the arena block ids of its trie node} for every
+    device-resident node of a pooled batcher's prefix cache."""
+    out, stack = {}, [(batcher._prefix._root, ())]
+    while stack:
+        node, prefix = stack.pop()
+        for key, child in node.children.items():
+            if child.tier == 'device':
+                out[prefix + key] = list(child.data)
+            stack.append((child, prefix + key))
+    return out
+
+
+def _unsettled_tier_layout(label, params, cfg, prompts, budgets, extra,
+                           host, want):
+    """The tiered batcher once more on the card through graphs, its ticks
+    NOT settled (_settle_tier_each_tick): its tokens must still be
+    `want`; logged, not gated, how far its arena layout strays from the
+    host's (the elements off at LOGITS_TOL, the trie's device nodes and
+    their blocks, the tier's spills and rejects), the measure of what
+    the settled runs take out."""
+    atol, rtol = LOGITS_TOL
+    free, got = _serve_debug_warm(params['cuda'], cfg, 'cuda', prompts,
+                                  budgets, settle=False, **extra)
+    _same_tokens(f'14d {label}: unsettled card vs settled', got, want)
+    off = total = 0
+    for comp, arr in free.pool.arena.items():
+        close = torch.isclose(arr[:, 1:].cpu(), host.pool.arena[comp][:, 1:],
+                              atol=atol, rtol=rtol)
+        off += int((~close).sum())
+        total += close.numel()
+    nodes, host_nodes = _device_nodes(free), _device_nodes(host)
+    common = sorted(set(nodes) & set(host_nodes))
+    same_blocks = sum(nodes[k] == host_nodes[k] for k in common)
+    common_close = sum(all(torch.allclose(
+        arr[:, nodes[k]].cpu(), host.pool.arena[c][:, host_nodes[k]],
+        atol=atol, rtol=rtol) for c, arr in free.pool.arena.items())
+        for k in common)
+    keys = ('spills', 'spill_rejects', 'prefetches', 'host_hits')
+    log(f'  14d {label}, ticks not settled (not gated): ' + json.dumps({
+        'tokens_identical': True, 'arena_elements_off': off,
+        'arena_elements': total,
+        'device_nodes_card': len(nodes), 'device_nodes_host': len(host_nodes),
+        'common_nodes': len(common), 'common_same_blocks': same_blocks,
+        'common_allclose': common_close,
+        'tier_card': {k: free._tier.stats()[k] for k in keys},
+        'tier_host': {k: host._tier.stats()[k] for k in keys}}))
+
+
 def prefix_parity():
     """14d: a 2-layer LLAMA_DEBUG model in f32 on the host (plain
     versions), on the card eagerly and on the card through graphs: the
@@ -4065,9 +4182,11 @@ def prefix_parity():
     pooled plane with the host tier under an evicting budget and its
     'paged' plane (install/extract, K7): identical greedy tokens on all
     three, warm equal cold and equal to the plain engines' tokens, and
-    the pooled arenas allclose card vs host (LOGITS_TOL); and
-    drain_sessions after a decode chunk, resumed on a second batcher,
-    continues with the uninterrupted run's tokens."""
+    the pooled arenas allclose card vs host (LOGITS_TOL; the tiered runs
+    settled, _settle_tier_each_tick, and an unsettled one logged:
+    _unsettled_tier_layout); and drain_sessions after a decode chunk,
+    resumed on a second batcher, continues with the uninterrupted run's
+    tokens."""
     from skypilot_tpu_torch.models import llama
 
     cfg = llama.LLAMA_DEBUG
@@ -4112,8 +4231,544 @@ def prefix_parity():
                         arr[:, 1:].cpu(), host.pool.arena[comp][:, 1:],
                         atol=atol, rtol=rtol)
                 log(f'  14d {label}: arena allclose card vs host')
+            if getattr(card, '_tier', None) is not None:
+                _unsettled_tier_layout(label, params, cfg, prompts, budgets,
+                                       extra, host, three['card graphs'][1])
     log('  14d: warm equals cold and the engines without a prefix cache, '
         'on the host, the card eager and the card through graphs')
+
+
+# ---- phase 15: telemetry, the OpenAI routes, encode, batch_infer, eval_ppl -
+
+# The step phases of the batcher's profiler (telemetry/spans.py).
+STEP_PHASES = ('admit', 'prefill', 'upload', 'decode', 'fused', 'spec_draft',
+               'spec_verify', 'tier_wait', 'host_fetch')
+
+
+def _metric(name, **labels):
+    from skypilot_tpu_torch.telemetry import metrics
+    return metrics.REGISTRY.get_sample_value(name, labels) or 0.0
+
+
+def _serve_prompts(vocab_size):
+    """Phase 5's 8 prompts (SERVE_LENGTHS tokens, the same draw)."""
+    rng = np.random.RandomState(2)
+    return [[int(t) for t in rng.randint(0, vocab_size, size=n)]
+            for n in SERVE_LENGTHS]
+
+
+def _telemetry_run(b, led, prompts, counters, label):
+    """One burst of `prompts` (submitted at once: the admission groups are
+    the same every run), 48 new tokens each, tenants a and b in turn, on
+    `b`; `led` is the CostLedger `b` was built with (None: built without
+    one, nor a SpanBuffer).  Returns (tokens, stats, launches, rids)."""
+    sums0 = {p: _metric('skytpu_infer_step_phase_seconds_sum', phase=p)
+             for p in STEP_PHASES}
+    syncs0 = _metric('skytpu_infer_host_syncs_total')
+    chunks0 = _metric('skytpu_infer_decode_chunk_duration_seconds_count')
+    led0 = (led.steps, led.wall_seconds) if led else None
+    b.decode_tokens, b.decode_seconds = 0, 0.0
+    _zero(counters)
+    t0 = time.perf_counter()
+    rids = [b.submit(p, max_new_tokens=48, tenant='ab'[i % 2])
+            for i, p in enumerate(prompts)]
+    b.run_until_idle()
+    wall = time.perf_counter() - t0
+    launches = _counts(counters)
+    out = [b.result(r) for r in rids]
+    if any(len(o) != 48 for o in out):
+        raise AssertionError(f'15a {label}: {[len(o) for o in out]} tokens')
+    phases = {p: _metric('skytpu_infer_step_phase_seconds_sum', phase=p)
+              - sums0[p] for p in STEP_PHASES}
+    stats = {
+        'card': CARD['line'], 'spans_and_ledger': led is not None,
+        'wall_s': wall,
+        'decode_tokens_per_s': b.decode_tokens / b.decode_seconds,
+        'host_syncs': _metric('skytpu_infer_host_syncs_total') - syncs0,
+        'decode_chunks': _metric(
+            'skytpu_infer_decode_chunk_duration_seconds_count') - chunks0,
+        # Shares of the burst's wall (submits included).
+        'phase_share': {p: x / wall for p, x in phases.items() if x},
+        'unattributed_share': 1.0 - sum(phases.values()) / wall,
+    }
+    if led is not None:
+        stats['ledger_steps'] = led.steps - led0[0]
+        stats['ledger_wall_s'] = led.wall_seconds - led0[1]
+        if not 0.0 < stats['ledger_wall_s'] <= wall:
+            raise AssertionError(f'15a {label}: the ledger counts '
+                                 f'{stats["ledger_wall_s"]!r} s of steps in '
+                                 f'a {wall!r} s burst')
+        roll = led.tenant_rollup()
+        billed = sum(bill.get('device_seconds', 0.0)
+                     for bill in roll.values())
+        if abs(billed - led.wall_seconds) > 1e-9 * led.wall_seconds:
+            raise AssertionError(f'15a {label}: the tenants and _fleet are '
+                                 f'billed {billed!r} s of a '
+                                 f'{led.wall_seconds!r} s profiler wall')
+    return out, stats, launches, rids
+
+
+def telemetry_path(params, counters, paths, cfg=None, device='cuda'):
+    """15a: phase 5's 8 requests (tenants a and b in turn) on two
+    batchers on graphs (phase 5's settings), one built with a SpanBuffer
+    and a CostLedger (span_buffer=, ledger=) and one without: a warm-up
+    burst on each, then in turns (on, off, off, on).  Gates: the same
+    tokens in all six; the same host syncs and decode chunks with and
+    without; one queue_wait, ceil(P / 256) prefill_chunk and one
+    delivery span a request; after each burst with the ledger, the
+    tenants' and _fleet's device seconds equal its profiler wall to
+    1e-9, and the steps it counts lie inside the burst's wall.  Returns
+    the batcher with spans and its SpanBuffer (15b and 15c serve on
+    it).  cfg, device: LLAMA3_8B on the card by default (a rehearsal
+    passes a tiny config and the CPU)."""
+    from skypilot_tpu_torch.infer.engine import GeneratorConfig
+    from skypilot_tpu_torch.infer.serving import ContinuousBatcher
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.telemetry import accounting, spans
+
+    cfg = cfg or llama.LLAMA3_8B
+    buf, led = spans.SpanBuffer(), accounting.CostLedger()
+    with_spans, without = (ContinuousBatcher(
+        params, cfg, GeneratorConfig(max_seq_len=2048, batch_size=8,
+                                     prefill_chunk=256),
+        decode_chunk=16, device=device, **kw)
+        for kw in (dict(span_buffer=buf, ledger=led), {}))
+    prompts = _serve_prompts(cfg.vocab_size)
+    turns = {True: (with_spans, led), False: (without, None)}
+    warm, _, _, _ = _telemetry_run(*turns[True], prompts, counters,
+                                   'warm-up on')
+    _same_tokens('15a: the warm-up bursts without and with spans and a '
+                 'ledger', _telemetry_run(*turns[False], prompts, counters,
+                                          'warm-up off')[0], warm)
+    # On and off in turns (on, off, off, on); the first on run's counts
+    # and spans are the ones checked and reported.
+    runs = [_telemetry_run(*turns[on], prompts, counters, label)
+            for on, label in ((True, 'on 1'), (False, 'off 1'),
+                              (False, 'off 2'), (True, 'on 2'))]
+    without.close()
+    _, stats_on, launches, rids = runs[0]
+    paths['15a'] = launches
+    for out, stats, *_ in runs:
+        _same_tokens(f'15a: spans and ledger {stats["spans_and_ledger"]} '
+                     f'vs the warm-up burst', out, warm)
+        for key in ('host_syncs', 'decode_chunks'):
+            if stats[key] != stats_on[key]:
+                raise AssertionError(
+                    f'15a: {key} {stats_on[key]} with spans and a ledger, '
+                    f'{stats[key]} in a run with them '
+                    f'{stats["spans_and_ledger"]}')
+    names = {rid: collections.Counter() for rid in rids}
+    for span in buf.snapshot():
+        if span.get('request_id') in names:
+            names[span['request_id']][span['name']] += 1
+    for rid, prompt in zip(rids, prompts):
+        want = {'queue_wait': 1, 'delivery': 1,
+                'prefill_chunk': -(-len(prompt) // 256)}
+        got = {k: names[rid][k] for k in want}
+        if got != want:
+            raise AssertionError(f'15a: request {rid} (prompt '
+                                 f'{len(prompt)}) spans {dict(names[rid])}')
+    summary = led.summary()
+    stats_on.update(
+        spans=len(buf), span_names=dict(collections.Counter(
+            s['name'] for s in buf.snapshot())),
+        ledger_bursts='warm-up, on 1 and on 2',
+        tenant_device_s=summary['tenant_device_seconds'],
+        tenant_share=summary['attributed_share'],
+        conservation_ratio=summary['conservation_ratio'])
+    for _, stats, *_ in runs:
+        log('  15a: ' + json.dumps(stats))
+    rates = [f'{r[1]["decode_tokens_per_s"]:.2f}' for r in runs]
+    log(f'  15a: decode tokens/s with spans and ledger {rates[0]} and '
+        f'{rates[3]}, without {rates[1]} and {rates[2]}; identical '
+        f'tokens, {stats_on["host_syncs"]:.0f} host syncs and '
+        f'{stats_on["decode_chunks"]:.0f} decode chunks every run')
+    return with_spans, buf
+
+
+def _sse(url, path, payload, headers=None):
+    """POST `payload` and read a server-sent-events reply to its end:
+    (each event's seconds from the request and its data, the whole
+    seconds)."""
+    import http.client
+    import urllib.parse
+
+    parts = urllib.parse.urlsplit(url)
+    conn = http.client.HTTPConnection(parts.hostname, parts.port,
+                                      timeout=600)
+    t0 = time.perf_counter()
+    try:
+        conn.request('POST', path, body=json.dumps(payload).encode(),
+                     headers={'Content-Type': 'application/json',
+                              **(headers or {})})
+        resp = conn.getresponse()
+        if resp.status != 200 or not resp.getheader(
+                'Content-Type', '').startswith('text/event-stream'):
+            raise AssertionError(f'15b {path}: {resp.status} '
+                                 f'{resp.read()[:300]!r}')
+        events = []
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            if line.startswith(b'data: '):
+                events.append((time.perf_counter() - t0,
+                               line[6:].strip().decode()))
+    finally:
+        conn.close()
+    return events, time.perf_counter() - t0
+
+
+def _post_json(url, payload, headers=None):
+    req = urllib.request.Request(
+        url, data=json.dumps(payload).encode(),
+        headers={'Content-Type': 'application/json', **(headers or {})})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return json.loads(r.read()), time.perf_counter() - t0
+
+
+def _readme_text(n):
+    """The first n ASCII characters of the repo's README.md (one token a
+    byte)."""
+    with open(os.path.join(HERE, 'README.md'), encoding='utf-8') as f:
+        text = ''.join(c for c in f.read() if ord(c) < 128)
+    return (text * (n // len(text) + 1))[:n]
+
+
+def openai_path(b, buf, counters, paths, cfg=None):
+    """15b: the replica over 15a's batcher with spans (buf its
+    SpanBuffer): a text /v1/completions plain
+    and streamed (the deltas concatenate to the plain text), a streamed
+    /v1/chat/completions (the role chunk first), /v1/models, and a
+    /generate with the trace header (its id on that request's spans).
+    Prints TTFT (the first SSE chunk with text) and the whole
+    latency."""
+    from skypilot_tpu_torch.infer import replica
+    from skypilot_tpu_torch.models import llama
+
+    cfg = cfg or llama.LLAMA3_8B
+    server, thread = replica.serve(b, '127.0.0.1', 0, 'llama3-8b', 32)
+    url = f'http://127.0.0.1:{server.server_address[1]}'
+    stats = {'card': CARD['line']}
+    _zero(counters)
+    try:
+        prompt = _readme_text(600)
+        plain, stats['completion_s'] = _post_json(
+            url + '/v1/completions', {'prompt': prompt, 'max_tokens': 32})
+        if plain['usage'] != {'prompt_tokens': 600, 'completion_tokens': 32,
+                              'total_tokens': 632} or \
+                plain['choices'][0]['finish_reason'] != 'length':
+            raise AssertionError(f'15b completion: {plain}')
+        events, stats['stream_s'] = _sse(
+            url, '/v1/completions',
+            {'prompt': prompt, 'max_tokens': 32, 'stream': True})
+        if events[-1][1] != '[DONE]':
+            raise AssertionError(f'15b stream: ends {events[-1]}')
+        chunks = [(t, json.loads(d)) for t, d in events[:-1]]
+        text = ''.join(c['choices'][0]['text'] for _, c in chunks)
+        if text != plain['choices'][0]['text']:
+            raise AssertionError(f'15b: streamed {text!r} != plain '
+                                 f'{plain["choices"][0]["text"]!r}')
+        if [c['choices'][0]['finish_reason'] for _, c in chunks][-1] != \
+                'length':
+            raise AssertionError('15b stream: no terminal finish chunk')
+        stats['stream_ttft_s'] = next(t for t, c in chunks
+                                      if c['choices'][0]['text'])
+        stats['stream_chunks'] = len(chunks)
+        events, stats['chat_stream_s'] = _sse(
+            url, '/v1/chat/completions',
+            {'messages': [{'role': 'user', 'content': _readme_text(300)}],
+             'max_tokens': 32, 'stream': True})
+        chat = [(t, json.loads(d)) for t, d in events[:-1]]
+        if events[-1][1] != '[DONE]' or \
+                chat[0][1]['choices'][0]['delta'] != {'role': 'assistant'}:
+            raise AssertionError(f'15b chat stream: {events[:2]}')
+        stats['chat_ttft_s'] = next(
+            t for t, c in chat if c['choices'][0]['delta'].get('content'))
+        with urllib.request.urlopen(url + '/v1/models', timeout=60) as r:
+            models = json.loads(r.read())
+        if models['data'][0]['id'] != 'llama3-8b':
+            raise AssertionError(f'15b models: {models}')
+        gen, stats['generate_s'] = _post_json(
+            url + '/generate', {'prompt': _readme_text(200),
+                                'max_new_tokens': 16},
+            headers={'X-Skytpu-Trace-Id': 'chip-smoke-15b'})
+        traced = collections.Counter(
+            s['name'] for s in buf.snapshot()
+            if s.get('trace_id') == 'chip-smoke-15b')
+        if not {'queue_wait', 'admit', 'prefill_chunk', 'delivery'} <= \
+                set(traced) or gen['num_generated'] != 16:
+            raise AssertionError(f'15b: trace spans {dict(traced)}, '
+                                 f'{gen.get("num_generated")} tokens')
+        stats['traced_spans'] = dict(traced)
+        paths['15b'] = _counts(counters)
+    finally:
+        replica.shutdown_replica(server, thread)
+    log('  15b: ' + json.dumps(stats))
+
+
+def _cosine(a, b):
+    return float((a * b).sum() / np.linalg.norm(a) / np.linalg.norm(b))
+
+
+# 15c: the largest relative error (max |v - p| / max |p| a vector) of an
+# embedding against encode with the plain attention and norm, bf16 over
+# 32 layers.
+EMBED_REL_TOL = 0.05
+
+
+def embeddings_path(b, counters, paths, cfg=None):
+    """15c: /v1/embeddings with phase 5's 8 prompts (17-700 tokens: K2
+    without its lse at n_pad 8, bucket 1024; K3).  Gates: each input alone
+    gives its in-batch vector (cosine >= 0.999), and each vector equals
+    encode on the card with the plain attention and norm patched in
+    (cosine >= 0.999, max relative error EMBED_REL_TOL), and the same
+    encode with its causal mask dropped fails that gate."""
+    from skypilot_tpu_torch.infer import llama_infer, replica
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.ops import attention, rmsnorm
+
+    cfg = cfg or llama.LLAMA3_8B
+    prompts = _serve_prompts(cfg.vocab_size)
+    server, thread = replica.serve(b, '127.0.0.1', 0, 'llama3-8b')
+    url = f'http://127.0.0.1:{server.server_address[1]}/v1/embeddings'
+    try:
+        _zero(counters)
+        body, batch_s = _post_json(url, {'input': prompts})
+        alone, alone_s = [], []
+        for p in prompts:
+            one, s = _post_json(url, {'input': [p]})
+            alone.append(np.asarray(one['data'][0]['embedding']))
+            alone_s.append(s)
+        paths['15c'] = _counts(counters)
+    finally:
+        replica.shutdown_replica(server, thread)
+    vecs = np.asarray([d['embedding'] for d in body['data']])
+    if vecs.shape != (8, cfg.d_model) or not np.isfinite(vecs).all() or \
+            body['usage']['prompt_tokens'] != sum(SERVE_LENGTHS):
+        raise AssertionError(f'15c: {vecs.shape}, {body["usage"]}')
+    cos_alone = [_cosine(a, v) for a, v in zip(alone, vecs)]
+    # encode with the plain attention and norm, on the card, on the
+    # request's padded batch (the module attributes encode reads).
+    tokens = np.zeros((8, 1024), np.int32)
+    lengths = np.asarray(SERVE_LENGTHS, np.int32)
+    for i, p in enumerate(prompts):
+        tokens[i, :len(p)] = p
+    real = attention.flash_attention, rmsnorm.rms_norm
+
+    def plain_encode(mask):
+        attention.flash_attention = (
+            lambda q, k, v, causal=True: attention._attention_plain(
+                q, k, v, causal and mask))
+        rmsnorm.rms_norm = rmsnorm._rms_norm_plain
+        try:
+            with torch.inference_mode():
+                return llama_infer.encode(
+                    b.params, torch.as_tensor(tokens, device=b.device), cfg,
+                    torch.as_tensor(lengths, device=b.device)).cpu().numpy()
+        finally:
+            attention.flash_attention, rmsnorm.rms_norm = real
+
+    def against(ref):
+        return ([_cosine(r, v) for r, v in zip(ref, vecs)],
+                [float(np.abs(v - r).max() / np.abs(r).max())
+                 for r, v in zip(ref, vecs)])
+
+    def passes(cos, rel):
+        return min(cos) >= 0.999 and max(rel) <= EMBED_REL_TOL
+
+    cos_plain, rel = against(plain_encode(True))
+    if min(cos_alone) < 0.999 or not passes(cos_plain, rel):
+        raise AssertionError(f'15c: cosine alone {cos_alone}, against the '
+                             f'plain versions {cos_plain}, max relative '
+                             f'error {rel} (at most {EMBED_REL_TOL})')
+    # The gate's power: the plain versions with the causal mask dropped
+    # (a planted attention fault) must fail it.
+    cos_fault, rel_fault = against(plain_encode(False))
+    if passes(cos_fault, rel_fault):
+        raise AssertionError(f'15c: the gate passes encode without its '
+                             f'causal mask: cosine {cos_fault}, max '
+                             f'relative error {rel_fault}')
+    log('  15c: ' + json.dumps({
+        'card': CARD['line'], 'batch_request_s': batch_s,
+        'alone_request_s': alone_s, 'cosine_alone_min': min(cos_alone),
+        'cosine_plain_min': min(cos_plain), 'max_rel_err_plain': max(rel),
+        'max_rel_err_plain_each': rel, 'max_rel_err_gate': EMBED_REL_TOL,
+        'planted_no_causal_mask': {'cosine_min': min(cos_fault),
+                                   'max_rel_err': max(rel_fault)}}))
+
+
+# The child's launch counts (_counts' keys) after an entry point runs in
+# it, printed on its last line; its arguments follow the module name.
+_CHILD = '''
+import json, runpy, sys
+from skypilot_tpu_torch.ops import attention, decode_attention, rmsnorm
+module = sys.argv[1]
+sys.argv = [module] + sys.argv[2:]
+try:
+    runpy.run_module(module, run_name='__main__', alter_sys=True)
+except SystemExit as e:
+    if e.code:
+        raise
+out = {}
+for c in (decode_attention.decode_attention_pooled,
+          attention.flash_attention, rmsnorm.rms_norm,
+          decode_attention.decode_window_attention_pooled,
+          decode_attention.fused_step_attention_pooled,
+          attention.flash_attention_dq, attention.flash_attention_dkv,
+          decode_attention.decode_attention):
+    out[c.__name__] = c.launches
+    for route, attr in %r.items():
+        if hasattr(c, attr):
+            out[c.__name__ + '[' + route + ']'] = getattr(c, attr)
+print('LAUNCHES ' + json.dumps(out), flush=True)
+'''
+
+
+def _run_child(module, args, timeout=900):
+    """Run an entry point as a child process; returns (its stdout lines,
+    its launch counts)."""
+    env = dict(os.environ, PYTHONPATH=HERE)
+    proc = subprocess.run(
+        [sys.executable, '-c', _CHILD % (ROUTES,), module] + args,
+        cwd=HERE, env=env, capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f'{module} {" ".join(args)} exited '
+                             f'{proc.returncode}:\n{proc.stdout[-3000:]}\n'
+                             f'{proc.stderr[-3000:]}')
+    lines = proc.stdout.splitlines()
+    launches = json.loads(lines[-1][len('LAUNCHES '):])
+    return lines[:-1], launches
+
+
+def batch_infer_path(paths, root, model_size='8b', device_args=(),
+                     vocab_size=128256):
+    """15d: batch_infer as a child process over 64 JSONL lines (32 text,
+    32 prompt_ids, 17-700 tokens, 32 new each; phase 5's settings), then
+    the first 24 output lines kept and the rest regenerated with
+    --resume.  Gates: 64 distinct ids, none twice, the 24 kept lines
+    unchanged.  Prints how many of the 40 regenerated outputs equal the
+    first run's (bf16: a batch's composition may change roundings), and
+    prompts/s and tokens/s."""
+    rng = np.random.RandomState(15)
+    text = _readme_text(4000)
+    inp = os.path.join(root, 'prompts.jsonl')
+    lengths = [SERVE_LENGTHS[i % 8] + i // 8 for i in range(64)]
+    with open(inp, 'w', encoding='utf-8') as f:
+        for i, n in enumerate(lengths):
+            if i % 2:
+                rec = {'id': f'text-{i}', 'prompt': text[7 * i:7 * i + n]}
+            else:
+                rec = {'id': f'ids-{i}', 'prompt_ids': [
+                    int(t) for t in rng.randint(0, vocab_size, size=n)]}
+            f.write(json.dumps(rec) + '\n')
+    args = ['--input', inp, '--model-size', model_size, '--max-seq-len',
+            '1024', '--batch-size', '8', '--prefill-chunk', '256',
+            '--max-new-tokens', '32'] + list(device_args)
+    first = os.path.join(root, 'first.jsonl')
+    t0 = time.perf_counter()
+    out1, launches1 = _run_child('skypilot_tpu_torch.infer.batch_infer',
+                                 args + ['--output', first])
+    first_s = time.perf_counter() - t0
+    with open(first, encoding='utf-8') as f:
+        first_lines = f.read().splitlines()
+    resumed = os.path.join(root, 'resumed.jsonl')
+    with open(resumed, 'w', encoding='utf-8') as f:
+        f.write('\n'.join(first_lines[:24]) + '\n')
+    t0 = time.perf_counter()
+    out2, launches2 = _run_child('skypilot_tpu_torch.infer.batch_infer',
+                                 args + ['--output', resumed, '--resume'])
+    resume_s = time.perf_counter() - t0
+    with open(resumed, encoding='utf-8') as f:
+        lines = f.read().splitlines()
+    rows = [json.loads(line) for line in lines]
+    ids = [r['id'] for r in rows]
+    want_ids = {json.loads(line)['id'] for line in open(inp)}
+    if len(rows) != 64 or len(set(ids)) != 64 or set(ids) != want_ids \
+            or lines[:24] != first_lines[:24] \
+            or any(len(r['output_ids']) != 32 for r in rows):
+        raise AssertionError(f'15d: {len(rows)} lines, {len(set(ids))} '
+                             f'distinct ids, kept lines unchanged: '
+                             f'{lines[:24] == first_lines[:24]}')
+    if not any('40 prompts (24 already done)' in line for line in out2):
+        raise AssertionError(f'15d: resume said {out2}')
+    by_id = {json.loads(line)['id']: json.loads(line)['output_ids']
+             for line in first_lines}
+    same = sum(by_id[r['id']] == r['output_ids'] for r in rows[24:])
+    paths['15d'] = {k: launches1[k] + launches2[k] for k in launches1}
+    log('  15d: ' + json.dumps({
+        'card': CARD['line'], 'first_run_s': first_s,
+        'resume_run_s': resume_s, 'first_run': out1[-1],
+        'resume_run': out2[-1],
+        'regenerated_equal_to_first_run': f'{same} of 40'}))
+
+
+def eval_ppl_path(paths, counters, root, model_size='8b', device='cuda'):
+    """15e: eval_ppl over a corpus of the repo's own SURVEY.md and
+    README.md (seq 2048, batch 4, 4 batches), with --loss-chunk 0 and
+    512, in this process, after one untimed batch.  Gate: the two NLLs
+    agree to 1e-3 relative.  Prints tokens/s (the batches'
+    device-synchronized seconds) and peak memory."""
+    import contextlib
+    import io
+
+    from skypilot_tpu_torch.train import eval_ppl
+
+    corpus = os.path.join(root, 'corpus.txt')
+    with open(corpus, 'w', encoding='utf-8') as out:
+        for name in ('SURVEY.md', 'README.md'):
+            with open(os.path.join(HERE, name), encoding='utf-8') as f:
+                out.write(f.read())
+    real = eval_ppl.nll_and_count
+    on_card = device == 'cuda'
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    results = {}
+    args = ['--data-file', corpus, '--seq-len', '2048', '--batch-size', '4',
+            '--model-size', model_size, '--device', device]
+    # One untimed batch first: the shapes' first use (cuBLAS, the
+    # allocator) lands outside the timed runs.
+    with contextlib.redirect_stdout(io.StringIO()):
+        eval_ppl.main(args + ['--max-batches', '1'])
+    _zero(counters)
+    for chunk in (0, 512):
+        seconds = [0.0]
+
+        def timed(*args, **kwargs):
+            sync()
+            t0 = time.perf_counter()
+            out = real(*args, **kwargs)
+            sync()
+            seconds[0] += time.perf_counter() - t0
+            return out
+
+        eval_ppl.nll_and_count = timed
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        stdout = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(stdout):
+                eval_ppl.main(args + ['--max-batches', '4', '--loss-chunk',
+                                      str(chunk)])
+        finally:
+            eval_ppl.nll_and_count = real
+        line = json.loads(stdout.getvalue().strip().splitlines()[-1])
+        line.update(tokens_per_s=line['tokens'] / seconds[0],
+                    eval_s=seconds[0],
+                    peak_memory_gb=(torch.cuda.max_memory_allocated() / 1e9
+                                    if on_card else None))
+        results[chunk] = line
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    paths['15e'] = _counts(counters)
+    a, b = results[0]['nll'], results[512]['nll']
+    if not (math.isfinite(a) and abs(a - b) <= 1e-3 * abs(a)) or \
+            results[0]['tokens'] != 4 * 4 * 2048:
+        raise AssertionError(f'15e: {results}')
+    log('  15e: ' + json.dumps({'card': CARD['line'],
+                                'loss_chunk_0': results[0],
+                                'loss_chunk_512': results[512]}))
 
 
 # Launch counts by route: '<name>[tc]' the tensor-core kernels of K2, K5
@@ -4177,10 +4832,10 @@ def main() -> int:
         log(f'  phase {clock["name"]}: '
             f'{time.perf_counter() - clock["start"]:.1f} s')
 
-    phase(f'[1/14] device: {CARD["line"]} | torch {torch.__version__} '
+    phase(f'[1/15] device: {CARD["line"]} | torch {torch.__version__} '
         f'cuda {torch.version.cuda}')
 
-    phase('[2/14] build')
+    phase('[2/15] build')
     _kernels.LIBRARY.get()
     log(f'  built {_kernels.LIBRARY.path.name} in '
         f'{_kernels.LIBRARY.build_seconds:.1f} s')
@@ -4199,7 +4854,7 @@ def main() -> int:
                 and info['spill_bytes']:
             raise AssertionError(f'decode kernel {name} spills: {info}')
 
-    phase('[3/14] kernels vs plain versions')
+    phase('[3/15] kernels vs plain versions')
     t0 = time.perf_counter()
     decode = check_decode(decode_attention, ptxas)
     decode['g2'], decode['combine g2'] = check_decode_at(
@@ -4231,13 +4886,13 @@ def main() -> int:
         f'{time_ms(read.sum):.4f} ms (bound 0.0063)')
     del tiny, read
 
-    phase('[4/14] slice parity, LLAMA_DEBUG and MoE f32, card vs host')
+    phase('[4/15] slice parity, LLAMA_DEBUG and MoE f32, card vs host')
     slice_parity()
     train_parity()
     post_train_parity()
     moe_parity()
 
-    phase('[5/14] main path, LLAMA3_8B bf16 behind the HTTP replica')
+    phase('[5/15] main path, LLAMA3_8B bf16 behind the HTTP replica')
     cfg = llama.LLAMA3_8B
     t0 = time.perf_counter()
     params = llama.init_params(
@@ -4263,7 +4918,7 @@ def main() -> int:
             raise AssertionError(f'{k1.__name__} missed the split route on '
                                  f'the {key} path')
 
-    phase('[6/14] main path with spec_k 12 and fuse_budget 264: (a) bf16, '
+    phase('[6/15] main path with spec_k 12 and fuse_budget 264: (a) bf16, '
         '(b) int8 KV and weights')
     spec = dict(base, spec_k=12, fuse_budget=264)
     paths['6a'], _, _, _ = serve_path('6a bf16 spec+fused', params,
@@ -4277,7 +4932,7 @@ def main() -> int:
               + [f'{c.__name__}[{r}]' for c in (k4v, k4f)
                  for r in ('tc', 'split')])
 
-    phase("[7/14] legacy plane decode_impl='paged' (K7): (a) bf16 and (b) int8 "
+    phase("[7/15] legacy plane decode_impl='paged' (K7): (a) bf16 and (b) int8 "
         'KV behind the HTTP replica, (c) Generator.generate')
     legacy = dict(base, decode_impl='paged', decode_chunk=16)
     with warnings.catch_warnings():
@@ -4300,7 +4955,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    phase('[8/14] train path: (a) LLAMA_1B at the bench settings, (b) '
+    phase('[8/15] train path: (a) LLAMA_1B at the bench settings, (b) '
         'LLAMA3_8B widths at depth 2')
     remat = dict(remat=True, remat_policy='dots')
     cfg_1b = dataclasses.replace(llama.LLAMA_1B, max_seq_len=2048,
@@ -4315,7 +4970,7 @@ def main() -> int:
         2, 4096, 6, trainer.TrainConfig(warmup_steps=2, total_steps=6),
         counters)
 
-    phase('[9/14] checkpoints: (a) LLAMA_1B async saves, restore, continue '
+    phase('[9/15] checkpoints: (a) LLAMA_1B async saves, restore, continue '
           '(phase 8a settings), (b) a managed job SIGTERMed and resumed '
           'through train_llama --resume auto')
     scratch = tempfile.mkdtemp(prefix='chip_smoke_ckpt_')
@@ -4338,7 +4993,7 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
-    phase('[10/14] post-training: (a) LoRA-SFT and (b) LoRA-DPO of LLAMA3_8B '
+    phase('[10/15] post-training: (a) LoRA-SFT and (b) LoRA-DPO of LLAMA3_8B '
           'at 32 layers, (c) GRPO on LLAMA_1B, (d) the entry points')
     gc.collect()
     torch.cuda.empty_cache()
@@ -4374,13 +5029,13 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
-    phase('[11/14] Mixtral-8x7B widths, random bf16 weights: (a) 16 of 32 '
+    phase('[11/15] Mixtral-8x7B widths, random bf16 weights: (a) 16 of 32 '
           'layers served, (c) LoRA-SFT of that base, (b) trained at depth 2')
     gc.collect()
     torch.cuda.empty_cache()
     mixtral_path(counters, paths)
 
-    phase('[12/14] HF checkpoints written in HF\'s layout and loaded by '
+    phase('[12/15] HF checkpoints written in HF\'s layout and loaded by '
           'convert.load_hf_model: (a) Gemma-7B and (b) Qwen2.5-1.5B at '
           'their published widths served, 12b LoRA-SFT in process and '
           'through train_sft --hf-model, (c) debug-size parity card vs host')
@@ -4400,14 +5055,14 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
-    phase('[13/14] ResNet: (a) ResNet18Thin one SGD step card vs host, (b) '
+    phase('[13/15] ResNet: (a) ResNet18Thin one SGD step card vs host, (b) '
           'train_resnet\'s path, ResNet50 at batch 256 of 224x224')
     gc.collect()
     torch.cuda.empty_cache()
     resnet_parity()
     resnet_train_path()
 
-    phase('[14/14] prefix cache, host tier and handoff at LLAMA3_8B bf16, '
+    phase('[14/15] prefix cache, host tier and handoff at LLAMA3_8B bf16, '
           '32 layers: (a) prefix reuse, (b) the host tier, (c) the '
           'prefill -> decode handoff in bf16 and int8 KV, (d) debug-size '
           'parity card vs host')
@@ -4435,6 +5090,43 @@ def main() -> int:
     t0 = time.perf_counter()
     prefix_parity()
     log(f'  14d: {time.perf_counter() - t0:.1f} s')
+
+    phase('[15/15] telemetry and the entry points around the batcher at '
+          'LLAMA3_8B bf16, 32 layers: (a) spans and the cost ledger on and '
+          'off, (b) the OpenAI routes, (c) /v1/embeddings (encode), (d) '
+          'batch_infer --resume, (e) eval_ppl')
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = llama.init_params(
+        cfg, torch.Generator(device='cuda').manual_seed(0), 'cuda')
+    torch.cuda.synchronize()
+    log(f'  LLAMA3_8B bf16 random weights (phase 5\'s seed) in '
+        f'{time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    served, span_buf = telemetry_path(params, counters, paths)
+    log(f'  15a: {time.perf_counter() - t0:.1f} s')
+    for sub, run in (('15b', lambda: openai_path(served, span_buf, counters,
+                                                 paths)),
+                     ('15c', lambda: embeddings_path(served, counters,
+                                                     paths))):
+        t0 = time.perf_counter()
+        run()
+        log(f'  {sub}: {time.perf_counter() - t0:.1f} s')
+    served.close()
+    del served, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    scratch = tempfile.mkdtemp(prefix='chip_smoke_entry_')
+    try:
+        t0 = time.perf_counter()
+        batch_infer_path(paths, scratch)
+        log(f'  15d: {time.perf_counter() - t0:.1f} s')
+        t0 = time.perf_counter()
+        eval_ppl_path(paths, counters, scratch)
+        log(f'  15e: {time.perf_counter() - t0:.1f} s')
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
     last_phase_done()
     log(f'  whole run: {time.perf_counter() - run_start:.1f} s')
     for key in ('8a', '8b', '9a', '10a', '10b', '10c', '11b', '11c'):
@@ -4448,6 +5140,16 @@ def main() -> int:
     phase14 = ('14a', '14b', '14c-bf16', '14c-int8')
     for key in phase14:
         _need(key, paths[key], [c.__name__ for c in (k1, k3)])
+    # Phase 15's serving paths decode (K1) and prefill (K2, K3); encode
+    # and eval_ppl run K2 without its lse and K3.
+    decode15 = ('15a', '15b', '15d')
+    for key in decode15:
+        _need(key, paths[key], [c.__name__ for c in (k1, k2, k3)])
+    for key in ('15c', '15e'):
+        _need(key, paths[key], [c.__name__ for c in (k2, k3)])
+        if paths[key][f'{k2.__name__}[lse]']:
+            raise AssertionError(f'{k2.__name__} wrote its lse on the '
+                                 f'{key} path')
     for key, launches in paths.items():
         # Every path runs bf16 at head_dim 128 (12a's K2 at 256): the
         # tensor-core route only; and B KV (8 slots x 16, 8 or 2 KV heads)
@@ -4455,7 +5157,7 @@ def main() -> int:
         route = [(c, 'tc') for c in (k2, k5, k6)]
         route += [(c, 'split') for c in (k1, k7)
                   if key[0] in '567' or key in ('10c', '11a', '12a', '12b')
-                  or key in phase14]
+                  or key in phase14 or key in decode15]
         route += [(c, 'tc') for c in (k4v, k4f) if key[0] == '6']
         for c, r in route:
             if launches[f'{c.__name__}[{r}]'] != launches[c.__name__]:
@@ -4480,7 +5182,7 @@ def main() -> int:
     hf = ('12a', '12b', '12b-sft')
     rest = tuple(k for k in paths if k not in hf)
     kernels = [
-        entry(decode['bf16'], k1, ('5', '6a', '11a')),
+        entry(decode['bf16'], k1, ('5', '6a', '11a') + decode15),
         entry(decode['g2'], k1, ('10c',)),
         entry(decode['gemma'], k1, ('12a',)),
         entry(decode['qwen'], k1, ('12b',)),
@@ -4504,7 +5206,8 @@ def main() -> int:
     ]
     # The combine runs inside every split launch of K1 and K7.
     split_paths = {k: paths[k][f'{c.__name__}[split]']
-                   for c, keys in ((k1, ('5', '6a', '6b', '11a') + phase14),
+                   for c, keys in ((k1, ('5', '6a', '6b', '11a') + phase14
+                                    + decode15),
                                    (k7, ('7a', '7b', '7c'))) for k in keys}
     kernels.append(dict(decode['combine'],
                         launches=sum(split_paths.values()),

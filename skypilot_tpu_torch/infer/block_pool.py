@@ -206,7 +206,10 @@ class BlockPool:
         ids = [self._free.pop() for _ in range(k)]
         self._refs[ids] = 1
         self.hwm = max(self.hwm, self.live_blocks())
-        self.table_appends += k
+        if k:
+            self.table_appends += k
+            telemetry_metrics.INFER_POOL_TABLE_APPENDS.inc(k)
+        self._publish()
         return ids
 
     def alloc_for_prefetch(self, k: int) -> Optional[List[int]]:
@@ -260,6 +263,15 @@ class BlockPool:
                         f'released: clear_inflight must precede the '
                         f'final release')
                 self._free.append(b)
+        self._publish()
+
+    # -- telemetry -------------------------------------------------------
+
+    def _publish(self) -> None:
+        telemetry_metrics.INFER_POOL_BLOCKS_TOTAL.set(self.n_blocks)
+        telemetry_metrics.INFER_POOL_BLOCKS_LIVE.set(self.live_blocks())
+        telemetry_metrics.INFER_POOL_BLOCKS_FREE.set(len(self._free))
+        telemetry_metrics.INFER_POOL_HWM.set(self.hwm)
 
     def stats(self) -> Dict[str, int]:
         return {

@@ -13,8 +13,11 @@ block-table splice on the pooled plane, an install copy on a legacy
 one).  The host KV tier (``host_tier_mb``) belongs to the batcher.
 Options the port does not carry yet raise ``NotImplementedError``
 naming their ROADMAP.md item: meshes and collective overlap (item 10).
-Telemetry (item 13) is left out; a Generator keeps its last run's counts
-in ``last_stats``.
+Telemetry as the reference's: ``host_fetch`` counts every sync into
+``skytpu_infer_host_syncs_total``, and ``Generator.generate`` sets the
+prefill, decode-chunk, bucket, migration, speculation and steady-rate
+families (telemetry/metrics.py); a Generator also keeps its last run's
+counts in ``last_stats``.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from skypilot_tpu_torch.infer import sampling
 from skypilot_tpu_torch.infer import spec_decode as spec_decode_lib
 from skypilot_tpu_torch.ops import _kernels
 from skypilot_tpu_torch.ops import decode_attention as decode_attention_ops
+from skypilot_tpu_torch.telemetry import metrics as telemetry_metrics
 
 
 def _deferred(option: str, item: int) -> NotImplementedError:
@@ -290,7 +294,9 @@ def migrate_cache(cache, cache_len: int, target: int, migrations: dict):
     """Resize a legacy cache's position axis from `cache_len` to `target`
     rows (one copy of the cache on the device), counted in
     migrations['grow'] or ['shrink']; returns the new cache."""
-    migrations['grow' if target > cache_len else 'shrink'] += 1
+    direction = 'grow' if target > cache_len else 'shrink'
+    migrations[direction] += 1
+    telemetry_metrics.INFER_CACHE_MIGRATIONS.labels(direction=direction).inc()
     return llama_infer.resize_cache(cache, target)
 
 
@@ -298,9 +304,11 @@ def host_fetch(*tensors: torch.Tensor) -> Tuple[np.ndarray, ...]:
     """THE device -> host transfer point of the decode data path: every
     fetch of decode results (token blocks, positions, done flags) goes
     through this one call, so the contract of O(1) transfers per decode
-    CHUNK, never per token, is countable (``host_fetch.calls``) and
-    testable.  Several tensors fetched together count as ONE sync."""
+    CHUNK, never per token, is countable (``host_fetch.calls`` and
+    skytpu_infer_host_syncs_total) and testable.  Several tensors fetched
+    together count as ONE sync."""
     host_fetch.calls += 1
+    telemetry_metrics.INFER_HOST_SYNCS.inc()
     return tuple(t.to('cpu').numpy() for t in tensors)
 
 
@@ -864,6 +872,8 @@ class Generator:
         (first_host,) = host_fetch(token)
         syncs = 1
         ttft = time.perf_counter() - prefill_start
+        telemetry_metrics.INFER_PREFILL_SECONDS.labels(
+            bucket=str(bucket)).observe(ttft)
 
         eos = self.gen.eos_token
         out: List[List[int]] = [[] for _ in range(batch)]
@@ -944,11 +954,18 @@ class Generator:
                      host_committed) = host_fetch(toks, positions, done_row,
                                                   committed)
                     syncs += 1
-                    decode_seconds += time.perf_counter() - chunk_start
+                    chunk_dt = time.perf_counter() - chunk_start
+                    telemetry_metrics.INFER_DECODE_CHUNK_SECONDS.observe(
+                        chunk_dt)
+                    decode_seconds += chunk_dt
                     accepted = sum(max(int(host_committed[i]) - 1, 0)
                                    for i in live)
-                    self._spec_policy.record(accepted,
-                                             self.gen.spec_k * len(live))
+                    proposed = self.gen.spec_k * len(live)
+                    self._spec_policy.record(accepted, proposed)
+                    telemetry_metrics.INFER_SPEC_PROPOSED.inc(proposed)
+                    telemetry_metrics.INFER_SPEC_ACCEPTED.inc(accepted)
+                    telemetry_metrics.INFER_SPEC_ACCEPT_RATE.observe(
+                        accepted / max(proposed, 1))
                     dispatched += sum(int(host_committed[i]) for i in live)
                     for i in live:
                         c = int(host_committed[i])
@@ -988,7 +1005,13 @@ class Generator:
                 host_toks, host_positions, host_done = host_fetch(
                     toks, positions, done_row)
                 syncs += 1
-                decode_seconds += time.perf_counter() - chunk_start
+                chunk_dt = time.perf_counter() - chunk_start
+                telemetry_metrics.INFER_DECODE_CHUNK_SECONDS.observe(
+                    chunk_dt)
+                telemetry_metrics.INFER_DECODE_BUCKET_CHUNKS.labels(
+                    bucket=str(cache_len)).inc()
+                telemetry_metrics.INFER_DECODE_CACHE_ROWS.set(cache_len)
+                decode_seconds += chunk_dt
                 dispatched += n * len(prompts)
                 # (A legacy plane parked done rows at row 0: no step.)
                 live_steps += int(np.clip(host_positions - prev_host, 0,
@@ -1009,10 +1032,19 @@ class Generator:
                 # Every row's blocks return: free + live == total holds
                 # between generate() calls.
                 self._release_rows()
+            total = sum(len(out[i]) for i in range(len(prompts)))
+            if decode_seconds > 0:
+                telemetry_metrics.INFER_STEADY_TOKENS_PER_SEC.set(
+                    dispatched / decode_seconds)
+            telemetry_metrics.INFER_GENERATED_TOKENS.inc(total)
+            telemetry_metrics.INFER_HOST_SYNCS_PER_TOKEN.set(
+                syncs / max(total, 1))
+            if self._drafter is not None:
+                telemetry_metrics.INFER_SPEC_TOKENS_PER_SYNC.set(
+                    total / max(syncs, 1))
             self.last_stats = {
                 'ttft_s': ttft, 'decode_seconds': decode_seconds,
                 'decode_tokens': dispatched, 'host_fetches': syncs,
                 'live_slot_steps': live_steps,
                 'cache_len': cache_len,
-                'generated_tokens': sum(len(out[i])
-                                        for i in range(len(prompts)))}
+                'generated_tokens': total}

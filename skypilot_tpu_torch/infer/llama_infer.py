@@ -14,7 +14,7 @@ a decode, verify or fused step reads no device value on the host.
 
 Kernels on this path (each with a plain PyTorch version for CPU tensors):
 ``ops.rmsnorm.rms_norm`` (every norm), ``ops.attention.flash_attention``
-(prefill), ``ops.decode_attention.decode_attention_pooled`` (decode),
+(prefill and ``encode``, the embeddings' forward), ``ops.decode_attention.decode_attention_pooled`` (decode),
 ``decode_window_attention_pooled`` (speculative verify),
 ``fused_step_attention_pooled`` (the fused prefill+decode step) and
 ``decode_attention`` (K7, the 'paged' plane's decode).  The
@@ -198,6 +198,38 @@ def prefill(params: llama.Params, tokens: torch.Tensor,
     last = h[torch.arange(batch, device=h.device), lengths.long() - 1]
     logits = quant.matmul(last, params['lm_head'], out_dtype=torch.float32)
     return logits, cache
+
+
+def encode(params: llama.Params, tokens: torch.Tensor,
+           config: llama.LlamaConfig, lengths: torch.Tensor) -> torch.Tensor:
+    """Mean-pooled final hidden states (B, d) f32 over each row's valid
+    prefix: the /v1/embeddings path.  The same quant-aware layer stack as
+    :func:`prefill` (int8 weight-only params too) with K2 (causal, no
+    lse) and K3, no KV cache, and no logits.  Causal attention keeps
+    each row's valid prefix blind to the bucket's right padding, and the
+    mask drops the padding from the mean, so a row's vector does not
+    depend on the bucket or the batch it rides in (up to the rounding of
+    the batched products)."""
+    batch, seq = tokens.shape
+    cos, sin = rope_tables(config, seq, tokens.device)
+    h = llama.embed_tokens(params, tokens, config)
+    for i in range(config.n_layers):
+        lp = llama.layer_params(params, i)
+        attn_p = lp['attn']
+        x = rmsnorm_ops.rms_norm(h, lp['ln1'], eps=config.norm_eps)
+        q, k, v = _qkv(x, attn_p, config)
+        q = rope_ops.apply_rope(q, cos, sin)
+        k = rope_ops.apply_rope(k, cos, sin)
+        o = attention_ops.flash_attention(q, k, v, causal=True)
+        h = h + quant.matmul(o.reshape(batch, seq, -1), attn_p['wo'])
+        x = rmsnorm_ops.rms_norm(h, lp['ln2'], eps=config.norm_eps)
+        h = h + _ffn(x, lp, config)
+    h = rmsnorm_ops.rms_norm(h, params['final_norm'], eps=config.norm_eps)
+    mask = (torch.arange(seq, device=h.device)[None, :]
+            < lengths.to(h.device)[:, None]).to(h.dtype)
+    pooled = (h * mask[..., None]).sum(dim=1) / torch.clamp_min(
+        mask.sum(dim=1), 1.0)[:, None]
+    return pooled.float()
 
 
 def prefill_window(params: llama.Params, tokens_w: torch.Tensor,

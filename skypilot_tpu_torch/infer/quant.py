@@ -77,3 +77,14 @@ def matmul(x: torch.Tensor, w: Any, out_dtype=None) -> torch.Tensor:
         return y.to(out_dtype or x.dtype)
     y = x @ w
     return y.to(out_dtype) if out_dtype is not None else y
+
+
+def quantized_bytes(params: Dict[str, Any]) -> int:
+    """Total device bytes of the parameter tree (int8 weights, their
+    scales and the leaves left in the model dtype): the weight-stream
+    term of the decode roofline."""
+    if isinstance(params, dict):
+        return sum(quantized_bytes(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(quantized_bytes(v) for v in params)
+    return params.numel() * params.element_size()

@@ -59,9 +59,25 @@ nucleus), and a fused chunk's steps 1..n-1 as the plain chunk of n - 1
 (its step 0, which carries the prompt chunk, stays eager).  The arena,
 the slot cache and the tables are written in place, never rebound, by
 every path (prefix installs, tier scatters and handoff ingests too), so
-a captured graph never reads stale memory.  Left for later slices
-(ROADMAP.md Queue A): telemetry, spans and the cost ledger (item 13),
-and meshes (item 10).
+a captured graph never reads stale memory.
+
+Telemetry, as the reference's: every tick runs under a StepProfiler
+(phases admit, prefill, upload, decode, fused, spec_draft, spec_verify,
+tier_wait and host_fetch; telemetry/spans.py) whose times feed the
+``skytpu_infer_step_phase_seconds`` / ``_utilization`` families, an
+optional per-tenant CostLedger (telemetry/accounting.py) and, with
+SKYTPU_STEP_TELEMETRY_FILE set, an ``infer_step_phases`` steplog record.
+Lifecycle spans (queue_wait, admit, prefill_chunk, decode_chunk,
+fused_tick, spec_draft, spec_verify, delivery, the admission.* markers
+and handoff.export/ingest) go to a given SpanBuffer, or to the module
+buffer when SKYTPU_SPANS or SKYTPU_TIMELINE_FILE is set, keyed by the
+trace id bound at submit().  None of it runs inside a captured graph,
+and none of it adds a device synchronize: launches are asynchronous, so
+a chunk's device time shows in the host_fetch phase that waits for it.
+A key's first capture falls inside the phase that launched it
+(``graphs.captures``/``capture_seconds`` report captures apart).
+Meshes (``set_collective_share`` among them) are ROADMAP.md Queue A
+item 10.
 
 Usage:
 
@@ -94,7 +110,11 @@ from skypilot_tpu_torch.infer import sampling
 from skypilot_tpu_torch.infer import spec_decode as spec_decode_lib
 from skypilot_tpu_torch.infer.engine import GeneratorConfig
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.telemetry import accounting
 from skypilot_tpu_torch.telemetry import metrics as telemetry_metrics
+from skypilot_tpu_torch.telemetry import spans as spans_lib
+from skypilot_tpu_torch.telemetry import steplog
+from skypilot_tpu_torch.telemetry import trace as trace_lib
 
 logger = logging.getLogger(__name__)
 
@@ -112,9 +132,18 @@ class _Request:
     done: bool = False
     # Chunked prefill: prompt tokens already written to the arena.
     prefill_pos: int = 0
+    # Fused steps that carried a chunk of this prompt (0: every window
+    # ran as a dedicated prefill).
+    fused_chunks: int = 0
     # Host clock at submit() and seconds from there to the first token.
     submitted_at: float = 0.0
     ttft_s: Optional[float] = None
+    # The trace id bound at submit() (trace.trace_scope) and the submit
+    # instant on the span clock, for the queue_wait span.
+    trace_id: Optional[str] = None
+    submitted_span_at: float = 0.0
+    # Cost attribution tag; 'default' when the client named none.
+    tenant: str = 'default'
 
 
 class ContinuousBatcher:
@@ -123,7 +152,11 @@ class ContinuousBatcher:
     def __init__(self, params: llama.Params, config: llama.LlamaConfig,
                  gen_config: GeneratorConfig = GeneratorConfig(),
                  decode_chunk: int = 8, max_queue: Optional[int] = None,
-                 device=None, graphs: Optional[bool] = None):
+                 device=None, graphs: Optional[bool] = None,
+                 span_buffer: Optional[spans_lib.SpanBuffer] = None,
+                 span_clock=None,
+                 ledger: Optional[accounting.CostLedger] = None,
+                 profiler_clock=None):
         """params: as returned by llama.init_params / params_from_numpy,
         on `device` (default: the CUDA card); gen_config.weights_dtype
         'int8' serves a quantized copy of them.
@@ -134,7 +167,18 @@ class ContinuousBatcher:
         graphs: replay each decode, verify and fused-tail chunk from a
         CUDA graph captured once per static key (``self.graphs``); None
         = on for a CUDA device, off on the CPU; False runs every chunk
-        eagerly; True on the CPU raises."""
+        eagerly; True on the CPU raises.
+
+        span_buffer/span_clock: lifecycle-span sink and its clock (None:
+        the module's wall-clock buffer, gated by spans.enabled()).
+
+        ledger: a telemetry/accounting.py CostLedger that each step's
+        exclusive phase seconds are apportioned into (None: nothing is
+        recorded).
+
+        profiler_clock: the StepProfiler's clock (None: the host timer,
+        time.perf_counter; a tick counter makes the attribution a pure
+        function of the schedule)."""
         self.device = resolve_device(device)
         engine_lib.validate_context(gen_config, config)
         if gen_config.prefill_chunk is not None and \
@@ -267,13 +311,91 @@ class ContinuousBatcher:
         # chunk) and those of them in which a slot decoded a token.
         self.slot_steps = 0
         self.live_slot_steps = 0
+        # Step-phase attribution (always on: a few host-timer reads a
+        # tick) and lifecycle spans (gated: _spans_on()).
+        self._profiler = (spans_lib.StepProfiler(profiler_clock)
+                          if profiler_clock is not None
+                          else spans_lib.StepProfiler())
+        self._span_buf = span_buffer
+        self._span_clock = span_clock or time.time
+        # Per-tenant cost attribution; the retry counter counts admission
+        # backpressure.
+        self._ledger = ledger
+        self.backpressure_retries = 0
+        self._ledger_tier_prev = (0.0, 0.0)
+
+    # ---- tracing ---------------------------------------------------------
+    def _spans_on(self) -> bool:
+        return self._span_buf is not None or spans_lib.enabled()
+
+    def _span(self, name: str, t0: float, t1: float,
+              req: Optional[_Request] = None,
+              trace_id: Optional[str] = None, **attrs) -> None:
+        # Not `or`: an empty SpanBuffer is falsy (__len__ == 0).
+        buf = (self._span_buf if self._span_buf is not None
+               else spans_lib.default_buffer())
+        if req is not None and trace_id is None:
+            trace_id = req.trace_id
+        buf.record(name, t0, t1, trace_id=trace_id,
+                   request_id=req.rid if req is not None else None,
+                   **attrs)
+
+    def _fetch(self, *tensors):
+        """engine.host_fetch under the host_fetch phase: the blocking
+        device -> host copy is where the step waits for the device work
+        it dispatched, and is charged to no dispatching phase."""
+        with self._profiler.phase('host_fetch'):
+            return engine_lib.host_fetch(*tensors)
+
+    def set_collective_share(self, share: Optional[float]) -> None:
+        """The collective-time share of a mesh-sharded decode: meshes
+        are not ported."""
+        raise engine_lib._deferred('set_collective_share', 10)
+
+    def _finish_step_profile(self) -> None:
+        profiler = self._profiler
+        phases = profiler.finish()
+        if not phases:
+            return
+        wall = profiler.last_wall
+        if self._ledger is not None:
+            if self.pooled and self._active:
+                self._ledger.note_blocks(
+                    [(r.rid, r.tenant, len(self._slot_blocks[s]))
+                     for s, r in self._active.items()])
+            if self._tier is not None:
+                stats = self._tier.stats()
+                spill = float(stats.get('spill_bytes', 0.0))
+                pref = float(stats.get('prefetch_bytes', 0.0))
+                p_spill, p_pref = self._ledger_tier_prev
+                self._ledger.add_tier_bytes(
+                    spill=max(spill - p_spill, 0.0),
+                    prefetch=max(pref - p_pref, 0.0))
+                self._ledger_tier_prev = (spill, pref)
+            self._ledger.end_step(phases, wall)
+        for name, seconds in phases.items():
+            telemetry_metrics.INFER_STEP_PHASE_SECONDS.labels(
+                phase=name).observe(seconds)
+            if wall > 0:
+                telemetry_metrics.INFER_STEP_UTILIZATION.labels(
+                    phase=name).set(seconds / wall)
+        if steplog.enabled():
+            steplog.write({
+                'kind': 'infer_step_phases',
+                'wall_s': round(wall, 9),
+                'phases': {k: round(v, 9) for k, v in phases.items()},
+            })
 
     # ---- public API ------------------------------------------------------
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 64,
                temperature: Optional[float] = None,
-               top_p: Optional[float] = None) -> int:
+               top_p: Optional[float] = None,
+               tenant: Optional[str] = None) -> int:
         """temperature/top_p: per-request sampling (None = the server
-        defaults in GeneratorConfig), honored per slot."""
+        defaults in GeneratorConfig), honored per slot.  tenant: the
+        cost-attribution tag (None or '' bills 'default').  The trace id
+        bound in the caller's context (trace.trace_scope) keys the
+        request's spans."""
         if not prompt:
             raise ValueError('Empty prompt')
         if temperature is not None and temperature < 0.0:
@@ -289,16 +411,26 @@ class ContinuousBatcher:
                 f'Prompt length {len(prompt)} exceeds the largest '
                 f'prompt bucket {self.buckets[-1]}')
         if self.max_queue is not None and self.num_queued >= self.max_queue:
+            retry_s = max(1.0, 0.25 * self.num_queued)
+            if self._spans_on():
+                now = self._span_clock()
+                self._span('admission.backpressure', now, now,
+                           trace_id=trace_lib.get_trace_id(),
+                           retry_after_s=retry_s)
             raise block_pool_lib.PoolExhaustedError(
                 f'Admission queue full ({self.num_queued} waiting, '
                 f'max_queue={self.max_queue}); retry later or on '
                 f'another replica.',
-                retry_after_s=max(1.0, 0.25 * self.num_queued))
+                retry_after_s=retry_s)
         req = _Request(next(self._ids), list(prompt),
                        min(max_new_tokens,
                            self.gen.max_seq_len - len(prompt)),
                        temperature=temperature, top_p=top_p,
-                       submitted_at=time.perf_counter())
+                       submitted_at=time.perf_counter(),
+                       trace_id=trace_lib.get_trace_id(),
+                       tenant=tenant or 'default')
+        if self._spans_on():
+            req.submitted_span_at = self._span_clock()
         if self.pooled and self._pool_cap(req) > self.pool.n_blocks - 1:
             # Its worst-case block need exceeds the whole pool: it could
             # never be admitted.
@@ -560,11 +692,17 @@ class ContinuousBatcher:
         # plain device hit).
         self._tier.prefetch_late += 1
         telemetry_metrics.INFER_TIER_PREFETCH_LATE.inc()
+        if self._spans_on():
+            now = self._span_clock()
+            self._span('admission.tier_park', now, now, req=req,
+                       blocks=len(nodes) * self._prefix._ids_per_node)
         return True
 
     # ---- disaggregated prefill/decode handoff (serve/disagg.py) ----------
     def export_handoff(self, prompt: Sequence[int], *,
-                       release: bool = True) -> Optional[Dict[str, Any]]:
+                       release: bool = True,
+                       trace_id: Optional[str] = None
+                       ) -> Optional[Dict[str, Any]]:
         """Prefill side of a handoff: the prompt's device-resident prefix
         blocks as host tensors, one dict of components a trie node, (L,
         ids_per_node, BS, KV, hd) each (serve/disagg.py frames them),
@@ -576,6 +714,7 @@ class ContinuousBatcher:
         if self._tier is None or self._prefix is None:
             return None
         toks = [int(t) for t in prompt]
+        t0 = self._span_clock() if self._spans_on() else 0.0
         m = self._prefix.match(toks)
         try:
             if not m.tokens or any(n.tier != 'device' for n in m.nodes):
@@ -583,7 +722,7 @@ class ContinuousBatcher:
             comps = sorted(self.pool.arena)
             gathered = [self._tier.export_gather(n.data) for n in m.nodes]
             # bf16 crosses as its bits (numpy has no bfloat16).
-            flat = engine_lib.host_fetch(*[
+            flat = self._fetch(*[
                 g[c].view(torch.int16) if g[c].dtype == torch.bfloat16
                 else g[c] for g in gathered for c in comps])
             payload: List[Dict[str, Any]] = []
@@ -596,10 +735,15 @@ class ContinuousBatcher:
             m.release()
         if release:
             self._prefix.forget(toks[:covered], spill=False)
+        if self._spans_on():
+            self._span('handoff.export', t0, self._span_clock(),
+                       trace_id=trace_id, tokens=covered,
+                       nodes=len(payload))
         return {'tokens': covered, 'payload': payload}
 
     def ingest_handoff(self, prompt: Sequence[int],
-                       payload: Sequence[Dict[str, Any]]) -> int:
+                       payload: Sequence[Dict[str, Any]], *,
+                       trace_id: Optional[str] = None) -> int:
         """Decode side of a handoff: adopt each node's bytes into the
         host tier (``KVTier.adopt_node``, no device work here), then
         queue a prefetch hint, so the ordinary tier machinery stages the
@@ -610,6 +754,7 @@ class ContinuousBatcher:
             return 0
         toks = [int(t) for t in prompt]
         span = self._prefix.block
+        t0 = self._span_clock() if self._spans_on() else 0.0
         adopted = 0
         for i, bufs in enumerate(payload):
             key = tuple(toks[:(i + 1) * span])
@@ -623,6 +768,9 @@ class ContinuousBatcher:
             adopted += 1
         if adopted:
             self.prefetch_hint(toks)
+        if self._spans_on():
+            self._span('handoff.ingest', t0, self._span_clock(),
+                       trace_id=trace_id, nodes=adopted)
         return adopted
 
     # ---- pool helpers ----------------------------------------------------
@@ -704,7 +852,8 @@ class ContinuousBatcher:
 
     def _upload_tables(self) -> None:
         if self._tables_dirty:
-            self._tables_dev.copy_(torch.from_numpy(self._host_tables))
+            with self._profiler.phase('upload'):
+                self._tables_dev.copy_(torch.from_numpy(self._host_tables))
             self._tables_dirty = False
 
     # ---- device pieces ---------------------------------------------------
@@ -927,21 +1076,49 @@ class ContinuousBatcher:
                 self._drafter.observe(slot,
                                       [int(t) for t in host[slot, :delta]])
 
-    def _absorb(self, host: np.ndarray, counts=None) -> None:
+    def _absorb(self, host: np.ndarray, counts=None) -> int:
         """Append each active slot's fetched tokens (the first counts[slot]
         of its row when given) to its request, finishing it on EOS or
-        its budget."""
+        its budget.  Returns the tokens appended."""
         eos = self.gen.eos_token
+        appended = 0
         for slot, req in list(self._active.items()):
             row = host[slot] if counts is None else \
                 host[slot, :int(counts[slot])]
+            absorbed = 0
             for t in row:
                 req.out.append(int(t))
-                self.decode_tokens += 1
+                absorbed += 1
                 if (eos is not None and req.out[-1] == eos) or \
                         len(req.out) >= req.max_new_tokens:
                     self._finish(req)
                     break
+            if self._ledger is not None and absorbed:
+                self._ledger.add_tokens(req.rid, req.tenant, decode=absorbed)
+            appended += absorbed
+        self.decode_tokens += appended
+        telemetry_metrics.INFER_GENERATED_TOKENS.inc(appended)
+        telemetry_metrics.INFER_HOST_SYNCS_PER_TOKEN.set(
+            1.0 / max(appended, 1))
+        telemetry_metrics.INFER_SLOT_OCCUPANCY.set(
+            len(self._active) / self.gen.batch_size)
+        return appended
+
+    def _observe_queue_wait(self, req: _Request) -> None:
+        if req.submitted_at:
+            telemetry_metrics.INFER_QUEUE_WAIT_SECONDS.observe(
+                time.perf_counter() - req.submitted_at)
+        if self._spans_on() and req.submitted_span_at:
+            self._span('queue_wait', req.submitted_span_at,
+                       self._span_clock(), req=req)
+
+    def _backpressure_retry(self, req: _Request) -> None:
+        """Count (and mark) one admission that pool backpressure left
+        queued."""
+        self.backpressure_retries += 1
+        if self._spans_on():
+            now = self._span_clock()
+            self._span('admission.backpressure_retry', now, now, req=req)
 
     def _admit(self) -> None:
         """Move queued requests into free slots: groups of up to
@@ -966,18 +1143,25 @@ class ContinuousBatcher:
                 continue   # parked (match released); idx is the next one
             suffix = len(head.prompt) - (match.tokens if match else 0)
             if chunk_w and suffix > chunk_w:
-                shared = (match.tokens // self.block_size
-                          if self.pooled and match is not None else 0)
-                if self._incremental is not None or \
-                        not self._pool_reserve(head, shared):
-                    # One long prefill in flight, or pool backpressure:
-                    # keep the queue position, scan on.
+                if self._incremental is not None:
+                    # One long prefill in flight: keep the queue
+                    # position, scan on.
                     if match is not None:
                         match.release()
                     idx += 1
                     continue
+                shared = (match.tokens // self.block_size
+                          if self.pooled and match is not None else 0)
+                if not self._pool_reserve(head, shared):
+                    # Pool backpressure: the same, counted.
+                    if match is not None:
+                        match.release()
+                    self._backpressure_retry(head)
+                    idx += 1
+                    continue
                 request = self._queue.pop(idx)
                 request.slot = self._free.pop(0)
+                self._observe_queue_wait(request)
                 self._incremental = request
                 # Grow BEFORE parking: the windows write rows
                 # 0..len(prompt)-1 and the first decode write lands at
@@ -1009,12 +1193,20 @@ class ContinuousBatcher:
                 park = self._cache_len - 1
                 self._positions[request.slot] = park
                 self._host_pos[request.slot] = park
+                if self._spans_on():
+                    now = self._span_clock()
+                    self._span('admit', now, now, req=request,
+                               mode='chunked')
+                if self._ledger is not None:
+                    self._ledger.charge_request('admit', request.rid,
+                                                request.tenant)
                 continue
             if match is not None and match.hit:
                 if not self._pool_reserve(
                         head, match.tokens // self.block_size
                         if self.pooled else 0):
                     match.release()
+                    self._backpressure_retry(head)
                     idx += 1
                     continue
                 if self._tier is not None:
@@ -1027,11 +1219,13 @@ class ContinuousBatcher:
                 if self._tier is not None:
                     self._tier.record_lookup('miss')
             if not self._pool_reserve(head):
+                self._backpressure_retry(head)
                 idx += 1
                 continue
             bucket = self._bucket_for(len(head.prompt))
             group = [self._queue.pop(idx)]
             group[0].slot = self._free.pop(0)
+            self._observe_queue_wait(group[0])
             while (idx < len(self._queue) and self._free
                    and len(group) < self._admit_group):
                 cand = self._queue[idx]
@@ -1050,6 +1244,7 @@ class ContinuousBatcher:
                     break
                 cand = self._queue.pop(idx)
                 cand.slot = self._free.pop(0)
+                self._observe_queue_wait(cand)
                 group.append(cand)
             size = len(group)
             tokens = np.zeros((size, bucket), np.int32)
@@ -1067,6 +1262,7 @@ class ContinuousBatcher:
                 limits[i] = request.max_new_tokens - 1
             # The (G, bucket) prefill writes rows 0..bucket-1 and each
             # row's first decode write lands at len(prompt).
+            admit_t0 = self._span_clock() if self._spans_on() else 0.0
             self._grow_for(max(bucket, int(lengths.max()) + 1))
             try:
                 tables_scatter = None
@@ -1081,9 +1277,10 @@ class ContinuousBatcher:
                         self._pool_bind_slot(request)
                         row = self._slot_blocks[request.slot]
                         tables_scatter[i, :len(row)] = row
-                firsts = self._prefill_group(tokens, lengths, slots,
-                                             tables_scatter, temps,
-                                             top_ps, limits)
+                with self._profiler.phase('prefill'):
+                    firsts = self._prefill_group(tokens, lengths, slots,
+                                                 tables_scatter, temps,
+                                                 top_ps, limits)
                 self._host_temp[slots] = temps
                 self._host_top_p[slots] = top_ps
             except Exception:
@@ -1101,7 +1298,22 @@ class ContinuousBatcher:
             for req in group:
                 self._prefix_insert(req)
             # ONE counted sync for the whole admitted group.
-            (firsts,) = engine_lib.host_fetch(firsts)
+            (firsts,) = self._fetch(firsts)
+            if self._spans_on():
+                now = self._span_clock()
+                for req in group:
+                    self._span('admit', admit_t0, now, req=req,
+                               mode='cold', group=size)
+                    self._span('prefill_chunk', admit_t0, now, req=req,
+                               start=0, end=len(req.prompt))
+            if self._ledger is not None:
+                for req in group:
+                    self._ledger.charge_request('admit', req.rid,
+                                                req.tenant)
+                    self._ledger.charge_request('prefill', req.rid,
+                                                req.tenant)
+                    self._ledger.add_tokens(req.rid, req.tenant,
+                                            prefill=len(req.prompt))
             for i, req in enumerate(group):
                 self._host_pos[req.slot] = len(req.prompt)
                 self._record_first(req, int(firsts[i]))
@@ -1135,6 +1347,9 @@ class ContinuousBatcher:
         first token's fetch is the one host sync, as on every admission
         route."""
         req.slot = self._free.pop(0)
+        self._observe_queue_wait(req)
+        hit_t0 = self._span_clock() if self._spans_on() else 0.0
+        shared_tokens = match.tokens
         self._prefix.commit(match)
         prompt = req.prompt
         # The head and the suffix windows write rows 0..len(prompt)-1 and
@@ -1163,15 +1378,20 @@ class ContinuousBatcher:
                 end = min(start + w, len(prompt))
                 window = np.zeros((w,), np.int32)
                 window[:end - start] = prompt[start:end]
-                window_t = torch.as_tensor(window, device=dev)
-                if self.pooled:
-                    h_last, _ = llama_infer.prefill_window_pooled(
-                        self.params, window_t, self.config, self._cache,
-                        table_row, start)
-                else:
-                    h_last, _ = llama_infer.prefill_window(
-                        self.params, window_t, self.config, self._cache,
-                        req.slot, start)
+                w0 = self._span_clock() if self._spans_on() else 0.0
+                with self._profiler.phase('prefill'):
+                    window_t = torch.as_tensor(window, device=dev)
+                    if self.pooled:
+                        h_last, _ = llama_infer.prefill_window_pooled(
+                            self.params, window_t, self.config,
+                            self._cache, table_row, start)
+                    else:
+                        h_last, _ = llama_infer.prefill_window(
+                            self.params, window_t, self.config,
+                            self._cache, req.slot, start)
+                if self._spans_on():
+                    self._span('prefill_chunk', w0, self._span_clock(),
+                               req=req, start=start, end=end)
                 last_start = start
                 start = end
             if self.pooled:
@@ -1180,6 +1400,14 @@ class ContinuousBatcher:
                 # the slot's references.
                 self._prefix_insert(req)
             self._complete_prefill(req, h_last, last_start)
+            if self._spans_on():
+                self._span('admit', hit_t0, self._span_clock(), req=req,
+                           mode='prefix_hit', shared_tokens=shared_tokens)
+            if self._ledger is not None:
+                self._ledger.charge_request('admit', req.rid, req.tenant)
+                self._ledger.charge_request('prefill', req.rid, req.tenant)
+                self._ledger.add_tokens(req.rid, req.tenant,
+                                        prefill=len(prompt) - shared_tokens)
         except Exception:
             # Reclaim the slot and re-queue before surfacing the error.
             self._pool_free_slot(req.slot)
@@ -1197,25 +1425,33 @@ class ContinuousBatcher:
         host sync."""
         temp, top_p = self._request_sampling(req)
         dev = self.device
-        h = h_last[len(req.prompt) - 1 - last_start][None]
-        logits = quant.matmul(h, self.params['lm_head'],
-                              out_dtype=torch.float32)
-        temps = np.asarray([temp], np.float32)
-        top_ps = np.asarray([top_p], np.float32)
-        temps_t = torch.as_tensor(temps, device=dev)
-        top_ps_t = torch.as_tensor(top_ps, device=dev)
-        first = self._sample(logits, temps, top_ps, temps_t, top_ps_t)
-        self._install_rows(
-            torch.as_tensor([req.slot], device=dev), first,
-            torch.as_tensor([len(req.prompt)], dtype=torch.int32,
-                            device=dev),
-            torch.as_tensor([req.max_new_tokens - 1], dtype=torch.int32,
-                            device=dev), temps_t, top_ps_t)
+        with self._profiler.phase('prefill'):
+            h = h_last[len(req.prompt) - 1 - last_start][None]
+            logits = quant.matmul(h, self.params['lm_head'],
+                                  out_dtype=torch.float32)
+            temps = np.asarray([temp], np.float32)
+            top_ps = np.asarray([top_p], np.float32)
+            temps_t = torch.as_tensor(temps, device=dev)
+            top_ps_t = torch.as_tensor(top_ps, device=dev)
+            first = self._sample(logits, temps, top_ps, temps_t, top_ps_t)
+            self._install_rows(
+                torch.as_tensor([req.slot], device=dev), first,
+                torch.as_tensor([len(req.prompt)], dtype=torch.int32,
+                                device=dev),
+                torch.as_tensor([req.max_new_tokens - 1],
+                                dtype=torch.int32, device=dev),
+                temps_t, top_ps_t)
         self._host_pos[req.slot] = len(req.prompt)
         self._host_temp[req.slot] = temp
         self._host_top_p[req.slot] = top_p
-        (first_host,) = engine_lib.host_fetch(first)
+        (first_host,) = self._fetch(first)
         self._record_first(req, int(first_host[0]))
+        if req.submitted_at:
+            # TTFT split cold vs fused: did a window of this prompt ride
+            # a decode chunk?
+            telemetry_metrics.INFER_FUSE_TTFT.labels(
+                mode='fused' if req.fused_chunks else 'cold').observe(
+                    req.ttft_s)
         self._reset_drafter(req)
         eos = self.gen.eos_token
         if (eos is not None and req.out[-1] == eos) or \
@@ -1226,6 +1462,12 @@ class ContinuousBatcher:
 
     def _finish(self, req: _Request) -> None:
         req.done = True
+        if self._spans_on():
+            now = self._span_clock()
+            self._span('delivery', now, now, req=req, tokens=len(req.out))
+        if self._ledger is not None:
+            self._ledger.finish_request(req.rid, req.tenant,
+                                        session=req.trace_id)
         if req.slot is not None and req.slot in self._active:
             del self._active[req.slot]
         if req.slot is not None:
@@ -1261,18 +1503,27 @@ class ContinuousBatcher:
         end = min(start + w, len(req.prompt))
         window = np.zeros((w,), np.int32)
         window[:end - start] = req.prompt[start:end]
-        window_t = torch.as_tensor(window, device=self.device)
+        w0 = self._span_clock() if self._spans_on() else 0.0
         try:
-            if self.pooled:
-                h_last, _ = llama_infer.prefill_window_pooled(
-                    self.params, window_t, self.config, self._cache,
-                    torch.as_tensor(self._host_tables[req.slot],
-                                    device=self.device), start)
-            else:
-                h_last, _ = llama_infer.prefill_window(
-                    self.params, window_t, self.config, self._cache,
-                    req.slot, start)
+            with self._profiler.phase('prefill'):
+                window_t = torch.as_tensor(window, device=self.device)
+                if self.pooled:
+                    h_last, _ = llama_infer.prefill_window_pooled(
+                        self.params, window_t, self.config, self._cache,
+                        torch.as_tensor(self._host_tables[req.slot],
+                                        device=self.device), start)
+                else:
+                    h_last, _ = llama_infer.prefill_window(
+                        self.params, window_t, self.config, self._cache,
+                        req.slot, start)
             req.prefill_pos = end
+            if self._spans_on():
+                self._span('prefill_chunk', w0, self._span_clock(),
+                           req=req, start=start, end=end)
+            if self._ledger is not None:
+                self._ledger.charge_request('prefill', req.rid, req.tenant)
+                self._ledger.add_tokens(req.rid, req.tenant,
+                                        prefill=end - start)
             if end < len(req.prompt):
                 return
             if self.pooled:
@@ -1288,12 +1539,15 @@ class ContinuousBatcher:
         if not self.pooled:
             self._prefix_insert(req)
 
-    def _decode_chunk(self, n: int, prefill_lane=None):
+    def _decode_chunk(self, n: int, prefill_lane=None, lane_span=None):
         """One n-step decode chunk over all active slots and its ONE
         host fetch: the token block plus the positions steering the next
         tick (frozen slots did not advance, so they come back exact).
-        prefill_lane: as _decode's; a failed fused dispatch re-queues the
-        in-flight prompt.  Returns the lane's hiddens (None without)."""
+        prefill_lane: as _decode's (the chunk runs under the 'fused'
+        phase, else 'decode'); a failed fused dispatch re-queues the
+        in-flight prompt.  lane_span: the attributes of the fused chunk's
+        'fused_tick' span (a plain chunk records 'decode_chunk').
+        Returns (the lane's hiddens or None, the tokens appended)."""
         prev_pos = ({s: int(self._host_pos[s]) for s in self._active}
                     if self._drafter is not None else None)
         if self.pooled:
@@ -1310,24 +1564,47 @@ class ContinuousBatcher:
                                             and self._incremental is None):
                 self._migrate(target)
         all_greedy, nucleus = self._sampling_mode()
+        active_slots = len(self._active)
+        spans_on = self._spans_on()
+        parties = ([(r.rid, r.tenant) for r in self._active.values()]
+                   if (spans_on or self._ledger is not None) else [])
+        if self._ledger is not None and prefill_lane is None:
+            self._ledger.charge_batch('decode', parties)
+        c0 = self._span_clock() if spans_on else 0.0
         chunk_start = time.perf_counter()
         try:
-            toks, h_pf = self._decode(n, all_greedy, nucleus, prefill_lane)
+            with self._profiler.phase('decode' if prefill_lane is None
+                                      else 'fused'):
+                toks, h_pf = self._decode(n, all_greedy, nucleus,
+                                          prefill_lane)
         except Exception:
             if prefill_lane is not None:
                 # The decode rows rode this dispatch too; the replica
                 # treats an engine error as a fault either way.
                 self._requeue_incremental(self._incremental)
             raise
-        host, host_pos = engine_lib.host_fetch(toks.t(), self._positions)
-        self.decode_seconds += time.perf_counter() - chunk_start
+        host, host_pos = self._fetch(toks.t(), self._positions)
+        chunk_dt = time.perf_counter() - chunk_start
+        self.decode_seconds += chunk_dt
+        if spans_on and prefill_lane is None:
+            self._span('decode_chunk', c0, self._span_clock(), n=n,
+                       slots=active_slots,
+                       rids=sorted(rid for rid, _ in parties))
+        elif spans_on:
+            self._span('fused_tick', c0, self._span_clock(), **lane_span)
         # A slot decoded a token in a step iff its position advanced.
         self.slot_steps += n * self.gen.batch_size
         self.live_slot_steps += int((host_pos - self._host_pos).sum())
         self._host_pos = host_pos.astype(np.int64)
         self._observe_chunk(prev_pos, host)
-        self._absorb(host)
-        return h_pf
+        telemetry_metrics.INFER_DECODE_CHUNK_SECONDS.observe(chunk_dt)
+        telemetry_metrics.INFER_DECODE_BUCKET_CHUNKS.labels(
+            bucket=str(self._cache_len)).inc()
+        telemetry_metrics.INFER_DECODE_CACHE_ROWS.set(self._cache_len)
+        if chunk_dt > 0:
+            telemetry_metrics.INFER_STEADY_TOKENS_PER_SEC.set(
+                n * active_slots / chunk_dt)
+        return h_pf, self._absorb(host)
 
     def _step_fused(self, n: int) -> None:
         """One fused prefill+decode chunk: the decode batch advances n
@@ -1345,11 +1622,26 @@ class ContinuousBatcher:
         window = np.zeros((self.gen.fuse_budget,), np.int32)
         window[:chunk] = req.prompt[start:end]
         dev = self.device
-        h_pf = self._decode_chunk(n, prefill_lane=(
+        active_slots = len(self._active)
+        if self._ledger is not None:
+            # The fused dispatch serves every decoding slot and the
+            # prefill lane's owner: all of them split the phase.
+            self._ledger.charge_batch(
+                'fused', [(r.rid, r.tenant) for r in self._active.values()]
+                + [(req.rid, req.tenant)])
+            self._ledger.add_tokens(req.rid, req.tenant, prefill=chunk)
+        h_pf, _ = self._decode_chunk(n, prefill_lane=(
             torch.as_tensor(window, device=dev),
-            torch.as_tensor(self._host_tables[req.slot], device=dev), start))
+            torch.as_tensor(self._host_tables[req.slot], device=dev), start),
+            lane_span=dict(req=req, prefill_chunk=chunk, n=n,
+                           slots=active_slots))
         req.prefill_pos = end
+        req.fused_chunks += 1
         self._fuse_policy.record_fused(chunk)
+        telemetry_metrics.INFER_FUSE_STEPS.inc()
+        telemetry_metrics.INFER_FUSE_PREFILL_TOKENS.inc(chunk)
+        telemetry_metrics.INFER_FUSE_BUDGET_UTILIZATION.set(
+            self._fuse_policy.utilization(chunk))
         if end < len(req.prompt):
             return
         try:
@@ -1373,16 +1665,32 @@ class ContinuousBatcher:
         self._upload_tables()
         all_greedy, nucleus = self._sampling_mode()
         live = list(self._active)
-        draft = self._drafter.propose_batch(live, self.gen.batch_size)
+        spans_on = self._spans_on()
+        d0 = self._span_clock() if spans_on else 0.0
+        with self._profiler.phase('spec_draft'):
+            draft = self._drafter.propose_batch(live, self.gen.batch_size)
+        if spans_on:
+            self._span('spec_draft', d0, self._span_clock(),
+                       k=self.gen.spec_k, slots=len(live))
+        v0 = self._span_clock() if spans_on else 0.0
         chunk_start = time.perf_counter()
-        toks, committed = self._verify(draft, all_greedy, nucleus)
+        with self._profiler.phase('spec_verify'):
+            toks, committed = self._verify(draft, all_greedy, nucleus)
         # ONE transfer: the emitted window rows, the positions steering
         # the next tick and each lane's committed count (the host absorbs
         # exactly that prefix; the rest is rejected tail).
-        host, host_pos, host_committed = engine_lib.host_fetch(
+        host, host_pos, host_committed = self._fetch(
             toks, self._positions, committed)
-        self.decode_seconds += time.perf_counter() - chunk_start
+        chunk_dt = time.perf_counter() - chunk_start
+        self.decode_seconds += chunk_dt
+        if spans_on:
+            self._span('spec_verify', v0, self._span_clock(),
+                       k=self.gen.spec_k, slots=len(live))
         self._host_pos = host_pos.astype(np.int64)
+        telemetry_metrics.INFER_DECODE_CHUNK_SECONDS.observe(chunk_dt)
+        telemetry_metrics.INFER_DECODE_BUCKET_CHUNKS.labels(
+            bucket=str(self._cache_len)).inc()
+        telemetry_metrics.INFER_DECODE_CACHE_ROWS.set(self._cache_len)
         # committed - 1 of each lane's tokens were drafter proposals (the
         # +1 is the target's own token at the first mismatch).
         accepted = sum(max(int(host_committed[s]) - 1, 0) for s in live)
@@ -1390,11 +1698,26 @@ class ContinuousBatcher:
         self._spec_policy.record(accepted, proposed)
         self.spec_proposed += proposed
         self.spec_accepted += accepted
+        telemetry_metrics.INFER_SPEC_PROPOSED.inc(proposed)
+        telemetry_metrics.INFER_SPEC_ACCEPTED.inc(accepted)
+        telemetry_metrics.INFER_SPEC_ACCEPT_RATE.observe(
+            accepted / max(proposed, 1))
+        if self._ledger is not None:
+            parties = [(self._active[s].rid, self._active[s].tenant)
+                       for s in live if s in self._active]
+            self._ledger.charge_batch('spec_draft', parties)
+            self._ledger.charge_batch('spec_verify', parties)
+            self._ledger.add_spec(parties, proposed=proposed,
+                                  accepted=accepted)
         for slot in list(self._active):
             c = int(host_committed[slot])
             if c > 0:
                 self._drafter.observe(slot, [int(t) for t in host[slot, :c]])
-        self._absorb(host, host_committed)
+        appended = self._absorb(host, host_committed)
+        if chunk_dt > 0:
+            telemetry_metrics.INFER_STEADY_TOKENS_PER_SEC.set(
+                appended / chunk_dt)
+        telemetry_metrics.INFER_SPEC_TOKENS_PER_SYNC.set(float(appended))
 
     def step(self) -> None:
         """One scheduler tick: admit queued requests, advance the
@@ -1404,18 +1727,35 @@ class ContinuousBatcher:
         policy agrees, else n lockstep steps.  With the host tier, the
         completed copies apply (and hinted prefetches issue) before
         admission, so blocks that landed serve this tick's requests as
-        device hits."""
+        device hits.
+
+        Every tick runs under the StepProfiler, whose phase times land
+        in the step-phase families (and the ledger) even when the tick
+        raises."""
+        if self._ledger is not None:
+            self._ledger.begin_step()
+        self._profiler.start()
+        try:
+            self._step_inner()
+        finally:
+            self._finish_step_profile()
+
+    def _step_inner(self) -> None:
         if self._tier is not None:
-            self._drain_tier()
-        self._admit()
+            with self._profiler.phase('tier_wait'):
+                self._drain_tier()
+        with self._profiler.phase('admit'):
+            self._admit()
         if self._tier is not None and self._tier_parked and \
                 not self._active and self._incremental is None:
             # The tick's only work left is in-flight prefetches: wait for
             # the copy engine (the parked-admission stall), so
             # run_until_idle makes progress instead of spinning.
-            self._tier.wait_pending()
-            self._drain_tier()
-            self._admit()
+            with self._profiler.phase('tier_wait'):
+                self._tier.wait_pending()
+                self._drain_tier()
+            with self._profiler.phase('admit'):
+                self._admit()
         # Fuse gate: a chunked prefill in flight AND a decode batch to
         # ride on.  Fused ticks do not speculate: while a cold prompt is
         # in flight TTFT is the binding metric, and a verify window
@@ -1428,6 +1768,7 @@ class ContinuousBatcher:
                 self._fuse_policy.record_dedicated()
             self._advance_prefill()
         if not self._active:
+            telemetry_metrics.INFER_SLOT_OCCUPANCY.set(0.0)
             return
         # Capacity from the host-side position mirror (reading the
         # device rows would cost a sync per tick).

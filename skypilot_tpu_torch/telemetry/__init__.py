@@ -1,0 +1,12 @@
+"""Data-plane observability of the port: metric families on the port's
+own prometheus registry (``metrics``), trace-context propagation
+(``trace``), lifecycle spans and step-phase attribution (``spans``), the
+per-tenant cost ledger (``accounting``), opt-in profiler windows
+(``profiler``) and JSONL step telemetry (``steplog``).
+
+Counterpart of skypilot_tpu/telemetry/, which exports ``metrics``,
+``steplog`` and ``trace`` the same way.
+"""
+from skypilot_tpu_torch.telemetry import metrics, steplog, trace
+
+__all__ = ['metrics', 'steplog', 'trace']

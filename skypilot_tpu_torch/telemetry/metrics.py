@@ -1,15 +1,23 @@
-"""The metric families that the Trainer, the checkpoint manager, the
-prefix cache, the block pool and the host KV tier update.
+"""The metric families of the port's data plane: the Trainer, the
+checkpoint manager, the serving engines (prefill, decode chunks, queue
+wait, slot occupancy, host syncs, bucket chunks, migrations,
+speculation, fused steps, step phases), the prefix cache, the block
+pool, the host KV tier and the per-tenant cost ledger.
 
-Counterpart of the ``TRAIN_*``, ``CKPT_*``, ``INFER_PREFIX_*``,
-``INFER_POOL_PREFIX_SHARES`` and ``INFER_TIER_*`` families of
-skypilot_tpu/telemetry/metrics.py, with the same family names, labels and
-buckets.  They live on the port's own prometheus registry, ``REGISTRY``
+Counterpart of the ``TRAIN_*``, ``CKPT_*``, ``INFER_*`` and ``ACCT_*``
+families of skypilot_tpu/telemetry/metrics.py, with the same family
+names, labels and buckets, and of its ``histogram_quantile``.  The
+``INFER_MESH_*`` families come with meshes (ROADMAP.md Queue A item 10);
+the ``SERVE_*`` and ``DOCTOR_*`` families with the fleet tooling (item
+12).  They live on the port's own prometheus registry, ``REGISTRY``
 (read a sample with ``REGISTRY.get_sample_value(name, labels)``); the
 JAX package's families stay on its own.  An update is a mutex-guarded
 float add, no I/O.
 """
 from __future__ import annotations
+
+import math
+from typing import Dict, Optional
 
 import prometheus_client
 
@@ -208,3 +216,272 @@ INFER_TIER_PREFETCH_LATE = prometheus_client.Counter(
     'landed yet — a high rate means routing hints fire too late (or '
     'not at all) relative to request arrival',
     registry=REGISTRY)
+
+# ---- infer (infer/engine.py, infer/serving.py) -----------------------
+
+INFER_PREFILL_SECONDS = prometheus_client.Histogram(
+    'skytpu_infer_prefill_duration_seconds',
+    'Prefill dispatch-to-first-token wall time, by prompt bucket',
+    ['bucket'],
+    buckets=(0.002, 0.01, 0.05, 0.1, 0.25, 0.5, 1, 2.5, 10, 60),
+    registry=REGISTRY)
+
+INFER_DECODE_CHUNK_SECONDS = prometheus_client.Histogram(
+    'skytpu_infer_decode_chunk_duration_seconds',
+    'On-device decode chunk wall time (dispatch to host fetch)',
+    buckets=(0.002, 0.01, 0.05, 0.1, 0.25, 0.5, 1, 2.5, 10, 60),
+    registry=REGISTRY)
+
+INFER_QUEUE_WAIT_SECONDS = prometheus_client.Histogram(
+    'skytpu_infer_queue_wait_seconds',
+    'Continuous-batcher admission wait: submit() to slot assignment',
+    buckets=(0.001, 0.01, 0.05, 0.25, 1, 5, 15, 60, 300),
+    registry=REGISTRY)
+
+INFER_SLOT_OCCUPANCY = prometheus_client.Gauge(
+    'skytpu_infer_slot_occupancy_ratio',
+    'Active decode slots / batch_size after the last scheduler tick',
+    registry=REGISTRY)
+
+INFER_STEADY_TOKENS_PER_SEC = prometheus_client.Gauge(
+    'skytpu_infer_steady_tokens_per_second',
+    'Decode throughput of the most recent chunk/generation '
+    '(tokens dispatched / decode wall time, all slots)',
+    registry=REGISTRY)
+
+INFER_GENERATED_TOKENS = prometheus_client.Counter(
+    'skytpu_infer_generated_tokens_total',
+    'Tokens returned to callers (post eos/max-token trim)',
+    registry=REGISTRY)
+
+INFER_HOST_SYNCS = prometheus_client.Counter(
+    'skytpu_infer_host_syncs_total',
+    'Device→host transfers on the decode data path (engine.host_fetch '
+    'calls) — the sync-free streaming contract is O(1) per decode '
+    'chunk, not per token',
+    registry=REGISTRY)
+
+INFER_HOST_SYNCS_PER_TOKEN = prometheus_client.Gauge(
+    'skytpu_infer_host_syncs_per_token',
+    'Host syncs / generated tokens of the most recent generation or '
+    'scheduler tick (1.0 would mean a round-trip per token; fused '
+    'multi-step decode targets 1/decode_chunk)',
+    registry=REGISTRY)
+
+INFER_DECODE_CACHE_ROWS = prometheus_client.Gauge(
+    'skytpu_infer_decode_cache_rows',
+    'Position capacity (rows) of the live KV cache bucket the decode '
+    'loop is currently compiled against',
+    registry=REGISTRY)
+
+INFER_DECODE_BUCKET_CHUNKS = prometheus_client.Counter(
+    'skytpu_infer_decode_bucket_chunks_total',
+    'Decode chunks dispatched per cache-length bucket (bucket '
+    'occupancy: which compiled cache sizes actually serve traffic)',
+    ['bucket'],
+    registry=REGISTRY)
+
+INFER_CACHE_MIGRATIONS = prometheus_client.Counter(
+    'skytpu_infer_cache_migrations_total',
+    'KV cache bucket migrations (pad-grow or truncate-shrink of the '
+    'position axis) — each costs one cache copy on device',
+    ['direction'],
+    registry=REGISTRY)
+
+# ---- infer block pool gauges (infer/block_pool.py) -------------------
+
+INFER_POOL_BLOCKS_TOTAL = prometheus_client.Gauge(
+    'skytpu_infer_pool_blocks_total',
+    'Physical KV blocks in the pooled arena (including the reserved '
+    'garbage block 0)',
+    registry=REGISTRY)
+
+INFER_POOL_BLOCKS_LIVE = prometheus_client.Gauge(
+    'skytpu_infer_pool_blocks_live',
+    'Arena blocks currently referenced by >=1 sequence block table or '
+    'prefix-cache node (refcount > 0)',
+    registry=REGISTRY)
+
+INFER_POOL_BLOCKS_FREE = prometheus_client.Gauge(
+    'skytpu_infer_pool_blocks_free',
+    'Arena blocks on the free list (allocatable; free + live + 1 '
+    'garbage == total at all times)',
+    registry=REGISTRY)
+
+INFER_POOL_HWM = prometheus_client.Gauge(
+    'skytpu_infer_pool_hwm',
+    'High-water mark of live arena blocks since pool creation — the '
+    'number to size pool_blocks against',
+    registry=REGISTRY)
+
+INFER_POOL_TABLE_APPENDS = prometheus_client.Counter(
+    'skytpu_infer_pool_block_table_appends_total',
+    'Blocks appended to sequence block tables from the free list (the '
+    'pooled replacement for bucket grow migrations: an append is a '
+    'table write, not a cache copy)',
+    registry=REGISTRY)
+
+# ---- infer speculative decoding (infer/serving.py, infer/engine.py) ---
+
+INFER_SPEC_PROPOSED = prometheus_client.Counter(
+    'skytpu_infer_spec_proposed_tokens_total',
+    'Draft tokens proposed by the speculative n-gram drafter (spec_k '
+    'per live slot per verify chunk)',
+    registry=REGISTRY)
+
+INFER_SPEC_ACCEPTED = prometheus_client.Counter(
+    'skytpu_infer_spec_accepted_tokens_total',
+    'Draft tokens the target model accepted (each one is a decode '
+    'token produced WITHOUT its own sequential forward)',
+    registry=REGISTRY)
+
+INFER_SPEC_ACCEPT_RATE = prometheus_client.Histogram(
+    'skytpu_infer_spec_chunk_accept_rate',
+    'Per-verify-chunk draft acceptance rate (accepted / proposed '
+    'across live slots); the adaptive SpecPolicy gates speculation on '
+    'an EMA of this',
+    buckets=(0.0, 0.1, 0.25, 0.5, 0.75, 0.9, 1.0),
+    registry=REGISTRY)
+
+INFER_SPEC_TOKENS_PER_SYNC = prometheus_client.Gauge(
+    'skytpu_infer_spec_tokens_per_host_sync',
+    'Committed tokens per counted host_fetch of the last generation '
+    'or tick with speculation enabled (the inverse of '
+    'host_syncs_per_token; rises with acceptance)',
+    registry=REGISTRY)
+
+# ---- infer chunked-prefill piggyback (infer/fuse.py, serving.py) -----
+
+INFER_FUSE_STEPS = prometheus_client.Counter(
+    'skytpu_infer_fuse_steps_total',
+    'Fused prefill+decode chunks dispatched (one chunked-prefill '
+    'window piggybacked onto a lockstep decode chunk)',
+    registry=REGISTRY)
+
+INFER_FUSE_PREFILL_TOKENS = prometheus_client.Counter(
+    'skytpu_infer_fuse_prefill_tokens_total',
+    'Real prompt tokens carried by fused steps\' prefill lanes '
+    '(excludes the fixed fuse_budget padding)',
+    registry=REGISTRY)
+
+INFER_FUSE_BUDGET_UTILIZATION = prometheus_client.Gauge(
+    'skytpu_infer_fuse_budget_utilization_ratio',
+    'Fraction of the last fused step\'s fuse_budget-wide prefill lane '
+    'carrying real prompt tokens (chronically low: lower fuse_budget '
+    'or raise decode_chunk)',
+    registry=REGISTRY)
+
+INFER_FUSE_TTFT = prometheus_client.Histogram(
+    'skytpu_infer_fuse_ttft_seconds',
+    'Submit-to-first-token latency of chunked prefills, split by '
+    'whether any window piggybacked on a decode chunk (fused) or '
+    'every window ran dedicated (cold)',
+    ['mode'],
+    buckets=(0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10,
+             60),
+    registry=REGISTRY)
+
+# ---- step-phase attribution (telemetry/spans.py, infer/serving.py) ---
+
+INFER_STEP_PHASE_SECONDS = prometheus_client.Histogram(
+    'skytpu_infer_step_phase_seconds',
+    'Host time one batcher step() spent in each exclusive phase '
+    '(admit / prefill / fused / spec_draft / spec_verify / decode / '
+    'host_fetch / upload / tier_wait); phases sum to ~step wall time, '
+    'so the per-phase rate() ratio is the step-time breakdown',
+    ['phase'],
+    buckets=(1e-5, 1e-4, 5e-4, 1e-3, 5e-3, 0.01, 0.05, 0.1, 0.5, 1, 5),
+    registry=REGISTRY)
+
+INFER_STEP_UTILIZATION = prometheus_client.Gauge(
+    'skytpu_infer_step_utilization',
+    'Fraction of the last step() wall time attributed to each phase '
+    '(instantaneous view of the same breakdown as '
+    'skytpu_infer_step_phase_seconds)',
+    ['phase'],
+    registry=REGISTRY)
+
+# ---- per-tenant cost attribution (telemetry/accounting.py) -----------
+
+ACCT_DEVICE_SECONDS = prometheus_client.Counter(
+    'skytpu_acct_device_seconds_total',
+    'Exclusive StepProfiler phase wall time apportioned to tenants: '
+    'batch-wide phases (decode / fused / spec_verify) split evenly '
+    'across the slots active in that step, per-request phases '
+    '(prefill / admit) charged to the owning request — summed over a '
+    'run the per-tenant totals conserve the profiler wall within 5%',
+    ['tenant', 'phase'],
+    registry=REGISTRY)
+
+ACCT_TOKENS = prometheus_client.Counter(
+    'skytpu_acct_tokens_total',
+    'Tokens attributed per tenant, by kind: prefill (prompt tokens '
+    'prefilled, including fused/piggybacked chunks) and decode '
+    '(committed output tokens)',
+    ['tenant', 'kind'],
+    registry=REGISTRY)
+
+ACCT_BLOCK_SECONDS = prometheus_client.Counter(
+    'skytpu_acct_block_seconds_total',
+    'Pooled-KV arena occupancy per tenant: sum over steps of '
+    '(blocks held by the tenant\'s slots x step wall seconds) — the '
+    'HBM-residency component of a tenant\'s bill',
+    ['tenant'],
+    registry=REGISTRY)
+
+ACCT_TIER_BYTES = prometheus_client.Counter(
+    'skytpu_acct_tier_bytes_total',
+    'Host-tier bytes attributed per tenant by direction: spill '
+    '(device->host copies of blocks the tenant\'s eviction pressure '
+    'displaced) and prefetch (host->device staging its admissions '
+    'consumed)',
+    ['tenant', 'direction'],
+    registry=REGISTRY)
+
+ACCT_SPEC_WASTE_TOKENS = prometheus_client.Counter(
+    'skytpu_acct_spec_waste_tokens_total',
+    'Speculative-decoding waste per tenant: draft tokens proposed '
+    'minus accepted on verify chunks the tenant\'s slots took part in '
+    '(the compute the drafter burned without committing output)',
+    ['tenant'],
+    registry=REGISTRY)
+
+ACCT_REQUESTS = prometheus_client.Counter(
+    'skytpu_acct_requests_total',
+    'Requests finalized into the cost ledger per tenant',
+    ['tenant'],
+    registry=REGISTRY)
+
+
+def histogram_quantile(hist: prometheus_client.Histogram, q: float,
+                       labels: Optional[Dict[str, str]] = None
+                       ) -> Optional[float]:
+    """Prometheus-style quantile estimate from a histogram's cumulative
+    bucket counts (upper-bound of the bucket containing the q-th
+    observation — the resolution /metrics consumers get).  labels
+    filters to one child; None aggregates every child.  Returns None
+    when the histogram is empty."""
+    buckets: Dict[float, float] = {}
+    for family in hist.collect():
+        for sample in family.samples:
+            if not sample.name.endswith('_bucket'):
+                continue
+            if labels and any(sample.labels.get(k) != v
+                              for k, v in labels.items()):
+                continue
+            le = float(sample.labels['le'])
+            buckets[le] = buckets.get(le, 0.0) + sample.value
+    if not buckets:
+        return None
+    bounds = sorted(buckets)
+    total = buckets[bounds[-1]]           # +Inf bucket = observation count
+    if total <= 0:
+        return None
+    target = q * total
+    finite = [b for b in bounds if not math.isinf(b)]
+    for le in bounds:
+        if buckets[le] >= target:
+            # Observations above every finite bound: report the largest
+            # finite upper bound (what promQL's histogram_quantile does).
+            return finite[-1] if math.isinf(le) and finite else le
+    return finite[-1] if finite else None

@@ -80,6 +80,11 @@ def test_scan_covers_the_training_modules():
             'skypilot_tpu_torch/telemetry/metrics.py',
             'skypilot_tpu_torch/telemetry/profiler.py',
             'skypilot_tpu_torch/telemetry/steplog.py',
+            'skypilot_tpu_torch/telemetry/spans.py',
+            'skypilot_tpu_torch/telemetry/accounting.py',
+            'skypilot_tpu_torch/telemetry/trace.py',
+            'skypilot_tpu_torch/infer/batch_infer.py',
+            'skypilot_tpu_torch/train/eval_ppl.py',
             'skypilot_tpu_torch/utils/env_contract.py',
             'skypilot_tpu_torch/models/convert.py',
             'skypilot_tpu_torch/models/resnet.py',

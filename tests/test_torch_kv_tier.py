@@ -94,7 +94,17 @@ def _run_batch(b, prompts, max_new=8):
 
 # ---- copy engine --------------------------------------------------------
 
+def _copy_threads():
+    """How many live threads carry the port's and the JAX package's copy
+    thread names.  Counted against a snapshot taken before a test, since
+    other modules' tests on the same worker may have left a JAX tier's
+    daemon thread running."""
+    names = [t.name for t in threading.enumerate()]
+    return names.count(kv_tier.COPY_THREAD_NAME), names.count('kv-tier-copy')
+
+
 def test_engine_bounded_queue_rejects_instead_of_blocking():
+    port0, jax0 = _copy_threads()
     eng = AsyncCopyEngine(max_pending=1)
     gate, started = threading.Event(), threading.Event()
 
@@ -106,15 +116,14 @@ def test_engine_bounded_queue_rejects_instead_of_blocking():
     started.wait(10)
     assert eng.try_submit(lambda: None)      # fills the 1-slot queue
     assert not eng.try_submit(lambda: None)  # full -> reject, no block
-    names = [t.name for t in threading.enumerate()]
-    assert kv_tier.COPY_THREAD_NAME in names and 'kv-tier-copy' not in names
+    # One thread, under the port's own name.
+    assert _copy_threads() == (port0 + 1, jax0)
     gate.set()
     eng.wait_until_finished()
     assert eng.pop_errors() == []
     eng.close()
     assert not eng.try_submit(lambda: None)  # closed -> reject
-    assert kv_tier.COPY_THREAD_NAME not in [
-        t.name for t in threading.enumerate()]
+    assert _copy_threads()[0] == port0
 
 
 def test_engine_collects_errors_with_unwind_and_survives():
@@ -299,6 +308,7 @@ def test_prefetch_error_unwinds_blocks_and_nodes(closing, monkeypatch):
 
 def test_no_tier_is_exactly_the_old_batcher(models, closing):
     _, tp = models
+    port0, jax0 = _copy_threads()
     for kw in ({}, {'host_tier_mb': 0},
                {'host_tier_mb': None, 'prefix_cache_mb': 4,
                 'prefix_block': 8}):
@@ -309,8 +319,8 @@ def test_no_tier_is_exactly_the_old_batcher(models, closing):
         assert not b.prefetch_hint(PROMPTS[0])
         b.tier_flush()
         b.close()
-    assert not any(t.name in (kv_tier.COPY_THREAD_NAME, 'kv-tier-copy')
-                   for t in threading.enumerate())
+    port, jax_side = _copy_threads()
+    assert port <= port0 and jax_side <= jax0   # no copy thread started
 
 
 def test_gen_config_validation_matches_jax():
@@ -417,6 +427,31 @@ def test_parked_request_waits_for_its_prefetch(models, closing):
     b.tier_flush()
     assert _run_batch(b, [PROMPTS[0]]) == first
     assert b._tier.prefetch_late == 1 and b._tier.host_hits == 1
+    b.pool.check_invariant()
+
+
+def test_copy_lag_changes_no_token(models, closing, monkeypatch):
+    """Every tier copy completing 0.1 s late (on the card a spill lands
+    when its CUDA event does, which the host's clock does not order):
+    which evictions spill and which revisits prefetch may change, the
+    greedy tokens may not."""
+    _, tp = models
+    kw = _kw(prefix_cache_mb=0.024, prefix_block=8, host_tier_mb=2.0)
+    ref = _run_batch(ContinuousBatcher(tp, CFG, GeneratorConfig(**kw),
+                                       device='cpu'), PROMPTS)
+    complete = kv_tier._complete_copy
+
+    def late(pending):
+        threading.Event().wait(0.1)
+        return complete(pending)
+
+    monkeypatch.setattr(kv_tier, '_complete_copy', late)
+    b = ContinuousBatcher(tp, CFG, GeneratorConfig(**kw), device='cpu')
+    closing(b)
+    for _ in range(3):
+        assert _run_batch(b, PROMPTS) == ref
+    b.tier_flush()
+    assert b._prefix.evictions > 0
     b.pool.check_invariant()
 
 

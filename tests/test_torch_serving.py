@@ -401,7 +401,7 @@ def test_replica_health_generate_and_400(params):
         assert body['output_ids'] == want and body['num_generated'] == 9
         assert body['seed_ignored'] is True and body['ttft_s'] >= 0
         for bad in (b'{not json', b'[1, 2]', {'prompt_ids': 'abc'},
-                    {'prompt': 'text'}, {'prompt_ids': [1, 9999]},
+                    {'prompt_ids_typo': [1]}, {'prompt_ids': [1, 9999]},
                     {'prompt_ids': []}, {'prompt_ids': [1] * 200},
                     {'prompt_ids': [1], 'max_new_tokens': 'x'}):
             status, body = _post(f'{url}/generate', bad)
