@@ -251,8 +251,41 @@ Phases (any failure exits non-zero):
    and tokens/s.  (e) eval_ppl over the repo's SURVEY.md and README.md
    (seq 2048, batch 4, 4 batches) with --loss-chunk 0 and 512: the NLLs
    agree to 1e-3 relative (after one untimed batch); prints tokens/s and
-   peak memory.  Every phase
-   prints its seconds, and the run its whole.
+   peak memory.
+16. tensor-parallel serving (infer/tp.py, parallel/), its ranks spawned
+   as processes that share cuda:0 over gloo (NCCL refuses two ranks on
+   one GPU): every rank's kernels run at its own shapes and the
+   collectives on CUDA tensors, but no number of it is a multi-card
+   rate.  The parent built the kernels (phase 2), and collects every
+   rank's exit code: one failed rank fails the phase.  Phase 3 checks
+   K1, K2 and K4 at the per-rank shapes and K3 at d 8192.  (a) 4 ranks:
+   ring_all_gather (tiled and not), ring_reduce_scatter over 2 x 2 and
+   4 ranks, pipelined_psum at 1-4 chunks, f32 and bf16, each bitwise the stack or sum in that rank's order computed in
+   this process; a spawn whose rank 1 fails must fail.  (b) LLAMA3_8B
+   at tp 2 from init_sharded_params (seed 0): phase 5's 8 prompts capped
+   at 256 tokens, 64 new tokens in bf16 and over an int8 arena, 8 with
+   spec_k 4 and fuse_budget 64 (K4), the combines synchronous,
+   against tp 1 on the same weights: the
+   first-step logits within TP_LOGITS_REL of the largest (each shard
+   rounds its partial product to bf16), and each request's tokens
+   matched before its first difference; an f32 config at tp 2 must give
+   tp 1's tokens.  (c) LLAMA3_70B's widths at 8 of 80 layers, tp 4: each
+   rank's peak device memory is its shard, its arena and at most one
+   drawn f32 slab, never the model; 4 requests against tp 1 (18 GB on
+   the card), through the overlapped combines (4 chunks).  (d)
+   Qwen2.5-1.5B at tp 4 (tp_kv 2 x tpq 2) read by
+   load_hf_model_sharded from HF-layout files, against load_hf_model.
+   (e) LLAMA3_8B's widths at 8 layers, tp 2: the Generator at
+   overlap_chunks 2 and 4 against the synchronous path (K3 and whole
+   products): in f32 the greedy tokens must be identical; in bf16 the
+   tokens matched before the first difference and every step's last
+   hidden states' max abs difference (the first step's gated at
+   TP_LOGITS_REL of its largest), as the factorised norm rounds its
+   products differently; and one rank's projections a layer timed
+   whole against the spans of 2 and 4 chunks, no collective.  (f) multihost_check on
+   the card: a head and a worker through the control channel give the
+   one-process tokens.  Every phase prints its seconds, and the run its
+   whole.
 
 Every kernel of a main-path run must launch > 0 times in that run (the
 counts are set to 0 just before it and read just after; a replayed graph
@@ -263,7 +296,9 @@ on every phase 7 path, and K2, K3, K5 and K6 from both train paths and
 (K1 from 10c's rollouts, K1, K2 and K3 from 11a, 12a and 12b, K2 with
 its lse, K3, K5 and K6 from 12b's LoRA-SFT, K1 and K3 from 14a, 14b and
 both 14c runs, K1, K2 and K3 from 15a, 15b and 15d (batch_infer's child
-reports its counts), K2 without its lse and K3 from 15c and 15e); K2, K5
+reports its counts), K2 without its lse and K3 from 15c and 15e, K1,
+K2 and K3 from every serving path of phase 16, summed over its ranks,
+and K4 from 16b's speculative arm); K2, K5
 and K6 only on their
 tensor-core route on every path (bf16 at head_dim 128, and 12a's K2 at
 256); K4 on phase 6's paths,
@@ -459,7 +494,8 @@ def sdpa(q, k, v, **kw):
 # 12b Qwen2.5-1.5B's 1536, both at eps 1e-6.
 NORM_SHAPES = {'rms_norm': (4096, 1e-5, 3),
                'rms_norm[Gemma-7B]': (3072, 1e-6, 14),
-               'rms_norm[Qwen2.5-1.5B]': (1536, 1e-6, 15)}
+               'rms_norm[Qwen2.5-1.5B]': (1536, 1e-6, 15),
+               'rms_norm[LLAMA3_70B d8192]': (8192, 1e-5, 24)}
 
 
 # K3's row counts: decode's 8 slots, verify's 8 x 13, the fused lane's
@@ -659,6 +695,15 @@ FLASH_SHAPES = {
     'flash_attention[Gemma-7B hd256]': ((4, 512, 16, 16, 256), (4, 2), 11),
     'flash_attention[Qwen2.5-1.5B G6 prefill]': ((4, 512, 12, 2, 128),
                                                  (12, 2), 16),
+    # Phase 16's prefill on one rank: LLAMA3_8B at tp 2 (16 q heads over
+    # 4 KV), LLAMA3_70B at tp 4 (16 over 2), Qwen2.5-1.5B at tp 4 (3
+    # over 1: the overshard).
+    'flash_attention[LLAMA3_8B tp2 rank prefill]': ((4, 512, 16, 4, 128),
+                                                    (16, 4), 21),
+    'flash_attention[LLAMA3_70B tp4 rank prefill]': ((4, 512, 16, 2, 128),
+                                                     (16, 2), 22),
+    'flash_attention[Qwen2.5-1.5B tp4 rank prefill]': ((4, 512, 3, 1, 128),
+                                                       (3, 1), 23),
 }
 TC_DESIGN_HD256 = ('mma.sync m16n8k16 bf16 -> f32, ldmatrix, cp.async x2; '
                    'one m16 tile a warp, 64-row q-tiles, 32-key tiles, two '
@@ -1130,7 +1175,15 @@ DECODE_SHAPES = {
     'G2': (8, 2, 128, 2, [2, 35, BS - 1, BS, BS + 2, 80, 97, 2 * BS - 1]),
     'Gemma-7B': (16, 1, 256, 32, SERVE_POSITIONS),
     'Qwen2.5-1.5B': (2, 6, 128, 32, SERVE_POSITIONS),
+    # Phase 16's decode on one rank (its KV heads and their groups).
+    'LLAMA3_8B tp2 rank': (4, 4, 128, 32, SERVE_POSITIONS),
+    'LLAMA3_70B tp4 rank': (2, 8, 128, 32, SERVE_POSITIONS),
+    'Qwen2.5-1.5B tp4 rank': (1, 3, 128, 32, SERVE_POSITIONS),
 }
+# Phase 16b's K4 on one rank of LLAMA3_8B at tp 2: spec_k 4 verify
+# windows and fuse_budget 64's lane.
+TP_WINDOW_SHAPES = (('verify', [0, BS - 1, BS, 2 * BS + 5, 700, 1000, 1500,
+                                T_WIDTH * BS - 1], 5), ('fused', [436], 64))
 
 
 def check_decode_at(da, ptxas, label, seed):
@@ -1315,14 +1368,17 @@ WINDOW_DESIGN = {'bf16': _WINDOW_TC,
 
 
 
-def check_window(decode_attention, ptxas):
+def check_window(decode_attention, ptxas, kv_heads=KV_HEADS, group=GROUP,
+                 shapes=None, tag=''):
     """K4 at the verify shape (B 8, W 13) and the fused-lane shape (B 1,
     W 264 from row 436), in f32, bf16 and on an int8 arena (bf16 q):
     against the plain version, twice (bitwise), on poisoned arenas, and
     at W = 1 against K1; bf16 and int8 must take the tensor-core route
     and f32 the FMA route.  Then the combine pass alone on the partials
     of the verify bf16 launch.  Returns the kernels line entries of the
-    bf16 and int8 variants and of the combine."""
+    bf16 and int8 variants and of the combine.  kv_heads, group, shapes
+    ((lane, positions, W) pairs) and tag (appended to the entries' names)
+    check another shape: phase 16's per-rank one."""
     from skypilot_tpu_torch.ops import _kernels
     da = decode_attention
     counter = da.decode_window_attention_pooled
@@ -1331,7 +1387,7 @@ def check_window(decode_attention, ptxas):
     capacity = T_WIDTH * BS
     verify_pos = [0, BS - 1, BS, 2 * BS + 5, 700, 1000, 1500,
                   T_WIDTH * BS - 1]
-    shapes = (('verify', verify_pos, 13), ('fused', [436], 264))
+    shapes = shapes or (('verify', verify_pos, 13), ('fused', [436], 264))
     results = {}
     for lane, pos_list, win in shapes:
         batch = len(pos_list)
@@ -1340,14 +1396,14 @@ def check_window(decode_attention, ptxas):
         last = [p + win - 1 for p in pos_list]
         tables = _tables(last, n_blocks, 6)
         splits, split_len = da._window_splits(
-            batch, KV_HEADS, -(-win * GROUP // da._WINDOW_ROWS), capacity,
+            batch, kv_heads, -(-win * group // da._WINDOW_ROWS), capacity,
             da._WINDOW_CHUNK, _kernels.sm_count(torch.device('cuda')))
         for label, dtype, int8 in (('f32', torch.float32, False),
                                    ('bf16', torch.bfloat16, False),
                                    ('int8', torch.bfloat16, True)):
-            q = torch.randn(batch, win, KV_HEADS, GROUP, HEAD_DIM,
+            q = torch.randn(batch, win, kv_heads, group, HEAD_DIM,
                             generator=gen, device='cuda').to(dtype)
-            k, v, ks, vs = _arena(gen, dtype, n_blocks, int8)
+            k, v, ks, vs = _arena(gen, dtype, n_blocks, int8, kv_heads)
 
             def kernel(k=k, v=v):
                 return da.decode_window_attention_pooled(
@@ -1380,18 +1436,18 @@ def check_window(decode_attention, ptxas):
                 continue
             if (lane, label) == ('verify', 'bf16'):
                 results['combine'] = _check_window_combine(
-                    da, q, k, v, tables, layer, positions, out, ptxas)
+                    da, q, k, v, tables, layer, positions, out, ptxas, tag)
             rows = torch.clamp_max(
                 positions.long()[:, None] + torch.arange(win, device='cuda')
                 + 1, capacity)                          # keys per row
-            pairs = int(rows.sum()) * KV_HEADS * GROUP
+            pairs = int(rows.sum()) * kv_heads * group
             keys = int(rows[:, -1].sum())
             nbytes = (2 * q.numel() * 2 + _kv_bytes(keys, k)
                       + tables.numel() * 4 + batch * 4)
             b_ms, by = bound(nbytes, 4 * HEAD_DIM * pairs, BF16_FLOPS)
             kt, vt = _gathered(k, v, ks, vs, tables, layer, dtype)
             qs = q.permute(0, 2, 3, 1, 4).reshape(
-                batch, KV_HEADS * GROUP, win, HEAD_DIM)
+                batch, kv_heads * group, win, HEAD_DIM)
             mask = (torch.arange(kt.shape[2], device='cuda')[None, None, :]
                     < rows[:, :, None])[:, None]        # (B, 1, W, S)
             # SDPA's row order is (KV, G, W); logged, not held to a bound.
@@ -1400,12 +1456,13 @@ def check_window(decode_attention, ptxas):
                        .float() - lib_out.float()).abs().max().item()
             log(f'  {name}: max_abs_err vs SDPA {lib_err:.3e}')
             suffix = lane if label == 'bf16' else f'int8 {lane}'
+            suffix += f' {tag}' if tag else ''
             results[(lane, label)] = {
                 'name': f'decode_window_attention_pooled[{suffix}]',
                 'route': 'cuda',
                 'source': 'skypilot_tpu_torch/csrc/paged_window.cu',
                 'replaces': 'skypilot_tpu/ops/decode_attention.py:456',
-                'shape': f'q ({batch}, {win}, {KV_HEADS}, {GROUP}, '
+                'shape': f'q ({batch}, {win}, {kv_heads}, {group}, '
                          f'{HEAD_DIM}) bf16, {"int8" if int8 else "bf16"} '
                          f'arena, BS {BS} T {T_WIDTH}, positions '
                          f'{pos_list if batch == 1 else "0..2047"}, '
@@ -1430,12 +1487,12 @@ def check_window(decode_attention, ptxas):
 
 
 def _check_window_combine(da, q, k, v, tables, layer, positions, out,
-                          ptxas):
+                          ptxas, tag=''):
     """K4's combine kernel alone on the partials of the verify bf16
     launch, against _combine_splits_plain (per row: both sum the same f32
     terms in f32) and bitwise against the launch's own output; returns
     its kernels line entry."""
-    batch, win = q.shape[:2]
+    batch, win, kv_heads, group = q.shape[:4]
     capacity = tables.shape[1] * BS
     _, scratch, split_len = da._decode_window_attention_cuda(
         q, k, v, tables, layer, positions, None, None,
@@ -1444,7 +1501,7 @@ def _check_window_combine(da, q, k, v, tables, layer, positions, out,
         raise AssertionError('decode_window_attention_pooled: the verify '
                              'shape did not take the split route')
     acc, ml = da._split_partials(q, scratch)
-    live = da._window_live_splits(positions, win, GROUP, capacity,
+    live = da._window_live_splits(positions, win, group, capacity,
                                   split_len)
 
     def kernel():
@@ -1453,7 +1510,7 @@ def _check_window_combine(da, q, k, v, tables, layer, positions, out,
 
     def plain():
         o = da._combine_splits_plain(ml[..., 0], ml[..., 1], acc, live)
-        return o.reshape(batch, KV_HEADS, win, GROUP, HEAD_DIM).permute(
+        return o.reshape(batch, kv_heads, win, group, HEAD_DIM).permute(
             0, 2, 1, 3, 4).to(q.dtype)
 
     got, want = kernel(), plain()
@@ -1461,16 +1518,17 @@ def _check_window_combine(da, q, k, v, tables, layer, positions, out,
     if not torch.equal(got, out):
         raise AssertionError('paged_window_combine: not the split launch\'s '
                              'output')
-    parts = int(live.sum()) * KV_HEADS
+    parts = int(live.sum()) * kv_heads
     nbytes = parts * (HEAD_DIM + 2) * 4 + got.numel() * 2 + batch * 4
     b_ms, by = bound(nbytes, parts * HEAD_DIM * 2, BF16_FLOPS)
     return {
-        'name': 'paged_window_combine', 'route': 'cuda',
+        'name': 'paged_window_combine' + (f'[{tag}]' if tag else ''),
+        'route': 'cuda',
         'source': 'skypilot_tpu_torch/csrc/paged_window.cu',
         'replaces': 'skypilot_tpu/ops/decode_attention.py:456',
         'shape': f'partials of K4 verify bf16: {acc.shape[2]} splits of '
                  f'{split_len}, {int(live.sum())} live (row, split) pairs '
-                 f'over {batch} slots x {win * GROUP} rows, hd {HEAD_DIM}',
+                 f'over {batch} slots x {win * group} rows, hd {HEAD_DIM}',
         'max_abs_err': err, 'ms': time_ms(kernel),
         'graph_ms': graph_ms(kernel), 'plain_ms': time_ms(plain),
         'bound_ms': b_ms, 'bound_by': by, 'library_ms': None,
@@ -4774,6 +4832,709 @@ def eval_ppl_path(paths, counters, root, model_size='8b', device='cuda'):
 # Launch counts by route: '<name>[tc]' the tensor-core kernels of K2, K5
 # and K6, '<name>[split]' the split-KV launches of K1 and K7, '<name>[lse]'
 # K2's launches that wrote the lse.
+# ---- phase 16: tensor-parallel serving --------------------------------------
+
+# Phase 16 runs its ranks as processes that share cuda:0 over gloo: NCCL
+# refuses two ranks on one GPU.  That checks every rank's kernels at its
+# own shapes and the collectives' semantics on CUDA tensors; no number of
+# it is a multi-card rate (NVLink is not on the path).
+TP_NEW_TOKENS = 64
+# Phase 5's prompt lengths capped at 256 (one prefill a prompt): every
+# gloo combine waits for the card, which the ranks share by time
+# slices, so a tick's decode chunk costs ~0.3 s a step at 8B.
+TP_PROMPT_LENGTHS = [17, 60, 128, 250, 200, 150, 100, 230]
+# 16b's first-step logits, bf16 at tp 2 against tp 1: each rank's
+# partial products round to bf16 before the rank-order sum (one bf16
+# ulp of a partial, ~2^-8 of its scale, a layer), where one card rounds
+# the whole product once.  Gate: max |diff| below this share of the
+# largest |logit| (measured values in PERF.md section 6).
+TP_LOGITS_REL = 0.05
+
+
+def _rank_process(rank, world, port, task, kwargs, queue):
+    """One rank of a phase-16 spawn: gloo over 127.0.0.1:port on cuda:0
+    (or the CPU), then TP_TASKS' `task`; puts (rank, ok, result or
+    traceback) on the queue and exits 1 on any failure."""
+    import traceback
+    from datetime import timedelta
+    import torch.distributed as dist
+    ok = False
+    try:
+        if kwargs.get('device', 'cuda') == 'cuda':
+            torch.cuda.set_device(0)
+        dist.init_process_group(
+            'gloo', init_method=f'tcp://127.0.0.1:{port}',
+            world_size=world, rank=rank, timeout=timedelta(seconds=600))
+        result = globals()[task](**kwargs)
+        queue.put((rank, True, result))
+        ok = True
+        dist.destroy_process_group()
+    except BaseException:
+        queue.put((rank, False, traceback.format_exc()))
+    sys.exit(0 if ok else 1)
+
+
+def run_ranks(world, task, timeout=900, **kwargs):
+    """Spawn `world` rank processes running the function `task` of this
+    module with kwargs; return their results in rank order.  The kernels
+    are built already (phase 2), so no rank builds.  Every rank's exit
+    code is collected: one failed or silent rank raises, naming the
+    codes, and fails the phase and the run."""
+    import multiprocessing
+    import queue as queue_lib
+    from skypilot_tpu_torch.infer import multihost
+    ctx = multiprocessing.get_context('spawn')
+    queue = ctx.Queue()
+    port = multihost.free_port()
+    procs = [ctx.Process(target=_rank_process,
+                         args=(r, world, port, task, kwargs, queue))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results, errors = {}, []
+    deadline = time.monotonic() + timeout
+    try:
+        while len(results) + len(errors) < world:
+            try:
+                rank, ok, out = queue.get(
+                    timeout=max(1.0, deadline - time.monotonic()))
+            except queue_lib.Empty:
+                break
+            if ok:
+                results[rank] = out
+            else:
+                errors.append((rank, out))
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    if errors or any(codes) or len(results) < world:
+        detail = errors[0][1] if errors else 'no result'
+        raise AssertionError(f'{task}: ranks failed (exit codes {codes}, '
+                             f'results from {sorted(results)}):\n{detail}')
+    return [results[r] for r in range(world)]
+
+
+def _kernel_counters():
+    from skypilot_tpu_torch.ops import attention, decode_attention, rmsnorm
+    da = decode_attention
+    return [da.decode_attention_pooled, attention.flash_attention,
+            rmsnorm.rms_norm, da.decode_window_attention_pooled,
+            da.fused_step_attention_pooled, attention.flash_attention_dq,
+            attention.flash_attention_dkv, da.decode_attention]
+
+
+def _sum_counts(outs, key='counts'):
+    total = collections.Counter()
+    for o in outs:
+        total.update(o[key])
+    return dict(total)
+
+
+def _tp_config(name):
+    """Phase 16's configurations by name."""
+    from skypilot_tpu_torch.models import llama
+    return {
+        '8b': llama.LLAMA3_8B,
+        '8b-8': dataclasses.replace(llama.LLAMA3_8B, n_layers=8),
+        '8b-8-f32': dataclasses.replace(llama.LLAMA3_8B, n_layers=8,
+                                        dtype=torch.float32),
+        '70b-8': dataclasses.replace(llama.LLAMA3_70B, n_layers=8),
+        'f32-narrow': llama.LlamaConfig(
+            vocab_size=32768, d_model=1024, n_layers=4, n_heads=8,
+            n_kv_heads=4, d_ff=2816, max_seq_len=2048,
+            dtype=torch.float32, remat=False),
+        # Rehearses phase 16 on the host (device='cpu').
+        'tiny': llama.LlamaConfig(
+            vocab_size=512, d_model=128, n_layers=2, n_heads=8,
+            n_kv_heads=4, d_ff=256, max_seq_len=2048, dtype=torch.bfloat16,
+            remat=False),
+    }[name]
+
+
+def tp_first_logits(params, cfg, prompts, mesh=None, device='cuda'):
+    """Prefill logits (B, vocab) f32 of `prompts` (right-padded to the
+    longest) through llama_infer.prefill, on the mesh's shards."""
+    from skypilot_tpu_torch.infer import llama_infer
+    from skypilot_tpu_torch.infer import tp as tp_lib
+    longest = max(len(p) for p in prompts)
+    tokens = torch.zeros((len(prompts), longest), dtype=torch.int32)
+    for i, p in enumerate(prompts):
+        tokens[i, :len(p)] = torch.tensor(p)
+    cache = llama_infer.init_cache(tp_lib.local_config(cfg, mesh),
+                                   len(prompts), longest, device=device)
+    with torch.inference_mode():
+        logits, _ = llama_infer.prefill(
+            params, tokens.to(device), cfg, cache,
+            torch.tensor([len(p) for p in prompts], device=device),
+            mesh=mesh)
+    return logits.float().cpu()
+
+
+def tp_serve(params, cfg, gen_kw, prompts, new_tokens, mesh=None,
+             device='cuda', graphs=None):
+    """Submit every prompt, then run the batcher to idle, with the
+    launch counts zeroed just before and read just after.  Returns
+    (tokens, counts, stats)."""
+    from skypilot_tpu_torch.infer import quant
+    from skypilot_tpu_torch.infer.engine import GeneratorConfig
+    from skypilot_tpu_torch.infer.serving import ContinuousBatcher
+    counters = _kernel_counters()
+    b = ContinuousBatcher(params, cfg, GeneratorConfig(**gen_kw),
+                          decode_chunk=gen_kw.get('decode_chunk', 16),
+                          mesh=mesh, device=device, graphs=graphs)
+    try:
+        _zero(counters)
+        if device == 'cuda':
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rids = [b.submit(p, max_new_tokens=new_tokens) for p in prompts]
+        b.run_until_idle()
+        if device == 'cuda':
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _counts(counters)
+        out = [b.result(r) for r in rids]
+        stats = {'seconds': seconds, 'decode_tokens': b.decode_tokens,
+                 'decode_tokens_per_s': b.decode_tokens / max(
+                     b.decode_seconds, 1e-9),
+                 'spec_proposed': b.spec_proposed,
+                 'fused_steps': (b._fuse_policy.stats.steps
+                                 if b._fuse_policy else 0),
+                 'overlap': b.overlap,
+                 'graphs_off_reason': b.graphs_off_reason,
+                 'arena_bytes': quant.quantized_bytes(b.pool.arena)}
+    finally:
+        b.close()
+    for p, toks in zip(prompts, out):
+        if len(toks) != new_tokens or not all(
+                0 <= t < cfg.vocab_size for t in toks):
+            raise AssertionError(f'a request returned {len(toks)} tokens '
+                                 f'of {new_tokens}, or one out of range')
+    return out, counts, stats
+
+
+# Serving arms of phase 16 (16b-16d).  overlap_collectives False: the
+# synchronous schedule, one gather a combine (16c keeps the default, the
+# overlapped combines at 70B's widths; 16e holds them bitwise).
+TP_ARMS = {
+    'plain': dict(max_seq_len=2048, batch_size=8, prefill_chunk=256,
+                  overlap_collectives=False),
+    'overlap': dict(max_seq_len=2048, batch_size=8, prefill_chunk=256),
+    'int8kv': dict(max_seq_len=2048, batch_size=8, prefill_chunk=256,
+                   kv_cache_dtype='int8', overlap_collectives=False),
+    # K4 per rank: verify windows (spec_k 4) and the fused lane (prompts
+    # past 64 tokens ride the fused steps, one a tick: 4-step chunks).
+    'spec': dict(max_seq_len=2048, batch_size=8, prefill_chunk=64,
+                 spec_k=4, fuse_budget=64, overlap_collectives=False,
+                 decode_chunk=4),
+}
+
+
+def rank_collectives(seed, device='cuda'):
+    """16a on one rank of 4: every collective of parallel/collectives.py
+    on this rank's seeded f32 and bf16 (8, 4096) inputs (drawn on the
+    host, so the parent can draw every rank's), over a ('dp', 'tp') 2 x
+    2 mesh and over all 4 ranks; plus the gather's and the backend's
+    all-reduce's seconds on CUDA tensors."""
+    import torch.distributed as dist
+    from skypilot_tpu_torch.parallel import collectives as coll
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    mesh = mesh_lib.Mesh(np.arange(4).reshape(2, 2), ('dp', 'tp'))
+    flat = mesh_lib.Mesh(np.arange(4), ('tp',))
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = _collective_input(seed, dist.get_rank(), dtype).to(device)
+        res = {}
+        for name, m, ax in (('dp', mesh, 'dp'), ('tp', mesh, 'tp'),
+                            ('all', flat, 'tp')):
+            res[f'gather/{name}'] = coll.ring_all_gather(x, m, ax)
+            res[f'tiled/{name}'] = coll.ring_all_gather(x, m, ax,
+                                                        tiled=True)
+            res[f'scatter/{name}'] = coll.ring_reduce_scatter(x, m, ax)
+        for c in (1, 2, 3, 4):
+            res[f'psum/{c}'] = coll.pipelined_psum(x, flat, 'tp',
+                                                   chunks=c)[0]
+        res['allreduce'] = coll._rank_order_allreduce(x, mesh,
+                                                      ('dp', 'tp'))
+        if any(t.device.type != x.device.type for t in res.values()):
+            raise AssertionError('a collective left the device')
+        # numpy, not tensors: a tensor put on the queue is shared through
+        # a file descriptor that dies with this process.
+        out[str(dtype)] = {k: v.float().cpu().numpy()
+                           for k, v in res.items()}
+    timing = coll.all_gather_bench(flat, 'tp', payload_mb=8, iters=5,
+                                   warmup=2, device=device)
+    timing_ar = coll.psum_bench(flat, 'tp', payload_mb=8, iters=5,
+                                warmup=2, device=device)
+    return {'results': out, 'gather_8mb': timing, 'allreduce_8mb': timing_ar}
+
+
+def _collective_input(seed, rank, dtype):
+    gen = torch.Generator().manual_seed(seed * 100 + rank)
+    return torch.randn(8, 4096, generator=gen).to(dtype)
+
+
+def rank_fail(device='cpu'):
+    """16a's check of the parent: rank 1 fails, rank 0 succeeds."""
+    import torch.distributed as dist
+    if dist.get_rank() == 1:
+        raise RuntimeError('rank 1 fails on purpose')
+    return {'ok': True}
+
+
+def rank_serve(config, tp, seed, arms, prompt_lengths, hf_dir=None,
+               device='cuda'):
+    """16b-16d on one rank: this rank's shards of `config` (drawn by
+    init_sharded_params from `seed`, or read from hf_dir by
+    load_hf_model_sharded), the first-step logits of the prompts, and
+    each (arm of TP_ARMS, new tokens) of `arms` served through the
+    batcher with the counts zeroed before it.  Returns tokens, counts and stats by arm, and the rank's
+    shard bytes and peak device memory."""
+    from skypilot_tpu_torch.infer import quant
+    from skypilot_tpu_torch.infer import tp as tp_lib
+    from skypilot_tpu_torch.models import convert
+    cuda = device == 'cuda'
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if hf_dir:
+        cfg = convert.read_hf_config(hf_dir)
+        mesh = tp_lib.make_tp_mesh(tp, n_kv_heads=cfg.n_kv_heads)
+        params, cfg = convert.load_hf_model_sharded(hf_dir, mesh,
+                                                    device=device)
+    else:
+        cfg = _tp_config(config)
+        mesh = tp_lib.make_tp_mesh(tp, n_kv_heads=cfg.n_kv_heads)
+        params = tp_lib.init_sharded_params(
+            cfg, torch.Generator(device=device).manual_seed(seed), mesh,
+            device)
+    if cuda:
+        torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() if cuda else 0
+    shard = quant.quantized_bytes(params)
+    prompts = _serve_prompts(cfg.vocab_size)
+    prompts = [p[:n] for p, n in zip(prompts, prompt_lengths)]
+    logits = tp_first_logits(params, cfg, prompts, mesh, device)
+    out = {'rank': mesh.rank, 'coords': mesh.coords, 'shape': mesh.shape,
+           'shard_bytes': shard, 'init_s': init_s, 'init_peak': init_peak,
+           'logits': logits.numpy() if mesh.rank == 0 else None,
+           'logits_sha': hashlib.sha256(logits.numpy().tobytes()).hexdigest(),
+           'arms': {}}
+    for arm, new_tokens in arms:
+        toks, counts, stats = tp_serve(params, cfg, TP_ARMS[arm], prompts,
+                                       new_tokens, mesh, device)
+        out['arms'][arm] = {'tokens': toks, 'counts': counts,
+                            'stats': stats, 'new_tokens': new_tokens}
+    out['peak'] = torch.cuda.max_memory_allocated() if cuda else 0
+    return out
+
+
+def rank_overlap(config, tp, seed, chunks, new_tokens, device='cuda'):
+    """16e on one rank: the Generator at each overlap chunk count (1 is
+    the synchronous path: overlap_collectives False), its greedy tokens
+    and every decode step's last hidden states (the final norm's
+    input), each run's against the synchronous one's on this rank: the
+    tokens matched before the first difference, and the hidden states'
+    max abs difference over the steps before it."""
+    from skypilot_tpu_torch.infer import engine, llama_infer
+    from skypilot_tpu_torch.infer import tp as tp_lib
+    cfg = _tp_config(config)
+    mesh = tp_lib.make_tp_mesh(tp, n_kv_heads=cfg.n_kv_heads)
+    params = tp_lib.init_sharded_params(
+        cfg, torch.Generator(device=device).manual_seed(seed), mesh, device)
+    prompts = [p[:48] for p in _serve_prompts(cfg.vocab_size)]
+    counters = _kernel_counters()
+    final = llama_infer._final
+    runs = {}
+    try:
+        for c in chunks:
+            seen = []
+
+            def record(h, *args):
+                seen.append(h.float().clone())
+                return final(h, *args)
+            llama_infer._final = record
+            gen = engine.Generator(params, cfg, engine.GeneratorConfig(
+                max_seq_len=256, batch_size=8, prompt_buckets=[64],
+                decode_chunk=8, overlap_collectives=c > 1,
+                overlap_chunks=c if c > 1 else None), mesh=mesh,
+                device=device)
+            _zero(counters)
+            if device == 'cuda':
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks = gen.generate(prompts, max_new_tokens=new_tokens)
+            if device == 'cuda':
+                torch.cuda.synchronize()
+            runs[c] = {'tokens': toks, 'hidden': seen, 'overlap': gen.overlap,
+                       'seconds': time.perf_counter() - t0,
+                       'counts': _counts(counters)}
+    finally:
+        llama_infer._final = final
+    sync = runs[chunks[0]]
+    out = {}
+    for c, run in runs.items():
+        matched = _matched(run['tokens'], sync['tokens'])
+        # Decode step j reads token j: comparable while tokens 0..j match.
+        steps = max(1, min(min(matched), len(run['hidden']),
+                           len(sync['hidden'])))
+        diffs = [(a - b).abs().max().item() for a, b in
+                 zip(run['hidden'][:steps], sync['hidden'][:steps])]
+        out[c] = {'tokens': run['tokens'], 'matched': matched,
+                  'hidden_max_abs_diff': diffs,
+                  'hidden_max_abs': [h.abs().max().item()
+                                     for h in sync['hidden'][:steps]],
+                  'overlap': run['overlap'], 'steps': len(run['hidden']),
+                  'seconds': run['seconds'], 'counts': run['counts']}
+    return out
+
+
+def overlap_projection_ms(d_model, widths, chunks=(2, 4), rows=8,
+                          eps=1e-5):
+    """One rank's projections of a layer on the card, no collective: the
+    synchronous path's h + partial, K3 and the whole products for q/k/v
+    and gate/up, against _combine_then_project's span products at each
+    chunk count (mesh None: the spans arrive without a gather).  widths:
+    the rank's (wq, wk, wv, w_gate, w_up) output widths.  Returns ms
+    (time_ms, eager) and graph ms by variant."""
+    from skypilot_tpu_torch.infer import llama_infer, quant
+    from skypilot_tpu_torch.ops import rmsnorm as rmsnorm_ops
+    gen = torch.Generator(device='cuda').manual_seed(11)
+
+    def draw(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device='cuda') * scale
+                ).to(torch.bfloat16)
+    h = draw(rows, 1, d_model)
+    parts = [draw(rows, 1, d_model), draw(rows, 1, d_model)]
+    gains = [1 + draw(d_model, scale=0.1), 1 + draw(d_model, scale=0.1)]
+    groups = [[draw(d_model, f, scale=d_model ** -0.5) for f in widths[:3]],
+              [draw(d_model, f, scale=d_model ** -0.5) for f in widths[3:]]]
+
+    def whole():
+        for part, gain, ws in zip(parts, gains, groups):
+            x = rmsnorm_ops.rms_norm(h + part, gain, eps=eps)
+            for w in ws:
+                quant.matmul(x, w)
+
+    def spans(c):
+        def run():
+            for part, gain, ws in zip(parts, gains, groups):
+                llama_infer._combine_then_project(part, h, gain, ws, None,
+                                                  c, eps)
+        return run
+    variants = {'whole': whole}
+    variants.update({f'spans_{c}': spans(c) for c in chunks})
+    with torch.inference_mode():
+        return {name: {'ms': time_ms(fn), 'graph_ms': graph_ms(fn)}
+                for name, fn in variants.items()}
+
+
+def tp_collectives_path(device='cuda'):
+    """16a: 4 ranks run every collective on f32 and bf16 CUDA tensors;
+    each result is held bitwise to the stack or the sum in that rank's
+    order computed here in one process (rank-order sums: rank 0 first;
+    reduce-scatter: the ring's arrival order d+1, ..., d).  Then a spawn
+    in which rank 1 fails must fail, naming exit codes [0, 1]."""
+    seed = 5
+    outs = run_ranks(4, 'rank_collectives', timeout=240, seed=seed,
+                     device=device)
+    fibers = {'dp': lambda r: [r % 2, r % 2 + 2],
+              'tp': lambda r: [r - r % 2, r - r % 2 + 1],
+              'all': lambda r: [0, 1, 2, 3]}
+    checked = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        xs = [_collective_input(seed, r, dtype).to(device) for r in range(4)]
+        total = xs[0]
+        for x in xs[1:]:
+            total = total + x
+        for r, out in enumerate(outs):
+            got = out['results'][str(dtype)]
+            want = {'allreduce': total}
+            for c in (1, 2, 3, 4):
+                want[f'psum/{c}'] = total
+            for name, fiber_of in fibers.items():
+                fiber = fiber_of(r)
+                n, d = len(fiber), fiber.index(r)
+                stack = torch.stack([xs[p] for p in fiber])
+                want[f'gather/{name}'] = stack
+                want[f'tiled/{name}'] = stack.reshape(-1, 4096)
+                c = 8 // n
+                acc = xs[fiber[(d + 1) % n]][d * c:(d + 1) * c]
+                for t in range(2, n + 1):
+                    acc = acc + xs[fiber[(d + t) % n]][d * c:(d + 1) * c]
+                want[f'scatter/{name}'] = acc
+            for key, w in want.items():
+                if not torch.equal(torch.from_numpy(got[key]),
+                                   w.float().cpu()):
+                    raise AssertionError(f'16a {key} {dtype} rank {r}: not '
+                                         f'bitwise the one-process result')
+                checked += 1
+    try:
+        run_ranks(2, 'rank_fail', timeout=120, device='cpu')
+    except AssertionError as e:
+        if 'exit codes [0, 1]' not in str(e):
+            raise
+    else:
+        raise AssertionError('16a: a spawn with a failing rank passed')
+    stats = {'card': CARD.get('line'), 'bitwise_checks': checked,
+             'gather_8mb_s': outs[0]['gather_8mb']['time_s'],
+             'gloo_allreduce_8mb_s': outs[0]['allreduce_8mb']['time_s'],
+             'note': 'gloo over the host, 4 ranks on one card: not a '
+                     'multi-card rate'}
+    log('  16a collectives: ' + json.dumps(stats))
+    return stats
+
+
+def _matched(a, b):
+    """Tokens of each request equal before its first difference."""
+    out = []
+    for x, y in zip(a, b):
+        n = 0
+        while n < min(len(x), len(y)) and x[n] == y[n]:
+            n += 1
+        out.append(n)
+    return out
+
+
+def _ranks_agree(outs, label):
+    shas = {o['logits_sha'] for o in outs}
+    if len(shas) != 1:
+        raise AssertionError(f'{label}: ranks hold different logits')
+    for arm in outs[0]['arms']:
+        toks = [o['arms'][arm]['tokens'] for o in outs]
+        if any(t != toks[0] for t in toks):
+            raise AssertionError(f'{label} {arm}: ranks sampled different '
+                                 f'tokens')
+
+
+def tp_compare(label, outs, params, cfg, prompt_lengths, exact=False,
+               device='cuda'):
+    """The ranks' first-step logits and tokens against tp=1 on `params`
+    (the same weights, whole, in this process): the logits' max abs
+    difference, gated at TP_LOGITS_REL of the largest |logit| (or
+    identical greedy tokens where exact), and each request's tokens
+    matched before its first difference, by arm.  Returns the stats."""
+    prompts = [p[:n] for p, n in zip(_serve_prompts(cfg.vocab_size),
+                                     prompt_lengths)]
+    one = tp_first_logits(params, cfg, prompts, device=device)
+    got = torch.from_numpy(outs[0]['logits'])
+    diff = (got - one).abs().max().item()
+    scale = one.abs().max().item()
+    stats = {'card': CARD.get('line'),
+             'first_logits_max_abs_diff': diff, 'max_abs_logit': scale,
+             'first_argmax_equal': int((got.argmax(-1) == one.argmax(-1))
+                                       .sum()),
+             'arms': {}}
+    if not exact and diff > TP_LOGITS_REL * scale:
+        raise AssertionError(f'{label}: first-step logits differ by {diff} '
+                             f'(> {TP_LOGITS_REL} of {scale})')
+    for arm, res in outs[0]['arms'].items():
+        new_tokens = res['new_tokens']
+        toks1, _, stats1 = tp_serve(params, cfg, TP_ARMS[arm], prompts,
+                                    new_tokens, device=device)
+        matched = _matched(res['tokens'], toks1)
+        if exact and res['tokens'] != toks1:
+            raise AssertionError(f'{label} {arm}: tp tokens differ from '
+                                 f'tp=1 (matched {matched})')
+        stats['arms'][arm] = {
+            'matched_before_first_difference': matched,
+            'identical_requests': sum(m == new_tokens for m in matched),
+            'tp_decode_tokens_per_s': res['stats']['decode_tokens_per_s'],
+            'tp1_decode_tokens_per_s': stats1['decode_tokens_per_s'],
+            'tp_seconds': res['stats']['seconds'],
+            'overlap': res['stats']['overlap'],
+            'graphs_off_reason': res['stats']['graphs_off_reason'],
+            'spec_proposed': res['stats']['spec_proposed'],
+            'fused_steps': res['stats']['fused_steps']}
+    log(f'  {label}: ' + json.dumps(stats))
+    return stats
+
+
+def tp_memory(label, outs, cfg):
+    """Each rank's shard, arena and peak device bytes against the whole
+    model's: a rank holds its shard, its arena and at most one drawn
+    f32 slab (the largest, the (vocab, d) embedding), never the model."""
+    from skypilot_tpu_torch.models import llama
+    model = cfg.num_params() * torch.empty((), dtype=cfg.dtype).element_size()
+    slab = cfg.vocab_size * cfg.d_model * 4
+    rows = []
+    for o in outs:
+        arena = max(a['stats']['arena_bytes'] for a in o['arms'].values())
+        row = {'rank': o['rank'], 'shard_gb': o['shard_bytes'] / 1e9,
+               'arena_gb': arena / 1e9, 'init_peak_gb': o['init_peak'] / 1e9,
+               'peak_gb': o['peak'] / 1e9, 'init_s': o['init_s']}
+        limit = o['shard_bytes'] + arena + slab + (2 << 30)
+        if o['peak'] > limit or o['peak'] >= model:
+            raise AssertionError(f'{label} rank {o["rank"]}: peak '
+                                 f'{o["peak"]} bytes, past its shard + '
+                                 f'arena + one slab ({limit}) or the model '
+                                 f'({model})')
+        rows.append(row)
+    stats = {'card': CARD.get('line'), 'model_gb': model / 1e9,
+             'largest_f32_slab_gb': slab / 1e9, 'ranks': rows}
+    del llama
+    log(f'  {label} memory: ' + json.dumps(stats))
+    return stats
+
+
+def tp_serve_path(paths):
+    """16b: LLAMA3_8B at tp 2, bf16, int8 KV and spec_k 4 + fuse_budget
+    64 (K4 per rank), against tp 1 on the same seed; then the f32 narrow
+    config at tp 2, whose greedy tokens must equal tp 1's."""
+    from skypilot_tpu_torch.models import llama
+    lengths = TP_PROMPT_LENGTHS
+    outs = run_ranks(2, 'rank_serve', timeout=600, config='8b', tp=2,
+                     seed=0, arms=[('plain', TP_NEW_TOKENS),
+                                   ('int8kv', TP_NEW_TOKENS), ('spec', 8)],
+                     prompt_lengths=lengths)
+    _ranks_agree(outs, '16b')
+    for arm, key in (('plain', '16b'), ('int8kv', '16b-int8'),
+                     ('spec', '16b-spec')):
+        paths[key] = _sum_counts([o['arms'][arm] for o in outs])
+    cfg = _tp_config('8b')
+    params = llama.init_params(
+        cfg, torch.Generator(device='cuda').manual_seed(0), 'cuda')
+    stats = tp_compare('16b LLAMA3_8B tp 2 vs tp 1', outs, params, cfg,
+                       lengths)
+    stats['memory'] = tp_memory('16b', outs, cfg)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    outs = run_ranks(2, 'rank_serve', timeout=300, config='f32-narrow', tp=2,
+                     seed=1, arms=[('plain', 32)], prompt_lengths=lengths)
+    _ranks_agree(outs, '16b f32')
+    cfg = _tp_config('f32-narrow')
+    params = llama.init_params(
+        cfg, torch.Generator(device='cuda').manual_seed(1), 'cuda')
+    stats['f32'] = tp_compare('16b f32 narrow tp 2 vs tp 1', outs, params,
+                              cfg, lengths, exact=True)
+    return stats
+
+
+def tp_70b_path(paths):
+    """16c: LLAMA3_70B's widths at 8 of its 80 layers, tp 4: sharded
+    random init (each rank's peak against its shard), 4 requests served,
+    against tp 1 at the same depth (~18 GB on one card)."""
+    from skypilot_tpu_torch.models import llama
+    lengths = TP_PROMPT_LENGTHS[:4]
+    outs = run_ranks(4, 'rank_serve', timeout=600, config='70b-8', tp=4,
+                     seed=0, arms=[('overlap', 16)], prompt_lengths=lengths)
+    _ranks_agree(outs, '16c')
+    paths['16c'] = _sum_counts([o['arms']['overlap'] for o in outs])
+    cfg = _tp_config('70b-8')
+    memory = tp_memory('16c', outs, cfg)
+    params = llama.init_params(
+        cfg, torch.Generator(device='cuda').manual_seed(0), 'cuda')
+    stats = tp_compare('16c LLAMA3_70B widths, 8 layers, tp 4 vs tp 1',
+                       outs, params, cfg, lengths)
+    stats['memory'] = memory
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
+def tp_qwen_path(paths, root):
+    """16d: Qwen2.5-1.5B (2 KV heads) at tp 4 = tp_kv 2 x tpq 2, read by
+    load_hf_model_sharded from HF-layout files (phase 12's writer and
+    draws), against load_hf_model at tp 1."""
+    from skypilot_tpu_torch.models import convert
+    directory = os.path.join(root, 'qwen')
+    write_hf_checkpoint(
+        directory, QWEN25_1_5B,
+        lambda name, shape: draw_hf_tensor(name, shape, 0, torch.bfloat16,
+                                           'cuda'), torch.bfloat16)
+    lengths = TP_PROMPT_LENGTHS
+    outs = run_ranks(4, 'rank_serve', timeout=400, config=None, tp=4, seed=0,
+                     arms=[('plain', 16)], prompt_lengths=lengths,
+                     hf_dir=directory)
+    _ranks_agree(outs, '16d')
+    if outs[0]['shape'] != {'tp': 2, 'tpq': 2}:
+        raise AssertionError(f'16d mesh {outs[0]["shape"]}')
+    paths['16d'] = _sum_counts([o['arms']['plain'] for o in outs])
+    params, cfg = convert.load_hf_model(directory, device='cuda')
+    stats = tp_compare('16d Qwen2.5-1.5B tp 4 (2 x tpq 2) vs tp 1', outs,
+                       params, cfg, lengths)
+    stats['memory'] = tp_memory('16d', outs, cfg)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
+def tp_overlap_path(paths):
+    """16e: LLAMA3_8B's widths at 8 layers, tp 2: the Generator at
+    overlap_chunks 2 and 4 against the synchronous path.  f32: greedy
+    tokens identical.  bf16: tokens matched before the first difference
+    and the hidden states' max abs difference, the first step's gated at
+    TP_LOGITS_REL of its largest.  Then one rank's projections a layer
+    (8B tp 2, 70B tp 4), whole against the spans."""
+    chunks = [1, 2, 4]
+    stats = {'card': CARD.get('line')}
+    for config in ('8b-8-f32', '8b-8'):
+        outs = run_ranks(2, 'rank_overlap', timeout=400, config=config,
+                         tp=2, seed=0, chunks=chunks, new_tokens=16)
+        sync = outs[0][chunks[0]]['tokens']
+        for r, out in enumerate(outs):
+            for c in chunks:
+                want = None if c == 1 else c
+                if out[c]['overlap'] != want:
+                    raise AssertionError(f'16e: overlap {out[c]["overlap"]}')
+                if out[c]['tokens'] != outs[0][c]['tokens']:
+                    raise AssertionError(f'16e {config}: ranks differ')
+                if config.endswith('f32') and out[c]['tokens'] != sync:
+                    raise AssertionError(
+                        f'16e {config} rank {r}: {c} chunks give other '
+                        f'tokens than the synchronous path '
+                        f'(matched {out[c]["matched"]})')
+                first = out[c]['hidden_max_abs_diff'][0]
+                if first > TP_LOGITS_REL * out[c]['hidden_max_abs'][0]:
+                    raise AssertionError(
+                        f'16e {config} rank {r}: {c} chunks\' first hidden '
+                        f'states differ by {first}')
+        if not config.endswith('f32'):
+            paths['16e'] = _sum_counts([o[c] for o in outs for c in chunks])
+        stats[config] = {
+            str(c): {'matched_before_first_difference':
+                     outs[0][c]['matched'],
+                     'hidden_max_abs_diff': max(
+                         max(o[c]['hidden_max_abs_diff']) for o in outs),
+                     'first_hidden_max_abs_diff': max(
+                         o[c]['hidden_max_abs_diff'][0] for o in outs),
+                     'hidden_max_abs': outs[0][c]['hidden_max_abs'][0],
+                     'seconds': outs[0][c]['seconds']}
+            for c in chunks}
+        stats[config]['decode_steps'] = outs[0][1]['steps']
+    stats['projection_ms_8b_tp2'] = overlap_projection_ms(
+        4096, (2048, 512, 512, 7168, 7168))
+    stats['projection_ms_70b_tp4'] = overlap_projection_ms(
+        8192, (2048, 256, 256, 7168, 7168))
+    log('  16e overlap: ' + json.dumps(stats))
+    return stats
+
+
+def tp_channel_path():
+    """16f: a head and one worker (two rank processes on the card over
+    gloo) through the control channel: MultiHostBatcher submit, ping,
+    step, result and shutdown; the head's greedy tokens equal the
+    one-process baseline's (multihost_check.run_check)."""
+    from skypilot_tpu_torch.infer import multihost_check
+    t0 = time.perf_counter()
+    base = multihost_check.baseline_decode('cuda')
+    out = multihost_check.run_check(2, 1, timeout_s=300, baseline=base,
+                                    device='cuda')
+    stats = {'card': CARD.get('line'), 'tokens': out,
+             'seconds': time.perf_counter() - t0}
+    log('  16f control channel: ' + json.dumps(stats))
+    return stats
+
+
 ROUTES = {'tc': 'launches_tc', 'split': 'launches_split',
           'lse': 'launches_lse'}
 
@@ -4832,10 +5593,10 @@ def main() -> int:
         log(f'  phase {clock["name"]}: '
             f'{time.perf_counter() - clock["start"]:.1f} s')
 
-    phase(f'[1/15] device: {CARD["line"]} | torch {torch.__version__} '
+    phase(f'[1/16] device: {CARD["line"]} | torch {torch.__version__} '
         f'cuda {torch.version.cuda}')
 
-    phase('[2/15] build')
+    phase('[2/16] build')
     _kernels.LIBRARY.get()
     log(f'  built {_kernels.LIBRARY.path.name} in '
         f'{_kernels.LIBRARY.build_seconds:.1f} s')
@@ -4854,7 +5615,7 @@ def main() -> int:
                 and info['spill_bytes']:
             raise AssertionError(f'decode kernel {name} spills: {info}')
 
-    phase('[3/15] kernels vs plain versions')
+    phase('[3/16] kernels vs plain versions')
     t0 = time.perf_counter()
     decode = check_decode(decode_attention, ptxas)
     decode['g2'], decode['combine g2'] = check_decode_at(
@@ -4863,9 +5624,16 @@ def main() -> int:
         decode_attention, ptxas, 'Gemma-7B', 12)
     decode['qwen'], decode['combine qwen'] = check_decode_at(
         decode_attention, ptxas, 'Qwen2.5-1.5B', 13)
+    for seed, label in enumerate(('LLAMA3_8B tp2 rank',
+                                  'LLAMA3_70B tp4 rank',
+                                  'Qwen2.5-1.5B tp4 rank'), 30):
+        decode[label], decode[f'combine {label}'] = check_decode_at(
+            decode_attention, ptxas, label, seed)
     shared = check_decode_shared(decode_attention, ptxas)
     contig = check_contig_decode(decode_attention, ptxas)
     window = check_window(decode_attention, ptxas)
+    window_rank = check_window(decode_attention, ptxas, 4, 4,
+                               TP_WINDOW_SHAPES, 'LLAMA3_8B tp2 rank')
     flash = {'flash_attention': check_flash(attention, ptxas)}
     flash.update({name: check_flash_at(attention, ptxas, name)
                   for name in FLASH_SHAPES})
@@ -4886,13 +5654,13 @@ def main() -> int:
         f'{time_ms(read.sum):.4f} ms (bound 0.0063)')
     del tiny, read
 
-    phase('[4/15] slice parity, LLAMA_DEBUG and MoE f32, card vs host')
+    phase('[4/16] slice parity, LLAMA_DEBUG and MoE f32, card vs host')
     slice_parity()
     train_parity()
     post_train_parity()
     moe_parity()
 
-    phase('[5/15] main path, LLAMA3_8B bf16 behind the HTTP replica')
+    phase('[5/16] main path, LLAMA3_8B bf16 behind the HTTP replica')
     cfg = llama.LLAMA3_8B
     t0 = time.perf_counter()
     params = llama.init_params(
@@ -4918,7 +5686,7 @@ def main() -> int:
             raise AssertionError(f'{k1.__name__} missed the split route on '
                                  f'the {key} path')
 
-    phase('[6/15] main path with spec_k 12 and fuse_budget 264: (a) bf16, '
+    phase('[6/16] main path with spec_k 12 and fuse_budget 264: (a) bf16, '
         '(b) int8 KV and weights')
     spec = dict(base, spec_k=12, fuse_budget=264)
     paths['6a'], _, _, _ = serve_path('6a bf16 spec+fused', params,
@@ -4932,7 +5700,7 @@ def main() -> int:
               + [f'{c.__name__}[{r}]' for c in (k4v, k4f)
                  for r in ('tc', 'split')])
 
-    phase("[7/15] legacy plane decode_impl='paged' (K7): (a) bf16 and (b) int8 "
+    phase("[7/16] legacy plane decode_impl='paged' (K7): (a) bf16 and (b) int8 "
         'KV behind the HTTP replica, (c) Generator.generate')
     legacy = dict(base, decode_impl='paged', decode_chunk=16)
     with warnings.catch_warnings():
@@ -4955,7 +5723,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    phase('[8/15] train path: (a) LLAMA_1B at the bench settings, (b) '
+    phase('[8/16] train path: (a) LLAMA_1B at the bench settings, (b) '
         'LLAMA3_8B widths at depth 2')
     remat = dict(remat=True, remat_policy='dots')
     cfg_1b = dataclasses.replace(llama.LLAMA_1B, max_seq_len=2048,
@@ -4970,7 +5738,7 @@ def main() -> int:
         2, 4096, 6, trainer.TrainConfig(warmup_steps=2, total_steps=6),
         counters)
 
-    phase('[9/15] checkpoints: (a) LLAMA_1B async saves, restore, continue '
+    phase('[9/16] checkpoints: (a) LLAMA_1B async saves, restore, continue '
           '(phase 8a settings), (b) a managed job SIGTERMed and resumed '
           'through train_llama --resume auto')
     scratch = tempfile.mkdtemp(prefix='chip_smoke_ckpt_')
@@ -4993,7 +5761,7 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
-    phase('[10/15] post-training: (a) LoRA-SFT and (b) LoRA-DPO of LLAMA3_8B '
+    phase('[10/16] post-training: (a) LoRA-SFT and (b) LoRA-DPO of LLAMA3_8B '
           'at 32 layers, (c) GRPO on LLAMA_1B, (d) the entry points')
     gc.collect()
     torch.cuda.empty_cache()
@@ -5029,13 +5797,13 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
-    phase('[11/15] Mixtral-8x7B widths, random bf16 weights: (a) 16 of 32 '
+    phase('[11/16] Mixtral-8x7B widths, random bf16 weights: (a) 16 of 32 '
           'layers served, (c) LoRA-SFT of that base, (b) trained at depth 2')
     gc.collect()
     torch.cuda.empty_cache()
     mixtral_path(counters, paths)
 
-    phase('[12/15] HF checkpoints written in HF\'s layout and loaded by '
+    phase('[12/16] HF checkpoints written in HF\'s layout and loaded by '
           'convert.load_hf_model: (a) Gemma-7B and (b) Qwen2.5-1.5B at '
           'their published widths served, 12b LoRA-SFT in process and '
           'through train_sft --hf-model, (c) debug-size parity card vs host')
@@ -5055,14 +5823,14 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
-    phase('[13/15] ResNet: (a) ResNet18Thin one SGD step card vs host, (b) '
+    phase('[13/16] ResNet: (a) ResNet18Thin one SGD step card vs host, (b) '
           'train_resnet\'s path, ResNet50 at batch 256 of 224x224')
     gc.collect()
     torch.cuda.empty_cache()
     resnet_parity()
     resnet_train_path()
 
-    phase('[14/15] prefix cache, host tier and handoff at LLAMA3_8B bf16, '
+    phase('[14/16] prefix cache, host tier and handoff at LLAMA3_8B bf16, '
           '32 layers: (a) prefix reuse, (b) the host tier, (c) the '
           'prefill -> decode handoff in bf16 and int8 KV, (d) debug-size '
           'parity card vs host')
@@ -5091,7 +5859,7 @@ def main() -> int:
     prefix_parity()
     log(f'  14d: {time.perf_counter() - t0:.1f} s')
 
-    phase('[15/15] telemetry and the entry points around the batcher at '
+    phase('[15/16] telemetry and the entry points around the batcher at '
           'LLAMA3_8B bf16, 32 layers: (a) spans and the cost ledger on and '
           'off, (b) the OpenAI routes, (c) /v1/embeddings (encode), (d) '
           'batch_infer --resume, (e) eval_ppl')
@@ -5127,6 +5895,28 @@ def main() -> int:
         log(f'  15e: {time.perf_counter() - t0:.1f} s')
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
+
+    phase('[16/16] tensor-parallel serving, rank processes sharing cuda:0 '
+          'over gloo: (a) collectives, (b) LLAMA3_8B tp 2 (bf16, int8 KV, '
+          'spec_k + fuse_budget) and an f32 config vs tp 1, (c) '
+          'LLAMA3_70B widths at 8 layers, tp 4, (d) Qwen2.5-1.5B tp 4 '
+          '(tp_kv 2 x tpq 2) from HF files, (e) overlap chunks 2 and 4 '
+          'bitwise the sync path, (f) the control channel')
+    gc.collect()
+    torch.cuda.empty_cache()
+    scratch = tempfile.mkdtemp(prefix='chip_smoke_tp_')
+    try:
+        for sub, run in (('16a', tp_collectives_path),
+                         ('16b', lambda: tp_serve_path(paths)),
+                         ('16c', lambda: tp_70b_path(paths)),
+                         ('16d', lambda: tp_qwen_path(paths, scratch)),
+                         ('16e', lambda: tp_overlap_path(paths)),
+                         ('16f', tp_channel_path)):
+            t0 = time.perf_counter()
+            run()
+            log(f'  {sub}: {time.perf_counter() - t0:.1f} s')
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
     last_phase_done()
     log(f'  whole run: {time.perf_counter() - run_start:.1f} s')
     for key in ('8a', '8b', '9a', '10a', '10b', '10c', '11b', '11c'):
@@ -5145,6 +5935,12 @@ def main() -> int:
     decode15 = ('15a', '15b', '15d')
     for key in decode15:
         _need(key, paths[key], [c.__name__ for c in (k1, k2, k3)])
+    # Phase 16's ranks decode (K1) and prefill (K2, K3); 16b-spec runs
+    # K4's verify windows and fused lane.
+    tp16 = ('16b', '16b-int8', '16b-spec', '16c', '16d', '16e')
+    for key in tp16:
+        _need(key, paths[key], [c.__name__ for c in (k1, k2, k3)])
+    _need('16b-spec', paths['16b-spec'], [k4v.__name__, k4f.__name__])
     for key in ('15c', '15e'):
         _need(key, paths[key], [c.__name__ for c in (k2, k3)])
         if paths[key][f'{k2.__name__}[lse]']:
@@ -5180,13 +5976,19 @@ def main() -> int:
     # (12b-sft's K2 launches all write the lse: its entry is the train
     # one at TRAIN_SHAPES['qwen']).
     hf = ('12a', '12b', '12b-sft')
-    rest = tuple(k for k in paths if k not in hf)
+    rest = tuple(k for k in paths if k not in hf and k not in tp16)
+    tp8b = ('16b', '16b-int8', '16b-spec', '16e')
     kernels = [
         entry(decode['bf16'], k1, ('5', '6a', '11a') + decode15),
+        entry(decode['LLAMA3_8B tp2 rank'], k1, ('16b', '16b-spec', '16e')),
+        entry(decode['LLAMA3_70B tp4 rank'], k1, ('16c',)),
+        entry(decode['Qwen2.5-1.5B tp4 rank'], k1, ('16d',)),
         entry(decode['g2'], k1, ('10c',)),
         entry(decode['gemma'], k1, ('12a',)),
         entry(decode['qwen'], k1, ('12b',)),
-        entry(decode['int8'], k1, ('6b',)),
+        # 16b-int8's ranks run the same int8 instantiation over 4 KV
+        # heads (a grid dimension) where 6b runs 8.
+        entry(decode['int8'], k1, ('6b', '16b-int8')),
         # Phase 14's K1 launches decode slots whose tables share blocks.
         entry(shared['bf16'], k1, ('14a', '14b', '14c-bf16')),
         entry(shared['int8'], k1, ('14c-int8',)),
@@ -5194,9 +5996,18 @@ def main() -> int:
         entry(flash['flash_attention[Gemma-7B hd256]'], k2, ('12a',)),
         entry(flash['flash_attention[Qwen2.5-1.5B G6 prefill]'], k2,
               ('12b',)),
-        entry(norm['rms_norm'], k3, rest),
+        entry(flash['flash_attention[LLAMA3_8B tp2 rank prefill]'], k2,
+              tp8b),
+        entry(flash['flash_attention[LLAMA3_70B tp4 rank prefill]'], k2,
+              ('16c',)),
+        entry(flash['flash_attention[Qwen2.5-1.5B tp4 rank prefill]'], k2,
+              ('16d',)),
+        entry(norm['rms_norm'], k3, rest + tp8b),
         entry(norm['rms_norm[Gemma-7B]'], k3, ('12a',)),
-        entry(norm['rms_norm[Qwen2.5-1.5B]'], k3, ('12b', '12b-sft')),
+        entry(norm['rms_norm[Qwen2.5-1.5B]'], k3, ('12b', '12b-sft', '16d')),
+        entry(norm['rms_norm[LLAMA3_70B d8192]'], k3, ('16c',)),
+        entry(window_rank['verify', 'bf16'], k4v, ('16b-spec',)),
+        entry(window_rank['fused', 'bf16'], k4f, ('16b-spec',)),
         entry(window['verify', 'bf16'], k4v, ('6a',)),
         entry(window['fused', 'bf16'], k4f, ('6a',)),
         entry(window['verify', 'int8'], k4v, ('6b',)),
@@ -5206,23 +6017,32 @@ def main() -> int:
     ]
     # The combine runs inside every split launch of K1 and K7.
     split_paths = {k: paths[k][f'{c.__name__}[split]']
-                   for c, keys in ((k1, ('5', '6a', '6b', '11a') + phase14
+                   for c, keys in ((k1, ('5', '6a', '6b', '11a', '16b-int8')
+                                    + phase14
                                     + decode15),
                                    (k7, ('7a', '7b', '7c'))) for k in keys}
     kernels.append(dict(decode['combine'],
                         launches=sum(split_paths.values()),
                         launches_by_path=split_paths))
-    for key, path in (('combine g2', '10c'), ('combine gemma', '12a'),
-                      ('combine qwen', '12b')):
-        n = paths[path][f'{k1.__name__}[split]']
-        kernels.append(dict(decode[key], launches=n,
-                            launches_by_path={path: n}))
+    for key, keys in (('combine g2', ('10c',)), ('combine gemma', ('12a',)),
+                      ('combine qwen', ('12b',)),
+                      ('combine LLAMA3_8B tp2 rank', ('16b', '16b-spec',
+                                                      '16e')),
+                      ('combine LLAMA3_70B tp4 rank', ('16c',)),
+                      ('combine Qwen2.5-1.5B tp4 rank', ('16d',))):
+        by_path = {k: paths[k][f'{k1.__name__}[split]'] for k in keys}
+        kernels.append(dict(decode[key], launches=sum(by_path.values()),
+                            launches_by_path=by_path))
     # K4's combine runs inside every split launch of K4.
     window_split = {k: sum(paths[k][f'{c.__name__}[split]']
                            for c in (k4v, k4f)) for k in ('6a', '6b')}
     kernels.append(dict(window['combine'],
                         launches=sum(window_split.values()),
                         launches_by_path=window_split))
+    rank_split = {'16b-spec': sum(paths['16b-spec'][f'{c.__name__}[split]']
+                                  for c in (k4v, k4f))}
+    kernels.append(dict(window_rank['combine'], launches=rank_split['16b-spec'],
+                        launches_by_path=rank_split))
     kernels += [entry(train[name, key], counter, keys)
                 for name, counter in (('lse', k2), ('dq', k5), ('dkv', k6))
                 for key, keys in (('1b', ('8a', '9a', '10c')),

@@ -20,7 +20,9 @@ Input lines:  {"id": optional, "prompt": "text"} (UTF-8 bytes mod the
               the line's index.
 Output lines: {"id", "prompt_tokens", "output_ids"} ("output_text" is
               the reference's only with a tokenizer).
-``--tp`` above 1 is refused (ROADMAP item 11(g)).
+``--tp k`` runs k rank processes of this host over one sharded model
+(infer/multihost.py): rank 0 runs this loop through a MultiHostBatcher,
+the others replay its scheduler calls.
 """
 from __future__ import annotations
 
@@ -47,7 +49,9 @@ def parse_args(argv=None):
     parser.add_argument('--batch-size', type=int, default=8,
                         help='decode slots')
     parser.add_argument('--temperature', type=float, default=0.0)
-    parser.add_argument('--tp', type=int, default=1)
+    parser.add_argument('--tp', type=int, default=1,
+                        help='rank processes of this host (tensor '
+                             'parallel, one card each or sharing it)')
     parser.add_argument('--kv-cache-dtype', default=None,
                         choices=[None, 'int8'])
     parser.add_argument('--weights-dtype', default=None,
@@ -60,7 +64,7 @@ def parse_args(argv=None):
     parser.add_argument('--device', default=None,
                         help='cuda (default) or cpu')
     args = parser.parse_args(argv)
-    refuse_unported(parser, args)
+    refuse_unported(parser, args, allow=('tp',))
     return args
 
 
@@ -91,6 +95,10 @@ def read_prompts(path: str, config, done_ids):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    if args.tp > 1:
+        from skypilot_tpu_torch.infer import multihost
+        multihost.launch_local_ranks(args.tp, _rank, (vars(args),))
+        return 0
     from skypilot_tpu_torch.infer.replica import build_generator
 
     gen, config = build_generator(
@@ -98,7 +106,22 @@ def main(argv=None) -> int:
         args.batch_size, device=args.device, seed=args.seed,
         kv_cache_dtype=args.kv_cache_dtype,
         weights_dtype=args.weights_dtype, prefill_chunk=args.prefill_chunk)
+    return run(args, gen, config)
 
+
+def _rank(local_rank: int, world: int, argd: dict) -> None:
+    from skypilot_tpu_torch.infer import multihost
+    from skypilot_tpu_torch.infer.replica import rank_generator
+    args = argparse.Namespace(**argd)
+    gen, channel = rank_generator(local_rank, world, args)
+    if channel.role == 'worker':
+        multihost.worker_loop(gen, channel)
+        return
+    run(args, gen, gen.config)
+
+
+def run(args, gen, config) -> int:
+    """The batch loop over a batcher (or a MultiHostBatcher)."""
     done_ids = set()
     torn = False
     if args.resume and os.path.exists(args.output):

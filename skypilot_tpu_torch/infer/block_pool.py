@@ -85,7 +85,10 @@ class BlockPool:
 
     def __init__(self, config: llama.LlamaConfig, n_blocks: int,
                  block_size: int, kv_dtype: Optional[str] = None,
-                 device=None):
+                 device=None, sharded: bool = False):
+        """config: of the arena's own heads (tp.local_config under a
+        mesh, whose ranks each hold a kv-head block of every block;
+        sharded=True then also publishes the per-shard live gauge)."""
         if n_blocks < 2:
             raise ValueError(f'pool needs >= 2 blocks (1 garbage + 1 '
                              f'allocatable), got {n_blocks}')
@@ -93,6 +96,7 @@ class BlockPool:
             raise ValueError(f'block_size must be >= 1, '
                              f'got {block_size}')
         self.config = config
+        self._sharded = sharded
         self.n_blocks = int(n_blocks)
         self.block_size = int(block_size)
         self.arena = init_arena(config, n_blocks, block_size,
@@ -272,6 +276,11 @@ class BlockPool:
         telemetry_metrics.INFER_POOL_BLOCKS_LIVE.set(self.live_blocks())
         telemetry_metrics.INFER_POOL_BLOCKS_FREE.set(len(self._free))
         telemetry_metrics.INFER_POOL_HWM.set(self.hwm)
+        if self._sharded:
+            # Block ids are global (the arena splits KV heads, never the
+            # block axis): every shard holds a head slice of the live set.
+            telemetry_metrics.INFER_MESH_POOL_BLOCKS_PER_SHARD.set(
+                self.live_blocks())
 
     def stats(self) -> Dict[str, int]:
         return {

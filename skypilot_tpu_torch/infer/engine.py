@@ -11,8 +11,11 @@ block arena (with speculative verify) and the legacy contiguous planes
 each with the radix prefix cache (``prefix_cache_mb``: a warm hit is a
 block-table splice on the pooled plane, an install copy on a legacy
 one).  The host KV tier (``host_tier_mb``) belongs to the batcher.
-Options the port does not carry yet raise ``NotImplementedError``
-naming their ROADMAP.md item: meshes and collective overlap (item 10).
+Under a tensor-parallel mesh (``mesh=``, infer/tp.py; one process a
+rank) both engines run the pooled plane on each rank's shards, and
+``resolve_overlap`` gates the overlapped combines as the reference's
+does.  Options the port does not carry yet raise ``NotImplementedError``
+naming their ROADMAP.md item: a mesh on a legacy plane (item 11(g)).
 Telemetry as the reference's: ``host_fetch`` counts every sync into
 ``skytpu_infer_host_syncs_total``, and ``Generator.generate`` sets the
 prefill, decode-chunk, bucket, migration, speculation and steady-rate
@@ -34,13 +37,14 @@ from skypilot_tpu_torch.device import resolve_device
 from skypilot_tpu_torch.infer import block_pool as block_pool_lib
 from skypilot_tpu_torch.infer import llama_infer, prefix_cache, quant
 from skypilot_tpu_torch.infer import sampling
+from skypilot_tpu_torch.infer import tp as tp_lib
 from skypilot_tpu_torch.infer import spec_decode as spec_decode_lib
 from skypilot_tpu_torch.ops import _kernels
 from skypilot_tpu_torch.ops import decode_attention as decode_attention_ops
 from skypilot_tpu_torch.telemetry import metrics as telemetry_metrics
 
 
-def _deferred(option: str, item: int) -> NotImplementedError:
+def _deferred(option: str, item) -> NotImplementedError:
     return NotImplementedError(
         f'{option} is not ported yet: ROADMAP.md Queue A item {item}')
 
@@ -92,7 +96,8 @@ class GeneratorConfig:
     # Speculative decoding: the n-gram drafter proposes spec_k tokens per
     # slot and one verify forward scores spec_k + 1 positions.  0 = off.
     spec_k: int = 0
-    # Collective overlap for sharded decode (Queue A item 10).
+    # Collective overlap for sharded decode (resolve_overlap): None =
+    # on wherever supported, True = on or raise, False = off.
     overlap_collectives: Optional[bool] = None
     overlap_chunks: Optional[int] = None
     # Host-DRAM KV tier (infer/kv_tier.py, ContinuousBatcher only): byte
@@ -191,8 +196,6 @@ class GeneratorConfig:
             if value not in (None, 'int8'):
                 raise ValueError(f"{name} must be None or 'int8', "
                                  f'got {value!r}')
-        if self.overlap_collectives:
-            raise _deferred('overlap_collectives=True', 10)
 
     def derive_block_size(self) -> int:
         """Resolved pooled-arena block size (kv_block_size default)."""
@@ -202,6 +205,79 @@ class GeneratorConfig:
         if self.prefix_cache_mb and self.prefix_block:
             bs = math.gcd(bs, self.prefix_block)
         return bs
+
+
+def resolve_overlap(params, config, gen_config: GeneratorConfig,
+                    mesh) -> Optional[int]:
+    """The overlapped path's chunk count (> 1), or None for the
+    synchronous path (K3, whole products, one combine after wo and one
+    after w_down): the reference's gate, shared by both engines.
+    Supported = pooled plane, a model split over > 1 rank, dense MLP,
+    unquantized weights (the chunked projections slice the weights along
+    d_model).  overlap_collectives None turns it on exactly where
+    supported; True raises on the first unsupported condition, so a
+    requested overlap never falls back; False is off.  Unset
+    overlap_chunks: one chunk a model rank, each of at least 256
+    columns.  One chunk is the synchronous path (the reference's
+    chunks == 1 shape)."""
+    want = gen_config.overlap_collectives
+    if want is False:
+        return None
+    reasons = []
+    if mesh is None or tp_lib.model_size(mesh) == 1:
+        reasons.append('a model split over more than one rank '
+                       '(mesh tp x tpq > 1) required')
+    if gen_config.decode_impl != 'pooled':
+        reasons.append("decode_impl='pooled' required")
+    if gen_config.weights_dtype is not None:
+        reasons.append('unquantized weights required')
+    if params is not None and 'moe' in params.get('layers', {}):
+        reasons.append('dense MLP required (MoE layers present)')
+    if reasons:
+        if want:
+            raise ValueError(
+                'overlap_collectives=True is unsupported here: '
+                + '; '.join(reasons))
+        return None
+    if gen_config.overlap_chunks is not None:
+        chunks = int(gen_config.overlap_chunks)
+    else:
+        chunks = min(tp_lib.model_size(mesh), config.d_model // 256)
+    return chunks if chunks > 1 else None
+
+
+def check_mesh(params, config, gen_config: GeneratorConfig, mesh) -> None:
+    """An engine's mesh against its model and options (construction
+    time): the axes must divide, the plane must be the pooled one, and
+    int8 weights must come quantized before sharding."""
+    if mesh is None:
+        return
+    if gen_config.decode_impl != 'pooled':
+        raise _deferred(f"a mesh on the legacy '{gen_config.decode_impl}' "
+                        f'plane (K7 per shard)', '11(g)')
+    tp_lib.validate_mesh(config, mesh)
+    tp_lib.slot_rows(mesh, gen_config.batch_size)
+    if (gen_config.weights_dtype is not None and tp_lib.model_size(mesh) > 1
+            and params['embed'].shape[-1] != config.d_model):
+        wq = params['layers']['attn']['wq']
+        if not quant.is_quantized(wq):
+            raise ValueError(
+                "weights_dtype='int8' under a mesh takes a tree quantized "
+                'BEFORE sharding (tp.shard_params(quant.quantize_weights('
+                'full), mesh)): a shard of wo or w_down has not its '
+                "column's absmax")
+
+
+def mesh_params(params, config, gen_config: GeneratorConfig, mesh):
+    """An engine's parameters: prepare_params' tree, cut to this rank's
+    blocks when a mesh splits the model and `params` is the full tree
+    (int8 weights are quantized before the cut, so wo and w_down keep
+    their columns' scales); a tree of shards is taken as it is."""
+    if mesh is None or tp_lib.model_size(mesh) == 1:
+        return prepare_params(params, gen_config)
+    if params['embed'].shape[-1] == config.d_model:
+        return tp_lib.shard_params(prepare_params(params, gen_config), mesh)
+    return prepare_params(params, gen_config)
 
 
 def validate_context(gen_config: GeneratorConfig, model_config) -> None:
@@ -464,17 +540,32 @@ class ChunkGraphs:
         return out
 
 
+def graphs_blocker(device: torch.device, mesh) -> Optional[str]:
+    """Why an engine on `device` under `mesh` cannot capture its chunks
+    (None: it can).  gloo's collectives run on the host and cannot be
+    captured in a CUDA graph; NCCL's can."""
+    if device.type != 'cuda':
+        return (f'graphs=True captures CUDA graphs and needs a CUDA '
+                f'device, got {device}')
+    if mesh is not None and mesh.size > 1 and mesh.backend != 'nccl':
+        return (f'graphs=True under a {mesh.backend} process group: its '
+                f'collectives run on the host and a CUDA graph cannot '
+                f'capture them (NCCL collectives can)')
+    return None
+
+
 def chunk_graphs(graphs: Optional[bool], device: torch.device,
-                 generators=()) -> Optional[ChunkGraphs]:
-    """An engine's ``graphs`` argument resolved: None captures on a CUDA
-    device and runs eagerly on the CPU; True on the CPU raises."""
+                 generators=(), mesh=None) -> Optional[ChunkGraphs]:
+    """An engine's ``graphs`` argument resolved: None captures where it
+    can (a CUDA device, and no gloo mesh) and runs eagerly elsewhere;
+    True where it cannot raises with the reason (graphs_blocker)."""
+    blocker = graphs_blocker(device, mesh)
     if graphs is None:
-        graphs = device.type == 'cuda'
+        graphs = blocker is None
     if not graphs:
         return None
-    if device.type != 'cuda':
-        raise ValueError(f'graphs=True captures CUDA graphs and needs a '
-                         f'CUDA device, got {device}')
+    if blocker is not None:
+        raise ValueError(blocker)
     return ChunkGraphs(device, generators)
 
 
@@ -521,15 +612,20 @@ class Generator:
     def __init__(self, params, config, gen_config: GeneratorConfig =
                  GeneratorConfig(), mesh=None, device=None,
                  graphs: Optional[bool] = None):
-        """params: on `device` (default: the CUDA card); mesh: not
-        ported yet.  graphs: as ContinuousBatcher's (None = on for a
-        CUDA device on the pooled plane, off on the CPU and on a legacy
-        plane; True on the CPU or on a legacy plane raises)."""
-        if mesh is not None:
-            raise _deferred('Generator(mesh=...)', 10)
+        """params: on `device` (default: the CUDA card); with a mesh
+        (infer/tp.py), this rank's shards (tp.shard_params,
+        tp.init_sharded_params or convert.load_hf_model_sharded), every
+        rank of the mesh running the same calls.  graphs: as
+        ContinuousBatcher's (None = on for a CUDA device on the pooled
+        plane without a gloo mesh, off elsewhere, and why in
+        ``graphs_off_reason``; True where that cannot be raises)."""
         self.device = resolve_device(device)
         validate_context(gen_config, config)
-        self.params = prepare_params(params, gen_config)
+        check_mesh(params, config, gen_config, mesh)
+        self.mesh = mesh
+        self.params = mesh_params(params, config, gen_config, mesh)
+        self.overlap = resolve_overlap(self.params, config, gen_config,
+                                       mesh)
         self.config = config
         self.gen = gen_config
         self.buckets = derive_buckets(gen_config)
@@ -549,8 +645,8 @@ class Generator:
                 n_blocks = default_pool_blocks(gen_config, config, bs,
                                                self.table_width)
             self.pool = block_pool_lib.BlockPool(
-                config, n_blocks, bs, kv_dtype=gen_config.kv_cache_dtype,
-                device=self.device)
+                tp_lib.local_config(config, mesh), n_blocks, bs,
+                kv_dtype=gen_config.kv_cache_dtype, device=self.device)
             self._host_tables = np.zeros((batch, self.table_width),
                                          np.int32)
             self._row_blocks: List[List[int]] = [[] for _ in range(batch)]
@@ -580,8 +676,10 @@ class Generator:
             raise _deferred(f"graphs=True on the legacy "
                             f"'{gen_config.decode_impl}' plane of the "
                             f'Generator', 15)
+        self.graphs_off_reason = (graphs_blocker(self.device, mesh)
+                                  if graphs is None else None)
         self.graphs = chunk_graphs(graphs if self.pooled else False,
-                                   self.device, (self._rng,))
+                                   self.device, (self._rng,), mesh)
         # Radix prefix cache (None = off): a prompt matching cached head
         # blocks prefills only its suffix, in prefix_block windows
         # through the start-offset path.  Pooled: the matched blocks
@@ -613,10 +711,12 @@ class Generator:
             return logits
         nb = tables_scatter.shape[1]
         scratch = llama_infer.init_cache(
-            self.config, tokens.shape[0], nb * self.block_size,
-            kv_dtype=self.gen.kv_cache_dtype, device=self.device)
+            tp_lib.local_config(self.config, self.mesh), tokens.shape[0],
+            nb * self.block_size, kv_dtype=self.gen.kv_cache_dtype,
+            device=self.device)
         logits, scratch = llama_infer.prefill(self.params, tokens,
-                                              self.config, scratch, lengths)
+                                              self.config, scratch, lengths,
+                                              mesh=self.mesh)
         llama_infer.scatter_prefill_pooled(
             scratch, cache, torch.as_tensor(tables_scatter,
                                             device=self.device))
@@ -659,16 +759,16 @@ class Generator:
                 if self.pooled:
                     h_last, _ = llama_infer.prefill_window_pooled(
                         self.params, window_t, self.config, cache,
-                        table_row, start)
+                        table_row, start, mesh=self.mesh)
                 else:
                     h_last, _ = llama_infer.prefill_window(
                         self.params, window_t, self.config, cache, i, start)
                 last_start = start
                 start = end
             m.release()
-            rows.append(quant.matmul(
-                h_last[len(p) - 1 - last_start][None],
-                self.params['lm_head'], out_dtype=torch.float32)[0])
+            rows.append(llama_infer.logits(
+                h_last[len(p) - 1 - last_start][None], self.params,
+                self.mesh)[0])
             if self.pooled:
                 # The row's own blocks back the new trie nodes (shared).
                 pc.insert(p, blocks=self._row_blocks[i])
@@ -691,7 +791,7 @@ class Generator:
             if self.pooled:
                 logits, _ = llama_infer.decode_step_pooled(
                     self.params, token, self.config, cache, positions,
-                    tables)
+                    tables, mesh=self.mesh, overlap=self.overlap)
             else:
                 logits, _ = self._decode_fn(self.params, token, self.config,
                                             cache, positions)
@@ -712,7 +812,8 @@ class Generator:
         eos = self.gen.eos_token
         logits, _ = llama_infer.decode_verify_pooled(
             self.params, torch.cat([token[:, None], draft], dim=1),
-            self.config, cache, positions, tables)
+            self.config, cache, positions, tables, mesh=self.mesh,
+            overlap=self.overlap)
         if self.gen.temperature == 0.0:
             targets, accepts = sampling.spec_accept_greedy(logits, draft)
         else:

@@ -21,6 +21,17 @@ Kernels on this path (each with a plain PyTorch version for CPU tensors):
 chunked-prefill windows and the 'inplace' decode attend with plain
 einsums, as the JAX package does.  An int8 cache (``kv_dtype='int8'``) holds int8 k/v and per-(row,
 KV head) f32 absmax scales ``k_scale``/``v_scale``.
+
+Under a tensor-parallel mesh (``mesh=``, infer/tp.py) every rank runs
+these functions on its own blocks of the weights and the arena: the head
+counts come from the shards' shapes, the combines after wo and w_down
+are explicit (``_combine``), the d-sharded embedding and the
+vocab-sharded logits are gathered, and the pooled steps split their slot
+rows over a 'dp' axis, gathering each layer's K/V rows over it before
+the write so every replica's arena stays the same.  ``overlap=`` (a
+chunk count, engine.resolve_overlap) runs the pooled steps' layer stack
+through :func:`_combine_then_project`, which overlaps each combine with
+the projections that consume it.
 """
 from __future__ import annotations
 
@@ -32,11 +43,13 @@ import torch
 
 from skypilot_tpu_torch.device import resolve_device
 from skypilot_tpu_torch.infer import quant
+from skypilot_tpu_torch.infer import tp as tp_lib
 from skypilot_tpu_torch.models import llama, moe
 from skypilot_tpu_torch.ops import attention as attention_ops
 from skypilot_tpu_torch.ops import decode_attention as decode_attention_ops
 from skypilot_tpu_torch.ops import rmsnorm as rmsnorm_ops
 from skypilot_tpu_torch.ops import rope as rope_ops
+from skypilot_tpu_torch.parallel import collectives
 
 Cache = Dict[str, torch.Tensor]
 
@@ -137,25 +150,70 @@ def rope_tables(config: llama.LlamaConfig, length: int,
                         config.rope_scaling, torch.device(device))
 
 
+def _combine(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The megatron combine of a partial product over the model axes
+    ('tp', 'tpq'): summed in flat mesh-rank order, bitwise the same on
+    every rank (x itself without a mesh)."""
+    if mesh is None:
+        return x
+    return collectives._rank_order_allreduce(x, mesh, tp_lib.MODEL_AXES)
+
+
+def _gather_cols(x: torch.Tensor, mesh) -> torch.Tensor:
+    """x's last axis, split over the model axes, put back together."""
+    if mesh is None or tp_lib.model_size(mesh) == 1:
+        return x
+    g = collectives.all_gather(x, mesh, tp_lib.MODEL_AXES)
+    return g.movedim(0, -2).reshape(*x.shape[:-1], -1)
+
+
+def _dp_gather(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Each dp replica's slot rows (leading axis) stacked in batch
+    order."""
+    if tp_lib.dp_degree(mesh) == 1:
+        return x
+    return collectives.ring_all_gather(x, mesh, 'dp', tiled=True)
+
+
+def _embed(params, tokens, config, mesh):
+    """Token embeddings; a d-sharded table's column blocks gathered."""
+    return _gather_cols(llama.embed_tokens(params, tokens, config), mesh)
+
+
+def logits(h: torch.Tensor, params, mesh=None) -> torch.Tensor:
+    """f32 logits of hidden rows h (..., d) through lm_head (its vocab
+    blocks gathered under a mesh, before any sampling)."""
+    return _gather_cols(quant.matmul(h, params['lm_head'],
+                                     out_dtype=torch.float32), mesh)
+
+
 def _qkv(x, attn_p, config):
+    """q, k, v (B, S, heads, hd); the head counts are the weights' (a
+    rank's own under a mesh)."""
     batch, seq, _ = x.shape
-    hd, nh, nkv = config.head_dim, config.n_heads, config.n_kv_heads
+    hd = config.head_dim
     q = quant.matmul(x, attn_p['wq'])
     k = quant.matmul(x, attn_p['wk'])
     v = quant.matmul(x, attn_p['wv'])
     if 'bq' in attn_p:  # Qwen2-family qkv biases (config.attn_bias)
         q, k, v = q + attn_p['bq'], k + attn_p['bk'], v + attn_p['bv']
-    return (q.reshape(batch, seq, nh, hd), k.reshape(batch, seq, nkv, hd),
-            v.reshape(batch, seq, nkv, hd))
+    return (q.reshape(batch, seq, -1, hd), k.reshape(batch, seq, -1, hd),
+            v.reshape(batch, seq, -1, hd))
 
 
-def _mlp(x, mlp_p, act: str = 'silu'):
+def _mlp(x, mlp_p, act: str = 'silu', mesh=None):
     gate = llama.gate_activation(quant.matmul(x, mlp_p['w_gate']), act)
-    return quant.matmul(gate * quant.matmul(x, mlp_p['w_up']),
-                        mlp_p['w_down'])
+    return _combine(quant.matmul(gate * quant.matmul(x, mlp_p['w_up']),
+                                 mlp_p['w_down']), mesh)
 
 
-def _ffn(x, layer_params, config):
+def _attn_out(o, attn_p, mesh):
+    """The attention output projection (B, S, heads * hd) @ wo,
+    combined over the model axes."""
+    return _combine(quant.matmul(o, attn_p['wo']), mesh)
+
+
+def _ffn(x, layer_params, config, mesh=None):
     """Per-layer feed-forward: the dense gated MLP, or, when the layer
     carries a Mixtral-style expert bank ('moe' subtree, models/moe.py),
     the exact dropless top-k block.  Decode streams every expert's
@@ -165,22 +223,24 @@ def _ffn(x, layer_params, config):
     (quant._QUANT_PATH does not match them)."""
     if 'moe' in layer_params:
         y, _ = moe.moe_block_dense(x, layer_params['moe'], config)
-        return y
-    return _mlp(x, layer_params['mlp'], config.mlp_act)
+        return _combine(y, mesh)
+    return _mlp(x, layer_params['mlp'], config.mlp_act, mesh)
 
 
 def prefill(params: llama.Params, tokens: torch.Tensor,
             config: llama.LlamaConfig, cache: Cache,
-            lengths: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
+            lengths: torch.Tensor, mesh=None) -> Tuple[torch.Tensor, Cache]:
     """tokens (B, S) padded; lengths (B,) valid prefix lengths.
 
     Fills cache rows [0, S) of every layer in place (pad rows too: they
     sit above every row's length and stay masked) and returns
     (next-token logits (B, vocab) f32 at each row's last valid position,
-    cache).  S must be <= the cache's max_len."""
+    cache).  S must be <= the cache's max_len.  Under a mesh every rank
+    prefills all rows (replicated over dp) on its heads, into a cache of
+    its KV heads."""
     batch, seq = tokens.shape
     cos, sin = rope_tables(config, seq, tokens.device)
-    h = llama.embed_tokens(params, tokens, config)
+    h = _embed(params, tokens, config, mesh)
     for i in range(config.n_layers):
         lp = llama.layer_params(params, i)
         attn_p = lp['attn']
@@ -189,30 +249,25 @@ def prefill(params: llama.Params, tokens: torch.Tensor,
         q = rope_ops.apply_rope(q, cos, sin)
         k = rope_ops.apply_rope(k, cos, sin)
         o = attention_ops.flash_attention(q, k, v, causal=True)
-        h = h + quant.matmul(o.reshape(batch, seq, -1), attn_p['wo'])
+        h = h + _attn_out(o.reshape(batch, seq, -1), attn_p, mesh)
         x = rmsnorm_ops.rms_norm(h, lp['ln2'], eps=config.norm_eps)
-        h = h + _ffn(x, lp, config)
+        h = h + _ffn(x, lp, config, mesh)
         _write_kv(cache, (i, slice(None), slice(None, seq)), k, v)
     h = rmsnorm_ops.rms_norm(h, params['final_norm'], eps=config.norm_eps)
     # Logits only at each row's last valid position.
     last = h[torch.arange(batch, device=h.device), lengths.long() - 1]
-    logits = quant.matmul(last, params['lm_head'], out_dtype=torch.float32)
-    return logits, cache
+    return logits(last, params, mesh), cache
 
 
-def encode(params: llama.Params, tokens: torch.Tensor,
-           config: llama.LlamaConfig, lengths: torch.Tensor) -> torch.Tensor:
-    """Mean-pooled final hidden states (B, d) f32 over each row's valid
-    prefix: the /v1/embeddings path.  The same quant-aware layer stack as
-    :func:`prefill` (int8 weight-only params too) with K2 (causal, no
-    lse) and K3, no KV cache, and no logits.  Causal attention keeps
-    each row's valid prefix blind to the bucket's right padding, and the
-    mask drops the padding from the mean, so a row's vector does not
-    depend on the bucket or the batch it rides in (up to the rounding of
-    the batched products)."""
+def hidden_states(params: llama.Params, tokens: torch.Tensor,
+                  config: llama.LlamaConfig, mesh=None) -> torch.Tensor:
+    """tokens (B, S) -> hidden states (B, S, d) after the final norm: the
+    quant-aware, mesh-aware layer stack of :func:`prefill` (K2 causal
+    without lse, K3) with no KV cache.  Under a mesh every rank returns
+    the same rows."""
     batch, seq = tokens.shape
     cos, sin = rope_tables(config, seq, tokens.device)
-    h = llama.embed_tokens(params, tokens, config)
+    h = _embed(params, tokens, config, mesh)
     for i in range(config.n_layers):
         lp = llama.layer_params(params, i)
         attn_p = lp['attn']
@@ -221,10 +276,23 @@ def encode(params: llama.Params, tokens: torch.Tensor,
         q = rope_ops.apply_rope(q, cos, sin)
         k = rope_ops.apply_rope(k, cos, sin)
         o = attention_ops.flash_attention(q, k, v, causal=True)
-        h = h + quant.matmul(o.reshape(batch, seq, -1), attn_p['wo'])
+        h = h + _attn_out(o.reshape(batch, seq, -1), attn_p, mesh)
         x = rmsnorm_ops.rms_norm(h, lp['ln2'], eps=config.norm_eps)
-        h = h + _ffn(x, lp, config)
-    h = rmsnorm_ops.rms_norm(h, params['final_norm'], eps=config.norm_eps)
+        h = h + _ffn(x, lp, config, mesh)
+    return rmsnorm_ops.rms_norm(h, params['final_norm'], eps=config.norm_eps)
+
+
+def encode(params: llama.Params, tokens: torch.Tensor,
+           config: llama.LlamaConfig, lengths: torch.Tensor,
+           mesh=None) -> torch.Tensor:
+    """Mean-pooled final hidden states (B, d) f32 over each row's valid
+    prefix: the /v1/embeddings path, over :func:`hidden_states`.  Causal
+    attention keeps each row's valid prefix blind to the bucket's right
+    padding, and the mask drops the padding from the mean, so a row's
+    vector does not depend on the bucket or the batch it rides in (up to
+    the rounding of the batched products)."""
+    seq = tokens.shape[1]
+    h = hidden_states(params, tokens, config, mesh)
     mask = (torch.arange(seq, device=h.device)[None, :]
             < lengths.to(h.device)[:, None]).to(h.dtype)
     pooled = (h * mask[..., None]).sum(dim=1) / torch.clamp_min(
@@ -309,8 +377,7 @@ def _window_attention(q, k_slot, v_slot, visible, config):
     """Masked GQA attention of a window of W queries over a gathered
     (S, KV, hd) slot view; the einsum math of the JAX window prefill."""
     w = q.shape[1]
-    group = config.n_heads // config.n_kv_heads
-    q_g = q[0].reshape(w, config.n_kv_heads, group, config.head_dim)
+    q_g = q[0].reshape(w, k_slot.shape[1], -1, config.head_dim)
     s = torch.einsum('wkgd,skd->kgws', q_g.float(), k_slot.float()) * (
         config.head_dim ** -0.5)
     s = torch.where(visible[None, None, :, :], s, -1e30)
@@ -333,7 +400,7 @@ def _slot_view(cache: Cache, key: str, layer: int, table: torch.Tensor,
 
 def prefill_window_pooled(params: llama.Params, tokens_w: torch.Tensor,
                           config: llama.LlamaConfig, cache: Cache,
-                          table_row: torch.Tensor, start: int
+                          table_row: torch.Tensor, start: int, mesh=None
                           ) -> Tuple[torch.Tensor, Cache]:
     """Advance ONE sequence's prefill by a window (chunked prefill),
     writing the window's K/V through its block table in place.
@@ -351,7 +418,7 @@ def prefill_window_pooled(params: llama.Params, tokens_w: torch.Tensor,
     s_len = t_width * bs
     device = tokens_w.device
     cos, sin = rope_tables(config, s_len, device)
-    h = llama.embed_tokens(params, tokens_w[None], config)   # (1, W, d)
+    h = _embed(params, tokens_w[None], config, mesh)         # (1, W, d)
     q_pos = start + torch.arange(w, device=device)          # (W,)
     visible = torch.arange(s_len, device=device)[None, :] <= q_pos[:, None]
     table = table_row.long()
@@ -367,9 +434,9 @@ def prefill_window_pooled(params: llama.Params, tokens_w: torch.Tensor,
         k_slot = _slot_view(cache, 'k', i, table, q.dtype)
         v_slot = _slot_view(cache, 'v', i, table, q.dtype)
         o = _window_attention(q, k_slot, v_slot, visible, config)
-        h = h + quant.matmul(o.reshape(1, w, -1), attn_p['wo'])
+        h = h + _attn_out(o.reshape(1, w, -1), attn_p, mesh)
         x = rmsnorm_ops.rms_norm(h, lp['ln2'], eps=config.norm_eps)
-        h = h + _ffn(x, lp, config)
+        h = h + _ffn(x, lp, config, mesh)
     h = rmsnorm_ops.rms_norm(h, params['final_norm'], eps=config.norm_eps)
     return h[0], cache
 
@@ -477,9 +544,127 @@ def decode_step_paged(params: llama.Params, token: torch.Tensor,
                           kernel=True)
 
 
+
+
+def _f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w with an f32 result, never rounded to x's dtype (the
+    reference's preferred_element_type=f32)."""
+    if x.dtype == torch.float32 or x.device.type == 'cpu':
+        return x.float() @ w.float()
+    y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+    return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def _combine_then_project(pending, h, gain, weights, mesh, chunks, eps):
+    """h_new = h + combine(pending), then rms_norm(h_new, gain) @ W for
+    each weight, with the combine's chunks (> 1) feeding the projections
+    as they land.  pending None: h_new = h (the first layer).
+
+    The norm is factorised, as the reference's overlapped path does:
+    rms_norm(x, g) @ W == ((x * g) @ W) * rsqrt(mean(x^2) + eps), the
+    per-row scalar commuting with the contraction, so each landed span
+    (pipelined_psum's chunk_bounds(d_model, chunks)) starts its slice of
+    the products while the next span's gather is in flight.  The
+    combine is pipelined_psum's rank-order sum, so h_new is bitwise the
+    synchronous path's; the projections round differently (f32 span
+    products, the norm's scale last) and change with the chunk count.
+    Returns (h_new, [y_j in h's dtype])."""
+    d_model = h.shape[-1]
+    ssq = torch.zeros(h.shape[:-1] + (1,), dtype=torch.float32,
+                      device=h.device)
+    accs = [None] * len(weights)
+    gain_f = gain.float()
+
+    def consume(ci, lo, span):
+        nonlocal ssq
+        hi = lo + span.shape[-1]
+        hc = h[..., lo:hi] + span if pending is not None else span
+        hcf = hc.float()
+        ssq = ssq + (hcf * hcf).sum(-1, keepdim=True)
+        t = (hcf * gain_f[lo:hi]).to(h.dtype)
+        for j, w in enumerate(weights):
+            y = _f32_product(t, w[lo:hi])
+            accs[j] = y if accs[j] is None else accs[j] + y
+        return hc
+
+    if pending is None:
+        spans = [consume(ci, lo, h[..., lo:hi]) for ci, (lo, hi) in
+                 enumerate(collectives.chunk_bounds(d_model, chunks))]
+    else:
+        _, spans = collectives.pipelined_psum(
+            pending, mesh, tp_lib.MODEL_AXES, chunks=chunks,
+            on_chunk=consume)
+    h_new = torch.cat(spans, dim=-1)
+    inv = torch.rsqrt(ssq / d_model + eps)
+    return h_new, [(a * inv).to(h.dtype) for a in accs]
+
+
+def _layer_stack(params, h, config, mesh, overlap, cos, sin, rot, write,
+                 attend):
+    """The pooled steps' layer stack over rows h (R, W, d), identical on
+    every rank.  rot (R, W): the rows' rope positions; write(i, k, v)
+    stores layer i's K/V rows (R, W, KV, hd); attend(i, q) returns the
+    rows' attention output (R, W, heads * hd).
+
+    overlap None (the synchronous path): per layer K3, the whole
+    projections, and the combines after wo and w_down (no combine
+    without a mesh).  overlap = c > 1 chunks (a mesh of model size > 1,
+    dense unquantized weights; engine.resolve_overlap): every combine
+    goes through _combine_then_project; the post-attention combine's
+    chunks feed gate/up, and the post-MLP combine rides to the next
+    layer as an unreduced partial that its q/k/v products consume.
+    Returns h after the last layer (before the final norm)."""
+    hd = config.head_dim
+    if overlap is None:
+        for i in range(config.n_layers):
+            lp = llama.layer_params(params, i)
+            attn_p = lp['attn']
+            x = rmsnorm_ops.rms_norm(h, lp['ln1'], eps=config.norm_eps)
+            q, k, v = _qkv(x, attn_p, config)
+            q = rope_ops.apply_rope(q, cos, sin, positions=rot)
+            k = rope_ops.apply_rope(k, cos, sin, positions=rot)
+            write(i, k, v)
+            h = h + _attn_out(attend(i, q), attn_p, mesh)
+            x = rmsnorm_ops.rms_norm(h, lp['ln2'], eps=config.norm_eps)
+            h = h + _ffn(x, lp, config, mesh)
+        return h
+    eps = config.norm_eps
+    pending = None
+    rows, w = h.shape[:2]
+    for i in range(config.n_layers):
+        lp = llama.layer_params(params, i)
+        attn_p, mlp_p = lp['attn'], lp['mlp']
+        h, (q, k, v) = _combine_then_project(
+            pending, h, lp['ln1'], [attn_p['wq'], attn_p['wk'], attn_p['wv']],
+            mesh, overlap, eps)
+        if 'bq' in attn_p:
+            q, k, v = q + attn_p['bq'], k + attn_p['bk'], v + attn_p['bv']
+        q = rope_ops.apply_rope(q.reshape(rows, w, -1, hd), cos, sin,
+                                positions=rot)
+        k = rope_ops.apply_rope(k.reshape(rows, w, -1, hd), cos, sin,
+                                positions=rot)
+        write(i, k, v.reshape(rows, w, -1, hd))
+        part = quant.matmul(attend(i, q), attn_p['wo'])
+        h, (g, u) = _combine_then_project(
+            part, h, lp['ln2'], [mlp_p['w_gate'], mlp_p['w_up']], mesh,
+            overlap, eps)
+        pending = quant.matmul(llama.gate_activation(g, config.mlp_act) * u,
+                               mlp_p['w_down'])
+    red, _ = collectives.pipelined_psum(pending, mesh, tp_lib.MODEL_AXES,
+                                        chunks=overlap)
+    return h + red
+
+
+def _final(h, params, config, mesh):
+    """The final norm and the gathered f32 logits of rows h (..., d)."""
+    h = rmsnorm_ops.rms_norm(h, params['final_norm'], eps=config.norm_eps)
+    return logits(h, params, mesh)
+
+
 def decode_step_pooled(params: llama.Params, token: torch.Tensor,
                        config: llama.LlamaConfig, cache: Cache,
-                       positions: torch.Tensor, tables: torch.Tensor
+                       positions: torch.Tensor, tables: torch.Tensor,
+                       mesh=None, overlap: Optional[int] = None
                        ) -> Tuple[torch.Tensor, Cache]:
     """One-token step over the pooled block arena (the default data
     plane).
@@ -489,42 +674,43 @@ def decode_step_pooled(params: llama.Params, token: torch.Tensor,
     garbage block).  Each layer first writes the new K/V row in place at
     (layer, tables[b, pos // BS], pos % BS), then attends through the
     paged decode kernel on the same stream, so the row is visible to its
-    own query.  Returns (logits (B, vocab) f32, cache)."""
+    own query.  Under a mesh, this rank's dp replica decodes its slot
+    rows (tp.slot_rows) on its heads; the K/V rows of every replica are
+    written, and the logits of every row returned.  Returns (logits
+    (B, vocab) f32, cache)."""
     batch = token.shape[0]
+    lo, hi = tp_lib.slot_rows(mesh, batch)
     bs = cache['k'].shape[2]
     t_width = tables.shape[1]
-    group = config.n_heads // config.n_kv_heads
     cos, sin = rope_tables(config, t_width * bs, token.device)
-    h = llama.embed_tokens(params, token, config)[:, None]   # (B, 1, d)
+    h = _embed(params, token[lo:hi], config, mesh)[:, None]   # (b, 1, d)
     pos_long = positions.long()
-    pos = pos_long[:, None]
     b_idx = torch.arange(batch, device=token.device)
     blk = tables.long()[b_idx, pos_long // bs]
     off = pos_long % bs
-    for i in range(config.n_layers):
-        lp = llama.layer_params(params, i)
-        attn_p = lp['attn']
-        x = rmsnorm_ops.rms_norm(h, lp['ln1'], eps=config.norm_eps)
-        q, k, v = _qkv(x, attn_p, config)
-        q = rope_ops.apply_rope(q, cos, sin, positions=pos)
-        k = rope_ops.apply_rope(k, cos, sin, positions=pos)
-        _write_kv(cache, (i, blk, off), k[:, 0], v[:, 0])
-        q_r = q[:, 0].reshape(batch, config.n_kv_heads, group,
+    tables_l, positions_l = tables[lo:hi], positions[lo:hi]
+
+    def write(i, k, v):
+        _write_kv(cache, (i, blk, off), _dp_gather(k[:, 0], mesh),
+                  _dp_gather(v[:, 0], mesh))
+
+    def attend(i, q):
+        q_r = q[:, 0].reshape(hi - lo, cache['k'].shape[3], -1,
                               config.head_dim)
         o = decode_attention_ops.decode_attention_pooled(
-            q_r, cache['k'], cache['v'], tables, i, positions,
+            q_r, cache['k'], cache['v'], tables_l, i, positions_l,
             cache.get('k_scale'), cache.get('v_scale'))
-        h = h + quant.matmul(o.reshape(batch, 1, -1), attn_p['wo'])
-        x = rmsnorm_ops.rms_norm(h, lp['ln2'], eps=config.norm_eps)
-        h = h + _ffn(x, lp, config)
-    h = rmsnorm_ops.rms_norm(h, params['final_norm'], eps=config.norm_eps)
-    logits = quant.matmul(h[:, 0], params['lm_head'], out_dtype=torch.float32)
-    return logits, cache
+        return o.reshape(hi - lo, 1, -1)
+
+    h = _layer_stack(params, h, config, mesh, overlap, cos, sin,
+                     pos_long[lo:hi, None], write, attend)
+    return _dp_gather(_final(h[:, 0], params, config, mesh), mesh), cache
 
 
 def decode_verify_pooled(params: llama.Params, tokens: torch.Tensor,
                          config: llama.LlamaConfig, cache: Cache,
-                         positions: torch.Tensor, tables: torch.Tensor
+                         positions: torch.Tensor, tables: torch.Tensor,
+                         mesh=None, overlap: Optional[int] = None
                          ) -> Tuple[torch.Tensor, Cache]:
     """Speculative VERIFY step over the pooled arena: score a window of
     W = spec_k + 1 tokens per slot in one batched forward.
@@ -537,46 +723,46 @@ def decode_verify_pooled(params: llama.Params, tokens: torch.Tensor,
     chunked-prefill slot sits at the last cache row), then every window
     query attends with the per-row mask `key <= positions + w` through
     the window kernel.  Rejected rows need no cleanup: the batcher's
-    cursor never advances over them.  Returns ((B, W, vocab) f32 logits,
-    cache)."""
+    cursor never advances over them.  Under a mesh the slot rows split
+    over dp as in decode_step_pooled.  Returns ((B, W, vocab) f32
+    logits, cache)."""
     batch, win = tokens.shape
+    lo, hi = tp_lib.slot_rows(mesh, batch)
     bs = cache['k'].shape[2]
     t_width = tables.shape[1]
-    group = config.n_heads // config.n_kv_heads
     cos, sin = rope_tables(config, t_width * bs, tokens.device)
-    h = llama.embed_tokens(params, tokens, config)           # (B, W, d)
+    h = _embed(params, tokens[lo:hi], config, mesh)          # (b, W, d)
     pos_w = positions.long()[:, None] + torch.arange(win,
                                                      device=tokens.device)
     blk, off = _table_rows(tables, pos_w, bs)                # (B, W)
     # Rows past the table (garbage writes) take the last row's rotation,
     # as the JAX package's clamped gather does.
-    rot = torch.clamp_max(pos_w, t_width * bs - 1)
-    for i in range(config.n_layers):
-        lp = llama.layer_params(params, i)
-        attn_p = lp['attn']
-        x = rmsnorm_ops.rms_norm(h, lp['ln1'], eps=config.norm_eps)
-        q, k, v = _qkv(x, attn_p, config)
-        q = rope_ops.apply_rope(q, cos, sin, positions=rot)
-        k = rope_ops.apply_rope(k, cos, sin, positions=rot)
-        _write_kv(cache, (i, blk, off), k, v)
+    rot = torch.clamp_max(pos_w, t_width * bs - 1)[lo:hi]
+    tables_l, positions_l = tables[lo:hi], positions[lo:hi]
+
+    def write(i, k, v):
+        _write_kv(cache, (i, blk, off), _dp_gather(k, mesh),
+                  _dp_gather(v, mesh))
+
+    def attend(i, q):
         o = decode_attention_ops.decode_window_attention_pooled(
-            q.reshape(batch, win, config.n_kv_heads, group,
+            q.reshape(hi - lo, win, cache['k'].shape[3], -1,
                       config.head_dim),
-            cache['k'], cache['v'], tables, i, positions,
+            cache['k'], cache['v'], tables_l, i, positions_l,
             cache.get('k_scale'), cache.get('v_scale'))
-        h = h + quant.matmul(o.reshape(batch, win, -1), attn_p['wo'])
-        x = rmsnorm_ops.rms_norm(h, lp['ln2'], eps=config.norm_eps)
-        h = h + _ffn(x, lp, config)
-    h = rmsnorm_ops.rms_norm(h, params['final_norm'], eps=config.norm_eps)
-    logits = quant.matmul(h, params['lm_head'], out_dtype=torch.float32)
-    return logits, cache
+        return o.reshape(hi - lo, win, -1)
+
+    h = _layer_stack(params, h, config, mesh, overlap, cos, sin, rot,
+                     write, attend)
+    return _dp_gather(_final(h, params, config, mesh), mesh), cache
 
 
 def fused_step_pooled(params: llama.Params, token: torch.Tensor,
                       config: llama.LlamaConfig, cache: Cache,
                       positions: torch.Tensor, tables: torch.Tensor,
                       pf_tokens: torch.Tensor, pf_table_row: torch.Tensor,
-                      pf_start: int
+                      pf_start: int, mesh=None,
+                      overlap: Optional[int] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor, Cache]:
     """Fused prefill+decode step over the pooled arena: ONE forward
     carries the decode batch's single-token columns AND a fixed-width
@@ -593,45 +779,46 @@ def fused_step_pooled(params: llama.Params, token: torch.Tensor,
     through :func:`ops.decode_attention.fused_step_attention_pooled`
     (K1 for the decode rows, K4 as one window row for the prefill lane),
     each lane with its unfused numerics.  The prefill lane samples
-    nothing.  Returns (decode logits (B, vocab) f32, chunk hiddens
-    (F, d) after the final norm, cache)."""
+    nothing.  Under a mesh the decode rows split over dp and the prefill
+    lane is replicated over it.  Returns (decode logits (B, vocab) f32,
+    chunk hiddens (F, d) after the final norm, cache)."""
     batch = token.shape[0]
+    lo, hi = tp_lib.slot_rows(mesh, batch)
+    b_l = hi - lo
     fuse = pf_tokens.shape[0]
     bs = cache['k'].shape[2]
     t_width = tables.shape[1]
-    group = config.n_heads // config.n_kv_heads
     device = token.device
     cos, sin = rope_tables(config, t_width * bs, device)
-    h = llama.embed_tokens(params, torch.cat([token, pf_tokens]),
-                           config)[:, None]                  # (B+F, 1, d)
+    h = _embed(params, torch.cat([token[lo:hi], pf_tokens]), config,
+               mesh)[:, None]                                # (b+F, 1, d)
     pf_pos = pf_start + torch.arange(fuse, device=device)
     # Pad rows past the table take the last row's rotation (the JAX
     # package's clamped gather); they only write the garbage block.
-    pos = torch.clamp_max(torch.cat([positions.long(), pf_pos]),
+    pos = torch.clamp_max(torch.cat([positions.long()[lo:hi], pf_pos]),
                           t_width * bs - 1)[:, None]
     dec_blk, dec_off = _table_rows(tables, positions.long()[:, None], bs)
     pf_blk, pf_off = _table_rows(pf_table_row, pf_pos, bs)
     blk = torch.cat([dec_blk[:, 0], pf_blk])
     off = torch.cat([dec_off[:, 0], pf_off])
-    kv_shape = (config.n_kv_heads, group, config.head_dim)
-    for i in range(config.n_layers):
-        lp = llama.layer_params(params, i)
-        attn_p = lp['attn']
-        x = rmsnorm_ops.rms_norm(h, lp['ln1'], eps=config.norm_eps)
-        q, k, v = _qkv(x, attn_p, config)                    # (B+F, 1, ...)
-        q = rope_ops.apply_rope(q, cos, sin, positions=pos)
-        k = rope_ops.apply_rope(k, cos, sin, positions=pos)
-        _write_kv(cache, (i, blk, off), k[:, 0], v[:, 0])
+    tables_l, positions_l = tables[lo:hi], positions[lo:hi]
+
+    def write(i, k, v):
+        rows_k = torch.cat([_dp_gather(k[:b_l, 0], mesh), k[b_l:, 0]])
+        rows_v = torch.cat([_dp_gather(v[:b_l, 0], mesh), v[b_l:, 0]])
+        _write_kv(cache, (i, blk, off), rows_k, rows_v)
+
+    def attend(i, q):
+        kv_shape = (cache['k'].shape[3], -1, config.head_dim)
         o_dec, o_pf = decode_attention_ops.fused_step_attention_pooled(
-            q[:batch, 0].reshape((batch,) + kv_shape),
-            q[batch:, 0].reshape((fuse,) + kv_shape), cache['k'],
-            cache['v'], tables, pf_table_row, i, positions, pf_start,
+            q[:b_l, 0].reshape((b_l,) + kv_shape),
+            q[b_l:, 0].reshape((fuse,) + kv_shape), cache['k'],
+            cache['v'], tables_l, pf_table_row, i, positions_l, pf_start,
             cache.get('k_scale'), cache.get('v_scale'))
-        o = torch.cat([o_dec, o_pf])
-        h = h + quant.matmul(o.reshape(batch + fuse, 1, -1), attn_p['wo'])
-        x = rmsnorm_ops.rms_norm(h, lp['ln2'], eps=config.norm_eps)
-        h = h + _ffn(x, lp, config)
+        return torch.cat([o_dec, o_pf]).reshape(b_l + fuse, 1, -1)
+
+    h = _layer_stack(params, h, config, mesh, overlap, cos, sin, pos,
+                     write, attend)
     h = rmsnorm_ops.rms_norm(h, params['final_norm'], eps=config.norm_eps)
-    logits = quant.matmul(h[:batch, 0], params['lm_head'],
-                          out_dtype=torch.float32)
-    return logits, h[batch:, 0], cache
+    dec_logits = logits(h[:b_l, 0], params, mesh)
+    return _dp_gather(dec_logits, mesh), h[b_l:, 0], cache

@@ -30,7 +30,12 @@ carry it.
 
 Run:  python -m skypilot_tpu_torch.infer.replica --model debug --port 8000
 (random weights from --seed, or --hf-model DIR, a local HF checkpoint
-directory; add --device cpu to serve on the host).
+directory; add --device cpu to serve on the host).  ``--tp k`` serves one
+replica from k rank processes of this host (infer/multihost.py): each
+holds its shards (random weights drawn into them, or read from --hf-model
+with ``convert.load_hf_model_sharded``), rank 0 serves HTTP through a
+MultiHostBatcher and the others replay its calls; /v1/embeddings is
+refused there (its forward is not part of the replayed call stream).
 """
 from __future__ import annotations
 
@@ -605,6 +610,10 @@ def embed(driver: BatcherDriver, config, ids_list: List[List[int]]):
     from skypilot_tpu_torch.infer import llama_infer
 
     batcher = driver.batcher
+    if getattr(batcher, 'mesh', None) is not None:
+        raise ValueError('embeddings are not served by a tensor-parallel '
+                         'replica: the worker ranks replay the scheduler '
+                         'calls only')
     longest = max(len(i) for i in ids_list)
     bucket = next((b for b in batcher.buckets if longest <= b), None)
     if bucket is None:
@@ -655,7 +664,21 @@ def shutdown_replica(server: ReplicaServer, thread: threading.Thread,
     server.driver.close(timeout)
 
 
-MODEL_SIZES = ('debug', '1b', '8b')
+MODEL_SIZES = ('debug', 'tiny-tp', '1b', '8b')
+
+
+def _tiny_tp():
+    import torch
+
+    from skypilot_tpu_torch.models import llama
+    # A smoke size whose 4 KV heads divide over a tp mesh (LLAMA_DEBUG's
+    # one KV head cannot), as the reference's 'tiny-tp'.
+    return llama.LlamaConfig(
+        vocab_size=512, d_model=128, n_layers=2, n_heads=8, n_kv_heads=4,
+        d_ff=256, max_seq_len=512, dtype=torch.float32, remat=False)
+
+
+TINY_TP = _tiny_tp()
 
 
 def build_generator(model_size: str = 'debug', max_seq_len: int = 2048,
@@ -663,14 +686,16 @@ def build_generator(model_size: str = 'debug', max_seq_len: int = 2048,
                     batch_size: int = 8, *, device=None, seed: int = 0,
                     kv_cache_dtype=None, weights_dtype=None,
                     prefill_chunk=None, decode_chunk: int = 16,
-                    max_queue: Optional[int] = None):
+                    max_queue: Optional[int] = None, mesh_builder=None):
     """(batcher, config) of an entry point: the model is the local HF
     checkpoint directory `hf_model` (models/convert.py), else the
     `model_size` preset with random weights from `seed`; on `device`
     (default: the card).  max_seq_len is capped at the model's.  Without
     a tokenizer there is no eos token (the reference takes it from one).
-    Shared by the replica and batch_infer, as the reference's
-    build_generator."""
+    mesh_builder: config -> mesh (infer/multihost.make_replica_mesh) for
+    one rank of a tensor-parallel replica, whose weights are then drawn
+    or read straight into its shards.  Shared by the replica and
+    batch_infer, as the reference's build_generator."""
     import torch
 
     from skypilot_tpu_torch.device import resolve_device
@@ -678,15 +703,30 @@ def build_generator(model_size: str = 'debug', max_seq_len: int = 2048,
     from skypilot_tpu_torch.infer.serving import ContinuousBatcher
     from skypilot_tpu_torch.models import convert, llama
 
+    from skypilot_tpu_torch.infer import tp as tp_lib
+
     device = resolve_device(device)
+    mesh = None
     if hf_model:
-        params, config = convert.load_hf_model(hf_model, device=device)
+        if mesh_builder is None:
+            params, config = convert.load_hf_model(hf_model, device=device)
+        else:
+            config = convert.read_hf_config(hf_model)
+            mesh = mesh_builder(config)
+            params, config = convert.load_hf_model_sharded(
+                hf_model, mesh, device=device)
     else:
         config = {'8b': llama.LLAMA3_8B, '1b': llama.LLAMA_1B,
-                  'debug': llama.LLAMA_DEBUG}[model_size]
+                  'debug': llama.LLAMA_DEBUG,
+                  'tiny-tp': TINY_TP}[model_size]
         generator = torch.Generator(device=device)
         generator.manual_seed(seed)
-        params = llama.init_params(config, generator, device)
+        if mesh_builder is None:
+            params = llama.init_params(config, generator, device)
+        else:
+            mesh = mesh_builder(config)
+            params = tp_lib.init_sharded_params(config, generator, mesh,
+                                                device)
     batcher = ContinuousBatcher(
         params, config,
         GeneratorConfig(max_seq_len=min(max_seq_len, config.max_seq_len),
@@ -694,7 +734,8 @@ def build_generator(model_size: str = 'debug', max_seq_len: int = 2048,
                         prefill_chunk=prefill_chunk,
                         kv_cache_dtype=kv_cache_dtype,
                         weights_dtype=weights_dtype),
-        decode_chunk=decode_chunk, max_queue=max_queue, device=device)
+        decode_chunk=decode_chunk, max_queue=max_queue, device=device,
+        mesh=mesh)
     return batcher, config
 
 
@@ -724,14 +765,68 @@ def main(argv=None) -> int:
                              '(per-out-channel scales)')
     parser.add_argument('--decode-chunk', type=int, default=16)
     parser.add_argument('--max-new-tokens', type=int, default=64)
+    parser.add_argument('--tp', type=int, default=1,
+                        help='serve from this many rank processes of '
+                             'this host (one card each, or sharing it)')
     args = parser.parse_args(argv)
-
-    batcher, _ = build_generator(
+    if args.tp > 1:
+        from skypilot_tpu_torch.infer import multihost
+        multihost.launch_local_ranks(args.tp, _replica_rank, (vars(args),))
+        return 0
+    _serve_replica(args, build_generator(
         args.model, args.max_seq_len, args.temperature, args.hf_model,
         args.batch_size, device=args.device, seed=args.seed,
         kv_cache_dtype=args.kv_cache_dtype,
         weights_dtype=args.weights_dtype, prefill_chunk=args.prefill_chunk,
-        decode_chunk=args.decode_chunk, max_queue=4 * args.batch_size)
+        decode_chunk=args.decode_chunk, max_queue=4 * args.batch_size)[0])
+    return 0
+
+
+def rank_generator(local_rank: int, world: int, args):
+    """One rank of a `world`-process replica: join the host's process
+    group (the env contract launch_local_ranks set), build the batcher
+    over this rank's shards on its device, and open the control channel.
+    Returns (the batcher, or on rank 0 the MultiHostBatcher over it;
+    the channel)."""
+    from skypilot_tpu_torch.infer import multihost
+    device = multihost.rank_device(args.device, local_rank)
+    info = multihost.initialize_from_env(
+        backend=multihost.default_backend(args.device, world),
+        procs_per_host=world, local_rank=local_rank)
+    batcher, _ = build_generator(
+        args.model_size if hasattr(args, 'model_size') else args.model,
+        args.max_seq_len, args.temperature, args.hf_model,
+        args.batch_size, device=device, seed=args.seed,
+        kv_cache_dtype=args.kv_cache_dtype,
+        weights_dtype=args.weights_dtype, prefill_chunk=args.prefill_chunk,
+        decode_chunk=getattr(args, 'decode_chunk', 16),
+        max_queue=4 * args.batch_size,
+        mesh_builder=lambda cfg: multihost.make_replica_mesh(
+            n_kv_heads=cfg.n_kv_heads))
+    if info['rank'] == 0:
+        channel = multihost.ControlChannel.head(info['control_port'],
+                                                world - 1)
+        return multihost.MultiHostBatcher(batcher, channel), channel
+    channel = multihost.ControlChannel.connect(info['coordinator_host'],
+                                               info['control_port'])
+    return batcher, channel
+
+
+def _replica_rank(local_rank: int, world: int, argd: dict) -> None:
+    from skypilot_tpu_torch.infer import multihost
+    batcher, channel = rank_generator(local_rank, world,
+                                      argparse.Namespace(**argd))
+    if channel.role == 'worker':
+        multihost.worker_loop(batcher, channel)
+        return
+    try:
+        _serve_replica(argparse.Namespace(**argd), batcher)
+    finally:
+        batcher.shutdown()
+
+
+def _serve_replica(args, batcher) -> None:
+    """Warm `batcher`, serve it over HTTP until interrupted."""
     # Warm the path so the first request does not pay the kernel build.
     warm = batcher.submit([1, 1], max_new_tokens=2)
     batcher.run_until_idle()
@@ -747,7 +842,6 @@ def main(argv=None) -> int:
         pass
     finally:
         shutdown_replica(server, thread)
-    return 0
 
 
 if __name__ == '__main__':

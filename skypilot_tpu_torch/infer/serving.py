@@ -76,8 +76,11 @@ and none of it adds a device synchronize: launches are asynchronous, so
 a chunk's device time shows in the host_fetch phase that waits for it.
 A key's first capture falls inside the phase that launched it
 (``graphs.captures``/``capture_seconds`` report captures apart).
-Meshes (``set_collective_share`` among them) are ROADMAP.md Queue A
-item 10.
+Under a tensor-parallel mesh (``mesh=``, infer/tp.py) every rank runs a
+batcher over its shards; the pooled steps split the slot rows over 'dp'
+and combine over ('tp', 'tpq'), and ``set_collective_share`` moves the
+measured collective share of the sharded phases to the 'collective'
+profiler phase.
 
 Usage:
 
@@ -105,9 +108,10 @@ from skypilot_tpu_torch.infer import block_pool as block_pool_lib
 from skypilot_tpu_torch.infer import engine as engine_lib
 from skypilot_tpu_torch.infer import fuse as fuse_lib
 from skypilot_tpu_torch.infer import kv_tier as kv_tier_lib
-from skypilot_tpu_torch.infer import llama_infer, prefix_cache, quant
+from skypilot_tpu_torch.infer import llama_infer, prefix_cache
 from skypilot_tpu_torch.infer import sampling
 from skypilot_tpu_torch.infer import spec_decode as spec_decode_lib
+from skypilot_tpu_torch.infer import tp as tp_lib
 from skypilot_tpu_torch.infer.engine import GeneratorConfig
 from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.telemetry import accounting
@@ -152,7 +156,7 @@ class ContinuousBatcher:
     def __init__(self, params: llama.Params, config: llama.LlamaConfig,
                  gen_config: GeneratorConfig = GeneratorConfig(),
                  decode_chunk: int = 8, max_queue: Optional[int] = None,
-                 device=None, graphs: Optional[bool] = None,
+                 device=None, graphs: Optional[bool] = None, mesh=None,
                  span_buffer: Optional[spans_lib.SpanBuffer] = None,
                  span_clock=None,
                  ledger: Optional[accounting.CostLedger] = None,
@@ -166,8 +170,15 @@ class ContinuousBatcher:
 
         graphs: replay each decode, verify and fused-tail chunk from a
         CUDA graph captured once per static key (``self.graphs``); None
-        = on for a CUDA device, off on the CPU; False runs every chunk
-        eagerly; True on the CPU raises.
+        = on for a CUDA device, off on the CPU and under a gloo mesh
+        (``graphs_off_reason`` says why); False runs every chunk
+        eagerly; True where it cannot capture raises.
+
+        mesh: a tensor-parallel mesh (infer/tp.py) on the pooled plane;
+        every rank builds its batcher with the same arguments and runs
+        the same calls (infer/multihost.py replays the head's).  params
+        is then the full tree (each rank keeps its blocks; int8 weights
+        are quantized before the cut) or this rank's shards.
 
         span_buffer/span_clock: lifecycle-span sink and its clock (None:
         the module's wall-clock buffer, gated by spans.enabled()).
@@ -187,7 +198,19 @@ class ContinuousBatcher:
                              f'{gen_config.prefill_chunk}')
         if max_queue is not None and max_queue < 1:
             raise ValueError(f'max_queue must be >= 1, got {max_queue}')
-        self.params = engine_lib.prepare_params(params, gen_config)
+        engine_lib.check_mesh(params, config, gen_config, mesh)
+        self.mesh = mesh
+        self.params = engine_lib.mesh_params(params, config, gen_config,
+                                             mesh)
+        self.overlap = engine_lib.resolve_overlap(self.params, config,
+                                                  gen_config, mesh)
+        if mesh is not None:
+            for axis, size in mesh.shape.items():
+                telemetry_metrics.INFER_MESH_DEVICES.labels(
+                    axis=axis).set(size)
+        # The measured collective share of the sharded dispatch phases
+        # (set_collective_share; None = no 'collective' attribution).
+        self._collective_share: Optional[float] = None
         self.config = config
         self.gen = gen_config
         self.decode_chunk = decode_chunk
@@ -209,8 +232,9 @@ class ContinuousBatcher:
                 n_blocks = engine_lib.default_pool_blocks(
                     gen_config, config, bs, self.table_width)
             self.pool = block_pool_lib.BlockPool(
-                config, n_blocks, bs, kv_dtype=gen_config.kv_cache_dtype,
-                device=self.device)
+                tp_lib.local_config(config, mesh), n_blocks, bs,
+                kv_dtype=gen_config.kv_cache_dtype, device=self.device,
+                sharded=mesh is not None and mesh.size > 1)
             self._cache = self.pool.arena
             self._cache_len = self.table_width * bs
             self._host_tables = np.zeros((batch, self.table_width),
@@ -260,7 +284,10 @@ class ContinuousBatcher:
         self._rng.manual_seed(0)
         # The decode carry, read and written in place by every chunk.
         self._rows = (self._token, self._positions, self._done, self._limit)
-        self.graphs = engine_lib.chunk_graphs(graphs, dev, (self._rng,))
+        self.graphs_off_reason = (engine_lib.graphs_blocker(dev, mesh)
+                                  if graphs is None else None)
+        self.graphs = engine_lib.chunk_graphs(graphs, dev, (self._rng,),
+                                              mesh)
 
         self._free: List[int] = list(range(batch))
         self._active: Dict[int, _Request] = {}       # slot -> request
@@ -348,12 +375,30 @@ class ContinuousBatcher:
             return engine_lib.host_fetch(*tensors)
 
     def set_collective_share(self, share: Optional[float]) -> None:
-        """The collective-time share of a mesh-sharded decode: meshes
-        are not ported."""
-        raise engine_lib._deferred('set_collective_share', 10)
+        """Install the measured collective-time share of the sharded
+        dispatch phases (bench_mesh's collective_time_share_est, or an
+        operator's estimate).  While set on a batcher whose mesh has
+        more than one rank, each step's decode, spec_verify and fused
+        seconds are split and that share moved to the 'collective'
+        StepProfiler phase (and INFER_MESH_COLLECTIVE_SECONDS): a host
+        timer cannot see inside the device work, so the split is an
+        estimate, labelled as one.  None turns it off."""
+        if share is not None and not 0.0 <= share <= 1.0:
+            raise ValueError(f'collective share must be in [0, 1], '
+                             f'got {share}')
+        self._collective_share = share
 
     def _finish_step_profile(self) -> None:
         profiler = self._profiler
+        if (self._collective_share and self.mesh is not None
+                and self.mesh.size > 1):
+            moved = sum(profiler.reattribute(
+                src, 'collective', self._collective_share)
+                for src in ('decode', 'spec_verify', 'fused'))
+            if moved > 0.0:
+                telemetry_metrics.INFER_MESH_COLLECTIVE_SECONDS.labels(
+                    mode='sync' if self.overlap is None
+                    else 'overlapped').inc(moved)
         phases = profiler.finish()
         if not phases:
             return
@@ -899,12 +944,12 @@ class ContinuousBatcher:
         rows = (self._cache_len if tables_scatter is None
                 else tables_scatter.shape[1] * self.block_size)
         scratch = llama_infer.init_cache(
-            self.config, tokens.shape[0], rows,
-            kv_dtype=self.gen.kv_cache_dtype, device=dev)
+            tp_lib.local_config(self.config, self.mesh), tokens.shape[0],
+            rows, kv_dtype=self.gen.kv_cache_dtype, device=dev)
         lengths_t = torch.as_tensor(lengths, device=dev)
         logits, scratch = llama_infer.prefill(
             self.params, torch.as_tensor(tokens, device=dev), self.config,
-            scratch, lengths_t)
+            scratch, lengths_t, mesh=self.mesh)
         slots_t = torch.as_tensor(slots, device=dev).long()
         if tables_scatter is None:
             for key, small in scratch.items():   # k/v (+ int8 scales)
@@ -947,7 +992,8 @@ class ContinuousBatcher:
             if self.pooled:
                 logits, _ = llama_infer.decode_step_pooled(
                     self.params, token, self.config, self._cache,
-                    positions, self._tables_dev)
+                    positions, self._tables_dev, mesh=self.mesh,
+                    overlap=self.overlap)
             else:
                 logits, _ = self._decode_fn(self.params, token, self.config,
                                             self._cache, positions)
@@ -981,7 +1027,8 @@ class ContinuousBatcher:
         if prefill_lane is not None:
             logits, h_pf, _ = llama_infer.fused_step_pooled(
                 self.params, self._token, self.config, self._cache,
-                self._positions, self._tables_dev, *prefill_lane)
+                self._positions, self._tables_dev, *prefill_lane,
+                mesh=self.mesh, overlap=self.overlap)
             eos = self.gen.eos_token
             emit, *carry = engine_lib.commit_step(
                 self._sample_step(logits, all_greedy, nucleus), *self._rows,
@@ -1007,7 +1054,8 @@ class ContinuousBatcher:
         tokens_w = torch.cat([self._token[:, None], self._draft], dim=1)
         logits, _ = llama_infer.decode_verify_pooled(
             self.params, tokens_w, self.config, self._cache,
-            self._positions, self._tables_dev)
+            self._positions, self._tables_dev, mesh=self.mesh,
+            overlap=self.overlap)
         if all_greedy:
             targets, accepts = sampling.spec_accept_greedy(logits,
                                                            self._draft)
@@ -1384,7 +1432,7 @@ class ContinuousBatcher:
                     if self.pooled:
                         h_last, _ = llama_infer.prefill_window_pooled(
                             self.params, window_t, self.config,
-                            self._cache, table_row, start)
+                            self._cache, table_row, start, mesh=self.mesh)
                     else:
                         h_last, _ = llama_infer.prefill_window(
                             self.params, window_t, self.config,
@@ -1427,8 +1475,7 @@ class ContinuousBatcher:
         dev = self.device
         with self._profiler.phase('prefill'):
             h = h_last[len(req.prompt) - 1 - last_start][None]
-            logits = quant.matmul(h, self.params['lm_head'],
-                                  out_dtype=torch.float32)
+            logits = llama_infer.logits(h, self.params, self.mesh)
             temps = np.asarray([temp], np.float32)
             top_ps = np.asarray([top_p], np.float32)
             temps_t = torch.as_tensor(temps, device=dev)
@@ -1511,7 +1558,8 @@ class ContinuousBatcher:
                     h_last, _ = llama_infer.prefill_window_pooled(
                         self.params, window_t, self.config, self._cache,
                         torch.as_tensor(self._host_tables[req.slot],
-                                        device=self.device), start)
+                                        device=self.device), start,
+                        mesh=self.mesh)
                 else:
                     h_last, _ = llama_infer.prefill_window(
                         self.params, window_t, self.config, self._cache,

@@ -27,8 +27,9 @@ and safetensors, or torch ``.bin`` files): it needs neither
 itself.  It streams: each stacked leaf is allocated once on the target
 device in config.dtype and filled one layer (and one expert) at a time,
 so the host holds about one source tensor, memory-mapped, at a time.
-This is the one-card counterpart of the reference's
-``load_hf_model_sharded``; the mesh version waits for ROADMAP item 11(g).
+``load_hf_model_sharded`` is the tensor-parallel loader: each rank copies
+only its block of each tensor (infer/tp.py's INFER_TP_RULES) out of the
+memory map, so no rank holds the full model on the host or the card.
 """
 from __future__ import annotations
 
@@ -186,31 +187,50 @@ def _leaves(config: llama.LlamaConfig):
 
 def _build(get: Callable[[str], torch.Tensor], has: Callable[[str], bool],
            config: llama.LlamaConfig, norm_offset: float,
-           device: torch.device) -> Params:
+           device: torch.device, mesh=None) -> Params:
     """The parameter tree from a source of HF tensors: `get(name)` gives
     one CPU tensor in the source's dtype, `has(name)` says whether the
     source holds it.  Each leaf is allocated once on `device` in
     config.dtype and filled tensor by tensor: each goes to `device` in
     its own dtype and is transposed and cast there in one copy (the
     transpose exact, the cast one rounding).  Norms take the offset in
-    f32, then one rounding."""
+    f32, then one rounding.  With a mesh each leaf is this rank's block
+    under INFER_TP_RULES, cut from the source tensor before the copy."""
     prefix = 'model.'
     if not has(prefix + 'embed_tokens.weight') and \
             has('embed_tokens.weight'):
         prefix = ''
+    if mesh is not None:
+        from skypilot_tpu_torch.infer import tp as tp_lib
+        from skypilot_tpu_torch.parallel import sharding
 
-    def leaf(names, shape, transpose, offset=0.0, lead=()):
-        out = torch.empty((*lead, *shape), dtype=config.dtype,
+    def block(path, lead):
+        """The slices of one source tensor (this package's layout) that
+        this rank keeps, or None for the whole of it."""
+        if mesh is None:
+            return None
+        spec = tp_lib.param_spec(path)
+        return sharding.P(*spec[lead:])
+
+    def leaf(names, shape, transpose, path, offset=0.0, lead=()):
+        spec = block(path, len(lead))
+        local = shape if spec is None else sharding.local_shape(
+            spec, shape, mesh)
+        out = torch.empty((*lead, *local), dtype=config.dtype,
                           device=device)
-        rows = out.view(-1, *shape)
+        rows = out.view(-1, *local)
         for row, name in zip(rows, names):
-            src = get(name).to(device)
+            src = get(name)
             if transpose:
                 src = src.T
             if tuple(src.shape) != shape:
                 raise ValueError(
                     f'{name}: shape {tuple(src.shape)} in this package\'s '
                     f'layout, the config needs {shape}')
+            if spec is not None:
+                src = src[tuple(slice(lo, hi) for lo, hi in
+                                sharding.block_bounds(spec, shape, mesh))]
+            src = src.to(device)
             row.copy_(src.float() + offset if offset else src)
             del src   # drops the source's memory map before the next
         return out
@@ -218,7 +238,7 @@ def _build(get: Callable[[str], torch.Tensor], has: Callable[[str], bool],
     d, nl = config.d_model, config.n_layers
     n_experts = getattr(config, 'n_experts', 1)
     embed = leaf([prefix + 'embed_tokens.weight'], (config.vocab_size, d),
-                 False)
+                 False, 'embed')
     layers: Params = {}
     for path, template, shape, transpose in _leaves(config):
         experts = '{e}' in template
@@ -229,17 +249,20 @@ def _build(get: Callable[[str], torch.Tensor], has: Callable[[str], bool],
         for key in path[:-1]:
             node = node.setdefault(key, {})
         node[path[-1]] = leaf(
-            names, shape, transpose,
+            names, shape, transpose, 'layers/' + '/'.join(path),
             offset=norm_offset if path[0] in ('ln1', 'ln2') else 0.0,
             lead=(nl, n_experts) if experts else (nl,))
     tree = {'embed': embed, 'layers': layers,
             'final_norm': leaf([prefix + 'norm.weight'], (d,), False,
-                               offset=norm_offset)}
+                               'final_norm', offset=norm_offset)}
     if has('lm_head.weight'):
         tree['lm_head'] = leaf(['lm_head.weight'], (d, config.vocab_size),
-                               True)
-    else:   # tied embeddings: a transposed copy, made on the device
+                               True, 'lm_head')
+    elif mesh is None:   # tied embeddings: a transposed copy, on the device
         tree['lm_head'] = embed.T.contiguous()
+    else:   # tied, sharded: lm_head's vocab block read from the table
+        tree['lm_head'] = leaf([prefix + 'embed_tokens.weight'],
+                               (d, config.vocab_size), True, 'lm_head')
     return tree
 
 
@@ -393,6 +416,19 @@ def load_hf_model(model_dir: str, dtype: torch.dtype = torch.bfloat16,
     model_type) and return (params, config) ready for the Trainer and
     the serving engines, on `device` (default: the CUDA card).  It
     downloads nothing: a hub name raises."""
+    return _load(model_dir, dtype, device, None, config_overrides)
+
+
+def read_hf_config(model_dir: str, dtype: torch.dtype = torch.bfloat16,
+                   **config_overrides: Any) -> llama.LlamaConfig:
+    """The config of a local HF checkpoint directory (its config.json),
+    without reading a weight."""
+    with open(os.path.join(model_dir, 'config.json'),
+              encoding='utf-8') as f:
+        return config_from_hf(json.load(f), dtype=dtype, **config_overrides)
+
+
+def _load(model_dir, dtype, device, mesh, config_overrides):
     if not os.path.isdir(model_dir):
         raise FileNotFoundError(
             f'{model_dir!r} is not a local directory: this package loads '
@@ -405,7 +441,23 @@ def load_hf_model(model_dir: str, dtype: torch.dtype = torch.bfloat16,
     norm_offset = 1.0 if hf_config.get('model_type') == 'gemma' else 0.0
     reader = _open_checkpoint(model_dir)
     params = _build(reader.get, reader.__contains__, config, norm_offset,
-                    resolve_device(device))
+                    resolve_device(device), mesh)
+    return params, config
+
+
+def load_hf_model_sharded(model_dir: str, mesh,
+                          dtype: torch.dtype = torch.bfloat16, device=None,
+                          **config_overrides: Any
+                          ) -> Tuple[Params, llama.LlamaConfig]:
+    """load_hf_model for one rank of a tensor-parallel mesh
+    (infer/tp.py): (this rank's blocks of the tree under INFER_TP_RULES,
+    the full config).  Each rank copies only its slices out of the
+    memory-mapped files; a block split on the stored tensor's inner
+    axis is read strided, page by page, but never held whole."""
+    params, config = _load(model_dir, dtype, device, mesh,
+                           config_overrides)
+    from skypilot_tpu_torch.infer import tp as tp_lib
+    tp_lib.validate_mesh(config, mesh)
     return params, config
 
 

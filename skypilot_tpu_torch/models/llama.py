@@ -95,7 +95,7 @@ LLAMA_DEBUG = LlamaConfig(vocab_size=512, d_model=256, n_layers=2, n_heads=2,
 
 
 def init_params(config: LlamaConfig, generator: torch.Generator,
-                device=None, *, ffn=None) -> Params:
+                device=None, *, ffn=None, shard=None) -> Params:
     """Random stacked-layer parameters (same dict layout and scales as
     the JAX ``init_params``; not the same numbers).
 
@@ -103,9 +103,12 @@ def init_params(config: LlamaConfig, generator: torch.Generator,
     f32 draw never holds more than one layer, and stored on `device`
     (default: the CUDA card) in config.dtype.  `ffn(dense)` returns the
     layers' feed-forward entry as (key, subtree) from the stacked
-    initializer ``dense(*shape)`` (scale shape[-2] ** -0.5); the default
-    is the gated MLP, ('mlp', ...), and models/moe.py passes its expert
-    bank."""
+    initializer ``dense(path, *shape)`` (scale shape[-2] ** -0.5); the
+    default is the gated MLP, ('mlp', ...), and models/moe.py passes its
+    expert bank.  `shard(path, x, lead)` (infer/tp.py's
+    init_sharded_params) cuts each drawn tensor to one rank's block
+    before it is stored; `lead` counts x's leading axes that the leaf's
+    spec has and x does not (1 for one layer of a stacked leaf)."""
     device = resolve_device(device)
     gen_device = generator.device
     d, ff = config.d_model, config.d_ff
@@ -113,50 +116,58 @@ def init_params(config: LlamaConfig, generator: torch.Generator,
                        config.n_layers)
     dt = config.dtype
 
-    def normal(shape, scale):
+    def cut(path, x, lead):
+        return x if shard is None else shard(path, x, lead)
+
+    def normal(path, shape, scale, lead=0):
         x = torch.randn(shape, generator=generator, device=gen_device,
                         dtype=torch.float32)
-        return (x * scale).to(device=device, dtype=dt)
+        return cut(path, x.mul_(scale), lead).to(device=device, dtype=dt)
 
-    def dense(*shape):
-        out = torch.empty(shape, device=device, dtype=dt)
+    def dense(path, *shape):
+        out = None
         for i in range(shape[0]):
-            out[i] = normal(shape[1:], shape[-2] ** -0.5)
+            layer = normal(path, shape[1:], shape[-2] ** -0.5, lead=1)
+            if out is None:
+                out = torch.empty((shape[0],) + tuple(layer.shape),
+                                  device=device, dtype=dt)
+            out[i] = layer
         return out
 
-    def ones(*shape):
-        return torch.ones(shape, device=device, dtype=dt)
+    def ones(path, *shape):
+        return cut(path, torch.ones(shape, device=device, dtype=dt), 0)
 
-    def zeros(*shape):
-        return torch.zeros(shape, device=device, dtype=dt)
+    def zeros(path, *shape):
+        return cut(path, torch.zeros(shape, device=device, dtype=dt), 0)
 
     attn = {
-        'wq': dense(nl, d, nh * hd),
-        'wk': dense(nl, d, nkv * hd),
-        'wv': dense(nl, d, nkv * hd),
-        'wo': dense(nl, nh * hd, d),
+        'wq': dense('layers/attn/wq', nl, d, nh * hd),
+        'wk': dense('layers/attn/wk', nl, d, nkv * hd),
+        'wv': dense('layers/attn/wv', nl, d, nkv * hd),
+        'wo': dense('layers/attn/wo', nl, nh * hd, d),
     }
     if config.attn_bias:
-        attn.update(bq=zeros(nl, nh * hd), bk=zeros(nl, nkv * hd),
-                    bv=zeros(nl, nkv * hd))
+        attn.update(bq=zeros('layers/attn/bq', nl, nh * hd),
+                    bk=zeros('layers/attn/bk', nl, nkv * hd),
+                    bv=zeros('layers/attn/bv', nl, nkv * hd))
     if ffn is None:
         def ffn(dense):
-            return 'mlp', {'w_gate': dense(nl, d, ff),
-                           'w_up': dense(nl, d, ff),
-                           'w_down': dense(nl, ff, d)}
+            return 'mlp', {'w_gate': dense('layers/mlp/w_gate', nl, d, ff),
+                           'w_up': dense('layers/mlp/w_up', nl, d, ff),
+                           'w_down': dense('layers/mlp/w_down', nl, ff, d)}
     # The embedding is drawn before the ffn: a seed's draw order is kept.
-    embed = normal((config.vocab_size, d), 0.02)
+    embed = normal('embed', (config.vocab_size, d), 0.02)
     ffn_key, ffn_tree = ffn(dense)
     return {
         'embed': embed,
         'layers': {
-            'ln1': ones(nl, d),
-            'ln2': ones(nl, d),
+            'ln1': ones('layers/ln1', nl, d),
+            'ln2': ones('layers/ln2', nl, d),
             'attn': attn,
             ffn_key: ffn_tree,
         },
-        'final_norm': ones(d),
-        'lm_head': normal((d, config.vocab_size), d ** -0.5),
+        'final_norm': ones('final_norm', d),
+        'lm_head': normal('lm_head', (d, config.vocab_size), d ** -0.5),
     }
 
 

@@ -61,7 +61,7 @@ MOE_DEBUG = MoeConfig(vocab_size=512, d_model=128, n_layers=2, n_heads=4,
 
 
 def init_params(config: MoeConfig, generator: torch.Generator,
-                device=None) -> Params:
+                device=None, *, shard=None) -> Params:
     """Random stacked-layer parameters in the JAX tree layout and scales
     (not the same numbers): the Llama tree with a 'moe' subtree in place
     of 'mlp', each leaf drawn one layer at a time in f32 and stored in
@@ -70,11 +70,12 @@ def init_params(config: MoeConfig, generator: torch.Generator,
                      config.n_experts)
 
     def bank(dense):
-        return 'moe', {'router': dense(nl, d, ne),
-                       'w_gate': dense(nl, ne, d, ff),
-                       'w_up': dense(nl, ne, d, ff),
-                       'w_down': dense(nl, ne, ff, d)}
-    return llama.init_params(config, generator, device, ffn=bank)
+        return 'moe', {'router': dense('layers/moe/router', nl, d, ne),
+                       'w_gate': dense('layers/moe/w_gate', nl, ne, d, ff),
+                       'w_up': dense('layers/moe/w_up', nl, ne, d, ff),
+                       'w_down': dense('layers/moe/w_down', nl, ne, ff, d)}
+    return llama.init_params(config, generator, device, ffn=bank,
+                             shard=shard)
 
 
 def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:

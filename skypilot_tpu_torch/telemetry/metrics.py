@@ -6,10 +6,10 @@ pool, the host KV tier and the per-tenant cost ledger.
 
 Counterpart of the ``TRAIN_*``, ``CKPT_*``, ``INFER_*`` and ``ACCT_*``
 families of skypilot_tpu/telemetry/metrics.py, with the same family
-names, labels and buckets, and of its ``histogram_quantile``.  The
-``INFER_MESH_*`` families come with meshes (ROADMAP.md Queue A item 10);
-the ``SERVE_*`` and ``DOCTOR_*`` families with the fleet tooling (item
-12).  They live on the port's own prometheus registry, ``REGISTRY``
+names, labels and buckets (the ``INFER_MESH_*`` families of sharded
+serving among them), and of its ``histogram_quantile``.  The
+``SERVE_*`` and ``DOCTOR_*`` families come with the fleet tooling
+(ROADMAP.md Queue A item 12).  They live on the port's own prometheus registry, ``REGISTRY``
 (read a sample with ``REGISTRY.get_sample_value(name, labels)``); the
 JAX package's families stay on its own.  An update is a mutex-guarded
 float add, no I/O.
@@ -319,6 +319,49 @@ INFER_POOL_TABLE_APPENDS = prometheus_client.Counter(
     'Blocks appended to sequence block tables from the free list (the '
     'pooled replacement for bucket grow migrations: an append is a '
     'table write, not a cache copy)',
+    registry=REGISTRY)
+
+# ---- infer serving mesh (infer/tp.py, infer/serving.py) ---------------
+
+INFER_MESH_DEVICES = prometheus_client.Gauge(
+    'skytpu_infer_mesh_devices',
+    'Serving-mesh axis sizes (axis = dp | tp | tpq); set at engine '
+    'construction, absent on single-chip engines',
+    ['axis'],
+    registry=REGISTRY)
+
+INFER_MESH_COLLECTIVE_TIME_SHARE = prometheus_client.Gauge(
+    'skytpu_infer_mesh_collective_time_share',
+    'Estimated fraction of a sharded decode chunk spent in collectives '
+    '(1 - single-device time / mesh time per token, clamped to [0, 1]; '
+    'measured by bench_mesh, an efficiency complement rather than a '
+    'per-op trace)',
+    registry=REGISTRY)
+
+INFER_MESH_OVERLAP_RATIO = prometheus_client.Gauge(
+    'skytpu_infer_mesh_overlap_ratio',
+    'Hidden-communication fraction of the overlapped sharded decode '
+    'path: 1 - overlapped collective share / sync collective share, '
+    'clamped to [0, 1] (0 = sync path or no hiding; measured by '
+    'bench_mesh from the sync-vs-overlapped step timings)',
+    registry=REGISTRY)
+
+INFER_MESH_COLLECTIVE_SECONDS = prometheus_client.Counter(
+    'skytpu_infer_mesh_collective_seconds',
+    'Cumulative estimated seconds sharded decode steps spent in '
+    'collectives, split by combine schedule (mode = sync | '
+    'overlapped); fed by the StepProfiler collective phase (the '
+    'decode/verify/fused share reattributed via the measured '
+    'collective_time_share) and by bench_mesh',
+    ['mode'],
+    registry=REGISTRY)
+
+INFER_MESH_POOL_BLOCKS_PER_SHARD = prometheus_client.Gauge(
+    'skytpu_infer_mesh_pool_blocks_live_per_shard',
+    'Live arena blocks each tp shard holds a KV-head slice of (block '
+    'ids are global — sharding splits heads, not blocks — so this '
+    'equals blocks_live; exported only for sharded pools so per-shard '
+    'HBM dashboards need no join against the mesh shape)',
     registry=REGISTRY)
 
 # ---- infer speculative decoding (infer/serving.py, infer/engine.py) ---

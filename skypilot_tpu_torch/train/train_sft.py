@@ -30,12 +30,13 @@ from skypilot_tpu_torch.utils import env_contract
 
 
 def refuse_unported(parser: argparse.ArgumentParser,
-                    args: argparse.Namespace) -> None:
+                    args: argparse.Namespace, allow=()) -> None:
     """Exit with a message naming the ROADMAP item of a flag whose path
-    is not ported: a mesh axis above 1, expert parallelism included
-    (11(g))."""
+    is not ported: a training-mesh axis above 1, expert parallelism
+    included (11(g)); `allow` names the axes an entry point carries
+    (the serving tp of batch_infer and eval_ppl)."""
     mesh = {k: getattr(args, k) for k in ('dp', 'fsdp', 'tp', 'ep')
-            if hasattr(args, k)}
+            if hasattr(args, k) and k not in allow}
     sharded = {k: v for k, v in mesh.items() if v > 1}
     if sharded:
         parser.error(f'{sharded}: this entry point trains on one card; '

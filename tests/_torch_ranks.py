@@ -1,0 +1,387 @@
+"""Rank processes for the port's mesh tests (test_torch_mesh.py,
+test_torch_tp.py, test_torch_multihost.py).
+
+This module imports torch and the port, never jax nor the JAX package:
+the spawned children import it (and only it) to run their side.  A
+RankPool starts `world` processes once, joined over gloo on the CPU, and
+runs each case's function on every rank; the functions below take numpy
+inputs and return numpy outputs, which the tests hold against the JAX
+package in the parent.
+"""
+from __future__ import annotations
+
+import multiprocessing
+import os
+import socket
+import traceback
+from datetime import timedelta
+
+import numpy as np
+
+_TIMEOUT_S = 240
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(('localhost', 0))
+        return s.getsockname()[1]
+
+
+def _serve(rank, world, port, inbox, outbox):
+    os.environ.setdefault('OMP_NUM_THREADS', '1')
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    try:
+        dist.init_process_group(
+            'gloo', init_method=f'tcp://localhost:{port}', world_size=world,
+            rank=rank, timeout=timedelta(seconds=_TIMEOUT_S))
+    except BaseException:
+        outbox.put((rank, False, traceback.format_exc()))
+        return
+    outbox.put((rank, True, 'ready'))
+    while True:
+        task = inbox.get()
+        if task is None:
+            break
+        name, kwargs = task
+        try:
+            outbox.put((rank, True, globals()[name](**kwargs)))
+        except BaseException:
+            outbox.put((rank, False, traceback.format_exc()))
+    dist.destroy_process_group()
+
+
+class RankPool:
+    """`world` gloo rank processes, started once and reused: run(name,
+    **kwargs) calls the function `name` of this module on every rank
+    and returns the ranks' results in rank order.  A failed rank raises
+    in the parent with its traceback, and the pool is restarted on the
+    next run (its collectives may be torn)."""
+
+    def __init__(self, world: int):
+        self.world = world
+        self._procs = []
+        self._start()
+
+    def _start(self):
+        ctx = multiprocessing.get_context('spawn')
+        port = _free_port()
+        self._outbox = ctx.Queue()
+        self._inboxes = [ctx.Queue() for _ in range(self.world)]
+        self._procs = [ctx.Process(target=_serve, daemon=True,
+                                   args=(r, self.world, port,
+                                         self._inboxes[r], self._outbox))
+                       for r in range(self.world)]
+        for p in self._procs:
+            p.start()
+        self._collect()
+
+    def _collect(self):
+        results = {}
+        try:
+            for _ in range(self.world):
+                rank, ok, out = self._outbox.get(timeout=_TIMEOUT_S)
+                if not ok:
+                    raise RuntimeError(f'rank {rank} failed:\n{out}')
+                results[rank] = out
+        except BaseException:
+            self.close()
+            raise
+        return [results[r] for r in range(self.world)]
+
+    def run(self, name: str, **kwargs):
+        if not self._procs:
+            self._start()
+        for inbox in self._inboxes:
+            inbox.put((name, kwargs))
+        return self._collect()
+
+    def close(self):
+        for inbox, p in zip(self._inboxes, self._procs):
+            if p.is_alive():
+                try:
+                    inbox.put(None)
+                except (OSError, ValueError):
+                    pass
+        for p in self._procs:
+            p.join(timeout=10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        self._procs = []
+
+
+# ---- helpers on the rank side ---------------------------------------------
+
+def _cfg(kind='llama', **kw):
+    import torch
+    from skypilot_tpu_torch.models import llama, moe
+    kw['dtype'] = getattr(torch, kw.get('dtype', 'float32'))
+    cls = moe.MoeConfig if kind == 'moe' else llama.LlamaConfig
+    return cls(**kw)
+
+
+def _params(tree, cfg):
+    from skypilot_tpu_torch.models import llama
+    return llama.params_from_numpy(tree, cfg, 'cpu')
+
+
+def _mesh(tp, dp=1, n_kv_heads=None):
+    from skypilot_tpu_torch.infer import tp as tp_lib
+    return tp_lib.make_tp_mesh(tp, n_kv_heads=n_kv_heads, dp=dp)
+
+
+def _np(x):
+    import torch
+    if x.dtype == torch.bfloat16:
+        x = x.float()
+    return x.detach().cpu().numpy()
+
+
+# ---- cases ------------------------------------------------------------------
+
+def collectives_case(seed, shape, dtype, axes_sizes, chunks_list):
+    """Every collective of parallel/collectives.py on each rank's own
+    seeded input: (this rank's input, its results)."""
+    import torch
+    from skypilot_tpu_torch.parallel import collectives as coll
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    import torch.distributed as dist
+    names = tuple(axes_sizes)
+    shape_m = tuple(axes_sizes.values())
+    mesh = mesh_lib.Mesh(np.arange(dist.get_world_size()).reshape(shape_m),
+                         names)
+    rng = np.random.default_rng(seed + 1000 * mesh.rank)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                         ).to(getattr(torch, dtype))
+    out = {'x': _np(x), 'coords': mesh.coords}
+    for ax in names:
+        out[f'gather/{ax}'] = _np(coll.ring_all_gather(x, mesh, ax))
+        out[f'gather_tiled/{ax}'] = _np(
+            coll.ring_all_gather(x, mesh, ax, tiled=True))
+        out[f'scatter/{ax}'] = _np(coll.ring_reduce_scatter(x, mesh, ax))
+    out['allreduce'] = _np(coll._rank_order_allreduce(x, mesh, names))
+    for c in chunks_list:
+        seen = []
+        red, res = coll.pipelined_psum(
+            x, mesh, names, chunks=c,
+            on_chunk=lambda ci, lo, span: seen.append((ci, lo,
+                                                       span.shape[-1])))
+        out[f'psum/{c}'] = _np(red)
+        out[f'psum_chunks/{c}'] = seen
+    return out
+
+
+def mesh_case(tp, dp, n_kv_heads):
+    """The tp mesh's layout on this rank."""
+    mesh = _mesh(tp, dp, n_kv_heads)
+    return {'shape': dict(mesh.shape), 'coords': mesh.coords,
+            'fiber_model': mesh.fiber(('tp', 'tpq')),
+            'fiber_dp': mesh.fiber('dp') if 'dp' in mesh.axis_names
+            else [mesh.rank]}
+
+
+def layout_case(configs):
+    """make_mesh / make_multislice_mesh's rank layout for each (dp, fsdp,
+    tp, num_slices) in configs, and this rank's coordinates."""
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    out = []
+    for dp, fsdp, tp, slices in configs:
+        cfg = mesh_lib.MeshConfig(dp=dp, fsdp=fsdp, tp=tp)
+        mesh = mesh_lib.make_multislice_mesh(cfg, slices)
+        out.append({'ranks': mesh.devices.tolist(), 'coords': mesh.coords,
+                    'fiber_dp': mesh.fiber('dp')})
+    return out
+
+
+def init_case(cfg_kw, kind, seed, tp, n_kv_heads):
+    """init_sharded_params' blocks and their shapes on this rank."""
+    import torch
+    from skypilot_tpu_torch.infer import tp as tp_lib
+    cfg = _cfg(kind, **cfg_kw)
+    mesh = _mesh(tp, 1, n_kv_heads)
+    gen = torch.Generator().manual_seed(seed)
+    tree = tp_lib.init_sharded_params(cfg, gen, mesh, 'cpu')
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return _np(node)
+    return walk(tree)
+
+
+def generate_case(tree, cfg_kw, kind, gen_kw, tp, dp, prompts, max_new,
+                  shards=False, quantize=False):
+    """Greedy tokens of Generator(mesh=) and the prefill logits of the
+    same prompts (llama_infer.prefill under the mesh)."""
+    import torch
+    from skypilot_tpu_torch.infer import engine, llama_infer, quant
+    from skypilot_tpu_torch.infer import tp as tp_lib
+    cfg = _cfg(kind, **cfg_kw)
+    mesh = _mesh(tp, dp, cfg.n_kv_heads)
+    params = _params(tree, cfg)
+    if quantize:
+        params = quant.quantize_weights(params)
+    if shards:
+        params = tp_lib.shard_params(params, mesh)
+    gen_cfg = engine.GeneratorConfig(**gen_kw)
+    g = engine.Generator(params, cfg, gen_cfg, mesh=mesh, device='cpu')
+    toks = g.generate(prompts, max_new_tokens=max_new)
+    bucket = max(len(p) for p in prompts)
+    tokens = np.zeros((len(prompts), bucket), np.int32)
+    for i, p in enumerate(prompts):
+        tokens[i, :len(p)] = p
+    cache = llama_infer.init_cache(tp_lib.local_config(cfg, mesh),
+                                   len(prompts), bucket, device='cpu')
+    with torch.no_grad():
+        logits, _ = llama_infer.prefill(
+            g.params, torch.from_numpy(tokens), cfg, cache,
+            torch.tensor([len(p) for p in prompts]), mesh=mesh)
+    return {'tokens': toks, 'logits': _np(logits), 'overlap': g.overlap,
+            'shapes': {k: tuple(v.shape) for k, v in
+                       g.params['layers']['attn'].items()
+                       if not isinstance(v, dict)}}
+
+
+def batcher_case(tree, cfg_kw, kind, gen_kw, tp, dp, requests,
+                 decode_chunk=8):
+    """The batcher's results under a mesh.  requests: (prompt,
+    max_new_tokens) pairs."""
+    from skypilot_tpu_torch.infer import engine
+    from skypilot_tpu_torch.infer.serving import ContinuousBatcher
+    cfg = _cfg(kind, **cfg_kw)
+    mesh = _mesh(tp, dp, cfg.n_kv_heads)
+    b = ContinuousBatcher(_params(tree, cfg), cfg,
+                          engine.GeneratorConfig(**gen_kw),
+                          decode_chunk=decode_chunk, mesh=mesh,
+                          device='cpu')
+    rids = [b.submit(list(p), max_new_tokens=n) for p, n in requests]
+    b.run_until_idle()
+    fused = b._fuse_policy.stats.steps if b._fuse_policy else 0
+    return {'results': [b.result(r) for r in rids], 'fused_steps': fused,
+            'overlap': b.overlap, 'spec_proposed': b.spec_proposed,
+            'graphs': b.graphs is None}
+
+
+def overlap_case(tree, cfg_kw, gen_kw, tp, dp, prompts, max_new, chunks):
+    """Generator tokens and each decode step's last hidden states (the
+    input of the final norm) for each overlap chunk count (1: the
+    synchronous path, overlap_collectives False)."""
+    import dataclasses as dc
+    from skypilot_tpu_torch.infer import engine, llama_infer
+    cfg = _cfg(**cfg_kw)
+    mesh = _mesh(tp, dp, cfg.n_kv_heads)
+    params = _params(tree, cfg)
+    out = {}
+    orig = llama_infer._final
+    for c in chunks:
+        seen = []
+
+        def final(h, *args):
+            seen.append(_np(h))
+            return orig(h, *args)
+        llama_infer._final = final
+        try:
+            gen_cfg = dc.replace(engine.GeneratorConfig(**gen_kw),
+                                 overlap_collectives=c > 1,
+                                 overlap_chunks=c if c > 1 else None)
+            g = engine.Generator(params, cfg, gen_cfg, mesh=mesh,
+                                 device='cpu')
+            toks = g.generate(prompts, max_new_tokens=max_new)
+        finally:
+            llama_infer._final = orig
+        out[c] = {'tokens': toks, 'hidden': seen, 'overlap': g.overlap}
+    return out
+
+
+def combine_project_case(seed, rows, d_model, widths, chunks_list):
+    """_combine_then_project on this rank's seeded partial (the same
+    h, gain and weights on every rank) at each chunk count, and the
+    synchronous path's h + _combine(partial), K3's plain version and
+    the whole products."""
+    import torch
+    from skypilot_tpu_torch.infer import llama_infer
+    from skypilot_tpu_torch.ops import rmsnorm as rmsnorm_ops
+    mesh = _mesh(4, 1, None)
+    gen = torch.Generator().manual_seed(seed)
+    h = torch.randn(rows, 1, d_model, generator=gen)
+    gain = 1.0 + 0.1 * torch.randn(d_model, generator=gen)
+    weights = [torch.randn(d_model, f, generator=gen) * d_model ** -0.5
+               for f in widths]
+    part = torch.randn(rows, 1, d_model,
+                       generator=torch.Generator().manual_seed(
+                           seed + 1 + mesh.rank))
+    h_sync = h + llama_infer._combine(part, mesh)
+    x = rmsnorm_ops.rms_norm(h_sync, gain, eps=1e-5)
+    out = {'sync': {'h': _np(h_sync), 'y': [_np(x @ w) for w in weights]}}
+    for c in chunks_list:
+        h_new, ys = llama_infer._combine_then_project(
+            part, h, gain, weights, mesh, c, 1e-5)
+        out[c] = {'h': _np(h_new), 'y': [_np(y) for y in ys]}
+    return out
+
+
+def graphs_case():
+    """graphs=True under a gloo mesh raises with the reason; None
+    resolves off and says why (checked with a CPU device, where graphs
+    are off anyway, through the shared blocker)."""
+    import torch
+    from skypilot_tpu_torch.infer import engine
+    mesh = _mesh(2, 1, None)
+    return {'cuda': engine.graphs_blocker(torch.device('cuda'), mesh),
+            'cuda_nomesh': engine.graphs_blocker(torch.device('cuda'), None)}
+
+
+def collective_share_case(tree, cfg_kw, gen_kw, tp, share):
+    """set_collective_share on a sharded batcher: the seconds moved to
+    the 'collective' phase and the counter's delta."""
+    from skypilot_tpu_torch.infer import engine
+    from skypilot_tpu_torch.infer.serving import ContinuousBatcher
+    from skypilot_tpu_torch.telemetry import metrics
+    cfg = _cfg(**cfg_kw)
+    mesh = _mesh(tp, 1, cfg.n_kv_heads)
+    ticks = iter(range(10 ** 6))
+    b = ContinuousBatcher(_params(tree, cfg), cfg,
+                          engine.GeneratorConfig(**gen_kw), mesh=mesh,
+                          device='cpu', profiler_clock=lambda: next(ticks))
+    mode = 'sync' if b.overlap is None else 'overlapped'
+
+    def counter():
+        return metrics.REGISTRY.get_sample_value(
+            'skytpu_infer_mesh_collective_seconds_total',
+            {'mode': mode}) or 0.0
+    before = counter()
+    b.set_collective_share(share)
+    collective = 0.0
+    rid = b.submit([5, 9, 2, 7], max_new_tokens=6)
+    while not b.is_done(rid):
+        b.step()
+        collective += b._profiler.last_phases.get('collective', 0.0)
+    return {'collective': collective, 'counter': counter() - before,
+            'devices': {a: metrics.REGISTRY.get_sample_value(
+                'skytpu_infer_mesh_devices', {'axis': a})
+                for a in mesh.shape},
+            'per_shard': metrics.REGISTRY.get_sample_value(
+                'skytpu_infer_mesh_pool_blocks_live_per_shard'),
+            'result': b.result(rid)}
+
+
+def hf_case(model_dir, tp, n_kv_heads):
+    """load_hf_model_sharded's blocks on this rank."""
+    from skypilot_tpu_torch.models import convert
+    mesh = _mesh(tp, 1, n_kv_heads)
+    params, cfg = convert.load_hf_model_sharded(model_dir, mesh,
+                                                device='cpu')
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return _np(node)
+    return {'params': walk(params), 'n_layers': cfg.n_layers}
+
+
+def exit_on_rank_one(local_rank, world):
+    """A launch_local_ranks target whose rank 1 exits with code 3."""
+    if local_rank == 1:
+        raise SystemExit(3)

@@ -149,14 +149,36 @@ def test_batch_infer_resume_after_a_cut_writes_each_id_once(tmp_path):
 
 
 def test_entry_points_refuse_meshes_naming_11g(tmp_path):
+    """The training meshes (eval_ppl's --dp and --fsdp) are still refused
+    naming 11(g); the serving tp (--tp) is carried, and a --tp 2 run
+    gives the --tp 1 run's output (one process a rank, gloo)."""
     inp = tmp_path / 'p.jsonl'
-    inp.write_text(json.dumps({'prompt_ids': [1, 2]}) + '\n')
-    proc = _batch(['--input', str(inp), '--output', str(tmp_path / 'o'),
-                   '--tp', '2'])
-    assert proc.returncode == 2 and '11(g)' in proc.stderr
-    for flag in ('--dp', '--fsdp', '--tp'):
+    inp.write_text(json.dumps({'prompt_ids': [1, 2]}) + '\n'
+                   + json.dumps({'prompt': 'two ranks'}) + '\n')
+    for flag in ('--dp', '--fsdp'):
         proc = _run('train.eval_ppl', ['--data-file', str(inp), flag, '2'])
         assert proc.returncode == 2 and '11(g)' in proc.stderr, flag
+    outs = []
+    for tp in ('1', '2'):
+        out = tmp_path / f'o{tp}.jsonl'
+        proc = _batch(['--input', str(inp), '--output', str(out),
+                       '--model-size', 'tiny-tp', '--max-new-tokens', '6',
+                       '--batch-size', '2', '--tp', tp])
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+        outs.append(_rows(out))
+    assert outs[0] == outs[1] and len(outs[0]) == 2
+    corpus = tmp_path / 'corpus.txt'
+    corpus.write_text('the quick brown fox jumps over the lazy dog. ' * 40)
+    lines = [_run('train.eval_ppl', ['--data-file', str(corpus),
+                                     '--seq-len', '32', '--batch-size', '2',
+                                     '--max-batches', '2', '--loss-chunk',
+                                     '16', '--tp', tp])
+             for tp in ('1', '2')]
+    assert all(p.returncode == 0 for p in lines), lines[1].stderr
+    one, two = (json.loads(p.stdout.splitlines()[-1]) for p in lines)
+    # f32 NLL: the two ranks' partial products sum in another order.
+    assert two['nll'] == pytest.approx(one['nll'], rel=1e-5)
+    assert (two['tokens'], two['seqs']) == (one['tokens'], one['seqs'])
 
 
 # ---- eval_ppl ------------------------------------------------------------------

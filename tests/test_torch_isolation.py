@@ -93,7 +93,27 @@ def test_scan_covers_the_training_modules():
             'skypilot_tpu_torch/infer/kv_tier.py',
             'skypilot_tpu_torch/serve/__init__.py',
             'skypilot_tpu_torch/serve/disagg.py',
+            'skypilot_tpu_torch/parallel/__init__.py',
+            'skypilot_tpu_torch/parallel/mesh.py',
+            'skypilot_tpu_torch/parallel/sharding.py',
+            'skypilot_tpu_torch/parallel/collectives.py',
+            'skypilot_tpu_torch/infer/tp.py',
+            'skypilot_tpu_torch/infer/multihost.py',
+            'skypilot_tpu_torch/infer/multihost_check.py',
+            'scripts/torch_tp_smoke.py',
+            'scripts/torch_gloo_probe.py',
             'scripts/torch_profile_train.py'} <= scanned
+
+
+def test_rank_workers_of_the_mesh_tests_import_no_jax():
+    """tests/_torch_ranks.py is what the mesh tests' spawned rank
+    processes import: torch and the port only."""
+    path = ROOT / 'tests' / '_torch_ranks.py'
+    bad = [f'{line}: {mod}' for line, mod in _imported_modules(path)
+           if _forbidden(mod)]
+    assert not bad, bad
+    assert any(mod.startswith('skypilot_tpu_torch')
+               for _, mod in _imported_modules(path))
 
 
 def test_forbidden_rule_tells_the_packages_apart():

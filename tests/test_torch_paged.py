@@ -481,6 +481,7 @@ def test_generator_matches_jax(models, label, kw):
 
 
 def test_generator_guards():
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
     cfg = dataclasses.replace(llama.LLAMA_DEBUG, n_layers=1)
     params = llama.init_params(cfg, torch.Generator().manual_seed(0), 'cpu')
     gen = engine.Generator(params, cfg, GeneratorConfig(
@@ -490,9 +491,12 @@ def test_generator_guards():
     with pytest.raises(ValueError, match='Empty prompt'):
         gen.generate([[]])
     assert gen.generate([[1] * 64], max_new_tokens=4) == [[]]
-    with pytest.raises(NotImplementedError, match='item 10'):
-        engine.Generator(params, cfg, GeneratorConfig(), mesh=object(),
-                         device='cpu')
+    # A mesh on a legacy plane (K7 per shard) is deferred to 11(g).
+    one_rank = mesh_lib.Mesh(np.zeros((1, 1), np.int64), ('tp', 'tpq'))
+    with pytest.raises(NotImplementedError, match=r'item 11\(g\)'):
+        engine.Generator(params, cfg, GeneratorConfig(
+            max_seq_len=64, decode_impl='inplace'), mesh=one_rank,
+            device='cpu')
     with pytest.raises(ValueError, match='decode_chunk must be >= 1'):
         engine.Generator(params, cfg, GeneratorConfig(
             max_seq_len=64, decode_chunk=0), device='cpu')

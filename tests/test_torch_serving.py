@@ -157,13 +157,28 @@ def test_generator_config_validation_matches_jax(kwargs, match):
 
 
 @pytest.mark.parametrize('kwargs,item', [
-    (dict(overlap_collectives=True), 10),
+    (dict(decode_impl='paged', max_seq_len=128, prompt_buckets=[64]),
+     '11(g)'),
+    (dict(decode_impl='inplace', max_seq_len=128), '11(g)'),
 ])
 def test_deferred_options_name_their_roadmap_item(kwargs, item):
+    """A mesh on a legacy plane (K7 per shard) is the one mesh option
+    still deferred; overlap_collectives, which deferred to item 10, is
+    carried since (tests/test_torch_tp.py)."""
+    import re
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
     j_engine.GeneratorConfig(**kwargs)       # valid for the JAX package
-    with pytest.raises(NotImplementedError,
-                       match=f'ROADMAP.md Queue A item {item}$'):
-        GeneratorConfig(**kwargs)
+    GeneratorConfig(overlap_collectives=True)
+    gen = GeneratorConfig(**kwargs)
+    mesh = mesh_lib.Mesh(np.zeros((1, 1), np.int64), ('tp', 'tpq'))
+    tp = llama.init_params(llama.LLAMA_DEBUG, torch.Generator(), 'cpu')
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore', DeprecationWarning)
+        for build in (engine.Generator, ContinuousBatcher):
+            with pytest.raises(NotImplementedError,
+                               match=re.escape(f'ROADMAP.md Queue A item '
+                                               f'{item}') + '$'):
+                build(tp, llama.LLAMA_DEBUG, gen, mesh=mesh, device='cpu')
 
 
 @pytest.mark.parametrize('kwargs', [

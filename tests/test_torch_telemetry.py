@@ -8,9 +8,9 @@ What must hold:
   byte for byte), the span gate, StepProfiler on a tick clock (phases,
   nesting, reattribute), trace_scope and propagation_envs;
   telemetry/spans.py imports without the ``filelock`` package;
-- the port's INFER_* and ACCT_* families have the reference's names,
-  types, labels and buckets (the INFER_MESH_* families excepted: ROADMAP
-  item 10), and histogram_quantile gives the reference's estimates;
+- the port's INFER_* and ACCT_* families (INFER_MESH_* included) have
+  the reference's names, types, labels and buckets, and
+  histogram_quantile gives the reference's estimates;
 - the JAX and port Generator and ContinuousBatcher move the same metric
   deltas on the same workload (generated tokens, host syncs, prefill and
   decode-chunk counts, queue waits, occupancy back to 0);
@@ -218,8 +218,7 @@ def test_spans_module_imports_without_filelock():
 
 def _families(mod, prefixes):
     return {n: getattr(mod, n) for n in dir(mod)
-            if n.startswith(prefixes) and not n.startswith('INFER_MESH_')
-            and hasattr(getattr(mod, n), '_name')}
+            if n.startswith(prefixes) and hasattr(getattr(mod, n), '_name')}
 
 
 def test_infer_and_acct_families_match_reference():
@@ -424,9 +423,19 @@ def test_spans_and_ledger_change_no_token_and_no_sync(models):
 
 
 def test_collective_share_names_its_roadmap_item(models):
-    _, tp = models
-    _, tc = _both()
+    """set_collective_share (ROADMAP item 10) is carried: it checks its
+    range as the reference's does, and without a mesh of more than one
+    rank it moves nothing (its effect on a sharded batcher:
+    tests/test_torch_tp.py)."""
+    jp, tp = models
+    jc, tc = _both()
     b = ContinuousBatcher(tp, CFG, tc, device='cpu')
-    with pytest.raises(NotImplementedError,
-                       match='ROADMAP.md Queue A item 10$'):
-        b.set_collective_share(0.3)
+    jb = j_serving.ContinuousBatcher(jp, J_CFG, jc)
+    for batcher in (b, jb):
+        with pytest.raises(ValueError, match=r'must be in \[0, 1\]'):
+            batcher.set_collective_share(1.5)
+        batcher.set_collective_share(0.3)
+    rid = b.submit([5, 9, 2], max_new_tokens=3)
+    b.run_until_idle()
+    assert 'collective' not in b._profiler.last_phases
+    assert len(b.result(rid)) == 3
