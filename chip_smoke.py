@@ -284,8 +284,26 @@ Phases (any failure exits non-zero):
    products differently; and one rank's projections a layer timed
    whole against the spans of 2 and 4 chunks, no collective.  (f) multihost_check on
    the card: a head and a worker through the control channel give the
-   one-process tokens.  Every phase prints its seconds, and the run its
-   whole.
+   one-process tokens.
+17. training meshes (the mesh Trainer, parallel/ring_attention.py,
+   models/moe.py over ep), its ranks 4 processes sharing cuda:0 over
+   gloo (no multi-card rate), every arm in one spawn, each against one
+   card on the same seed and batches (the references first, in this
+   process): (a) LLAMA_1B bf16 at fsdp 2 x tp 2, 4 x 1024, 1 warm-up and
+   3 timed steps: each step's loss and grad norm within MESH_LOSS_REL /
+   MESH_NORM_REL (17e's loss within MESH_MOE_LOSS_REL), each rank's peak within its state share, a gathered
+   layer and its gradient and one card's activations; (b) an f32 config
+   at hd 128 at dp 2 x fsdp 2 and fsdp 2 x tp 2, 3 steps: losses and
+   norms within 1e-5, parameters within test_torch_train's f32
+   tolerance; (c) LLAMA3_8B's widths at 2 layers, fsdp 4, one step;
+   (d) train_long_context's Trainer at sp 4, seq 8192, LLAMA_1B widths
+   at 8 layers (ring attention: the sp ranks launch K3 only; the
+   one-card reference K2/K5/K6); (e) train_moe's 'small' at ep 4 and ep
+   2 x dp 2; (f) a checkpoint saved at fsdp 2 x tp 2 restores bitwise on
+   one card (rank 0), which resumes and saves, and that restores
+   bitwise at fsdp 2 x tp 2, which resumes; (g) allreduce_bench over 4
+   ranks with --sharded-decode.  Every phase prints its seconds, and
+   the run its whole.
 
 Every kernel of a main-path run must launch > 0 times in that run (the
 counts are set to 0 just before it and read just after; a replayed graph
@@ -298,7 +316,8 @@ its lse, K3, K5 and K6 from 12b's LoRA-SFT, K1 and K3 from 14a, 14b and
 both 14c runs, K1, K2 and K3 from 15a, 15b and 15d (batch_infer's child
 reports its counts), K2 without its lse and K3 from 15c and 15e, K1,
 K2 and K3 from every serving path of phase 16, summed over its ranks,
-and K4 from 16b's speculative arm); K2, K5
+and K4 from 16b's speculative arm; K2 with its lse, K3, K5 and K6 on
+every rank of 17a, 17c and both 17e arms, K3 on every rank of 17d); K2, K5
 and K6 only on their
 tensor-core route on every path (bf16 at head_dim 128, and 12a's K2 at
 256); K4 on phase 6's paths,
@@ -495,7 +514,11 @@ def sdpa(q, k, v, **kw):
 NORM_SHAPES = {'rms_norm': (4096, 1e-5, 3),
                'rms_norm[Gemma-7B]': (3072, 1e-6, 14),
                'rms_norm[Qwen2.5-1.5B]': (1536, 1e-6, 15),
-               'rms_norm[LLAMA3_70B d8192]': (8192, 1e-5, 24)}
+               'rms_norm[LLAMA3_70B d8192]': (8192, 1e-5, 24),
+               # Phase 17's ranks: LLAMA_1B's 2048 (17a, 17d) and the
+               # MoE 'small' model's 1024 (17e), 2048-8192 rows a rank.
+               'rms_norm[LLAMA_1B d2048]': (2048, 1e-5, 25),
+               'rms_norm[MoE small d1024]': (1024, 1e-5, 26)}
 
 
 # K3's row counts: decode's 8 slots, verify's 8 x 13, the fused lane's
@@ -781,10 +804,22 @@ def check_flash_at(attention, ptxas, name):
 
 # Attention shapes of the train paths: (B, S, H, KV, head_dim), and the
 # suffix of their kernels line names: LLAMA_1B, the 8B trunk, and 12b's
-# LoRA-SFT of Qwen2.5-1.5B (12 query heads over 2 KV heads, G 6).
+# LoRA-SFT of Qwen2.5-1.5B (12 query heads over 2 KV heads, G 6); then
+# phase 17's per-rank shapes: LLAMA_1B at fsdp 2 x tp 2 (batch 4 over 2
+# data shards, 8 of 16 heads over 4 of 8 KV heads), the 8B trunk at
+# fsdp 4 (batch 4 x 2048 over 4 shards), train_moe's 'small' model at ep
+# 4 (the batch is not split over ep) and at ep 2 x dp 2.
 TRAIN_SHAPES = {'1b': (8, 1024, 16, 8, 128), '8b': (2, 4096, 32, 8, 128),
-                'qwen': (2, 2048, 12, 2, 128)}
-TRAIN_SUFFIX = {'1b': '', '8b': '[8B trunk]', 'qwen': '[Qwen2.5-1.5B G6]'}
+                'qwen': (2, 2048, 12, 2, 128),
+                '1b rank': (2, 1024, 8, 4, 128),
+                '8b rank': (1, 2048, 32, 8, 128),
+                'moe ep4 rank': (4, 2048, 8, 4, 128),
+                'moe ep2 dp2 rank': (2, 2048, 8, 4, 128)}
+TRAIN_SUFFIX = {'1b': '', '8b': '[8B trunk]', 'qwen': '[Qwen2.5-1.5B G6]',
+                '1b rank': '[LLAMA_1B fsdp2 x tp2 rank]',
+                '8b rank': '[8B trunk fsdp4 rank]',
+                'moe ep4 rank': '[MoE small ep4 rank]',
+                'moe ep2 dp2 rank': '[MoE small ep2 x dp2 rank]'}
 
 
 def _attn_operands(gen, batch, seq, heads, kv, hd, dtype):
@@ -5059,8 +5094,7 @@ def rank_collectives(seed, device='cuda'):
         for c in (1, 2, 3, 4):
             res[f'psum/{c}'] = coll.pipelined_psum(x, flat, 'tp',
                                                    chunks=c)[0]
-        res['allreduce'] = coll._rank_order_allreduce(x, mesh,
-                                                      ('dp', 'tp'))
+        res['allreduce'] = coll.all_reduce_sum(x, mesh, ('dp', 'tp'))
         if any(t.device.type != x.device.type for t in res.values()):
             raise AssertionError('a collective left the device')
         # numpy, not tensors: a tensor put on the queue is shared through
@@ -5539,6 +5573,538 @@ ROUTES = {'tc': 'launches_tc', 'split': 'launches_split',
           'lse': 'launches_lse'}
 
 
+# ---- phase 17: training meshes ---------------------------------------------
+
+# Phase 17's configurations: LLAMA_1B at phase 8a's settings (and at 8
+# of its 16 layers for 17d, cut for time), an f32 config at hd 128
+# (phase 16e's widths, its 32,768 vocabulary and 4 layers, remat on so
+# the recompute runs the fsdp gathers again), LLAMA3_8B's widths at 8b's
+# 2 layers, train_moe's 'small' model; 'tiny*' rehearse the phase on the
+# host (device='cpu').
+def _mesh_train_config(name):
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.train import train_moe
+    remat = dict(remat=True, remat_policy='dots')
+    one_b = dataclasses.replace(llama.LLAMA_1B, max_seq_len=8192,
+                                loss_chunk=256, **remat)
+    tiny = llama.LlamaConfig(vocab_size=512, d_model=128, n_layers=2,
+                             n_heads=8, n_kv_heads=4, d_ff=256,
+                             max_seq_len=2048, dtype=torch.bfloat16,
+                             loss_chunk=16, **remat)
+    return {
+        '1b': one_b,
+        '1b-8': dataclasses.replace(one_b, n_layers=8),
+        'f32': llama.LlamaConfig(
+            vocab_size=32768, d_model=1024, n_layers=4, n_heads=8,
+            n_kv_heads=4, d_ff=2816, max_seq_len=2048, dtype=torch.float32,
+            remat=True),
+        '8b-2': dataclasses.replace(llama.LLAMA3_8B, n_layers=2,
+                                    max_seq_len=4096, loss_chunk=512,
+                                    **remat),
+        'moe-small': train_moe.PRESETS['small'],
+        'tiny': tiny,
+        'tiny-f32': dataclasses.replace(tiny, dtype=torch.float32),
+        'tiny-moe': dataclasses.replace(
+            train_moe.PRESETS['debug'], n_heads=4, n_kv_heads=2,
+            dtype=torch.bfloat16, remat=True),
+    }[name]
+
+
+# bf16 tolerances of a mesh step against one card (17a, 17c-17e), set
+# from the card's readings (PERF.md section 4): both compute in bf16 and
+# round at other places (a rank rounds its partial products, and the
+# combines and the fsdp reduce-scatter add bf16 partials), so
+# activations differ by about one bf16 ulp an element; the loss, an f32
+# mean over thousands of tokens, averages those out.  A dense step's
+# loss: a few times the largest gap read on the card.  MoE's (17e) is
+# larger: a rounded router logit flips a token's top-k experts now and
+# then.  The gradient norm is itself rounded to bf16 (one ulp is 2^-8
+# to 2^-7 of it): within two to four ulps.
+MESH_LOSS_REL = 1e-4
+MESH_MOE_LOSS_REL = 6e-4
+MESH_NORM_REL = 2 ** -6
+# f32 (17b): sums in another order only.
+MESH_F32_REL = 1e-5
+
+# Phase 17's arms: name -> (rank task, kwargs, one-card reference or
+# None).  All run in ONE spawn of 4 ranks (a spawn costs ~10 s, and its
+# first step pays the ranks' warm-up), in this order.
+_TC_1B = dict(warmup_steps=2, total_steps=12)
+_TC_F32 = dict(learning_rate=1e-3, warmup_steps=1, total_steps=8)
+MESH_ARMS = {
+    '17a': ('mesh_train', dict(config='1b', mesh_kw={'fsdp': 2, 'tp': 2},
+                               batch=4, seq=1024, steps=4, tc_kw=_TC_1B)),
+    '17b-dp2-fsdp2': ('mesh_train', dict(
+        config='f32', mesh_kw={'dp': 2, 'fsdp': 2}, batch=4, seq=256,
+        steps=3, tc_kw=_TC_F32, gather=True)),
+    '17b-fsdp2-tp2': ('mesh_train', dict(
+        config='f32', mesh_kw={'fsdp': 2, 'tp': 2}, batch=4, seq=256,
+        steps=3, tc_kw=_TC_F32, gather=True)),
+    '17c': ('mesh_train', dict(config='8b-2', mesh_kw={'fsdp': 4}, batch=4,
+                               seq=2048, steps=1,
+                               tc_kw=dict(warmup_steps=2, total_steps=6))),
+    '17d': ('rank_long_context', dict(config='1b-8', seq=8192)),
+    '17e-ep4': ('rank_moe', dict(config='moe-small', mesh_kw={'ep': 4},
+                                 batch=4, seq=2048, steps=2)),
+    '17e-ep2dp2': ('rank_moe', dict(config='moe-small',
+                                    mesh_kw={'ep': 2, 'dp': 2}, batch=4,
+                                    seq=2048, steps=2)),
+    '17f': ('rank_ckpt', dict(config='f32', mesh_kw={'fsdp': 2, 'tp': 2},
+                              batch=4, seq=256, tc_kw=_TC_F32)),
+}
+# The host rehearsal's sizes (device='cpu').
+# The bf16 arms keep 2,048 tokens a batch: the loss gates rest on
+# their averaging.
+MESH_ARMS_TINY = {
+    '17a': dict(config='tiny', seq=512), '17b-dp2-fsdp2': dict(
+        config='tiny-f32', seq=64), '17b-fsdp2-tp2': dict(
+        config='tiny-f32', seq=64), '17c': dict(config='tiny', seq=512),
+    '17d': dict(config='tiny', seq=2048), '17e-ep4': dict(
+        config='tiny-moe', seq=512, batch=4), '17e-ep2dp2': dict(
+        config='tiny-moe', seq=512, batch=4), '17f': dict(
+        config='tiny-f32', seq=64)}
+
+
+def _mesh_model(cfg):
+    from skypilot_tpu_torch.models import llama, moe
+    from skypilot_tpu_torch.parallel import sharding
+    if hasattr(cfg, 'n_experts'):
+        return moe, sharding.MOE_RULES
+    return llama, sharding.LLAMA_RULES
+
+
+def _state_bytes(tr):
+    """A trainer's parameters, gradients and the two moments, in bytes
+    (the gradients as the parameters)."""
+    leaves = tr._leaves + tr.opt_state['mu'] + tr.opt_state['nu']
+    return (sum(p.numel() * p.element_size() for p in leaves)
+            + sum(p.numel() * p.element_size() for p in tr._leaves))
+
+
+def _gathered_layer_bytes(tr, cfg):
+    """The bytes of one layer's weights after this rank's fsdp gather:
+    every stacked leaf's layer, its fsdp dims whole, the rest its
+    block."""
+    total = 0
+    for x, sh in zip(tr._leaves, tr._shardings):
+        if x.ndim and x.shape[0] == cfg.n_layers:
+            n = tr.mesh.axis_size('fsdp') if 'fsdp' in str(sh.spec) else 1
+            total += x[0].numel() * x.element_size() * n
+    return total
+
+
+def _np_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _np_tree(v) for k, v in tree.items()}
+    x = tree.detach().cpu()
+    # A copy: on the host .cpu() is the parameter, updated in place.
+    return np.array((x.float() if x.dtype == torch.bfloat16 else x).numpy())
+
+
+def _whole(tr, mesh, rules):
+    """The trainer's parameters put together (numpy) on every rank."""
+    from skypilot_tpu_torch.parallel import sharding
+    if mesh is None:
+        return _np_tree(tr.params)
+    return sharding.gather_params(tr.params, mesh, rules)
+
+
+def mesh_train(config, mesh_kw=None, batch=4, seq=1024, steps=4, tc_kw=None,
+               device='cuda', gather=False, counters=True, seed=0,
+               restore=None, save=None):
+    """`steps` Trainer steps of `config` from seed 0 on synthetic batches
+    (seed `seed`): on this rank's blocks of a mesh (mesh_kw), or on one
+    device (mesh_kw None; its checkpoints a one-process grid).  Launch
+    counts are set to 0 just before the steps and read just after.
+    Returns each step's loss, grad norm and seconds, the peak device
+    bytes, the state's bytes, the counts, and (gather) the parameters
+    as restored and after the steps, put together (every rank gathers;
+    rank 0 alone returns them, the same on every rank)."""
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    from skypilot_tpu_torch.parallel import sharding
+    from skypilot_tpu_torch.train import trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _mesh_train_config(config)
+    model, rules = _mesh_model(cfg)
+    mesh = (mesh_lib.make_mesh(mesh_lib.MeshConfig(**mesh_kw))
+            if mesh_kw else None)
+    cuda = device == 'cuda'
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=device).manual_seed(0)
+    tc = trainer.TrainConfig(**(tc_kw or {}))
+    if mesh is None:
+        params = model.init_params(cfg, gen, device)
+        tr = trainer.Trainer(lambda p, b: model.loss_fn(p, b, cfg), params,
+                             tc, device=device)
+        for path in (restore, save):
+            if path:
+                tr.checkpoint_manager(path, process_index=0,
+                                      process_count=1)
+    else:
+        params = model.init_params(cfg, gen, device,
+                                   shard=sharding.init_shard(mesh, rules))
+        tr = trainer.Trainer(
+            lambda p, b: model.loss_fn(p, b, cfg, mesh=mesh), params, tc,
+            device=device, mesh=mesh, rules=rules, params_sharded=True)
+    del params
+    out = {'rank': 0 if mesh is None else mesh.rank, 'losses': [],
+           'norms': [], 'step_s': []}
+    if restore:
+        out['restored'] = tr.restore_latest(restore)
+        if gather:
+            whole = _whole(tr, mesh, rules)
+            if out['rank'] == 0:
+                out['restored_params'] = whole
+    kernels = _kernel_counters() if counters else []
+    batches = trainer.synthetic_batches(batch, seq, cfg.vocab_size, seed)
+    _zero(kernels)
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        m = tr.run_step(next(batches))
+        out['losses'].append(float(m['loss']))
+        out['norms'].append(float(m['grad_norm']))
+        out['step_s'].append(time.perf_counter() - t0)
+    out['counts'] = _counts(kernels)
+    if save:
+        tr.save_checkpoint(save)
+    out['peak'] = torch.cuda.max_memory_allocated() if cuda else 0
+    out['state_bytes'] = _state_bytes(tr)
+    out['layer_bytes'] = (_gathered_layer_bytes(tr, cfg) if mesh is not None
+                          else 0)
+    if gather:
+        whole = _whole(tr, mesh, rules)
+        if out['rank'] == 0:
+            out['params'] = whole
+    tr.close()
+    del tr
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def rank_long_context(config, seq, device='cuda'):
+    """17d on one rank: train_long_context.make_trainer (the entry
+    point's Trainer) at sp 4, one step of its synthetic batches."""
+    import argparse
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    from skypilot_tpu_torch.train import train_long_context, trainer
+    cfg = _mesh_train_config(config)
+    mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig(sp=4))
+    if device == 'cuda':
+        torch.cuda.reset_peak_memory_stats()
+    tr = train_long_context.make_trainer(
+        cfg, argparse.Namespace(steps=10), device, mesh)
+    kernels = _kernel_counters()
+    _zero(kernels)
+    t0 = time.perf_counter()
+    m = tr.run_step(next(trainer.synthetic_batches(1, seq, cfg.vocab_size)))
+    out = {'rank': mesh.rank, 'losses': [float(m['loss'])],
+           'norms': [float(m['grad_norm'])],
+           'step_s': [time.perf_counter() - t0], 'counts': _counts(kernels),
+           'peak': torch.cuda.max_memory_allocated() if device == 'cuda'
+           else 0, 'state_bytes': _state_bytes(tr),
+           'layer_bytes': _gathered_layer_bytes(tr, cfg)}
+    tr.close()
+    del tr
+    gc.collect()
+    if device == 'cuda':
+        torch.cuda.empty_cache()
+    return out
+
+
+def rank_moe(config, mesh_kw, batch, seq, steps, device='cuda'):
+    """17e on one rank (or one card, mesh_kw None): train_moe's Trainer,
+    `steps` steps of its synthetic batches."""
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    from skypilot_tpu_torch.train import train_moe, trainer
+    cfg = _mesh_train_config(config)
+    mesh = (mesh_lib.make_mesh(mesh_lib.MeshConfig(**mesh_kw))
+            if mesh_kw else None)
+    if device == 'cuda':
+        torch.cuda.reset_peak_memory_stats()
+    tr = train_moe.make_trainer(cfg, steps, device, mesh=mesh)
+    kernels = _kernel_counters()
+    batches = trainer.synthetic_batches(batch, seq, cfg.vocab_size)
+    _zero(kernels)
+    out = {'rank': 0 if mesh is None else mesh.rank, 'losses': [],
+           'norms': [], 'step_s': []}
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        m = tr.run_step(next(batches))
+        out['losses'].append(float(m['loss']))
+        out['norms'].append(float(m['grad_norm']))
+        out['step_s'].append(time.perf_counter() - t0)
+    out['counts'] = _counts(kernels)
+    out['peak'] = torch.cuda.max_memory_allocated() if device == 'cuda' \
+        else 0
+    tr.close()
+    del tr
+    gc.collect()
+    if device == 'cuda':
+        torch.cuda.empty_cache()
+    return out
+
+
+def rank_ckpt(config, mesh_kw, batch, seq, tc_kw, root, device='cuda'):
+    """17f on the ranks: the mesh trains 2 steps and saves; rank 0, as one
+    card, restores that (bitwise the mesh's state), resumes a step and
+    saves; the mesh restores that (bitwise rank 0's state) and resumes
+    a step."""
+    import torch.distributed as dist
+    a, b = os.path.join(root, 'a'), os.path.join(root, 'b')
+    saved = mesh_train(config, mesh_kw, batch, seq, 2, tc_kw, device,
+                       gather=True, counters=False, save=a)
+    one = None
+    if dist.get_rank() == 0:
+        one = mesh_train(config, None, batch, seq, 1, tc_kw, device,
+                         gather=True, counters=False, seed=1, restore=a,
+                         save=b)
+        if one['restored'] != 2:
+            raise AssertionError(f'17f: one card restored step '
+                                 f'{one["restored"]} of the mesh\'s 2')
+        _same_tree('17f mesh -> one card', one['restored_params'],
+                   saved['params'])
+    dist.barrier()
+    back = mesh_train(config, mesh_kw, batch, seq, 1, tc_kw, device,
+                      gather=True, counters=False, seed=2, restore=b)
+    if one is not None:
+        _same_tree('17f one card -> mesh', back['restored_params'],
+                   one['params'])
+    if back['restored'] != 3 or not np.isfinite(back['losses'][0]):
+        raise AssertionError(f'17f: the mesh resumed at step '
+                             f'{back["restored"]} with loss '
+                             f'{back["losses"]}')
+    return {'rank': back['rank'],
+            'restored_steps': [one and one['restored'], back['restored']],
+            'resumed_loss_one_card': one and one['losses'],
+            'resumed_loss_mesh': back['losses']}
+
+
+def _same_tree(label, got, want):
+    for (key, g), (_, w) in zip(_tree_items(got), _tree_items(want)):
+        if not np.array_equal(g, w):
+            raise AssertionError(f'{label}: {key} not bitwise equal')
+
+
+def rank_mesh_arms(arms, root, device='cuda'):
+    """Every arm of phase 17 on this rank, in order (one spawn); each
+    arm's result with its seconds."""
+    import torch.distributed as dist
+    out = {}
+    for name, (task, kw) in arms.items():
+        dist.barrier()
+        t0 = time.perf_counter()
+        if task == 'rank_ckpt':
+            kw = dict(kw, root=root)
+        out[name] = globals()[task](device=device, **kw)
+        out[name]['seconds'] = time.perf_counter() - t0
+    return out
+
+
+def _tree_items(tree, prefix=''):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _tree_items(tree[k], f'{prefix}/{k}')
+    else:
+        yield prefix, tree
+
+
+def _rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def _hold_steps(label, outs, one, loss_rel, norm_rel):
+    """Every rank's step losses and grad norms bitwise the same, and
+    within the tolerances of one card's.  Returns the worst relative
+    differences."""
+    for o in outs[1:]:
+        if (o['losses'], o['norms']) != (outs[0]['losses'],
+                                         outs[0]['norms']):
+            raise AssertionError(f'{label}: ranks report different losses '
+                                 f'or grad norms')
+    worst = {'loss': 0.0, 'grad_norm': 0.0}
+    for key, tol in (('losses', loss_rel), ('norms', norm_rel)):
+        for i, (g, w) in enumerate(zip(outs[0][key], one[key])):
+            rel = _rel(g, w)
+            worst['loss' if key == 'losses' else 'grad_norm'] = max(
+                worst['loss' if key == 'losses' else 'grad_norm'], rel)
+            if not np.isfinite(g) or rel > tol:
+                raise AssertionError(f'{label} step {i + 1}: {key} {g} vs '
+                                     f'one card {w} (rel > {tol})')
+    return worst
+
+
+def _hold_memory(label, outs, one, gate=True):
+    """Each rank's peak against its quarter (its share) of the state and
+    one gathered layer; with `gate`, fails past that share, the layer's
+    gradient and one card's activations (a rank sees fewer rows than one
+    card)."""
+    activations = max(0, one['peak'] - one['state_bytes'])
+    rows = []
+    for o in outs:
+        share = o['state_bytes'] + 2 * o['layer_bytes']
+        rows.append({'rank': o['rank'], 'peak_gb': o['peak'] / 1e9,
+                     'state_share_gb': o['state_bytes'] / 1e9,
+                     'gathered_layer_gb': o['layer_bytes'] / 1e9,
+                     'peak_over_share_plus_layer': o['peak'] / max(
+                         1, o['state_bytes'] + o['layer_bytes'])})
+        if gate and o['peak'] > share + activations:
+            raise AssertionError(f'{label} rank {o["rank"]}: peak '
+                                 f'{o["peak"]} bytes > its state share, a '
+                                 f'gathered layer and its gradient and one '
+                                 f"card's activations ({share} + "
+                                 f'{activations})')
+    return {'one_card_peak_gb': one['peak'] / 1e9,
+            'one_card_state_gb': one['state_bytes'] / 1e9, 'ranks': rows}
+
+
+def _hold_kernels(label, outs, names, device='cuda'):
+    """Each kernel of `names` launched on every rank (on the card: the
+    host runs the plain versions); returns the counts summed over the
+    ranks."""
+    for o in outs if device == 'cuda' else ():
+        for name in names:
+            if o['counts'][name] <= 0:
+                raise AssertionError(f'{name} never launched on rank '
+                                     f'{o["rank"]} of {label}')
+    return _sum_counts(outs)
+
+
+_TRAIN_KERNELS = ('flash_attention', 'flash_attention[lse]', 'rms_norm',
+                  'flash_attention_dq', 'flash_attention_dkv')
+
+
+def _one_card(name, task, kw, device):
+    """An arm's reference on one card (this process)."""
+    if task == 'mesh_train':
+        return mesh_train(**dict(kw, mesh_kw=None), device=device)
+    if task == 'rank_moe':
+        return rank_moe(**dict(kw, mesh_kw=None), device=device)
+    # 17d: one card at the same depth and length runs K2/K5/K6.
+    return mesh_train(kw['config'], None, 1, kw['seq'], 1,
+                      dict(warmup_steps=2, total_steps=10), device)
+
+
+def mesh_training_path(paths, root, device='cuda', tiny=False):
+    """Phase 17: every arm of MESH_ARMS in one spawn of 4 ranks sharing
+    the card over gloo, against its one-card reference run first in this
+    process; then allreduce_bench (17g).  Returns the stats by arm."""
+    arms = {name: (task, dict(kw, **(MESH_ARMS_TINY[name] if tiny else {})))
+            for name, (task, kw) in MESH_ARMS.items()}
+    refs, runs = {}, {}
+    for name, (task, kw) in arms.items():
+        if name == '17f':
+            continue
+        # Arms that differ only in their mesh share one reference.
+        key = repr((task, sorted((k, v) for k, v in kw.items()
+                                 if k != 'mesh_kw')))
+        if key not in runs:
+            t0 = time.perf_counter()
+            runs[key] = _one_card(name, task, kw, device)
+            runs[key]['seconds'] = time.perf_counter() - t0
+        refs[name] = runs[key]
+    t0 = time.perf_counter()
+    outs = run_ranks(4, 'rank_mesh_arms', timeout=900, arms=arms, root=root,
+                     device=device)
+    spawn_s = time.perf_counter() - t0
+    by_arm = {name: [o[name] for o in outs] for name in arms}
+    card = CARD.get('line')
+    note = '4 gloo ranks on one card: not a multi-card rate'
+    stats = {'card': card, 'spawn_s': spawn_s, 'note': note}
+    for name, ranks in by_arm.items():
+        if name == '17f':
+            continue
+        one = refs[name]
+        f32 = name.startswith('17b')
+        loss_rel = (MESH_F32_REL if f32 else MESH_MOE_LOSS_REL
+                    if name.startswith('17e') else MESH_LOSS_REL)
+        worst = _hold_steps(name, ranks, one, loss_rel,
+                            MESH_F32_REL if f32 else MESH_NORM_REL)
+        names = ('rms_norm',) if name == '17d' else (
+            tuple(n for n in _TRAIN_KERNELS if n != 'flash_attention[lse]')
+            if f32 else _TRAIN_KERNELS)
+        counts = _hold_kernels(name, ranks, names, device)
+        if not f32:
+            paths[name] = counts
+        arm = {'mesh_s': ranks[0]['seconds'], 'one_card_s': one['seconds'],
+               'losses': ranks[0]['losses'], 'one_card_losses':
+               one['losses'], 'norms': ranks[0]['norms'],
+               'one_card_norms': one['norms'], 'worst_rel': worst,
+               'step_s': ranks[0]['step_s'], 'one_card_step_s':
+               one['step_s']}
+        if f32:
+            arm['param_max_abs_diff'] = _hold_params(name, ranks[0], one,
+                                                     arms[name][1])
+        elif name.startswith('17e'):
+            arm['peak_gb'] = [o['peak'] / 1e9 for o in ranks]
+        else:
+            arm['memory'] = _hold_memory(name, ranks, one,
+                                         gate=name == '17a')
+        stats[name] = arm
+        log(f'  {name}: ' + json.dumps(dict(arm, card=card)))
+    if device == 'cuda':
+        _need('17d one card', refs['17d']['counts'], list(_TRAIN_KERNELS))
+    stats['17f'] = dict(by_arm['17f'][0], mesh_s=by_arm['17f'][0]['seconds'],
+                        bitwise=True)
+    log('  17f: ' + json.dumps(dict(stats['17f'], card=card)))
+    t0 = time.perf_counter()
+    stats['17g'] = mesh_allreduce_path(('--device', 'cpu') if device == 'cpu'
+                                       else ())
+    stats['17g_s'] = time.perf_counter() - t0
+    log('  17 seconds: ' + json.dumps(
+        {'references': {n: r['seconds'] for n, r in refs.items()},
+         'spawn': spawn_s, 'arms': {n: r[0]['seconds']
+                                    for n, r in by_arm.items()},
+         '17g': stats['17g_s']}))
+    return stats
+
+
+def _hold_params(label, got, one, kw):
+    """17b: the parameters after the steps within the f32 tolerance of
+    test_torch_train: 2 x the summed learning rates elementwise, 99% of
+    elements within 1e-6 (Adam divides by sqrt(nu), so a near-zero
+    gradient's rounding moves its element by up to the learning rate).
+    Returns the largest difference."""
+    from skypilot_tpu_torch.train import trainer
+    schedule = trainer.make_optimizer(
+        trainer.TrainConfig(**kw['tc_kw'])).schedule
+    lrs = sum(schedule(i) for i in range(kw['steps']))
+    worst = 0.0
+    for (key, g), (_, w) in zip(_tree_items(got['params']),
+                                _tree_items(one['params'])):
+        err = np.abs(g - w)
+        within = float((err <= 1e-6).mean())
+        worst = max(worst, float(err.max()))
+        if err.max() > 2 * lrs or within < 0.99:
+            raise AssertionError(f'{label} {key}: max |diff| {err.max()} '
+                                 f'(> {2 * lrs}) or {within:.4f} within '
+                                 f'1e-6')
+    return worst
+
+
+def mesh_allreduce_path(device_args=()):
+    """17g: allreduce_bench over 4 ranks with --sharded-decode, as a
+    child process: its JSON line (a schedule check, not a rate)."""
+    proc = subprocess.run(
+        [sys.executable, '-m', 'skypilot_tpu_torch.train.allreduce_bench',
+         '--ranks', '4', '--payload-mb', '64', '--iters', '5',
+         '--sharded-decode', *device_args], capture_output=True, text=True,
+        timeout=600)
+    if proc.returncode:
+        raise AssertionError(f'17g allreduce_bench exited '
+                             f'{proc.returncode}:\n{proc.stderr[-4000:]}')
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    for key in ('payload_mb', 'ranks', 'time_s', 'algbw_gbps', 'busbw_gbps'):
+        if key not in result['allreduce']:
+            raise AssertionError(f'17g: no {key!r} in {result}')
+    if result['sharded_decode']['overlap']['parity'] != 'bit-exact':
+        raise AssertionError(f'17g: {result}')
+    log('  17g: ' + json.dumps(dict(result, card=CARD.get('line'))))
+    return result
+
+
 def _zero(counters):
     for c in counters:
         c.launches = 0
@@ -5593,10 +6159,10 @@ def main() -> int:
         log(f'  phase {clock["name"]}: '
             f'{time.perf_counter() - clock["start"]:.1f} s')
 
-    phase(f'[1/16] device: {CARD["line"]} | torch {torch.__version__} '
+    phase(f'[1/17] device: {CARD["line"]} | torch {torch.__version__} '
         f'cuda {torch.version.cuda}')
 
-    phase('[2/16] build')
+    phase('[2/17] build')
     _kernels.LIBRARY.get()
     log(f'  built {_kernels.LIBRARY.path.name} in '
         f'{_kernels.LIBRARY.build_seconds:.1f} s')
@@ -5615,7 +6181,7 @@ def main() -> int:
                 and info['spill_bytes']:
             raise AssertionError(f'decode kernel {name} spills: {info}')
 
-    phase('[3/16] kernels vs plain versions')
+    phase('[3/17] kernels vs plain versions')
     t0 = time.perf_counter()
     decode = check_decode(decode_attention, ptxas)
     decode['g2'], decode['combine g2'] = check_decode_at(
@@ -5654,13 +6220,13 @@ def main() -> int:
         f'{time_ms(read.sum):.4f} ms (bound 0.0063)')
     del tiny, read
 
-    phase('[4/16] slice parity, LLAMA_DEBUG and MoE f32, card vs host')
+    phase('[4/17] slice parity, LLAMA_DEBUG and MoE f32, card vs host')
     slice_parity()
     train_parity()
     post_train_parity()
     moe_parity()
 
-    phase('[5/16] main path, LLAMA3_8B bf16 behind the HTTP replica')
+    phase('[5/17] main path, LLAMA3_8B bf16 behind the HTTP replica')
     cfg = llama.LLAMA3_8B
     t0 = time.perf_counter()
     params = llama.init_params(
@@ -5686,7 +6252,7 @@ def main() -> int:
             raise AssertionError(f'{k1.__name__} missed the split route on '
                                  f'the {key} path')
 
-    phase('[6/16] main path with spec_k 12 and fuse_budget 264: (a) bf16, '
+    phase('[6/17] main path with spec_k 12 and fuse_budget 264: (a) bf16, '
         '(b) int8 KV and weights')
     spec = dict(base, spec_k=12, fuse_budget=264)
     paths['6a'], _, _, _ = serve_path('6a bf16 spec+fused', params,
@@ -5700,7 +6266,7 @@ def main() -> int:
               + [f'{c.__name__}[{r}]' for c in (k4v, k4f)
                  for r in ('tc', 'split')])
 
-    phase("[7/16] legacy plane decode_impl='paged' (K7): (a) bf16 and (b) int8 "
+    phase("[7/17] legacy plane decode_impl='paged' (K7): (a) bf16 and (b) int8 "
         'KV behind the HTTP replica, (c) Generator.generate')
     legacy = dict(base, decode_impl='paged', decode_chunk=16)
     with warnings.catch_warnings():
@@ -5723,7 +6289,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    phase('[8/16] train path: (a) LLAMA_1B at the bench settings, (b) '
+    phase('[8/17] train path: (a) LLAMA_1B at the bench settings, (b) '
         'LLAMA3_8B widths at depth 2')
     remat = dict(remat=True, remat_policy='dots')
     cfg_1b = dataclasses.replace(llama.LLAMA_1B, max_seq_len=2048,
@@ -5738,7 +6304,7 @@ def main() -> int:
         2, 4096, 6, trainer.TrainConfig(warmup_steps=2, total_steps=6),
         counters)
 
-    phase('[9/16] checkpoints: (a) LLAMA_1B async saves, restore, continue '
+    phase('[9/17] checkpoints: (a) LLAMA_1B async saves, restore, continue '
           '(phase 8a settings), (b) a managed job SIGTERMed and resumed '
           'through train_llama --resume auto')
     scratch = tempfile.mkdtemp(prefix='chip_smoke_ckpt_')
@@ -5761,7 +6327,7 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
-    phase('[10/16] post-training: (a) LoRA-SFT and (b) LoRA-DPO of LLAMA3_8B '
+    phase('[10/17] post-training: (a) LoRA-SFT and (b) LoRA-DPO of LLAMA3_8B '
           'at 32 layers, (c) GRPO on LLAMA_1B, (d) the entry points')
     gc.collect()
     torch.cuda.empty_cache()
@@ -5797,13 +6363,13 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
-    phase('[11/16] Mixtral-8x7B widths, random bf16 weights: (a) 16 of 32 '
+    phase('[11/17] Mixtral-8x7B widths, random bf16 weights: (a) 16 of 32 '
           'layers served, (c) LoRA-SFT of that base, (b) trained at depth 2')
     gc.collect()
     torch.cuda.empty_cache()
     mixtral_path(counters, paths)
 
-    phase('[12/16] HF checkpoints written in HF\'s layout and loaded by '
+    phase('[12/17] HF checkpoints written in HF\'s layout and loaded by '
           'convert.load_hf_model: (a) Gemma-7B and (b) Qwen2.5-1.5B at '
           'their published widths served, 12b LoRA-SFT in process and '
           'through train_sft --hf-model, (c) debug-size parity card vs host')
@@ -5823,14 +6389,14 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
-    phase('[13/16] ResNet: (a) ResNet18Thin one SGD step card vs host, (b) '
+    phase('[13/17] ResNet: (a) ResNet18Thin one SGD step card vs host, (b) '
           'train_resnet\'s path, ResNet50 at batch 256 of 224x224')
     gc.collect()
     torch.cuda.empty_cache()
     resnet_parity()
     resnet_train_path()
 
-    phase('[14/16] prefix cache, host tier and handoff at LLAMA3_8B bf16, '
+    phase('[14/17] prefix cache, host tier and handoff at LLAMA3_8B bf16, '
           '32 layers: (a) prefix reuse, (b) the host tier, (c) the '
           'prefill -> decode handoff in bf16 and int8 KV, (d) debug-size '
           'parity card vs host')
@@ -5859,7 +6425,7 @@ def main() -> int:
     prefix_parity()
     log(f'  14d: {time.perf_counter() - t0:.1f} s')
 
-    phase('[15/16] telemetry and the entry points around the batcher at '
+    phase('[15/17] telemetry and the entry points around the batcher at '
           'LLAMA3_8B bf16, 32 layers: (a) spans and the cost ledger on and '
           'off, (b) the OpenAI routes, (c) /v1/embeddings (encode), (d) '
           'batch_infer --resume, (e) eval_ppl')
@@ -5896,7 +6462,7 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
-    phase('[16/16] tensor-parallel serving, rank processes sharing cuda:0 '
+    phase('[16/17] tensor-parallel serving, rank processes sharing cuda:0 '
           'over gloo: (a) collectives, (b) LLAMA3_8B tp 2 (bf16, int8 KV, '
           'spec_k + fuse_budget) and an f32 config vs tp 1, (c) '
           'LLAMA3_70B widths at 8 layers, tp 4, (d) Qwen2.5-1.5B tp 4 '
@@ -5917,11 +6483,30 @@ def main() -> int:
             log(f'  {sub}: {time.perf_counter() - t0:.1f} s')
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
+    phase('[17/17] training meshes, rank processes sharing cuda:0 over '
+          'gloo: (a) LLAMA_1B bf16 fsdp 2 x tp 2 vs one card, (b) f32 at '
+          'dp 2 x fsdp 2 and fsdp 2 x tp 2, (c) LLAMA3_8B widths at 2 '
+          'layers, fsdp 4, (d) train_long_context sp 4 (ring attention) at '
+          'seq 8192, (e) train_moe small at ep 4 and ep 2 x dp 2, (f) '
+          'checkpoints across mesh shapes, (g) allreduce_bench')
+    gc.collect()
+    torch.cuda.empty_cache()
+    scratch = tempfile.mkdtemp(prefix='chip_smoke_mesh_')
+    try:
+        mesh_training_path(paths, scratch)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
     last_phase_done()
     log(f'  whole run: {time.perf_counter() - run_start:.1f} s')
     for key in ('8a', '8b', '9a', '10a', '10b', '10c', '11b', '11c'):
         _need(key, paths[key], [c.__name__ for c in (k2, k3, k5, k6)]
               + [f'{k2.__name__}[lse]'])
+    mesh17 = ('17a', '17c', '17e-ep4', '17e-ep2dp2')  # 17d: K3 only
+    for key in mesh17:
+        _need(key, paths[key], [c.__name__ for c in (k2, k3, k5, k6)]
+              + [f'{k2.__name__}[lse]'])
+    # 17d's sp ranks attend over the ring (plain f32 products): K3 only.
+    _need('17d', paths['17d'], [k3.__name__])
     _need('10c', paths['10c'], [k1.__name__])
     for key in ('11a', '12a', '12b'):
         _need(key, paths[key], [c.__name__ for c in (k1, k2, k3)])
@@ -5976,7 +6561,10 @@ def main() -> int:
     # (12b-sft's K2 launches all write the lse: its entry is the train
     # one at TRAIN_SHAPES['qwen']).
     hf = ('12a', '12b', '12b-sft')
-    rest = tuple(k for k in paths if k not in hf and k not in tp16)
+    # Phase 17's K2 launches are its lse entries' (train rows below), its
+    # K3 launches the per-rank widths' entries.
+    rest = tuple(k for k in paths if k not in hf and k not in tp16
+                 and not k.startswith('17'))
     tp8b = ('16b', '16b-int8', '16b-spec', '16e')
     kernels = [
         entry(decode['bf16'], k1, ('5', '6a', '11a') + decode15),
@@ -6002,7 +6590,10 @@ def main() -> int:
               ('16c',)),
         entry(flash['flash_attention[Qwen2.5-1.5B tp4 rank prefill]'], k2,
               ('16d',)),
-        entry(norm['rms_norm'], k3, rest + tp8b),
+        entry(norm['rms_norm'], k3, rest + tp8b + ('17c',)),
+        entry(norm['rms_norm[LLAMA_1B d2048]'], k3, ('17a', '17d')),
+        entry(norm['rms_norm[MoE small d1024]'], k3,
+              ('17e-ep4', '17e-ep2dp2')),
         entry(norm['rms_norm[Gemma-7B]'], k3, ('12a',)),
         entry(norm['rms_norm[Qwen2.5-1.5B]'], k3, ('12b', '12b-sft', '16d')),
         entry(norm['rms_norm[LLAMA3_70B d8192]'], k3, ('16c',)),
@@ -6048,7 +6639,11 @@ def main() -> int:
                 for key, keys in (('1b', ('8a', '9a', '10c')),
                                   ('8b', ('8b', '10a', '10b', '11b',
                                           '11c')),
-                                  ('qwen', ('12b-sft',)))]
+                                  ('qwen', ('12b-sft',)),
+                                  ('1b rank', ('17a',)),
+                                  ('8b rank', ('17c',)),
+                                  ('moe ep4 rank', ('17e-ep4',)),
+                                  ('moe ep2 dp2 rank', ('17e-ep2dp2',)))]
     log(json.dumps({'kernels': kernels}))
     log(CARD['line'])
     log(json.dumps({'ok': True, 'device': {

@@ -20,7 +20,7 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 from skypilot_tpu_torch.ckpt.format import (CorruptCheckpointError,
-                                            even_row_shard, latest_step,
+                                            Shard, latest_step,
                                             load_manifest,
                                             restore_pytree_resharded,
                                             scan_steps)
@@ -29,7 +29,7 @@ from skypilot_tpu_torch.ckpt.writer import AsyncCheckpointWriter
 from skypilot_tpu_torch.utils import env_contract
 
 __all__ = ['AsyncCheckpointWriter', 'CheckpointManager',
-           'CorruptCheckpointError', 'even_row_shard', 'latest_step',
+           'CorruptCheckpointError', 'Shard', 'latest_step',
            'restore_pytree_resharded', 'resume_envs', 'scan_steps']
 
 

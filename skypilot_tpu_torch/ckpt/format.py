@@ -34,8 +34,8 @@ in the manifest let restore detect bit rot / torn writes on any host.
 Manifest v2 (elastic resume): every entry records the leaf's **global**
 shape and the index-slice of the global array its shard file covers
 (``slice``: per-dimension ``[start, stop)`` pairs), plus the writer
-process.  A leaf may be split across several shard files (``shard_spec``
-partitions axis 0 across processes), and restore assembles any window of
+process.  A leaf may be split across several shard files (one a
+:class:`Shard` window), and restore assembles any window of
 the global array by reading ONLY the shard files that overlap it, so a
 checkpoint written by N processes restores under any M-process grid.  v1
 manifests carry no ``slice``/``global_shape``; each entry is read as one
@@ -50,6 +50,15 @@ namedtuple field.  bfloat16 leaves are stored as numpy stores an
 ``ml_dtypes.bfloat16`` array (a ``'<V2'`` header over the raw bits, the
 manifest saying ``'bfloat16'``), so the same state gives byte-identical
 shard files in both packages.
+
+A process that holds a window of a leaf (a training mesh's block, or
+any layout of the global array) gives it as a :class:`Shard` leaf:
+the window, its place in the global array and the global shape,
+written by the one process that owns that window (a replicated block
+has one owner), and restored into by every process that holds it.  Its
+shard files are v2 slice entries, so any grid, and either package,
+restores them.  Plain leaves are written whole, round-robin over the
+processes.
 
 Legacy checkpoints: a ``step_<N>`` dir with neither manifest nor marker
 is an old Orbax checkpoint.  Discovery reports it as committed with
@@ -67,7 +76,6 @@ import logging
 import os
 import re
 import shutil
-import zlib
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -185,6 +193,26 @@ def tree_unflatten(treedef, leaves) -> Any:
 
 # ---- leaves and shard files ---------------------------------------------
 
+class Shard:
+    """A leaf given as this process's window of a global array: `local`
+    (tensor or numpy) is the window `window` (per-dimension [start,
+    stop)) of an array of shape `global_shape`.  On save only an `owner`
+    writes it (`local` may be None elsewhere); on restore `window` is
+    what comes back.  A leaf to the tree functions (it is neither a dict
+    nor a sequence)."""
+
+    __slots__ = ('local', 'global_shape', 'window', 'owner')
+
+    def __init__(self, local, global_shape, window, owner: bool = True):
+        self.local = local
+        self.global_shape = tuple(int(d) for d in global_shape)
+        self.window = [(int(a), int(b)) for a, b in window]
+        self.owner = bool(owner)
+
+    def with_local(self, local) -> 'Shard':
+        return Shard(local, self.global_shape, self.window, self.owner)
+
+
 # bfloat16 has no numpy dtype here (no ml_dtypes): it is held as its raw
 # int16 bits and written under ml_dtypes' '.npy' description.
 _BF16 = 'bfloat16'
@@ -290,16 +318,9 @@ def _map_threads(fn: Callable[[Any], Any], items: List[Any]) -> List[Any]:
 #
 # A slice spec is a per-dimension list of [start, stop) pairs into the
 # leaf's GLOBAL array.  v1 entries carry no spec: they cover the whole
-# leaf.  A ``shard_spec`` callable decides, per (key, global_shape,
-# process), which window (if any) a process writes or wants back:
-#     shard_spec(key, global_shape, process_index, process_count)
-#         -> Optional[List[Tuple[int, int]]]
-# ``None`` means "no local window": on the write side the process skips
-# the leaf, on the read side the full (replicated) leaf is returned.
+# leaf.
 
 SliceSpec = List[Tuple[int, int]]
-ShardSpecFn = Callable[[str, Tuple[int, ...], int, int],
-                       Optional[SliceSpec]]
 
 
 def full_slice(shape) -> SliceSpec:
@@ -328,36 +349,14 @@ def _elements(spec: SliceSpec) -> int:
     return n
 
 
-def even_row_shard(key: str, global_shape, process_index: int,
-                   process_count: int) -> Optional[SliceSpec]:
-    """The canonical sharded layout: partition axis 0 evenly across the
-    process grid.  Leaves whose leading axis does not divide evenly are
-    written whole by one deterministic owner (replicated for readers).
-    Usable as ``shard_spec`` on both the write and read side."""
-    if process_count <= 1:
-        return full_slice(global_shape)
-    shape = tuple(int(d) for d in global_shape)
-    if shape and shape[0] >= process_count and shape[0] % process_count == 0:
-        rows = shape[0] // process_count
-        spec = full_slice(shape)
-        spec[0] = (process_index * rows, (process_index + 1) * rows)
-        return spec
-    # Un-partitionable leaf: deterministic owner by key hash (stable
-    # across processes, unlike builtins.hash).
-    owner = zlib.crc32(key.encode()) % process_count
-    return full_slice(shape) if owner == process_index else None
-
-
 def write_process_shards(root: str, step: int, pytree,
                          process_index: int = 0,
-                         process_count: int = 1,
-                         shard_spec: Optional[ShardSpecFn] = None
-                         ) -> Dict[str, Any]:
+                         process_count: int = 1) -> Dict[str, Any]:
     """Write this process's leaves + per-process manifest into the temp
-    dir.  Without ``shard_spec``, whole leaves are assigned round-robin
-    by flatten index (replicated layout) so a multihost save spreads
-    disk bandwidth across hosts; with one, each process writes only its
-    window of each leaf (sharded layout).
+    dir.  Whole leaves are assigned round-robin by flatten index
+    (replicated layout) so a multihost save spreads disk bandwidth
+    across hosts; a :class:`Shard` leaf is written by its owner as its
+    window (sharded layout).
     Returns the per-process manifest dict (entries + bytes written)."""
     # No rmtree here: peer processes may already be writing into the
     # shared staging dir.  Stale leftovers are removed by process 0 in
@@ -367,25 +366,23 @@ def write_process_shards(root: str, step: int, pytree,
     named_leaves, _ = flatten_with_keys(pytree)
     jobs = []
     for i, (key, leaf) in enumerate(named_leaves):
-        if shard_spec is None and i % process_count != process_index:
-            continue
-        arr, dtype_name = _host_array(leaf)
-        if shard_spec is None:
-            window = full_slice(arr.shape)
-            filename = f'arr_{i:05d}.npy'
-        else:
-            window = shard_spec(key, arr.shape, process_index,
-                                process_count)
-            if window is None:
+        if isinstance(leaf, Shard):
+            if not leaf.owner:
                 continue
+            arr, dtype_name = _host_array(leaf.local)
             # Per-process filename: several processes may each hold a
             # window of the same leaf index.
-            filename = f'arr_{i:05d}-p{process_index:05d}.npy'
-        jobs.append((i, key, filename, arr, dtype_name, window))
+            jobs.append((i, key, f'arr_{i:05d}-p{process_index:05d}.npy',
+                         arr, dtype_name, leaf.window, leaf.global_shape))
+            continue
+        if i % process_count != process_index:
+            continue
+        arr, dtype_name = _host_array(leaf)
+        jobs.append((i, key, f'arr_{i:05d}.npy', arr, dtype_name,
+                     full_slice(arr.shape), arr.shape))
 
     def write(job) -> Dict[str, Any]:
-        i, key, filename, arr, dtype_name, window = job
-        local = np.asarray(arr[tuple(slice(s, e) for s, e in window)])
+        i, key, filename, local, dtype_name, window, global_shape = job
         header, data = _npy_parts(local, dtype_name)
         path = os.path.join(staging, filename)
         sha256 = _atomic_write_bytes(path, header, data)
@@ -397,7 +394,7 @@ def write_process_shards(root: str, step: int, pytree,
             'sha256': sha256,
             'dtype': dtype_name,
             'shape': list(local.shape),
-            'global_shape': list(arr.shape),
+            'global_shape': list(global_shape),
             'slice': [[s, e] for s, e in window],
             'process': process_index,
             'bytes': len(header) + data.nbytes,
@@ -517,8 +514,7 @@ def commit(root: str, step: int, process_count: int = 1,
 def save_pytree(root: str, step: int, pytree,
                 process_index: int = 0, process_count: int = 1,
                 metadata: Optional[Dict[str, Any]] = None,
-                barrier: Optional[Callable[[str], None]] = None,
-                shard_spec: Optional[ShardSpecFn] = None
+                barrier: Optional[Callable[[str], None]] = None
                 ) -> Optional[str]:
     """Full save flow for one process.  Non-zero processes return after
     writing their shards (None); process 0 commits and returns the
@@ -542,8 +538,7 @@ def save_pytree(root: str, step: int, pytree,
         clean_stale_tmp(root)
     if barrier is not None:
         barrier(f'skytpu_ckpt_clean_step{step}')
-    write_process_shards(root, step, pytree, process_index, process_count,
-                         shard_spec=shard_spec)
+    write_process_shards(root, step, pytree, process_index, process_count)
     if barrier is not None:
         barrier(f'skytpu_ckpt_write_step{step}')
     if process_index != 0:
@@ -731,19 +726,15 @@ def restore_pytree(root: str, step: int, template) -> Any:
 
 
 def restore_pytree_resharded(root: str, step: int, template,
-                             shard_spec: Optional[ShardSpecFn] = None,
-                             process_index: int = 0,
-                             process_count: int = 1,
                              stats: Optional[Dict[str, int]] = None
                              ) -> Any:
     """Restore under a (possibly different) process grid.
 
-    For each template leaf, ``shard_spec(key, global_shape,
-    process_index, process_count)`` names the window of the global
-    array THIS process wants (``None`` → the full replicated leaf), and
-    only the overlapping shard files are read and hash-verified.
-    Without a ``shard_spec`` every leaf comes back global — the
-    topology-oblivious path used by single-host restore.  The read is
+    A :class:`Shard` template leaf names the window of the global array
+    THIS process wants, and only the shard files that overlap it are
+    read and hash-verified; any other leaf comes back global (the full
+    replicated leaf).  Whatever grid wrote the step, a window comes
+    back the same.  The read is
     side-effect free: a crash at any reshard stage leaves the committed
     step dirs untouched."""
     directory = step_dir(root, step)
@@ -756,11 +747,9 @@ def restore_pytree_resharded(root: str, step: int, template,
     _stage('reshard_planned', directory)
 
     def assemble(job):
-        key, group = job
-        want = None
-        if shard_spec is not None:
-            want = shard_spec(key, entry_global_shape(group[0]),
-                              process_index, process_count)
+        group, template_leaf = job
+        want = (template_leaf.window if isinstance(template_leaf, Shard)
+                else None)
         leaf_stats: Dict[str, int] = {}
         leaf = assemble_leaf_window(directory, step, group, want,
                                     leaf_stats)
@@ -768,8 +757,8 @@ def restore_pytree_resharded(root: str, step: int, template,
         return leaf, leaf_stats
 
     results = _map_threads(
-        assemble, [(key, group) for (key, _), group in zip(named_leaves,
-                                                           groups)])
+        assemble, [(group, leaf) for (_, leaf), group in
+                   zip(named_leaves, groups)])
     leaves = [leaf for leaf, _ in results]
     if stats is not None:
         for _, leaf_stats in results:

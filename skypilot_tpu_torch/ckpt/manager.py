@@ -89,6 +89,8 @@ def _snapshot(pytree):
     named, treedef = format_lib.flatten_with_keys(pytree)
 
     def copy(leaf):
+        if isinstance(leaf, format_lib.Shard):
+            return leaf.with_local(copy(leaf.local))
         if isinstance(leaf, torch.Tensor):
             return leaf.detach().to('cpu', copy=True)
         return np.array(leaf, copy=True)
@@ -109,8 +111,7 @@ class CheckpointManager:
                  process_index: Optional[int] = None,
                  process_count: Optional[int] = None,
                  barrier: Optional[Callable[[str], None]] = None,
-                 max_consecutive_failures: int = 3,
-                 shard_spec: Optional[format_lib.ShardSpecFn] = None):
+                 max_consecutive_failures: int = 3):
         if keep_last is not None and keep_last < 1:
             raise ValueError(f'keep_last must be >= 1, got {keep_last}')
         self.directory = directory
@@ -127,10 +128,6 @@ class CheckpointManager:
             # cleanup / commit races the peer shard writes.
             barrier = _multihost_barrier
         self._barrier = barrier
-        # Layout of saves AND the default restore window per process:
-        # None = replicated whole-leaf round-robin (the classic layout);
-        # e.g. format.even_row_shard = axis-0 partitioning per process.
-        self.shard_spec = shard_spec
         self.max_consecutive_failures = max_consecutive_failures
         self._writer = AsyncCheckpointWriter(
             max_pending=max_pending,
@@ -253,8 +250,7 @@ class CheckpointManager:
                     process_count=self.process_count,
                     metadata=dict(metadata or {}, kind=kind,
                                   time=time.time()),
-                    barrier=self._barrier,
-                    shard_spec=self.shard_spec)
+                    barrier=self._barrier)
                 if committed is not None:
                     manifest = format_lib.load_manifest(self.directory,
                                                         step)
@@ -320,25 +316,23 @@ class CheckpointManager:
     def restore(self, step: int, template) -> Any:
         """Restore one step as CPU tensors shaped like template.
         Checkpoints are hash-verified.  When the checkpoint was written
-        by a different process grid than this manager's (or in a sharded
-        layout), the restore goes through the resharding path — a
+        by a different process grid than this manager's, the restore
+        goes through the resharding path — a
         topology change can never make a committed checkpoint
         unrestorable."""
         self._checked_step_info(step)
         writer_count = self.writer_topology(step)
-        if writer_count != self.process_count or self.shard_spec is not None:
+        if writer_count != self.process_count:
             return self.restore_resharded(step, template)
         restored = format_lib.restore_pytree(self.directory, step, template)
         metrics.CKPT_RESTORES.inc()
         return restored
 
-    def restore_resharded(self, step: int, template,
-                          shard_spec: Optional[
-                              format_lib.ShardSpecFn] = None) -> Any:
+    def restore_resharded(self, step: int, template) -> Any:
         """Restore ``step`` under THIS manager's process grid, whatever
         grid wrote it.  Each leaf is loaded by global index-map: only
-        shard files overlapping this process's window (``shard_spec``,
-        default the manager's own; None → the full replicated leaf) are
+        shard files overlapping this process's window (a ``Shard``
+        template leaf's; any other leaf → the full replicated leaf) are
         read and hash-verified, then re-sliced to the current topology.
         Works for any N→M process-count change — grow, shrink, or
         down-to-single-host — in both sharded and replicated layouts."""
@@ -346,11 +340,7 @@ class CheckpointManager:
         stats: Dict[str, int] = {}
         start = time.perf_counter()
         restored = format_lib.restore_pytree_resharded(
-            self.directory, step, template,
-            shard_spec=shard_spec or self.shard_spec,
-            process_index=self.process_index,
-            process_count=self.process_count,
-            stats=stats)
+            self.directory, step, template, stats=stats)
         elapsed = time.perf_counter() - start
         writer_count = int(stats.get('writer_process_count', 1))
         if writer_count < self.process_count:

@@ -15,7 +15,7 @@ Under a tensor-parallel mesh (``mesh=``, infer/tp.py; one process a
 rank) both engines run the pooled plane on each rank's shards, and
 ``resolve_overlap`` gates the overlapped combines as the reference's
 does.  Options the port does not carry yet raise ``NotImplementedError``
-naming their ROADMAP.md item: a mesh on a legacy plane (item 11(g)).
+naming their ROADMAP.md item: a mesh on a legacy plane (item 11(h)).
 Telemetry as the reference's: ``host_fetch`` counts every sync into
 ``skytpu_infer_host_syncs_total``, and ``Generator.generate`` sets the
 prefill, decode-chunk, bucket, migration, speculation and steady-rate
@@ -254,7 +254,7 @@ def check_mesh(params, config, gen_config: GeneratorConfig, mesh) -> None:
         return
     if gen_config.decode_impl != 'pooled':
         raise _deferred(f"a mesh on the legacy '{gen_config.decode_impl}' "
-                        f'plane (K7 per shard)', '11(g)')
+                        f'plane (K7 per shard)', '11(h)')
     tp_lib.validate_mesh(config, mesh)
     tp_lib.slot_rows(mesh, gen_config.batch_size)
     if (gen_config.weights_dtype is not None and tp_lib.model_size(mesh) > 1

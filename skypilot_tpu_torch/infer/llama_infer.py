@@ -156,7 +156,7 @@ def _combine(x: torch.Tensor, mesh) -> torch.Tensor:
     every rank (x itself without a mesh)."""
     if mesh is None:
         return x
-    return collectives._rank_order_allreduce(x, mesh, tp_lib.MODEL_AXES)
+    return collectives.all_reduce_sum(x, mesh, tp_lib.MODEL_AXES)
 
 
 def _gather_cols(x: torch.Tensor, mesh) -> torch.Tensor:

@@ -27,9 +27,10 @@ and safetensors, or torch ``.bin`` files): it needs neither
 itself.  It streams: each stacked leaf is allocated once on the target
 device in config.dtype and filled one layer (and one expert) at a time,
 so the host holds about one source tensor, memory-mapped, at a time.
-``load_hf_model_sharded`` is the tensor-parallel loader: each rank copies
-only its block of each tensor (infer/tp.py's INFER_TP_RULES) out of the
-memory map, so no rank holds the full model on the host or the card.
+``load_hf_model_sharded`` is the loader of a mesh's rank: each rank
+copies only its block of each tensor (infer/tp.py's INFER_TP_RULES on a
+serving mesh, a training mesh's LLAMA_RULES) out of the memory map, so
+no rank holds the full model on the host or the card.
 """
 from __future__ import annotations
 
@@ -187,7 +188,8 @@ def _leaves(config: llama.LlamaConfig):
 
 def _build(get: Callable[[str], torch.Tensor], has: Callable[[str], bool],
            config: llama.LlamaConfig, norm_offset: float,
-           device: torch.device, mesh=None) -> Params:
+           device: torch.device, mesh=None,
+           spec_for: Optional[Callable[[str], Any]] = None) -> Params:
     """The parameter tree from a source of HF tensors: `get(name)` gives
     one CPU tensor in the source's dtype, `has(name)` says whether the
     source holds it.  Each leaf is allocated once on `device` in
@@ -195,13 +197,13 @@ def _build(get: Callable[[str], torch.Tensor], has: Callable[[str], bool],
     its own dtype and is transposed and cast there in one copy (the
     transpose exact, the cast one rounding).  Norms take the offset in
     f32, then one rounding.  With a mesh each leaf is this rank's block
-    under INFER_TP_RULES, cut from the source tensor before the copy."""
+    under `spec_for(path)` (a leaf's spec), cut from the source tensor
+    before the copy."""
     prefix = 'model.'
     if not has(prefix + 'embed_tokens.weight') and \
             has('embed_tokens.weight'):
         prefix = ''
     if mesh is not None:
-        from skypilot_tpu_torch.infer import tp as tp_lib
         from skypilot_tpu_torch.parallel import sharding
 
     def block(path, lead):
@@ -209,8 +211,7 @@ def _build(get: Callable[[str], torch.Tensor], has: Callable[[str], bool],
         this rank keeps, or None for the whole of it."""
         if mesh is None:
             return None
-        spec = tp_lib.param_spec(path)
-        return sharding.P(*spec[lead:])
+        return sharding.P(*spec_for(path)[lead:])
 
     def leaf(names, shape, transpose, path, offset=0.0, lead=()):
         spec = block(path, len(lead))
@@ -428,7 +429,7 @@ def read_hf_config(model_dir: str, dtype: torch.dtype = torch.bfloat16,
         return config_from_hf(json.load(f), dtype=dtype, **config_overrides)
 
 
-def _load(model_dir, dtype, device, mesh, config_overrides):
+def _load(model_dir, dtype, device, mesh, config_overrides, spec_for=None):
     if not os.path.isdir(model_dir):
         raise FileNotFoundError(
             f'{model_dir!r} is not a local directory: this package loads '
@@ -441,23 +442,28 @@ def _load(model_dir, dtype, device, mesh, config_overrides):
     norm_offset = 1.0 if hf_config.get('model_type') == 'gemma' else 0.0
     reader = _open_checkpoint(model_dir)
     params = _build(reader.get, reader.__contains__, config, norm_offset,
-                    resolve_device(device), mesh)
+                    resolve_device(device), mesh, spec_for)
     return params, config
 
 
 def load_hf_model_sharded(model_dir: str, mesh,
                           dtype: torch.dtype = torch.bfloat16, device=None,
-                          **config_overrides: Any
+                          rules=None, **config_overrides: Any
                           ) -> Tuple[Params, llama.LlamaConfig]:
-    """load_hf_model for one rank of a tensor-parallel mesh
-    (infer/tp.py): (this rank's blocks of the tree under INFER_TP_RULES,
-    the full config).  Each rank copies only its slices out of the
-    memory-mapped files; a block split on the stored tensor's inner
-    axis is read strided, page by page, but never held whole."""
-    params, config = _load(model_dir, dtype, device, mesh,
-                           config_overrides)
+    """load_hf_model for one rank of a mesh: (this rank's blocks of the
+    tree under `rules`, the full config).  Without rules the mesh is a
+    serving tensor-parallel one (infer/tp.py: INFER_TP_RULES, and the
+    mesh checked against the model's KV heads); a training mesh passes
+    its PartitionRules (parallel/sharding.py's LLAMA_RULES).  Each rank
+    copies only its slices out of the memory-mapped files; a block split
+    on the stored tensor's inner axis is read strided, page by page, but
+    never held whole."""
     from skypilot_tpu_torch.infer import tp as tp_lib
-    tp_lib.validate_mesh(config, mesh)
+    params, config = _load(
+        model_dir, dtype, device, mesh, config_overrides,
+        tp_lib.param_spec if rules is None else rules.spec_for)
+    if rules is None:
+        tp_lib.validate_mesh(config, mesh)
     return params, config
 
 

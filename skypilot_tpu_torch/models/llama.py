@@ -11,8 +11,19 @@ over layers is a Python loop over ``torch.unbind`` views of the stacked
 leaves; ``jax.checkpoint`` around each layer is
 ``torch.utils.checkpoint`` (non-reentrant), with ``remat_policy='dots'``
 as selective checkpointing that saves the 2-D projections.  The serving
-forward lives in ``infer/llama_infer.py``; ``forward_pipelined`` waits for
-the mesh slice.
+forward lives in ``infer/llama_infer.py``; ``forward_pipelined`` (the 'pp'
+axis) is ROADMAP item 11(h).
+
+Under a training mesh (``mesh=``, parallel/mesh.py, one process a rank)
+the trunk, ``forward`` and ``loss_fn`` run on this rank's blocks under
+``LLAMA_RULES``: each layer gathers its fsdp-split weights inside its
+checkpoint region (remat gathers them again rather than keeping them;
+the gradient is reduce-scattered back), tp splits the heads and the
+feed-forward with Megatron's f/g pair, the embedding lookup and the
+cross entropy run on vocabulary blocks over tp, and an sp rank embeds
+and scores its S / sp rows, with RoPE at their global positions and
+attention over the sp ring (parallel/ring_attention.py).  The loss is
+the mean over every token of the global batch, the same on every rank.
 """
 from __future__ import annotations
 
@@ -29,6 +40,9 @@ from skypilot_tpu_torch.ops import attention as attention_ops
 from skypilot_tpu_torch.ops import losses as losses_ops
 from skypilot_tpu_torch.ops import rmsnorm as rmsnorm_ops
 from skypilot_tpu_torch.ops import rope as rope_ops
+from skypilot_tpu_torch.parallel import collectives
+from skypilot_tpu_torch.parallel import ring_attention as ring_lib
+from skypilot_tpu_torch.parallel import sharding
 
 Params = Dict[str, Any]
 
@@ -210,11 +224,55 @@ def gate_activation(x: torch.Tensor, kind: str) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+class Shards:
+    """How a rank's training forward meets its mesh: the mesh, the rules
+    that split each leaf, and the rank's place on the tp and sp axes.
+
+    ``weight(path, w, lead)`` is w (this rank's block of leaf `path`,
+    less its first `lead` dimensions) with its fsdp-split dimensions
+    gathered: the FSDP gather, whose gradient is reduce-scattered back.
+    Dimensions over tp or ep stay this rank's blocks."""
+
+    def __init__(self, mesh, rules: sharding.PartitionRules):
+        if mesh.axis_size('pp') > 1:
+            raise NotImplementedError(
+                "a training mesh with pp > 1 (forward_pipelined and the "
+                "pp x sp composition) is ROADMAP item 11(h)")
+        self.mesh, self.rules = mesh, rules
+        self.tp, self.tp_index = mesh.axis_size('tp'), mesh.axis_index('tp')
+        self.sp, self.sp_index = mesh.axis_size('sp'), mesh.axis_index('sp')
+        # The axes over which ranks see different tokens.
+        self.data_axes = ('dp', 'fsdp', 'sp')
+
+    def weight(self, path: str, w: torch.Tensor, lead: int = 0
+               ) -> torch.Tensor:
+        spec = self.rules.spec_for(path)[lead:]
+        for dim, entry in enumerate(spec):
+            if entry == 'fsdp':
+                w = collectives.gather_scatter(w, self.mesh, 'fsdp', dim)
+        return w
+
+
 def embed_tokens(params: Params, tokens: torch.Tensor,
-                 config: LlamaConfig) -> torch.Tensor:
+                 config: LlamaConfig,
+                 shards: Optional[Shards] = None) -> torch.Tensor:
     """Token embedding lookup and the family's embedding scale (applied
-    in the table dtype, as the JAX package does)."""
-    h = params['embed'][tokens]
+    in the table dtype, as the JAX package does).  Under a mesh the
+    table is a (vocab / tp) block: tokens outside it give zero rows and
+    the rows are summed over tp (one rank holds each token's row, so the
+    sum is exact)."""
+    table = (params['embed'] if shards is None
+             else shards.weight('embed', params['embed']))
+    if shards is None or shards.tp == 1:
+        h = table[tokens]
+    else:
+        rows = table.shape[0]
+        local = tokens - shards.tp_index * rows
+        valid = (local >= 0) & (local < rows)
+        h = torch.where(valid[..., None], table[local.clamp(0, rows - 1)],
+                        torch.zeros((), dtype=table.dtype,
+                                    device=table.device))
+        h = collectives.sum_forward(h, shards.mesh, 'tp')
     if config.embed_scale != 1.0:
         h = h * torch.full((), config.embed_scale, dtype=h.dtype,
                            device=h.device)
@@ -243,37 +301,80 @@ def _remat_policy(config: LlamaConfig):
     return _REMAT_POLICIES[config.remat_policy]()
 
 
+def _kv_weights(attn_p: Params, config: LlamaConfig, shards: Shards):
+    """wk, wv (and bk, bv) for this rank's query heads under tp: their
+    own blocks when the KV heads divide over tp, else gathered over tp
+    (gradient reduce-scattered back) and cut to the KV heads this rank's
+    query heads map to."""
+    names = ['wk', 'wv'] + (['bk', 'bv'] if 'bk' in attn_p else [])
+    out = {n: shards.weight(f'layers/attn/{n}', attn_p[n], lead=1)
+           for n in names}
+    if shards.tp == 1 or config.n_kv_heads % shards.tp == 0:
+        return out
+    lo, hi = ring_lib.kv_head_block(config.n_heads, config.n_kv_heads,
+                                    shards.tp, shards.tp_index)
+    hd = config.head_dim
+    return {n: collectives.gather_scatter(w, shards.mesh, 'tp', w.ndim - 1)
+            [..., lo * hd:hi * hd] for n, w in out.items()}
+
+
 def attention_block(h: torch.Tensor, layer_params: Params,
                     config: LlamaConfig, cos: torch.Tensor,
-                    sin: torch.Tensor) -> torch.Tensor:
+                    sin: torch.Tensor,
+                    shards: Optional[Shards] = None) -> torch.Tensor:
     """The attention half of a training layer: h + attention(norm(h)),
-    through K3 (rms_norm) and K2 (flash_attention, causal)."""
+    through K3 (rms_norm) and K2 (flash_attention, causal).  Under a
+    mesh: this rank's query heads and their KV heads, attention over
+    the sp ring when sp > 1, and the output projection's partial sums
+    added over tp (cos/sin are the rows of this rank's positions)."""
     batch, seq, _ = h.shape
-    hd, nh, nkv = config.head_dim, config.n_heads, config.n_kv_heads
+    hd = config.head_dim
     attn_p = layer_params['attn']
 
     x = rmsnorm_ops.rms_norm(h, layer_params['ln1'], eps=config.norm_eps)
-    q, k, v = x @ attn_p['wq'], x @ attn_p['wk'], x @ attn_p['wv']
-    if 'bq' in attn_p:  # Qwen2-family qkv biases (config.attn_bias)
-        q, k, v = (q + attn_p['bq'], k + attn_p['bk'],
-                   v + attn_p['bv'])
-    q = q.reshape(batch, seq, nh, hd)
-    k = k.reshape(batch, seq, nkv, hd)
-    v = v.reshape(batch, seq, nkv, hd)
+    if shards is None:
+        w = attn_p
+    else:
+        x = collectives.sum_backward(x, shards.mesh, 'tp')
+        w = dict(_kv_weights(attn_p, config, shards),
+                 wq=shards.weight('layers/attn/wq', attn_p['wq'], lead=1),
+                 wo=shards.weight('layers/attn/wo', attn_p['wo'], lead=1))
+        if 'bq' in attn_p:
+            w['bq'] = attn_p['bq']
+    q, k, v = x @ w['wq'], x @ w['wk'], x @ w['wv']
+    if 'bq' in w:  # Qwen2-family qkv biases (config.attn_bias)
+        q, k, v = q + w['bq'], k + w['bk'], v + w['bv']
+    q = q.reshape(batch, seq, -1, hd)
+    k = k.reshape(batch, seq, -1, hd)
+    v = v.reshape(batch, seq, -1, hd)
     q = rope_ops.apply_rope(q, cos, sin)
     k = rope_ops.apply_rope(k, cos, sin)
-    o = attention_ops.flash_attention(q, k, v, causal=True)
-    return h + (o.reshape(batch, seq, nh * hd) @ attn_p['wo'])
+    if shards is not None and shards.sp > 1:
+        o = ring_lib.ring_attention_manual(q, k, v, mesh=shards.mesh,
+                                           axis_name='sp', causal=True)
+    else:
+        o = attention_ops.flash_attention(q, k, v, causal=True)
+    out = o.reshape(batch, seq, -1) @ w['wo']
+    if shards is not None:
+        out = collectives.sum_forward(out, shards.mesh, 'tp')
+    return h + out
 
 
 def _layer(h: torch.Tensor, layer_params: Params, *, config: LlamaConfig,
-           cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+           cos: torch.Tensor, sin: torch.Tensor,
+           shards: Optional[Shards] = None) -> torch.Tensor:
     mlp_p = layer_params['mlp']
-    h = attention_block(h, layer_params, config, cos, sin)
+    h = attention_block(h, layer_params, config, cos, sin, shards)
     x = rmsnorm_ops.rms_norm(h, layer_params['ln2'], eps=config.norm_eps)
+    if shards is not None:
+        x = collectives.sum_backward(x, shards.mesh, 'tp')
+        mlp_p = {k: shards.weight(f'layers/mlp/{k}', w, lead=1)
+                 for k, w in mlp_p.items()}
     gate = gate_activation(x @ mlp_p['w_gate'], config.mlp_act)
-    h = h + ((gate * (x @ mlp_p['w_up'])) @ mlp_p['w_down'])
-    return h
+    out = (gate * (x @ mlp_p['w_up'])) @ mlp_p['w_down']
+    if shards is not None:
+        out = collectives.sum_forward(out, shards.mesh, 'tp')
+    return h + out
 
 
 def unbind_layers(params: Params, n_layers: int) -> List[Params]:
@@ -295,16 +396,37 @@ def unbind_layers(params: Params, n_layers: int) -> List[Params]:
     return [take(views, i) for i in range(n_layers)]
 
 
+def rank_rope(config: LlamaConfig, seq_local: int, device,
+              shards: Optional[Shards] = None):
+    """(cos, sin) for this rank's positions: rows 0..S-1, or under sp
+    the rows of the rank's block, sp_index * S_local onwards."""
+    sp, index = (1, 0) if shards is None else (shards.sp, shards.sp_index)
+    cos, sin = rope_ops.rope_frequencies(
+        config.head_dim, seq_local * sp, config.rope_theta,
+        scaling=config.rope_scaling_dict, device=device)
+    start = index * seq_local
+    return cos[start:start + seq_local], sin[start:start + seq_local]
+
+
 def hidden_states(params: Params, tokens: torch.Tensor,
-                  config: LlamaConfig) -> torch.Tensor:
+                  config: LlamaConfig, mesh=None,
+                  rules: sharding.PartitionRules = sharding.LLAMA_RULES
+                  ) -> torch.Tensor:
     """tokens (B, S) int -> post-final-norm hidden states (B, S, d): the
     pre-head trunk of forward(), which loss_fn consumes directly when the
-    cross entropy is chunked (config.loss_chunk)."""
-    cos, sin = rope_ops.rope_frequencies(
-        config.head_dim, tokens.shape[1], config.rope_theta,
-        scaling=config.rope_scaling_dict, device=tokens.device)
-    h = embed_tokens(params, tokens, config)
-    layer_fn = functools.partial(_layer, config=config, cos=cos, sin=sin)
+    cross entropy is chunked (config.loss_chunk).  Under a mesh, tokens
+    are this rank's rows (its sequence block under sp) and params its
+    blocks under `rules`."""
+    shards = None if mesh is None else Shards(mesh, rules)
+    return _trunk(params, tokens, config, shards)
+
+
+def _trunk(params: Params, tokens: torch.Tensor, config: LlamaConfig,
+           shards: Optional[Shards]) -> torch.Tensor:
+    cos, sin = rank_rope(config, tokens.shape[1], tokens.device, shards)
+    h = embed_tokens(params, tokens, config, shards)
+    layer_fn = functools.partial(_layer, config=config, cos=cos, sin=sin,
+                                 shards=shards)
     context_fn = _remat_policy(config) if config.remat else None
     for lp in unbind_layers(params, config.n_layers):
         if config.remat:
@@ -318,17 +440,82 @@ def hidden_states(params: Params, tokens: torch.Tensor,
 
 
 def forward(params: Params, tokens: torch.Tensor,
-            config: LlamaConfig) -> torch.Tensor:
-    """tokens (B, S) int -> logits (B, S, vocab) f32."""
-    h = hidden_states(params, tokens, config)
-    return (h @ params['lm_head']).float()
+            config: LlamaConfig, mesh=None,
+            rules: sharding.PartitionRules = sharding.LLAMA_RULES
+            ) -> torch.Tensor:
+    """tokens (B, S) int -> logits (B, S, vocab) f32; under a mesh this
+    rank's rows and vocabulary block (B, S, vocab / tp)."""
+    if mesh is None:
+        return (hidden_states(params, tokens, config)
+                @ params['lm_head']).float()
+    shards = Shards(mesh, rules)
+    h, head = head_block(_trunk(params, tokens, config, shards), params,
+                         shards)
+    return (h @ head).float()
+
+
+def head_block(h: torch.Tensor, params: Params, shards: Shards):
+    """(h, this rank's lm_head block with its fsdp rows gathered): h
+    passes through Megatron's f over tp, whose ranks hold the head's
+    vocabulary blocks."""
+    return (collectives.sum_backward(h, shards.mesh, 'tp'),
+            shards.weight('lm_head', params['lm_head']))
+
+
+def rank_tokens(tokens: torch.Tensor, shards: Optional[Shards]):
+    """(inputs, targets) of this rank: tokens[:, :-1] and tokens[:, 1:],
+    under sp the rank's block of S / sp rows of each."""
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    if shards is not None and shards.sp > 1:
+        seq = inputs.shape[1]
+        if seq % shards.sp:
+            raise ValueError(f'sequence {seq} does not divide over '
+                             f'sp={shards.sp}')
+        n = seq // shards.sp
+        lo = shards.sp_index * n
+        inputs, targets = inputs[:, lo:lo + n], targets[:, lo:lo + n]
+    return inputs, targets
+
+
+def rank_logprobs(params: Params, tokens: torch.Tensor,
+                  config: LlamaConfig, mesh,
+                  rules: sharding.PartitionRules = sharding.LLAMA_RULES
+                  ) -> torch.Tensor:
+    """log p of this rank's targets, (B, S_local) f32 (the same on every
+    tp rank): tokens (B, S + 1) are the rank's batch rows, of which it
+    scores its sequence block."""
+    shards = Shards(mesh, rules)
+    inputs, targets = rank_tokens(tokens, shards)
+    h, head = head_block(_trunk(params, inputs, config, shards), params,
+                         shards)
+    if config.loss_chunk:
+        return losses_ops.chunked_token_logprobs(
+            h, head, targets, chunk_size=config.loss_chunk, mesh=mesh)
+    return losses_ops.token_logprobs_from_hidden(h, head, targets, mesh)
+
+
+def mesh_mean(local_sum: torch.Tensor, count: int, mesh,
+              axes=('dp', 'fsdp', 'sp')) -> torch.Tensor:
+    """A mean over the global batch from each rank's sum over its
+    `count` tokens: the sums added in rank order over the data axes
+    (the gradient of each rank's sum is the mean's), over count x the
+    axes' size."""
+    total = collectives.sum_forward(local_sum, mesh, axes)
+    return total / (count * mesh.axis_size(axes))
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
-            config: LlamaConfig) -> torch.Tensor:
+            config: LlamaConfig, mesh=None,
+            rules: sharding.PartitionRules = sharding.LLAMA_RULES
+            ) -> torch.Tensor:
     """Next-token cross entropy.  batch: {'tokens': (B, S)}; the model
-    predicts tokens[:, 1:] from tokens[:, :-1]."""
+    predicts tokens[:, 1:] from tokens[:, :-1].  Under a mesh, batch
+    holds this rank's rows (the Trainer splits the batch over dp and
+    fsdp) and the loss is the global batch's mean on every rank."""
     tokens = batch['tokens']
+    if mesh is not None:
+        lp = rank_logprobs(params, tokens, config, mesh, rules)
+        return -mesh_mean(lp.sum(), lp.numel(), mesh)
     if config.loss_chunk:
         h = hidden_states(params, tokens[:, :-1], config)
         return losses_ops.chunked_softmax_xent(

@@ -17,6 +17,16 @@ rows are comparisons against an ``arange``: a dropped token's slot
 index past the capacity gives an all-zero row, as ``jax.nn.one_hot``
 does, and nothing reads a device value on the host, so the dense block
 runs inside a captured CUDA graph.
+
+Under a training mesh (``mesh=``, ``MOE_RULES``) a rank holds E / ep
+experts of each bank.  Every rank routes its tokens over all E experts
+(the router gathered over fsdp), so both routers keep their dispatch,
+combine and capacity; the rank runs its experts on the dispatch and
+combine sliced to them (the combine's gradient gathered back over ep).
+The expert outputs are added over tp (which splits each expert's ff)
+before the combine, and the combined ones over ep, in rank order.  The
+aux loss's fractions are taken over the global batch, so it is the
+single card's value on every rank.
 """
 from __future__ import annotations
 
@@ -28,8 +38,10 @@ import torch
 from torch.utils import checkpoint as checkpoint_lib
 
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.ops import losses as losses_ops
 from skypilot_tpu_torch.ops import rmsnorm as rmsnorm_ops
-from skypilot_tpu_torch.ops import rope as rope_ops
+from skypilot_tpu_torch.parallel import collectives
+from skypilot_tpu_torch.parallel import sharding
 
 Params = llama.Params
 
@@ -85,15 +97,27 @@ def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
     return (idx.unsqueeze(-1) == classes).float()
 
 
-def _load_balance(gates: torch.Tensor, n_experts: int) -> torch.Tensor:
+def _load_balance(gates: torch.Tensor, n_experts: int,
+                  shards=None) -> torch.Tensor:
     """Switch/GShard aux loss on top-1 assignments: E * sum_e(fraction of
-    tokens routed to e * mean gate of e)."""
-    frac_tokens = _one_hot(gates.argmax(-1), n_experts).mean(dim=(0, 1))
-    frac_gates = gates.mean(dim=(0, 1))
+    tokens routed to e * mean gate of e).  Under a mesh the fractions
+    are the global batch's: each rank's sums over its tokens, added over
+    the data axes."""
+    tokens = _one_hot(gates.argmax(-1), n_experts)
+    if shards is None:
+        frac_tokens = tokens.mean(dim=(0, 1))
+        frac_gates = gates.mean(dim=(0, 1))
+    else:
+        count = gates.shape[0] * gates.shape[1]
+        frac_tokens = llama.mesh_mean(tokens.sum(dim=(0, 1)), count,
+                                      shards.mesh, shards.data_axes)
+        frac_gates = llama.mesh_mean(gates.sum(dim=(0, 1)), count,
+                                     shards.mesh, shards.data_axes)
     return n_experts * (frac_tokens * frac_gates).sum()
 
 
-def top_k_gating(router_logits: torch.Tensor, top_k: int, capacity: int
+def top_k_gating(router_logits: torch.Tensor, top_k: int, capacity: int,
+                 shards=None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """router_logits (B, S, E) -> (dispatch (B, S, E, C) f32 0/1, combine
     (B, S, E, C) f32, aux_loss f32 scalar).  GShard top-k with a
@@ -104,7 +128,7 @@ def top_k_gating(router_logits: torch.Tensor, top_k: int, capacity: int
     by argmax, first index on ties, as jnp.argmax."""
     gates = torch.softmax(router_logits.float(), dim=-1)
     batch, _, n_experts = gates.shape
-    aux_loss = _load_balance(gates, n_experts)
+    aux_loss = _load_balance(gates, n_experts, shards)
 
     slots = torch.arange(capacity, device=gates.device, dtype=torch.float32)
     dispatch = combine = 0.0
@@ -129,8 +153,27 @@ def top_k_gating(router_logits: torch.Tensor, top_k: int, capacity: int
     return dispatch, combine, aux_loss
 
 
-def moe_block_dense(x: torch.Tensor, moe_params: Params, config: MoeConfig
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _expert_weights(moe_params: Params, shards):
+    """The router and this rank's expert banks, fsdp dims gathered."""
+    if shards is None:
+        return moe_params
+    return {k: shards.weight(f'layers/moe/{k}', w, lead=1)
+            for k, w in moe_params.items()}
+
+
+def _local_experts(x: torch.Tensor, combine: torch.Tensor, shards,
+                   dim: int):
+    """x for the rank's experts (its gradient, partial over ep and tp,
+    added back) and the combine weights sliced to them along `dim`."""
+    if shards is None:
+        return x, combine
+    mesh = shards.mesh
+    return (collectives.sum_backward(x, mesh, ('ep', 'tp')),
+            collectives.split_gather(combine, mesh, 'ep', dim))
+
+
+def moe_block_dense(x: torch.Tensor, moe_params: Params, config: MoeConfig,
+                    shards=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact dropless top-k: x (B, S, d) -> (y (B, S, d), aux_loss).
 
     Softmax over all experts, the top_k chosen renormalized to sum to 1
@@ -140,39 +183,64 @@ def moe_block_dense(x: torch.Tensor, moe_params: Params, config: MoeConfig
     FLOPs cost the weight-bound step nothing."""
     batch, seq, d = x.shape
     n_experts = config.n_experts
+    moe_params = _expert_weights(moe_params, shards)
     gates = torch.softmax((x @ moe_params['router']).float(), dim=-1)
     top_w, top_idx = torch.topk(gates, config.top_k, dim=-1)   # (B, S, k)
     top_w = top_w / torch.clamp_min(top_w.sum(-1, keepdim=True), 1e-9)
     combine = (_one_hot(top_idx, n_experts)
                * top_w.unsqueeze(-1)).sum(-2)                   # (B, S, E)
+    x_e, combine = _local_experts(x, combine, shards, 2)
+    n_local = combine.shape[-1]
     # 'bsd,edf->ebsf' as one (E,)-batched product over the stored banks:
     # x is broadcast across the experts, no bank is copied.
-    xs = x.reshape(1, batch * seq, d)
+    xs = x_e.reshape(1, batch * seq, d)
     up = torch.matmul(xs, moe_params['w_up'])                  # (E, BS, ff)
     gate = llama.gate_activation(torch.matmul(xs, moe_params['w_gate']),
                                  config.mlp_act)
-    expert_out = torch.bmm(gate * up, moe_params['w_down'])    # (E, BS, d)
+    expert_out = _sum_over(torch.bmm(gate * up, moe_params['w_down']),
+                           shards, 'tp')                       # (E, BS, d)
     # 'bse,ebsd->bsd': a (1, E) x (E, d) product per token.
-    y = torch.bmm(combine.to(x.dtype).reshape(batch * seq, 1, n_experts),
-                  expert_out.transpose(0, 1))
-    return y.reshape(batch, seq, d), _load_balance(gates, n_experts)
+    y = torch.bmm(combine.to(x.dtype).reshape(batch * seq, 1, n_local),
+                  expert_out.transpose(0, 1)).reshape(batch, seq, d)
+    return _sum_over(y, shards, 'ep'), _load_balance(gates, n_experts,
+                                                      shards)
 
 
-def moe_block(x: torch.Tensor, moe_params: Params, config: MoeConfig
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, d) -> (y (B, S, d), aux_loss) under config.router_impl."""
+def _sum_over(x: torch.Tensor, shards, axis: str) -> torch.Tensor:
+    """x added over `axis` in rank order (Megatron's g): the expert
+    outputs over tp, whose ranks split each expert's ff, before the
+    combine weighs them; the combined outputs over ep."""
+    if shards is None:
+        return x
+    return collectives.sum_forward(x, shards.mesh, axis)
+
+
+def moe_block(x: torch.Tensor, moe_params: Params, config: MoeConfig,
+              shards=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, d) -> (y (B, S, d), aux_loss) under config.router_impl;
+    under a mesh (shards: llama.Shards) over this rank's experts."""
     if config.router_impl == 'dense':
-        return moe_block_dense(x, moe_params, config)
+        return moe_block_dense(x, moe_params, config, shards)
     if config.router_impl != 'capacity':
         raise ValueError(
             f"router_impl must be 'capacity' or 'dense', "
             f'got {config.router_impl!r}')
     batch, seq, d = x.shape
     n_experts = config.n_experts
+    if shards is not None and shards.sp > 1:
+        raise NotImplementedError(
+            "the 'capacity' router under sp > 1 (token slots are ranked "
+            "along the whole sequence) is ROADMAP item 11(h)")
+    moe_params = _expert_weights(moe_params, shards)
     capacity = max(1, int(config.top_k * seq * config.capacity_factor /
                           n_experts))
     dispatch, combine, aux = top_k_gating(x @ moe_params['router'],
-                                          config.top_k, capacity)
+                                          config.top_k, capacity, shards)
+    x, combine = _local_experts(x, combine, shards, 2)
+    if shards is not None:
+        n_experts = combine.shape[2]
+        lo = shards.mesh.axis_index('ep') * n_experts
+        dispatch = dispatch[:, :, lo:lo + n_experts]
     slots = n_experts * capacity
     # Dispatch 'bsec,bsd->ebcd': (E C, S) x (S, d) per batch row.
     expert_in = torch.bmm(
@@ -182,36 +250,46 @@ def moe_block(x: torch.Tensor, moe_params: Params, config: MoeConfig
     gate = torch.nn.functional.silu(
         torch.bmm(expert_in, moe_params['w_gate']).float()).to(x.dtype)
     up = torch.bmm(expert_in, moe_params['w_up'])
-    expert_out = torch.bmm(gate * up, moe_params['w_down'])   # (E, B C, d)
+    expert_out = _sum_over(torch.bmm(gate * up, moe_params['w_down']),
+                           shards, 'tp')                      # (E, B C, d)
     # Combine 'bsec,ebcd->bsd': (S, E C) x (E C, d) per batch row.
     expert_out = expert_out.reshape(n_experts, batch, capacity, d).transpose(
         0, 1).reshape(batch, slots, d)
     y = torch.bmm(combine.to(x.dtype).reshape(batch, seq, slots), expert_out)
-    return y, aux
+    return _sum_over(y, shards, 'ep'), aux
 
 
 def _layer(h: torch.Tensor, aux_acc: torch.Tensor, layer_params: Params, *,
-           config: MoeConfig, cos: torch.Tensor, sin: torch.Tensor
-           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    h = llama.attention_block(h, layer_params, config, cos, sin)
+           config: MoeConfig, cos: torch.Tensor, sin: torch.Tensor,
+           shards=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    h = llama.attention_block(h, layer_params, config, cos, sin, shards)
     x = rmsnorm_ops.rms_norm(h, layer_params['ln2'], eps=config.norm_eps)
-    y, aux = moe_block(x, layer_params['moe'], config)
+    y, aux = moe_block(x, layer_params['moe'], config, shards)
     return h + y, aux_acc + aux
 
 
-def hidden_states(params: Params, tokens: torch.Tensor, config: MoeConfig
+def hidden_states(params: Params, tokens: torch.Tensor, config: MoeConfig,
+                  mesh=None,
+                  rules: sharding.PartitionRules = sharding.MOE_RULES
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) -> (post-final-norm hidden states (B, S, d), the
     router aux loss averaged over the layers), so the blockwise CE of SFT
     can apply the head chunk-wise.  config.remat checkpoints each layer
     with no policy (the JAX package's ``jax.checkpoint`` of the layer;
-    config.remat_policy does not apply here)."""
-    cos, sin = rope_ops.rope_frequencies(
-        config.head_dim, tokens.shape[1], config.rope_theta,
-        scaling=config.rope_scaling_dict, device=tokens.device)
-    h = llama.embed_tokens(params, tokens, config)
+    config.remat_policy does not apply here).  Under a mesh, tokens are
+    this rank's rows and params its blocks under `rules`."""
+    shards = None if mesh is None else llama.Shards(mesh, rules)
+    return _trunk(params, tokens, config, shards)
+
+
+def _trunk(params: Params, tokens: torch.Tensor, config: MoeConfig, shards
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    cos, sin = llama.rank_rope(config, tokens.shape[1], tokens.device,
+                               shards)
+    h = llama.embed_tokens(params, tokens, config, shards)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    layer_fn = functools.partial(_layer, config=config, cos=cos, sin=sin)
+    layer_fn = functools.partial(_layer, config=config, cos=cos, sin=sin,
+                                 shards=shards)
     for lp in llama.unbind_layers(params, config.n_layers):
         if config.remat:
             h, aux = checkpoint_lib.checkpoint(layer_fn, h, aux, lp,
@@ -230,10 +308,22 @@ def forward(params: Params, tokens: torch.Tensor, config: MoeConfig
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
-            config: MoeConfig) -> torch.Tensor:
+            config: MoeConfig, mesh=None,
+            rules: sharding.PartitionRules = sharding.MOE_RULES
+            ) -> torch.Tensor:
     """Next-token cross entropy over the full logits plus
-    router_aux_weight x the router aux loss.  batch: {'tokens': (B, S)}."""
+    router_aux_weight x the router aux loss.  batch: {'tokens': (B, S)};
+    under a mesh this rank's rows, and the loss the global batch's on
+    every rank (the head's vocabulary blocks over tp)."""
     tokens = batch['tokens']
+    if mesh is not None:
+        shards = llama.Shards(mesh, rules)
+        inputs, targets = llama.rank_tokens(tokens, shards)
+        h, aux = _trunk(params, inputs, config, shards)
+        lp = losses_ops.token_logprobs_from_hidden(
+            *llama.head_block(h, params, shards), targets, mesh)
+        return (-llama.mesh_mean(lp.sum(), lp.numel(), mesh)
+                + config.router_aux_weight * aux)
     logits, aux = forward(params, tokens[:, :-1], config)
     ll = llama.token_logprobs(logits, tokens[:, 1:])
     return -torch.mean(ll) + config.router_aux_weight * aux

@@ -10,10 +10,10 @@ region".  The functions keep the reference's CONTRACTS, bit for bit:
 - a gather stacks the shards in flat mesh-rank order over its axes;
 - ``ring_reduce_scatter`` sums rank d's chunk in the ring's arrival
   order d+1, d+2, ..., d;
-- ``_rank_order_allreduce`` and ``pipelined_psum`` sum the partials
-  locally in flat mesh-rank order (rank 0 first), the same order on
-  every rank and for every chunk count, so a combine is deterministic
-  and independent of the backend.
+- ``all_reduce_sum`` and ``pipelined_psum`` sum the partials locally
+  in flat mesh-rank order (rank 0 first), in the tensor's dtype as
+  XLA's psum does, the same order on every rank and for every chunk
+  count, so a combine is deterministic and independent of the backend.
 
 How a gather moves bytes: ``all_gather_into_tensor`` on the tensor's
 bytes (a uint8 view, so every dtype travels exactly), then the rows put
@@ -28,6 +28,17 @@ gloo mesh checks semantics, it is not a fast path.
 Every function takes the mesh and the axes it runs over; axes of size 1
 need no collective.  ``psum_bench`` and ``all_gather_bench`` time the
 backend's own all-reduce and this module's gather.
+
+The training meshes add the collectives GSPMD inserts into a sharded
+train step, as ``torch.autograd.Function``s with their transposes:
+``gather_scatter`` (FSDP's weight gather; its gradient reduce-scattered
+in rank order, each block sent once to its rank), Megatron's
+``sum_forward`` ("g") and ``sum_backward`` ("f"), ``split_gather`` and
+``ring_permute`` (ring attention's hop, one send and one receive).
+Point-to-point transfers (``_send_recv``) are ``batch_isend_irecv``:
+NCCL moves CUDA tensors itself; gloo has no send/recv on CUDA tensors,
+so theirs cross through host copies, as gloo's own collectives on CUDA
+tensors do.
 """
 from __future__ import annotations
 
@@ -103,11 +114,12 @@ def ring_all_gather(x: torch.Tensor, mesh, axis_name: AxisNames, *,
     return g.reshape((-1,) + tuple(x.shape[1:])) if tiled else g
 
 
-def rank_order_sum(g: torch.Tensor) -> torch.Tensor:
-    """sum over g's leading axis, accumulated from index 0 up."""
+def rank_order_sum(g) -> torch.Tensor:
+    """sum over g's leading axis (a stack or a list), accumulated from
+    index 0 up in g's dtype."""
     acc = g[0]
-    for j in range(1, g.shape[0]):
-        acc = acc + g[j]
+    for part in g[1:]:
+        acc = acc + part
     return acc
 
 
@@ -131,15 +143,6 @@ def ring_reduce_scatter(x: torch.Tensor, mesh,
     for t in range(2, n + 1):
         acc = acc + chunks[(d + t) % n]
     return acc
-
-
-def _rank_order_allreduce(x: torch.Tensor, mesh, axes) -> torch.Tensor:
-    """All-reduce as a gather and a local sum in flat mesh-rank order:
-    the same order on every rank and for every chunking."""
-    axes = _axis_tuple(axes)
-    if mesh is None or mesh.axis_size(axes) == 1:
-        return x
-    return rank_order_sum(all_gather(x, mesh, axes))
 
 
 def chunk_bounds(dim: int, chunks: int) -> List[Tuple[int, int]]:
@@ -236,3 +239,219 @@ def all_gather_bench(mesh, axis_name: str = 'fsdp',
     algbw = num_elems * 4 / elapsed / 1e9
     return {'payload_mb': payload_mb, 'ranks': n, 'time_s': elapsed,
             'algbw_gbps': algbw, 'busbw_gbps': algbw * (n - 1) / n}
+
+
+# ---- collectives with gradients (the training meshes) ---------------------
+#
+# GSPMD inserts the collectives of a sharded train step, and their
+# transposes in the backward, by itself; here each is a
+# ``torch.autograd.Function`` with its transpose written out.  Every sum
+# runs in flat mesh-rank order (rank 0 first), so a replicated result
+# holds the same bits on every rank.
+
+_PIECE_BYTES = 64 << 20
+
+
+def all_reduce_sum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The sum of x over `axes` in flat mesh-rank order, on every rank:
+    a gather and a local ``rank_order_sum``, in pieces whose n copies
+    stay under _PIECE_BYTES."""
+    axes = _axis_tuple(axes)
+    n = mesh.axis_size(axes) if mesh is not None else 1
+    if n == 1:
+        return x
+    flat = x.reshape(-1)
+    spans = chunk_bounds(flat.numel(), max(1, -(-n * x.numel()
+                                              * x.element_size()
+                                              // _PIECE_BYTES)))
+    out = [rank_order_sum(all_gather(flat[lo:hi], mesh, axes))
+           for lo, hi in spans]
+    return (out[0] if len(out) == 1 else torch.cat(out)).reshape(x.shape)
+
+
+def all_reduce_max(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The elementwise max of x over `axes` (no gradient)."""
+    if mesh is None or mesh.axis_size(axes) == 1:
+        return x
+    return all_gather(x, mesh, axes).amax(dim=0)
+
+
+def _send_recv(pairs, mesh, axes) -> List[torch.Tensor]:
+    """One ``batch_isend_irecv`` over the group of `axes`: for each
+    (x, to, frm) of `pairs` x goes to global rank `to`, and a tensor
+    like x comes back from global rank `frm`.  Under gloo a CUDA
+    tensor crosses through a host copy (gloo has no send/recv on CUDA
+    tensors)."""
+    import torch.distributed as dist
+    group = mesh.group(axes)
+    ops, recvs = [], []
+    for x, to, frm in pairs:
+        host = mesh.backend == 'gloo' and x.device.type != 'cpu'
+        send = x.contiguous().cpu() if host else x.contiguous()
+        recv = torch.empty_like(send)
+        ops += [dist.P2POp(dist.isend, send, to, group),
+                dist.P2POp(dist.irecv, recv, frm, group)]
+        recvs.append(recv)
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return [r.to(x.device) for r, (x, _, _) in zip(recvs, pairs)]
+
+
+def _exchange(chunks: List[torch.Tensor], mesh, axes) -> List[torch.Tensor]:
+    """chunks[j] goes to rank j of the fiber over `axes`; returns what
+    each rank p sent here, in fiber order (this rank's own chunk in its
+    place): one send of each chunk to its rank."""
+    fiber = mesh.fiber(axes)
+    d = mesh.axis_index(axes)
+    got = iter(_send_recv([(c, fiber[j], fiber[j])
+                           for j, c in enumerate(chunks) if j != d],
+                          mesh, axes))
+    return [chunks[j] if j == d else next(got) for j in range(len(fiber))]
+
+
+def reduce_scatter(x: torch.Tensor, mesh, axes, dim: int = 0
+                   ) -> torch.Tensor:
+    """Rank d of the n over `axes` gets sum over ranks p of block d of
+    x_p along `dim` (n equal blocks), summed in flat mesh-rank order.
+    Each block travels once, to its rank (``_exchange``): (n - 1) / n of
+    x's bytes a rank, where a gather of x would move n times them."""
+    axes = _axis_tuple(axes)
+    n = mesh.axis_size(axes)
+    if n == 1:
+        return x
+    if x.shape[dim] % n:
+        raise ValueError(f'reduce_scatter: dimension {dim} of '
+                         f'{tuple(x.shape)} does not divide over {n}')
+    return rank_order_sum(_exchange(list(x.chunk(n, dim)), mesh, axes))
+
+
+def gather_dim(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """The blocks of every rank over `axes` concatenated along `dim` in
+    flat mesh-rank order (no gradient)."""
+    if mesh.axis_size(axes) == 1:
+        return x
+    return torch.cat(tuple(all_gather(x, mesh, axes)), dim=dim)
+
+
+class _GatherScatter(torch.autograd.Function):
+    """FSDP's weight gather: all-gather along `dim` forward, the rank-
+    order reduce-scatter of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return gather_dim(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (reduce_scatter(grad.contiguous(), ctx.mesh, ctx.axes,
+                               ctx.dim), None, None, None)
+
+
+class _SumForward(torch.autograd.Function):
+    """Megatron's "g": the rank-order all-reduce forward, the identity
+    backward (every rank holds the same gradient of the sum)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return all_reduce_sum(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _SumBackward(torch.autograd.Function):
+    """Megatron's "f": the identity forward, the rank-order all-reduce
+    of the gradient backward (each rank's gradient is a partial sum)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_sum(grad.contiguous(), ctx.mesh, ctx.axes), \
+            None, None
+
+
+class _SplitGather(torch.autograd.Function):
+    """This rank's block of a replicated x along `dim` forward; the
+    blocks' gradients gathered back along `dim` backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        n = mesh.axis_size(axes)
+        c = x.shape[dim] // n
+        return x.narrow(dim, mesh.axis_index(axes) * c, c).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (gather_dim(grad.contiguous(), ctx.mesh, ctx.axes, ctx.dim),
+                None, None, None)
+
+
+def gather_scatter(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """All-gather x along `dim` over `axes`; its gradient is reduce-
+    scattered back (the FSDP gather of a weight)."""
+    if mesh is None or mesh.axis_size(axes) == 1:
+        return x
+    return _GatherScatter.apply(x, mesh, _axis_tuple(axes), dim)
+
+
+def sum_forward(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Megatron's "g" over `axes` (after wo and w_down)."""
+    if mesh is None or mesh.axis_size(axes) == 1:
+        return x
+    return _SumForward.apply(x, mesh, _axis_tuple(axes))
+
+
+def sum_backward(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Megatron's "f" over `axes` (before wq/wk/wv and w_gate/w_up)."""
+    if mesh is None or mesh.axis_size(axes) == 1:
+        return x
+    return _SumBackward.apply(x, mesh, _axis_tuple(axes))
+
+
+def split_gather(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """This rank's block of x along `dim` over `axes`, gradient gathered
+    back to the whole."""
+    if mesh is None or mesh.axis_size(axes) == 1:
+        return x
+    return _SplitGather.apply(x, mesh, _axis_tuple(axes), dim)
+
+
+def _permute(x: torch.Tensor, mesh, axis_name: str,
+             shift: int) -> torch.Tensor:
+    """Rank i's x lands on rank i + shift (mod n) along axis_name: one
+    send and one receive a rank."""
+    n = mesh.axis_size(axis_name)
+    i = mesh.axis_index(axis_name)
+    fiber = mesh.fiber(axis_name)
+    (out,) = _send_recv([(x, fiber[(i + shift) % n],
+                          fiber[(i - shift) % n])], mesh, axis_name)
+    return out
+
+
+class _RingPermute(torch.autograd.Function):
+    """The ring's hop (rank i sends to i + 1) forward; the inverse hop
+    of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis_name):
+        ctx.mesh, ctx.axis_name = mesh, axis_name
+        return _permute(x, mesh, axis_name, 1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _permute(grad, ctx.mesh, ctx.axis_name, -1), None, None
+
+
+def ring_permute(x: torch.Tensor, mesh, axis_name: str) -> torch.Tensor:
+    """``lax.ppermute`` over the forward ring of axis_name (rank i's x
+    goes to rank i + 1 mod n), with its transpose as the gradient."""
+    if mesh.axis_size(axis_name) == 1:
+        return x
+    return _RingPermute.apply(x, mesh, axis_name)

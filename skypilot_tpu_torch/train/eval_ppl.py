@@ -1,12 +1,12 @@
-"""Perplexity evaluation on one card: score a text corpus with a
-converted HF checkpoint (or the debug model).
+"""Perplexity evaluation: score a text corpus with a converted HF
+checkpoint (or the debug model), on one card or sharded over ranks.
 
 Counterpart of examples/scripts/eval_ppl.py, with its flags and its
 printed line.  Run as::
 
     python -m skypilot_tpu_torch.train.eval_ppl --data-file corpus.txt \\
         --seq-len 2048 --batch-size 4 [--loss-chunk 512] \\
-        [--hf-model DIR] [--device cpu]
+        [--dp 2 | --fsdp 2 | --tp 2] [--hf-model DIR] [--device cpu]
 
 The corpus (plain text, or JSONL with a "text" field) becomes one token
 stream (UTF-8 bytes mod the vocabulary: the port has no tokenizer) cut
@@ -16,14 +16,15 @@ dropped, and said so.  Each batch's summed next-token NLL comes from
 ``--loss-chunk``, else ``llama.forward`` + ``token_logprobs``, under
 ``torch.no_grad`` (K2 without its lse, K3).  Prints one JSON line:
 {"perplexity", "nll", "tokens", "seqs"}, the NLL averaged over every
-target token.  ``--tp k`` scores with k rank processes of this host over
-one sharded model (infer/tp.py's serving rules, the trunk of
-``llama_infer.hidden_states`` and lm_head's vocab blocks gathered per
-``--loss-chunk`` span of positions); rank 0 prints.  ``--dp``/``--fsdp``
-above 1 are refused: the training meshes are ROADMAP item 11(g).  The
-model is ``--hf-model DIR`` (models/convert.py), else
-the ``--model-size`` preset (LLAMA_DEBUG by default, as the reference's
-only one) with random weights from seed 0.
+target token.  ``--dp``, ``--fsdp`` or ``--tp`` above 1 score on one
+mesh of dp x fsdp x tp rank processes of this host, as the reference
+does: the training forward under ``LLAMA_RULES`` (models/llama.py: fsdp
+gathers, tp heads and vocabulary blocks), each rank reading only its
+blocks of the model, the batch (default one row a data shard) split
+over dp x fsdp, and each rank's NLL added over the ranks in rank order;
+rank 0 prints.  The model is ``--hf-model DIR`` (models/convert.py),
+else the ``--model-size`` preset (LLAMA_DEBUG by default, as the
+reference's only one) with random weights from seed 0.
 """
 from __future__ import annotations
 
@@ -38,7 +39,7 @@ import torch
 
 from skypilot_tpu_torch.train.train_llama import PRESETS
 from skypilot_tpu_torch.train.train_sft import (byte_encoder, load_base,
-                                                refuse_unported)
+                                                load_base_sharded)
 
 
 def corpus_ids_from_text(text: str, vocab_size: int) -> List[int]:
@@ -66,22 +67,21 @@ def corpus_ids(path: str, vocab_size: int) -> List[int]:
 def nll_and_count(params, tokens: torch.Tensor, config, mesh=None
                   ) -> Tuple[torch.Tensor, int]:
     """(summed NLL as a 0-d f32 tensor, target count) of one (B, S + 1)
-    batch: the model predicts tokens[:, 1:] from tokens[:, :-1].  Under a
-    mesh every rank returns the same sum."""
-    from skypilot_tpu_torch.infer import llama_infer
+    batch: the model predicts tokens[:, 1:] from tokens[:, :-1].  On a
+    mesh each rank scores its rows of the batch and every rank returns
+    the sums added over the ranks."""
     from skypilot_tpu_torch.models import llama
     from skypilot_tpu_torch.ops import losses
 
     with torch.no_grad():
         if mesh is not None:
-            h = llama_infer.hidden_states(params, tokens[:, :-1], config,
-                                          mesh)
-            span = config.loss_chunk or h.shape[1]
-            lp = torch.cat([losses.token_logprobs(
-                llama_infer.logits(h[:, lo:lo + span], params, mesh),
-                tokens[:, 1 + lo:1 + lo + span])
-                for lo in range(0, h.shape[1], span)], dim=1)
-        elif config.loss_chunk:
+            from skypilot_tpu_torch.parallel import collectives, sharding
+            rows = sharding.shard_tensor(tokens, sharding.BATCH_SPEC, mesh)
+            lp = llama.rank_logprobs(params, rows, config, mesh)
+            axes = ('dp', 'fsdp', 'sp')
+            return (collectives.all_reduce_sum(-lp.sum(), mesh, axes),
+                    lp.numel() * mesh.axis_size(axes))
+        if config.loss_chunk:
             h = llama.hidden_states(params, tokens[:, :-1], config)
             lp = losses.chunked_token_logprobs(
                 h, params['lm_head'], tokens[:, 1:],
@@ -104,7 +104,8 @@ def parse_args(argv=None):
                              'field')
     parser.add_argument('--seq-len', type=int, default=1024)
     parser.add_argument('--batch-size', type=int, default=0,
-                        help='0 = one row (one card)')
+                        help='0 = one row (a row a data shard on a '
+                             'training mesh)')
     parser.add_argument('--max-batches', type=int, default=0,
                         help='cap evaluated batches (0 = whole corpus)')
     parser.add_argument('--dp', type=int, default=0)
@@ -113,16 +114,15 @@ def parse_args(argv=None):
     parser.add_argument('--loss-chunk', type=int, default=0)
     parser.add_argument('--device', default=None,
                         help='cuda (default) or cpu')
-    args = parser.parse_args(argv)
-    refuse_unported(parser, args, allow=('tp',))
-    return args
+    return parser.parse_args(argv)
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.tp > 1:
-        from skypilot_tpu_torch.infer import multihost
-        multihost.launch_local_ranks(args.tp, _rank, (vars(args),))
+    world = max(args.dp, 1) * max(args.fsdp, 1) * args.tp
+    if world > 1:
+        from skypilot_tpu_torch.train import mesh_run
+        mesh_run.launch(world, _mesh_rank, vars(args))
         return 0
     from skypilot_tpu_torch.device import resolve_device
 
@@ -137,35 +137,32 @@ def main(argv=None) -> int:
     return evaluate(args, params, config, device)
 
 
-def _rank(local_rank: int, world: int, argd: dict) -> None:
-    """One rank of `--tp world`: its shards (read with
-    load_hf_model_sharded, or drawn with init_sharded_params from seed
-    0), the same batches as every rank."""
-    import torch.distributed as dist
-
-    from skypilot_tpu_torch.infer import multihost
-    from skypilot_tpu_torch.infer import tp as tp_lib
-    from skypilot_tpu_torch.models import convert, llama
+def _mesh_rank(local_rank: int, procs_per_host: int, argd: dict) -> None:
+    """One rank of a `--dp`/`--fsdp`/`--tp` run: its blocks of the model
+    under LLAMA_RULES (read out of the --hf-model checkpoint's memory
+    map, or drawn from seed 0), the rows of each batch it scores."""
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    from skypilot_tpu_torch.parallel import sharding
+    from skypilot_tpu_torch.train import mesh_run
     args = argparse.Namespace(**argd)
-    device = multihost.rank_device(args.device, local_rank)
-    info = multihost.initialize_from_env(
-        backend=multihost.default_backend(args.device, world),
-        procs_per_host=world, local_rank=local_rank)
-    if args.hf_model:
-        config = convert.read_hf_config(args.hf_model)
-        mesh = multihost.make_replica_mesh(n_kv_heads=config.n_kv_heads)
-        params, config = convert.load_hf_model_sharded(args.hf_model, mesh,
-                                                       device=device)
-    else:
-        config = (llama.LLAMA_DEBUG if args.model_size == 'debug'
-                  else PRESETS[args.model_size])
-        mesh = multihost.make_replica_mesh(n_kv_heads=config.n_kv_heads)
-        params = tp_lib.init_sharded_params(
-            config, torch.Generator(device=device).manual_seed(0), mesh,
-            device)
-    evaluate(args, params, config, device, mesh,
-             quiet=info['rank'] != 0)
-    dist.destroy_process_group()
+    device, info = mesh_run.join(args.device, local_rank, procs_per_host)
+    try:
+        mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig(
+            dp=max(args.dp, 1), fsdp=max(args.fsdp, 1), tp=args.tp))
+        if args.hf_model:
+            params, config = load_base_sharded(args.hf_model, mesh, device)
+        else:
+            config = (llama.LLAMA_DEBUG if args.model_size == 'debug'
+                      else PRESETS[args.model_size])
+            params = llama.init_params(
+                config, torch.Generator(device=device).manual_seed(0),
+                device, shard=sharding.init_shard(mesh,
+                                                  sharding.LLAMA_RULES))
+        evaluate(args, params, config, device, mesh,
+                 quiet=info['rank'] != 0)
+    finally:
+        mesh_run.leave()
 
 
 def evaluate(args, params, config, device, mesh=None,
@@ -181,7 +178,8 @@ def evaluate(args, params, config, device, mesh=None,
                          f'one {window}-token window')
     stream = torch.tensor(ids[:n_windows * window],
                           dtype=torch.int64).reshape(n_windows, window)
-    batch_size = args.batch_size or 1
+    batch_size = args.batch_size or (
+        mesh.axis_size(('dp', 'fsdp')) if mesh is not None else 1)
     # Ragged tail windows (< one full batch) are dropped, and said so:
     # silent exclusion would make perplexities incomparable across batch
     # sizes.

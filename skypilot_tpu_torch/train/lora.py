@@ -22,7 +22,7 @@ Targets are regexes over the JAX package's path strings
 packages.  A stacked (L, in, out) weight gets (L, in, r) / (L, r, out)
 adapters and the product batches over L.  The JAX package's
 ``LORA_RULES`` shards adapters over a mesh; it comes with ROADMAP item
-11(g).
+11(h).
 """
 from __future__ import annotations
 

@@ -1,10 +1,21 @@
-"""Llama training entry point on one card, resumable after preemption.
+"""Llama training entry point, on one card or a mesh of ranks,
+resumable after preemption.
 
 Counterpart of examples/scripts/train_llama.py.  Run as::
 
     python -m skypilot_tpu_torch.train.train_llama --model-size 1b \\
         --seq-len 1024 --batch-size 8 --steps 16 --checkpoint-every 4 \\
-        --checkpoint-dir /ckpt [--resume auto]
+        --checkpoint-dir /ckpt [--resume auto] [--fsdp 2 --tp 2]
+
+``--dp``, ``--fsdp``, ``--sp`` and ``--tp`` lay the ranks out on a
+training mesh (``--dp 0``: the cards left over); without them
+``auto_mesh_config`` picks one for this host's cards, as the reference
+does for its devices (one card: no mesh).  The ranks are processes of
+this host (train/mesh_run.py), one a rank, each holding its blocks of
+the model and its optimizer state under ``LLAMA_RULES``; ``--sp`` above
+1 runs attention over the sp ring.  The global batch (``--batch-size``,
+default one sequence a data shard) is split over dp x fsdp; rank 0
+prints.
 
 It trains in chunks of ``--checkpoint-every`` steps through
 ``Trainer.fit`` and commits a checkpoint after each chunk (printing
@@ -21,6 +32,7 @@ the card unless ``--device cpu``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 import time
 
@@ -29,6 +41,9 @@ import torch
 
 from skypilot_tpu_torch.device import resolve_device
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
+from skypilot_tpu_torch.parallel import sharding
+from skypilot_tpu_torch.train import mesh_run
 from skypilot_tpu_torch.train.trainer import (TrainConfig, Trainer,
                                               synthetic_batches)
 
@@ -61,12 +76,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument('--model-size', default='1b', choices=list(PRESETS))
     parser.add_argument('--seq-len', type=int, default=4096)
     parser.add_argument('--batch-size', type=int, default=0,
-                        help='global batch; 0 = 1 sequence (one card)')
+                        help='global batch; 0 = 1 sequence per dp shard')
     parser.add_argument('--steps', type=int, default=100)
-    parser.add_argument('--dp', type=int, default=0, help='1 (one card)')
-    parser.add_argument('--fsdp', type=int, default=0, help='1 (one card)')
-    parser.add_argument('--sp', type=int, default=1, help='1 (one card)')
-    parser.add_argument('--tp', type=int, default=1, help='1 (one card)')
+    parser.add_argument('--dp', type=int, default=0, help='0 = auto')
+    parser.add_argument('--fsdp', type=int, default=0)
+    parser.add_argument('--sp', type=int, default=1)
+    parser.add_argument('--tp', type=int, default=1)
     parser.add_argument('--learning-rate', type=float, default=2e-5)
     parser.add_argument('--checkpoint-dir', default='')
     parser.add_argument('--checkpoint-every', type=int, default=50)
@@ -82,42 +97,102 @@ def parse_args(argv=None) -> argparse.Namespace:
                              'pacing, e.g. to observe recovery)')
     parser.add_argument('--device', default=None,
                         help='default: the CUDA card')
-    args = parser.parse_args(argv)
-    mesh = {'dp': args.dp, 'fsdp': args.fsdp, 'sp': args.sp,
-            'tp': args.tp}
-    sharded = {k: v for k, v in mesh.items() if v > 1}
-    if sharded:
-        parser.error(f'{sharded}: this entry point trains on one card; '
-                     f'meshes come with ROADMAP items 11(g) and 10 '
-                     f'(parallel/ sharding and multi-card runs)')
-    return args
+    return parser.parse_args(argv)
+
+
+def mesh_config(args, config) -> mesh_lib.MeshConfig:
+    """The reference's choice: the axes given (dp filling the cards left
+    over), else auto_mesh_config for this host's cards."""
+    n = mesh_run.cards(args.device)
+    if args.fsdp or args.dp or args.tp > 1 or args.sp > 1:
+        fsdp = max(args.fsdp, 1)
+        dp = args.dp or max(1, n // (fsdp * args.sp * args.tp))
+        return mesh_lib.MeshConfig(dp=dp, fsdp=fsdp, sp=args.sp,
+                                   tp=args.tp)
+    return mesh_lib.auto_mesh_config(
+        n, model_params_b=config.num_params() / 1e9, seq_len=args.seq_len)
 
 
 def main(argv=None) -> None:
     args = parse_args(argv)
     sys.stdout.reconfigure(line_buffering=True)
+    config = _config(args)
+    mc = mesh_config(args, config)
+    if mc.num_devices == 1:
+        train(args, resolve_device(args.device))
+        return
+    mesh_run.launch(mc.num_devices, _rank,
+                    dict(vars(args), mesh=dataclasses.asdict(mc)))
+
+
+def _config(args):
+    if args.hf_model:
+        from skypilot_tpu_torch.models import convert
+        return convert.read_hf_config(args.hf_model)
+    return PRESETS[args.model_size]
+
+
+def _rank(local_rank: int, procs_per_host: int, argd: dict) -> None:
+    args = argparse.Namespace(**argd)
+    sys.stdout.reconfigure(line_buffering=True)
+    device, _ = mesh_run.join(args.device, local_rank, procs_per_host)
+    try:
+        train(args, device,
+              mesh_lib.make_mesh(mesh_lib.MeshConfig(**args.mesh)))
+    finally:
+        mesh_run.leave()
+
+
+def _params(args, config, device, mesh):
+    """The weights: random from seed 0, or the --hf-model checkpoint's;
+    on a mesh a rank draws, or reads out of the files' memory map, only
+    its blocks."""
+    if args.hf_model:
+        from skypilot_tpu_torch.train import train_sft
+        if mesh is not None:
+            return train_sft.load_base_sharded(args.hf_model, mesh, device)
+        return train_sft.load_base(args.hf_model, device)
+    shard = (None if mesh is None
+             else sharding.init_shard(mesh, sharding.LLAMA_RULES))
+    return llama.init_params(
+        config, torch.Generator(device=device).manual_seed(0), device,
+        shard=shard), config
+
+
+def train(args, device: torch.device, mesh=None) -> None:
+    """The training loop of one process: the whole run on one device, or
+    one rank of `mesh`."""
     trainer_config = TrainConfig(
         learning_rate=args.learning_rate,
         warmup_steps=min(100, args.steps // 10 + 1),
         total_steps=args.steps)
-    device = resolve_device(args.device)
-    if args.hf_model:
-        from skypilot_tpu_torch.train.train_sft import load_base
-        params, config = load_base(args.hf_model, device)
+    params, config = _params(args, _config(args), device, mesh)
+    if mesh is None:
+        trainer = Trainer(lambda p, b: llama.loss_fn(p, b, config), params,
+                          trainer_config, device=device)
     else:
-        config = PRESETS[args.model_size]
-        params = llama.init_params(
-            config, torch.Generator(device=device).manual_seed(0), device)
-    trainer = Trainer(lambda p, b: llama.loss_fn(p, b, config), params,
-                      trainer_config, device=device)
+        trainer = Trainer(
+            lambda p, b: llama.loss_fn(p, b, config, mesh=mesh), params,
+            trainer_config, device=device, mesh=mesh,
+            rules=sharding.LLAMA_RULES, params_sharded=True)
     del params
-    print(f'device={trainer.device} '
-          f'model={args.hf_model or args.model_size} '
-          f'({config.num_params() / 1e9:.2f}B params) seq={args.seq_len}')
+    lead = mesh is None or mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
+    where = '' if mesh is None else f' {_mesh_str(mesh)} ranks={mesh.size}'
+    say(f'device={trainer.device}{where} '
+        f'model={args.hf_model or args.model_size} '
+        f'({config.num_params() / 1e9:.2f}B params) seq={args.seq_len}')
+    if trainer.shared_card:
+        say(f'note: {mesh.size} gloo ranks share one card: the rates '
+            f'below are no multi-card rate')
     if args.resume == 'auto' and args.checkpoint_dir:
         if trainer.restore_latest(args.checkpoint_dir) is not None:
-            print(f'resumed from step {trainer.step}')
-    batch_size = args.batch_size or 1
+            say(f'resumed from step {trainer.step}')
+    shards = 1 if mesh is None else mesh.axis_size(('dp', 'fsdp'))
+    batch_size = args.batch_size or shards
+    if batch_size % shards:
+        raise SystemExit(f'--batch-size {batch_size} does not divide over '
+                         f'dp x fsdp = {shards}')
     if args.data_file:
         batches = text_batches(args.data_file, batch_size, args.seq_len,
                                config.vocab_size)
@@ -134,18 +209,22 @@ def main(argv=None) -> None:
                                   tokens_per_batch=tokens_per_batch)
             if args.checkpoint_dir:
                 trainer.save_checkpoint(args.checkpoint_dir)
-                print(f'saved step {trainer.step}')
+                say(f'saved step {trainer.step}')
             if args.throttle_s:
                 time.sleep(args.throttle_s)
     finally:
         trainer.close()
     if summary is None:
-        print(f'final: step {trainer.step} of {args.steps}, nothing left '
-              f'to train')
+        say(f'final: step {trainer.step} of {args.steps}, nothing left '
+            f'to train')
         return
-    print(f"final: loss={summary['loss']:.4f} "
-          f"tokens/sec={summary.get('tokens_per_sec', 0):.0f} "
-          f"({summary.get('tokens_per_sec', 0):.0f}/card)")
+    rate = summary.get('tokens_per_sec', 0)
+    say(f"final: loss={summary['loss']:.4f} "
+        f"tokens/sec={rate:.0f} ({rate / trainer.world:.0f}/card)")
+
+
+def _mesh_str(mesh) -> str:
+    return str(mesh_lib.MeshConfig(**{a: s for a, s in mesh.shape.items()}))
 
 
 if __name__ == '__main__':

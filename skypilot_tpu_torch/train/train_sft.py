@@ -32,16 +32,16 @@ from skypilot_tpu_torch.utils import env_contract
 def refuse_unported(parser: argparse.ArgumentParser,
                     args: argparse.Namespace, allow=()) -> None:
     """Exit with a message naming the ROADMAP item of a flag whose path
-    is not ported: a training-mesh axis above 1, expert parallelism
-    included (11(g)); `allow` names the axes an entry point carries
-    (the serving tp of batch_infer and eval_ppl)."""
+    is not ported: a mesh axis above 1 on a post-training entry point,
+    expert parallelism included (11(h)); `allow` names the axes an entry
+    point carries (the serving tp of batch_infer)."""
     mesh = {k: getattr(args, k) for k in ('dp', 'fsdp', 'tp', 'ep')
             if hasattr(args, k) and k not in allow}
     sharded = {k: v for k, v in mesh.items() if v > 1}
     if sharded:
         parser.error(f'{sharded}: this entry point trains on one card; '
-                     f'meshes come with ROADMAP item 11(g) (parallel/ '
-                     f'sharding)')
+                     f'the post-training entry points on meshes are '
+                     f'ROADMAP item 11(h)')
 
 
 def load_base(hf_model: str, device, allow_moe: bool = False):
@@ -62,6 +62,21 @@ def load_base(hf_model: str, device, allow_moe: bool = False):
                          f'entry point trains dense models; finetune it '
                          f'with train_sft')
     return params, config
+
+
+def load_base_sharded(hf_model: str, mesh, device):
+    """load_base's checkpoint on one rank of a training mesh: this rank's
+    blocks under LLAMA_RULES, copied out of the files' memory map (no
+    rank holds the whole model).  A Mixtral checkpoint exits, as in
+    load_base."""
+    from skypilot_tpu_torch.models import convert
+    from skypilot_tpu_torch.parallel import sharding
+    if hasattr(convert.read_hf_config(hf_model), 'n_experts'):
+        raise SystemExit(f'{hf_model} is a Mixtral (MoE) checkpoint: this '
+                         f'entry point trains dense models; finetune it '
+                         f'with train_sft')
+    return convert.load_hf_model_sharded(hf_model, mesh, device=device,
+                                         rules=sharding.LLAMA_RULES)
 
 
 def byte_encoder(vocab_size: int):

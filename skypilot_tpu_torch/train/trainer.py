@@ -1,7 +1,15 @@
-"""One-card training loop: loss, gradients and AdamW in PyTorch.
+"""Training loop: loss, gradients and AdamW in PyTorch, on one card or
+over a mesh of rank processes.
 
-Counterpart of skypilot_tpu/train/trainer.py on a single card: no mesh and
-no sharding rules (FSDP over several cards comes with the mesh slice).
+Counterpart of skypilot_tpu/train/trainer.py.  Without a mesh the
+trainer runs on one device.  With one (``mesh=``, ``rules=``; one
+process a rank, parallel/mesh.py) it holds this rank's blocks of the
+parameters and of AdamW's moments under the rules, splits each batch by
+``BATCH_SPEC``, adds each gradient in rank order over the data axes
+(dp, fsdp, sp) that the model's own collectives have not summed it over
+(a leaf split over fsdp comes back reduce-scattered over fsdp from the
+model's gather), and clips by the norm of the global gradient, decided
+on the device and the same on every rank.
 The optimizer is the JAX package's ``optax.chain(clip_by_global_norm,
 adamw(warmup_cosine_decay))`` written out in torch with optax's numerics,
 updating the parameters and moments in place (the counterpart of the JAX
@@ -28,6 +36,8 @@ import torch
 from skypilot_tpu_torch.ckpt import format as ckpt_format
 from skypilot_tpu_torch.ckpt import manager as ckpt_manager
 from skypilot_tpu_torch.device import resolve_device
+from skypilot_tpu_torch.parallel import collectives
+from skypilot_tpu_torch.parallel import sharding as sharding_lib
 from skypilot_tpu_torch.telemetry import metrics as telemetry_metrics
 from skypilot_tpu_torch.telemetry import steplog
 from skypilot_tpu_torch.telemetry.profiler import profile_window
@@ -130,11 +140,15 @@ class Optimizer:
 
     @torch.no_grad()
     def update(self, grads: List[torch.Tensor], state: Dict[str, Any],
-               params: List[torch.Tensor]) -> torch.Tensor:
+               params: List[torch.Tensor],
+               g_norm: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One step on `params` in place; advances `state`.  Returns the
-        global norm of `grads` (before the clip), on the device."""
+        global norm of `grads` (before the clip), on the device; a mesh
+        passes the global gradient's (`g_norm`), of which `grads` are
+        this rank's blocks."""
         c = self.config
-        g_norm = global_norm(grads)
+        if g_norm is None:
+            g_norm = global_norm(grads)
         keep = g_norm < c.max_grad_norm
         count = state['count']
         lr = self.schedule(count)
@@ -210,32 +224,67 @@ class ScaleByScheduleState(NamedTuple):
     count: Any
 
 
+# The mesh axes over which ranks see different tokens: a gradient is a
+# partial sum over each of them that the model has not summed it over.
+DATA_AXES = ('dp', 'fsdp', 'sp')
+
+
 class Trainer:
-    """Runs train steps of `loss_fn(params, batch)` on one device.
+    """Runs train steps of `loss_fn(params, batch)` on one device, or on
+    this rank's blocks of a mesh.
 
     The trainer owns the parameter tensors it is given: it updates them
-    in place.  Entry point as the JAX package's, without the mesh:
-    ``Trainer(loss_fn, params, config).fit(batches, num_steps, ...)``;
-    the device is the CUDA card unless `device` says otherwise.  Call
-    ``run_step`` (and ``fit``) on the main thread when emergency saves
-    are on: the signal handler runs there, and the trainer holds it off
-    while a step writes the state."""
+    in place.  ``Trainer(loss_fn, params, config).fit(batches,
+    num_steps, ...)`` on one device; the device is the CUDA card unless
+    `device` says otherwise.  With ``mesh=`` and ``rules=`` (the
+    reference's ``Trainer(loss_fn, params, mesh, rules, config)``),
+    params is the global tree (numpy arrays or tensors), cut here to
+    this rank's blocks, or those blocks already (``params_sharded``,
+    e.g. from ``init_params(..., shard=sharding.init_shard(...))``);
+    loss_fn takes this rank's blocks and its rows of the batch and must
+    return the global batch's loss on every rank (``llama.loss_fn(...,
+    mesh=mesh)``).  Call ``run_step`` (and ``fit``) on the main thread
+    when emergency saves are on: the signal handler runs there, and the
+    trainer holds it off while a step writes the state."""
 
     def __init__(self, loss_fn: Callable[[Any, Dict[str, torch.Tensor]],
                                          torch.Tensor],
                  params: Any, config: TrainConfig = TrainConfig(),
-                 device=None):
+                 device=None, *, mesh=None,
+                 rules: Optional[sharding_lib.PartitionRules] = None,
+                 params_sharded: bool = False):
         self.device = resolve_device(device)
         self.config = config
         self.tx = make_optimizer(config)
+        self.mesh = mesh
+        if mesh is not None:
+            if rules is None:
+                raise ValueError('a mesh needs its partition rules')
+            if not params_sharded:
+                params = sharding_lib.shard_params(params, mesh, rules)
+            self._shardings = tree_leaves(
+                sharding_lib.param_shardings(params, mesh, rules))
         self.params = tree_map(
-            lambda p: p.detach().to(self.device).requires_grad_(), params)
+            lambda p: torch.as_tensor(p).detach().to(self.device)
+            .requires_grad_(), params)
         self._leaves = tree_leaves(self.params)
         self.opt_state = self.tx.init(self._leaves)
         self.step = 0
         self._loss_fn = loss_fn
         self._ckpt_managers: Dict[str, ckpt_manager.CheckpointManager] = {}
         self._auto_ckpt = None  # set by enable_checkpointing
+
+    @property
+    def world(self) -> int:
+        """The ranks of the mesh (1 without one)."""
+        return 1 if self.mesh is None else self.mesh.size
+
+    @property
+    def shared_card(self) -> bool:
+        """Ranks of a gloo mesh on CUDA devices, which share cards."""
+        return (self.mesh is not None and self.world > 1
+                and self.mesh.backend == 'gloo'
+                and self.device.type == 'cuda')
 
     def _to_device(self, value) -> torch.Tensor:
         t = torch.as_tensor(value)
@@ -253,12 +302,21 @@ class Trainer:
         observed as ``TRAIN_STEP_SECONDS{phase="sync"}``."""
         sync = bool(os.environ.get(_STEP_METRICS_ENV))
         start = time.perf_counter() if sync else 0.0
+        if self.mesh is not None:
+            batch = {k: sharding_lib.shard_tensor(torch.as_tensor(v),
+                                                  sharding_lib.BATCH_SPEC,
+                                                  self.mesh)
+                     for k, v in batch.items()}
         batch = {k: self._to_device(v) for k, v in batch.items()}
         loss = self._loss_fn(self.params, batch)
-        grads = torch.autograd.grad(loss, self._leaves)
+        grads = list(torch.autograd.grad(loss, self._leaves))
+        g_norm = None
+        if self.mesh is not None:
+            grads = self._sum_over_data(grads)
+            g_norm = self._global_norm(grads)
         with self._holding_signals():
-            grad_norm = self.tx.update(list(grads), self.opt_state,
-                                       self._leaves)
+            grad_norm = self.tx.update(grads, self.opt_state, self._leaves,
+                                       g_norm)
             self.step += 1
         telemetry_metrics.TRAIN_STEPS.inc()
         if self._auto_ckpt is not None and \
@@ -266,14 +324,44 @@ class Trainer:
             # Async: the loop pays only the device->host snapshot (which
             # also waits for this step); bytes hit disk on the writer
             # thread while later steps run.
-            self._auto_ckpt.save(self.step, self._state_dict(),
-                                 blocking=False)
+            self._save(self._auto_ckpt, blocking=False)
         if sync:
             if self.device.type == 'cuda':
                 torch.cuda.synchronize(self.device)
             telemetry_metrics.TRAIN_STEP_SECONDS.labels(phase='sync').observe(
                 time.perf_counter() - start)
         return {'loss': loss.detach(), 'grad_norm': grad_norm}
+
+    def _sum_over_data(self, grads: List[torch.Tensor]
+                       ) -> List[torch.Tensor]:
+        """Each gradient added in rank order over the data axes its leaf
+        is not split over (a leaf split over fsdp arrives already
+        reduce-scattered over fsdp by the model's gather)."""
+        out = []
+        for g, sh in zip(grads, self._shardings):
+            split = sharding_lib.spec_axes(sh.spec)
+            axes = tuple(a for a in DATA_AXES if a not in split)
+            out.append(collectives.all_reduce_sum(g, self.mesh, axes))
+        return out
+
+    def _global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """The norm of the global gradient: each leaf's sum of squares
+        (in its dtype, as global_norm) added in rank order over the axes
+        its leaf is split over, so a replicated block counts once; then
+        the leaves' in leaf order.  The same bits on every rank."""
+        sums = [torch.sum(g * g) for g in grads]
+        groups: Dict[tuple, List[int]] = {}
+        for i, (s, sh) in enumerate(zip(sums, self._shardings)):
+            axes = tuple(a for a in sharding_lib.spec_axes(sh.spec)
+                         if self.mesh.axis_size(a) > 1)
+            groups.setdefault((axes, s.dtype), []).append(i)
+        for (axes, _), idx in groups.items():
+            if axes:
+                total = collectives.all_reduce_sum(
+                    torch.stack([sums[i] for i in idx]), self.mesh, axes)
+                for j, i in enumerate(idx):
+                    sums[i] = total[j]
+        return torch.sqrt(sum(sums))
 
     def _holding_signals(self):
         """The optimizer writes the state leaf by leaf: an emergency save
@@ -304,6 +392,8 @@ class Trainer:
         a ``SKYTPU_PROFILE_DIR`` profiler window."""
         if num_steps <= 0:
             return {'loss': float('nan'), 'step_time_s': float('nan')}
+        if self.mesh is not None and self.mesh.rank != 0:
+            log_every = 0        # one rank logs: all hold the same loss
         warmup = min(max(1, min(num_steps // 3, 4)), num_steps - 1)
         last_metrics: Dict[str, torch.Tensor] = {}
         for _ in range(warmup):
@@ -338,7 +428,11 @@ class Trainer:
                 if peak_flops is None:
                     peak_flops = (H100_BF16_FLOPS
                                   if self.device.type == 'cuda'
-                                  else CPU_FLOPS)
+                                  else CPU_FLOPS) * self.world
+                    if self.shared_card and log_every:
+                        print(f'note: MFU over {self.world} x the peak of '
+                              f'one card, with {self.world} gloo ranks on '
+                              f'one card: not a multi-card rate')
                 out['mfu'] = (flops_per_token * out['tokens_per_sec']
                               / peak_flops)
                 telemetry_metrics.TRAIN_MFU.set(out['mfu'])
@@ -370,7 +464,10 @@ class Trainer:
         (the loop stalls only for the device->host snapshot), retention
         GC applies keep_last/keep_every after each commit, and — with
         emergency_save — SIGTERM triggers one blocking save of the state
-        between two steps before the process dies.  Returns the
+        between two steps before the process dies.  On a mesh the
+        interval saves block (every rank writes its windows and meets the
+        others at the commit), and there is no emergency save: a signal
+        reaches one rank, and a save needs all of them.  Returns the
         manager."""
         manager = self.checkpoint_manager(
             path, save_interval_steps=save_interval_steps,
@@ -380,7 +477,7 @@ class Trainer:
         manager.keep_every = keep_every
         manager.register_state_provider(
             lambda: (self.step, self._state_dict()))
-        if emergency_save:
+        if emergency_save and self.world == 1:
             manager.install_signal_handlers()
         self._auto_ckpt = manager
         return manager
@@ -390,14 +487,29 @@ class Trainer:
         with the one host count as both int32 counts (Adam's and the
         schedule's, equal in every run)."""
         count = torch.tensor(self.opt_state['count'], dtype=torch.int32)
-        adam = ScaleByAdamState(
-            count=count,
-            mu=ckpt_format.tree_unflatten(self.params, self.opt_state['mu']),
-            nu=ckpt_format.tree_unflatten(self.params, self.opt_state['nu']))
-        return {'params': self.params,
+        params, mu, nu = self.params, self.opt_state['mu'], \
+            self.opt_state['nu']
+        if self.mesh is not None:
+            # This rank's windows of the global leaves, each written by
+            # its one owner.
+            count = ckpt_format.Shard(count, (), [],
+                                      owner=self.mesh.rank == 0)
+            params, mu, nu = (ckpt_format.tree_unflatten(self.params, [
+                self._window(x, sh) for x, sh in
+                zip(leaves, self._shardings)]) for leaves in
+                (self._leaves, mu, nu))
+        else:
+            mu = ckpt_format.tree_unflatten(self.params, mu)
+            nu = ckpt_format.tree_unflatten(self.params, nu)
+        adam = ScaleByAdamState(count=count, mu=mu, nu=nu)
+        return {'params': params,
                 'opt_state': (EmptyState(),
                               (adam, EmptyState(),
                                ScaleByScheduleState(count=count)))}
+
+    def _window(self, x: torch.Tensor, sh) -> ckpt_format.Shard:
+        shape = sharding_lib.global_shape(sh.spec, x.shape, self.mesh)
+        return ckpt_format.Shard(x, shape, sh.bounds(shape), sh.owner)
 
     def save_checkpoint(self, path: str, blocking: bool = True) -> None:
         """Checkpoint params + optimizer state at the current step.
@@ -406,8 +518,19 @@ class Trainer:
         the background writer commit the bytes — call
         ``wait_for_checkpoints`` (or rely on the atomic commit: an
         unfinished save is simply invisible to restore)."""
-        self.checkpoint_manager(path).save(self.step, self._state_dict(),
-                                           blocking=blocking)
+        self._save(self.checkpoint_manager(path), blocking)
+
+    def _save(self, manager, blocking: bool) -> None:
+        """A save of the state at this step.  On a mesh every save is
+        blocking and ends in a barrier, so every rank sees the step
+        committed when it returns (the writers rendezvous in the
+        manager's barriers, which a writer thread must not race)."""
+        if self.mesh is None or self.world == 1:
+            manager.save(self.step, self._state_dict(), blocking=blocking)
+            return
+        manager.save(self.step, self._state_dict(), blocking=True)
+        import torch.distributed as dist
+        dist.barrier()
 
     def wait_for_checkpoints(self, path: Optional[str] = None) -> None:
         """Drain in-flight async saves (all roots, or one)."""

@@ -161,7 +161,7 @@ def collectives_case(seed, shape, dtype, axes_sizes, chunks_list):
         out[f'gather_tiled/{ax}'] = _np(
             coll.ring_all_gather(x, mesh, ax, tiled=True))
         out[f'scatter/{ax}'] = _np(coll.ring_reduce_scatter(x, mesh, ax))
-    out['allreduce'] = _np(coll._rank_order_allreduce(x, mesh, names))
+    out['allreduce'] = _np(coll.all_reduce_sum(x, mesh, names))
     for c in chunks_list:
         seen = []
         red, res = coll.pipelined_psum(
@@ -381,7 +381,193 @@ def hf_case(model_dir, tp, n_kv_heads):
     return {'params': walk(params), 'n_layers': cfg.n_layers}
 
 
+def hf_train_case(model_dir, mesh_kw):
+    """load_hf_model_sharded's blocks under LLAMA_RULES on a training
+    mesh, and the blocks shard_params cuts from the whole load."""
+    from skypilot_tpu_torch.models import convert
+    from skypilot_tpu_torch.parallel import sharding
+    mesh = _train_mesh(mesh_kw)
+    got, _ = convert.load_hf_model_sharded(model_dir, mesh, device='cpu',
+                                           rules=sharding.LLAMA_RULES)
+    full, _ = convert.load_hf_model(model_dir, device='cpu')
+    want = sharding.shard_params(full, mesh, sharding.LLAMA_RULES)
+    return {'got': _tree_np(got), 'want': _tree_np(want),
+            'whole': _tree_np(full)}
+
+
 def exit_on_rank_one(local_rank, world):
     """A launch_local_ranks target whose rank 1 exits with code 3."""
     if local_rank == 1:
         raise SystemExit(3)
+
+
+# ---- training meshes (test_torch_train_mesh.py) ---------------------------
+
+def _train_mesh(mesh_kw):
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    return mesh_lib.make_mesh(mesh_lib.MeshConfig(**mesh_kw))
+
+
+def _trainer(tree, cfg_kw, kind, mesh_kw, tc_kw, batch_spec=None):
+    import torch
+    from skypilot_tpu_torch.models import llama, moe
+    from skypilot_tpu_torch.parallel import sharding
+    from skypilot_tpu_torch.train import trainer
+    cfg = _cfg(kind, **cfg_kw)
+    mesh = _train_mesh(mesh_kw) if mesh_kw else None
+    model = moe if kind == 'moe' else llama
+    rules = sharding.MOE_RULES if kind == 'moe' else sharding.LLAMA_RULES
+    params = _params(tree, cfg)
+    kw = {} if mesh is None else {'mesh': mesh, 'rules': rules}
+
+    def loss(p, b):
+        if mesh is None:
+            return model.loss_fn(p, b, cfg)
+        return model.loss_fn(p, b, cfg, mesh=mesh, rules=rules)
+    del torch
+    return trainer.Trainer(loss, params, trainer.TrainConfig(**tc_kw),
+                           device='cpu', **kw), mesh, rules
+
+
+def train_case(tree, cfg_kw, kind, mesh_kw, tc_kw, batches):
+    """Trainer steps on `batches` (global (B, S + 1) token arrays) on
+    this rank's blocks of `tree`: each step's loss and grad_norm (with
+    their bits), and the parameters after, put back together."""
+    from skypilot_tpu_torch.parallel import sharding
+    tr, mesh, rules = _trainer(tree, cfg_kw, kind, mesh_kw, tc_kw)
+    out = {'loss': [], 'grad_norm': [], 'bits': []}
+    for b in batches:
+        m = tr.run_step({'tokens': b})
+        out['loss'].append(float(m['loss']))
+        out['grad_norm'].append(float(m['grad_norm']))
+        out['bits'].append((m['loss'].double().item(),
+                            m['grad_norm'].double().item()))
+    out['params'] = (sharding.gather_params(tr.params, mesh, rules)
+                     if mesh is not None else
+                     _tree_np(tr.params))
+    return out
+
+
+def _tree_np(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_np(v) for k, v in tree.items()}
+    return _np(tree)
+
+
+def ckpt_save_case(tree, cfg_kw, kind, mesh_kw, tc_kw, batches, root,
+                   restore_from=None):
+    """Trainer steps on this rank's blocks (after restoring the newest
+    step under `restore_from` when given), then a save under `root`;
+    returns the state put back together, as train_case does."""
+    from skypilot_tpu_torch.parallel import sharding
+    tr, mesh, rules = _trainer(tree, cfg_kw, kind, mesh_kw, tc_kw)
+    restored = None
+    if restore_from is not None:
+        restored = tr.restore_latest(restore_from)
+    losses = [float(tr.run_step({'tokens': b})['loss']) for b in batches]
+    if root is not None:
+        tr.save_checkpoint(root)
+    tr.close()
+
+    def whole(leaves):
+        from skypilot_tpu_torch.ckpt import format as ckpt_format
+        t = ckpt_format.tree_unflatten(tr.params, leaves)
+        return (sharding.gather_params(t, mesh, rules) if mesh is not None
+                else _tree_np(t))
+    return {'step': tr.step, 'restored': restored, 'losses': losses,
+            'params': whole(tr._leaves), 'mu': whole(tr.opt_state['mu']),
+            'nu': whole(tr.opt_state['nu'])}
+
+
+def ring_case(q, k, v, do, mesh_kw, causal, head_axis):
+    """parallel/ring_attention.ring_attention of the global q, k, v on
+    this rank: its output block and where it lies, and the gradients of
+    sum(out * do's block) with respect to the global q, k, v (this
+    rank's share: the parent adds them over the ranks)."""
+    import torch
+    from skypilot_tpu_torch.parallel import ring_attention, sharding
+    mesh = _train_mesh(mesh_kw)
+    qt, kt, vt = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
+    out = ring_attention.ring_attention(
+        qt, kt, vt, mesh, causal=causal, head_axis=head_axis)
+    spec = sharding.P(('dp', 'fsdp'), 'sp', head_axis, None)
+    bounds = sharding.block_bounds(spec, q.shape, mesh)
+    d = torch.tensor(do)[tuple(slice(a, b) for a, b in bounds)]
+    (out * d).sum().backward()
+    return {'out': _np(out), 'bounds': bounds,
+            'grads': [_np(t.grad) for t in (qt, kt, vt)]}
+
+
+def grad_collectives_case(seed, dtype):
+    """Each autograd collective of parallel/collectives.py on a
+    dp 2 x tp 2 mesh: its forward and the gradient it sends back for a
+    cotangent, for every rank's input drawn from `seed` + rank."""
+    import torch
+    from skypilot_tpu_torch.parallel import collectives
+    mesh = _train_mesh({'dp': 2, 'tp': 2})
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(seed + mesh.rank)
+    x = torch.randn(4, 6, generator=g).to(dt)
+    ct = torch.randn(8, 6, generator=g).to(dt)
+    out = {}
+    cases = {
+        'gather_scatter': (lambda t: collectives.gather_scatter(
+            t, mesh, 'dp', 0), ct),
+        'gather_scatter_dim1': (lambda t: collectives.gather_scatter(
+            t, mesh, 'tp', 1), ct.reshape(4, 12)),
+        'sum_forward': (lambda t: collectives.sum_forward(
+            t, mesh, ('dp', 'tp')), ct[:4]),
+        'sum_backward': (lambda t: collectives.sum_backward(
+            t, mesh, 'tp'), ct[:4]),
+        'split_gather': (lambda t: collectives.split_gather(
+            t, mesh, 'dp', 0), ct[:2]),
+        'ring_permute': (lambda t: collectives.ring_permute(
+            t, mesh, 'tp'), ct[:4]),
+    }
+    for name, (fn, cot) in cases.items():
+        t = x.clone().requires_grad_()
+        y = fn(t)
+        (grad,) = torch.autograd.grad(y, t, cot)
+        out[name] = (_np(y), _np(grad))
+    return {'rank': mesh.rank, 'coords': mesh.coords, 'results': out}
+
+
+def pp_refused_case(cfg_kw):
+    """The training forward on a mesh with pp 2 is refused, naming its
+    ROADMAP item; returns the message."""
+    import torch
+    from skypilot_tpu_torch.models import llama
+    cfg = _cfg('llama', **cfg_kw)
+    mesh = _train_mesh({'pp': 2, 'dp': 2})
+    try:
+        llama.loss_fn({}, {'tokens': torch.zeros((1, 9), dtype=torch.long)},
+                      cfg, mesh=mesh)
+    except NotImplementedError as e:
+        return str(e)
+    return 'not refused'
+
+
+def forward_case(tree, cfg_kw, kind, mesh_kw, tokens):
+    """The sharded forward on this rank: llama.forward's logits block
+    (its rows over dp x fsdp, its vocabulary block over tp), or
+    moe.hidden_states' rows and aux loss, with the block's bounds."""
+    import torch
+    from skypilot_tpu_torch.models import llama, moe
+    from skypilot_tpu_torch.parallel import sharding
+    cfg = _cfg(kind, **cfg_kw)
+    mesh = _train_mesh(mesh_kw)
+    rules = sharding.MOE_RULES if kind == 'moe' else sharding.LLAMA_RULES
+    params = sharding.shard_params(_params(tree, cfg), mesh, rules)
+    t = torch.as_tensor(tokens)
+    rows = sharding.shard_tensor(t, sharding.BATCH_SPEC, mesh)
+    with torch.no_grad():
+        if kind == 'moe':
+            h, aux = moe.hidden_states(params, rows, cfg, mesh=mesh)
+            spec, out = sharding.P(('dp', 'fsdp')), {'aux': float(aux)}
+            shape = (t.shape[0], t.shape[1], cfg.d_model)
+        else:
+            h = llama.forward(params, rows, cfg, mesh=mesh)
+            spec, out = sharding.LOGITS_SPEC, {}
+            shape = (t.shape[0], t.shape[1], cfg.vocab_size)
+    out.update(out=_np(h), bounds=sharding.block_bounds(spec, shape, mesh))
+    return out

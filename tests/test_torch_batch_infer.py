@@ -11,7 +11,8 @@ What must hold:
 - ``--resume`` skips the ids already written and appends the rest, so
   every id is written exactly once, and the resumed lines equal an
   uninterrupted run's (greedy, f32);
-- ``--tp`` above 1 is refused naming ROADMAP item 11(g);
+- ``--dp``/``--fsdp``/``--tp`` above 1 score eval_ppl on a training
+  mesh, its NLL within 1e-5 relative of one rank's;
 - eval_ppl prints {"perplexity", "nll", "tokens", "seqs"}, drops and
   reports a ragged tail, reads JSONL "text" lines, refuses a corpus
   shorter than one window, and is deterministic;
@@ -149,15 +150,28 @@ def test_batch_infer_resume_after_a_cut_writes_each_id_once(tmp_path):
 
 
 def test_entry_points_refuse_meshes_naming_11g(tmp_path):
-    """The training meshes (eval_ppl's --dp and --fsdp) are still refused
-    naming 11(g); the serving tp (--tp) is carried, and a --tp 2 run
-    gives the --tp 1 run's output (one process a rank, gloo)."""
+    """eval_ppl's --dp 2 and --fsdp 2 score on a training mesh of 2 rank
+    processes (gloo), their NLL within 1e-5 relative of one rank's;
+    batch_infer's serving tp (--tp) is carried, and a --tp 2 run gives
+    the --tp 1 run's output (one process a rank, gloo); so is
+    eval_ppl's --tp, on the same training mesh as --dp and --fsdp."""
     inp = tmp_path / 'p.jsonl'
     inp.write_text(json.dumps({'prompt_ids': [1, 2]}) + '\n'
                    + json.dumps({'prompt': 'two ranks'}) + '\n')
-    for flag in ('--dp', '--fsdp'):
-        proc = _run('train.eval_ppl', ['--data-file', str(inp), flag, '2'])
-        assert proc.returncode == 2 and '11(g)' in proc.stderr, flag
+    corpus = tmp_path / 'corpus.txt'
+    corpus.write_text('the quick brown fox jumps over the lazy dog. ' * 40)
+    scored = [_run('train.eval_ppl', ['--data-file', str(corpus),
+                                      '--seq-len', '32', '--batch-size', '4',
+                                      '--max-batches', '2', '--loss-chunk',
+                                      '16', *flag])
+              for flag in ((), ('--dp', '2'), ('--fsdp', '2'))]
+    assert all(p.returncode == 0 for p in scored), \
+        [p.stderr[-2000:] for p in scored]
+    one, *meshes = (json.loads(p.stdout.splitlines()[-1]) for p in scored)
+    for got in meshes:
+        # f32: each rank's sum, and the ranks' added in rank order.
+        assert got['nll'] == pytest.approx(one['nll'], rel=1e-5)
+        assert (got['tokens'], got['seqs']) == (one['tokens'], one['seqs'])
     outs = []
     for tp in ('1', '2'):
         out = tmp_path / f'o{tp}.jsonl'
@@ -167,8 +181,6 @@ def test_entry_points_refuse_meshes_naming_11g(tmp_path):
         assert proc.returncode == 0, proc.stdout + proc.stderr
         outs.append(_rows(out))
     assert outs[0] == outs[1] and len(outs[0]) == 2
-    corpus = tmp_path / 'corpus.txt'
-    corpus.write_text('the quick brown fox jumps over the lazy dog. ' * 40)
     lines = [_run('train.eval_ppl', ['--data-file', str(corpus),
                                      '--seq-len', '32', '--batch-size', '2',
                                      '--max-batches', '2', '--loss-chunk',

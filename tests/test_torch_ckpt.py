@@ -21,6 +21,7 @@ import signal
 import subprocess
 import sys
 import threading
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -662,11 +663,31 @@ def _grid_tree(seed=0):
     }
 
 
+def _even_rows(tree, p, n):
+    """Process p of n's Shard windows of `tree`: axis 0 split evenly
+    where it divides, else the whole leaf, written by one owner picked
+    by the key's crc (the JAX package's even_row_shard layout)."""
+    named, treedef = ckpt_format.flatten_with_keys(tree)
+    leaves = []
+    for key, leaf in named:
+        shape = tuple(leaf.shape)
+        window = ckpt_format.full_slice(shape)
+        owned = zlib.crc32(key.encode()) % n == p
+        if shape and shape[0] >= n and shape[0] % n == 0:
+            rows = shape[0] // n
+            window[0] = (p * rows, (p + 1) * rows)
+            owned = True
+        leaves.append(ckpt_format.Shard(
+            leaf[tuple(slice(a, b) for a, b in window)], shape, window,
+            owned))
+    return ckpt_format.tree_unflatten(treedef, leaves)
+
+
 def _write_grid(root, step, tree, n):
     for p in range(n):
         ckpt_format.write_process_shards(
-            str(root), step, tree, process_index=p, process_count=n,
-            shard_spec=ckpt_format.even_row_shard)
+            str(root), step, _even_rows(tree, p, n), process_index=p,
+            process_count=n)
     ckpt_format.commit(str(root), step, process_count=n)
 
 
@@ -678,9 +699,8 @@ def test_reshard_parity_any_grid_to_any_grid(tmp_path, writers, readers):
     _assert_tree_equal(tree, ckpt_format.restore_pytree(
         str(tmp_path), 5, _grid_tree(0)))
     parts = [ckpt_format.restore_pytree_resharded(
-        str(tmp_path), 5, _grid_tree(0),
-        shard_spec=ckpt_format.even_row_shard,
-        process_index=q, process_count=readers) for q in range(readers)]
+        str(tmp_path), 5, _even_rows(_grid_tree(0), q, readers))
+        for q in range(readers)]
     for key, want in tree.items():
         windows = [p[key] for p in parts]
         if want.ndim and want.shape[0] % readers == 0 \
@@ -695,9 +715,7 @@ def test_reshard_reads_only_overlapping_shards(tmp_path):
     _write_grid(tmp_path, 5, _grid_tree(2), 4)
     stats = {}
     ckpt_format.restore_pytree_resharded(
-        str(tmp_path), 5, _grid_tree(0),
-        shard_spec=ckpt_format.even_row_shard,
-        process_index=0, process_count=4, stats=stats)
+        str(tmp_path), 5, _even_rows(_grid_tree(0), 0, 4), stats=stats)
     assert stats['writer_process_count'] == 4
     assert stats['files_skipped'] > 0
     assert stats['files_read'] + stats['files_skipped'] >= stats['leaves']
@@ -710,9 +728,7 @@ def test_crash_at_any_reshard_stage_is_retryable(tmp_path, stage):
     with stage_hook(CrashAtStage(stage)):
         with pytest.raises(SimulatedCrash):
             ckpt_format.restore_pytree_resharded(
-                str(tmp_path), 3, _grid_tree(0),
-                shard_spec=ckpt_format.even_row_shard,
-                process_index=0, process_count=2)
+                str(tmp_path), 3, _even_rows(_grid_tree(0), 0, 2))
     assert ckpt_format.latest_step(str(tmp_path)) == 3
     manager = _manager(tmp_path)
     step, restored = manager.restore_latest(_grid_tree(0))
@@ -763,9 +779,7 @@ def test_v1_manifest_from_larger_grid_restores_anywhere(tmp_path):
     _assert_tree_equal(tree, ckpt_format.restore_pytree(
         str(tmp_path), 3, _grid_tree(0)))
     windowed = ckpt_format.restore_pytree_resharded(
-        str(tmp_path), 3, _grid_tree(0),
-        shard_spec=ckpt_format.even_row_shard,
-        process_index=1, process_count=2)
+        str(tmp_path), 3, _even_rows(_grid_tree(0), 1, 2))
     assert _bits(windowed['w']) == _bits(tree['w'][4:])
 
 
@@ -1009,7 +1023,8 @@ def _entry_point(ckpt_dir, *extra):
 def test_entry_point_commits_and_resumes(tmp_path):
     """train_llama on the CPU: the first run commits steps 2 and 4; the
     relaunch with --resume auto restores step 4 (walking past a torn
-    step 6 dir) and finishes at step 6."""
+    step 6 dir) and finishes at step 6; a third run on a mesh of 4 fsdp
+    ranks resumes step 6 and commits step 8."""
     first = _entry_point(tmp_path, '--steps', '4')
     assert first.returncode == 0, first.stderr
     assert 'saved step 2' in first.stdout and 'saved step 4' in first.stdout
@@ -1023,5 +1038,12 @@ def test_entry_point_commits_and_resumes(tmp_path):
     assert 'saved step 6' in lines
     final = [line for line in lines if line.startswith('final: loss=')]
     assert final and np.isfinite(float(final[0].split()[1][5:]))
-    refused = _entry_point(tmp_path, '--steps', '6', '--fsdp', '4')
-    assert refused.returncode != 0 and '11(g)' in refused.stderr
+    # On a mesh of 4 fsdp ranks: the one-card run's step 6 resumes, and
+    # the ranks commit step 8 together.
+    mesh = _entry_point(tmp_path, '--steps', '8', '--fsdp', '4',
+                        '--batch-size', '4', '--resume', 'auto')
+    assert mesh.returncode == 0, mesh.stderr[-3000:]
+    lines = mesh.stdout.splitlines()
+    assert lines[0].startswith('device=cpu mesh(fsdp=4) ranks=4')
+    assert 'resumed from step 6' in lines and 'saved step 8' in lines
+    assert ckpt_lib.CheckpointManager(str(tmp_path)).all_steps()[-1] == 8

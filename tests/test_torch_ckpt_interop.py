@@ -179,19 +179,43 @@ def test_port_checkpoint_restores_bitwise_into_jax(case, tmp_path):
     j_tr.close()
 
 
+def _even_rows(tree, p, n):
+    """Process p's windows of `tree` in the JAX package's even_row_shard
+    layout, as the port gives them: Shard leaves (a leaf whose rows do
+    not split is whole, written by its one crc-picked owner)."""
+    named, treedef = t_format.flatten_with_keys(tree)
+    leaves = []
+    for key, leaf in named:
+        shape = tuple(leaf.shape)
+        window = j_format.even_row_shard(key, shape, p, n)
+        owned = window is not None
+        window = window or t_format.full_slice(shape)
+        leaves.append(t_format.Shard(
+            leaf[tuple(slice(a, b) for a, b in window)], shape, window,
+            owned))
+    return t_format.tree_unflatten(treedef, leaves)
+
+
 def _write_two_processes(fmt, root, tree):
     for p in range(2):
-        fmt.write_process_shards(str(root), 3, tree, process_index=p,
-                                 process_count=2,
-                                 shard_spec=fmt.even_row_shard)
+        if fmt is j_format:
+            fmt.write_process_shards(str(root), 3, tree, process_index=p,
+                                     process_count=2,
+                                     shard_spec=fmt.even_row_shard)
+        else:
+            fmt.write_process_shards(str(root), 3, _even_rows(tree, p, 2),
+                                     process_index=p, process_count=2)
     fmt.commit(str(root), 3, process_count=2)
 
 
 def _resharded(fmt, root, template):
-    parts = [fmt.restore_pytree_resharded(
-        str(root), 3, template, shard_spec=fmt.even_row_shard,
-        process_index=q, process_count=2) for q in range(2)]
-    return parts
+    if fmt is j_format:
+        return [fmt.restore_pytree_resharded(
+            str(root), 3, template, shard_spec=fmt.even_row_shard,
+            process_index=q, process_count=2) for q in range(2)]
+    return [fmt.restore_pytree_resharded(str(root), 3,
+                                         _even_rows(template, q, 2))
+            for q in range(2)]
 
 
 def test_sharded_writes_cross_the_packages(case, tmp_path):

@@ -100,6 +100,12 @@ def test_scan_covers_the_training_modules():
             'skypilot_tpu_torch/infer/tp.py',
             'skypilot_tpu_torch/infer/multihost.py',
             'skypilot_tpu_torch/infer/multihost_check.py',
+            'skypilot_tpu_torch/parallel/ring_attention.py',
+            'skypilot_tpu_torch/train/mesh_run.py',
+            'skypilot_tpu_torch/train/train_long_context.py',
+            'skypilot_tpu_torch/train/allreduce_bench.py',
+            'skypilot_tpu_torch/train/train_moe.py',
+            'scripts/torch_train_mesh_smoke.py',
             'scripts/torch_tp_smoke.py',
             'scripts/torch_gloo_probe.py',
             'scripts/torch_profile_train.py'} <= scanned

@@ -10,7 +10,7 @@ What must hold:
 - over 4 gloo rank processes, every collective is bitwise a sum or
   stack computed in one process: the gathers stack in mesh-rank order,
   ``ring_reduce_scatter`` sums in the ring's arrival order, and
-  ``_rank_order_allreduce`` and ``pipelined_psum`` (1-4 chunks) sum
+  ``all_reduce_sum`` and ``pipelined_psum`` (1-4 chunks) sum
   rank 0 first, in f32 and bf16;
 - ``make_tp_mesh`` lays dp outermost and the GQA overshard ('tpq')
   innermost, with one process group per set of axes.

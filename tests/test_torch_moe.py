@@ -551,10 +551,17 @@ def test_train_moe_runs_on_the_cpu():
 
 @pytest.mark.parametrize('flag', [('--ep', '2'), ('--dp', '2')])
 def test_train_moe_refuses_a_mesh_naming_its_roadmap_item(flag):
+    """--ep and --dp above 1 train on a mesh of rank processes (the
+    experts over ep, the batch over dp) and print the reference's line."""
     proc = _run_entry('skypilot_tpu_torch.train.train_moe', *flag,
-                      '--device', 'cpu', timeout=30)
-    assert proc.returncode != 0
-    assert '11(g)' in proc.stderr and '11(e)' not in proc.stderr
+                      '--model-size', 'debug', '--device', 'cpu', '--steps',
+                      '3', '--seq-len', '32', '--batch-size', '2',
+                      timeout=180)
+    assert proc.returncode == 0, proc.stdout + proc.stderr[-3000:]
+    last = proc.stdout.rstrip().splitlines()[-1]
+    ep, dp = (2, 1) if flag[0] == '--ep' else (1, 2)
+    assert last.startswith(f'moe OK: ep={ep} dp={dp} experts=4 loss='), last
+    assert np.isfinite(float(last.split('loss=')[1].split()[0]))
 
 
 def test_train_moe_small_is_the_reference_model():

@@ -491,9 +491,9 @@ def test_generator_guards():
     with pytest.raises(ValueError, match='Empty prompt'):
         gen.generate([[]])
     assert gen.generate([[1] * 64], max_new_tokens=4) == [[]]
-    # A mesh on a legacy plane (K7 per shard) is deferred to 11(g).
+    # A mesh on a legacy plane (K7 per shard) is deferred to 11(h).
     one_rank = mesh_lib.Mesh(np.zeros((1, 1), np.int64), ('tp', 'tpq'))
-    with pytest.raises(NotImplementedError, match=r'item 11\(g\)'):
+    with pytest.raises(NotImplementedError, match=r'item 11\(h\)'):
         engine.Generator(params, cfg, GeneratorConfig(
             max_seq_len=64, decode_impl='inplace'), mesh=one_rank,
             device='cpu')

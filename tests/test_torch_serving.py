@@ -158,8 +158,8 @@ def test_generator_config_validation_matches_jax(kwargs, match):
 
 @pytest.mark.parametrize('kwargs,item', [
     (dict(decode_impl='paged', max_seq_len=128, prompt_buckets=[64]),
-     '11(g)'),
-    (dict(decode_impl='inplace', max_seq_len=128), '11(g)'),
+     '11(h)'),
+    (dict(decode_impl='inplace', max_seq_len=128), '11(h)'),
 ])
 def test_deferred_options_name_their_roadmap_item(kwargs, item):
     """A mesh on a legacy plane (K7 per shard) is the one mesh option

@@ -242,8 +242,8 @@ def test_train_sft_runs_on_the_cpu(tmp_path):
     assert proc.stdout.rstrip().endswith('SFT done.')
 
 
-_REFUSED = [(('--tp', '2'), '11(g)'), (('--fsdp', '4'), '11(g)'),
-            (('--ep', '2'), '11(g)')]
+_REFUSED = [(('--tp', '2'), '11(h)'), (('--fsdp', '4'), '11(h)'),
+            (('--ep', '2'), '11(h)')]
 
 
 @pytest.mark.parametrize('module,flag,item', [
