@@ -256,26 +256,30 @@ Phases (any failure exits non-zero):
    as processes that share cuda:0 over gloo (NCCL refuses two ranks on
    one GPU): every rank's kernels run at its own shapes and the
    collectives on CUDA tensors, but no number of it is a multi-card
-   rate.  The parent built the kernels (phase 2), and collects every
-   rank's exit code: one failed rank fails the phase.  Phase 3 checks
+   rate.  The parent built the kernels (phase 2); phases 16-18 reuse one
+   pool of 2 and one of 4 rank processes (RankPool), spawned at first
+   use: one failed rank fails the phase, and every rank's exit code is
+   checked when the pools close (16a: a pool task whose rank 1 raises
+   fails and discards its pool).  Phase 3 checks
    K1, K2 and K4 at the per-rank shapes and K3 at d 8192.  (a) 4 ranks:
    ring_all_gather (tiled and not), ring_reduce_scatter over 2 x 2 and
    4 ranks, pipelined_psum at 1-4 chunks, f32 and bf16, each bitwise the stack or sum in that rank's order computed in
-   this process; a spawn whose rank 1 fails must fail.  (b) LLAMA3_8B
-   at tp 2 from init_sharded_params (seed 0): phase 5's 8 prompts capped
-   at 256 tokens, 64 new tokens in bf16 and over an int8 arena, 8 with
+   this process; a pool task whose rank 1 raises must fail.  (b)
+   LLAMA3_8B's widths at 16 of 32 layers (cut for time) at tp 2 from
+   init_sharded_params (seed 0): phase 5's 8 prompts capped at 256
+   tokens, 64 new tokens in bf16 and over an int8 arena, 8 with
    spec_k 4 and fuse_budget 64 (K4), the combines synchronous,
    against tp 1 on the same weights: the
    first-step logits within TP_LOGITS_REL of the largest (each shard
    rounds its partial product to bf16), and each request's tokens
    matched before its first difference; an f32 config at tp 2 must give
-   tp 1's tokens.  (c) LLAMA3_70B's widths at 8 of 80 layers, tp 4: each
-   rank's peak device memory is its shard, its arena and at most one
-   drawn f32 slab, never the model; 4 requests against tp 1 (18 GB on
-   the card), through the overlapped combines (4 chunks).  (d)
+   tp 1's tokens.  (c) LLAMA3_70B's widths at 4 of 80 layers (cut for
+   time), tp 4: each rank's peak device memory is its shard, its arena
+   and at most one drawn f32 slab, never the model; 4 requests against
+   tp 1, through the overlapped combines (4 chunks).  (d)
    Qwen2.5-1.5B at tp 4 (tp_kv 2 x tpq 2) read by
    load_hf_model_sharded from HF-layout files, against load_hf_model.
-   (e) LLAMA3_8B's widths at 8 layers, tp 2: the Generator at
+   (e) LLAMA3_8B's widths at 4 layers, tp 2: the Generator at
    overlap_chunks 2 and 4 against the synchronous path (K3 and whole
    products): in f32 the greedy tokens must be identical; in bf16 the
    tokens matched before the first difference and every step's last
@@ -289,7 +293,8 @@ Phases (any failure exits non-zero):
    models/moe.py over ep), its ranks 4 processes sharing cuda:0 over
    gloo (no multi-card rate), every arm in one spawn, each against one
    card on the same seed and batches (the references first, in this
-   process): (a) LLAMA_1B bf16 at fsdp 2 x tp 2, 4 x 1024, 1 warm-up and
+   process): (a) LLAMA_1B bf16 at 4 of its 16 layers (cut for time) at
+   fsdp 2 x tp 2, 4 x 1024, 1 warm-up and
    3 timed steps: each step's loss and grad norm within MESH_LOSS_REL /
    MESH_NORM_REL (17e's loss within MESH_MOE_LOSS_REL), each rank's peak within its state share, a gathered
    layer and its gradient and one card's activations; (b) an f32 config
@@ -297,13 +302,38 @@ Phases (any failure exits non-zero):
    norms within 1e-5, parameters within test_torch_train's f32
    tolerance; (c) LLAMA3_8B's widths at 2 layers, fsdp 4, one step;
    (d) train_long_context's Trainer at sp 4, seq 8192, LLAMA_1B widths
-   at 8 layers (ring attention: the sp ranks launch K3 only; the
+   at 4 layers (ring attention: the sp ranks launch K3 only; the
    one-card reference K2/K5/K6); (e) train_moe's 'small' at ep 4 and ep
    2 x dp 2; (f) a checkpoint saved at fsdp 2 x tp 2 restores bitwise on
    one card (rank 0), which resumes and saves, and that restores
    bitwise at fsdp 2 x tp 2, which resumes; (g) allreduce_bench over 4
-   ranks with --sharded-decode.  Every phase prints its seconds, and
-   the run its whole.
+   ranks with --sharded-decode.
+18. pipelines and post-training meshes (parallel/pipeline.py, the
+   pipelined loss through llama.forward_pipelined, LoRA, DPO and GRPO
+   on meshes, MoE's 'capacity' router under sp), 4 ranks sharing cuda:0
+   over gloo in one spawn, each arm against one card on the same seed
+   (the references first, in this process): (a) LLAMA_1B bf16 at pp 2 x
+   dp 2, 8 x 1024 in 4 microbatches, 1 + 3 steps: losses within
+   MESH_LOSS_REL and grad norms within MESH_NORM_REL; (b) 17b's f32
+   config at pp 4 and pp 2 x fsdp 2: losses within 1e-6, parameters
+   within 17b's bound; (c) pp 2 x sp 2 at 2 x 4096 on LLAMA_1B's widths
+   at 4 layers (cut for time); (d) LoRA-SFT and LoRA-DPO, 2 steps each,
+   of LLAMA3_8B's widths at 2 layers (cut for time) at fsdp 2 x tp 2, the
+   SFT adapters merged by train_sft's --merge-save function on the mesh
+   and held bitwise against one card's merge, DPO's second step held by
+   its logprob sums (_hold_dpo), and one GRPO step
+   on LLAMA_1B at dp 2 x fsdp 2 with 10c's settings (rollouts on the
+   policy gathered whole: they equal one card's, and the first loss is
+   held to its terms' size); (e) train_moe's 'small' with the 'capacity'
+   router at sp 2 x ep 2, 17e's shapes, within MESH_MOE_LOSS_REL; (f)
+   LLAMA3_8B's widths at 4 layers (cut for time) served at tp 2 on the
+   'paged' (K7 per shard) and 'inplace' planes, bf16 and int8 KV, phase
+   7's requests capped as in 16b, against tp 1 (prefill logits within
+   TP_LOGITS_REL), each plane's decode steps fed the same tokens at tp 2
+   and tp 1 (logits within TP_LOGITS_REL), and 16b's f32 config at tp 2
+   on both planes, whose greedy tokens must equal tp 1's.  Phase 3 checks K7 at the per-shard shape
+   and K2/K5/K6 at 18a's microbatch and 18d's rank shapes.  Every phase
+   prints its seconds, and the run its whole.
 
 Every kernel of a main-path run must launch > 0 times in that run (the
 counts are set to 0 just before it and read just after; a replayed graph
@@ -317,13 +347,17 @@ both 14c runs, K1, K2 and K3 from 15a, 15b and 15d (batch_infer's child
 reports its counts), K2 without its lse and K3 from 15c and 15e, K1,
 K2 and K3 from every serving path of phase 16, summed over its ranks,
 and K4 from 16b's speculative arm; K2 with its lse, K3, K5 and K6 on
-every rank of 17a, 17c and both 17e arms, K3 on every rank of 17d); K2, K5
+every rank of 17a, 17c and both 17e arms, K3 on every rank of 17d; K2
+with its lse, K3, K5 and K6 from 18a, 18d's three arms (K1 too from
+GRPO's rollouts), K3 from 18c and 18e, K2, K3 and K7 per shard (never
+K1) from 18f's 'paged' arms and K2 and K3 (neither K1 nor K7) from its
+'inplace' ones); K2, K5
 and K6 only on their
 tensor-core route on every path (bf16 at head_dim 128, and 12a's K2 at
 256); K4 on phase 6's paths,
 where it must also take its split route; K1 and K7 only on their split
-route on every path of phases 5 to 7, 10c, 11a, 12a, 12b, 14, 15a, 15b
-and 15d (B KV <= 128
+route on every path of phases 5 to 7, 10c, 11a, 12a, 12b, 14, 15a, 15b,
+15d, 18d's GRPO and 18f (B KV <= 128
 < 2 x 132 SMs).  The last lines
 of standard output are
 the {"kernels": [...]} line, the nvidia-smi name/power-limit line, and
@@ -808,14 +842,21 @@ def check_flash_at(attention, ptxas, name):
 # phase 17's per-rank shapes: LLAMA_1B at fsdp 2 x tp 2 (batch 4 over 2
 # data shards, 8 of 16 heads over 4 of 8 KV heads), the 8B trunk at
 # fsdp 4 (batch 4 x 2048 over 4 shards), train_moe's 'small' model at ep
-# 4 (the batch is not split over ep) and at ep 2 x dp 2.
+# 4 (the batch is not split over ep) and at ep 2 x dp 2; then phase 18's:
+# a pipeline stage's microbatch of 18a (LLAMA_1B, 8 rows over dp 2 in 4
+# microbatches) and 18d's LoRA-SFT rank at LLAMA3_8B's widths (2 rows
+# over fsdp 2, 16 of 32 heads over 4 of 8 KV heads).
 TRAIN_SHAPES = {'1b': (8, 1024, 16, 8, 128), '8b': (2, 4096, 32, 8, 128),
                 'qwen': (2, 2048, 12, 2, 128),
                 '1b rank': (2, 1024, 8, 4, 128),
                 '8b rank': (1, 2048, 32, 8, 128),
                 'moe ep4 rank': (4, 2048, 8, 4, 128),
-                'moe ep2 dp2 rank': (2, 2048, 8, 4, 128)}
+                'moe ep2 dp2 rank': (2, 2048, 8, 4, 128),
+                '1b pp mb': (1, 1024, 16, 8, 128),
+                '8b lora rank': (1, 2048, 16, 4, 128)}
 TRAIN_SUFFIX = {'1b': '', '8b': '[8B trunk]', 'qwen': '[Qwen2.5-1.5B G6]',
+                '1b pp mb': '[LLAMA_1B pp2 x dp2 microbatch]',
+                '8b lora rank': '[8B widths LoRA fsdp2 x tp2 rank]',
                 '1b rank': '[LLAMA_1B fsdp2 x tp2 rank]',
                 '8b rank': '[8B trunk fsdp4 rank]',
                 'moe ep4 rank': '[MoE small ep4 rank]',
@@ -1580,21 +1621,26 @@ CONTIG_POSITIONS = ([0, 63, 64, 133, 511, 700, 1000, 1023],
                     [63, 64, 288, 1000, 1023, 1023, 1023, 1023])
 
 
-def check_contig_decode(decode_attention, ptxas):
+def check_contig_decode(decode_attention, ptxas, kv_heads=KV_HEADS,
+                        group=GROUP, tag='', seed=8,
+                        variants=('f32', 'bf16', 'int8')):
     """K7 in f32, bf16 and on an int8 cache (bf16 q) at q (8, 8, 4, 128)
-    over a 2-layer (L, 8, 1024, 8, 128) cache: against its plain version
-    at two position sets (block edges, and K1's live-key count), and on a
-    cache poisoned past each position.  Returns the kernels line entries
-    of the bf16 and int8 variants, timed at the second set."""
+    over a 2-layer (L, 8, 1024, 8, 128) cache (or `kv_heads` x `group`,
+    the per-shard shape `tag` of 18f): against its plain version at two
+    position sets (block edges, and K1's live-key count), and on a cache
+    poisoned past each position.  Returns the kernels line entries of
+    the bf16 and int8 variants, timed at the second set."""
     da = decode_attention
-    gen = torch.Generator(device='cuda').manual_seed(8)
+    gen = torch.Generator(device='cuda').manual_seed(seed)
     batch, layer = 8, 1
-    shape = (2, batch, CONTIG_LEN, KV_HEADS, HEAD_DIM)
+    shape = (2, batch, CONTIG_LEN, kv_heads, HEAD_DIM)
     results = {}
     for label, dtype, int8 in (('f32', torch.float32, False),
                                ('bf16', torch.bfloat16, False),
                                ('int8', torch.bfloat16, True)):
-        q = torch.randn(batch, KV_HEADS, GROUP, HEAD_DIM, generator=gen,
+        if label not in variants:
+            continue
+        q = torch.randn(batch, kv_heads, group, HEAD_DIM, generator=gen,
                         device='cuda').to(dtype)
         k = torch.randn(shape, generator=gen, device='cuda').to(dtype)
         v = torch.randn(shape, generator=gen, device='cuda').to(dtype)
@@ -1635,25 +1681,27 @@ def check_contig_decode(decode_attention, ptxas):
             continue
         live_keys = int((positions.long() + 1).sum())
         nbytes = 2 * q.numel() * 2 + _kv_bytes(live_keys, k) + batch * 4
-        b_ms, by = bound(nbytes, 4 * HEAD_DIM * KV_HEADS * GROUP * live_keys,
+        b_ms, by = bound(nbytes, 4 * HEAD_DIM * kv_heads * group * live_keys,
                          BF16_FLOPS)
         kt, vt = k[layer], v[layer]
         if int8:
             kt = da._dequantize(kt, ks[layer], dtype)
             vt = da._dequantize(vt, vs[layer], dtype)
         kt, vt = kt.transpose(1, 2), vt.transpose(1, 2)    # (B, KV, S, hd)
-        qs = q.reshape(batch, KV_HEADS * GROUP, 1, HEAD_DIM)
+        qs = q.reshape(batch, kv_heads * group, 1, HEAD_DIM)
         mask = (torch.arange(CONTIG_LEN, device='cuda')[None, :]
                 <= positions.long()[:, None])[:, None, None, :]
-        splits, split_len = _split_of(da, batch, CONTIG_LEN)
+        splits, split_len = _split_of(da, batch, CONTIG_LEN, kv_heads)
+        suffix = [t for t in (tag, 'int8' if int8 else '') if t]
         results[label] = {
-            'name': 'decode_attention' + ('' if label == 'bf16' else '[int8]'),
+            'name': 'decode_attention' + (f'[{", ".join(suffix)}]'
+                                          if suffix else ''),
             'route': 'cuda',
             'source': 'skypilot_tpu_torch/csrc/paged_decode.cu',
             'replaces': 'skypilot_tpu/ops/decode_attention.py:202',
-            'shape': f'q ({batch}, {KV_HEADS}, {GROUP}, {HEAD_DIM}) bf16, '
+            'shape': f'q ({batch}, {kv_heads}, {group}, {HEAD_DIM}) bf16, '
                      f'{"int8" if int8 else "bf16"} cache (2, {batch}, '
-                     f'{CONTIG_LEN}, {KV_HEADS}, {HEAD_DIM}), live keys '
+                     f'{CONTIG_LEN}, {kv_heads}, {HEAD_DIM}), live keys '
                      f'{live_keys}',
             'splits': splits, 'split_len': split_len,
             'max_abs_err': err, 'ms': time_ms(kernel),
@@ -4886,72 +4934,122 @@ TP_PROMPT_LENGTHS = [17, 60, 128, 250, 200, 150, 100, 230]
 TP_LOGITS_REL = 0.05
 
 
-def _rank_process(rank, world, port, task, kwargs, queue):
-    """One rank of a phase-16 spawn: gloo over 127.0.0.1:port on cuda:0
-    (or the CPU), then TP_TASKS' `task`; puts (rank, ok, result or
-    traceback) on the queue and exits 1 on any failure."""
+def _pool_process(rank, world, port, device, inbox, outbox):
+    """One rank of a RankPool: gloo over 127.0.0.1:port on cuda:0 (or the
+    CPU), then each (task, kwargs) of its inbox in turn, its (rank, ok,
+    result or traceback) on the outbox, until None; exits 1 if it could
+    not join the group."""
     import traceback
     from datetime import timedelta
     import torch.distributed as dist
-    ok = False
     try:
-        if kwargs.get('device', 'cuda') == 'cuda':
+        if device == 'cuda':
             torch.cuda.set_device(0)
         dist.init_process_group(
             'gloo', init_method=f'tcp://127.0.0.1:{port}',
             world_size=world, rank=rank, timeout=timedelta(seconds=600))
-        result = globals()[task](**kwargs)
-        queue.put((rank, True, result))
-        ok = True
-        dist.destroy_process_group()
     except BaseException:
-        queue.put((rank, False, traceback.format_exc()))
-    sys.exit(0 if ok else 1)
+        outbox.put((rank, False, traceback.format_exc()))
+        sys.exit(1)
+    while True:
+        job = inbox.get()
+        if job is None:
+            break
+        task, kwargs = job
+        try:
+            outbox.put((rank, True, globals()[task](**kwargs)))
+        except BaseException:
+            outbox.put((rank, False, traceback.format_exc()))
+        gc.collect()
+        if device == 'cuda':
+            torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    sys.exit(0)
 
 
-def run_ranks(world, task, timeout=900, **kwargs):
-    """Spawn `world` rank processes running the function `task` of this
-    module with kwargs; return their results in rank order.  The kernels
-    are built already (phase 2), so no rank builds.  Every rank's exit
-    code is collected: one failed or silent rank raises, naming the
-    codes, and fails the phase and the run."""
-    import multiprocessing
-    import queue as queue_lib
-    from skypilot_tpu_torch.infer import multihost
-    ctx = multiprocessing.get_context('spawn')
-    queue = ctx.Queue()
-    port = multihost.free_port()
-    procs = [ctx.Process(target=_rank_process,
-                         args=(r, world, port, task, kwargs, queue))
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    results, errors = {}, []
-    deadline = time.monotonic() + timeout
-    try:
-        while len(results) + len(errors) < world:
+class RankPool:
+    """`world` rank processes on `device`, spawned once and reused by
+    every task of phases 16-18 (a spawn costs each rank its interpreter,
+    torch, a CUDA context and its first kernels' warm-up): run(task,
+    timeout, **kwargs) runs the function `task` of this module on every
+    rank and returns the results in rank order.  A failed or silent rank
+    kills the pool and raises; close() checks every exit code."""
+
+    def __init__(self, world, device):
+        import multiprocessing
+        from skypilot_tpu_torch.infer import multihost
+        ctx = multiprocessing.get_context('spawn')
+        self.world = world
+        self._outbox = ctx.Queue()
+        self._inboxes = [ctx.Queue() for _ in range(world)]
+        port = multihost.free_port()
+        self._procs = [ctx.Process(
+            target=_pool_process, daemon=True,
+            args=(r, world, port, device, self._inboxes[r], self._outbox))
+            for r in range(world)]
+        for p in self._procs:
+            p.start()
+
+    def run(self, task, timeout, **kwargs):
+        import queue as queue_lib
+        for inbox in self._inboxes:
+            inbox.put((task, kwargs))
+        results, errors = {}, []
+        deadline = time.monotonic() + timeout
+        while len(results) + len(errors) < self.world:
             try:
-                rank, ok, out = queue.get(
+                rank, ok, out = self._outbox.get(
                     timeout=max(1.0, deadline - time.monotonic()))
             except queue_lib.Empty:
                 break
-            if ok:
-                results[rank] = out
-            else:
-                errors.append((rank, out))
-        for p in procs:
-            p.join(max(1.0, deadline - time.monotonic()))
-    finally:
-        for p in procs:
+            (results.__setitem__(rank, out) if ok
+             else errors.append((rank, out)))
+        if errors or len(results) < self.world:
+            self.kill()
+            detail = errors[0][1] if errors else 'no result'
+            raise AssertionError(f'{task}: ranks failed (results from '
+                                 f'{sorted(results)}):\n{detail}')
+        return [results[r] for r in range(self.world)]
+
+    def kill(self):
+        for p in self._procs:
             if p.is_alive():
                 p.kill()
-                p.join()
-    codes = [p.exitcode for p in procs]
-    if errors or any(codes) or len(results) < world:
-        detail = errors[0][1] if errors else 'no result'
-        raise AssertionError(f'{task}: ranks failed (exit codes {codes}, '
-                             f'results from {sorted(results)}):\n{detail}')
-    return [results[r] for r in range(world)]
+            p.join()
+
+    def close(self):
+        for inbox in self._inboxes:
+            inbox.put(None)
+        for p in self._procs:
+            p.join(60)
+        codes = [p.exitcode for p in self._procs]
+        self.kill()
+        if any(codes):
+            raise AssertionError(f'rank pool of {self.world}: exit codes '
+                                 f'{codes}')
+
+
+_POOLS = {}
+
+
+def pooled_ranks(world, task, timeout=900, **kwargs):
+    """RankPool.run on the pool of `world` ranks on kwargs' device,
+    started on first use; a failure kills and discards the pool, so the
+    next task of that size starts a fresh one."""
+    key = (world, kwargs.get('device', 'cuda'))
+    if key not in _POOLS:
+        _POOLS[key] = RankPool(*key)
+    try:
+        return _POOLS[key].run(task, timeout, **kwargs)
+    except BaseException:
+        _POOLS.pop(key).kill()
+        raise
+
+
+def close_rank_pools():
+    """Stop every RankPool, each rank's exit code checked."""
+    while _POOLS:
+        _POOLS.popitem()[1].close()
 
 
 def _kernel_counters():
@@ -4974,11 +5072,14 @@ def _tp_config(name):
     """Phase 16's configurations by name."""
     from skypilot_tpu_torch.models import llama
     return {
-        '8b': llama.LLAMA3_8B,
-        '8b-8': dataclasses.replace(llama.LLAMA3_8B, n_layers=8),
-        '8b-8-f32': dataclasses.replace(llama.LLAMA3_8B, n_layers=8,
+        # 16b at 16 of 32 layers, 16e and 18f at 4, cut for the run's
+        # time (16b's memory gate needs the layers to outweigh the f32
+        # embedding slab).
+        '8b-16': dataclasses.replace(llama.LLAMA3_8B, n_layers=16),
+        '8b-4': dataclasses.replace(llama.LLAMA3_8B, n_layers=4),
+        '8b-4-f32': dataclasses.replace(llama.LLAMA3_8B, n_layers=4,
                                         dtype=torch.float32),
-        '70b-8': dataclasses.replace(llama.LLAMA3_70B, n_layers=8),
+        '70b-4': dataclasses.replace(llama.LLAMA3_70B, n_layers=4),
         'f32-narrow': llama.LlamaConfig(
             vocab_size=32768, d_model=1024, n_layers=4, n_heads=8,
             n_kv_heads=4, d_ff=2816, max_seq_len=2048,
@@ -4988,6 +5089,15 @@ def _tp_config(name):
             vocab_size=512, d_model=128, n_layers=2, n_heads=8,
             n_kv_heads=4, d_ff=256, max_seq_len=2048, dtype=torch.bfloat16,
             remat=False),
+        # Rehearses 18f on the host: head_dim 128, as K7 needs.
+        'tiny-hd128': llama.LlamaConfig(
+            vocab_size=512, d_model=128, n_layers=2, n_heads=4,
+            n_kv_heads=2, d_ff=256, max_seq_len=2048, dtype=torch.bfloat16,
+            remat=False, head_dim_override=128),
+        'tiny-hd128-f32': llama.LlamaConfig(
+            vocab_size=512, d_model=128, n_layers=2, n_heads=4,
+            n_kv_heads=2, d_ff=256, max_seq_len=2048, dtype=torch.float32,
+            remat=False, head_dim_override=128),
     }[name]
 
 
@@ -5008,6 +5118,48 @@ def tp_first_logits(params, cfg, prompts, mesh=None, device='cuda'):
             torch.tensor([len(p) for p in prompts], device=device),
             mesh=mesh)
     return logits.float().cpu()
+
+
+# 18f's gate on the legacy decode steps themselves: the same tokens fed
+# to tp 2 and tp 1 for this many steps after the prefill, each step's
+# logits within TP_LOGITS_REL (bf16 greedy tokens part at near ties).
+FORCED_STEPS = 8
+
+
+def tp_forced_decode(params, cfg, prompts, plane, kv_dtype, mesh=None,
+                     device='cuda'):
+    """Logits (FORCED_STEPS, B, vocab) f32 of the legacy plane `plane`'s
+    decode steps (llama_infer.get_decode_fn) over a contiguous cache of
+    the mesh's KV heads (int8 for kv_dtype 'int8') after a prefill of
+    `prompts`; step j feeds each row token j of its prompt (mod its
+    length), the same tokens at every tp."""
+    from skypilot_tpu_torch.infer import llama_infer
+    from skypilot_tpu_torch.infer import tp as tp_lib
+    longest = max(len(p) for p in prompts)
+    tokens = torch.zeros((len(prompts), longest), dtype=torch.int32)
+    for i, p in enumerate(prompts):
+        tokens[i, :len(p)] = torch.tensor(p)
+    # K7 reads the cache in blocks of 64 rows.
+    max_len = -(-(longest + FORCED_STEPS) // 64) * 64
+    cache = llama_infer.init_cache(tp_lib.local_config(cfg, mesh),
+                                   len(prompts), max_len, kv_dtype=kv_dtype,
+                                   device=device)
+    lengths = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                           device=device)
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore', DeprecationWarning)
+        step = llama_infer.get_decode_fn(plane)
+    out = []
+    with torch.inference_mode():
+        _, cache = llama_infer.prefill(params, tokens.to(device), cfg, cache,
+                                       lengths, mesh=mesh)
+        for j in range(FORCED_STEPS):
+            fed = torch.tensor([p[j % len(p)] for p in prompts],
+                               dtype=torch.int32, device=device)
+            logits, cache = step(params, fed, cfg, cache, lengths + j,
+                                 mesh=mesh)
+            out.append(logits.float().cpu())
+    return torch.stack(out)
 
 
 def tp_serve(params, cfg, gen_kw, prompts, new_tokens, mesh=None,
@@ -5042,7 +5194,8 @@ def tp_serve(params, cfg, gen_kw, prompts, new_tokens, mesh=None,
                                  if b._fuse_policy else 0),
                  'overlap': b.overlap,
                  'graphs_off_reason': b.graphs_off_reason,
-                 'arena_bytes': quant.quantized_bytes(b.pool.arena)}
+                 'arena_bytes': quant.quantized_bytes(
+                     b.pool.arena if b.pool is not None else b._cache)}
     finally:
         b.close()
     for p, toks in zip(prompts, out):
@@ -5113,21 +5266,24 @@ def _collective_input(seed, rank, dtype):
     return torch.randn(8, 4096, generator=gen).to(dtype)
 
 
-def rank_fail(device='cpu'):
-    """16a's check of the parent: rank 1 fails, rank 0 succeeds."""
+def rank_fail(fail_rank, device='cuda'):
+    """16a's check of the pool: rank `fail_rank` raises (None: none
+    does), the others succeed."""
     import torch.distributed as dist
-    if dist.get_rank() == 1:
-        raise RuntimeError('rank 1 fails on purpose')
-    return {'ok': True}
+    if dist.get_rank() == fail_rank:
+        raise RuntimeError(f'rank {fail_rank} fails on purpose')
+    return {'ok': True, 'rank': dist.get_rank()}
 
 
 def rank_serve(config, tp, seed, arms, prompt_lengths, hf_dir=None,
-               device='cuda'):
+               forced=(), device='cuda'):
     """16b-16d on one rank: this rank's shards of `config` (drawn by
     init_sharded_params from `seed`, or read from hf_dir by
     load_hf_model_sharded), the first-step logits of the prompts, and
     each (arm of TP_ARMS, new tokens) of `arms` served through the
-    batcher with the counts zeroed before it.  Returns tokens, counts and stats by arm, and the rank's
+    batcher with the counts zeroed before it, then each (plane, kv
+    dtype) of `forced` through tp_forced_decode.  Returns tokens,
+    counts and stats by arm, rank 0's forced logits, and the rank's
     shard bytes and peak device memory."""
     from skypilot_tpu_torch.infer import quant
     from skypilot_tpu_torch.infer import tp as tp_lib
@@ -5165,6 +5321,12 @@ def rank_serve(config, tp, seed, arms, prompt_lengths, hf_dir=None,
                                        new_tokens, mesh, device)
         out['arms'][arm] = {'tokens': toks, 'counts': counts,
                             'stats': stats, 'new_tokens': new_tokens}
+    out['forced'] = {}
+    for plane, kv_dtype in forced:
+        got = tp_forced_decode(params, cfg, prompts, plane, kv_dtype, mesh,
+                               device)
+        out['forced'][(plane, kv_dtype)] = (got.numpy() if mesh.rank == 0
+                                            else None)
     out['peak'] = torch.cuda.max_memory_allocated() if cuda else 0
     return out
 
@@ -5273,10 +5435,10 @@ def tp_collectives_path(device='cuda'):
     """16a: 4 ranks run every collective on f32 and bf16 CUDA tensors;
     each result is held bitwise to the stack or the sum in that rank's
     order computed here in one process (rank-order sums: rank 0 first;
-    reduce-scatter: the ring's arrival order d+1, ..., d).  Then a spawn
-    in which rank 1 fails must fail, naming exit codes [0, 1]."""
+    reduce-scatter: the ring's arrival order d+1, ..., d).  Then
+    _pool_failure_check."""
     seed = 5
-    outs = run_ranks(4, 'rank_collectives', timeout=240, seed=seed,
+    outs = pooled_ranks(4, 'rank_collectives', timeout=240, seed=seed,
                      device=device)
     fibers = {'dp': lambda r: [r % 2, r % 2 + 2],
               'tp': lambda r: [r - r % 2, r - r % 2 + 1],
@@ -5309,13 +5471,7 @@ def tp_collectives_path(device='cuda'):
                     raise AssertionError(f'16a {key} {dtype} rank {r}: not '
                                          f'bitwise the one-process result')
                 checked += 1
-    try:
-        run_ranks(2, 'rank_fail', timeout=120, device='cpu')
-    except AssertionError as e:
-        if 'exit codes [0, 1]' not in str(e):
-            raise
-    else:
-        raise AssertionError('16a: a spawn with a failing rank passed')
+    _pool_failure_check(device)
     stats = {'card': CARD.get('line'), 'bitwise_checks': checked,
              'gather_8mb_s': outs[0]['gather_8mb']['time_s'],
              'gloo_allreduce_8mb_s': outs[0]['allreduce_8mb']['time_s'],
@@ -5323,6 +5479,24 @@ def tp_collectives_path(device='cuda'):
                      'multi-card rate'}
     log('  16a collectives: ' + json.dumps(stats))
     return stats
+
+
+def _pool_failure_check(device='cuda'):
+    """16a's check of RankPool: a task whose rank 1 raises fails, naming
+    that rank's traceback, and the pool of 2 is killed and discarded, so
+    the next task of 2 ranks (16b's) starts a fresh pool, whose exit
+    codes close_rank_pools checks."""
+    key = (2, device)
+    try:
+        pooled_ranks(2, 'rank_fail', timeout=120, fail_rank=1,
+                     device=device)
+    except AssertionError as e:
+        if 'rank 1 fails on purpose' not in str(e):
+            raise
+    else:
+        raise AssertionError('16a: a pool task with a failing rank passed')
+    if key in _POOLS:
+        raise AssertionError('16a: the failed pool was not discarded')
 
 
 def _matched(a, b):
@@ -5418,12 +5592,14 @@ def tp_memory(label, outs, cfg):
 
 
 def tp_serve_path(paths):
-    """16b: LLAMA3_8B at tp 2, bf16, int8 KV and spec_k 4 + fuse_budget
-    64 (K4 per rank), against tp 1 on the same seed; then the f32 narrow
-    config at tp 2, whose greedy tokens must equal tp 1's."""
+    """16b: LLAMA3_8B's widths at 16 of its 32 layers (cut for time) at
+    tp 2, bf16, int8 KV and spec_k 4 + fuse_budget 64 (K4 per rank),
+    against tp 1 on the same seed; then the f32 narrow config at tp 2,
+    whose greedy tokens must equal tp 1's.  Its pool of 2 is the fresh
+    one after 16a's failing pool (_pool_failure_check)."""
     from skypilot_tpu_torch.models import llama
     lengths = TP_PROMPT_LENGTHS
-    outs = run_ranks(2, 'rank_serve', timeout=600, config='8b', tp=2,
+    outs = pooled_ranks(2, 'rank_serve', timeout=600, config='8b-16', tp=2,
                      seed=0, arms=[('plain', TP_NEW_TOKENS),
                                    ('int8kv', TP_NEW_TOKENS), ('spec', 8)],
                      prompt_lengths=lengths)
@@ -5431,16 +5607,16 @@ def tp_serve_path(paths):
     for arm, key in (('plain', '16b'), ('int8kv', '16b-int8'),
                      ('spec', '16b-spec')):
         paths[key] = _sum_counts([o['arms'][arm] for o in outs])
-    cfg = _tp_config('8b')
+    cfg = _tp_config('8b-16')
     params = llama.init_params(
         cfg, torch.Generator(device='cuda').manual_seed(0), 'cuda')
-    stats = tp_compare('16b LLAMA3_8B tp 2 vs tp 1', outs, params, cfg,
-                       lengths)
+    stats = tp_compare('16b LLAMA3_8B widths, 16 layers, tp 2 vs tp 1', outs,
+                       params, cfg, lengths)
     stats['memory'] = tp_memory('16b', outs, cfg)
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    outs = run_ranks(2, 'rank_serve', timeout=300, config='f32-narrow', tp=2,
+    outs = pooled_ranks(2, 'rank_serve', timeout=300, config='f32-narrow', tp=2,
                      seed=1, arms=[('plain', 32)], prompt_lengths=lengths)
     _ranks_agree(outs, '16b f32')
     cfg = _tp_config('f32-narrow')
@@ -5452,20 +5628,20 @@ def tp_serve_path(paths):
 
 
 def tp_70b_path(paths):
-    """16c: LLAMA3_70B's widths at 8 of its 80 layers, tp 4: sharded
+    """16c: LLAMA3_70B's widths at 4 of its 80 layers, tp 4: sharded
     random init (each rank's peak against its shard), 4 requests served,
-    against tp 1 at the same depth (~18 GB on one card)."""
+    against tp 1 at the same depth (~11 GB on one card)."""
     from skypilot_tpu_torch.models import llama
     lengths = TP_PROMPT_LENGTHS[:4]
-    outs = run_ranks(4, 'rank_serve', timeout=600, config='70b-8', tp=4,
+    outs = pooled_ranks(4, 'rank_serve', timeout=600, config='70b-4', tp=4,
                      seed=0, arms=[('overlap', 16)], prompt_lengths=lengths)
     _ranks_agree(outs, '16c')
     paths['16c'] = _sum_counts([o['arms']['overlap'] for o in outs])
-    cfg = _tp_config('70b-8')
+    cfg = _tp_config('70b-4')
     memory = tp_memory('16c', outs, cfg)
     params = llama.init_params(
         cfg, torch.Generator(device='cuda').manual_seed(0), 'cuda')
-    stats = tp_compare('16c LLAMA3_70B widths, 8 layers, tp 4 vs tp 1',
+    stats = tp_compare('16c LLAMA3_70B widths, 4 layers, tp 4 vs tp 1',
                        outs, params, cfg, lengths)
     stats['memory'] = memory
     del params
@@ -5485,7 +5661,7 @@ def tp_qwen_path(paths, root):
         lambda name, shape: draw_hf_tensor(name, shape, 0, torch.bfloat16,
                                            'cuda'), torch.bfloat16)
     lengths = TP_PROMPT_LENGTHS
-    outs = run_ranks(4, 'rank_serve', timeout=400, config=None, tp=4, seed=0,
+    outs = pooled_ranks(4, 'rank_serve', timeout=400, config=None, tp=4, seed=0,
                      arms=[('plain', 16)], prompt_lengths=lengths,
                      hf_dir=directory)
     _ranks_agree(outs, '16d')
@@ -5503,7 +5679,8 @@ def tp_qwen_path(paths, root):
 
 
 def tp_overlap_path(paths):
-    """16e: LLAMA3_8B's widths at 8 layers, tp 2: the Generator at
+    """16e: LLAMA3_8B's widths at 4 layers (8 before phase 18, cut for
+    time), tp 2: the Generator at
     overlap_chunks 2 and 4 against the synchronous path.  f32: greedy
     tokens identical.  bf16: tokens matched before the first difference
     and the hidden states' max abs difference, the first step's gated at
@@ -5511,8 +5688,8 @@ def tp_overlap_path(paths):
     (8B tp 2, 70B tp 4), whole against the spans."""
     chunks = [1, 2, 4]
     stats = {'card': CARD.get('line')}
-    for config in ('8b-8-f32', '8b-8'):
-        outs = run_ranks(2, 'rank_overlap', timeout=400, config=config,
+    for config in ('8b-4-f32', '8b-4'):
+        outs = pooled_ranks(2, 'rank_overlap', timeout=400, config=config,
                          tp=2, seed=0, chunks=chunks, new_tokens=16)
         sync = outs[0][chunks[0]]['tokens']
         for r, out in enumerate(outs):
@@ -5575,12 +5752,12 @@ ROUTES = {'tc': 'launches_tc', 'split': 'launches_split',
 
 # ---- phase 17: training meshes ---------------------------------------------
 
-# Phase 17's configurations: LLAMA_1B at phase 8a's settings (and at 8
-# of its 16 layers for 17d, cut for time), an f32 config at hd 128
-# (phase 16e's widths, its 32,768 vocabulary and 4 layers, remat on so
-# the recompute runs the fsdp gathers again), LLAMA3_8B's widths at 8b's
-# 2 layers, train_moe's 'small' model; 'tiny*' rehearse the phase on the
-# host (device='cpu').
+# Phases 17 and 18's configurations: LLAMA_1B at phase 8a's settings
+# (18a) and at 4 of its 16 layers (17a, 17d, 18c), cut for time;
+# an f32 config at hd 128 (phase 16e's widths, its 32,768 vocabulary and
+# 4 layers, remat on so the recompute runs the fsdp gathers again),
+# LLAMA3_8B's widths at 2 layers (17c, 18d), train_moe's 'small' model;
+# 'tiny*' rehearse the phases on the host (device='cpu').
 def _mesh_train_config(name):
     from skypilot_tpu_torch.models import llama
     from skypilot_tpu_torch.train import train_moe
@@ -5593,7 +5770,6 @@ def _mesh_train_config(name):
                              loss_chunk=16, **remat)
     return {
         '1b': one_b,
-        '1b-8': dataclasses.replace(one_b, n_layers=8),
         'f32': llama.LlamaConfig(
             vocab_size=32768, d_model=1024, n_layers=4, n_heads=8,
             n_kv_heads=4, d_ff=2816, max_seq_len=2048, dtype=torch.float32,
@@ -5601,9 +5777,14 @@ def _mesh_train_config(name):
         '8b-2': dataclasses.replace(llama.LLAMA3_8B, n_layers=2,
                                     max_seq_len=4096, loss_chunk=512,
                                     **remat),
+        # LLAMA_1B at 4 of its 16 layers (17d, 18c), cut for time.
+        '1b-4': dataclasses.replace(one_b, n_layers=4),
         'moe-small': train_moe.PRESETS['small'],
         'tiny': tiny,
+        'tiny-4': dataclasses.replace(tiny, n_layers=4),
         'tiny-f32': dataclasses.replace(tiny, dtype=torch.float32),
+        'tiny-f32-4': dataclasses.replace(tiny, dtype=torch.float32,
+                                          n_layers=4),
         'tiny-moe': dataclasses.replace(
             train_moe.PRESETS['debug'], n_heads=4, n_kv_heads=2,
             dtype=torch.bfloat16, remat=True),
@@ -5631,8 +5812,10 @@ MESH_F32_REL = 1e-5
 # first step pays the ranks' warm-up), in this order.
 _TC_1B = dict(warmup_steps=2, total_steps=12)
 _TC_F32 = dict(learning_rate=1e-3, warmup_steps=1, total_steps=8)
+# 17a and 17d run LLAMA_1B at 4 of its 16 layers, cut for the run's
+# time when phase 18 came.
 MESH_ARMS = {
-    '17a': ('mesh_train', dict(config='1b', mesh_kw={'fsdp': 2, 'tp': 2},
+    '17a': ('mesh_train', dict(config='1b-4', mesh_kw={'fsdp': 2, 'tp': 2},
                                batch=4, seq=1024, steps=4, tc_kw=_TC_1B)),
     '17b-dp2-fsdp2': ('mesh_train', dict(
         config='f32', mesh_kw={'dp': 2, 'fsdp': 2}, batch=4, seq=256,
@@ -5643,7 +5826,7 @@ MESH_ARMS = {
     '17c': ('mesh_train', dict(config='8b-2', mesh_kw={'fsdp': 4}, batch=4,
                                seq=2048, steps=1,
                                tc_kw=dict(warmup_steps=2, total_steps=6))),
-    '17d': ('rank_long_context', dict(config='1b-8', seq=8192)),
+    '17d': ('rank_long_context', dict(config='1b-4', seq=8192)),
     '17e-ep4': ('rank_moe', dict(config='moe-small', mesh_kw={'ep': 4},
                                  batch=4, seq=2048, steps=2)),
     '17e-ep2dp2': ('rank_moe', dict(config='moe-small',
@@ -5711,10 +5894,14 @@ def _whole(tr, mesh, rules):
 
 def mesh_train(config, mesh_kw=None, batch=4, seq=1024, steps=4, tc_kw=None,
                device='cuda', gather=False, counters=True, seed=0,
-               restore=None, save=None):
+               restore=None, save=None, microbatches=None,
+               sequence_axis=None):
     """`steps` Trainer steps of `config` from seed 0 on synthetic batches
     (seed `seed`): on this rank's blocks of a mesh (mesh_kw), or on one
-    device (mesh_kw None; its checkpoints a one-process grid).  Launch
+    device (mesh_kw None; its checkpoints a one-process grid).  With
+    `microbatches` the mesh's loss runs llama.forward_pipelined over its
+    'pp' axis in that many microbatches (sequence_axis 'sp': pp x sp),
+    each pp rank holding every layer, as the rules give.  Launch
     counts are set to 0 just before the steps and read just after.
     Returns each step's loss, grad norm and seconds, the peak device
     bytes, the state's bytes, the counts, and (gather) the parameters
@@ -5744,9 +5931,11 @@ def mesh_train(config, mesh_kw=None, batch=4, seq=1024, steps=4, tc_kw=None,
     else:
         params = model.init_params(cfg, gen, device,
                                    shard=sharding.init_shard(mesh, rules))
-        tr = trainer.Trainer(
-            lambda p, b: model.loss_fn(p, b, cfg, mesh=mesh), params, tc,
-            device=device, mesh=mesh, rules=rules, params_sharded=True)
+        loss = (_pipelined_loss(cfg, mesh, microbatches, sequence_axis)
+                if microbatches else
+                (lambda p, b: model.loss_fn(p, b, cfg, mesh=mesh)))
+        tr = trainer.Trainer(loss, params, tc, device=device, mesh=mesh,
+                             rules=rules, params_sharded=True)
     del params
     out = {'rank': 0 if mesh is None else mesh.rank, 'losses': [],
            'norms': [], 'step_s': []}
@@ -5782,6 +5971,19 @@ def mesh_train(config, mesh_kw=None, batch=4, seq=1024, steps=4, tc_kw=None,
     if cuda:
         torch.cuda.empty_cache()
     return out
+
+
+def _pipelined_loss(cfg, mesh, microbatches, sequence_axis=None):
+    """llama.loss_fn through forward_pipelined (the reference's
+    forward_fn hook) on this rank's blocks."""
+    from skypilot_tpu_torch.models import llama
+
+    def forward(p, tokens, c):
+        return llama.forward_pipelined(p, tokens, c, mesh=mesh,
+                                       num_microbatches=microbatches,
+                                       sequence_axis=sequence_axis)
+    return lambda p, b: llama.loss_fn(p, b, cfg, mesh=mesh,
+                                      forward_fn=forward)
 
 
 def rank_long_context(config, seq, device='cuda'):
@@ -6006,7 +6208,7 @@ def mesh_training_path(paths, root, device='cuda', tiny=False):
             runs[key]['seconds'] = time.perf_counter() - t0
         refs[name] = runs[key]
     t0 = time.perf_counter()
-    outs = run_ranks(4, 'rank_mesh_arms', timeout=900, arms=arms, root=root,
+    outs = pooled_ranks(4, 'rank_mesh_arms', timeout=900, arms=arms, root=root,
                      device=device)
     spawn_s = time.perf_counter() - t0
     by_arm = {name: [o[name] for o in outs] for name in arms}
@@ -6105,6 +6307,522 @@ def mesh_allreduce_path(device_args=()):
     return result
 
 
+# ---- phase 18: pipelines, post-training meshes, legacy planes under tp ----
+
+# Phase 18's arms in ONE spawn of 4 ranks on cuda:0 over gloo, as phase
+# 17's: name -> (rank task, kwargs).  18a LLAMA_1B bf16 at pp 2 x dp 2,
+# phase 8a's global batch of 8 x 1024 in 4 microbatches (1 warm-up and 3
+# timed steps); 18b 17b's f32 config at pp 4 and pp 2 x fsdp 2; 18c pp 2
+# x sp 2 at 2 x 4096 on LLAMA_1B's widths at 4 layers (depth cut for
+# time: the sp ring attends in f32 products); 18d LoRA-SFT (2 x 2048 a
+# step, 2 steps) and LoRA-DPO (2 pairs x 1024, 1 step) of LLAMA3_8B's
+# widths at 2 layers (depth and steps cut for time; 17c's trunk) at fsdp
+# 2 x tp 2, the SFT adapters merged on the mesh by train_sft's
+# --merge-save function, and GRPO on LLAMA_1B at dp 2 x fsdp 2 with 10c's
+# settings (1 step, cut for time); 18e train_moe's
+# 'small' model with the 'capacity' router at sp 2 x ep 2, 17e's shapes.
+_TC_PP = dict(warmup_steps=2, total_steps=12)
+PP_ARMS = {
+    '18a': ('mesh_train', dict(config='1b', mesh_kw={'pp': 2, 'dp': 2},
+                               batch=8, seq=1024, steps=4, tc_kw=_TC_PP,
+                               microbatches=4)),
+    '18b-pp4': ('mesh_train', dict(
+        config='f32', mesh_kw={'pp': 4}, batch=4, seq=256, steps=3,
+        tc_kw=_TC_F32, gather=True, microbatches=4)),
+    '18b-pp2-fsdp2': ('mesh_train', dict(
+        config='f32', mesh_kw={'pp': 2, 'fsdp': 2}, batch=4, seq=256,
+        steps=3, tc_kw=_TC_F32, gather=True, microbatches=2)),
+    '18c': ('mesh_train', dict(config='1b-4', mesh_kw={'pp': 2, 'sp': 2},
+                               batch=2, seq=4096, steps=2, tc_kw=_TC_PP,
+                               microbatches=2, sequence_axis='sp')),
+    '18d-sft': ('rank_lora', dict(kind='sft', config='8b-2',
+                                  mesh_kw={'fsdp': 2, 'tp': 2}, seq=2048,
+                                  steps=2, merge=True)),
+    # 2 steps: the first step's loss is log 2 whatever the mesh does (B
+    # is 0, so the policy is the reference); after an update at the
+    # peak rate (rank_lora: no warmup) the second step's logprob sums
+    # are gated (_hold_dpo).
+    '18d-dpo': ('rank_lora', dict(kind='dpo', config='8b-2',
+                                  mesh_kw={'fsdp': 2, 'tp': 2}, seq=1024,
+                                  steps=2)),
+    '18d-grpo': ('rank_grpo', dict(config='1b-grpo',
+                                   mesh_kw={'dp': 2, 'fsdp': 2}, steps=1)),
+    '18e': ('rank_moe', dict(config='moe-small', mesh_kw={'sp': 2, 'ep': 2},
+                             batch=4, seq=2048, steps=2)),
+}
+# The host rehearsal's sizes (device='cpu').
+PP_ARMS_TINY = {
+    '18a': dict(config='tiny-4', seq=256), '18b-pp4': dict(
+        config='tiny-f32-4', seq=64), '18b-pp2-fsdp2': dict(
+        config='tiny-f32-4', seq=64), '18c': dict(config='tiny-4', seq=256),
+    # LoRA's masked losses average a few hundred completion tokens: f32
+    # here, where bf16 at tiny widths rounds past the card's gate.
+    '18d-sft': dict(config='tiny-f32-4', seq=768), '18d-dpo': dict(
+        config='tiny-f32-4', seq=512), '18d-grpo': dict(config='tiny-grpo'),
+    '18e': dict(config='tiny-moe', seq=256)}
+# 18d's LoRA: rank 16, alpha 32 on the attention projections (10a's).
+_LORA_18D = dict(rank=16, alpha=32.0, targets='attn')
+
+
+def _grpo_config(name):
+    from skypilot_tpu_torch.models import llama
+    if name == '1b-grpo':
+        return llama.LLAMA_1B
+    return dataclasses.replace(_mesh_train_config('tiny'), max_seq_len=512)
+
+
+def rank_lora(kind, config, mesh_kw, seq, steps, data, root, merge=False,
+              device='cuda'):
+    """18d on one rank (mesh_kw None: one card): LoRA-SFT (kind 'sft') or
+    LoRA-DPO ('dpo') of `config` from seed 0, adapters from seed 1, 2
+    rows of `seq` tokens a step from the phase's JSONL file; with
+    `merge`, on the mesh the adapters are then merged with the base by
+    train_sft's --merge-save function (the whole tree, written by rank
+    0), which rank 0 restores and holds bitwise against one card's merge
+    of the same adapters over the whole base drawn again from seed 0."""
+    import torch.distributed as dist
+    from skypilot_tpu_torch.ckpt import format as ckpt_format
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    from skypilot_tpu_torch.parallel import sharding
+    from skypilot_tpu_torch.train import dpo, lora, sft, train_sft, trainer
+    cfg = _mesh_train_config(config)
+    mesh = (mesh_lib.make_mesh(mesh_lib.MeshConfig(**mesh_kw))
+            if mesh_kw else None)
+    rules = sharding.LLAMA_RULES
+    cuda = device == 'cuda'
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    shard = None if mesh is None else sharding.init_shard(mesh, rules)
+    base = llama.init_params(cfg, torch.Generator(device=device)
+                             .manual_seed(0), device, shard=shard)
+    lcfg = lora.LoraConfig(**_LORA_18D)
+    adapters = lora.init_lora(base, lcfg, torch.Generator(device=device)
+                              .manual_seed(1), mesh, rules)
+    if kind == 'sft':
+        loss = lora.wrap_loss(
+            lambda p, b: sft.sft_loss_fn(p, b, cfg, mesh=mesh, rules=rules),
+            base, lcfg, mesh, rules)
+        batches = sft.sft_batches(data, _encode(cfg.vocab_size), 2, seq)
+    else:
+        def loss(ad, b):
+            return dpo.dpo_loss_fn(lora.apply_lora(base, ad, lcfg, mesh,
+                                                   rules), base, b, cfg,
+                                   mesh=mesh, rules=rules)
+        batches = dpo.dpo_batches(data, _encode(cfg.vocab_size), 2, seq)
+    kw = {} if mesh is None else {'mesh': mesh, 'rules': lora.LORA_RULES}
+    # No warmup: the first update moves the adapters at the peak rate,
+    # so every loss after the first is an updated policy's.
+    tr = trainer.Trainer(loss, adapters, trainer.TrainConfig(
+        learning_rate=1e-4, warmup_steps=0, total_steps=steps,
+        weight_decay=0.0 if kind == 'dpo' else 0.1), device=device, **kw)
+    counters = _kernel_counters()
+    out = {'rank': 0 if mesh is None else mesh.rank, 'losses': [],
+           'norms': [], 'step_s': []}
+    _zero(counters)
+    for i in range(steps):
+        batch = next(batches)
+        if kind == 'dpo' and i == steps - 1:
+            out['logprob_means'] = _dpo_logprob_means(
+                tr.params, base, batch, cfg, lcfg, mesh, rules, device)
+        t0 = time.perf_counter()
+        m = tr.run_step(batch)
+        out['losses'].append(float(m['loss']))
+        out['norms'].append(float(m['grad_norm']))
+        out['step_s'].append(time.perf_counter() - t0)
+    out['counts'] = _counts(counters)
+    out['peak'] = torch.cuda.max_memory_allocated() if cuda else 0
+    if mesh is not None and merge:
+        t0 = time.perf_counter()
+        merged_dir = os.path.join(root, f'merged-{kind}')
+        train_sft.merge_and_save(merged_dir, base, lcfg, tr.params, mesh,
+                                 rules)
+        out['merge_save_s'] = time.perf_counter() - t0
+        if mesh.rank == 0:
+            whole = llama.init_params(cfg, torch.Generator(device=device)
+                                      .manual_seed(0), device)
+            one = lora.merge_lora(whole, tr.params, lcfg)
+            del whole
+            saved = ckpt_format.restore_pytree(
+                os.path.join(merged_dir, 'merged'), 0, {'params': one})
+            named, _ = ckpt_format.flatten_with_keys(saved['params'])
+            want, _ = ckpt_format.flatten_with_keys(one)
+            for (key, g), (_, w) in zip(named, want):
+                if not torch.equal(torch.as_tensor(g).cpu(), w.cpu()):
+                    raise AssertionError(f'18d {kind}: the mesh\'s '
+                                         f'--merge-save {key} is not one '
+                                         f'card\'s merge bitwise')
+            out['merge_bitwise'] = True
+            del one, saved
+        dist.barrier()
+    tr.close()
+    del tr, base
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+@torch.no_grad()
+def _dpo_logprob_means(adapters, base, batch, cfg, lcfg, mesh, rules,
+                       device):
+    """The mean over the batch's pairs of the policy's (base + adapters)
+    and of the reference's (base) summed completion logprobs, chosen
+    plus rejected: the sums whose differences the DPO loss takes, on
+    this rank's rows as the Trainer cuts them."""
+    from skypilot_tpu_torch.parallel import sharding
+    from skypilot_tpu_torch.train import dpo, lora
+    if mesh is not None:
+        batch = {k: sharding.shard_tensor(torch.as_tensor(v),
+                                          sharding.BATCH_SPEC, mesh)
+                 for k, v in batch.items()}
+    batch = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+    policy = lora.apply_lora(base, adapters, lcfg, mesh, rules)
+    pi_c, pi_r, ref_c, ref_r = dpo._four_logprobs(policy, base, batch, cfg,
+                                                  mesh, rules)
+    return {'policy': float(dpo._pair_mean(pi_c + pi_r, mesh)),
+            'reference': float(dpo._pair_mean(ref_c + ref_r, mesh))}
+
+
+def _hold_dpo(ranks, one):
+    """18d-dpo: every rank the same bits; the first step (B = 0: the
+    policy is the reference, the loss log 2) gated as _hold_steps gates
+    it; then, after the update, the policy's and the reference's summed
+    completion logprobs (_dpo_logprob_means) within MESH_LOSS_REL of
+    one card's, as the SFT loss (their mean) is held.  The second loss
+    is reported, not gated: it is the log-sigmoid of beta x a
+    difference of differences of such sums, each ~1,000 tokens, whose
+    rounding at the sums' MESH_LOSS_REL is ~0.3 there (PERF.md)."""
+    for o in ranks[1:]:
+        if o['logprob_means'] != ranks[0]['logprob_means']:
+            raise AssertionError('18d-dpo: ranks report different sums')
+    first = [dict(o, losses=o['losses'][:1], norms=o['norms'][:1])
+             for o in ranks]
+    worst = _hold_steps('18d-dpo', first, dict(
+        one, losses=one['losses'][:1], norms=one['norms'][:1]),
+        MESH_LOSS_REL, MESH_NORM_REL)
+    sums = {}
+    for key in ('policy', 'reference'):
+        got, want = ranks[0]['logprob_means'][key], one['logprob_means'][key]
+        sums[key] = {'mesh': got, 'one_card': want, 'rel': _rel(got, want)}
+        if not np.isfinite(got) or sums[key]['rel'] > MESH_LOSS_REL:
+            raise AssertionError(f'18d-dpo: the {key}\'s summed logprobs '
+                                 f'{got} vs one card {want} (rel > '
+                                 f'{MESH_LOSS_REL})')
+    worst['logprob_sums'] = max(v['rel'] for v in sums.values())
+    worst['last_loss_abs_diff'] = abs(ranks[0]['losses'][-1]
+                                      - one['losses'][-1])
+    return worst, sums
+
+
+def rank_grpo(config, mesh_kw, steps, device='cuda'):
+    """18d's GRPO on one rank (mesh_kw None: one card), 10c's settings:
+    group 8, 2 prompts, 32 new tokens from prompts of up to 64, temperature
+    1, kl_coef 0.05, lr 1e-4.  The rollouts run on the policy gathered
+    whole on every rank (rl.GrpoTrainer on a mesh).  Returns each step's
+    loss and seconds, the first step's rollouts, the counts, the peak and
+    the rollout tree's bytes."""
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    from skypilot_tpu_torch.parallel import sharding
+    from skypilot_tpu_torch.train import rl
+    from skypilot_tpu_torch.train.train_rl import make_rewards
+    cfg = _grpo_config(config)
+    mesh = (mesh_lib.make_mesh(mesh_lib.MeshConfig(**mesh_kw))
+            if mesh_kw else None)
+    cuda = device == 'cuda'
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    params = llama.init_params(cfg, torch.Generator(device=device)
+                               .manual_seed(0), device)
+    seen = []
+    band = make_rewards(cfg.vocab_size)['token-band']
+
+    def reward(prompt, completion):
+        seen.append(list(map(int, completion)))
+        return band(prompt, completion)
+    tr = rl.GrpoTrainer(
+        params, cfg, reward, group_size=8, max_new_tokens=32,
+        max_prompt_len=64, temperature=1.0, learning_rate=1e-4,
+        kl_coef=0.05, total_steps=steps, device=device, mesh=mesh,
+        rules=None if mesh is None else sharding.LLAMA_RULES)
+    del params
+    prompts = [[(11 * (i + 1)) % cfg.vocab_size,
+                (13 * (i + 1)) % cfg.vocab_size] for i in range(2)]
+    counters = _kernel_counters()
+    _zero(counters)
+    history = [tr.step(prompts) for _ in range(steps)]
+    out = {'rank': 0 if mesh is None else mesh.rank,
+           'losses': [m['loss'] for m in history],
+           'reward_mean': [m['reward_mean'] for m in history],
+           'rollout_s': [m['rollout_s'] for m in history],
+           'update_s': [m['update_s'] for m in history],
+           'first_rollouts': seen[:16], 'counts': _counts(counters),
+           'peak': torch.cuda.max_memory_allocated() if cuda else 0,
+           'rollout_bytes': tr.rollout_bytes}
+    tr.close()
+    del tr
+    if mesh is None:
+        out['loss_term_scale'] = _grpo_term_scale(cfg, prompts, seen[:16],
+                                                  band, device)
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def _grpo_term_scale(cfg, prompts, completions, reward, device):
+    """The size of the first GRPO loss's terms on one card: the masked
+    mean of |advantage x log p| over the first step's completions under
+    the initial policy (seed 0).  That loss is their signed mean, which
+    the group-standardized advantages cancel nearly to zero, so a mesh's
+    rounding is measured against this scale, not against the loss."""
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.train import rl, sft
+    group = len(completions) // len(prompts)
+    rows = [p for p in prompts for _ in range(group)]
+    adv = rl.group_advantages(np.asarray(
+        [reward(p, c) for p, c in zip(rows, completions)]), group)
+    pad_to = max(len(p) + len(c) for p, c in zip(rows, completions))
+    batch = rl.build_batch(rows, completions, adv, pad_to)
+    params = llama.init_params(cfg, torch.Generator(device=device)
+                               .manual_seed(0), device)
+    with torch.no_grad():
+        lp = sft.token_logprobs(params, torch.as_tensor(
+            batch['tokens'], device=device).long(), cfg)
+    mask = torch.as_tensor(batch['completion_mask'], device=device)
+    terms = (torch.as_tensor(batch['advantage'], device=device)[:, None]
+             * lp).abs() * mask
+    return float(terms.sum() / mask.sum())
+
+
+def rank_pp_arms(arms, root, data, device='cuda'):
+    """Every arm of PP_ARMS on this rank, in order (one spawn); each
+    arm's result with its seconds."""
+    import torch.distributed as dist
+    out = {}
+    for name, (task, kw) in arms.items():
+        dist.barrier()
+        t0 = time.perf_counter()
+        if task == 'rank_lora':
+            kw = dict(kw, root=root, data=data[kw['kind']])
+        out[name] = globals()[task](device=device, **kw)
+        out[name]['seconds'] = time.perf_counter() - t0
+    return out
+
+
+def _one_card_pp(name, task, kw, root, data, device):
+    """An arm's reference on one card (this process): the same steps
+    without a mesh (the sequential layer stack, one card's attention)."""
+    kw = dict(kw, mesh_kw=None)
+    if task == 'mesh_train':
+        kw.pop('microbatches', None)
+        kw.pop('sequence_axis', None)
+        return mesh_train(**kw, device=device)
+    if task == 'rank_lora':
+        return rank_lora(**dict(kw, root=root, data=data[kw['kind']]),
+                         device=device)
+    return globals()[task](**kw, device=device)
+
+
+def pp_training_path(paths, root, device='cuda', tiny=False):
+    """Phase 18a-e: every arm of PP_ARMS in one spawn of 4 ranks sharing
+    the card over gloo, against its one-card reference run first in this
+    process.  Returns the stats by arm."""
+    arms = {name: (task, dict(kw, **(PP_ARMS_TINY[name] if tiny else {})))
+            for name, (task, kw) in PP_ARMS.items()}
+    sft_data, dpo_data, _, _ = _post_train_data(root)
+    data = {'sft': sft_data, 'dpo': dpo_data}
+    refs, runs = {}, {}
+    for name, (task, kw) in arms.items():
+        key = repr((task, sorted((k, v) for k, v in kw.items()
+                                 if k not in ('mesh_kw', 'microbatches'))))
+        if key not in runs:
+            t0 = time.perf_counter()
+            runs[key] = _one_card_pp(name, task, kw, root, data, device)
+            runs[key]['seconds'] = time.perf_counter() - t0
+        refs[name] = runs[key]
+    t0 = time.perf_counter()
+    outs = pooled_ranks(4, 'rank_pp_arms', timeout=900, arms=arms, root=root,
+                     data=data, device=device)
+    spawn_s = time.perf_counter() - t0
+    by_arm = {name: [o[name] for o in outs] for name in arms}
+    card = CARD.get('line')
+    stats = {'card': card, 'spawn_s': spawn_s,
+             'note': '4 gloo ranks on one card: not a multi-card rate'}
+    for name, ranks in by_arm.items():
+        one = refs[name]
+        f32 = name.startswith('18b')
+        if name == '18d-grpo':
+            stats[name] = _hold_grpo(ranks, one)
+            paths[name] = _hold_kernels(
+                name, ranks, ('decode_attention_pooled', 'rms_norm')
+                + _TRAIN_KERNELS, device)
+            continue
+        loss_rel = (1e-6 if f32 else MESH_MOE_LOSS_REL if name == '18e'
+                    else MESH_LOSS_REL)
+        sums = None
+        if name == '18d-dpo':
+            worst, sums = _hold_dpo(ranks, one)
+        else:
+            worst = _hold_steps(name, ranks, one, loss_rel,
+                                MESH_F32_REL if f32 else MESH_NORM_REL)
+        # 18c's and 18e's stages attend over the sp ring (plain f32
+        # products): K3 alone.
+        names = (('rms_norm',) if name in ('18c', '18e') else
+                 tuple(n for n in _TRAIN_KERNELS
+                       if n != 'flash_attention[lse]') if f32
+                 else _TRAIN_KERNELS)
+        counts = _hold_kernels(name, ranks, names, device)
+        if not f32:
+            paths[name] = counts
+        arm = {'mesh_s': ranks[0]['seconds'], 'one_card_s': one['seconds'],
+               'losses': ranks[0]['losses'], 'one_card_losses':
+               one['losses'], 'norms': ranks[0]['norms'],
+               'one_card_norms': one['norms'], 'worst_rel': worst,
+               'step_s': ranks[0]['step_s'],
+               'one_card_step_s': one['step_s'],
+               'peak_gb': [o['peak'] / 1e9 for o in ranks],
+               'one_card_peak_gb': one['peak'] / 1e9}
+        if f32:
+            arm['param_max_abs_diff'] = _hold_params(name, ranks[0], one,
+                                                     arms[name][1])
+        if sums:
+            arm['logprob_means_last_step'] = sums
+        if arms[name][1].get('merge'):
+            if not ranks[0].get('merge_bitwise'):
+                raise AssertionError(f'{name}: the merge was not checked')
+            arm['merge_bitwise'] = True
+            arm['merge_save_s'] = ranks[0]['merge_save_s']
+        stats[name] = arm
+        log(f'  {name}: ' + json.dumps(dict(arm, card=card)))
+    log('  18 seconds: ' + json.dumps(
+        {'references': {n: r['seconds'] for n, r in refs.items()},
+         'spawn': spawn_s, 'arms': {n: r[0]['seconds']
+                                    for n, r in by_arm.items()}}))
+    return stats
+
+
+def _hold_grpo(ranks, one):
+    """18d's GRPO: every rank the same losses, and their first step's
+    rollouts the one card's for the same seed (the policy gathered whole
+    is bitwise one card's before the first update); so the first step's
+    loss (before any update, over the padded batch, the KL reference
+    sharded) is one card's within MESH_LOSS_REL of its terms' size
+    (_grpo_term_scale)."""
+    for o in ranks:
+        if o['losses'] != ranks[0]['losses']:
+            raise AssertionError('18d-grpo: ranks report different losses')
+        if o['first_rollouts'] != one['first_rollouts']:
+            raise AssertionError('18d-grpo: a rank\'s first rollouts are '
+                                 'not one card\'s')
+    diff = abs(ranks[0]['losses'][0] - one['losses'][0])
+    scale = one['loss_term_scale']
+    if not np.isfinite(ranks[0]['losses']).all() or not (
+            diff <= MESH_LOSS_REL * scale):
+        raise AssertionError(f'18d-grpo: first loss {ranks[0]["losses"][0]}'
+                             f' vs one card {one["losses"][0]}: |diff| '
+                             f'{diff} > {MESH_LOSS_REL} x {scale}')
+    stats = {'rollouts': 'the policy gathered whole on every rank',
+             'rollout_tree_gb': ranks[0]['rollout_bytes'] / 1e9,
+             'losses': ranks[0]['losses'], 'one_card_losses': one['losses'],
+             'loss_abs_diff': [abs(a - b) for a, b in
+                               zip(ranks[0]['losses'], one['losses'])],
+             'loss_term_scale': scale,
+             'first_loss_diff_over_scale': diff / scale,
+             'reward_mean': ranks[0]['reward_mean'],
+             'rollout_s': ranks[0]['rollout_s'],
+             'update_s': ranks[0]['update_s'],
+             'peak_gb': [o['peak'] / 1e9 for o in ranks],
+             'one_card_peak_gb': one['peak'] / 1e9,
+             'first_rollouts_identical': True, 'card': CARD.get('line')}
+    log('  18d-grpo: ' + json.dumps(stats))
+    return stats
+
+
+# 18f: the legacy planes at tp 2, phase 7's requests (decode_chunk 16)
+# with the prompts capped as in 16b.
+LEGACY_NEW_TOKENS = 16
+for _plane in ('paged', 'inplace'):
+    for _kv in (None, 'int8'):
+        TP_ARMS[_plane + ('-int8' if _kv else '')] = dict(
+            max_seq_len=2048, batch_size=8, prefill_chunk=256,
+            decode_impl=_plane, decode_chunk=16, kv_cache_dtype=_kv)
+del _plane, _kv
+
+
+def legacy_tp_path(paths, device='cuda', tiny=False):
+    """18f: LLAMA3_8B's widths at 4 of its 32 layers (cut for time) at
+    tp 2 on the 'paged' (K7 per shard) and 'inplace' planes, bf16 and
+    int8 KV, served through the batcher against tp 1 on the same seed
+    (prefill logits within TP_LOGITS_REL, ranks agreeing), and each
+    plane's decode steps themselves held to tp 1's with the same tokens
+    fed (tp_forced_decode: every step's logits within TP_LOGITS_REL);
+    then 16b's f32 config at tp 2 on both planes, whose greedy tokens
+    must equal tp 1's.  tiny: the host rehearsal's configs
+    (device='cpu')."""
+    from skypilot_tpu_torch.models import llama
+    lengths = TP_PROMPT_LENGTHS
+    planes = [(plane, kv) for plane in ('paged', 'inplace')
+              for kv in (None, 'int8')]
+    arms = [plane + ('-int8' if kv else '') for plane, kv in planes]
+    bf16, f32 = (('tiny-hd128', 'tiny-hd128-f32') if tiny
+                 else ('8b-4', 'f32-narrow'))
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore', DeprecationWarning)
+        outs = pooled_ranks(2, 'rank_serve', timeout=600, config=bf16, tp=2,
+                            seed=0, arms=[(a, LEGACY_NEW_TOKENS)
+                                          for a in arms],
+                            prompt_lengths=lengths, forced=planes,
+                            device=device)
+        _ranks_agree(outs, '18f')
+        for arm in arms:
+            paths[f'18f-{arm}'] = _sum_counts([o['arms'][arm] for o in outs])
+        cfg = _tp_config(bf16)
+        params = llama.init_params(
+            cfg, torch.Generator(device=device).manual_seed(0), device)
+        stats = tp_compare(f'18f {bf16} tp 2 vs tp 1 (legacy planes)', outs,
+                           params, cfg, lengths, device=device)
+        stats['first_logits_are'] = ('the prefill (llama_infer.prefill), '
+                                     'shared by every arm')
+        prompts = [p[:n] for p, n in zip(_serve_prompts(cfg.vocab_size),
+                                         lengths)]
+        forced = {}
+        for (plane, kv), arm in zip(planes, arms):
+            got = torch.from_numpy(outs[0]['forced'][(plane, kv)])
+            one = tp_forced_decode(params, cfg, prompts, plane, kv,
+                                   device=device)
+            diffs = (got - one).abs().amax(dim=(1, 2))
+            scales = one.abs().amax(dim=(1, 2))
+            forced[arm] = {'steps': FORCED_STEPS,
+                           'max_abs_diff': diffs.tolist(),
+                           'max_abs_logit': scales.tolist(),
+                           'worst_share': (diffs / scales).max().item()}
+            if (diffs > TP_LOGITS_REL * scales).any():
+                raise AssertionError(
+                    f'18f {arm}: forced decode logits differ from tp 1 by '
+                    f'{diffs.tolist()} (> {TP_LOGITS_REL} of '
+                    f'{scales.tolist()})')
+        stats['forced_decode'] = forced
+        log('  18f forced decode steps, tp 2 vs tp 1: ' + json.dumps(
+            {'card': CARD.get('line'), **forced}))
+        del params
+        gc.collect()
+        outs = pooled_ranks(2, 'rank_serve', timeout=300, config=f32, tp=2,
+                            seed=1, arms=[('paged', 32), ('inplace', 32)],
+                            prompt_lengths=lengths, device=device)
+        _ranks_agree(outs, '18f f32')
+        cfg = _tp_config(f32)
+        params = llama.init_params(
+            cfg, torch.Generator(device=device).manual_seed(1), device)
+        stats['f32'] = tp_compare(f'18f {f32} tp 2 vs tp 1 (paged, inplace)',
+                                  outs, params, cfg, lengths, exact=True,
+                                  device=device)
+    if device == 'cuda':
+        torch.cuda.empty_cache()
+    return stats
+
+
 def _zero(counters):
     for c in counters:
         c.launches = 0
@@ -6159,10 +6877,10 @@ def main() -> int:
         log(f'  phase {clock["name"]}: '
             f'{time.perf_counter() - clock["start"]:.1f} s')
 
-    phase(f'[1/17] device: {CARD["line"]} | torch {torch.__version__} '
+    phase(f'[1/18] device: {CARD["line"]} | torch {torch.__version__} '
         f'cuda {torch.version.cuda}')
 
-    phase('[2/17] build')
+    phase('[2/18] build')
     _kernels.LIBRARY.get()
     log(f'  built {_kernels.LIBRARY.path.name} in '
         f'{_kernels.LIBRARY.build_seconds:.1f} s')
@@ -6181,7 +6899,7 @@ def main() -> int:
                 and info['spill_bytes']:
             raise AssertionError(f'decode kernel {name} spills: {info}')
 
-    phase('[3/17] kernels vs plain versions')
+    phase('[3/18] kernels vs plain versions')
     t0 = time.perf_counter()
     decode = check_decode(decode_attention, ptxas)
     decode['g2'], decode['combine g2'] = check_decode_at(
@@ -6197,6 +6915,10 @@ def main() -> int:
             decode_attention, ptxas, label, seed)
     shared = check_decode_shared(decode_attention, ptxas)
     contig = check_contig_decode(decode_attention, ptxas)
+    # K7 per tp shard (18f): LLAMA3_8B at tp 2, 4 KV heads of G 4 a rank.
+    contig_rank = check_contig_decode(decode_attention, ptxas, kv_heads=4,
+                                      group=4, tag='LLAMA3_8B tp2 rank',
+                                      seed=33, variants=('bf16', 'int8'))
     window = check_window(decode_attention, ptxas)
     window_rank = check_window(decode_attention, ptxas, 4, 4,
                                TP_WINDOW_SHAPES, 'LLAMA3_8B tp2 rank')
@@ -6220,13 +6942,13 @@ def main() -> int:
         f'{time_ms(read.sum):.4f} ms (bound 0.0063)')
     del tiny, read
 
-    phase('[4/17] slice parity, LLAMA_DEBUG and MoE f32, card vs host')
+    phase('[4/18] slice parity, LLAMA_DEBUG and MoE f32, card vs host')
     slice_parity()
     train_parity()
     post_train_parity()
     moe_parity()
 
-    phase('[5/17] main path, LLAMA3_8B bf16 behind the HTTP replica')
+    phase('[5/18] main path, LLAMA3_8B bf16 behind the HTTP replica')
     cfg = llama.LLAMA3_8B
     t0 = time.perf_counter()
     params = llama.init_params(
@@ -6252,7 +6974,7 @@ def main() -> int:
             raise AssertionError(f'{k1.__name__} missed the split route on '
                                  f'the {key} path')
 
-    phase('[6/17] main path with spec_k 12 and fuse_budget 264: (a) bf16, '
+    phase('[6/18] main path with spec_k 12 and fuse_budget 264: (a) bf16, '
         '(b) int8 KV and weights')
     spec = dict(base, spec_k=12, fuse_budget=264)
     paths['6a'], _, _, _ = serve_path('6a bf16 spec+fused', params,
@@ -6289,7 +7011,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    phase('[8/17] train path: (a) LLAMA_1B at the bench settings, (b) '
+    phase('[8/18] train path: (a) LLAMA_1B at the bench settings, (b) '
         'LLAMA3_8B widths at depth 2')
     remat = dict(remat=True, remat_policy='dots')
     cfg_1b = dataclasses.replace(llama.LLAMA_1B, max_seq_len=2048,
@@ -6304,7 +7026,7 @@ def main() -> int:
         2, 4096, 6, trainer.TrainConfig(warmup_steps=2, total_steps=6),
         counters)
 
-    phase('[9/17] checkpoints: (a) LLAMA_1B async saves, restore, continue '
+    phase('[9/18] checkpoints: (a) LLAMA_1B async saves, restore, continue '
           '(phase 8a settings), (b) a managed job SIGTERMed and resumed '
           'through train_llama --resume auto')
     scratch = tempfile.mkdtemp(prefix='chip_smoke_ckpt_')
@@ -6327,7 +7049,7 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
-    phase('[10/17] post-training: (a) LoRA-SFT and (b) LoRA-DPO of LLAMA3_8B '
+    phase('[10/18] post-training: (a) LoRA-SFT and (b) LoRA-DPO of LLAMA3_8B '
           'at 32 layers, (c) GRPO on LLAMA_1B, (d) the entry points')
     gc.collect()
     torch.cuda.empty_cache()
@@ -6363,13 +7085,13 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
-    phase('[11/17] Mixtral-8x7B widths, random bf16 weights: (a) 16 of 32 '
+    phase('[11/18] Mixtral-8x7B widths, random bf16 weights: (a) 16 of 32 '
           'layers served, (c) LoRA-SFT of that base, (b) trained at depth 2')
     gc.collect()
     torch.cuda.empty_cache()
     mixtral_path(counters, paths)
 
-    phase('[12/17] HF checkpoints written in HF\'s layout and loaded by '
+    phase('[12/18] HF checkpoints written in HF\'s layout and loaded by '
           'convert.load_hf_model: (a) Gemma-7B and (b) Qwen2.5-1.5B at '
           'their published widths served, 12b LoRA-SFT in process and '
           'through train_sft --hf-model, (c) debug-size parity card vs host')
@@ -6389,14 +7111,14 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
-    phase('[13/17] ResNet: (a) ResNet18Thin one SGD step card vs host, (b) '
+    phase('[13/18] ResNet: (a) ResNet18Thin one SGD step card vs host, (b) '
           'train_resnet\'s path, ResNet50 at batch 256 of 224x224')
     gc.collect()
     torch.cuda.empty_cache()
     resnet_parity()
     resnet_train_path()
 
-    phase('[14/17] prefix cache, host tier and handoff at LLAMA3_8B bf16, '
+    phase('[14/18] prefix cache, host tier and handoff at LLAMA3_8B bf16, '
           '32 layers: (a) prefix reuse, (b) the host tier, (c) the '
           'prefill -> decode handoff in bf16 and int8 KV, (d) debug-size '
           'parity card vs host')
@@ -6425,7 +7147,7 @@ def main() -> int:
     prefix_parity()
     log(f'  14d: {time.perf_counter() - t0:.1f} s')
 
-    phase('[15/17] telemetry and the entry points around the batcher at '
+    phase('[15/18] telemetry and the entry points around the batcher at '
           'LLAMA3_8B bf16, 32 layers: (a) spans and the cost ledger on and '
           'off, (b) the OpenAI routes, (c) /v1/embeddings (encode), (d) '
           'batch_infer --resume, (e) eval_ppl')
@@ -6462,10 +7184,10 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
-    phase('[16/17] tensor-parallel serving, rank processes sharing cuda:0 '
+    phase('[16/18] tensor-parallel serving, rank processes sharing cuda:0 '
           'over gloo: (a) collectives, (b) LLAMA3_8B tp 2 (bf16, int8 KV, '
-          'spec_k + fuse_budget) and an f32 config vs tp 1, (c) '
-          'LLAMA3_70B widths at 8 layers, tp 4, (d) Qwen2.5-1.5B tp 4 '
+          'spec_k + fuse_budget) at 16 layers and an f32 config vs tp 1, '
+          '(c) LLAMA3_70B widths at 4 layers, tp 4, (d) Qwen2.5-1.5B tp 4 '
           '(tp_kv 2 x tpq 2) from HF files, (e) overlap chunks 2 and 4 '
           'bitwise the sync path, (f) the control channel')
     gc.collect()
@@ -6483,7 +7205,7 @@ def main() -> int:
             log(f'  {sub}: {time.perf_counter() - t0:.1f} s')
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
-    phase('[17/17] training meshes, rank processes sharing cuda:0 over '
+    phase('[17/18] training meshes, rank processes sharing cuda:0 over '
           'gloo: (a) LLAMA_1B bf16 fsdp 2 x tp 2 vs one card, (b) f32 at '
           'dp 2 x fsdp 2 and fsdp 2 x tp 2, (c) LLAMA3_8B widths at 2 '
           'layers, fsdp 4, (d) train_long_context sp 4 (ring attention) at '
@@ -6496,6 +7218,25 @@ def main() -> int:
         mesh_training_path(paths, scratch)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
+    phase('[18/18] pipelines and post-training meshes, rank processes '
+          'sharing cuda:0 over gloo: (a) LLAMA_1B bf16 pp 2 x dp 2, (b) f32 '
+          'at pp 4 and pp 2 x fsdp 2, (c) pp 2 x sp 2 at 2 x 4096, (d) '
+          'LoRA-SFT and LoRA-DPO of LLAMA3_8B widths at fsdp 2 x tp 2 with '
+          '--merge-save, GRPO at dp 2 x fsdp 2, (e) MoE capacity at sp 2 x '
+          'ep 2; (f) the legacy planes at tp 2 (K7 per shard)')
+    gc.collect()
+    torch.cuda.empty_cache()
+    scratch = tempfile.mkdtemp(prefix='chip_smoke_pp_')
+    try:
+        t0 = time.perf_counter()
+        pp_training_path(paths, scratch)
+        log(f'  18a-e: {time.perf_counter() - t0:.1f} s')
+        t0 = time.perf_counter()
+        legacy_tp_path(paths)
+        log(f'  18f: {time.perf_counter() - t0:.1f} s')
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    close_rank_pools()
     last_phase_done()
     log(f'  whole run: {time.perf_counter() - run_start:.1f} s')
     for key in ('8a', '8b', '9a', '10a', '10b', '10c', '11b', '11c'):
@@ -6507,6 +7248,26 @@ def main() -> int:
               + [f'{k2.__name__}[lse]'])
     # 17d's sp ranks attend over the ring (plain f32 products): K3 only.
     _need('17d', paths['17d'], [k3.__name__])
+    for key in ('18a', '18d-sft', '18d-dpo', '18d-grpo'):
+        _need(key, paths[key], [c.__name__ for c in (k2, k3, k5, k6)]
+              + [f'{k2.__name__}[lse]'])
+    # 18c's and 18e's stages attend over the sp ring: K3 only.
+    for key in ('18c', '18e'):
+        _need(key, paths[key], [k3.__name__])
+    _need('18d-grpo', paths['18d-grpo'], [k1.__name__])
+    legacy18 = ('18f-paged', '18f-paged-int8', '18f-inplace',
+                '18f-inplace-int8')
+    for key in legacy18:
+        _need(key, paths[key], [k2.__name__, k3.__name__])
+        if paths[key][k1.__name__]:
+            raise AssertionError(f'{k1.__name__} launched on the {key} '
+                                 f'path')
+    for key in ('18f-paged', '18f-paged-int8'):
+        _need(key, paths[key], [k7.__name__])
+    for key in ('18f-inplace', '18f-inplace-int8'):
+        if paths[key][k7.__name__]:
+            raise AssertionError(f'{k7.__name__} launched on the {key} '
+                                 f'path')
     _need('10c', paths['10c'], [k1.__name__])
     for key in ('11a', '12a', '12b'):
         _need(key, paths[key], [c.__name__ for c in (k1, k2, k3)])
@@ -6537,8 +7298,9 @@ def main() -> int:
         # < 2 blocks an SM: the split route only.
         route = [(c, 'tc') for c in (k2, k5, k6)]
         route += [(c, 'split') for c in (k1, k7)
-                  if key[0] in '567' or key in ('10c', '11a', '12a', '12b')
-                  or key in phase14 or key in decode15]
+                  if key[0] in '567' or key in ('10c', '11a', '12a', '12b',
+                                                '18d-grpo')
+                  or key in phase14 or key in decode15 or key in legacy18]
         route += [(c, 'tc') for c in (k4v, k4f) if key[0] == '6']
         for c, r in route:
             if launches[f'{c.__name__}[{r}]'] != launches[c.__name__]:
@@ -6564,14 +7326,14 @@ def main() -> int:
     # Phase 17's K2 launches are its lse entries' (train rows below), its
     # K3 launches the per-rank widths' entries.
     rest = tuple(k for k in paths if k not in hf and k not in tp16
-                 and not k.startswith('17'))
+                 and not k.startswith('17') and not k.startswith('18'))
     tp8b = ('16b', '16b-int8', '16b-spec', '16e')
     kernels = [
         entry(decode['bf16'], k1, ('5', '6a', '11a') + decode15),
         entry(decode['LLAMA3_8B tp2 rank'], k1, ('16b', '16b-spec', '16e')),
         entry(decode['LLAMA3_70B tp4 rank'], k1, ('16c',)),
         entry(decode['Qwen2.5-1.5B tp4 rank'], k1, ('16d',)),
-        entry(decode['g2'], k1, ('10c',)),
+        entry(decode['g2'], k1, ('10c', '18d-grpo')),
         entry(decode['gemma'], k1, ('12a',)),
         entry(decode['qwen'], k1, ('12b',)),
         # 16b-int8's ranks run the same int8 instantiation over 4 KV
@@ -6580,20 +7342,24 @@ def main() -> int:
         # Phase 14's K1 launches decode slots whose tables share blocks.
         entry(shared['bf16'], k1, ('14a', '14b', '14c-bf16')),
         entry(shared['int8'], k1, ('14c-int8',)),
-        entry(flash['flash_attention'], k2, rest),
+        # 18d's DPO references and GRPO rollouts run K2 without its lse
+        # as 10b and 10c do.
+        entry(flash['flash_attention'], k2, rest + ('18d-dpo', '18d-grpo')),
         entry(flash['flash_attention[Gemma-7B hd256]'], k2, ('12a',)),
         entry(flash['flash_attention[Qwen2.5-1.5B G6 prefill]'], k2,
               ('12b',)),
         entry(flash['flash_attention[LLAMA3_8B tp2 rank prefill]'], k2,
-              tp8b),
+              tp8b + legacy18),
         entry(flash['flash_attention[LLAMA3_70B tp4 rank prefill]'], k2,
               ('16c',)),
         entry(flash['flash_attention[Qwen2.5-1.5B tp4 rank prefill]'], k2,
               ('16d',)),
-        entry(norm['rms_norm'], k3, rest + tp8b + ('17c',)),
-        entry(norm['rms_norm[LLAMA_1B d2048]'], k3, ('17a', '17d')),
+        entry(norm['rms_norm'], k3, rest + tp8b + ('17c', '18d-sft',
+                                                   '18d-dpo') + legacy18),
+        entry(norm['rms_norm[LLAMA_1B d2048]'], k3, ('17a', '17d', '18a',
+                                                     '18c', '18d-grpo')),
         entry(norm['rms_norm[MoE small d1024]'], k3,
-              ('17e-ep4', '17e-ep2dp2')),
+              ('17e-ep4', '17e-ep2dp2', '18e')),
         entry(norm['rms_norm[Gemma-7B]'], k3, ('12a',)),
         entry(norm['rms_norm[Qwen2.5-1.5B]'], k3, ('12b', '12b-sft', '16d')),
         entry(norm['rms_norm[LLAMA3_70B d8192]'], k3, ('16c',)),
@@ -6605,17 +7371,22 @@ def main() -> int:
         entry(window['fused', 'int8'], k4f, ('6b',)),
         entry(contig['bf16'], k7, ('7a', '7c')),
         entry(contig['int8'], k7, ('7b',)),
+        # K7 per tp shard on 18f's 'paged' plane, summed over its ranks.
+        entry(contig_rank['bf16'], k7, ('18f-paged',)),
+        entry(contig_rank['int8'], k7, ('18f-paged-int8',)),
     ]
     # The combine runs inside every split launch of K1 and K7.
     split_paths = {k: paths[k][f'{c.__name__}[split]']
                    for c, keys in ((k1, ('5', '6a', '6b', '11a', '16b-int8')
                                     + phase14
                                     + decode15),
-                                   (k7, ('7a', '7b', '7c'))) for k in keys}
+                                   (k7, ('7a', '7b', '7c', '18f-paged',
+                                         '18f-paged-int8'))) for k in keys}
     kernels.append(dict(decode['combine'],
                         launches=sum(split_paths.values()),
                         launches_by_path=split_paths))
-    for key, keys in (('combine g2', ('10c',)), ('combine gemma', ('12a',)),
+    for key, keys in (('combine g2', ('10c', '18d-grpo')),
+                      ('combine gemma', ('12a',)),
                       ('combine qwen', ('12b',)),
                       ('combine LLAMA3_8B tp2 rank', ('16b', '16b-spec',
                                                       '16e')),
@@ -6636,14 +7407,16 @@ def main() -> int:
                         launches_by_path=rank_split))
     kernels += [entry(train[name, key], counter, keys)
                 for name, counter in (('lse', k2), ('dq', k5), ('dkv', k6))
-                for key, keys in (('1b', ('8a', '9a', '10c')),
+                for key, keys in (('1b', ('8a', '9a', '10c', '18d-grpo')),
                                   ('8b', ('8b', '10a', '10b', '11b',
                                           '11c')),
                                   ('qwen', ('12b-sft',)),
                                   ('1b rank', ('17a',)),
                                   ('8b rank', ('17c',)),
                                   ('moe ep4 rank', ('17e-ep4',)),
-                                  ('moe ep2 dp2 rank', ('17e-ep2dp2',)))]
+                                  ('moe ep2 dp2 rank', ('17e-ep2dp2',)),
+                                  ('1b pp mb', ('18a',)),
+                                  ('8b lora rank', ('18d-sft', '18d-dpo')))]
     log(json.dumps({'kernels': kernels}))
     log(CARD['line'])
     log(json.dumps({'ok': True, 'device': {

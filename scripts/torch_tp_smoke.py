@@ -67,6 +67,7 @@ def main(argv) -> int:
             stats[sub] = runs[sub]()
             stats[sub + '_s'] = time.perf_counter() - t0
             cs.log(f'16{sub}: {stats[sub + "_s"]:.1f} s')
+        cs.close_rank_pools()
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     for key, launches in paths.items():

@@ -49,6 +49,7 @@ def main() -> int:
     t0 = time.perf_counter()
     try:
         cs.mesh_training_path(paths, scratch)
+        cs.close_rank_pools()
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     cs.log(f'phase 17: {time.perf_counter() - t0:.1f} s')

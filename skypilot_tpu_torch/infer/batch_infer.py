@@ -35,7 +35,6 @@ import time
 
 def parse_args(argv=None):
     from skypilot_tpu_torch.infer.replica import MODEL_SIZES
-    from skypilot_tpu_torch.train.train_sft import refuse_unported
 
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--input', required=True)
@@ -63,9 +62,7 @@ def parse_args(argv=None):
                         help='random weights of --model-size')
     parser.add_argument('--device', default=None,
                         help='cuda (default) or cpu')
-    args = parser.parse_args(argv)
-    refuse_unported(parser, args, allow=('tp',))
-    return args
+    return parser.parse_args(argv)
 
 
 def read_prompts(path: str, config, done_ids):

@@ -12,10 +12,10 @@ each with the radix prefix cache (``prefix_cache_mb``: a warm hit is a
 block-table splice on the pooled plane, an install copy on a legacy
 one).  The host KV tier (``host_tier_mb``) belongs to the batcher.
 Under a tensor-parallel mesh (``mesh=``, infer/tp.py; one process a
-rank) both engines run the pooled plane on each rank's shards, and
-``resolve_overlap`` gates the overlapped combines as the reference's
-does.  Options the port does not carry yet raise ``NotImplementedError``
-naming their ROADMAP.md item: a mesh on a legacy plane (item 11(h)).
+rank) both engines run every plane on each rank's shards (the legacy
+planes' contiguous cache holding the rank's KV heads, K7 per shard on
+'paged'), and ``resolve_overlap`` gates the overlapped combines of the
+pooled plane as the reference's does.
 Telemetry as the reference's: ``host_fetch`` counts every sync into
 ``skytpu_infer_host_syncs_total``, and ``Generator.generate`` sets the
 prefill, decode-chunk, bucket, migration, speculation and steady-rate
@@ -248,13 +248,10 @@ def resolve_overlap(params, config, gen_config: GeneratorConfig,
 
 def check_mesh(params, config, gen_config: GeneratorConfig, mesh) -> None:
     """An engine's mesh against its model and options (construction
-    time): the axes must divide, the plane must be the pooled one, and
-    int8 weights must come quantized before sharding."""
+    time): the axes must divide, and int8 weights must come quantized
+    before sharding."""
     if mesh is None:
         return
-    if gen_config.decode_impl != 'pooled':
-        raise _deferred(f"a mesh on the legacy '{gen_config.decode_impl}' "
-                        f'plane (K7 per shard)', '11(h)')
     tp_lib.validate_mesh(config, mesh)
     tp_lib.slot_rows(mesh, gen_config.batch_size)
     if (gen_config.weights_dtype is not None and tp_lib.model_size(mesh) > 1
@@ -707,7 +704,7 @@ class Generator:
         is filled in place."""
         if tables_scatter is None:
             logits, _ = llama_infer.prefill(self.params, tokens, self.config,
-                                            cache, lengths)
+                                            cache, lengths, mesh=self.mesh)
             return logits
         nb = tables_scatter.shape[1]
         scratch = llama_infer.init_cache(
@@ -762,7 +759,8 @@ class Generator:
                         table_row, start, mesh=self.mesh)
                 else:
                     h_last, _ = llama_infer.prefill_window(
-                        self.params, window_t, self.config, cache, i, start)
+                        self.params, window_t, self.config, cache, i, start,
+                        mesh=self.mesh)
                 last_start = start
                 start = end
             m.release()
@@ -794,7 +792,7 @@ class Generator:
                     tables, mesh=self.mesh, overlap=self.overlap)
             else:
                 logits, _ = self._decode_fn(self.params, token, self.config,
-                                            cache, positions)
+                                            cache, positions, mesh=self.mesh)
             emit, token, positions, done, limit = commit_step(
                 self._sample(logits), token, positions, done, limit,
                 eos=eos, fill=fill)
@@ -945,8 +943,8 @@ class Generator:
             cache_len = cache_bucket_for(self.cache_buckets,
                                          max(bucket, max(lengths) + 1))
             cache = llama_infer.init_cache(
-                self.config, batch, cache_len,
-                kv_dtype=self.gen.kv_cache_dtype, device=dev)
+                tp_lib.local_config(self.config, self.mesh), batch,
+                cache_len, kv_dtype=self.gen.kv_cache_dtype, device=dev)
         try:
             if self.prefix is not None:
                 # Per-row windows, so matched head blocks are skipped and

@@ -28,7 +28,11 @@ counts come from the shards' shapes, the combines after wo and w_down
 are explicit (``_combine``), the d-sharded embedding and the
 vocab-sharded logits are gathered, and the pooled steps split their slot
 rows over a 'dp' axis, gathering each layer's K/V rows over it before
-the write so every replica's arena stays the same.  ``overlap=`` (a
+the write so every replica's arena stays the same.  The legacy planes'
+steps (``decode_step_inplace``, ``decode_step_paged``, ``prefill``,
+``prefill_window``) run every slot on every rank over a contiguous cache
+of the rank's KV heads (K7 per shard on 'paged'), with the same
+combines.  ``overlap=`` (a
 chunk count, engine.resolve_overlap) runs the pooled steps' layer stack
 through :func:`_combine_then_project`, which overlaps each combine with
 the projections that consume it.
@@ -302,7 +306,7 @@ def encode(params: llama.Params, tokens: torch.Tensor,
 
 def prefill_window(params: llama.Params, tokens_w: torch.Tensor,
                    config: llama.LlamaConfig, cache: Cache, slot: int,
-                   start: int) -> Tuple[torch.Tensor, Cache]:
+                   start: int, mesh=None) -> Tuple[torch.Tensor, Cache]:
     """Advance ONE slot's prefill by a window (chunked prefill over the
     contiguous cache of the legacy planes): queries at positions
     [start, start + W) attend over the slot's cache prefix and the
@@ -313,12 +317,14 @@ def prefill_window(params: llama.Params, tokens_w: torch.Tensor,
     prompt are written but sit above every later query's mask.  Window
     rows past the cache's S rows are dropped, as the JAX scatter drops
     them (their rotation clamps to the last row, like the JAX gather).
+    Under a mesh every rank runs the window on its heads and its cache
+    of its KV heads, the combines as in prefill.
     Returns (hidden states (W, d) after the final norm, cache)."""
     (w,) = tokens_w.shape
     s_len = cache['k'].shape[2]
     device = tokens_w.device
     cos, sin = rope_tables(config, s_len, device)
-    h = llama.embed_tokens(params, tokens_w[None], config)   # (1, W, d)
+    h = _embed(params, tokens_w[None], config, mesh)         # (1, W, d)
     q_pos = start + torch.arange(w, device=device)          # (W,)
     visible = torch.arange(s_len, device=device)[None, :] <= q_pos[:, None]
     rot = torch.clamp_max(q_pos, s_len - 1)[None]
@@ -339,9 +345,9 @@ def prefill_window(params: llama.Params, tokens_w: torch.Tensor,
             v_slot = decode_attention_ops._dequantize(
                 v_slot, cache['v_scale'][i, slot], q.dtype)
         o = _window_attention(q, k_slot, v_slot, visible, config)
-        h = h + quant.matmul(o.reshape(1, w, -1), attn_p['wo'])
+        h = h + _attn_out(o.reshape(1, w, -1), attn_p, mesh)
         x = rmsnorm_ops.rms_norm(h, lp['ln2'], eps=config.norm_eps)
-        h = h + _ffn(x, lp, config)
+        h = h + _ffn(x, lp, config, mesh)
     h = rmsnorm_ops.rms_norm(h, params['final_norm'], eps=config.norm_eps)
     return h[0], cache
 
@@ -477,29 +483,29 @@ def get_decode_fn(impl: str):
 
 def _decode_contig(params: llama.Params, token: torch.Tensor,
                    config: llama.LlamaConfig, cache: Cache,
-                   positions: torch.Tensor, kernel: bool
+                   positions: torch.Tensor, kernel: bool, mesh=None
                    ) -> Tuple[torch.Tensor, Cache]:
     """One-token step over the contiguous (L, B, S, KV, hd) cache: each
     layer writes its new K/V row in place at (layer, b, positions[b]),
     then attends over the layer with keys <= positions[b] visible.
     kernel: K7 (the 'paged' plane); else the plain masked math of the
-    JAX inplace/scan/unroll steps."""
+    JAX inplace/scan/unroll steps.  Under a mesh every rank decodes
+    every slot (the cache is replicated over dp, as the reference's
+    CACHE_SPEC) on its heads over its cache of its KV heads (K7 per
+    shard), with the pooled steps' rank-order combines (_layer_stack's
+    synchronous path)."""
     batch = token.shape[0]
-    s_len = cache['k'].shape[2]
-    group = config.n_heads // config.n_kv_heads
+    s_len, kv_heads = cache['k'].shape[2], cache['k'].shape[3]
     cos, sin = rope_tables(config, s_len, token.device)
-    h = llama.embed_tokens(params, token, config)[:, None]   # (B, 1, d)
+    h = _embed(params, token, config, mesh)[:, None]        # (B, 1, d)
     pos = positions.long()[:, None]
     b_idx = torch.arange(batch, device=token.device)
-    for i in range(config.n_layers):
-        lp = llama.layer_params(params, i)
-        attn_p = lp['attn']
-        x = rmsnorm_ops.rms_norm(h, lp['ln1'], eps=config.norm_eps)
-        q, k, v = _qkv(x, attn_p, config)
-        q = rope_ops.apply_rope(q, cos, sin, positions=pos)
-        k = rope_ops.apply_rope(k, cos, sin, positions=pos)
+
+    def write(i, k, v):
         _write_kv(cache, (i, b_idx, pos[:, 0]), k[:, 0], v[:, 0])
-        q_g = q.reshape(batch, 1, config.n_kv_heads, group, config.head_dim)
+
+    def attend(i, q):
+        q_g = q.reshape(batch, 1, kv_heads, -1, config.head_dim)
         if kernel:
             o = decode_attention_ops.decode_attention(
                 q_g[:, 0], cache['k'], cache['v'], i, positions,
@@ -509,17 +515,16 @@ def _decode_contig(params: llama.Params, token: torch.Tensor,
                       for key in ('k_scale', 'v_scale')]
             o = decode_attention_ops._token_attention(
                 q_g, cache['k'][i], cache['v'][i], positions, *scales)
-        h = h + quant.matmul(o.reshape(batch, 1, -1), attn_p['wo'])
-        x = rmsnorm_ops.rms_norm(h, lp['ln2'], eps=config.norm_eps)
-        h = h + _ffn(x, lp, config)
-    h = rmsnorm_ops.rms_norm(h, params['final_norm'], eps=config.norm_eps)
-    logits = quant.matmul(h[:, 0], params['lm_head'], out_dtype=torch.float32)
-    return logits, cache
+        return o.reshape(batch, 1, -1)
+
+    h = _layer_stack(params, h, config, mesh, None, cos, sin, pos, write,
+                     attend)
+    return _final(h[:, 0], params, config, mesh), cache
 
 
 def decode_step_inplace(params: llama.Params, token: torch.Tensor,
                         config: llama.LlamaConfig, cache: Cache,
-                        positions: torch.Tensor
+                        positions: torch.Tensor, mesh=None
                         ) -> Tuple[torch.Tensor, Cache]:
     """One-token step of the 'inplace', 'scan' and 'unroll' planes over
     the contiguous cache, updated in place: plain masked attention over
@@ -528,12 +533,12 @@ def decode_step_inplace(params: llama.Params, token: torch.Tensor,
     each slot's current cache row.  Returns (logits (B, vocab) f32,
     cache)."""
     return _decode_contig(params, token, config, cache, positions,
-                          kernel=False)
+                          kernel=False, mesh=mesh)
 
 
 def decode_step_paged(params: llama.Params, token: torch.Tensor,
                       config: llama.LlamaConfig, cache: Cache,
-                      positions: torch.Tensor
+                      positions: torch.Tensor, mesh=None
                       ) -> Tuple[torch.Tensor, Cache]:
     """decode_step_inplace with attention through K7
     (ops.decode_attention.decode_attention), which reads only each
@@ -541,9 +546,7 @@ def decode_step_paged(params: llama.Params, token: torch.Tensor,
     int8 cache before each product.  Needs S % 64 == 0 and
     head_dim % 128 == 0."""
     return _decode_contig(params, token, config, cache, positions,
-                          kernel=True)
-
-
+                          kernel=True, mesh=mesh)
 
 
 def _f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -78,7 +78,9 @@ A key's first capture falls inside the phase that launched it
 (``graphs.captures``/``capture_seconds`` report captures apart).
 Under a tensor-parallel mesh (``mesh=``, infer/tp.py) every rank runs a
 batcher over its shards; the pooled steps split the slot rows over 'dp'
-and combine over ('tp', 'tpq'), and ``set_collective_share`` moves the
+and combine over ('tp', 'tpq'), the legacy planes run every slot over a
+slot cache of the rank's KV heads with the same combines (K7 per shard
+on 'paged'), and ``set_collective_share`` moves the
 measured collective share of the sharded phases to the 'collective'
 profiler phase.
 
@@ -174,7 +176,7 @@ class ContinuousBatcher:
         (``graphs_off_reason`` says why); False runs every chunk
         eagerly; True where it cannot capture raises.
 
-        mesh: a tensor-parallel mesh (infer/tp.py) on the pooled plane;
+        mesh: a tensor-parallel mesh (infer/tp.py), on any plane;
         every rank builds its batcher with the same arguments and runs
         the same calls (infer/multihost.py replays the head's).  params
         is then the full tree (each rank keeps its blocks; int8 weights
@@ -257,7 +259,7 @@ class ContinuousBatcher:
                 gen_config.decode_impl)
             self._cache_len = self.cache_buckets[0]
             self._cache = llama_infer.init_cache(
-                config, batch, self._cache_len,
+                tp_lib.local_config(config, mesh), batch, self._cache_len,
                 kv_dtype=gen_config.kv_cache_dtype, device=self.device)
 
         dev = self.device
@@ -996,7 +998,8 @@ class ContinuousBatcher:
                     overlap=self.overlap)
             else:
                 logits, _ = self._decode_fn(self.params, token, self.config,
-                                            self._cache, positions)
+                                            self._cache, positions,
+                                            mesh=self.mesh)
             emit, token, positions, done, limit = engine_lib.commit_step(
                 self._sample_step(logits, all_greedy, nucleus), token,
                 positions, done, limit, eos=eos, fill=fill)
@@ -1436,7 +1439,7 @@ class ContinuousBatcher:
                     else:
                         h_last, _ = llama_infer.prefill_window(
                             self.params, window_t, self.config,
-                            self._cache, req.slot, start)
+                            self._cache, req.slot, start, mesh=self.mesh)
                 if self._spans_on():
                     self._span('prefill_chunk', w0, self._span_clock(),
                                req=req, start=start, end=end)
@@ -1563,7 +1566,7 @@ class ContinuousBatcher:
                 else:
                     h_last, _ = llama_infer.prefill_window(
                         self.params, window_t, self.config, self._cache,
-                        req.slot, start)
+                        req.slot, start, mesh=self.mesh)
             req.prefill_pos = end
             if self._spans_on():
                 self._span('prefill_chunk', w0, self._span_clock(),

@@ -215,6 +215,14 @@ def _build(get: Callable[[str], torch.Tensor], has: Callable[[str], bool],
 
     def leaf(names, shape, transpose, path, offset=0.0, lead=()):
         spec = block(path, len(lead))
+        if spec is not None and len(lead) == 2:
+            # An expert bank (L, E, ...): a rule splitting E (MOE_RULES'
+            # 'ep') keeps this rank's experts, names being layer-major.
+            (_, _), (lo, hi) = sharding.block_bounds(
+                sharding.P(*spec_for(path)[:2]), lead, mesh)
+            names = [n for i, n in enumerate(names)
+                     if lo <= i % lead[1] < hi]
+            lead = (lead[0], hi - lo)
         local = shape if spec is None else sharding.local_shape(
             spec, shape, mesh)
         out = torch.empty((*lead, *local), dtype=config.dtype,

@@ -11,8 +11,7 @@ over layers is a Python loop over ``torch.unbind`` views of the stacked
 leaves; ``jax.checkpoint`` around each layer is
 ``torch.utils.checkpoint`` (non-reentrant), with ``remat_policy='dots'``
 as selective checkpointing that saves the 2-D projections.  The serving
-forward lives in ``infer/llama_infer.py``; ``forward_pipelined`` (the 'pp'
-axis) is ROADMAP item 11(h).
+forward lives in ``infer/llama_infer.py``.
 
 Under a training mesh (``mesh=``, parallel/mesh.py, one process a rank)
 the trunk, ``forward`` and ``loss_fn`` run on this rank's blocks under
@@ -24,12 +23,16 @@ cross entropy run on vocabulary blocks over tp, and an sp rank embeds
 and scores its S / sp rows, with RoPE at their global positions and
 attention over the sp ring (parallel/ring_attention.py).  The loss is
 the mean over every token of the global batch, the same on every rank.
+``forward_pipelined`` splits the layer stack into GPipe stages over the
+'pp' axis (parallel/pipeline.py), each stage composing with all of the
+above; every pp rank holds every layer, as the rules give no pp entry,
+and embeds and scores its rows itself.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Dict, List, Mapping, Optional
+from typing import Any, Callable, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -41,10 +44,15 @@ from skypilot_tpu_torch.ops import losses as losses_ops
 from skypilot_tpu_torch.ops import rmsnorm as rmsnorm_ops
 from skypilot_tpu_torch.ops import rope as rope_ops
 from skypilot_tpu_torch.parallel import collectives
+from skypilot_tpu_torch.parallel import pipeline as pipeline_lib
 from skypilot_tpu_torch.parallel import ring_attention as ring_lib
 from skypilot_tpu_torch.parallel import sharding
 
 Params = Dict[str, Any]
+# (q, k, v) (B, S, H|KV, hd) -> o (B, S, H, hd): the reference's
+# attention_fn hook.
+AttentionFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
+                       torch.Tensor]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -234,10 +242,6 @@ class Shards:
     Dimensions over tp or ep stay this rank's blocks."""
 
     def __init__(self, mesh, rules: sharding.PartitionRules):
-        if mesh.axis_size('pp') > 1:
-            raise NotImplementedError(
-                "a training mesh with pp > 1 (forward_pipelined and the "
-                "pp x sp composition) is ROADMAP item 11(h)")
         self.mesh, self.rules = mesh, rules
         self.tp, self.tp_index = mesh.axis_size('tp'), mesh.axis_index('tp')
         self.sp, self.sp_index = mesh.axis_size('sp'), mesh.axis_index('sp')
@@ -321,12 +325,15 @@ def _kv_weights(attn_p: Params, config: LlamaConfig, shards: Shards):
 def attention_block(h: torch.Tensor, layer_params: Params,
                     config: LlamaConfig, cos: torch.Tensor,
                     sin: torch.Tensor,
-                    shards: Optional[Shards] = None) -> torch.Tensor:
+                    shards: Optional[Shards] = None,
+                    attention_fn: Optional[AttentionFn] = None
+                    ) -> torch.Tensor:
     """The attention half of a training layer: h + attention(norm(h)),
-    through K3 (rms_norm) and K2 (flash_attention, causal).  Under a
-    mesh: this rank's query heads and their KV heads, attention over
-    the sp ring when sp > 1, and the output projection's partial sums
-    added over tp (cos/sin are the rows of this rank's positions)."""
+    through K3 (rms_norm) and K2 (flash_attention, causal), or
+    attention_fn(q, k, v) when given.  Under a mesh: this rank's query
+    heads and their KV heads, attention over the sp ring when sp > 1,
+    and the output projection's partial sums added over tp (cos/sin are
+    the rows of this rank's positions)."""
     batch, seq, _ = h.shape
     hd = config.head_dim
     attn_p = layer_params['attn']
@@ -352,6 +359,8 @@ def attention_block(h: torch.Tensor, layer_params: Params,
     if shards is not None and shards.sp > 1:
         o = ring_lib.ring_attention_manual(q, k, v, mesh=shards.mesh,
                                            axis_name='sp', causal=True)
+    elif attention_fn is not None:
+        o = attention_fn(q, k, v)
     else:
         o = attention_ops.flash_attention(q, k, v, causal=True)
     out = o.reshape(batch, seq, -1) @ w['wo']
@@ -362,9 +371,11 @@ def attention_block(h: torch.Tensor, layer_params: Params,
 
 def _layer(h: torch.Tensor, layer_params: Params, *, config: LlamaConfig,
            cos: torch.Tensor, sin: torch.Tensor,
-           shards: Optional[Shards] = None) -> torch.Tensor:
+           shards: Optional[Shards] = None,
+           attention_fn: Optional[AttentionFn] = None) -> torch.Tensor:
     mlp_p = layer_params['mlp']
-    h = attention_block(h, layer_params, config, cos, sin, shards)
+    h = attention_block(h, layer_params, config, cos, sin, shards,
+                        attention_fn)
     x = rmsnorm_ops.rms_norm(h, layer_params['ln2'], eps=config.norm_eps)
     if shards is not None:
         x = collectives.sum_backward(x, shards.mesh, 'tp')
@@ -421,20 +432,28 @@ def hidden_states(params: Params, tokens: torch.Tensor,
     return _trunk(params, tokens, config, shards)
 
 
-def _trunk(params: Params, tokens: torch.Tensor, config: LlamaConfig,
-           shards: Optional[Shards]) -> torch.Tensor:
-    cos, sin = rank_rope(config, tokens.shape[1], tokens.device, shards)
-    h = embed_tokens(params, tokens, config, shards)
-    layer_fn = functools.partial(_layer, config=config, cos=cos, sin=sin,
-                                 shards=shards)
+def _run_layers(h: torch.Tensor, layers: Params, n_layers: int,
+                layer_fn, config: LlamaConfig) -> torch.Tensor:
+    """h through the n stacked layers of `layers`, each checkpointed
+    under config.remat."""
     context_fn = _remat_policy(config) if config.remat else None
-    for lp in unbind_layers(params, config.n_layers):
+    for lp in unbind_layers({'layers': layers}, n_layers):
         if config.remat:
             h = checkpoint_lib.checkpoint(layer_fn, h, lp,
                                           use_reentrant=False,
                                           context_fn=context_fn)
         else:
             h = layer_fn(h, lp)
+    return h
+
+
+def _trunk(params: Params, tokens: torch.Tensor, config: LlamaConfig,
+           shards: Optional[Shards]) -> torch.Tensor:
+    cos, sin = rank_rope(config, tokens.shape[1], tokens.device, shards)
+    h = embed_tokens(params, tokens, config, shards)
+    layer_fn = functools.partial(_layer, config=config, cos=cos, sin=sin,
+                                 shards=shards)
+    h = _run_layers(h, params['layers'], config.n_layers, layer_fn, config)
     return rmsnorm_ops.rms_norm(h, params['final_norm'],
                                 eps=config.norm_eps)
 
@@ -451,6 +470,47 @@ def forward(params: Params, tokens: torch.Tensor,
     shards = Shards(mesh, rules)
     h, head = head_block(_trunk(params, tokens, config, shards), params,
                          shards)
+    return (h @ head).float()
+
+
+def forward_pipelined(params: Params, tokens: torch.Tensor,
+                      config: LlamaConfig, *, mesh, num_microbatches: int,
+                      attention_fn: Optional[AttentionFn] = None,
+                      sequence_axis: Optional[str] = None
+                      ) -> torch.Tensor:
+    """forward() with the layer stack split into GPipe stages over the
+    mesh's 'pp' axis (parallel/pipeline.py; embed and head replicated
+    over the stages): tokens (B, S) -> logits (B, S, vocab) f32, under
+    the mesh this rank's rows and vocabulary block as forward() gives
+    them, every stage composing with dp, fsdp and tp under LLAMA_RULES.
+
+    sequence_axis: the pp x sp composition ('sp').  tokens are then
+    this rank's sequence block, the stages attend over the sp ring
+    (ring_attention_manual) and RoPE takes the block's global
+    positions, sp_index * S_local onwards.  A mesh with sp > 1 needs
+    it, as the reference's manual region does."""
+    if sequence_axis not in (None, 'sp'):
+        raise ValueError(f"sequence_axis must be None or 'sp', got "
+                         f'{sequence_axis!r}')
+    shards = Shards(mesh, sharding.LLAMA_RULES)
+    if shards.sp > 1 and sequence_axis is None:
+        raise ValueError(f"a mesh with sp={shards.sp} pipelines with "
+                         f"sequence_axis='sp'")
+    num_stages = mesh.axis_size('pp')
+    per_stage = config.n_layers // num_stages
+    cos, sin = rank_rope(config, tokens.shape[1], tokens.device, shards)
+    h = embed_tokens(params, tokens, config, shards)
+    layer_fn = functools.partial(_layer, config=config, cos=cos, sin=sin,
+                                 shards=shards, attention_fn=attention_fn)
+
+    def stage_fn(stage_layers, h_mb):
+        return _run_layers(h_mb, stage_layers, per_stage, layer_fn, config)
+
+    stage_params = pipeline_lib.stack_stages(params['layers'], num_stages)
+    h = pipeline_lib.pipeline_apply(stage_fn, stage_params, h, mesh=mesh,
+                                    num_microbatches=num_microbatches)
+    h = rmsnorm_ops.rms_norm(h, params['final_norm'], eps=config.norm_eps)
+    h, head = head_block(h, params, shards)
     return (h @ head).float()
 
 
@@ -506,13 +566,26 @@ def mesh_mean(local_sum: torch.Tensor, count: int, mesh,
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
             config: LlamaConfig, mesh=None,
-            rules: sharding.PartitionRules = sharding.LLAMA_RULES
+            rules: sharding.PartitionRules = sharding.LLAMA_RULES,
+            forward_fn: Optional[Callable[..., torch.Tensor]] = None
             ) -> torch.Tensor:
     """Next-token cross entropy.  batch: {'tokens': (B, S)}; the model
     predicts tokens[:, 1:] from tokens[:, :-1].  Under a mesh, batch
     holds this rank's rows (the Trainer splits the batch over dp and
-    fsdp) and the loss is the global batch's mean on every rank."""
+    fsdp) and the loss is the global batch's mean on every rank.
+    forward_fn(params, tokens, config) -> logits replaces forward (the
+    reference's hook: ``functools.partial(forward_pipelined, mesh=...,
+    num_microbatches=...)``); under a mesh it takes this rank's rows
+    and sequence block and returns its vocabulary block."""
     tokens = batch['tokens']
+    if forward_fn is not None:
+        if mesh is None:
+            logits = forward_fn(params, tokens[:, :-1], config)
+            return -torch.mean(token_logprobs(logits, tokens[:, 1:]))
+        inputs, targets = rank_tokens(tokens, Shards(mesh, rules))
+        lp = losses_ops.vocab_parallel_logprobs(
+            forward_fn(params, inputs, config), targets, mesh)
+        return -mesh_mean(lp.sum(), lp.numel(), mesh)
     if mesh is not None:
         lp = rank_logprobs(params, tokens, config, mesh, rules)
         return -mesh_mean(lp.sum(), lp.numel(), mesh)

@@ -23,6 +23,12 @@ experts of each bank.  Every rank routes its tokens over all E experts
 (the router gathered over fsdp), so both routers keep their dispatch,
 combine and capacity; the rank runs its experts on the dispatch and
 combine sliced to them (the combine's gradient gathered back over ep).
+Under sp the 'capacity' router ranks a token's slot along the whole
+sequence: each k-iteration adds the expert counts of the sp ranks
+before this one (an exclusive prefix over sp), and the next starts
+from the global fill; the capacity is the global sequence's.  A slot
+holds one token and the expert FFN works row by row, so a rank runs its
+own tokens' slots and the others' stay zero.
 The expert outputs are added over tp (which splits each expert's ff)
 before the combine, and the combined ones over ep, in rank order.  The
 aux loss's fractions are taken over the global batch, so it is the
@@ -125,7 +131,9 @@ def top_k_gating(router_logits: torch.Tensor, top_k: int, capacity: int,
     along the sequence among the tokens routed there, after the slots
     taken by earlier choices; a token past the capacity is dropped (its
     combine weight is zero: the residual carries it).  Choices are taken
-    by argmax, first index on ties, as jnp.argmax."""
+    by argmax, first index on ties, as jnp.argmax.  Under sp (shards)
+    the rows are this rank's sequence block and the ranks are counted
+    along the whole sequence."""
     gates = torch.softmax(router_logits.float(), dim=-1)
     batch, _, n_experts = gates.shape
     aux_loss = _load_balance(gates, n_experts, shards)
@@ -138,9 +146,10 @@ def top_k_gating(router_logits: torch.Tensor, top_k: int, capacity: int,
         onehot = _one_hot(remaining.argmax(-1), n_experts)      # (B, S, E)
         gate_k = (gates * onehot).sum(-1)                       # (B, S)
         prior = onehot.cumsum(1) - onehot
+        before, fill = _sp_counts(onehot.sum(1), shards)
         pos = (prior * onehot).sum(-1) + \
-            (position_in_expert[:, None, :] * onehot).sum(-1)
-        position_in_expert = position_in_expert + onehot.sum(1)
+            ((position_in_expert + before)[:, None, :] * onehot).sum(-1)
+        position_in_expert = position_in_expert + fill
         # pos >= capacity matches no slot: the all-zero row of a drop.
         pos_oh = (pos.unsqueeze(-1) == slots).float()           # (B, S, C)
         part = onehot.unsqueeze(-1) * pos_oh.unsqueeze(-2)
@@ -151,6 +160,18 @@ def top_k_gating(router_logits: torch.Tensor, top_k: int, capacity: int,
     denom = combine.sum(dim=(-2, -1), keepdim=True)
     combine = combine / torch.clamp_min(denom, 1e-9)
     return dispatch, combine, aux_loss
+
+
+def _sp_counts(counts: torch.Tensor, shards):
+    """(the counts of the sp ranks before this one, the counts of all)
+    of each row's tokens an expert, (B, E): whole numbers in f32, so
+    their sums are exact in any order.  Without sp: (0, counts)."""
+    if shards is None or shards.sp == 1:
+        return 0.0, counts
+    every = collectives.all_gather(counts, shards.mesh, 'sp')
+    before = (collectives.rank_order_sum(every[:shards.sp_index])
+              if shards.sp_index else torch.zeros_like(counts))
+    return before, collectives.rank_order_sum(every)
 
 
 def _expert_weights(moe_params: Params, shards):
@@ -227,12 +248,10 @@ def moe_block(x: torch.Tensor, moe_params: Params, config: MoeConfig,
             f'got {config.router_impl!r}')
     batch, seq, d = x.shape
     n_experts = config.n_experts
-    if shards is not None and shards.sp > 1:
-        raise NotImplementedError(
-            "the 'capacity' router under sp > 1 (token slots are ranked "
-            "along the whole sequence) is ROADMAP item 11(h)")
     moe_params = _expert_weights(moe_params, shards)
-    capacity = max(1, int(config.top_k * seq * config.capacity_factor /
+    # From the global sequence: under sp each rank holds S / sp rows.
+    seq_all = seq * (1 if shards is None else shards.sp)
+    capacity = max(1, int(config.top_k * seq_all * config.capacity_factor /
                           n_experts))
     dispatch, combine, aux = top_k_gating(x @ moe_params['router'],
                                           config.top_k, capacity, shards)

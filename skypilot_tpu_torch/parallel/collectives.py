@@ -34,7 +34,10 @@ train step, as ``torch.autograd.Function``s with their transposes:
 ``gather_scatter`` (FSDP's weight gather; its gradient reduce-scattered
 in rank order, each block sent once to its rank), Megatron's
 ``sum_forward`` ("g") and ``sum_backward`` ("f"), ``split_gather`` and
-``ring_permute`` (ring attention's hop, one send and one receive).
+``ring_permute`` (ring attention's hop, one send and one receive).  The
+pipeline (parallel/pipeline.py) adds ``permute`` (a stage hand-off, no
+gradient) and ``broadcast`` (a rank's tensor, bytes as they are, on
+every rank of a group).
 Point-to-point transfers (``_send_recv``) are ``batch_isend_irecv``:
 NCCL moves CUDA tensors itself; gloo has no send/recv on CUDA tensors,
 so theirs cross through host copies, as gloo's own collectives on CUDA
@@ -455,3 +458,28 @@ def ring_permute(x: torch.Tensor, mesh, axis_name: str) -> torch.Tensor:
     if mesh.axis_size(axis_name) == 1:
         return x
     return _RingPermute.apply(x, mesh, axis_name)
+
+
+def permute(x: torch.Tensor, mesh, axis_name: str,
+            shift: int) -> torch.Tensor:
+    """Rank i's x lands on rank i + shift (mod n) along axis_name (no
+    gradient): the pipeline's stage hand-off."""
+    if mesh.axis_size(axis_name) == 1:
+        return x
+    return _permute(x, mesh, axis_name, shift)
+
+
+def broadcast(x: torch.Tensor, mesh, axes, index: int) -> torch.Tensor:
+    """The x of rank `index` of the fiber over `axes`, on every rank of
+    it (x gives the shape and dtype elsewhere; no gradient).  The bytes
+    travel as a uint8 view, so every dtype arrives bitwise."""
+    import torch.distributed as dist
+    if mesh.axis_size(axes) == 1:
+        return x
+    src = x.contiguous()
+    raw = src.reshape(-1).view(torch.uint8)
+    if mesh.axis_index(axes) != index:
+        raw = torch.empty_like(raw)
+    dist.broadcast(raw, src=mesh.fiber(axes)[index], group=mesh.group(axes))
+    return raw.view(x.dtype).reshape(x.shape)
+

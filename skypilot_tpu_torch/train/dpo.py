@@ -13,6 +13,12 @@ The reference passes run under ``torch.no_grad()``, the counterpart of
 takes K2 without its lse there.  Full-parameter DPO holds a frozen copy
 of the initial params.  LoRA-DPO needs none: the reference policy is the
 frozen base the adapters close over.
+
+Under a training mesh (``mesh=``, ``rules=``) the policy and the
+reference are this rank's blocks (the reference sharded as the policy),
+the batch is this rank's pairs, a pair's summed logprob is added over
+the sp blocks of its sequence, and the mean over pairs is the global
+batch's, the same on every rank.
 """
 from __future__ import annotations
 
@@ -24,52 +30,70 @@ import torch
 import torch.nn.functional as F
 
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.parallel import collectives
+from skypilot_tpu_torch.parallel import sharding
 from skypilot_tpu_torch.train import sft as sft_lib
 
 
 def _sequence_logprobs(params, tokens: torch.Tensor, mask: torch.Tensor,
-                       config: llama.LlamaConfig) -> torch.Tensor:
-    """(B,) summed logprob of masked TARGET tokens (tokens[:, 1:])."""
-    lp = sft_lib.token_logprobs(params, tokens, config)
-    return (lp * mask.to(lp.dtype)).sum(dim=-1)
+                       config: llama.LlamaConfig, mesh=None,
+                       rules=sharding.LLAMA_RULES) -> torch.Tensor:
+    """(B,) summed logprob of masked TARGET tokens (tokens[:, 1:]); under
+    a mesh this rank's pairs, each summed over its sp blocks."""
+    lp = sft_lib.token_logprobs(params, tokens, config, mesh, rules)
+    mask = sft_lib.rank_targets(mask.to(lp.dtype), mesh)
+    return collectives.sum_forward((lp * mask).sum(dim=-1), mesh, 'sp')
 
 
-def _four_logprobs(params, ref_params, batch, config):
+def _four_logprobs(params, ref_params, batch, config, mesh=None,
+                   rules=sharding.LLAMA_RULES):
     """(pi_c, pi_r, ref_c, ref_r); the reference's without a graph."""
     sides = (('tokens_chosen', 'mask_chosen'),
              ('tokens_rejected', 'mask_rejected'))
-    pi = [_sequence_logprobs(params, batch[t], batch[m], config)
-          for t, m in sides]
+    pi = [_sequence_logprobs(params, batch[t], batch[m], config, mesh,
+                             rules) for t, m in sides]
     with torch.no_grad():
-        ref = [_sequence_logprobs(ref_params, batch[t], batch[m], config)
-               for t, m in sides]
+        ref = [_sequence_logprobs(ref_params, batch[t], batch[m], config,
+                                  mesh, rules) for t, m in sides]
     return pi[0], pi[1], ref[0], ref[1]
+
+
+def _pair_mean(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The mean of a per-pair value over the global batch (its pairs
+    split over dp x fsdp, each whole on every sp rank)."""
+    if mesh is None:
+        return torch.mean(x)
+    return llama.mesh_mean(x.sum(), x.numel(), mesh, ('dp', 'fsdp'))
 
 
 def dpo_loss_fn(params, ref_params, batch: Dict[str, torch.Tensor],
                 config: llama.LlamaConfig,
-                beta: float = 0.1) -> torch.Tensor:
+                beta: float = 0.1, mesh=None,
+                rules: sharding.PartitionRules = sharding.LLAMA_RULES
+                ) -> torch.Tensor:
     """batch: tokens_chosen/tokens_rejected (B, S+1) int and
     mask_chosen/mask_rejected (B, S): the masks gate completion targets
     exactly as in SFT.  ref_params get no gradient, so the policy's own
     base tree (LoRA mode) stays frozen."""
     pi_c, pi_r, ref_c, ref_r = _four_logprobs(params, ref_params, batch,
-                                              config)
+                                              config, mesh, rules)
     margin = beta * ((pi_c - ref_c) - (pi_r - ref_r))
-    return -torch.mean(F.logsigmoid(margin))
+    return -_pair_mean(F.logsigmoid(margin), mesh)
 
 
 @torch.no_grad()
 def dpo_metrics(params, ref_params, batch, config,
-                beta: float = 0.1) -> Dict[str, torch.Tensor]:
+                beta: float = 0.1, mesh=None,
+                rules: sharding.PartitionRules = sharding.LLAMA_RULES
+                ) -> Dict[str, torch.Tensor]:
     """Reward margin and accuracy (the share of pairs where the implicit
     reward prefers chosen), as device scalars."""
     pi_c, pi_r, ref_c, ref_r = _four_logprobs(params, ref_params, batch,
-                                              config)
+                                              config, mesh, rules)
     rw_c = beta * (pi_c - ref_c)
     rw_r = beta * (pi_r - ref_r)
-    return {'reward_margin': torch.mean(rw_c - rw_r),
-            'reward_accuracy': torch.mean((rw_c > rw_r).float())}
+    return {'reward_margin': _pair_mean(rw_c - rw_r, mesh),
+            'reward_accuracy': _pair_mean((rw_c > rw_r).float(), mesh)}
 
 
 def load_jsonl(path: str) -> List[Dict[str, Any]]:

@@ -20,9 +20,19 @@ W_eff = W + (alpha / r) * A @ B starts exactly at the base model.
 Targets are regexes over the JAX package's path strings
 (``layers/attn/wq``, ...), so one pattern picks the same leaves in both
 packages.  A stacked (L, in, out) weight gets (L, in, r) / (L, r, out)
-adapters and the product batches over L.  The JAX package's
-``LORA_RULES`` shards adapters over a mesh; it comes with ROADMAP item
-11(h).
+adapters and the product batches over L.
+
+On a training mesh the adapters are replicated (``LORA_RULES``, as the
+reference's) and the base is this rank's blocks under the model's rules
+(``LLAMA_RULES``/``MOE_RULES``).  ``apply_lora(..., mesh=, rules=)``
+cuts each delta to the block: A's rows and B's columns (and any lead
+dimension a rule splits) as the base leaf's spec cuts them, so the block
+gets W_blk + s * A[rows] @ B[:, cols], the block of GSPMD's W + s * A @
+B.  A rank's adapter gradient is then a partial sum over every axis
+that splits the leaf: the Trainer adds it over the data axes (dp, fsdp,
+sp), and A and B pass through Megatron's f over the others (tp, ep).
+``merge_lora(..., mesh=, rules=)`` puts the merged blocks back together
+into the whole tree on rank 0, bitwise one card's merge.
 """
 from __future__ import annotations
 
@@ -34,7 +44,13 @@ import numpy as np
 import torch
 
 from skypilot_tpu_torch.device import resolve_device
-from skypilot_tpu_torch.train.trainer import tree_leaves, tree_map
+from skypilot_tpu_torch.parallel import collectives
+from skypilot_tpu_torch.parallel import sharding
+from skypilot_tpu_torch.train.trainer import DATA_AXES, tree_leaves, tree_map
+
+# Adapters are tiny (rank x (in + out) a target): replicated over the
+# mesh, as the reference's LORA_RULES.
+LORA_RULES = sharding.PartitionRules([(r'.*', sharding.P())])
 
 # Preset target sets (torchtune's lora.yaml exposes the same choice as
 # lora_attn_modules / apply_lora_to_mlp).
@@ -93,11 +109,15 @@ def _get_nested(tree: Dict[str, Any], path: Tuple[str, ...]):
 
 
 def init_lora(params: Any, lora_config: LoraConfig,
-              generator: torch.Generator) -> Dict[str, Any]:
+              generator: torch.Generator, mesh=None,
+              rules: sharding.PartitionRules = sharding.LLAMA_RULES
+              ) -> Dict[str, Any]:
     """Adapter tree for every targeted weight, f32 on each weight's
     device.  A ~ N(0, 1/in_dim) (fan-in scaled), drawn on `generator`
     target by target in path order; B = 0, so step 0 is exactly the
-    base model."""
+    base model.  Under a mesh, params are this rank's blocks under
+    `rules` and the adapters are whole (the global leaf's shape), the
+    same on every rank and as on one card for the same generator."""
     pattern = re.compile(lora_config.target_pattern)
     flat = list(_flatten_with_paths(params))
     targets = [(path, leaf) for path, leaf in flat
@@ -112,7 +132,11 @@ def init_lora(params: Any, lora_config: LoraConfig,
         if leaf.ndim < 2:
             raise ValueError(f'LoRA target {_path_str(path)} is not a '
                              f'matrix: shape {tuple(leaf.shape)}')
-        lead, (in_dim, out_dim) = tuple(leaf.shape[:-2]), leaf.shape[-2:]
+        shape = tuple(leaf.shape)
+        if mesh is not None:
+            shape = sharding.global_shape(
+                sharding.P(*_leaf_spec(rules, path, leaf.ndim)), shape, mesh)
+        lead, (in_dim, out_dim) = shape[:-2], shape[-2:]
         a = torch.randn(lead + (in_dim, lora_config.rank),
                         generator=generator, dtype=torch.float32,
                         device=generator.device) * (in_dim ** -0.5)
@@ -139,38 +163,94 @@ def adapters_from_numpy(tree: Mapping[str, Any], device=None
     return convert(tree)
 
 
+def _leaf_spec(rules, path: Tuple[str, ...], ndim: int) -> tuple:
+    spec = tuple(rules.spec_for(_path_str(path)))
+    return spec + (None,) * (ndim - len(spec))
+
+
+def _cut(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """This rank's block of x under spec (a differentiable slice)."""
+    return x[tuple(slice(lo, hi) for lo, hi in
+                   sharding.block_bounds(sharding.P(*spec), x.shape, mesh))]
+
+
+def _block_adapters(ad, spec: tuple, mesh):
+    """(A, B) cut to the block of a base leaf under `spec`: A's lead
+    dims and rows, B's lead dims and columns.  Both first pass through
+    Megatron's f over the axes that split the leaf and hold no other
+    tokens, whose ranks each add a partial to the adapters' gradient."""
+    lead, rows, cols = spec[:-2], spec[-2], spec[-1]
+    axes = tuple(a for a in sharding.spec_axes(sharding.P(*spec))
+                 if a not in DATA_AXES)
+    a, b = (collectives.sum_backward(ad[k], mesh, axes) for k in 'ab')
+    return (_cut(a, lead + (rows, None), mesh),
+            _cut(b, lead + (None, cols), mesh))
+
+
 def apply_lora(params: Any, lora: Dict[str, Any],
-               lora_config: LoraConfig) -> Any:
+               lora_config: LoraConfig, mesh=None,
+               rules: sharding.PartitionRules = sharding.LLAMA_RULES) -> Any:
     """Effective params: W + (alpha/r) * A @ B for adapted weights, the
-    base leaf itself otherwise.  Differentiable in the adapters."""
+    base leaf itself otherwise.  Differentiable in the adapters.  Under
+    a mesh, params are this rank's blocks under `rules` and each delta
+    is the block's, A[rows] @ B[:, cols]."""
     def walk(node, path):
         if isinstance(node, Mapping):
             return {k: walk(v, path + (str(k),)) for k, v in node.items()}
         ad = _get_nested(lora, path)
         if ad is None:
             return node
-        delta = torch.matmul(ad['a'], ad['b'])
+        a, b = ad['a'], ad['b']
+        if mesh is not None:
+            a, b = _block_adapters(ad, _leaf_spec(rules, path, node.ndim),
+                                   mesh)
+        delta = torch.matmul(a, b)
         return node + (lora_config.scaling * delta).to(node.dtype)
     return walk(params, ())
 
 
 @torch.no_grad()
 def merge_lora(params: Any, lora: Dict[str, Any],
-               lora_config: LoraConfig) -> Any:
+               lora_config: LoraConfig, mesh=None,
+               rules: sharding.PartitionRules = sharding.LLAMA_RULES) -> Any:
     """Merged params for export and serving, outside autograd: new
     tensors for the adapted weights; the other leaves are the base's own
-    tensors, detached (no copy)."""
-    return tree_map(torch.Tensor.detach,
-                    apply_lora(params, lora, lora_config))
+    tensors, detached (no copy).  Under a mesh (params this rank's
+    blocks under `rules`) rank 0 returns the whole merged tree on the
+    CPU and every other rank None: each delta computed whole, as one
+    card computes it, cut to the rank's block and added, and the blocks
+    gathered leaf by leaf, which rank 0 alone keeps (bitwise one card's
+    merge)."""
+    if mesh is None:
+        return tree_map(torch.Tensor.detach,
+                        apply_lora(params, lora, lora_config))
+    lead = mesh.rank == 0
+
+    def walk(node, path):
+        if isinstance(node, Mapping):
+            return {k: walk(v, path + (str(k),)) for k, v in node.items()}
+        spec = _leaf_spec(rules, path, node.ndim)
+        ad = _get_nested(lora, path)
+        if ad is not None:
+            delta = lora_config.scaling * torch.matmul(ad['a'], ad['b'])
+            node = node + _cut(delta, spec, mesh).to(node.dtype)
+        whole = sharding.gather_tensor(node.detach(), sharding.P(*spec),
+                                       mesh)
+        return whole.cpu() if lead else None
+    merged = walk(params, ())
+    return merged if lead else None
 
 
-def wrap_loss(base_loss_fn, base_params: Any, lora_config: LoraConfig):
+def wrap_loss(base_loss_fn, base_params: Any, lora_config: LoraConfig,
+              mesh=None,
+              rules: sharding.PartitionRules = sharding.LLAMA_RULES):
     """loss(lora, batch) over the ADAPTER tree, for the Trainer: the base
     params ride as closed-over frozen tensors (no gradients, no
-    optimizer state, no checkpoint bytes)."""
+    optimizer state, no checkpoint bytes); under a mesh, this rank's
+    blocks of them under `rules`."""
     def loss(lora, batch):
-        return base_loss_fn(apply_lora(base_params, lora, lora_config),
-                            batch)
+        return base_loss_fn(apply_lora(base_params, lora, lora_config,
+                                       mesh, rules), batch)
     return loss
 
 

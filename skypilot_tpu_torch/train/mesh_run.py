@@ -46,6 +46,35 @@ def launch(world: int, target: Callable, argd: dict) -> None:
     multihost.launch_local_ranks(world, target, (argd,))
 
 
+def run_on_mesh(args, run: Callable, mesh_config) -> None:
+    """run(args, device, mesh) in this process on one device when
+    `mesh_config` (a parallel.mesh.MeshConfig) holds one, else on each
+    of its ranks (:func:`launch`), each joined to the group and given
+    its device and the mesh."""
+    import dataclasses
+    from skypilot_tpu_torch.device import resolve_device
+    if mesh_config.num_devices == 1:
+        run(args, resolve_device(args.device), None)
+        return
+    launch(mesh_config.num_devices, _run_rank, dict(
+        vars(args), mesh=dataclasses.asdict(mesh_config), run=run))
+
+
+def _run_rank(local_rank: int, procs_per_host: int, argd: dict) -> None:
+    import argparse
+    import sys
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    argd = dict(argd)
+    mesh_kw, run = argd.pop('mesh'), argd.pop('run')
+    args = argparse.Namespace(**argd)
+    sys.stdout.reconfigure(line_buffering=True)
+    device, _ = join(args.device, local_rank, procs_per_host)
+    try:
+        run(args, device, mesh_lib.make_mesh(mesh_lib.MeshConfig(**mesh_kw)))
+    finally:
+        leave()
+
+
 def join(device: Optional[str], local_rank: int,
          procs_per_host: int) -> Tuple[torch.device, dict]:
     """This rank's device and its place in the process group
@@ -67,3 +96,17 @@ def leave() -> None:
     import torch.distributed as dist
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+def lead_print(mesh):
+    """print on rank 0 (and without a mesh); nothing elsewhere."""
+    if mesh is None or mesh.rank == 0:
+        return print
+    return lambda *a, **k: None
+
+
+def describe(mesh) -> str:
+    """The mesh as the reference prints its MeshConfig:
+    'mesh(fsdp=2, tp=2)'."""
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    return str(mesh_lib.MeshConfig(**dict(mesh.shape)))

@@ -32,14 +32,12 @@ the card unless ``--device cpu``.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import sys
 import time
 
 import numpy as np
 import torch
 
-from skypilot_tpu_torch.device import resolve_device
 from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.parallel import mesh as mesh_lib
 from skypilot_tpu_torch.parallel import sharding
@@ -116,13 +114,7 @@ def mesh_config(args, config) -> mesh_lib.MeshConfig:
 def main(argv=None) -> None:
     args = parse_args(argv)
     sys.stdout.reconfigure(line_buffering=True)
-    config = _config(args)
-    mc = mesh_config(args, config)
-    if mc.num_devices == 1:
-        train(args, resolve_device(args.device))
-        return
-    mesh_run.launch(mc.num_devices, _rank,
-                    dict(vars(args), mesh=dataclasses.asdict(mc)))
+    mesh_run.run_on_mesh(args, train, mesh_config(args, _config(args)))
 
 
 def _config(args):
@@ -130,17 +122,6 @@ def _config(args):
         from skypilot_tpu_torch.models import convert
         return convert.read_hf_config(args.hf_model)
     return PRESETS[args.model_size]
-
-
-def _rank(local_rank: int, procs_per_host: int, argd: dict) -> None:
-    args = argparse.Namespace(**argd)
-    sys.stdout.reconfigure(line_buffering=True)
-    device, _ = mesh_run.join(args.device, local_rank, procs_per_host)
-    try:
-        train(args, device,
-              mesh_lib.make_mesh(mesh_lib.MeshConfig(**args.mesh)))
-    finally:
-        mesh_run.leave()
 
 
 def _params(args, config, device, mesh):
@@ -176,9 +157,9 @@ def train(args, device: torch.device, mesh=None) -> None:
             trainer_config, device=device, mesh=mesh,
             rules=sharding.LLAMA_RULES, params_sharded=True)
     del params
-    lead = mesh is None or mesh.rank == 0
-    say = print if lead else (lambda *a, **k: None)
-    where = '' if mesh is None else f' {_mesh_str(mesh)} ranks={mesh.size}'
+    say = mesh_run.lead_print(mesh)
+    where = ('' if mesh is None
+             else f' {mesh_run.describe(mesh)} ranks={mesh.size}')
     say(f'device={trainer.device}{where} '
         f'model={args.hf_model or args.model_size} '
         f'({config.num_params() / 1e9:.2f}B params) seq={args.seq_len}')
@@ -222,9 +203,6 @@ def train(args, device: torch.device, mesh=None) -> None:
     say(f"final: loss={summary['loss']:.4f} "
         f"tokens/sec={rate:.0f} ({rate / trainer.world:.0f}/card)")
 
-
-def _mesh_str(mesh) -> str:
-    return str(mesh_lib.MeshConfig(**{a: s for a, s in mesh.shape.items()}))
 
 
 if __name__ == '__main__':

@@ -1,5 +1,6 @@
-"""GRPO RL entry point on one card (train/rl.py): rollouts from the
-port's Generator and updates from its Trainer, colocated on the card.
+"""GRPO RL entry point on one card or a mesh of ranks (train/rl.py):
+rollouts from the port's Generator and updates from its Trainer,
+colocated on the card.
 
 Counterpart of examples/scripts/train_rl.py, with its flags and printed
 lines.  Run as::
@@ -15,7 +16,11 @@ Demo rewards are verifiable by construction (no reward model):
 The contract is reward(prompt_ids, completion_ids) -> float.  The model
 is ``--hf-model DIR`` (a local HF checkpoint directory,
 models/convert.py), else the ``--model-size`` preset with random weights
-from seed 0; the run is on the card unless ``--device cpu``.
+from seed 0; the run is on the card unless ``--device cpu``.  ``--fsdp``
+and ``--tp`` lay the ranks out on a training mesh as the reference does
+(dp filling the cards left over; train/mesh_run.py, one process a
+rank); every rank rolls out on the whole policy gathered from its
+blocks, and rank 0 prints.
 """
 from __future__ import annotations
 
@@ -24,7 +29,8 @@ import sys
 
 import torch
 
-from skypilot_tpu_torch.train.train_sft import refuse_unported
+from skypilot_tpu_torch.train.mesh_run import lead_print
+from skypilot_tpu_torch.train.train_sft import launch
 
 
 def make_rewards(vocab_size: int, target_token: int = 0,
@@ -58,31 +64,35 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument('--target-token', type=int, default=0,
                         help='0 = vocab_size // 8')
     parser.add_argument('--target-length', type=int, default=8)
-    parser.add_argument('--fsdp', type=int, default=0, help='1 (one card)')
-    parser.add_argument('--tp', type=int, default=1, help='1 (one card)')
+    parser.add_argument('--fsdp', type=int, default=0)
+    parser.add_argument('--tp', type=int, default=1)
     parser.add_argument('--device', default=None,
                         help='default: the CUDA card')
-    args = parser.parse_args(argv)
-    refuse_unported(parser, args)
-    return args
+    return parser.parse_args(argv)
 
 
 def main(argv=None) -> None:
     args = parse_args(argv)
     sys.stdout.reconfigure(line_buffering=True)
-    from skypilot_tpu_torch.device import resolve_device
+    launch(args, run)
+
+
+def run(args, device, mesh=None) -> None:
+    """The GRPO run of one process: on one device, or one rank of
+    `mesh` (the policy's blocks under LLAMA_RULES)."""
     from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.parallel import sharding
     from skypilot_tpu_torch.train import rl
     from skypilot_tpu_torch.train.train_sft import load_base
 
-    device = resolve_device(args.device)
     if args.hf_model:
-        params, config = load_base(args.hf_model, device)
+        params, config = load_base(args.hf_model, 'cpu' if mesh else device)
     else:
         config = {'debug': llama.LLAMA_DEBUG, '1b': llama.LLAMA_1B,
                   '8b': llama.LLAMA3_8B}[args.model_size]
         params = llama.init_params(
-            config, torch.Generator(device=device).manual_seed(0), device)
+            config, torch.Generator(device=device).manual_seed(0),
+            'cpu' if mesh else device)
     rewards = make_rewards(config.vocab_size, args.target_token,
                            args.target_length)
     trainer = rl.GrpoTrainer(
@@ -90,8 +100,10 @@ def main(argv=None) -> None:
         max_new_tokens=args.max_new_tokens,
         temperature=args.temperature,
         learning_rate=args.learning_rate, kl_coef=args.kl_coef,
-        total_steps=args.steps, device=device)
+        total_steps=args.steps, device=device, mesh=mesh,
+        rules=None if mesh is None else sharding.LLAMA_RULES)
     del params
+    say = lead_print(mesh)
 
     prompts = [[(11 * (i + 1)) % config.vocab_size,
                 (13 * (i + 1)) % config.vocab_size]
@@ -100,14 +112,14 @@ def main(argv=None) -> None:
     try:
         for _ in range(args.steps):
             metrics = trainer.step(prompts)
-            print(f"rl step {metrics['step']}: "
-                  f"reward={metrics['reward_mean']:.3f}"
-                  f"±{metrics['reward_std']:.3f} "
-                  f"loss={metrics['loss']:.4f}")
+            say(f"rl step {metrics['step']}: "
+                f"reward={metrics['reward_mean']:.3f}"
+                f"±{metrics['reward_std']:.3f} "
+                f"loss={metrics['loss']:.4f}")
     finally:
         trainer.close()
-    print(f"rl OK: {args.steps} steps, final "
-          f"reward={metrics.get('reward_mean', float('nan')):.3f}")
+    say(f"rl OK: {args.steps} steps, final "
+        f"reward={metrics.get('reward_mean', float('nan')):.3f}")
 
 
 if __name__ == '__main__':

@@ -215,11 +215,14 @@ def generate_case(tree, cfg_kw, kind, gen_kw, tp, dp, prompts, max_new,
                   shards=False, quantize=False):
     """Greedy tokens of Generator(mesh=) and the prefill logits of the
     same prompts (llama_infer.prefill under the mesh)."""
+    import warnings
+
     import torch
     from skypilot_tpu_torch.infer import engine, llama_infer, quant
     from skypilot_tpu_torch.infer import tp as tp_lib
+    warnings.simplefilter('ignore', DeprecationWarning)
     cfg = _cfg(kind, **cfg_kw)
-    mesh = _mesh(tp, dp, cfg.n_kv_heads)
+    mesh = _mesh(tp, dp, cfg.n_kv_heads) if tp * dp > 1 else None
     params = _params(tree, cfg)
     if quantize:
         params = quant.quantize_weights(params)
@@ -241,15 +244,20 @@ def generate_case(tree, cfg_kw, kind, gen_kw, tp, dp, prompts, max_new,
     return {'tokens': toks, 'logits': _np(logits), 'overlap': g.overlap,
             'shapes': {k: tuple(v.shape) for k, v in
                        g.params['layers']['attn'].items()
-                       if not isinstance(v, dict)}}
+                       if not isinstance(v, dict)},
+            'migrations': dict(g.migrations),
+            'cache_heads': tp_lib.local_config(cfg, mesh).n_kv_heads}
 
 
 def batcher_case(tree, cfg_kw, kind, gen_kw, tp, dp, requests,
                  decode_chunk=8):
     """The batcher's results under a mesh.  requests: (prompt,
     max_new_tokens) pairs."""
+    import warnings
+
     from skypilot_tpu_torch.infer import engine
     from skypilot_tpu_torch.infer.serving import ContinuousBatcher
+    warnings.simplefilter('ignore', DeprecationWarning)
     cfg = _cfg(kind, **cfg_kw)
     mesh = _mesh(tp, dp, cfg.n_kv_heads)
     b = ContinuousBatcher(_params(tree, cfg), cfg,
@@ -532,25 +540,11 @@ def grad_collectives_case(seed, dtype):
     return {'rank': mesh.rank, 'coords': mesh.coords, 'results': out}
 
 
-def pp_refused_case(cfg_kw):
-    """The training forward on a mesh with pp 2 is refused, naming its
-    ROADMAP item; returns the message."""
-    import torch
-    from skypilot_tpu_torch.models import llama
-    cfg = _cfg('llama', **cfg_kw)
-    mesh = _train_mesh({'pp': 2, 'dp': 2})
-    try:
-        llama.loss_fn({}, {'tokens': torch.zeros((1, 9), dtype=torch.long)},
-                      cfg, mesh=mesh)
-    except NotImplementedError as e:
-        return str(e)
-    return 'not refused'
-
-
 def forward_case(tree, cfg_kw, kind, mesh_kw, tokens):
     """The sharded forward on this rank: llama.forward's logits block
-    (its rows over dp x fsdp, its vocabulary block over tp), or
-    moe.hidden_states' rows and aux loss, with the block's bounds."""
+    (its rows over dp x fsdp, its sequence block over sp, its vocabulary
+    block over tp), or moe.hidden_states' rows and sequence block and
+    the aux loss, with the block's bounds."""
     import torch
     from skypilot_tpu_torch.models import llama, moe
     from skypilot_tpu_torch.parallel import sharding
@@ -559,11 +553,12 @@ def forward_case(tree, cfg_kw, kind, mesh_kw, tokens):
     rules = sharding.MOE_RULES if kind == 'moe' else sharding.LLAMA_RULES
     params = sharding.shard_params(_params(tree, cfg), mesh, rules)
     t = torch.as_tensor(tokens)
-    rows = sharding.shard_tensor(t, sharding.BATCH_SPEC, mesh)
+    rows = sharding.shard_tensor(t, sharding.P(('dp', 'fsdp'), 'sp'), mesh)
     with torch.no_grad():
         if kind == 'moe':
             h, aux = moe.hidden_states(params, rows, cfg, mesh=mesh)
-            spec, out = sharding.P(('dp', 'fsdp')), {'aux': float(aux)}
+            spec, out = sharding.P(('dp', 'fsdp'), 'sp'), {
+                'aux': float(aux)}
             shape = (t.shape[0], t.shape[1], cfg.d_model)
         else:
             h = llama.forward(params, rows, cfg, mesh=mesh)
@@ -571,3 +566,203 @@ def forward_case(tree, cfg_kw, kind, mesh_kw, tokens):
             shape = (t.shape[0], t.shape[1], cfg.vocab_size)
     out.update(out=_np(h), bounds=sharding.block_bounds(spec, shape, mesh))
     return out
+
+
+# ---- pipelines (test_torch_pipeline.py) -----------------------------------
+
+def _pp_loss(cfg, mesh, rules, num_microbatches, sequence_axis=None):
+    import functools
+    from skypilot_tpu_torch.models import llama
+    fwd = functools.partial(llama.forward_pipelined, mesh=mesh,
+                            num_microbatches=num_microbatches,
+                            sequence_axis=sequence_axis)
+
+    def loss(p, b):
+        return llama.loss_fn(p, b, cfg, mesh=mesh, rules=rules,
+                             forward_fn=fwd)
+    return loss
+
+
+def pipeline_case(tree, cfg_kw, mesh_kw, tokens, num_microbatches,
+                  sequence_axis=None):
+    """forward_pipelined on this rank: its logits block (rows over dp x
+    fsdp, sequence block over sp, vocabulary block over tp) and where it
+    lies; then the loss of loss_fn(forward_fn=forward_pipelined) on the
+    global batch `tokens` (B, S + 1) and its gradient, summed over the
+    data axes as the Trainer sums it and put back together."""
+    import torch
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.parallel import sharding
+    from skypilot_tpu_torch.train import trainer
+    cfg = _cfg('llama', **cfg_kw)
+    mesh = _train_mesh(mesh_kw)
+    rules = sharding.LLAMA_RULES
+    params = sharding.shard_params(_params(tree, cfg), mesh, rules)
+    t = torch.as_tensor(tokens)
+    rows = sharding.shard_tensor(t[:, :-1], sharding.BATCH_SPEC, mesh)
+    shards = llama.Shards(mesh, rules)
+    n = rows.shape[1] // shards.sp
+    block = rows[:, shards.sp_index * n:(shards.sp_index + 1) * n]
+    with torch.no_grad():
+        logits = llama.forward_pipelined(
+            params, block, cfg, mesh=mesh,
+            num_microbatches=num_microbatches, sequence_axis=sequence_axis)
+    spec = sharding.LOGITS_SPEC
+    shape = (t.shape[0], t.shape[1] - 1, cfg.vocab_size)
+    tr = trainer.Trainer(_pp_loss(cfg, mesh, rules, num_microbatches,
+                                  sequence_axis), params,
+                         device='cpu', mesh=mesh, rules=rules,
+                         params_sharded=True)
+    batch = {'tokens': sharding.shard_tensor(t, sharding.BATCH_SPEC, mesh)}
+    loss = tr._loss_fn(tr.params, batch)
+    grads = tr._sum_over_data(list(torch.autograd.grad(loss, tr._leaves)))
+    from skypilot_tpu_torch.ckpt import format as ckpt_format
+    g_tree = ckpt_format.tree_unflatten(tr.params, grads)
+    return {'out': _np(logits), 'bounds': sharding.block_bounds(
+        spec, shape, mesh), 'loss': float(loss.detach()),
+        'grads': sharding.gather_params(g_tree, mesh, rules)}
+
+
+def pp_train_case(tree, cfg_kw, mesh_kw, tc_kw, batches, num_microbatches,
+                  sequence_axis=None):
+    """train_case with the pipelined loss: each step's loss and grad
+    norm (and their bits), and the parameters after, put together."""
+    from skypilot_tpu_torch.parallel import sharding
+    from skypilot_tpu_torch.train import trainer
+    cfg = _cfg('llama', **cfg_kw)
+    mesh = _train_mesh(mesh_kw)
+    rules = sharding.LLAMA_RULES
+    tr = trainer.Trainer(_pp_loss(cfg, mesh, rules, num_microbatches,
+                                  sequence_axis), _params(tree, cfg),
+                         trainer.TrainConfig(**tc_kw), device='cpu',
+                         mesh=mesh, rules=rules)
+    out = {'loss': [], 'grad_norm': [], 'bits': []}
+    for b in batches:
+        m = tr.run_step({'tokens': b})
+        out['loss'].append(float(m['loss']))
+        out['grad_norm'].append(float(m['grad_norm']))
+        out['bits'].append((m['loss'].double().item(),
+                            m['grad_norm'].double().item()))
+    out['params'] = sharding.gather_params(tr.params, mesh, rules)
+    return out
+
+
+def pipeline_apply_case(mesh_kw, num_microbatches, seed):
+    """pipeline_apply of a plain stage function (per stage two layers of
+    h -> tanh(h * w_l + b_l), 4 layers in all) over the mesh's pp
+    stages, on h (8, 8, 4) in `num_microbatches` microbatches: the
+    output and the gradients of sum(out * c) with respect to h and to
+    the stacked weights.  mesh_kw None: the layers one after another on
+    this process."""
+    import torch
+    from skypilot_tpu_torch.parallel import pipeline
+    gen = torch.Generator().manual_seed(seed)
+    h = torch.randn(8, 8, 4, generator=gen).requires_grad_()
+    layers = {'w': torch.randn(4, 4, generator=gen),
+              'b': torch.randn(4, 4, generator=gen)}
+    layers = {k: v.requires_grad_() for k, v in layers.items()}
+    c = torch.randn(8, 8, 4, generator=gen)
+
+    def stage_fn(p, x):
+        for i in range(p['w'].shape[0]):
+            x = torch.tanh(x * p['w'][i] + p['b'][i])
+        return x
+    if mesh_kw is None:
+        out = stage_fn(layers, h)
+    else:
+        mesh = _train_mesh(mesh_kw)
+        out = pipeline.pipeline_apply(
+            stage_fn, pipeline.stack_stages(layers, mesh.axis_size('pp')),
+            h, mesh=mesh, num_microbatches=num_microbatches)
+    gh, gw = torch.autograd.grad((out * c).sum(), [h, layers['w']])
+    return {'out': _np(out), 'grad_h': _np(gh), 'grad_w': _np(gw)}
+
+
+def pp_sp_refused_case(cfg_kw):
+    """forward_pipelined on a pp 2 x sp 2 mesh without sequence_axis
+    raises; returns the message."""
+    import torch
+    from skypilot_tpu_torch.models import llama
+    cfg = _cfg('llama', **cfg_kw)
+    mesh = _train_mesh({'pp': 2, 'sp': 2})
+    try:
+        llama.forward_pipelined({}, torch.zeros((2, 8), dtype=torch.long),
+                                cfg, mesh=mesh, num_microbatches=2)
+    except ValueError as e:
+        return str(e)
+    return 'not refused'
+
+
+# ---- post-training meshes (test_torch_sft.py) ------------------------------
+
+def lora_mesh_case(kind, tree, adapters, cfg_kw, lcfg_kw, mesh_kw, tc_kw,
+                   batches, beta=0.1):
+    """LoRA-SFT (kind 'sft') or LoRA-DPO ('dpo') steps of the adapters
+    `adapters` (a numpy tree) over the frozen base `tree`, on this
+    rank's blocks of a mesh (mesh_kw) or one device (None): each step's
+    loss and grad norm (and their bits), the adapters after, and their
+    merge with the base put together (lora.merge_lora: on a mesh rank
+    0's, None on the others)."""
+    import torch
+    from skypilot_tpu_torch.parallel import sharding
+    from skypilot_tpu_torch.train import dpo, lora, sft, trainer
+    cfg = _cfg('llama', **cfg_kw)
+    mesh = _train_mesh(mesh_kw) if mesh_kw else None
+    rules = sharding.LLAMA_RULES
+    base = _params(tree, cfg)
+    if mesh is not None:
+        base = sharding.shard_params(base, mesh, rules)
+    lcfg = lora.LoraConfig(**lcfg_kw)
+    if kind == 'sft':
+        loss = lora.wrap_loss(
+            lambda p, b: sft.sft_loss_fn(p, b, cfg, mesh=mesh, rules=rules),
+            base, lcfg, mesh, rules)
+    else:
+        def loss(ad, b):
+            policy = lora.apply_lora(base, ad, lcfg, mesh, rules)
+            return dpo.dpo_loss_fn(policy, base, b, cfg, beta=beta,
+                                   mesh=mesh, rules=rules)
+    kw = {} if mesh is None else {'mesh': mesh, 'rules': lora.LORA_RULES}
+    tr = trainer.Trainer(loss, lora.adapters_from_numpy(adapters, 'cpu'),
+                         trainer.TrainConfig(**tc_kw), device='cpu', **kw)
+    out = {'loss': [], 'grad_norm': [], 'bits': []}
+    for b in batches:
+        m = tr.run_step(b)
+        out['loss'].append(float(m['loss']))
+        out['grad_norm'].append(float(m['grad_norm']))
+        out['bits'].append((m['loss'].double().item(),
+                            m['grad_norm'].double().item()))
+    out['params'] = _tree_np(tr.params)
+    merged = lora.merge_lora(base, tr.params, lcfg, mesh, rules)
+    out['merged'] = (None if merged is None else trainer.tree_map(
+        lambda x: x.numpy().copy(), merged))
+    del torch
+    return out
+
+
+def grpo_mesh_case(tree, cfg_kw, mesh_kw, kw, prompts, steps):
+    """GrpoTrainer steps on a mesh (mesh_kw) or one device (None): each
+    step's metrics and every rollout (prompt, completion) in order."""
+    import torch
+    from skypilot_tpu_torch.parallel import sharding
+    from skypilot_tpu_torch.train import rl
+    from skypilot_tpu_torch.train.train_rl import make_rewards
+    torch.set_num_threads(1)
+    cfg = _cfg('llama', **cfg_kw)
+    mesh = _train_mesh(mesh_kw) if mesh_kw else None
+    seen = []
+    band = make_rewards(cfg.vocab_size)['token-band']
+
+    def reward(prompt, completion):
+        seen.append((list(map(int, prompt)), list(map(int, completion))))
+        return band(prompt, completion)
+    tr = rl.GrpoTrainer(
+        _params(tree, cfg) if mesh is None else tree, cfg, reward,
+        device='cpu', mesh=mesh,
+        rules=None if mesh is None else sharding.LLAMA_RULES, **kw)
+    metrics = [tr.step(prompts) for _ in range(steps)]
+    tr.close()
+    return {'metrics': [{k: m[k] for k in ('loss', 'reward_mean',
+                                           'reward_std', 'step')}
+                        for m in metrics], 'seen': seen,
+            'rollout_bytes': tr.rollout_bytes}

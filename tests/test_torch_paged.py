@@ -491,12 +491,14 @@ def test_generator_guards():
     with pytest.raises(ValueError, match='Empty prompt'):
         gen.generate([[]])
     assert gen.generate([[1] * 64], max_new_tokens=4) == [[]]
-    # A mesh on a legacy plane (K7 per shard) is deferred to 11(h).
+    # A mesh on a legacy plane (K7 per shard) builds: a one-rank mesh
+    # decodes as no mesh (test_torch_tp.py holds tp 2 and 4).
     one_rank = mesh_lib.Mesh(np.zeros((1, 1), np.int64), ('tp', 'tpq'))
-    with pytest.raises(NotImplementedError, match=r'item 11\(h\)'):
-        engine.Generator(params, cfg, GeneratorConfig(
-            max_seq_len=64, decode_impl='inplace'), mesh=one_rank,
-            device='cpu')
+    on_mesh = engine.Generator(params, cfg, GeneratorConfig(
+        max_seq_len=64, batch_size=2, decode_impl='inplace'),
+        mesh=one_rank, device='cpu')
+    assert on_mesh.generate([[1, 2]], max_new_tokens=4) == \
+        gen.generate([[1, 2]], max_new_tokens=4)
     with pytest.raises(ValueError, match='decode_chunk must be >= 1'):
         engine.Generator(params, cfg, GeneratorConfig(
             max_seq_len=64, decode_chunk=0), device='cpu')

@@ -156,29 +156,33 @@ def test_generator_config_validation_matches_jax(kwargs, match):
         GeneratorConfig(**kwargs)
 
 
-@pytest.mark.parametrize('kwargs,item', [
-    (dict(decode_impl='paged', max_seq_len=128, prompt_buckets=[64]),
-     '11(h)'),
-    (dict(decode_impl='inplace', max_seq_len=128), '11(h)'),
-])
-def test_deferred_options_name_their_roadmap_item(kwargs, item):
-    """A mesh on a legacy plane (K7 per shard) is the one mesh option
-    still deferred; overlap_collectives, which deferred to item 10, is
-    carried since (tests/test_torch_tp.py)."""
-    import re
+@pytest.mark.parametrize('kwargs', [
+    dict(decode_impl='paged', max_seq_len=128, prompt_buckets=[64]),
+    dict(decode_impl='inplace', max_seq_len=128),
+], ids=['paged', 'inplace'])
+def test_legacy_planes_take_a_mesh(kwargs):
+    """A mesh on a legacy plane (K7 per shard) builds, as every mesh
+    option does now: both engines on a one-rank mesh give the tokens of
+    the same engine without one (tests/test_torch_tp.py holds tp 2, tp 4
+    and dp 2 x tp 2 to the JAX package)."""
     from skypilot_tpu_torch.parallel import mesh as mesh_lib
     j_engine.GeneratorConfig(**kwargs)       # valid for the JAX package
-    GeneratorConfig(overlap_collectives=True)
-    gen = GeneratorConfig(**kwargs)
+    gen = GeneratorConfig(batch_size=2, **kwargs)
     mesh = mesh_lib.Mesh(np.zeros((1, 1), np.int64), ('tp', 'tpq'))
     tp = llama.init_params(llama.LLAMA_DEBUG, torch.Generator(), 'cpu')
+    prompts = [[5, 9, 2], [7, 1]]
     with warnings.catch_warnings():
         warnings.simplefilter('ignore', DeprecationWarning)
-        for build in (engine.Generator, ContinuousBatcher):
-            with pytest.raises(NotImplementedError,
-                               match=re.escape(f'ROADMAP.md Queue A item '
-                                               f'{item}') + '$'):
-                build(tp, llama.LLAMA_DEBUG, gen, mesh=mesh, device='cpu')
+        got = engine.Generator(tp, llama.LLAMA_DEBUG, gen, mesh=mesh,
+                               device='cpu').generate(prompts, 6)
+        want = engine.Generator(tp, llama.LLAMA_DEBUG, gen,
+                                device='cpu').generate(prompts, 6)
+        assert got == want and [len(t) for t in got] == [6, 6]
+        b = ContinuousBatcher(tp, llama.LLAMA_DEBUG, gen, mesh=mesh,
+                              device='cpu')
+        rids = [b.submit(p, max_new_tokens=6) for p in prompts]
+        b.run_until_idle()
+        assert [b.result(r) for r in rids] == want
 
 
 @pytest.mark.parametrize('kwargs', [

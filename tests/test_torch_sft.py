@@ -12,10 +12,17 @@ over by ``llama.params_from_numpy``.  Tolerances:
   gradient leaf atol ATOL (both sides sum in f32 in other orders through
   2 layers; the gradients are O(1e-2));
 - the entry point: finishes on the CPU within 30 s with finite losses;
-  a flag of an unported path exits non-zero naming its ROADMAP item;
   train_sft, train_dpo, train_rl and train_llama train from a tiny HF
   checkpoint directory (--hf-model) that the test writes with
-  chip_smoke.py's writer, and print finite losses.
+  chip_smoke.py's writer, and print finite losses; train_sft, train_dpo
+  and train_rl take the mesh flags (2 gloo rank processes);
+- on meshes of 4 gloo ranks (tests/_torch_ranks.py): LoRA-SFT and
+  LoRA-DPO at dp 2 x fsdp 2 and fsdp 2 x tp 2 against the JAX mesh
+  Trainer on 4 of the 8 CPU devices and the port's one card (losses and
+  grad norms within MESH_RTOL, the adapters after within 2 x the summed
+  learning rates), merge_lora on the mesh bitwise one card's merge of
+  the same adapters; GRPO at dp 2 (rows padded to the shards) and fsdp
+  2 with the one-card rollout tokens and losses within MESH_RTOL.
 """
 import dataclasses
 import importlib.util
@@ -242,23 +249,59 @@ def test_train_sft_runs_on_the_cpu(tmp_path):
     assert proc.stdout.rstrip().endswith('SFT done.')
 
 
-_REFUSED = [(('--tp', '2'), '11(h)'), (('--fsdp', '4'), '11(h)'),
-            (('--ep', '2'), '11(h)')]
+# The mesh flags of the post-training entry points, each a run of 2 gloo
+# rank processes on the CPU: (module, flags, the mesh line).  --ep is
+# train_sft's alone and takes a Mixtral tree, as in the JAX scripts.
+_MESH_RUNS = [
+    ('train_sft', ('--fsdp', '2'), 'devices=2 mesh(fsdp=2)'),
+    ('train_sft', ('--tp', '2', '--lora-rank', '4'), 'devices=2 mesh(tp=2)'),
+    ('train_sft', ('--ep', '2', '--lora-rank', '4', '--lora-targets',
+                   'attn-qv'), 'devices=2 mesh(ep=2)'),
+    ('train_dpo', ('--fsdp', '2', '--lora-rank', '4'),
+     'devices=2 mesh(fsdp=2)'),
+    ('train_dpo', ('--tp', '2'), 'devices=2 mesh(tp=2)'),
+    ('train_rl', ('--fsdp', '2'), None),
+    ('train_rl', ('--tp', '2'), None),
+]
 
 
-@pytest.mark.parametrize('module,flag,item', [
-    (module, flag, item)
-    for module in ('train_sft', 'train_dpo', 'train_rl')
-    for flag, item in _REFUSED
-    # --ep is train_sft's alone, as in the JAX scripts.
-    if module == 'train_sft' or flag[0] != '--ep'])
-def test_entry_points_refuse_unported_flags(tmp_path, module, flag, item):
-    data = ([] if module == 'train_rl'
-            else ['--data-file', str(tmp_path / 'x.jsonl')])
-    proc = _run_entry(f'skypilot_tpu_torch.train.{module}', *data, *flag,
-                      '--device', 'cpu', timeout=30)
-    assert proc.returncode != 0
-    assert item in proc.stderr, proc.stderr
+@pytest.mark.parametrize('module,flags,line', _MESH_RUNS,
+                         ids=['sft-fsdp2', 'sft-lora-tp2', 'sft-ep2-mixtral',
+                              'dpo-lora-fsdp2', 'dpo-tp2', 'rl-fsdp2',
+                              'rl-tp2'])
+def test_entry_points_train_on_meshes(tmp_path, hf_dirs, module, flags,
+                                      line):
+    """--dp/--fsdp/--tp/--ep spawn one process a rank: the run prints
+    the reference's lines once (rank 0), with the mesh, and finite
+    losses."""
+    if module == 'train_rl':
+        args = ['--steps', '2', '--group-size', '2', '--max-new-tokens',
+                '4']
+    else:
+        rows = _pairs() if module == 'train_sft' else [
+            {'prompt': p['prompt'], 'chosen': p['completion'],
+             'rejected': p['completion'][::-1]} for p in _pairs()]
+        args = ['--data-file', _write_jsonl(tmp_path / 'd.jsonl', rows),
+                '--seq-len', '32', '--steps', '2', '--log-every', '1']
+    if '--ep' in flags:
+        args += ['--hf-model', hf_dirs['mixtral']]
+    proc = _run_entry(f'skypilot_tpu_torch.train.{module}', *args, *flags,
+                      '--device', 'cpu', timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr[-3000:]
+    out = proc.stdout
+    if module == 'train_rl':
+        steps = [ln for ln in out.splitlines() if ln.startswith('rl step')]
+        assert len(steps) == 2 and out.rstrip().splitlines()[-1].startswith(
+            'rl OK: 2 steps, final reward=')
+        losses = [float(ln.split('loss=')[1]) for ln in steps]
+    else:
+        head = 'SFT' if module == 'train_sft' else 'DPO'
+        assert out.startswith(f'{head}: {line} device=cpu'), out
+        assert out.rstrip().endswith(f'{head} done.')
+        losses = [float(ln.split('loss=')[1]) for ln in out.splitlines()
+                  if ln.startswith('step ')]
+        assert len(losses) == 2
+    assert np.all(np.isfinite(losses))
 
 
 # Tiny HF configs (config.json fields) of three families for --hf-model:
@@ -360,3 +403,195 @@ def test_dense_entry_points_refuse_a_mixtral_checkpoint(tmp_path, hf_dirs,
                       timeout=60)
     assert proc.returncode != 0
     assert 'Mixtral (MoE) checkpoint' in proc.stderr, proc.stderr
+
+
+# ---- post-training on meshes ------------------------------------------------
+
+MESH_RTOL = 1e-5
+MESH_CFG = dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4,
+                n_kv_heads=2, d_ff=128, max_seq_len=128, remat=False)
+MESH_TC = dict(learning_rate=1e-3, warmup_steps=1, total_steps=4)
+
+
+@pytest.fixture(scope='module')
+def pool4():
+    import _torch_ranks
+    p = _torch_ranks.RankPool(4)
+    yield p
+    p.close()
+
+
+def _mesh_base():
+    import _torch_ranks
+    cfg = _torch_ranks._cfg('llama', **MESH_CFG)
+    return _torch_ranks._tree_np(
+        llama.init_params(cfg, torch.Generator().manual_seed(0), 'cpu'))
+
+
+def _mesh_adapters(tree, rank=4, seed=0):
+    """Adapters of the 'attn' targets with A and B both non-zero."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for name in ('wq', 'wk', 'wv', 'wo'):
+        w = tree['layers']['attn'][name]
+        lead, (d_in, d_out) = w.shape[:-2], w.shape[-2:]
+        out[name] = {'a': (rng.randn(*lead, d_in, rank) * d_in ** -0.5
+                           ).astype(np.float32),
+                     'b': (rng.randn(*lead, rank, d_out) * 0.02
+                           ).astype(np.float32)}
+    return {'layers': {'attn': out}}
+
+
+def _mesh_batches(kind, n=3, batch=4, seq=16):
+    rng = np.random.default_rng(7)
+    out = []
+    for _ in range(n):
+        def side():
+            tokens = rng.integers(0, MESH_CFG['vocab_size'],
+                                  (batch, seq + 1), dtype=np.int32)
+            mask = (rng.random((batch, seq)) < 0.7).astype(np.float32)
+            return tokens, mask
+        if kind == 'sft':
+            t, m = side()
+            out.append({'tokens': t, 'loss_mask': m})
+        else:
+            (tc, mc), (tr, mr) = side(), side()
+            out.append({'tokens_chosen': tc, 'mask_chosen': mc,
+                        'tokens_rejected': tr, 'mask_rejected': mr})
+    return out
+
+
+def _jax_lora_run(kind, tree, adapters, mesh_kw, batches, beta):
+    from skypilot_tpu.parallel import MeshConfig, make_mesh
+    from skypilot_tpu.parallel import sharding as j_sharding
+    from skypilot_tpu.train import dpo as j_dpo
+    from skypilot_tpu.train import lora as j_lora
+    from skypilot_tpu.train import trainer as j_trainer
+    jcfg = j_llama.LlamaConfig(**dict(MESH_CFG, dtype=jnp.float32))
+    n = int(np.prod(list(mesh_kw.values())))
+    mesh = make_mesh(MeshConfig(**mesh_kw), devices=jax.devices()[:n])
+    base = j_sharding.shard_params(jax.tree.map(jnp.asarray, tree), mesh,
+                                   j_sharding.LLAMA_RULES)
+    lcfg = j_lora.LoraConfig(rank=4, alpha=8.0)
+    if kind == 'sft':
+        loss = j_lora.wrap_loss(lambda p, b: j_sft.sft_loss_fn(p, b, jcfg),
+                                base, lcfg)
+    else:
+        def loss(ad, b):
+            return j_dpo.dpo_loss_fn(j_lora.apply_lora(base, ad, lcfg),
+                                     base, b, jcfg, beta=beta)
+    tr = j_trainer.Trainer(loss, jax.tree.map(np.copy, adapters), mesh,
+                           j_lora.LORA_RULES, j_trainer.TrainConfig(**MESH_TC))
+    out = {'loss': [], 'grad_norm': []}
+    for b in batches:
+        m = tr.run_step(b)
+        out['loss'].append(float(m['loss']))
+        out['grad_norm'].append(float(m['grad_norm']))
+    out['params'] = jax.tree.map(np.asarray, tr.params)
+    tr.close()
+    return out
+
+
+def _leaf_items(tree, prefix=''):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaf_items(tree[k], f'{prefix}/{k}')
+    else:
+        yield prefix, np.asarray(tree)
+
+
+def _hold_run(got, want, what):
+    for key in ('loss', 'grad_norm'):
+        np.testing.assert_allclose(got[key], want[key], rtol=MESH_RTOL,
+                                   err_msg=f'{what} {key}')
+    schedule = trainer.make_optimizer(
+        trainer.TrainConfig(**MESH_TC)).schedule
+    atol = 2 * sum(schedule(i) for i in range(len(got['loss'])))
+    for (k, g), (_, w) in zip(_leaf_items(got['params']),
+                              _leaf_items(want['params'])):
+        assert np.abs(g - w).max() <= atol, (what, k)
+
+
+@pytest.mark.parametrize('kind,mesh_kw', [
+    ('sft', {'dp': 2, 'fsdp': 2}), ('sft', {'fsdp': 2, 'tp': 2}),
+    ('dpo', {'dp': 2, 'fsdp': 2}), ('dpo', {'fsdp': 2, 'tp': 2})],
+    ids=['sft-dp2-fsdp2', 'sft-fsdp2-tp2', 'dpo-dp2-fsdp2',
+         'dpo-fsdp2-tp2'])
+def test_lora_on_a_mesh_matches_jax_and_one_card(pool4, kind, mesh_kw):
+    """3 LoRA steps (adapters replicated, the base this rank's blocks):
+    every rank the same bits; losses, norms and adapters as the JAX mesh
+    Trainer's and one card's; merge_lora on the mesh bitwise one card's
+    merge of the mesh's adapters on rank 0, and nothing on the others."""
+    import _torch_ranks
+    from skypilot_tpu_torch.train import lora
+    tree = _mesh_base()
+    adapters = _mesh_adapters(tree)
+    batches = _mesh_batches(kind)
+    common = dict(kind=kind, tree=tree, adapters=adapters,
+                  cfg_kw=MESH_CFG, lcfg_kw=dict(rank=4, alpha=8.0),
+                  tc_kw=MESH_TC, batches=batches, beta=0.5)
+    outs = pool4.run('lora_mesh_case', mesh_kw=mesh_kw, **common)
+    for o in outs[1:]:
+        assert o['bits'] == outs[0]['bits']
+    got = outs[0]
+    one = _torch_ranks.lora_mesh_case(mesh_kw=None, **common)
+    want = _jax_lora_run(kind, tree, adapters, mesh_kw, batches, 0.5)
+    _hold_run(got, want, 'against the JAX mesh Trainer')
+    _hold_run(got, one, "against the port's one card")
+    cfg = _torch_ranks._cfg('llama', **MESH_CFG)
+    one_merge = lora.merge_lora(
+        _torch_ranks._params(tree, cfg),
+        lora.adapters_from_numpy(got['params'], 'cpu'),
+        lora.LoraConfig(rank=4, alpha=8.0))
+    for (k, g), (_, w) in zip(_leaf_items(got['merged']),
+                              _leaf_items(trainer.tree_map(
+                                  lambda x: x.numpy(), one_merge))):
+        assert g.dtype == w.dtype and np.array_equal(g, w), k
+    # The other ranks keep no host copy of the merged tree.
+    assert all(o['merged'] is None for o in outs[1:])
+
+
+@pytest.mark.parametrize('mesh_kw,group,prompts', [
+    ({'dp': 2}, 4, [[11, 13, 5], [17, 19]]),
+    ({'dp': 2}, 3, [[11, 13, 5], [17, 19], [23]]),
+    ({'fsdp': 2}, 4, [[11, 13, 5], [17, 19]])],
+    ids=['dp2', 'dp2-padded', 'fsdp2'])
+def test_grpo_on_a_mesh_gives_one_cards_rollouts(pool4, mesh_kw, group,
+                                                 prompts):
+    """Two GrpoTrainer steps at temperature 1 with the KL term on: every
+    rank rolls out the one-card tokens (the policy gathered whole), and
+    the losses and reward statistics are one card's (MESH_RTOL); 9 rows
+    on dp 2 are padded to 10 with zero-mask rows."""
+    import _torch_ranks
+    tree = _mesh_base()
+    kw = dict(group_size=group, max_new_tokens=6, max_prompt_len=8,
+              temperature=1.0, learning_rate=1e-2, kl_coef=0.05,
+              total_steps=4, seed=3)
+    ranks = mesh_kw.get('dp', 1) * mesh_kw.get('fsdp', 1)
+    pool_kw = dict(tree=tree, cfg_kw=MESH_CFG, kw=kw, prompts=prompts,
+                   steps=2)
+    outs = (pool4 if ranks == 4 else _pool2()).run(
+        'grpo_mesh_case', mesh_kw=mesh_kw, **pool_kw)
+    one = _torch_ranks.grpo_mesh_case(mesh_kw=None, **pool_kw)
+    for o in outs:
+        assert o['seen'] == one['seen']
+        assert o['rollout_bytes'] > 0
+        for g, w in zip(o['metrics'], one['metrics']):
+            assert g['step'] == w['step']
+            for key in ('loss', 'reward_mean', 'reward_std'):
+                assert g[key] == pytest.approx(w[key], rel=MESH_RTOL,
+                                               abs=MESH_RTOL), key
+
+
+_POOL2 = []
+
+
+def _pool2():
+    """A 2-rank pool for the 2-rank meshes, started once and closed at
+    exit."""
+    if not _POOL2:
+        import atexit
+        import _torch_ranks
+        _POOL2.append(_torch_ranks.RankPool(2))
+        atexit.register(_POOL2[0].close)
+    return _POOL2[0]

@@ -20,7 +20,15 @@ must hold:
 - init_sharded_params' blocks put together are the full init, and
   load_hf_model_sharded's blocks are load_hf_model's, sliced;
 - graphs=True under a gloo mesh on a card raises with the reason, and
-  set_collective_share moves time into the 'collective' phase.
+  set_collective_share moves time into the 'collective' phase;
+- the legacy planes ('paged' with K7's plain version per shard,
+  'inplace', 'scan', 'unroll'; head_dim 128, which the JAX 'paged'
+  kernel needs) at tp=2, tp=4 and dp=2 x tp=2: the Generator's greedy
+  tokens equal the JAX mesh Generator's and the JAX Generator's without
+  a mesh, over an f32 and an int8 cache, with the slot cache migrated
+  between buckets; the batcher's (chunked prefill, the prefix cache)
+  equal the JAX batcher's; a bf16 model gives every rank the same
+  tokens and the prefill logits within BF16_LOGITS_ATOL of tp 1's.
 """
 import importlib.util
 from pathlib import Path
@@ -425,3 +433,93 @@ def test_collective_share_moves_time_to_the_collective_phase(pool2):
         assert o['devices'] == {'tp': 2, 'tpq': 1}
         assert o['per_shard'] is not None and o['per_shard'] >= 0
         assert len(o['result']) == 6
+
+
+# ---- the legacy planes under a mesh ------------------------------------------------
+
+LEGACY_KW = dict(CFG_KW, head_dim_override=128)
+LEGACY_GEN = dict(max_seq_len=128, batch_size=2, temperature=0.0,
+                  prompt_buckets=[16, 64], decode_chunk=4)
+LEGACY_PROMPTS = [[5, 9, 2, 7], [11, 3] * 20]
+# bf16 prefill logits of a mesh against tp 1: each shard rounds its
+# partial products to bf16 before the combine.
+BF16_LOGITS_ATOL = 0.05
+
+
+def _legacy_jax(gen_kw, tp, dp, n=30):
+    import warnings
+    cfg = _jax_cfg(head_dim_override=128)
+    p = _jax_params(cfg)
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore', DeprecationWarning)
+        base = _jax_generate(p, cfg, gen_kw, prompts=LEGACY_PROMPTS, n=n)
+        jmesh = j_tp.make_tp_mesh(tp, n_kv_heads=4,
+                                  devices=jax.devices()[:tp * dp], dp=dp)
+        got = _jax_generate(p, cfg, gen_kw, jmesh, prompts=LEGACY_PROMPTS,
+                            n=n)
+    return p, base, got
+
+
+@pytest.mark.parametrize('plane,tp,dp,kv', [
+    ('paged', 2, 1, None), ('paged', 4, 1, None), ('paged', 2, 2, None),
+    ('paged', 2, 1, 'int8'), ('inplace', 2, 1, None),
+    ('inplace', 4, 1, 'int8'), ('inplace', 2, 2, None), ('scan', 2, 1, None),
+    ('unroll', 4, 1, None)],
+    ids=['paged-tp2', 'paged-tp4', 'paged-dp2xtp2', 'paged-tp2-int8',
+         'inplace-tp2', 'inplace-tp4-int8', 'inplace-dp2xtp2', 'scan-tp2',
+         'unroll-tp4'])
+def test_legacy_generator_mesh_parity_with_jax(pool2, pool4, plane, tp, dp,
+                                               kv):
+    """30 greedy tokens after a 40-token prompt cross the 64-row bucket:
+    the slot cache of every rank migrates, as one card's does."""
+    gen_kw = dict(LEGACY_GEN, decode_impl=plane, kv_cache_dtype=kv)
+    p, base, jax_mesh = _legacy_jax(gen_kw, tp, dp)
+    assert jax_mesh == base
+    outs = (pool2 if tp * dp == 2 else pool4).run(
+        'generate_case', tree=_np_tree(p), cfg_kw=LEGACY_KW, kind='llama',
+        gen_kw=gen_kw, tp=tp, dp=dp, prompts=LEGACY_PROMPTS, max_new=30)
+    assert _all_equal(outs, 'tokens') == base
+    assert outs[0]['migrations']['grow'] >= 1
+    assert outs[0]['cache_heads'] == 4 // tp
+
+
+@pytest.mark.parametrize('plane,gen', [
+    ('paged', {}), ('inplace', dict(prefill_chunk=8,
+                                    prompt_buckets=[8, 32])),
+    ('paged', dict(prefix_cache_mb=1, prefix_block=8)),
+    ('unroll', dict(kv_cache_dtype='int8'))],
+    ids=['paged', 'inplace-chunked', 'paged-prefix', 'unroll-int8'])
+def test_legacy_batcher_mesh_parity_with_jax(pool4, plane, gen):
+    import warnings
+    cfg = _jax_cfg(head_dim_override=128)
+    p = _jax_params(cfg)
+    gen_kw = dict(LEGACY_GEN, decode_impl=plane, **gen)
+    requests = list(REQUESTS) + [(LONG, 6), (LONG + [9], 5)]
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore', DeprecationWarning)
+        base = _jax_batcher(p, cfg, gen_kw, requests, decode_chunk=4)
+    outs = pool4.run('batcher_case', tree=_np_tree(p), cfg_kw=LEGACY_KW,
+                     kind='llama', gen_kw=gen_kw, tp=4, dp=1,
+                     requests=requests, decode_chunk=4)
+    assert _all_equal(outs, 'results') == base
+
+
+def test_legacy_planes_in_bf16_agree_on_every_rank(pool2):
+    """bf16 weights and cache, 'paged' and 'inplace' at tp 2: every rank
+    the same tokens, and the prefill logits within BF16_LOGITS_ATOL of
+    tp 1's (the port's one-card Generator on the same weights)."""
+    import _torch_ranks
+    cfg = _jax_cfg(head_dim_override=128)
+    tree = _np_tree(_jax_params(cfg))
+    kw = dict(LEGACY_KW, dtype='bfloat16')
+    for plane in ('paged', 'inplace'):
+        gen_kw = dict(LEGACY_GEN, decode_impl=plane)
+        outs = pool2.run('generate_case', tree=tree, cfg_kw=kw,
+                         kind='llama', gen_kw=gen_kw, tp=2, dp=1,
+                         prompts=LEGACY_PROMPTS, max_new=12)
+        tokens = _all_equal(outs, 'tokens')
+        one = _torch_ranks.generate_case(tree, kw, 'llama', gen_kw, 1, 1,
+                                         LEGACY_PROMPTS, 12)
+        assert [len(t) for t in tokens] == [12, 12]
+        np.testing.assert_allclose(outs[0]['logits'], one['logits'],
+                                   atol=BF16_LOGITS_ATOL, rtol=0)
