@@ -332,8 +332,28 @@ Phases (any failure exits non-zero):
    TP_LOGITS_REL), each plane's decode steps fed the same tokens at tp 2
    and tp 1 (logits within TP_LOGITS_REL), and 16b's f32 config at tp 2
    on both planes, whose greedy tokens must equal tp 1's.  Phase 3 checks K7 at the per-shard shape
-   and K2/K5/K6 at 18a's microbatch and 18d's rank shapes.  Every phase
-   prints its seconds, and the run its whole.
+   and K2/K5/K6 at 18a's microbatch and 18d's rank shapes.
+19. the serving fleet (serve/traffic/simulator.py: traffic, routing,
+   SLO burn, autoscalers, failover, the fleet doctor, disaggregated
+   prefill) over the port's batchers, the arms of the CPU parity tests
+   (FLEET_ARMS): (a) least_load and prefix_affinity on the paired-run
+   trace, (b) kill + preempt and stall + partition over their fault-free
+   runs, (c) prefill_replicas 1 against the single pool, (d) the doctor
+   scenario and the SLO autoscaler's scale-up.  LLAMA_DEBUG f32 on the
+   card first: (a)'s prefix_affinity run twice, byte-identical summaries;
+   (b) again on the host, summary and session_outputs() equal to the
+   card's, outputs equal to the fault-free runs'; (c)'s outputs equal to
+   the single pool's.  Then LLAMA3_8B at 32 layers (bf16 weights and KV,
+   random from seed 0, one tree shared by every replica), every arm once
+   with every byte budget and link rate x64 (its KV bytes a token over
+   LLAMA_DEBUG's): every request completes, no session lost, each at its
+   token budget, and each summary equals LLAMA_DEBUG's but for the byte
+   fields (64x) and the times the images' headers shift
+   (fleet_summary_diff); the chaos and disagg arms report their tokens
+   matched against their baselines.  Device memory must come back within
+   1% of its level before the phase.  Phase 3 checks K1 and K2 at the
+   fleet's shapes.  Every phase prints its seconds, and the run its
+   whole.
 
 Every kernel of a main-path run must launch > 0 times in that run (the
 counts are set to 0 just before it and read just after; a replayed graph
@@ -351,13 +371,15 @@ every rank of 17a, 17c and both 17e arms, K3 on every rank of 17d; K2
 with its lse, K3, K5 and K6 from 18a, 18d's three arms (K1 too from
 GRPO's rollouts), K3 from 18c and 18e, K2, K3 and K7 per shard (never
 K1) from 18f's 'paged' arms and K2 and K3 (neither K1 nor K7) from its
-'inplace' ones); K2, K5
+'inplace' ones); K1 and K3 from every 8B arm of phase 19, and K2
+from those that prefill whole prompts (all but (c)'s, whose prompts take
+the chunked windows); K2, K5
 and K6 only on their
 tensor-core route on every path (bf16 at head_dim 128, and 12a's K2 at
 256); K4 on phase 6's paths,
 where it must also take its split route; K1 and K7 only on their split
 route on every path of phases 5 to 7, 10c, 11a, 12a, 12b, 14, 15a, 15b,
-15d, 18d's GRPO and 18f (B KV <= 128
+15d, 18d's GRPO, 18f and 19 (B KV <= 128
 < 2 x 132 SMs).  The last lines
 of standard output are
 the {"kernels": [...]} line, the nvidia-smi name/power-limit line, and
@@ -381,6 +403,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import urllib.request
 import warnings
 import zlib
@@ -761,6 +784,10 @@ FLASH_SHAPES = {
                                                      (16, 2), 22),
     'flash_attention[Qwen2.5-1.5B tp4 rank prefill]': ((4, 512, 3, 1, 128),
                                                        (3, 1), 23),
+    # Phase 19's prefill at LLAMA3_8B: admission groups of 2 prompts in
+    # the 128-token bucket.
+    'flash_attention[LLAMA3_8B fleet prefill]': ((2, 128, 32, 8, 128),
+                                                 (32, 8), 27),
 }
 TC_DESIGN_HD256 = ('mma.sync m16n8k16 bf16 -> f32, ldmatrix, cp.async x2; '
                    'one m16 tile a warp, 64-row q-tiles, 32-key tiles, two '
@@ -1255,6 +1282,10 @@ DECODE_SHAPES = {
     'LLAMA3_8B tp2 rank': (4, 4, 128, 32, SERVE_POSITIONS),
     'LLAMA3_70B tp4 rank': (2, 8, 128, 32, SERVE_POSITIONS),
     'Qwen2.5-1.5B tp4 rank': (1, 3, 128, 32, SERVE_POSITIONS),
+    # Phase 19's replicas at LLAMA3_8B: 2 slots (the serve, chaos and
+    # autoscaler arms' batch_size) over a 256-row table (max_seq_len
+    # 256), mid-decode after 64-token heads and their tails.
+    'LLAMA3_8B fleet': (8, 4, 128, 4, [97, 150]),
 }
 # Phase 16b's K4 on one rank of LLAMA3_8B at tp 2: spec_k 4 verify
 # windows and fuse_budget 64's lane.
@@ -1271,7 +1302,7 @@ def check_decode_at(da, ptxas, label, seed):
     partials (`decode_combine[<label>]`)."""
     kv_heads, group, head_dim, t_width, last = DECODE_SHAPES[label]
     gen = torch.Generator(device='cuda').manual_seed(seed)
-    batch, layer = 8, 1
+    batch, layer = len(last), 1
     n_blocks = 1 + batch * t_width
     capacity = t_width * BS
     positions = torch.tensor(last, dtype=torch.int32, device='cuda')
@@ -6823,6 +6854,440 @@ def legacy_tp_path(paths, device='cuda', tiny=False):
     return stats
 
 
+# ---- phase 19: the serving fleet --------------------------------------------
+
+# The arms' configurations are those of the port's CPU parity tests
+# (tests/test_torch_fleet_sim.py, test_torch_doctor.py): name -> (arm,
+# SimConfig kwargs, TrafficConfig kwargs, faults (kind, t, replica,
+# duration), autoscaled).  The serve and chaos trace is the reference
+# fixtures' 10 s one (the CPU tests cut it to 7 s).
+FLEET_TRAFFIC = dict(seed=11, duration_s=10.0, base_rps=8.0, num_sessions=8,
+                     num_heads=6, head_tokens=64, session_share=0.85)
+FLEET_SIM = dict(num_replicas=3, batch_size=2, decode_chunk=4,
+                 slo_ttft_s=1.5, prefill_cost_per_token_s=4e-3,
+                 prefix_cache_mb=0.25)
+FLEET_DISAGG_TRAFFIC = dict(seed=13, duration_s=5.0, base_rps=4.0,
+                            session_share=0.5, num_sessions=4, num_heads=2,
+                            head_tokens=40, tail_median=6,
+                            singleton_median=96, singleton_sigma=0.2,
+                            max_prompt_tokens=128, out_median=12,
+                            out_sigma=0.3, max_out_tokens=20,
+                            min_out_tokens=4)
+FLEET_DISAGG_SIM = dict(policy='least_load', num_replicas=3, slo_ttft_s=1.0,
+                        batch_size=4, decode_chunk=4, max_seq_len=256,
+                        prefix_cache_mb=2.0, prefix_block=64,
+                        prefill_chunk=16, host_tier_mb=4.0)
+FLEET_ARMS = {
+    'serve-ll': ('a', dict(FLEET_SIM, policy='least_load'), FLEET_TRAFFIC,
+                 None, False),
+    'serve-pa': ('a', dict(FLEET_SIM, policy='prefix_affinity'),
+                 FLEET_TRAFFIC, None, False),
+    'chaos-kp': ('b', dict(FLEET_SIM, policy='least_load'), FLEET_TRAFFIC,
+                 (('kill', 3.5, 0, 0.0), ('preempt', 5.5, 1, 0.0)), False),
+    'chaos-sp': ('b', dict(FLEET_SIM, policy='prefix_affinity'),
+                 FLEET_TRAFFIC, (('stall', 2.0, 0, 5.0),
+                                 ('partition', 3.0, 1, 4.0)), False),
+    'disagg': ('c', dict(FLEET_DISAGG_SIM, prefill_replicas=1,
+                         disagg_cold_prompt_tokens=65),
+               FLEET_DISAGG_TRAFFIC, None, False),
+    'single': ('c', FLEET_DISAGG_SIM, FLEET_DISAGG_TRAFFIC, None, False),
+    'doctor': ('d', dict(policy='prefix_affinity', num_replicas=2,
+                         slo_ttft_s=0.02, batch_size=4, decode_chunk=4,
+                         prefix_cache_mb=0.25, host_tier_mb=8.0,
+                         doctor_cadence_s=3.0,
+                         doctor_thresholds={'spill_thrash_min_events': 3}),
+               dict(seed=5, duration_s=12.0, base_rps=8.0, num_sessions=8,
+                    num_heads=8, head_tokens=64,
+                    tenants=('default', 'heavy')), None, False),
+    'autoscale': ('d', dict(policy='least_load', num_replicas=1,
+                            batch_size=2, decode_chunk=4,
+                            prefill_cost_per_token_s=10e-3,
+                            prefix_cache_mb=None),
+                  dict(seed=2, duration_s=45.0, base_rps=1.5,
+                       num_sessions=4, num_heads=2), None, True),
+}
+# The chaos runs' fault-free baselines and the disagg run's single pool.
+FLEET_BASELINE = {'chaos-kp': 'serve-ll', 'chaos-sp': 'serve-pa',
+                  'disagg': 'single'}
+# Summary fields that count bytes: at `scale` times the KV bytes a token
+# they grow by `scale`, less the images' headers, which do not scale.
+FLEET_BYTE_FIELDS = ('tier.spill_bytes', 'tier.prefetch_bytes',
+                     'disagg.export_bytes', 'disagg.ingest_bytes',
+                     'acct.tenants.*.spill_bytes',
+                     'acct.tenants.*.prefetch_bytes',
+                     'acct.top.*.spill_bytes', 'acct.top.*.prefetch_bytes')
+# Times an image's header shifts: it crosses the links at `scale` times
+# the rate without growing, each leg by under FLEET_HEADER_BYTES / rate.
+FLEET_HEADER_FIELDS = ('ttft_p99_ms', 'disagg.cold_ttft_p99_ms',
+                       'disagg.transfer_p50_ms', 'disagg.transfer_p99_ms')
+FLEET_HEADER_BYTES = 2048
+FLEET_HEADER_MS = 1e-3
+
+
+# The service spec fields the autoscalers read (the port reads a
+# ServiceSpec's attributes from any object): test_serve_traffic.py's SLO
+# scale-up run.
+FLEET_SPEC = dict(min_replicas=1, max_replicas=2, num_overprovision=None,
+                  target_qps_per_replica=None, target_p99_ttft_ms=300.0,
+                  target_queue_depth_per_replica=None,
+                  upscale_delay_seconds=20, downscale_delay_seconds=1200,
+                  base_ondemand_fallback_replicas=None,
+                  dynamic_ondemand_fallback=None, spot_placer=None,
+                  autoscaling_enabled=True)
+
+
+def _fleet_scaled(sim_kw, scale):
+    """Every byte budget and link rate of a SimConfig times `scale`: the
+    same MB then hold the same nodes, and the same bytes cross in the
+    same virtual time (scale is a power of two: exactly)."""
+    out = dict(sim_kw)
+    for key in ('prefix_cache_mb', 'host_tier_mb'):
+        if out.get(key):
+            out[key] = out[key] * scale
+    out['tier_spill_gbps'] = 8.0 * scale
+    out['tier_prefetch_gbps'] = 8.0 * scale
+    return out
+
+
+def _memory(device):
+    if device != 'cuda':
+        return 0
+    return torch.cuda.memory_allocated()
+
+
+def _warm_cublas_streams():
+    """cuBLAS keeps a 32 MiB workspace for each stream it has run a
+    product on, for the life of the process: the current stream's and
+    that of the engines' graph captures (engine.ChunkGraphs).  Run
+    products on both before a phase reads its starting memory level, so
+    the level holds the workspaces whether or not an earlier phase made
+    them."""
+    from skypilot_tpu_torch.infer import engine
+    current = torch.cuda.current_stream()
+    capture = engine.ChunkGraphs(torch.device('cuda')).backend.stream
+    capture.wait_stream(current)
+    for stream in (current, capture):
+        with torch.cuda.stream(stream):
+            for dtype in (torch.float32, torch.bfloat16):
+                a = torch.ones(64, 64, device='cuda', dtype=dtype)
+                torch.nn.functional.linear(a, a, a[0]).sum()
+                (a @ a).sum()
+    torch.cuda.synchronize()
+
+
+def fleet_run(name, cfg, params, device, scale=1, counters=None):
+    """One arm of FLEET_ARMS through the port's FleetSimulator: the
+    summary, session_outputs(), each session's token budget, the trace's
+    length, wall seconds, peak and resident device memory (before the
+    replicas close) and, with `counters`, the launch counts of the run
+    (set to 0 just before it)."""
+    from skypilot_tpu_torch.serve import autoscalers
+    from skypilot_tpu_torch.serve.traffic import generator, simulator
+    _, sim_kw, traffic_kw, faults, autoscaled = FLEET_ARMS[name]
+    sim_kw = _fleet_scaled(sim_kw, scale) if scale != 1 else dict(sim_kw)
+    postmortems = None
+    if 'doctor_cadence_s' in sim_kw:
+        postmortems = tempfile.mkdtemp(prefix='chip_smoke_fleet_')
+        sim_kw['postmortem_dir'] = postmortems
+    chaos = None
+    if faults:
+        chaos = simulator.ChaosConfig(events=[
+            simulator.FaultEvent(t=t, kind=kind, replica=rep, duration_s=d)
+            for kind, t, rep, d in faults])
+    traffic = generator.TrafficConfig(**traffic_kw)
+    if device == 'cuda':
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim = simulator.FleetSimulator(simulator.SimConfig(**sim_kw), traffic,
+                                   chaos, model_config=cfg, params=params,
+                                   device=device)
+    try:
+        auto = None
+        if autoscaled:
+            auto = autoscalers.Autoscaler.from_spec(
+                'fleet', types.SimpleNamespace(**FLEET_SPEC))
+        if counters:
+            _zero(counters)
+        summary = sim.run(autoscaler=auto)
+        if device == 'cuda':
+            torch.cuda.synchronize()
+        launches = _counts(counters) if counters else None
+        seconds = time.perf_counter() - t0
+        resident = _memory(device)
+        peak = torch.cuda.max_memory_allocated() if device == 'cuda' else 0
+        outputs = sim.session_outputs()
+        trace = generator.generate_trace(traffic)
+        budgets = {sid: min(a.max_new_tokens,
+                            sim.cfg.max_seq_len - len(a.prompt))
+                   for sid, a in enumerate(trace)}
+        n_postmortems = (len(os.listdir(postmortems)) if postmortems
+                         else None)
+    finally:
+        sim.close()
+        if postmortems:
+            shutil.rmtree(postmortems, ignore_errors=True)
+    # The replicas' span clocks close a reference cycle: collect it, so
+    # the next arm starts from the weights alone.
+    del sim
+    gc.collect()
+    if device == 'cuda':
+        torch.cuda.empty_cache()
+    return {'summary': summary, 'outputs': outputs, 'budgets': budgets,
+            'arrivals': len(trace), 'seconds': seconds, 'peak': peak,
+            'resident': resident, 'launches': launches,
+            'postmortems': n_postmortems}
+
+
+def _fleet_leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _fleet_leaves(v, path + (str(k),))
+    elif isinstance(tree, list) and tree and isinstance(tree[0], dict):
+        for i, v in enumerate(tree):
+            yield from _fleet_leaves(v, path + (str(i),))
+    else:
+        yield path, tree
+
+
+def _fleet_field(path):
+    """('acct', 'tenants', 'heavy', 'spill_bytes') ->
+    'acct.tenants.*.spill_bytes' (and acct.top's rows alike)."""
+    if path[0] == 'acct' and len(path) == 4:
+        return '.'.join((path[0], path[1], '*', path[3]))
+    return '.'.join(path)
+
+
+def fleet_summary_diff(small, big, scale):
+    """How a summary at `scale` times the KV bytes a token differs from
+    the small model's: {field: (small, big)} of the byte fields (each
+    `scale` times, less the images' headers and the ledger's 6-decimal
+    rounding) and of the header-shifted times (each within
+    FLEET_HEADER_MS); raises on any other difference."""
+    want, have = dict(_fleet_leaves(small)), dict(_fleet_leaves(big))
+    if set(want) != set(have):
+        raise AssertionError(f'summary fields differ: '
+                             f'{sorted(set(want) ^ set(have))}')
+    handoffs = want.get(('disagg', 'handoffs'), 0)
+    moved = {}
+    for path, value in want.items():
+        field, got = _fleet_field(path), have[path]
+        if got == value:
+            continue
+        if field in FLEET_BYTE_FIELDS:
+            slack = scale * FLEET_HEADER_BYTES * handoffs
+            ok = scale * value - slack - 1e-4 <= got <= scale * value + 1e-4
+        elif field in FLEET_HEADER_FIELDS and handoffs:
+            ok = abs(got - value) <= FLEET_HEADER_MS
+        else:
+            ok = False
+        if not ok:
+            raise AssertionError(f'summary field {".".join(path)}: {got} '
+                                 f'at {scale}x the KV bytes, {value} at 1x')
+        moved['.'.join(path)] = (value, got)
+    return moved
+
+
+def _fleet_complete(label, run):
+    """Every request completed, none lost, every session at its token
+    budget."""
+    s = run['summary']
+    if s['requests'] != run['arrivals']:
+        raise AssertionError(f'{label}: {s["requests"]} of '
+                             f'{run["arrivals"]} requests completed')
+    if s.get('chaos', {}).get('sessions_lost', 0):
+        raise AssertionError(f'{label}: {s["chaos"]["sessions_lost"]} '
+                             f'sessions lost')
+    short = {sid: (len(run['outputs'].get(sid, ())), budget)
+             for sid, budget in run['budgets'].items()
+             if len(run['outputs'].get(sid, ())) != budget}
+    if short:
+        raise AssertionError(f'{label}: sessions off their token budget '
+                             f'(tokens, budget): {short}')
+
+
+def _fleet_matched(outputs, reference):
+    """Tokens of each session equal to the reference run's before their
+    first difference, summed, and the sessions equal whole."""
+    sids = sorted(reference)
+    matched = _matched([outputs[s] for s in sids],
+                       [reference[s] for s in sids])
+    return {'tokens': sum(len(reference[s]) for s in sids),
+            'matched': sum(matched),
+            'sessions_equal': sum(outputs[s] == reference[s]
+                                  for s in sids),
+            'sessions': len(sids)}
+
+
+def _fleet_log(label, run):
+    s = run['summary']
+    log(f'  {label}: {run["seconds"]:.1f} s, {s["requests"]} requests, '
+        f'peak {run["peak"] / 2**30:.2f} GiB, resident '
+        f'{run["resident"] / 2**30:.2f} GiB'
+        + (f', {run["postmortems"]} postmortems'
+           if run['postmortems'] is not None else ''))
+    log(f'    summary {json.dumps(s, sort_keys=True)}')
+    if run['launches'] is not None:
+        log(f'    launches ' + json.dumps(
+            {k: v for k, v in run['launches'].items() if v}))
+
+
+FLEET_ORDER = ('serve-ll', 'serve-pa', 'chaos-kp', 'chaos-sp', 'disagg',
+               'single', 'doctor', 'autoscale')
+
+
+def fleet_path(paths, counters=None, device='cuda', big=None):
+    """Phase 19: the serving fleet (serve/traffic/simulator.py) over the
+    port's batchers, arms (a) serve, (b) chaos, (c) disagg, (d) doctor
+    and autoscaler (FLEET_ARMS).
+
+    LLAMA_DEBUG in f32 on `device` first: (a)'s prefix_affinity run
+    twice, its two summaries byte-identical as JSON; (b)'s runs again on
+    the host (the port's CPU path, the same weights), summary and
+    session_outputs() equal to the card's, and their outputs equal to
+    their fault-free runs'; (c)'s outputs equal to the single pool's.
+    Then `big` (LLAMA3_8B at 32 layers, bf16 weights and KV, random from
+    seed 0), every arm once with every byte budget and link rate times
+    the KV bytes a token over LLAMA_DEBUG's (64): each run completes
+    every request, none lost, every session at its token budget, and its
+    summary equals the LLAMA_DEBUG run's but for the byte fields and the
+    header-shifted times (fleet_summary_diff); on the card K1 (split
+    route only) and K3 launch on every arm and K2 on every arm that
+    prefills whole prompts (not (c): prompts over prefill_chunk 16 take
+    the chunked windows, plain masked attention, in both packages).  The
+    8B chaos and disagg arms report their sessions' tokens matched before
+    the first difference against their baselines (bf16 replays
+    re-prefill what was decoded: no gate).  Device memory after the
+    phase, with every simulator closed and dropped, must be back within
+    1% of its level before it.  Launch counts land in
+    paths['19<arm>-<name>']."""
+    from skypilot_tpu_torch.infer.block_pool import block_nbytes
+    from skypilot_tpu_torch.models import llama
+    debug = llama.LLAMA_DEBUG
+    big = big or llama.LLAMA3_8B
+    big_name = ('LLAMA3_8B' if big == llama.LLAMA3_8B
+                else f'{big.n_layers}-layer d{big.d_model}')
+    # KV bytes a token (a one-row block) of each model's arena.
+    big_bytes, debug_bytes = block_nbytes(big, 1), block_nbytes(debug, 1)
+    scale = big_bytes // debug_bytes
+    if scale * debug_bytes != big_bytes or scale & (scale - 1):
+        raise AssertionError(f'KV bytes a token: {big_bytes} vs '
+                             f'{debug_bytes}, not a power of two')
+    gc.collect()
+    if device == 'cuda':
+        _warm_cublas_streams()
+        torch.cuda.empty_cache()
+    mem0 = _memory(device)
+    stats = {'card': CARD.get('line'), 'scale': scale, 'arms': {}}
+    small = llama.init_params(
+        debug, torch.Generator(device=device).manual_seed(0), device)
+    runs = {}
+    for name in FLEET_ORDER:
+        runs[name] = fleet_run(name, debug, small, device)
+        _fleet_log(f'19{FLEET_ARMS[name][0]} {name} LLAMA_DEBUG f32',
+                   runs[name])
+        _fleet_complete(f'19 {name} LLAMA_DEBUG', runs[name])
+    again = fleet_run('serve-pa', debug, small, device)
+    a1, a2 = (json.dumps(r['summary'], sort_keys=True)
+              for r in (runs['serve-pa'], again))
+    if a1 != a2:
+        raise AssertionError('19a: two LLAMA_DEBUG prefix_affinity runs '
+                             'gave different summaries')
+    log(f'  19a: two prefix_affinity runs byte-identical ({len(a1)} bytes '
+        f'of JSON; {again["seconds"]:.1f} s)')
+    host_params = _to_device(small, 'cpu')
+    for name in ('chaos-kp', 'chaos-sp'):
+        host = fleet_run(name, debug, host_params, 'cpu')
+        if host['summary'] != runs[name]['summary']:
+            raise AssertionError(f'19b {name}: host summary '
+                                 f'{host["summary"]} != card summary '
+                                 f'{runs[name]["summary"]}')
+        _same_sessions(f'19b {name}: card vs host', runs[name]['outputs'],
+                       host['outputs'])
+        log(f'  19b {name}: host run ({host["seconds"]:.1f} s) equal to '
+            f'the card\'s in summary and session_outputs()')
+    for name, base in FLEET_BASELINE.items():
+        _same_sessions(f'19 {name} vs {base} (LLAMA_DEBUG f32)',
+                       runs[name]['outputs'], runs[base]['outputs'])
+        log(f'  19 {name}: session_outputs() equal to {base}\'s '
+            f'({sum(map(len, runs[name]["outputs"].values()))} tokens)')
+    stats['debug'] = {n: {'seconds': r['seconds'], 'peak': r['peak'],
+                          'summary': r['summary']} for n, r in runs.items()}
+    del small, host_params
+    gc.collect()
+    t0 = time.perf_counter()
+    params = llama.init_params(
+        big, torch.Generator(device=device).manual_seed(0), device)
+    if device == 'cuda':
+        torch.cuda.synchronize()
+    log(f'  {big.n_layers}-layer d{big.d_model} bf16 random weights '
+        f'({big.num_params() / 1e9:.2f}B params, '
+        f'{_memory(device) / 1e9:.2f} GB resident) in '
+        f'{time.perf_counter() - t0:.1f} s; budgets and link rates x{scale}')
+    bigs = {}
+    k1, k2, k3 = (counters[:3] if counters else (None, None, None))
+    for name in FLEET_ORDER:
+        arm = FLEET_ARMS[name][0]
+        run = bigs[name] = fleet_run(name, big, params, device, scale,
+                                     counters)
+        _fleet_log(f'19{arm} {name} {big_name}', run)
+        _fleet_complete(f'19 {name} {big_name}', run)
+        moved = fleet_summary_diff(runs[name]['summary'], run['summary'],
+                                   scale)
+        log(f'    equal to the LLAMA_DEBUG summary but for '
+            + json.dumps(moved))
+        entry = {'seconds': run['seconds'], 'peak': run['peak'],
+                 'resident': run['resident'], 'moved': moved,
+                 'summary': run['summary']}
+        if counters:
+            launches = run['launches']
+            need = [k1.__name__, k3.__name__]
+            if name not in ('disagg', 'single'):
+                need.append(k2.__name__)
+            _need(f'19 {name}', launches, need)
+            if launches[f'{k1.__name__}[split]'] != launches[k1.__name__]:
+                raise AssertionError(f'{k1.__name__} missed the split route '
+                                     f'on the 19 {name} path')
+            paths[f'19{arm}-{name}'] = launches
+            entry['launches'] = {k: v for k, v in launches.items() if v}
+        stats['arms'][name] = entry
+    for name, base in FLEET_BASELINE.items():
+        m = _fleet_matched(bigs[name]['outputs'], bigs[base]['outputs'])
+        stats['arms'][name]['matched_vs_' + base] = m
+        log(f'  19 {name} {big_name} vs {base}: {m["matched"]} of '
+            f'{m["tokens"]} '
+            f'tokens matched before the first difference, '
+            f'{m["sessions_equal"]} of {m["sessions"]} sessions equal '
+            f'(reported, no gate)')
+    del params, bigs, runs
+    gc.collect()
+    if device == 'cuda':
+        torch.cuda.empty_cache()
+    mem1 = _memory(device)
+    stats['memory'] = {'before': mem0, 'after': mem1}
+    log(f'  19 device memory: {mem0} bytes allocated before the phase, '
+        f'{mem1} after it')
+    if mem1 > mem0 * 1.01 + (0 if mem0 else 2**20):
+        raise AssertionError(f'19: {mem1} bytes allocated after the phase, '
+                             f'{mem0} before it')
+    log('  19: ' + json.dumps({'card': CARD.get('line'),
+                               'arms': {n: {k: v for k, v in e.items()
+                                            if k != 'summary'}
+                                        for n, e in stats['arms'].items()},
+                               'memory': stats['memory']}))
+    return stats
+
+
+def _same_sessions(what, got, want):
+    """Equal session_outputs(), or an error naming the first session (by
+    its place in sid order) and token where they part."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f'{what}: sessions {sorted(got)} vs '
+                             f'{sorted(want)}')
+    _same_tokens(what, [got[s] for s in sorted(got)],
+                 [want[s] for s in sorted(want)])
+
+
 def _zero(counters):
     for c in counters:
         c.launches = 0
@@ -6877,10 +7342,10 @@ def main() -> int:
         log(f'  phase {clock["name"]}: '
             f'{time.perf_counter() - clock["start"]:.1f} s')
 
-    phase(f'[1/18] device: {CARD["line"]} | torch {torch.__version__} '
+    phase(f'[1/19] device: {CARD["line"]} | torch {torch.__version__} '
         f'cuda {torch.version.cuda}')
 
-    phase('[2/18] build')
+    phase('[2/19] build')
     _kernels.LIBRARY.get()
     log(f'  built {_kernels.LIBRARY.path.name} in '
         f'{_kernels.LIBRARY.build_seconds:.1f} s')
@@ -6899,7 +7364,7 @@ def main() -> int:
                 and info['spill_bytes']:
             raise AssertionError(f'decode kernel {name} spills: {info}')
 
-    phase('[3/18] kernels vs plain versions')
+    phase('[3/19] kernels vs plain versions')
     t0 = time.perf_counter()
     decode = check_decode(decode_attention, ptxas)
     decode['g2'], decode['combine g2'] = check_decode_at(
@@ -6910,7 +7375,8 @@ def main() -> int:
         decode_attention, ptxas, 'Qwen2.5-1.5B', 13)
     for seed, label in enumerate(('LLAMA3_8B tp2 rank',
                                   'LLAMA3_70B tp4 rank',
-                                  'Qwen2.5-1.5B tp4 rank'), 30):
+                                  'Qwen2.5-1.5B tp4 rank',
+                                  'LLAMA3_8B fleet'), 30):
         decode[label], decode[f'combine {label}'] = check_decode_at(
             decode_attention, ptxas, label, seed)
     shared = check_decode_shared(decode_attention, ptxas)
@@ -6942,13 +7408,13 @@ def main() -> int:
         f'{time_ms(read.sum):.4f} ms (bound 0.0063)')
     del tiny, read
 
-    phase('[4/18] slice parity, LLAMA_DEBUG and MoE f32, card vs host')
+    phase('[4/19] slice parity, LLAMA_DEBUG and MoE f32, card vs host')
     slice_parity()
     train_parity()
     post_train_parity()
     moe_parity()
 
-    phase('[5/18] main path, LLAMA3_8B bf16 behind the HTTP replica')
+    phase('[5/19] main path, LLAMA3_8B bf16 behind the HTTP replica')
     cfg = llama.LLAMA3_8B
     t0 = time.perf_counter()
     params = llama.init_params(
@@ -6974,7 +7440,7 @@ def main() -> int:
             raise AssertionError(f'{k1.__name__} missed the split route on '
                                  f'the {key} path')
 
-    phase('[6/18] main path with spec_k 12 and fuse_budget 264: (a) bf16, '
+    phase('[6/19] main path with spec_k 12 and fuse_budget 264: (a) bf16, '
         '(b) int8 KV and weights')
     spec = dict(base, spec_k=12, fuse_budget=264)
     paths['6a'], _, _, _ = serve_path('6a bf16 spec+fused', params,
@@ -6988,7 +7454,7 @@ def main() -> int:
               + [f'{c.__name__}[{r}]' for c in (k4v, k4f)
                  for r in ('tc', 'split')])
 
-    phase("[7/17] legacy plane decode_impl='paged' (K7): (a) bf16 and (b) int8 "
+    phase("[7/19] legacy plane decode_impl='paged' (K7): (a) bf16 and (b) int8 "
         'KV behind the HTTP replica, (c) Generator.generate')
     legacy = dict(base, decode_impl='paged', decode_chunk=16)
     with warnings.catch_warnings():
@@ -7011,7 +7477,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    phase('[8/18] train path: (a) LLAMA_1B at the bench settings, (b) '
+    phase('[8/19] train path: (a) LLAMA_1B at the bench settings, (b) '
         'LLAMA3_8B widths at depth 2')
     remat = dict(remat=True, remat_policy='dots')
     cfg_1b = dataclasses.replace(llama.LLAMA_1B, max_seq_len=2048,
@@ -7026,7 +7492,7 @@ def main() -> int:
         2, 4096, 6, trainer.TrainConfig(warmup_steps=2, total_steps=6),
         counters)
 
-    phase('[9/18] checkpoints: (a) LLAMA_1B async saves, restore, continue '
+    phase('[9/19] checkpoints: (a) LLAMA_1B async saves, restore, continue '
           '(phase 8a settings), (b) a managed job SIGTERMed and resumed '
           'through train_llama --resume auto')
     scratch = tempfile.mkdtemp(prefix='chip_smoke_ckpt_')
@@ -7049,7 +7515,7 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
-    phase('[10/18] post-training: (a) LoRA-SFT and (b) LoRA-DPO of LLAMA3_8B '
+    phase('[10/19] post-training: (a) LoRA-SFT and (b) LoRA-DPO of LLAMA3_8B '
           'at 32 layers, (c) GRPO on LLAMA_1B, (d) the entry points')
     gc.collect()
     torch.cuda.empty_cache()
@@ -7085,13 +7551,13 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
-    phase('[11/18] Mixtral-8x7B widths, random bf16 weights: (a) 16 of 32 '
+    phase('[11/19] Mixtral-8x7B widths, random bf16 weights: (a) 16 of 32 '
           'layers served, (c) LoRA-SFT of that base, (b) trained at depth 2')
     gc.collect()
     torch.cuda.empty_cache()
     mixtral_path(counters, paths)
 
-    phase('[12/18] HF checkpoints written in HF\'s layout and loaded by '
+    phase('[12/19] HF checkpoints written in HF\'s layout and loaded by '
           'convert.load_hf_model: (a) Gemma-7B and (b) Qwen2.5-1.5B at '
           'their published widths served, 12b LoRA-SFT in process and '
           'through train_sft --hf-model, (c) debug-size parity card vs host')
@@ -7111,14 +7577,14 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
-    phase('[13/18] ResNet: (a) ResNet18Thin one SGD step card vs host, (b) '
+    phase('[13/19] ResNet: (a) ResNet18Thin one SGD step card vs host, (b) '
           'train_resnet\'s path, ResNet50 at batch 256 of 224x224')
     gc.collect()
     torch.cuda.empty_cache()
     resnet_parity()
     resnet_train_path()
 
-    phase('[14/18] prefix cache, host tier and handoff at LLAMA3_8B bf16, '
+    phase('[14/19] prefix cache, host tier and handoff at LLAMA3_8B bf16, '
           '32 layers: (a) prefix reuse, (b) the host tier, (c) the '
           'prefill -> decode handoff in bf16 and int8 KV, (d) debug-size '
           'parity card vs host')
@@ -7147,7 +7613,7 @@ def main() -> int:
     prefix_parity()
     log(f'  14d: {time.perf_counter() - t0:.1f} s')
 
-    phase('[15/18] telemetry and the entry points around the batcher at '
+    phase('[15/19] telemetry and the entry points around the batcher at '
           'LLAMA3_8B bf16, 32 layers: (a) spans and the cost ledger on and '
           'off, (b) the OpenAI routes, (c) /v1/embeddings (encode), (d) '
           'batch_infer --resume, (e) eval_ppl')
@@ -7184,7 +7650,7 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
-    phase('[16/18] tensor-parallel serving, rank processes sharing cuda:0 '
+    phase('[16/19] tensor-parallel serving, rank processes sharing cuda:0 '
           'over gloo: (a) collectives, (b) LLAMA3_8B tp 2 (bf16, int8 KV, '
           'spec_k + fuse_budget) at 16 layers and an f32 config vs tp 1, '
           '(c) LLAMA3_70B widths at 4 layers, tp 4, (d) Qwen2.5-1.5B tp 4 '
@@ -7205,7 +7671,7 @@ def main() -> int:
             log(f'  {sub}: {time.perf_counter() - t0:.1f} s')
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
-    phase('[17/18] training meshes, rank processes sharing cuda:0 over '
+    phase('[17/19] training meshes, rank processes sharing cuda:0 over '
           'gloo: (a) LLAMA_1B bf16 fsdp 2 x tp 2 vs one card, (b) f32 at '
           'dp 2 x fsdp 2 and fsdp 2 x tp 2, (c) LLAMA3_8B widths at 2 '
           'layers, fsdp 4, (d) train_long_context sp 4 (ring attention) at '
@@ -7218,7 +7684,7 @@ def main() -> int:
         mesh_training_path(paths, scratch)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
-    phase('[18/18] pipelines and post-training meshes, rank processes '
+    phase('[18/19] pipelines and post-training meshes, rank processes '
           'sharing cuda:0 over gloo: (a) LLAMA_1B bf16 pp 2 x dp 2, (b) f32 '
           'at pp 4 and pp 2 x fsdp 2, (c) pp 2 x sp 2 at 2 x 4096, (d) '
           'LoRA-SFT and LoRA-DPO of LLAMA3_8B widths at fsdp 2 x tp 2 with '
@@ -7237,6 +7703,14 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     close_rank_pools()
+    phase('[19/19] the serving fleet (serve/traffic/simulator.py) over the '
+          'port\'s batchers: (a) least_load and prefix_affinity, (b) kill + '
+          'preempt and stall + partition, (c) disaggregated prefill, (d) '
+          'the doctor and the SLO autoscaler; LLAMA_DEBUG f32 on the card '
+          '(and (b) on the host), then LLAMA3_8B bf16 at 32 layers')
+    gc.collect()
+    torch.cuda.empty_cache()
+    fleet_path(paths, counters)
     last_phase_done()
     log(f'  whole run: {time.perf_counter() - run_start:.1f} s')
     for key in ('8a', '8b', '9a', '10a', '10b', '10c', '11b', '11c'):
@@ -7300,7 +7774,8 @@ def main() -> int:
         route += [(c, 'split') for c in (k1, k7)
                   if key[0] in '567' or key in ('10c', '11a', '12a', '12b',
                                                 '18d-grpo')
-                  or key in phase14 or key in decode15 or key in legacy18]
+                  or key in phase14 or key in decode15 or key in legacy18
+                  or key.startswith('19')]
         route += [(c, 'tc') for c in (k4v, k4f) if key[0] == '6']
         for c, r in route:
             if launches[f'{c.__name__}[{r}]'] != launches[c.__name__]:
@@ -7326,13 +7801,18 @@ def main() -> int:
     # Phase 17's K2 launches are its lse entries' (train rows below), its
     # K3 launches the per-rank widths' entries.
     rest = tuple(k for k in paths if k not in hf and k not in tp16
-                 and not k.startswith('17') and not k.startswith('18'))
+                 and not k.startswith('17') and not k.startswith('18')
+                 and not k.startswith('19'))
+    # Phase 19's 8B arms: K1 and K2 at the fleet's shapes (the disagg
+    # arms prefill in chunked windows: no K2), K3 at 4096.
+    fleet19 = tuple(k for k in paths if k.startswith('19'))
     tp8b = ('16b', '16b-int8', '16b-spec', '16e')
     kernels = [
         entry(decode['bf16'], k1, ('5', '6a', '11a') + decode15),
         entry(decode['LLAMA3_8B tp2 rank'], k1, ('16b', '16b-spec', '16e')),
         entry(decode['LLAMA3_70B tp4 rank'], k1, ('16c',)),
         entry(decode['Qwen2.5-1.5B tp4 rank'], k1, ('16d',)),
+        entry(decode['LLAMA3_8B fleet'], k1, fleet19),
         entry(decode['g2'], k1, ('10c', '18d-grpo')),
         entry(decode['gemma'], k1, ('12a',)),
         entry(decode['qwen'], k1, ('12b',)),
@@ -7354,8 +7834,11 @@ def main() -> int:
               ('16c',)),
         entry(flash['flash_attention[Qwen2.5-1.5B tp4 rank prefill]'], k2,
               ('16d',)),
+        entry(flash['flash_attention[LLAMA3_8B fleet prefill]'], k2,
+              fleet19),
         entry(norm['rms_norm'], k3, rest + tp8b + ('17c', '18d-sft',
-                                                   '18d-dpo') + legacy18),
+                                                   '18d-dpo') + legacy18
+              + fleet19),
         entry(norm['rms_norm[LLAMA_1B d2048]'], k3, ('17a', '17d', '18a',
                                                      '18c', '18d-grpo')),
         entry(norm['rms_norm[MoE small d1024]'], k3,
@@ -7391,7 +7874,8 @@ def main() -> int:
                       ('combine LLAMA3_8B tp2 rank', ('16b', '16b-spec',
                                                       '16e')),
                       ('combine LLAMA3_70B tp4 rank', ('16c',)),
-                      ('combine Qwen2.5-1.5B tp4 rank', ('16d',))):
+                      ('combine Qwen2.5-1.5B tp4 rank', ('16d',)),
+                      ('combine LLAMA3_8B fleet', fleet19)):
         by_path = {k: paths[k][f'{k1.__name__}[split]'] for k in keys}
         kernels.append(dict(decode[key], launches=sum(by_path.values()),
                             launches_by_path=by_path))

@@ -2,7 +2,8 @@
 own prometheus registry (``metrics``), trace-context propagation
 (``trace``), lifecycle spans and step-phase attribution (``spans``), the
 per-tenant cost ledger (``accounting``), opt-in profiler windows
-(``profiler``) and JSONL step telemetry (``steplog``).
+(``profiler``), JSONL step telemetry (``steplog``) and the fleet doctor
+with its flight recorder (``doctor``).
 
 Counterpart of skypilot_tpu/telemetry/, which exports ``metrics``,
 ``steplog`` and ``trace`` the same way.

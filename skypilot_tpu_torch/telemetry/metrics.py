@@ -7,17 +7,19 @@ pool, the host KV tier and the per-tenant cost ledger.
 Counterpart of the ``TRAIN_*``, ``CKPT_*``, ``INFER_*`` and ``ACCT_*``
 families of skypilot_tpu/telemetry/metrics.py, with the same family
 names, labels and buckets (the ``INFER_MESH_*`` families of sharded
-serving among them), and of its ``histogram_quantile``.  The
-``SERVE_*`` and ``DOCTOR_*`` families come with the fleet tooling
-(ROADMAP.md Queue A item 12).  They live on the port's own prometheus registry, ``REGISTRY``
-(read a sample with ``REGISTRY.get_sample_value(name, labels)``); the
+serving among them), and of its ``histogram_quantile``; and of the
+serving fleet's ``SERVE_*`` families (policies, autoscalers, failover,
+chaos, disaggregation, SLO burn) and ``DOCTOR_INCIDENTS``, with
+``record_autoscaler_decisions``.  They live on the port's own
+prometheus registry, ``REGISTRY`` (read a sample with
+``REGISTRY.get_sample_value(name, labels)``); the
 JAX package's families stay on its own.  An update is a mutex-guarded
 float add, no I/O.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import prometheus_client
 
@@ -494,6 +496,157 @@ ACCT_REQUESTS = prometheus_client.Counter(
     'Requests finalized into the cost ledger per tenant',
     ['tenant'],
     registry=REGISTRY)
+
+
+# ---- serve fleet (serve/load_balancing_policies.py, serve/autoscalers.py)
+
+SERVE_LB_SELECTIONS = prometheus_client.Counter(
+    'skytpu_serve_lb_selections_total',
+    'Replica selections made by the load-balancing policy, per policy '
+    'name (every select_replica that returned a replica)',
+    ['policy'],
+    registry=REGISTRY)
+
+SERVE_REPLICA_INFLIGHT = prometheus_client.Gauge(
+    'skytpu_serve_replica_inflight',
+    'In-flight requests per replica as the LB policy sees them '
+    '(pre/post execute hook accounting)',
+    ['replica'],
+    registry=REGISTRY)
+
+SERVE_AFFINITY_HITS = prometheus_client.Counter(
+    'skytpu_serve_affinity_hits_total',
+    'prefix_affinity selections that landed on the fingerprint\'s '
+    'consistent-hash primary owner (warm-cache routing preserved)',
+    registry=REGISTRY)
+
+SERVE_AFFINITY_MISSES = prometheus_client.Counter(
+    'skytpu_serve_affinity_misses_total',
+    'prefix_affinity selections diverted off the primary owner '
+    '(bounded-load fallback) or carrying no reusable prompt head',
+    registry=REGISTRY)
+
+SERVE_AUTOSCALER_DECISIONS = prometheus_client.Counter(
+    'skytpu_serve_autoscaler_decisions_total',
+    'Autoscaler decisions emitted, per service and operator',
+    ['service', 'operator'],
+    registry=REGISTRY)
+
+# ---- serve failover (serve/failover.py, traffic/simulator.py chaos)
+
+SERVE_FAILOVER_SESSIONS = prometheus_client.Counter(
+    'skytpu_serve_failover_sessions_total',
+    'Sessions moved off a failed or draining replica, by outcome: '
+    'recovered (replayed on a survivor after a circuit opened), '
+    'handed_off (drained cleanly on preemption notice), lost (no '
+    'survivor to replay on), truncated_stream (LB mid-stream failure '
+    'with bytes already delivered — ended truncated)',
+    ['outcome'],
+    registry=REGISTRY)
+
+SERVE_FAILOVER_LATENCY_SECONDS = prometheus_client.Histogram(
+    'skytpu_serve_failover_latency_seconds',
+    'Fault detection (circuit open) to the first replayed token '
+    'delivered on the survivor, per recovered session',
+    buckets=(0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10, 30, 120),
+    registry=REGISTRY)
+
+SERVE_FAILOVER_REPLAYED_TOKENS = prometheus_client.Counter(
+    'skytpu_serve_failover_replayed_tokens_total',
+    'Committed tokens re-prefilled on a survivor during session '
+    'replay (the exactly-once resume cost; warm prefix hits shrink '
+    'the actual prefill charge)',
+    registry=REGISTRY)
+
+SERVE_FAILOVER_CIRCUIT_TRANSITIONS = prometheus_client.Counter(
+    'skytpu_serve_failover_circuit_transitions_total',
+    'Circuit-breaker transitions per replica and new state (open = '
+    'consecutive-failure threshold tripped, closed = half-open probe '
+    'succeeded)',
+    ['replica', 'state'],
+    registry=REGISTRY)
+
+SERVE_FAILOVER_BACKPRESSURE_DIVERTS = prometheus_client.Counter(
+    'skytpu_serve_failover_backpressure_diverts_total',
+    'Requests diverted to another replica after a 503 + Retry-After '
+    '(admission backpressure honored instead of retry-storming the '
+    'full replica)',
+    registry=REGISTRY)
+
+SERVE_CHAOS_FAULTS = prometheus_client.Counter(
+    'skytpu_serve_chaos_faults_total',
+    'Faults injected by the chaos layer, per kind '
+    '(kill / preempt / stall / partition)',
+    ['kind'],
+    registry=REGISTRY)
+
+# ---- disaggregated prefill/decode serving (serve/disagg.py)
+
+SERVE_DISAGG_HANDOFFS = prometheus_client.Counter(
+    'skytpu_serve_disagg_handoffs_total',
+    'Prefill->decode KV handoffs, by outcome: shipped (image exported '
+    'and sent), ingested (decode replica adopted the image), late '
+    '(the decode slot waited past the handoff-late threshold for its '
+    'image), failed (no decode target / corrupt image — fell back to '
+    'cold prefill)',
+    ['outcome'],
+    registry=REGISTRY)
+
+SERVE_DISAGG_EXPORT_BYTES = prometheus_client.Counter(
+    'skytpu_serve_disagg_export_bytes_total',
+    'KV image payload bytes exported by prefill replicas (charged '
+    'against the exporter\'s spill bandwidth in the cost model)',
+    registry=REGISTRY)
+
+SERVE_DISAGG_INGEST_BYTES = prometheus_client.Counter(
+    'skytpu_serve_disagg_ingest_bytes_total',
+    'KV image payload bytes adopted by decode replicas (staged to '
+    'device through the ordinary tier prefetch path)',
+    registry=REGISTRY)
+
+SERVE_DISAGG_TRANSFER_SECONDS = prometheus_client.Histogram(
+    'skytpu_serve_disagg_transfer_seconds',
+    'Handoff export-to-ingest latency per image: export gather+fetch '
+    'through transfer to adoption on the decode replica (the window '
+    'the parked request waits out)',
+    buckets=(0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1, 2.5, 5),
+    registry=REGISTRY)
+
+SERVE_DISAGG_POOL_REPLICAS = prometheus_client.Gauge(
+    'skytpu_serve_disagg_pool_replicas',
+    'Current replica count per disaggregated pool role '
+    '(prefill / decode)',
+    ['role'],
+    registry=REGISTRY)
+
+# ---- SLO burn (serve/slo.py) and the fleet doctor (telemetry/doctor.py)
+
+SERVE_SLO_BURN_RATE = prometheus_client.Gauge(
+    'skytpu_serve_slo_burn_rate',
+    'SRE-style error-budget burn rate per rolling window (fast/slow): '
+    'violating_fraction / (1 - objective) over the window; 1.0 burns '
+    'the budget exactly at the SLO rate, sustained >>1 is page '
+    'material',
+    ['window'],
+    registry=REGISTRY)
+
+DOCTOR_INCIDENTS = prometheus_client.Counter(
+    'skytpu_doctor_incidents_total',
+    'Incidents opened by the fleet doctor rules engine, per rule code '
+    '(see the incident taxonomy in docs/observability.md)',
+    ['rule'],
+    registry=REGISTRY)
+
+
+def record_autoscaler_decisions(service_name: str,
+                                decisions: List[Any]) -> None:
+    """Count a generate_scaling_decisions() result (one inc per
+    decision, labeled scale_up/scale_down)."""
+    for decision in decisions:
+        op = getattr(decision, 'operator', decision)
+        op = getattr(op, 'value', op)
+        SERVE_AUTOSCALER_DECISIONS.labels(
+            service=service_name, operator=str(op).lower()).inc()
 
 
 def histogram_quantile(hist: prometheus_client.Histogram, q: float,

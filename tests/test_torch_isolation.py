@@ -108,7 +108,19 @@ def test_scan_covers_the_training_modules():
             'scripts/torch_train_mesh_smoke.py',
             'scripts/torch_tp_smoke.py',
             'scripts/torch_gloo_probe.py',
-            'scripts/torch_profile_train.py'} <= scanned
+            'scripts/torch_profile_train.py',
+            'skypilot_tpu_torch/utils/backoff.py',
+            'skypilot_tpu_torch/serve/serve_state.py',
+            'skypilot_tpu_torch/serve/slo.py',
+            'skypilot_tpu_torch/serve/load_balancing_policies.py',
+            'skypilot_tpu_torch/serve/failover.py',
+            'skypilot_tpu_torch/serve/autoscalers.py',
+            'skypilot_tpu_torch/serve/traffic/__init__.py',
+            'skypilot_tpu_torch/serve/traffic/hashring.py',
+            'skypilot_tpu_torch/serve/traffic/generator.py',
+            'skypilot_tpu_torch/serve/traffic/simulator.py',
+            'skypilot_tpu_torch/telemetry/doctor.py',
+            'scripts/torch_fleet_smoke.py'} <= scanned
 
 
 def test_rank_workers_of_the_mesh_tests_import_no_jax():
