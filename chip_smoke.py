@@ -244,8 +244,8 @@ Phases (any failure exits non-zero):
    with the plain attention and norm patched in (cosine >= 0.999 both;
    max relative error 0.05), a gate that the same encode without its
    causal mask fails.  (d) batch_infer as a child process
-   over 64 JSONL lines (32 text, 32 prompt_ids, 17-700 tokens, 32 new
-   each), the first 24 output lines kept and the rest regenerated with
+   over 32 JSONL lines (16 text, 16 prompt_ids, 17-700 tokens, 32 new
+   each), the first 12 output lines kept and the rest regenerated with
    --resume: 64 distinct ids, none twice, the kept lines unchanged;
    prints how many regenerated outputs equal the first run's, prompts/s
    and tokens/s.  (e) eval_ppl over the repo's SURVEY.md and README.md
@@ -312,8 +312,9 @@ Phases (any failure exits non-zero):
    pipelined loss through llama.forward_pipelined, LoRA, DPO and GRPO
    on meshes, MoE's 'capacity' router under sp), 4 ranks sharing cuda:0
    over gloo in one spawn, each arm against one card on the same seed
-   (the references first, in this process): (a) LLAMA_1B bf16 at pp 2 x
-   dp 2, 8 x 1024 in 4 microbatches, 1 + 3 steps: losses within
+   (the references first, in this process): (a) LLAMA_1B bf16 at 4 of
+   its 16 layers (cut for time) at pp 2 x dp 2, 8 x 1024 in 4
+   microbatches, 1 + 3 steps: losses within
    MESH_LOSS_REL and grad norms within MESH_NORM_REL; (b) 17b's f32
    config at pp 4 and pp 2 x fsdp 2: losses within 1e-6, parameters
    within 17b's bound; (c) pp 2 x sp 2 at 2 x 4096 on LLAMA_1B's widths
@@ -343,17 +344,33 @@ Phases (any failure exits non-zero):
    card first: (a)'s prefix_affinity run twice, byte-identical summaries;
    (b) again on the host, summary and session_outputs() equal to the
    card's, outputs equal to the fault-free runs'; (c)'s outputs equal to
-   the single pool's.  Then LLAMA3_8B at 32 layers (bf16 weights and KV,
-   random from seed 0, one tree shared by every replica), every arm once
-   with every byte budget and link rate x64 (its KV bytes a token over
-   LLAMA_DEBUG's): every request completes, no session lost, each at its
+   the single pool's.  Then LLAMA3_8B's widths at 16 of its 32 layers
+   (cut for time; bf16 weights and KV, random from seed 0, one tree
+   shared by every replica), every arm once with every byte budget and
+   link rate x32 (its KV bytes a token over LLAMA_DEBUG's): every
+   request completes, no session lost, each at its
    token budget, and each summary equals LLAMA_DEBUG's but for the byte
-   fields (64x) and the times the images' headers shift
+   fields (32x) and the times the images' headers shift
    (fleet_summary_diff); the chaos and disagg arms report their tokens
-   matched against their baselines.  Device memory must come back within
-   1% of its level before the phase.  Phase 3 checks K1 and K2 at the
-   fleet's shapes.  Every phase prints its seconds, and the run its
-   whole.
+   matched against their baselines.  Each arm's replicas, batchers and
+   arenas must go with its closed simulator while the cyclic collector
+   is off (FleetSimulator.close() breaks the cycles through it), and
+   device memory must come back within 1% of its level before the
+   phase.  Phase 3 checks K1 and K2 at the fleet's shapes.
+20. the compile-budget audit (skypilot_tpu_torch/analysis/audit.py):
+   (a) run_audit on the card, every entry's engines capturing real CUDA
+   graphs (LLAMA_DEBUG's widths, f32, 2 layers, the reference's
+   buckets): no check fails, mesh_decode is a skip (no process group)
+   and the other skips are output_sharding (no mesh), every decode
+   budget counted by the engines' ChunkGraphs; each entry's counts are
+   logged.  (b) the graph budgets of the batchers phases 5, 6a, 6b, 7a
+   and 7b served through (serve_path watches their graphs from
+   construction): each key captured once a bucket visit (a 'paged'
+   migration drops the graphs), pooled decode <= 2 keys, verify <= 1,
+   fused tails <= 2, and the rows, tables and pooled arena at their
+   first addresses.  (c) a batcher whose decode chunk reads
+   int(token[0]) must fail the audit.  Every phase prints its seconds,
+   and the run its whole.
 
 Every kernel of a main-path run must launch > 0 times in that run (the
 counts are set to 0 just before it and read just after; a replayed graph
@@ -406,6 +423,7 @@ import time
 import types
 import urllib.request
 import warnings
+import weakref
 import zlib
 
 import numpy as np
@@ -2176,7 +2194,12 @@ def serve_path(label, params, gen_config, counters, graphs=None, cfg=None,
     comes back free and frozen, and one short request afterwards shrinks
     the slot cache to its smallest bucket).  graphs: the batcher's
     argument (None: graphs on the card); cfg, model: the model's config
-    (LLAMA3_8B by default) and the name the replica gives it."""
+    (LLAMA3_8B by default) and the name the replica gives it.  With
+    graphs, the stats hold the batcher's graph budgets over the whole
+    run (analysis/audit.py's graph_budgets: its graphs watched from
+    construction, its rows, tables and arena held at their addresses),
+    which phase 20 reads."""
+    from skypilot_tpu_torch.analysis import audit
     from skypilot_tpu_torch.infer import engine, replica
     from skypilot_tpu_torch.infer.serving import ContinuousBatcher
     from skypilot_tpu_torch.models import llama
@@ -2185,6 +2208,10 @@ def serve_path(label, params, gen_config, counters, graphs=None, cfg=None,
     torch.cuda.reset_peak_memory_stats()
     batcher = ContinuousBatcher(params, cfg, gen_config, decode_chunk=16,
                                 device='cuda', graphs=graphs)
+    addresses = None
+    if batcher.graphs is not None:
+        audit.watch(batcher)
+        addresses = audit.addresses(batcher)
     # Warm-up (cuBLAS handles, allocator pools, the 16-step chunk's
     # graph), then count from zero.
     warm = batcher.submit([1, 2, 3], max_new_tokens=2)
@@ -2300,6 +2327,8 @@ def serve_path(label, params, gen_config, counters, graphs=None, cfg=None,
         - retries0,
         'launches': launches,
     }
+    if addresses is not None:
+        stats['graph_budgets'] = audit.graph_budgets(batcher, addresses)
     log(f'  {label}: ' + json.dumps(stats))
     return launches, migrations, [r['output_ids'] for r in responses], stats
 
@@ -4816,17 +4845,17 @@ def _run_child(module, args, timeout=900):
 
 def batch_infer_path(paths, root, model_size='8b', device_args=(),
                      vocab_size=128256):
-    """15d: batch_infer as a child process over 64 JSONL lines (32 text,
-    32 prompt_ids, 17-700 tokens, 32 new each; phase 5's settings), then
-    the first 24 output lines kept and the rest regenerated with
-    --resume.  Gates: 64 distinct ids, none twice, the 24 kept lines
-    unchanged.  Prints how many of the 40 regenerated outputs equal the
+    """15d: batch_infer as a child process over 32 JSONL lines (16 text,
+    16 prompt_ids, 17-700 tokens, 32 new each; phase 5's settings), then
+    the first 12 output lines kept and the rest regenerated with
+    --resume.  Gates: 32 distinct ids, none twice, the 12 kept lines
+    unchanged.  Prints how many of the 20 regenerated outputs equal the
     first run's (bf16: a batch's composition may change roundings), and
     prompts/s and tokens/s."""
     rng = np.random.RandomState(15)
     text = _readme_text(4000)
     inp = os.path.join(root, 'prompts.jsonl')
-    lengths = [SERVE_LENGTHS[i % 8] + i // 8 for i in range(64)]
+    lengths = [SERVE_LENGTHS[i % 8] + i // 8 for i in range(32)]
     with open(inp, 'w', encoding='utf-8') as f:
         for i, n in enumerate(lengths):
             if i % 2:
@@ -4847,7 +4876,7 @@ def batch_infer_path(paths, root, model_size='8b', device_args=(),
         first_lines = f.read().splitlines()
     resumed = os.path.join(root, 'resumed.jsonl')
     with open(resumed, 'w', encoding='utf-8') as f:
-        f.write('\n'.join(first_lines[:24]) + '\n')
+        f.write('\n'.join(first_lines[:12]) + '\n')
     t0 = time.perf_counter()
     out2, launches2 = _run_child('skypilot_tpu_torch.infer.batch_infer',
                                  args + ['--output', resumed, '--resume'])
@@ -4857,23 +4886,23 @@ def batch_infer_path(paths, root, model_size='8b', device_args=(),
     rows = [json.loads(line) for line in lines]
     ids = [r['id'] for r in rows]
     want_ids = {json.loads(line)['id'] for line in open(inp)}
-    if len(rows) != 64 or len(set(ids)) != 64 or set(ids) != want_ids \
-            or lines[:24] != first_lines[:24] \
+    if len(rows) != 32 or len(set(ids)) != 32 or set(ids) != want_ids \
+            or lines[:12] != first_lines[:12] \
             or any(len(r['output_ids']) != 32 for r in rows):
         raise AssertionError(f'15d: {len(rows)} lines, {len(set(ids))} '
                              f'distinct ids, kept lines unchanged: '
-                             f'{lines[:24] == first_lines[:24]}')
-    if not any('40 prompts (24 already done)' in line for line in out2):
+                             f'{lines[:12] == first_lines[:12]}')
+    if not any('20 prompts (12 already done)' in line for line in out2):
         raise AssertionError(f'15d: resume said {out2}')
     by_id = {json.loads(line)['id']: json.loads(line)['output_ids']
              for line in first_lines}
-    same = sum(by_id[r['id']] == r['output_ids'] for r in rows[24:])
+    same = sum(by_id[r['id']] == r['output_ids'] for r in rows[12:])
     paths['15d'] = {k: launches1[k] + launches2[k] for k in launches1}
     log('  15d: ' + json.dumps({
         'card': CARD['line'], 'first_run_s': first_s,
         'resume_run_s': resume_s, 'first_run': out1[-1],
         'resume_run': out2[-1],
-        'regenerated_equal_to_first_run': f'{same} of 40'}))
+        'regenerated_equal_to_first_run': f'{same} of 20'}))
 
 
 def eval_ppl_path(paths, counters, root, model_size='8b', device='cuda'):
@@ -5784,7 +5813,7 @@ ROUTES = {'tc': 'launches_tc', 'split': 'launches_split',
 # ---- phase 17: training meshes ---------------------------------------------
 
 # Phases 17 and 18's configurations: LLAMA_1B at phase 8a's settings
-# (18a) and at 4 of its 16 layers (17a, 17d, 18c), cut for time;
+# and at 4 of its 16 layers (17a, 17d, 18a, 18c), cut for time;
 # an f32 config at hd 128 (phase 16e's widths, its 32,768 vocabulary and
 # 4 layers, remat on so the recompute runs the fsdp gathers again),
 # LLAMA3_8B's widths at 2 layers (17c, 18d), train_moe's 'small' model;
@@ -6341,10 +6370,11 @@ def mesh_allreduce_path(device_args=()):
 # ---- phase 18: pipelines, post-training meshes, legacy planes under tp ----
 
 # Phase 18's arms in ONE spawn of 4 ranks on cuda:0 over gloo, as phase
-# 17's: name -> (rank task, kwargs).  18a LLAMA_1B bf16 at pp 2 x dp 2,
-# phase 8a's global batch of 8 x 1024 in 4 microbatches (1 warm-up and 3
-# timed steps); 18b 17b's f32 config at pp 4 and pp 2 x fsdp 2; 18c pp 2
-# x sp 2 at 2 x 4096 on LLAMA_1B's widths at 4 layers (depth cut for
+# 17's: name -> (rank task, kwargs).  18a LLAMA_1B bf16 at 4 of its 16
+# layers (cut for time) at pp 2 x dp 2, phase 8a's global batch of 8 x
+# 1024 in 4 microbatches (1 warm-up and 3 timed steps); 18b 17b's f32
+# config at pp 4 and pp 2 x fsdp 2; 18c pp 2 x sp 2 at 2 x 4096 on
+# LLAMA_1B's widths at 4 layers (depth cut for
 # time: the sp ring attends in f32 products); 18d LoRA-SFT (2 x 2048 a
 # step, 2 steps) and LoRA-DPO (2 pairs x 1024, 1 step) of LLAMA3_8B's
 # widths at 2 layers (depth and steps cut for time; 17c's trunk) at fsdp
@@ -6354,7 +6384,7 @@ def mesh_allreduce_path(device_args=()):
 # 'small' model with the 'capacity' router at sp 2 x ep 2, 17e's shapes.
 _TC_PP = dict(warmup_steps=2, total_steps=12)
 PP_ARMS = {
-    '18a': ('mesh_train', dict(config='1b', mesh_kw={'pp': 2, 'dp': 2},
+    '18a': ('mesh_train', dict(config='1b-4', mesh_kw={'pp': 2, 'dp': 2},
                                batch=8, seq=1024, steps=4, tc_kw=_TC_PP,
                                microbatches=4)),
     '18b-pp4': ('mesh_train', dict(
@@ -7027,16 +7057,27 @@ def fleet_run(name, cfg, params, device, scale=1, counters=None):
         sim.close()
         if postmortems:
             shutil.rmtree(postmortems, ignore_errors=True)
-    # The replicas' span clocks close a reference cycle: collect it, so
-    # the next arm starts from the weights alone.
-    del sim
-    gc.collect()
+    # close() broke the cycles through the simulator: its replicas, their
+    # batchers and arenas go with it, with the cyclic collector off.
+    batchers = [weakref.ref(rep.batcher) for rep in sim._all_reps()]
+    gc.disable()
+    try:
+        del sim
+        alive = sum(b() is not None for b in batchers)
+        after = _memory(device)
+    finally:
+        gc.enable()
+    if alive:
+        raise AssertionError(f'{name}: {alive} of {len(batchers)} replica '
+                             f'batchers outlived the closed simulator '
+                             f'without a collection')
     if device == 'cuda':
         torch.cuda.empty_cache()
     return {'summary': summary, 'outputs': outputs, 'budgets': budgets,
             'arrivals': len(trace), 'seconds': seconds, 'peak': peak,
             'resident': resident, 'launches': launches,
-            'postmortems': n_postmortems}
+            'postmortems': n_postmortems, 'replicas_freed': len(batchers),
+            'after_close': after}
 
 
 def _fleet_leaves(tree, path=()):
@@ -7123,7 +7164,10 @@ def _fleet_log(label, run):
     s = run['summary']
     log(f'  {label}: {run["seconds"]:.1f} s, {s["requests"]} requests, '
         f'peak {run["peak"] / 2**30:.2f} GiB, resident '
-        f'{run["resident"] / 2**30:.2f} GiB'
+        f'{run["resident"] / 2**30:.2f} GiB, '
+        f'{run["after_close"] / 2**30:.2f} GiB once closed and dropped '
+        f'({run["replicas_freed"]} replica batchers freed without a '
+        f'collection)'
         + (f', {run["postmortems"]} postmortems'
            if run['postmortems'] is not None else ''))
     log(f'    summary {json.dumps(s, sort_keys=True)}')
@@ -7146,9 +7190,10 @@ def fleet_path(paths, counters=None, device='cuda', big=None):
     the host (the port's CPU path, the same weights), summary and
     session_outputs() equal to the card's, and their outputs equal to
     their fault-free runs'; (c)'s outputs equal to the single pool's.
-    Then `big` (LLAMA3_8B at 32 layers, bf16 weights and KV, random from
-    seed 0), every arm once with every byte budget and link rate times
-    the KV bytes a token over LLAMA_DEBUG's (64): each run completes
+    Then `big` (LLAMA3_8B's widths at 16 of its 32 layers, bf16 weights
+    and KV, random from seed 0), every arm once with every byte budget
+    and link rate times the KV bytes a token over LLAMA_DEBUG's (32):
+    each run completes
     every request, none lost, every session at its token budget, and its
     summary equals the LLAMA_DEBUG run's but for the byte fields and the
     header-shifted times (fleet_summary_diff); on the card K1 (split
@@ -7164,9 +7209,11 @@ def fleet_path(paths, counters=None, device='cuda', big=None):
     from skypilot_tpu_torch.infer.block_pool import block_nbytes
     from skypilot_tpu_torch.models import llama
     debug = llama.LLAMA_DEBUG
-    big = big or llama.LLAMA3_8B
-    big_name = ('LLAMA3_8B' if big == llama.LLAMA3_8B
+    # LLAMA3_8B's widths at 16 of its 32 layers, cut for the run's time
+    # (the KV bytes a token stay a power of two over LLAMA_DEBUG's).
+    big_name = ('LLAMA3_8B 16 layers' if big is None
                 else f'{big.n_layers}-layer d{big.d_model}')
+    big = big or dataclasses.replace(llama.LLAMA3_8B, n_layers=16)
     # KV bytes a token (a one-row block) of each model's arena.
     big_bytes, debug_bytes = block_nbytes(big, 1), block_nbytes(debug, 1)
     scale = big_bytes // debug_bytes
@@ -7278,6 +7325,98 @@ def fleet_path(paths, counters=None, device='cuda', big=None):
     return stats
 
 
+# ---- phase 20: the compile-budget audit -------------------------------------
+
+def host_read_control(device='cuda'):
+    """A batcher whose decode chunk reads int(token[0]) (the defect the
+    audit's no_callbacks check exists for), audited: returns its failed
+    checks, which must not be empty.  Eager (graphs=False): a capture of
+    that chunk would fail before the audit saw it."""
+    from skypilot_tpu_torch.analysis import audit
+    from skypilot_tpu_torch.infer.serving import ContinuousBatcher
+    dev, cfg, params = audit._setup(device, None, None)
+    b = ContinuousBatcher(params, cfg, audit._tiny_gen_config(),
+                          decode_chunk=8, device=dev, graphs=False)
+    steps = b._decode_steps
+
+    def reads_the_host(n, all_greedy, nucleus):
+        int(b._token[0])                      # the defect under test
+        return steps(n, all_greedy, nucleus)
+    b._decode_steps = reads_the_host
+    try:
+        report = audit.audit_batcher_decode(b)
+        fails = [c for c in report['checks'] if c['status'] == 'fail']
+    except Exception as e:  # noqa: broad -- run_audit's 'trace' failure
+        fails = [{'name': 'trace', 'status': 'fail',
+                  'detail': f'{type(e).__name__}: {e}'}]
+    finally:
+        del b._decode_steps
+    return fails
+
+
+def audit_path(budgets, device='cuda'):
+    """Phase 20: (a) run_audit on `device`, with real graphs on a card:
+    no check fails, mesh_decode is a skip with its reason (one process,
+    no process group) and the only other skips are output_sharding (no
+    mesh); on a card each decode budget was counted by ChunkGraphs;
+    (b) `budgets` (serve_path's graph_budgets) all
+    hold: each key captured once a bucket visit, pooled decode <= 2
+    keys, verify <= 1, fused <= 2, rows, tables and arena at their
+    addresses; (c) host_read_control's batcher fails the audit.
+    `budgets`: graph_budgets by path (main passes phases 5, 6a, 6b, 7a
+    and 7b's).  Returns the seconds of (a)."""
+    from skypilot_tpu_torch.analysis import audit
+    t0 = time.perf_counter()
+    report = audit.run_audit(device=device)
+    seconds = time.perf_counter() - t0
+    bad = []
+    for entry in report['entries']:
+        name = entry['entry']
+        counts = {k: v for k, v in entry.items()
+                  if k not in ('entry', 'checks')}
+        statuses = collections.Counter(c['status'] for c in entry['checks'])
+        log(f'  20a {name}: {dict(statuses)} '
+            + json.dumps(counts, sort_keys=True, default=str))
+        for c in entry['checks']:
+            log(f"    {c['status']} {c['name']}: {c['detail']}")
+            if c['status'] == 'fail':
+                bad.append(f"{name}.{c['name']}: {c['detail']}")
+            elif c['status'] == 'skip' and not (
+                    name == 'mesh_decode' or c['name'] == 'output_sharding'):
+                bad.append(f"{name}.{c['name']} skipped: {c['detail']}")
+    mesh = next(e for e in report['entries'] if e['entry'] == 'mesh_decode')
+    if [c['status'] for c in mesh['checks']] != ['skip']:
+        bad.append(f'mesh_decode is not a skip: {mesh["checks"]}')
+    else:
+        log(f"  20a mesh_decode skip: {mesh['checks'][0]['detail']}")
+    if device == 'cuda':
+        for entry in report['entries']:
+            for c in entry['checks']:
+                if 'counted by' in c['detail'] and \
+                        'ChunkGraphs' not in c['detail']:
+                    bad.append(f"{entry['entry']}.{c['name']} not counted "
+                               f"by ChunkGraphs: {c['detail']}")
+    if bad:
+        raise AssertionError('phase 20a: ' + '; '.join(bad))
+    log(f'  20a: run_audit on {device}: {len(report["entries"])} entries, '
+        f'{sum(len(e["checks"]) for e in report["entries"])} checks, no '
+        f'failure, in {seconds:.1f} s')
+    for key, got in budgets.items():
+        log(f'  20b {key}: ' + json.dumps(got, sort_keys=True, default=str))
+        if not got['ok'] or (device == 'cuda'
+                             and 'ChunkGraphs' not in got['counted_by']):
+            raise AssertionError(f'phase 20b: the graph budgets of {key} '
+                                 f'do not hold: {got}')
+    fails = host_read_control(device)
+    log('  20c: a decode chunk reading int(token[0]) fails the audit: '
+        + json.dumps(fails))
+    names = {c['name'] for c in fails}
+    if not fails or not ('no_callbacks' in names or 'trace' in names):
+        raise AssertionError(f'phase 20c: the host read passed the audit: '
+                             f'{fails}')
+    return seconds
+
+
 def _same_sessions(what, got, want):
     """Equal session_outputs(), or an error naming the first session (by
     its place in sid order) and token where they part."""
@@ -7342,10 +7481,10 @@ def main() -> int:
         log(f'  phase {clock["name"]}: '
             f'{time.perf_counter() - clock["start"]:.1f} s')
 
-    phase(f'[1/19] device: {CARD["line"]} | torch {torch.__version__} '
+    phase(f'[1/20] device: {CARD["line"]} | torch {torch.__version__} '
         f'cuda {torch.version.cuda}')
 
-    phase('[2/19] build')
+    phase('[2/20] build')
     _kernels.LIBRARY.get()
     log(f'  built {_kernels.LIBRARY.path.name} in '
         f'{_kernels.LIBRARY.build_seconds:.1f} s')
@@ -7364,7 +7503,7 @@ def main() -> int:
                 and info['spill_bytes']:
             raise AssertionError(f'decode kernel {name} spills: {info}')
 
-    phase('[3/19] kernels vs plain versions')
+    phase('[3/20] kernels vs plain versions')
     t0 = time.perf_counter()
     decode = check_decode(decode_attention, ptxas)
     decode['g2'], decode['combine g2'] = check_decode_at(
@@ -7408,13 +7547,13 @@ def main() -> int:
         f'{time_ms(read.sum):.4f} ms (bound 0.0063)')
     del tiny, read
 
-    phase('[4/19] slice parity, LLAMA_DEBUG and MoE f32, card vs host')
+    phase('[4/20] slice parity, LLAMA_DEBUG and MoE f32, card vs host')
     slice_parity()
     train_parity()
     post_train_parity()
     moe_parity()
 
-    phase('[5/19] main path, LLAMA3_8B bf16 behind the HTTP replica')
+    phase('[5/20] main path, LLAMA3_8B bf16 behind the HTTP replica')
     cfg = llama.LLAMA3_8B
     t0 = time.perf_counter()
     params = llama.init_params(
@@ -7429,8 +7568,10 @@ def main() -> int:
     eager5, _, eager_out, _ = serve_path('main path eager (graphs=False)',
                                       params, GeneratorConfig(**base),
                                       counters, graphs=False)
-    paths['5'], _, graph_out, _ = serve_path('main path', params,
-                                          GeneratorConfig(**base), counters)
+    budgets = {}
+    paths['5'], _, graph_out, st = serve_path('main path', params,
+                                           GeneratorConfig(**base), counters)
+    budgets['5'] = st['graph_budgets']
     _same_tokens('phase 5: graphs vs eager', graph_out, eager_out)
     log(f'  phase 5: greedy tokens identical eager and through graphs '
         f'({sum(map(len, graph_out))} tokens)')
@@ -7440,31 +7581,35 @@ def main() -> int:
             raise AssertionError(f'{k1.__name__} missed the split route on '
                                  f'the {key} path')
 
-    phase('[6/19] main path with spec_k 12 and fuse_budget 264: (a) bf16, '
+    phase('[6/20] main path with spec_k 12 and fuse_budget 264: (a) bf16, '
         '(b) int8 KV and weights')
     spec = dict(base, spec_k=12, fuse_budget=264)
-    paths['6a'], _, _, _ = serve_path('6a bf16 spec+fused', params,
-                                   GeneratorConfig(**spec), counters)
-    paths['6b'], _, _, _ = serve_path('6b int8 spec+fused', params,
-                                   GeneratorConfig(
-                                       **spec, kv_cache_dtype='int8',
-                                       weights_dtype='int8'), counters)
+    paths['6a'], _, _, st = serve_path('6a bf16 spec+fused', params,
+                                    GeneratorConfig(**spec), counters)
+    budgets['6a'] = st['graph_budgets']
+    paths['6b'], _, _, st = serve_path('6b int8 spec+fused', params,
+                                    GeneratorConfig(
+                                        **spec, kv_cache_dtype='int8',
+                                        weights_dtype='int8'), counters)
+    budgets['6b'] = st['graph_budgets']
     for key in ('6a', '6b'):
         _need(key, paths[key], [c.__name__ for c in (k1, k2, k3, k4v, k4f)]
               + [f'{c.__name__}[{r}]' for c in (k4v, k4f)
                  for r in ('tc', 'split')])
 
-    phase("[7/19] legacy plane decode_impl='paged' (K7): (a) bf16 and (b) int8 "
+    phase("[7/20] legacy plane decode_impl='paged' (K7): (a) bf16 and (b) int8 "
         'KV behind the HTTP replica, (c) Generator.generate')
     legacy = dict(base, decode_impl='paged', decode_chunk=16)
     with warnings.catch_warnings():
         warnings.simplefilter('ignore', DeprecationWarning)
-        paths['7a'], mig_a, _, _ = serve_path('7a paged bf16', params,
-                                           GeneratorConfig(**legacy),
-                                           counters)
-        paths['7b'], mig_b, _, _ = serve_path(
+        paths['7a'], mig_a, _, st = serve_path('7a paged bf16', params,
+                                            GeneratorConfig(**legacy),
+                                            counters)
+        budgets['7a'] = st['graph_budgets']
+        paths['7b'], mig_b, _, st = serve_path(
             '7b paged int8 KV', params,
             GeneratorConfig(**legacy, kv_cache_dtype='int8'), counters)
+        budgets['7b'] = st['graph_budgets']
         paths['7c'] = generate_path('7c Generator paged bf16', params,
                                     GeneratorConfig(**legacy), counters)
     for key in ('7a', '7b', '7c'):
@@ -7477,7 +7622,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    phase('[8/19] train path: (a) LLAMA_1B at the bench settings, (b) '
+    phase('[8/20] train path: (a) LLAMA_1B at the bench settings, (b) '
         'LLAMA3_8B widths at depth 2')
     remat = dict(remat=True, remat_policy='dots')
     cfg_1b = dataclasses.replace(llama.LLAMA_1B, max_seq_len=2048,
@@ -7492,7 +7637,7 @@ def main() -> int:
         2, 4096, 6, trainer.TrainConfig(warmup_steps=2, total_steps=6),
         counters)
 
-    phase('[9/19] checkpoints: (a) LLAMA_1B async saves, restore, continue '
+    phase('[9/20] checkpoints: (a) LLAMA_1B async saves, restore, continue '
           '(phase 8a settings), (b) a managed job SIGTERMed and resumed '
           'through train_llama --resume auto')
     scratch = tempfile.mkdtemp(prefix='chip_smoke_ckpt_')
@@ -7515,7 +7660,7 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
-    phase('[10/19] post-training: (a) LoRA-SFT and (b) LoRA-DPO of LLAMA3_8B '
+    phase('[10/20] post-training: (a) LoRA-SFT and (b) LoRA-DPO of LLAMA3_8B '
           'at 32 layers, (c) GRPO on LLAMA_1B, (d) the entry points')
     gc.collect()
     torch.cuda.empty_cache()
@@ -7551,13 +7696,13 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
-    phase('[11/19] Mixtral-8x7B widths, random bf16 weights: (a) 16 of 32 '
+    phase('[11/20] Mixtral-8x7B widths, random bf16 weights: (a) 16 of 32 '
           'layers served, (c) LoRA-SFT of that base, (b) trained at depth 2')
     gc.collect()
     torch.cuda.empty_cache()
     mixtral_path(counters, paths)
 
-    phase('[12/19] HF checkpoints written in HF\'s layout and loaded by '
+    phase('[12/20] HF checkpoints written in HF\'s layout and loaded by '
           'convert.load_hf_model: (a) Gemma-7B and (b) Qwen2.5-1.5B at '
           'their published widths served, 12b LoRA-SFT in process and '
           'through train_sft --hf-model, (c) debug-size parity card vs host')
@@ -7577,14 +7722,14 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
-    phase('[13/19] ResNet: (a) ResNet18Thin one SGD step card vs host, (b) '
+    phase('[13/20] ResNet: (a) ResNet18Thin one SGD step card vs host, (b) '
           'train_resnet\'s path, ResNet50 at batch 256 of 224x224')
     gc.collect()
     torch.cuda.empty_cache()
     resnet_parity()
     resnet_train_path()
 
-    phase('[14/19] prefix cache, host tier and handoff at LLAMA3_8B bf16, '
+    phase('[14/20] prefix cache, host tier and handoff at LLAMA3_8B bf16, '
           '32 layers: (a) prefix reuse, (b) the host tier, (c) the '
           'prefill -> decode handoff in bf16 and int8 KV, (d) debug-size '
           'parity card vs host')
@@ -7613,7 +7758,7 @@ def main() -> int:
     prefix_parity()
     log(f'  14d: {time.perf_counter() - t0:.1f} s')
 
-    phase('[15/19] telemetry and the entry points around the batcher at '
+    phase('[15/20] telemetry and the entry points around the batcher at '
           'LLAMA3_8B bf16, 32 layers: (a) spans and the cost ledger on and '
           'off, (b) the OpenAI routes, (c) /v1/embeddings (encode), (d) '
           'batch_infer --resume, (e) eval_ppl')
@@ -7650,7 +7795,7 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
-    phase('[16/19] tensor-parallel serving, rank processes sharing cuda:0 '
+    phase('[16/20] tensor-parallel serving, rank processes sharing cuda:0 '
           'over gloo: (a) collectives, (b) LLAMA3_8B tp 2 (bf16, int8 KV, '
           'spec_k + fuse_budget) at 16 layers and an f32 config vs tp 1, '
           '(c) LLAMA3_70B widths at 4 layers, tp 4, (d) Qwen2.5-1.5B tp 4 '
@@ -7671,7 +7816,7 @@ def main() -> int:
             log(f'  {sub}: {time.perf_counter() - t0:.1f} s')
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
-    phase('[17/19] training meshes, rank processes sharing cuda:0 over '
+    phase('[17/20] training meshes, rank processes sharing cuda:0 over '
           'gloo: (a) LLAMA_1B bf16 fsdp 2 x tp 2 vs one card, (b) f32 at '
           'dp 2 x fsdp 2 and fsdp 2 x tp 2, (c) LLAMA3_8B widths at 2 '
           'layers, fsdp 4, (d) train_long_context sp 4 (ring attention) at '
@@ -7684,7 +7829,7 @@ def main() -> int:
         mesh_training_path(paths, scratch)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
-    phase('[18/19] pipelines and post-training meshes, rank processes '
+    phase('[18/20] pipelines and post-training meshes, rank processes '
           'sharing cuda:0 over gloo: (a) LLAMA_1B bf16 pp 2 x dp 2, (b) f32 '
           'at pp 4 and pp 2 x fsdp 2, (c) pp 2 x sp 2 at 2 x 4096, (d) '
           'LoRA-SFT and LoRA-DPO of LLAMA3_8B widths at fsdp 2 x tp 2 with '
@@ -7703,14 +7848,21 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     close_rank_pools()
-    phase('[19/19] the serving fleet (serve/traffic/simulator.py) over the '
+    phase('[19/20] the serving fleet (serve/traffic/simulator.py) over the '
           'port\'s batchers: (a) least_load and prefix_affinity, (b) kill + '
           'preempt and stall + partition, (c) disaggregated prefill, (d) '
           'the doctor and the SLO autoscaler; LLAMA_DEBUG f32 on the card '
-          '(and (b) on the host), then LLAMA3_8B bf16 at 32 layers')
+          '(and (b) on the host), then LLAMA3_8B bf16 at 16 layers')
     gc.collect()
     torch.cuda.empty_cache()
     fleet_path(paths, counters)
+    phase('[20/20] the compile-budget audit (analysis/audit.py): (a) '
+          'run_audit on the card with real graphs, (b) the graph budgets '
+          'of phases 5-7\'s batchers, (c) a decode chunk that reads '
+          'int(token[0]) must fail it')
+    gc.collect()
+    torch.cuda.empty_cache()
+    audit_path(budgets)
     last_phase_done()
     log(f'  whole run: {time.perf_counter() - run_start:.1f} s')
     for key in ('8a', '8b', '9a', '10a', '10b', '10c', '11b', '11c'):

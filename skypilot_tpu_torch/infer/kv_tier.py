@@ -288,6 +288,11 @@ class KVTier:
         self.misses = 0
         self.prefetch_late = 0
         self.adopted = 0
+        # The id-vector lengths each device copy ran at: the reference's
+        # jit caches of its gather and scatter, one shape each
+        # (ids_per_node) when every copy moves one trie node.
+        self.copy_shapes: Dict[str, set] = {'gather': set(),
+                                            'scatter': set()}
         self._publish()
 
     # -- introspection ---------------------------------------------------
@@ -322,9 +327,10 @@ class KVTier:
         telemetry_metrics.INFER_TIER_LOOKUPS.labels(outcome=outcome).inc()
 
     # -- device pieces (scheduler thread) ----------------------------------
-    def _ids(self, ids: Sequence[int]) -> torch.Tensor:
-        return torch.as_tensor(list(ids), dtype=torch.long,
-                               device=self.device)
+    def _ids(self, ids: Sequence[int], copy: str) -> torch.Tensor:
+        ids = list(ids)
+        self.copy_shapes[copy].add(len(ids))
+        return torch.as_tensor(ids, dtype=torch.long, device=self.device)
 
     def _to_host(self, ids: Sequence[int], host_ids: List[int]):
         """Gather the blocks `ids` on the current stream (block-major,
@@ -333,7 +339,7 @@ class KVTier:
         stream's work, as one non-blocking copy a block; returns the
         copy's (start, end) events.  On a CPU arena: a callable that
         makes the copy."""
-        idx = self._ids(ids)
+        idx = self._ids(ids, 'gather')
         gathered = {c: a.transpose(0, 1).index_select(0, idx)
                     for c, a in self.pool.arena.items()}
 
@@ -362,15 +368,21 @@ class KVTier:
     def _scatter(self, slot: int, dev_ids: Sequence[int]) -> None:
         """Write staging buffer `slot`'s first len(dev_ids) blocks into
         the arena blocks `dev_ids` in place: host to device on the side
-        stream, the current stream waits on that copy's event, then
-        ``index_copy_`` along the arena's block axis."""
-        idx = self._ids(dev_ids)
+        stream, the current stream waits on that copy's event, then one
+        ``index_copy_`` a trie node along the arena's block axis (the
+        reference's per-node scatter, at its one shape)."""
+        dev_ids = list(dev_ids)
         n = len(dev_ids)
+        per = self.ids_per_node
+        nodes = [(lo, self._ids(dev_ids[lo:lo + per], 'scatter'))
+                 for lo in range(0, n, per)]
         stage = self._staging[slot]
         arena = self.pool.arena
         if not self._cuda:
             for c, a in arena.items():
-                a.index_copy_(1, idx, stage[c][:n].transpose(0, 1))
+                for lo, idx in nodes:
+                    a.index_copy_(1, idx, stage[c][lo:lo + per]
+                                  .transpose(0, 1))
             self._staging_busy[slot] = False
             return
         current = torch.cuda.current_stream(self.device)
@@ -383,7 +395,8 @@ class KVTier:
             end.record()
         current.wait_event(end)
         for c, a in arena.items():
-            a.index_copy_(1, idx, staged[c].transpose(0, 1))
+            for lo, idx in nodes:
+                a.index_copy_(1, idx, staged[c][lo:lo + per].transpose(0, 1))
             staged[c].record_stream(current)
         self._staging_event[slot] = end
         self._staging_busy[slot] = False
@@ -562,7 +575,7 @@ class KVTier:
             raise ValueError(
                 f'export_gather needs exactly {self.ids_per_node} '
                 f'block ids (one trie node), got {len(ids)}')
-        idx = self._ids(ids)
+        idx = self._ids(ids, 'gather')
         return {c: a.index_select(1, idx)
                 for c, a in self.pool.arena.items()}
 

@@ -663,10 +663,14 @@ class ContinuousBatcher:
                 return
 
     def close(self) -> None:
-        """Stop background resources (the tier's copy thread, joined).
+        """Stop background resources (the tier's copy thread, joined)
+        and unlink the tier from the prefix cache (they point at each
+        other: the batcher then frees without a cyclic collection).
         Idempotent; host-side state stays readable."""
         if self._tier is not None:
             self._tier.close()
+            self._tier.prefix = None
+            self._prefix.tier = None
 
     def _drain_tier(self) -> None:
         """Scheduler-thread tier tick: issue hinted prefetches, apply

@@ -210,13 +210,17 @@ def params_from_numpy(tree: Mapping[str, Any], config: LlamaConfig,
     return convert(tree)
 
 
+def _take(node, i: int):
+    if isinstance(node, dict):
+        return {k: _take(v, i) for k, v in node.items()}
+    return node[i]
+
+
 def layer_params(params: Params, i: int) -> Params:
-    """Layer i's weights as views into the stacked tensors."""
-    def take(node):
-        if isinstance(node, dict):
-            return {k: take(v) for k, v in node.items()}
-        return node[i]
-    return take(params['layers'])
+    """Layer i's weights as views into the stacked tensors.  (A module
+    function: a recursive closure would leave a reference cycle behind
+    every call.)"""
+    return _take(params['layers'], i)
 
 
 def gate_activation(x: torch.Tensor, kind: str) -> torch.Tensor:

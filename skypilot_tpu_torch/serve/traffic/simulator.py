@@ -507,6 +507,12 @@ def _percentile(samples: List[float], q: float) -> float:
     return ordered[rank - 1]
 
 
+def _frozen(value: Any) -> Callable[[], Any]:
+    """A clock or source that returns `value` and references nothing
+    else (close()'s replacement for closures over the simulator)."""
+    return lambda: value
+
+
 class FleetSimulator:
     """Replica fleet + policy + trace -> deterministic SERVE_SUMMARY."""
 
@@ -1368,14 +1374,28 @@ class FleetSimulator:
 
     def close(self) -> None:
         """Shut down every replica batcher (joins the kv-tier copy
-        threads) and drop its CUDA graphs (their pools return to the
-        card at the allocator's next empty_cache; the arenas go with
-        the simulator).  Summaries and ledgers stay readable;
-        idempotent."""
-        for rep in self._all_reps():
+        threads), drop its CUDA graphs, and break the reference cycles
+        that run through the simulator: each batcher's span clock reads
+        its replica, and the sim-plane span clock and the flight
+        recorder's sources read the simulator.  They are frozen at the
+        end of the run, so the replicas, their batchers and arenas go
+        with the last reference to the simulator, without a cyclic
+        collection.  Summaries and ledgers stay readable; idempotent."""
+        reps = self._all_reps()
+        for rep in reps:
             rep.batcher.close()
             if rep.batcher.graphs is not None:
                 rep.batcher.graphs.clear()
+            rep.batcher._span_clock = _frozen(rep.vclock)
+        self._span_buf.clock = _frozen(self._now)
+        rec = self._recorder
+        if rec is not None:
+            rec._spans_fn = _frozen(rec._spans_fn())
+            rec._metrics_fn = _frozen(rec._metrics_fn())
+            rec._pool_fn = _frozen(rec._pool_fn())
+            rec._tier_fn = _frozen(rec._tier_fn())
+            ledgers = [rep.batcher._ledger for rep in reps]
+            rec._ledger = accounting_lib.FleetLedgerView(_frozen(ledgers))
 
     def fleet_ledger(self) -> accounting_lib.FleetLedgerView:
         """Merged per-tenant cost rollup across the whole fleet (the

@@ -282,6 +282,10 @@ class StepProfiler:
         self._acc = {}
         self._t0 = self._mark = self._clock()
 
+    def current_phase(self) -> Optional[str]:
+        """The innermost phase open now (None outside a phase)."""
+        return self._stack[-1] if self._stack else None
+
     @contextlib.contextmanager
     def phase(self, name: str) -> Iterator[None]:
         if self._t0 is None:

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import multiprocessing
 import os
+import queue
 import socket
 import traceback
 from datetime import timedelta
@@ -40,8 +41,14 @@ def _serve(rank, world, port, inbox, outbox):
         outbox.put((rank, False, traceback.format_exc()))
         return
     outbox.put((rank, True, 'ready'))
+    parent = os.getppid()
     while True:
-        task = inbox.get()
+        try:
+            task = inbox.get(timeout=5)
+        except queue.Empty:
+            if os.getppid() != parent:
+                break       # the pool's process died: do not linger
+            continue
         if task is None:
             break
         name, kwargs = task
@@ -766,3 +773,26 @@ def grpo_mesh_case(tree, cfg_kw, mesh_kw, kw, prompts, steps):
                                            'reward_std', 'step')}
                         for m in metrics], 'seen': seen,
             'rollout_bytes': tr.rollout_bytes}
+
+
+def audit_mesh_case(tree, cfg_kw, extra_combine=False):
+    """The compile-budget audit's mesh_decode entry on this rank (every
+    rank runs it: its generations and checked steps are collective).
+    extra_combine: each layer's attention output goes through one more
+    combine (of its halves, so the values stay the same), the defect the
+    collective budget must catch."""
+    import torch
+    from skypilot_tpu_torch.analysis import audit
+    from skypilot_tpu_torch.infer import llama_infer
+    torch.set_num_threads(1)
+    cfg = _cfg('llama', **cfg_kw)
+    orig = llama_infer._attn_out
+    if extra_combine:
+        def twice(o, attn_p, mesh):
+            return llama_infer._combine(orig(o, attn_p, mesh) * 0.5, mesh)
+        llama_infer._attn_out = twice
+    try:
+        return audit.audit_mesh_decode(device='cpu', cfg=cfg,
+                                       params=_params(tree, cfg))
+    finally:
+        llama_infer._attn_out = orig

@@ -16,8 +16,10 @@ What must hold:
   token) and every byte budget and link rate scaled by 4 gives
   LLAMA_DEBUG's summary except in the fields that count bytes (and, with
   handoffs, in the times the images' fixed-size headers shift);
-- close() leaves no kv-tier-copy-torch thread alive, and the simulator
-  raises without a card unless device='cpu' is given.
+- close() leaves no kv-tier-copy-torch thread alive and no reference
+  cycle through the simulator (its replicas' batchers free without a
+  cyclic collection), and the simulator raises without a card unless
+  device='cpu' is given.
 
 The JAX runs live in one module-scoped cache, so each configuration runs
 once.  The paired-run and chaos trace is the reference fixtures' with
@@ -353,6 +355,35 @@ def test_close_joins_every_copy_thread():
     assert _copy_threads() == before
     s.close()                   # idempotent
     assert s.summary()['requests'] > 0
+
+
+def test_closed_replicas_free_without_a_collection():
+    """close() breaks the cycles through the simulator (the batchers'
+    span clocks read their replicas): with the cyclic collector off, the
+    replicas' batchers and arenas go with the simulator, and until then
+    the summary and the ledgers stay readable."""
+    import gc
+    import weakref
+    s = sim.FleetSimulator(
+        sim.SimConfig(**dict(DISAGG_SIM, **SPLIT)),
+        gen.TrafficConfig(**dict(DISAGG_TRAFFIC, duration_s=1.0)),
+        device='cpu')
+    summary = s.run()
+    gc.collect()
+    gc.disable()
+    try:
+        s.close()
+        assert s.summary(makespan=summary['makespan_s']) == summary
+        assert s.fleet_ledger().tenant_rollup()
+        reps = s._all_reps()
+        batchers = [weakref.ref(r.batcher) for r in reps]
+        arenas = [weakref.ref(r.batcher.pool.arena['k']) for r in reps]
+        del reps
+        del s
+        assert [b() for b in batchers] == [None] * len(batchers)
+        assert [a() for a in arenas] == [None] * len(arenas)
+    finally:
+        gc.enable()
 
 
 def test_device_defaults_to_the_card():

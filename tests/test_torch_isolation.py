@@ -120,7 +120,11 @@ def test_scan_covers_the_training_modules():
             'skypilot_tpu_torch/serve/traffic/generator.py',
             'skypilot_tpu_torch/serve/traffic/simulator.py',
             'skypilot_tpu_torch/telemetry/doctor.py',
-            'scripts/torch_fleet_smoke.py'} <= scanned
+            'scripts/torch_fleet_smoke.py',
+            'skypilot_tpu_torch/analysis/__init__.py',
+            'skypilot_tpu_torch/analysis/audit.py',
+            'skypilot_tpu_torch/analysis/__main__.py',
+            'scripts/torch_audit_smoke.py'} <= scanned
 
 
 def test_rank_workers_of_the_mesh_tests_import_no_jax():
