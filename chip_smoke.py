@@ -344,10 +344,10 @@ Phases (any failure exits non-zero):
    card first: (a)'s prefix_affinity run twice, byte-identical summaries;
    (b) again on the host, summary and session_outputs() equal to the
    card's, outputs equal to the fault-free runs'; (c)'s outputs equal to
-   the single pool's.  Then LLAMA3_8B's widths at 16 of its 32 layers
+   the single pool's.  Then LLAMA3_8B's widths at 8 of its 32 layers
    (cut for time; bf16 weights and KV, random from seed 0, one tree
    shared by every replica), every arm once with every byte budget and
-   link rate x32 (its KV bytes a token over LLAMA_DEBUG's): every
+   link rate x16 (its KV bytes a token over LLAMA_DEBUG's): every
    request completes, no session lost, each at its
    token budget, and each summary equals LLAMA_DEBUG's but for the byte
    fields (32x) and the times the images' headers shift
@@ -369,8 +369,25 @@ Phases (any failure exits non-zero):
    migration drops the graphs), pooled decode <= 2 keys, verify <= 1,
    fused tails <= 2, and the rows, tables and pooled arena at their
    first addresses.  (c) a batcher whose decode chunk reads
-   int(token[0]) must fail the audit.  Every phase prints its seconds,
-   and the run its whole.
+   int(token[0]) must fail the audit.
+21. a tick's host syncs, held against the linter
+   (skypilot_tpu_torch/analysis/linter.py): (a) ``python -m
+   skypilot_tpu_torch.analysis --json --graph-stats`` as a child exits 0
+   with the committed findings (no new one, the baseline matched) and a
+   call graph with functions, call edges and thread entries; (b) the
+   sync census: a ContinuousBatcher at LLAMA3_8B's widths (4 of its 32
+   layers: the cut), bf16, random weights from seed 21, 8 slots,
+   decode_impl 'pooled', graphs on, a prefix cache, warmed on one run
+   of the census traffic (short prompts, one longer than prefill_chunk,
+   one prefix hit) until every chunk key is captured; then 32 ticks of
+   a second run under torch.cuda.set_sync_debug_mode('warn'), each
+   synchronizing call counted by its innermost frame under
+   skypilot_tpu_torch/ and its thread.  Every main-thread site must lie
+   in engine.host_fetch or on a line the linter reports under SKY101 or
+   SKY105 (new, allowed by a marker or baselined); other threads' sites
+   are printed, not gated.  Prints the SYNC_CENSUS line (sites and
+   counts, ticks, host_fetch calls, decode chunks, median tick time).
+   Every phase prints its seconds, and the run its whole.
 
 Every kernel of a main-path run must launch > 0 times in that run (the
 counts are set to 0 just before it and read just after; a replayed graph
@@ -390,13 +407,13 @@ GRPO's rollouts), K3 from 18c and 18e, K2, K3 and K7 per shard (never
 K1) from 18f's 'paged' arms and K2 and K3 (neither K1 nor K7) from its
 'inplace' ones); K1 and K3 from every 8B arm of phase 19, and K2
 from those that prefill whole prompts (all but (c)'s, whose prompts take
-the chunked windows); K2, K5
+the chunked windows); K1, K2 and K3 from phase 21's census ticks; K2, K5
 and K6 only on their
 tensor-core route on every path (bf16 at head_dim 128, and 12a's K2 at
 256); K4 on phase 6's paths,
 where it must also take its split route; K1 and K7 only on their split
 route on every path of phases 5 to 7, 10c, 11a, 12a, 12b, 14, 15a, 15b,
-15d, 18d's GRPO, 18f and 19 (B KV <= 128
+15d, 18d's GRPO, 18f, 19 and 21 (B KV <= 128
 < 2 x 132 SMs).  The last lines
 of standard output are
 the {"kernels": [...]} line, the nvidia-smi name/power-limit line, and
@@ -7190,9 +7207,9 @@ def fleet_path(paths, counters=None, device='cuda', big=None):
     the host (the port's CPU path, the same weights), summary and
     session_outputs() equal to the card's, and their outputs equal to
     their fault-free runs'; (c)'s outputs equal to the single pool's.
-    Then `big` (LLAMA3_8B's widths at 16 of its 32 layers, bf16 weights
+    Then `big` (LLAMA3_8B's widths at 8 of its 32 layers, bf16 weights
     and KV, random from seed 0), every arm once with every byte budget
-    and link rate times the KV bytes a token over LLAMA_DEBUG's (32):
+    and link rate times the KV bytes a token over LLAMA_DEBUG's (16):
     each run completes
     every request, none lost, every session at its token budget, and its
     summary equals the LLAMA_DEBUG run's but for the byte fields and the
@@ -7209,11 +7226,11 @@ def fleet_path(paths, counters=None, device='cuda', big=None):
     from skypilot_tpu_torch.infer.block_pool import block_nbytes
     from skypilot_tpu_torch.models import llama
     debug = llama.LLAMA_DEBUG
-    # LLAMA3_8B's widths at 16 of its 32 layers, cut for the run's time
+    # LLAMA3_8B's widths at 8 of its 32 layers, cut for the run's time
     # (the KV bytes a token stay a power of two over LLAMA_DEBUG's).
-    big_name = ('LLAMA3_8B 16 layers' if big is None
+    big_name = ('LLAMA3_8B 8 layers' if big is None
                 else f'{big.n_layers}-layer d{big.d_model}')
-    big = big or dataclasses.replace(llama.LLAMA3_8B, n_layers=16)
+    big = big or dataclasses.replace(llama.LLAMA3_8B, n_layers=8)
     # KV bytes a token (a one-row block) of each model's arena.
     big_bytes, debug_bytes = block_nbytes(big, 1), block_nbytes(debug, 1)
     scale = big_bytes // debug_bytes
@@ -7417,6 +7434,245 @@ def audit_path(budgets, device='cuda'):
     return seconds
 
 
+# ---- phase 21: a tick's host syncs, held against the linter ---------------
+
+CENSUS_TICKS = 32
+CENSUS_LAYERS = 4           # of LLAMA3_8B's 32
+_SYNC_WARNING = 'synchronizing CUDA operation'
+
+
+def lint_child_start(root):
+    """Start phase 21a's child, ``python -m skypilot_tpu_torch.analysis
+    --json --graph-stats`` (lint_child_check reads it)."""
+    proc = subprocess.Popen(
+        [sys.executable, '-m', 'skypilot_tpu_torch.analysis', '--json',
+         '--graph-stats'], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, cwd=root)
+    return proc, time.perf_counter()
+
+
+def lint_child_check(started):
+    """Phase 21a: the child exits 0, its call graph has functions, call
+    edges and thread entries, and its findings are the committed ones
+    (no new finding, every baseline entry still matched: the baseline is
+    what the CPU lint recorded).  Returns (the graph stats, the
+    suppressed count, seconds from start to exit)."""
+    from skypilot_tpu_torch.analysis import baseline
+    proc, t0 = started
+    try:
+        stdout, stderr = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f'phase 21a: the lint exited '
+                             f'{proc.returncode}: {stdout[-3000:]}'
+                             f'{stderr[-3000:]}')
+    out = json.loads(stdout)
+    graph = out['graph']
+    if not (graph['functions'] and graph['call_edges']
+            and graph['thread_entries']):
+        raise AssertionError(f'phase 21a: degenerate call graph {graph}')
+    if out['new'] or out['stale_baseline'] or not out['ok'] or \
+            len(out['suppressed']) != len(baseline.load_baseline()):
+        raise AssertionError(
+            f'phase 21a: findings differ from the committed ones: '
+            f'new {out["new"]}, stale {out["stale_baseline"]}, '
+            f'{len(out["suppressed"])} suppressed')
+    return graph, len(out['suppressed']), seconds
+
+
+def lint_flagged(root, codes=('SKY101', 'SKY105')):
+    """{(path, line)} of the port's findings under `codes`: new,
+    baselined or allowed by a marker; and engine.host_fetch's
+    (path, first line, last line)."""
+    import ast as ast_lib
+    from skypilot_tpu_torch.analysis import linter
+    allowed = []
+    found = linter.lint_paths([os.path.join(root, 'skypilot_tpu_torch')],
+                              root=root, allowed=allowed)
+    flagged = {(v.path, v.line) for v in found + allowed if v.code in codes}
+    path = 'skypilot_tpu_torch/infer/engine.py'
+    with open(os.path.join(root, path), encoding='utf-8') as f:
+        tree = ast_lib.parse(f.read())
+    fn = next(n for n in tree.body if isinstance(n, ast_lib.FunctionDef)
+              and n.name == 'host_fetch')
+    return flagged, (path, fn.lineno, fn.end_lineno)
+
+
+def _site_status(site, flagged, host_fetch):
+    """(in engine.host_fetch, on a flagged line) of a 'path:line' site
+    (None: no package frame, neither)."""
+    if site is None:
+        return False, False
+    where, line = site.rsplit(':', 1)
+    path, first, last = host_fetch
+    return (where == path and first <= int(line) <= last,
+            (where, int(line)) in flagged)
+
+
+def census_gate(sites, flagged, host_fetch):
+    """The main-thread sites (thread 'MainThread') that lie neither in
+    engine.host_fetch nor on a flagged line; sites: {(site, thread):
+    count}, a site being 'path:line' or None (no package frame)."""
+    return [(site, count)
+            for (site, thread), count in sorted(sites.items(), key=str)
+            if thread == 'MainThread'
+            and not any(_site_status(site, flagged, host_fetch))]
+
+
+def _census_hook(records, root):
+    """A warnings.showwarning that counts each synchronizing-call warning
+    by its innermost frame under skypilot_tpu_torch/ (path:line) and the
+    thread that raised it."""
+    package = os.path.join(root, 'skypilot_tpu_torch') + os.sep
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if _SYNC_WARNING not in str(message):
+            return
+        site = None
+        frame = sys._getframe(1)
+        while frame is not None:
+            name = frame.f_code.co_filename
+            if name.startswith(package):
+                site = (f'{os.path.relpath(name, root)}:'
+                        f'{frame.f_lineno}')
+                break
+            frame = frame.f_back
+        key = (site, threading.current_thread().name)
+        with records['lock']:
+            records['sites'][key] = records['sites'].get(key, 0) + 1
+    return hook
+
+
+def _census_prompts(rng, vocab):
+    """The census traffic, in admission order: 15 short prompts, one
+    longer than prefill_chunk (the 4th: chunked windows), and the 9th,
+    the first to wait for a slot, sharing its first 2 x 64 tokens with
+    the 1st (a prefix hit); max_new_tokens from 120 to 400, so requests
+    finish and admit mid-run."""
+    lengths = [150, 60, 33, 600, 90, 45, 70, 24, 160, 50, 80, 20, 110, 64,
+               40, 17]
+    prompts = [[int(t) for t in rng.randint(1, vocab, size=n)]
+               for n in lengths]
+    prompts[8][:128] = prompts[0][:128]
+    budgets = [int(n) for n in rng.randint(120, 400, size=len(prompts))]
+    return prompts, budgets
+
+
+def sync_census(counters, root=None, ticks=CENSUS_TICKS):
+    """Phase 21: (b) a ContinuousBatcher at LLAMA3_8B's widths
+    (CENSUS_LAYERS of its 32 layers), bf16, random weights from seed 21,
+    8 slots, decode_impl 'pooled', graphs on, a prefix cache; warmed on
+    one run of the census traffic (every chunk key captured), then
+    `ticks` ticks of a second run under
+    torch.cuda.set_sync_debug_mode('warn'), each synchronizing call
+    counted by site and thread (_census_hook).  The rest of the run is
+    drained after, and every request must return its budget of in-range
+    tokens.  (a), the lint as a child, runs beside the drain and the
+    in-process lint, once the ticks are done.  Needs the card; raises
+    without one.  Returns (the census, the launch counts of the census
+    ticks, (a)'s (graph stats, baselined findings, seconds))."""
+    if not torch.cuda.is_available():
+        raise RuntimeError('phase 21b needs a CUDA device')
+    from skypilot_tpu_torch.infer import engine
+    from skypilot_tpu_torch.infer.engine import GeneratorConfig
+    from skypilot_tpu_torch.infer.serving import ContinuousBatcher
+    from skypilot_tpu_torch.models import llama
+    root = root or os.path.dirname(os.path.abspath(__file__))
+    cfg = dataclasses.replace(llama.LLAMA3_8B, n_layers=CENSUS_LAYERS)
+    params = llama.init_params(
+        cfg, torch.Generator(device='cuda').manual_seed(21), 'cuda')
+    gen = GeneratorConfig(max_seq_len=2048, batch_size=8, prefill_chunk=256,
+                          prefix_cache_mb=512, prefix_block=64)
+    b = ContinuousBatcher(params, cfg, gen, decode_chunk=16, device='cuda')
+    if b.graphs is None:
+        raise AssertionError(f'phase 21b: graphs off: '
+                             f'{b.graphs_off_reason}')
+    rng = np.random.RandomState(21)
+
+    def submit_run():
+        prompts, budgets = _census_prompts(rng, cfg.vocab_size)
+        return [(b.submit(p, max_new_tokens=n), n)
+                for p, n in zip(prompts, budgets)]
+
+    def finish(rids, label):
+        b.run_until_idle()
+        for rid, n in rids:
+            out = b.result(rid)
+            if len(out) != n or not all(0 <= t < cfg.vocab_size
+                                        for t in out):
+                raise AssertionError(f'phase 21b {label}: request {rid} '
+                                     f'returned {len(out)} tokens of {n}')
+
+    try:
+        finish(submit_run(), 'warm-up')
+        rids = submit_run()
+        hits0 = b._prefix.hits
+        torch.cuda.synchronize()
+        records = {'lock': threading.Lock(), 'sites': {}}
+        fetches0 = engine.host_fetch.calls
+        graphs0 = (b.graphs.captures, b.graphs.replays)
+        tick_ms = []
+        _zero(counters)
+        mode = torch.cuda.get_sync_debug_mode()
+        with warnings.catch_warnings():
+            warnings.simplefilter('always')
+            warnings.showwarning = _census_hook(records, root)
+            torch.cuda.set_sync_debug_mode('warn')
+            try:
+                for _ in range(ticks):
+                    t0 = time.perf_counter()
+                    b.step()
+                    tick_ms.append((time.perf_counter() - t0) * 1e3)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        launches = _counts(counters)
+        fetches = engine.host_fetch.calls - fetches0
+        captures = b.graphs.captures - graphs0[0]
+        replays = b.graphs.replays - graphs0[1]
+        hits = b._prefix.hits - hits0
+        child = lint_child_start(root)
+        try:
+            finish(rids, 'census run')
+            flagged, host_fetch = lint_flagged(root)
+        finally:
+            lint = lint_child_check(child)
+    finally:
+        b.close()
+    del b, params
+    sites = records['sites']
+    bad = census_gate(sites, flagged, host_fetch)
+    census = {
+        'ticks': ticks, 'layers': f'{CENSUS_LAYERS} of 32',
+        'sites': [dict(zip(('in_host_fetch', 'flagged'),
+                           _site_status(s, flagged, host_fetch)),
+                       site=s, thread=t, count=c)
+                  for (s, t), c in sorted(sites.items(), key=str)],
+        'syncs': sum(sites.values()),
+        'main_thread_syncs': sum(c for (s, t), c in sites.items()
+                                 if t == 'MainThread'),
+        'host_fetch_calls': fetches, 'decode_chunks': replays,
+        'captures_during': captures, 'prefix_hits': hits,
+        'median_tick_ms': statistics.median(tick_ms),
+        'tick_ms_min_max': [min(tick_ms), max(tick_ms)],
+        'card': CARD.get('line'),
+    }
+    log('SYNC_CENSUS ' + json.dumps(census, sort_keys=True))
+    if bad:
+        raise AssertionError(f'phase 21b: main-thread synchronizing calls '
+                             f'the linter does not flag (SKY101/SKY105) and '
+                             f'outside engine.host_fetch: {bad}')
+    if captures:
+        raise AssertionError(f'phase 21b: {captures} captures during the '
+                             f'census ticks: the warm-up missed a key')
+    if not hits:
+        raise AssertionError('phase 21b: no prefix hit in the census ticks')
+    return census, launches, lint
+
+
 def _same_sessions(what, got, want):
     """Equal session_outputs(), or an error naming the first session (by
     its place in sid order) and token where they part."""
@@ -7481,10 +7737,10 @@ def main() -> int:
         log(f'  phase {clock["name"]}: '
             f'{time.perf_counter() - clock["start"]:.1f} s')
 
-    phase(f'[1/20] device: {CARD["line"]} | torch {torch.__version__} '
+    phase(f'[1/21] device: {CARD["line"]} | torch {torch.__version__} '
         f'cuda {torch.version.cuda}')
 
-    phase('[2/20] build')
+    phase('[2/21] build')
     _kernels.LIBRARY.get()
     log(f'  built {_kernels.LIBRARY.path.name} in '
         f'{_kernels.LIBRARY.build_seconds:.1f} s')
@@ -7503,7 +7759,7 @@ def main() -> int:
                 and info['spill_bytes']:
             raise AssertionError(f'decode kernel {name} spills: {info}')
 
-    phase('[3/20] kernels vs plain versions')
+    phase('[3/21] kernels vs plain versions')
     t0 = time.perf_counter()
     decode = check_decode(decode_attention, ptxas)
     decode['g2'], decode['combine g2'] = check_decode_at(
@@ -7547,13 +7803,13 @@ def main() -> int:
         f'{time_ms(read.sum):.4f} ms (bound 0.0063)')
     del tiny, read
 
-    phase('[4/20] slice parity, LLAMA_DEBUG and MoE f32, card vs host')
+    phase('[4/21] slice parity, LLAMA_DEBUG and MoE f32, card vs host')
     slice_parity()
     train_parity()
     post_train_parity()
     moe_parity()
 
-    phase('[5/20] main path, LLAMA3_8B bf16 behind the HTTP replica')
+    phase('[5/21] main path, LLAMA3_8B bf16 behind the HTTP replica')
     cfg = llama.LLAMA3_8B
     t0 = time.perf_counter()
     params = llama.init_params(
@@ -7581,7 +7837,7 @@ def main() -> int:
             raise AssertionError(f'{k1.__name__} missed the split route on '
                                  f'the {key} path')
 
-    phase('[6/20] main path with spec_k 12 and fuse_budget 264: (a) bf16, '
+    phase('[6/21] main path with spec_k 12 and fuse_budget 264: (a) bf16, '
         '(b) int8 KV and weights')
     spec = dict(base, spec_k=12, fuse_budget=264)
     paths['6a'], _, _, st = serve_path('6a bf16 spec+fused', params,
@@ -7597,7 +7853,7 @@ def main() -> int:
               + [f'{c.__name__}[{r}]' for c in (k4v, k4f)
                  for r in ('tc', 'split')])
 
-    phase("[7/20] legacy plane decode_impl='paged' (K7): (a) bf16 and (b) int8 "
+    phase("[7/21] legacy plane decode_impl='paged' (K7): (a) bf16 and (b) int8 "
         'KV behind the HTTP replica, (c) Generator.generate')
     legacy = dict(base, decode_impl='paged', decode_chunk=16)
     with warnings.catch_warnings():
@@ -7622,7 +7878,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    phase('[8/20] train path: (a) LLAMA_1B at the bench settings, (b) '
+    phase('[8/21] train path: (a) LLAMA_1B at the bench settings, (b) '
         'LLAMA3_8B widths at depth 2')
     remat = dict(remat=True, remat_policy='dots')
     cfg_1b = dataclasses.replace(llama.LLAMA_1B, max_seq_len=2048,
@@ -7637,7 +7893,7 @@ def main() -> int:
         2, 4096, 6, trainer.TrainConfig(warmup_steps=2, total_steps=6),
         counters)
 
-    phase('[9/20] checkpoints: (a) LLAMA_1B async saves, restore, continue '
+    phase('[9/21] checkpoints: (a) LLAMA_1B async saves, restore, continue '
           '(phase 8a settings), (b) a managed job SIGTERMed and resumed '
           'through train_llama --resume auto')
     scratch = tempfile.mkdtemp(prefix='chip_smoke_ckpt_')
@@ -7660,7 +7916,7 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
-    phase('[10/20] post-training: (a) LoRA-SFT and (b) LoRA-DPO of LLAMA3_8B '
+    phase('[10/21] post-training: (a) LoRA-SFT and (b) LoRA-DPO of LLAMA3_8B '
           'at 32 layers, (c) GRPO on LLAMA_1B, (d) the entry points')
     gc.collect()
     torch.cuda.empty_cache()
@@ -7696,13 +7952,13 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
-    phase('[11/20] Mixtral-8x7B widths, random bf16 weights: (a) 16 of 32 '
+    phase('[11/21] Mixtral-8x7B widths, random bf16 weights: (a) 16 of 32 '
           'layers served, (c) LoRA-SFT of that base, (b) trained at depth 2')
     gc.collect()
     torch.cuda.empty_cache()
     mixtral_path(counters, paths)
 
-    phase('[12/20] HF checkpoints written in HF\'s layout and loaded by '
+    phase('[12/21] HF checkpoints written in HF\'s layout and loaded by '
           'convert.load_hf_model: (a) Gemma-7B and (b) Qwen2.5-1.5B at '
           'their published widths served, 12b LoRA-SFT in process and '
           'through train_sft --hf-model, (c) debug-size parity card vs host')
@@ -7722,14 +7978,14 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
-    phase('[13/20] ResNet: (a) ResNet18Thin one SGD step card vs host, (b) '
+    phase('[13/21] ResNet: (a) ResNet18Thin one SGD step card vs host, (b) '
           'train_resnet\'s path, ResNet50 at batch 256 of 224x224')
     gc.collect()
     torch.cuda.empty_cache()
     resnet_parity()
     resnet_train_path()
 
-    phase('[14/20] prefix cache, host tier and handoff at LLAMA3_8B bf16, '
+    phase('[14/21] prefix cache, host tier and handoff at LLAMA3_8B bf16, '
           '32 layers: (a) prefix reuse, (b) the host tier, (c) the '
           'prefill -> decode handoff in bf16 and int8 KV, (d) debug-size '
           'parity card vs host')
@@ -7758,7 +8014,7 @@ def main() -> int:
     prefix_parity()
     log(f'  14d: {time.perf_counter() - t0:.1f} s')
 
-    phase('[15/20] telemetry and the entry points around the batcher at '
+    phase('[15/21] telemetry and the entry points around the batcher at '
           'LLAMA3_8B bf16, 32 layers: (a) spans and the cost ledger on and '
           'off, (b) the OpenAI routes, (c) /v1/embeddings (encode), (d) '
           'batch_infer --resume, (e) eval_ppl')
@@ -7795,7 +8051,7 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
-    phase('[16/20] tensor-parallel serving, rank processes sharing cuda:0 '
+    phase('[16/21] tensor-parallel serving, rank processes sharing cuda:0 '
           'over gloo: (a) collectives, (b) LLAMA3_8B tp 2 (bf16, int8 KV, '
           'spec_k + fuse_budget) at 16 layers and an f32 config vs tp 1, '
           '(c) LLAMA3_70B widths at 4 layers, tp 4, (d) Qwen2.5-1.5B tp 4 '
@@ -7816,7 +8072,7 @@ def main() -> int:
             log(f'  {sub}: {time.perf_counter() - t0:.1f} s')
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
-    phase('[17/20] training meshes, rank processes sharing cuda:0 over '
+    phase('[17/21] training meshes, rank processes sharing cuda:0 over '
           'gloo: (a) LLAMA_1B bf16 fsdp 2 x tp 2 vs one card, (b) f32 at '
           'dp 2 x fsdp 2 and fsdp 2 x tp 2, (c) LLAMA3_8B widths at 2 '
           'layers, fsdp 4, (d) train_long_context sp 4 (ring attention) at '
@@ -7829,7 +8085,7 @@ def main() -> int:
         mesh_training_path(paths, scratch)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
-    phase('[18/20] pipelines and post-training meshes, rank processes '
+    phase('[18/21] pipelines and post-training meshes, rank processes '
           'sharing cuda:0 over gloo: (a) LLAMA_1B bf16 pp 2 x dp 2, (b) f32 '
           'at pp 4 and pp 2 x fsdp 2, (c) pp 2 x sp 2 at 2 x 4096, (d) '
           'LoRA-SFT and LoRA-DPO of LLAMA3_8B widths at fsdp 2 x tp 2 with '
@@ -7848,21 +8104,31 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     close_rank_pools()
-    phase('[19/20] the serving fleet (serve/traffic/simulator.py) over the '
+    phase('[19/21] the serving fleet (serve/traffic/simulator.py) over the '
           'port\'s batchers: (a) least_load and prefix_affinity, (b) kill + '
           'preempt and stall + partition, (c) disaggregated prefill, (d) '
           'the doctor and the SLO autoscaler; LLAMA_DEBUG f32 on the card '
-          '(and (b) on the host), then LLAMA3_8B bf16 at 16 layers')
+          '(and (b) on the host), then LLAMA3_8B bf16 at 8 layers')
     gc.collect()
     torch.cuda.empty_cache()
     fleet_path(paths, counters)
-    phase('[20/20] the compile-budget audit (analysis/audit.py): (a) '
+    phase('[20/21] the compile-budget audit (analysis/audit.py): (a) '
           'run_audit on the card with real graphs, (b) the graph budgets '
           'of phases 5-7\'s batchers, (c) a decode chunk that reads '
           'int(token[0]) must fail it')
     gc.collect()
     torch.cuda.empty_cache()
     audit_path(budgets)
+    phase("[21/21] a tick's host syncs, held against the linter: (a) "
+          'python -m skypilot_tpu_torch.analysis --json --graph-stats as a '
+          'child, (b) the sync census of 32 warm ticks of a graphed '
+          '8-slot batcher at LLAMA3_8B\'s widths, 4 of its 32 layers')
+    gc.collect()
+    torch.cuda.empty_cache()
+    census, paths['21'], (graph, baselined, lint_s) = sync_census(counters)
+    log(f'  21a: the lint as a child in {lint_s:.1f} s: exit 0, '
+        f'{baselined} baselined findings, graph {json.dumps(graph)}')
+    _need('21', paths['21'], [c.__name__ for c in (k1, k2, k3)])
     last_phase_done()
     log(f'  whole run: {time.perf_counter() - run_start:.1f} s')
     for key in ('8a', '8b', '9a', '10a', '10b', '10c', '11b', '11c'):
@@ -7925,7 +8191,7 @@ def main() -> int:
         route = [(c, 'tc') for c in (k2, k5, k6)]
         route += [(c, 'split') for c in (k1, k7)
                   if key[0] in '567' or key in ('10c', '11a', '12a', '12b',
-                                                '18d-grpo')
+                                                '18d-grpo', '21')
                   or key in phase14 or key in decode15 or key in legacy18
                   or key.startswith('19')]
         route += [(c, 'tc') for c in (k4v, k4f) if key[0] == '6']
@@ -7960,7 +8226,7 @@ def main() -> int:
     fleet19 = tuple(k for k in paths if k.startswith('19'))
     tp8b = ('16b', '16b-int8', '16b-spec', '16e')
     kernels = [
-        entry(decode['bf16'], k1, ('5', '6a', '11a') + decode15),
+        entry(decode['bf16'], k1, ('5', '6a', '11a', '21') + decode15),
         entry(decode['LLAMA3_8B tp2 rank'], k1, ('16b', '16b-spec', '16e')),
         entry(decode['LLAMA3_70B tp4 rank'], k1, ('16c',)),
         entry(decode['Qwen2.5-1.5B tp4 rank'], k1, ('16d',)),
@@ -8012,9 +8278,8 @@ def main() -> int:
     ]
     # The combine runs inside every split launch of K1 and K7.
     split_paths = {k: paths[k][f'{c.__name__}[split]']
-                   for c, keys in ((k1, ('5', '6a', '6b', '11a', '16b-int8')
-                                    + phase14
-                                    + decode15),
+                   for c, keys in ((k1, ('5', '6a', '6b', '11a', '16b-int8',
+                                         '21') + phase14 + decode15),
                                    (k7, ('7a', '7b', '7c', '18f-paged',
                                          '18f-paged-int8'))) for k in keys}
     kernels.append(dict(decode['combine'],

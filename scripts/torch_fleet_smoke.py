@@ -3,8 +3,8 @@
 (skypilot_tpu_torch/serve/traffic/simulator.py: traffic, routing, SLO
 burn, autoscalers, failover, the fleet doctor and disaggregated prefill)
 over the port's batchers, LLAMA_DEBUG f32 on the card and on the host,
-then LLAMA3_8B's widths in bf16 at 16 of its 32 layers with every
-byte budget and link rate x32.  Builds the kernels (or reuses the build), checks K1 (and its
+then LLAMA3_8B's widths in bf16 at 8 of its 32 layers with every
+byte budget and link rate x16.  Builds the kernels (or reuses the build), checks K1 (and its
 combine), K2 and K3 at the fleet's shapes against their plain versions,
 then runs phase 19 and prints the launch counts of each 8B arm, each
 kernel's entry and a summary line.

@@ -223,7 +223,7 @@ class Trace:
         outs = _tensors(out)
         name = str(func)
         for t in ins + outs:
-            if t.dtype == torch.float64:
+            if t.dtype == torch.float64:  # the check; skytpu-allow: SKY106
                 self.f64.append(name)
                 break
         if getattr(func, 'namespace', None) == 'c10d':
@@ -1344,7 +1344,8 @@ def audit_ckpt_reshard(*, device=None, cfg=None) -> Dict[str, Any]:
         f'{len(got)} params, mu and nu leaves bit-exact and dtype-stable '
         f'across the topology change' if exact else
         'a restored leaf differs from the one saved'))
-    f64 = [str(t.dtype) for t in got if t.dtype == torch.float64]
+    f64 = [str(t.dtype) for t in got
+           if t.dtype == torch.float64]  # the check; skytpu-allow: SKY106
     checks.append(_check(
         'no_f64', 'fail' if f64 else 'ok',
         'restored leaves silently promoted to f64' if f64 else

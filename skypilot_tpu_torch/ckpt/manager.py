@@ -239,7 +239,7 @@ class CheckpointManager:
             # is the SIGTERM emergency-save path, which deliberately
             # reads it lock-free (taking a lock in a signal handler
             # could self-deadlock) and tolerates a stale value.
-            self._save_lock_owner = threading.current_thread()
+            self._save_lock_owner = threading.current_thread()  # skytpu-allow: SKY501
             try:
                 # Stale-staging cleanup happens inside save_pytree, on
                 # process 0 only, before the pre-write barrier — never

@@ -454,7 +454,8 @@ class _CudaGraphs:
         graph = torch.cuda.CUDAGraph()
         for generator in self.generators:
             graph.register_generator_state(generator)
-        torch.cuda.synchronize(self.device)       # as torch.cuda.graph
+        # As torch.cuda.graph does: once a capture, sanctioned.
+        torch.cuda.synchronize(self.device)  # skytpu-allow: SKY105
         with torch.cuda.stream(self.stream):
             graph.capture_begin(self.pool, capture_error_mode='thread_local')
             try:
@@ -647,8 +648,9 @@ class Generator:
             self._host_tables = np.zeros((batch, self.table_width),
                                          np.int32)
             self._row_blocks: List[List[int]] = [[] for _ in range(batch)]
-            self._tables_dev = torch.as_tensor(self._host_tables,
-                                               device=self.device)
+            # Made once, so its synchronizing upload is sanctioned.
+            self._tables_dev = torch.as_tensor(  # skytpu-allow: SKY105
+                self._host_tables, device=self.device)
             self._tables_dirty = False
         else:
             self._decode_fn = llama_infer.get_decode_fn(
@@ -714,9 +716,10 @@ class Generator:
         logits, scratch = llama_infer.prefill(self.params, tokens,
                                               self.config, scratch, lengths,
                                               mesh=self.mesh)
-        llama_infer.scatter_prefill_pooled(
-            scratch, cache, torch.as_tensor(tables_scatter,
-                                            device=self.device))
+        # Once a generate() (a sanctioned synchronizing upload).
+        scatter_t = torch.as_tensor(  # skytpu-allow: SKY105
+            tables_scatter, device=self.device)
+        llama_infer.scatter_prefill_pooled(scratch, cache, scatter_t)
         return logits
 
     def _prefix_prefill(self, prompts, cache) -> torch.Tensor:
@@ -743,7 +746,10 @@ class Generator:
                     self._host_tables[i, len(ids):need] = fresh
                     self._row_blocks[i].extend(fresh)
                 self._tables_dirty = True
-                table_row = torch.as_tensor(self._host_tables[i], device=dev)
+                # Once a row, and once a window below: sanctioned
+                # synchronizing uploads.
+                table_row = torch.as_tensor(  # skytpu-allow: SKY105
+                    self._host_tables[i], device=dev)
             else:
                 pc.install(cache, i, m)
             h_last = None
@@ -752,7 +758,8 @@ class Generator:
                 end = min(start + blk, len(p))
                 window = np.zeros((blk,), np.int32)
                 window[:end - start] = np.asarray(p[start:end], np.int32)
-                window_t = torch.as_tensor(window, device=dev)
+                window_t = torch.as_tensor(  # skytpu-allow: SKY105
+                    window, device=dev)
                 if self.pooled:
                     h_last, _ = llama_infer.prefill_window_pooled(
                         self.params, window_t, self.config, cache,
@@ -847,7 +854,10 @@ class Generator:
         """Rewrite the one tables tensor in place from the host mirror (a
         captured graph reads it at its address)."""
         if self._tables_dirty:
-            self._tables_dev.copy_(torch.from_numpy(self._host_tables))
+            # A synchronizing upload when the tables grew (at most once a
+            # chunk): sanctioned on the Generator's path.
+            self._tables_dev.copy_(  # skytpu-allow: SKY105
+                torch.from_numpy(self._host_tables))
             self._tables_dirty = False
 
     def _chunk(self, cache, n: int) -> torch.Tensor:
@@ -868,7 +878,9 @@ class Generator:
         """One verify chunk over the fixed rows on the drafter's (B, k)
         proposals, replayed from its graph when graphs are on; returns
         (emitted (B, W), committed (B,))."""
-        self._draft.copy_(torch.from_numpy(draft))
+        # One synchronizing upload a verify chunk: sanctioned on the
+        # Generator's path.
+        self._draft.copy_(torch.from_numpy(draft))  # skytpu-allow: SKY105
 
         def body():
             token, positions, done, limit = self._rows
@@ -926,8 +938,9 @@ class Generator:
         for i, p in enumerate(prompts):
             tokens[i, :len(p)] = np.asarray(p, np.int32)
             lens[i] = len(p)
-        tokens_t = torch.as_tensor(tokens, device=dev)
-        lens_t = torch.as_tensor(lens, device=dev)
+        # Once a generate(): sanctioned synchronizing uploads.
+        tokens_t = torch.as_tensor(tokens, device=dev)  # skytpu-allow: SKY105
+        lens_t = torch.as_tensor(lens, device=dev)  # skytpu-allow: SKY105
         self._rng.manual_seed(seed)
 
         prefill_start = time.perf_counter()
@@ -1018,8 +1031,9 @@ class Generator:
         token_row, positions, done_row, limit_row = self._rows
         token_row.copy_(token)
         positions.copy_(lens_t)
-        done_row.copy_(torch.from_numpy(host_done))
-        limit_row.copy_(torch.from_numpy(limit0))
+        # Once a generate(): sanctioned synchronizing uploads.
+        done_row.copy_(torch.from_numpy(host_done))  # skytpu-allow: SKY105
+        limit_row.copy_(torch.from_numpy(limit0))  # skytpu-allow: SKY105
 
         decode_seconds = 0.0
         dispatched = 0

@@ -652,7 +652,8 @@ def serve(batcher, host: str = '127.0.0.1', port: int = 0,
                          eos_token=eos_token)
     thread = threading.Thread(target=server.serve_forever, daemon=True,
                               name='replica-http')
-    thread.start()
+    # Returned to the caller; shutdown_replica joins it.
+    thread.start()  # skytpu-allow: SKY503
     return server, thread
 
 

@@ -247,9 +247,10 @@ class ContinuousBatcher:
             self._slot_cap = np.zeros((batch,), np.int32)
             self._slot_reserved = np.zeros((batch,), np.int32)
             # One tables tensor for the batcher's lifetime, rewritten in
-            # place (a captured graph reads it at its address).
-            self._tables_dev = torch.as_tensor(self._host_tables,
-                                               device=self.device)
+            # place (a captured graph reads it at its address); made
+            # once, so its synchronizing upload is sanctioned.
+            self._tables_dev = torch.as_tensor(  # skytpu-allow: SKY105
+                self._host_tables, device=self.device)
             self._tables_dirty = False
         else:
             # Bucketed slot cache: starts at the SMALLEST bucket and
@@ -952,23 +953,29 @@ class ContinuousBatcher:
         scratch = llama_infer.init_cache(
             tp_lib.local_config(self.config, self.mesh), tokens.shape[0],
             rows, kv_dtype=self.gen.kv_cache_dtype, device=dev)
-        lengths_t = torch.as_tensor(lengths, device=dev)
+        # The group's host arrays go up as synchronizing uploads (the
+        # host waits for the stream), once an admission: sanctioned.
+        lengths_t = torch.as_tensor(  # skytpu-allow: SKY105
+            lengths, device=dev)
+        tokens_t = torch.as_tensor(tokens, device=dev)  # skytpu-allow: SKY105
         logits, scratch = llama_infer.prefill(
-            self.params, torch.as_tensor(tokens, device=dev), self.config,
-            scratch, lengths_t, mesh=self.mesh)
-        slots_t = torch.as_tensor(slots, device=dev).long()
+            self.params, tokens_t, self.config, scratch, lengths_t,
+            mesh=self.mesh)
+        slots_t = torch.as_tensor(  # skytpu-allow: SKY105
+            slots, device=dev).long()
         if tables_scatter is None:
             for key, small in scratch.items():   # k/v (+ int8 scales)
                 self._cache[key][:, slots_t] = small
         else:
-            llama_infer.scatter_prefill_pooled(
-                scratch, self._cache, torch.as_tensor(tables_scatter,
-                                                      device=dev))
-        temps_t = torch.as_tensor(temps, device=dev)
-        top_ps_t = torch.as_tensor(top_ps, device=dev)
+            scatter_t = torch.as_tensor(  # skytpu-allow: SKY105
+                tables_scatter, device=dev)
+            llama_infer.scatter_prefill_pooled(scratch, self._cache,
+                                               scatter_t)
+        temps_t = torch.as_tensor(temps, device=dev)  # skytpu-allow: SKY105
+        top_ps_t = torch.as_tensor(top_ps, device=dev)  # skytpu-allow: SKY105
+        limits_t = torch.as_tensor(limits, device=dev)  # skytpu-allow: SKY105
         firsts = self._sample(logits, temps, top_ps, temps_t, top_ps_t)
-        self._install_rows(slots_t, firsts, lengths_t,
-                           torch.as_tensor(limits, device=dev), temps_t,
+        self._install_rows(slots_t, firsts, lengths_t, limits_t, temps_t,
                            top_ps_t)
         return firsts
 
@@ -1420,8 +1427,9 @@ class ContinuousBatcher:
                 finally:
                     match.release()
                 self._pool_bind_slot(req, ids)
-                table_row = torch.as_tensor(self._host_tables[req.slot],
-                                            device=dev)
+                # Once an admission (sanctioned synchronizing upload).
+                table_row = torch.as_tensor(  # skytpu-allow: SKY105
+                    self._host_tables[req.slot], device=dev)
             else:
                 try:
                     self._prefix.install(self._cache, req.slot, match)
@@ -1435,7 +1443,9 @@ class ContinuousBatcher:
                 window[:end - start] = prompt[start:end]
                 w0 = self._span_clock() if self._spans_on() else 0.0
                 with self._profiler.phase('prefill'):
-                    window_t = torch.as_tensor(window, device=dev)
+                    # One synchronizing upload a window: sanctioned.
+                    window_t = torch.as_tensor(  # skytpu-allow: SKY105
+                        window, device=dev)
                     if self.pooled:
                         h_last, _ = llama_infer.prefill_window_pooled(
                             self.params, window_t, self.config,
@@ -1485,16 +1495,21 @@ class ContinuousBatcher:
             logits = llama_infer.logits(h, self.params, self.mesh)
             temps = np.asarray([temp], np.float32)
             top_ps = np.asarray([top_p], np.float32)
-            temps_t = torch.as_tensor(temps, device=dev)
-            top_ps_t = torch.as_tensor(top_ps, device=dev)
+            # The slot's rows go up as synchronizing uploads, once a
+            # request: sanctioned.
+            temps_t = torch.as_tensor(  # skytpu-allow: SKY105
+                temps, device=dev)
+            top_ps_t = torch.as_tensor(  # skytpu-allow: SKY105
+                top_ps, device=dev)
             first = self._sample(logits, temps, top_ps, temps_t, top_ps_t)
-            self._install_rows(
-                torch.as_tensor([req.slot], device=dev), first,
-                torch.as_tensor([len(req.prompt)], dtype=torch.int32,
-                                device=dev),
-                torch.as_tensor([req.max_new_tokens - 1],
-                                dtype=torch.int32, device=dev),
-                temps_t, top_ps_t)
+            slot_t = torch.as_tensor(  # skytpu-allow: SKY105
+                [req.slot], device=dev)
+            length_t = torch.as_tensor(  # skytpu-allow: SKY105
+                [len(req.prompt)], dtype=torch.int32, device=dev)
+            limit_t = torch.as_tensor(  # skytpu-allow: SKY105
+                [req.max_new_tokens - 1], dtype=torch.int32, device=dev)
+            self._install_rows(slot_t, first, length_t, limit_t, temps_t,
+                               top_ps_t)
         self._host_pos[req.slot] = len(req.prompt)
         self._host_temp[req.slot] = temp
         self._host_top_p[req.slot] = top_p
@@ -1560,13 +1575,15 @@ class ContinuousBatcher:
         w0 = self._span_clock() if self._spans_on() else 0.0
         try:
             with self._profiler.phase('prefill'):
-                window_t = torch.as_tensor(window, device=self.device)
+                # One synchronizing upload a window: sanctioned.
+                window_t = torch.as_tensor(  # skytpu-allow: SKY105
+                    window, device=self.device)
                 if self.pooled:
+                    table_t = torch.as_tensor(  # skytpu-allow: SKY105
+                        self._host_tables[req.slot], device=self.device)
                     h_last, _ = llama_infer.prefill_window_pooled(
                         self.params, window_t, self.config, self._cache,
-                        torch.as_tensor(self._host_tables[req.slot],
-                                        device=self.device), start,
-                        mesh=self.mesh)
+                        table_t, start, mesh=self.mesh)
                 else:
                     h_last, _ = llama_infer.prefill_window(
                         self.params, window_t, self.config, self._cache,
@@ -1685,9 +1702,13 @@ class ContinuousBatcher:
                 'fused', [(r.rid, r.tenant) for r in self._active.values()]
                 + [(req.rid, req.tenant)])
             self._ledger.add_tokens(req.rid, req.tenant, prefill=chunk)
-        h_pf, _ = self._decode_chunk(n, prefill_lane=(
-            torch.as_tensor(window, device=dev),
-            torch.as_tensor(self._host_tables[req.slot], device=dev), start),
+        # The lane's window and table row: one synchronizing upload
+        # each a fused tick (sanctioned).
+        window_t = torch.as_tensor(window, device=dev)  # skytpu-allow: SKY105
+        table_t = torch.as_tensor(  # skytpu-allow: SKY105
+            self._host_tables[req.slot], device=dev)
+        h_pf, _ = self._decode_chunk(n, prefill_lane=(window_t, table_t,
+                                                      start),
             lane_span=dict(req=req, prefill_chunk=chunk, n=n,
                            slots=active_slots))
         req.prefill_pos = end

@@ -47,7 +47,7 @@ def write(record: Dict[str, Any], path: Optional[str] = None) -> None:
     if not path:
         return
     record = dict(record)
-    record.setdefault('ts', time.time())
+    record.setdefault('ts', time.time())  # log ts; skytpu-allow: SKY402
     try:
         os.makedirs(os.path.dirname(path) or '.', exist_ok=True)
         line = json.dumps(record) + '\n'

@@ -124,7 +124,12 @@ def test_scan_covers_the_training_modules():
             'skypilot_tpu_torch/analysis/__init__.py',
             'skypilot_tpu_torch/analysis/audit.py',
             'skypilot_tpu_torch/analysis/__main__.py',
-            'scripts/torch_audit_smoke.py'} <= scanned
+            'skypilot_tpu_torch/analysis/linter.py',
+            'skypilot_tpu_torch/analysis/graph.py',
+            'skypilot_tpu_torch/analysis/concurrency.py',
+            'skypilot_tpu_torch/analysis/baseline.py',
+            'scripts/torch_audit_smoke.py',
+            'scripts/torch_sync_census.py'} <= scanned
 
 
 def test_rank_workers_of_the_mesh_tests_import_no_jax():

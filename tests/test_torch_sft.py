@@ -421,6 +421,16 @@ def pool4():
     p.close()
 
 
+@pytest.fixture(scope='module')
+def pool2():
+    """A 2-rank pool for the 2-rank meshes, closed at module teardown,
+    so that a worker never holds a finished module's ranks."""
+    import _torch_ranks
+    p = _torch_ranks.RankPool(2)
+    yield p
+    p.close()
+
+
 def _mesh_base():
     import _torch_ranks
     cfg = _torch_ranks._cfg('llama', **MESH_CFG)
@@ -556,8 +566,8 @@ def test_lora_on_a_mesh_matches_jax_and_one_card(pool4, kind, mesh_kw):
     ({'dp': 2}, 3, [[11, 13, 5], [17, 19], [23]]),
     ({'fsdp': 2}, 4, [[11, 13, 5], [17, 19]])],
     ids=['dp2', 'dp2-padded', 'fsdp2'])
-def test_grpo_on_a_mesh_gives_one_cards_rollouts(pool4, mesh_kw, group,
-                                                 prompts):
+def test_grpo_on_a_mesh_gives_one_cards_rollouts(pool4, pool2, mesh_kw,
+                                                 group, prompts):
     """Two GrpoTrainer steps at temperature 1 with the KL term on: every
     rank rolls out the one-card tokens (the policy gathered whole), and
     the losses and reward statistics are one card's (MESH_RTOL); 9 rows
@@ -570,7 +580,7 @@ def test_grpo_on_a_mesh_gives_one_cards_rollouts(pool4, mesh_kw, group,
     ranks = mesh_kw.get('dp', 1) * mesh_kw.get('fsdp', 1)
     pool_kw = dict(tree=tree, cfg_kw=MESH_CFG, kw=kw, prompts=prompts,
                    steps=2)
-    outs = (pool4 if ranks == 4 else _pool2()).run(
+    outs = (pool4 if ranks == 4 else pool2).run(
         'grpo_mesh_case', mesh_kw=mesh_kw, **pool_kw)
     one = _torch_ranks.grpo_mesh_case(mesh_kw=None, **pool_kw)
     for o in outs:
@@ -581,17 +591,3 @@ def test_grpo_on_a_mesh_gives_one_cards_rollouts(pool4, mesh_kw, group,
             for key in ('loss', 'reward_mean', 'reward_std'):
                 assert g[key] == pytest.approx(w[key], rel=MESH_RTOL,
                                                abs=MESH_RTOL), key
-
-
-_POOL2 = []
-
-
-def _pool2():
-    """A 2-rank pool for the 2-rank meshes, started once and closed at
-    exit."""
-    if not _POOL2:
-        import atexit
-        import _torch_ranks
-        _POOL2.append(_torch_ranks.RankPool(2))
-        atexit.register(_POOL2[0].close)
-    return _POOL2[0]
