@@ -10,8 +10,8 @@ Phases (any failure exits non-zero):
 1. device: needs torch.cuda; prints the card's name and power limit.
 2. build: compiles skypilot_tpu_torch/csrc/*.cu with nvcc (in parallel)
    into build/torch_kernels/ and loads the library; fails if ptxas
-   reports a spill in a tensor-core kernel (K2 in bf16 at hd 64, 128 and
-   256; K4, K5 and K6 at hd 64 and 128), in a K1/K7 decode kernel or a
+   reports a spill in a tensor-core kernel (K2, K5 and K6 in bf16 at hd
+   64, 128 and 256; K4 at hd 64 and 128), in a K1/K7 decode kernel or a
    combine kernel (K1/K7 and K4), or in K3 (whose rows live in
    registers).
 3. kernels: holds each hand-written kernel against its plain PyTorch
@@ -49,7 +49,9 @@ Phases (any failure exits non-zero):
    timed at 8, 104 and 264 rows as a replayed graph (as decode replays
    it) and at 2048 eagerly, each beside F.rms_norm timed the same way,
    with the launch policy's configuration; the training kernels also at G 6,
-   ragged and at 12b's LoRA-SFT shape (2, 2048, 12/2 heads, 128).  K4 (the window attention) takes its tensor-core route in bf16
+   ragged and at 12b's LoRA-SFT shape (2, 2048, 12/2 heads, 128), and at
+   hd 256 at G 8 and 1, ragged, and at 22a's Gemma-7B shape (1, 4096,
+   16/16 heads, 256).  K4 (the window attention) takes its tensor-core route in bf16
    and over an int8 arena (the FMA route in f32), split-KV at both of
    its shapes: checked twice (bitwise), timed eager and as a replayed
    graph beside SDPA's, and its combine pass alone held to
@@ -193,7 +195,8 @@ Phases (any failure exits non-zero):
    224x224 in bf16 (2 warm-up, 10 timed steps: images/s, step ms, peak
    memory), then the entry point itself as a child process.
 14. the prefix cache, the host KV tier and the prefill -> decode handoff
-   on random LLAMA3_8B bf16 weights (phase 5's seed) at all 32 layers,
+   on random LLAMA3_8B bf16 weights (phase 5's seed) at 16 of its 32
+   layers (cut for time; the budgets follow the KV bytes a token),
    pooled plane through graphs, prefill_chunk = prefix_block = 256.
    (a) bench_prefix_reuse's shape: 8 requests sharing a 1,024-token head
    with their own 64-token tails, 48 new tokens, batch 8, prefix_cache_mb
@@ -225,8 +228,8 @@ Phases (any failure exits non-zero):
    start once every queued tier copy ran; one more card run without
    that logs how far its arena layout strays).
 15. telemetry and the entry points around the batcher, LLAMA3_8B bf16 at
-   32 layers (phase 5's weights, drawn again from its seed, and its
-   settings).  (a) Phase 5's 8 requests (tenants a and b in turn) on two
+   16 of its 32 layers in process (phase 14's cut, from phase 5's seed,
+   with its settings; the children of (d) and (e) at all 32).  (a) Phase 5's 8 requests (tenants a and b in turn) on two
    batchers on graphs, one built with a SpanBuffer and a CostLedger and
    one without: a warm-up burst on each, then in turns (on, off, off,
    on): identical tokens, the same host syncs and decode chunks, one
@@ -265,7 +268,7 @@ Phases (any failure exits non-zero):
    ring_all_gather (tiled and not), ring_reduce_scatter over 2 x 2 and
    4 ranks, pipelined_psum at 1-4 chunks, f32 and bf16, each bitwise the stack or sum in that rank's order computed in
    this process; a pool task whose rank 1 raises must fail.  (b)
-   LLAMA3_8B's widths at 16 of 32 layers (cut for time) at tp 2 from
+   LLAMA3_8B's widths at 12 of 32 layers (cut for time) at tp 2 from
    init_sharded_params (seed 0): phase 5's 8 prompts capped at 256
    tokens, 64 new tokens in bf16 and over an int8 arena, 8 with
    spec_k 4 and fuse_budget 64 (K4), the combines synchronous,
@@ -387,6 +390,25 @@ Phases (any failure exits non-zero):
    SKY105 (new, allowed by a marker or baselined); other threads' sites
    are printed, not gated.  Prints the SYNC_CENSUS line (sites and
    counts, ticks, host_fetch calls, decode chunks, median tick time).
+22. Gemma fine-tuning, as examples/gemma_finetune.yaml runs it
+   (train_llama --hf-model google/gemma-7b --seq-len 4096): (a)
+   Gemma-7B's config (GEMMA_7B) through convert.read_hf_config, cut to
+   4 of its 28 layers, random bf16 weights from seed 0, Trainer.fit as
+   train_llama builds it (the config's remat, its TrainConfig), 1 x 4096,
+   6 steps: finite losses; prints step time, MFU (6 N x tokens/s /
+   989e12, N with and without the lm_head), peak memory and the K2-lse,
+   K5, K6 and K3 launches, and fails unless every K5 and K6 launch took
+   the tensor-core route; (b) a Gemma-like config (2 heads of 256, 2
+   layers, bf16) on the card and on the host from the same weights: the
+   first step's q, k and v projection gradients and 3 Trainer steps'
+   losses and grad norms within the printed bf16 bounds (GEMMA_*_REL);
+   (c) a Gemma-7B-width checkpoint of 2 layers written in HF's layout
+   (2.68 GB) and ``python -m skypilot_tpu_torch.train.train_llama
+   --hf-model DIR --seq-len 4096 --steps 2 --data-file README.md`` as a
+   child, which must print 2 finite losses (K5 and K6 on the tensor
+   cores there too); the directory deleted after.  Phase 3 holds K5 and
+   K6 at hd 256 against their plain versions (G 8 and 1, ragged S) and
+   times them at 22a's shape.
    Every phase prints its seconds, and the run its whole.
 
 Every kernel of a main-path run must launch > 0 times in that run (the
@@ -407,10 +429,11 @@ GRPO's rollouts), K3 from 18c and 18e, K2, K3 and K7 per shard (never
 K1) from 18f's 'paged' arms and K2 and K3 (neither K1 nor K7) from its
 'inplace' ones); K1 and K3 from every 8B arm of phase 19, and K2
 from those that prefill whole prompts (all but (c)'s, whose prompts take
-the chunked windows); K1, K2 and K3 from phase 21's census ticks; K2, K5
-and K6 only on their
-tensor-core route on every path (bf16 at head_dim 128, and 12a's K2 at
-256); K4 on phase 6's paths,
+the chunked windows); K1, K2 and K3 from phase 21's census ticks; K2
+with its lse, K3, K5 and K6 from 22a and 22c (its child reports its
+counts); K2, K5 and K6 only on their
+tensor-core route on every path (bf16 at head_dim 128, and 12a's K2 and
+phase 22's K2, K5 and K6 at 256); K4 on phase 6's paths,
 where it must also take its split route; K1 and K7 only on their split
 route on every path of phases 5 to 7, 10c, 11a, 12a, 12b, 14, 15a, 15b,
 15d, 18d's GRPO, 18f, 19 and 21 (B KV <= 128
@@ -787,7 +810,7 @@ def check_flash(attention, ptxas):
                     'library_ms': time_ms(
                         lambda: sdpa(qt, kt, vt, is_causal=True)),
                     'tflops': flops / ms / 1e9,
-                }, **_tc_entry(ptxas, TC_KERNELS['lse']))
+                }, **_tc_entry(ptxas, *TC_KERNELS['lse', 128]))
     # Without its lse at the shapes of phase 15's new callers: encode's
     # (15c: 8 rows of the 1024 bucket) and eval_ppl's (15e: 4 windows of
     # 2048).
@@ -907,7 +930,8 @@ def check_flash_at(attention, ptxas, name):
 # 4 (the batch is not split over ep) and at ep 2 x dp 2; then phase 18's:
 # a pipeline stage's microbatch of 18a (LLAMA_1B, 8 rows over dp 2 in 4
 # microbatches) and 18d's LoRA-SFT rank at LLAMA3_8B's widths (2 rows
-# over fsdp 2, 16 of 32 heads over 4 of 8 KV heads).
+# over fsdp 2, 16 of 32 heads over 4 of 8 KV heads); then phase 22's
+# Gemma-7B at its training shape (1 x 4096, 16 heads of 256, MHA).
 TRAIN_SHAPES = {'1b': (8, 1024, 16, 8, 128), '8b': (2, 4096, 32, 8, 128),
                 'qwen': (2, 2048, 12, 2, 128),
                 '1b rank': (2, 1024, 8, 4, 128),
@@ -915,14 +939,16 @@ TRAIN_SHAPES = {'1b': (8, 1024, 16, 8, 128), '8b': (2, 4096, 32, 8, 128),
                 'moe ep4 rank': (4, 2048, 8, 4, 128),
                 'moe ep2 dp2 rank': (2, 2048, 8, 4, 128),
                 '1b pp mb': (1, 1024, 16, 8, 128),
-                '8b lora rank': (1, 2048, 16, 4, 128)}
+                '8b lora rank': (1, 2048, 16, 4, 128),
+                'gemma': (1, 4096, 16, 16, 256)}
 TRAIN_SUFFIX = {'1b': '', '8b': '[8B trunk]', 'qwen': '[Qwen2.5-1.5B G6]',
                 '1b pp mb': '[LLAMA_1B pp2 x dp2 microbatch]',
                 '8b lora rank': '[8B widths LoRA fsdp2 x tp2 rank]',
                 '1b rank': '[LLAMA_1B fsdp2 x tp2 rank]',
                 '8b rank': '[8B trunk fsdp4 rank]',
                 'moe ep4 rank': '[MoE small ep4 rank]',
-                'moe ep2 dp2 rank': '[MoE small ep2 x dp2 rank]'}
+                'moe ep2 dp2 rank': '[MoE small ep2 x dp2 rank]',
+                'gemma': '[Gemma-7B hd256]'}
 
 
 def _attn_operands(gen, batch, seq, heads, kv, hd, dtype):
@@ -954,33 +980,48 @@ def _check_train_kernels(at, q, k, v, do, causal, tag):
     return {'lse': e_lse, 'dq': e_dq, 'dkv': e_dkv}, o, lse, delta
 
 
-# The bf16 hd-128 route of K2, K5 and K6 (timed below): its design and
-# the mangled-name stem of each instantiation in the ptxas report.
+# The bf16 tensor-core route of K2, K5 and K6 (timed below): the
+# mangled-name stem of each instantiation in the ptxas report and its
+# design, by (kernel, head_dim).
 TC_DESIGN = 'mma.sync m16n8k16 bf16 -> f32, ldmatrix, cp.async x2'
-TC_KERNELS = {'lse': 'flash_fwd_mma_kernelILi128E',
-              'dq': 'flash_bwd_dq_mma_kernelILi128E',
-              'dkv': 'flash_bwd_dkv_mma_kernelILi128E'}
+TC_KERNELS = {
+    ('lse', 128): ('flash_fwd_mma_kernelILi128E', TC_DESIGN),
+    ('dq', 128): ('flash_bwd_dq_mma_kernelILi128E', TC_DESIGN),
+    ('dkv', 128): ('flash_bwd_dkv_mma_kernelILi128E', TC_DESIGN),
+    ('lse', 256): ('flash_fwd_mma_kernelILi256E', TC_DESIGN_HD256),
+    ('dq', 256): ('flash_bwd_dq_mma_kernelILi256E',
+                  TC_DESIGN + '; 8 warps of one m16 tile, 128-row q-tiles, '
+                  '32-key tiles, one block an SM'),
+    ('dkv', 256): ('flash_bwd_dkv_pair_mma_kernelILi256E',
+                   TC_DESIGN + '; dk and dv split over 4 warp pairs of 16 '
+                   'keys (p^T handed lane to lane through shared memory), '
+                   '64-key blocks, 32-column passes, one block an SM'),
+}
 
 
 def check_flash_train(attention, ptxas):
     """K2 with its lse, K5 and K6 against their plain versions in f32
-    and bf16 at the LLAMA_1B shape, a ragged S and a ragged S at G 6;
-    then, in bf16 and causal at every TRAIN_SHAPES shape, checked again
-    and timed.  Returns the
+    and bf16 at the LLAMA_1B shape, a ragged S and a ragged S at G 6,
+    and at head_dim 256 at a ragged S at G 8 and G 1; then, in bf16 and
+    causal at every TRAIN_SHAPES shape, checked again and timed.  Returns the
     kernels line entries by (kernel, shape), each with the error measured
     at its own shape, its TFLOP/s, the design and the ptxas registers and
     spill of the instantiation timed."""
     at = attention
     gen = torch.Generator(device='cuda').manual_seed(7)
     for dtype in (torch.float32, torch.bfloat16):
-        for batch, seq, heads, kv, causal in (
-                (8, 1024, 16, 8, True), (2, 700, 16, 8, True),
-                (2, 700, 16, 8, False), (2, 700, 12, 2, True)):
-            q, k, v, do = _attn_operands(gen, batch, seq, heads, kv, 128,
+        for batch, seq, heads, kv, hd, causal in (
+                (8, 1024, 16, 8, 128, True), (2, 700, 16, 8, 128, True),
+                (2, 700, 16, 8, 128, False), (2, 700, 12, 2, 128, True),
+                # Gemma's head_dim: Gemma-2B's 8 query heads over 1 KV
+                # head (G 8) and MHA (Gemma-7B's group).
+                (2, 700, 8, 1, 256, True), (2, 700, 8, 1, 256, False),
+                (2, 700, 4, 4, 256, True)):
+            q, k, v, do = _attn_operands(gen, batch, seq, heads, kv, hd,
                                          dtype)
             _check_train_kernels(at, q, k, v, do, causal,
                                  f'{dtype} B={batch} S={seq} H={heads}/{kv} '
-                                 f'causal={causal}')
+                                 f'hd={hd} causal={causal}')
             del q, k, v, do
     results = {}
     for key, (batch, seq, heads, kv, hd) in TRAIN_SHAPES.items():
@@ -1039,7 +1080,8 @@ def check_flash_train(attention, ptxas):
                 'bound_by': by, 'library_ms': lib_ms,
                 'tflops': flops / ms / 1e9,
             }
-            results[kernel, key].update(_tc_entry(ptxas, TC_KERNELS[kernel]))
+            results[kernel, key].update(_tc_entry(ptxas,
+                                                  *TC_KERNELS[kernel, hd]))
             log(f'  {results[kernel, key]["name"]} {shape}: {ms:.3f} ms, '
                 f'{flops / ms / 1e9:.1f} TFLOP/s (plain '
                 f'{results[kernel, key]["plain_ms"]:.3f}, library '
@@ -5149,10 +5191,10 @@ def _tp_config(name):
     """Phase 16's configurations by name."""
     from skypilot_tpu_torch.models import llama
     return {
-        # 16b at 16 of 32 layers, 16e and 18f at 4, cut for the run's
+        # 16b at 12 of 32 layers, 16e and 18f at 4, cut for the run's
         # time (16b's memory gate needs the layers to outweigh the f32
-        # embedding slab).
-        '8b-16': dataclasses.replace(llama.LLAMA3_8B, n_layers=16),
+        # embedding slab: at 8 a rank's shard and slab pass the model).
+        '8b-12': dataclasses.replace(llama.LLAMA3_8B, n_layers=12),
         '8b-4': dataclasses.replace(llama.LLAMA3_8B, n_layers=4),
         '8b-4-f32': dataclasses.replace(llama.LLAMA3_8B, n_layers=4,
                                         dtype=torch.float32),
@@ -5669,14 +5711,14 @@ def tp_memory(label, outs, cfg):
 
 
 def tp_serve_path(paths):
-    """16b: LLAMA3_8B's widths at 16 of its 32 layers (cut for time) at
+    """16b: LLAMA3_8B's widths at 12 of its 32 layers (cut for time) at
     tp 2, bf16, int8 KV and spec_k 4 + fuse_budget 64 (K4 per rank),
     against tp 1 on the same seed; then the f32 narrow config at tp 2,
     whose greedy tokens must equal tp 1's.  Its pool of 2 is the fresh
     one after 16a's failing pool (_pool_failure_check)."""
     from skypilot_tpu_torch.models import llama
     lengths = TP_PROMPT_LENGTHS
-    outs = pooled_ranks(2, 'rank_serve', timeout=600, config='8b-16', tp=2,
+    outs = pooled_ranks(2, 'rank_serve', timeout=600, config='8b-12', tp=2,
                      seed=0, arms=[('plain', TP_NEW_TOKENS),
                                    ('int8kv', TP_NEW_TOKENS), ('spec', 8)],
                      prompt_lengths=lengths)
@@ -5684,10 +5726,10 @@ def tp_serve_path(paths):
     for arm, key in (('plain', '16b'), ('int8kv', '16b-int8'),
                      ('spec', '16b-spec')):
         paths[key] = _sum_counts([o['arms'][arm] for o in outs])
-    cfg = _tp_config('8b-16')
+    cfg = _tp_config('8b-12')
     params = llama.init_params(
         cfg, torch.Generator(device='cuda').manual_seed(0), 'cuda')
-    stats = tp_compare('16b LLAMA3_8B widths, 16 layers, tp 2 vs tp 1', outs,
+    stats = tp_compare('16b LLAMA3_8B widths, 12 layers, tp 2 vs tp 1', outs,
                        params, cfg, lengths)
     stats['memory'] = tp_memory('16b', outs, cfg)
     del params
@@ -7673,6 +7715,191 @@ def sync_census(counters, root=None, ticks=CENSUS_TICKS):
     return census, launches, lint
 
 
+# ---- phase 22: Gemma fine-tuning --------------------------------------------
+
+# examples/gemma_finetune.yaml runs train_llama.py --hf-model
+# google/gemma-7b --seq-len 4096, one sequence a card.  22a trains 4 of
+# Gemma-7B's 28 layers (the cut, for the run's time and memory), 22c's
+# checkpoint holds 2.
+GEMMA_TRAIN_LAYERS = 4
+GEMMA_TRAIN_SEQ = 4096
+GEMMA_TRAIN_STEPS = 6
+GEMMA_CKPT_LAYERS = 2
+# 22b: Gemma's attention at debug size (2 heads of 256, MHA, gelu-tanh,
+# the sqrt(d) embedding scale) in bf16, card (kernels) vs host (plain
+# versions).  The card rounds p to bf16 against a 32-key tile's running
+# max (K2) and sums in other orders, so: losses within 1e-3 relative,
+# grad norms (bf16 values) within two bf16 ulps (2^-6), and the first
+# step's q, k and v projection gradients within 2^-5 of each leaf's
+# largest element (the bound tests/test_torch_train.py holds the port's
+# bf16 gradients to against the JAX package's).
+GEMMA_LIKE = dict(d_model=512, n_heads=2, n_kv_heads=2, d_ff=1024,
+                  mlp_act='gelu_tanh', embed_scale=512 ** 0.5,
+                  dtype=torch.bfloat16, remat=True)
+GEMMA_LOSS_REL, GEMMA_NORM_REL, GEMMA_GRAD_REL = 1e-3, 2 ** -6, 2 ** -5
+_GEMMA_LAUNCHES = ('flash_attention[lse]', 'flash_attention_dq',
+                   'flash_attention_dkv', 'rms_norm')
+
+
+def gemma_config(directory, layers):
+    """Gemma-7B's published config (GEMMA_7B) cut to `layers` of its 28,
+    as train_llama --hf-model builds its config: convert.read_hf_config
+    over the config.json written into `directory`."""
+    from skypilot_tpu_torch.models import convert
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, 'config.json'), 'w',
+              encoding='utf-8') as f:
+        json.dump(dict(GEMMA_7B, num_hidden_layers=layers), f)
+    return convert.read_hf_config(directory)
+
+
+def _gemma_tc(label, launches):
+    """Fails unless K2 with its lse, K5, K6 and K3 launched on `label`'s
+    path and every K5 and K6 launch took the tensor-core route."""
+    log(f'  {label} launches: ' + json.dumps(
+        {n: launches[n] for n in _GEMMA_LAUNCHES + (
+            'flash_attention_dq[tc]', 'flash_attention_dkv[tc]')}))
+    _need(label, launches, _GEMMA_LAUNCHES)
+    for name in ('flash_attention_dq', 'flash_attention_dkv'):
+        if launches[f'{name}[tc]'] != launches[name]:
+            raise AssertionError(
+                f'{label}: {launches[name]} {name} launches, '
+                f'{launches[f"{name}[tc]"]} of them on the tensor-core route')
+
+
+def gemma_train_path(counters, root, check_route=True):
+    """22a: Gemma-7B's widths (d 3072, 16 heads of 256, ff 24576, vocab
+    256000, gelu-tanh, sqrt(d) embedding scale; the (1 + w) norms are a
+    checkpoint's layout, folded in at load) at GEMMA_TRAIN_LAYERS of its
+    28 layers, random bf16 weights from seed 0 on the card, trained as
+    train_llama trains without --resume: the config's remat (train_llama
+    sets none), its TrainConfig, batch 1 x 4096, GEMMA_TRAIN_STEPS steps
+    through Trainer.fit (train_path).  Prints the losses, step time,
+    MFU = 6 N x tokens/s / 989e12 with N the layers and the lm_head and
+    with N the layers alone, and peak memory; fails (with check_route)
+    unless every K5 and K6 launch took the tensor-core route.  Returns
+    the launches and train_path's stats."""
+    from skypilot_tpu_torch.train import trainer
+    cfg = gemma_config(os.path.join(root, '22a'), GEMMA_TRAIN_LAYERS)
+    log(f'  22a config (convert.read_hf_config): d {cfg.d_model}, '
+        f'{cfg.n_heads} heads of {cfg.head_dim} over {cfg.n_kv_heads}, ff '
+        f'{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.mlp_act}, embed scale '
+        f'{cfg.embed_scale:.3f}, remat {cfg.remat} ({cfg.remat_policy}), '
+        f'loss_chunk {cfg.loss_chunk}; {cfg.n_layers} of 28 layers (the '
+        f'cut)')
+    steps = GEMMA_TRAIN_STEPS
+    launches, stats = train_path(
+        f'22a Gemma-7B widths, {cfg.n_layers} of 28 layers, 1x'
+        f'{GEMMA_TRAIN_SEQ}', cfg, 1, GEMMA_TRAIN_SEQ, steps,
+        trainer.TrainConfig(learning_rate=2e-5,
+                            warmup_steps=min(100, steps // 10 + 1),
+                            total_steps=steps), counters)
+    v_d = cfg.vocab_size * cfg.d_model
+    n_layers = cfg.num_params() - 2 * v_d
+    rate = stats['tokens_per_s']
+    log(f'  22a MFU = 6 N x tokens/s / {BF16_FLOPS / 1e12:g}e12 at '
+        f'{rate:.1f} tokens/s: {6 * (n_layers + v_d) * rate / BF16_FLOPS:.4f}'
+        f' with the lm_head (N = {(n_layers + v_d) / 1e9:.3f}B), '
+        f'{6 * n_layers * rate / BF16_FLOPS:.4f} without it (N = '
+        f'{n_layers / 1e9:.3f}B); step {stats["step_time_s"]:.4f} s, peak '
+        f'{stats["peak_memory_gb"]:.2f} GB ({CARD["line"]})')
+    if check_route:
+        _gemma_tc('22a', launches)
+    return launches, stats
+
+
+def gemma_train_parity():
+    """22b: a Gemma-like config (GEMMA_LIKE: head_dim 256, 2 layers) in
+    bf16 on the card (K2, K3, K5, K6) and on the host (plain versions)
+    from the same weights: the first step's q, k and v projection
+    gradients, then 3 Trainer steps (loss and grad_norm of each), within
+    GEMMA_GRAD_REL, GEMMA_LOSS_REL and GEMMA_NORM_REL."""
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.train import trainer
+
+    cfg = dataclasses.replace(llama.LLAMA_DEBUG, **GEMMA_LIKE)
+    params = llama.init_params(cfg, torch.Generator().manual_seed(22), 'cpu')
+    # 63 input tokens: a ragged last tile in every attention kernel.
+    tokens = next(trainer.synthetic_batches(4, 63, cfg.vocab_size))['tokens']
+    names = [n for n, _ in _tree_items(params)]
+    grads = {dev: dict(zip(names, _grads_on(
+        lambda p, b: llama.loss_fn(p, b, cfg), params, tokens, dev)))
+        for dev in ('cpu', 'cuda')}
+    worst = 0.0
+    for name in ('/layers/attn/wq', '/layers/attn/wk', '/layers/attn/wv'):
+        got, want = grads['cuda'][name].float(), grads['cpu'][name].float()
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max()) / scale
+        worst = max(worst, err)
+        if not scale > 0 or err > GEMMA_GRAD_REL:
+            raise AssertionError(f'22b: {name} gradient card vs host '
+                                 f'{err:.3e} of its largest (bound '
+                                 f'{GEMMA_GRAD_REL:g})')
+    tc = trainer.TrainConfig(learning_rate=1e-3, warmup_steps=1,
+                             total_steps=4)
+    steps = {}
+    for dev in ('cpu', 'cuda'):
+        tr = trainer.Trainer(lambda p, b: llama.loss_fn(p, b, cfg),
+                             _clone_to(params, dev), tc, device=dev)
+        batches = trainer.synthetic_batches(4, 63, cfg.vocab_size)
+        steps[dev] = [(float(m['loss']), float(m['grad_norm'])) for m in (
+            tr.run_step(next(batches)) for _ in range(3))]
+    loss_err = max(_rel(c[0], h[0]) for c, h in zip(steps['cuda'],
+                                                    steps['cpu']))
+    norm_err = max(_rel(c[1], h[1]) for c, h in zip(steps['cuda'],
+                                                    steps['cpu']))
+    log(f'  22b Gemma-like bf16 (hd {cfg.head_dim}, {cfg.n_layers} layers) '
+        f'card vs host: q/k/v first-step gradients within {worst:.3e} of '
+        f'their largest (bound {GEMMA_GRAD_REL:g}); 3 Trainer steps (loss, '
+        f'grad_norm): card {steps["cuda"]}, host {steps["cpu"]}; losses '
+        f'within {loss_err:.2e} (bound {GEMMA_LOSS_REL:g}), grad norms '
+        f'{norm_err:.2e} (bound {GEMMA_NORM_REL:g})')
+    if loss_err > GEMMA_LOSS_REL or norm_err > GEMMA_NORM_REL:
+        raise AssertionError('22b: card and host Trainer steps disagree')
+
+
+def gemma_entry_path(root):
+    """22c: a Gemma-7B-width checkpoint of GEMMA_CKPT_LAYERS layers in
+    HF's layout (phase 12's writer, bf16 from seed 22), then ``python -m
+    skypilot_tpu_torch.train.train_llama --hf-model DIR --seq-len 4096
+    --steps 2 --data-file README.md`` as a child process, which must
+    print 2 finite losses; the directory is deleted after.  Returns the
+    child's launch counts."""
+    hf_config = dict(GEMMA_7B, num_hidden_layers=GEMMA_CKPT_LAYERS)
+    nbytes = sum(int(np.prod(s)) for _, s in hf_tensor_specs(hf_config)) * 2
+    free = shutil.disk_usage(root).free
+    if free < nbytes + (1 << 30):
+        raise AssertionError(f'22c needs {nbytes + (1 << 30)} bytes free '
+                             f'under {root}, {free} are free')
+    directory = os.path.join(root, '22c')
+    try:
+        t0 = time.perf_counter()
+        write_hf_checkpoint(
+            directory, hf_config,
+            lambda name, shape: draw_hf_tensor(name, shape, 22,
+                                               torch.bfloat16, 'cuda', True))
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lines, launches = _run_child(
+            'skypilot_tpu_torch.train.train_llama',
+            ['--hf-model', directory, '--seq-len', str(GEMMA_TRAIN_SEQ),
+             '--steps', '2', '--data-file', os.path.join(HERE, 'README.md')])
+        child_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    stdout = '\n'.join(lines)
+    losses = (_losses(stdout, 'warmup step') + _losses(stdout, 'final:'))
+    log(f'  22c checkpoint {nbytes / 1e9:.2f} GB '
+        f'({nbytes / 2e9:.3f}B parameters) written in {write_s:.1f} s; '
+        f'train_llama --hf-model in {child_s:.1f} s: losses {losses}; '
+        + ' | '.join(ln for ln in lines if ln.startswith(('device=', 'final'))))
+    if len(losses) != 2 or not np.isfinite(losses).all():
+        raise AssertionError(f'22c: train_llama printed losses {losses}:\n'
+                             f'{stdout[-3000:]}')
+    _gemma_tc('22c', launches)
+    return launches
+
+
 def _same_sessions(what, got, want):
     """Equal session_outputs(), or an error naming the first session (by
     its place in sid order) and token where they part."""
@@ -7737,10 +7964,10 @@ def main() -> int:
         log(f'  phase {clock["name"]}: '
             f'{time.perf_counter() - clock["start"]:.1f} s')
 
-    phase(f'[1/21] device: {CARD["line"]} | torch {torch.__version__} '
+    phase(f'[1/22] device: {CARD["line"]} | torch {torch.__version__} '
         f'cuda {torch.version.cuda}')
 
-    phase('[2/21] build')
+    phase('[2/22] build')
     _kernels.LIBRARY.get()
     log(f'  built {_kernels.LIBRARY.path.name} in '
         f'{_kernels.LIBRARY.build_seconds:.1f} s')
@@ -7759,7 +7986,7 @@ def main() -> int:
                 and info['spill_bytes']:
             raise AssertionError(f'decode kernel {name} spills: {info}')
 
-    phase('[3/21] kernels vs plain versions')
+    phase('[3/22] kernels vs plain versions')
     t0 = time.perf_counter()
     decode = check_decode(decode_attention, ptxas)
     decode['g2'], decode['combine g2'] = check_decode_at(
@@ -7803,13 +8030,13 @@ def main() -> int:
         f'{time_ms(read.sum):.4f} ms (bound 0.0063)')
     del tiny, read
 
-    phase('[4/21] slice parity, LLAMA_DEBUG and MoE f32, card vs host')
+    phase('[4/22] slice parity, LLAMA_DEBUG and MoE f32, card vs host')
     slice_parity()
     train_parity()
     post_train_parity()
     moe_parity()
 
-    phase('[5/21] main path, LLAMA3_8B bf16 behind the HTTP replica')
+    phase('[5/22] main path, LLAMA3_8B bf16 behind the HTTP replica')
     cfg = llama.LLAMA3_8B
     t0 = time.perf_counter()
     params = llama.init_params(
@@ -7837,7 +8064,7 @@ def main() -> int:
             raise AssertionError(f'{k1.__name__} missed the split route on '
                                  f'the {key} path')
 
-    phase('[6/21] main path with spec_k 12 and fuse_budget 264: (a) bf16, '
+    phase('[6/22] main path with spec_k 12 and fuse_budget 264: (a) bf16, '
         '(b) int8 KV and weights')
     spec = dict(base, spec_k=12, fuse_budget=264)
     paths['6a'], _, _, st = serve_path('6a bf16 spec+fused', params,
@@ -7853,7 +8080,7 @@ def main() -> int:
               + [f'{c.__name__}[{r}]' for c in (k4v, k4f)
                  for r in ('tc', 'split')])
 
-    phase("[7/21] legacy plane decode_impl='paged' (K7): (a) bf16 and (b) int8 "
+    phase("[7/22] legacy plane decode_impl='paged' (K7): (a) bf16 and (b) int8 "
         'KV behind the HTTP replica, (c) Generator.generate')
     legacy = dict(base, decode_impl='paged', decode_chunk=16)
     with warnings.catch_warnings():
@@ -7878,7 +8105,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    phase('[8/21] train path: (a) LLAMA_1B at the bench settings, (b) '
+    phase('[8/22] train path: (a) LLAMA_1B at the bench settings, (b) '
         'LLAMA3_8B widths at depth 2')
     remat = dict(remat=True, remat_policy='dots')
     cfg_1b = dataclasses.replace(llama.LLAMA_1B, max_seq_len=2048,
@@ -7893,7 +8120,7 @@ def main() -> int:
         2, 4096, 6, trainer.TrainConfig(warmup_steps=2, total_steps=6),
         counters)
 
-    phase('[9/21] checkpoints: (a) LLAMA_1B async saves, restore, continue '
+    phase('[9/22] checkpoints: (a) LLAMA_1B async saves, restore, continue '
           '(phase 8a settings), (b) a managed job SIGTERMed and resumed '
           'through train_llama --resume auto')
     scratch = tempfile.mkdtemp(prefix='chip_smoke_ckpt_')
@@ -7916,7 +8143,7 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
-    phase('[10/21] post-training: (a) LoRA-SFT and (b) LoRA-DPO of LLAMA3_8B '
+    phase('[10/22] post-training: (a) LoRA-SFT and (b) LoRA-DPO of LLAMA3_8B '
           'at 32 layers, (c) GRPO on LLAMA_1B, (d) the entry points')
     gc.collect()
     torch.cuda.empty_cache()
@@ -7952,13 +8179,13 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
-    phase('[11/21] Mixtral-8x7B widths, random bf16 weights: (a) 16 of 32 '
+    phase('[11/22] Mixtral-8x7B widths, random bf16 weights: (a) 16 of 32 '
           'layers served, (c) LoRA-SFT of that base, (b) trained at depth 2')
     gc.collect()
     torch.cuda.empty_cache()
     mixtral_path(counters, paths)
 
-    phase('[12/21] HF checkpoints written in HF\'s layout and loaded by '
+    phase('[12/22] HF checkpoints written in HF\'s layout and loaded by '
           'convert.load_hf_model: (a) Gemma-7B and (b) Qwen2.5-1.5B at '
           'their published widths served, 12b LoRA-SFT in process and '
           'through train_sft --hf-model, (c) debug-size parity card vs host')
@@ -7978,31 +8205,35 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
-    phase('[13/21] ResNet: (a) ResNet18Thin one SGD step card vs host, (b) '
+    phase('[13/22] ResNet: (a) ResNet18Thin one SGD step card vs host, (b) '
           'train_resnet\'s path, ResNet50 at batch 256 of 224x224')
     gc.collect()
     torch.cuda.empty_cache()
     resnet_parity()
     resnet_train_path()
 
-    phase('[14/21] prefix cache, host tier and handoff at LLAMA3_8B bf16, '
-          '32 layers: (a) prefix reuse, (b) the host tier, (c) the '
+    phase('[14/22] prefix cache, host tier and handoff at LLAMA3_8B bf16, '
+          '16 of 32 layers: (a) prefix reuse, (b) the host tier, (c) the '
           'prefill -> decode handoff in bf16 and int8 KV, (d) debug-size '
           'parity card vs host')
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    # Phase 5's weights, drawn again from its seed.
+    # LLAMA3_8B's widths at 16 of its 32 layers (cut for the run's time;
+    # the budgets follow the KV bytes a token), random from phase 5's
+    # seed; phase 15 serves the same cut.
+    cfg16 = dataclasses.replace(cfg, n_layers=16)
     params = llama.init_params(
-        cfg, torch.Generator(device='cuda').manual_seed(0), 'cuda')
+        cfg16, torch.Generator(device='cuda').manual_seed(0), 'cuda')
     torch.cuda.synchronize()
-    log(f'  LLAMA3_8B bf16 random weights (phase 5\'s seed) in '
-        f'{time.perf_counter() - t0:.1f} s')
+    log(f'  LLAMA3_8B widths, 16 of 32 layers, bf16 random weights (phase '
+        f'5\'s seed) in {time.perf_counter() - t0:.1f} s')
     for sub, run in (('14a', lambda: prefix_reuse_path(params, counters,
-                                                       paths)),
-                     ('14b', lambda: tier_path(params, counters, paths)),
+                                                       paths, cfg=cfg16)),
+                     ('14b', lambda: tier_path(params, counters, paths,
+                                               cfg=cfg16)),
                      ('14c', lambda: [handoff_path(params, counters, paths,
-                                                   kv)
+                                                   kv, cfg=cfg16)
                                       for kv in (None, 'int8')])):
         t0 = time.perf_counter()
         run()
@@ -8014,25 +8245,26 @@ def main() -> int:
     prefix_parity()
     log(f'  14d: {time.perf_counter() - t0:.1f} s')
 
-    phase('[15/21] telemetry and the entry points around the batcher at '
-          'LLAMA3_8B bf16, 32 layers: (a) spans and the cost ledger on and '
-          'off, (b) the OpenAI routes, (c) /v1/embeddings (encode), (d) '
-          'batch_infer --resume, (e) eval_ppl')
+    phase('[15/22] telemetry and the entry points around the batcher at '
+          'LLAMA3_8B bf16, 16 of 32 layers in process, 32 in the children: '
+          '(a) spans and the cost ledger on and off, (b) the OpenAI routes, '
+          '(c) /v1/embeddings (encode), (d) batch_infer --resume, (e) '
+          'eval_ppl')
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     params = llama.init_params(
-        cfg, torch.Generator(device='cuda').manual_seed(0), 'cuda')
+        cfg16, torch.Generator(device='cuda').manual_seed(0), 'cuda')
     torch.cuda.synchronize()
-    log(f'  LLAMA3_8B bf16 random weights (phase 5\'s seed) in '
-        f'{time.perf_counter() - t0:.1f} s')
+    log(f'  LLAMA3_8B widths, 16 of 32 layers, bf16 random weights (phase '
+        f'5\'s seed) in {time.perf_counter() - t0:.1f} s')
     t0 = time.perf_counter()
-    served, span_buf = telemetry_path(params, counters, paths)
+    served, span_buf = telemetry_path(params, counters, paths, cfg=cfg16)
     log(f'  15a: {time.perf_counter() - t0:.1f} s')
     for sub, run in (('15b', lambda: openai_path(served, span_buf, counters,
-                                                 paths)),
+                                                 paths, cfg=cfg16)),
                      ('15c', lambda: embeddings_path(served, counters,
-                                                     paths))):
+                                                     paths, cfg=cfg16))):
         t0 = time.perf_counter()
         run()
         log(f'  {sub}: {time.perf_counter() - t0:.1f} s')
@@ -8051,9 +8283,9 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
-    phase('[16/21] tensor-parallel serving, rank processes sharing cuda:0 '
+    phase('[16/22] tensor-parallel serving, rank processes sharing cuda:0 '
           'over gloo: (a) collectives, (b) LLAMA3_8B tp 2 (bf16, int8 KV, '
-          'spec_k + fuse_budget) at 16 layers and an f32 config vs tp 1, '
+          'spec_k + fuse_budget) at 12 layers and an f32 config vs tp 1, '
           '(c) LLAMA3_70B widths at 4 layers, tp 4, (d) Qwen2.5-1.5B tp 4 '
           '(tp_kv 2 x tpq 2) from HF files, (e) overlap chunks 2 and 4 '
           'bitwise the sync path, (f) the control channel')
@@ -8072,7 +8304,7 @@ def main() -> int:
             log(f'  {sub}: {time.perf_counter() - t0:.1f} s')
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
-    phase('[17/21] training meshes, rank processes sharing cuda:0 over '
+    phase('[17/22] training meshes, rank processes sharing cuda:0 over '
           'gloo: (a) LLAMA_1B bf16 fsdp 2 x tp 2 vs one card, (b) f32 at '
           'dp 2 x fsdp 2 and fsdp 2 x tp 2, (c) LLAMA3_8B widths at 2 '
           'layers, fsdp 4, (d) train_long_context sp 4 (ring attention) at '
@@ -8085,7 +8317,7 @@ def main() -> int:
         mesh_training_path(paths, scratch)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
-    phase('[18/21] pipelines and post-training meshes, rank processes '
+    phase('[18/22] pipelines and post-training meshes, rank processes '
           'sharing cuda:0 over gloo: (a) LLAMA_1B bf16 pp 2 x dp 2, (b) f32 '
           'at pp 4 and pp 2 x fsdp 2, (c) pp 2 x sp 2 at 2 x 4096, (d) '
           'LoRA-SFT and LoRA-DPO of LLAMA3_8B widths at fsdp 2 x tp 2 with '
@@ -8104,7 +8336,7 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     close_rank_pools()
-    phase('[19/21] the serving fleet (serve/traffic/simulator.py) over the '
+    phase('[19/22] the serving fleet (serve/traffic/simulator.py) over the '
           'port\'s batchers: (a) least_load and prefix_affinity, (b) kill + '
           'preempt and stall + partition, (c) disaggregated prefill, (d) '
           'the doctor and the SLO autoscaler; LLAMA_DEBUG f32 on the card '
@@ -8112,14 +8344,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     fleet_path(paths, counters)
-    phase('[20/21] the compile-budget audit (analysis/audit.py): (a) '
+    phase('[20/22] the compile-budget audit (analysis/audit.py): (a) '
           'run_audit on the card with real graphs, (b) the graph budgets '
           'of phases 5-7\'s batchers, (c) a decode chunk that reads '
           'int(token[0]) must fail it')
     gc.collect()
     torch.cuda.empty_cache()
     audit_path(budgets)
-    phase("[21/21] a tick's host syncs, held against the linter: (a) "
+    phase("[21/22] a tick's host syncs, held against the linter: (a) "
           'python -m skypilot_tpu_torch.analysis --json --graph-stats as a '
           'child, (b) the sync census of 32 warm ticks of a graphed '
           '8-slot batcher at LLAMA3_8B\'s widths, 4 of its 32 layers')
@@ -8129,9 +8361,31 @@ def main() -> int:
     log(f'  21a: the lint as a child in {lint_s:.1f} s: exit 0, '
         f'{baselined} baselined findings, graph {json.dumps(graph)}')
     _need('21', paths['21'], [c.__name__ for c in (k1, k2, k3)])
+    phase('[22/22] Gemma fine-tuning: (a) Gemma-7B widths at 4 of 28 layers, '
+          '1 x 4096, through Trainer.fit, (b) a Gemma-like hd-256 config in '
+          'bf16 card vs host, (c) train_llama --hf-model on a 2-layer '
+          'Gemma-7B-width checkpoint as a child')
+    gc.collect()
+    torch.cuda.empty_cache()
+    scratch = tempfile.mkdtemp(prefix='chip_smoke_gemma_')
+    try:
+        for sub, run in (('22a', lambda: gemma_train_path(counters,
+                                                          scratch)[0]),
+                         ('22b', gemma_train_parity),
+                         ('22c', lambda: gemma_entry_path(scratch))):
+            t0 = time.perf_counter()
+            out = run()
+            if out is not None:
+                paths[sub] = out
+            log(f'  {sub}: {time.perf_counter() - t0:.1f} s')
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
     last_phase_done()
     log(f'  whole run: {time.perf_counter() - run_start:.1f} s')
-    for key in ('8a', '8b', '9a', '10a', '10b', '10c', '11b', '11c'):
+    # Phase 22's launches: K2 (all with its lse), K5 and K6 at Gemma-7B's
+    # training shape, K3 at its width.
+    gemma22 = ('22a', '22c')
+    for key in ('8a', '8b', '9a', '10a', '10b', '10c', '11b', '11c') + gemma22:
         _need(key, paths[key], [c.__name__ for c in (k2, k3, k5, k6)]
               + [f'{k2.__name__}[lse]'])
     mesh17 = ('17a', '17c', '17e-ep4', '17e-ep2dp2')  # 17d: K3 only
@@ -8185,8 +8439,8 @@ def main() -> int:
             raise AssertionError(f'{k2.__name__} wrote its lse on the '
                                  f'{key} path')
     for key, launches in paths.items():
-        # Every path runs bf16 at head_dim 128 (12a's K2 at 256): the
-        # tensor-core route only; and B KV (8 slots x 16, 8 or 2 KV heads)
+        # Every path runs bf16 at head_dim 128 (12a's K2 and phase 22's
+        # K2, K5 and K6 at 256): the tensor-core route only; and B KV (8 slots x 16, 8 or 2 KV heads)
         # < 2 blocks an SM: the split route only.
         route = [(c, 'tc') for c in (k2, k5, k6)]
         route += [(c, 'split') for c in (k1, k7)
@@ -8219,8 +8473,7 @@ def main() -> int:
     # Phase 17's K2 launches are its lse entries' (train rows below), its
     # K3 launches the per-rank widths' entries.
     rest = tuple(k for k in paths if k not in hf and k not in tp16
-                 and not k.startswith('17') and not k.startswith('18')
-                 and not k.startswith('19'))
+                 and not k.startswith(('17', '18', '19', '22')))
     # Phase 19's 8B arms: K1 and K2 at the fleet's shapes (the disagg
     # arms prefill in chunked windows: no K2), K3 at 4096.
     fleet19 = tuple(k for k in paths if k.startswith('19'))
@@ -8261,7 +8514,7 @@ def main() -> int:
                                                      '18c', '18d-grpo')),
         entry(norm['rms_norm[MoE small d1024]'], k3,
               ('17e-ep4', '17e-ep2dp2', '18e')),
-        entry(norm['rms_norm[Gemma-7B]'], k3, ('12a',)),
+        entry(norm['rms_norm[Gemma-7B]'], k3, ('12a',) + gemma22),
         entry(norm['rms_norm[Qwen2.5-1.5B]'], k3, ('12b', '12b-sft', '16d')),
         entry(norm['rms_norm[LLAMA3_70B d8192]'], k3, ('16c',)),
         entry(window_rank['verify', 'bf16'], k4v, ('16b-spec',)),
@@ -8317,7 +8570,8 @@ def main() -> int:
                                   ('moe ep4 rank', ('17e-ep4',)),
                                   ('moe ep2 dp2 rank', ('17e-ep2dp2',)),
                                   ('1b pp mb', ('18a',)),
-                                  ('8b lora rank', ('18d-sft', '18d-dpo')))]
+                                  ('8b lora rank', ('18d-sft', '18d-dpo')),
+                                  ('gemma', gemma22))]
     log(json.dumps({'kernels': kernels}))
     log(CARD['line'])
     log(json.dumps({'ok': True, 'device': {

@@ -32,36 +32,65 @@
 //
 // Bound on the H100: operations at training lengths (6 D flops a visible
 // (query, key) pair for K5, 8 D for K6, against 989 TFLOP/s in bf16).
-// Two routes, a fixed function of (dtype, head_dim) (flash_bwd_route):
+// Two routes, a fixed function of (dtype, head_dim) (flash_bwd_tc_route,
+// reported by skk_flash_bwd_route):
 //
-// - bf16 at D 64 and 128 (every training configuration of the repo): the
-//   products run on the tensor cores, mma.sync m16n8k16 bf16 -> f32 with
-//   operands loaded from shared memory by ldmatrix (.trans where the
-//   contraction runs over the sequence: k in K5's ds k, q and do in K6's
-//   ds^T q and p^T do).  4 warps of 16 rows a block, 64 x 64 tiles.  The
-//   scores stay in registers: p and ds go from the f32 accumulators,
-//   rounded to bf16, straight into the next product's A fragments (the
-//   m16n8 accumulator and the m16k16 A operand share their layout), so
-//   they never pass through shared memory.  The streamed operand (k and
-//   v in K5, q, do, lse and delta in K6) comes through a two-stage
-//   cp.async ring, zero-filled past S, so a tile's load overlaps the
-//   previous tile's products.  K5 launches its heavy causal q-blocks
-//   first; only tiles that cross the diagonal or the end of S are masked,
-//   and tiles above the diagonal are never loaded.  K6 keeps its k and v
-//   tiles resident and its dk and dv accumulators (2 x 16 x D / 32 f32 a
-//   thread) in registers, and takes the scores of a 64-row q-tile in
-//   passes of QN columns so that the pass's s^T and dp^T fit beside them.
-//   Shared-memory rows are padded by 16 bytes, so the eight rows of an
-//   ldmatrix 8 x 8 fall in distinct banks.  The building blocks (cp.async,
-//   ldmatrix, mma.sync, fragment conversions) are mma.cuh's, shared with
-//   K2.  The next step is wgmma fed by TMA with warp specialisation.
+// - bf16 at D 64, 128 and 256 (every training configuration of the repo,
+//   Gemma's D 256 included): the products run on the tensor cores,
+//   mma.sync m16n8k16 bf16 -> f32 with operands loaded from shared memory
+//   by ldmatrix (.trans where the contraction runs over the sequence: k
+//   in K5's ds k, q and do in K6's ds^T q and p^T do).  A warp owns 16
+//   rows (one m16 tile) of its output.  The scores stay in registers: p
+//   and ds go from the f32 accumulators, rounded to bf16, straight into
+//   the next product's A fragments (the m16n8 accumulator and the m16k16
+//   A operand share their layout).  The streamed operand (k and v in K5,
+//   q, do, lse and delta in K6) comes through a two-stage cp.async ring,
+//   zero-filled past S, so a tile's load overlaps the previous tile's
+//   products.  Only tiles that cross the diagonal or the end of S are
+//   masked, and tiles above the diagonal are never loaded.  Shared-memory
+//   rows are padded by 16 bytes, so the eight rows of an ldmatrix 8 x 8
+//   fall in distinct banks.  The building blocks (cp.async, ldmatrix,
+//   mma.sync, fragment conversions) are mma.cuh's, shared with K2.
+//   Registers bound the design: a warp's f32 accumulator of 16 rows x D
+//   takes D / 2 registers a thread, and a thread has 255.
+//   * K5 (flash_bwd_dq_mma_kernel) launches its heavy causal q-blocks
+//     first, keeps its q and do tiles resident, and streams k and v.  At
+//     D 64 and 128: 4 warps, a 64-row q-tile, 64-key tiles.  At D 256 its
+//     one accumulator takes 128 registers a thread, as K2's does at D 256,
+//     but q and do are both resident (2 x 33.8 KB at 64 rows), so K2's
+//     two blocks an SM would leave 16-key tiles.  It takes instead one
+//     block of 8 warps an SM: a 128-row q-tile (135 KB of q and do) over
+//     32-key tiles (two stages of k and v, 67.6 KB; 203 KB in all), each
+//     k and v tile loaded once for 128 rows; a warp skips the causal
+//     tiles past its last row.
+//   * K6 keeps its k and v tiles resident and walks the q-tiles of its
+//     query heads from the diagonal on, taking the scores of a 64-row
+//     q-tile in passes of 32 (D 64: 64) query columns so that a pass's
+//     s^T and dp^T fit beside the accumulators.  At D 64 and 128
+//     (flash_bwd_dkv_mma_kernel) each of 4 warps owns 16 keys of both dk
+//     and dv (2 x D / 2 accumulator registers a thread: 248 registers at
+//     D 128) and forms both s^T and dp^T.  At D 256 both would take 256
+//     registers, so flash_bwd_dkv_pair_mma_kernel splits dk and dv over a
+//     pair of warps (of the two splits that keep 128 accumulator registers
+//     a warp, the one with no duplicated and no partial products; a split
+//     of D would sum each pass's s^T and dp^T halves through shared
+//     memory, or compute them twice): 8 warps, 4 pairs of 16 keys, a
+//     64-key block.  The dv warp of a pair forms s^T = k q^T, p^T in f32,
+//     and dv += p^T do; the dk warp forms dp^T = v do^T, and dk += ds^T q
+//     with ds^T = p^T (dp^T - delta), reading p^T in f32 from the dv warp
+//     through shared memory: thread i of one warp holds the fragment
+//     elements that thread i of the other needs, so p^T passes lane to
+//     lane (one float4 a lane a n8 tile, no bank conflict), double
+//     buffered so that the pair meets at one named barrier a pass.  Every
+//     product of a pass is done once.  Shared memory: k and v (67.6 KB),
+//     two stages of q and do (135 KB), lse and delta, and the p^T buffers
+//     (16 KB): 220 KB, one block of 8 warps an SM.
+//   The next step is wgmma fed by TMA with warp specialisation.
 // - f32 at every D (tensor cores would need TF32, which changes f32
-//   results), and bf16 at D 256 (its dk and dv accumulators alone would
-//   take 256 registers a thread at 16 rows a warp): scalar f32 FMAs on
-//   the CUDA cores, staged through shared memory like K2's FMA kernel,
-//   128 threads a block.  K6 holds two (BK x D) accumulators, so its key tile shrinks
-//   with D (BK = 4096 / D: 64, 32, 16 keys) to keep them at 64 registers
-//   a thread.
+//   results): scalar f32 FMAs on the CUDA cores, staged through shared
+//   memory like K2's FMA kernel, 128 threads a block.  K6 holds two
+//   (BK x D) accumulators, so its key tile shrinks with D (BK = 4096 / D:
+//   64, 32, 16 keys) to keep them at 64 registers a thread.
 #include "mma.cuh"
 
 namespace skk {
@@ -378,22 +407,39 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_dkv_kernel(
   }
 }
 
-// ---- tensor-core route: bf16 at D 64 and 128 -------------------------------
+// ---- tensor-core route: bf16 at D 64, 128 and 256 --------------------------
 // (building blocks in mma.cuh)
 
 template <int D>
 struct MmaCfg : MmaTile<D> {
   using Tile = MmaTile<D>;
-  // K6's query columns per score pass: its 2 x DN x 4 accumulator
-  // registers plus QN of scores stay under the 255-register cap at D 128
-  // (248 registers; 64 columns spilled there and ran slower).
+  // K5: warps of one m16 tile (16 query rows) each, the q-tile, and the
+  // keys of a k-tile: 4 warps over 64-key tiles at D 64 and 128; at D 256
+  // 8 warps (a 128-row q-tile) over 32-key tiles, one block an SM.
+  static constexpr int DQ_WARPS = D <= 128 ? 4 : 8;
+  static constexpr int DQ_BQ = 16 * DQ_WARPS;
+  static constexpr int DQ_BK = D <= 128 ? 64 : 32;
+  // K6's query columns per score pass: its accumulator registers plus QN
+  // of scores stay under the 255-register cap at D 128 (248 registers; 64
+  // columns spilled there and ran slower).
   static constexpr int QN = D >= 128 ? 32 : 64;
   // K5: q, do, and two stages of k and v.  K6: k, v, and two stages of q,
-  // do, lse and delta.
-  static constexpr size_t SMEM_DQ = 6 * Tile::TILE * sizeof(bf16);
+  // do, lse and delta; at D 256 (the warp pairs) also each pair's two p^T
+  // buffers, QN / 8 float4 a lane each.
+  static constexpr size_t SMEM_DQ =
+      static_cast<size_t>(2 * DQ_BQ + 4 * DQ_BK) * Tile::LD * sizeof(bf16);
   static constexpr size_t SMEM_DKV =
       6 * Tile::TILE * sizeof(bf16) + 2 * 2 * Tile::BQ * sizeof(float);
+  static constexpr int PAIRS = 4;
+  static constexpr size_t SMEM_DKV_PAIR =
+      SMEM_DKV + PAIRS * 2 * (QN / 8) * 32 * sizeof(float4);
 };
+
+// K5's and K6's tensor-core route: bf16 at D 64, 128 and 256 (f32 would
+// need TF32, which changes f32 results).
+bool flash_bwd_tc_route(int dtype, int head_dim) {
+  return dtype == kBF16 && (head_dim == 64 || head_dim == 128 || head_dim == 256);
+}
 
 // lse or delta of 64 query rows from `row0` (0 past S).
 __device__ __forceinline__ void load_stats_async(float* dst, const float* src, int row0,
@@ -406,16 +452,16 @@ __device__ __forceinline__ void load_stats_async(float* dst, const float* src, i
 }
 
 // K5's p = exp(scale s - lse) and ds = p (dp - delta) over a warp's
-// 16 x 64 tile, in s: this thread's rows row_g and row_g + 8, columns
+// 16 x 8N tile, in s: this thread's rows row_g and row_g + 8, columns
 // col_t + 8 j and + 1.  MASK on a tile that crosses the diagonal or the
 // end of S (elsewhere every pair is visible).
-template <bool MASK>
-__device__ __forceinline__ void dq_probs(float (&s)[8][4], const float (&dp)[8][4],
+template <bool MASK, int N>
+__device__ __forceinline__ void dq_probs(float (&s)[N][4], const float (&dp)[N][4],
                                          const float (&lse_r)[2], const float (&delta_r)[2],
                                          int row_g, int col_t, int seq_len, int causal,
                                          float scale) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < N; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int row = row_g + (e >> 1) * 8;
@@ -429,7 +475,9 @@ __device__ __forceinline__ void dq_probs(float (&s)[8][4], const float (&dp)[8][
 // K6's p^T = exp(scale s^T - lse[col]) in s and ds^T = p^T (dp^T -
 // delta[col]) in dp over a warp's 16 x 8N tile: the row statistics are
 // per column here, lse_t[8 j] and lse_t[8 j + 1] for columns col_t + 8 j
-// and + 1 (likewise delta_t).
+// and + 1 (likewise delta_t).  (At D 128 computing all of p^T first, as
+// dkv_p and dkv_ds below do for the warp pairs, costs 7 registers and
+// spills.)
 template <bool MASK, int N>
 __device__ __forceinline__ void dkv_probs(float (&s)[N][4], float (&dp)[N][4],
                                           const float* lse_t, const float* delta_t, int row_g,
@@ -450,16 +498,47 @@ __device__ __forceinline__ void dkv_probs(float (&s)[N][4], float (&dp)[N][4],
   }
 }
 
+// The warp pairs' halves of dkv_probs: p^T in s (the dv warp) ...
+template <bool MASK, int N>
+__device__ __forceinline__ void dkv_p(float (&s)[N][4], const float* lse_t, int row_g, int col_t,
+                                      int seq_len, int causal, float scale) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const float2 l2 = *reinterpret_cast<const float2*>(lse_t + j * 8);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = row_g + (e >> 1) * 8;
+      const int col = col_t + j * 8 + (e & 1);
+      const bool ok = !MASK || (row < seq_len && col < seq_len && (!causal || row <= col));
+      s[j][e] = ok ? expf(s[j][e] * scale - ((e & 1) ? l2.y : l2.x)) : 0.f;
+    }
+  }
+}
+
+// ... and ds^T in dp from it (the dk warp).
+template <int N>
+__device__ __forceinline__ void dkv_ds(const float (&p)[N][4], float (&dp)[N][4],
+                                       const float* delta_t) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const float2 d2 = *reinterpret_cast<const float2*>(delta_t + j * 8);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dp[j][e] = p[j][e] * (dp[j][e] - ((e & 1) ? d2.y : d2.x));
+  }
+}
+
 template <int D>
-__global__ void __launch_bounds__(kBwdThreads) flash_bwd_dq_mma_kernel(
+__global__ void __launch_bounds__(MmaCfg<D>::DQ_WARPS * 32) flash_bwd_dq_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ g, const float* __restrict__ lse, const float* __restrict__ delta,
     bf16* __restrict__ dq, int seq_len, int group, int causal, float scale, BwdStrides st) {
   using C = MmaCfg<D>;
+  constexpr int BQ = C::DQ_BQ, BK = C::DQ_BK, KN = BK / 8, NT = C::DQ_WARPS * 32;
+  constexpr int KTILE = BK * C::LD;  // elements of a k or v tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* g_s = q_s + C::TILE;
-  bf16* kv_s = g_s + C::TILE;  // stage i: k at kv_s + 2 i TILE, v after it
+  bf16* g_s = q_s + BQ * C::LD;
+  bf16* kv_s = g_s + BQ * C::LD;  // stage i: k at kv_s + 2 i KTILE, v after it
 
   // Heavy causal q-blocks (more keys) first.
   const int qb = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
@@ -468,21 +547,23 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_dq_mma_kernel(
   const int kvh = h / group;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int q0 = qb * C::BQ;
+  const int q0 = qb * BQ;
   const int64_t stat0 = (static_cast<int64_t>(b) * gridDim.y + h) * seq_len;
   const bf16* kp = k + b * st.k[0] + kvh * st.k[2];
   const bf16* vp = v + b * st.v[0] + kvh * st.v[2];
 
-  const int n_kb = (seq_len + C::BK - 1) / C::BK;
-  const int n_run = causal ? min(n_kb, (q0 + C::BQ - 1) / C::BK + 1) : n_kb;
-  load_tile_async<D>(q_s, q + b * st.q[0] + h * st.q[2], st.q[1], q0, seq_len);
-  load_tile_async<D>(g_s, g + b * st.g[0] + h * st.g[2], st.g[1], q0, seq_len);
-  load_tile_async<D>(kv_s, kp, st.k[1], 0, seq_len);
-  load_tile_async<D>(kv_s + C::TILE, vp, st.v[1], 0, seq_len);
+  const int n_kb = (seq_len + BK - 1) / BK;
+  const int n_run = causal ? min(n_kb, (q0 + BQ - 1) / BK + 1) : n_kb;
+  load_tile_async<D, BQ, NT>(q_s, q + b * st.q[0] + h * st.q[2], st.q[1], q0, seq_len);
+  load_tile_async<D, BQ, NT>(g_s, g + b * st.g[0] + h * st.g[2], st.g[1], q0, seq_len);
+  load_tile_async<D, BK, NT>(kv_s, kp, st.k[1], 0, seq_len);
+  load_tile_async<D, BK, NT>(kv_s + KTILE, vp, st.v[1], 0, seq_len);
   cp_async_commit();
 
-  // This thread's query rows: g and g + 8 of its warp's 16.
-  const int row_g = q0 + warp * 16 + (lane >> 2);
+  // This warp's first query row; this thread's rows: g and g + 8 of its
+  // warp's 16.
+  const int warp_row0 = q0 + warp * 16;
+  const int row_g = warp_row0 + (lane >> 2);
   float lse_r[2], delta_r[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -506,63 +587,68 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_dq_mma_kernel(
 
   for (int kb = 0; kb < n_run; ++kb) {
     if (kb + 1 < n_run) {
-      bf16* nxt = kv_s + ((kb + 1) & 1) * 2 * C::TILE;
-      load_tile_async<D>(nxt, kp, st.k[1], (kb + 1) * C::BK, seq_len);
-      load_tile_async<D>(nxt + C::TILE, vp, st.v[1], (kb + 1) * C::BK, seq_len);
+      bf16* nxt = kv_s + ((kb + 1) & 1) * 2 * KTILE;
+      load_tile_async<D, BK, NT>(nxt, kp, st.k[1], (kb + 1) * BK, seq_len);
+      load_tile_async<D, BK, NT>(nxt + KTILE, vp, st.v[1], (kb + 1) * BK, seq_len);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const bf16* k_s = kv_s + (kb & 1) * 2 * C::TILE;
-    const bf16* v_s = k_s + C::TILE;
-    const int k0 = kb * C::BK;
+    const bf16* k_s = kv_s + (kb & 1) * 2 * KTILE;
+    const bf16* v_s = k_s + KTILE;
+    const int k0 = kb * BK;
 
-    // s = q k^T and dp = do v^T, 16 rows x 64 keys a warp.
-    float s[8][4], dp[8][4];
+    // A warp whose rows all lie past S, or (causal) before this tile's
+    // first key, gets nothing from the tile (the block's other warps may).
+    if (warp_row0 < seq_len && (!causal || k0 <= warp_row0 + 15)) {
+      // s = q k^T and dp = do v^T, 16 rows x BK keys a warp.
+      float s[KN][4], dp[KN][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < KN; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = 0.f;
-        dp[j][e] = 0.f;
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = 0.f;
+          dp[j][e] = 0.f;
+        }
+#pragma unroll
+      for (int kc = 0; kc < C::DK; ++kc) {
+        uint32_t qa[4], ga[4];
+        ldsm_x4(qa, q_frag + kc * 32);
+        ldsm_x4(ga, g_frag + kc * 32);
+#pragma unroll
+        for (int np = 0; np < KN / 2; ++np) {
+          uint32_t kf[4], vf[4];
+          ldsm_x4(kf, smem_u32(k_s + (np * 16 + b_row) * C::LD + kc * 16 + b_col));
+          ldsm_x4(vf, smem_u32(v_s + (np * 16 + b_row) * C::LD + kc * 16 + b_col));
+          mma_bf16(s[2 * np], qa, kf[0], kf[1]);
+          mma_bf16(s[2 * np + 1], qa, kf[2], kf[3]);
+          mma_bf16(dp[2 * np], ga, vf[0], vf[1]);
+          mma_bf16(dp[2 * np + 1], ga, vf[2], vf[3]);
+        }
       }
-#pragma unroll
-    for (int kc = 0; kc < C::DK; ++kc) {
-      uint32_t qa[4], ga[4];
-      ldsm_x4(qa, q_frag + kc * 32);
-      ldsm_x4(ga, g_frag + kc * 32);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t kf[4], vf[4];
-        ldsm_x4(kf, smem_u32(k_s + (np * 16 + b_row) * C::LD + kc * 16 + b_col));
-        ldsm_x4(vf, smem_u32(v_s + (np * 16 + b_row) * C::LD + kc * 16 + b_col));
-        mma_bf16(s[2 * np], qa, kf[0], kf[1]);
-        mma_bf16(s[2 * np + 1], qa, kf[2], kf[3]);
-        mma_bf16(dp[2 * np], ga, vf[0], vf[1]);
-        mma_bf16(dp[2 * np + 1], ga, vf[2], vf[3]);
-      }
-    }
 
-    // p and ds in s; masked only on a tile that crosses the diagonal or
-    // the end of S.
-    if (k0 + C::BK > seq_len || q0 + C::BQ > seq_len || (causal && k0 + C::BK - 1 > q0))
-      dq_probs<true>(s, dp, lse_r, delta_r, row_g, k0 + 2 * (lane & 3), seq_len, causal, scale);
-    else
-      dq_probs<false>(s, dp, lse_r, delta_r, row_g, k0 + 2 * (lane & 3), seq_len, causal, scale);
+      // p and ds in s; masked only where the warp's tile crosses the
+      // diagonal or the end of S.
+      const int col_t = k0 + 2 * (lane & 3);
+      if (k0 + BK > seq_len || warp_row0 + 16 > seq_len || (causal && k0 + BK - 1 > warp_row0))
+        dq_probs<true>(s, dp, lse_r, delta_r, row_g, col_t, seq_len, causal, scale);
+      else
+        dq_probs<false>(s, dp, lse_r, delta_r, row_g, col_t, seq_len, causal, scale);
 
-    // dq += ds k: ds (bf16) from registers, k by ldmatrix.trans.
+      // dq += ds k: ds (bf16) from registers, k by ldmatrix.trans.
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      uint32_t dsa[4];
-      acc_to_a(dsa, s[2 * kc], s[2 * kc + 1]);
+      for (int kc = 0; kc < BK / 16; ++kc) {
+        uint32_t dsa[4];
+        acc_to_a(dsa, s[2 * kc], s[2 * kc + 1]);
 #pragma unroll
-      for (int dn = 0; dn < C::DK; ++dn) {
-        uint32_t kf[4];
-        ldsm_x4_t(kf, smem_u32(k_s + (kc * 16 + a_row) * C::LD + dn * 16 + a_col));
-        mma_bf16(acc[2 * dn], dsa, kf[0], kf[1]);
-        mma_bf16(acc[2 * dn + 1], dsa, kf[2], kf[3]);
+        for (int dn = 0; dn < C::DK; ++dn) {
+          uint32_t kf[4];
+          ldsm_x4_t(kf, smem_u32(k_s + (kc * 16 + a_row) * C::LD + dn * 16 + a_col));
+          mma_bf16(acc[2 * dn], dsa, kf[0], kf[1]);
+          mma_bf16(acc[2 * dn + 1], dsa, kf[2], kf[3]);
+        }
       }
     }
     __syncthreads();
@@ -690,11 +776,9 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_dkv_mma_kernel(
       const float* lse_t = lse_s + qh + 2 * (lane & 3);
       const float* delta_t = delta_s + qh + 2 * (lane & 3);
       if (edge)
-        dkv_probs<true, C::QN / 8>(s, dp, lse_t, delta_t, row_g, col_t + qh, seq_len, causal,
-                                   scale);
+        dkv_probs<true>(s, dp, lse_t, delta_t, row_g, col_t + qh, seq_len, causal, scale);
       else
-        dkv_probs<false, C::QN / 8>(s, dp, lse_t, delta_t, row_g, col_t + qh, seq_len, causal,
-                                    scale);
+        dkv_probs<false>(s, dp, lse_t, delta_t, row_g, col_t + qh, seq_len, causal, scale);
 
       // dv += p^T do and dk += ds^T q: p^T, ds^T (bf16) from registers, do
       // and q by ldmatrix.trans.
@@ -733,6 +817,187 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_dkv_mma_kernel(
         *reinterpret_cast<__nv_bfloat162*>(dv_row + j * 8) =
             __floats2bfloat162_rn(acc_dv[j][2 * i], acc_dv[j][2 * i + 1]);
       }
+    }
+  }
+}
+
+// The named barrier of warp pair `pair` (its 64 threads; barrier 0 is
+// __syncthreads).
+__device__ __forceinline__ void pair_sync(int pair) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(pair + 1) : "memory");
+}
+
+// K6 at D 256: the dk and dv accumulators split over warp pairs (see the
+// header).  Warps 0-3 are the dv warps of keys k0 + 16 w, warps 4-7 the
+// dk warps of the same keys.
+template <int D>
+__global__ void __launch_bounds__(2 * MmaCfg<D>::PAIRS * 32, 1) flash_bwd_dkv_pair_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ g, const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int seq_len, int group, int causal,
+    float scale, BwdStrides st) {
+  using C = MmaCfg<D>;
+  constexpr int NT = 2 * C::PAIRS * 32;
+  constexpr int XN = C::QN / 8;  // n8 tiles of a pass's scores
+  static_assert(C::PAIRS * 16 == C::BK, "a pair a 16-key m16 tile");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* v_s = k_s + C::TILE;
+  bf16* qg_s = v_s + C::TILE;  // stage i: q at qg_s + 2 i TILE, do after it
+  float* stat_s = reinterpret_cast<float*>(qg_s + 4 * C::TILE);  // stage i: lse, delta
+  // Pair i's p^T buffer j at px_s + (2 i + j) XN 32, a float4 a lane a n8
+  // tile.
+  float4* px_s = reinterpret_cast<float4*>(stat_s + 4 * C::BQ);
+
+  const int kb = blockIdx.x;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int heads = gridDim.y * group;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int pair = warp % C::PAIRS;
+  const bool dk_warp = warp >= C::PAIRS;
+  const int k0 = kb * C::BK;
+
+  // Iteration `it` takes query head kvh * group + it / nq and q-block
+  // first_qb + it % nq: causal, the q-blocks from the diagonal on.
+  const int n_qb = (seq_len + C::BQ - 1) / C::BQ;
+  const int first_qb = causal ? k0 / C::BQ : 0;
+  const int nq = n_qb - first_qb;
+  const int n_it = group * nq;
+  auto issue = [&](int it, int stage) {
+    const int h = kvh * group + it / nq;
+    const int q0 = (first_qb + it % nq) * C::BQ;
+    bf16* dst = qg_s + stage * 2 * C::TILE;
+    load_tile_async<D, 64, NT>(dst, q + b * st.q[0] + h * st.q[2], st.q[1], q0, seq_len);
+    load_tile_async<D, 64, NT>(dst + C::TILE, g + b * st.g[0] + h * st.g[2], st.g[1], q0,
+                               seq_len);
+    const int64_t stat0 = (static_cast<int64_t>(b) * heads + h) * seq_len;
+    load_stats_async(stat_s + stage * 2 * C::BQ, lse + stat0, q0, seq_len);
+    load_stats_async(stat_s + stage * 2 * C::BQ + C::BQ, delta + stat0, q0, seq_len);
+  };
+  load_tile_async<D, 64, NT>(k_s, k + b * st.k[0] + kvh * st.k[2], st.k[1], k0, seq_len);
+  load_tile_async<D, 64, NT>(v_s, v + b * st.v[0] + kvh * st.v[2], st.v[1], k0, seq_len);
+  issue(0, 0);
+  cp_async_commit();
+
+  // This thread's key rows: g and g + 8 of its pair's 16.
+  const int row_g = k0 + pair * 16 + (lane >> 2);
+  const int a_row = lane & 15, a_col = (lane >> 4) * 8;
+  const int b_row = (lane & 7) + ((lane >> 4) << 3), b_col = ((lane >> 3) & 1) * 8;
+  // The A operand of the pass's scores: k for a dv warp (s^T = k q^T), v
+  // for a dk warp (dp^T = v do^T).
+  const uint32_t a_frag = smem_u32((dk_warp ? v_s : k_s) + (pair * 16 + a_row) * C::LD + a_col);
+  float4* px = px_s + pair * 2 * XN * 32 + lane;
+
+  float acc[C::DN][4];
+#pragma unroll
+  for (int j = 0; j < C::DN; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  int pass = 0;
+  for (int it = 0; it < n_it; ++it) {
+    if (it + 1 < n_it) {
+      issue(it + 1, (it + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* q_s = qg_s + (it & 1) * 2 * C::TILE;
+    const bf16* g_s = q_s + C::TILE;
+    const float* lse_s = stat_s + (it & 1) * 2 * C::BQ;
+    const float* delta_s = lse_s + C::BQ;
+    // The B operands: of the scores (q for s^T, do for dp^T) and of the
+    // accumulation (do for dv += p^T do, q for dk += ds^T q).
+    const bf16* sb_s = dk_warp ? g_s : q_s;
+    const bf16* ab_s = dk_warp ? q_s : g_s;
+    const int q0 = (first_qb + it % nq) * C::BQ;
+    const bool edge = q0 + C::BQ > seq_len || k0 + C::BK > seq_len ||
+                      (causal && q0 < k0 + C::BK - 1);
+    const int col_t = q0 + 2 * (lane & 3);  // this thread's first column
+
+#pragma unroll
+    for (int qh = 0; qh < C::BQ; qh += C::QN, ++pass) {
+      // s^T (dv warp) or dp^T (dk warp), 16 keys x QN query rows.
+      float s[XN][4];
+#pragma unroll
+      for (int j = 0; j < XN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < C::DK; ++kc) {
+        uint32_t a[4];
+        ldsm_x4(a, a_frag + kc * 32);
+#pragma unroll
+        for (int np = 0; np < XN / 2; ++np) {
+          uint32_t bf[4];
+          ldsm_x4(bf, smem_u32(sb_s + (qh + np * 16 + b_row) * C::LD + kc * 16 + b_col));
+          mma_bf16(s[2 * np], a, bf[0], bf[1]);
+          mma_bf16(s[2 * np + 1], a, bf[2], bf[3]);
+        }
+      }
+
+      // The dv warp forms p^T (f32, masked only on an edge tile) and
+      // hands it to its dk warp, which forms ds^T from it.
+      float4* x = px + (pass & 1) * XN * 32;
+      if (!dk_warp) {
+        const float* lse_t = lse_s + qh + 2 * (lane & 3);
+        if (edge)
+          dkv_p<true>(s, lse_t, row_g, col_t + qh, seq_len, causal, scale);
+        else
+          dkv_p<false>(s, lse_t, row_g, col_t + qh, seq_len, causal, scale);
+#pragma unroll
+        for (int j = 0; j < XN; ++j) x[j * 32] = make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
+      }
+      // Pass n's buffer is written again at pass n + 2, after the dk warp
+      // has read it and met its dv warp here at pass n + 1.
+      pair_sync(pair);
+      if (dk_warp) {
+        float p[XN][4];
+#pragma unroll
+        for (int j = 0; j < XN; ++j) {
+          const float4 pj = x[j * 32];
+          p[j][0] = pj.x;
+          p[j][1] = pj.y;
+          p[j][2] = pj.z;
+          p[j][3] = pj.w;
+        }
+        dkv_ds(p, s, delta_s + qh + 2 * (lane & 3));
+      }
+
+      // dv += p^T do or dk += ds^T q: p^T, ds^T (bf16) from registers, do
+      // and q by ldmatrix.trans.
+#pragma unroll
+      for (int kc = 0; kc < C::QN / 16; ++kc) {
+        uint32_t pa[4];
+        acc_to_a(pa, s[2 * kc], s[2 * kc + 1]);
+#pragma unroll
+        for (int dn = 0; dn < C::DK; ++dn) {
+          uint32_t bf[4];
+          ldsm_x4_t(bf, smem_u32(ab_s + (qh + kc * 16 + a_row) * C::LD + dn * 16 + a_col));
+          mma_bf16(acc[2 * dn], pa, bf[0], bf[1]);
+          mma_bf16(acc[2 * dn + 1], pa, bf[2], bf[3]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  bf16* out = dk_warp ? dk + b * st.a[0] + kvh * st.a[2] : dv + b * st.b[0] + kvh * st.b[2];
+  const int64_t row_stride = dk_warp ? st.a[1] : st.b[1];
+  const float f = dk_warp ? scale : 1.f;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row_g + 8 * i;
+    if (row < seq_len) {
+      bf16* o = out + static_cast<int64_t>(row) * row_stride + 2 * (lane & 3);
+#pragma unroll
+      for (int j = 0; j < C::DN; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(o + j * 8) =
+            __floats2bfloat162_rn(acc[j][2 * i] * f, acc[j][2 * i + 1] * f);
     }
   }
 }
@@ -788,8 +1053,8 @@ int launch_dq_mma(const void* q, const void* k, const void* v, const void* g, co
   auto kernel = flash_bwd_dq_mma_kernel<D>;
   static bool smem_allowed = false;
   if (const int e = allow_smem(kernel, C::SMEM_DQ, &smem_allowed)) return e;
-  const dim3 grid((seq_len + C::BQ - 1) / C::BQ, heads, batch);
-  kernel<<<grid, kBwdThreads, C::SMEM_DQ, stream>>>(
+  const dim3 grid((seq_len + C::DQ_BQ - 1) / C::DQ_BQ, heads, batch);
+  kernel<<<grid, C::DQ_WARPS * 32, C::SMEM_DQ, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(g), lse, delta, static_cast<bf16*>(dq), seq_len, group, causal,
       scale, st);
@@ -807,6 +1072,23 @@ int launch_dkv_mma(const void* q, const void* k, const void* v, const void* g, c
   if (const int e = allow_smem(kernel, C::SMEM_DKV, &smem_allowed)) return e;
   const dim3 grid((seq_len + C::BK - 1) / C::BK, kv_heads, batch);
   kernel<<<grid, kBwdThreads, C::SMEM_DKV, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(g), lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      seq_len, group, causal, scale, st);
+  return launch_status();
+}
+
+template <int D>
+int launch_dkv_pair_mma(const void* q, const void* k, const void* v, const void* g,
+                        const float* lse, const float* delta, void* dk, void* dv, int batch,
+                        int seq_len, int kv_heads, int group, int causal, float scale,
+                        const BwdStrides& st, cudaStream_t stream) {
+  using C = MmaCfg<D>;
+  auto kernel = flash_bwd_dkv_pair_mma_kernel<D>;
+  static bool smem_allowed = false;
+  if (const int e = allow_smem(kernel, C::SMEM_DKV_PAIR, &smem_allowed)) return e;
+  const dim3 grid((seq_len + C::BK - 1) / C::BK, kv_heads, batch);
+  kernel<<<grid, 2 * C::PAIRS * 32, C::SMEM_DKV_PAIR, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(g), lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
       seq_len, group, causal, scale, st);
@@ -849,13 +1131,12 @@ extern "C" int skk_flash_bwd_dq(const void* q, const void* k, const void* v, con
 #define SKK_DQ_MMA(D)                                                                           \
   return skk::launch_dq_mma<D>(q, k, v, dout, l, dl, dq, batch, seq_len, heads, group, causal, \
                                scale, st, s)
-  if (skk::tensor_core_route(dtype, head_dim)) {
+  if (skk::flash_bwd_tc_route(dtype, head_dim)) {
     if (head_dim == 64) SKK_DQ_MMA(64);
-    SKK_DQ_MMA(128);
+    if (head_dim == 128) SKK_DQ_MMA(128);
+    SKK_DQ_MMA(256);
   }
-  if (dtype == skk::kBF16) {
-    if (head_dim == 256) SKK_DQ(__nv_bfloat16, 256);
-  } else if (dtype == skk::kF32) {
+  if (dtype == skk::kF32) {
     if (head_dim == 64) SKK_DQ(float, 64);
     if (head_dim == 128) SKK_DQ(float, 128);
     if (head_dim == 256) SKK_DQ(float, 256);
@@ -882,13 +1163,13 @@ extern "C" int skk_flash_bwd_dkv(const void* q, const void* k, const void* v, co
 #define SKK_DKV_MMA(D)                                                                         \
   return skk::launch_dkv_mma<D>(q, k, v, dout, l, dl, dk, dv, batch, seq_len, kv_heads, group, \
                                 causal, scale, st, s)
-  if (skk::tensor_core_route(dtype, head_dim)) {
+  if (skk::flash_bwd_tc_route(dtype, head_dim)) {
     if (head_dim == 64) SKK_DKV_MMA(64);
-    SKK_DKV_MMA(128);
+    if (head_dim == 128) SKK_DKV_MMA(128);
+    return skk::launch_dkv_pair_mma<256>(q, k, v, dout, l, dl, dk, dv, batch, seq_len, kv_heads,
+                                         group, causal, scale, st, s);
   }
-  if (dtype == skk::kBF16) {
-    if (head_dim == 256) SKK_DKV(__nv_bfloat16, 256);
-  } else if (dtype == skk::kF32) {
+  if (dtype == skk::kF32) {
     if (head_dim == 64) SKK_DKV(float, 64);
     if (head_dim == 128) SKK_DKV(float, 128);
     if (head_dim == 256) SKK_DKV(float, 256);
@@ -901,5 +1182,5 @@ extern "C" int skk_flash_bwd_dkv(const void* q, const void* k, const void* v, co
 // 1 when (dtype, head_dim) takes the tensor-core kernels, 0 when the FMA
 // kernels: the wrappers count launches by route.
 extern "C" int skk_flash_bwd_route(int dtype, int head_dim) {
-  return skk::tensor_core_route(dtype, head_dim) ? 1 : 0;
+  return skk::flash_bwd_tc_route(dtype, head_dim) ? 1 : 0;
 }

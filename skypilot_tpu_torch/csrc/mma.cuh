@@ -91,14 +91,15 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
 
 // Copies ROWS rows of D bf16 from sequence row `row0` of a strided (S, D)
 // view into a smem tile of row stride D + 8 with cp.async, zero-filling
-// rows at or past S.
-template <int D, int ROWS = 64>
+// rows at or past S; the block's THREADS threads share the copy.
+template <int D, int ROWS = 64, int THREADS = kMmaThreads>
 __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src, int64_t row_stride,
                                                 int row0, int seq_len) {
   constexpr int VPR = D / 8;
+  static_assert(ROWS * VPR % THREADS == 0, "a tile is whole 16-byte vectors a thread");
 #pragma unroll
-  for (int n = 0; n < ROWS * VPR / kMmaThreads; ++n) {
-    const int i = threadIdx.x + n * kMmaThreads;
+  for (int n = 0; n < ROWS * VPR / THREADS; ++n) {
+    const int i = threadIdx.x + n * THREADS;
     const int r = i / VPR;
     const int c = i - r * VPR;
     const bool in = row0 + r < seq_len;
@@ -107,10 +108,12 @@ __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src, int6
   }
 }
 
-// The tensor-core route of K4, K5 and K6: bf16 at D 64 and 128.  f32
-// would need TF32, which changes f32 results; bf16 at D 256 would need
-// 256 registers a thread for K6's accumulators alone.  K2 decides its own
-// route (flash_fwd.cu, flash_fwd_tc_route), bf16 at D 256 included.
+// The tensor-core route of K4 (paged_window.cu): bf16 at D 64 and 128.
+// f32 would need TF32, which changes f32 results; bf16 at D 256 has no
+// tensor-core design in K4 yet.  K2 and K5/K6 decide their own routes
+// (flash_fwd.cu flash_fwd_tc_route, flash_bwd.cu flash_bwd_tc_route),
+// bf16 at D 256 included: K6 there splits its dk and dv accumulators
+// over a pair of warps, 128 registers each.
 inline bool tensor_core_route(int dtype, int head_dim) {
   return dtype == kBF16 && (head_dim == 64 || head_dim == 128);
 }

@@ -4,9 +4,9 @@
 Counterpart of skypilot_tpu/ops/attention.py.  Three kernels replace the
 TPU's pallas_calls: the forward ``_flash_fwd`` (K2, which writes the row
 logsumexp only when a gradient is wanted) and the two of ``_flash_bwd``
-(K5: dq; K6: dk and dv).  In bf16 K2 runs on the tensor cores at every
-head_dim (64, 128, 256), K5 and K6 at 64 and 128; the rest runs on f32
-FMAs.  :func:`flash_attention` is a
+(K5: dq; K6: dk and dv).  In bf16 all three run on the tensor cores at
+every head_dim (64, 128, 256); f32 runs on f32 FMAs.
+:func:`flash_attention` is a
 ``torch.autograd.Function`` when a gradient is wanted, the counterpart of
 ``_flash_attention_vjp``.
 """
@@ -192,9 +192,8 @@ def _strides(*tensors: torch.Tensor):
 def _count_route(wrapper, route: str, code: int, head_dim: int) -> None:
     """One launch of K2, K5 or K6 on its route: `launches` counts every
     launch, `launches_tc` those that the library's entry point `route`
-    says went to the tensor-core kernels (K2: bf16 at head_dim 64, 128
-    and 256; K5 and K6: bf16 at 64 and 128; f32 takes the FMA
-    kernels)."""
+    says went to the tensor-core kernels (bf16 at head_dim 64, 128 and
+    256; f32 takes the FMA kernels)."""
     wrapper.launches += 1
     if getattr(_kernels.LIBRARY.get(), route)(code, head_dim):
         wrapper.launches_tc += 1

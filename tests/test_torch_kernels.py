@@ -566,14 +566,23 @@ def _assert_row_close(got, want):
     (129, 32, 4, 128, False), (1000, 32, 4, 128, True),
     (1000, 32, 4, 64, False),
     # A group of 6 (Qwen2.5-1.5B: 12 query heads over 2 KV heads).
-    (700, 12, 2, 128, True), (65, 6, 1, 64, False), (130, 6, 1, 256, True)])
+    (700, 12, 2, 128, True), (65, 6, 1, 64, False), (130, 6, 1, 256, True),
+    # hd 256 (Gemma) at the edges of its tensor-core tiles (K5: 16-row
+    # warps, 32-key tiles, 128-row q-tiles; K6: 16-key warp pairs, 64-key
+    # blocks, 32-column passes), groups 1, 2 and 8.
+    (1, 2, 2, 256, True), (1, 16, 2, 256, False), (16, 4, 2, 256, True),
+    (16, 16, 2, 256, False), (17, 2, 2, 256, False), (17, 16, 2, 256, True),
+    (31, 4, 2, 256, False), (31, 16, 2, 256, True), (33, 2, 2, 256, True),
+    (33, 4, 2, 256, False), (65, 16, 2, 256, False), (65, 2, 2, 256, True),
+    (1000, 16, 2, 256, True), (1000, 4, 2, 256, False),
+    (1000, 2, 2, 256, True)])
 def test_flash_backward_kernels(cuda, dtype, seq, heads, kv, hd, causal):
     """K2 with its lse, K5 and K6 against their plain versions, on the
     same inputs (o and lse from the kernel: the tensor-core K2's in bf16,
     which K5 and K6 must take at their per-row bounds, on their
-    tensor-core kernels at hd 64 and 128 and their FMA kernels at 256),
-    over head_dims 64/128/256, groups 1/2/4/6/8, ragged S, causal and
-    not."""
+    tensor-core kernels in bf16 at every hd and their FMA kernels in
+    f32), over head_dims 64/128/256, groups 1/2/4/6/8, ragged S, causal
+    and not."""
     from skypilot_tpu_torch.ops import attention as at
     q = torch.randn(2, seq, heads, hd, generator=cuda, device='cuda').to(dtype)
     k = torch.randn(2, seq, kv, hd, generator=cuda, device='cuda').to(dtype)
@@ -754,6 +763,7 @@ def test_flash_backward_kernels_on_packed_qkv(cuda, hd):
 
 @pytest.mark.parametrize('dtype,hd', [(torch.bfloat16, 64),
                                       (torch.bfloat16, 128),
+                                      (torch.bfloat16, 256),
                                       (torch.float32, 128)])
 def test_flash_backward_kernels_are_deterministic(cuda, dtype, hd):
     """No atomics and one block per output tile: two launches on the same
@@ -768,11 +778,11 @@ def test_flash_backward_kernels_are_deterministic(cuda, dtype, hd):
 
 @pytest.mark.parametrize('dtype,hd,tensor_cores', [
     (torch.bfloat16, 64, True), (torch.bfloat16, 128, True),
-    (torch.bfloat16, 256, False), (torch.float32, 64, False),
+    (torch.bfloat16, 256, True), (torch.float32, 64, False),
     (torch.float32, 128, False)])
 def test_flash_backward_route(cuda, dtype, hd, tensor_cores):
-    """bf16 at hd 64 and 128 takes the tensor-core kernels; f32, and bf16
-    at hd 256, the FMA kernels: `launches_tc` counts the former only."""
+    """bf16 at hd 64, 128 and 256 takes the tensor-core kernels; f32 the
+    FMA kernels: `launches_tc` counts the former only."""
     from skypilot_tpu_torch.ops import attention as at
     args = _bwd_operands(cuda, dtype, 65, 4, 2, hd, True)
     wrappers = (at.flash_attention_dq, at.flash_attention_dkv)

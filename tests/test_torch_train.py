@@ -103,7 +103,10 @@ def test_flash_backward_plain_matches_jax(causal, kv_heads):
     (64, 2, 128),
     # The training configuration's head_dim and group (LLAMA_1B, 8B):
     # the shapes the tensor-core K5/K6 take on the card.
-    (128, 4, 256)])
+    (128, 4, 256),
+    # Gemma's head_dim: MHA (Gemma-7B) and a group of 8 (Gemma-2B's 8
+    # query heads over 1 KV head), the warp-pair K6 on the card.
+    (256, 1, 256), (256, 8, 256)])
 def test_flash_backward_bf16_matches_jax_kernel(hd, group, seq):
     """bf16: p and ds rounded to bf16 before their products on both
     sides (the rounding points the card's K5/K6 reproduce); the JAX
@@ -387,6 +390,74 @@ def test_trainer_trajectory_matches_jax_trainer():
         _close(got, want, atol=2 * lrs)
         close = np.abs(_np(got) - _np(want)) <= 1e-6
         assert close.mean() > 0.99
+
+
+# Gemma's attention at debug size: 2 heads of 256 (d_model 512, so
+# head_dim = d_model / heads is Gemma-7B's 256), MHA as Gemma-7B, its
+# gelu-tanh MLP and sqrt(d) embedding scale.
+GEMMA_LIKE = dict(d_model=512, n_heads=2, n_kv_heads=2, d_ff=1024,
+                  mlp_act='gelu_tanh', embed_scale=512 ** 0.5)
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_gemma_like_trainer_matches_jax_trainer(dtype):
+    """A Gemma-like head_dim-256 config: the first-step loss and every
+    gradient against jax.value_and_grad, then 3 steps of the port's
+    Trainer against the JAX Trainer on the 8-device CPU mesh (loss and
+    grad_norm of each), from the same params and batches.  f32 at the
+    LLAMA_DEBUG tolerances above (loss rtol 1e-4, gradients atol 1e-4 x
+    the leaf's largest, steps rtol 1e-5).  bf16: the two sides round
+    activations, probabilities and gradients to bf16 at other points
+    through 2 layers, so the gradients are held to 2^-5 of the leaf's
+    largest (8 bf16 ulps of it), the losses to rtol 1e-3 and the bf16
+    grad norms to one ulp (rtol 2^-7)."""
+    jcfg = dataclasses.replace(j_llama.LLAMA_DEBUG,
+                               dtype=getattr(jnp, dtype), **GEMMA_LIKE)
+    tcfg = dataclasses.replace(llama.LLAMA_DEBUG,
+                               dtype=getattr(torch, dtype), **GEMMA_LIKE)
+    assert jcfg.head_dim == tcfg.head_dim == 256
+    f32 = dtype == 'float32'
+    loss_rtol, grad_atol, step_rtol, norm_rtol = (
+        (1e-4, 1e-4, 1e-5, 1e-5) if f32 else (1e-3, 2 ** -5, 1e-3, 2 ** -7))
+    jp = j_llama.init_params(jcfg, jax.random.PRNGKey(0))
+    tree = jax.tree.map(lambda x: np.asarray(x, np.float32), jp)
+    tokens = _tokens(8, 32, jcfg.vocab_size)
+    ref, ref_grads = jax.jit(jax.value_and_grad(
+        lambda p: j_llama.loss_fn(p, {'tokens': jnp.asarray(tokens)},
+                                  jcfg)))(jp)
+    params = trainer.tree_map(lambda t: t.requires_grad_(),
+                              llama.params_from_numpy(tree, tcfg, 'cpu'))
+    loss = llama.loss_fn(params, {'tokens': torch.from_numpy(tokens)}, tcfg)
+    grads = torch.autograd.grad(loss, trainer.tree_leaves(params))
+    np.testing.assert_allclose(float(loss.detach()), float(ref),
+                               rtol=loss_rtol)
+    for got, want in zip(grads, jax.tree.leaves(ref_grads)):
+        want = _np(want)
+        assert got.shape == want.shape and got.dtype == tcfg.dtype
+        assert float(got.abs().max()) > 0
+        np.testing.assert_allclose(_np(got), want,
+                                   atol=grad_atol * np.abs(want).max())
+    tc = trainer.TrainConfig(learning_rate=1e-3, warmup_steps=1,
+                             total_steps=4)
+    j_tc = j_trainer.TrainConfig(learning_rate=1e-3, warmup_steps=1,
+                                 total_steps=4)
+    j_tr = j_trainer.Trainer(
+        lambda p, b: j_llama.loss_fn(p, b, jcfg), jp,
+        make_mesh(MeshConfig(dp=jax.device_count())),
+        j_sharding.LLAMA_RULES, j_tc)
+    tr = trainer.Trainer(lambda p, b: llama.loss_fn(p, b, tcfg),
+                         llama.params_from_numpy(tree, tcfg, 'cpu'), tc,
+                         device='cpu')
+    j_batches = j_trainer.synthetic_batches(8, 32, jcfg.vocab_size)
+    batches = trainer.synthetic_batches(8, 32, tcfg.vocab_size)
+    for _ in range(3):
+        want = j_tr.run_step(next(j_batches))
+        got = tr.run_step(next(batches))
+        np.testing.assert_allclose(float(got['loss']), float(want['loss']),
+                                   rtol=step_rtol)
+        np.testing.assert_allclose(float(got['grad_norm']),
+                                   float(want['grad_norm']), rtol=norm_rtol)
+    assert tr.step == 3
 
 
 def test_trainer_fit_reports_throughput_on_cpu():
