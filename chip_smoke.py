@@ -10,8 +10,8 @@ Phases (any failure exits non-zero):
 1. device: needs torch.cuda; prints the card's name and power limit.
 2. build: compiles skypilot_tpu_torch/csrc/*.cu with nvcc (in parallel)
    into build/torch_kernels/ and loads the library; fails if ptxas
-   reports a spill in a tensor-core kernel (K2, K5 and K6 in bf16 at hd
-   64, 128 and 256; K4 at hd 64 and 128), in a K1/K7 decode kernel or a
+   reports a spill in a tensor-core kernel (K2, K4, K5 and K6 in bf16 at
+   hd 64, 128 and 256), in a K1/K7 decode kernel or a
    combine kernel (K1/K7 and K4), or in K3 (whose rows live in
    registers).
 3. kernels: holds each hand-written kernel against its plain PyTorch
@@ -55,7 +55,10 @@ Phases (any failure exits non-zero):
    and over an int8 arena (the FMA route in f32), split-KV at both of
    its shapes: checked twice (bitwise), timed eager and as a replayed
    graph beside SDPA's, and its combine pass alone held to
-   _combine_splits_plain on the partials of the verify bf16 launch.
+   _combine_splits_plain on the partials of the verify bf16 launch; the
+   same at hd 256 for Gemma-7B (16 KV heads, G 1) and Gemma-2B's MQA (1
+   KV head, G 8), whose bf16 and int8 launches take the hd-256
+   tensor-core kernel, and K1 over an int8 arena at Gemma-7B's decode.
    K2 (o, and its lse) is held to
    _flash_fwd_plain, its own numerics, and to _attention_plain, the JAX
    reference_attention's, at the prefill shape and ragged S.  The
@@ -181,7 +184,15 @@ Phases (any failure exits non-zero):
    below the model's bytes, and the device's peak;
    every leaf is held bitwise to the tensors drawn (drawn again), with
    each leaf's bit checksum.  The serves print phase 5's stats and the
-   decode step against its bytes bound.  (c) Gemma-like (hd 256, gelu,
+   decode step against its bytes bound.  (c) 12a's Gemma-7B weights (all
+   28 layers) serve the same requests with spec_k 12 and fuse_budget 264
+   as phase 6 serves LLAMA3_8B, in bf16 and with int8 KV: every K4
+   launch of both wrappers (verify and the fused lane at hd 256) on the
+   tensor-core route, drafts proposed, fused steps run, every graph key
+   captured once and chunks replayed; prints the accept rate and the
+   share of each request's tokens equal to 12a's before the first
+   difference (information: bf16 rounds differently on another
+   schedule).  (d) Gemma-like (hd 256, gelu,
    the (1 + w) norm, tied) and Qwen2-like (biases, G 6, tied) configs
    at debug size in f32, each loaded on the host and on the card:
    bitwise equal leaves, allclose logits, identical greedy tokens on the
@@ -434,8 +445,9 @@ with its lse, K3, K5 and K6 from 22a and 22c (its child reports its
 counts); K2, K5 and K6 only on their
 tensor-core route on every path (bf16 at head_dim 128, and 12a's K2 and
 phase 22's K2, K5 and K6 at 256); K4 on phase 6's paths,
-where it must also take its split route; K1 and K7 only on their split
-route on every path of phases 5 to 7, 10c, 11a, 12a, 12b, 14, 15a, 15b,
+where it must also take its split route, and on both 12c paths (hd 256),
+on the tensor-core route only; K1 and K7 only on their split
+route on every path of phases 5 to 7, 10c, 11a, 12a, 12b, 12c, 14, 15a, 15b,
 15d, 18d's GRPO, 18f, 19 and 21 (B KV <= 128
 < 2 x 132 SMs).  The last lines
 of standard output are
@@ -1370,13 +1382,15 @@ TP_WINDOW_SHAPES = (('verify', [0, BS - 1, BS, 2 * BS + 5, 700, 1000, 1500,
                                 T_WIDTH * BS - 1], 5), ('fused', [436], 64))
 
 
-def check_decode_at(da, ptxas, label, seed):
-    """K1 bf16 at DECODE_SHAPES[label] against its plain version, twice
-    bitwise, on a poisoned arena, timed with its bound and SDPA's (eager
-    and as a replayed graph).  Returns its kernels line entry (the
-    ptxas registers and spill of the instantiation: NG 4 rows a block
-    for G <= 4, 8 above) and the combine's entry on that launch's
-    partials (`decode_combine[<label>]`)."""
+def check_decode_at(da, ptxas, label, seed, int8=False):
+    """K1 (bf16 q; over an int8 arena with int8) at DECODE_SHAPES[label]
+    against its plain version, twice bitwise, on a poisoned arena, timed
+    with its bound and SDPA's (eager and as a replayed graph).  Returns
+    its kernels line entry (the ptxas registers and spill of the
+    instantiation: NG 4 rows a block for G <= 4, 8 above) and, over a
+    bf16 arena, the combine's entry on that launch's partials
+    (`decode_combine[<label>]`; None over int8: the combine is the same
+    kernel)."""
     kv_heads, group, head_dim, t_width, last = DECODE_SHAPES[label]
     gen = torch.Generator(device='cuda').manual_seed(seed)
     batch, layer = len(last), 1
@@ -1387,17 +1401,20 @@ def check_decode_at(da, ptxas, label, seed):
     splits, split_len = _split_of(da, batch, capacity, kv_heads)
     q = torch.randn(batch, kv_heads, group, head_dim, generator=gen,
                     device='cuda').to(torch.bfloat16)
-    k, v, _, _ = _arena(gen, torch.bfloat16, n_blocks, False, kv_heads,
-                        head_dim)
+    k, v, ks, vs = _arena(gen, torch.bfloat16, n_blocks, int8, kv_heads,
+                          head_dim)
+    name = f'{"int8 " if int8 else ""}{label}'
 
     def kernel(k=k, v=v):
-        return da.decode_attention_pooled(q, k, v, tables, layer, positions)
+        return da.decode_attention_pooled(q, k, v, tables, layer, positions,
+                                          ks, vs)
 
     def plain():
-        return da._decode_attention_plain(q, k, v, tables, layer, positions)
+        return da._decode_attention_plain(q, k, v, tables, layer, positions,
+                                          ks, vs)
 
     out = kernel()
-    err = check_close(f'decode_attention_pooled bf16 {label}', out, plain())
+    err = check_close(f'decode_attention_pooled bf16 {name}', out, plain())
     if not torch.equal(kernel(), out):
         raise AssertionError(f'decode_attention_pooled {label}: two calls '
                              f'differ')
@@ -1406,26 +1423,26 @@ def check_decode_at(da, ptxas, label, seed):
         raise AssertionError(f'decode_attention_pooled {label} read keys '
                              f'past a position or outside its table')
     del k2, v2
-    combine = _check_combine(da, q, k, v, tables, layer, positions,
-                             capacity, out, ptxas,
-                             name=f'decode_combine[{label}]')
+    combine = None if int8 else _check_combine(
+        da, q, k, v, tables, layer, positions, capacity, out, ptxas,
+        name=f'decode_combine[{label}]')
     live_keys = int(torch.clamp_max(positions.long() + 1, capacity).sum())
     nbytes = (2 * q.numel() * 2 + _kv_bytes(live_keys, k)
               + tables.numel() * 4 + batch * 4)
     b_ms, by = bound(nbytes, 4 * head_dim * kv_heads * group * live_keys,
                      BF16_FLOPS)
-    kt, vt = _gathered(k, v, None, None, tables, layer, torch.bfloat16)
+    kt, vt = _gathered(k, v, ks, vs, tables, layer, torch.bfloat16)
     qs = q.reshape(batch, kv_heads * group, 1, head_dim)
     mask = (torch.arange(kt.shape[2], device='cuda')[None, :]
             <= positions.long()[:, None])[:, None, None, :]
     ng = 8 if group > 4 else 4
     entry = {
-        'name': f'decode_attention_pooled[{label}]', 'route': 'cuda',
+        'name': f'decode_attention_pooled[{name}]', 'route': 'cuda',
         'source': 'skypilot_tpu_torch/csrc/paged_decode.cu',
         'replaces': 'skypilot_tpu/ops/decode_attention.py:356',
         'shape': f'q ({batch}, {kv_heads}, {group}, {head_dim}) bf16, '
-                 f'bf16 arena, BS {BS} T {t_width}, positions {last}, '
-                 f'live keys {live_keys}',
+                 f'{"int8" if int8 else "bf16"} arena, BS {BS} T {t_width}, '
+                 f'positions {last}, live keys {live_keys}',
         'splits': splits, 'split_len': split_len,
         'max_abs_err': err, 'ms': time_ms(kernel),
         'graph_ms': graph_ms(kernel),
@@ -1433,8 +1450,9 @@ def check_decode_at(da, ptxas, label, seed):
         'library_ms': time_ms(lambda: sdpa(qs, kt, vt, attn_mask=mask)),
         'library_graph_ms': graph_ms(
             lambda: sdpa(qs, kt, vt, attn_mask=mask)),
-        **_ptxas_of(ptxas, rf'decode_kernelI13__nv_bfloat16S\w*?_Li'
-                           rf'{head_dim}ELi{ng}E\w*PooledRows'),
+        **_ptxas_of(ptxas, (r'decode_kernelI13__nv_bfloat16a' if int8 else
+                            r'decode_kernelI13__nv_bfloat16S\w*?_')
+                    + rf'Li{head_dim}ELi{ng}E\w*PooledRows'),
     }
     log(f'  {entry["name"]}: {entry["ms"]:.4f} ms (graph '
         f'{entry["graph_ms"]:.4f}), bound {b_ms:.4f} by {by}, plain '
@@ -1537,32 +1555,49 @@ def check_decode_shared(da, ptxas):
     return out_entries
 
 
-# Mangled-name fragments of the timed K4 tensor-core instantiations
-# (head_dim 128; the arena bf16 or int8, i.e. signed char 'a') and of its
+# Mangled-name fragments of the timed K4 tensor-core instantiations by
+# head_dim (the arena bf16 or int8, i.e. signed char 'a') and of its
 # combine kernel, and the design of each.
-WINDOW_KERNELS = {'bf16': 'paged_window_mma_kernelI13__nv_bfloat16Li128E',
-                  'int8': 'paged_window_mma_kernelIaLi128E',
-                  'combine': 'paged_window_combine_kernelILi128E'}
+WINDOW_KERNELS = {
+    128: {'bf16': 'paged_window_mma_kernelI13__nv_bfloat16Li128E',
+          'int8': 'paged_window_mma_kernelIaLi128E',
+          'combine': 'paged_window_combine_kernelILi128E'},
+    256: {'bf16': 'paged_window_row16_mma_kernelI13__nv_bfloat16Li256E',
+          'int8': 'paged_window_row16_mma_kernelIaLi256E',
+          'combine': 'paged_window_combine_kernelILi256E'}}
 _WINDOW_TC = ('mma.sync m16n8k16 bf16 -> f32, ldmatrix, cp.async x2, '
               '64-row tiles, split-KV + combine')
-WINDOW_DESIGN = {'bf16': _WINDOW_TC,
-                 'int8': _WINDOW_TC + ', int8 -> bf16 in shared memory',
-                 'combine': 'a warp a row, its live splits in ascending '
-                            'order, f32'}
-
+_WINDOW_TC256 = ('mma.sync m16n8k16 bf16 -> f32, ldmatrix, a 16-row tile '
+                 'a block whose 4 warps divide the keys in 16-key chunks '
+                 '(cp.async x3 a warp) and merge in shared memory, '
+                 'split-KV + combine')
+_WINDOW_COMBINE = 'a warp a row, its live splits in ascending order, f32'
+WINDOW_DESIGN = {
+    128: {'bf16': _WINDOW_TC,
+          'int8': _WINDOW_TC + ', int8 -> bf16 in shared memory',
+          'combine': _WINDOW_COMBINE},
+    256: {'bf16': _WINDOW_TC256,
+          'int8': _WINDOW_TC256 + ', int8 -> bf16 in shared memory',
+          'combine': _WINDOW_COMBINE}}
+# K4 at hd 256 (phase 12c's Gemma-7B: 16 KV heads, G 1; Gemma-2B's
+# published MQA: 8 query heads over 1 KV head, G 8): (KV heads, group,
+# tag) at phase 3's verify (spec_k 12) and fused-lane (fuse_budget 264)
+# shapes.
+WINDOW_HD256 = (('Gemma-7B', 16, 1), ('Gemma-2B MQA', 1, 8))
 
 
 def check_window(decode_attention, ptxas, kv_heads=KV_HEADS, group=GROUP,
-                 shapes=None, tag=''):
+                 shapes=None, tag='', head_dim=HEAD_DIM):
     """K4 at the verify shape (B 8, W 13) and the fused-lane shape (B 1,
     W 264 from row 436), in f32, bf16 and on an int8 arena (bf16 q):
     against the plain version, twice (bitwise), on poisoned arenas, and
     at W = 1 against K1; bf16 and int8 must take the tensor-core route
     and f32 the FMA route.  Then the combine pass alone on the partials
     of the verify bf16 launch.  Returns the kernels line entries of the
-    bf16 and int8 variants and of the combine.  kv_heads, group, shapes
-    ((lane, positions, W) pairs) and tag (appended to the entries' names)
-    check another shape: phase 16's per-rank one."""
+    bf16 and int8 variants and of the combine.  kv_heads, group,
+    head_dim, shapes ((lane, positions, W) pairs) and tag (appended to
+    the entries' names) check another shape: phase 16's per-rank one,
+    and Gemma's at hd 256."""
     from skypilot_tpu_torch.ops import _kernels
     da = decode_attention
     counter = da.decode_window_attention_pooled
@@ -1580,14 +1615,16 @@ def check_window(decode_attention, ptxas, kv_heads=KV_HEADS, group=GROUP,
         last = [p + win - 1 for p in pos_list]
         tables = _tables(last, n_blocks, 6)
         splits, split_len = da._window_splits(
-            batch, kv_heads, -(-win * group // da._WINDOW_ROWS), capacity,
-            da._WINDOW_CHUNK, _kernels.sm_count(torch.device('cuda')))
+            batch, kv_heads, -(-win * group // da._WINDOW_ROWS[head_dim]),
+            capacity, da._WINDOW_CHUNK,
+            _kernels.sm_count(torch.device('cuda')))
         for label, dtype, int8 in (('f32', torch.float32, False),
                                    ('bf16', torch.bfloat16, False),
                                    ('int8', torch.bfloat16, True)):
-            q = torch.randn(batch, win, kv_heads, group, HEAD_DIM,
+            q = torch.randn(batch, win, kv_heads, group, head_dim,
                             generator=gen, device='cuda').to(dtype)
-            k, v, ks, vs = _arena(gen, dtype, n_blocks, int8, kv_heads)
+            k, v, ks, vs = _arena(gen, dtype, n_blocks, int8, kv_heads,
+                                  head_dim)
 
             def kernel(k=k, v=v):
                 return da.decode_window_attention_pooled(
@@ -1598,6 +1635,7 @@ def check_window(decode_attention, ptxas, kv_heads=KV_HEADS, group=GROUP,
                     q, k, v, tables, layer, positions, ks, vs)
 
             name = f'decode_window_attention_pooled {lane} {label}'
+            name += f' {tag}' if tag else ''
             tc = counter.launches_tc
             out = kernel()
             if counter.launches_tc - tc != int(label != 'f32'):
@@ -1628,10 +1666,10 @@ def check_window(decode_attention, ptxas, kv_heads=KV_HEADS, group=GROUP,
             keys = int(rows[:, -1].sum())
             nbytes = (2 * q.numel() * 2 + _kv_bytes(keys, k)
                       + tables.numel() * 4 + batch * 4)
-            b_ms, by = bound(nbytes, 4 * HEAD_DIM * pairs, BF16_FLOPS)
+            b_ms, by = bound(nbytes, 4 * head_dim * pairs, BF16_FLOPS)
             kt, vt = _gathered(k, v, ks, vs, tables, layer, dtype)
             qs = q.permute(0, 2, 3, 1, 4).reshape(
-                batch, kv_heads * group, win, HEAD_DIM)
+                batch, kv_heads * group, win, head_dim)
             mask = (torch.arange(kt.shape[2], device='cuda')[None, None, :]
                     < rows[:, :, None])[:, None]        # (B, 1, W, S)
             # SDPA's row order is (KV, G, W); logged, not held to a bound.
@@ -1647,8 +1685,9 @@ def check_window(decode_attention, ptxas, kv_heads=KV_HEADS, group=GROUP,
                 'source': 'skypilot_tpu_torch/csrc/paged_window.cu',
                 'replaces': 'skypilot_tpu/ops/decode_attention.py:456',
                 'shape': f'q ({batch}, {win}, {kv_heads}, {group}, '
-                         f'{HEAD_DIM}) bf16, {"int8" if int8 else "bf16"} '
-                         f'arena, BS {BS} T {T_WIDTH}, positions '
+                         f'{head_dim}) bf16, '
+                         f'{"int8" if int8 else "bf16"} arena, BS {BS} '
+                         f'T {T_WIDTH}, positions '
                          f'{pos_list if batch == 1 else "0..2047"}, '
                          f'{keys} keys',
                 'splits': splits, 'split_len': split_len,
@@ -1660,13 +1699,14 @@ def check_window(decode_attention, ptxas, kv_heads=KV_HEADS, group=GROUP,
                     lambda: sdpa(qs, kt, vt, attn_mask=mask)),
                 'library_graph_ms': graph_ms(
                     lambda: sdpa(qs, kt, vt, attn_mask=mask)),
-                **_tc_entry(ptxas, WINDOW_KERNELS[label],
-                            WINDOW_DESIGN[label]),
+                **_tc_entry(ptxas, WINDOW_KERNELS[head_dim][label],
+                            WINDOW_DESIGN[head_dim][label]),
             }
             log(f'  {name}: {splits} splits of {split_len}, ms '
                 f'{results[lane, label]["ms"]:.4f}, graph '
                 f'{results[lane, label]["graph_ms"]:.4f}, library graph '
-                f'{results[lane, label]["library_graph_ms"]:.4f}')
+                f'{results[lane, label]["library_graph_ms"]:.4f}, bound '
+                f'{b_ms:.4f} by {by}')
     return results
 
 
@@ -1676,7 +1716,7 @@ def _check_window_combine(da, q, k, v, tables, layer, positions, out,
     launch, against _combine_splits_plain (per row: both sum the same f32
     terms in f32) and bitwise against the launch's own output; returns
     its kernels line entry."""
-    batch, win, kv_heads, group = q.shape[:4]
+    batch, win, kv_heads, group, head_dim = q.shape
     capacity = tables.shape[1] * BS
     _, scratch, split_len = da._decode_window_attention_cuda(
         q, k, v, tables, layer, positions, None, None,
@@ -1694,30 +1734,30 @@ def _check_window_combine(da, q, k, v, tables, layer, positions, out,
 
     def plain():
         o = da._combine_splits_plain(ml[..., 0], ml[..., 1], acc, live)
-        return o.reshape(batch, kv_heads, win, group, HEAD_DIM).permute(
+        return o.reshape(batch, kv_heads, win, group, head_dim).permute(
             0, 2, 1, 3, 4).to(q.dtype)
 
+    name = 'paged_window_combine' + (f'[{tag}]' if tag else '')
     got, want = kernel(), plain()
-    err = check_close('paged_window_combine bf16', got, want, row_tol(want))
+    err = check_close(f'{name} bf16', got, want, row_tol(want))
     if not torch.equal(got, out):
-        raise AssertionError('paged_window_combine: not the split launch\'s '
-                             'output')
+        raise AssertionError(f'{name}: not the split launch\'s output')
     parts = int(live.sum()) * kv_heads
-    nbytes = parts * (HEAD_DIM + 2) * 4 + got.numel() * 2 + batch * 4
-    b_ms, by = bound(nbytes, parts * HEAD_DIM * 2, BF16_FLOPS)
+    nbytes = parts * (head_dim + 2) * 4 + got.numel() * 2 + batch * 4
+    b_ms, by = bound(nbytes, parts * head_dim * 2, BF16_FLOPS)
     return {
-        'name': 'paged_window_combine' + (f'[{tag}]' if tag else ''),
+        'name': name,
         'route': 'cuda',
         'source': 'skypilot_tpu_torch/csrc/paged_window.cu',
         'replaces': 'skypilot_tpu/ops/decode_attention.py:456',
         'shape': f'partials of K4 verify bf16: {acc.shape[2]} splits of '
                  f'{split_len}, {int(live.sum())} live (row, split) pairs '
-                 f'over {batch} slots x {win * group} rows, hd {HEAD_DIM}',
+                 f'over {batch} slots x {win * group} rows, hd {head_dim}',
         'max_abs_err': err, 'ms': time_ms(kernel),
         'graph_ms': graph_ms(kernel), 'plain_ms': time_ms(plain),
         'bound_ms': b_ms, 'bound_by': by, 'library_ms': None,
-        **_tc_entry(ptxas, WINDOW_KERNELS['combine'],
-                    WINDOW_DESIGN['combine']),
+        **_tc_entry(ptxas, WINDOW_KERNELS[head_dim]['combine'],
+                    WINDOW_DESIGN[head_dim]['combine']),
     }
 
 
@@ -3101,20 +3141,21 @@ def streamed_bytes(tree, key=''):
     return 0 if key == 'embed' else tree.numel() * tree.element_size()
 
 
-def bounded_serve_path(label, params, cfg, counters, model):
+def bounded_serve_path(label, params, cfg, counters, model, **extra):
     """Phase 5's 8 requests (one burst, 48 new tokens each, greedy)
     through the replica and the ContinuousBatcher's CUDA graphs on the
     pooled plane, batch 8, max_seq_len 2048, prefill_chunk 256,
-    decode_chunk 16 (11a, 12a, 12b).  Prints, beside serve_path's stats,
-    the decode step's bound: a step streams every parameter but the
-    embedding (a row gather), so it takes at least those bytes over 3.35
-    TB/s (for 11a's dense formulation, every bank).  Returns (launches,
-    stats)."""
+    decode_chunk 16 (11a, 12a, 12b; with `extra` GeneratorConfig fields,
+    12c).  Prints, beside serve_path's stats, the decode step's bound: a
+    step streams every parameter but the embedding (a row gather), so it
+    takes at least those bytes over 3.35 TB/s (for 11a's dense
+    formulation, every bank).  Returns (launches, stats, each request's
+    tokens)."""
     from skypilot_tpu_torch.infer.engine import GeneratorConfig
     gen_config = GeneratorConfig(max_seq_len=2048, batch_size=8,
-                                 prefill_chunk=256)
-    launches, _, _, stats = serve_path(label, params, gen_config, counters,
-                                       cfg=cfg, model=model)
+                                 prefill_chunk=256, **extra)
+    launches, _, tokens, stats = serve_path(label, params, gen_config,
+                                            counters, cfg=cfg, model=model)
     nbytes = streamed_bytes(params)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     # Decode steps of the run: every step runs 8 slots, live or not.
@@ -3128,7 +3169,7 @@ def bounded_serve_path(label, params, cfg, counters, model):
              'step_share_of_bound': bound_ms / step_ms}
     log(f'  {label.split()[0]} decode bound (bytes / 3.35 TB/s): '
         + json.dumps(bound))
-    return launches, dict(stats, **bound)
+    return launches, dict(stats, **bound), tokens
 
 
 def mixtral_train_path(counters, steps=6, batch=2, seq=4096):
@@ -3216,7 +3257,7 @@ def mixtral_path(counters, paths):
         f'{torch.cuda.memory_allocated() / 1e9:.2f} GB, in '
         f'{time.perf_counter() - t0:.1f} s')
     sub = time.perf_counter()
-    paths['11a'], _ = bounded_serve_path(
+    paths['11a'], _, _ = bounded_serve_path(
         '11a Mixtral widths, 16 layers', base, cfg, counters,
         'mixtral-8x7b-16-layers')
     log(f'  11a: {time.perf_counter() - sub:.1f} s')
@@ -3580,17 +3621,90 @@ def gemma_path(counters, paths, root):
     """12a: Gemma-7B's published widths at full depth from a checkpoint
     the script writes (17.08 GB, bf16, tied, norms stored as w - 1),
     loaded by convert.load_hf_model and served as phase 5 serves
-    LLAMA3_8B; the directory is deleted when 12a ends."""
+    LLAMA3_8B; the directory is deleted when 12a ends.  12c: the same
+    weights served with speculative verify and the fused prefill lane
+    (gemma_spec_path)."""
     try:
         params, cfg, _, load = hf_load_path('12a Gemma-7B', GEMMA_7B, root)
-        paths['12a'], serve = bounded_serve_path('12a Gemma-7B', params, cfg,
-                                                 counters, 'gemma-7b')
+        paths['12a'], serve, plain = bounded_serve_path(
+            '12a Gemma-7B', params, cfg, counters, 'gemma-7b')
     finally:
         shutil.rmtree(os.path.join(root, '12a'), ignore_errors=True)
+    t0 = time.perf_counter()
+    gemma_spec_path(params, cfg, counters, paths, plain)
+    log(f'  12c: {time.perf_counter() - t0:.1f} s')
     del params
     gc.collect()
     torch.cuda.empty_cache()
     return load, serve
+
+
+# 12c's two arms on 12a's weights: phase 6's speculation and fused lane
+# (spec_k 12, fuse_budget 264) in bf16 and with int8 KV (int8 weights
+# are left out: their per-call bf16 copy would cost the run's time).
+GEMMA_SPEC = dict(spec_k=12, fuse_budget=264)
+GEMMA_SPEC_ARMS = (('12c-bf16', {}), ('12c-int8', {'kv_cache_dtype': 'int8'}))
+
+
+def _agreeing_prefix(got, want):
+    """Each request's share of tokens equal to `want`'s before the first
+    difference (bf16 rounds differently on another schedule)."""
+    shares = []
+    for g, w in zip(got, want):
+        n = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b),
+                 min(len(g), len(w)))
+        shares.append(n / max(len(w), 1))
+    return shares
+
+
+def gemma_spec_path(params, cfg, counters, paths, plain):
+    """12c: Gemma-7B (12a's loaded weights, all 28 layers) serves phase
+    5's 8 requests through the replica and the batcher's CUDA graphs with
+    GEMMA_SPEC, in each of GEMMA_SPEC_ARMS.  Fails unless every K4 launch
+    of both wrappers took the tensor-core route (K4 at hd 256), drafts
+    were proposed, the fuse policy ran steps, and every graph key was
+    captured once with chunks replayed.  Prints the accept rate and,
+    as information, the share of each request's tokens equal to 12a's
+    plain run (`plain`) before the first difference."""
+    from skypilot_tpu_torch.ops import decode_attention as da
+    k4 = [c.__name__ for c in (da.decode_window_attention_pooled,
+                               da.fused_step_attention_pooled)]
+    for key, extra in GEMMA_SPEC_ARMS:
+        launches, stats, tokens = bounded_serve_path(
+            f'{key} Gemma-7B spec+fused', params, cfg, counters,
+            'gemma-7b', **GEMMA_SPEC, **extra)
+        paths[key] = launches
+        for name in k4:
+            if not launches[name] or launches[f'{name}[tc]'] != \
+                    launches[name]:
+                raise AssertionError(
+                    f'{key}: {name} launched {launches[name]} times, '
+                    f'{launches[f"{name}[tc]"]} on the tensor-core route')
+        if not stats['spec_proposed'] or not stats['fused_steps']:
+            raise AssertionError(f'{key}: spec_proposed '
+                                 f'{stats["spec_proposed"]}, fused steps '
+                                 f'{stats["fused_steps"]}')
+        budgets = stats['graph_budgets']
+        captured = stats['graph_captures'] + stats['graph_captures_warmup']
+        if not budgets['ok'] or captured != stats['graph_keys'] \
+                or not stats['graph_replays']:
+            raise AssertionError(f'{key}: graph keys {stats["graph_keys"]}, '
+                                 f'{captured} captures, '
+                                 f'{stats["graph_replays"]} replays, '
+                                 f'budgets {budgets}')
+        shares = _agreeing_prefix(tokens, plain)
+        log(f'  {key}: ' + json.dumps({
+            'card': CARD['line'],
+            'accept_rate': stats['spec_accepted'] / stats['spec_proposed'],
+            'spec_proposed': stats['spec_proposed'],
+            'fused_steps': stats['fused_steps'],
+            'decode_tokens_per_s': stats['decode_tokens_per_s'],
+            'decode_tokens_per_s_without_capture':
+                stats['decode_tokens_per_s_without_capture'],
+            'step_share_of_bound': stats['step_share_of_bound'],
+            'k4_launches': {n: launches[n] for n in k4},
+            'k4_split_launches': {n: launches[f'{n}[split]'] for n in k4},
+            'prefix_equal_to_12a': shares}))
 
 
 def qwen_path(counters, paths, root):
@@ -3602,8 +3716,8 @@ def qwen_path(counters, paths, root):
     process, which must print 3 finite losses."""
     params, cfg, directory, load = hf_load_path('12b Qwen2.5-1.5B',
                                                 QWEN25_1_5B, root)
-    paths['12b'], serve = bounded_serve_path('12b Qwen2.5-1.5B', params,
-                                             cfg, counters, 'qwen2.5-1.5b')
+    paths['12b'], serve, _ = bounded_serve_path(
+        '12b Qwen2.5-1.5B', params, cfg, counters, 'qwen2.5-1.5b')
     gc.collect()
     torch.cuda.empty_cache()
     sft_data = _post_train_data(root)[0]
@@ -3633,7 +3747,7 @@ def qwen_path(counters, paths, root):
     return load, serve, sft_stats, child
 
 
-# 12c's debug-size configs: Gemma-like (head_dim 256 decoupled from
+# 12d's debug-size configs: Gemma-like (head_dim 256 decoupled from
 # hidden / heads, gelu, the (1 + w) norms, tied) and Qwen2-like (q/k/v
 # biases, 6 query heads over 1 KV head, tied), f32.
 HF_DEBUG = {
@@ -3653,7 +3767,7 @@ HF_DEBUG = {
 
 
 def hf_parity(root):
-    """12c: each HF_DEBUG config written (f32, drawn on the host, sharded
+    """12d: each HF_DEBUG config written (f32, drawn on the host, sharded
     with an index) and loaded on the host and on the card: the same
     config, every leaf bitwise the same on both and against the draws;
     the first-step logits allclose (LOGITS_TOL), and phase 4's requests
@@ -3675,18 +3789,18 @@ def hf_parity(root):
                                                dtype=torch.float32,
                                                device='cuda')
         if cfg_card != cfg:
-            raise AssertionError(f'12c {label}: configs differ')
+            raise AssertionError(f'12d {label}: configs differ')
         verify_hf_leaves(host, hf_config, 1, torch.float32, 'cpu')
         if not all(torch.equal(a, b.cpu()) for a, b in zip(
                 trainer.tree_leaves(host), trainer.tree_leaves(card))):
-            raise AssertionError(f'12c {label}: card and host leaves differ')
+            raise AssertionError(f'12d {label}: card and host leaves differ')
         prompts, budgets = _debug_requests(cfg.vocab_size)
         tokens = torch.tensor([prompts[1][:40], prompts[3] + prompts[2][:23]])
         with torch.no_grad():
             want = llama.forward(host, tokens, cfg)
             got = llama.forward(card, tokens.cuda(), cfg)
-        _logits_close(f'12c {label} forward logits card vs host', got, want)
-        _card_and_host(f'12c {label}', _serve_debug,
+        _logits_close(f'12d {label} forward logits card vs host', got, want)
+        _card_and_host(f'12d {label}', _serve_debug,
                        {'cpu': host, 'cuda': card}, cfg, prompts, budgets, {})
         shutil.rmtree(directory)
 
@@ -7993,6 +8107,9 @@ def main() -> int:
         decode_attention, ptxas, 'G2', 10)
     decode['gemma'], decode['combine gemma'] = check_decode_at(
         decode_attention, ptxas, 'Gemma-7B', 12)
+    # 12c-int8's decode: K1 over an int8 arena at hd 256.
+    decode['int8 gemma'], _ = check_decode_at(
+        decode_attention, ptxas, 'Gemma-7B', 14, int8=True)
     decode['qwen'], decode['combine qwen'] = check_decode_at(
         decode_attention, ptxas, 'Qwen2.5-1.5B', 13)
     for seed, label in enumerate(('LLAMA3_8B tp2 rank',
@@ -8010,6 +8127,9 @@ def main() -> int:
     window = check_window(decode_attention, ptxas)
     window_rank = check_window(decode_attention, ptxas, 4, 4,
                                TP_WINDOW_SHAPES, 'LLAMA3_8B tp2 rank')
+    window256 = {tag: check_window(decode_attention, ptxas, kv, group,
+                                   tag=tag, head_dim=256)
+                 for tag, kv, group in WINDOW_HD256}
     flash = {'flash_attention': check_flash(attention, ptxas)}
     flash.update({name: check_flash_at(attention, ptxas, name)
                   for name in FLASH_SHAPES})
@@ -8188,20 +8308,22 @@ def main() -> int:
     phase('[12/22] HF checkpoints written in HF\'s layout and loaded by '
           'convert.load_hf_model: (a) Gemma-7B and (b) Qwen2.5-1.5B at '
           'their published widths served, 12b LoRA-SFT in process and '
-          'through train_sft --hf-model, (c) debug-size parity card vs host')
+          'through train_sft --hf-model, (c) Gemma-7B served with spec_k 12 '
+          'and fuse_budget 264 in bf16 and int8 KV, (d) debug-size parity '
+          'card vs host')
     gc.collect()
     torch.cuda.empty_cache()
     scratch = tempfile.mkdtemp(prefix='chip_smoke_hf_')
     try:
         sub = time.perf_counter()
         gemma_path(counters, paths, scratch)
-        log(f'  12a: {time.perf_counter() - sub:.1f} s')
+        log(f'  12a and 12c: {time.perf_counter() - sub:.1f} s')
         sub = time.perf_counter()
         qwen_path(counters, paths, scratch)
         log(f'  12b: {time.perf_counter() - sub:.1f} s')
         sub = time.perf_counter()
         hf_parity(scratch)
-        log(f'  12c: {time.perf_counter() - sub:.1f} s')
+        log(f'  12d: {time.perf_counter() - sub:.1f} s')
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
@@ -8417,6 +8539,10 @@ def main() -> int:
     _need('10c', paths['10c'], [k1.__name__])
     for key in ('11a', '12a', '12b'):
         _need(key, paths[key], [c.__name__ for c in (k1, k2, k3)])
+    gemma12c = tuple(key for key, _ in GEMMA_SPEC_ARMS)
+    for key in gemma12c:
+        _need(key, paths[key], [c.__name__ for c in (k1, k2, k3, k4v, k4f)]
+              + [f'{c.__name__}[tc]' for c in (k4v, k4f)])
     _need('12b-sft', paths['12b-sft'], [c.__name__ for c in (k2, k3, k5, k6)]
           + [f'{k2.__name__}[lse]'])
     phase14 = ('14a', '14b', '14c-bf16', '14c-int8')
@@ -8439,16 +8565,18 @@ def main() -> int:
             raise AssertionError(f'{k2.__name__} wrote its lse on the '
                                  f'{key} path')
     for key, launches in paths.items():
-        # Every path runs bf16 at head_dim 128 (12a's K2 and phase 22's
-        # K2, K5 and K6 at 256): the tensor-core route only; and B KV (8 slots x 16, 8 or 2 KV heads)
-        # < 2 blocks an SM: the split route only.
+        # Every path runs bf16 at head_dim 128 (12a's and 12c's K2, 12c's
+        # K4 and phase 22's K2, K5 and K6 at 256): the tensor-core route
+        # only; and B KV (8 slots x 16, 8 or 2 KV heads) < 2 blocks an SM:
+        # the split route only.
         route = [(c, 'tc') for c in (k2, k5, k6)]
         route += [(c, 'split') for c in (k1, k7)
                   if key[0] in '567' or key in ('10c', '11a', '12a', '12b',
-                                                '18d-grpo', '21')
+                                                '18d-grpo', '21') + gemma12c
                   or key in phase14 or key in decode15 or key in legacy18
                   or key.startswith('19')]
-        route += [(c, 'tc') for c in (k4v, k4f) if key[0] == '6']
+        route += [(c, 'tc') for c in (k4v, k4f)
+                  if key[0] == '6' or key in gemma12c]
         for c, r in route:
             if launches[f'{c.__name__}[{r}]'] != launches[c.__name__]:
                 raise AssertionError(
@@ -8469,7 +8597,7 @@ def main() -> int:
     # K2 and K3 on every path; phase 12's widths have their own entries
     # (12b-sft's K2 launches all write the lse: its entry is the train
     # one at TRAIN_SHAPES['qwen']).
-    hf = ('12a', '12b', '12b-sft')
+    hf = ('12a', '12b', '12b-sft') + gemma12c
     # Phase 17's K2 launches are its lse entries' (train rows below), its
     # K3 launches the per-rank widths' entries.
     rest = tuple(k for k in paths if k not in hf and k not in tp16
@@ -8485,7 +8613,8 @@ def main() -> int:
         entry(decode['Qwen2.5-1.5B tp4 rank'], k1, ('16d',)),
         entry(decode['LLAMA3_8B fleet'], k1, fleet19),
         entry(decode['g2'], k1, ('10c', '18d-grpo')),
-        entry(decode['gemma'], k1, ('12a',)),
+        entry(decode['gemma'], k1, ('12a', '12c-bf16')),
+        entry(decode['int8 gemma'], k1, ('12c-int8',)),
         entry(decode['qwen'], k1, ('12b',)),
         # 16b-int8's ranks run the same int8 instantiation over 4 KV
         # heads (a grid dimension) where 6b runs 8.
@@ -8496,7 +8625,8 @@ def main() -> int:
         # 18d's DPO references and GRPO rollouts run K2 without its lse
         # as 10b and 10c do.
         entry(flash['flash_attention'], k2, rest + ('18d-dpo', '18d-grpo')),
-        entry(flash['flash_attention[Gemma-7B hd256]'], k2, ('12a',)),
+        entry(flash['flash_attention[Gemma-7B hd256]'], k2,
+              ('12a',) + gemma12c),
         entry(flash['flash_attention[Qwen2.5-1.5B G6 prefill]'], k2,
               ('12b',)),
         entry(flash['flash_attention[LLAMA3_8B tp2 rank prefill]'], k2,
@@ -8514,7 +8644,7 @@ def main() -> int:
                                                      '18c', '18d-grpo')),
         entry(norm['rms_norm[MoE small d1024]'], k3,
               ('17e-ep4', '17e-ep2dp2', '18e')),
-        entry(norm['rms_norm[Gemma-7B]'], k3, ('12a',) + gemma22),
+        entry(norm['rms_norm[Gemma-7B]'], k3, ('12a',) + gemma22 + gemma12c),
         entry(norm['rms_norm[Qwen2.5-1.5B]'], k3, ('12b', '12b-sft', '16d')),
         entry(norm['rms_norm[LLAMA3_70B d8192]'], k3, ('16c',)),
         entry(window_rank['verify', 'bf16'], k4v, ('16b-spec',)),
@@ -8523,6 +8653,13 @@ def main() -> int:
         entry(window['fused', 'bf16'], k4f, ('6a',)),
         entry(window['verify', 'int8'], k4v, ('6b',)),
         entry(window['fused', 'int8'], k4f, ('6b',)),
+        # 12c's K4 at hd 256 (Gemma-7B); Gemma-2B's MQA shape (G 8) runs
+        # the same instantiations, checked beside them, on no main path.
+        *[entry(dict(window256['Gemma-7B'][lane, label],
+                     gemma_2b_mqa=window256['Gemma-2B MQA'][lane, label]),
+                counter, (f'12c-{label}',))
+          for lane, counter in (('verify', k4v), ('fused', k4f))
+          for label in ('bf16', 'int8')],
         entry(contig['bf16'], k7, ('7a', '7c')),
         entry(contig['int8'], k7, ('7b',)),
         # K7 per tp shard on 18f's 'paged' plane, summed over its ranks.
@@ -8539,7 +8676,7 @@ def main() -> int:
                         launches=sum(split_paths.values()),
                         launches_by_path=split_paths))
     for key, keys in (('combine g2', ('10c', '18d-grpo')),
-                      ('combine gemma', ('12a',)),
+                      ('combine gemma', ('12a',) + gemma12c),
                       ('combine qwen', ('12b',)),
                       ('combine LLAMA3_8B tp2 rank', ('16b', '16b-spec',
                                                       '16e')),
@@ -8559,6 +8696,12 @@ def main() -> int:
                                   for c in (k4v, k4f))}
     kernels.append(dict(window_rank['combine'], launches=rank_split['16b-spec'],
                         launches_by_path=rank_split))
+    gemma_split = {k: sum(paths[k][f'{c.__name__}[split]']
+                          for c in (k4v, k4f)) for k in gemma12c}
+    kernels.append(dict(window256['Gemma-7B']['combine'],
+                        gemma_2b_mqa=window256['Gemma-2B MQA']['combine'],
+                        launches=sum(gemma_split.values()),
+                        launches_by_path=gemma_split))
     kernels += [entry(train[name, key], counter, keys)
                 for name, counter in (('lse', k2), ('dq', k5), ('dkv', k6))
                 for key, keys in (('1b', ('8a', '9a', '10c', '18d-grpo')),

@@ -26,8 +26,8 @@
 // work is operations (4 * D flops per visible (query, key) pair, against
 // 989 TFLOP/s in bf16); below that, bytes (q, k, v read once, o written
 // once, over 3.35 TB/s).  Two routes, a fixed function of (dtype,
-// head_dim) (flash_fwd_tc_route, reported by skk_flash_fwd_route; K5 and
-// K6 keep bf16 at D 256 on their FMA kernels, mma.cuh):
+// head_dim) (flash_fwd_tc_route, reported by skk_flash_fwd_route; K4,
+// K5 and K6 decide theirs in their own files):
 //
 // - bf16 at D 64, 128 and 256 (every model configuration of the repo),
 //   flash_fwd_mma_kernel: s = q k^T and o += p v on the tensor cores,

@@ -1,7 +1,7 @@
-// Tensor-core building blocks shared by the bf16 flash kernels
-// (flash_fwd.cu: K2; flash_bwd.cu: K5, K6): cp.async loads into padded
-// shared-memory tiles, ldmatrix, and mma.sync m16n8k16 bf16 -> f32 with
-// its fragment conversions.
+// Tensor-core building blocks shared by the bf16 attention kernels
+// (flash_fwd.cu: K2; flash_bwd.cu: K5, K6; paged_window.cu: K4): cp.async
+// loads into padded shared-memory tiles, ldmatrix, and mma.sync m16n8k16
+// bf16 -> f32 with its fragment conversions.
 //
 // Tiles are 64 rows of D bf16 (4 warps of 16 rows a block), row stride
 // D + 8 in shared memory: the 16-byte pad puts the eight rows of an
@@ -106,16 +106,6 @@ __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src, int6
     const bf16* from = in ? src + static_cast<int64_t>(row0 + r) * row_stride + c * 8 : src;
     cp_async16(smem_u32(dst + r * MmaTile<D>::LD + c * 8), from, in ? 16 : 0);
   }
-}
-
-// The tensor-core route of K4 (paged_window.cu): bf16 at D 64 and 128.
-// f32 would need TF32, which changes f32 results; bf16 at D 256 has no
-// tensor-core design in K4 yet.  K2 and K5/K6 decide their own routes
-// (flash_fwd.cu flash_fwd_tc_route, flash_bwd.cu flash_bwd_tc_route),
-// bf16 at D 256 included: K6 there splits its dk and dv accumulators
-// over a pair of warps, 128 registers each.
-inline bool tensor_core_route(int dtype, int head_dim) {
-  return dtype == kBF16 && (head_dim == 64 || head_dim == 128);
 }
 
 }  // namespace skk

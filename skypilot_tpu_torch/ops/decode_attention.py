@@ -54,9 +54,11 @@ _WINDOW_BLOCKS_PER_SM = 4
 _MAX_SPLITS = 48 * 1024 // (4 * _MAX_GROUP)
 # Keys a K4 tensor-core block stages at a time (kWinKeys in
 # csrc/paged_window.cu; a split's length is a multiple of it), and query
-# rows of its tile (kWinTcRows).
+# rows of its tile by head_dim: 4 warps of one m16 tile at 64 and 128
+# (kWinTcRows), one m16 tile whose 4 warps divide the keys at 256
+# (kWin16Rows: its output accumulator alone is 128 registers a thread).
 _WINDOW_CHUNK = 64
-_WINDOW_ROWS = 64
+_WINDOW_ROWS = {64: 64, 128: 64, 256: 16}
 
 
 @functools.lru_cache(maxsize=None)
@@ -536,9 +538,9 @@ _kernels.counter(decode_attention, 'launches', 'launches_split')
 
 
 def _window_route(q_code: int, head_dim: int) -> bool:
-    """True when K4 takes its tensor-core kernel and the split policy
-    (the library's skk_paged_window_route: bf16 q at head_dim 64 and
-    128); False for the FMA kernel (f32, and bf16 at 256), one split."""
+    """True when K4 takes a tensor-core kernel and the split policy
+    (the library's skk_paged_window_route: bf16 q at head_dim 64, 128 and
+    256); False for the FMA kernel (f32), one split."""
     return bool(_kernels.LIBRARY.get().skk_paged_window_route(q_code,
                                                               head_dim))
 
@@ -567,7 +569,7 @@ def _decode_window_attention_cuda(q: torch.Tensor, k_arena: torch.Tensor,
     tc = _window_route(q_code, head_dim)
     splits, split_len = 1, capacity
     if tc:
-        row_tiles = -(-win * group // _WINDOW_ROWS)
+        row_tiles = -(-win * group // _WINDOW_ROWS[head_dim])
         splits, split_len = _window_splits(batch, kv_heads, row_tiles,
                                            capacity, _WINDOW_CHUNK,
                                            _kernels.sm_count(q.device))

@@ -203,15 +203,32 @@ def test_paged_decode_kernel_int8(cuda, dtype, hd, group, bs):
     pytest.param(128, 4, 16, 24, 16, [40, 60, 100, 255],
                  id='128-4-16-24-split-in-window'),
     # The fused lane's width (fuse_budget 264).
-    pytest.param(128, 4, 64, 264, 5, None, id='128-4-64-264-fused-width')])
+    pytest.param(128, 4, 64, 264, 5, None, id='128-4-64-264-fused-width'),
+    # hd 256's 16-row tiles (4 warps dividing the keys in 16-key chunks)
+    # at their edges, W G = 1, 13, 15, 16, 17, 104 and 264: Gemma-7B's G
+    # 1 and Gemma-2B's G 8 (verify W 13, the fused lane's 264 rows).
+    pytest.param(256, 1, 16, 1, 5, None, id='256-1-16-1'),
+    pytest.param(256, 1, 64, 13, 5, None, id='256-1-64-13'),
+    pytest.param(256, 3, 16, 5, 5, None, id='256-3-16-5'),
+    pytest.param(256, 8, 16, 2, 5, None, id='256-8-16-2'),
+    pytest.param(256, 1, 16, 17, 5, None, id='256-1-16-17'),
+    pytest.param(256, 8, 64, 13, 5, None, id='256-8-64-13'),
+    pytest.param(256, 1, 64, 264, 5, None, id='256-1-64-264-fused-width'),
+    pytest.param(256, 8, 64, 33, 5, None, id='256-8-64-33'),
+    # Split boundaries (64-key splits) and 16-key chunk edges inside the
+    # windows at 60 and 100; block edges of 16-row blocks.
+    pytest.param(256, 1, 16, 13, 16, [40, 60, 100, 255],
+                 id='256-1-16-13-split-in-window'),
+    pytest.param(256, 8, 16, 2, 16, [15, 63, 64, 254],
+                 id='256-8-16-2-split-edges')])
 def test_paged_window_kernel(cuda, kind, hd, group, bs, win, t_width, pos):
     """K4 against its plain version, twice (bitwise); keys past each
     slot's window and blocks no table maps are poisoned and must not
     change the output; each window row equals K1 at that row's position.
-    bf16 and int8 at hd 64/128 take the tensor-core route (counted in
-    launches_tc) and its split policy (launches_split when it splits,
-    the combine kernel then equal to the output and per row to
-    _combine_splits_plain); f32, and bf16 at hd 256, the FMA route."""
+    bf16 and int8 take a tensor-core route (counted in launches_tc; at hd
+    256 the 16-row-tile kernel) and its split policy (launches_split when
+    it splits, the combine kernel then equal to the output and per row
+    to _combine_splits_plain); f32 the FMA route."""
     from skypilot_tpu_torch.ops import decode_attention as da
     dtype = torch.bfloat16 if kind == 'int8' else getattr(torch, kind)
     batch, kv = 4, 2
@@ -225,11 +242,11 @@ def test_paged_window_kernel(cuda, kind, hd, group, bs, win, t_width, pos):
     q = torch.randn(batch, win, kv, group, hd, generator=cuda,
                     device='cuda').to(dtype)
     capacity = t_width * bs
-    tc = dtype == torch.bfloat16 and hd in (64, 128)
+    tc = dtype == torch.bfloat16
     splits, split_len = 1, capacity
     if tc:
         splits, split_len = da._window_splits(
-            batch, kv, -(-win * group // da._WINDOW_ROWS), capacity,
+            batch, kv, -(-win * group // da._WINDOW_ROWS[hd]), capacity,
             da._WINDOW_CHUNK,
             torch.cuda.get_device_properties(0).multi_processor_count)
     fn = da.decode_window_attention_pooled
@@ -275,6 +292,18 @@ def test_paged_window_kernel(cuda, kind, hd, group, bs, win, t_width, pos):
         want = da._combine_splits_plain(ml[..., 0], ml[..., 1], acc, live)
         _assert_row_close(combined, want.reshape(
             batch, kv, win, group, hd).permute(0, 2, 1, 3, 4).to(dtype))
+
+
+@pytest.mark.parametrize('dtype,hd,tensor_cores', [
+    (torch.bfloat16, 64, True), (torch.bfloat16, 128, True),
+    (torch.bfloat16, 256, True), (torch.float32, 128, False),
+    (torch.float32, 256, False)])
+def test_paged_window_route(cuda, dtype, hd, tensor_cores):
+    """K4's route as the library reports it (skk_paged_window_route):
+    bf16 at every head_dim on the tensor cores, f32 on the FMA kernel."""
+    from skypilot_tpu_torch.ops import _kernels
+    from skypilot_tpu_torch.ops import decode_attention as da
+    assert da._window_route(_kernels.DTYPE_CODES[dtype], hd) == tensor_cores
 
 
 @pytest.mark.parametrize('kind', ['float32', 'bfloat16', 'int8'])

@@ -73,15 +73,15 @@ def _int8_rows(x: np.ndarray):
 BS, T_WIDTH, KV, GROUP, HD, BATCH = 16, 4, 2, 2, 128, 4
 
 
-def _window_case(win, seed):
+def _window_case(win, seed, kv=KV, group=GROUP, hd=HD):
     """Scattered tables covering each slot's window; window starts at 0,
     the block edges BS-1 and BS, and the table's last row (the later
     rows of that window run past the table)."""
     rng = np.random.RandomState(seed)
     nb = 1 + BATCH * T_WIDTH
-    q = rng.randn(BATCH, win, KV, GROUP, HD).astype(np.float32)
-    k = rng.randn(2, nb, BS, KV, HD).astype(np.float32)
-    v = rng.randn(2, nb, BS, KV, HD).astype(np.float32)
+    q = rng.randn(BATCH, win, kv, group, hd).astype(np.float32)
+    k = rng.randn(2, nb, BS, kv, hd).astype(np.float32)
+    v = rng.randn(2, nb, BS, kv, hd).astype(np.float32)
     positions = np.asarray([0, BS - 1, BS, T_WIDTH * BS - 1], np.int32)
     perm = rng.permutation(np.arange(1, nb))
     tables = np.zeros((BATCH, T_WIDTH), np.int32)
@@ -130,7 +130,29 @@ def test_window_attention_matches_jax(kind, win):
     """decode_window_attention_pooled against the JAX kernel (interpret
     mode) and the JAX oracle; each window row equals single-token decode
     at its own position."""
-    q, k, v, tables, positions = _window_case(win, seed=win)
+    _check_window_attention(kind, win, seed=win)
+
+
+@pytest.mark.parametrize('kind', ['float32', 'bfloat16', 'int8'])
+@pytest.mark.parametrize('group', [1, 8])
+@pytest.mark.parametrize('win', [1, 13])
+def test_window_attention_hd256_matches_jax(kind, group, win):
+    """The same at head_dim 256 (Gemma), G 1 (Gemma-7B's MHA) and G 8
+    (Gemma-2B's MQA shape: 104 rows r = w G + g at W 13), with the
+    HD-128 test's tolerances against JAX (both sides sum the same f32
+    terms, and bf16's two ulps hold at |o| < 2 whatever the width).  A
+    window row against single-token decode at its position: F32_ATOL,
+    the file's summation-order bound (the two plain einsums reduce the
+    256-wide products in other orders: 1.5e-6 seen, past the HD-128
+    test's 1e-6)."""
+    _check_window_attention(kind, win, seed=100 + 10 * group + win,
+                            kv=1 if group == 8 else 2, group=group, hd=256,
+                            row_atol=F32_ATOL)
+
+
+def _check_window_attention(kind, win, seed, kv=KV, group=GROUP, hd=HD,
+                            row_atol=1e-6):
+    q, k, v, tables, positions = _window_case(win, seed, kv, group, hd)
     qn, kn, vn, ks, vs = _inputs(kind, q, k, v)
     qt, kt, vt, kst, vst = _to_torch(kind, (qn, kn, vn, ks, vs))
     layer = 1
@@ -147,8 +169,8 @@ def test_window_attention_matches_jax(kind, win):
     # The all-f32 oracles over the gathered (dequantized) layer view.
     k_f = kn.astype(np.float32) * (ks[..., None] if ks is not None else 1)
     v_f = vn.astype(np.float32) * (vs[..., None] if vs is not None else 1)
-    k_g = k_f[layer][tables].reshape(BATCH, -1, KV, HD)
-    v_g = v_f[layer][tables].reshape(BATCH, -1, KV, HD)
+    k_g = k_f[layer][tables].reshape(BATCH, -1, kv, hd)
+    v_g = v_f[layer][tables].reshape(BATCH, -1, kv, hd)
     oracle = da.reference_decode_window_attention(
         _t(qn), _t(k_g), _t(v_g), _t(positions))
     j_oracle = j_decode.reference_decode_window_attention(
@@ -161,7 +183,8 @@ def test_window_attention_matches_jax(kind, win):
         rows = np.minimum(positions + w, T_WIDTH * BS - 1).astype(np.int32)
         single = da.decode_attention_pooled(
             qt[:, w], kt, vt, _t(tables), layer, _t(rows), kst, vst)
-        np.testing.assert_allclose(_np(out[:, w]), _np(single), atol=1e-6)
+        np.testing.assert_allclose(_np(out[:, w]), _np(single),
+                                   atol=row_atol)
 
 
 @pytest.mark.parametrize('kind', ['float32', 'int8'])
@@ -197,32 +220,55 @@ def test_fused_attention_matches_jax(quantized):
     scattered tables, the prefill window through its own table row)
     against the JAX op in interpret mode and the oracles; mirrors the
     JAX package's test_fused_attention_matches_reference."""
-    rng = np.random.RandomState(1)
-    lay, nb, bs, kv, group, hd, batch, width = 2, 8, 64, 2, 2, 128, 2, 4
+    _check_fused_attention('int8' if quantized else 'float32', 1)
+
+
+@pytest.mark.parametrize('kind', ['float32', 'bfloat16', 'int8'])
+@pytest.mark.parametrize('group', [1, 8])
+def test_fused_attention_hd256_matches_jax(kind, group):
+    """The same at head_dim 256, G 1 and G 8 (one KV head), with a
+    16-token prefill lane (fuse_budget 16: at G 8 its 128 rows are 8 of
+    the hd-256 kernel's 16-row tiles); f32 and int8 (f32 q) at the HD-128
+    test's 2e-5, bf16 at two bf16 ulps (BF16_ATOL, |o| < 2)."""
+    _check_fused_attention(kind, 2, kv=1 if group == 8 else 2, group=group,
+                           hd=256, width=16)
+
+
+def _check_fused_attention(kind, seed, kv=2, group=2, hd=128, width=4):
+    rng = np.random.RandomState(seed)
+    lay, nb, bs, batch = 2, 8, 64, 2
     q = rng.randn(batch, kv, group, hd).astype(np.float32)
     q_pf = rng.randn(width, kv, group, hd).astype(np.float32)
     k = rng.randn(lay, nb, bs, kv, hd).astype(np.float32)
     v = rng.randn(lay, nb, bs, kv, hd).astype(np.float32)
     ks = vs = None
+    quantized = kind == 'int8'
     if quantized:
         k, ks = _int8_rows(k)
         v, vs = _int8_rows(v)
+    elif kind == 'bfloat16':
+        q, q_pf, k, v = (np.asarray(jnp.asarray(a).astype(jnp.bfloat16)
+                                    .astype(jnp.float32))
+                         for a in (q, q_pf, k, v))
+    atol = BF16_ATOL if kind == 'bfloat16' else 2e-5
     tables = np.asarray([[3, 6, 1], [5, 0, 0]], np.int32)
     pf_row = np.asarray([2, 4, 7], np.int32)
     positions = np.asarray([150, 40], np.int32)
     pf_start, layer = 70, 1
     opt = lambda a: None if a is None else _t(a)  # noqa: E731
+    qt, q_pft, kt, vt = _to_torch(kind, (q, q_pf, k, v))
     o_dec, o_pf = da.fused_step_attention_pooled(
-        _t(q), _t(q_pf), _t(k), _t(v), _t(tables), _t(pf_row), layer,
+        qt, q_pft, kt, vt, _t(tables), _t(pf_row), layer,
         _t(positions), pf_start, opt(ks), opt(vs))
+    assert o_pf.dtype == qt.dtype
     jopt = lambda a: None if a is None else jnp.asarray(a)  # noqa: E731
     r_dec, r_pf = j_decode.fused_step_attention_pooled(
-        jnp.asarray(q), jnp.asarray(q_pf), jnp.asarray(k), jnp.asarray(v),
+        *_to_jax(kind, (q, q_pf, k, v)),
         jnp.asarray(tables), jnp.asarray(pf_row), layer,
         jnp.asarray(positions), jnp.int32(pf_start), jopt(ks), jopt(vs),
         interpret=True)
-    np.testing.assert_allclose(o_dec.numpy(), _np(r_dec), atol=2e-5)
-    np.testing.assert_allclose(o_pf.numpy(), _np(r_pf), atol=2e-5)
+    np.testing.assert_allclose(_np(o_dec), _np(r_dec), atol=atol)
+    np.testing.assert_allclose(_np(o_pf), _np(r_pf), atol=atol)
     k_f = k.astype(np.float32) * (ks[..., None] if quantized else 1)
     v_f = v.astype(np.float32) * (vs[..., None] if quantized else 1)
     s_len = tables.shape[1] * bs
@@ -231,8 +277,8 @@ def test_fused_attention_matches_jax(quantized):
         _t(v_f[layer][tables].reshape(batch, s_len, kv, hd)),
         _t(positions), _t(q_pf), _t(k_f[layer][pf_row].reshape(s_len, kv, hd)),
         _t(v_f[layer][pf_row].reshape(s_len, kv, hd)), pf_start)
-    np.testing.assert_allclose(o1.numpy(), o_dec.numpy(), atol=2e-5)
-    np.testing.assert_allclose(o2.numpy(), o_pf.numpy(), atol=2e-5)
+    np.testing.assert_allclose(o1.numpy(), _np(o_dec), atol=atol)
+    np.testing.assert_allclose(o2.numpy(), _np(o_pf), atol=atol)
 
 
 # ---- host logic: accept rules, drafter, policies ---------------------------
@@ -550,6 +596,49 @@ def test_batcher_tokens_match_jax(debug_params, extra):
         assert b._spec_policy.ema == jb._spec_policy.ema
     st = b.pool.stats()
     assert st['blocks_live'] == 0 and st['reserved'] == 0
+
+
+# Gemma's attention at debug size (tests/test_torch_train.py's GEMMA_LIKE,
+# chip_smoke.py's in f32): 2 heads of 256 over d_model 512, MHA as
+# Gemma-7B, the gelu-tanh MLP and the sqrt(d) embedding scale.
+GEMMA_LIKE = dict(d_model=512, n_heads=2, n_kv_heads=2, d_ff=1024,
+                  mlp_act='gelu_tanh', embed_scale=512 ** 0.5)
+
+
+@pytest.mark.parametrize('extra', [dict(spec_k=3), dict(fuse_budget=16)],
+                         ids=['spec', 'fused'])
+def test_gemma_like_batcher_tokens_match_jax(extra):
+    """The batchers on a 2-layer Gemma-like head_dim-256 config in f32:
+    greedy tokens identical to the JAX ContinuousBatcher's with spec_k 3
+    (the verify windows through K4's plain version at hd 256) and with
+    fuse_budget 16 (the fused lane at hd 256), drafts proposed and fused
+    steps run on both sides alike."""
+    jcfg = dataclasses.replace(j_llama.LLAMA_DEBUG, **GEMMA_LIKE)
+    tcfg = dataclasses.replace(llama.LLAMA_DEBUG, **GEMMA_LIKE)
+    assert jcfg.head_dim == tcfg.head_dim == 256
+    jp = j_llama.init_params(jcfg, jax.random.PRNGKey(0))
+    tree = jax.tree.map(lambda x: np.asarray(x, np.float32), jp)
+    tp = llama.params_from_numpy(tree, tcfg, 'cpu')
+    jb = j_serving.ContinuousBatcher(
+        jp, jcfg, j_engine.GeneratorConfig(**KW, **extra), decode_chunk=4)
+    j_rids = [jb.submit(p, max_new_tokens=n)
+              for p, n in zip(_prompts(), BUDGETS)]
+    jb.run_until_idle()
+    want = [jb.result(r) for r in j_rids]
+    b = ContinuousBatcher(tp, tcfg, GeneratorConfig(**KW, **extra),
+                          decode_chunk=4, device='cpu')
+    rids = [b.submit(p, max_new_tokens=n)
+            for p, n in zip(_prompts(), BUDGETS)]
+    _drain(b)
+    assert [b.result(r) for r in rids] == want
+    if 'fuse_budget' in extra:
+        assert b._fuse_policy.stats.steps > 0
+        assert dataclasses.asdict(b._fuse_policy.stats) == \
+            dataclasses.asdict(jb._fuse_policy.stats)
+    else:
+        assert b.spec_proposed > 0
+        assert b._spec_policy.ema == jb._spec_policy.ema
+    b.close()
 
 
 def _golden(b, futures):

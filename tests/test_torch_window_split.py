@@ -62,6 +62,30 @@ def test_window_splits_on_the_serving_shapes():
                              H100_SMS) == (4, 512)
 
 
+@pytest.mark.parametrize('config,batch,win,kv_heads,group,tiles,split', [
+    # Gemma-7B (MHA, 16 KV heads) at phase 12c's spec_k 12 verify window
+    # and fuse_budget 264 lane, and at phase 16b's spec_k 4.
+    ('Gemma-7B verify', 8, 13, 16, 1, 1, (5, 448)),
+    ('Gemma-7B fused', 1, 264, 16, 1, 17, (2, 1024)),
+    ('Gemma-7B spec_k 4', 8, 5, 16, 1, 1, (5, 448)),
+    # Gemma-2B's MQA (8 query heads over 1 KV head): r = w G + g.
+    ('Gemma-2B verify', 8, 13, 1, 8, 7, (8, 256)),
+    ('Gemma-2B fused', 1, 264, 1, 8, 132, (4, 512)),
+])
+def test_window_splits_on_the_hd256_serving_shapes(config, batch, win,
+                                                   kv_heads, group, tiles,
+                                                   split):
+    """K4 at head_dim 256 on 132 SMs: one 16-row tile a block
+    (_WINDOW_ROWS[256], an m16 tile whose 4 warps divide the keys), so
+    W G rows make ceil(W G / 16) row tiles, and the split policy over
+    them, at the shapes of chip_smoke.py's phases 3 and 12c."""
+    assert da._WINDOW_ROWS == {64: 64, 128: 64, 256: 16}
+    row_tiles = -(-win * group // da._WINDOW_ROWS[256])
+    assert row_tiles == tiles
+    assert da._window_splits(batch, kv_heads, row_tiles, 2048,
+                             da._WINDOW_CHUNK, H100_SMS) == split
+
+
 def test_window_live_splits_count_each_row():
     """Row r = w G + g reads splits 0 .. min(pos + w, capacity - 1) //
     split_len: the shallow rows of a window that crosses a split
@@ -159,24 +183,29 @@ def _arena_case(label, batch, win, kv_heads, group, hd, bs, t_width, pos,
 
 
 @pytest.mark.parametrize('label', ['f32', 'int8'])
-@pytest.mark.parametrize('win,group,pos,sms', [
+@pytest.mark.parametrize('win,group,pos,sms,hd', [
     # The verify window (W 13, G 4: one 64-row tile); four 64-key splits.
     # Slot 1's window crosses key 64: its rows 0-3 see no key of split
     # 1, which the tile reads; slot 2's runs past the table.
-    (13, 4, [0, 60, 250], 12),
+    pytest.param(13, 4, [0, 60, 250], 12, 128, id='13-4-pos0-12'),
     # A longer window (W 40, G 2: two tiles); slot 1's first tile reads
     # keys to 131, split 2, which only its rows w >= 28 see.
-    (40, 2, [5, 100], 20),
+    pytest.param(40, 2, [5, 100], 20, 128, id='40-2-pos1-20'),
+    # head_dim 256's 16-row tiles: Gemma-7B's G 1 (one tile of 13 rows)
+    # and Gemma-2B's G 8 (104 rows, 7 tiles; slot 1's first tile, rows
+    # w 0-1, reads keys to 101, split 1, which both of its windows see).
+    pytest.param(13, 1, [0, 60, 250], 12, 256, id='hd256-13-1-pos0-12'),
+    pytest.param(13, 8, [5, 100], 40, 256, id='hd256-13-8-pos1-40'),
 ])
 def test_combined_window_splits_match_plain_and_jax(label, win, group, pos,
-                                                    sms):
+                                                    sms, hd):
     """Each block's partials of a split launch, combined by
     _combine_splits_plain with per-row live counts, against K4's plain
     version and the JAX decode_window_attention_pooled in interpret
     mode."""
-    batch, kv_heads, hd, bs, t_width, layer = len(pos), 2, 128, 16, 16, 1
+    batch, kv_heads, bs, t_width, layer = len(pos), 2, 16, 16, 1
     capacity = t_width * bs
-    row_tiles = -(-win * group // da._WINDOW_ROWS)
+    row_tiles = -(-win * group // da._WINDOW_ROWS[hd])
     splits, split_len = da._window_splits(batch, kv_heads, row_tiles,
                                           capacity, da._WINDOW_CHUNK, sms)
     assert (splits, split_len) == (4, 64)
@@ -184,7 +213,7 @@ def test_combined_window_splits_match_plain_and_jax(label, win, group, pos,
     q, k, v, ks, vs, tables, (k_g, v_g) = _arena_case(
         label, batch, win, kv_heads, group, hd, bs, t_width, pos, 7 + win)
     m, l, acc = _block_partials(q, k_g, v_g, positions, splits, split_len,
-                                da._WINDOW_ROWS, da._WINDOW_CHUNK)
+                                da._WINDOW_ROWS[hd], da._WINDOW_CHUNK)
     live = da._window_live_splits(torch.from_numpy(positions), win, group,
                                   capacity, split_len)
     got = da._combine_splits_plain(torch.from_numpy(m), torch.from_numpy(l),
@@ -210,28 +239,39 @@ def test_combined_window_splits_match_plain_and_jax(label, win, group, pos,
 
 # ---- the launch -------------------------------------------------------------
 
-@pytest.mark.parametrize('lane,dtype,batch,win,splits,split_len', [
-    ('verify', torch.bfloat16, 8, 13, 8, 256),
-    ('fused', torch.bfloat16, 1, 264, 4, 512),
-    ('verify', torch.float32, 8, 13, 1, 2048),       # the FMA route
-])
+@pytest.mark.parametrize(
+    'lane,dtype,batch,win,kv_heads,group,hd,splits,split_len', [
+        pytest.param('verify', torch.bfloat16, 8, 13, 8, 4, 128, 8, 256,
+                     id='verify-dtype0-8-13-8-256'),
+        pytest.param('fused', torch.bfloat16, 1, 264, 8, 4, 128, 4, 512,
+                     id='fused-dtype1-1-264-4-512'),
+        pytest.param('verify', torch.float32, 8, 13, 8, 4, 128, 1, 2048,
+                     id='verify-dtype2-8-13-1-2048'),         # FMA route
+        # Gemma-7B at head_dim 256: the tensor-core route's 16-row tiles.
+        pytest.param('verify', torch.bfloat16, 8, 13, 16, 1, 256, 5, 448,
+                     id='hd256-verify-bf16-8-13-5-448'),
+        pytest.param('fused', torch.bfloat16, 1, 264, 16, 1, 256, 2, 1024,
+                     id='hd256-fused-bf16-1-264-2-1024'),
+        pytest.param('verify', torch.float32, 8, 13, 16, 1, 256, 1, 2048,
+                     id='hd256-verify-f32-8-13-1-2048'),      # FMA route
+    ])
 def test_window_launch_arguments(monkeypatch, lane, dtype, batch, win,
-                                 splits, split_len):
+                                 kv_heads, group, hd, splits, split_len):
     """K4's launch, with the library call recorded: q's own pointer (the
     caller's (B, W, KV, G, hd) layout, no permuted copy) and a
     contiguous output of q's shape, the split policy's (splits,
-    split_len) on the tensor-core route and one split on the FMA route,
-    f32 scratch only with more than one split, launches, launches_tc
-    and launches_split counted on the caller's wrapper, and positions
-    never read on the host."""
+    split_len) on the tensor-core route (bf16 at hd 64, 128 and 256) and
+    one split on the FMA route (f32), f32 scratch only with more than
+    one split, launches, launches_tc and launches_split counted on the
+    caller's wrapper, and positions never read on the host."""
     calls = []
     monkeypatch.setattr(_kernels, 'launch',
                         lambda name, device, *args: calls.append(
                             (name, args)))
     monkeypatch.setattr(_kernels, 'sm_count', lambda device: H100_SMS)
     monkeypatch.setattr(da, '_window_route',
-                        lambda code, hd: code == 1 and hd in (64, 128))
-    kv_heads, group, hd, bs, t_width = 8, 4, 128, 64, 32
+                        lambda code, hd: code == 1 and hd in (64, 128, 256))
+    bs, t_width = 64, 32
     q = torch.zeros(batch, win, kv_heads, group, hd, dtype=dtype)
     k = torch.zeros(2, 3, bs, kv_heads, hd, dtype=dtype)
     tables = torch.zeros(batch, t_width, dtype=torch.int32)
