@@ -59,7 +59,8 @@ Phases (any failure exits non-zero):
    same at hd 256 for Gemma-7B (16 KV heads, G 1) and Gemma-2B's MQA (1
    KV head, G 8), whose bf16 and int8 launches take the hd-256
    tensor-core kernel, and K1 over an int8 arena at Gemma-7B's decode.
-   K2 (o, and its lse) is held to
+   K4 again at phase 23's bench_spec verify (LLAMA_1B: 8 KV heads, G 2,
+   W 13), its bf16 (tensor-core route) launch timed.  K2 (o, and its lse) is held to
    _flash_fwd_plain, its own numerics, and to _attention_plain, the JAX
    reference_attention's, at the prefill shape and ragged S.  The
    training kernels (K2 with its lse, K5 dq, K6 dk/dv) are held to their
@@ -109,10 +110,11 @@ Phases (any failure exits non-zero):
 8. train path: Trainer(loss_fn, params, config).fit on random bf16
    weights, remat 'dots', chunked CE: (a) LLAMA_1B at the reference
    bench's settings (8 x 1024 tokens, loss_chunk 256, 12 steps, warmup 2
-   of 12), (b) LLAMA3_8B's widths at depth 2 (2 x 4096 tokens,
-   loss_chunk 512, 6 steps).  Prints step time, tokens/s, MFU against
-   989e12 (6N with and without the embedding), first and last loss, peak
-   memory and launches per step.
+   of 12) through the port's bench (bench.bench_train, the training
+   headline phase 23 reports), (b) LLAMA3_8B's widths at depth 2 (2 x
+   4096 tokens, loss_chunk 512, 6 steps).  Prints step time, tokens/s,
+   MFU against 989e12 (6N with and without the embedding), the losses,
+   peak memory and launches per step.
 9. checkpoints, LLAMA_1B at phase 8a's settings, under a temp dir that
    is removed after (fails early without ~28 GB free): (a) Trainer A
    takes 8 steps with async saves every 4 (keep_last 2); Trainer B,
@@ -206,7 +208,7 @@ Phases (any failure exits non-zero):
    224x224 in bf16 (2 warm-up, 10 timed steps: images/s, step ms, peak
    memory), then the entry point itself as a child process.
 14. the prefix cache, the host KV tier and the prefill -> decode handoff
-   on random LLAMA3_8B bf16 weights (phase 5's seed) at 16 of its 32
+   on random LLAMA3_8B bf16 weights (phase 5's seed) at 8 of its 32
    layers (cut for time; the budgets follow the KV bytes a token),
    pooled plane through graphs, prefill_chunk = prefix_block = 256.
    (a) bench_prefix_reuse's shape: 8 requests sharing a 1,024-token head
@@ -239,7 +241,7 @@ Phases (any failure exits non-zero):
    start once every queued tier copy ran; one more card run without
    that logs how far its arena layout strays).
 15. telemetry and the entry points around the batcher, LLAMA3_8B bf16 at
-   16 of its 32 layers in process (phase 14's cut, from phase 5's seed,
+   8 of its 32 layers in process (phase 14's cut, from phase 5's seed,
    with its settings; the children of (d) and (e) at all 32).  (a) Phase 5's 8 requests (tenants a and b in turn) on two
    batchers on graphs, one built with a SpanBuffer and a CostLedger and
    one without: a warm-up burst on each, then in turns (on, off, off,
@@ -358,10 +360,10 @@ Phases (any failure exits non-zero):
    card first: (a)'s prefix_affinity run twice, byte-identical summaries;
    (b) again on the host, summary and session_outputs() equal to the
    card's, outputs equal to the fault-free runs'; (c)'s outputs equal to
-   the single pool's.  Then LLAMA3_8B's widths at 8 of its 32 layers
+   the single pool's.  Then LLAMA3_8B's widths at 4 of its 32 layers
    (cut for time; bf16 weights and KV, random from seed 0, one tree
    shared by every replica), every arm once with every byte budget and
-   link rate x16 (its KV bytes a token over LLAMA_DEBUG's): every
+   link rate x8 (its KV bytes a token over LLAMA_DEBUG's): every
    request completes, no session lost, each at its
    token budget, and each summary equals LLAMA_DEBUG's but for the byte
    fields (32x) and the times the images' headers shift
@@ -420,6 +422,21 @@ Phases (any failure exits non-zero):
    cores there too); the directory deleted after.  Phase 3 holds K5 and
    K6 at hd 256 against their plain versions (G 8 and 1, ragged S) and
    times them at 22a's shape.
+23. the port's bench (skypilot_tpu_torch/bench.py, the counterpart of
+   the JAX package's bench.py) at its card shapes: bench_decode (LLAMA_1B,
+   16 slots, bf16, int8 KV and int8 weights + KV, the spans on/off arm and
+   the legacy 'inplace' comparison), bench_spec (LLAMA_1B bf16, 8 slots,
+   spec_k 12, both arms) and bench_prefix_reuse (LLAMA_1B, 8 requests on
+   a 512-token head), then build_headline with phase 8a's training
+   headline; then the verify window's logits against the decode step's
+   at bench_spec's shapes (spec_verify_logits).  Fails if a sub-bench
+   reports an error, pooled_path_cache_migrations is not 0, the
+   high-acceptance arm accepted no draft, the two paths' logits differ
+   by more than TP_LOGITS_REL of the largest, a scripts/bench_compare.py
+   FIELDS path these fill (the training and decode ones) is missing or
+   not finite, or the headline does not carry 8a's tokens/s.  Prints
+   the headline, greedy_parity and agreeing_prefix_share as measured,
+   and each sub-bench's seconds.
    Every phase prints its seconds, and the run its whole.
 
 Every kernel of a main-path run must launch > 0 times in that run (the
@@ -442,11 +459,12 @@ K1) from 18f's 'paged' arms and K2 and K3 (neither K1 nor K7) from its
 from those that prefill whole prompts (all but (c)'s, whose prompts take
 the chunked windows); K1, K2 and K3 from phase 21's census ticks; K2
 with its lse, K3, K5 and K6 from 22a and 22c (its child reports its
-counts); K2, K5 and K6 only on their
+counts); K1, K2, K3 and K4's verify windows from phase 23's bench
+(8a runs its training headline); K2, K5 and K6 only on their
 tensor-core route on every path (bf16 at head_dim 128, and 12a's K2 and
 phase 22's K2, K5 and K6 at 256); K4 on phase 6's paths,
-where it must also take its split route, and on both 12c paths (hd 256),
-on the tensor-core route only; K1 and K7 only on their split
+where it must also take its split route, on both 12c paths (hd 256)
+and on phase 23's, on the tensor-core route only; K1 and K7 only on their split
 route on every path of phases 5 to 7, 10c, 11a, 12a, 12b, 12c, 14, 15a, 15b,
 15d, 18d's GRPO, 18f, 19 and 21 (B KV <= 128
 < 2 x 132 SMs).  The last lines
@@ -481,8 +499,11 @@ import zlib
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
-BF16_FLOPS = 989e12                # dense tensor-core bf16 peak
+# The card's peaks, defined once in the port's bench: HBM bytes/s, the
+# dense tensor-core bf16 rate and the f32 FMA rate outside the tensor cores.
+from skypilot_tpu_torch.bench import (  # noqa: E402
+    CARD_F32_FLOPS as F32_FLOPS, CARD_HBM_BYTES_PER_S as HBM_BYTES_PER_S,
+    CARD_PEAK_FLOPS as BF16_FLOPS)
 TIMING_REPS = 25
 # Tolerances of kernel vs plain version, (atol, rtol), by q's dtype.
 # f32: both sides compute in f32 and differ only in summation order.
@@ -693,9 +714,13 @@ def check_rmsnorm(rmsnorm, name, ptxas):
             def lib(x=x, w=w):
                 return torch.nn.functional.rms_norm(x, (d,), w, eps)
 
+            def plain(x=x, w=w):
+                return rmsnorm._rms_norm_plain(x, w, eps)
+
             row = by_rows[rows] = {
                 'graph_ms': graph_ms(kernel),
                 'library_graph_ms': graph_ms(lib),
+                'plain_graph_ms': graph_ms(plain),
                 'bound_ms': b_ms,
                 'launch': {'threads_a_row': tpr, 'vectors_a_thread': nv,
                            'blocks': grid},
@@ -706,7 +731,8 @@ def check_rmsnorm(rmsnorm, name, ptxas):
                 row.update(ms=time_ms(kernel), library_ms=time_ms(lib))
             log(f'  {name} bf16 ({rows}, {d}) [{tpr} x {nv}, {grid} blocks]: '
                 f'graph {row["graph_ms"]:.4f} ms, F.rms_norm '
-                f'{row["library_graph_ms"]:.4f}; eager '
+                f'{row["library_graph_ms"]:.4f}, plain '
+                f'{row["plain_graph_ms"]:.4f}; eager '
                 f'{row.get("ms", float("nan")):.4f}, F.rms_norm '
                 f'{row.get("library_ms", float("nan")):.4f}; bound '
                 f'{b_ms:.4f} ({b_ms / row["graph_ms"]:.0%} in the graph)')
@@ -1559,7 +1585,8 @@ def check_decode_shared(da, ptxas):
 # head_dim (the arena bf16 or int8, i.e. signed char 'a') and of its
 # combine kernel, and the design of each.
 WINDOW_KERNELS = {
-    128: {'bf16': 'paged_window_mma_kernelI13__nv_bfloat16Li128E',
+    128: {'f32': 'paged_window_kernelIfLi128E',
+          'bf16': 'paged_window_mma_kernelI13__nv_bfloat16Li128E',
           'int8': 'paged_window_mma_kernelIaLi128E',
           'combine': 'paged_window_combine_kernelILi128E'},
     256: {'bf16': 'paged_window_row16_mma_kernelI13__nv_bfloat16Li256E',
@@ -1573,7 +1600,10 @@ _WINDOW_TC256 = ('mma.sync m16n8k16 bf16 -> f32, ldmatrix, a 16-row tile '
                  'split-KV + combine')
 _WINDOW_COMBINE = 'a warp a row, its live splits in ascending order, f32'
 WINDOW_DESIGN = {
-    128: {'bf16': _WINDOW_TC,
+    128: {'f32': ('f32 FMAs on the CUDA cores, a 128-thread block a (slot, '
+                  'KV head, 16-row tile), key chunks staged in shared '
+                  'memory, split-KV + combine'),
+          'bf16': _WINDOW_TC,
           'int8': _WINDOW_TC + ', int8 -> bf16 in shared memory',
           'combine': _WINDOW_COMBINE},
     256: {'bf16': _WINDOW_TC256,
@@ -1587,17 +1617,18 @@ WINDOW_HD256 = (('Gemma-7B', 16, 1), ('Gemma-2B MQA', 1, 8))
 
 
 def check_window(decode_attention, ptxas, kv_heads=KV_HEADS, group=GROUP,
-                 shapes=None, tag='', head_dim=HEAD_DIM):
+                 shapes=None, tag='', head_dim=HEAD_DIM,
+                 timed=('bf16', 'int8')):
     """K4 at the verify shape (B 8, W 13) and the fused-lane shape (B 1,
     W 264 from row 436), in f32, bf16 and on an int8 arena (bf16 q):
     against the plain version, twice (bitwise), on poisoned arenas, and
     at W = 1 against K1; bf16 and int8 must take the tensor-core route
     and f32 the FMA route.  Then the combine pass alone on the partials
     of the verify bf16 launch.  Returns the kernels line entries of the
-    bf16 and int8 variants and of the combine.  kv_heads, group,
-    head_dim, shapes ((lane, positions, W) pairs) and tag (appended to
-    the entries' names) check another shape: phase 16's per-rank one,
-    and Gemma's at hd 256."""
+    `timed` variants (bf16 and int8 by default) and of the combine.
+    kv_heads, group, head_dim, shapes ((lane, positions, W) pairs) and
+    tag (appended to the entries' names) check another shape: phase
+    16's per-rank one, Gemma's at hd 256, and phase 23's verify."""
     from skypilot_tpu_torch.ops import _kernels
     da = decode_attention
     counter = da.decode_window_attention_pooled
@@ -1654,7 +1685,7 @@ def check_window(decode_attention, ptxas, kv_heads=KV_HEADS, group=GROUP,
             check_close(f'{name} W=1 vs K1', one, da.decode_attention_pooled(
                 q[:, 0].contiguous(), k, v, tables, layer, positions, ks,
                 vs))
-            if label == 'f32':
+            if label not in timed:
                 continue
             if (lane, label) == ('verify', 'bf16'):
                 results['combine'] = _check_window_combine(
@@ -1664,9 +1695,10 @@ def check_window(decode_attention, ptxas, kv_heads=KV_HEADS, group=GROUP,
                 + 1, capacity)                          # keys per row
             pairs = int(rows.sum()) * kv_heads * group
             keys = int(rows[:, -1].sum())
-            nbytes = (2 * q.numel() * 2 + _kv_bytes(keys, k)
+            nbytes = (2 * q.numel() * q.element_size() + _kv_bytes(keys, k)
                       + tables.numel() * 4 + batch * 4)
-            b_ms, by = bound(nbytes, 4 * head_dim * pairs, BF16_FLOPS)
+            b_ms, by = bound(nbytes, 4 * head_dim * pairs,
+                             F32_FLOPS if label == 'f32' else BF16_FLOPS)
             kt, vt = _gathered(k, v, ks, vs, tables, layer, dtype)
             qs = q.permute(0, 2, 3, 1, 4).reshape(
                 batch, kv_heads * group, win, head_dim)
@@ -1677,7 +1709,8 @@ def check_window(decode_attention, ptxas, kv_heads=KV_HEADS, group=GROUP,
             lib_err = (out.permute(0, 2, 3, 1, 4).reshape(lib_out.shape)
                        .float() - lib_out.float()).abs().max().item()
             log(f'  {name}: max_abs_err vs SDPA {lib_err:.3e}')
-            suffix = lane if label == 'bf16' else f'int8 {lane}'
+            q_name = 'f32' if label == 'f32' else 'bf16'
+            suffix = lane if label == 'bf16' else f'{label} {lane}'
             suffix += f' {tag}' if tag else ''
             results[(lane, label)] = {
                 'name': f'decode_window_attention_pooled[{suffix}]',
@@ -1685,10 +1718,10 @@ def check_window(decode_attention, ptxas, kv_heads=KV_HEADS, group=GROUP,
                 'source': 'skypilot_tpu_torch/csrc/paged_window.cu',
                 'replaces': 'skypilot_tpu/ops/decode_attention.py:456',
                 'shape': f'q ({batch}, {win}, {kv_heads}, {group}, '
-                         f'{head_dim}) bf16, '
-                         f'{"int8" if int8 else "bf16"} arena, BS {BS} '
+                         f'{head_dim}) {q_name}, '
+                         f'{"int8" if int8 else q_name} arena, BS {BS} '
                          f'T {T_WIDTH}, positions '
-                         f'{pos_list if batch == 1 else "0..2047"}, '
+                         f'{pos_list if batch == 1 else f"{min(pos_list)}..{max(pos_list)}"}, '
                          f'{keys} keys',
                 'splits': splits, 'split_len': split_len,
                 'max_abs_err': err, 'ms': time_ms(kernel),
@@ -2533,6 +2566,46 @@ def train_path(label, cfg, batch, seq, steps, train_config, counters):
     gc.collect()
     torch.cuda.empty_cache()
     return launches, stats
+
+
+def bench_train_path(counters):
+    """8a: the port's training headline, bench.bench_train (LLAMA_1B
+    bf16, remat 'dots', loss_chunk 256, 8 x 1024 tokens, 12 steps through
+    Trainer.fit), with every launch count set to 0 just before and read
+    just after.  Fails unless its loss is finite.  Returns (the counts,
+    the stats it prints, (tokens/s, MFU) for phase 23's headline)."""
+    from skypilot_tpu_torch import bench
+    cfg, batch, seq, steps = bench.train_config('cuda')
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_all = cfg.num_params()
+    n_matmul = n_all - cfg.vocab_size * cfg.d_model
+    _zero(counters)
+    t0 = time.perf_counter()
+    tok_s, mfu, out, tr = bench.bench_train('cuda')
+    wall = time.perf_counter() - t0
+    launches = _counts(counters)
+    tr.close()
+    del tr
+    if not np.isfinite(out['loss']):
+        raise AssertionError(f'8a: loss {out["loss"]}')
+    stats = {
+        'card': CARD['line'],
+        'params_b': n_all / 1e9, 'params_b_without_embed': n_matmul / 1e9,
+        'tokens_per_step': batch * seq, 'steps': steps,
+        'step_time_s': out['step_time_s'], 'tokens_per_s': tok_s,
+        'mfu_6n_all': mfu,
+        'mfu_6n_without_embed': 6 * n_matmul * tok_s / BF16_FLOPS,
+        'last_loss': out['loss'], 'grad_norm': out['grad_norm'],
+        'bench_train_wall_s': wall,
+        'peak_memory_gb': torch.cuda.max_memory_allocated() / 1e9,
+        'launches_per_step': {k: v / steps for k, v in launches.items()
+                              if v},
+    }
+    log('  8a LLAMA_1B 8x1024 (bench.bench_train): ' + json.dumps(stats))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, stats, (tok_s, mfu)
 
 
 # ---- phase 9: checkpointing -------------------------------------------------
@@ -7363,9 +7436,9 @@ def fleet_path(paths, counters=None, device='cuda', big=None):
     the host (the port's CPU path, the same weights), summary and
     session_outputs() equal to the card's, and their outputs equal to
     their fault-free runs'; (c)'s outputs equal to the single pool's.
-    Then `big` (LLAMA3_8B's widths at 8 of its 32 layers, bf16 weights
+    Then `big` (LLAMA3_8B's widths at 4 of its 32 layers, bf16 weights
     and KV, random from seed 0), every arm once with every byte budget
-    and link rate times the KV bytes a token over LLAMA_DEBUG's (16):
+    and link rate times the KV bytes a token over LLAMA_DEBUG's (8):
     each run completes
     every request, none lost, every session at its token budget, and its
     summary equals the LLAMA_DEBUG run's but for the byte fields and the
@@ -7382,11 +7455,11 @@ def fleet_path(paths, counters=None, device='cuda', big=None):
     from skypilot_tpu_torch.infer.block_pool import block_nbytes
     from skypilot_tpu_torch.models import llama
     debug = llama.LLAMA_DEBUG
-    # LLAMA3_8B's widths at 8 of its 32 layers, cut for the run's time
+    # LLAMA3_8B's widths at 4 of its 32 layers, cut for the run's time
     # (the KV bytes a token stay a power of two over LLAMA_DEBUG's).
-    big_name = ('LLAMA3_8B 8 layers' if big is None
+    big_name = ('LLAMA3_8B 4 layers' if big is None
                 else f'{big.n_layers}-layer d{big.d_model}')
-    big = big or dataclasses.replace(llama.LLAMA3_8B, n_layers=8)
+    big = big or dataclasses.replace(llama.LLAMA3_8B, n_layers=4)
     # KV bytes a token (a one-row block) of each model's arena.
     big_bytes, debug_bytes = block_nbytes(big, 1), block_nbytes(debug, 1)
     scale = big_bytes // debug_bytes
@@ -8014,6 +8087,152 @@ def gemma_entry_path(root):
     return launches
 
 
+# ---- phase 23: the port's bench ----------------------------------------------
+
+# bench_spec's verify windows at its card shapes: 8 slots of LLAMA_1B
+# (8 KV heads, G 2) at W 13 (spec_k 12), at positions 32-147 (32-token
+# prompts, up to 115 of their 128 new tokens in).
+BENCH_SPEC_WINDOW = (('verify', [32, 40, 48, 64, 80, 96, 128, 147], 13),)
+# scripts/bench_compare.py's FIELDS paths that phase 23's sub-benches fill
+# (the training headline and bench_decode's three variants).
+BENCH_FILLED = ('llama_1b_tok_s_chip', 'decode.')
+# bench_spec's verify against the plain decode step (SPEC_LOGIT_STEPS
+# steps of LLAMA_1B bf16 at bench_spec's shapes): the logits of one token
+# at one position from the two paths agree within TP_LOGITS_REL of the
+# largest, phase 16e's bound for two schedules of the same bf16 products.
+SPEC_LOGIT_STEPS = 4
+
+
+def _script(name):
+    """scripts/<name>.py, loaded by its path: bench_compare (standard
+    library only: its FIELDS are the headline paths a diff of two runs
+    reads) and torch_bench_diag."""
+    import importlib.util
+    path = os.path.join(HERE, 'scripts', f'{name}.py')
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _headline_value(headline, path):
+    node = headline
+    for part in path.split('.'):
+        if not isinstance(node, dict) or part not in node:
+            return None
+        node = node[part]
+    return node
+
+
+def spec_verify_logits(steps=SPEC_LOGIT_STEPS):
+    """What bench_spec's greedy parity rests on, in bf16:
+    scripts/torch_bench_diag.py's spec part (loaded by its path) at
+    LLAMA_1B bf16 and bench_spec's shapes: each step's plain decode step
+    (8 rows, K1) and verify window (W 13: 104 rows, K4) on copies of one
+    arena score the same token at the same position.  Returns the
+    largest logit difference over the steps, the largest logit, the
+    slots whose argmax the two agree on, and the pieces' differences."""
+    from skypilot_tpu_torch.models import llama
+    diag = _script('torch_bench_diag').spec_numerics(
+        torch.bfloat16, torch.device('cuda'), llama.LLAMA_1B, steps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {'max_abs_diff': max(st['step_vs_verify13']['max_abs']
+                                for st in diag['steps']),
+            'max_abs_logit': max(st['max_abs_logit']
+                                 for st in diag['steps']),
+            'argmax_equal_a_step': [st['argmax_equal_step_verify13']
+                                    for st in diag['steps']],
+            'attention': diag['attention'],
+            'products_rows8_vs_rows104_differing': {
+                name: d['rows8_vs_rows104']['elems_differing']
+                for name, d in diag['products'].items()}}
+
+
+def bench_path(counters, train_headline, device='cuda'):
+    """23: the port's bench (skypilot_tpu_torch/bench.py) at its card
+    shapes: bench_decode, bench_spec and bench_prefix_reuse, then
+    build_headline over them and phase 8a's training headline (8a runs
+    bench.bench_train), with every launch count set to 0 just before and
+    read just after.  Then spec_verify_logits.  Fails if a sub-bench
+    reports an error, if pooled_path_cache_migrations is not 0, if
+    bench_spec's high-acceptance arm accepted no draft, if the verify's
+    logits differ from the decode step's by more than TP_LOGITS_REL of
+    the largest, if a bench_compare FIELDS path these fill is missing or
+    not a finite number, or if the headline does not carry 8a's
+    tokens/s.  greedy_parity and agreeing_prefix_share are printed as
+    measured: bf16 may round a verify row otherwise than a decode step
+    (PERF.md).  Returns the launch counts."""
+    from skypilot_tpu_torch import bench
+
+    compare = _script('bench_compare')
+    seconds = {}
+    _zero(counters)
+    subs = {}
+    for name, fn in (('decode', bench.bench_decode),
+                     ('spec', bench.bench_spec),
+                     ('prefix', bench.bench_prefix_reuse)):
+        t0 = time.perf_counter()
+        subs[name] = fn(device)
+        seconds[name] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = _counts(counters)
+    tok_s, mfu = train_headline
+    headline = bench.build_headline(tok_s, mfu, {}, subs['decode'], None,
+                                    prefix=subs['prefix'],
+                                    spec=subs['spec'])
+    t0 = time.perf_counter()
+    logits = spec_verify_logits()
+    seconds['spec_verify_logits'] = time.perf_counter() - t0
+    log('  23 BENCH_HEADLINE ' + json.dumps(headline))
+    log('  23 ' + json.dumps({
+        'card': CARD['line'],
+        'seconds': {k: round(v, 1) for k, v in seconds.items()},
+        'spec': {k: subs['spec'][k] for k in (
+            'greedy_parity', 'agreeing_prefix_share', 'prefix_cache_mb',
+            'spec_off', 'spec_off_adversarial', 'high_acceptance',
+            'adversarial')},
+        'spec_verify_logits': logits,
+        'prefix': {k: subs['prefix'][k] for k in (
+            'cold', 'warm', 'cold_tokens_saved', 'warm_tokens_saved',
+            'hits', 'misses')},
+        'decode': {k: subs['decode'][k] for k in (
+            'span_overhead', 'bucketed_vs_fixed',
+            'pooled_path_cache_migrations')},
+        'rooflines': {v: {k: subs['decode'][v][k] for k in (
+            'roofline_tok_s', 'roofline_streamed_tok_s',
+            'steady_streamed_roofline_pct', 'latency_per_token_ms_p50',
+            'latency_per_token_ms_p99')}
+            for v in ('bf16', 'int8_kv', 'int8_w_kv')}}))
+    for name, out in subs.items():
+        if 'error' in out:
+            raise AssertionError(f'23: bench_{name} reported {out["error"]}')
+    if subs['decode']['pooled_path_cache_migrations'] != 0:
+        raise AssertionError('23: the pooled decode variants migrated '
+                             f'{subs["decode"]["pooled_path_cache_migrations"]}'
+                             ' caches')
+    if not subs['spec']['high_acceptance']['accept_rate'] > 0:
+        raise AssertionError('23: bench_spec\'s high-acceptance arm '
+                             'accepted no draft')
+    if logits['max_abs_diff'] > TP_LOGITS_REL * logits['max_abs_logit']:
+        raise AssertionError(f'23: the verify window\'s logits differ from '
+                             f'the decode step\'s by {logits}')
+    filled = [path for path, _ in compare.FIELDS
+              if path.startswith(BENCH_FILLED)]
+    if len(filled) != 7:
+        raise AssertionError(f'23: bench_compare FIELDS filled here: {filled}')
+    for path in filled:
+        value = _headline_value(headline, path)
+        if not isinstance(value, (int, float)) or not math.isfinite(value):
+            raise AssertionError(f'23: headline {path} = {value!r}')
+    if headline['llama_1b_tok_s_chip'] != round(tok_s, 1):
+        raise AssertionError(f'23: headline llama_1b_tok_s_chip '
+                             f'{headline["llama_1b_tok_s_chip"]}, 8a '
+                             f'measured {tok_s}')
+    return launches
+
+
 def _same_sessions(what, got, want):
     """Equal session_outputs(), or an error naming the first session (by
     its place in sid order) and token where they part."""
@@ -8078,10 +8297,10 @@ def main() -> int:
         log(f'  phase {clock["name"]}: '
             f'{time.perf_counter() - clock["start"]:.1f} s')
 
-    phase(f'[1/22] device: {CARD["line"]} | torch {torch.__version__} '
+    phase(f'[1/23] device: {CARD["line"]} | torch {torch.__version__} '
         f'cuda {torch.version.cuda}')
 
-    phase('[2/22] build')
+    phase('[2/23] build')
     _kernels.LIBRARY.get()
     log(f'  built {_kernels.LIBRARY.path.name} in '
         f'{_kernels.LIBRARY.build_seconds:.1f} s')
@@ -8100,7 +8319,7 @@ def main() -> int:
                 and info['spill_bytes']:
             raise AssertionError(f'decode kernel {name} spills: {info}')
 
-    phase('[3/22] kernels vs plain versions')
+    phase('[3/23] kernels vs plain versions')
     t0 = time.perf_counter()
     decode = check_decode(decode_attention, ptxas)
     decode['g2'], decode['combine g2'] = check_decode_at(
@@ -8127,6 +8346,9 @@ def main() -> int:
     window = check_window(decode_attention, ptxas)
     window_rank = check_window(decode_attention, ptxas, 4, 4,
                                TP_WINDOW_SHAPES, 'LLAMA3_8B tp2 rank')
+    # Phase 23's verify windows: bench_spec's, LLAMA_1B in bf16.
+    window_1b = check_window(decode_attention, ptxas, 8, 2,
+                             BENCH_SPEC_WINDOW, 'LLAMA_1B', timed=('bf16',))
     window256 = {tag: check_window(decode_attention, ptxas, kv, group,
                                    tag=tag, head_dim=256)
                  for tag, kv, group in WINDOW_HD256}
@@ -8150,13 +8372,13 @@ def main() -> int:
         f'{time_ms(read.sum):.4f} ms (bound 0.0063)')
     del tiny, read
 
-    phase('[4/22] slice parity, LLAMA_DEBUG and MoE f32, card vs host')
+    phase('[4/23] slice parity, LLAMA_DEBUG and MoE f32, card vs host')
     slice_parity()
     train_parity()
     post_train_parity()
     moe_parity()
 
-    phase('[5/22] main path, LLAMA3_8B bf16 behind the HTTP replica')
+    phase('[5/23] main path, LLAMA3_8B bf16 behind the HTTP replica')
     cfg = llama.LLAMA3_8B
     t0 = time.perf_counter()
     params = llama.init_params(
@@ -8184,7 +8406,7 @@ def main() -> int:
             raise AssertionError(f'{k1.__name__} missed the split route on '
                                  f'the {key} path')
 
-    phase('[6/22] main path with spec_k 12 and fuse_budget 264: (a) bf16, '
+    phase('[6/23] main path with spec_k 12 and fuse_budget 264: (a) bf16, '
         '(b) int8 KV and weights')
     spec = dict(base, spec_k=12, fuse_budget=264)
     paths['6a'], _, _, st = serve_path('6a bf16 spec+fused', params,
@@ -8200,7 +8422,7 @@ def main() -> int:
               + [f'{c.__name__}[{r}]' for c in (k4v, k4f)
                  for r in ('tc', 'split')])
 
-    phase("[7/22] legacy plane decode_impl='paged' (K7): (a) bf16 and (b) int8 "
+    phase("[7/23] legacy plane decode_impl='paged' (K7): (a) bf16 and (b) int8 "
         'KV behind the HTTP replica, (c) Generator.generate')
     legacy = dict(base, decode_impl='paged', decode_chunk=16)
     with warnings.catch_warnings():
@@ -8225,14 +8447,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    phase('[8/22] train path: (a) LLAMA_1B at the bench settings, (b) '
+    phase('[8/23] train path: (a) LLAMA_1B at the bench settings, (b) '
         'LLAMA3_8B widths at depth 2')
     remat = dict(remat=True, remat_policy='dots')
     cfg_1b = dataclasses.replace(llama.LLAMA_1B, max_seq_len=2048,
                                  loss_chunk=256, **remat)
-    paths['8a'], stats_8a = train_path(
-        '8a LLAMA_1B 8x1024', cfg_1b, 8, 1024, 12,
-        trainer.TrainConfig(warmup_steps=2, total_steps=12), counters)
+    paths['8a'], stats_8a, headline_8a = bench_train_path(counters)
     paths['8b'], _ = train_path(
         '8b LLAMA3_8B widths, 2 layers, 2x4096', dataclasses.replace(
             llama.LLAMA3_8B, n_layers=2, max_seq_len=4096, loss_chunk=512,
@@ -8240,7 +8460,7 @@ def main() -> int:
         2, 4096, 6, trainer.TrainConfig(warmup_steps=2, total_steps=6),
         counters)
 
-    phase('[9/22] checkpoints: (a) LLAMA_1B async saves, restore, continue '
+    phase('[9/23] checkpoints: (a) LLAMA_1B async saves, restore, continue '
           '(phase 8a settings), (b) a managed job SIGTERMed and resumed '
           'through train_llama --resume auto')
     scratch = tempfile.mkdtemp(prefix='chip_smoke_ckpt_')
@@ -8263,7 +8483,7 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
-    phase('[10/22] post-training: (a) LoRA-SFT and (b) LoRA-DPO of LLAMA3_8B '
+    phase('[10/23] post-training: (a) LoRA-SFT and (b) LoRA-DPO of LLAMA3_8B '
           'at 32 layers, (c) GRPO on LLAMA_1B, (d) the entry points')
     gc.collect()
     torch.cuda.empty_cache()
@@ -8299,13 +8519,13 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
-    phase('[11/22] Mixtral-8x7B widths, random bf16 weights: (a) 16 of 32 '
+    phase('[11/23] Mixtral-8x7B widths, random bf16 weights: (a) 16 of 32 '
           'layers served, (c) LoRA-SFT of that base, (b) trained at depth 2')
     gc.collect()
     torch.cuda.empty_cache()
     mixtral_path(counters, paths)
 
-    phase('[12/22] HF checkpoints written in HF\'s layout and loaded by '
+    phase('[12/23] HF checkpoints written in HF\'s layout and loaded by '
           'convert.load_hf_model: (a) Gemma-7B and (b) Qwen2.5-1.5B at '
           'their published widths served, 12b LoRA-SFT in process and '
           'through train_sft --hf-model, (c) Gemma-7B served with spec_k 12 '
@@ -8327,35 +8547,35 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
-    phase('[13/22] ResNet: (a) ResNet18Thin one SGD step card vs host, (b) '
+    phase('[13/23] ResNet: (a) ResNet18Thin one SGD step card vs host, (b) '
           'train_resnet\'s path, ResNet50 at batch 256 of 224x224')
     gc.collect()
     torch.cuda.empty_cache()
     resnet_parity()
     resnet_train_path()
 
-    phase('[14/22] prefix cache, host tier and handoff at LLAMA3_8B bf16, '
-          '16 of 32 layers: (a) prefix reuse, (b) the host tier, (c) the '
+    phase('[14/23] prefix cache, host tier and handoff at LLAMA3_8B bf16, '
+          '8 of 32 layers: (a) prefix reuse, (b) the host tier, (c) the '
           'prefill -> decode handoff in bf16 and int8 KV, (d) debug-size '
           'parity card vs host')
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    # LLAMA3_8B's widths at 16 of its 32 layers (cut for the run's time;
+    # LLAMA3_8B's widths at 8 of its 32 layers (cut for the run's time;
     # the budgets follow the KV bytes a token), random from phase 5's
     # seed; phase 15 serves the same cut.
-    cfg16 = dataclasses.replace(cfg, n_layers=16)
+    cfg8 = dataclasses.replace(cfg, n_layers=8)
     params = llama.init_params(
-        cfg16, torch.Generator(device='cuda').manual_seed(0), 'cuda')
+        cfg8, torch.Generator(device='cuda').manual_seed(0), 'cuda')
     torch.cuda.synchronize()
-    log(f'  LLAMA3_8B widths, 16 of 32 layers, bf16 random weights (phase '
+    log(f'  LLAMA3_8B widths, 8 of 32 layers, bf16 random weights (phase '
         f'5\'s seed) in {time.perf_counter() - t0:.1f} s')
     for sub, run in (('14a', lambda: prefix_reuse_path(params, counters,
-                                                       paths, cfg=cfg16)),
+                                                       paths, cfg=cfg8)),
                      ('14b', lambda: tier_path(params, counters, paths,
-                                               cfg=cfg16)),
+                                               cfg=cfg8)),
                      ('14c', lambda: [handoff_path(params, counters, paths,
-                                                   kv, cfg=cfg16)
+                                                   kv, cfg=cfg8)
                                       for kv in (None, 'int8')])):
         t0 = time.perf_counter()
         run()
@@ -8367,8 +8587,8 @@ def main() -> int:
     prefix_parity()
     log(f'  14d: {time.perf_counter() - t0:.1f} s')
 
-    phase('[15/22] telemetry and the entry points around the batcher at '
-          'LLAMA3_8B bf16, 16 of 32 layers in process, 32 in the children: '
+    phase('[15/23] telemetry and the entry points around the batcher at '
+          'LLAMA3_8B bf16, 8 of 32 layers in process, 32 in the children: '
           '(a) spans and the cost ledger on and off, (b) the OpenAI routes, '
           '(c) /v1/embeddings (encode), (d) batch_infer --resume, (e) '
           'eval_ppl')
@@ -8376,17 +8596,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     params = llama.init_params(
-        cfg16, torch.Generator(device='cuda').manual_seed(0), 'cuda')
+        cfg8, torch.Generator(device='cuda').manual_seed(0), 'cuda')
     torch.cuda.synchronize()
-    log(f'  LLAMA3_8B widths, 16 of 32 layers, bf16 random weights (phase '
+    log(f'  LLAMA3_8B widths, 8 of 32 layers, bf16 random weights (phase '
         f'5\'s seed) in {time.perf_counter() - t0:.1f} s')
     t0 = time.perf_counter()
-    served, span_buf = telemetry_path(params, counters, paths, cfg=cfg16)
+    served, span_buf = telemetry_path(params, counters, paths, cfg=cfg8)
     log(f'  15a: {time.perf_counter() - t0:.1f} s')
     for sub, run in (('15b', lambda: openai_path(served, span_buf, counters,
-                                                 paths, cfg=cfg16)),
+                                                 paths, cfg=cfg8)),
                      ('15c', lambda: embeddings_path(served, counters,
-                                                     paths, cfg=cfg16))):
+                                                     paths, cfg=cfg8))):
         t0 = time.perf_counter()
         run()
         log(f'  {sub}: {time.perf_counter() - t0:.1f} s')
@@ -8405,7 +8625,7 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
-    phase('[16/22] tensor-parallel serving, rank processes sharing cuda:0 '
+    phase('[16/23] tensor-parallel serving, rank processes sharing cuda:0 '
           'over gloo: (a) collectives, (b) LLAMA3_8B tp 2 (bf16, int8 KV, '
           'spec_k + fuse_budget) at 12 layers and an f32 config vs tp 1, '
           '(c) LLAMA3_70B widths at 4 layers, tp 4, (d) Qwen2.5-1.5B tp 4 '
@@ -8426,7 +8646,7 @@ def main() -> int:
             log(f'  {sub}: {time.perf_counter() - t0:.1f} s')
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
-    phase('[17/22] training meshes, rank processes sharing cuda:0 over '
+    phase('[17/23] training meshes, rank processes sharing cuda:0 over '
           'gloo: (a) LLAMA_1B bf16 fsdp 2 x tp 2 vs one card, (b) f32 at '
           'dp 2 x fsdp 2 and fsdp 2 x tp 2, (c) LLAMA3_8B widths at 2 '
           'layers, fsdp 4, (d) train_long_context sp 4 (ring attention) at '
@@ -8439,7 +8659,7 @@ def main() -> int:
         mesh_training_path(paths, scratch)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
-    phase('[18/22] pipelines and post-training meshes, rank processes '
+    phase('[18/23] pipelines and post-training meshes, rank processes '
           'sharing cuda:0 over gloo: (a) LLAMA_1B bf16 pp 2 x dp 2, (b) f32 '
           'at pp 4 and pp 2 x fsdp 2, (c) pp 2 x sp 2 at 2 x 4096, (d) '
           'LoRA-SFT and LoRA-DPO of LLAMA3_8B widths at fsdp 2 x tp 2 with '
@@ -8458,22 +8678,22 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     close_rank_pools()
-    phase('[19/22] the serving fleet (serve/traffic/simulator.py) over the '
+    phase('[19/23] the serving fleet (serve/traffic/simulator.py) over the '
           'port\'s batchers: (a) least_load and prefix_affinity, (b) kill + '
           'preempt and stall + partition, (c) disaggregated prefill, (d) '
           'the doctor and the SLO autoscaler; LLAMA_DEBUG f32 on the card '
-          '(and (b) on the host), then LLAMA3_8B bf16 at 8 layers')
+          '(and (b) on the host), then LLAMA3_8B bf16 at 4 layers')
     gc.collect()
     torch.cuda.empty_cache()
     fleet_path(paths, counters)
-    phase('[20/22] the compile-budget audit (analysis/audit.py): (a) '
+    phase('[20/23] the compile-budget audit (analysis/audit.py): (a) '
           'run_audit on the card with real graphs, (b) the graph budgets '
           'of phases 5-7\'s batchers, (c) a decode chunk that reads '
           'int(token[0]) must fail it')
     gc.collect()
     torch.cuda.empty_cache()
     audit_path(budgets)
-    phase("[21/22] a tick's host syncs, held against the linter: (a) "
+    phase("[21/23] a tick's host syncs, held against the linter: (a) "
           'python -m skypilot_tpu_torch.analysis --json --graph-stats as a '
           'child, (b) the sync census of 32 warm ticks of a graphed '
           '8-slot batcher at LLAMA3_8B\'s widths, 4 of its 32 layers')
@@ -8483,7 +8703,7 @@ def main() -> int:
     log(f'  21a: the lint as a child in {lint_s:.1f} s: exit 0, '
         f'{baselined} baselined findings, graph {json.dumps(graph)}')
     _need('21', paths['21'], [c.__name__ for c in (k1, k2, k3)])
-    phase('[22/22] Gemma fine-tuning: (a) Gemma-7B widths at 4 of 28 layers, '
+    phase('[22/23] Gemma fine-tuning: (a) Gemma-7B widths at 4 of 28 layers, '
           '1 x 4096, through Trainer.fit, (b) a Gemma-like hd-256 config in '
           'bf16 card vs host, (c) train_llama --hf-model on a 2-layer '
           'Gemma-7B-width checkpoint as a child')
@@ -8502,6 +8722,13 @@ def main() -> int:
             log(f'  {sub}: {time.perf_counter() - t0:.1f} s')
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
+    phase('[23/23] the port\'s bench (skypilot_tpu_torch/bench.py) at its '
+          'card shapes: the training headline, bench_decode, bench_spec, '
+          'bench_prefix_reuse, build_headline')
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths['23'] = bench_path(counters, headline_8a)
+    _need('23', paths['23'], [c.__name__ for c in (k1, k2, k3, k4v)])
     last_phase_done()
     log(f'  whole run: {time.perf_counter() - run_start:.1f} s')
     # Phase 22's launches: K2 (all with its lse), K5 and K6 at Gemma-7B's
@@ -8576,7 +8803,7 @@ def main() -> int:
                   or key in phase14 or key in decode15 or key in legacy18
                   or key.startswith('19')]
         route += [(c, 'tc') for c in (k4v, k4f)
-                  if key[0] == '6' or key in gemma12c]
+                  if key[0] == '6' or key in gemma12c or key == '23']
         for c, r in route:
             if launches[f'{c.__name__}[{r}]'] != launches[c.__name__]:
                 raise AssertionError(
@@ -8601,7 +8828,7 @@ def main() -> int:
     # Phase 17's K2 launches are its lse entries' (train rows below), its
     # K3 launches the per-rank widths' entries.
     rest = tuple(k for k in paths if k not in hf and k not in tp16
-                 and not k.startswith(('17', '18', '19', '22')))
+                 and not k.startswith(('17', '18', '19', '22', '23')))
     # Phase 19's 8B arms: K1 and K2 at the fleet's shapes (the disagg
     # arms prefill in chunked windows: no K2), K3 at 4096.
     fleet19 = tuple(k for k in paths if k.startswith('19'))
@@ -8612,7 +8839,9 @@ def main() -> int:
         entry(decode['LLAMA3_70B tp4 rank'], k1, ('16c',)),
         entry(decode['Qwen2.5-1.5B tp4 rank'], k1, ('16d',)),
         entry(decode['LLAMA3_8B fleet'], k1, fleet19),
-        entry(decode['g2'], k1, ('10c', '18d-grpo')),
+        # Phase 23's K1 launches (LLAMA_1B's G 2; bench_decode's int8
+        # variants among them) with 10c's shape.
+        entry(decode['g2'], k1, ('10c', '18d-grpo', '23')),
         entry(decode['gemma'], k1, ('12a', '12c-bf16')),
         entry(decode['int8 gemma'], k1, ('12c-int8',)),
         entry(decode['qwen'], k1, ('12b',)),
@@ -8624,7 +8853,8 @@ def main() -> int:
         entry(shared['int8'], k1, ('14c-int8',)),
         # 18d's DPO references and GRPO rollouts run K2 without its lse
         # as 10b and 10c do.
-        entry(flash['flash_attention'], k2, rest + ('18d-dpo', '18d-grpo')),
+        entry(flash['flash_attention'], k2, rest + ('18d-dpo', '18d-grpo',
+                                                    '23')),
         entry(flash['flash_attention[Gemma-7B hd256]'], k2,
               ('12a',) + gemma12c),
         entry(flash['flash_attention[Qwen2.5-1.5B G6 prefill]'], k2,
@@ -8641,7 +8871,8 @@ def main() -> int:
                                                    '18d-dpo') + legacy18
               + fleet19),
         entry(norm['rms_norm[LLAMA_1B d2048]'], k3, ('17a', '17d', '18a',
-                                                     '18c', '18d-grpo')),
+                                                     '18c', '18d-grpo',
+                                                     '23')),
         entry(norm['rms_norm[MoE small d1024]'], k3,
               ('17e-ep4', '17e-ep2dp2', '18e')),
         entry(norm['rms_norm[Gemma-7B]'], k3, ('12a',) + gemma22 + gemma12c),
@@ -8650,6 +8881,8 @@ def main() -> int:
         entry(window_rank['verify', 'bf16'], k4v, ('16b-spec',)),
         entry(window_rank['fused', 'bf16'], k4f, ('16b-spec',)),
         entry(window['verify', 'bf16'], k4v, ('6a',)),
+        # Phase 23's verify windows: bench_spec's, bf16 on the tensor cores.
+        entry(window_1b['verify', 'bf16'], k4v, ('23',)),
         entry(window['fused', 'bf16'], k4f, ('6a',)),
         entry(window['verify', 'int8'], k4v, ('6b',)),
         entry(window['fused', 'int8'], k4f, ('6b',)),
@@ -8675,7 +8908,7 @@ def main() -> int:
     kernels.append(dict(decode['combine'],
                         launches=sum(split_paths.values()),
                         launches_by_path=split_paths))
-    for key, keys in (('combine g2', ('10c', '18d-grpo')),
+    for key, keys in (('combine g2', ('10c', '18d-grpo', '23')),
                       ('combine gemma', ('12a',) + gemma12c),
                       ('combine qwen', ('12b',)),
                       ('combine LLAMA3_8B tp2 rank', ('16b', '16b-spec',
@@ -8688,7 +8921,7 @@ def main() -> int:
                             launches_by_path=by_path))
     # K4's combine runs inside every split launch of K4.
     window_split = {k: sum(paths[k][f'{c.__name__}[split]']
-                           for c in (k4v, k4f)) for k in ('6a', '6b')}
+                           for c in (k4v, k4f)) for k in ('6a', '6b', '23')}
     kernels.append(dict(window['combine'],
                         launches=sum(window_split.values()),
                         launches_by_path=window_split))

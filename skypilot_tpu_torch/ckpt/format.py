@@ -349,6 +349,47 @@ def _elements(spec: SliceSpec) -> int:
     return n
 
 
+def even_row_shard(key: str, global_shape, process_index: int,
+                   process_count: int) -> Optional[SliceSpec]:
+    """The canonical sharded layout: partition axis 0 evenly across the
+    process grid.  Leaves whose leading axis does not divide evenly are
+    written whole by one deterministic owner (replicated for readers).
+    None means this process owns no window of the leaf."""
+    import zlib
+    if process_count <= 1:
+        return full_slice(global_shape)
+    shape = tuple(int(d) for d in global_shape)
+    if shape and shape[0] >= process_count and shape[0] % process_count == 0:
+        rows = shape[0] // process_count
+        spec = full_slice(shape)
+        spec[0] = (process_index * rows, (process_index + 1) * rows)
+        return spec
+    # Un-partitionable leaf: deterministic owner by key hash (stable
+    # across processes, unlike builtins.hash).
+    owner = zlib.crc32(key.encode()) % process_count
+    return full_slice(shape) if owner == process_index else None
+
+
+def even_row_windows(pytree, process_index: int, process_count: int):
+    """`pytree` with each leaf given as process `process_index`'s
+    even_row_shard window, a :class:`Shard`: on save the owned windows
+    are written (the layout the JAX package writes with
+    ``shard_spec=even_row_shard``), on restore each comes back as its
+    window.  A leaf this process does not own is the whole leaf with
+    owner=False (written by its one owner, read whole)."""
+    named, treedef = flatten_with_keys(pytree)
+    leaves = []
+    for key, leaf in named:
+        shape = tuple(int(d) for d in np.shape(leaf))
+        window = even_row_shard(key, shape, process_index, process_count)
+        owned = window is not None
+        window = window or full_slice(shape)
+        local = leaf[tuple(slice(a, b) for a, b in window)] if shape \
+            else leaf
+        leaves.append(Shard(local, shape, window, owned))
+    return tree_unflatten(treedef, leaves)
+
+
 def write_process_shards(root: str, step: int, pytree,
                          process_index: int = 0,
                          process_count: int = 1) -> Dict[str, Any]:

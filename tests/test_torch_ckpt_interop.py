@@ -3,7 +3,9 @@ written by the JAX package (skypilot_tpu.ckpt, the JAX Trainer on the
 8-device CPU mesh) restores bitwise in the port (skypilot_tpu_torch.ckpt,
 its Trainer), and the reverse; the same state gives the same manifest
 entries and byte-identical shard files; sharded writes of 2 simulated
-processes restore whole and resharded either way; resume_envs agree; and
+processes restore whole and resharded either way, and 4 processes in
+even_row_shard's layout write byte-identical files in both packages;
+resume_envs agree; and
 the port's train_fit steplog record has the JAX record's keys.
 
 Cases: LLAMA_DEBUG with (f32 params, mu f32), (bf16 params, mu bf16),
@@ -179,23 +181,6 @@ def test_port_checkpoint_restores_bitwise_into_jax(case, tmp_path):
     j_tr.close()
 
 
-def _even_rows(tree, p, n):
-    """Process p's windows of `tree` in the JAX package's even_row_shard
-    layout, as the port gives them: Shard leaves (a leaf whose rows do
-    not split is whole, written by its one crc-picked owner)."""
-    named, treedef = t_format.flatten_with_keys(tree)
-    leaves = []
-    for key, leaf in named:
-        shape = tuple(leaf.shape)
-        window = j_format.even_row_shard(key, shape, p, n)
-        owned = window is not None
-        window = window or t_format.full_slice(shape)
-        leaves.append(t_format.Shard(
-            leaf[tuple(slice(a, b) for a, b in window)], shape, window,
-            owned))
-    return t_format.tree_unflatten(treedef, leaves)
-
-
 def _write_two_processes(fmt, root, tree):
     for p in range(2):
         if fmt is j_format:
@@ -203,7 +188,8 @@ def _write_two_processes(fmt, root, tree):
                                      process_count=2,
                                      shard_spec=fmt.even_row_shard)
         else:
-            fmt.write_process_shards(str(root), 3, _even_rows(tree, p, 2),
+            fmt.write_process_shards(str(root), 3,
+                                     t_format.even_row_windows(tree, p, 2),
                                      process_index=p, process_count=2)
     fmt.commit(str(root), 3, process_count=2)
 
@@ -213,9 +199,9 @@ def _resharded(fmt, root, template):
         return [fmt.restore_pytree_resharded(
             str(root), 3, template, shard_spec=fmt.even_row_shard,
             process_index=q, process_count=2) for q in range(2)]
-    return [fmt.restore_pytree_resharded(str(root), 3,
-                                         _even_rows(template, q, 2))
-            for q in range(2)]
+    return [fmt.restore_pytree_resharded(
+        str(root), 3, t_format.even_row_windows(template, q, 2))
+        for q in range(2)]
 
 
 def test_sharded_writes_cross_the_packages(case, tmp_path):
@@ -259,6 +245,76 @@ def test_resume_envs_agree(case, tmp_path):
     assert t_ckpt.resume_envs(str(tmp_path)) == want
     for root in ('', 'gs://bucket/x', str(tmp_path / 'empty')):
         assert t_ckpt.resume_envs(root) == j_ckpt.resume_envs(root) == {}
+
+
+@pytest.mark.parametrize('reader', ['jax', 'torch'])
+def test_even_row_shard_four_processes_cross_the_packages(case, reader,
+                                                          tmp_path):
+    """The same state written by 4 simulated processes in even_row_shard's
+    layout, by the JAX package (shard_spec=even_row_shard) and by the
+    port (its own even_row_shard, as even_row_windows' Shard leaves):
+    byte-identical shard files and per-process manifests, the same
+    merged entries; then `reader` restores the other package's
+    checkpoint through restore_pytree_resharded, whole and as the 4
+    processes' windows, bitwise."""
+    j_tr = case['j_tr']
+    tr = _t_trainer(case['tcfg'], case['mu_dtype'], case['init'])
+    _copy_jax_state_into(tr, j_tr)
+    j_state, t_state = j_tr._state_dict(), tr._state_dict()
+    n = 4
+    for key, leaf in t_format.flatten_with_keys(t_state)[0]:
+        shape = tuple(np.shape(leaf))
+        for p in range(n):
+            assert t_format.even_row_shard(key, shape, p, n) == \
+                j_format.even_row_shard(key, shape, p, n), key
+    roots = {'jax': tmp_path / 'jax', 'torch': tmp_path / 'torch'}
+    for p in range(n):
+        j_format.write_process_shards(str(roots['jax']), 5, j_state,
+                                      process_index=p, process_count=n,
+                                      shard_spec=j_format.even_row_shard)
+        t_format.write_process_shards(
+            str(roots['torch']), 5, t_format.even_row_windows(t_state, p, n),
+            process_index=p, process_count=n)
+    j_format.commit(str(roots['jax']), 5, process_count=n)
+    t_format.commit(str(roots['torch']), 5, process_count=n)
+    j_dir, t_dir = roots['jax'] / 'step_5', roots['torch'] / 'step_5'
+    names = sorted(f.name for f in j_dir.iterdir()
+                   if f.name != j_format.MANIFEST)
+    assert names == sorted(f.name for f in t_dir.iterdir()
+                           if f.name != t_format.MANIFEST)
+    assert sum(name.startswith('manifest-p') for name in names) == n
+    for name in names:
+        assert (j_dir / name).read_bytes() == (t_dir / name).read_bytes(), \
+            name
+    j_entries = j_format.load_manifest(str(roots['jax']), 5)['entries']
+    t_entries = t_format.load_manifest(str(roots['torch']), 5)['entries']
+    assert [{k: e[k] for k in ENTRY_KEYS} for e in j_entries] == \
+        [{k: e[k] for k in ENTRY_KEYS} for e in t_entries]
+    if reader == 'jax':
+        root, fmt, template, want = roots['torch'], j_format, j_state, j_state
+        whole = fmt.restore_pytree_resharded(str(root), 5, template)
+        windows = [fmt.restore_pytree_resharded(
+            str(root), 5, template, shard_spec=fmt.even_row_shard,
+            process_index=q, process_count=n) for q in range(n)]
+    else:
+        root, fmt, template, want = roots['jax'], t_format, t_state, j_state
+        whole = fmt.restore_pytree_resharded(str(root), 5, template)
+        windows = [fmt.restore_pytree_resharded(
+            str(root), 5, t_format.even_row_windows(template, q, n))
+            for q in range(n)]
+    _assert_states_equal(want, whole)
+    named = fmt.flatten_with_keys(template)[0]
+    flat = [fmt.flatten_with_keys(w)[0] for w in windows]
+    for i, (key, leaf) in enumerate(named):
+        parts = [w[i][1] for w in flat]
+        rows = leaf.shape[0] if leaf.ndim else 0
+        if rows >= n and rows % n == 0:
+            joined = (torch.cat(parts) if fmt is t_format
+                      else np.concatenate([np.asarray(x) for x in parts]))
+            assert _bits(joined) == _bits(leaf), key
+        else:
+            assert all(_bits(x) == _bits(leaf) for x in parts), key
+    tr.close()
 
 
 def test_train_fit_steplog_record_has_the_jax_keys(tmp_path, monkeypatch):

@@ -133,7 +133,8 @@ def test_scan_covers_the_training_modules():
             'scripts/torch_flash_bwd_bench.py',
             'scripts/torch_gemma_train_smoke.py',
             'scripts/torch_window_bench.py',
-            'scripts/torch_gemma_serve_smoke.py'} <= scanned
+            'scripts/torch_gemma_serve_smoke.py',
+            'skypilot_tpu_torch/bench.py'} <= scanned
 
 
 def test_rank_workers_of_the_mesh_tests_import_no_jax():
